@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's LM serving path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's LM serving and training paths on one NVIDIA
+GPU and check them.
 
     python3 chip_smoke.py            # every phase, from the repo root
 
@@ -16,22 +17,40 @@ Phases (any failure exits non-zero, and no result line is printed):
              timed with CUDA events against the plain version, one
              ``scaled_dot_product_attention`` call over the gathered
              history (a yardstick the port never calls) and its bound.
-4. serve   — `ContinuousLMServer` at ``gpt2_small(max_len=1024)`` width in
+4. flash   — the flash-attention forward, dK/dV and dQ kernels against
+             their plain versions in f32 on the same inputs (B=2, H=12,
+             D=64; S 1024 and 1000; causal and not; float32 and bfloat16;
+             relative max error <= 1e-4 / 2e-2), and at S=1024 causal
+             timed against the plain versions, SDPA (forward; forward +
+             backward for the backward pair) and their bounds.
+5. serve   — `ContinuousLMServer` at ``gpt2_small(max_len=1024)`` width in
              bfloat16 (random weights from a numpy seed), 12 concurrent
              requests sharing a 128-token prefix; checks completion, vocab
              range, prefix hits, the chunk program, kernel launches =
              n_layers x dispatches and the page ledger; then one request
              through the HTTP front (`UiServer`, ``POST /lm/generate``).
-5. parity  — float32 at full width: served greedy tokens against the
-             argmax of the plain full-recompute forward (`apply`) on the
-             card, teacher-forced; a near-tie (top-2 gap < 1e-3) ends the
+6. parity  — float32 at full width: served greedy tokens against the
+             argmax of the plain full-recompute forward (`_forward` with
+             the plain `attention`, no kernel in it) on the card,
+             teacher-forced; a near-tie (top-2 gap < 1e-3) ends the
              comparison of that request and is reported.
+7. train   — `make_accum_train_step` at ``gpt2_small(max_len=1024)`` in
+             bfloat16 compute with f32 masters, Adam, global batch 8 x
+             1024 in 4 microbatches: 2 warm-up and 5 timed steps; checks
+             finite, falling losses, f32 masters, flash launches per step
+             (forward 2 x layers x accum with remat, each backward kernel
+             layers x accum); float32 loss and gradients through the
+             kernels against the plain-attention forward (relative 1e-3);
+             then ``cli lm -preset gpt2-small`` on this repository's prose,
+             its saved LM served by `UiServer` and one greedy
+             ``POST /lm/generate`` checked against the plain forward.
 
 Prints the ``kernels`` JSON line, then the ``nvidia-smi`` card line, then
 ``{"ok": true, "device": {...}}`` as the last line.  ``--only`` runs a
-subset of phases (facts and build always run); ``--profile`` traces the
-serve phase's load with ``torch.profiler`` and adds device time by kernel
-and the device's idle share to the ``serve`` line.
+subset of phases (facts and build always run), e.g. ``--only
+flash,train``; ``--profile`` traces the serve phase's load and the
+train phase's timed steps with ``torch.profiler`` and adds device time by
+kernel group and the device's idle share to their lines.
 """
 
 from __future__ import annotations
@@ -52,7 +71,7 @@ KERNEL_SOURCE = "deeplearning4j_tpu_torch/csrc/paged_attention.cu"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_OPS = {"float32": 67e12,      # fp32 outside the tensor cores
             "bfloat16": 989e12}    # bf16 dense tensor-core peak
-PHASES = ("kernel", "serve", "parity")
+PHASES = ("kernel", "flash", "serve", "parity", "train")
 
 
 def log(msg: str) -> None:
@@ -222,15 +241,166 @@ def kernel_case(c: int, dtype_name: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 4: the serving slice in bfloat16 at full width
+# phase 4: the flash-attention kernels against their plain versions
+
+FLASH_SOURCE = "deeplearning4j_tpu_torch/csrc/flash_attention.cu"
+# name -> (the TPU kernel it replaces, products of 2 S^2 D B H flops each)
+FLASH_KERNELS = {
+    "flash_fwd": ("deeplearning4j_tpu/parallel/kernels.py:95", 2),
+    "flash_bwd_dkv": ("deeplearning4j_tpu/parallel/kernels.py:197", 4),
+    "flash_bwd_dq": ("deeplearning4j_tpu/parallel/kernels.py:254", 3),
+}
+FLASH_B, FLASH_H, FLASH_D = 2, 12, 64   # one microbatch of the train phase
+
+
+def flash_bound(name: str, b: int, s: int, h: int, d: int, causal: bool,
+                dtype_name: str) -> dict:
+    """The least time the card needs for one kernel's work: the larger of
+    its bytes (each input read once, each output written once) over the
+    memory rate and its flops (causal: half the score matrix) over the
+    dtype's peak."""
+    x = b * s * h * d * (4 if dtype_name == "float32" else 2)
+    stat = b * h * s * 4                              # one [B*H, S] f32
+    nbytes = {"flash_fwd": 4 * x + stat,              # q k v in, out, lse
+              "flash_bwd_dkv": 6 * x + 2 * stat,      # q k v dO, dk dv
+              "flash_bwd_dq": 5 * x + 2 * stat}[name]
+    ops = FLASH_KERNELS[name][1] * 2 * s * s * d * b * h
+    if causal:
+        ops //= 2
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dtype_name] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops}
+
+
+def rel_err(got, want) -> float:
+    want = want.float()
+    return float((got.float() - want).abs().max() / want.abs().max())
+
+
+def flash_case(s: int, causal: bool, dtype_name: str, timed: bool) -> dict:
+    """The three kernels on one input against their plain versions in f32
+    on the same inputs (the backward pair gets the kernel's own lse and
+    delta, so every kernel is held on identical inputs)."""
+    import torch
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.parallel import kernels as fk
+
+    dtype = getattr(torch, dtype_name)
+    b, h, d = FLASH_B, FLASH_H, FLASH_D
+    rng = np.random.default_rng(1000 * s + int(causal))
+    q, k, v, g = (torch.from_numpy(rng.standard_normal(
+        (b, s, h, d), np.float32)).to("cuda", dtype) for _ in range(4))
+    out, lse = fk.flash_forward(q, k, v, causal)
+    delta = fk.row_delta(g, out)
+    dk, dv = fk.flash_bwd_dkv(q, k, v, g, lse, delta, causal)
+    dq = fk.flash_bwd_dq(q, k, v, g, lse, delta, causal)
+    torch.cuda.synchronize()
+    f32 = [x.float() for x in (q, k, v, g)]
+    want_out, want_lse = fk.flash_forward_plain(*f32[:3], causal)
+    want_dq, want_dk, want_dv = fk.flash_bwd_block_plain(*f32, lse, delta,
+                                                         causal)
+    pairs = {"out": (out, want_out), "lse": (lse, want_lse),
+             "dq": (dq, want_dq), "dk": (dk, want_dk), "dv": (dv, want_dv)}
+    rel = {n: rel_err(a, w) for n, (a, w) in pairs.items()}
+    absolute = {n: float((a.float() - w.float()).abs().max())
+                for n, (a, w) in pairs.items()}
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    bad = {n: e for n, e in rel.items() if not math.isfinite(e) or e > tol}
+    if bad:
+        raise AssertionError(f"flash S={s} causal={causal} {dtype_name}: "
+                             f"relative max error {bad} > {tol}")
+    case = {"S": s, "causal": causal, "dtype": dtype_name,
+            "shape": dict(B=b, S=s, H=h, D=d), "tolerance": tol,
+            "max_rel_err": rel, "max_abs_err": absolute}
+    if not timed:
+        return case
+    # one SDPA call as the yardstick (the port never calls it): its
+    # forward for the forward kernel, its forward + backward for the pair
+    qh, kh, vh, gh = (x.transpose(1, 2).contiguous() for x in (q, k, v, g))
+    qr, kr, vr = (x.detach().requires_grad_() for x in (qh, kh, vh))
+
+    def sdpa_fwd():
+        F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal)
+        torch.autograd.grad(o, (qr, kr, vr), gh)
+
+    runs = {
+        "flash_fwd": (lambda: fk.flash_forward(q, k, v, causal),
+                      lambda: fk.flash_forward_plain(q, k, v, causal),
+                      sdpa_fwd),
+        "flash_bwd_dkv": (
+            lambda: fk.flash_bwd_dkv(q, k, v, g, lse, delta, causal),
+            lambda: fk.flash_bwd_dkv_plain(q, k, v, g, lse, delta, causal),
+            sdpa_fwd_bwd),
+        "flash_bwd_dq": (
+            lambda: fk.flash_bwd_dq(q, k, v, g, lse, delta, causal),
+            lambda: fk.flash_bwd_dq_plain(q, k, v, g, lse, delta, causal),
+            sdpa_fwd_bwd),
+    }
+    case["timing"] = {}
+    for name, (kern, plain, library) in runs.items():
+        plain_ms = cuda_ms(plain, iters=10, warmup=2)
+        kernel_ms = cuda_ms(kern, iters=50)
+        library_ms = cuda_ms(library, iters=50)
+        kernel_ms_2 = cuda_ms(kern, iters=50)
+        plain_ms_2 = cuda_ms(plain, iters=10, warmup=1)
+        case["timing"][name] = {
+            "kernel_ms": min(kernel_ms, kernel_ms_2),
+            "kernel_ms_runs": [kernel_ms, kernel_ms_2],
+            "plain_ms": min(plain_ms, plain_ms_2),
+            "plain_ms_runs": [plain_ms, plain_ms_2],
+            "library_ms": library_ms,
+            **flash_bound(name, b, s, h, d, causal, dtype_name)}
+    return case
+
+
+def flash_phase(card: str) -> list:
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cases = []
+    for s in (1024, 1000):
+        for causal in (True, False):
+            for dt in ("float32", "bfloat16"):
+                case = flash_case(s, causal, dt,
+                                  timed=(s == 1024 and causal))
+                cases.append(case)
+                log(f"flash: S={s} causal={causal} {dt}: relative err "
+                    + ", ".join(f"{n} {e:.3g}"
+                                for n, e in case["max_rel_err"].items()))
+                for name, t in case.get("timing", {}).items():
+                    log(f"flash: {name} S={s} {dt}: kernel "
+                        f"{t['kernel_ms']:.4f} ms, plain "
+                        f"{t['plain_ms']:.4f} ms, sdpa "
+                        f"{t['library_ms']:.4f} ms, bound "
+                        f"{t['bound_ms']:.4f} ms ({t['bound_by']}) "
+                        f"({card})")
+    return cases
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the serving slice in bfloat16 at full width
 
 
 def device_breakdown(prof, wall_s: float, dispatches: int) -> dict:
-    """Device time by kernel from a `torch.profiler` run over the serving
-    load: the busy share of the wall clock, and per kernel name its
-    total, per-dispatch time and share of the busy time."""
+    """Device time by kernel from a `torch.profiler` run over a load
+    (serving dispatches or train steps): the busy share of the wall
+    clock, device time by kernel group, and per kernel name its total and
+    share of the busy time."""
+    from torch.autograd import DeviceType
+
     rows = []
     for ev in prof.key_averages():
+        # device events only: a CPU op (aten::mm, an autograd node) also
+        # carries its kernels' device time, which would count them twice
+        if (getattr(ev, "device_type", None) != DeviceType.CUDA
+                or getattr(ev, "is_user_annotation", False)):
+            continue
         dev_us = getattr(ev, "self_device_time_total", None)
         if dev_us is None:
             dev_us = getattr(ev, "self_cuda_time_total", 0)
@@ -241,8 +411,10 @@ def device_breakdown(prof, wall_s: float, dispatches: int) -> dict:
 
     def group(name: str) -> str:
         low = name.lower()
-        if "paged_attention" in low:
-            return "paged_attention"
+        for kernel in ("paged_attention", "flash_fwd", "flash_bwd_dkv",
+                       "flash_bwd_dq"):
+            if kernel in low:
+                return kernel
         if any(s in low for s in ("gemm", "gemv", "cutlass", "xmma",
                                   "splitk", "matmul", "nvjet")):
             return "matmul"
@@ -258,6 +430,8 @@ def device_breakdown(prof, wall_s: float, dispatches: int) -> dict:
         "device_busy_ms": busy_us / 1e3,
         "device_idle_share": max(0.0, 1.0 - busy_us / 1e3 / (wall_s * 1e3)),
         "per_dispatch_busy_ms": busy_us / 1e3 / max(dispatches, 1),
+        "device_events_per_dispatch": (sum(r[2] for r in rows)
+                                       / max(dispatches, 1)),
         "groups_ms": {k: v / 1e3 for k, v in sorted(groups.items())},
         "top": [{"kernel": key[:90], "ms": us / 1e3, "calls": n,
                  "share_of_busy": us / busy_us if busy_us else 0.0}
@@ -404,14 +578,15 @@ def serve_phase(tree, card: str, profile: bool = False) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 5: float32 teacher-forced parity at full width
+# phase 6: float32 teacher-forced parity at full width
 
 
 def parity_phase(tree) -> dict:
     import torch
 
     from deeplearning4j_tpu_torch.parallel.transformer import (
-        apply,
+        _forward,
+        attention,
         gpt2_small,
         params_from_numpy,
     )
@@ -455,8 +630,9 @@ def parity_phase(tree) -> dict:
             seq = results.get(name)
             if seq is None:
                 raise AssertionError(f"parity: {name} did not finish")
-            logits = apply(cfg, params, torch.tensor([seq],
-                                                     device="cuda"))[0]
+            logits = _forward(cfg, params, torch.tensor([seq],
+                                                        device="cuda"),
+                              attention)[0]
             top2 = logits.float().topk(2, dim=-1)
             checked, tie = 0, None
             for p in range(len(prompt), len(seq)):
@@ -483,13 +659,270 @@ def parity_phase(tree) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# phase 7: GPT-2-small training in bf16 compute with f32 masters
+
+
+TRAIN_ACCUM, TRAIN_BATCH, TRAIN_SEQ = 4, 8, 1024
+TRAIN_WARMUP, TRAIN_STEPS = 2, 5
+SERVE_PROMPT, SERVE_NEW = 48, 32        # the trained LM's served request
+
+
+def grad_parity(tree, tokens, targets) -> dict:
+    """float32 at full width, accum 1, B = 2: the loss and every gradient
+    through the flash kernels against the plain-attention `_forward` on
+    the card (relative max error).  A key bias's exact gradient is zero
+    (softmax is shift-invariant within a row), so its error is taken
+    relative to the query bias gradient of the same layer."""
+    import dataclasses
+
+    import torch
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.parallel import transformer as tfm
+    from deeplearning4j_tpu_torch.parallel.hybrid import _master_f32
+    from deeplearning4j_tpu_torch.tree import flatten_tree
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(tfm.gpt2_small(max_len=TRAIN_SEQ),
+                              dtype="float32")
+    params = _master_f32(tfm.params_from_numpy(tree, device="cuda"))
+    flat = flatten_tree(params)
+    names, leaves = list(flat), list(flat.values())
+    tok, tgt = tokens[:2], targets[:2]
+    loss_k = tfm.lm_loss(cfg, params, tok, tgt)
+    grads_k = torch.autograd.grad(loss_k, leaves)
+    logits = tfm._forward(cfg, params, tok, tfm.attention)
+    loss_p = -F.log_softmax(logits, dim=-1).gather(
+        -1, tgt[..., None])[..., 0].mean()
+    del logits
+    grads_p = torch.autograd.grad(loss_p, leaves)
+    scale = dict(zip(names, (float(g.abs().max()) for g in grads_p)))
+    worst, worst_name = 0.0, None
+    for name, gk, gp in zip(names, grads_k, grads_p):
+        denom = scale[name.replace("//bk", "//bq")]
+        err = float((gk - gp).abs().max()) / denom
+        if not math.isfinite(err) or err > worst:
+            worst, worst_name = err, name
+    loss_k, loss_p = float(loss_k.detach()), float(loss_p.detach())
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    out = {"loss_kernel": loss_k, "loss_plain": loss_p,
+           "loss_rel_err": loss_err, "grad_max_rel_err": worst,
+           "grad_worst_leaf": worst_name, "leaves": len(leaves)}
+    if not loss_err <= 1e-3 or not worst <= 1e-3:
+        raise AssertionError(f"train: f32 kernels vs plain attention "
+                             f"disagree: {out}")
+    return out
+
+
+def cli_round_trip(card: str) -> dict:
+    """`python -m deeplearning4j_tpu_torch.cli lm` on this repository's
+    prose at gpt2-small width, then its saved LM served by the port's
+    `UiServer`: one greedy ``POST /lm/generate`` whose tokens must match
+    the argmax of the plain-attention forward (teacher-forced, f32)."""
+    import glob
+    import os
+    import re
+    import tempfile
+
+    import torch
+
+    from deeplearning4j_tpu_torch.cli import load_saved_lm
+    from deeplearning4j_tpu_torch.parallel.transformer import (
+        _forward,
+        attention,
+    )
+    from deeplearning4j_tpu_torch.ui.server import UiServer
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-lm-") as tmp:
+        corpus = os.path.join(tmp, "corpus.txt")
+        with open(corpus, "wb") as f:
+            for path in ["README.md"] + sorted(glob.glob("docs/*.md")):
+                with open(path, "rb") as src:
+                    f.write(src.read())
+        out_dir = os.path.join(tmp, "lm")
+        cmd = [sys.executable, "-m", "deeplearning4j_tpu_torch.cli", "lm",
+               "-input", corpus, "-output", out_dir, "-preset",
+               "gpt2-small", "-seq", str(TRAIN_SEQ), "-batch",
+               str(TRAIN_BATCH), "-accum", str(TRAIN_ACCUM), "-eval",
+               "README.md"]
+        t0 = time.perf_counter()
+        run = subprocess.run(cmd, capture_output=True, text=True,
+                             timeout=900)
+        cli_s = time.perf_counter() - t0
+        if run.returncode != 0:
+            raise AssertionError(f"train: the lm CLI exited "
+                                 f"{run.returncode}:\n{run.stdout}\n"
+                                 f"{run.stderr[-4000:]}")
+        trained = re.search(r"Trained (\d+) steps \(final loss ([\d.]+), "
+                            r"(\d+) tokens/sec\)", run.stdout)
+        ev = re.search(r"nll ([\d.]+), perplexity ([\d.]+)", run.stdout)
+        if not trained or not ev:
+            raise AssertionError(f"train: unexpected CLI output:\n"
+                                 f"{run.stdout}")
+        cfg, params = load_saved_lm(out_dir, device="cuda")
+    steps, final, rate = (int(trained.group(1)), float(trained.group(2)),
+                          int(trained.group(3)))
+    nll, ppl = float(ev.group(1)), float(ev.group(2))
+    if not (math.isfinite(final) and math.isfinite(ppl)) or ppl >= 256:
+        raise AssertionError(f"train: CLI loss {final}, perplexity {ppl}")
+    log(f"train: cli lm: {steps} steps, final loss {final}, {rate} "
+        f"tokens/s, held-out nll {nll}, perplexity {ppl}, {cli_s:.1f} s "
+        f"({card})")
+    ui = UiServer(port=0).serve_lm(cfg, params, slots=2, page_size=16,
+                                   prefill_chunk=16, device="cuda").start()
+    try:
+        with open("README.md", "rb") as f:
+            prompt = list(f.read()[:SERVE_PROMPT])
+        body = json.dumps({"prompt_ids": prompt,
+                           "max_new_tokens": SERVE_NEW}).encode()
+        req = urllib.request.Request(
+            ui.url + "/lm/generate", data=body,
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            ids = json.loads(resp.read())["ids"]
+    finally:
+        ui.stop()
+    if ids[:len(prompt)] != prompt or len(ids) != len(prompt) + SERVE_NEW or \
+            not \
+            all(0 <= t < cfg.vocab_size for t in ids):
+        raise AssertionError(f"train: served ids malformed: {ids}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    with torch.no_grad():
+        logits = _forward(cfg, params, torch.tensor([ids], device="cuda"),
+                          attention)[0]
+    top2 = logits.float().topk(2, dim=-1)
+    checked, tie = 0, None
+    for p in range(len(prompt), len(ids)):
+        gap = float(top2.values[p - 1, 0] - top2.values[p - 1, 1])
+        if gap < 1e-3:
+            tie = {"position": p, "gap": gap}
+            break
+        if int(top2.indices[p - 1, 0]) != ids[p]:
+            raise AssertionError(f"train: served token {p} = {ids[p]}, the "
+                                 f"checker's argmax is "
+                                 f"{int(top2.indices[p - 1, 0])}")
+        checked += 1
+    log(f"train: served the trained LM: {checked} greedy tokens match the "
+        f"plain forward" + (f" (stopped at near-tie {tie})" if tie else ""))
+    return {"steps": steps, "final_loss": final, "tokens_per_s": rate,
+            "eval_nll": nll, "eval_perplexity": ppl, "wall_s": cli_s,
+            "served_tokens_checked": checked, "near_tie": tie,
+            "served_text": bytes(ids[len(prompt):]).decode("latin-1")}
+
+
+def train_phase(card: str, profile: bool = False) -> dict:
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel import kernels as fk
+    from deeplearning4j_tpu_torch.parallel import transformer as tfm
+    from deeplearning4j_tpu_torch.parallel.hybrid import (
+        _master_f32,
+        make_accum_train_step,
+    )
+    from deeplearning4j_tpu_torch.tree import tree_leaves
+
+    cfg = tfm.gpt2_small(max_len=TRAIN_SEQ)             # bf16 compute
+    tree = tfm.numpy_params(cfg, seed=0)
+    rng = np.random.default_rng(3)
+    data = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))).cuda()
+    tokens, targets = data[:, :-1], data[:, 1:]
+    params = _master_f32(tfm.params_from_numpy(tree, device="cuda"))
+    step, init_state = make_accum_train_step(cfg, lr=1e-3,
+                                             accum=TRAIN_ACCUM,
+                                             updater="adam")
+    opt = init_state(params)
+    losses = []
+    for _ in range(TRAIN_WARMUP):
+        params, opt, loss = step(params, opt, tokens, targets)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = {"flash_fwd": fk.flash_forward.launches,
+                "flash_bwd_dkv": fk.flash_bwd_dkv.launches,
+                "flash_bwd_dq": fk.flash_bwd_dq.launches}
+    for c in counters.values():
+        c.reset()
+    prof = None
+    if profile:
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+        prof.__enter__()
+    step_ms = []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        ts = time.perf_counter()
+        params, opt, loss = step(params, opt, tokens, targets)
+        losses.append(float(loss))                      # waits for the step
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+    wall = time.perf_counter() - t0
+    if prof is not None:
+        prof.__exit__(None, None, None)
+    launches = {n: c.value for n, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"train: losses {losses}")
+    dtypes = {str(p.dtype) for p in tree_leaves(params)}
+    if dtypes != {"torch.float32"}:
+        raise AssertionError(f"train: masters are {dtypes} after training")
+    per_step = cfg.n_layers * TRAIN_ACCUM
+    want = {"flash_fwd": 2 * per_step * TRAIN_STEPS,       # remat: twice
+            "flash_bwd_dkv": per_step * TRAIN_STEPS,
+            "flash_bwd_dq": per_step * TRAIN_STEPS}
+    if launches != want:
+        raise AssertionError(f"train: launches {launches}, expected {want}")
+    tokens_per_step = TRAIN_BATCH * TRAIN_SEQ
+    out = {
+        "card": card, "config": "gpt2_small(max_len=1024), bf16 compute, "
+        "f32 masters, adam lr 1e-3", "accum": TRAIN_ACCUM,
+        "global_batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "warmup_steps": TRAIN_WARMUP, "steps": TRAIN_STEPS,
+        "losses": losses, "step_ms": step_ms,
+        "step_ms_mean": wall * 1e3 / TRAIN_STEPS,
+        "tokens_per_s": tokens_per_step * TRAIN_STEPS / wall,
+        "peak_memory_bytes": peak, "launches": launches,
+        "launches_per_step": {n: v / TRAIN_STEPS
+                              for n, v in launches.items()},
+    }
+    log(f"train: step {out['step_ms_mean']:.1f} ms, "
+        f"{out['tokens_per_s']:.0f} tokens/s, peak memory "
+        f"{peak / 2**30:.2f} GiB, losses {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} ({card})")
+    if prof is not None:
+        bd = device_breakdown(prof, wall, TRAIN_STEPS)
+        flash_ms = sum(bd["groups_ms"].get(n, 0.0) for n in counters)
+        bd["flash_share_of_busy"] = (flash_ms / bd["device_busy_ms"]
+                                     if bd["device_busy_ms"] else 0.0)
+        out["profile"] = bd
+        log(f"train: profile: busy {bd['device_busy_ms']:.1f} ms of "
+            f"{bd['wall_ms']:.1f} ms wall, idle share "
+            f"{bd['device_idle_share']:.3f}, flash share of busy "
+            f"{bd['flash_share_of_busy']:.3f}, groups {bd['groups_ms']} "
+            f"({card})")
+    del params, opt
+    torch.cuda.empty_cache()
+    out["f32_parity"] = grad_parity(tree, tokens, targets)
+    log(f"train: f32 kernels vs plain attention: loss rel err "
+        f"{out['f32_parity']['loss_rel_err']:.3g}, worst gradient rel err "
+        f"{out['f32_parity']['grad_max_rel_err']:.3g} "
+        f"({out['f32_parity']['grad_worst_leaf']})")
+    torch.cuda.empty_cache()
+    out["cli"] = cli_round_trip(card)
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
     ap.add_argument("--profile", action="store_true",
-                    help="trace the serve phase's load with torch.profiler "
-                    "and print device time by kernel (slows the load)")
+                    help="trace the serve load and the timed train steps "
+                    "with torch.profiler and print device time by kernel "
+                    "(slows both)")
     args = ap.parse_args(argv)
     phases = [p for p in args.only.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -539,8 +972,9 @@ def main(argv=None) -> int:
                     f"{case['library_ms']:.4f} ms, bound "
                     f"{case['bound_ms']:.4f} ms ({card})")
         kernels_line = cases
+    flash = flash_phase(card) if "flash" in phases else None
     tree = None
-    serve = parity = None
+    serve = parity = train = None
     if "serve" in phases or "parity" in phases:
         from deeplearning4j_tpu_torch.parallel.transformer import (
             gpt2_small,
@@ -552,14 +986,17 @@ def main(argv=None) -> int:
         serve = serve_phase(tree, card, profile=args.profile)
     if "parity" in phases:
         parity = parity_phase(tree)
+    if "train" in phases:
+        train = train_phase(card, profile=args.profile)
 
+    entries = []
     if kernels_line is not None:
         main_case = next(c for c in kernels_line
                          if c["C"] == 1 and c["dtype"] == "bfloat16")
         launches = serve["kernel_launches"] if serve else 0
         per_dispatch = (launches / serve["dispatches"]
                         if serve and serve["dispatches"] else None)
-        entry = {
+        entries.append({
             "name": "paged_attention", "route": "cuda",
             "source": KERNEL_SOURCE, "replaces": KERNEL_REPLACES,
             "launches": launches,
@@ -573,12 +1010,45 @@ def main(argv=None) -> int:
             "library_ms": main_case["library_ms"],
             "shape": main_case["shape"], "dtype": "bfloat16",
             "cases": kernels_line,
-        }
-        print(json.dumps({"kernels": [entry]}), flush=True)
+        })
+    if flash is not None:
+        # the train phase's shape: S = 1024, causal, bf16
+        main_case = next(c for c in flash if c["S"] == 1024 and c["causal"]
+                         and c["dtype"] == "bfloat16")
+        err_of = {"flash_fwd": ("out", "lse"), "flash_bwd_dkv": ("dk", "dv"),
+                  "flash_bwd_dq": ("dq",)}
+        for kname, (replaces, _) in FLASH_KERNELS.items():
+            t = main_case["timing"][kname]
+            launches = train["launches"][kname] if train else 0
+            entries.append({
+                "name": kname, "route": "cuda", "source": FLASH_SOURCE,
+                "replaces": replaces, "launches": launches,
+                "launches_per_step": (launches / train["steps"]
+                                      if train else None),
+                "max_abs_err": max(main_case["max_abs_err"][n]
+                                   for n in err_of[kname]),
+                "max_rel_err": max(main_case["max_rel_err"][n]
+                                   for n in err_of[kname]),
+                "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                "library": ("scaled_dot_product_attention forward"
+                            if kname == "flash_fwd" else
+                            "scaled_dot_product_attention forward + "
+                            "backward"),
+                "shape": main_case["shape"], "causal": True,
+                "dtype": "bfloat16",
+                "cases": [{k: v for k, v in c.items() if k != "timing"}
+                          for c in flash],
+            })
+    if entries:
+        print(json.dumps({"kernels": entries}), flush=True)
     if serve is not None:
         print(json.dumps({"serve": serve}), flush=True)
     if parity is not None:
         print(json.dumps({"parity": parity}), flush=True)
+    if train is not None:
+        print(json.dumps({"train": train}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)

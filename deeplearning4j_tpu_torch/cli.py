@@ -1,87 +1,53 @@
 """Command line of the port (subset of `deeplearning4j_tpu.cli`).
 
+    python -m deeplearning4j_tpu_torch.cli lm -input <text> [-output dir]
+        [-preset gpt2-small] [-seq 128] [-batch 8] [-accum 1] [-epochs 1]
+        [-lr 3e-3] [-updater adam] [-eval <text>] [-device cuda|cpu]
+
+trains the byte-level TransformerLM on a text file and saves it as
+``lm_config.json`` + ``lm_params.npz`` (the JAX package's ``dl4j lm``
+layout; either package loads the other's).
+
     python -m deeplearning4j_tpu_torch.cli serve -lm <dir> [-port 8080]
         [-lm-slots 4] [-page-size 16] [-lm-pages 0] [-prefill-chunk 8]
         [-device cuda|cpu]
 
-serves the LM saved in `<dir>` by the JAX package's ``dl4j lm`` (an
-``lm_config.json`` + ``lm_params.npz`` pair) over HTTP: ``POST
-/lm/generate``, ``GET /serving/stats``, ``/healthz``, ``/readyz``.  The
-device defaults to the card; SIGTERM drains in-flight work and stops.
+serves a saved LM over HTTP: ``POST /lm/generate``, ``GET
+/serving/stats``, ``/healthz``, ``/readyz``.  The device defaults to the
+card; SIGTERM drains in-flight work and stops.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import pathlib
 import signal
 import sys
 import threading
-from typing import Dict, List, Optional
+import time
+from typing import List, Optional
 
 import numpy as np
 
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.parallel.transformer import (
     TransformerConfig,
-    param_shapes,
+    gpt2_large,
+    gpt2_medium,
+    gpt2_small,
     params_from_numpy,
 )
+from deeplearning4j_tpu_torch.runtime.checkpoint import read_lm_npz
 
-# keypath separator of the JAX package's npz checkpoints
-KEYPATH_SEP = "//"
-
-
-def _flatten(tree, prefix: str = "") -> Dict[str, object]:
-    if isinstance(tree, dict):
-        items = tree.items()
-    elif isinstance(tree, list):
-        items = ((str(i), v) for i, v in enumerate(tree))
-    else:
-        return {prefix: tree}
-    out = {}
-    for k, v in items:
-        out.update(_flatten(v, f"{prefix}{KEYPATH_SEP}{k}" if prefix
-                            else str(k)))
-    return out
-
-
-def read_lm_npz(path: pathlib.Path, cfg: TransformerConfig) -> dict:
-    """An ``lm_params.npz`` written by the JAX package (keys are
-    ``//``-joined keypaths such as ``layers//0//attn//wq``; bf16 leaves
-    are stored as float32) -> the numpy parameter tree, checked leaf by
-    leaf against `cfg`'s shapes."""
-    shapes = param_shapes(cfg)
-    flat_shapes = _flatten(shapes)
-    with np.load(path) as npz:
-        flat = {k: npz[k] for k in npz.files}
-    missing = sorted(set(flat_shapes) - set(flat))
-    extra = sorted(set(flat) - set(flat_shapes))
-    if missing or extra:
-        raise ValueError(f"{path}: parameters do not match the config "
-                         f"(missing {missing[:5]}, unexpected {extra[:5]})")
-    for key, want in flat_shapes.items():
-        if tuple(flat[key].shape) != tuple(want):
-            raise ValueError(f"{path}: {key} has shape "
-                             f"{tuple(flat[key].shape)}, the config needs "
-                             f"{tuple(want)}")
-
-    def fill(tree, prefix=""):
-        if isinstance(tree, dict):
-            return {k: fill(v, f"{prefix}{KEYPATH_SEP}{k}" if prefix
-                            else k) for k, v in tree.items()}
-        if isinstance(tree, list):
-            return [fill(v, f"{prefix}{KEYPATH_SEP}{i}")
-                    for i, v in enumerate(tree)]
-        return np.asarray(flat[prefix], np.float32)
-
-    return fill(shapes)
+PRESETS = {"gpt2-small": gpt2_small, "gpt2-medium": gpt2_medium,
+           "gpt2-large": gpt2_large}
 
 
 def load_saved_lm(out: pathlib.Path, device=None):
-    """Load an LM saved by the JAX package's ``dl4j lm`` -> (cfg, params
-    on `device` in the config dtype)."""
+    """Load an LM saved by the ``lm`` command of either package -> (cfg,
+    params on `device` in the config dtype)."""
     out = pathlib.Path(out)
     cfg_path, params_path = out / "lm_config.json", out / "lm_params.npz"
     if not cfg_path.exists():
@@ -134,6 +100,131 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def _refuse_unported(args) -> None:
+    """The `lm` options whose code paths are not ported yet."""
+    if args.experts:
+        raise SystemExit(f"-experts {args.experts}: MoE layers are not "
+                         f"ported yet (ROADMAP.md, queue A2, 'MoE "
+                         f"transformer layers')")
+    if args.runtime != "local":
+        raise SystemExit(f"-runtime {args.runtime}: only the local runtime "
+                         f"is ported (ROADMAP.md, queue A7, 'Multi-device')")
+    if args.generate is not None or args.beam > 1:
+        raise SystemExit("-generate/-beam: whole-sequence decoding is not "
+                         "ported yet (ROADMAP.md, queue A4.2); serve the "
+                         "saved LM with `serve -lm` instead")
+
+
+def _lm_config(args, seq: int) -> TransformerConfig:
+    """The `lm` command's model: a preset at byte-level vocab, or the
+    -d-model/-layers/-heads model, with float32 parameters."""
+    if args.preset:
+        return dataclasses.replace(
+            PRESETS[args.preset](max_len=seq, dtype="float32"),
+            vocab_size=256)
+    return TransformerConfig(vocab_size=256, d_model=args.d_model,
+                             n_heads=args.heads, n_layers=args.layers,
+                             d_ff=4 * args.d_model, max_len=seq)
+
+
+def _lm_eval(path: str, cfg: TransformerConfig, params) -> float:
+    """Held-out byte-level NLL through `apply`: the mean over at most 64
+    non-overlapping `cfg.max_len` windows, 8 windows per batch."""
+    import torch
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.parallel.transformer import apply
+
+    ev_ids = np.frombuffer(pathlib.Path(path).read_bytes(),
+                           np.uint8).astype(np.int64)
+    s_ev = cfg.max_len
+    if len(ev_ids) < s_ev + 1:
+        raise SystemExit(f"-eval file too short for seq_len {s_ev}")
+    n_win = min((len(ev_ids) - 1) // s_ev, 64)
+    tok = np.stack([ev_ids[i * s_ev:(i + 1) * s_ev] for i in range(n_win)])
+    tgt = np.stack([ev_ids[i * s_ev + 1:(i + 1) * s_ev + 1]
+                    for i in range(n_win)])
+    dev = params["embed"].device
+    total = 0.0
+    with torch.no_grad():
+        for i in range(0, n_win, 8):
+            t = torch.from_numpy(tok[i:i + 8]).to(dev)
+            g = torch.from_numpy(tgt[i:i + 8]).to(dev)
+            logp = F.log_softmax(apply(cfg, params, t, train=False), dim=-1)
+            nll = -logp.gather(-1, g[..., None])[..., 0].mean()
+            total += len(t) * float(nll)
+    nll = total / n_win
+    print(f"eval: {n_win} windows x {s_ev} bytes, nll {nll:.4f}, "
+          f"perplexity {float(np.exp(nll)):.2f}")
+    return nll
+
+
+def cmd_lm(args) -> int:
+    """Train the TransformerLM on a raw text file (byte-level vocab,
+    causal LM) and save it, or load a saved one; ``-eval`` then reports
+    the held-out perplexity.  The counterpart of the JAX package's
+    ``dl4j lm`` with the local runtime: the same config, the same
+    batches (numpy ``default_rng(0)``), f32 master parameters with
+    bfloat16 compute on the card and float32 on the CPU."""
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel.hybrid import (
+        _master_f32,
+        make_accum_train_step,
+    )
+    from deeplearning4j_tpu_torch.parallel.transformer import init_params
+    from deeplearning4j_tpu_torch.runtime.checkpoint import tree_to_npz
+
+    _refuse_unported(args)
+    device = resolve_device(args.device)
+    out = pathlib.Path(args.output or "dl4j-lm")
+    if not args.input:
+        if not (out / "lm_config.json").exists():
+            raise SystemExit(f"no -input and no saved LM at {out}")
+        cfg, params = load_saved_lm(out, device=device)
+    else:
+        ids = np.frombuffer(pathlib.Path(args.input).read_bytes(),
+                            np.uint8).astype(np.int64)
+        S, B = args.seq, args.batch
+        if len(ids) < S + 2:
+            raise SystemExit(f"input too short for -seq {S}")
+        if args.accum > 1 and B % args.accum:
+            raise SystemExit(f"-batch {B} must be divisible by -accum "
+                             f"{args.accum}")
+        cfg = _lm_config(args, S)
+        compute_cfg = (dataclasses.replace(cfg, dtype="bfloat16")
+                       if device.type == "cuda" else cfg)
+        params = _master_f32(init_params(
+            cfg, generator=torch.Generator().manual_seed(0), device=device))
+        step, init_opt = make_accum_train_step(
+            compute_cfg, lr=args.lr, accum=args.accum, updater=args.updater)
+        opt_state = init_opt(params)
+        rng = np.random.default_rng(0)
+        steps = max(1, args.epochs * (len(ids) // max(B * S, 1)))
+        t0, loss = time.time(), None
+        for k in range(steps):
+            starts = rng.integers(0, len(ids) - S - 1, B)
+            tokens = np.stack([ids[s:s + S] for s in starts])
+            targets = np.stack([ids[s + 1:s + S + 1] for s in starts])
+            params, opt_state, loss = step(params, opt_state,
+                                           torch.from_numpy(tokens),
+                                           torch.from_numpy(targets))
+            if args.verbose and (k + 1) % 20 == 0:
+                print(f"step {k + 1}/{steps} loss {float(loss):.4f}")
+        final = float(loss)               # waits for the last step
+        tok_rate = steps * B * S / max(time.time() - t0, 1e-9)
+        print(f"Trained {steps} steps (final loss {final:.4f}, "
+              f"{tok_rate:.0f} tokens/sec)")
+        out.mkdir(parents=True, exist_ok=True)
+        (out / "lm_config.json").write_text(
+            json.dumps(dataclasses.asdict(cfg)))
+        tree_to_npz(out / "lm_params.npz", params)   # atomic write
+        print(f"LM saved to {out}")
+    if args.eval is not None:
+        _lm_eval(args.eval, cfg, params)
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         prog="deeplearning4j_tpu_torch",
@@ -162,6 +253,47 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-drain-grace-s", "--drain-grace-s",
                    dest="drain_grace_s", type=float, default=5.0)
     p.set_defaults(func=cmd_serve)
+
+    p = sub.add_parser("lm", help="train a TransformerLM on raw text "
+                       "and save it")
+    p.add_argument("-input", "--input", default=None,
+                   help="raw text file (omit to load a saved LM)")
+    p.add_argument("-output", "--output", default=None,
+                   help="save/load directory (default dl4j-lm)")
+    p.add_argument("-epochs", "--epochs", type=int, default=1)
+    p.add_argument("-batch", "--batch", type=int, default=8)
+    p.add_argument("-seq", "--seq", type=int, default=128)
+    p.add_argument("-preset", "--preset", choices=sorted(PRESETS),
+                   default=None, help="config preset (small 768/12/12, "
+                   "medium 1024/16/24, large 1280/20/36; tied embeddings, "
+                   "remat) overriding -d-model/-layers/-heads")
+    p.add_argument("-accum", "--accum", type=int, default=1,
+                   help="gradient-accumulation microbatches per step")
+    p.add_argument("-d-model", "--d-model", dest="d_model", type=int,
+                   default=128)
+    p.add_argument("-layers", "--layers", type=int, default=2)
+    p.add_argument("-heads", "--heads", type=int, default=4)
+    p.add_argument("-lr", "--lr", type=float, default=3e-3)
+    p.add_argument("-updater", "--updater", default="adam",
+                   choices=["sgd", "adam", "adamw", "lion", "rmsprop",
+                            "adagrad", "nesterovs"])
+    p.add_argument("-eval", "--eval", default=None,
+                   help="report byte-level perplexity on this held-out "
+                   "text file")
+    p.add_argument("-verbose", "--verbose", action="store_true")
+    p.add_argument("-device", "--device", default=None,
+                   help="cuda (default) or cpu")
+    # accepted so that a JAX command line fails with the reason
+    p.add_argument("-experts", "--experts", type=int, default=0,
+                   help="not ported (MoE)")
+    p.add_argument("-runtime", "--runtime", default="local",
+                   choices=["local", "spmd", "hybrid", "pipeline"],
+                   help="only local is ported")
+    p.add_argument("-generate", "--generate", nargs="?", const="",
+                   default=None, metavar="PROMPT", help="not ported")
+    p.add_argument("-beam", "--beam", type=int, default=1,
+                   help="not ported")
+    p.set_defaults(func=cmd_lm)
     return parser
 
 

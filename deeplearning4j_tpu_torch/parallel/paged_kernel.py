@@ -25,29 +25,10 @@ from typing import Optional
 
 import torch
 
-from deeplearning4j_tpu_torch.parallel.kernels import mask_value
-
-
-class LaunchCounter:
-    """Launches of one kernel: the wrapper adds one per kernel launch."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._n = 0
-
-    def add(self, n: int = 1) -> None:
-        with self._lock:
-            self._n += n
-
-    def reset(self) -> None:
-        with self._lock:
-            self._n = 0
-
-    @property
-    def value(self) -> int:
-        with self._lock:
-            return self._n
-
+from deeplearning4j_tpu_torch.parallel.kernels import (
+    LaunchCounter,
+    mask_value,
+)
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _lib_lock = threading.Lock()

@@ -7,9 +7,11 @@ same arrays: ``wq``/``wk``/``wv`` are ``[d, H, K]``, ``wo`` is
 ``embed.T``).  The projections reshape those layouts to plain matrix
 products internally.
 
-`apply` is the full-recompute scoring forward with plain causal
-attention; it is the checker the paged serving path is held against.
-Dense configs only: MoE layers are not ported yet (ROADMAP.md, queue A,
+`apply` is the full-recompute forward through the flash-attention
+kernels and `lm_loss` the training loss on top of it; `_forward` takes
+the attention as an argument, and with the plain `attention` it is the
+kernel-free checker the paged serving path is held against.  Dense
+configs only: MoE layers are not ported yet (ROADMAP.md, queue A,
 "MoE transformer layers").
 """
 
@@ -22,11 +24,11 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from deeplearning4j_tpu_torch.device import DeviceLike, resolve_device
-
-# Score mask of the plain attention (the JAX `ring_attention.NEG_INF`).
-NEG_INF = -1e30
+from deeplearning4j_tpu_torch.parallel.kernels import NEG_INF, flash_attention
+from deeplearning4j_tpu_torch.tree import map_tree
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
@@ -196,15 +198,6 @@ def param_shapes(cfg: TransformerConfig) -> dict:
                       scale=lambda a, c: a)
 
 
-def map_tree(fn: Callable, tree):
-    """Apply `fn` to every leaf of a dict/list parameter tree."""
-    if isinstance(tree, dict):
-        return {k: map_tree(fn, v) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [map_tree(fn, v) for v in tree]
-    return fn(tree)
-
-
 def params_from_numpy(tree: dict, device: DeviceLike = None,
                       dtype=None) -> dict:
     """The weight carry-over: a JAX parameter tree as numpy arrays (same
@@ -297,20 +290,56 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (o / lsum.clamp_min(1e-30)[..., None]).to(q.dtype)
 
 
-def apply(cfg: TransformerConfig, params: dict,
-          tokens: torch.Tensor) -> torch.Tensor:
-    """tokens [B, S] int -> logits [B, S, V]: the full-recompute causal
-    forward, the scoring checker of the serving path."""
+def _forward(cfg: TransformerConfig, params: dict, tokens,
+             attn: Callable) -> torch.Tensor:
+    """tokens [B, S] int -> logits [B, S, V] with `attn(q, k, v)` as the
+    attention of every block.  With ``cfg.remat`` and grad enabled, each
+    block is recomputed in the backward (`torch.utils.checkpoint`, the
+    counterpart of ``jax.checkpoint(block)``)."""
     require_dense(cfg)
     tokens = torch.as_tensor(tokens, device=params["embed"].device)
+
+    def block(layer, x):
+        q, k, v = qkv_proj(layer["attn"], _layer_norm(layer["ln1"], x))
+        x = x + out_proj(layer["attn"], attn(q, k, v))
+        return x + _mlp(layer["mlp"], _layer_norm(layer["ln2"], x))
+
+    remat = cfg.remat and torch.is_grad_enabled()
     s = tokens.shape[1]
     x = params["embed"][tokens] + params["pos"][None, :s, :]
     for layer in params["layers"]:
-        q, k, v = qkv_proj(layer["attn"], _layer_norm(layer["ln1"], x))
-        x = x + out_proj(layer["attn"], attention(q, k, v, causal=True))
-        x = x + _mlp(layer["mlp"], _layer_norm(layer["ln2"], x))
+        if remat:
+            x = checkpoint(block, layer, x, use_reentrant=False)
+        else:
+            x = block(layer, x)
     x = _layer_norm(params["ln_f"], x)
     return x @ lm_head(params)
+
+
+def apply(cfg: TransformerConfig, params: dict, tokens,
+          causal: bool = True, train: bool = False,
+          return_aux: bool = False):
+    """tokens [B, S] int -> logits [B, S, V] through the flash-attention
+    kernels (`kernels.flash_attention`; the plain version on CPU
+    tensors), as the JAX package runs on the TPU.  `train` selects MoE
+    routing in JAX and changes nothing for the dense configs ported
+    here; `return_aux` also returns the (zero) MoE auxiliary loss."""
+    logits = _forward(cfg, params, tokens,
+                      lambda q, k, v: flash_attention(q, k, v, causal))
+    if return_aux:
+        return logits, torch.zeros((), dtype=logits.dtype,
+                                   device=logits.device)
+    return logits
+
+
+def lm_loss(cfg: TransformerConfig, params: dict, tokens,
+            targets) -> torch.Tensor:
+    """Mean next-token cross-entropy over the batch, with the log-softmax
+    taken in the logits' dtype (the JAX `lm_loss`)."""
+    logits = apply(cfg, params, tokens, train=True)
+    targets = torch.as_tensor(targets, device=logits.device).long()
+    logp = F.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, targets[..., None])[..., 0].mean()
 
 
 __all__ = [
@@ -323,6 +352,7 @@ __all__ = [
     "gpt2_small",
     "init_params",
     "lm_head",
+    "lm_loss",
     "map_tree",
     "numpy_params",
     "out_proj",

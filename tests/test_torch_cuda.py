@@ -1,9 +1,10 @@
-"""PyTorch port on an NVIDIA card: the hand-written CUDA kernel and the
-serving path that launches it.
+"""PyTorch port on an NVIDIA card: the hand-written CUDA kernels (paged
+attention; the flash-attention forward and its two backward kernels)
+and the serving and training paths that launch them.
 
 Every test carries the ``cuda`` marker and decides inside the test
-whether a card is present, skipping with a reason when not (the paged
-attention kernel is CUDA C++ with no CPU mode).  This file imports no
+whether a card is present, skipping with a reason when not (the kernels
+are CUDA C++ with no CPU mode).  This file imports no
 JAX, so on a machine with a card and without JAX it runs as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
@@ -14,6 +15,8 @@ import pytest
 import torch
 
 from deeplearning4j_tpu_torch import resolve_device
+from deeplearning4j_tpu_torch.parallel import hybrid as th
+from deeplearning4j_tpu_torch.parallel import kernels as tk
 from deeplearning4j_tpu_torch.parallel import paged_kernel as tpk
 from deeplearning4j_tpu_torch.parallel import transformer as tt
 from deeplearning4j_tpu_torch.serving import ContinuousLMServer
@@ -33,8 +36,8 @@ CASES = {
 
 def _need_card():
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: the paged-attention kernel is "
-                    "CUDA C++ with no CPU mode")
+        pytest.skip("needs an NVIDIA card: the kernels are CUDA C++ with "
+                    "no CPU mode")
 
 
 def _state(case, dtype, seed=0):
@@ -120,11 +123,130 @@ def test_server_on_the_card_matches_the_checker():
     assert launches == cfg.n_layers * stats["dispatches"] > 0
     with torch.no_grad():
         for prompt, seq in zip(prompts, outs):
-            logits = tt.apply(cfg, params, torch.tensor([seq],
-                                                        device="cuda"))[0]
+            logits = tt._forward(cfg, params,
+                                 torch.tensor([seq], device="cuda"),
+                                 tt.attention)[0]
             top2 = logits.topk(2, dim=-1)
             for p in range(len(prompt), len(seq)):
                 gap = float(top2.values[p - 1, 0] - top2.values[p - 1, 1])
                 if gap < 1e-3:
                     break
                 assert int(top2.indices[p - 1, 0]) == seq[p]
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+
+# (B, S, H, D): ragged tails (S not a multiple of the 64-row tile, S < 64,
+# S = 1), head dims that are not a multiple of 16, the largest D
+FLASH_CASES = {
+    "s1": (1, 1, 2, 16), "s37_d80": (2, 37, 3, 80), "s64_d64": (2, 64, 2, 64),
+    "s130_d16": (1, 130, 2, 16), "s200_d128": (1, 200, 2, 128),
+    "s257_d40": (2, 257, 1, 40),
+}
+
+
+def _flash_inputs(shape, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+            .to("cuda", dtype) for _ in range(4)]
+
+
+def _rel(got, want):
+    want = want.float()
+    return float((got.float() - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(FLASH_CASES))
+def test_flash_kernels_match_plain(name, dtype, causal):
+    """Forward, dK/dV and dQ kernels against the plain versions in f32 on
+    the same inputs (the backward pair on the kernel's own lse and
+    delta): relative max error 1e-4 in f32, 2e-2 in bf16 (the outputs'
+    rounding)."""
+    _need_card()
+    dt = getattr(torch, dtype)
+    q, k, v, g = _flash_inputs(FLASH_CASES[name], dt)
+    counters = (tk.flash_forward.launches, tk.flash_bwd_dkv.launches,
+                tk.flash_bwd_dq.launches)
+    before = [c.value for c in counters]
+    out, lse = tk.flash_forward(q, k, v, causal)
+    delta = tk.row_delta(g, out)
+    dq, dk, dv = tk.flash_bwd_block(q, k, v, g, lse, delta, causal)
+    torch.cuda.synchronize()
+    assert [c.value - b for c, b in zip(counters, before)] == [1, 1, 1]
+    assert out.dtype == dq.dtype == dk.dtype == dv.dtype == dt
+    f32 = [x.float() for x in (q, k, v, g)]
+    want_out, want_lse = tk.flash_forward_plain(*f32[:3], causal)
+    want = tk.flash_bwd_block_plain(*f32, lse, delta, causal)
+    tol = 1e-4 if dt == torch.float32 else 2e-2
+    assert _rel(lse, want_lse) <= 1e-5
+    for got, ref in zip((out, dq, dk, dv), (want_out, *want)):
+        if q.shape[1] == 1 and got is not out and got is not dv:
+            # one key: softmax is constant, so dq and dk are exactly 0
+            # and both sides hold rounding noise
+            assert float(got.float().abs().max()) <= 1e-6
+        else:
+            assert _rel(got, ref) <= tol
+
+
+def test_flash_attention_autograd_on_the_card_matches_plain_attention():
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, g = _flash_inputs((2, 100, 3, 32), torch.float32, seed=1)
+    grads = []
+    for fn in (tk.flash_attention, tt.attention):
+        leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+        out = fn(*leaves, True)
+        grads.append((out, *torch.autograd.grad(out, leaves, g)))
+    for a, b in zip(*grads):
+        assert _rel(a, b) <= 1e-4
+
+
+def test_flash_refuses_what_the_kernels_do_not_take():
+    """Checked before any launch: head dim above 128, fp16, a
+    non-contiguous view; nothing is counted."""
+    _need_card()
+    before = tk.flash_forward.launches.value
+    big = torch.zeros(1, 8, 1, 130, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        tk.flash_forward(big, big, big)
+    half = torch.zeros(1, 8, 1, 16, device="cuda", dtype=torch.float16)
+    with pytest.raises(TypeError, match="bfloat16"):
+        tk.flash_forward(half, half, half)
+    x = torch.zeros(1, 2, 8, 16, device="cuda").transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        tk.flash_forward(x, x, x)
+    assert tk.flash_forward.launches.value == before
+
+
+def test_train_step_on_the_card_launches_the_kernels():
+    """Two accumulated microbatches with remat: per layer and microbatch
+    two forward launches (the recompute) and one of each backward
+    kernel; the f32 masters stay f32 and the loss falls."""
+    _need_card()
+    cfg = tt.TransformerConfig(vocab_size=128, d_model=64, n_heads=2,
+                               n_layers=2, d_ff=128, max_len=80,
+                               attn_bias=True, tie_embeddings=True,
+                               remat=True, dtype="bfloat16")
+    params = th._master_f32(tt.params_from_numpy(tt.numpy_params(cfg),
+                                                 device="cuda"))
+    step, init = th.make_accum_train_step(cfg, lr=1e-3, accum=2,
+                                          updater="adam")
+    state = init(params)
+    rng = np.random.default_rng(0)
+    data = torch.from_numpy(rng.integers(0, 128, (4, 81))).cuda()
+    counters = (tk.flash_forward.launches, tk.flash_bwd_dkv.launches,
+                tk.flash_bwd_dq.launches)
+    before = [c.value for c in counters]
+    losses = []
+    for _ in range(3):
+        params, state, loss = step(params, state, data[:, :-1], data[:, 1:])
+        losses.append(float(loss))
+    per = cfg.n_layers * 2 * 3
+    assert [c.value - b for c, b in zip(counters, before)] == \
+        [2 * per, per, per]
+    assert losses[-1] < losses[0]
+    assert all(p.dtype == torch.float32 for p in params.values()
+               if isinstance(p, torch.Tensor))
