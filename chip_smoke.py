@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's LM serving and training paths on one NVIDIA
-GPU and check them.
+"""Drive the PyTorch port's LM serving and training paths and its
+char-LSTM `MultiLayerNetwork` on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # every phase, from the repo root
 
@@ -44,13 +44,31 @@ Phases (any failure exits non-zero, and no result line is printed):
              then ``cli lm -preset gpt2-small`` on this repository's prose,
              its saved LM served by `UiServer` and one greedy
              ``POST /lm/generate`` checked against the plain forward.
+8. lstm    — the fused LSTM scan kernel against its plain version on the
+             card over T {1, 64, 200} x B {1, 32, 33} x H {8, 37, 256,
+             1024}, float32 and bfloat16, with and without residuals
+             (relative max error of hs, cs, zs <= 1e-5 / 2e-2); f32
+             gradients through it against autograd through the plain
+             steps (relative 1e-4); at the char-LSTM shape (T 64, B 32,
+             H 256) timed against the plain version, its bound and
+             ``torch.nn.LSTM(80, 256)`` (cuDNN) forward over [64, 32, 80].
+9. rnn     — `MultiLayerNetwork(char_lstm(compute_dtype="bfloat16"))` at
+             full width (vocab 80, hidden 256), the bench_lstm recipe
+             (batch 32 x 64 one-hot characters, Adam lr 0.01): 3 warm-up
+             and 20 timed `fit_batch` steps, then 2 with ``accum_steps=2``;
+             checks finite, falling losses, f32 masters, one kernel launch
+             per layer and microbatch (with residuals); f32 loss and every
+             gradient through the kernel against ``fused=False`` (the
+             step-by-step scan) at relative 1e-4; `output`/`predict`
+             against the plain path (one launch per call, no residuals);
+             and a `save_model` / `load_model` round trip.
 
 Prints the ``kernels`` JSON line, then the ``nvidia-smi`` card line, then
 ``{"ok": true, "device": {...}}`` as the last line.  ``--only`` runs a
 subset of phases (facts and build always run), e.g. ``--only
-flash,train``; ``--profile`` traces the serve phase's load and the
-train phase's timed steps with ``torch.profiler`` and adds device time by
-kernel group and the device's idle share to their lines.
+lstm,rnn``; ``--profile`` traces the serve phase's load and the train
+and rnn phases' timed steps with ``torch.profiler`` and adds device time
+by kernel group and the device's idle share to their lines.
 """
 
 from __future__ import annotations
@@ -71,7 +89,7 @@ KERNEL_SOURCE = "deeplearning4j_tpu_torch/csrc/paged_attention.cu"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_OPS = {"float32": 67e12,      # fp32 outside the tensor cores
             "bfloat16": 989e12}    # bf16 dense tensor-core peak
-PHASES = ("kernel", "flash", "serve", "parity", "train")
+PHASES = ("kernel", "flash", "serve", "parity", "train", "lstm", "rnn")
 
 
 def log(msg: str) -> None:
@@ -412,7 +430,7 @@ def device_breakdown(prof, wall_s: float, dispatches: int) -> dict:
     def group(name: str) -> str:
         low = name.lower()
         for kernel in ("paged_attention", "flash_fwd", "flash_bwd_dkv",
-                       "flash_bwd_dq"):
+                       "flash_bwd_dq", "lstm_forward"):
             if kernel in low:
                 return kernel
         if any(s in low for s in ("gemm", "gemv", "cutlass", "xmma",
@@ -915,14 +933,355 @@ def train_phase(card: str, profile: bool = False) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the fused LSTM scan kernel against its plain version
+
+LSTM_SOURCE = "deeplearning4j_tpu_torch/csrc/lstm.cu"
+LSTM_REPLACES = "deeplearning4j_tpu/nn/layers/lstm_kernel.py:65"
+LSTM_T, LSTM_B, LSTM_H, LSTM_V = 64, 32, 256, 80   # the char-LSTM shape
+LSTM_LIBRARY = ("torch.nn.LSTM(80, 256) forward over [64, 32, 80] (cuDNN; "
+                "a vanilla LSTM with its input projection, no peepholes)")
+
+
+def lstm_inputs(t: int, b: int, h: int, dtype, seed: int = 0,
+                batch_major: bool = False):
+    """xz ~ N(0, 1), RW at the xavier scale of [H, 4H], peepholes
+    ~ N(0, 0.2), on the card; xz as [T, B, 4H] or as the transposed view
+    of a batch-major [B, T, 4H] tensor (the layer's layout)."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+
+    def rand(shape, scale):
+        return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                .astype(np.float32)).to("cuda", dtype)
+
+    xz = (rand((b, t, 4 * h), 1.0).transpose(0, 1) if batch_major
+          else rand((t, b, 4 * h), 1.0))
+    rw = rand((h, 4 * h), (2.0 / (5 * h)) ** 0.5)
+    return [xz, rw, rand((h,), 0.2), rand((h,), 0.2), rand((h,), 0.2)]
+
+
+def lstm_bound(t: int, b: int, h: int, dtype_name: str,
+               residuals: bool) -> dict:
+    """The least time for one launch's work: the bytes it must move (xz,
+    RW and the peepholes read once; hs, and with residuals cs and zs,
+    written once) over the memory rate, or its 2*T*B*H*4H flops over the
+    dtype's peak, whichever is larger.  The T steps are serial, which
+    neither term sees."""
+    item = 4 if dtype_name == "float32" else 2
+    nbytes = (t * b * 4 * h + h * 4 * h + 3 * h + t * b * h) * item
+    if residuals:
+        nbytes += (t * b * h + t * b * 4 * h) * 4
+    ops = 2 * t * b * h * 4 * h
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS[dtype_name] * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops}
+
+
+def lstm_phase(card: str) -> dict:
+    import torch
+
+    from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    worst = {"float32": 0.0, "bfloat16": 0.0}
+    worst_abs = {"float32": 0.0, "bfloat16": 0.0}
+    cases = 0
+    for t in (1, 64, 200):
+        for b in (1, 32, 33):
+            for h in (8, 37, 256, 1024):
+                for dt in ("float32", "bfloat16"):
+                    for res in (False, True):
+                        args = lstm_inputs(t, b, h, getattr(torch, dt),
+                                           seed=cases, batch_major=res)
+                        got = lk.fused_lstm_forward(*args, save_residuals=res)
+                        want = lk.fused_lstm_forward_plain(
+                            *args, save_residuals=res)
+                        torch.cuda.synchronize()
+                        errs = [rel_err(a, w) for a, w in zip(got, want)
+                                if w is not None]
+                        tol = 1e-5 if dt == "float32" else 2e-2
+                        if not all(math.isfinite(e) and e <= tol
+                                   for e in errs):
+                            raise AssertionError(
+                                f"lstm T={t} B={b} H={h} {dt} residuals="
+                                f"{res}: relative errors {errs} > {tol}")
+                        worst[dt] = max(worst[dt], *errs)
+                        worst_abs[dt] = max(worst_abs[dt], *(
+                            float((a.float() - w.float()).abs().max())
+                            for a, w in zip(got, want) if w is not None))
+                        cases += 1
+    log(f"lstm: {cases} cases, worst relative error f32 "
+        f"{worst['float32']:.3g}, bf16 {worst['bfloat16']:.3g}")
+
+    grads = {}
+    for t, b, h in ((LSTM_T, LSTM_B, LSTM_H), (200, 33, 37)):
+        args = lstm_inputs(t, b, h, torch.float32, seed=7, batch_major=True)
+        g = torch.from_numpy(np.random.default_rng(8).standard_normal(
+            (t, b, h)).astype(np.float32)).cuda()
+        res = []
+        for fn in (lk.fused_lstm_scan, lk.fused_lstm_scan_plain):
+            leaves = [a.detach().clone().requires_grad_() for a in args]
+            hs = fn(*leaves)
+            res.append(torch.autograd.grad(hs, leaves, g))
+        errs = {n: rel_err(a, w) for n, a, w in
+                zip(("xz", "rw", "pi", "pf", "po"), *res)}
+        if not all(math.isfinite(e) and e <= 1e-4 for e in errs.values()):
+            raise AssertionError(f"lstm gradients T={t} B={b} H={h}: "
+                                 f"relative errors {errs} > 1e-4")
+        grads[f"T{t}_B{b}_H{h}"] = errs
+    log(f"lstm: f32 gradients through the kernel vs the plain steps: "
+        f"{grads}")
+
+    lib_lstm = torch.nn.LSTM(LSTM_V, LSTM_H).cuda()
+    timing = {}
+    for dt in ("bfloat16", "float32"):
+        dtype = getattr(torch, dt)
+        args = lstm_inputs(LSTM_T, LSTM_B, LSTM_H, dtype, seed=9,
+                           batch_major=True)
+        lib_lstm.to(dtype)
+        lib_lstm.flatten_parameters()      # one cuDNN weight buffer
+        lib_x = torch.randn(LSTM_T, LSTM_B, LSTM_V, device="cuda",
+                            dtype=dtype)
+        with torch.no_grad():
+            library_ms = cuda_ms(lambda: lib_lstm(lib_x), iters=50)
+        for res in (True, False):
+            plain_ms = cuda_ms(lambda: lk.fused_lstm_forward_plain(
+                *args, save_residuals=res), iters=5, warmup=1)
+            kernel_ms = cuda_ms(lambda: lk.fused_lstm_forward(
+                *args, save_residuals=res), iters=50)
+            kernel_ms_2 = cuda_ms(lambda: lk.fused_lstm_forward(
+                *args, save_residuals=res), iters=50)
+            timing[f"{dt}_{'train' if res else 'inference'}"] = {
+                "dtype": dt, "residuals": res,
+                "kernel_ms": min(kernel_ms, kernel_ms_2),
+                "kernel_ms_runs": [kernel_ms, kernel_ms_2],
+                "plain_ms": plain_ms, "library_ms": library_ms,
+                **lstm_bound(LSTM_T, LSTM_B, LSTM_H, dt, res)}
+    for name, c in timing.items():
+        log(f"lstm: {name} T={LSTM_T} B={LSTM_B} H={LSTM_H}: kernel "
+            f"{c['kernel_ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, cuDNN "
+            f"nn.LSTM {c['library_ms']:.4f} ms, bound {c['bound_ms']:.5f} "
+            f"ms ({c['bound_by']}; the {LSTM_T} steps are serial) ({card})")
+    return {"cases": cases, "worst_rel_err": worst,
+            "worst_abs_err": worst_abs, "grad_rel_err": grads,
+            "timing": timing, "plan": lk.launch_plan(LSTM_B, LSTM_H),
+            "library": LSTM_LIBRARY}
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the char-LSTM MultiLayerNetwork at full width
+
+RNN_WARMUP, RNN_STEPS = 3, 20
+
+
+def char_batch():
+    """The bench_lstm batch: one-hot ids from default_rng(0), targets the
+    ids rolled by one, staged on the card once."""
+    import torch
+
+    ids = np.random.default_rng(0).integers(0, LSTM_V, (LSTM_B, LSTM_T))
+    eye = np.eye(LSTM_V, dtype=np.float32)
+    return (torch.from_numpy(eye[ids]).cuda(),
+            torch.from_numpy(eye[np.roll(ids, -1, axis=1)]).cuda())
+
+
+def rnn_grad_parity(x, y) -> dict:
+    """float32 at full width: the loss and every gradient through the
+    kernel against the same net with ``fused=False`` (the step-by-step
+    scan) on the card; then `output`/`predict` of both."""
+    import dataclasses
+
+    import torch
+
+    from deeplearning4j_tpu_torch.models import (
+        MultiLayerNetwork,
+        char_lstm,
+        params_from_numpy,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    conf = char_lstm()
+    scan_conf = dataclasses.replace(conf, layers=tuple(
+        dataclasses.replace(lc, fused=False) if hasattr(lc, "fused") else lc
+        for lc in conf.layers))
+    net = MultiLayerNetwork(conf).init()
+    scan = MultiLayerNetwork(scan_conf).init()
+    scan.params = params_from_numpy(scan, net.params_flat())
+    lk.fused_lstm_forward.launches.reset()
+    out = {}
+    for name, n in (("kernel", net), ("scan", scan)):
+        loss, _ = n._objective(n.params, n.state, x, y, None)
+        out[name] = (float(loss), n._grads(loss))
+    if lk.fused_lstm_forward.launches.value != 1:
+        raise AssertionError("rnn: the f32 kernel net did not launch once")
+    names = [k for k, _ in net._param_leaves()]
+    gk = dict(zip(names, (g for _, g in sorted_grads(out["kernel"][1]))))
+    gs = dict(zip(names, (g for _, g in sorted_grads(out["scan"][1]))))
+    errs = {n: rel_err(gk[n], gs[n]) for n in names}
+    loss_err = abs(out["kernel"][0] - out["scan"][0]) / abs(out["scan"][0])
+    report = {"loss_kernel": out["kernel"][0], "loss_scan": out["scan"][0],
+              "loss_rel_err": loss_err, "grad_rel_err": errs}
+    if not loss_err <= 1e-4 or not all(
+            math.isfinite(e) and e <= 1e-4 for e in errs.values()):
+        raise AssertionError(f"rnn: f32 kernel vs scan disagree: {report}")
+    o_k, o_s = net.output(x), scan.output(x)
+    report["output_rel_err"] = rel_err(o_k, o_s)
+    if not report["output_rel_err"] <= 1e-4:
+        raise AssertionError(f"rnn: f32 output vs scan: {report}")
+    top2 = o_s.topk(2, dim=-1)
+    clear = (top2.values[..., 0] - top2.values[..., 1]) > 1e-4
+    if not torch.equal(torch.from_numpy(net.predict(x)).cuda()[clear],
+                       top2.indices[..., 0][clear]):
+        raise AssertionError("rnn: f32 predict differs from the scan's")
+    return report
+
+
+def sorted_grads(grads):
+    return [(f"{i}/{k}", g[k]) for i, g in enumerate(grads)
+            for k in sorted(g)]
+
+
+def rnn_phase(card: str, profile: bool = False) -> dict:
+    import tempfile
+
+    import torch
+
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork, char_lstm
+    from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
+    from deeplearning4j_tpu_torch.nn.layers import recurrent
+    from deeplearning4j_tpu_torch.runtime.checkpoint import (
+        load_model,
+        save_model,
+    )
+
+    x, y = char_batch()
+    net = MultiLayerNetwork(char_lstm(compute_dtype="bfloat16")).init()
+    n_lstm = sum(hasattr(lc, "fused") for lc in net.conf.layers)
+    losses = [net.fit_batch(x, y) for _ in range(RNN_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = (lk.fused_lstm_forward.launches,
+                lk.fused_lstm_forward.residual_launches)
+    for c in counters:
+        c.reset()
+    prof = None
+    if profile:
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+        prof.__enter__()
+    step_ms = []
+    t0 = time.perf_counter()
+    for _ in range(RNN_STEPS):
+        ts = time.perf_counter()
+        losses.append(net.fit_batch(x, y))          # waits for the step
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+    wall = time.perf_counter() - t0
+    if prof is not None:
+        prof.__exit__(None, None, None)
+    launches, with_res = (c.value for c in counters)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"rnn: losses {losses}")
+    dtypes = {str(p.dtype) for _, p in net._param_leaves()}
+    if dtypes != {"torch.float32"}:
+        raise AssertionError(f"rnn: masters are {dtypes} after training")
+    if launches != n_lstm * RNN_STEPS or with_res != launches:
+        raise AssertionError(f"rnn: {launches} launches ({with_res} with "
+                             f"residuals) in {RNN_STEPS} steps, expected "
+                             f"{n_lstm} per step, all with residuals")
+    for c in counters:
+        c.reset()
+    accum_losses = [net.fit_batch(x, y, accum_steps=2) for _ in range(2)]
+    if counters[0].value != 2 * 2 * n_lstm or not all(
+            math.isfinite(v) for v in accum_losses):
+        raise AssertionError(f"rnn: accum=2 made {counters[0].value} "
+                             f"launches, losses {accum_losses}")
+    out = {
+        "card": card, "config": "char_lstm(vocab 80, hidden 256), bf16 "
+        "compute, f32 masters, adam lr 0.01", "batch": LSTM_B,
+        "seq": LSTM_T, "warmup_steps": RNN_WARMUP, "steps": RNN_STEPS,
+        "losses": losses, "accum2_losses": accum_losses,
+        "step_ms": step_ms, "step_ms_mean": wall * 1e3 / RNN_STEPS,
+        "step_ms_min": min(step_ms), "step_ms_max": max(step_ms),
+        "examples_per_s": LSTM_B * RNN_STEPS / wall,
+        "peak_memory_bytes": peak, "launches": launches,
+        "launches_per_step": launches / RNN_STEPS,
+    }
+    log(f"rnn: step {out['step_ms_mean']:.3f} ms (min {min(step_ms):.3f}, "
+        f"max {max(step_ms):.3f}), {out['examples_per_s']:.1f} examples/s, "
+        f"peak memory {peak} bytes, losses {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} ({card})")
+    if prof is not None:
+        bd = device_breakdown(prof, wall, RNN_STEPS)
+        bd["lstm_share_of_busy"] = (
+            bd["groups_ms"].get("lstm_forward", 0.0) / bd["device_busy_ms"]
+            if bd["device_busy_ms"] else 0.0)
+        out["profile"] = bd
+        log(f"rnn: profile: busy {bd['device_busy_ms']:.2f} ms of "
+            f"{bd['wall_ms']:.2f} ms wall, idle share "
+            f"{bd['device_idle_share']:.3f}, lstm kernel share of busy "
+            f"{bd['lstm_share_of_busy']:.3f}, groups {bd['groups_ms']} "
+            f"({card})")
+
+    # inference on the card: one launch per layer per call, no residuals,
+    # against the same net with the kernel's plain version in its place
+    for c in counters:
+        c.reset()
+    probs = net.output(x)
+    pred = net.predict(x)
+    if counters[0].value != 2 * n_lstm or counters[1].value != 0:
+        raise AssertionError(f"rnn: output/predict made {counters[0].value}"
+                             f" launches ({counters[1].value} with "
+                             f"residuals), expected {n_lstm} each, none")
+    recurrent.fused_lstm_scan = lk.fused_lstm_scan_plain
+    try:
+        want = net.output(x)
+    finally:
+        recurrent.fused_lstm_scan = lk.fused_lstm_scan
+    out["output_rel_err_bf16"] = rel_err(probs, want)
+    if probs.shape != (LSTM_B, LSTM_T, LSTM_V) or not torch.isfinite(
+            probs).all() or not out["output_rel_err_bf16"] <= 2e-2 or \
+            pred.shape != (LSTM_B, LSTM_T):
+        raise AssertionError(f"rnn: bf16 output vs the plain path: "
+                             f"{out['output_rel_err_bf16']}")
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-rnn-") as tmp:
+        save_model(net, tmp, save_updater=True)
+        back = load_model(tmp)
+        if not np.array_equal(back.params_flat(), net.params_flat()) or \
+                not torch.equal(back.output(x), probs):
+            raise AssertionError("rnn: save_model/load_model round trip "
+                                 "changed the net")
+    log(f"rnn: output/predict: 1 launch per call, bf16 rel err vs the plain "
+        f"path {out['output_rel_err_bf16']:.3g}; save/load round trip ok")
+    del net, back
+    torch.cuda.empty_cache()
+    out["f32_parity"] = rnn_grad_parity(x, y)
+    worst = max(out["f32_parity"]["grad_rel_err"].items(),
+                key=lambda kv: kv[1])
+    log(f"rnn: f32 kernel vs scan: loss rel err "
+        f"{out['f32_parity']['loss_rel_err']:.3g}, worst gradient "
+        f"{worst[0]} {worst[1]:.3g}, output "
+        f"{out['f32_parity']['output_rel_err']:.3g}")
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
     ap.add_argument("--profile", action="store_true",
-                    help="trace the serve load and the timed train steps "
-                    "with torch.profiler and print device time by kernel "
-                    "(slows both)")
+                    help="trace the serve load and the timed train and rnn "
+                    "steps with torch.profiler and print device time by "
+                    "kernel (slows them)")
     args = ap.parse_args(argv)
     phases = [p for p in args.only.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -988,6 +1347,8 @@ def main(argv=None) -> int:
         parity = parity_phase(tree)
     if "train" in phases:
         train = train_phase(card, profile=args.profile)
+    lstm = lstm_phase(card) if "lstm" in phases else None
+    rnn = rnn_phase(card, profile=args.profile) if "rnn" in phases else None
 
     entries = []
     if kernels_line is not None:
@@ -1041,6 +1402,23 @@ def main(argv=None) -> int:
                 "cases": [{k: v for k, v in c.items() if k != "timing"}
                           for c in flash],
             })
+    if lstm is not None:
+        t = lstm["timing"]["bfloat16_train"]          # what fit launches
+        entries.append({
+            "name": "lstm_forward", "route": "cuda", "source": LSTM_SOURCE,
+            "replaces": LSTM_REPLACES,
+            "launches": rnn["launches"] if rnn else 0,
+            "launches_per_step": rnn["launches_per_step"] if rnn else None,
+            "max_abs_err": max(lstm["worst_abs_err"].values()),
+            "max_rel_err": lstm["worst_rel_err"],
+            "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "library": LSTM_LIBRARY,
+            "shape": dict(T=LSTM_T, B=LSTM_B, H=LSTM_H), "dtype": "bfloat16",
+            "residuals": True, "timing": lstm["timing"],
+            "grad_rel_err": lstm["grad_rel_err"], "cases": lstm["cases"],
+            "plan": lstm["plan"]})
     if entries:
         print(json.dumps({"kernels": entries}), flush=True)
     if serve is not None:
@@ -1049,6 +1427,8 @@ def main(argv=None) -> int:
         print(json.dumps({"parity": parity}), flush=True)
     if train is not None:
         print(json.dumps({"train": train}), flush=True)
+    if rnn is not None:
+        print(json.dumps({"rnn": rnn}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)

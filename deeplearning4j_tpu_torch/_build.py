@@ -29,7 +29,8 @@ BUILD_DIR = Path(__file__).resolve().parent / "_kernels_build"
 
 # kernel name -> its source under csrc/
 SOURCES = {"paged_attention": "paged_attention.cu",
-           "flash_attention": "flash_attention.cu"}
+           "flash_attention": "flash_attention.cu",
+           "lstm": "lstm.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]

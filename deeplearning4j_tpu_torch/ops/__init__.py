@@ -1,2 +1,3 @@
 """Numerical building blocks of the port (counterpart of
-`deeplearning4j_tpu.ops`): the gradient updaters so far."""
+`deeplearning4j_tpu.ops`): activations, initializers, losses and the
+gradient updaters."""

@@ -1,26 +1,33 @@
-"""Parameter trees to and from ``.npz`` (subset of
-`deeplearning4j_tpu.runtime.checkpoint`).
+"""Parameter trees to and from ``.npz``, and whole networks to and from a
+directory (subset of `deeplearning4j_tpu.runtime.checkpoint`).
 
 The JAX package's format: one array per leaf, keyed by the leaf's
 ``//``-joined keypath (``layers//0//attn//wq``); bfloat16 leaves are
 stored as float32, which is exact.  The writer is atomic: a temporary file
 made with ``mkstemp`` in the target directory, then ``os.replace``, so a
-crash leaves the previous file or the new one, never a torn one.  The
-sharded, checksummed train-state checkpoints of the JAX module are not
-ported yet (ROADMAP.md, queue A3).
+crash leaves the previous file or the new one, never a torn one.
+
+`save_model`/`load_model` write and read the JAX package's model
+directory: ``conf.json`` + ``params.npz`` [+ ``updater.npz``] +
+``meta.json``; a directory saved by either package loads in the other.
+The sharded, checksummed train-state checkpoints of the JAX module are
+not ported yet (ROADMAP.md, queue A3b).
 """
 
 from __future__ import annotations
 
+import json
 import os
 import pathlib
 import tempfile
+import time
 from typing import Any, Dict
 
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.tree import KEYPATH_SEP, flatten_tree
+from deeplearning4j_tpu_torch.tree import KEYPATH_SEP, flatten_tree, map_tree
+
 
 def _fill(like, flat: Dict[str, Any], leaf, prefix: str = ""):
     """Rebuild `like`'s structure, each leaf ``leaf(flat[keypath], like)``."""
@@ -28,8 +35,8 @@ def _fill(like, flat: Dict[str, Any], leaf, prefix: str = ""):
         return {k: _fill(v, flat, leaf, f"{prefix}{KEYPATH_SEP}{k}"
                          if prefix else str(k)) for k, v in like.items()}
     if isinstance(like, list):
-        return [_fill(v, flat, leaf, f"{prefix}{KEYPATH_SEP}{i}")
-                for i, v in enumerate(like)]
+        return [_fill(v, flat, leaf, f"{prefix}{KEYPATH_SEP}{i}"
+                      if prefix else str(i)) for i, v in enumerate(like)]
     if prefix not in flat:
         raise KeyError(f"checkpoint is missing leaf {prefix!r} (structure "
                        f"mismatch with the restore template)")
@@ -104,4 +111,62 @@ def read_lm_npz(path: os.PathLike, cfg) -> dict:
     return _fill(shapes, flat, lambda a, _: np.asarray(a, np.float32))
 
 
-__all__ = ["npz_to_tree", "read_lm_npz", "tree_to_npz"]
+def save_model(net, directory: os.PathLike, *, save_updater: bool = False
+               ) -> pathlib.Path:
+    """Write `conf.json` + `params.npz` (+ `updater.npz` when
+    `save_updater=True` and the net has updater state) + `meta.json`."""
+    directory = pathlib.Path(directory)
+    directory.mkdir(parents=True, exist_ok=True)
+    (directory / "conf.json").write_text(net.conf.to_json())
+    tree_to_npz(directory / "params.npz", net.params)
+    if save_updater and net.updater_state is not None:
+        tree_to_npz(directory / "updater.npz", net.updater_state)
+    cfg = net.conf.conf
+    meta = {"format": 1, "num_params": int(net.num_params()),
+            "saved_at": time.strftime("%Y-%m-%dT%H:%M:%S"),
+            "param_dtype": cfg.dtype,
+            "precision": {"param_dtype": cfg.dtype,
+                          "compute_dtype": cfg.compute_dtype,
+                          "output_dtype": cfg.output_dtype}}
+    (directory / "meta.json").write_text(json.dumps(meta, indent=2))
+    return directory
+
+
+def load_model(directory: os.PathLike, device=None):
+    """Rebuild a `MultiLayerNetwork` on `device` from a directory written
+    by `save_model` in either package; restores the updater state too when
+    `updater.npz` is present.  A precision recorded in meta.json that
+    differs from the conf's (the JAX package's ``set_precision``) is
+    refused: precision policies are ROADMAP.md queue A3b."""
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+
+    directory = pathlib.Path(directory)
+    net = MultiLayerNetwork.from_json((directory / "conf.json").read_text(),
+                                      device=device)
+    meta_path = directory / "meta.json"
+    if meta_path.exists():
+        meta = json.loads(meta_path.read_text())
+        saved = meta.get("precision") or (
+            {"param_dtype": meta["param_dtype"]} if meta.get("param_dtype")
+            else {})
+        cfg = net.conf.conf
+        conf_policy = {"param_dtype": cfg.dtype,
+                       "compute_dtype": cfg.compute_dtype,
+                       "output_dtype": cfg.output_dtype}
+        differs = {k: v for k, v in saved.items() if conf_policy.get(k) != v}
+        if differs:
+            raise NotImplementedError(
+                f"{directory}: saved with precision {differs}, which the "
+                f"conf does not declare; precision policies are not ported "
+                f"to PyTorch yet (ROADMAP.md, queue A3b)")
+    net.params = map_tree(
+        lambda p: p.requires_grad_(p.is_floating_point()),
+        npz_to_tree(directory / "params.npz", net.params))
+    if (directory / "updater.npz").exists():
+        net.updater_state = npz_to_tree(directory / "updater.npz",
+                                        net.updater_state)
+    return net
+
+
+__all__ = ["load_model", "npz_to_tree", "read_lm_npz", "save_model",
+           "tree_to_npz"]

@@ -1,6 +1,7 @@
 """PyTorch port on an NVIDIA card: the hand-written CUDA kernels (paged
-attention; the flash-attention forward and its two backward kernels)
-and the serving and training paths that launch them.
+attention; the flash-attention forward and its two backward kernels;
+the fused LSTM scan) and the serving, LM-training and `MultiLayerNetwork`
+paths that launch them.
 
 Every test carries the ``cuda`` marker and decides inside the test
 whether a card is present, skipping with a reason when not (the kernels
@@ -250,3 +251,148 @@ def test_train_step_on_the_card_launches_the_kernels():
     assert losses[-1] < losses[0]
     assert all(p.dtype == torch.float32 for p in params.values()
                if isinstance(p, torch.Tensor))
+
+
+# ---------------------------------------------------------------------------
+# the fused LSTM scan (kernel B5)
+
+# (T, B, H): every odd size of T {1, 64, 200}, B {1, 32, 33} and
+# H {8, 37, 256, 1024} at least once, the char-LSTM shape included
+LSTM_CASES = {
+    "t1_b1_h8": (1, 1, 8), "t64_b32_h256": (64, 32, 256),
+    "t200_b33_h37": (200, 33, 37), "t64_b33_h1024": (64, 33, 1024),
+    "t200_b1_h256": (200, 1, 256), "t1_b32_h1024": (1, 32, 1024),
+    "t64_b1_h37": (64, 1, 37), "t200_b32_h8": (200, 32, 8),
+}
+
+
+def _lstm_inputs(t, b, h, dtype, seed=0, batch_major=False):
+    """xz ~ N(0, 1), RW at the xavier scale of [H, 4H], peepholes
+    ~ N(0, 0.2), on the card in `dtype`; xz as a [T, B, 4H] tensor or
+    as the transposed view of a batch-major [B, T, 4H] one."""
+    rng = np.random.default_rng(seed)
+
+    def rand(shape, scale):
+        return torch.from_numpy((rng.standard_normal(shape) * scale)
+                                .astype(np.float32)).to("cuda", dtype)
+
+    xz = (rand((b, t, 4 * h), 1.0).transpose(0, 1) if batch_major
+          else rand((t, b, 4 * h), 1.0))
+    rw = rand((h, 4 * h), (2.0 / (5 * h)) ** 0.5)
+    return xz, rw, rand((h,), 0.2), rand((h,), 0.2), rand((h,), 0.2)
+
+
+@pytest.mark.parametrize("batch_major", [False, True])
+@pytest.mark.parametrize("residuals", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(LSTM_CASES))
+def test_lstm_kernel_matches_plain(name, dtype, residuals, batch_major):
+    """hs, cs and zs of one launch against the plain version on the same
+    inputs: relative max error 1e-5 in f32, 2e-2 in bf16 (hs's
+    rounding)."""
+    _need_card()
+    from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    args = _lstm_inputs(*LSTM_CASES[name], dt, batch_major=batch_major)
+    before = lk.fused_lstm_forward.launches.value
+    hs, cs, zs = lk.fused_lstm_forward(*args, save_residuals=residuals)
+    torch.cuda.synchronize()
+    assert lk.fused_lstm_forward.launches.value == before + 1
+    want = lk.fused_lstm_forward_plain(*args, save_residuals=residuals)
+    assert hs.dtype == dt and hs.shape == want[0].shape
+    tol = 1e-5 if dt == torch.float32 else 2e-2
+    assert _rel(hs, want[0]) <= tol
+    if residuals:
+        assert cs.dtype == zs.dtype == torch.float32
+        assert _rel(cs, want[1]) <= tol and _rel(zs, want[2]) <= tol
+    else:
+        assert cs is None and zs is None
+
+
+@pytest.mark.parametrize("peephole", [True, False])
+def test_lstm_kernel_gradients_match_plain(peephole):
+    """f32 gradients through the kernel's autograd Function against
+    autograd through the plain steps: relative 1e-4."""
+    _need_card()
+    from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    xz, rw, pi, pf, po = _lstm_inputs(64, 33, 37, torch.float32, seed=3)
+    if not peephole:
+        pi, pf, po = (torch.zeros_like(p) for p in (pi, pf, po))
+    g = torch.randn(64, 33, 37, device="cuda",
+                    generator=torch.Generator("cuda").manual_seed(0))
+    grads = []
+    for fn in (lk.fused_lstm_scan, lk.fused_lstm_scan_plain):
+        leaves = [a.clone().requires_grad_() for a in (xz, rw, pi, pf, po)]
+        hs = fn(*leaves)
+        grads.append((hs, *torch.autograd.grad(hs, leaves, g)))
+    for a, b in zip(*grads):
+        assert _rel(a, b) <= 1e-4
+
+
+def test_lstm_refuses_what_the_kernel_does_not_take():
+    """Checked before any launch: H above the limit, fp16, mixed dtypes,
+    a parameter on another device, wrong shapes; nothing is counted."""
+    _need_card()
+    from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
+
+    before = lk.fused_lstm_forward.launches.value
+    big = _lstm_inputs(2, 2, lk.MAX_HIDDEN + 1, torch.float32)
+    with pytest.raises(ValueError, match=str(lk.MAX_HIDDEN)):
+        lk.fused_lstm_forward(*big)
+    xz, rw, pi, pf, po = _lstm_inputs(3, 2, 8, torch.float32)
+    with pytest.raises(TypeError, match="bfloat16"):
+        lk.fused_lstm_forward(xz.half(), rw.half(), pi.half(), pf.half(),
+                              po.half())
+    with pytest.raises(TypeError, match="dtype"):
+        lk.fused_lstm_forward(xz, rw.bfloat16(), pi, pf, po)
+    with pytest.raises(ValueError, match="cpu"):
+        lk.fused_lstm_forward(xz, rw.cpu(), pi, pf, po)
+    with pytest.raises(ValueError, match="shape"):
+        lk.fused_lstm_forward(xz, rw[:, :16].contiguous(), pi, pf, po)
+    with pytest.raises(ValueError, match="4H"):
+        lk.fused_lstm_forward(xz[..., :30], rw, pi, pf, po)
+    assert lk.fused_lstm_forward.launches.value == before
+
+
+def test_lstm_inference_forward_launches_once_without_residuals():
+    _need_card()
+    from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
+
+    args = [a.requires_grad_() for a in _lstm_inputs(5, 3, 8,
+                                                     torch.float32)]
+    before = lk.fused_lstm_forward.launches.value
+    with torch.no_grad():
+        hs = lk.fused_lstm_scan(*args)
+    assert not hs.requires_grad
+    assert lk.fused_lstm_forward.launches.value == before + 1
+
+
+def test_char_lstm_network_on_the_card_launches_the_kernel():
+    """A small char-LSTM in bf16 compute: one launch per LSTM layer and
+    microbatch, all with residuals, while training; one launch without
+    residuals per inference call; f32 masters and a falling loss."""
+    _need_card()
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork, char_lstm
+    from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
+
+    net = MultiLayerNetwork(char_lstm(vocab_size=11, hidden=37,
+                                      compute_dtype="bfloat16")).init()
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, 11, (6, 9))
+    x = np.eye(11, dtype=np.float32)[ids]
+    y = np.eye(11, dtype=np.float32)[np.roll(ids, -1, axis=1)]
+    launches, residual = (lk.fused_lstm_forward.launches,
+                          lk.fused_lstm_forward.residual_launches)
+    before = (launches.value, residual.value)
+    losses = [net.fit_batch(x, y) for _ in range(4)]
+    losses.append(net.fit_batch(x, y, accum_steps=2))
+    assert (launches.value - before[0], residual.value - before[1]) == (6, 6)
+    assert losses[-1] < losses[0]
+    assert all(p.dtype == torch.float32 for _, p in net._param_leaves())
+    out = net.output(x)
+    assert out.shape == (6, 9, 11) and out.is_cuda
+    assert (launches.value - before[0], residual.value - before[1]) == (7, 6)
