@@ -10,19 +10,24 @@ Phases (any failure exits non-zero, and no result line is printed):
 2. build   — build every CUDA kernel of the port from ``csrc/`` (one nvcc
              per source, started together); print the time and the
              ``ptxas`` register / shared-memory lines.
-3. kernel  — the paged-attention kernel against its plain PyTorch version
-             on the card (B=8, H=12, K=64, page 16, 64 pages per lane;
-             C=1 and C=16; float32 and bfloat16; ragged pos/n_feed, an
-             inactive lane, page straddles, shuffled physical pages), and
+3. kernel  — the paged-attention kernel (split across blocks, with its
+             merge) against its plain PyTorch version on the card (B=8,
+             H=12, page 16, 64 pages per lane; C=1 and C=16 at K=64, the
+             served widths, and C=128 at K=64 and C=64 at K=128, the wide
+             prefill chunks; float32 and bfloat16; ragged pos/n_feed, an
+             inactive lane, page straddles, shuffled physical pages; max
+             abs error at fed columns <= 1e-4 / 2e-2, and each lane's
+             <= 1e-4 / 1e-2 of its largest reference value), each
              timed with CUDA events against the plain version, one
              ``scaled_dot_product_attention`` call over the gathered
              history (a yardstick the port never calls) and its bound.
 4. flash   — the flash-attention forward, dK/dV and dQ kernels against
              their plain versions in f32 on the same inputs (B=2, H=12,
              D=64; S 1024 and 1000; causal and not; float32 and bfloat16;
-             relative max error <= 1e-4 / 2e-2), and at S=1024 causal
-             timed against the plain versions, SDPA (forward; forward +
-             backward for the backward pair) and their bounds.
+             relative max error <= 1e-4 / 2e-2; plus bfloat16 at D=20,
+             the forward's FMA route), and at S=1024 causal timed against
+             the plain versions, SDPA (forward; forward + backward for the
+             backward pair) and their bounds.
 5. serve   — `ContinuousLMServer` at ``gpt2_small(max_len=1024)`` width in
              bfloat16 (random weights from a numpy seed), 12 concurrent
              requests sharing a 128-token prefix; checks completion, vocab
@@ -63,6 +68,12 @@ Phases (any failure exits non-zero, and no result line is printed):
              against the plain path (one launch per call, no residuals);
              and a `save_model` / `load_model` round trip.
 
+Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device time per
+call (`device_ms`: the calls are queued behind a spin kernel, so they run
+back to back without the host's time between launches); ``call_ms`` is
+the CUDA-event time per call of calls made back to back from the host,
+which for a fast kernel measures the host's launch path instead.
+
 Prints the ``kernels`` JSON line, then the ``nvidia-smi`` card line, then
 ``{"ok": true, "device": {...}}`` as the last line.  ``--only`` runs a
 subset of phases (facts and build always run), e.g. ``--only
@@ -90,6 +101,13 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_OPS = {"float32": 67e12,      # fp32 outside the tensor cores
             "bfloat16": 989e12}    # bf16 dense tensor-core peak
 PHASES = ("kernel", "flash", "serve", "parity", "train", "lstm", "rnn")
+# what the times of the kernels line measure
+TIMING_NOTE = {
+    "ms": "device time per call: calls queued behind a spin kernel, run "
+          "back to back without the host's time between launches (also "
+          "kernel_ms, plain_ms, library_ms)",
+    "call_ms": "CUDA events around calls made back to back from the host; "
+               "for a fast kernel this is the host's launch path"}
 
 
 def log(msg: str) -> None:
@@ -121,25 +139,72 @@ def cuda_ms(fn, iters: int = 100, warmup: int = 5) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_ms(fn, iters: int = 50, warmup: int = 3, reps: int = 3) -> float:
+    """Mean device milliseconds per call of `fn`, without the host's time
+    between launches: a spin kernel (``torch.cuda._sleep``) holds the
+    device while `iters` calls are queued behind it, so they then run
+    back to back; CUDA events around them give the device time (kernels
+    and the gaps between them).  The spin is sized from the measured
+    enqueue time and checked: if the device reached the first event
+    before the last call was queued, the spin was too short and the
+    window is taken again with fewer calls.  Median of `reps` windows."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    cycles_per_s = torch.cuda.get_device_properties(0).clock_rate * 1e3
+    out = []
+    while len(out) < reps:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int((2 * enqueue_s + 2e-3) * cycles_per_s))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        late = start.query()              # the device already got there
+        torch.cuda.synchronize()
+        if late and iters > 1:
+            iters = max(1, iters // 2)
+            enqueue_s *= 2
+            continue
+        out.append(start.elapsed_time(end) / iters)
+    return float(np.median(out))
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the kernel against its plain version
 
 
-def kernel_inputs(c: int, dtype, layers: int = 12, seed: int = 0):
+# (C, K) of the kernel phase: decode and the served 16-column chunk, then
+# the wide prefill chunks the first design refused
+KERNEL_CASES = ((1, 64), (16, 64), (128, 64), (64, 128))
+
+
+def kernel_inputs(c: int, dtype, kd: int = 64, layers: int = 12,
+                  seed: int = 0):
     """Paged-attention inputs at the served shape, one pool per layer so
     that timing loops over layers read device memory the way a dispatch
     does (the pools together exceed the 50 MB L2 cache)."""
     import torch
 
-    b, h, kd, ps, mp = 8, 12, 64, 16, 64
+    b, h, ps, mp = 8, 12, 16, 64
     pages = 1 + b * mp
     rng = np.random.default_rng(seed)
     if c == 1:
         pos = np.array([0, 15, 16, 100, 511, 777, 1023, 0], np.int32)
         nf = np.array([1, 1, 1, 1, 1, 1, 1, 0], np.int32)
     else:
-        pos = np.array([0, 15, 16, 100, 511, 777, 1000, 0], np.int32)
-        nf = np.array([16, 3, 16, 7, 16, 9, 16, 0], np.int32)
+        # the last lane's chunk ends in the table's last page
+        pos = np.array([0, 15, 16, 100, 511, 777, min(1000, mp * ps - c), 0],
+                       np.int32)
+        nf = np.array([c, 3, c, c // 2 - 1, c, 9, c, 0], np.int32)
     table = np.zeros((b, mp), np.int32)
     ids = rng.permutation(np.arange(1, pages)).astype(np.int32)
     live_pages = []
@@ -172,7 +237,21 @@ def fed_max_err(got, want, nf) -> float:
     return err
 
 
-def kernel_case(c: int, dtype_name: str) -> dict:
+def fed_lane_rel_err(got, want, nf) -> float:
+    """The worst lane's max abs error at its fed columns over that lane's
+    largest reference value: on a long lane the outputs are averages over
+    ~1000 keys and far smaller than the absolute limit, so a dropped or
+    misweighted split shows here."""
+    err = 0.0
+    for i, n in enumerate(nf):
+        if n:
+            w = want[i, :n].float()
+            d = (got[i, :n].float() - w).abs().max()
+            err = max(err, float(d / w.abs().max().clamp_min(1e-30)))
+    return err
+
+
+def kernel_case(c: int, dtype_name: str, kd: int = 64) -> dict:
     import torch
     import torch.nn.functional as F
 
@@ -180,10 +259,11 @@ def kernel_case(c: int, dtype_name: str) -> dict:
     from deeplearning4j_tpu_torch.parallel.paged_kernel import (
         paged_flash_attention,
         paged_flash_attention_plain,
+        paged_split_plan,
     )
 
     dtype = getattr(torch, dtype_name)
-    x = kernel_inputs(c, dtype)
+    x = kernel_inputs(c, dtype, kd)
     sh = x["shape"]
     b, h, kd, ps, mp = sh["B"], sh["H"], sh["K"], sh["ps"], sh["MP"]
     layers = x["q"].shape[0]
@@ -196,10 +276,15 @@ def kernel_case(c: int, dtype_name: str) -> dict:
                                        x["k"][0].float(),
                                        x["v"][0].float(), table, pos, nf)
     err = fed_max_err(got, want, x["nf_host"])
+    lane_rel = fed_lane_rel_err(got, want, x["nf_host"])
     tol = 1e-4 if dtype == torch.float32 else 2e-2
+    lane_rtol = 1e-4 if dtype == torch.float32 else 1e-2
     if not math.isfinite(err) or err > tol:
         raise AssertionError(f"paged kernel C={c} {dtype_name}: max abs "
                              f"err {err} > {tol}")
+    if not math.isfinite(lane_rel) or lane_rel > lane_rtol:
+        raise AssertionError(f"paged kernel C={c} {dtype_name}: worst lane's "
+                             f"relative err {lane_rel} > {lane_rtol}")
     # one SDPA call over the gathered history with the same causal mask
     gidx = (table.long()[:, :, None] * ps
             + torch.arange(ps, device=table.device)).reshape(b, mp * ps)
@@ -239,7 +324,13 @@ def kernel_case(c: int, dtype_name: str) -> dict:
     kernel_ms = cuda_ms(run_kernel, iters=200)
     library_ms = cuda_ms(run_library, iters=100)
     kernel_ms_2 = cuda_ms(run_kernel, iters=200)
+    dev = {"kernel": device_ms(run_kernel, iters=96),
+           "plain": device_ms(run_plain, iters=12),
+           "library": device_ms(run_library, iters=96)}
     item = dtype.itemsize
+    plan = paged_split_plan(b, c, h, kd, mp, ps, dtype,
+                            torch.cuda.get_device_properties(0)
+                            .multi_processor_count)
     live_keys = sum(x["live_pages"]) * ps
     nbytes = (2 * live_keys * h * kd * item          # live K and V pages
               + 2 * b * c * h * kd * item              # q in, out
@@ -249,13 +340,17 @@ def kernel_case(c: int, dtype_name: str) -> dict:
     t_ops = ops / PEAK_OPS[dtype_name] * 1e3
     return {"C": c, "dtype": dtype_name, "shape": sh,
             "max_abs_err": err, "tolerance": tol,
-            "kernel_ms": min(kernel_ms, kernel_ms_2),
-            "kernel_ms_runs": [kernel_ms, kernel_ms_2],
-            "plain_ms": plain_ms, "library_ms": library_ms,
+            "lane_rel_err": lane_rel, "lane_rel_tolerance": lane_rtol,
+            "kernel_ms": dev["kernel"], "plain_ms": dev["plain"],
+            "library_ms": dev["library"],
+            "call_ms": min(kernel_ms, kernel_ms_2),
+            "call_ms_runs": [kernel_ms, kernel_ms_2],
+            "plain_call_ms": plain_ms, "library_call_ms": library_ms,
             "library_max_abs_err": lib_err,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "bytes": nbytes, "ops": ops}
+            "bytes": nbytes, "ops": ops, "split_plan": plan,
+            "route": "tensor_cores" if plan["cols"] >= 16 else "fma"}
 
 
 # ---------------------------------------------------------------------------
@@ -297,7 +392,8 @@ def rel_err(got, want) -> float:
     return float((got.float() - want).abs().max() / want.abs().max())
 
 
-def flash_case(s: int, causal: bool, dtype_name: str, timed: bool) -> dict:
+def flash_case(s: int, causal: bool, dtype_name: str, timed: bool,
+               d: int = FLASH_D) -> dict:
     """The three kernels on one input against their plain versions in f32
     on the same inputs (the backward pair gets the kernel's own lse and
     delta, so every kernel is held on identical inputs)."""
@@ -307,11 +403,16 @@ def flash_case(s: int, causal: bool, dtype_name: str, timed: bool) -> dict:
     from deeplearning4j_tpu_torch.parallel import kernels as fk
 
     dtype = getattr(torch, dtype_name)
-    b, h, d = FLASH_B, FLASH_H, FLASH_D
+    b, h = FLASH_B, FLASH_H
     rng = np.random.default_rng(1000 * s + int(causal))
     q, k, v, g = (torch.from_numpy(rng.standard_normal(
         (b, s, h, d), np.float32)).to("cuda", dtype) for _ in range(4))
     out, lse = fk.flash_forward(q, k, v, causal)
+    route = fk.flash_forward_route(q, k, v, out)
+    if route != ("tensor_cores" if dtype == torch.bfloat16 and d % 8 == 0
+                 else "fma"):
+        raise AssertionError(f"flash D={d} {dtype_name}: the kernel took "
+                             f"the {route} route")
     delta = fk.row_delta(g, out)
     dk, dv = fk.flash_bwd_dkv(q, k, v, g, lse, delta, causal)
     dq = fk.flash_bwd_dq(q, k, v, g, lse, delta, causal)
@@ -330,7 +431,7 @@ def flash_case(s: int, causal: bool, dtype_name: str, timed: bool) -> dict:
     if bad:
         raise AssertionError(f"flash S={s} causal={causal} {dtype_name}: "
                              f"relative max error {bad} > {tol}")
-    case = {"S": s, "causal": causal, "dtype": dtype_name,
+    case = {"S": s, "causal": causal, "dtype": dtype_name, "route": route,
             "shape": dict(B=b, S=s, H=h, D=d), "tolerance": tol,
             "max_rel_err": rel, "max_abs_err": absolute}
     if not timed:
@@ -368,11 +469,14 @@ def flash_case(s: int, causal: bool, dtype_name: str, timed: bool) -> dict:
         kernel_ms_2 = cuda_ms(kern, iters=50)
         plain_ms_2 = cuda_ms(plain, iters=10, warmup=1)
         case["timing"][name] = {
-            "kernel_ms": min(kernel_ms, kernel_ms_2),
-            "kernel_ms_runs": [kernel_ms, kernel_ms_2],
-            "plain_ms": min(plain_ms, plain_ms_2),
-            "plain_ms_runs": [plain_ms, plain_ms_2],
-            "library_ms": library_ms,
+            "kernel_ms": device_ms(kern, iters=50),
+            "plain_ms": device_ms(plain, iters=5),
+            "library_ms": device_ms(library, iters=50),
+            "call_ms": min(kernel_ms, kernel_ms_2),
+            "call_ms_runs": [kernel_ms, kernel_ms_2],
+            "plain_call_ms": min(plain_ms, plain_ms_2),
+            "plain_call_ms_runs": [plain_ms, plain_ms_2],
+            "library_call_ms": library_ms,
             **flash_bound(name, b, s, h, d, causal, dtype_name)}
     return case
 
@@ -392,12 +496,20 @@ def flash_phase(card: str) -> list:
                     + ", ".join(f"{n} {e:.3g}"
                                 for n, e in case["max_rel_err"].items()))
                 for name, t in case.get("timing", {}).items():
-                    log(f"flash: {name} S={s} {dt}: kernel "
-                        f"{t['kernel_ms']:.4f} ms, plain "
-                        f"{t['plain_ms']:.4f} ms, sdpa "
-                        f"{t['library_ms']:.4f} ms, bound "
-                        f"{t['bound_ms']:.4f} ms ({t['bound_by']}) "
-                        f"({card})")
+                    log(f"flash: {name} S={s} {dt}: device ms: kernel "
+                        f"{t['kernel_ms']:.4f}, plain "
+                        f"{t['plain_ms']:.4f}, sdpa "
+                        f"{t['library_ms']:.4f}, bound "
+                        f"{t['bound_ms']:.4f} ({t['bound_by']}); per "
+                        f"call back to back: kernel {t['call_ms']:.4f}, "
+                        f"sdpa {t['library_call_ms']:.4f} ({card})")
+    # bf16 at a head dim that is not a multiple of 8: the forward's FMA
+    # route
+    case = flash_case(1000, True, "bfloat16", timed=False, d=20)
+    cases.append(case)
+    log(f"flash: S=1000 D=20 causal=True bfloat16 ({case['route']} route): "
+        f"relative err " + ", ".join(f"{n} {e:.3g}" for n, e in
+                                     case["max_rel_err"].items()))
     return cases
 
 
@@ -1049,24 +1161,34 @@ def lstm_phase(card: str) -> dict:
                             dtype=dtype)
         with torch.no_grad():
             library_ms = cuda_ms(lambda: lib_lstm(lib_x), iters=50)
+            library_dev = device_ms(lambda: lib_lstm(lib_x), iters=50)
         for res in (True, False):
-            plain_ms = cuda_ms(lambda: lk.fused_lstm_forward_plain(
-                *args, save_residuals=res), iters=5, warmup=1)
-            kernel_ms = cuda_ms(lambda: lk.fused_lstm_forward(
-                *args, save_residuals=res), iters=50)
-            kernel_ms_2 = cuda_ms(lambda: lk.fused_lstm_forward(
-                *args, save_residuals=res), iters=50)
+            def plain():
+                lk.fused_lstm_forward_plain(*args, save_residuals=res)
+
+            def kern():
+                lk.fused_lstm_forward(*args, save_residuals=res)
+
+            plain_ms = cuda_ms(plain, iters=5, warmup=1)
+            kernel_ms = cuda_ms(kern, iters=50)
+            kernel_ms_2 = cuda_ms(kern, iters=50)
             timing[f"{dt}_{'train' if res else 'inference'}"] = {
                 "dtype": dt, "residuals": res,
-                "kernel_ms": min(kernel_ms, kernel_ms_2),
-                "kernel_ms_runs": [kernel_ms, kernel_ms_2],
-                "plain_ms": plain_ms, "library_ms": library_ms,
+                "kernel_ms": device_ms(kern, iters=50),
+                "plain_ms": device_ms(plain, iters=3, warmup=1),
+                "library_ms": library_dev,
+                "call_ms": min(kernel_ms, kernel_ms_2),
+                "call_ms_runs": [kernel_ms, kernel_ms_2],
+                "plain_call_ms": plain_ms, "library_call_ms": library_ms,
                 **lstm_bound(LSTM_T, LSTM_B, LSTM_H, dt, res)}
     for name, c in timing.items():
-        log(f"lstm: {name} T={LSTM_T} B={LSTM_B} H={LSTM_H}: kernel "
-            f"{c['kernel_ms']:.4f} ms, plain {c['plain_ms']:.4f} ms, cuDNN "
-            f"nn.LSTM {c['library_ms']:.4f} ms, bound {c['bound_ms']:.5f} "
-            f"ms ({c['bound_by']}; the {LSTM_T} steps are serial) ({card})")
+        log(f"lstm: {name} T={LSTM_T} B={LSTM_B} H={LSTM_H}: device ms: "
+            f"kernel {c['kernel_ms']:.4f}, plain {c['plain_ms']:.4f}, cuDNN "
+            f"nn.LSTM {c['library_ms']:.4f}, bound {c['bound_ms']:.5f} "
+            f"({c['bound_by']}; the {LSTM_T} steps are serial); per call "
+            f"back to back: kernel {c['call_ms']:.4f}, plain "
+            f"{c['plain_call_ms']:.4f}, cuDNN {c['library_call_ms']:.4f} "
+            f"({card})")
     return {"cases": cases, "worst_rel_err": worst,
             "worst_abs_err": worst_abs, "grad_rel_err": grads,
             "timing": timing, "plan": lk.launch_plan(LSTM_B, LSTM_H),
@@ -1160,6 +1282,8 @@ def rnn_phase(card: str, profile: bool = False) -> dict:
         save_model,
     )
 
+    log(f"rnn: device memory allocated before the phase: "
+        f"{torch.cuda.memory_allocated()} bytes")
     x, y = char_batch()
     net = MultiLayerNetwork(char_lstm(compute_dtype="bfloat16")).init()
     n_lstm = sum(hasattr(lc, "fused") for lc in net.conf.layers)
@@ -1314,22 +1438,31 @@ def main(argv=None) -> int:
         f" in {time.perf_counter() - t0:.1f} s")
     for res in built.values():
         for line in res.log.splitlines():
-            if "ptxas info" in line and ("Used" in line
-                                         or "Compiling" in line):
+            if ("ptxas info" in line and ("Used" in line
+                                          or "Compiling" in line)) or \
+                    "spill" in line:
                 log(f"build: {res.name}: {line.strip()}")
 
     kernels_line = None
     if "kernel" in phases:
         cases = []
-        for c in (1, 16):
+        for c, kd in KERNEL_CASES:
             for dt in ("float32", "bfloat16"):
-                case = kernel_case(c, dt)
+                case = kernel_case(c, dt, kd)
                 cases.append(case)
-                log(f"kernel: C={c} {dt}: err {case['max_abs_err']:.3g} "
-                    f"kernel {case['kernel_ms']:.4f} ms, plain "
-                    f"{case['plain_ms']:.4f} ms, sdpa "
-                    f"{case['library_ms']:.4f} ms, bound "
-                    f"{case['bound_ms']:.4f} ms ({card})")
+                plan = case["split_plan"]
+                log(f"kernel: C={c} K={kd} {dt} ({case['route']}, "
+                    f"{plan['n_splits']} splits of "
+                    f"{plan['pages_per_split']} pages, {plan['blocks']} "
+                    f"blocks): err {case['max_abs_err']:.3g}, worst lane "
+                    f"relative {case['lane_rel_err']:.3g}; device ms: "
+                    f"kernel {case['kernel_ms']:.4f}, plain "
+                    f"{case['plain_ms']:.4f}, sdpa "
+                    f"{case['library_ms']:.4f}, bound "
+                    f"{case['bound_ms']:.4f}; per call back to back: "
+                    f"kernel {case['call_ms']:.4f}, sdpa "
+                    f"{case['library_call_ms']:.4f} ({card})")
+                torch.cuda.empty_cache()
         kernels_line = cases
     flash = flash_phase(card) if "flash" in phases else None
     tree = None
@@ -1354,6 +1487,8 @@ def main(argv=None) -> int:
     if kernels_line is not None:
         main_case = next(c for c in kernels_line
                          if c["C"] == 1 and c["dtype"] == "bfloat16")
+        chunk_case = next(c for c in kernels_line
+                          if c["C"] == 16 and c["dtype"] == "bfloat16")
         launches = serve["kernel_launches"] if serve else 0
         per_dispatch = (launches / serve["dispatches"]
                         if serve and serve["dispatches"] else None)
@@ -1365,11 +1500,21 @@ def main(argv=None) -> int:
             "max_abs_err": main_case["max_abs_err"],
             "ms": main_case["kernel_ms"],
             "kernel_ms": main_case["kernel_ms"],
+            "call_ms": main_case["call_ms"],
             "plain_ms": main_case["plain_ms"],
             "bound_ms": main_case["bound_ms"],
             "bound_by": main_case["bound_by"],
             "library_ms": main_case["library_ms"],
             "shape": main_case["shape"], "dtype": "bfloat16",
+            "redesigned": True,
+            "routes": {"bfloat16": {"C=1": "fma (vectorised warp dot "
+                                    "products)",
+                                    "C>1": "tensor_cores (mma.sync "
+                                    "m16n8k16, 16 columns a block)"},
+                       "float32": "fma"},
+            "chunk_ms": chunk_case["kernel_ms"],
+            "chunk_library_ms": chunk_case["library_ms"],
+            "split_plan": main_case["split_plan"],
             "cases": kernels_line,
         })
     if flash is not None:
@@ -1391,6 +1536,7 @@ def main(argv=None) -> int:
                 "max_rel_err": max(main_case["max_rel_err"][n]
                                    for n in err_of[kname]),
                 "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
+                "call_ms": t["call_ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                 "library": ("scaled_dot_product_attention forward"
@@ -1399,6 +1545,12 @@ def main(argv=None) -> int:
                             "backward"),
                 "shape": main_case["shape"], "causal": True,
                 "dtype": "bfloat16",
+                **({"redesigned": True,
+                    "routes": {"bfloat16": "tensor_cores (wgmma) for "
+                               "D % 8 == 0, else fma",
+                               "float32": "fma"}}
+                   if kname == "flash_fwd" else {"routes": {
+                       "bfloat16": "fma", "float32": "fma"}}),
                 "cases": [{k: v for k, v in c.items() if k != "timing"}
                           for c in flash],
             })
@@ -1412,6 +1564,7 @@ def main(argv=None) -> int:
             "max_abs_err": max(lstm["worst_abs_err"].values()),
             "max_rel_err": lstm["worst_rel_err"],
             "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
+            "call_ms": t["call_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "library": LSTM_LIBRARY,
@@ -1420,7 +1573,8 @@ def main(argv=None) -> int:
             "grad_rel_err": lstm["grad_rel_err"], "cases": lstm["cases"],
             "plan": lstm["plan"]})
     if entries:
-        print(json.dumps({"kernels": entries}), flush=True)
+        print(json.dumps({"kernels": entries, "timing": TIMING_NOTE}),
+              flush=True)
     if serve is not None:
         print(json.dumps({"serve": serve}), flush=True)
     if parity is not None:

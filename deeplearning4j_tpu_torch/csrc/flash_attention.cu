@@ -23,31 +23,62 @@
 // into [B*H, S, D].  lse and delta are [B*H, S] float32, row b*H + h.
 // Any S is taken: the last tile of a sequence is predicated (rows past S
 // load as zero and are masked), so no tile size has to divide S.
+// Masked scores are -1e30 and their probabilities are set to 0, as on the
+// TPU; the normaliser is clamped at 1e-30.  dK and dQ carry the 1/sqrt(D)
+// factor, dV does not.
 //
-// Numerics.  Inputs (float32 or bfloat16) are converted to f32 when a
-// tile is staged in shared memory; every product and sum is f32; outputs
-// and gradients are stored in the input dtype.  Masked scores are -1e30
-// and their probabilities are set to 0, as on the TPU; the normaliser is
-// clamped at 1e-30.  dK and dQ carry the 1/sqrt(D) factor, dV does not.
+// The forward has two routes, chosen by the entry from the dtype, D and
+// the pointers' alignment (never by a switch):
 //
-// Design for the card.  The TPU kernels run a sequential grid axis with
-// f32 accumulators in VMEM scratch.  Here one thread block owns one
-// 64-row tile (a query tile for fwd and dq, a key tile for dkv) and walks
-// the other axis in a loop, with its accumulators in registers.  256
-// threads form a 16 x 16 grid; thread (ty, tx) owns rows ty + 16 i and
-// columns tx + 16 j of every 64 x 64 score tile (i, j < 4), so a row's 16
-// owners are 16 consecutive lanes of one warp and row reductions are
-// half-warp shuffles.  Tiles live in shared memory as f32 with rows padded
-// to D + 1 floats, so the 16 lanes reading 16 different rows at one column
-// hit 16 different banks.  Fully masked causal tiles are skipped by the
-// loop bounds (the TPU's dynamic bounds and pl.when guards).
+// 1. Tensor cores (flash_fwd_mma_kernel): bfloat16 with D a multiple of 8
+//    and 16-byte aligned tensors, which covers every real head width (16,
+//    32, 40, 64, 80, 96, 128).  At the training shape (B 2, S 1024, H 12,
+//    D 64, causal) the forward does ~256 flops per byte it must move, near
+//    the card's ridge: its bound is 3.8 us of bytes against 3.3 us of
+//    bf16 tensor-core work, while the f32 FMA pipes it used before need
+//    48 us for the products alone.  So the products must run on the
+//    tensor cores and the loads must overlap them.  Design: the
+//    FlashAttention-2 order of work on Hopper's warpgroup products
+//    (wgmma.mma_async, bf16 in, f32 accumulate; not mma.sync).  One
+//    warpgroup (4 warps) owns a 64-row query tile, each warp 16 rows of
+//    the m64 accumulators.  S = Q K^T is wgmma m64n64k16 with Q and K
+//    read from shared memory by descriptors; the 1/sqrt(D) scale (times
+//    log2 e) is applied to the f32 score fragments inside the exponent,
+//    p = 2^(s * scale * log2 e - m), one FFMA and one MUFU op an element
+//    (q is not rounded a second time); the online softmax runs on the
+//    fragments with the row max and sum as short trees and then over the
+//    4 lanes that share a row; P is rounded to bf16 in registers and is
+//    the register A operand of O += P V (wgmma m64nNk16, N = D padded),
+//    with V read from shared memory MN-major (transposed by the
+//    instruction); the output accumulator stays in registers.  Q, K and
+//    V tiles of 64 rows stay bf16 in shared memory in the 128-byte
+//    swizzled layout wgmma reads without bank conflicts, D zero-padded
+//    to 64 or 128 columns; K and V are copied by 16-byte cp.async into a
+//    two-stage ring (tile j + 1 loads while tile j is computed; one
+//    barrier a tile, and a proxy fence so wgmma sees cp.async's writes).
+//    Causal: fully masked tiles are skipped, the mask is applied only on
+//    the diagonal tile (and on a ragged last tile), and query tiles are
+//    issued longest first (the tile index is the grid's slow axis,
+//    reversed).  Tried on the H100 and left out, none faster at the
+//    training shape: the same order on mma.sync with ldmatrix (faster
+//    only at D 16-80, which the zero padding costs), wgmma on unswizzled
+//    shared memory, the next tile's Q K^T issued during the softmax, two
+//    m-tiles a warp, 8 warps a block, 128 keys a stage, a deeper ring,
+//    and a persistent grid taking tiles from a queue.
+// 2. FMA (flash_fwd_kernel): float32, and bfloat16 at any other D or
+//    alignment.  Tiles are staged as f32 in shared memory and both
+//    products run on the f32 FMA pipes in a 16 x 16 thread grid; q is
+//    scaled before its product.  The f32 train path keeps this route for
+//    its <= 1e-6 agreement with the plain version (TF32 would not give it).
 //
-// Bound.  At the training shape (S = 1024, D = 64) every kernel does
-// O(S) flops per byte it must move, far above the card's ridge: all three
-// are bound by operations.  This first version computes on the f32 FMA
-// pipes (67 TFLOP/s) rather than the tensor cores (989 TFLOP/s in bf16),
-// which caps it at a few percent of the bf16 bound; the tensor-core path
-// (wgmma with TMA-fed tiles, warp-specialised) is a later change.
+// The backward kernels are the first, simple design on the FMA pipes:
+// one 256-thread block owns one 64-row tile (a key tile for dkv, a query
+// tile for dq) and walks the other axis with its accumulators in
+// registers; thread (ty, tx) of a 16 x 16 grid owns rows ty + 16 i and
+// columns tx + 16 j of every 64 x 64 score tile, so row reductions are
+// half-warp shuffles over f32 tiles padded to D + 1 floats in shared
+// memory.  They are bound by operations too and reach a few percent of
+// the bf16 tensor-core rate; tensor-core tiles are their next change.
 
 #include <cmath>
 #include <cstddef>
@@ -93,6 +124,165 @@ __device__ __forceinline__ float row_sum(float v) {
     v += __shfl_xor_sync(0xffffffffu, v, o);
   return v;
 }
+
+// ---------------------------------------------------------------------------
+// tensor-core building blocks (cp.async, wgmma)
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte global -> shared copy; writes zeros when !pred (src not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 2^x in one MUFU op (flushes results below 2^-126 to 0).
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+// wgmma (warpgroup matrix multiply) building blocks
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Shared-memory writes of the generic proxy (cp.async, st.shared) made
+// visible to wgmma's reads (the async proxy).
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads of wgmma accumulators across the
+// asynchronous product (they are written until wgmma_wait0 returns).
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// Descriptor of a bf16 matrix in shared memory without swizzle, made of
+// 8 x 8 core matrices (8 rows of 16 bytes, 128 contiguous bytes): lbo and
+// sbo are the byte strides between core matrices along the leading and
+// the strided dimension.
+__device__ __forceinline__ uint64_t smem_desc(const void* p, int lbo,
+                                              int sbo) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)(lbo >> 4) << 16) | ((uint64_t)(sbo >> 4) << 32) |
+         (1ull << 62);                                      // 128B swizzle
+}
+
+// d (64 x 64 f32, 32 a thread) (+)= A B for one k16 step, A and B both
+// K-major bf16 in shared memory (descriptors); scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}"
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d (64 x N f32, N / 2 a thread) += A B for one k16 step: A from
+// registers (per warp, the m16n8k16 A fragment layout), B MN-major bf16
+// in shared memory (imm-trans-b = 1).
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31}"
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, "
+      "%13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, "
+      "%35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, "
+      "%46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, "
+      "%57, %58, %59, %60, %61, %62, %63}"
+      ", {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),
+        "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),
+        "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),
+        "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 
 // Stage rows t0 .. t0 + kTile of head (b, h) of a [B, S, H, D] tensor as
 // f32 into dst (row stride ld), times `mul`; rows at or past S are zero.
@@ -252,6 +442,244 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       if (d < D) out[row + d] = from_f32<T>(acc[i][c] / lc);
     }
     if (tx == 0) lse[((size_t)b * H + h) * S + qp] = m[i] + logf(lc);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward on the tensor cores (bfloat16, D % 8 == 0): grid (B * H,
+// ceil(S / 64)); blockIdx.y counts query tiles from the last one, so the
+// longest causal tiles are issued first.  One warpgroup (4 warps, 16 query
+// rows each) a block; a stage holds 64 keys; NK = ceil(D / 16).
+//
+// Tiles sit in shared memory as 8 x 8 core matrices: row r, 16-byte chunk
+// c of a [64][16 NK] tile at ((r / 8) * 2 NK + c) * 64 + (r % 8) * 8
+// elements, so along a row the core matrices are 128 bytes apart and
+// along the rows 256 NK bytes.  Q and K are read K-major (d contiguous),
+// V MN-major (keys are the reduction, d contiguous), from the same
+// layout.
+
+constexpr int kMmaThreads = 128;       // one warpgroup
+constexpr int kStages = 2;             // K/V ring: tile j + 1 loads during j
+constexpr float kLn2 = 0.6931471805599453f;
+
+// Element offset of row r, 16-byte chunk c of a [64][64 NA] tile: 128B
+// swizzle atoms of 64 columns (8 KB each, 128 bytes a row, the chunks of
+// row r XOR-ed with r % 8), the atoms of a row 64 * 64 elements apart.
+__host__ __device__ constexpr int sw_off(int r, int c) {
+  return (c >> 3) * kTile * 64 + r * 64 + (((c & 7) ^ (r & 7)) << 3);
+}
+
+// Start of k16 step kk of a K-major tile (Q, K): atom kk / 4, 32 bytes
+// a step inside the atom's unswizzled row (the hardware applies the XOR).
+__host__ __device__ constexpr int k_off(int kk) {
+  return (kk >> 2) * kTile * 64 + (kk & 3) * 16;
+}
+
+template <int NA>
+size_t fwd_mma_bytes() {               // q, then the K and V rings
+  return (size_t)(1 + 2 * kStages) * kTile * 64 * NA * sizeof(bf16);
+}
+
+template <int NA>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, bf16* __restrict__ out,
+                     float* __restrict__ lse, int S, int H, int D,
+                     float scale, int causal) {
+  constexpr int DP = 64 * NA;          // D zero-padded to whole atoms
+  constexpr int NK = DP / 16;          // k16 steps of Q K^T
+  constexpr int CH = DP / 8;           // 16-byte chunks a row
+  constexpr int TILE = kTile * DP;     // elements of a tile
+  constexpr int NT = kTile / 8;        // n-tiles of 8 keys a stage
+  constexpr int SBO = 8 * 128;         // bytes between 8-row groups
+  constexpr int ATOM = kTile * 64 * 2; // bytes between 64-column atoms
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);   // [TILE]
+  bf16* k_s = q_s + TILE;                          // [kStages][TILE]
+  bf16* v_s = k_s + kStages * TILE;                // [kStages][TILE]
+
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x - b * H;
+  const int qt = gridDim.y - 1 - blockIdx.y;       // longest first
+  const int q0 = qt * kTile;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;                         // fragment row
+  const int t4 = lane & 3;                         // fragment column pair
+  const int row0 = q0 + warp * 16 + g;             // rows row0, row0 + 8
+  const size_t rs = (size_t)H * D;                 // row stride
+  const size_t head = (size_t)b * S * rs + (size_t)h * D;
+  const int chunks = D / 8;                        // 16-byte chunks a row
+  const float sl2 = scale * kLog2e;                // scores in log2 units
+
+  // the pad chunks [D / 8, CH) are zero in every tile and never copied to
+  if (DP > D) {
+    const int pads = CH - chunks;
+    for (int e = threadIdx.x; e < (1 + 2 * kStages) * kTile * pads;
+         e += kMmaThreads) {
+      const int r = e / pads;                      // row over all tiles
+      *reinterpret_cast<uint4*>(q_s + (r / kTile) * TILE +
+                                sw_off(r % kTile, chunks + e - r * pads)) =
+          make_uint4(0, 0, 0, 0);
+    }
+  }
+
+  // rows t0 .. t0 + kTile of src into dst; rows at or past S are zeros
+  auto stage = [&](bf16* dst, const bf16* src, int t0) {
+    const bf16* base = src + head;
+    for (int e = threadIdx.x; e < kTile * CH; e += kMmaThreads) {
+      const int r = e / CH;
+      const int c = e - r * CH;
+      if (c >= chunks) continue;                   // the pad stays zero
+      const int t = t0 + r;
+      const bool ok = t < S;
+      cp_async16(dst + sw_off(r, c),
+                 base + (size_t)(ok ? t : 0) * rs + c * 8, ok);
+    }
+  };
+  auto stage_kv = [&](int j) {
+    const int st = j % kStages;
+    stage(k_s + st * TILE, k, j * kTile);
+    stage(v_s + st * TILE, v, j * kTile);
+  };
+
+  const int n_kv = (S + kTile - 1) / kTile;
+  const int n_tiles = causal ? min(n_kv, qt + 1) : n_kv;
+  // prologue: q with tile 0, then tiles 1 .. kStages - 2, a group each
+  stage(q_s, q, q0);
+  stage_kv(0);
+  cp_async_commit();
+#pragma unroll
+  for (int i = 1; i < kStages - 1; ++i) {
+    if (i < n_tiles) stage_kv(i);
+    cp_async_commit();
+  }
+
+  float o[DP / 2];                     // 64 x DP, 8-column n-tiles of 4
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  // row max in log2 units (of the scaled scores), and this lane's share
+  // of the row sum
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.f, 0.f};
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<kStages - 2>();      // tile j has landed
+    fence_async_shared();              // ... visible to wgmma
+    __syncthreads();                   // ... for every warp; j - 1 is read
+    if (j + kStages - 1 < n_tiles) stage_kv(j + kStages - 1);
+    cp_async_commit();
+    const int st = j % kStages;
+    const bf16* ks = k_s + st * TILE;
+    const bf16* vs = v_s + st * TILE;
+
+    // S = Q K^T over the stage's 64 keys (raw, f32): s[4 nt + e]
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk)
+      wgmma_ss_n64(s, smem_desc(q_s + k_off(kk), 16, SBO),
+                   smem_desc(ks + k_off(kk), 16, SBO), kk > 0);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(s);
+
+    // mask only the diagonal tile and a ragged last tile
+    const int k0 = j * kTile;
+    if ((causal && j == qt) || k0 + kTile > S) {
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = k0 + nt * 8 + 2 * t4 + (e & 1);
+          const int qp = row0 + (e >> 1) * 8;
+          if (kp >= S || (causal && kp > qp)) s[4 * nt + e] = kNegInf;
+        }
+    }
+
+    // online softmax on the fragments, p overwriting s.  The scale is
+    // applied in f32 inside the exponent: p = 2^(s * scale * log2 e - m).
+    // Every row has a live key in tile 0 (key 0), so m is finite from
+    // then on and a masked score's p underflows to exactly 0.
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      // row max and sum as trees over the n-tiles (short chains)
+      float mxs[NT];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+        mxs[nt] = fmaxf(s[4 * nt + 2 * i], s[4 * nt + 2 * i + 1]);
+#pragma unroll
+      for (int w2 = NT / 2; w2 > 0; w2 >>= 1)
+#pragma unroll
+        for (int nt = 0; nt < w2; ++nt) mxs[nt] = fmaxf(mxs[nt], mxs[nt + w2]);
+      float mx = mxs[0];
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[i], mx * sl2);
+      const float alpha = fast_exp2(m[i] - m_new);
+      float pss[NT];
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt) {
+        const float p0 = fast_exp2(fmaf(s[4 * nt + 2 * i], sl2, -m_new));
+        const float p1 = fast_exp2(fmaf(s[4 * nt + 2 * i + 1], sl2, -m_new));
+        s[4 * nt + 2 * i] = p0;
+        s[4 * nt + 2 * i + 1] = p1;
+        pss[nt] = p0 + p1;
+      }
+#pragma unroll
+      for (int w2 = NT / 2; w2 > 0; w2 >>= 1)
+#pragma unroll
+        for (int nt = 0; nt < w2; ++nt) pss[nt] += pss[nt + w2];
+      l[i] = l[i] * alpha + pss[0];
+      m[i] = m_new;
+#pragma unroll
+      for (int dt = 0; dt < DP / 8; ++dt) {
+        o[4 * dt + 2 * i] *= alpha;
+        o[4 * dt + 2 * i + 1] *= alpha;
+      }
+    }
+
+    // O += P V: P from registers as bf16 A fragments (16 keys a step), V
+    // MN-major from shared memory
+    uint32_t a[NT / 2][4];
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk) {
+      a[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+      a[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+      a[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+      a[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+    }
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk)
+      wgmma_rs<DP>(o, a[kk], smem_desc(vs + 16 * kk * 64, ATOM, SBO));
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(o);
+  }
+  cp_async_wait<0>();                  // no copy outlives the block
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float li = l[i];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    const float lc = fmaxf(li, 1e-30f);
+    const float inv = 1.f / lc;
+    const int qp = row0 + 8 * i;
+    if (qp >= S) continue;
+    bf16* orow = out + head + (size_t)qp * rs;
+#pragma unroll
+    for (int dt = 0; dt < DP / 8; ++dt) {
+      if (dt * 8 < D)
+        *reinterpret_cast<uint32_t*>(orow + dt * 8 + 2 * t4) =
+            pack_bf16(o[4 * dt + 2 * i] * inv, o[4 * dt + 2 * i + 1] * inv);
+    }
+    // lse = m + log(l) of the scaled scores, m back in natural units
+    if (t4 == 0) lse[((size_t)b * H + h) * S + qp] = m[i] * kLn2 + logf(lc);
   }
 }
 
@@ -541,6 +969,42 @@ cudaError_t fwd(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
+template <int NA>
+cudaError_t fwd_mma(const void* q, const void* k, const void* v, void* out,
+                    void* lse, int B, int S, int H, int D, int causal,
+                    cudaStream_t stream) {
+  const size_t smem = fwd_mma_bytes<NA>();
+  auto kernel = flash_fwd_mma_kernel<NA>;
+  cudaError_t err = prepare((const void*)kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int n_q = (S + kTile - 1) / kTile;
+  if (n_q > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(B * H, n_q);
+  kernel<<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out),
+      static_cast<float*>(lse), S, H, D, 1.0f / sqrtf((float)D), causal);
+  return cudaGetLastError();
+}
+
+// The tensor-core route: bfloat16, D a multiple of 8, every tensor on a
+// 16-byte boundary (cp.async copies 16 bytes).
+bool mma_route(const void* q, const void* k, const void* v, const void* out,
+               int D, int dtype) {
+  const uintptr_t bits = reinterpret_cast<uintptr_t>(q) |
+                         reinterpret_cast<uintptr_t>(k) |
+                         reinterpret_cast<uintptr_t>(v) |
+                         reinterpret_cast<uintptr_t>(out);
+  return dtype == 1 && D % 8 == 0 && (bits & 15) == 0;
+}
+
+cudaError_t fwd_mma_dispatch(const void* q, const void* k, const void* v,
+                             void* out, void* lse, int B, int S, int H,
+                             int D, int causal, cudaStream_t s) {
+  return D <= 64 ? fwd_mma<1>(q, k, v, out, lse, B, S, H, D, causal, s)
+                 : fwd_mma<2>(q, k, v, out, lse, B, S, H, D, causal, s);
+}
+
 template <typename T, int DPER>
 cudaError_t dkv(const void* q, const void* k, const void* v, const void* g,
                 const void* lse, const void* delta, void* dk, void* dv,
@@ -596,6 +1060,7 @@ extern "C" {
 
 // Dynamic shared memory one launch needs, in bytes: kind 0 = forward,
 // 1 = dK/dV, 2 = dQ.
+// (The tensor-core forward needs 5 * 64 * (16 * ceil(D / 16) + 8) * 2.)
 size_t dl4j_flash_smem_bytes(int kind, int D) {
   const size_t f = kind == 0 ? fwd_floats(D)
                              : kind == 1 ? dkv_floats(D) : dq_floats(D);
@@ -608,12 +1073,22 @@ size_t dl4j_flash_smem_bytes(int kind, int D) {
 // cudaGetLastError() after the launch.
 
 // out [B, S, H, D] and lse [B*H, S] of flash attention over q, k, v.
+// bfloat16 with D % 8 == 0 and 16-byte aligned tensors runs on the tensor
+// cores; float32 and any other bfloat16 input on the FMA pipes.
 int dl4j_flash_fwd(const void* q, const void* k, const void* v, void* out,
                    void* lse, int B, int S, int H, int D, int causal,
                    int dtype, void* stream) {
   if (bad_shape(B, S, H, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mma_route(q, k, v, out, D, dtype))
+    return (int)fwd_mma_dispatch(q, k, v, out, lse, B, S, H, D, causal, s);
   DL4J_DISPATCH(fwd, q, k, v, out, lse, B, S, H, D, causal, s);
+}
+
+// 1 when dl4j_flash_fwd takes the tensor-core route for these inputs.
+int dl4j_flash_fwd_tensor_cores(const void* q, const void* k, const void* v,
+                                const void* out, int D, int dtype) {
+  return mma_route(q, k, v, out, D, dtype) ? 1 : 0;
 }
 
 // dk, dv of flash attention given dO = g and the row stats lse, delta.

@@ -7,14 +7,18 @@ LSTM.java:58.  Params per layer: ``W [n_in, 4n]``, ``RW [n, 4n]``, ``b
 [4n]`` and, with peepholes, ``pi``/``pf``/``po`` ``[n]``; gate order
 ``[i, f, o, g]``; activations ``[batch, time, features]``.
 
-Path policy for the LSTMs.  With no mask and the tanh activation the
-time loop is the fused scan (`lstm_kernel.fused_lstm_scan`: the CUDA
-kernel on a CUDA tensor, its plain version on a CPU tensor) unless the
-layer's conf says ``fused=False``.  ``fused=False``, a mask or another
-activation runs the step-by-step scan in the compute dtype, as the JAX
-package's ``lax.scan`` body does; that is a configured path, not a
-fallback.  The JAX package resolves ``fused=None`` to its scan (unless
-its environment switch is set): the two paths agree in f32, and in bf16
+Path policy for the LSTMs, decided from the conf before any call.  With
+no mask and the tanh activation the time loop is the fused scan
+(`lstm_kernel.fused_lstm_scan`: the CUDA kernel on a CUDA tensor, its
+plain version on a CPU tensor) when the conf says ``fused=True``, or
+says nothing (``fused=None``) and the width is one the kernel takes
+(``n_out <= lstm_kernel.MAX_HIDDEN``).  ``fused=False``, ``fused=None``
+above that width, a mask or another activation runs the step-by-step
+scan in the compute dtype, as the JAX package's ``lax.scan`` body does;
+that is a configured path, not a fallback.  An explicit ``fused=True``
+above the width raises the kernel's ``ValueError`` on the card.  The JAX
+package resolves ``fused=None`` to its scan for any width (unless its
+environment switch is set): the two paths agree in f32, and in bf16
 differ by design (the fused scan carries h and c in f32).
 """
 
@@ -25,7 +29,10 @@ import torch
 from deeplearning4j_tpu_torch.nn.conf import layers as L
 from deeplearning4j_tpu_torch.nn.layers import LayerImpl, register_layer_impl
 from deeplearning4j_tpu_torch.nn.layers.common import apply_dropout
-from deeplearning4j_tpu_torch.nn.layers.lstm_kernel import fused_lstm_scan
+from deeplearning4j_tpu_torch.nn.layers.lstm_kernel import (
+    MAX_HIDDEN,
+    fused_lstm_scan,
+)
 from deeplearning4j_tpu_torch.ops.activations import get_activation
 from deeplearning4j_tpu_torch.ops.initializers import init_weights
 
@@ -52,9 +59,14 @@ def _lstm_init(conf, gen, dtype, peephole: bool):
 
 def uses_fused_scan(conf, mask) -> bool:
     """The path policy: the fused scan unless a mask, a non-tanh
-    activation or ``fused=False`` asks for the step-by-step scan."""
-    return (mask is None and conf.activation.lower() == "tanh"
-            and conf.fused is not False)
+    activation or ``fused=False`` asks for the step-by-step scan;
+    ``fused=None`` means the fused scan only up to the kernel's width
+    (``MAX_HIDDEN``)."""
+    if mask is not None or conf.activation.lower() != "tanh":
+        return False
+    if conf.fused is None:
+        return conf.n_out <= MAX_HIDDEN
+    return bool(conf.fused)
 
 
 def _lstm_apply(conf, params, state, x, *, train=False, rng=None, mask=None,

@@ -83,6 +83,8 @@ def _lib() -> ctypes.CDLL:
             for fn in (lib.dl4j_flash_fwd, lib.dl4j_flash_bwd_dkv,
                        lib.dl4j_flash_bwd_dq):
                 fn.restype = ci
+            lib.dl4j_flash_fwd_tensor_cores.argtypes = [vp] * 4 + [ci, ci]
+            lib.dl4j_flash_fwd_tensor_cores.restype = ci
             lib.dl4j_flash_smem_bytes.argtypes = [ci, ci]
             lib.dl4j_flash_smem_bytes.restype = ctypes.c_size_t
             lib.dl4j_flash_error_string.argtypes = [ci]
@@ -198,6 +200,17 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_forward.launches = LaunchCounter()
+
+
+def flash_forward_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor) -> str:
+    """The route the CUDA entry takes for these card tensors:
+    ``"tensor_cores"`` (wgmma) for bfloat16 with a head dim that is a
+    multiple of 8 and 16-byte aligned tensors, else ``"fma"``."""
+    tc = _lib().dl4j_flash_fwd_tensor_cores(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        q.shape[-1], _DTYPE_CODES[q.dtype])
+    return "tensor_cores" if tc else "fma"
 
 
 def _bwd_plain(q, k, v, g, lse, delta, causal, want):
@@ -357,5 +370,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 __all__ = ["LaunchCounter", "MAX_HEAD_DIM", "NEG_INF", "flash_attention",
            "flash_bwd_block", "flash_bwd_block_plain", "flash_bwd_dkv",
            "flash_bwd_dkv_plain", "flash_bwd_dq", "flash_bwd_dq_plain",
-           "flash_forward", "flash_forward_plain",
+           "flash_forward", "flash_forward_plain", "flash_forward_route",
            "mask_value", "row_delta"]

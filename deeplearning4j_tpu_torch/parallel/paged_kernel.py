@@ -8,6 +8,13 @@ hand-written Hopper kernel in ``csrc/paged_attention.cu`` (built with
 `paged_flash_attention_plain`, the plain PyTorch version.  There is no
 switch: on the card the kernel always runs.
 
+The kernel splits each lane's pages across blocks (flash-decoding): the
+plan, `paged_split_plan` (pages and query columns a block), is computed
+here from the shapes and the card's SM count and handed to the C entry.
+One call counts as one launch in
+``paged_flash_attention.launches``, whether it ran the split kernel
+alone (one split) or the split kernel and the merge kernel.
+
 Semantics (identical to the TPU kernel): query column ``c`` of lane ``b``
 sits at position ``pos[b] + c`` and sees keys ``t <= pos[b] + c``; the
 pools already hold this dispatch's own keys.  At every fed column
@@ -19,6 +26,7 @@ the full horizon in the plain version, and no caller reads them.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
 from typing import Optional
@@ -31,6 +39,14 @@ from deeplearning4j_tpu_torch.parallel.kernels import (
 )
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# The widest head dim the kernel takes (csrc/paged_attention.cu kMaxK),
+# and the entry's return code for a wider one (kErrHeadDim).
+MAX_HEAD_DIM = 256
+_ERR_HEAD_DIM = -1
+# The split plan aims at this many blocks per SM, and gives a block at
+# least this many keys.
+BLOCKS_PER_SM = 8
+MIN_SPLIT_KEYS = 128
 _lib_lock = threading.Lock()
 _lib_handle: Optional[ctypes.CDLL] = None
 
@@ -44,14 +60,58 @@ def _lib() -> ctypes.CDLL:
 
             lib = _build.load("paged_attention")
             vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.dl4j_paged_attention.argtypes = [vp] * 7 + [ci] * 8 + [vp]
+            lib.dl4j_paged_attention.argtypes = [vp] * 9 + [ci] * 11 + [vp]
             lib.dl4j_paged_attention.restype = ci
-            lib.dl4j_paged_attention_smem_bytes.argtypes = [ci, ci]
+            lib.dl4j_paged_attention_smem_bytes.argtypes = [ci] * 4
             lib.dl4j_paged_attention_smem_bytes.restype = ctypes.c_size_t
             lib.dl4j_cuda_error_string.argtypes = [ci]
             lib.dl4j_cuda_error_string.restype = ctypes.c_char_p
             _lib_handle = lib
         return _lib_handle
+
+
+def block_cols(c: int, dtype: torch.dtype) -> int:
+    """Query columns one block of the split kernel takes, which also
+    picks its kernel: 1 at C = 1 and 4 for float32 with C > 1 (the FMA
+    route), 16 for bfloat16 with C > 1 (the tensor-core route)."""
+    if c == 1:
+        return 1
+    return 16 if dtype == torch.bfloat16 else 4
+
+
+def paged_split_plan(b: int, c: int, h: int, kd: int, mp: int, ps: int,
+                     dtype: torch.dtype, n_sm: int) -> dict:
+    """How the kernel splits a ``[B, C, H, K]`` call over a table of
+    ``MP`` pages of ``ps`` keys on a card of ``n_sm`` SMs.
+
+    Each block takes one (lane, head, query-column tile, range of at
+    most ``pages_per_split`` logical pages).  The plan aims at
+    `BLOCKS_PER_SM` blocks per SM with at least `MIN_SPLIT_KEYS` keys a
+    block; ``n_splits = ceil(MP / pages_per_split)``.  With more than
+    one split every block writes its partial (m, l) into ``part_ml``
+    and its unnormalised output into ``part_acc`` (f32 scratch of the
+    given shapes), and a merge kernel writes ``out``."""
+    cols = block_cols(c, dtype)
+    c_tiles = -(-c // cols)
+    base = b * h * c_tiles
+    want = max(1, -(-BLOCKS_PER_SM * n_sm // base))
+    pps = min(mp, max(-(-mp // want), -(-MIN_SPLIT_KEYS // ps)))
+    n_splits = -(-mp // pps)
+    split = n_splits > 1
+    return {"pages_per_split": pps, "n_splits": n_splits, "cols": cols,
+            "c_tiles": c_tiles, "blocks": n_splits * base,
+            "part_ml": (n_splits, b, c, h, 2) if split else None,
+            "part_acc": (n_splits, b, c, h, kd) if split else None}
+
+
+@functools.lru_cache(maxsize=256)
+def _device_plan(b: int, c: int, h: int, kd: int, mp: int, ps: int,
+                 dtype: torch.dtype, device_index: int) -> dict:
+    """`paged_split_plan` for the card `device_index` (its SM count read
+    once; the serving loop calls with a handful of shapes)."""
+    n_sm = torch.cuda.get_device_properties(
+        device_index).multi_processor_count
+    return paged_split_plan(b, c, h, kd, mp, ps, dtype, n_sm)
 
 
 def paged_flash_attention_plain(q: torch.Tensor, k_pages: torch.Tensor,
@@ -146,19 +206,37 @@ def paged_flash_attention(q: torch.Tensor, k_pages: torch.Tensor,
     out = torch.empty_like(q)
     h, kd = q.shape[2], q.shape[3]
     pages, ps = k_pages.shape[0], k_pages.shape[1]
+    mp = table.shape[1]
+    plan = _device_plan(b, c, h, kd, mp, ps, q.dtype,
+                        q.device.index if q.device.index is not None
+                        else torch.cuda.current_device())
+    ml_ptr = acc_ptr = None
+    if plan["n_splits"] > 1:
+        n_ml = math.prod(plan["part_ml"])
+        part = torch.empty(n_ml + math.prod(plan["part_acc"]),
+                           dtype=torch.float32, device=q.device)
+        ml_ptr = part.data_ptr()
+        acc_ptr = ml_ptr + 4 * n_ml
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.dl4j_paged_attention(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
             table.data_ptr(), pos.data_ptr(), n_feed.data_ptr(),
-            out.data_ptr(), b, c, h, kd, pages, ps, table.shape[1],
+            out.data_ptr(), ml_ptr, acc_ptr, b, c, h, kd, pages, ps, mp,
+            plan["pages_per_split"], plan["n_splits"], plan["cols"],
             _DTYPE_CODES[q.dtype], stream)
+    if err == _ERR_HEAD_DIM:
+        raise RuntimeError(f"paged attention kernel refused head dim "
+                           f"K={kd}: it takes K <= {MAX_HEAD_DIM}")
     if err != 0:
-        smem = lib.dl4j_paged_attention_smem_bytes(c, kd)
+        smem = lib.dl4j_paged_attention_smem_bytes(
+            plan["cols"], kd, _DTYPE_CODES[q.dtype],
+            plan["pages_per_split"])
         raise RuntimeError(
             f"paged attention kernel launch failed: "
             f"{lib.dl4j_cuda_error_string(err).decode()} (error {err}; "
-            f"B={b} C={c} H={h} K={kd} needs {smem} bytes of shared "
+            f"B={b} C={c} H={h} K={kd}, {plan['n_splits']} splits of "
+            f"{plan['pages_per_split']} pages, {smem} bytes of shared "
             f"memory per block)")
     paged_flash_attention.launches.add()
     return out
@@ -179,5 +257,7 @@ def paged_hbm_bytes(n_layers: int, lanes: int, live_pages: int,
     return 2 * n_layers * lanes * rows * n_heads * head_dim * itemsize
 
 
-__all__ = ["LaunchCounter", "paged_flash_attention",
-           "paged_flash_attention_plain", "paged_hbm_bytes"]
+__all__ = ["BLOCKS_PER_SM", "LaunchCounter", "MAX_HEAD_DIM",
+           "MIN_SPLIT_KEYS", "block_cols", "paged_flash_attention",
+           "paged_flash_attention_plain", "paged_hbm_bytes",
+           "paged_split_plan"]

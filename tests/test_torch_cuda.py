@@ -1,7 +1,8 @@
 """PyTorch port on an NVIDIA card: the hand-written CUDA kernels (paged
-attention; the flash-attention forward and its two backward kernels;
-the fused LSTM scan) and the serving, LM-training and `MultiLayerNetwork`
-paths that launch them.
+attention with its page split; the flash-attention forward on the tensor
+cores and on the FMA pipes, and its two backward kernels; the fused LSTM
+scan) and the serving (``prefill_chunk`` up to 128 and beyond),
+LM-training and `MultiLayerNetwork` paths that launch them.
 
 Every test carries the ``cuda`` marker and decides inside the test
 whether a card is present, skipping with a reason when not (the kernels
@@ -32,6 +33,10 @@ CASES = {
     "chunk16_ps16_served": (3, 16, 12, 64, 16, 8, [0, 40, 100],
                             [16, 5, 16], ()),
     "chunk3_ps33_k80": (2, 3, 3, 80, 33, 3, [31, 60], [3, 2], ()),
+    # prefill_chunk=128 at GPT-2 head width, and a 64-wide chunk at K 128
+    "chunk128_ps16_k64": (2, 128, 2, 64, 16, 10, [0, 20], [128, 100], ()),
+    "chunk64_ps16_k128": (3, 64, 2, 128, 16, 8, [0, 33, 60], [64, 17, 64],
+                          ()),
 }
 
 
@@ -78,20 +83,44 @@ def test_kernel_matches_plain(name, dtype):
     want = tpk.paged_flash_attention_plain(q.float(), kp.float(),
                                            vp.float(), table, pos, nf)
     tol = 1e-4 if dt == torch.float32 else 2e-2
+    lane_rtol = 1e-4 if dt == torch.float32 else 1e-2
     for i, n in enumerate(CASES[name][7]):
         if n:
             torch.testing.assert_close(got[i, :n].float(), want[i, :n],
                                        atol=tol, rtol=0)
+            # each lane also within a share of its largest reference value
+            scale = float(want[i, :n].abs().max())
+            torch.testing.assert_close(got[i, :n].float(), want[i, :n],
+                                       atol=lane_rtol * scale, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_512_column_chunk_at_head_dim_256_is_served(dtype):
+    """C = 512 at K = 256, which the first design refused for its shared
+    memory, is served: the feed width is tiled, so shared memory does
+    not grow with C."""
+    _need_card()
+    case = (1, 512, 2, 256, 16, 32, [0], [512], ())
+    dt = getattr(torch, dtype)
+    q, kp, vp, table, pos, nf = _state(case, dt)
+    before = tpk.paged_flash_attention.launches.value
+    got = tpk.paged_flash_attention(q, kp, vp, table, pos, nf)
+    torch.cuda.synchronize()
+    assert tpk.paged_flash_attention.launches.value == before + 1
+    want = tpk.paged_flash_attention_plain(q.float(), kp.float(),
+                                           vp.float(), table, pos, nf)
+    tol = 1e-4 if dt == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want, atol=tol, rtol=0)
 
 
 def test_refused_launch_raises():
-    """A launch the card refuses (here: more shared memory than a block
-    may have) raises with the CUDA error, and counts nothing."""
+    """A launch the kernel refuses (here: head dim 512, above its 256)
+    raises with the entry's own head-dim code, and counts nothing."""
     _need_card()
     q, kp, vp, table, pos, nf = _state(
-        (1, 512, 1, 256, 4, 2, [0], [512], ()), torch.float32)
+        (1, 4, 1, 512, 4, 2, [0], [4], ()), torch.float32)
     before = tpk.paged_flash_attention.launches.value
-    with pytest.raises(RuntimeError, match="shared memory"):
+    with pytest.raises(RuntimeError, match="refused head dim K=512"):
         tpk.paged_flash_attention(q, kp, vp, table, pos, nf)
     assert tpk.paged_flash_attention.launches.value == before
 
@@ -135,6 +164,40 @@ def test_server_on_the_card_matches_the_checker():
                 assert int(top2.indices[p - 1, 0]) == seq[p]
 
 
+def test_prefill_chunk_128_server_on_the_card_matches_the_checker():
+    """``prefill_chunk=128`` at head dim 64 (refused by the first
+    design): a 300-token prompt is prefilled in 128-token chunks through
+    the kernel and the greedy tokens match the plain checker."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tt.TransformerConfig(vocab_size=512, d_model=128, n_heads=2,
+                               n_layers=2, d_ff=256, max_len=384,
+                               attn_bias=True, tie_embeddings=True)
+    params = tt.params_from_numpy(tt.numpy_params(cfg, seed=2),
+                                  device="cuda")
+    srv = ContinuousLMServer(cfg, params, slots=2, page_size=16,
+                             prefill_chunk=128, device=None)
+    prompt = np.random.default_rng(3).integers(0, 512, 300).tolist()
+    try:
+        tpk.paged_flash_attention.launches.reset()
+        seq = srv.generate(prompt, 12, timeout=300)
+        launches = tpk.paged_flash_attention.launches.value
+        stats = srv.stats()
+    finally:
+        srv.stop()
+    assert stats["dispatch_widths"].get("128", 0) >= 2
+    assert launches == cfg.n_layers * stats["dispatches"] > 0
+    assert seq[:300] == prompt and len(seq) == 312
+    with torch.no_grad():
+        logits = tt._forward(cfg, params, torch.tensor([seq], device="cuda"),
+                             tt.attention)[0]
+    top2 = logits.topk(2, dim=-1)
+    for p in range(300, 312):
+        if float(top2.values[p - 1, 0] - top2.values[p - 1, 1]) < 1e-3:
+            break
+        assert int(top2.indices[p - 1, 0]) == seq[p]
+
+
 # ---------------------------------------------------------------------------
 # flash attention
 
@@ -144,6 +207,9 @@ FLASH_CASES = {
     "s1": (1, 1, 2, 16), "s37_d80": (2, 37, 3, 80), "s64_d64": (2, 64, 2, 64),
     "s130_d16": (1, 130, 2, 16), "s200_d128": (1, 200, 2, 128),
     "s257_d40": (2, 257, 1, 40),
+    # bf16 at a head dim that is not a multiple of 8 (the FMA route), and a
+    # long causal sequence (32 query tiles issued longest first)
+    "s70_d20": (1, 70, 2, 20), "s2048_d64": (1, 2048, 2, 64),
 }
 
 
@@ -190,6 +256,18 @@ def test_flash_kernels_match_plain(name, dtype, causal):
             assert float(got.float().abs().max()) <= 1e-6
         else:
             assert _rel(got, ref) <= tol
+
+
+@pytest.mark.parametrize("dtype,d", [("bfloat16", 64), ("bfloat16", 40),
+                                     ("bfloat16", 20), ("float32", 64)])
+def test_flash_forward_route(dtype, d):
+    """bf16 at a head dim that is a multiple of 8 runs on the tensor
+    cores, everything else on the FMA pipes; the C entry agrees."""
+    _need_card()
+    dt = getattr(torch, dtype)
+    q, k, v, _ = _flash_inputs((1, 8, 2, d), dt)
+    want = "tensor_cores" if dt == torch.bfloat16 and d % 8 == 0 else "fma"
+    assert tk.flash_forward_route(q, k, v, torch.empty_like(q)) == want
 
 
 def test_flash_attention_autograd_on_the_card_matches_plain_attention():
@@ -396,3 +474,38 @@ def test_char_lstm_network_on_the_card_launches_the_kernel():
     out = net.output(x)
     assert out.shape == (6, 9, 11) and out.is_cuda
     assert (launches.value - before[0], residual.value - before[1]) == (7, 6)
+
+
+def test_wide_graves_lstm_on_the_card_takes_the_step_scan():
+    """n_out above the kernel's width with ``fused=None``: forward and
+    gradients run through the step-by-step scan (no kernel launch);
+    ``fused=True`` at that width raises the ValueError that names the
+    limit."""
+    _need_card()
+    import dataclasses
+
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn import conf as tconf
+    from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
+
+    n = lk.MAX_HIDDEN + 76
+    conf = tconf.MultiLayerConfiguration(
+        conf=tconf.NeuralNetConfiguration(seed=5),
+        layers=(tconf.GravesLSTMConf(n_in=11, n_out=n),
+                tconf.RnnOutputLayerConf(n_in=n, n_out=11)))
+    net = MultiLayerNetwork(conf).init()
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, 11, (2, 3))
+    x = np.eye(11, dtype=np.float32)[ids]
+    y = np.eye(11, dtype=np.float32)[np.roll(ids, -1, axis=1)]
+    before = lk.fused_lstm_forward.launches.value
+    losses = [net.fit_batch(x, y) for _ in range(2)]
+    out = net.output(x)
+    assert lk.fused_lstm_forward.launches.value == before
+    assert all(np.isfinite(losses)) and out.shape == (2, 3, 11)
+    assert torch.isfinite(out).all()
+    fused = dataclasses.replace(conf, layers=(
+        dataclasses.replace(conf.layers[0], fused=True), conf.layers[1]))
+    with pytest.raises(ValueError, match=str(lk.MAX_HIDDEN)):
+        MultiLayerNetwork(fused).init().output(x)
+    assert lk.fused_lstm_forward.launches.value == before

@@ -168,3 +168,17 @@ def test_path_policy(fused, mask, activation, want):
                           activation=activation)
     assert trec.uses_fused_scan(conf, torch.ones(1, 1) if mask else None) \
         is want
+
+
+@pytest.mark.parametrize("fused,n_out,want", [
+    (None, 1024, True), (None, 1025, False), (True, 1024, True),
+    (True, 1025, True), (False, 1024, False), (False, 1025, False)])
+def test_path_policy_at_the_kernel_width(fused, n_out, want):
+    """``fused=None`` is the fused scan only up to the kernel's width
+    (`MAX_HIDDEN`), like JAX's scan above it; an explicit ``fused=True``
+    keeps the kernel, which refuses the width on the card."""
+    from deeplearning4j_tpu_torch.nn.conf import GravesLSTMConf
+
+    assert tlk.MAX_HIDDEN == 1024
+    conf = GravesLSTMConf(n_in=3, n_out=n_out, fused=fused)
+    assert trec.uses_fused_scan(conf, None) is want

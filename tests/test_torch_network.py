@@ -448,6 +448,28 @@ def test_the_fused_path_runs_by_default(monkeypatch):
     assert tlk.fused_lstm_forward.launches.value == before   # CPU: plain
 
 
+def test_wide_graves_lstm_takes_the_scan_and_matches_jax(monkeypatch):
+    """n_out 1100 is above the kernel's width: with ``fused=None`` the
+    layer runs the step-by-step scan (no fused call), as JAX's
+    ``fused=None`` does, and matches it at 1e-5."""
+    from deeplearning4j_tpu_torch.nn.layers import recurrent as trec
+
+    calls = []
+    monkeypatch.setattr(trec, "fused_lstm_scan",
+                        lambda *a: calls.append(1))
+    n = tlk.MAX_HIDDEN + 76
+    jc = jconf.MultiLayerConfiguration(
+        conf=jconf.NeuralNetConfiguration(seed=5),
+        layers=(jconf.GravesLSTMConf(n_in=V, n_out=n),
+                jconf.RnnOutputLayerConf(n_in=n, n_out=V)))
+    jn, tn = _pair(jc)
+    x = np.random.default_rng(6).standard_normal((2, 3, V)).astype(
+        np.float32)
+    np.testing.assert_allclose(_np(tn.output(x)), np.asarray(jn.output(x)),
+                               atol=1e-5)
+    assert calls == []
+
+
 def test_network_needs_a_card_unless_the_cpu_is_asked_for(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):

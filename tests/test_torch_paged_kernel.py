@@ -37,6 +37,9 @@ CASES = {
                             ()),
     "chunk_c4_ps5_null": (3, 4, 2, 8, 5, 4, [0, 6, 11], [0, 4, 2], (0,)),
 }
+# a prefill chunk of 128 columns (``prefill_chunk=128``), ragged n_feed
+WIDE_CASES = dict(CASES, chunk_c128_ps16=(2, 128, 2, 8, 16, 10, [0, 20],
+                                          [128, 100], ()))
 
 
 def _state(case, seed=0):
@@ -228,3 +231,133 @@ def test_build_targets_hopper_with_a_plain_c_library():
     assert (_build.CSRC / _build.SOURCES["paged_attention"]).is_file()
     gitignore = (_build.CSRC.parents[1] / ".gitignore").read_text()
     assert "deeplearning4j_tpu_torch/_kernels_build/" in gitignore
+
+
+# ---- the kernel's split plan (flash-decoding) ------------------------------
+
+
+PLAN_SHAPES = {
+    # (b, c, h, kd, mp, ps, dtype, n_sm)
+    "served_decode": (8, 1, 12, 64, 64, 16, torch.bfloat16, 132),
+    "served_chunk": (8, 16, 12, 64, 64, 16, torch.bfloat16, 132),
+    "prefill_chunk128": (8, 128, 12, 64, 64, 16, torch.bfloat16, 132),
+    "f32_chunk": (8, 16, 12, 64, 64, 16, torch.float32, 132),
+    "tiny_pages": (3, 4, 2, 8, 37, 4, torch.float32, 132),
+    "one_lane_long": (1, 1, 1, 64, 4096, 16, torch.bfloat16, 132),
+    "c512_k256": (1, 512, 1, 256, 2, 4, torch.float32, 132),
+}
+
+
+@pytest.mark.parametrize("name", sorted(PLAN_SHAPES))
+def test_split_plan_covers_every_live_page_once(name):
+    """Every live page of every lane falls in exactly one working block,
+    in order, and no working block starts past its lane's frontier."""
+    b, c, h, kd, mp, ps, dtype, n_sm = PLAN_SHAPES[name]
+    plan = tpk.paged_split_plan(b, c, h, kd, mp, ps, dtype, n_sm)
+    pps, n = plan["pages_per_split"], plan["n_splits"]
+    assert 1 <= pps <= mp and n == -(-mp // pps)
+    assert plan["cols"] == tpk.block_cols(c, dtype)
+    assert plan["c_tiles"] * plan["cols"] >= c
+    assert plan["blocks"] == n * b * h * plan["c_tiles"]
+    if n > 1:
+        assert plan["part_ml"] == (n, b, c, h, 2)
+        assert plan["part_acc"] == (n, b, c, h, kd)
+    else:
+        assert plan["part_ml"] is None and plan["part_acc"] is None
+    rng = np.random.default_rng(7)
+    for _ in range(20):
+        pos = rng.integers(0, mp * ps, b)
+        nf = rng.integers(0, c + 1, b)
+        for p, f, ranges in zip(pos, nf, _live_split_ranges(
+                plan, pos, nf, ps, mp)):
+            n_lp = min((p + max(f, 1) - 1) // ps + 1, mp)
+            covered = [pg for lo, hi in ranges for pg in range(lo, hi)]
+            assert covered == list(range(n_lp))
+            assert all(lo < n_lp and lo % pps == 0 for lo, _ in ranges)
+
+
+def test_split_plan_fills_the_card_at_the_served_shape():
+    """Decode and the 16-column chunk at the served shape (B 8, H 12,
+    K 64, page 16, 64 pages) give well over one block per SM of 132."""
+    for c in (1, 16):
+        plan = tpk.paged_split_plan(8, c, 12, 64, 64, 16, torch.bfloat16, 132)
+        assert plan["blocks"] >= 4 * 132 and plan["n_splits"] > 1
+        assert plan["pages_per_split"] * 16 >= tpk.MIN_SPLIT_KEYS
+
+
+def _live_split_ranges(plan, pos, n_feed, ps, mp):
+    """The kernel's rule, per lane: the page ranges ``[pg0, pg1)`` of the
+    blocks that work; a block whose range starts past the lane's frontier
+    ``pos + max(n_feed, 1) - 1`` exits, the last one stops at the
+    frontier page."""
+    pps, out = plan["pages_per_split"], []
+    for p, nf in zip((int(x) for x in pos), (int(x) for x in n_feed)):
+        n_lp = min((p + max(nf, 1) - 1) // ps + 1, mp)
+        out.append([(s * pps, min(s * pps + pps, n_lp))
+                    for s in range(plan["n_splits"]) if s * pps < n_lp])
+    return out
+
+
+def _split_emulation(q, kp, vp, table, pos, nf, plan):
+    """The kernel's split + merge in torch: per working block the f32
+    partial (m, l, acc) of its page range under the mask t <= pos + c,
+    then the rescale merge of the partials, normaliser clamped at
+    1e-30."""
+    b, c, h, kd = q.shape
+    pages, ps = kp.shape[0], kp.shape[1]
+    neg = tkernels.mask_value(torch.float32)
+    scale = 1.0 / np.sqrt(kd)
+    out = torch.zeros(b, c, h, kd)
+    ranges = _live_split_ranges(plan, pos.tolist(), nf.tolist(), ps,
+                                   table.shape[1])
+    for i in range(b):
+        parts = []
+        for lo, hi in ranges[i]:
+            t = torch.arange(lo * ps, hi * ps)
+            ids = table[i, t // ps].long()
+            ids = torch.where((ids < 0) | (ids >= pages), 0, ids)
+            k, v = kp[ids, t % ps], vp[ids, t % ps]          # [T, H, K]
+            s = torch.einsum("chk,thk->cht", q[i] * scale, k)
+            live = (t[None, :] <= int(pos[i]) + torch.arange(c)[:, None])
+            s = torch.where(live[:, None, :], s, torch.tensor(neg))
+            m = s.amax(-1)                                   # [C, H]
+            p = torch.where(live[:, None, :], torch.exp(s - m[..., None]),
+                            torch.tensor(0.0))
+            parts.append((m, p.sum(-1), torch.einsum("cht,thk->chk", p, v)))
+        mx = torch.stack([m for m, _, _ in parts]).amax(0)
+        big_l = sum(l * torch.exp(m - mx) for m, l, _ in parts)
+        acc = sum(a * torch.exp(m - mx)[..., None] for m, _, a in parts)
+        out[i] = acc / big_l.clamp_min(1e-30)[..., None]
+    return out
+
+
+@pytest.mark.parametrize("pps", [None, 1, 2, 3])
+@pytest.mark.parametrize("name", sorted(WIDE_CASES))
+def test_split_merge_emulation_matches_plain_and_jax(name, pps):
+    """The split + merge arithmetic (the plan's own pages_per_split, and
+    1, 2, 3 pages a split) against the plain version and the JAX kernel
+    in interpret mode, at fed columns."""
+    q, kp, vp, table, pos, nf = _state(WIDE_CASES[name])
+    b, c, h, kd, ps, mp = WIDE_CASES[name][:6]
+    plan = tpk.paged_split_plan(b, c, h, kd, mp, ps, torch.float32, 132)
+    if pps is not None:
+        plan = dict(plan, pages_per_split=pps, n_splits=-(-mp // pps))
+    tq, tk_, tv, ttable, tpos, tnf = _t(q, kp, vp, table, pos, nf)
+    got = _split_emulation(tq, tk_, tv, ttable, tpos, tnf, plan)
+    _assert_fed(got.numpy(), tpk.paged_flash_attention_plain(
+        tq, tk_, tv, ttable, tpos, tnf).numpy(), nf)
+    want = jpk.paged_flash_attention(jnp.asarray(q), jnp.asarray(kp),
+                                     jnp.asarray(vp), jnp.asarray(table),
+                                     jnp.asarray(pos), jnp.asarray(nf),
+                                     interpret=True)
+    _assert_fed(got.numpy(), want, nf)
+
+
+def test_plain_matches_jax_kernel_at_a_128_column_chunk():
+    q, kp, vp, table, pos, nf = _state(WIDE_CASES["chunk_c128_ps16"])
+    want = jpk.paged_flash_attention(jnp.asarray(q), jnp.asarray(kp),
+                                     jnp.asarray(vp), jnp.asarray(table),
+                                     jnp.asarray(pos), jnp.asarray(nf),
+                                     interpret=True)
+    got = tpk.paged_flash_attention_plain(*_t(q, kp, vp, table, pos, nf))
+    _assert_fed(got.numpy(), want, nf)
