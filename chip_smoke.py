@@ -22,12 +22,15 @@ Phases (any failure exits non-zero, and no result line is printed):
              ``scaled_dot_product_attention`` call over the gathered
              history (a yardstick the port never calls) and its bound.
 4. flash   — the flash-attention forward, dK/dV and dQ kernels against
-             their plain versions in f32 on the same inputs (B=2, H=12,
-             D=64; S 1024 and 1000; causal and not; float32 and bfloat16;
-             relative max error <= 1e-4 / 2e-2; plus bfloat16 at D=20,
-             the forward's FMA route), and at S=1024 causal timed against
-             the plain versions, SDPA (forward; forward + backward for the
-             backward pair) and their bounds.
+             their plain versions in f32 on the same inputs (B=2, H=12;
+             D 64 and 128; S 1024 and 1000; causal and not; float32 and
+             bfloat16; relative max error <= 1e-4 / 2e-2; each entry's
+             route: bfloat16 on the tensor cores, float32 and bfloat16 at
+             D=20 on the FMA pipes), the tensor-core backward also against
+             the plain backward with P and dS rounded to bfloat16
+             (relative 5e-3), and at S=1024, D=64 causal timed against the
+             plain versions, SDPA (forward; forward + backward, and the
+             backward alone, for the backward pair) and their bounds.
 5. serve   — `ContinuousLMServer` at ``gpt2_small(max_len=1024)`` width in
              bfloat16 (random weights from a numpy seed), 12 concurrent
              requests sharing a 128-token prefix; checks completion, vocab
@@ -364,6 +367,8 @@ FLASH_KERNELS = {
     "flash_bwd_dq": ("deeplearning4j_tpu/parallel/kernels.py:254", 3),
 }
 FLASH_B, FLASH_H, FLASH_D = 2, 12, 64   # one microbatch of the train phase
+FLASH_DS = (64, 128)                    # head dims of the flash phase
+BF16_ROUNDED_TOL = 5e-3                 # tensor-core backward vs rounding ref
 
 
 def flash_bound(name: str, b: int, s: int, h: int, d: int, causal: bool,
@@ -392,11 +397,37 @@ def rel_err(got, want) -> float:
     return float((got.float() - want).abs().max() / want.abs().max())
 
 
+def bf16_rounded_bwd(q, k, v, g, lse, delta, causal: bool):
+    """The plain backward as the tensor cores take it: f32 products of the
+    bf16 inputs with P and dS rounded to bf16 before their products
+    (dV = P^T dO, dK = dS^T Q, dQ = dS K).  A yardstick tighter than the
+    f32 plain version, private to this script: a misplaced or dropped tile
+    fails it."""
+    import torch
+
+    b, s, h, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    sc = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    if causal:
+        keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        sc = sc.masked_fill(~keep, float("-inf"))
+    p = torch.exp(sc - lse.reshape(b, h, s, 1))
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.bfloat16().float(), gf)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    ds = (p * (dp - delta.reshape(b, h, s, 1))).bfloat16().float()
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    return dq, dk, dv
+
+
 def flash_case(s: int, causal: bool, dtype_name: str, timed: bool,
                d: int = FLASH_D) -> dict:
     """The three kernels on one input against their plain versions in f32
     on the same inputs (the backward pair gets the kernel's own lse and
-    delta, so every kernel is held on identical inputs)."""
+    delta, so every kernel is held on identical inputs); each entry's
+    route against the rule; on the tensor-core route the backward also
+    against `bf16_rounded_bwd`."""
     import torch
     import torch.nn.functional as F
 
@@ -404,19 +435,25 @@ def flash_case(s: int, causal: bool, dtype_name: str, timed: bool,
 
     dtype = getattr(torch, dtype_name)
     b, h = FLASH_B, FLASH_H
-    rng = np.random.default_rng(1000 * s + int(causal))
+    rng = np.random.default_rng(1000 * s + int(causal) + d)
     q, k, v, g = (torch.from_numpy(rng.standard_normal(
         (b, s, h, d), np.float32)).to("cuda", dtype) for _ in range(4))
     out, lse = fk.flash_forward(q, k, v, causal)
-    route = fk.flash_forward_route(q, k, v, out)
-    if route != ("tensor_cores" if dtype == torch.bfloat16 and d % 8 == 0
-                 else "fma"):
-        raise AssertionError(f"flash D={d} {dtype_name}: the kernel took "
-                             f"the {route} route")
     delta = fk.row_delta(g, out)
     dk, dv = fk.flash_bwd_dkv(q, k, v, g, lse, delta, causal)
     dq = fk.flash_bwd_dq(q, k, v, g, lse, delta, causal)
     torch.cuda.synchronize()
+    tensors = {"fwd": (q, k, v, out), "dkv": (q, k, v, g, dk, dv),
+               "dq": (q, k, v, g, dq)}
+    routes = {kind: fk.flash_route(kind, *ts) for kind, ts in tensors.items()}
+    want_route = ("tensor_cores" if dtype == torch.bfloat16 and d % 8 == 0
+                  else "fma")
+    for kind, ts in tensors.items():
+        rule = fk.flash_route_rule(dtype, d, [t.data_ptr() for t in ts])
+        if routes[kind] != want_route or rule != want_route:
+            raise AssertionError(f"flash {kind} D={d} {dtype_name}: the "
+                                 f"entry took the {routes[kind]} route, the "
+                                 f"rule says {rule}, want {want_route}")
     f32 = [x.float() for x in (q, k, v, g)]
     want_out, want_lse = fk.flash_forward_plain(*f32[:3], causal)
     want_dq, want_dk, want_dv = fk.flash_bwd_block_plain(*f32, lse, delta,
@@ -429,17 +466,32 @@ def flash_case(s: int, causal: bool, dtype_name: str, timed: bool,
     tol = 1e-4 if dtype == torch.float32 else 2e-2
     bad = {n: e for n, e in rel.items() if not math.isfinite(e) or e > tol}
     if bad:
-        raise AssertionError(f"flash S={s} causal={causal} {dtype_name}: "
-                             f"relative max error {bad} > {tol}")
-    case = {"S": s, "causal": causal, "dtype": dtype_name, "route": route,
+        raise AssertionError(f"flash S={s} D={d} causal={causal} "
+                             f"{dtype_name}: relative max error {bad} > "
+                             f"{tol}")
+    case = {"S": s, "D": d, "causal": causal, "dtype": dtype_name,
+            "route": routes["fwd"], "routes": routes,
             "shape": dict(B=b, S=s, H=h, D=d), "tolerance": tol,
             "max_rel_err": rel, "max_abs_err": absolute}
+    if routes["dkv"] == "tensor_cores":
+        tight = bf16_rounded_bwd(q, k, v, g, lse, delta, causal)
+        rel_t = {n: rel_err(a, w) for n, a, w in
+                 zip(("dq", "dk", "dv"), (dq, dk, dv), tight)}
+        bad = {n: e for n, e in rel_t.items()
+               if not math.isfinite(e) or e > BF16_ROUNDED_TOL}
+        if bad:
+            raise AssertionError(f"flash S={s} D={d} causal={causal}: "
+                                 f"backward vs the bf16-rounding reference "
+                                 f"{bad} > {BF16_ROUNDED_TOL}")
+        case["max_rel_err_bf16_rounded"] = rel_t
     if not timed:
         return case
     # one SDPA call as the yardstick (the port never calls it): its
-    # forward for the forward kernel, its forward + backward for the pair
+    # forward for the forward kernel; its forward + backward, and its
+    # backward alone on one forward output, for the pair
     qh, kh, vh, gh = (x.transpose(1, 2).contiguous() for x in (q, k, v, g))
     qr, kr, vr = (x.detach().requires_grad_() for x in (qh, kh, vh))
+    o_sdpa = F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal)
 
     def sdpa_fwd():
         F.scaled_dot_product_attention(qh, kh, vh, is_causal=causal)
@@ -448,27 +500,30 @@ def flash_case(s: int, causal: bool, dtype_name: str, timed: bool,
         o = F.scaled_dot_product_attention(qr, kr, vr, is_causal=causal)
         torch.autograd.grad(o, (qr, kr, vr), gh)
 
+    def sdpa_bwd():
+        torch.autograd.grad(o_sdpa, (qr, kr, vr), gh, retain_graph=True)
+
     runs = {
         "flash_fwd": (lambda: fk.flash_forward(q, k, v, causal),
                       lambda: fk.flash_forward_plain(q, k, v, causal),
-                      sdpa_fwd),
+                      sdpa_fwd, None),
         "flash_bwd_dkv": (
             lambda: fk.flash_bwd_dkv(q, k, v, g, lse, delta, causal),
             lambda: fk.flash_bwd_dkv_plain(q, k, v, g, lse, delta, causal),
-            sdpa_fwd_bwd),
+            sdpa_fwd_bwd, sdpa_bwd),
         "flash_bwd_dq": (
             lambda: fk.flash_bwd_dq(q, k, v, g, lse, delta, causal),
             lambda: fk.flash_bwd_dq_plain(q, k, v, g, lse, delta, causal),
-            sdpa_fwd_bwd),
+            sdpa_fwd_bwd, sdpa_bwd),
     }
     case["timing"] = {}
-    for name, (kern, plain, library) in runs.items():
+    for name, (kern, plain, library, library_bwd) in runs.items():
         plain_ms = cuda_ms(plain, iters=10, warmup=2)
         kernel_ms = cuda_ms(kern, iters=50)
         library_ms = cuda_ms(library, iters=50)
         kernel_ms_2 = cuda_ms(kern, iters=50)
         plain_ms_2 = cuda_ms(plain, iters=10, warmup=1)
-        case["timing"][name] = {
+        t = case["timing"][name] = {
             "kernel_ms": device_ms(kern, iters=50),
             "plain_ms": device_ms(plain, iters=5),
             "library_ms": device_ms(library, iters=50),
@@ -478,6 +533,9 @@ def flash_case(s: int, causal: bool, dtype_name: str, timed: bool,
             "plain_call_ms_runs": [plain_ms, plain_ms_2],
             "library_call_ms": library_ms,
             **flash_bound(name, b, s, h, d, causal, dtype_name)}
+        if library_bwd is not None:
+            t["library_bwd_ms"] = device_ms(library_bwd, iters=50)
+            t["library_bwd_call_ms"] = cuda_ms(library_bwd, iters=50)
     return case
 
 
@@ -486,30 +544,41 @@ def flash_phase(card: str) -> list:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cases = []
-    for s in (1024, 1000):
-        for causal in (True, False):
-            for dt in ("float32", "bfloat16"):
-                case = flash_case(s, causal, dt,
-                                  timed=(s == 1024 and causal))
-                cases.append(case)
-                log(f"flash: S={s} causal={causal} {dt}: relative err "
-                    + ", ".join(f"{n} {e:.3g}"
-                                for n, e in case["max_rel_err"].items()))
-                for name, t in case.get("timing", {}).items():
-                    log(f"flash: {name} S={s} {dt}: device ms: kernel "
-                        f"{t['kernel_ms']:.4f}, plain "
-                        f"{t['plain_ms']:.4f}, sdpa "
-                        f"{t['library_ms']:.4f}, bound "
-                        f"{t['bound_ms']:.4f} ({t['bound_by']}); per "
-                        f"call back to back: kernel {t['call_ms']:.4f}, "
-                        f"sdpa {t['library_call_ms']:.4f} ({card})")
-    # bf16 at a head dim that is not a multiple of 8: the forward's FMA
-    # route
+    for d in FLASH_DS:
+        for s in (1024, 1000):
+            for causal in (True, False):
+                for dt in ("float32", "bfloat16"):
+                    case = flash_case(s, causal, dt, d=d, timed=(
+                        s == 1024 and causal and d == FLASH_D))
+                    cases.append(case)
+                    tight = case.get("max_rel_err_bf16_rounded")
+                    log(f"flash: S={s} D={d} causal={causal} {dt} (routes "
+                        f"{'/'.join(case['routes'].values())}): relative "
+                        f"err " + ", ".join(f"{n} {e:.3g}" for n, e in
+                                            case["max_rel_err"].items())
+                        + ("" if tight is None else "; vs bf16-rounding "
+                           "reference " + ", ".join(
+                               f"{n} {e:.3g}" for n, e in tight.items())))
+                    for name, t in case.get("timing", {}).items():
+                        log(f"flash: {name} S={s} D={d} {dt}: device ms: "
+                            f"kernel {t['kernel_ms']:.4f}, plain "
+                            f"{t['plain_ms']:.4f}, sdpa "
+                            f"{t['library_ms']:.4f}"
+                            + (f", sdpa backward alone "
+                               f"{t['library_bwd_ms']:.4f}"
+                               if "library_bwd_ms" in t else "")
+                            + f", bound {t['bound_ms']:.4f} "
+                            f"({t['bound_by']}); per call back to back: "
+                            f"kernel {t['call_ms']:.4f}, sdpa "
+                            f"{t['library_call_ms']:.4f} ({card})")
+                    torch.cuda.empty_cache()
+    # bf16 at a head dim that is not a multiple of 8: the FMA route of all
+    # three entries
     case = flash_case(1000, True, "bfloat16", timed=False, d=20)
     cases.append(case)
-    log(f"flash: S=1000 D=20 causal=True bfloat16 ({case['route']} route): "
-        f"relative err " + ", ".join(f"{n} {e:.3g}" for n, e in
-                                     case["max_rel_err"].items()))
+    log(f"flash: S=1000 D=20 causal=True bfloat16 (routes "
+        f"{'/'.join(case['routes'].values())}): relative err "
+        + ", ".join(f"{n} {e:.3g}" for n, e in case["max_rel_err"].items()))
     return cases
 
 
@@ -1520,9 +1589,11 @@ def main(argv=None) -> int:
     if flash is not None:
         # the train phase's shape: S = 1024, causal, bf16
         main_case = next(c for c in flash if c["S"] == 1024 and c["causal"]
-                         and c["dtype"] == "bfloat16")
+                         and c["dtype"] == "bfloat16" and c["D"] == FLASH_D)
         err_of = {"flash_fwd": ("out", "lse"), "flash_bwd_dkv": ("dk", "dv"),
                   "flash_bwd_dq": ("dq",)}
+        kind_of = {"flash_fwd": "fwd", "flash_bwd_dkv": "dkv",
+                   "flash_bwd_dq": "dq"}
         for kname, (replaces, _) in FLASH_KERNELS.items():
             t = main_case["timing"][kname]
             launches = train["launches"][kname] if train else 0
@@ -1543,14 +1614,20 @@ def main(argv=None) -> int:
                             if kname == "flash_fwd" else
                             "scaled_dot_product_attention forward + "
                             "backward"),
+                **({} if kname == "flash_fwd" else {
+                    "library_bwd_ms": t["library_bwd_ms"],
+                    "library_bwd_call_ms": t["library_bwd_call_ms"],
+                    "library_bwd": "scaled_dot_product_attention backward "
+                                   "alone (autograd.grad on one forward "
+                                   "output)",
+                    "max_rel_err_bf16_rounded": max(
+                        main_case["max_rel_err_bf16_rounded"][n]
+                        for n in err_of[kname])}),
                 "shape": main_case["shape"], "causal": True,
-                "dtype": "bfloat16",
-                **({"redesigned": True,
-                    "routes": {"bfloat16": "tensor_cores (wgmma) for "
-                               "D % 8 == 0, else fma",
-                               "float32": "fma"}}
-                   if kname == "flash_fwd" else {"routes": {
-                       "bfloat16": "fma", "float32": "fma"}}),
+                "dtype": "bfloat16", "redesigned": True,
+                "route_taken": main_case["routes"][kind_of[kname]],
+                "routes": {"bfloat16": "tensor_cores (wgmma) for "
+                           "D % 8 == 0, else fma", "float32": "fma"},
                 "cases": [{k: v for k, v in c.items() if k != "timing"}
                           for c in flash],
             })

@@ -27,17 +27,20 @@
 // TPU; the normaliser is clamped at 1e-30.  dK and dQ carry the 1/sqrt(D)
 // factor, dV does not.
 //
-// The forward has two routes, chosen by the entry from the dtype, D and
-// the pointers' alignment (never by a switch):
+// Each entry has two routes, chosen from the dtype, D and the pointers'
+// alignment (never by a switch): the tensor cores for bfloat16 with D a
+// multiple of 8 and every tensor it reads or writes 16-byte aligned, which
+// covers every real head width (16, 32, 40, 64, 80, 96, 128); the FMA
+// pipes for float32 and any other bfloat16 input.  The f32 train path
+// keeps the FMA route for its <= 1e-6 agreement with the plain version
+// (TF32 would not give it).
 //
-// 1. Tensor cores (flash_fwd_mma_kernel): bfloat16 with D a multiple of 8
-//    and 16-byte aligned tensors, which covers every real head width (16,
-//    32, 40, 64, 80, 96, 128).  At the training shape (B 2, S 1024, H 12,
-//    D 64, causal) the forward does ~256 flops per byte it must move, near
-//    the card's ridge: its bound is 3.8 us of bytes against 3.3 us of
-//    bf16 tensor-core work, while the f32 FMA pipes it used before need
-//    48 us for the products alone.  So the products must run on the
-//    tensor cores and the loads must overlap them.  Design: the
+// 1. Forward on the tensor cores (flash_fwd_mma_kernel).  At the training
+//    shape (B 2, S 1024, H 12, D 64, causal) the forward does ~256 flops
+//    per byte it must move, near the card's ridge: its bound is 3.8 us of
+//    bytes against 3.3 us of bf16 tensor-core work, while the f32 FMA
+//    pipes need 48 us for the products alone.  So the products must run
+//    on the tensor cores and the loads must overlap them.  Design: the
 //    FlashAttention-2 order of work on Hopper's warpgroup products
 //    (wgmma.mma_async, bf16 in, f32 accumulate; not mma.sync).  One
 //    warpgroup (4 warps) owns a 64-row query tile, each warp 16 rows of
@@ -65,24 +68,44 @@
 //    shared memory, the next tile's Q K^T issued during the softmax, two
 //    m-tiles a warp, 8 warps a block, 128 keys a stage, a deeper ring,
 //    and a persistent grid taking tiles from a queue.
-// 2. FMA (flash_fwd_kernel): float32, and bfloat16 at any other D or
-//    alignment.  Tiles are staged as f32 in shared memory and both
-//    products run on the f32 FMA pipes in a 16 x 16 thread grid; q is
-//    scaled before its product.  The f32 train path keeps this route for
-//    its <= 1e-6 agreement with the plain version (TF32 would not give it).
-//
-// The backward kernels are the first, simple design on the FMA pipes:
-// one 256-thread block owns one 64-row tile (a key tile for dkv, a query
-// tile for dq) and walks the other axis with its accumulators in
-// registers; thread (ty, tx) of a 16 x 16 grid owns rows ty + 16 i and
-// columns tx + 16 j of every 64 x 64 score tile, so row reductions are
-// half-warp shuffles over f32 tiles padded to D + 1 floats in shared
-// memory.  They are bound by operations too and reach a few percent of
-// the bf16 tensor-core rate; tensor-core tiles are their next change.
+// 2. Backward on the tensor cores (flash_bwd_dkv_mma_kernel,
+//    flash_bwd_dq_mma_kernel).  The pair does 7 products of 2 S^2 D a
+//    head (4 for dK/dV, 3 for dQ) against 5 tensors of bytes, so it is
+//    bound by operations even more than the forward: 11 us of bf16
+//    tensor-core work at the training shape, ~170 us on the f32 FMA pipes
+//    the first design used.  Every backward product has the shape of a
+//    forward product, so the design reuses the forward's tiles,
+//    descriptors and ring.  dK/dV: one warpgroup owns a 64-row key tile
+//    with K and V resident; Q, dO and their lse / delta rows stream
+//    through the two-stage cp.async ring.  Per query tile, one wgmma group
+//    computes S^T = K Q^T and dP^T = V dO^T (m64n64, both operands K-major
+//    from shared memory); the lanes form P^T = 2^(s scale log2 e - lse
+//    log2 e) and dS^T = P^T (dP^T - delta) on the f32 fragments (lse and
+//    delta vary along the columns, the queries) and round both to bf16 A
+//    fragments; a second group computes dV += P^T dO and dK += dS^T Q with
+//    dO and Q read MN-major from the same staged tiles.  dQ: one warpgroup
+//    owns a 64-row query tile with Q, dO resident and each lane's lse and
+//    delta in registers; K and V stream; S = Q K^T and dP = dO V^T in one
+//    group, dS = P (dP - delta) in registers, dQ += dS K with K read
+//    MN-major.  Two kernels, one launch each, no atomics, deterministic.
+//    Causal: dK/dV starts at the diagonal query tile and issues the
+//    lowest key tiles (the longest) first; dQ stops at the diagonal and
+//    issues the highest query tiles first; the mask only on the diagonal
+//    and a ragged last tile.  Not yet done: overlapping one tile's P / dS
+//    arithmetic with the next tile's products, TMA, warp specialisation,
+//    and FA2/FA3's dQ fused into the dK/dV pass through f32 atomics.
+// 3. FMA (flash_fwd_kernel, flash_bwd_dkv_kernel, flash_bwd_dq_kernel):
+//    one 256-thread block owns one 64-row tile and walks the other axis
+//    with its accumulators in registers; thread (ty, tx) of a 16 x 16
+//    grid owns rows ty + 16 i and columns tx + 16 j of every 64 x 64
+//    score tile, so row reductions are half-warp shuffles over f32 tiles
+//    padded to D + 1 floats in shared memory; q is scaled before the
+//    forward's product.
 
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <initializer_list>
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -140,6 +163,15 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+// 4-byte global -> shared copy (one f32 row statistic); zeros when !pred.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(pred ? 4 : 0)
                : "memory");
 }
 
@@ -481,6 +513,76 @@ size_t fwd_mma_bytes() {               // q, then the K and V rings
 }
 
 template <int NA>
+size_t dkv_mma_bytes() {               // K, V; the Q, dO, lse, delta rings
+  return (size_t)(2 + 2 * kStages) * kTile * 64 * NA * sizeof(bf16) +
+         (size_t)2 * kStages * kTile * sizeof(float);
+}
+
+template <int NA>
+size_t dq_mma_bytes() {                // Q, dO; the K and V rings
+  return (size_t)(2 + 2 * kStages) * kTile * 64 * NA * sizeof(bf16);
+}
+
+// Zero the pad chunks [D / 8, 8 NA) of `n` consecutive tiles from `base`:
+// no copy ever writes them, so every product over d reads zeros there.
+template <int NA>
+__device__ __forceinline__ void zero_pads(bf16* base, int n, int D) {
+  constexpr int CH = 8 * NA;
+  const int chunks = D / 8;
+  const int pads = CH - chunks;
+  for (int e = threadIdx.x; e < n * kTile * pads; e += kMmaThreads) {
+    const int r = e / pads;                        // row over all tiles
+    *reinterpret_cast<uint4*>(base + (r / kTile) * kTile * CH * 8 +
+                              sw_off(r % kTile, chunks + e - r * pads)) =
+        make_uint4(0, 0, 0, 0);
+  }
+}
+
+// cp.async rows t0 .. t0 + kTile of one head (`head` points at row 0,
+// rows `rs` elements apart) into the swizzled tile dst; rows at or past S
+// are zeros, the pad chunks are left alone.
+template <int NA>
+__device__ __forceinline__ void stage_tile(bf16* dst,
+                                           const bf16* __restrict__ head,
+                                           size_t rs, int t0, int S,
+                                           int D) {
+  constexpr int CH = 8 * NA;
+  const int chunks = D / 8;
+  for (int e = threadIdx.x; e < kTile * CH; e += kMmaThreads) {
+    const int r = e / CH;
+    const int c = e - r * CH;
+    if (c >= chunks) continue;
+    const int t = t0 + r;
+    const bool ok = t < S;
+    cp_async16(dst + sw_off(r, c), head + (size_t)(ok ? t : 0) * rs + c * 8,
+               ok);
+  }
+}
+
+// Rows row0 and row0 + 8 of a 64 x DP f32 accumulator (this lane's
+// fragment) as bf16, times mul[i], into one head's rows below S.
+template <int DP>
+__device__ __forceinline__ void store_rows(const float (&acc)[DP / 2],
+                                           bf16* head, size_t rs, int row0,
+                                           int S, int D,
+                                           const float (&mul)[2]) {
+  const int t4 = threadIdx.x & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + 8 * i;
+    if (r >= S) continue;
+    bf16* row = head + (size_t)r * rs;
+#pragma unroll
+    for (int dt = 0; dt < DP / 8; ++dt) {
+      if (dt * 8 < D)
+        *reinterpret_cast<uint32_t*>(row + dt * 8 + 2 * t4) =
+            pack_bf16(acc[4 * dt + 2 * i] * mul[i],
+                      acc[4 * dt + 2 * i + 1] * mul[i]);
+    }
+  }
+}
+
+template <int NA>
 __global__ void __launch_bounds__(kMmaThreads)
 flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, bf16* __restrict__ out,
@@ -488,7 +590,6 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      float scale, int causal) {
   constexpr int DP = 64 * NA;          // D zero-padded to whole atoms
   constexpr int NK = DP / 16;          // k16 steps of Q K^T
-  constexpr int CH = DP / 8;           // 16-byte chunks a row
   constexpr int TILE = kTile * DP;     // elements of a tile
   constexpr int NT = kTile / 8;        // n-tiles of 8 keys a stage
   constexpr int SBO = 8 * 128;         // bytes between 8-row groups
@@ -509,44 +610,19 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int row0 = q0 + warp * 16 + g;             // rows row0, row0 + 8
   const size_t rs = (size_t)H * D;                 // row stride
   const size_t head = (size_t)b * S * rs + (size_t)h * D;
-  const int chunks = D / 8;                        // 16-byte chunks a row
   const float sl2 = scale * kLog2e;                // scores in log2 units
 
-  // the pad chunks [D / 8, CH) are zero in every tile and never copied to
-  if (DP > D) {
-    const int pads = CH - chunks;
-    for (int e = threadIdx.x; e < (1 + 2 * kStages) * kTile * pads;
-         e += kMmaThreads) {
-      const int r = e / pads;                      // row over all tiles
-      *reinterpret_cast<uint4*>(q_s + (r / kTile) * TILE +
-                                sw_off(r % kTile, chunks + e - r * pads)) =
-          make_uint4(0, 0, 0, 0);
-    }
-  }
-
-  // rows t0 .. t0 + kTile of src into dst; rows at or past S are zeros
-  auto stage = [&](bf16* dst, const bf16* src, int t0) {
-    const bf16* base = src + head;
-    for (int e = threadIdx.x; e < kTile * CH; e += kMmaThreads) {
-      const int r = e / CH;
-      const int c = e - r * CH;
-      if (c >= chunks) continue;                   // the pad stays zero
-      const int t = t0 + r;
-      const bool ok = t < S;
-      cp_async16(dst + sw_off(r, c),
-                 base + (size_t)(ok ? t : 0) * rs + c * 8, ok);
-    }
-  };
+  if (DP > D) zero_pads<NA>(q_s, 1 + 2 * kStages, D);
   auto stage_kv = [&](int j) {
     const int st = j % kStages;
-    stage(k_s + st * TILE, k, j * kTile);
-    stage(v_s + st * TILE, v, j * kTile);
+    stage_tile<NA>(k_s + st * TILE, k + head, rs, j * kTile, S, D);
+    stage_tile<NA>(v_s + st * TILE, v + head, rs, j * kTile, S, D);
   };
 
   const int n_kv = (S + kTile - 1) / kTile;
   const int n_tiles = causal ? min(n_kv, qt + 1) : n_kv;
   // prologue: q with tile 0, then tiles 1 .. kStages - 2, a group each
-  stage(q_s, q, q0);
+  stage_tile<NA>(q_s, q + head, rs, q0, S, D);
   stage_kv(0);
   cp_async_commit();
 #pragma unroll
@@ -662,25 +738,20 @@ flash_fwd_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   cp_async_wait<0>();                  // no copy outlives the block
 
+  float inv[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     float li = l[i];
     li += __shfl_xor_sync(0xffffffffu, li, 1);
     li += __shfl_xor_sync(0xffffffffu, li, 2);
     const float lc = fmaxf(li, 1e-30f);
-    const float inv = 1.f / lc;
+    inv[i] = 1.f / lc;
     const int qp = row0 + 8 * i;
-    if (qp >= S) continue;
-    bf16* orow = out + head + (size_t)qp * rs;
-#pragma unroll
-    for (int dt = 0; dt < DP / 8; ++dt) {
-      if (dt * 8 < D)
-        *reinterpret_cast<uint32_t*>(orow + dt * 8 + 2 * t4) =
-            pack_bf16(o[4 * dt + 2 * i] * inv, o[4 * dt + 2 * i + 1] * inv);
-    }
     // lse = m + log(l) of the scaled scores, m back in natural units
-    if (t4 == 0) lse[((size_t)b * H + h) * S + qp] = m[i] * kLn2 + logf(lc);
+    if (qp < S && t4 == 0)
+      lse[((size_t)b * H + h) * S + qp] = m[i] * kLn2 + logf(lc);
   }
+  store_rows<DP>(o, out + head, rs, row0, S, D, inv);
 }
 
 // ---------------------------------------------------------------------------
@@ -932,6 +1003,307 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// backward on the tensor cores (bfloat16, D % 8 == 0): one warpgroup a
+// 64-row tile, the tiles in the forward's swizzled layout, the other
+// axis streamed through a two-stage cp.async ring.  Per streamed tile,
+// two wgmma groups: the two m64n64 score-shaped products from shared
+// memory, then (after P and dS are formed on the f32 fragments and
+// rounded to bf16 A fragments in registers) the accumulating products
+// with the streamed or resident tile read MN-major.  P = 2^(s * scale *
+// log2 e - lse * log2 e); masked entries get P = 0, so dS = 0 there.
+
+// dK, dV: grid (B * H, ceil(S / 64)); blockIdx.y is the key tile, so the
+// longest causal tiles (the lowest index) are issued first.  In the
+// fragments the rows are keys and the columns queries: lse and delta
+// vary along the columns.
+template <int NA>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dkv_mma_kernel(const bf16* __restrict__ q,
+                         const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const bf16* __restrict__ g,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta,
+                         bf16* __restrict__ dk, bf16* __restrict__ dv,
+                         int S, int H, int D, float scale, int causal) {
+  constexpr int DP = 64 * NA;
+  constexpr int NK = DP / 16;          // k16 steps over d
+  constexpr int TILE = kTile * DP;
+  constexpr int NT = kTile / 8;        // n-tiles of 8 queries
+  constexpr int SBO = 8 * 128;
+  constexpr int ATOM = kTile * 64 * 2;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  bf16* k_s = reinterpret_cast<bf16*>(smem_raw);   // [TILE], resident
+  bf16* v_s = k_s + TILE;                          // [TILE], resident
+  bf16* q_s = v_s + TILE;                          // [kStages][TILE]
+  bf16* g_s = q_s + kStages * TILE;                // [kStages][TILE]
+  float* lse_s = reinterpret_cast<float*>(g_s + kStages * TILE);
+  float* dl_s = lse_s + kStages * kTile;           // [kStages][kTile] each
+
+  const size_t bh = blockIdx.x;
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x - b * H;
+  const int kt = blockIdx.y;
+  const int k0 = kt * kTile;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int t4 = lane & 3;
+  const int row0 = k0 + warp * 16 + (lane >> 2);   // keys row0, row0 + 8
+  const size_t rs = (size_t)H * D;
+  const size_t head = (size_t)b * S * rs + (size_t)h * D;
+  const float sl2 = scale * kLog2e;
+
+  if (DP > D) zero_pads<NA>(k_s, 2 + 2 * kStages, D);
+  // query tile i (Q, dO and their lse, delta) into stage i % kStages;
+  // one 4-byte copy a thread: lse by threads 0-63, delta by 64-127
+  static_assert(kMmaThreads == 2 * kTile, "one stat copy a thread");
+  auto stage_q = [&](int i) {
+    const int st = i % kStages;
+    stage_tile<NA>(q_s + st * TILE, q + head, rs, i * kTile, S, D);
+    stage_tile<NA>(g_s + st * TILE, g + head, rs, i * kTile, S, D);
+    const int r = threadIdx.x & (kTile - 1);
+    const int t = i * kTile + r;
+    const bool ok = t < S;
+    const float* src = threadIdx.x < kTile ? lse : delta;
+    float* dst = threadIdx.x < kTile ? lse_s : dl_s;
+    cp_async4(dst + st * kTile + r, src + bh * S + (ok ? t : 0), ok);
+  };
+
+  const int n_q = (S + kTile - 1) / kTile;
+  const int first = causal ? kt : 0;   // earlier query tiles are masked
+  stage_tile<NA>(k_s, k + head, rs, k0, S, D);
+  stage_tile<NA>(v_s, v + head, rs, k0, S, D);
+  stage_q(first);
+  cp_async_commit();
+#pragma unroll
+  for (int i = 1; i < kStages - 1; ++i) {
+    if (first + i < n_q) stage_q(first + i);
+    cp_async_commit();
+  }
+
+  float dka[DP / 2], dva[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dka[i] = dva[i] = 0.f;
+
+  for (int it = first; it < n_q; ++it) {
+    cp_async_wait<kStages - 2>();      // tile it has landed
+    fence_async_shared();
+    __syncthreads();                   // ... for every warp; it - 1 is read
+    if (it + kStages - 1 < n_q) stage_q(it + kStages - 1);
+    cp_async_commit();
+    const int st = it % kStages;
+    const bf16* qs = q_s + st * TILE;
+    const bf16* gs = g_s + st * TILE;
+    const float* ls = lse_s + st * kTile;
+    const float* ds = dl_s + st * kTile;
+
+    // S^T = K Q^T and dP^T = V dO^T over d (raw f32)
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk)
+      wgmma_ss_n64(s, smem_desc(k_s + k_off(kk), 16, SBO),
+                   smem_desc(qs + k_off(kk), 16, SBO), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk)
+      wgmma_ss_n64(dp, smem_desc(v_s + k_off(kk), 16, SBO),
+                   smem_desc(gs + k_off(kk), 16, SBO), kk > 0);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P^T and dS^T = P^T (dP^T - delta) as bf16 A fragments, 16 queries
+    // a k16 step; the mask only on the diagonal and a ragged last tile
+    const int q0 = it * kTile;
+    const bool edge = (causal && it == kt) || q0 + kTile > S;
+    uint32_t pa[NT / 2][4], sa[NT / 2][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      const int c = nt * 8 + 2 * t4;                 // columns c, c + 1
+      const float2 l2 = *reinterpret_cast<const float2*>(ls + c);
+      const float2 d2 = *reinterpret_cast<const float2*>(ds + c);
+      float p[4], x[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float lse_c = (e & 1) ? l2.y : l2.x;
+        p[e] = fast_exp2(fmaf(s[4 * nt + e], sl2, -lse_c * kLog2e));
+        if (edge) {
+          const int qp = q0 + c + (e & 1);
+          const int kp = row0 + 8 * (e >> 1);
+          if (qp >= S || (causal && kp > qp)) p[e] = 0.f;
+        }
+        x[e] = p[e] * (dp[4 * nt + e] - ((e & 1) ? d2.y : d2.x));
+      }
+      const int kk = nt >> 1;
+      const int hi = 2 * (nt & 1);                   // a2, a3 for odd nt
+      pa[kk][hi] = pack_bf16(p[0], p[1]);
+      pa[kk][hi + 1] = pack_bf16(p[2], p[3]);
+      sa[kk][hi] = pack_bf16(x[0], x[1]);
+      sa[kk][hi + 1] = pack_bf16(x[2], x[3]);
+    }
+
+    // dV += P^T dO and dK += dS^T Q over the tile's queries, dO and Q
+    // read MN-major
+    fence_regs(dva);
+    fence_regs(dka);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk)
+      wgmma_rs<DP>(dva, pa[kk], smem_desc(gs + 16 * kk * 64, ATOM, SBO));
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk)
+      wgmma_rs<DP>(dka, sa[kk], smem_desc(qs + 16 * kk * 64, ATOM, SBO));
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(dva);
+    fence_regs(dka);
+  }
+  cp_async_wait<0>();                  // no copy outlives the block
+
+  const float one[2] = {1.f, 1.f}, sc[2] = {scale, scale};
+  store_rows<DP>(dka, dk + head, rs, row0, S, D, sc);
+  store_rows<DP>(dva, dv + head, rs, row0, S, D, one);
+}
+
+// dQ: grid (B * H, ceil(S / 64)); blockIdx.y counts query tiles from the
+// last one (longest causal tiles first).  Rows are queries, so each lane
+// keeps the lse and delta of its two rows in registers.
+template <int NA>
+__global__ void __launch_bounds__(kMmaThreads)
+flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
+                        const bf16* __restrict__ k,
+                        const bf16* __restrict__ v,
+                        const bf16* __restrict__ g,
+                        const float* __restrict__ lse,
+                        const float* __restrict__ delta,
+                        bf16* __restrict__ dq, int S, int H, int D,
+                        float scale, int causal) {
+  constexpr int DP = 64 * NA;
+  constexpr int NK = DP / 16;
+  constexpr int TILE = kTile * DP;
+  constexpr int NT = kTile / 8;        // n-tiles of 8 keys
+  constexpr int SBO = 8 * 128;
+  constexpr int ATOM = kTile * 64 * 2;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  bf16* q_s = reinterpret_cast<bf16*>(smem_raw);   // [TILE], resident
+  bf16* g_s = q_s + TILE;                          // [TILE], resident
+  bf16* k_s = g_s + TILE;                          // [kStages][TILE]
+  bf16* v_s = k_s + kStages * TILE;                // [kStages][TILE]
+
+  const size_t bh = blockIdx.x;
+  const int b = blockIdx.x / H;
+  const int h = blockIdx.x - b * H;
+  const int qt = gridDim.y - 1 - blockIdx.y;       // longest first
+  const int q0 = qt * kTile;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int t4 = lane & 3;
+  const int row0 = q0 + warp * 16 + (lane >> 2);   // queries row0, row0 + 8
+  const size_t rs = (size_t)H * D;
+  const size_t head = (size_t)b * S * rs + (size_t)h * D;
+  const float sl2 = scale * kLog2e;
+
+  if (DP > D) zero_pads<NA>(q_s, 2 + 2 * kStages, D);
+  auto stage_kv = [&](int j) {
+    const int st = j % kStages;
+    stage_tile<NA>(k_s + st * TILE, k + head, rs, j * kTile, S, D);
+    stage_tile<NA>(v_s + st * TILE, v + head, rs, j * kTile, S, D);
+  };
+
+  const int n_kv = (S + kTile - 1) / kTile;
+  const int n_tiles = causal ? min(n_kv, qt + 1) : n_kv;
+  stage_tile<NA>(q_s, q + head, rs, q0, S, D);
+  stage_tile<NA>(g_s, g + head, rs, q0, S, D);
+  stage_kv(0);
+  cp_async_commit();
+#pragma unroll
+  for (int i = 1; i < kStages - 1; ++i) {
+    if (i < n_tiles) stage_kv(i);
+    cp_async_commit();
+  }
+
+  float lse2[2], dl[2];                // lse in log2 units, and delta
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + 8 * i;
+    lse2[i] = r < S ? lse[bh * S + r] * kLog2e : 0.f;
+    dl[i] = r < S ? delta[bh * S + r] : 0.f;
+  }
+  float dqa[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dqa[i] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<kStages - 2>();
+    fence_async_shared();
+    __syncthreads();
+    if (j + kStages - 1 < n_tiles) stage_kv(j + kStages - 1);
+    cp_async_commit();
+    const int st = j % kStages;
+    const bf16* ks = k_s + st * TILE;
+    const bf16* vs = v_s + st * TILE;
+
+    // S = Q K^T and dP = dO V^T over d (raw f32)
+    float s[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk)
+      wgmma_ss_n64(s, smem_desc(q_s + k_off(kk), 16, SBO),
+                   smem_desc(ks + k_off(kk), 16, SBO), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk)
+      wgmma_ss_n64(dp, smem_desc(g_s + k_off(kk), 16, SBO),
+                   smem_desc(vs + k_off(kk), 16, SBO), kk > 0);
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // dS = P (dP - delta) as bf16 A fragments, 16 keys a k16 step
+    const int k0 = j * kTile;
+    const bool edge = (causal && j == qt) || k0 + kTile > S;
+    uint32_t sa[NT / 2][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt) {
+      float x[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1;
+        float p = fast_exp2(fmaf(s[4 * nt + e], sl2, -lse2[i]));
+        if (edge) {
+          const int kp = k0 + nt * 8 + 2 * t4 + (e & 1);
+          const int qp = row0 + 8 * i;
+          if (kp >= S || (causal && kp > qp)) p = 0.f;
+        }
+        x[e] = p * (dp[4 * nt + e] - dl[i]);
+      }
+      const int hi = 2 * (nt & 1);
+      sa[nt >> 1][hi] = pack_bf16(x[0], x[1]);
+      sa[nt >> 1][hi + 1] = pack_bf16(x[2], x[3]);
+    }
+
+    // dQ += dS K over the tile's keys, K read MN-major
+    fence_regs(dqa);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NT / 2; ++kk)
+      wgmma_rs<DP>(dqa, sa[kk], smem_desc(ks + 16 * kk * 64, ATOM, SBO));
+    wgmma_commit();
+    wgmma_wait0();
+    fence_regs(dqa);
+  }
+  cp_async_wait<0>();
+
+  const float sc[2] = {scale, scale};
+  store_rows<DP>(dqa, dq + head, rs, row0, S, D, sc);
+}
+
+// ---------------------------------------------------------------------------
 // launches
 
 cudaError_t prepare(const void* kernel, size_t smem) {
@@ -987,22 +1359,54 @@ cudaError_t fwd_mma(const void* q, const void* k, const void* v, void* out,
   return cudaGetLastError();
 }
 
-// The tensor-core route: bfloat16, D a multiple of 8, every tensor on a
-// 16-byte boundary (cp.async copies 16 bytes).
-bool mma_route(const void* q, const void* k, const void* v, const void* out,
-               int D, int dtype) {
-  const uintptr_t bits = reinterpret_cast<uintptr_t>(q) |
-                         reinterpret_cast<uintptr_t>(k) |
-                         reinterpret_cast<uintptr_t>(v) |
-                         reinterpret_cast<uintptr_t>(out);
-  return dtype == 1 && D % 8 == 0 && (bits & 15) == 0;
+template <int NA>
+cudaError_t dkv_mma(const void* q, const void* k, const void* v,
+                    const void* g, const void* lse, const void* delta,
+                    void* dk, void* dv, int B, int S, int H, int D,
+                    int causal, cudaStream_t stream) {
+  const size_t smem = dkv_mma_bytes<NA>();
+  auto kernel = flash_bwd_dkv_mma_kernel<NA>;
+  cudaError_t err = prepare((const void*)kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int n_k = (S + kTile - 1) / kTile;
+  if (n_k > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(B * H, n_k);
+  kernel<<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(g),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dk), static_cast<bf16*>(dv), S, H, D,
+      1.0f / sqrtf((float)D), causal);
+  return cudaGetLastError();
 }
 
-cudaError_t fwd_mma_dispatch(const void* q, const void* k, const void* v,
-                             void* out, void* lse, int B, int S, int H,
-                             int D, int causal, cudaStream_t s) {
-  return D <= 64 ? fwd_mma<1>(q, k, v, out, lse, B, S, H, D, causal, s)
-                 : fwd_mma<2>(q, k, v, out, lse, B, S, H, D, causal, s);
+template <int NA>
+cudaError_t dq_mma(const void* q, const void* k, const void* v,
+                   const void* g, const void* lse, const void* delta,
+                   void* dqp, int B, int S, int H, int D, int causal,
+                   cudaStream_t stream) {
+  const size_t smem = dq_mma_bytes<NA>();
+  auto kernel = flash_bwd_dq_mma_kernel<NA>;
+  cudaError_t err = prepare((const void*)kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int n_q = (S + kTile - 1) / kTile;
+  if (n_q > 65535) return cudaErrorInvalidValue;
+  const dim3 grid(B * H, n_q);
+  kernel<<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const bf16*>(g),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<bf16*>(dqp), S, H, D, 1.0f / sqrtf((float)D), causal);
+  return cudaGetLastError();
+}
+
+// The tensor-core route, the same for all three kernels: bfloat16, D a
+// multiple of 8, every bf16 tensor (inputs and outputs) on a 16-byte
+// boundary (cp.async copies 16 bytes).  A null pointer counts as aligned.
+bool mma_route(int D, int dtype, std::initializer_list<const void*> ptrs) {
+  uintptr_t bits = 0;
+  for (const void* p : ptrs) bits |= reinterpret_cast<uintptr_t>(p);
+  return dtype == 1 && D % 8 == 0 && (bits & 15) == 0;
 }
 
 template <typename T, int DPER>
@@ -1054,14 +1458,24 @@ cudaError_t dq(const void* q, const void* k, const void* v, const void* g,
     return (int)cudaErrorInvalidValue;                                      \
   } while (0)
 
+// The tensor-core kernels pad D to one 64-column atom (D <= 64) or two.
+#define DL4J_DISPATCH_MMA(FN, ...)                                          \
+  return (int)(D <= 64 ? FN<1>(__VA_ARGS__) : FN<2>(__VA_ARGS__))
+
 }  // namespace
 
 extern "C" {
 
 // Dynamic shared memory one launch needs, in bytes: kind 0 = forward,
-// 1 = dK/dV, 2 = dQ.
-// (The tensor-core forward needs 5 * 64 * (16 * ceil(D / 16) + 8) * 2.)
-size_t dl4j_flash_smem_bytes(int kind, int D) {
+// 1 = dK/dV, 2 = dQ, on the tensor-core route (tensor_cores = 1) or the
+// FMA route (0).
+size_t dl4j_flash_smem_bytes(int kind, int D, int tensor_cores) {
+  if (tensor_cores) {
+    const bool two = D > 64;
+    if (kind == 0) return two ? fwd_mma_bytes<2>() : fwd_mma_bytes<1>();
+    if (kind == 1) return two ? dkv_mma_bytes<2>() : dkv_mma_bytes<1>();
+    return two ? dq_mma_bytes<2>() : dq_mma_bytes<1>();
+  }
   const size_t f = kind == 0 ? fwd_floats(D)
                              : kind == 1 ? dkv_floats(D) : dq_floats(D);
   return f * sizeof(float);
@@ -1070,25 +1484,28 @@ size_t dl4j_flash_smem_bytes(int kind, int D) {
 // Every entry takes contiguous [B, S, H, D] tensors in one dtype
 // (0 = float32, 1 = bfloat16) and [B*H, S] float32 row stats on the
 // current device, launches on `stream`, does not synchronise, and returns
-// cudaGetLastError() after the launch.
+// cudaGetLastError() after the launch.  Each picks its route from its
+// inputs: bfloat16 with D % 8 == 0 and 16-byte aligned tensors runs on
+// the tensor cores, float32 and any other bfloat16 input on the FMA pipes.
 
 // out [B, S, H, D] and lse [B*H, S] of flash attention over q, k, v.
-// bfloat16 with D % 8 == 0 and 16-byte aligned tensors runs on the tensor
-// cores; float32 and any other bfloat16 input on the FMA pipes.
 int dl4j_flash_fwd(const void* q, const void* k, const void* v, void* out,
                    void* lse, int B, int S, int H, int D, int causal,
                    int dtype, void* stream) {
   if (bad_shape(B, S, H, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mma_route(q, k, v, out, D, dtype))
-    return (int)fwd_mma_dispatch(q, k, v, out, lse, B, S, H, D, causal, s);
+  if (mma_route(D, dtype, {q, k, v, out}))
+    DL4J_DISPATCH_MMA(fwd_mma, q, k, v, out, lse, B, S, H, D, causal, s);
   DL4J_DISPATCH(fwd, q, k, v, out, lse, B, S, H, D, causal, s);
 }
 
-// 1 when dl4j_flash_fwd takes the tensor-core route for these inputs.
-int dl4j_flash_fwd_tensor_cores(const void* q, const void* k, const void* v,
-                                const void* out, int D, int dtype) {
-  return mma_route(q, k, v, out, D, dtype) ? 1 : 0;
+// 1 when an entry takes the tensor-core route for these tensors: q, k, v
+// and then out (dl4j_flash_fwd), g, dk, dv (dl4j_flash_bwd_dkv) or g, dq
+// (dl4j_flash_bwd_dq), the unused trailing pointers NULL.
+int dl4j_flash_tensor_cores(const void* q, const void* k, const void* v,
+                            const void* p3, const void* p4, const void* p5,
+                            int D, int dtype) {
+  return mma_route(D, dtype, {q, k, v, p3, p4, p5}) ? 1 : 0;
 }
 
 // dk, dv of flash attention given dO = g and the row stats lse, delta.
@@ -1098,6 +1515,9 @@ int dl4j_flash_bwd_dkv(const void* q, const void* k, const void* v,
                        int causal, int dtype, void* stream) {
   if (bad_shape(B, S, H, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mma_route(D, dtype, {q, k, v, g, dk, dv}))
+    DL4J_DISPATCH_MMA(dkv_mma, q, k, v, g, lse, delta, dk, dv, B, S, H, D,
+                      causal, s);
   DL4J_DISPATCH(dkv, q, k, v, g, lse, delta, dk, dv, B, S, H, D, causal, s);
 }
 
@@ -1108,6 +1528,9 @@ int dl4j_flash_bwd_dq(const void* q, const void* k, const void* v,
                       int dtype, void* stream) {
   if (bad_shape(B, S, H, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (mma_route(D, dtype, {q, k, v, g, dqp}))
+    DL4J_DISPATCH_MMA(dq_mma, q, k, v, g, lse, delta, dqp, B, S, H, D,
+                      causal, s);
   DL4J_DISPATCH(dq, q, k, v, g, lse, delta, dqp, B, S, H, D, causal, s);
 }
 

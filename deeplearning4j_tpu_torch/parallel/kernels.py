@@ -83,9 +83,9 @@ def _lib() -> ctypes.CDLL:
             for fn in (lib.dl4j_flash_fwd, lib.dl4j_flash_bwd_dkv,
                        lib.dl4j_flash_bwd_dq):
                 fn.restype = ci
-            lib.dl4j_flash_fwd_tensor_cores.argtypes = [vp] * 4 + [ci, ci]
-            lib.dl4j_flash_fwd_tensor_cores.restype = ci
-            lib.dl4j_flash_smem_bytes.argtypes = [ci, ci]
+            lib.dl4j_flash_tensor_cores.argtypes = [vp] * 6 + [ci, ci]
+            lib.dl4j_flash_tensor_cores.restype = ci
+            lib.dl4j_flash_smem_bytes.argtypes = [ci, ci, ci]
             lib.dl4j_flash_smem_bytes.restype = ctypes.c_size_t
             lib.dl4j_flash_error_string.argtypes = [ci]
             lib.dl4j_flash_error_string.restype = ctypes.c_char_p
@@ -93,15 +93,26 @@ def _lib() -> ctypes.CDLL:
         return _lib_handle
 
 
-def _raise_on(err: int, kind: int, what: str, shape) -> None:
+# flash_route kinds -> the C entries' kernel codes
+_KINDS = {"fwd": 0, "dkv": 1, "dq": 2}
+
+
+def _raise_on(err: int, kind: str, what: str, tensors) -> None:
+    """Raise RuntimeError for a failed launch of `kind` on `tensors` (q,
+    k, v, then the entry's other bf16/f32 tensors as `flash_route` takes
+    them), naming the route and the shared memory of the kernel that was
+    refused."""
     if err != 0:
         lib = _lib()
-        smem = lib.dl4j_flash_smem_bytes(kind, shape[-1])
+        shape = tensors[0].shape
+        route = flash_route(kind, *tensors)
+        smem = lib.dl4j_flash_smem_bytes(_KINDS[kind], shape[-1],
+                                         int(route == "tensor_cores"))
         raise RuntimeError(
             f"{what} kernel launch failed: "
             f"{lib.dl4j_flash_error_string(err).decode()} (error {err}; "
-            f"[B, S, H, D] = {list(shape)} needs {smem} bytes of shared "
-            f"memory per block)")
+            f"[B, S, H, D] = {list(shape)} on the {route} route needs "
+            f"{smem} bytes of shared memory per block)")
 
 
 def _check_cuda(name_tensors, stats=()) -> None:
@@ -194,7 +205,7 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.dl4j_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                  out.data_ptr(), lse.data_ptr(), b, s, h, d,
                                  int(causal), _DTYPE_CODES[q.dtype], stream)
-    _raise_on(err, 0, "flash forward", q.shape)
+    _raise_on(err, "fwd", "flash forward", (q, k, v, out))
     flash_forward.launches.add()
     return out, lse
 
@@ -202,14 +213,30 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_forward.launches = LaunchCounter()
 
 
-def flash_forward_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        out: torch.Tensor) -> str:
-    """The route the CUDA entry takes for these card tensors:
+def flash_route_rule(dtype: torch.dtype, head_dim: int,
+                     data_ptrs) -> str:
+    """The route rule of all three CUDA entries, mirrored in Python:
     ``"tensor_cores"`` (wgmma) for bfloat16 with a head dim that is a
-    multiple of 8 and 16-byte aligned tensors, else ``"fma"``."""
-    tc = _lib().dl4j_flash_fwd_tensor_cores(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        q.shape[-1], _DTYPE_CODES[q.dtype])
+    multiple of 8 and every tensor the entry reads or writes (q, k, v,
+    dO and the outputs; `data_ptrs`) on a 16-byte boundary, else
+    ``"fma"``.  `flash_route` asks the C entries themselves."""
+    aligned = all(p % 16 == 0 for p in data_ptrs)
+    return ("tensor_cores" if dtype == torch.bfloat16 and head_dim % 8 == 0
+            and aligned else "fma")
+
+
+def flash_route(kind: str, q: torch.Tensor, k: torch.Tensor,
+                v: torch.Tensor, *rest: torch.Tensor) -> str:
+    """The route the CUDA entry of `kind` takes for these card tensors,
+    as the entry reports it: ``"fwd"`` with `rest` = (out,), ``"dkv"``
+    with (g, dk, dv), ``"dq"`` with (g, dq)."""
+    want = {"fwd": 1, "dkv": 3, "dq": 2}[kind]
+    if len(rest) != want:
+        raise ValueError(f"flash_route({kind!r}) takes q, k, v and {want} "
+                         f"more tensors, got {len(rest)}")
+    ptrs = [t.data_ptr() for t in (q, k, v, *rest)]
+    tc = _lib().dl4j_flash_tensor_cores(*ptrs, *[None] * (6 - len(ptrs)),
+                                        q.shape[-1], _DTYPE_CODES[q.dtype])
     return "tensor_cores" if tc else "fma"
 
 
@@ -275,7 +302,7 @@ def _launch_dkv(q, k, v, g, lse, delta, causal):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             b, s, h, d, int(causal), _DTYPE_CODES[q.dtype], stream)
-    _raise_on(err, 1, "flash backward dK/dV", q.shape)
+    _raise_on(err, "dkv", "flash backward dK/dV", (q, k, v, g, dk, dv))
     flash_bwd_dkv.launches.add()
     return dk, dv
 
@@ -289,7 +316,7 @@ def _launch_dq(q, k, v, g, lse, delta, causal):
             q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), b, s, h, d,
             int(causal), _DTYPE_CODES[q.dtype], stream)
-    _raise_on(err, 2, "flash backward dQ", q.shape)
+    _raise_on(err, "dq", "flash backward dQ", (q, k, v, g, dq))
     flash_bwd_dq.launches.add()
     return dq
 
@@ -370,5 +397,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 __all__ = ["LaunchCounter", "MAX_HEAD_DIM", "NEG_INF", "flash_attention",
            "flash_bwd_block", "flash_bwd_block_plain", "flash_bwd_dkv",
            "flash_bwd_dkv_plain", "flash_bwd_dq", "flash_bwd_dq_plain",
-           "flash_forward", "flash_forward_plain", "flash_forward_route",
+           "flash_forward", "flash_forward_plain", "flash_route",
+           "flash_route_rule",
            "mask_value", "row_delta"]

@@ -1,7 +1,7 @@
 """PyTorch port on an NVIDIA card: the hand-written CUDA kernels (paged
-attention with its page split; the flash-attention forward on the tensor
-cores and on the FMA pipes, and its two backward kernels; the fused LSTM
-scan) and the serving (``prefill_chunk`` up to 128 and beyond),
+attention with its page split; the flash-attention forward and its two
+backward kernels, each on the tensor cores and on the FMA pipes; the
+fused LSTM scan) and the serving (``prefill_chunk`` up to 128 and beyond),
 LM-training and `MultiLayerNetwork` paths that launch them.
 
 Every test carries the ``cuda`` marker and decides inside the test
@@ -11,6 +11,8 @@ JAX, so on a machine with a card and without JAX it runs as
 
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -258,16 +260,128 @@ def test_flash_kernels_match_plain(name, dtype, causal):
             assert _rel(got, ref) <= tol
 
 
-@pytest.mark.parametrize("dtype,d", [("bfloat16", 64), ("bfloat16", 40),
-                                     ("bfloat16", 20), ("float32", 64)])
-def test_flash_forward_route(dtype, d):
-    """bf16 at a head dim that is a multiple of 8 runs on the tensor
-    cores, everything else on the FMA pipes; the C entry agrees."""
+def _bwd_bf16_rounded(q, k, v, g, lse, delta, causal):
+    """The plain backward as the tensor cores take it: f32 products of the
+    bf16 inputs with P and dS rounded to bf16 before their products
+    (dV = P^T dO, dK = dS^T Q, dQ = dS K).  Tighter than the f32 plain
+    version: a misplaced or dropped tile fails it."""
+    b, s, h, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    qf, kf, vf, gf = (x.float() for x in (q, k, v, g))
+    sc = torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale
+    if causal:
+        keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        sc = sc.masked_fill(~keep, float("-inf"))
+    p = torch.exp(sc - lse.reshape(b, h, s, 1))
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.bfloat16().float(), gf)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    ds = (p * (dp - delta.reshape(b, h, s, 1))).bfloat16().float()
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale
+    return dq, dk, dv
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("name", sorted(n for n, c in FLASH_CASES.items()
+                                        if c[3] % 8 == 0))
+def test_flash_backward_tensor_cores_match_the_bf16_rounding_reference(
+        name, causal):
+    """bf16 dq, dk, dv on the tensor-core route against the plain backward
+    with P and dS rounded as the kernels round them: relative max error
+    5e-3 (the outputs' bf16 rounding and the f32 sums' order)."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    q, k, v, g = _flash_inputs(FLASH_CASES[name], torch.bfloat16, seed=2)
+    out, lse = tk.flash_forward(q, k, v, causal)
+    delta = tk.row_delta(g, out)
+    dk, dv = tk.flash_bwd_dkv(q, k, v, g, lse, delta, causal)
+    dq = tk.flash_bwd_dq(q, k, v, g, lse, delta, causal)
+    assert tk.flash_route("dkv", q, k, v, g, dk, dv) == "tensor_cores"
+    assert tk.flash_route("dq", q, k, v, g, dq) == "tensor_cores"
+    want = _bwd_bf16_rounded(q, k, v, g, lse, delta, causal)
+    for got, ref in zip((dq, dk, dv), want):
+        if q.shape[1] == 1 and got is not dv:
+            assert float(got.float().abs().max()) <= 1e-6   # exactly 0
+        else:
+            assert _rel(got, ref) <= 5e-3
+
+
+def _misaligned(shape, dtype):
+    """A contiguous card tensor whose data starts 2 bytes past a 16-byte
+    boundary."""
+    n = int(np.prod(shape))
+    return torch.zeros(n + 8, dtype=dtype, device="cuda")[1:n + 1].view(
+        shape)
+
+
+@pytest.mark.parametrize("dtype,d,aligned", [
+    ("bfloat16", 64, True), ("bfloat16", 40, True), ("bfloat16", 128, True),
+    ("bfloat16", 20, True), ("bfloat16", 64, False), ("float32", 64, True)])
+def test_flash_forward_route(dtype, d, aligned):
+    """bf16 at a head dim that is a multiple of 8 with 16-byte aligned
+    tensors runs on the tensor cores, everything else on the FMA pipes:
+    the forward, dK/dV and dQ entries agree with `flash_route_rule`."""
     _need_card()
     dt = getattr(torch, dtype)
-    q, k, v, _ = _flash_inputs((1, 8, 2, d), dt)
-    want = "tensor_cores" if dt == torch.bfloat16 and d % 8 == 0 else "fma"
-    assert tk.flash_forward_route(q, k, v, torch.empty_like(q)) == want
+    q, k, v, g = _flash_inputs((1, 8, 2, d), dt)
+    if not aligned:
+        g = _misaligned(g.shape, dt)
+    want = ("tensor_cores" if dt == torch.bfloat16 and d % 8 == 0
+            and aligned else "fma")
+    outs = {"fwd": (torch.empty_like(q),),
+            "dkv": (g, torch.empty_like(k), torch.empty_like(v)),
+            "dq": (g, torch.empty_like(q))}
+    if not aligned:
+        outs["fwd"] = (_misaligned(q.shape, dt),)
+    for kind, rest in outs.items():
+        ptrs = [t.data_ptr() for t in (q, k, v, *rest)]
+        assert tk.flash_route_rule(dt, d, ptrs) == want, kind
+        assert tk.flash_route(kind, q, k, v, *rest) == want, kind
+
+
+def _smem_formula(kind, d, tensor_cores):
+    """Each route's shared memory per block, from its design."""
+    if tensor_cores:
+        tile = 64 * 64 * (1 if d <= 64 else 2) * 2       # bf16, D padded
+        return {"fwd": 5 * tile, "dkv": 6 * tile + 2 * 2 * 64 * 4,
+                "dq": 6 * tile}[kind]
+    ld = d + 1                                           # f32, padded rows
+    return 4 * {"fwd": 3 * 64 * ld + 64 * 65,
+                "dkv": 4 * 64 * ld + 2 * 64 * 65 + 128,
+                "dq": 4 * 64 * ld + 64 * 65 + 128}[kind]
+
+
+@pytest.mark.parametrize("kind", ["fwd", "dkv", "dq"])
+def test_flash_smem_bytes_follow_the_route(kind):
+    """`dl4j_flash_smem_bytes` reports the bytes of the route's kernel."""
+    _need_card()
+    lib = tk._lib()
+    for d in (8, 16, 40, 64, 80, 128):
+        for tc in (0, 1):
+            assert lib.dl4j_flash_smem_bytes(tk._KINDS[kind], d, tc) == \
+                _smem_formula(kind, d, tc), (d, tc)
+
+
+@pytest.mark.parametrize("kind", ["fwd", "dkv", "dq"])
+def test_flash_refused_tensor_core_launch_names_its_bytes(kind):
+    """A bf16 launch the tensor-core entry refuses (65536 tiles, past the
+    grid's y limit) raises RuntimeError naming that route's shared memory;
+    nothing falls back to the FMA route and nothing is counted."""
+    _need_card()
+    s = 65535 * 64 + 1
+    q = torch.zeros(1, s, 1, 8, dtype=torch.bfloat16, device="cuda")
+    stats = torch.zeros(1, s, device="cuda")
+    fn = {"fwd": lambda: tk.flash_forward(q, q, q, False),
+          "dkv": lambda: tk.flash_bwd_dkv(q, q, q, q, stats, stats, False),
+          "dq": lambda: tk.flash_bwd_dq(q, q, q, q, stats, stats, False)}
+    counter = {"fwd": tk.flash_forward, "dkv": tk.flash_bwd_dkv,
+               "dq": tk.flash_bwd_dq}[kind].launches
+    before = counter.value
+    with pytest.raises(RuntimeError,
+                       match=f"tensor_cores route needs "
+                             f"{_smem_formula(kind, 8, 1)} bytes"):
+        fn[kind]()
+    assert counter.value == before
 
 
 def test_flash_attention_autograd_on_the_card_matches_plain_attention():

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 from deeplearning4j_tpu.parallel import kernels as jk
 from deeplearning4j_tpu.parallel.ring_attention import attention as jattention
 from deeplearning4j_tpu_torch.parallel import kernels as tk
+from test_torch_cuda import _bwd_bf16_rounded
 from test_torch_threads import torch_two_threads  # noqa: F401 — autouse
 
 ATOL = 2e-5
@@ -189,3 +190,49 @@ def test_launch_checks_refuse_what_the_kernels_do_not_take():
         tk._check_cuda((("q", x),), (("lse", torch.zeros(8, 2)),))
     with pytest.raises(ValueError, match="shape"):
         tk._check_cuda((("q", x), ("k", torch.zeros(1, 9, 2, 16))))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,d", [(64, 16), (64, 64), (100, 16), (100, 64)])
+def test_bf16_rounding_reference_stays_inside_the_card_limit(s, d, causal):
+    """The card holds the tensor-core backward at 5e-3 against the plain
+    backward with P and dS rounded to bf16 (`_bwd_bf16_rounded` of the
+    card tests) and at 2e-2 against the f32 plain version.  On
+    bf16-representable inputs that rounding reference itself stays within
+    2e-2 of the f32 plain version and of the JAX `_bwd_block`, so the two
+    limits cannot contradict each other."""
+    q, k, v, g = (np.asarray(torch.from_numpy(x).bfloat16().float())
+                  for x in _inputs(1, s, 2, d, seed=300 + s + d))
+    out, lse = tk.flash_forward(*_t(q, k, v), causal)
+    delta = tk.row_delta(torch.from_numpy(g), out)
+    args = (*_t(q, k, v, g), lse, delta)
+    rounded = _bwd_bf16_rounded(*args, causal)
+    plain = tk.flash_bwd_block_plain(*args, causal)
+    jax_ref = jk._bwd_block(*(jnp.asarray(np.asarray(x)) for x in args),
+                            causal, True)
+    for name, r, p, j in zip(("dq", "dk", "dv"), rounded, plain, jax_ref):
+        for want in (p, torch.from_numpy(np.array(j))):
+            err = float((r - want).abs().max() / want.abs().max())
+            assert err <= 2e-2, (name, err)
+
+
+@pytest.mark.parametrize("dtype,d,offset,want", [
+    (torch.bfloat16, 64, 0, "tensor_cores"),
+    (torch.bfloat16, 8, 0, "tensor_cores"),
+    (torch.bfloat16, 40, 0, "tensor_cores"),
+    (torch.bfloat16, 128, 0, "tensor_cores"),
+    (torch.bfloat16, 20, 0, "fma"),
+    (torch.bfloat16, 127, 0, "fma"),
+    (torch.bfloat16, 64, 2, "fma"),
+    (torch.bfloat16, 64, 8, "fma"),
+    (torch.float32, 64, 0, "fma"),
+    (torch.float32, 128, 0, "fma"),
+])
+def test_route_rule_sends_aligned_bf16_at_d_multiple_of_8_to_tensor_cores(
+        dtype, d, offset, want):
+    """`flash_route_rule`, the Python mirror of the C entries' route rule
+    (the card tests assert the entries agree): one tensor off a 16-byte
+    boundary sends the launch to the FMA pipes."""
+    ptrs = [4096, 8192, 12288, 16384 + offset, 20480, 24576]
+    assert tk.flash_route_rule(dtype, d, ptrs) == want
+    assert tk.flash_route_rule(dtype, d, ptrs[:4]) == want
