@@ -187,7 +187,8 @@ def device_ms(fn, iters: int = 50, warmup: int = 3, reps: int = 3) -> float:
 
 # (C, K) of the kernel phase: decode and the served 16-column chunk, then
 # the wide prefill chunks the first design refused
-KERNEL_CASES = ((1, 64), (16, 64), (128, 64), (64, 128))
+KERNEL_CASES = ((1, 64), (16, 64), (128, 64), (64, 128), (1, 384),
+                (16, 512))
 
 
 def kernel_inputs(c: int, dtype, kd: int = 64, layers: int = 12,
@@ -356,6 +357,18 @@ def kernel_case(c: int, dtype_name: str, kd: int = 64) -> dict:
             "route": "tensor_cores" if plan["cols"] >= 16 else "fma"}
 
 
+def paged_route_names() -> dict:
+    from deeplearning4j_tpu_torch.parallel.paged_kernel import (
+        MAX_MMA_HEAD_DIM,
+    )
+
+    return {"bfloat16": {
+        "C=1": "fma (vectorised warp dot products)",
+        "C>1": f"tensor_cores (mma.sync m16n8k16, 16 columns a block) up "
+               f"to K={MAX_MMA_HEAD_DIM}, fma (4 columns a block) above"},
+        "float32": "fma"}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the flash-attention kernels against their plain versions
 
@@ -368,6 +381,8 @@ FLASH_KERNELS = {
 }
 FLASH_B, FLASH_H, FLASH_D = 2, 12, 64   # one microbatch of the train phase
 FLASH_DS = (64, 128)                    # head dims of the flash phase
+FLASH_WIDE_DS = (136, 192, 256, 512)    # the D-chunked route
+FLASH_WIDE_TIMED = 256                  # Gemma's head dim
 BF16_ROUNDED_TOL = 5e-3                 # tensor-core backward vs rounding ref
 
 
@@ -446,10 +461,12 @@ def flash_case(s: int, causal: bool, dtype_name: str, timed: bool,
     tensors = {"fwd": (q, k, v, out), "dkv": (q, k, v, g, dk, dv),
                "dq": (q, k, v, g, dq)}
     routes = {kind: fk.flash_route(kind, *ts) for kind, ts in tensors.items()}
-    want_route = ("tensor_cores" if dtype == torch.bfloat16 and d % 8 == 0
-                  else "fma")
     for kind, ts in tensors.items():
-        rule = fk.flash_route_rule(dtype, d, [t.data_ptr() for t in ts])
+        want_route = ("tensor_cores" if dtype == torch.bfloat16 and d % 8 == 0
+                      and d <= fk.MAX_MMA_HEAD_DIM[kind] else "fma_chunks"
+                      if d > fk.CHUNK_HEAD_DIM else "fma")
+        rule = fk.flash_route_rule(dtype, d, [t.data_ptr() for t in ts],
+                                   kind)
         if routes[kind] != want_route or rule != want_route:
             raise AssertionError(f"flash {kind} D={d} {dtype_name}: the "
                                  f"entry took the {routes[kind]} route, the "
@@ -579,7 +596,74 @@ def flash_phase(card: str) -> list:
     log(f"flash: S=1000 D=20 causal=True bfloat16 (routes "
         f"{'/'.join(case['routes'].values())}): relative err "
         + ", ".join(f"{n} {e:.3g}" for n, e in case["max_rel_err"].items()))
+    # head dims above 128: the D-chunked route
+    for d in FLASH_WIDE_DS:
+        for causal in (True, False):
+            for dt in ("float32", "bfloat16"):
+                case = flash_case(500, causal, dt, timed=False, d=d)
+                cases.append(case)
+                log(f"flash: S=500 D={d} causal={causal} {dt} (routes "
+                    f"{'/'.join(case['routes'].values())}): relative err "
+                    + ", ".join(f"{n} {e:.3g}" for n, e in
+                                case["max_rel_err"].items()))
+    case = flash_case(1024, True, "bfloat16", timed=True, d=FLASH_WIDE_TIMED)
+    cases.append(case)
+    kind_of = {"flash_fwd": "fwd", "flash_bwd_dkv": "dkv",
+               "flash_bwd_dq": "dq"}
+    for name, t in case["timing"].items():
+        log(f"flash: {name} S=1024 D={FLASH_WIDE_TIMED} bfloat16 "
+            f"({case['routes'][kind_of[name]]}): device ms: kernel "
+            f"{t['kernel_ms']:.4f}, plain {t['plain_ms']:.4f}, sdpa "
+            f"{t['library_ms']:.4f}"
+            + (f", sdpa backward alone {t['library_bwd_ms']:.4f}"
+               if "library_bwd_ms" in t else "")
+            + f", bound {t['bound_ms']:.4f} ({t['bound_by']}) ({card})")
+    torch.cuda.empty_cache()
     return cases
+
+
+def head256_grad_parity() -> dict:
+    """float32: the loss and every gradient of a 2-layer transformer with
+    d_model 512 over 2 heads (head dim 256, the D-chunked route) through
+    the flash kernels against the plain-attention forward, relative max
+    error (a key bias against its layer's query bias scale)."""
+    import torch
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.parallel import transformer as tfm
+    from deeplearning4j_tpu_torch.parallel.hybrid import _master_f32
+    from deeplearning4j_tpu_torch.tree import flatten_tree
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tfm.TransformerConfig(vocab_size=128, d_model=512, n_heads=2,
+                                n_layers=2, d_ff=256, max_len=96,
+                                attn_bias=True, tie_embeddings=True,
+                                remat=True, dtype="float32")
+    params = _master_f32(tfm.params_from_numpy(tfm.numpy_params(cfg),
+                                               device="cuda"))
+    flat = flatten_tree(params)
+    names, leaves = list(flat), list(flat.values())
+    data = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 128, (2, 97))).cuda()
+    tok, tgt = data[:, :-1], data[:, 1:]
+    loss_k = tfm.lm_loss(cfg, params, tok, tgt)
+    grads_k = torch.autograd.grad(loss_k, leaves)
+    logits = tfm._forward(cfg, params, tok, tfm.attention)
+    loss_p = -F.log_softmax(logits, dim=-1).gather(
+        -1, tgt[..., None])[..., 0].mean()
+    grads_p = torch.autograd.grad(loss_p, leaves)
+    scale = dict(zip(names, (float(g.abs().max()) for g in grads_p)))
+    errs = {n: float((gk - gp).abs().max()) / scale[n.replace("//bk", "//bq")]
+            for n, gk, gp in zip(names, grads_k, grads_p)}
+    worst = max(errs.items(), key=lambda kv: kv[1])
+    lk_, lp_ = float(loss_k.detach()), float(loss_p.detach())
+    out = {"head_dim": 256, "loss_rel_err": abs(lk_ - lp_) / abs(lp_),
+           "grad_max_rel_err": worst[1], "grad_worst_leaf": worst[0]}
+    if not out["loss_rel_err"] <= 1e-3 or not all(
+            math.isfinite(e) and e <= 1e-3 for e in errs.values()):
+        raise AssertionError(f"flash: head dim 256 gradients vs plain "
+                             f"attention: {out}")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1199,6 +1283,50 @@ def lstm_phase(card: str) -> dict:
     log(f"lstm: {cases} cases, worst relative error f32 "
         f"{worst['float32']:.3g}, bf16 {worst['bfloat16']:.3g}")
 
+    # the cluster route's limit and one past it, and batches past the
+    # wide route's first ceiling (B 3039 at H 1024): each on the route its
+    # plan names, the plan equal to `lstm_route_rule`
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    limits = []
+    for t, b, h, dt in ((20, 33, 384, "float32"), (20, 33, 385, "float32"),
+                        (20, 33, 512, "bfloat16"), (20, 33, 513, "bfloat16"),
+                        (8, 3040, 1024, "float32"), (8, 4096, 1024, "float32"),
+                        (8, 3040, 1024, "bfloat16"),
+                        (8, 4096, 1024, "bfloat16")):
+        dtype = getattr(torch, dt)
+        plan = lk.launch_plan(dtype, b, h)
+        rule = lk.lstm_route_rule(dtype, b, h, n_sm=n_sm)
+        same = {k: plan[k] for k in rule if k != "active_clusters"} == {
+            k: v for k, v in rule.items() if k != "active_clusters"}
+        if plan["error"] != 0 or not same:
+            raise AssertionError(f"lstm plan T={t} B={b} H={h} {dt}: {plan}"
+                                 f" vs the rule {rule}")
+        args = lstm_inputs(t, b, h, dtype, seed=h + b, batch_major=True)
+        got = lk.fused_lstm_forward(*args, save_residuals=True)
+        want = lk.fused_lstm_forward_plain(*args, save_residuals=True)
+        torch.cuda.synchronize()
+        errs = [rel_err(a, w) for a, w in zip(got, want)]
+        tol = 1e-5 if dt == "float32" else 2e-2
+        if not all(math.isfinite(e) and e <= tol for e in errs):
+            raise AssertionError(f"lstm T={t} B={b} H={h} {dt} on the "
+                                 f"{plan['route']} route: relative errors "
+                                 f"{errs} > {tol}")
+        worst[dt] = max(worst[dt], *errs)
+        limits.append({"T": t, "B": b, "H": h, "dtype": dt,
+                       "route": plan["route"], "cluster": plan["cluster"],
+                       "launches": plan["launches"],
+                       "batch_tile": plan["batch_tile"],
+                       "max_rel_err": max(errs)})
+        log(f"lstm: T={t} B={b} H={h} {dt}: {plan['route']} route "
+            f"(cluster {plan['cluster']}, {plan['launches']} launch(es) of "
+            f"{plan['batch_tile']} rows), relative error {max(errs):.3g}")
+        del args, got, want
+        torch.cuda.empty_cache()
+    output_4096 = graves_output_4096()
+    log(f"lstm: output() of 4096 sequences through a 1024-unit Graves LSTM: "
+        f"1 launch, relative error vs the plain path "
+        f"{output_4096['rel_err']:.3g}")
+
     grads = {}
     for t, b, h in ((LSTM_T, LSTM_B, LSTM_H), (200, 33, 37)):
         args = lstm_inputs(t, b, h, torch.float32, seed=7, batch_major=True)
@@ -1241,9 +1369,12 @@ def lstm_phase(card: str) -> dict:
             plain_ms = cuda_ms(plain, iters=5, warmup=1)
             kernel_ms = cuda_ms(kern, iters=50)
             kernel_ms_2 = cuda_ms(kern, iters=50)
+            kernel_dev = device_ms(kern, iters=50)
             timing[f"{dt}_{'train' if res else 'inference'}"] = {
                 "dtype": dt, "residuals": res,
-                "kernel_ms": device_ms(kern, iters=50),
+                "route": lk.launch_plan(dtype, LSTM_B, LSTM_H)["route"],
+                "kernel_ms": kernel_dev,
+                "step_us": kernel_dev * 1e3 / LSTM_T,
                 "plain_ms": device_ms(plain, iters=3, warmup=1),
                 "library_ms": library_dev,
                 "call_ms": min(kernel_ms, kernel_ms_2),
@@ -1251,17 +1382,60 @@ def lstm_phase(card: str) -> dict:
                 "plain_call_ms": plain_ms, "library_call_ms": library_ms,
                 **lstm_bound(LSTM_T, LSTM_B, LSTM_H, dt, res)}
     for name, c in timing.items():
-        log(f"lstm: {name} T={LSTM_T} B={LSTM_B} H={LSTM_H}: device ms: "
-            f"kernel {c['kernel_ms']:.4f}, plain {c['plain_ms']:.4f}, cuDNN "
-            f"nn.LSTM {c['library_ms']:.4f}, bound {c['bound_ms']:.5f} "
-            f"({c['bound_by']}; the {LSTM_T} steps are serial); per call "
+        c["bound_step_us"] = c["bound_ms"] * 1e3 / LSTM_T
+        log(f"lstm: {name} T={LSTM_T} B={LSTM_B} H={LSTM_H} ({c['route']} "
+            f"route): device ms: kernel {c['kernel_ms']:.4f} "
+            f"({c['step_us']:.3f} us a step), plain {c['plain_ms']:.4f}, "
+            f"cuDNN nn.LSTM {c['library_ms']:.4f}, bound "
+            f"{c['bound_ms']:.5f} ({c['bound_by']}; the {LSTM_T} steps are "
+            f"serial); per call "
             f"back to back: kernel {c['call_ms']:.4f}, plain "
             f"{c['plain_call_ms']:.4f}, cuDNN {c['library_call_ms']:.4f} "
             f"({card})")
     return {"cases": cases, "worst_rel_err": worst,
             "worst_abs_err": worst_abs, "grad_rel_err": grads,
-            "timing": timing, "plan": lk.launch_plan(LSTM_B, LSTM_H),
+            "timing": timing, "limits": limits, "output_4096": output_4096,
+            "plan": {dt: lk.launch_plan(getattr(torch, dt), LSTM_B, LSTM_H)
+                     for dt in ("bfloat16", "float32")},
             "library": LSTM_LIBRARY}
+
+
+def graves_output_4096() -> dict:
+    """`output()` of 4096 sequences (T 3) through a 1024-unit Graves LSTM
+    in f32: one launch without residuals, against the same net with the
+    kernel's plain version in its place (relative 1e-4)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn import conf as tconf
+    from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
+    from deeplearning4j_tpu_torch.nn.layers import recurrent
+
+    conf = tconf.MultiLayerConfiguration(
+        conf=tconf.NeuralNetConfiguration(seed=3),
+        layers=(tconf.GravesLSTMConf(n_in=11, n_out=1024),
+                tconf.RnnOutputLayerConf(n_in=1024, n_out=11)))
+    net = MultiLayerNetwork(conf).init()
+    ids = np.random.default_rng(0).integers(0, 11, (4096, 3))
+    x = torch.from_numpy(np.eye(11, dtype=np.float32)[ids]).cuda()
+    counters = (lk.fused_lstm_forward.launches,
+                lk.fused_lstm_forward.residual_launches)
+    for c in counters:
+        c.reset()
+    out = net.output(x)
+    torch.cuda.synchronize()
+    launches = [c.value for c in counters]
+    recurrent.fused_lstm_scan = lk.fused_lstm_scan_plain
+    try:
+        want = net.output(x)
+    finally:
+        recurrent.fused_lstm_scan = lk.fused_lstm_scan
+    res = {"launches": launches, "rel_err": rel_err(out, want),
+           "plan": lk.launch_plan(torch.float32, 4096, 1024)}
+    if launches != [1, 0] or out.shape != (4096, 3, 11) or not \
+            torch.isfinite(out).all() or not res["rel_err"] <= 1e-4:
+        raise AssertionError(f"lstm: output of 4096 sequences: {res}")
+    return res
 
 
 # ---------------------------------------------------------------------------
@@ -1533,7 +1707,14 @@ def main(argv=None) -> int:
                     f"{case['library_call_ms']:.4f} ({card})")
                 torch.cuda.empty_cache()
         kernels_line = cases
-    flash = flash_phase(card) if "flash" in phases else None
+    flash = head256 = None
+    if "flash" in phases:
+        flash = flash_phase(card)
+        head256 = head256_grad_parity()
+        log(f"flash: head dim 256 transformer, f32 loss and gradients "
+            f"through the kernels vs plain attention: loss rel err "
+            f"{head256['loss_rel_err']:.3g}, worst gradient "
+            f"{head256['grad_worst_leaf']} {head256['grad_max_rel_err']:.3g}")
     tree = None
     serve = parity = train = None
     if "serve" in phases or "parity" in phases:
@@ -1575,13 +1756,13 @@ def main(argv=None) -> int:
             "bound_by": main_case["bound_by"],
             "library_ms": main_case["library_ms"],
             "shape": main_case["shape"], "dtype": "bfloat16",
-            "redesigned": True,
-            "routes": {"bfloat16": {"C=1": "fma (vectorised warp dot "
-                                    "products)",
-                                    "C>1": "tensor_cores (mma.sync "
-                                    "m16n8k16, 16 columns a block)"},
-                       "float32": "fma"},
+            "redesigned": True, "routes": paged_route_names(),
             "chunk_ms": chunk_case["kernel_ms"],
+            "wide_head_ms": {f"C={c['C']} K={c['shape']['K']} {c['dtype']}":
+                             {k: c[k] for k in ("route", "kernel_ms",
+                                                "plain_ms", "bound_ms",
+                                                "library_ms")}
+                             for c in kernels_line if c["shape"]["K"] > 256},
             "chunk_library_ms": chunk_case["library_ms"],
             "split_plan": main_case["split_plan"],
             "cases": kernels_line,
@@ -1590,6 +1771,8 @@ def main(argv=None) -> int:
         # the train phase's shape: S = 1024, causal, bf16
         main_case = next(c for c in flash if c["S"] == 1024 and c["causal"]
                          and c["dtype"] == "bfloat16" and c["D"] == FLASH_D)
+        wide_case = next(c for c in flash if c["S"] == 1024 and
+                         c["D"] == FLASH_WIDE_TIMED)
         err_of = {"flash_fwd": ("out", "lse"), "flash_bwd_dkv": ("dk", "dv"),
                   "flash_bwd_dq": ("dq",)}
         kind_of = {"flash_fwd": "fwd", "flash_bwd_dkv": "dkv",
@@ -1626,8 +1809,18 @@ def main(argv=None) -> int:
                 "shape": main_case["shape"], "causal": True,
                 "dtype": "bfloat16", "redesigned": True,
                 "route_taken": main_case["routes"][kind_of[kname]],
-                "routes": {"bfloat16": "tensor_cores (wgmma) for "
-                           "D % 8 == 0, else fma", "float32": "fma"},
+                "routes": {"bfloat16": "tensor_cores (wgmma) for D <= 128 "
+                           "with D % 8 == 0, fma for other D <= 128, "
+                           "fma_chunks for 128 < D <= 512",
+                           "float32": "fma for D <= 128, fma_chunks for "
+                           "128 < D <= 512"},
+                "head_dim_256": {
+                    "route": wide_case["routes"][kind_of[kname]],
+                    "shape": wide_case["shape"], "causal": True,
+                    **{k: wide_case["timing"][kname][k] for k in (
+                        "kernel_ms", "plain_ms", "bound_ms", "bound_by",
+                        "library_ms")}},
+                "head_dim_256_grad_parity": head256,
                 "cases": [{k: v for k, v in c.items() if k != "timing"}
                           for c in flash],
             })
@@ -1644,10 +1837,14 @@ def main(argv=None) -> int:
             "call_ms": t["call_ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "library": LSTM_LIBRARY,
+            "kernel_route": t["route"],
+            "cluster": lstm["plan"]["bfloat16"]["cluster"],
+            "step_us": t["step_us"], "bound_step_us": t["bound_step_us"],
+            "redesigned": True, "library": LSTM_LIBRARY,
             "shape": dict(T=LSTM_T, B=LSTM_B, H=LSTM_H), "dtype": "bfloat16",
             "residuals": True, "timing": lstm["timing"],
             "grad_rel_err": lstm["grad_rel_err"], "cases": lstm["cases"],
+            "limits": lstm["limits"], "output_4096": lstm["output_4096"],
             "plan": lstm["plan"]})
     if entries:
         print(json.dumps({"kernels": entries, "timing": TIMING_NOTE}),

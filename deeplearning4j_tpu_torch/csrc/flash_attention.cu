@@ -27,13 +27,15 @@
 // TPU; the normaliser is clamped at 1e-30.  dK and dQ carry the 1/sqrt(D)
 // factor, dV does not.
 //
-// Each entry has two routes, chosen from the dtype, D and the pointers'
+// Each entry has three routes, chosen from the dtype, D and the pointers'
 // alignment (never by a switch): the tensor cores for bfloat16 with D a
-// multiple of 8 and every tensor it reads or writes 16-byte aligned, which
-// covers every real head width (16, 32, 40, 64, 80, 96, 128); the FMA
-// pipes for float32 and any other bfloat16 input.  The f32 train path
-// keeps the FMA route for its <= 1e-6 agreement with the plain version
-// (TF32 would not give it).
+// multiple of 8 (up to 256 for the forward, 128 for the backward) and
+// every tensor it reads or writes 16-byte aligned, which covers every
+// real head width (16, 32, 40, 64, 80, 96, 128; 256 forward); else the
+// FMA pipes for D <= 128 and the D-chunked FMA route for 128 < D <= 512
+// (kMaxD), in both dtypes.  The f32 train path keeps the FMA routes for
+// their <= 1e-6 agreement with the plain version (TF32 would not give
+// it).
 //
 // 1. Forward on the tensor cores (flash_fwd_mma_kernel).  At the training
 //    shape (B 2, S 1024, H 12, D 64, causal) the forward does ~256 flops
@@ -56,7 +58,8 @@
 //    instruction); the output accumulator stays in registers.  Q, K and
 //    V tiles of 64 rows stay bf16 in shared memory in the 128-byte
 //    swizzled layout wgmma reads without bank conflicts, D zero-padded
-//    to 64 or 128 columns; K and V are copied by 16-byte cp.async into a
+//    to 64, 128, 192 or 256 columns (O is then 128 f32 a thread at
+//    D 256, beside the 32 of S); K and V are copied by 16-byte cp.async into a
 //    two-stage ring (tile j + 1 loads while tile j is computed; one
 //    barrier a tile, and a proxy fence so wgmma sees cp.async's writes).
 //    Causal: fully masked tiles are skipped, the mask is applied only on
@@ -101,6 +104,23 @@
 //    score tile, so row reductions are half-warp shuffles over f32 tiles
 //    padded to D + 1 floats in shared memory; q is scaled before the
 //    forward's product.
+// 4. D-chunked FMA (flash_*_chunk_kernel), 128 < D <= 512 where the
+//    tensor cores do not take it.  The FMA kernels' accumulators (8
+//    columns a thread, and dK + dV together) and their f32 tiles (dK/dV
+//    at D 256: 296 960 bytes, over the 232 448 a block may have) stop at
+//    D 128, and so does the tensor-core backward (dK and dV of a 64-row
+//    tile at D 256 would be 128 + 128 f32 a thread of one warpgroup, the
+//    forward's O 256 at D 512).  So the OUTPUT columns are cut into
+//    128-column chunks, one block a (tile, chunk): each block streams
+//    every chunk of d through the same 128-column f32 tiles to form the
+//    full-D scores (and dP), then accumulates only its own chunk of out,
+//    dK/dV or dQ, with the FMA kernels' thread layout, registers and
+//    shared memory of D 128.  The scores are recomputed once per chunk
+//    (2-4x the work at D 256-512) and the tiles re-read: slow and
+//    correct.  Every block forms the same scores in the same order, so
+//    their softmax statistics agree bit for bit.  The chunk loop of the
+//    backward ends on the block's own chunk, whose Q/dO (dK/dV) or K (dQ)
+//    tile the accumulation then reads in place.
 
 #include <cmath>
 #include <cstddef>
@@ -116,7 +136,10 @@ constexpr int kTile = 64;              // rows of a query or key tile
 constexpr int kSub = 16;               // threads along each tile edge
 constexpr int kThreads = kSub * kSub;  // 256
 constexpr int kPer = kTile / kSub;     // tile rows (and cols) per thread
-constexpr int kMaxD = 128;
+constexpr int kMaxD = 512;
+constexpr int kChunk = 128;            // head dims a block of the chunk route
+constexpr int kMaxMmaFwdD = 256;       // widest head of the wgmma forward
+constexpr int kRouteFma = 0, kRouteTensorCores = 1, kRouteChunks = 2;
 constexpr int kLdp = kTile + 1;        // padded row of a score tile
 constexpr float kNegInf = -1e30f;      // the TPU kernels' NEG_INF
 
@@ -315,6 +338,94 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+template <>
+__device__ __forceinline__ void wgmma_rs<192>(float (&d)[96],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, "
+      "%11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, "
+      "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, "
+      "%33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, "
+      "%55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+      "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, "
+      "%77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95}"
+      ", {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, "
+      "%11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, "
+      "%22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, "
+      "%33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, "
+      "%55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+      "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, "
+      "%77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, "
+      "%99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, "
+      "%110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, "
+      "%121, %122, %123, %124, %125, %126, %127}"
+      ", {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 
 // Stage rows t0 .. t0 + kTile of head (b, h) of a [B, S, H, D] tensor as
 // f32 into dst (row stride ld), times `mul`; rows at or past S are zero.
@@ -329,6 +440,24 @@ __device__ __forceinline__ void load_tile(float* dst, int ld,
     const int t = t0 + r;
     float x = 0.f;
     if (t < S) x = to_f32(src[(((size_t)b * S + t) * H + h) * D + d]) * mul;
+    dst[r * ld + d] = x;
+  }
+}
+
+// Stage columns [d0, d0 + w) of rows t0 .. t0 + kTile of head (b, h) as
+// f32 into dst (row stride ld), times `mul`; rows at or past S are zero.
+template <typename T>
+__device__ __forceinline__ void load_chunk(float* dst, int ld,
+                                           const T* __restrict__ src, int b,
+                                           int h, int t0, int S, int H,
+                                           int D, int d0, int w, float mul) {
+  for (int e = threadIdx.x; e < kTile * w; e += kThreads) {
+    const int r = e / w;
+    const int d = e - r * w;
+    const int t = t0 + r;
+    float x = 0.f;
+    if (t < S)
+      x = to_f32(src[(((size_t)b * S + t) * H + h) * D + d0 + d]) * mul;
     dst[r * ld + d] = x;
   }
 }
@@ -1003,6 +1132,395 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// D-chunked FMA route (128 < D <= 512): grid (tiles * n_chunks, H, B),
+// block (tile, chunk) = blockIdx.x / n_chunks, % n_chunks; output columns
+// [chunk * kChunk, + kChunk).  Shared memory is that of the FMA kernels at
+// D = kChunk.
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_fwd_chunk_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse, int S, int H, int D,
+                       float scale, int causal, int n_chunks) {
+  extern __shared__ float smem[];
+  constexpr int ld = kChunk + 1;
+  constexpr int DPER = kChunk / kSub;
+  float* q_s = smem;                   // [kTile][ld], pre-scaled
+  float* k_s = q_s + kTile * ld;       // [kTile][ld]
+  float* v_s = k_s + kTile * ld;       // [kTile][ld], the block's chunk
+  float* p_s = v_s + kTile * ld;       // [kTile][kLdp]
+
+  const int qt = blockIdx.x / n_chunks;
+  const int chunk = blockIdx.x - qt * n_chunks;
+  const int q0 = qt * kTile;
+  const int c0 = chunk * kChunk;
+  const int w = min(kChunk, D - c0);
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int ty = threadIdx.x / kSub;
+  const int tx = threadIdx.x % kSub;
+
+  float m[kPer], l[kPer], acc[kPer][DPER];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    m[i] = kNegInf;
+    l[i] = 0.f;
+#pragma unroll
+    for (int c = 0; c < DPER; ++c) acc[i][c] = 0.f;
+  }
+
+  const int n_kv = (S + kTile - 1) / kTile;
+  const int n_tiles = causal ? min(n_kv, qt + 1) : n_kv;
+  for (int jt = 0; jt < n_tiles; ++jt) {
+    const int k0 = jt * kTile;
+    float s[kPer][kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i)
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) s[i][j] = 0.f;
+    for (int cc = 0; cc < n_chunks; ++cc) {
+      const int d0 = cc * kChunk;
+      const int dw = min(kChunk, D - d0);
+      __syncthreads();  // the previous readers of q_s, k_s (and p_s, v_s)
+      load_chunk(q_s, ld, q, b, h, q0, S, H, D, d0, dw, scale);
+      load_chunk(k_s, ld, k, b, h, k0, S, H, D, d0, dw, 1.f);
+      __syncthreads();
+      for (int d = 0; d < dw; ++d) {
+        float qa[kPer], kb[kPer];
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) qa[i] = q_s[(ty + kSub * i) * ld + d];
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) kb[j] = k_s[(tx + kSub * j) * ld + d];
+#pragma unroll
+        for (int i = 0; i < kPer; ++i)
+#pragma unroll
+          for (int j = 0; j < kPer; ++j) s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
+      }
+    }
+    load_chunk(v_s, ld, v, b, h, k0, S, H, D, c0, w, 1.f);
+
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int r = ty + kSub * i;
+      const int qp = q0 + r;
+      bool ok[kPer];
+      float mx = kNegInf;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        ok[j] = live(qp, k0 + tx + kSub * j, S, causal);
+        if (!ok[j]) s[i][j] = kNegInf;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      const float m_new = fmaxf(m[i], row_max(mx));
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
+        p_s[r * kLdp + tx + kSub * j] = p;
+        psum += p;
+      }
+      const float alpha = expf(m[i] - m_new);
+      l[i] = l[i] * alpha + row_sum(psum);
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < DPER; ++c) acc[i][c] *= alpha;
+    }
+    __syncthreads();
+
+    for (int kk = 0; kk < kTile; ++kk) {
+      float pa[kPer], vb[DPER];
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) pa[i] = p_s[(ty + kSub * i) * kLdp + kk];
+#pragma unroll
+      for (int c = 0; c < DPER; ++c) {
+        const int d = tx + kSub * c;
+        vb[c] = d < w ? v_s[kk * ld + d] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < kPer; ++i)
+#pragma unroll
+        for (int c = 0; c < DPER; ++c) acc[i][c] = fmaf(pa[i], vb[c], acc[i][c]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int qp = q0 + ty + kSub * i;
+    if (qp >= S) continue;
+    const float lc = fmaxf(l[i], 1e-30f);
+    const size_t row = (((size_t)b * S + qp) * H + h) * D + c0;
+#pragma unroll
+    for (int c = 0; c < DPER; ++c) {
+      const int d = tx + kSub * c;
+      if (d < w) out[row + d] = from_f32<T>(acc[i][c] / lc);
+    }
+    if (tx == 0 && chunk == 0)
+      lse[((size_t)b * H + h) * S + qp] = m[i] + logf(lc);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_bwd_dkv_chunk_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                           const T* __restrict__ v, const T* __restrict__ g,
+                           const float* __restrict__ lse,
+                           const float* __restrict__ delta,
+                           T* __restrict__ dk, T* __restrict__ dv, int S,
+                           int H, int D, float scale, int causal,
+                           int n_chunks) {
+  extern __shared__ float smem[];
+  constexpr int ld = kChunk + 1;
+  constexpr int DPER = kChunk / kSub;
+  float* k_s = smem;                   // [kTile][ld]
+  float* v_s = k_s + kTile * ld;       // [kTile][ld]
+  float* q_s = v_s + kTile * ld;       // [kTile][ld]
+  float* g_s = q_s + kTile * ld;       // [kTile][ld]
+  float* p_s = g_s + kTile * ld;       // P^T  [kTile keys][kLdp]
+  float* ds_s = p_s + kTile * kLdp;    // dS^T [kTile keys][kLdp]
+  float* lse_s = ds_s + kTile * kLdp;  // [kTile]
+  float* dl_s = lse_s + kTile;         // [kTile]
+
+  const int kt = blockIdx.x / n_chunks;
+  const int chunk = blockIdx.x - kt * n_chunks;
+  const int k0 = kt * kTile;
+  const int c0 = chunk * kChunk;
+  const int w = min(kChunk, D - c0);
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const size_t bh = (size_t)b * H + h;
+  const int ty = threadIdx.x / kSub;
+  const int tx = threadIdx.x % kSub;
+
+  float dk_acc[kPer][DPER], dv_acc[kPer][DPER];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i)
+#pragma unroll
+    for (int c = 0; c < DPER; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+
+  const int n_q = (S + kTile - 1) / kTile;
+  const int first = causal ? kt : 0;
+  for (int it = first; it < n_q; ++it) {
+    const int q0 = it * kTile;
+    float st[kPer][kPer], dpt[kPer][kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i)
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) st[i][j] = dpt[i][j] = 0.f;
+    // every chunk of d, the block's own last: its Q and dO stay staged
+    for (int step = 0; step < n_chunks; ++step) {
+      const int cc = (chunk + 1 + step) % n_chunks;
+      const int d0 = cc * kChunk;
+      const int dw = min(kChunk, D - d0);
+      __syncthreads();
+      if (step == 0) {
+        load_stat(lse_s, lse, bh, q0, S);
+        load_stat(dl_s, delta, bh, q0, S);
+      }
+      load_chunk(k_s, ld, k, b, h, k0, S, H, D, d0, dw, 1.f);
+      load_chunk(v_s, ld, v, b, h, k0, S, H, D, d0, dw, 1.f);
+      load_chunk(q_s, ld, q, b, h, q0, S, H, D, d0, dw, 1.f);
+      load_chunk(g_s, ld, g, b, h, q0, S, H, D, d0, dw, 1.f);
+      __syncthreads();
+      for (int d = 0; d < dw; ++d) {
+        float ka[kPer], va[kPer], qb[kPer], gb[kPer];
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) {
+          ka[i] = k_s[(ty + kSub * i) * ld + d];
+          va[i] = v_s[(ty + kSub * i) * ld + d];
+        }
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          qb[j] = q_s[(tx + kSub * j) * ld + d];
+          gb[j] = g_s[(tx + kSub * j) * ld + d];
+        }
+#pragma unroll
+        for (int i = 0; i < kPer; ++i)
+#pragma unroll
+          for (int j = 0; j < kPer; ++j) {
+            st[i][j] = fmaf(ka[i], qb[j], st[i][j]);
+            dpt[i][j] = fmaf(va[i], gb[j], dpt[i][j]);
+          }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int kr = ty + kSub * i;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int qc = tx + kSub * j;
+        const float p = live(q0 + qc, k0 + kr, S, causal)
+                            ? expf(st[i][j] * scale - lse_s[qc])
+                            : 0.f;
+        p_s[kr * kLdp + qc] = p;
+        ds_s[kr * kLdp + qc] = p * (dpt[i][j] - dl_s[qc]);
+      }
+    }
+    __syncthreads();
+
+    for (int qq = 0; qq < kTile; ++qq) {
+      float pa[kPer], sa[kPer], gb[DPER], qb[DPER];
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        pa[i] = p_s[(ty + kSub * i) * kLdp + qq];
+        sa[i] = ds_s[(ty + kSub * i) * kLdp + qq];
+      }
+#pragma unroll
+      for (int c = 0; c < DPER; ++c) {
+        const int d = tx + kSub * c;
+        gb[c] = d < w ? g_s[qq * ld + d] : 0.f;
+        qb[c] = d < w ? q_s[qq * ld + d] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < kPer; ++i)
+#pragma unroll
+        for (int c = 0; c < DPER; ++c) {
+          dv_acc[i][c] = fmaf(pa[i], gb[c], dv_acc[i][c]);
+          dk_acc[i][c] = fmaf(sa[i], qb[c], dk_acc[i][c]);
+        }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int kp = k0 + ty + kSub * i;
+    if (kp >= S) continue;
+    const size_t row = (((size_t)b * S + kp) * H + h) * D + c0;
+#pragma unroll
+    for (int c = 0; c < DPER; ++c) {
+      const int d = tx + kSub * c;
+      if (d < w) {
+        dk[row + d] = from_f32<T>(dk_acc[i][c] * scale);
+        dv[row + d] = from_f32<T>(dv_acc[i][c]);
+      }
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_bwd_dq_chunk_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                          const T* __restrict__ v, const T* __restrict__ g,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          T* __restrict__ dq, int S, int H, int D,
+                          float scale, int causal, int n_chunks) {
+  extern __shared__ float smem[];
+  constexpr int ld = kChunk + 1;
+  constexpr int DPER = kChunk / kSub;
+  float* q_s = smem;                   // [kTile][ld]
+  float* g_s = q_s + kTile * ld;       // [kTile][ld]
+  float* k_s = g_s + kTile * ld;       // [kTile][ld]
+  float* v_s = k_s + kTile * ld;       // [kTile][ld]
+  float* ds_s = v_s + kTile * ld;      // dS [kTile queries][kLdp]
+  float* lse_s = ds_s + kTile * kLdp;  // [kTile]
+  float* dl_s = lse_s + kTile;         // [kTile]
+
+  const int qt = blockIdx.x / n_chunks;
+  const int chunk = blockIdx.x - qt * n_chunks;
+  const int q0 = qt * kTile;
+  const int c0 = chunk * kChunk;
+  const int w = min(kChunk, D - c0);
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const size_t bh = (size_t)b * H + h;
+  const int ty = threadIdx.x / kSub;
+  const int tx = threadIdx.x % kSub;
+
+  load_stat(lse_s, lse, bh, q0, S);
+  load_stat(dl_s, delta, bh, q0, S);
+
+  float dq_acc[kPer][DPER];
+#pragma unroll
+  for (int i = 0; i < kPer; ++i)
+#pragma unroll
+    for (int c = 0; c < DPER; ++c) dq_acc[i][c] = 0.f;
+
+  const int n_kv = (S + kTile - 1) / kTile;
+  const int n_tiles = causal ? min(n_kv, qt + 1) : n_kv;
+  for (int jt = 0; jt < n_tiles; ++jt) {
+    const int k0 = jt * kTile;
+    float s[kPer][kPer], dp[kPer][kPer];
+#pragma unroll
+    for (int i = 0; i < kPer; ++i)
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) s[i][j] = dp[i][j] = 0.f;
+    // every chunk of d, the block's own last: its K stays staged
+    for (int step = 0; step < n_chunks; ++step) {
+      const int cc = (chunk + 1 + step) % n_chunks;
+      const int d0 = cc * kChunk;
+      const int dw = min(kChunk, D - d0);
+      __syncthreads();
+      load_chunk(q_s, ld, q, b, h, q0, S, H, D, d0, dw, 1.f);
+      load_chunk(g_s, ld, g, b, h, q0, S, H, D, d0, dw, 1.f);
+      load_chunk(k_s, ld, k, b, h, k0, S, H, D, d0, dw, 1.f);
+      load_chunk(v_s, ld, v, b, h, k0, S, H, D, d0, dw, 1.f);
+      __syncthreads();
+      for (int d = 0; d < dw; ++d) {
+        float qa[kPer], ga[kPer], kb[kPer], vb[kPer];
+#pragma unroll
+        for (int i = 0; i < kPer; ++i) {
+          qa[i] = q_s[(ty + kSub * i) * ld + d];
+          ga[i] = g_s[(ty + kSub * i) * ld + d];
+        }
+#pragma unroll
+        for (int j = 0; j < kPer; ++j) {
+          kb[j] = k_s[(tx + kSub * j) * ld + d];
+          vb[j] = v_s[(tx + kSub * j) * ld + d];
+        }
+#pragma unroll
+        for (int i = 0; i < kPer; ++i)
+#pragma unroll
+          for (int j = 0; j < kPer; ++j) {
+            s[i][j] = fmaf(qa[i], kb[j], s[i][j]);
+            dp[i][j] = fmaf(ga[i], vb[j], dp[i][j]);
+          }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      const int qr = ty + kSub * i;
+#pragma unroll
+      for (int j = 0; j < kPer; ++j) {
+        const int kc = tx + kSub * j;
+        const float p = live(q0 + qr, k0 + kc, S, causal)
+                            ? expf(s[i][j] * scale - lse_s[qr])
+                            : 0.f;
+        ds_s[qr * kLdp + kc] = p * (dp[i][j] - dl_s[qr]);
+      }
+    }
+    __syncthreads();
+
+    for (int kk = 0; kk < kTile; ++kk) {
+      float sa[kPer], kb[DPER];
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) sa[i] = ds_s[(ty + kSub * i) * kLdp + kk];
+#pragma unroll
+      for (int c = 0; c < DPER; ++c) {
+        const int d = tx + kSub * c;
+        kb[c] = d < w ? k_s[kk * ld + d] : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < kPer; ++i)
+#pragma unroll
+        for (int c = 0; c < DPER; ++c) dq_acc[i][c] = fmaf(sa[i], kb[c], dq_acc[i][c]);
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < kPer; ++i) {
+    const int qp = q0 + ty + kSub * i;
+    if (qp >= S) continue;
+    const size_t row = (((size_t)b * S + qp) * H + h) * D + c0;
+#pragma unroll
+    for (int c = 0; c < DPER; ++c) {
+      const int d = tx + kSub * c;
+      if (d < w) dq[row + d] = from_f32<T>(dq_acc[i][c] * scale);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // backward on the tensor cores (bfloat16, D % 8 == 0): one warpgroup a
 // 64-row tile, the tiles in the forward's swizzled layout, the other
 // axis streamed through a two-stage cp.async ring.  Per streamed tile,
@@ -1400,13 +1918,89 @@ cudaError_t dq_mma(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// The tensor-core route, the same for all three kernels: bfloat16, D a
-// multiple of 8, every bf16 tensor (inputs and outputs) on a 16-byte
-// boundary (cp.async copies 16 bytes).  A null pointer counts as aligned.
-bool mma_route(int D, int dtype, std::initializer_list<const void*> ptrs) {
+// The route of an entry (kind 0 forward, 1 dK/dV, 2 dQ): the tensor cores
+// for bfloat16, D a multiple of 8 up to 256 (forward) or 128 (backward),
+// every bf16 tensor (inputs and outputs) on a 16-byte boundary (cp.async
+// copies 16 bytes), a null pointer counting as aligned; else the FMA
+// pipes up to D = kChunk and the D-chunked FMA route above it.
+int route_of(int kind, int D, int dtype,
+             std::initializer_list<const void*> ptrs) {
   uintptr_t bits = 0;
   for (const void* p : ptrs) bits |= reinterpret_cast<uintptr_t>(p);
-  return dtype == 1 && D % 8 == 0 && (bits & 15) == 0;
+  const int mma_max = kind == 0 ? kMaxMmaFwdD : kChunk;
+  if (dtype == 1 && D % 8 == 0 && D <= mma_max && (bits & 15) == 0)
+    return kRouteTensorCores;
+  return D > kChunk ? kRouteChunks : kRouteFma;
+}
+
+// Launches of the D-chunked route: the FMA kernels' shared memory at D =
+// kChunk, one block a (tile, chunk).
+template <typename Kernel>
+cudaError_t chunk_grid(Kernel kernel, size_t smem, int B, int S, int H,
+                       int D, dim3* grid, int* n_chunks) {
+  cudaError_t err = prepare((const void*)kernel, smem);
+  if (err != cudaSuccess) return err;
+  *n_chunks = (D + kChunk - 1) / kChunk;
+  *grid = dim3(((S + kTile - 1) / kTile) * *n_chunks, H, B);
+  return cudaSuccess;
+}
+
+template <typename T>
+cudaError_t fwd_chunks(const void* q, const void* k, const void* v,
+                       void* out, void* lse, int B, int S, int H, int D,
+                       int causal, cudaStream_t stream) {
+  const size_t smem = fwd_floats(kChunk) * sizeof(float);
+  auto kernel = flash_fwd_chunk_kernel<T>;
+  dim3 grid;
+  int n_chunks = 0;
+  cudaError_t err = chunk_grid(kernel, smem, B, S, H, D, &grid, &n_chunks);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out),
+      static_cast<float*>(lse), S, H, D, 1.0f / sqrtf((float)D), causal,
+      n_chunks);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dkv_chunks(const void* q, const void* k, const void* v,
+                       const void* g, const void* lse, const void* delta,
+                       void* dk, void* dv, int B, int S, int H, int D,
+                       int causal, cudaStream_t stream) {
+  const size_t smem = dkv_floats(kChunk) * sizeof(float);
+  auto kernel = flash_bwd_dkv_chunk_kernel<T>;
+  dim3 grid;
+  int n_chunks = 0;
+  cudaError_t err = chunk_grid(kernel, smem, B, S, H, D, &grid, &n_chunks);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(g),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dk), static_cast<T*>(dv), S, H, D,
+      1.0f / sqrtf((float)D), causal, n_chunks);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t dq_chunks(const void* q, const void* k, const void* v,
+                      const void* g, const void* lse, const void* delta,
+                      void* dqp, int B, int S, int H, int D, int causal,
+                      cudaStream_t stream) {
+  const size_t smem = dq_floats(kChunk) * sizeof(float);
+  auto kernel = flash_bwd_dq_chunk_kernel<T>;
+  dim3 grid;
+  int n_chunks = 0;
+  cudaError_t err = chunk_grid(kernel, smem, B, S, H, D, &grid, &n_chunks);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(g),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<T*>(dqp), S, H, D, 1.0f / sqrtf((float)D), causal,
+      n_chunks);
+  return cudaGetLastError();
 }
 
 template <typename T, int DPER>
@@ -1458,26 +2052,43 @@ cudaError_t dq(const void* q, const void* k, const void* v, const void* g,
     return (int)cudaErrorInvalidValue;                                      \
   } while (0)
 
-// The tensor-core kernels pad D to one 64-column atom (D <= 64) or two.
+// The tensor-core kernels pad D to whole 64-column atoms: the backward
+// to one or two, the forward to up to four.
 #define DL4J_DISPATCH_MMA(FN, ...)                                          \
   return (int)(D <= 64 ? FN<1>(__VA_ARGS__) : FN<2>(__VA_ARGS__))
+
+#define DL4J_DISPATCH_MMA_FWD(FN, ...)                                      \
+  return (int)(D <= 64 ? FN<1>(__VA_ARGS__)                                 \
+               : D <= 128 ? FN<2>(__VA_ARGS__)                              \
+               : D <= 192 ? FN<3>(__VA_ARGS__) : FN<4>(__VA_ARGS__))
+
+#define DL4J_DISPATCH_CHUNKS(FN, ...)                                       \
+  do {                                                                      \
+    if (dtype == 0) return (int)FN<float>(__VA_ARGS__);                     \
+    if (dtype == 1) return (int)FN<__nv_bfloat16>(__VA_ARGS__);             \
+    return (int)cudaErrorInvalidValue;                                      \
+  } while (0)
 
 }  // namespace
 
 extern "C" {
 
 // Dynamic shared memory one launch needs, in bytes: kind 0 = forward,
-// 1 = dK/dV, 2 = dQ, on the tensor-core route (tensor_cores = 1) or the
-// FMA route (0).
-size_t dl4j_flash_smem_bytes(int kind, int D, int tensor_cores) {
-  if (tensor_cores) {
+// 1 = dK/dV, 2 = dQ, on route 0 (FMA), 1 (tensor cores) or 2 (D-chunked
+// FMA, whose blocks hold kChunk columns of d whatever D is).
+size_t dl4j_flash_smem_bytes(int kind, int D, int route) {
+  if (route == kRouteTensorCores) {
     const bool two = D > 64;
-    if (kind == 0) return two ? fwd_mma_bytes<2>() : fwd_mma_bytes<1>();
+    if (kind == 0)
+      return D <= 64    ? fwd_mma_bytes<1>()
+             : D <= 128 ? fwd_mma_bytes<2>()
+             : D <= 192 ? fwd_mma_bytes<3>() : fwd_mma_bytes<4>();
     if (kind == 1) return two ? dkv_mma_bytes<2>() : dkv_mma_bytes<1>();
     return two ? dq_mma_bytes<2>() : dq_mma_bytes<1>();
   }
-  const size_t f = kind == 0 ? fwd_floats(D)
-                             : kind == 1 ? dkv_floats(D) : dq_floats(D);
+  const int d = route == kRouteChunks ? kChunk : D;
+  const size_t f = kind == 0 ? fwd_floats(d)
+                             : kind == 1 ? dkv_floats(d) : dq_floats(d);
   return f * sizeof(float);
 }
 
@@ -1485,8 +2096,9 @@ size_t dl4j_flash_smem_bytes(int kind, int D, int tensor_cores) {
 // (0 = float32, 1 = bfloat16) and [B*H, S] float32 row stats on the
 // current device, launches on `stream`, does not synchronise, and returns
 // cudaGetLastError() after the launch.  Each picks its route from its
-// inputs: bfloat16 with D % 8 == 0 and 16-byte aligned tensors runs on
-// the tensor cores, float32 and any other bfloat16 input on the FMA pipes.
+// inputs (route_of): bfloat16 with D % 8 == 0 (up to 256 forward, 128
+// backward) and 16-byte aligned tensors on the tensor cores; otherwise
+// the FMA pipes up to D = 128 and the D-chunked FMA route above it.
 
 // out [B, S, H, D] and lse [B*H, S] of flash attention over q, k, v.
 int dl4j_flash_fwd(const void* q, const void* k, const void* v, void* out,
@@ -1494,18 +2106,23 @@ int dl4j_flash_fwd(const void* q, const void* k, const void* v, void* out,
                    int dtype, void* stream) {
   if (bad_shape(B, S, H, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mma_route(D, dtype, {q, k, v, out}))
-    DL4J_DISPATCH_MMA(fwd_mma, q, k, v, out, lse, B, S, H, D, causal, s);
+  const int route = route_of(0, D, dtype, {q, k, v, out});
+  if (route == kRouteTensorCores)
+    DL4J_DISPATCH_MMA_FWD(fwd_mma, q, k, v, out, lse, B, S, H, D, causal, s);
+  if (route == kRouteChunks)
+    DL4J_DISPATCH_CHUNKS(fwd_chunks, q, k, v, out, lse, B, S, H, D, causal,
+                         s);
   DL4J_DISPATCH(fwd, q, k, v, out, lse, B, S, H, D, causal, s);
 }
 
-// 1 when an entry takes the tensor-core route for these tensors: q, k, v
-// and then out (dl4j_flash_fwd), g, dk, dv (dl4j_flash_bwd_dkv) or g, dq
+// The route entry `kind` (0 forward, 1 dK/dV, 2 dQ) takes for these
+// tensors (0 FMA, 1 tensor cores, 2 D-chunked FMA): q, k, v and then out
+// (dl4j_flash_fwd), g, dk, dv (dl4j_flash_bwd_dkv) or g, dq
 // (dl4j_flash_bwd_dq), the unused trailing pointers NULL.
-int dl4j_flash_tensor_cores(const void* q, const void* k, const void* v,
-                            const void* p3, const void* p4, const void* p5,
-                            int D, int dtype) {
-  return mma_route(D, dtype, {q, k, v, p3, p4, p5}) ? 1 : 0;
+int dl4j_flash_route(int kind, const void* q, const void* k, const void* v,
+                     const void* p3, const void* p4, const void* p5, int D,
+                     int dtype) {
+  return route_of(kind, D, dtype, {q, k, v, p3, p4, p5});
 }
 
 // dk, dv of flash attention given dO = g and the row stats lse, delta.
@@ -1515,9 +2132,13 @@ int dl4j_flash_bwd_dkv(const void* q, const void* k, const void* v,
                        int causal, int dtype, void* stream) {
   if (bad_shape(B, S, H, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mma_route(D, dtype, {q, k, v, g, dk, dv}))
+  const int route = route_of(1, D, dtype, {q, k, v, g, dk, dv});
+  if (route == kRouteTensorCores)
     DL4J_DISPATCH_MMA(dkv_mma, q, k, v, g, lse, delta, dk, dv, B, S, H, D,
                       causal, s);
+  if (route == kRouteChunks)
+    DL4J_DISPATCH_CHUNKS(dkv_chunks, q, k, v, g, lse, delta, dk, dv, B, S,
+                         H, D, causal, s);
   DL4J_DISPATCH(dkv, q, k, v, g, lse, delta, dk, dv, B, S, H, D, causal, s);
 }
 
@@ -1528,9 +2149,13 @@ int dl4j_flash_bwd_dq(const void* q, const void* k, const void* v,
                       int dtype, void* stream) {
   if (bad_shape(B, S, H, D)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (mma_route(D, dtype, {q, k, v, g, dqp}))
+  const int route = route_of(2, D, dtype, {q, k, v, g, dqp});
+  if (route == kRouteTensorCores)
     DL4J_DISPATCH_MMA(dq_mma, q, k, v, g, lse, delta, dqp, B, S, H, D,
                       causal, s);
+  if (route == kRouteChunks)
+    DL4J_DISPATCH_CHUNKS(dq_chunks, q, k, v, g, lse, delta, dqp, B, S, H, D,
+                         causal, s);
   DL4J_DISPATCH(dq, q, k, v, g, lse, delta, dqp, B, S, H, D, causal, s);
 }
 

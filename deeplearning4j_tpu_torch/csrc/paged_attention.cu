@@ -55,8 +55,12 @@
 //   reduction, the lanes spread over K for P V; float32 with C > 1 takes
 //   4 columns a block.  Every warp keeps its own online softmax; the
 //   warps' partials are merged in shared memory at the end of the block.
-// - K up to 256 (kMaxK); a larger head dim is refused with its own
-//   return code, kErrHeadDim.
+// - K up to 512 (kMaxK); a larger head dim is refused with its own
+//   return code, kErrHeadDim.  The tensor-core route keeps K <= 256
+//   (kMaxMmaK): its 16 x K f32 accumulators are K / 2 registers a lane,
+//   256 at K 512.  bfloat16 chunks (C > 1) of a wider head take the
+//   FMA route with 4 columns a block, as float32 does; a lane then holds
+//   2 (bfloat16) or 4 (float32) 16-byte chunks of a row.
 
 #include <cfloat>
 #include <cmath>
@@ -72,7 +76,8 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 128;   // 4 warps a block
 constexpr int kWarps = 4;
-constexpr int kMaxK = 256;
+constexpr int kMaxK = 512;
+constexpr int kMaxMmaK = 256;   // widest head of the tensor-core route
 constexpr int kErrHeadDim = -1;  // the entry's code for K > kMaxK
 constexpr int kMmaCols = 16;    // query columns of an mma block
 constexpr int kMmaKeys = 64;    // keys a stage holds on the mma route
@@ -670,10 +675,12 @@ paged_attention_merge_kernel(const Args a) {
 // launches
 
 // The column tilings the kernels take: 1 or 4 columns a block on the FMA
-// route (float32, or bfloat16 at C = 1), 16 on the tensor-core route
-// (bfloat16, C > 1).  The wrapper's split plan picks one.
-bool valid_cols(int C, int dtype, int cols) {
+// route (float32, bfloat16 at C = 1, and bfloat16 chunks at K > 256), 16
+// on the tensor-core route (bfloat16, C > 1, K <= 256).  The wrapper's
+// split plan picks one.
+bool valid_cols(int C, int K, int dtype, int cols) {
   if (dtype == 0 || C == 1) return cols == 1 || (dtype == 0 && cols == 4);
+  if (K > kMaxMmaK) return cols == 4;
   return cols == kMmaCols;
 }
 
@@ -688,7 +695,7 @@ void vec_shape(int K, int es, int& G, int& CPL, int& key_tile) {
   const int vec = 16 / es;
   const int nch = (K + vec - 1) / vec;
   G = nch <= 32 ? next_pow2(nch < 4 ? 4 : nch) : 32;
-  CPL = nch <= 32 ? 1 : 2;
+  CPL = nch <= 32 ? 1 : nch <= 64 ? 2 : 4;
   const int ldv = G * CPL * vec;
   const int rows = 32 / G;
   key_tile = 64;
@@ -744,20 +751,27 @@ cudaError_t run(Kernel kernel, const Args& a, size_t smem,
   return cudaGetLastError();
 }
 
-// Instantiated shapes: bfloat16 takes one column a block and one chunk a
-// lane (K <= 256); float32 one or four columns, and two chunks a lane
-// only at G = 32 (K > 128).
+// Instantiated shapes: one chunk a lane below G = 32 (K <= 128 float32,
+// K <= 256 bfloat16), where bfloat16 takes one column a block; at G = 32
+// two chunks a lane (float32 K <= 256, bfloat16 K <= 512) or four
+// (float32 K <= 512), with one or four columns a block.
 template <typename T, int G>
 cudaError_t vec_cpl(const Args& a, int CPL, size_t smem, cudaStream_t s) {
+  if constexpr (G == 32) {
+    if constexpr (sizeof(T) == 4) {
+      if (CPL == 4)
+        return a.cols == 1
+                   ? run(paged_attention_vec_kernel<T, G, 4, 1>, a, smem, s)
+                   : run(paged_attention_vec_kernel<T, G, 4, 4>, a, smem, s);
+    }
+    if (CPL == 2)
+      return a.cols == 1
+                 ? run(paged_attention_vec_kernel<T, G, 2, 1>, a, smem, s)
+                 : run(paged_attention_vec_kernel<T, G, 2, 4>, a, smem, s);
+  }
   if constexpr (sizeof(T) == 2) {
     return run(paged_attention_vec_kernel<T, G, 1, 1>, a, smem, s);
   } else {
-    if constexpr (G == 32) {
-      if (CPL == 2)
-        return a.cols == 1
-                   ? run(paged_attention_vec_kernel<T, G, 2, 1>, a, smem, s)
-                   : run(paged_attention_vec_kernel<T, G, 2, 4>, a, smem, s);
-    }
     return a.cols == 1
                ? run(paged_attention_vec_kernel<T, G, 1, 1>, a, smem, s)
                : run(paged_attention_vec_kernel<T, G, 1, 4>, a, smem, s);
@@ -828,7 +842,7 @@ size_t dl4j_paged_attention_smem_bytes(int cols, int K, int dtype, int pps) {
 // part_acc [n_splits, B, C, H, K] float32 scratch.  `cols` picks the
 // kernel (valid_cols).  Launches the split kernel and, with n_splits > 1,
 // the merge kernel on `stream`; does not synchronise; returns
-// kErrHeadDim (-1) for K > 256, cudaErrorInvalidValue for other bad
+// kErrHeadDim (-1) for K > 512, cudaErrorInvalidValue for other bad
 // arguments or an inconsistent plan, else the first CUDA error.
 int dl4j_paged_attention(const void* q, const void* k_pages,
                          const void* v_pages, const void* table,
@@ -839,7 +853,7 @@ int dl4j_paged_attention(const void* q, const void* k_pages,
   if (K > kMaxK) return kErrHeadDim;
   if (B < 1 || C < 1 || H < 1 || K < 1 || P < 1 || ps < 1 ||
       MP < 1 || pages_per_split < 1 || (dtype != 0 && dtype != 1) ||
-      !valid_cols(C, dtype, cols) ||
+      !valid_cols(C, K, dtype, cols) ||
       n_splits != (MP + pages_per_split - 1) / pages_per_split ||
       (n_splits > 1 && (part_ml == nullptr || part_acc == nullptr)))
     return (int)cudaErrorInvalidValue;

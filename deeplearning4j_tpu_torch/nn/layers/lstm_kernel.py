@@ -10,10 +10,17 @@ o, g]``, cell activation tanh, the ``(h, c)`` carry in f32.  It returns
 ``hs [T, B, H]`` in xz's dtype.
 
 Its forward is `fused_lstm_forward`: on a CUDA tensor the hand-written
-Hopper kernel of ``csrc/lstm.cu`` (one cooperative launch per call,
-counted in ``fused_lstm_forward.launches``, and those that save the
-residuals also in ``fused_lstm_forward.residual_launches``) or an error;
-on a CPU tensor its plain PyTorch version `fused_lstm_forward_plain`.
+Hopper kernel of ``csrc/lstm.cu`` or an error; on a CPU tensor its plain
+PyTorch version `fused_lstm_forward_plain`.  The kernel has two routes
+(`lstm_route_rule`, which `launch_plan` reports as the C entry plans
+them): the cluster route, a thread-block cluster of up to 16 CTAs per
+16 batch rows with RW resident in shared memory, h exchanged through
+distributed shared memory and the products on the tensor cores (bf16
+up to H = 512, f32 up to H = 384 on an H100); and the wide route, the
+units over all SMs with a grid barrier a step, in cooperative launches
+over batch slices that fit (the rest, up to `MAX_HIDDEN`).  Either way a
+call counts one launch in ``fused_lstm_forward.launches`` (and, when it
+saves the residuals, in ``fused_lstm_forward.residual_launches``).
 With residuals it also returns the f32 cell states ``cs [T, B, H]`` and
 the f32 gate pre-activations before the peephole terms, ``zs [T, B,
 4H]``.  The inference forward writes hs only.
@@ -28,6 +35,7 @@ weight gradients in their parameters' dtypes).
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import Optional, Tuple
 
@@ -36,8 +44,19 @@ import torch
 from deeplearning4j_tpu_torch.parallel.kernels import LaunchCounter
 
 # The largest hidden size the kernel's shared-memory plan is held to
-# (csrc/lstm.cu: a block keeps its [4u, H] slice of RW in shared memory).
+# (csrc/lstm.cu: a block of the wide route keeps its [4u, H] f32 slice of
+# RW in shared memory).
 MAX_HIDDEN = 1024
+# What csrc/lstm.cu's plan reads of an H100: SMs and the opt-in shared
+# memory of a block; the cluster route's batch tile and largest cluster.
+H100_SMS = 132
+H100_SMEM_OPTIN = 232448
+TILE_ROWS = 16
+MAX_CLUSTER = 16
+_PLAN_KEYS = ("route", "cluster", "units", "blocks", "threads", "smem_bytes",
+              "batch_tile", "launches", "rows", "group", "k_parts",
+              "active_clusters")
+_ROUTES = ("cluster", "wide")
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _lib_lock = threading.Lock()
@@ -58,7 +77,7 @@ def _lib() -> ctypes.CDLL:
             lib.dl4j_lstm_forward.argtypes = ([vp] * 9 + [ci] * 3 + [ll] * 4
                                               + [ci, vp])
             lib.dl4j_lstm_forward.restype = ci
-            lib.dl4j_lstm_plan.argtypes = [ci, ci, ctypes.POINTER(ll)]
+            lib.dl4j_lstm_plan.argtypes = [ci, ci, ci, ctypes.POINTER(ll)]
             lib.dl4j_lstm_plan.restype = ci
             lib.dl4j_lstm_error_string.argtypes = [ci]
             lib.dl4j_lstm_error_string.restype = ctypes.c_char_p
@@ -66,16 +85,93 @@ def _lib() -> ctypes.CDLL:
         return _lib_handle
 
 
-def launch_plan(b: int, h: int) -> dict:
-    """How the kernel splits a ``[B, H]`` problem on the current card:
-    hidden units per block, blocks, batch rows per staging pass, lanes
-    per (row, unit) pair and shared-memory bytes per block."""
-    out = (ctypes.c_longlong * 5)()
-    err = _lib().dl4j_lstm_plan(b, h, out)
-    plan = dict(zip(("units", "blocks", "rows", "group", "smem_bytes"),
-                    (int(v) for v in out)))
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def lstm_route_rule(dtype: torch.dtype, b: int, h: int,
+                    n_sm: int = H100_SMS,
+                    smem_optin: int = H100_SMEM_OPTIN) -> dict:
+    """The plan of ``csrc/lstm.cu`` (`make_plan`) for a ``[B, H]``
+    problem in `dtype`, mirrored in Python for a card of `n_sm` SMs and
+    `smem_optin` bytes of shared memory a block: the keys of
+    `launch_plan` but ``active_clusters``.
+
+    Cluster route when a CTA's shared memory holds its RW slice ``[H,
+    4u]`` (in `dtype`, rows padded), the h double buffer ``[2, 16, H]``
+    f32 and the k-split partials: u = roundup(ceil(H / 16), 8) units a
+    CTA, the cluster the next power of two of ceil(H / u) CTAs, one
+    cluster a 16-row batch tile.  Else the wide route: u = ceil(H /
+    SMs) units a block over ceil(H / u) blocks, c of the launch's rows
+    in shared memory, so a batch whose c does not fit is cut into the
+    fewest equal slices that do (one cooperative launch each)."""
+    es = 2 if dtype == torch.bfloat16 else 4
+    plan = dict.fromkeys(_PLAN_KEYS, 0)
+    u = _round_up(-(-h // MAX_CLUSTER), 8)
+    n = 1
+    while n < -(-h // u):
+        n *= 2
+    tasks = u // 8
+    k_parts = min(max(1, 8 // tasks), -(-h // 16))
+    hs = _round_up(h, 32) + (8 if es == 2 else 4)
+    rs = _round_up(h, 64) + 8 if es == 2 else _round_up(h, 32) + 4
+    smem = (2 * TILE_ROWS * hs * 4 + (k_parts - 1) * tasks * 512 * 4
+            + 4 * u * rs * es)
+    if smem <= smem_optin and tasks <= 8:
+        plan.update(route="cluster", cluster=n, units=u,
+                    blocks=n * -(-b // TILE_ROWS),
+                    threads=32 * tasks * k_parts, smem_bytes=smem,
+                    batch_tile=TILE_ROWS, launches=1, k_parts=k_parts)
+        return plan
+    u = -(-h // n_sm)
+
+    def floats(rows_b, rows):
+        return 4 * u * h + rows * (h + 4) + rows_b * u
+
+    def staging_rows(rows_b):
+        rows = min(rows_b, 32)
+        while floats(rows_b, rows) * 4 > smem_optin and rows > 1:
+            rows = -(-rows // 2)
+        return rows if floats(rows_b, rows) * 4 <= smem_optin else 0
+
+    bs, launches = b, 1
+    rows = staging_rows(b)
+    if rows == 0:
+        bmax = (smem_optin // 4 - 4 * u * h - 16 * (h + 4)) // u
+        launches = -(-b // bmax)
+        bs = -(-b // launches)
+        rows = staging_rows(bs)
+    group = 32
+    while group > 1 and 256 // group < rows * u:
+        group //= 2
+    plan.update(route="wide", units=u, blocks=-(-h // u), threads=256,
+                smem_bytes=floats(bs, rows) * 4, batch_tile=bs,
+                launches=launches, rows=rows, group=group)
+    return plan
+
+
+def launch_plan(dtype: torch.dtype, b: int, h: int) -> dict:
+    """How the kernel takes a ``[B, H]`` problem in `dtype` on the
+    current card, as the C entry plans it: the route (``"cluster"`` or
+    ``"wide"``), the cluster size, hidden units a block, blocks and
+    threads a launch, shared-memory bytes a block, batch rows a cluster
+    (cluster route) or a launch (wide route), launches a call, staging
+    rows and lanes a pair (wide), k-parts and the clusters the card holds
+    at once (cluster), and the entry's error code (0 when it fits)."""
+    out = (ctypes.c_longlong * len(_PLAN_KEYS))()
+    err = _lib().dl4j_lstm_plan(b, h, _DTYPE_CODES[dtype], out)
+    plan = dict(zip(_PLAN_KEYS, (int(v) for v in out)))
+    plan["route"] = _ROUTES[plan["route"]]
     plan["error"] = err
     return plan
+
+
+@functools.lru_cache(maxsize=256)
+def _device_plan(dtype: torch.dtype, b: int, h: int,
+                 device_index: int) -> dict:
+    """`launch_plan` on card `device_index`, once per shape."""
+    with torch.cuda.device(device_index):
+        return launch_plan(dtype, b, h)
 
 
 def _check_cuda(xz, rw, pi, pf, po) -> None:
@@ -150,9 +246,9 @@ def fused_lstm_forward(xz: torch.Tensor, rw: torch.Tensor, pi: torch.Tensor,
     cs ``[T, B, H]`` and zs ``[T, B, 4H]`` (else None, None).
 
     CPU tensors run `fused_lstm_forward_plain`; CUDA tensors launch the
-    kernel (float32 or bfloat16, H <= `MAX_HIDDEN`) or raise.  hs comes
-    back in xz's layout: batch-major storage for a transposed
-    batch-major xz."""
+    kernel (float32 or bfloat16, H <= `MAX_HIDDEN`, any B) on the route
+    `launch_plan` names, or raise.  hs comes back in xz's layout:
+    batch-major storage for a transposed batch-major xz."""
     if xz.device.type == "cpu":
         return fused_lstm_forward_plain(xz, rw, pi, pf, po, save_residuals)
     if xz.device.type != "cuda":
@@ -171,19 +267,27 @@ def fused_lstm_forward(xz: torch.Tensor, rw: torch.Tensor, pi: torch.Tensor,
     if save_residuals:
         cs = torch.empty((t_len, b, h), dtype=torch.float32, device=dev)
         zs = torch.empty((t_len, b, four_h), dtype=torch.float32, device=dev)
-    hbuf = torch.empty((2, b, h), dtype=torch.float32, device=dev)
+    plan = _device_plan(xz.dtype, b, h, dev.index if dev.index is not None
+                        else torch.cuda.current_device())
     lib = _lib()
+    if plan["error"] != 0:
+        raise RuntimeError(
+            f"LSTM kernel has no route for [T, B, H] = {[t_len, b, h]}: "
+            f"{lib.dl4j_lstm_error_string(plan['error']).decode()} (plan "
+            f"{plan})")
+    hbuf = (torch.empty((2, plan["batch_tile"], h), dtype=torch.float32,
+                        device=dev) if plan["route"] == "wide" else None)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.dl4j_lstm_forward(
             xz.data_ptr(), rw.data_ptr(), pi.data_ptr(), pf.data_ptr(),
             po.data_ptr(), hs.data_ptr(),
             None if cs is None else cs.data_ptr(),
-            None if zs is None else zs.data_ptr(), hbuf.data_ptr(),
+            None if zs is None else zs.data_ptr(),
+            None if hbuf is None else hbuf.data_ptr(),
             t_len, b, h, xz.stride(0), xz.stride(1), hs.stride(0),
             hs.stride(1), _DTYPE_CODES[xz.dtype], stream)
     if err != 0:
-        plan = launch_plan(b, h)
         raise RuntimeError(
             f"LSTM kernel launch failed: "
             f"{lib.dl4j_lstm_error_string(err).decode()} (error {err}; "
@@ -289,4 +393,4 @@ def fused_lstm_scan_plain(xz: torch.Tensor, rw: torch.Tensor,
 
 __all__ = ["MAX_HIDDEN", "fused_lstm_forward", "fused_lstm_forward_plain",
            "fused_lstm_scan", "fused_lstm_scan_plain", "launch_plan",
-           "lstm_backward"]
+           "lstm_backward", "lstm_route_rule"]

@@ -29,7 +29,15 @@ import torch
 
 # Score mask of the flash kernels (the JAX module's NEG_INF).
 NEG_INF = -1e30
-MAX_HEAD_DIM = 128
+# The widest head dim of the CUDA entries (csrc/flash_attention.cu kMaxD);
+# the widest the FMA route takes whole (above it the D-chunked route cuts
+# the outputs into 128-column chunks); the widest each entry takes on the
+# tensor cores.
+MAX_HEAD_DIM = 512
+CHUNK_HEAD_DIM = 128
+MAX_MMA_HEAD_DIM = {"fwd": 256, "dkv": 128, "dq": 128}
+# route names, in the C entries' codes
+_ROUTES = ("fma", "tensor_cores", "fma_chunks")
 
 
 def mask_value(dtype: torch.dtype) -> float:
@@ -83,8 +91,8 @@ def _lib() -> ctypes.CDLL:
             for fn in (lib.dl4j_flash_fwd, lib.dl4j_flash_bwd_dkv,
                        lib.dl4j_flash_bwd_dq):
                 fn.restype = ci
-            lib.dl4j_flash_tensor_cores.argtypes = [vp] * 6 + [ci, ci]
-            lib.dl4j_flash_tensor_cores.restype = ci
+            lib.dl4j_flash_route.argtypes = [ci] + [vp] * 6 + [ci, ci]
+            lib.dl4j_flash_route.restype = ci
             lib.dl4j_flash_smem_bytes.argtypes = [ci, ci, ci]
             lib.dl4j_flash_smem_bytes.restype = ctypes.c_size_t
             lib.dl4j_flash_error_string.argtypes = [ci]
@@ -107,7 +115,7 @@ def _raise_on(err: int, kind: str, what: str, tensors) -> None:
         shape = tensors[0].shape
         route = flash_route(kind, *tensors)
         smem = lib.dl4j_flash_smem_bytes(_KINDS[kind], shape[-1],
-                                         int(route == "tensor_cores"))
+                                         _ROUTES.index(route))
         raise RuntimeError(
             f"{what} kernel launch failed: "
             f"{lib.dl4j_flash_error_string(err).decode()} (error {err}; "
@@ -185,8 +193,8 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool = True
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flash attention forward: q, k, v ``[B, S, H, D]`` (float32 or
-    bfloat16, D <= 128) -> (out ``[B, S, H, D]`` in q's dtype, lse
-    ``[B*H, S]`` float32).
+    bfloat16, D <= `MAX_HEAD_DIM`) -> (out ``[B, S, H, D]`` in q's dtype,
+    lse ``[B*H, S]`` float32).
 
     CPU tensors run `flash_forward_plain`; CUDA tensors launch the
     kernel (counted in ``flash_forward.launches``) or raise."""
@@ -213,16 +221,21 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_forward.launches = LaunchCounter()
 
 
-def flash_route_rule(dtype: torch.dtype, head_dim: int,
-                     data_ptrs) -> str:
-    """The route rule of all three CUDA entries, mirrored in Python:
+def flash_route_rule(dtype: torch.dtype, head_dim: int, data_ptrs,
+                     kind: str = "fwd") -> str:
+    """The route rule of the CUDA entry of `kind`, mirrored in Python:
     ``"tensor_cores"`` (wgmma) for bfloat16 with a head dim that is a
-    multiple of 8 and every tensor the entry reads or writes (q, k, v,
-    dO and the outputs; `data_ptrs`) on a 16-byte boundary, else
-    ``"fma"``.  `flash_route` asks the C entries themselves."""
+    multiple of 8, up to `MAX_MMA_HEAD_DIM` of the entry (256 forward,
+    128 backward), and every tensor the entry reads or writes (q, k, v,
+    dO and the outputs; `data_ptrs`) on a 16-byte boundary; else
+    ``"fma"`` up to `CHUNK_HEAD_DIM` and ``"fma_chunks"`` (the FMA
+    kernels over 128-column chunks of the outputs, one block a chunk)
+    above it.  `flash_route` asks the C entries themselves."""
     aligned = all(p % 16 == 0 for p in data_ptrs)
-    return ("tensor_cores" if dtype == torch.bfloat16 and head_dim % 8 == 0
-            and aligned else "fma")
+    if (dtype == torch.bfloat16 and head_dim % 8 == 0 and aligned
+            and head_dim <= MAX_MMA_HEAD_DIM[kind]):
+        return "tensor_cores"
+    return "fma_chunks" if head_dim > CHUNK_HEAD_DIM else "fma"
 
 
 def flash_route(kind: str, q: torch.Tensor, k: torch.Tensor,
@@ -235,9 +248,10 @@ def flash_route(kind: str, q: torch.Tensor, k: torch.Tensor,
         raise ValueError(f"flash_route({kind!r}) takes q, k, v and {want} "
                          f"more tensors, got {len(rest)}")
     ptrs = [t.data_ptr() for t in (q, k, v, *rest)]
-    tc = _lib().dl4j_flash_tensor_cores(*ptrs, *[None] * (6 - len(ptrs)),
-                                        q.shape[-1], _DTYPE_CODES[q.dtype])
-    return "tensor_cores" if tc else "fma"
+    code = _lib().dl4j_flash_route(_KINDS[kind], *ptrs,
+                                   *[None] * (6 - len(ptrs)), q.shape[-1],
+                                   _DTYPE_CODES[q.dtype])
+    return _ROUTES[code]
 
 
 def _bwd_plain(q, k, v, g, lse, delta, causal, want):

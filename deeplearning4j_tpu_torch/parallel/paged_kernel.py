@@ -40,8 +40,10 @@ from deeplearning4j_tpu_torch.parallel.kernels import (
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # The widest head dim the kernel takes (csrc/paged_attention.cu kMaxK),
-# and the entry's return code for a wider one (kErrHeadDim).
-MAX_HEAD_DIM = 256
+# the widest its tensor-core route takes (kMaxMmaK), and the entry's
+# return code for a wider one (kErrHeadDim).
+MAX_HEAD_DIM = 512
+MAX_MMA_HEAD_DIM = 256
 _ERR_HEAD_DIM = -1
 # The split plan aims at this many blocks per SM, and gives a block at
 # least this many keys.
@@ -70,13 +72,14 @@ def _lib() -> ctypes.CDLL:
         return _lib_handle
 
 
-def block_cols(c: int, dtype: torch.dtype) -> int:
+def block_cols(c: int, dtype: torch.dtype, kd: int) -> int:
     """Query columns one block of the split kernel takes, which also
-    picks its kernel: 1 at C = 1 and 4 for float32 with C > 1 (the FMA
-    route), 16 for bfloat16 with C > 1 (the tensor-core route)."""
+    picks its kernel: 1 at C = 1, and 4 with C > 1 for float32 or a
+    head dim above `MAX_MMA_HEAD_DIM` (the FMA route); 16 for bfloat16
+    with C > 1 at a head dim up to it (the tensor-core route)."""
     if c == 1:
         return 1
-    return 16 if dtype == torch.bfloat16 else 4
+    return 16 if dtype == torch.bfloat16 and kd <= MAX_MMA_HEAD_DIM else 4
 
 
 def paged_split_plan(b: int, c: int, h: int, kd: int, mp: int, ps: int,
@@ -91,7 +94,7 @@ def paged_split_plan(b: int, c: int, h: int, kd: int, mp: int, ps: int,
     one split every block writes its partial (m, l) into ``part_ml``
     and its unnormalised output into ``part_acc`` (f32 scratch of the
     given shapes), and a merge kernel writes ``out``."""
-    cols = block_cols(c, dtype)
+    cols = block_cols(c, dtype, kd)
     c_tiles = -(-c // cols)
     base = b * h * c_tiles
     want = max(1, -(-BLOCKS_PER_SM * n_sm // base))

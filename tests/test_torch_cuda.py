@@ -1,8 +1,10 @@
 """PyTorch port on an NVIDIA card: the hand-written CUDA kernels (paged
-attention with its page split; the flash-attention forward and its two
-backward kernels, each on the tensor cores and on the FMA pipes; the
-fused LSTM scan) and the serving (``prefill_chunk`` up to 128 and beyond),
-LM-training and `MultiLayerNetwork` paths that launch them.
+attention with its page split, head dims up to 512; the flash-attention
+forward and its two backward kernels on the tensor cores, the FMA pipes
+and the D-chunked route up to head dim 512; the fused LSTM scan on its
+cluster and wide routes, any batch) and the serving (``prefill_chunk`` up
+to 128 and beyond), LM-training and `MultiLayerNetwork` paths that launch
+them.
 
 Every test carries the ``cuda`` marker and decides inside the test
 whether a card is present, skipping with a reason when not (the kernels
@@ -39,6 +41,12 @@ CASES = {
     "chunk128_ps16_k64": (2, 128, 2, 64, 16, 10, [0, 20], [128, 100], ()),
     "chunk64_ps16_k128": (3, 64, 2, 128, 16, 8, [0, 33, 60], [64, 17, 64],
                           ()),
+    # head dims above the tensor-core route's 256: decode and a chunk
+    "decode_ps16_k384": (3, 1, 2, 384, 16, 6, [0, 40, 90], [1, 1, 1], ()),
+    "chunk16_ps16_k512": (2, 16, 2, 512, 16, 6, [0, 50], [16, 9], ()),
+    "decode_ps16_k512_null": (3, 1, 1, 512, 16, 4, [7, 0, 60], [1, 0, 1],
+                              (1,)),
+    "chunk5_ps16_k384": (2, 5, 2, 384, 16, 4, [20, 3], [5, 5], ()),
 }
 
 
@@ -116,13 +124,13 @@ def test_512_column_chunk_at_head_dim_256_is_served(dtype):
 
 
 def test_refused_launch_raises():
-    """A launch the kernel refuses (here: head dim 512, above its 256)
+    """A launch the kernel refuses (here: head dim 520, above its 512)
     raises with the entry's own head-dim code, and counts nothing."""
     _need_card()
     q, kp, vp, table, pos, nf = _state(
-        (1, 4, 1, 512, 4, 2, [0], [4], ()), torch.float32)
+        (1, 4, 1, 520, 4, 2, [0], [4], ()), torch.float32)
     before = tpk.paged_flash_attention.launches.value
-    with pytest.raises(RuntimeError, match="refused head dim K=512"):
+    with pytest.raises(RuntimeError, match="refused head dim K=520"):
         tpk.paged_flash_attention(q, kp, vp, table, pos, nf)
     assert tpk.paged_flash_attention.launches.value == before
 
@@ -212,6 +220,10 @@ FLASH_CASES = {
     # bf16 at a head dim that is not a multiple of 8 (the FMA route), and a
     # long causal sequence (32 query tiles issued longest first)
     "s70_d20": (1, 70, 2, 20), "s2048_d64": (1, 2048, 2, 64),
+    # head dims above 128: the D-chunked route (two, two, four chunks; a
+    # ragged last chunk at 136 and 192)
+    "s100_d136": (1, 100, 2, 136), "s64_d192": (2, 64, 1, 192),
+    "s130_d256": (1, 130, 2, 256), "s70_d512": (1, 70, 1, 512),
 }
 
 
@@ -283,7 +295,7 @@ def _bwd_bf16_rounded(q, k, v, g, lse, delta, causal):
 
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("name", sorted(n for n, c in FLASH_CASES.items()
-                                        if c[3] % 8 == 0))
+                                        if c[3] % 8 == 0 and c[3] <= 128))
 def test_flash_backward_tensor_cores_match_the_bf16_rounding_reference(
         name, causal):
     """bf16 dq, dk, dv on the tensor-core route against the plain backward
@@ -314,38 +326,49 @@ def _misaligned(shape, dtype):
         shape)
 
 
-@pytest.mark.parametrize("dtype,d,aligned", [
-    ("bfloat16", 64, True), ("bfloat16", 40, True), ("bfloat16", 128, True),
-    ("bfloat16", 20, True), ("bfloat16", 64, False), ("float32", 64, True)])
-def test_flash_forward_route(dtype, d, aligned):
+@pytest.mark.parametrize("dtype,d,aligned,fwd,bwd", [
+    ("bfloat16", 64, True, "tensor_cores", "tensor_cores"),
+    ("bfloat16", 40, True, "tensor_cores", "tensor_cores"),
+    ("bfloat16", 128, True, "tensor_cores", "tensor_cores"),
+    ("bfloat16", 20, True, "fma", "fma"),
+    ("bfloat16", 64, False, "fma", "fma"),
+    ("float32", 64, True, "fma", "fma"),
+    ("bfloat16", 136, True, "tensor_cores", "fma_chunks"),
+    ("bfloat16", 256, True, "tensor_cores", "fma_chunks"),
+    ("bfloat16", 256, False, "fma_chunks", "fma_chunks"),
+    ("float32", 512, True, "fma_chunks", "fma_chunks")])
+def test_flash_forward_route(dtype, d, aligned, fwd, bwd):
     """bf16 at a head dim that is a multiple of 8 with 16-byte aligned
-    tensors runs on the tensor cores, everything else on the FMA pipes:
-    the forward, dK/dV and dQ entries agree with `flash_route_rule`."""
+    tensors runs on the tensor cores (the forward up to D 256, the
+    backward up to 128), other head dims up to 128 on the FMA pipes and
+    above 128 on the D-chunked FMA route: the forward, dK/dV and dQ
+    entries agree with `flash_route_rule`."""
     _need_card()
     dt = getattr(torch, dtype)
     q, k, v, g = _flash_inputs((1, 8, 2, d), dt)
     if not aligned:
         g = _misaligned(g.shape, dt)
-    want = ("tensor_cores" if dt == torch.bfloat16 and d % 8 == 0
-            and aligned else "fma")
     outs = {"fwd": (torch.empty_like(q),),
             "dkv": (g, torch.empty_like(k), torch.empty_like(v)),
             "dq": (g, torch.empty_like(q))}
     if not aligned:
         outs["fwd"] = (_misaligned(q.shape, dt),)
     for kind, rest in outs.items():
+        want = fwd if kind == "fwd" else bwd
         ptrs = [t.data_ptr() for t in (q, k, v, *rest)]
-        assert tk.flash_route_rule(dt, d, ptrs) == want, kind
+        assert tk.flash_route_rule(dt, d, ptrs, kind) == want, kind
         assert tk.flash_route(kind, q, k, v, *rest) == want, kind
 
 
-def _smem_formula(kind, d, tensor_cores):
-    """Each route's shared memory per block, from its design."""
-    if tensor_cores:
-        tile = 64 * 64 * (1 if d <= 64 else 2) * 2       # bf16, D padded
+def _smem_formula(kind, d, route):
+    """Each route's shared memory per block, from its design: route 0
+    the FMA pipes, 1 the tensor cores, 2 the D-chunked FMA route (128
+    columns of d a block)."""
+    if route == 1:
+        tile = 64 * 64 * -(-d // 64) * 2                 # bf16, D padded
         return {"fwd": 5 * tile, "dkv": 6 * tile + 2 * 2 * 64 * 4,
                 "dq": 6 * tile}[kind]
-    ld = d + 1                                           # f32, padded rows
+    ld = (128 if route == 2 else d) + 1                  # f32, padded rows
     return 4 * {"fwd": 3 * 64 * ld + 64 * 65,
                 "dkv": 4 * 64 * ld + 2 * 64 * 65 + 128,
                 "dq": 4 * 64 * ld + 64 * 65 + 128}[kind]
@@ -357,9 +380,16 @@ def test_flash_smem_bytes_follow_the_route(kind):
     _need_card()
     lib = tk._lib()
     for d in (8, 16, 40, 64, 80, 128):
-        for tc in (0, 1):
-            assert lib.dl4j_flash_smem_bytes(tk._KINDS[kind], d, tc) == \
-                _smem_formula(kind, d, tc), (d, tc)
+        for route in (0, 1):
+            assert lib.dl4j_flash_smem_bytes(tk._KINDS[kind], d, route) == \
+                _smem_formula(kind, d, route), (d, route)
+    for d in (136, 256, 512):
+        got = lib.dl4j_flash_smem_bytes(tk._KINDS[kind], d, 2)
+        assert got == _smem_formula(kind, d, 2) <= 232448, d
+    if kind == "fwd":
+        for d in (136, 192, 256):
+            got = lib.dl4j_flash_smem_bytes(0, d, 1)
+            assert got == _smem_formula(kind, d, 1) <= 232448, d
 
 
 @pytest.mark.parametrize("kind", ["fwd", "dkv", "dq"])
@@ -398,11 +428,11 @@ def test_flash_attention_autograd_on_the_card_matches_plain_attention():
 
 
 def test_flash_refuses_what_the_kernels_do_not_take():
-    """Checked before any launch: head dim above 128, fp16, a
+    """Checked before any launch: head dim above 512, fp16, a
     non-contiguous view; nothing is counted."""
     _need_card()
     before = tk.flash_forward.launches.value
-    big = torch.zeros(1, 8, 1, 130, device="cuda")
+    big = torch.zeros(1, 8, 1, 513, device="cuda")
     with pytest.raises(ValueError, match="head dim"):
         tk.flash_forward(big, big, big)
     half = torch.zeros(1, 8, 1, 16, device="cuda", dtype=torch.float16)
@@ -412,6 +442,62 @@ def test_flash_refuses_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="contiguous"):
         tk.flash_forward(x, x, x)
     assert tk.flash_forward.launches.value == before
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_at_head_dim_256_trains_like_plain_attention(dtype):
+    """A `TransformerConfig` with d_model / n_heads = 256 (Gemma's head
+    dim): the f32 loss and every gradient through the kernels against the
+    plain-attention forward (relative 1e-3, a key bias measured against
+    the query bias's scale, as its exact gradient is zero); then one bf16
+    accumulated train step through the kernels, finite, f32 masters."""
+    _need_card()
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.tree import flatten_tree
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tt.TransformerConfig(vocab_size=128, d_model=512, n_heads=2,
+                               n_layers=2, d_ff=256, max_len=96,
+                               attn_bias=True, tie_embeddings=True,
+                               remat=True, dtype=dtype)
+    assert cfg.d_model // cfg.n_heads == 256
+    params = th._master_f32(tt.params_from_numpy(tt.numpy_params(cfg),
+                                                 device="cuda"))
+    rng = np.random.default_rng(4)
+    data = torch.from_numpy(rng.integers(0, 128, (2, 97))).cuda()
+    tok, tgt = data[:, :-1], data[:, 1:]
+    counters = (tk.flash_forward.launches, tk.flash_bwd_dkv.launches,
+                tk.flash_bwd_dq.launches)
+    if dtype == "float32":
+        flat = flatten_tree(params)
+        names, leaves = list(flat), list(flat.values())
+        before = [c.value for c in counters]
+        loss_k = tt.lm_loss(cfg, params, tok, tgt)
+        grads_k = torch.autograd.grad(loss_k, leaves)
+        assert all(c.value > b for c, b in zip(counters, before))
+        logits = tt._forward(cfg, params, tok, tt.attention)
+        loss_p = -F.log_softmax(logits, dim=-1).gather(
+            -1, tgt[..., None])[..., 0].mean()
+        grads_p = torch.autograd.grad(loss_p, leaves)
+        scale = dict(zip(names, (float(g.abs().max()) for g in grads_p)))
+        lk_, lp_ = float(loss_k.detach()), float(loss_p.detach())
+        assert abs(lk_ - lp_) <= 1e-3 * abs(lp_)
+        for name, gk, gp in zip(names, grads_k, grads_p):
+            denom = scale[name.replace("//bk", "//bq")]
+            assert float((gk - gp).abs().max()) <= 1e-3 * denom, name
+        return
+    step, init = th.make_accum_train_step(cfg, lr=1e-3, accum=2,
+                                          updater="adam")
+    state = init(params)
+    before = [c.value for c in counters]
+    params, state, loss = step(params, state, tok, tgt)
+    per = cfg.n_layers * 2
+    assert [c.value - b for c, b in zip(counters, before)] == \
+        [2 * per, per, per]
+    assert math.isfinite(float(loss))
+    assert all(p.dtype == torch.float32 for p in params.values()
+               if isinstance(p, torch.Tensor))
 
 
 def test_train_step_on_the_card_launches_the_kernels():
@@ -501,6 +587,112 @@ def test_lstm_kernel_matches_plain(name, dtype, residuals, batch_major):
         assert _rel(cs, want[1]) <= tol and _rel(zs, want[2]) <= tol
     else:
         assert cs is None and zs is None
+
+
+def _lstm_check(args, residuals, dt):
+    """One launch of the kernel against the plain version on `args`."""
+    from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
+
+    before = lk.fused_lstm_forward.launches.value
+    got = lk.fused_lstm_forward(*args, save_residuals=residuals)
+    torch.cuda.synchronize()
+    assert lk.fused_lstm_forward.launches.value == before + 1
+    want = lk.fused_lstm_forward_plain(*args, save_residuals=residuals)
+    tol = 1e-5 if dt == torch.float32 else 2e-2
+    for a, w in zip(got, want):
+        if w is not None:
+            assert _rel(a, w) <= tol
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lstm_plan_matches_the_route_rule(dtype):
+    """The C entry's plan (route, cluster size, units, blocks, threads,
+    bytes, batch tile, launches, staging rows, lanes a pair, k-parts)
+    equals `lstm_route_rule`, its Python mirror, at the route boundaries
+    and past the wide route's old batch ceiling; a cluster plan fits the
+    card at least once."""
+    _need_card()
+    from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
+
+    dt = getattr(torch, dtype)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    for h in (1, 8, 37, 129, 256, 384, 385, 512, 513, 1024):
+        for b in (1, 32, 33, 3040, 4096):
+            got = lk.launch_plan(dt, b, h)
+            assert got.pop("error") == 0, (h, b, got)
+            active = got.pop("active_clusters")
+            want = lk.lstm_route_rule(dt, b, h, n_sm=n_sm)
+            want.pop("active_clusters")
+            assert got == want, (h, b)
+            assert (active >= 1) == (got["route"] == "cluster"), (h, b)
+
+
+@pytest.mark.parametrize("dtype,h,route", [
+    ("float32", 384, "cluster"), ("float32", 385, "wide"),
+    ("bfloat16", 512, "cluster"), ("bfloat16", 513, "wide")])
+def test_lstm_routes_at_the_cluster_limit_match_plain(dtype, h, route):
+    """H at the cluster route's limit and one past it: each takes its
+    route and matches the plain version, with and without residuals."""
+    _need_card()
+    from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    assert lk.launch_plan(dt, 33, h)["route"] == route
+    args = _lstm_inputs(20, 33, h, dt, seed=h, batch_major=True)
+    for residuals in (False, True):
+        _lstm_check(args, residuals, dt)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("b", [3040, 4096])
+def test_lstm_batch_past_the_old_ceiling_matches_plain(b, dtype):
+    """B = 3040 and 4096 at H = 1024 (the first design's shared memory
+    held c of every row and refused B > 3039): the wide route cuts the
+    batch into slices, one cooperative launch each, still one counted
+    launch a call."""
+    _need_card()
+    from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dt = getattr(torch, dtype)
+    plan = lk.launch_plan(dt, b, 1024)
+    assert plan["route"] == "wide" and plan["launches"] >= 2
+    assert plan["batch_tile"] * plan["launches"] >= b
+    _lstm_check(_lstm_inputs(8, b, 1024, dt, seed=b), True, dt)
+
+
+def test_graves_lstm_output_of_4096_sequences_runs_on_the_kernel():
+    """`output()` of 4096 sequences through a 1024-unit Graves LSTM: one
+    launch (no residuals), against the same net with the kernel's plain
+    version in its place (relative 1e-4, f32)."""
+    _need_card()
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn import conf as tconf
+    from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
+    from deeplearning4j_tpu_torch.nn.layers import recurrent
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    conf = tconf.MultiLayerConfiguration(
+        conf=tconf.NeuralNetConfiguration(seed=3),
+        layers=(tconf.GravesLSTMConf(n_in=11, n_out=1024),
+                tconf.RnnOutputLayerConf(n_in=1024, n_out=11)))
+    net = MultiLayerNetwork(conf).init()
+    ids = np.random.default_rng(0).integers(0, 11, (4096, 3))
+    x = torch.from_numpy(np.eye(11, dtype=np.float32)[ids]).cuda()
+    launches, residual = (lk.fused_lstm_forward.launches,
+                          lk.fused_lstm_forward.residual_launches)
+    before = (launches.value, residual.value)
+    out = net.output(x)
+    torch.cuda.synchronize()
+    assert (launches.value - before[0], residual.value - before[1]) == (1, 0)
+    recurrent.fused_lstm_scan = lk.fused_lstm_scan_plain
+    try:
+        want = net.output(x)
+    finally:
+        recurrent.fused_lstm_scan = lk.fused_lstm_scan
+    assert out.shape == (4096, 3, 11) and torch.isfinite(out).all()
+    assert _rel(out, want) <= 1e-4
 
 
 @pytest.mark.parametrize("peephole", [True, False])

@@ -26,6 +26,8 @@ from test_torch_threads import torch_two_threads  # noqa: F401 — autouse
 
 ATOL = 2e-5
 SHAPES = [(s, d) for s in (8, 24, 40) for d in (8, 16)]
+# head dims above 128 (the card's D-chunked route), S <= 64
+WIDE_SHAPES = [(24, 192), (64, 256)]
 
 
 def _inputs(b, s, h, d, seed, n=4):
@@ -39,7 +41,7 @@ def _t(*arrays):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("s,d", SHAPES)
+@pytest.mark.parametrize("s,d", SHAPES + WIDE_SHAPES)
 def test_forward_matches_the_jax_kernel(s, d, causal):
     q, k, v = _inputs(2, s, 3, d, seed=s + d, n=3)
     want_o, want_lse = jk._flash_forward(jnp.asarray(q), jnp.asarray(k),
@@ -53,7 +55,7 @@ def test_forward_matches_the_jax_kernel(s, d, causal):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("s,d", SHAPES)
+@pytest.mark.parametrize("s,d", SHAPES + WIDE_SHAPES)
 def test_backward_block_matches_the_jax_kernels(s, d, causal):
     """The same EXTERNAL lse and delta go to both sides: a random delta,
     and lse shifted off the forward's, as ring attention's global row
@@ -176,8 +178,9 @@ def test_launch_checks_refuse_what_the_kernels_do_not_take():
     x = torch.zeros(1, 8, 2, 16)
     stats = torch.zeros(2, 8)
     tk._check_cuda((("q", x), ("k", x)), (("lse", stats),))
+    tk._check_cuda((("q", torch.zeros(1, 8, 2, tk.MAX_HEAD_DIM)),))
     with pytest.raises(ValueError, match="head dim"):
-        big = torch.zeros(1, 8, 2, 129)
+        big = torch.zeros(1, 8, 2, 513)
         tk._check_cuda((("q", big),))
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         tk._check_cuda((("q", x.half()),))
@@ -236,3 +239,22 @@ def test_route_rule_sends_aligned_bf16_at_d_multiple_of_8_to_tensor_cores(
     ptrs = [4096, 8192, 12288, 16384 + offset, 20480, 24576]
     assert tk.flash_route_rule(dtype, d, ptrs) == want
     assert tk.flash_route_rule(dtype, d, ptrs[:4]) == want
+
+
+@pytest.mark.parametrize("dtype,d,offset,fwd,bwd", [
+    (torch.bfloat16, 128, 0, "tensor_cores", "tensor_cores"),
+    (torch.bfloat16, 136, 0, "tensor_cores", "fma_chunks"),
+    (torch.bfloat16, 256, 0, "tensor_cores", "fma_chunks"),
+    (torch.bfloat16, 256, 2, "fma_chunks", "fma_chunks"),
+    (torch.bfloat16, 130, 0, "fma_chunks", "fma_chunks"),
+    (torch.bfloat16, 264, 0, "fma_chunks", "fma_chunks"),
+    (torch.float32, 512, 0, "fma_chunks", "fma_chunks"),
+])
+def test_route_rule_above_head_dim_128(dtype, d, offset, fwd, bwd):
+    """Above D = 128 the forward keeps the tensor cores up to 256 (its O
+    is 128 f32 a thread there), the backward does not (dK + dV would be
+    256); everything else above 128 takes the D-chunked FMA route."""
+    ptrs = [4096, 8192, 12288, 16384 + offset, 20480, 24576]
+    assert tk.flash_route_rule(dtype, d, ptrs[:4], "fwd") == fwd
+    for kind in ("dkv", "dq"):
+        assert tk.flash_route_rule(dtype, d, ptrs, kind) == bwd

@@ -28,7 +28,8 @@ from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as tlk
 from deeplearning4j_tpu_torch.nn.layers import recurrent as trec
 from test_torch_threads import torch_two_threads  # noqa: F401 — autouse
 
-SIZES = {"t5_b3_h8": (5, 3, 8), "t6_b2_h13": (6, 2, 13)}
+SIZES = {"t5_b3_h8": (5, 3, 8), "t6_b2_h13": (6, 2, 13),
+         "t9_b5_h40": (9, 5, 40)}
 
 
 def _inputs(t, b, h, peephole, seed=0):
@@ -182,3 +183,58 @@ def test_path_policy_at_the_kernel_width(fused, n_out, want):
     assert tlk.MAX_HIDDEN == 1024
     conf = GravesLSTMConf(n_in=3, n_out=n_out, fused=fused)
     assert trec.uses_fused_scan(conf, None) is want
+
+
+# ---- the kernel's launch plan (csrc/lstm.cu make_plan), as pure functions
+
+@pytest.mark.parametrize("dtype,h,route,cluster,units,threads", [
+    (torch.float32, 8, "cluster", 1, 8, 32),
+    (torch.float32, 37, "cluster", 8, 8, 96),
+    (torch.bfloat16, 256, "cluster", 16, 16, 256),
+    (torch.float32, 256, "cluster", 16, 16, 256),
+    (torch.float32, 384, "cluster", 16, 24, 192),
+    (torch.float32, 385, "wide", 0, 3, 256),
+    (torch.bfloat16, 512, "cluster", 16, 32, 256),
+    (torch.bfloat16, 513, "wide", 0, 4, 256),
+    (torch.bfloat16, 1024, "wide", 0, 8, 256)])
+def test_route_rule_at_the_cluster_limit(dtype, h, route, cluster, units,
+                                         threads):
+    """The cluster route holds while a CTA's RW slice, h double buffer
+    and k-split partials fit its 232 448 bytes: up to H = 384 in f32
+    and 512 in bf16 on an H100; one cluster a 16-row batch tile, a power
+    of two of CTAs up to 16."""
+    plan = tlk.lstm_route_rule(dtype, 33, h)
+    assert (plan["route"], plan["cluster"], plan["units"],
+            plan["threads"]) == (route, cluster, units, threads)
+    assert plan["smem_bytes"] <= tlk.H100_SMEM_OPTIN
+    if route == "cluster":
+        assert plan["batch_tile"] == 16 and plan["blocks"] == 3 * cluster
+        assert plan["launches"] == 1 and cluster * units >= h
+        assert plan["threads"] == 32 * (units // 8) * plan["k_parts"]
+    else:
+        assert plan["blocks"] * units >= h and plan["blocks"] <= 132
+
+
+@pytest.mark.parametrize("b,launches,tile", [
+    (32, 1, 32), (3039, 1, 3039), (3040, 3, 1014), (4096, 4, 1024),
+    (100000, 90, 1112)])
+def test_wide_route_slices_a_batch_whose_c_does_not_fit(b, launches, tile):
+    """At H = 1024 the wide route keeps c of a launch's rows in shared
+    memory: up to B = 3039 in one launch (the first design's ceiling),
+    past it the fewest equal slices that fit, one cooperative launch
+    each; every batch size has a plan."""
+    for dtype in (torch.float32, torch.bfloat16):
+        plan = tlk.lstm_route_rule(dtype, b, 1024)
+        assert plan["route"] == "wide"
+        assert (plan["launches"], plan["batch_tile"]) == (launches, tile)
+        assert plan["batch_tile"] * plan["launches"] >= b
+        assert (plan["batch_tile"] - 1) * plan["launches"] < b
+        assert plan["rows"] >= 1 and plan["smem_bytes"] <= \
+            tlk.H100_SMEM_OPTIN
+
+
+@pytest.mark.parametrize("b", [1, 16, 17, 3040, 4096])
+def test_cluster_route_takes_any_batch_in_16_row_tiles(b):
+    plan = tlk.lstm_route_rule(torch.bfloat16, b, 256)
+    assert plan["route"] == "cluster" and plan["launches"] == 1
+    assert plan["blocks"] == 16 * -(-b // 16)

@@ -37,6 +37,11 @@ CASES = {
                             ()),
     "chunk_c4_ps5_null": (3, 4, 2, 8, 5, 4, [0, 6, 11], [0, 4, 2], (0,)),
 }
+# head dims above the tensor-core route's 256 (the card serves up to 512)
+WIDE_HEAD_CASES = {
+    "decode_c1_k320": (2, 1, 1, 320, 4, 3, [3, 9], [1, 1], ()),
+    "chunk_c4_k512": (2, 4, 1, 512, 4, 3, [1, 6], [4, 2], ()),
+}
 # a prefill chunk of 128 columns (``prefill_chunk=128``), ragged n_feed
 WIDE_CASES = dict(CASES, chunk_c128_ps16=(2, 128, 2, 8, 16, 10, [0, 20],
                                           [128, 100], ()))
@@ -71,9 +76,9 @@ def _assert_fed(got, want, n_feed, atol=ATOL):
             np.testing.assert_allclose(got[i, :nf], want[i, :nf], atol=atol)
 
 
-@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("name", sorted(CASES) + sorted(WIDE_HEAD_CASES))
 def test_plain_matches_jax_kernel_interpret(name):
-    q, kp, vp, table, pos, nf = _state(CASES[name])
+    q, kp, vp, table, pos, nf = _state({**CASES, **WIDE_HEAD_CASES}[name])
     want = jpk.paged_flash_attention(jnp.asarray(q), jnp.asarray(kp),
                                      jnp.asarray(vp), jnp.asarray(table),
                                      jnp.asarray(pos), jnp.asarray(nf),
@@ -245,6 +250,8 @@ PLAN_SHAPES = {
     "tiny_pages": (3, 4, 2, 8, 37, 4, torch.float32, 132),
     "one_lane_long": (1, 1, 1, 64, 4096, 16, torch.bfloat16, 132),
     "c512_k256": (1, 512, 1, 256, 2, 4, torch.float32, 132),
+    "bf16_chunk_k384": (2, 16, 2, 384, 8, 16, torch.bfloat16, 132),
+    "bf16_decode_k512": (2, 1, 2, 512, 8, 16, torch.bfloat16, 132),
 }
 
 
@@ -256,7 +263,7 @@ def test_split_plan_covers_every_live_page_once(name):
     plan = tpk.paged_split_plan(b, c, h, kd, mp, ps, dtype, n_sm)
     pps, n = plan["pages_per_split"], plan["n_splits"]
     assert 1 <= pps <= mp and n == -(-mp // pps)
-    assert plan["cols"] == tpk.block_cols(c, dtype)
+    assert plan["cols"] == tpk.block_cols(c, dtype, kd)
     assert plan["c_tiles"] * plan["cols"] >= c
     assert plan["blocks"] == n * b * h * plan["c_tiles"]
     if n > 1:
@@ -274,6 +281,19 @@ def test_split_plan_covers_every_live_page_once(name):
             covered = [pg for lo, hi in ranges for pg in range(lo, hi)]
             assert covered == list(range(n_lp))
             assert all(lo < n_lp and lo % pps == 0 for lo, _ in ranges)
+
+
+@pytest.mark.parametrize("c,dtype,kd,cols", [
+    (1, torch.bfloat16, 512, 1), (16, torch.bfloat16, 256, 16),
+    (16, torch.bfloat16, 264, 4), (16, torch.bfloat16, 512, 4),
+    (16, torch.float32, 512, 4), (1, torch.float32, 384, 1)])
+def test_block_cols_keeps_the_tensor_cores_up_to_head_dim_256(c, dtype, kd,
+                                                               cols):
+    """bf16 chunks take the 16-column tensor-core route up to K = 256 and
+    the 4-column FMA route above it, as float32 chunks do; C = 1 is one
+    column a block at any K."""
+    assert tpk.MAX_HEAD_DIM == 512 and tpk.MAX_MMA_HEAD_DIM == 256
+    assert tpk.block_cols(c, dtype, kd) == cols
 
 
 def test_split_plan_fills_the_card_at_the_served_shape():
