@@ -70,6 +70,30 @@ Phases (any failure exits non-zero, and no result line is printed):
              step-by-step scan) at relative 1e-4; `output`/`predict`
              against the plain path (one launch per call, no residuals);
              and a `save_model` / `load_model` round trip.
+10. decode — the LM server's other decode modes at
+             ``gpt2_small(max_len=1024)`` in bfloat16 (the serve phase's
+             weights): (1) a paged pool (8 slots, page 16, chunk 16)
+             speculating with the n-gram drafter (draft_len 4, verify
+             width 16) and the same pool without speculation, over the
+             serve phase's 12 requests and 4 whose prompts repeat a
+             32-token motif, 64 new tokens each; (2) model self-drafting
+             at full width, then a 2-layer float32 model whose drafts must
+             all be accepted; (3) the dense slot pool over the 12
+             requests, with its peak memory; (4) whole-sequence
+             `generate`, batch 4 x prompt 128 + 32 tokens: greedy, top-k 1
+             (every token a largest logit of its step, replayed through
+             the same steps: greedy up to a bf16 tie) and top-k 40 / top-p
+             0.9 (every token inside the support, replayed), n_layers
+             flash launches a call; (5) `beam_search(beam_size=4)` in
+             float32 over 2 prompts: the winner's score within relative
+             1e-3 of its teacher-forced log-prob, and beam size 1 =
+             greedy.  Greedy ids are held to the plain fp32 recompute of
+             the served weights, teacher-forced: every token's fp32 logit
+             within 1e-3 (float32) of the position's largest, or (bf16)
+             within twice the bf16 logit error measured there by the
+             plain bf16 recompute.  Paged launches = n_layers x
+             dispatches at each width on every paged pool, none on the
+             dense pool.
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device time per
 call (`device_ms`: the calls are queued behind a spin kernel, so they run
@@ -80,8 +104,9 @@ which for a fast kernel measures the host's launch path instead.
 Prints the ``kernels`` JSON line, then the ``nvidia-smi`` card line, then
 ``{"ok": true, "device": {...}}`` as the last line.  ``--only`` runs a
 subset of phases (facts and build always run), e.g. ``--only
-lstm,rnn``; ``--profile`` traces the serve phase's load and the train
-and rnn phases' timed steps with ``torch.profiler`` and adds device time
+lstm,rnn``; ``--profile`` traces the serve phase's load, the train
+and rnn phases' timed steps and the decode phase's speculating and plain
+pools with ``torch.profiler`` and adds device time
 by kernel group and the device's idle share to their lines.
 """
 
@@ -103,7 +128,8 @@ KERNEL_SOURCE = "deeplearning4j_tpu_torch/csrc/paged_attention.cu"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_OPS = {"float32": 67e12,      # fp32 outside the tensor cores
             "bfloat16": 989e12}    # bf16 dense tensor-core peak
-PHASES = ("kernel", "flash", "serve", "parity", "train", "lstm", "rnn")
+PHASES = ("kernel", "flash", "serve", "parity", "train", "lstm", "rnn",
+          "decode")
 # what the times of the kernels line measure
 TIMING_NOTE = {
     "ms": "device time per call: calls queued behind a spin kernel, run "
@@ -943,6 +969,492 @@ def parity_phase(tree) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the LM server's other decode modes
+
+
+# greedy ids against the argmax of the plain fp32 recompute, teacher-forced
+# on the served sequence.  A served token's deficit (the position's largest
+# fp32 logit minus the token's) must be at most: in float32, the parity
+# phase's near-tie; in bfloat16, twice the bf16 logit error measured at that
+# position (the largest |bf16 - fp32| difference of the plain bf16 recompute
+# over the vocabulary).  The argmax of logits within e of the fp32 ones lies
+# within 2e of the fp32 largest, so wherever the fp32 top-2 gap exceeds 2e
+# the served token must be the fp32 argmax itself.
+F32_TIE = 1e-3
+DECODE_NEW = 64                         # new tokens a served request
+SPEC_DRAFT_LEN = 4
+GEN_BATCH, GEN_PROMPT, GEN_NEW = 4, 128, 32
+BEAM_PROMPT, BEAM_NEW, BEAM_SIZE = 64, 16, 4
+BEAM_REL_TOL = 1e-3
+
+
+def decode_requests(cfg) -> list:
+    """The serve phase's 12 requests (a shared 128-token prefix, 16-300
+    more tokens, the last two sampled at 0.8) and 4 greedy prompts that
+    repeat a 32-token motif 2-5 times."""
+    rng = np.random.default_rng(1)
+    prefix = rng.integers(0, cfg.vocab_size, 128).tolist()
+    tails = rng.integers(16, 301, 12)
+    reqs = []
+    for i, n in enumerate(tails):
+        prompt = prefix + rng.integers(0, cfg.vocab_size, int(n)).tolist()
+        reqs.append((prompt, *((0.8, 1000 + i) if i >= 10 else (0.0, 0))))
+    motif_rng = np.random.default_rng(5)
+    for reps in range(2, 6):
+        motif = motif_rng.integers(0, cfg.vocab_size, 32).tolist()
+        reqs.append((motif * reps, 0.0, 0))
+    return reqs
+
+
+def greedy_checker(cfg, params):
+    """`check(prompt, seq)`: the greedy rule above over the plain fp32 full
+    recompute (`_forward` with the plain `attention`) of the served
+    weights, upcast, and in bfloat16 the plain bf16 recompute that
+    measures the limit."""
+    import dataclasses
+
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel.transformer import (
+        _forward,
+        attention,
+        map_tree,
+    )
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = map_tree(lambda t: t.float(), params)
+    bf16 = cfg.dtype == "bfloat16"
+
+    def check(prompt, seq) -> dict:
+        p, n = len(prompt), len(seq)
+        ids = torch.tensor([seq], device="cuda")
+        with torch.no_grad():
+            rows = _forward(cfg32, params32, ids, attention)[0, p - 1:n - 1]
+            if bf16:
+                low = _forward(cfg, params, ids, attention)[0, p - 1:n - 1]
+                limit = 2 * (low.float() - rows).abs().amax(-1)
+            else:
+                limit = torch.full((n - p,), F32_TIE, device="cuda")
+        gen = torch.tensor(seq[p:], device="cuda")
+        top2 = rows.topk(2, dim=-1).values
+        deficit = top2[:, 0] - rows.gather(1, gen[:, None])[:, 0]
+        off = torch.nonzero(deficit > 0)
+        out = {"tokens": n - p, "exact": int((deficit == 0).sum()),
+               "forced_exact": int((top2[:, 0] - top2[:, 1] > limit).sum()),
+               "worst_deficit": float(deficit.max()),
+               "worst_deficit_over_limit": float(
+                   (deficit / limit.clamp_min(1e-12)).max()),
+               "limit_min": float(limit.min()),
+               "limit_max": float(limit.max()),
+               "first_divergence": (p + int(off[0, 0]) if len(off)
+                                    else None)}
+        if bool((deficit > limit).any()):
+            raise AssertionError(
+                f"decode: a served token's fp32 logit lies further below "
+                f"the position's largest than the {cfg.dtype} limit: {out}")
+        return out
+
+    return check
+
+
+def checks_summary(checks: list) -> dict:
+    out = {"greedy_tokens": sum(c["tokens"] for c in checks),
+           "greedy_exact": sum(c["exact"] for c in checks),
+           "forced_exact": sum(c["forced_exact"] for c in checks)}
+    for key in ("worst_deficit", "worst_deficit_over_limit", "limit_max"):
+        out[key] = max(c[key] for c in checks)
+    out["limit_min"] = min(c["limit_min"] for c in checks)
+    return out
+
+
+def run_pool(srv, reqs, max_new: int, profile: bool = False) -> dict:
+    """Warm the pool, then serve `reqs` concurrently with the kernel
+    counts set to 0 just before and read just after (and, with
+    `profile`, device time by kernel group over the run).  A paged pool
+    must have launched the paged kernel n_layers times a dispatch at
+    each width; a dense pool, never."""
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel.kernels import flash_forward
+    from deeplearning4j_tpu_torch.parallel.paged_kernel import (
+        paged_flash_attention,
+    )
+
+    srv.warmup()
+    results = [None] * len(reqs)
+    errors = []
+
+    def client(i):
+        prompt, temp, seed = reqs[i]
+        try:
+            results[i] = srv.generate(prompt, max_new, temperature=temp,
+                                      seed=seed, timeout=900)
+        except Exception as e:  # noqa: BLE001 — reported below
+            errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(reqs))]
+    torch.cuda.synchronize()
+    paged_flash_attention.launches.reset()
+    flash_forward.launches.reset()
+    prof = None
+    if profile:
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+        prof.__enter__()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=1200)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if prof is not None:
+        prof.__exit__(None, None, None)
+    paged = paged_flash_attention.launches.value
+    by_width = {str(c): n for c, n in sorted(
+        paged_flash_attention.launches.by_key().items())}
+    flash = flash_forward.launches.value
+    stats = srv.stats()
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"decode: requests failed: {errors}")
+    want = ({w: srv.cfg.n_layers * n
+             for w, n in stats["dispatch_widths"].items()}
+            if srv.kv == "paged" else {})
+    if by_width != want or paged != sum(want.values()):
+        raise AssertionError(
+            f"decode: paged launches by width {by_width} (total {paged}) "
+            f"!= n_layers x dispatches by width {want}")
+    for (prompt, _, _), out in zip(reqs, results):
+        if (out is None or len(out) != len(prompt) + max_new
+                or out[:len(prompt)] != prompt
+                or not all(0 <= t < srv.cfg.vocab_size for t in out)):
+            raise AssertionError("decode: a request did not finish, "
+                                 "echo its prompt or stay in the vocab")
+    generated = sum(len(r) - len(p) for (p, _, _), r in zip(reqs, results))
+    out = {"results": results, "stats": stats, "wall_s": wall,
+           "tokens_per_s": generated / wall, "paged_launches": paged,
+           "paged_launches_by_width": by_width, "flash_launches": flash}
+    if prof is not None:
+        out["profile"] = device_breakdown(prof, wall, stats["dispatches"])
+    return out
+
+
+def pool_summary(run: dict, checks: list) -> dict:
+    stats = run["stats"]
+    out = {"wall_s": run["wall_s"], "tokens_per_s": run["tokens_per_s"],
+           "dispatches": stats["dispatches"],
+           "dispatch_widths": stats["dispatch_widths"],
+           "paged_launches": run["paged_launches"],
+           "paged_launches_by_width": run["paged_launches_by_width"],
+           **checks_summary(checks)}
+    for key in ("decode_rounds", "tokens_per_decode_round", "spec_drafted",
+                "spec_accepted", "spec_accept_rate"):
+        if key in stats:
+            out[key] = stats[key]
+    if "profile" in run:
+        out["profile"] = run["profile"]
+    return out
+
+
+def dispatch_ms(cfg, params, iters: int = 20) -> dict:
+    """Wall milliseconds a call (its host sync included) of the pool's
+    paged program (`make_spec_step`) on 8 lanes at position 400 of a
+    full-width pool: 1-wide decode, a 16-wide prefill chunk (no drafts:
+    the LM head at the last fed column only), and a 16-wide verify of
+    1 + 4 drafts (the head over every column).  This is what one
+    dispatch of each kind costs the serving loop, which is host-bound."""
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel import generation as gen
+
+    b, ps, w = 8, 16, 16
+    mp = gen.pages_per_seq(cfg, ps)
+    pages = 1 + b * mp
+    cache = gen.init_paged_cache(cfg, pages, ps, device="cuda")
+    k, v = cache["k"], cache["v"]
+    table = np.arange(1, pages, dtype=np.int32).reshape(b, mp)
+    pos = np.full(b, 400, np.int32)
+    zf, zi = np.zeros(b, np.float32), np.zeros(b, np.int32)
+    tok = np.random.default_rng(0).integers(0, cfg.vocab_size, (b, w))
+    one, wide = (gen.make_spec_step(cfg, pages, ps, 1),
+                 gen.make_spec_step(cfg, pages, ps, w))
+    steps = {
+        "decode_1": (one, (table, pos, np.ones(b, np.int32), zi,
+                           tok[:, :1])),
+        "chunk_16": (wide, (table, pos, np.full(b, w, np.int32), zi, tok)),
+        "verify_16": (wide, (table, pos, np.full(b, 5, np.int32),
+                             np.full(b, 4, np.int32), tok)),
+    }
+    out = {}
+    for name, (step, args) in steps.items():
+        for i in range(iters + 3):
+            if i == 3:
+                t0 = time.perf_counter()
+            res = step(params, k, v, *args, zf, zi, zi)
+            res[0].cpu()
+        out[name] = (time.perf_counter() - t0) / iters * 1e3
+    del cache, k, v
+    return out
+
+
+def decode_phase(tree, card: str, profile: bool = False) -> dict:
+    import dataclasses
+    import gc
+
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel import generation as gen
+    from deeplearning4j_tpu_torch.parallel.kernels import flash_forward
+    from deeplearning4j_tpu_torch.parallel.paged_kernel import (
+        paged_flash_attention,
+    )
+    from deeplearning4j_tpu_torch.parallel.transformer import (
+        _forward,
+        attention,
+        gpt2_small,
+        params_from_numpy,
+    )
+    from deeplearning4j_tpu_torch.serving.draft import NgramDrafter
+    from deeplearning4j_tpu_torch.serving.lm import ContinuousLMServer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = gpt2_small(max_len=1024)
+    params = params_from_numpy(tree, device="cuda", dtype=cfg.dtype)
+    check = greedy_checker(cfg, params)
+    reqs = decode_requests(cfg)
+    greedy = [i for i, r in enumerate(reqs) if r[1] == 0.0]
+    report = {"card": card}
+
+    def served(kv="paged", **kw):
+        return ContinuousLMServer(cfg, params, slots=8, kv=kv, page_size=16,
+                                  prefill_chunk=16, device="cuda", **kw)
+
+    # 1. speculation (ngram) and the same pool without it
+    runs = {}
+    for mode in ("ngram", "off"):
+        srv = served(speculate=mode, draft_len=SPEC_DRAFT_LEN)
+        try:
+            runs[mode] = run_pool(srv, reqs, DECODE_NEW, profile=profile)
+            ledger = srv.page_ledger()
+        finally:
+            srv.stop()
+        run = runs[mode]
+        if not ledger["balanced"] or ledger["in_use"] != ledger[
+                "radix_nodes"]:
+            raise AssertionError(f"decode: page ledger off ({mode}): "
+                                 f"{ledger}")
+        if (run["paged_launches"] != cfg.n_layers * run["stats"][
+                "dispatches"] or run["paged_launches"] == 0):
+            raise AssertionError(
+                f"decode: paged launches {run['paged_launches']} != "
+                f"n_layers x dispatches {run['stats']['dispatches']} "
+                f"({mode})")
+        checks = [check(reqs[i][0], run["results"][i]) for i in greedy]
+        report[f"spec_{mode}"] = pool_summary(run, checks)
+    ngram = runs["ngram"]["stats"]
+    if not (ngram["dispatch_widths"].get("16", 0)
+            and ngram.get("spec_accepted", 0) > 0):
+        raise AssertionError(f"decode: the verify program never accepted "
+                             f"a draft: {ngram}")
+    same = [runs["ngram"]["results"][i] == runs["off"]["results"][i]
+            for i in range(len(reqs))]
+    report["spec_ngram"]["ids_equal_to_off"] = int(sum(same))
+    # the drafter's host cost: one proposal round over 8 served histories
+    hists = runs["ngram"]["results"][:8]
+    drafter = NgramDrafter()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        drafter.propose(hists, [SPEC_DRAFT_LEN] * len(hists))
+    report["spec_ngram"]["ngram_propose_ms"] = (
+        (time.perf_counter() - t0) / 20 * 1e3)
+    report["dispatch_ms"] = dispatch_ms(cfg, params)
+    log(f"decode: wall ms a dispatch (8 lanes at position 400): "
+        f"{report['dispatch_ms']}; an n-gram proposal round "
+        f"{report['spec_ngram']['ngram_propose_ms']:.4f} ms ({card})")
+    log(f"decode: ngram speculation: drafted {ngram['spec_drafted']}, "
+        f"accepted {ngram['spec_accepted']} (rate "
+        f"{ngram['spec_accept_rate']}), {ngram['tokens_per_decode_round']} "
+        f"tokens a decode round, dispatches {ngram['dispatch_widths']}, "
+        f"paged launches {runs['ngram']['paged_launches']} = "
+        f"{cfg.n_layers} x {ngram['dispatches']}, by width "
+        f"{runs['ngram']['paged_launches_by_width']}; "
+        f"{runs['ngram']['tokens_per_s']:.2f} "
+        f"tokens/s against {runs['off']['tokens_per_s']:.2f} without "
+        f"speculation ({card}); ids equal to the plain pool's in "
+        f"{sum(same)} of {len(reqs)} requests")
+
+    # 2. speculation (model): self-drafting at full width, then a 2-layer
+    # f32 model whose self-drafts must all be accepted
+    srv = served(speculate="model", draft_len=SPEC_DRAFT_LEN)
+    try:
+        run = run_pool(srv, reqs[:8], DECODE_NEW)
+    finally:
+        srv.stop()
+    checks = [check(reqs[i][0], run["results"][i])
+              for i in greedy if i < 8]
+    report["spec_model"] = pool_summary(run, checks)
+    cfg2 = dataclasses.replace(gpt2_small(max_len=1024, dtype="float32"),
+                               n_layers=2)
+    tree2 = dict(tree, layers=tree["layers"][:2])
+    params2 = params_from_numpy(tree2, device="cuda", dtype="float32")
+    srv = ContinuousLMServer(cfg2, params2, slots=4, page_size=16,
+                             prefill_chunk=16, speculate="model",
+                             draft_len=SPEC_DRAFT_LEN, device="cuda")
+    try:
+        run2 = run_pool(srv, [(r[0][:200], 0.0, 0) for r in reqs[:4]], 32)
+    finally:
+        srv.stop()
+    st2 = run2["stats"]
+    if not 0 < st2.get("spec_accepted", 0) == st2.get("spec_drafted", 0):
+        raise AssertionError(f"decode: 2-layer f32 self-drafts were not all "
+                             f"accepted: {st2.get('spec_drafted')} drafted, "
+                             f"{st2.get('spec_accepted')} accepted")
+    report["spec_model"]["f32_2_layers"] = {
+        k: st2[k] for k in ("spec_drafted", "spec_accepted",
+                            "spec_accept_rate", "tokens_per_decode_round")}
+    log(f"decode: model self-drafting, accept rate "
+        f"{report['spec_model']['spec_accept_rate']} (bf16, "
+        f"{cfg.n_layers} layers); "
+        f"2-layer f32: {st2['spec_accepted']} of {st2['spec_drafted']} "
+        f"accepted ({card})")
+
+    # 3. the dense pool; its peak memory is also read above what the
+    # phase holds before the pool exists (the served weights and the
+    # checker's fp32 copy)
+    del srv, params2
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    srv = served(kv="dense")
+    try:
+        run = run_pool(srv, reqs[:12], DECODE_NEW)
+    finally:
+        srv.stop()
+    peak = torch.cuda.max_memory_allocated()
+    if run["paged_launches"] or run["flash_launches"]:
+        raise AssertionError("decode: the dense pool launched a kernel")
+    checks = [check(reqs[i][0], run["results"][i])
+              for i in greedy if i < 12]
+    report["dense"] = dict(pool_summary(run, checks),
+                           peak_memory_bytes=peak,
+                           peak_above_start_bytes=peak - base,
+                           slot_cache_bytes=srv.stats()["kv_bytes"][
+                               "provisioned"])
+    log(f"decode: dense pool {run['tokens_per_s']:.2f} tokens/s, peak "
+        f"memory {peak} bytes, {peak - base} above the phase's start "
+        f"({card})")
+
+    # 4. whole-sequence generate, batch 4 x prompt 128 + 32 new tokens
+    rng = np.random.default_rng(7)
+    prompt = rng.integers(0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT))
+    timed, flash_calls = {}, {}
+
+    def counted(name, **kw):
+        torch.cuda.synchronize()
+        flash_forward.launches.reset()
+        paged_flash_attention.launches.reset()
+        t0 = time.perf_counter()
+        out = gen.generate(cfg, params, prompt, GEN_NEW, device="cuda", **kw)
+        torch.cuda.synchronize()
+        timed[name] = time.perf_counter() - t0
+        flash_calls[name] = flash_forward.launches.value
+        if (flash_calls[name] != cfg.n_layers
+                or paged_flash_attention.launches.value):
+            raise AssertionError(
+                f"decode: generate ({name}) made {flash_calls[name]} flash "
+                f"launches (want {cfg.n_layers}) and "
+                f"{paged_flash_attention.launches.value} paged ones (want 0)")
+        return out.tolist()
+
+    def replay(ids, kept):
+        """Feed `ids`' new tokens through `_prefill` and `decode_step`,
+        the steps `generate` ran, and assert `kept(logits, tok)` at every
+        step: the logits are those the run drew each token from."""
+        with torch.no_grad():
+            cache, logits = gen._prefill(cfg, params, torch.tensor(
+                prompt, device="cuda"))
+            for t in range(GEN_NEW):
+                tok = torch.tensor([s[GEN_PROMPT + t] for s in ids],
+                                   device="cuda")
+                if not bool(kept(logits, tok).all()):
+                    raise AssertionError(f"decode: a token at step {t} lies "
+                                         f"outside its filtered support")
+                if t + 1 < GEN_NEW:
+                    logits, cache = gen.decode_step(cfg, params, cache, tok)
+
+    def largest(logits, tok):
+        return logits.gather(1, tok[:, None])[:, 0] == logits.max(-1).values
+
+    greedy_ids = counted("greedy")
+    gen_checks = [check(prompt[b].tolist(), greedy_ids[b])
+                  for b in range(GEN_BATCH)]
+    # top-k 1 keeps every logit equal to the largest, and bf16 logits tie
+    # there: each token must hold its step's largest logit (greedy's tie
+    # rule), and so equals greedy's up to a row's first tie
+    top1 = counted("top_k_1", temperature=1.0, seed=5, top_k=1)
+    replay(top1, largest)
+    top1_rows = sum(a == b for a, b in zip(top1, greedy_ids))
+    sampled = counted("top_k_40_top_p_0.9", temperature=1.0, seed=7,
+                      top_k=40, top_p=0.9)
+    replay(sampled, lambda logits, tok: gen.filtered_logits(
+        logits, 1.0, 40, 0.9).gather(1, tok[:, None]) > -1e29)
+    report["generate"] = {
+        "batch": GEN_BATCH, "prompt": GEN_PROMPT, "new": GEN_NEW,
+        "flash_launches_per_call": flash_calls,
+        "greedy": checks_summary(gen_checks),
+        "top_k_1_rows_equal_to_greedy": top1_rows,
+        "seconds": timed,
+        "tokens_per_s": {k: GEN_BATCH * GEN_NEW / v
+                         for k, v in timed.items()}}
+    log(f"decode: generate {GEN_BATCH} x {GEN_PROMPT} + {GEN_NEW}: greedy "
+        f"{report['generate']['greedy']}; top_k=1 takes a largest logit at "
+        f"every step and equals greedy in {top1_rows} of {GEN_BATCH} rows; "
+        f"top-k 40 / top-p 0.9 inside the support; flash launches a call "
+        f"{flash_calls}; seconds {timed} ({card})")
+
+    # 5. beam search in f32
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params32 = params_from_numpy(tree, device="cuda", dtype="float32")
+    bprompt = rng.integers(0, cfg.vocab_size, (2, BEAM_PROMPT))
+    flash_forward.launches.reset()
+    toks, scores = gen.beam_search(cfg32, params32, bprompt, BEAM_NEW,
+                                   beam_size=BEAM_SIZE, device="cuda")
+    beam_flash = flash_forward.launches.value
+    with torch.no_grad():
+        logp = torch.log_softmax(_forward(cfg32, params32, toks.long(),
+                                          attention), dim=-1)
+    rel = []
+    for b in range(2):
+        tf = sum(float(logp[b, t - 1, toks[b, t]])
+                 for t in range(BEAM_PROMPT, BEAM_PROMPT + BEAM_NEW))
+        rel.append(abs(tf - float(scores[b])) / abs(tf))
+    one, _ = gen.beam_search(cfg32, params32, bprompt, BEAM_NEW, beam_size=1,
+                             device="cuda")
+    greedy32 = gen.generate(cfg32, params32, bprompt, BEAM_NEW,
+                            device="cuda")
+    if max(rel) > BEAM_REL_TOL or beam_flash != cfg.n_layers:
+        raise AssertionError(f"decode: beam score vs teacher-forced "
+                             f"log-prob rel {rel} (limit {BEAM_REL_TOL}), "
+                             f"flash launches {beam_flash}")
+    if one.tolist() != greedy32.tolist():
+        raise AssertionError("decode: beam_size=1 differs from greedy")
+    report["beam"] = {"beam_size": BEAM_SIZE, "prompt": BEAM_PROMPT,
+                      "new": BEAM_NEW, "scores": scores.tolist(),
+                      "score_rel_err": max(rel),
+                      "flash_launches": beam_flash}
+    log(f"decode: beam search f32, scores {scores.tolist()} within "
+        f"{max(rel):.3g} of the teacher-forced log-prob (limit "
+        f"{BEAM_REL_TOL}); beam_size=1 equals greedy")
+    del params, params32, srv
+    torch.cuda.empty_cache()
+    return report
+
+
+# ---------------------------------------------------------------------------
 # phase 7: GPT-2-small training in bf16 compute with f32 masters
 
 
@@ -1641,13 +2153,33 @@ def rnn_phase(card: str, profile: bool = False) -> dict:
     return out
 
 
+def decode_launches(decode, kernel: str):
+    """The decode phase's counts of a kernel's launches on its paths, each
+    read from a run driven with the counts set to 0 just before it."""
+    if decode is None:
+        return None
+    if kernel == "paged":
+        spec = decode["spec_ngram"]
+        return {"speculating_pool": spec["paged_launches"],
+                "speculating_pool_dispatches": spec["dispatches"],
+                "speculating_pool_by_width": spec["paged_launches_by_width"],
+                "plain_pool": decode["spec_off"]["paged_launches"],
+                "plain_pool_by_width": decode["spec_off"][
+                    "paged_launches_by_width"],
+                "dense_pool": decode["dense"]["paged_launches"]}
+    return {"generate_per_call": decode["generate"][
+        "flash_launches_per_call"],
+        "beam_search_per_call": decode["beam"]["flash_launches"]}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
     ap.add_argument("--profile", action="store_true",
-                    help="trace the serve load and the timed train and rnn "
-                    "steps with torch.profiler and print device time by "
+                    help="trace the serve load, the timed train and rnn "
+                    "steps and the decode phase's speculating and plain "
+                    "pools with torch.profiler and print device time by "
                     "kernel (slows them)")
     args = ap.parse_args(argv)
     phases = [p for p in args.only.split(",") if p]
@@ -1716,8 +2248,8 @@ def main(argv=None) -> int:
             f"{head256['loss_rel_err']:.3g}, worst gradient "
             f"{head256['grad_worst_leaf']} {head256['grad_max_rel_err']:.3g}")
     tree = None
-    serve = parity = train = None
-    if "serve" in phases or "parity" in phases:
+    serve = parity = train = decode = None
+    if {"serve", "parity", "decode"} & set(phases):
         from deeplearning4j_tpu_torch.parallel.transformer import (
             gpt2_small,
             numpy_params,
@@ -1732,6 +2264,8 @@ def main(argv=None) -> int:
         train = train_phase(card, profile=args.profile)
     lstm = lstm_phase(card) if "lstm" in phases else None
     rnn = rnn_phase(card, profile=args.profile) if "rnn" in phases else None
+    if "decode" in phases:
+        decode = decode_phase(tree, card, profile=args.profile)
 
     entries = []
     if kernels_line is not None:
@@ -1764,6 +2298,7 @@ def main(argv=None) -> int:
                                                 "library_ms")}
                              for c in kernels_line if c["shape"]["K"] > 256},
             "chunk_library_ms": chunk_case["library_ms"],
+            "decode_launches": decode_launches(decode, "paged"),
             "split_plan": main_case["split_plan"],
             "cases": kernels_line,
         })
@@ -1785,6 +2320,8 @@ def main(argv=None) -> int:
                 "replaces": replaces, "launches": launches,
                 "launches_per_step": (launches / train["steps"]
                                       if train else None),
+                **({"decode_launches": decode_launches(decode, "flash")}
+                   if kname == "flash_fwd" else {}),
                 "max_abs_err": max(main_case["max_abs_err"][n]
                                    for n in err_of[kname]),
                 "max_rel_err": max(main_case["max_rel_err"][n]
@@ -1857,6 +2394,8 @@ def main(argv=None) -> int:
         print(json.dumps({"train": train}), flush=True)
     if rnn is not None:
         print(json.dumps({"rnn": rnn}), flush=True)
+    if decode is not None:
+        print(json.dumps({"decode": decode}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)

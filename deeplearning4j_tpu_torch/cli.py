@@ -3,14 +3,19 @@
     python -m deeplearning4j_tpu_torch.cli lm -input <text> [-output dir]
         [-preset gpt2-small] [-seq 128] [-batch 8] [-accum 1] [-epochs 1]
         [-lr 3e-3] [-updater adam] [-eval <text>] [-device cuda|cpu]
+        [-generate [PROMPT] [-max-new 64] [-temperature 0.8] [-top-k 0]
+         [-top-p 1.0] [-gen-seed 0] [-beam 1]]
 
 trains the byte-level TransformerLM on a text file and saves it as
 ``lm_config.json`` + ``lm_params.npz`` (the JAX package's ``dl4j lm``
-layout; either package loads the other's).
+layout; either package loads the other's); without ``-input`` it loads
+the saved LM.  ``-generate`` then decodes from the prompt (whole-sequence
+`generate`, or `beam_search` with ``-beam`` > 1) and prints the text.
 
     python -m deeplearning4j_tpu_torch.cli serve -lm <dir> [-port 8080]
-        [-lm-slots 4] [-page-size 16] [-lm-pages 0] [-prefill-chunk 8]
-        [-device cuda|cpu]
+        [-lm-slots 4] [-lm-kv paged|dense] [-page-size 16] [-lm-pages 0]
+        [-prefill-chunk 8] [-lm-speculate off|ngram|model]
+        [-lm-draft-len 4] [-device cuda|cpu]
 
 serves a saved LM over HTTP: ``POST /lm/generate``, ``GET
 /serving/stats``, ``/healthz``, ``/readyz``.  The device defaults to the
@@ -62,18 +67,30 @@ def load_saved_lm(out: pathlib.Path, device=None):
 def cmd_serve(args) -> int:
     from deeplearning4j_tpu_torch.ui.server import UiServer
 
+    if args.lm_speculate != "off" and args.lm_kv != "paged":
+        raise SystemExit("serve: -lm-speculate requires -lm-kv paged "
+                         "(speculative rollback rides the page tables)")
     device = resolve_device(args.device)
     cfg, params = load_saved_lm(pathlib.Path(args.lm), device=device)
     srv = UiServer(host=args.host, port=args.port)
-    srv.serve_lm(cfg, params, slots=args.lm_slots,
+    srv.serve_lm(cfg, params, slots=args.lm_slots, kv=args.lm_kv,
                  page_size=args.page_size,
                  pages=args.lm_pages if args.lm_pages > 0 else None,
-                 prefill_chunk=args.prefill_chunk, device=device)
+                 prefill_chunk=args.prefill_chunk,
+                 speculate=args.lm_speculate, draft_len=args.draft_len,
+                 device=device)
     lm = srv.state.lm_server
+    if lm.kv == "dense":
+        kv_note = f"dense KV: {lm.n_slots} x {cfg.max_len} positions"
+    else:
+        kv_note = (f"paged KV: {lm.kv_pages} pages x {lm.page_size} "
+                   f"tokens, prefill chunk {lm.prefill_chunk}")
+        if lm.speculate != "off":
+            kv_note += (f", speculate {lm.speculate} (draft_len "
+                        f"{lm.draft_len})")
     print(f"serve: LM registered ({cfg.n_layers}L/d{cfg.d_model}, "
-          f"max_len {cfg.max_len}, {args.lm_slots} decode slots, paged "
-          f"KV: {lm.kv_pages} pages x {lm.page_size} tokens, prefill "
-          f"chunk {lm.prefill_chunk}, device {device})")
+          f"max_len {cfg.max_len}, {args.lm_slots} decode slots, "
+          f"{kv_note}, device {device})")
     srv.start()
     print(f"Serving on {srv.url} — POST /lm/generate; GET /serving/stats, "
           f"/healthz, /readyz", flush=True)
@@ -109,10 +126,6 @@ def _refuse_unported(args) -> None:
     if args.runtime != "local":
         raise SystemExit(f"-runtime {args.runtime}: only the local runtime "
                          f"is ported (ROADMAP.md, queue A7, 'Multi-device')")
-    if args.generate is not None or args.beam > 1:
-        raise SystemExit("-generate/-beam: whole-sequence decoding is not "
-                         "ported yet (ROADMAP.md, queue A4.2); serve the "
-                         "saved LM with `serve -lm` instead")
 
 
 def _lm_config(args, seq: int) -> TransformerConfig:
@@ -222,7 +235,40 @@ def cmd_lm(args) -> int:
         print(f"LM saved to {out}")
     if args.eval is not None:
         _lm_eval(args.eval, cfg, params)
+    if args.generate is not None:
+        _lm_generate(args, cfg, params)
     return 0
+
+
+def _lm_generate(args, cfg: TransformerConfig, params) -> None:
+    """``-generate``: decode from the prompt's bytes (a newline when none
+    is given) and print the text; ``-beam`` > 1 runs beam search and
+    prints its log-prob to stderr."""
+    from deeplearning4j_tpu_torch.parallel.generation import (
+        beam_search,
+        generate,
+    )
+
+    prompt = np.frombuffer((args.generate or "\n").encode(),
+                           np.uint8).astype(np.int64)
+    if len(prompt) + args.max_new > cfg.max_len:
+        raise SystemExit(
+            f"prompt ({len(prompt)} bytes) + -max-new ({args.max_new}) "
+            f"exceeds the model's context ({cfg.max_len}, set by -seq at "
+            f"training time); shorten one of them")
+    dev = params["embed"].device
+    if args.beam > 1:
+        toks, scores = beam_search(cfg, params, prompt[None, :],
+                                   args.max_new, beam_size=args.beam,
+                                   device=dev)
+        print(f"beam[{args.beam}] log-prob {float(scores[0]):.3f}",
+              file=sys.stderr)
+    else:
+        toks = generate(cfg, params, prompt[None, :], args.max_new,
+                        temperature=args.temperature, seed=args.gen_seed,
+                        top_k=args.top_k, top_p=args.top_p, device=dev)
+    print(bytes(toks[0].cpu().numpy().astype(np.uint8)).decode(
+        errors="replace"))
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -237,6 +283,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-port", "--port", type=int, default=8080)
     p.add_argument("-lm-slots", "--lm-slots", dest="lm_slots", type=int,
                    default=4, help="concurrent decode lanes")
+    p.add_argument("-lm-kv", "--lm-kv", dest="lm_kv",
+                   choices=("paged", "dense"), default="paged",
+                   help="KV cache of the pool: the paged pool with radix "
+                   "prefix reuse (default) or a dense max_len row per slot")
     p.add_argument("-page-size", "--page-size", dest="page_size", type=int,
                    default=16, help="tokens per KV page")
     p.add_argument("-lm-pages", "--lm-pages", dest="lm_pages", type=int,
@@ -245,6 +295,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-prefill-chunk", "--prefill-chunk",
                    dest="prefill_chunk", type=int, default=8,
                    help="prompt tokens fed per dispatch")
+    p.add_argument("-lm-speculate", "--lm-speculate", dest="lm_speculate",
+                   choices=("off", "ngram", "model"), default="off",
+                   help="speculative decoding of greedy lanes (paged KV "
+                   "only): 'ngram' drafts by prompt lookup on the host, "
+                   "'model' with the served model itself")
+    p.add_argument("-lm-draft-len", "--lm-draft-len", "-draft-len",
+                   "--draft-len", dest="draft_len", type=int, default=4,
+                   help="most draft tokens a lane proposes per round")
     p.add_argument("-device", "--device", default=None,
                    help="cuda (default) or cpu")
     p.add_argument("-serve-seconds", "--serve-seconds",
@@ -290,9 +348,19 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["local", "spmd", "hybrid", "pipeline"],
                    help="only local is ported")
     p.add_argument("-generate", "--generate", nargs="?", const="",
-                   default=None, metavar="PROMPT", help="not ported")
+                   default=None, metavar="PROMPT",
+                   help="decode after training/loading (optional prompt)")
+    p.add_argument("-max-new", "--max-new", dest="max_new", type=int,
+                   default=64)
+    p.add_argument("-temperature", "--temperature", type=float, default=0.8)
+    p.add_argument("-top-k", "--top-k", dest="top_k", type=int, default=0,
+                   help="sample from the k most likely tokens (0 = all)")
+    p.add_argument("-top-p", "--top-p", dest="top_p", type=float,
+                   default=1.0, help="nucleus sampling mass")
+    p.add_argument("-gen-seed", "--gen-seed", dest="gen_seed", type=int,
+                   default=0)
     p.add_argument("-beam", "--beam", type=int, default=1,
-                   help="not ported")
+                   help="beam-search width for -generate (1 = off)")
     p.set_defaults(func=cmd_lm)
     return parser
 

@@ -51,24 +51,34 @@ def mask_value(dtype: torch.dtype) -> float:
 
 
 class LaunchCounter:
-    """Launches of one kernel: the wrapper adds one per kernel launch."""
+    """Launches of one kernel: the wrapper adds one per kernel launch,
+    under an optional key (the paged wrapper keys its launches by query
+    width), read back as a total (`value`) and per key (`by_key`)."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._n = 0
+        self._keys: dict = {}
 
-    def add(self, n: int = 1) -> None:
+    def add(self, n: int = 1, key=None) -> None:
         with self._lock:
             self._n += n
+            if key is not None:
+                self._keys[key] = self._keys.get(key, 0) + n
 
     def reset(self) -> None:
         with self._lock:
             self._n = 0
+            self._keys = {}
 
     @property
     def value(self) -> int:
         with self._lock:
             return self._n
+
+    def by_key(self) -> dict:
+        with self._lock:
+            return dict(self._keys)
 
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}

@@ -12,8 +12,9 @@ The kernel splits each lane's pages across blocks (flash-decoding): the
 plan, `paged_split_plan` (pages and query columns a block), is computed
 here from the shapes and the card's SM count and handed to the C entry.
 One call counts as one launch in
-``paged_flash_attention.launches``, whether it ran the split kernel
-alone (one split) or the split kernel and the merge kernel.
+``paged_flash_attention.launches`` (keyed by its query width C), whether
+it ran the split kernel alone (one split) or the split kernel and the
+merge kernel.
 
 Semantics (identical to the TPU kernel): query column ``c`` of lane ``b``
 sits at position ``pos[b] + c`` and sees keys ``t <= pos[b] + c``; the
@@ -241,7 +242,7 @@ def paged_flash_attention(q: torch.Tensor, k_pages: torch.Tensor,
             f"B={b} C={c} H={h} K={kd}, {plan['n_splits']} splits of "
             f"{plan['pages_per_split']} pages, {smem} bytes of shared "
             f"memory per block)")
-    paged_flash_attention.launches.add()
+    paged_flash_attention.launches.add(key=c)
     return out
 
 

@@ -316,6 +316,23 @@ def _forward(cfg: TransformerConfig, params: dict, tokens,
     return x @ lm_head(params)
 
 
+def _forward_cache(cfg: TransformerConfig, params: dict,
+                   tokens: torch.Tensor, attn: Callable,
+                   store: Callable) -> torch.Tensor:
+    """The KV-cache prefill: `_forward` without remat and without the LM
+    head, handing layer i's keys and values ``[B, S, H, K]`` to
+    ``store(i, k, v)``.  Returns the final-layer-norm output ``[B, S,
+    d]``."""
+    require_dense(cfg)
+    x = params["embed"][tokens] + params["pos"][None, :tokens.shape[1], :]
+    for i, layer in enumerate(params["layers"]):
+        q, k, v = qkv_proj(layer["attn"], _layer_norm(layer["ln1"], x))
+        store(i, k, v)
+        x = x + out_proj(layer["attn"], attn(q, k, v))
+        x = x + _mlp(layer["mlp"], _layer_norm(layer["ln2"], x))
+    return _layer_norm(params["ln_f"], x)
+
+
 def apply(cfg: TransformerConfig, params: dict, tokens,
           causal: bool = True, train: bool = False,
           return_aux: bool = False):

@@ -1,6 +1,7 @@
 """Serving plane of the port (counterpart of `deeplearning4j_tpu.serving`):
-the continuous LM server over a paged KV pool, its page allocator and
-radix prefix cache, metrics and typed failures."""
+the continuous LM server over a paged or dense KV cache, its page
+allocator and radix prefix cache, the speculative drafters
+(`serving.draft`), metrics and typed failures."""
 
 from deeplearning4j_tpu_torch.serving.lm import (
     ContinuousLMServer,

@@ -1,5 +1,5 @@
-"""Continuous batching for LM generation over a paged KV pool (counterpart
-of `deeplearning4j_tpu.serving.lm`, paged KV only).
+"""Continuous batching for LM generation over a paged or dense KV cache
+(counterpart of `deeplearning4j_tpu.serving.lm`).
 
 The server keeps a fixed pool of `slots` decode lanes and advances every
 active lane each device dispatch:
@@ -10,16 +10,29 @@ active lane each device dispatch:
   lanes keep decoding;
 - every dispatch has `slots` lanes (inactive lanes ride as masked
   padding writing only the null page) and one of two widths: 1, or
-  `prefill_chunk` while some lane has a full chunk of prompt left.
+  `prefill_chunk` while some lane has a full chunk of prompt left (with
+  speculation, `spec_width` while some lane has drafts or a full chunk).
 
-KV state is one fixed pool of ``[pages, page_size, H, K]`` pages per
+``kv="paged"`` (the default): KV state is one fixed pool of ``[pages, page_size, H, K]`` pages per
 layer addressed through a per-lane block table
-(`parallel.generation.make_paged_step`).  Pages are allocated on
+(`parallel.generation.make_spec_step`, whose dispatches without drafts
+are the plain decode and prefill-chunk steps).  Pages are allocated on
 admission and refcount-freed on completion (`serving/paged.py`), and a
 radix tree over prompt prefixes lets a request whose prompt shares a
 cached prefix skip prefill for it (copy-on-write at the divergence page;
 reuse is capped at ``len(prompt) - 1`` because the last prompt token must
-be fed to produce the first sampled token's logits).
+be fed to produce the first sampled token's logits).  ``kv="dense"``
+keeps one ``[max_len]`` row per slot (`parallel.generation.make_slot_step`)
+and teacher-forces a prompt one token per dispatch.
+
+Speculation (``speculate="ngram"|"model"``, paged only): a drafter
+(`serving/draft.py`) proposes up to `draft_len` tokens for each greedy
+decoding lane, and one dispatch of width ``spec_width = max(prefill_chunk,
+draft_len + 1)`` scores ``[last, d_1..d_k]`` through the paged kernel,
+accepting the longest run the target's argmax agrees with plus one bonus
+token (`parallel.generation.make_spec_step`).  Greedy output is that of
+1-token decode; a rejected column's keys and values stay in the lane's
+own pages, hidden by its position, so a rollback is a pointer move.
 
 Sampling: temperature 0 is greedy; a sampled lane draws from a
 counter-based generator keyed on ``(seed, tokens generated)``, so its
@@ -33,9 +46,9 @@ and pages are freed at the next admit round, and `begin_drain()`/
 resets the allocator, radix tree and device pool together: the pool
 tensors are updated in place, so their contents are no longer trusted.
 
-Not ported yet (ROADMAP.md): dense KV, speculative decoding, page
-shipping, preemption and brownout, tenancy, hibernation, the circuit
-breaker, SSE streaming, request tracing and the compile watcher.
+Not ported yet (ROADMAP.md): page shipping, preemption and brownout,
+tenancy, hibernation, the circuit breaker, SSE streaming, request tracing
+and the compile watcher.
 """
 
 from __future__ import annotations
@@ -51,15 +64,18 @@ import torch
 from deeplearning4j_tpu_torch.device import DeviceLike, resolve_device
 from deeplearning4j_tpu_torch.parallel.generation import (
     init_paged_cache,
+    init_slot_cache,
     make_page_copy,
-    make_paged_step,
+    make_slot_step,
+    make_spec_step,
     pages_per_seq,
+    place_params,
 )
 from deeplearning4j_tpu_torch.parallel.transformer import (
-    map_tree,
     require_dense,
     torch_dtype,
 )
+from deeplearning4j_tpu_torch.serving.draft import make_drafter
 from deeplearning4j_tpu_torch.serving.metrics import ServingMetrics
 from deeplearning4j_tpu_torch.serving.paged import PagePool, RadixPrefixCache
 from deeplearning4j_tpu_torch.serving.resilience import (
@@ -135,8 +151,10 @@ class _Slot:
 
 
 class ContinuousLMServer:
-    """Slot-based continuous decode over one transformer LM with a paged
-    KV pool, radix prefix reuse and chunked prefill.
+    """Slot-based continuous decode over one transformer LM: a paged KV
+    pool with radix prefix reuse, chunked prefill and optional
+    speculation (``kv="paged"``), or a dense per-slot cache
+    (``kv="dense"``).
 
     `generate(prompt_ids, max_new_tokens)` is thread-safe and blocks until
     the request's sequence is complete.  `params` is the port's parameter
@@ -148,28 +166,44 @@ class ContinuousLMServer:
                  metrics: Optional[ServingMetrics] = None,
                  max_queue_depth: Optional[int] = None,
                  default_deadline_s: Optional[float] = None,
-                 page_size: int = 16, pages: Optional[int] = None,
-                 prefill_chunk: int = 8, device: DeviceLike = None):
+                 kv: str = "paged", page_size: int = 16,
+                 pages: Optional[int] = None, prefill_chunk: int = 8,
+                 speculate: str = "off", draft_len: int = 4,
+                 drafter=None, draft_model=None,
+                 device: DeviceLike = None):
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if max_queue_depth is not None and max_queue_depth < 1:
             raise ValueError(f"max_queue_depth must be >= 1 or None, got "
                              f"{max_queue_depth}")
+        if kv not in ("paged", "dense"):
+            raise ValueError(f"kv must be 'paged' or 'dense', got {kv!r}")
         if page_size < 1:
             raise ValueError(f"page_size must be >= 1, got {page_size}")
         if prefill_chunk < 1:
             raise ValueError(
                 f"prefill_chunk must be >= 1, got {prefill_chunk}")
+        if speculate not in ("off", "ngram", "model"):
+            raise ValueError(f"speculate must be 'off', 'ngram' or "
+                             f"'model', got {speculate!r}")
+        if drafter is not None and speculate == "off":
+            speculate = "custom"           # an injected Drafter instance
+        if speculate != "off" and kv != "paged":
+            # refused at construction: the rollback is a pointer move on
+            # the page tables, and the dense cache has none
+            raise ValueError(
+                f"speculate={speculate!r} requires kv='paged' "
+                f"(got kv={kv!r}): rollback rides the page tables")
+        if speculate != "off" and draft_len < 1:
+            raise ValueError(f"draft_len must be >= 1, got {draft_len}")
         require_dense(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
-        dt = torch_dtype(cfg.dtype)
-        self.params = map_tree(
-            lambda a: torch.as_tensor(a).to(device=self.device, dtype=dt),
-            params)
+        self.params = place_params(cfg, params, self.device)
         self.n_slots = int(slots)
         self.max_queue_depth = max_queue_depth
         self.default_deadline_s = default_deadline_s
+        self.kv = kv
         self.page_size = int(page_size)
         self.max_pages = pages_per_seq(cfg, self.page_size)
         # `pages` = usable KV pages (the null page is on top).  Default:
@@ -180,6 +214,15 @@ class ContinuousLMServer:
         if self.kv_pages < 1:
             raise ValueError(f"pages must be >= 1, got {self.kv_pages}")
         self.prefill_chunk = int(prefill_chunk)
+        self.speculate = speculate
+        self.draft_len = int(draft_len)
+        self._drafter = drafter            # built in _start_locked if None
+        self._draft_model = draft_model    # optional (cfg, params) pair
+        # the one wide width: chunked prefill and the verify share it
+        # ([last, d_1..d_k] needs draft_len + 1 columns)
+        self.spec_width = (max(self.prefill_chunk, self.draft_len + 1)
+                           if speculate != "off" else 0)
+        self._wide = self.spec_width or self.prefill_chunk
         self.metrics = metrics if metrics is not None else ServingMetrics()
         self._queue = collections.deque()
         self._cond = threading.Condition()
@@ -188,8 +231,6 @@ class ContinuousLMServer:
         self._thread: Optional[threading.Thread] = None
         self._cache = None    # (k, v) pool tensors, built by the worker
         self._step = None     # ONE dispatch entry point (tests stub it)
-        self._decode_step = None
-        self._chunk_step = None
         self._copy = None
         self._pool: Optional[PagePool] = None
         self._tree: Optional[RadixPrefixCache] = None
@@ -207,11 +248,12 @@ class ContinuousLMServer:
         return -(-(plen + max_new - 1) // self.page_size)
 
     def validate(self, prompt_ids, max_new_tokens: int) -> List[int]:
-        """`validate_request` plus the pool's hard capacity: a request
-        that could never fit the whole pool is the client's error."""
+        """`validate_request` plus the paged pool's hard capacity: a
+        request that could never fit the whole pool is the client's
+        error."""
         ids = validate_request(self.cfg, prompt_ids, max_new_tokens)
         need = self._required_pages(len(ids), int(max_new_tokens))
-        if need > self.kv_pages:
+        if self.kv == "paged" and need > self.kv_pages:
             raise ValueError(
                 f"request needs {need} KV pages ({len(ids)} prompt + "
                 f"{int(max_new_tokens)} new, page_size {self.page_size}) "
@@ -280,12 +322,13 @@ class ContinuousLMServer:
         return req.result
 
     def warmup(self, timeout: Optional[float] = 600.0) -> int:
-        """Start the worker and run one dispatch of every width plus the
-        page copy before traffic (on the card this builds the kernel
-        library and warms the math libraries).  The warm dispatches feed
-        nothing (n_feed = 0), so they write only the null page.  Returns
-        the number of programs warmed, 0 if the warm did not run within
-        `timeout`."""
+        """Start the worker and run one dispatch of every width, the page
+        copy and the model drafter's step before traffic (on the card
+        this builds the kernel library and warms the math libraries).
+        The paged warm dispatches feed nothing (n_feed = 0), so they
+        write only the null page; the dense one waits for an idle pool.
+        Returns the number of programs warmed, 0 if the warm did not run
+        within `timeout`."""
         with self._cond:
             if not self._running:
                 self._start_locked()
@@ -295,22 +338,33 @@ class ContinuousLMServer:
             self._cond.notify_all()
         if not ev.wait(timeout):
             return 0
-        return len(self._widths()) + 1
+        if self.kv == "dense":
+            return 1
+        return (len(self._widths()) + 1
+                + int(hasattr(self._drafter, "warmup")))
 
     def _widths(self) -> List[int]:
-        return [1] + ([self.prefill_chunk] if self.prefill_chunk > 1
-                      else [])
+        """The paged dispatch widths: 1, and the wide program's (the
+        prefill chunk, or `spec_width` with speculation) above 1."""
+        return [1] + ([self._wide] if self._wide > 1 else [])
 
     def _warm_programs(self) -> None:
         zi = np.zeros((self.n_slots,), np.int32)
         zf = np.zeros((self.n_slots,), np.float32)
-        table = np.zeros((self.n_slots, self.max_pages), np.int32)
-        for w in self._widths():
-            tok = np.zeros((self.n_slots, w), np.int32)
-            _, k, v = self._step(self.params, *self._cache, table, zi, zi,
-                                 tok, zf, zi, zi)
+        if self.kv == "dense":
+            _, k, v = self._step(self.params, *self._cache, zi, zi, zf, zi,
+                                 zi)
             self._cache = (k, v)
-        self._cache = self._copy(*self._cache, 0, 0)
+        else:
+            table = np.zeros((self.n_slots, self.max_pages), np.int32)
+            for w in self._widths():
+                tok = np.zeros((self.n_slots, w), np.int32)
+                _, _, k, v = self._step(self.params, *self._cache, table,
+                                        zi, zi, zi, tok, zf, zi, zi)
+                self._cache = (k, v)
+            self._cache = self._copy(*self._cache, 0, 0)
+            if hasattr(self._drafter, "warmup"):
+                self._drafter.warmup()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -380,14 +434,19 @@ class ContinuousLMServer:
             return out
 
     def _kv_bytes(self) -> Dict:
-        """Provisioned vs actively held KV bytes."""
+        """Provisioned vs actively held KV bytes: a dense cache pays for
+        every slot's max_len; the paged pool holds refcounted pages."""
         cfg = self.cfg
         per_tok = (2 * cfg.n_layers * cfg.n_heads * cfg.head_dim
                    * torch_dtype(cfg.dtype).itemsize)
-        provisioned = self.kv_pages * self.page_size * per_tok
-        in_use = self._pool.in_use if self._pool is not None else 0
-        return {"provisioned": int(provisioned),
-                "active": int(in_use * self.page_size * per_tok),
+        if self.kv == "dense":
+            provisioned = self.n_slots * cfg.max_len * per_tok
+            active = per_tok * sum(s.pos for s in self._slots if s.active)
+        else:
+            provisioned = self.kv_pages * self.page_size * per_tok
+            in_use = self._pool.in_use if self._pool is not None else 0
+            active = in_use * self.page_size * per_tok
+        return {"provisioned": int(provisioned), "active": int(active),
                 "per_token": int(per_tok)}
 
     def stats(self) -> Dict:
@@ -399,21 +458,36 @@ class ContinuousLMServer:
             out["decode_steps"] = self._steps
             out["accepting"] = self._accepting
             out["kv_bytes"] = self._kv_bytes()
-            out["kv"] = {
-                "mode": "paged",
-                "page_size": self.page_size,
-                "pages": self.kv_pages,
-                "max_pages_per_seq": self.max_pages,
-                "prefill_chunk": self.prefill_chunk,
-                "pages_in_use": (self._pool.in_use
-                                 if self._pool is not None else 0),
-                "pages_free": (self._pool.free if self._pool is not None
-                               else self.kv_pages),
-                "radix_nodes": (self._tree.nodes
-                                if self._tree is not None else 0),
-                "paged_kernel": self.device.type == "cuda"}
+            kv = {"mode": self.kv}
+            if self.kv == "paged":
+                kv.update({
+                    "page_size": self.page_size,
+                    "pages": self.kv_pages,
+                    "max_pages_per_seq": self.max_pages,
+                    "prefill_chunk": self.prefill_chunk,
+                    "pages_in_use": (self._pool.in_use
+                                     if self._pool is not None else 0),
+                    "pages_free": (self._pool.free
+                                   if self._pool is not None
+                                   else self.kv_pages),
+                    "radix_nodes": (self._tree.nodes
+                                    if self._tree is not None else 0),
+                    "paged_kernel": self.device.type == "cuda"})
+            out["kv"] = kv
             out["dispatch_widths"] = {
                 str(w): n for w, n in sorted(self._width_dispatches.items())}
+            if self.speculate != "off":
+                spec = {"mode": self.speculate,
+                        "draft_len": self.draft_len,
+                        "verify_width": self.spec_width}
+                if out.get("spec_drafted"):
+                    spec.update({"drafted": out["spec_drafted"],
+                                 "accepted": out["spec_accepted"],
+                                 "accept_rate": out["spec_accept_rate"]})
+                if out.get("decode_rounds"):
+                    spec["tokens_per_decode_round"] = out[
+                        "tokens_per_decode_round"]
+                out["speculate"] = spec
         out["max_len"] = self.cfg.max_len
         out["device"] = str(self.device)
         return out
@@ -421,17 +495,25 @@ class ContinuousLMServer:
     # ---- worker side ------------------------------------------------------
 
     def _reset_cache(self) -> None:
-        """(Re)allocate the device pool: at start, and after a failed
-        dispatch left its in-place contents untrusted."""
-        cache = init_paged_cache(self.cfg, self.kv_pages + 1,
-                                 self.page_size, device=self.device)
+        """(Re)allocate the device cache: at start, and after a failed
+        dispatch left its in-place contents untrusted.  Allocated once,
+        never per request."""
+        if self.kv == "dense":
+            cache = init_slot_cache(self.cfg, self.n_slots,
+                                    device=self.device)
+        else:
+            cache = init_paged_cache(self.cfg, self.kv_pages + 1,
+                                     self.page_size, device=self.device)
         self._cache = (cache["k"], cache["v"])
 
     def _reset_pool_locked(self) -> None:
         """Fresh allocator + radix tree + slot page bookkeeping, at start
         and whenever the device pool's contents died (failed dispatch,
         worker stop): a radix entry pointing into a rebuilt pool would
-        serve zeros as a cached prefix.  Caller holds ``self._cond``."""
+        serve zeros as a cached prefix.  The drafter's lane state goes
+        with it.  Caller holds ``self._cond``."""
+        if self.kv != "paged":
+            return
         self._pool = PagePool(self.kv_pages + 1, self.page_size)
         self._tree = RadixPrefixCache(self._pool)
         self._pending_cow = []
@@ -440,34 +522,43 @@ class ContinuousLMServer:
             s.owned = []
             s.shared = []
             s.inserted = False
+        if self._drafter is not None:
+            self._drafter.reset()
         self.metrics.set_pages(0, self.kv_pages, self.kv_pages)
 
     def _start_locked(self) -> None:
         if self._step is None:
-            total = self.kv_pages + 1
-            self._decode_step = make_paged_step(self.cfg, total,
-                                                self.page_size, 1)
-            self._chunk_step = (make_paged_step(self.cfg, total,
-                                                self.page_size,
-                                                self.prefill_chunk)
-                                if self.prefill_chunk > 1 else None)
-            self._copy = make_page_copy(self.cfg, total, self.page_size)
-
-            def dispatch(params, k, v, table, pos, n_feed, tokens,
-                         temperature, seeds, counts):
-                # ONE entry point for both widths, so fault-injection
-                # tests that stub `self._step` intercept every dispatch
-                fn = (self._decode_step if tokens.shape[1] == 1
-                      else self._chunk_step)
-                return fn(params, k, v, table, pos, n_feed, tokens,
-                          temperature, seeds, counts)
-
-            self._step = dispatch
+            if self.kv == "dense":
+                self._step = make_slot_step(self.cfg)
+            else:
+                self._step = self._build_paged_dispatch()
             self._reset_pool_locked()
         self._running = True
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name="lm-decode")
         self._thread.start()
+
+    def _build_paged_dispatch(self):
+        """The paged programs, one `make_spec_step` per width behind ONE
+        entry point, so that fault-injection tests stubbing `self._step`
+        intercept each dispatch.  Without speculation every n_draft is 0
+        and the programs are the plain decode and prefill-chunk steps."""
+        total = self.kv_pages + 1
+        self._copy = make_page_copy(self.cfg, total, self.page_size)
+        programs = {w: make_spec_step(self.cfg, total, self.page_size, w)
+                    for w in self._widths()}
+        if self.speculate != "off" and self._drafter is None:
+            self._drafter = make_drafter(
+                self.speculate, self.cfg, self.params, self.n_slots,
+                draft_model=self._draft_model, device=self.device)
+
+        def dispatch(params, k, v, table, pos, n_feed, n_draft, tokens,
+                     temperature, seeds, counts):
+            return programs[tokens.shape[1]](
+                params, k, v, table, pos, n_feed, n_draft, tokens,
+                temperature, seeds, counts)
+
+        return dispatch
 
     # ---- paged admission --------------------------------------------------
 
@@ -577,13 +668,21 @@ class ContinuousLMServer:
                 break
             if slot.active:
                 continue
+            if self.kv == "dense":
+                slot.req = self._queue.popleft()
+                slot.req.t_installed = time.perf_counter()
+                slot.pos = 0
+                slot.fed = 0
+                slot.generated = []
+                continue
             plan = self._plan_admission_paged(self._queue[0])
             if plan is None:
                 break              # head-of-line waits for pages
             self._install_paged_locked(slot, self._queue.popleft(), plan)
         self.metrics.set_queue_depth(len(self._queue))
-        self.metrics.set_pages(self._pool.in_use, self._pool.free,
-                               self.kv_pages)
+        if self._pool is not None:
+            self.metrics.set_pages(self._pool.in_use, self._pool.free,
+                                   self.kv_pages)
 
     def _finish_slot(self, slot: _Slot) -> None:
         """Completion fold: resolve the client, free the lane and pages."""
@@ -614,18 +713,25 @@ class ContinuousLMServer:
             self._tree.insert(slot.req.prompt[:n_full * self.page_size],
                               [int(p) for p in slot.table[:n_full]])
 
-    def _commit_token(self, slot: _Slot, tok: int) -> None:
+    def _commit_tokens(self, slot: _Slot, toks: List[int]) -> None:
         req = slot.req
         if req.t_first is None:
             req.t_first = time.perf_counter()
             self.metrics.record_first_token(req.t_first - req.enqueued)
-        slot.generated.append(int(tok))
+        slot.generated.extend(int(t) for t in toks)
 
     def _drain_step(self) -> bool:
         """One scheduling round: admit, build the step inputs, dispatch,
         fold the sampled tokens back into each lane.  False when idle."""
         with self._cond:
-            warm, self._warm_req = self._warm_req, None
+            # the dense warm writes position 0 of every row, so it waits
+            # for an idle pool; the paged one writes only the null page
+            warm = self._warm_req
+            if warm is not None and (self.kv == "paged" or not any(
+                    s.active for s in self._slots)):
+                self._warm_req = None
+            else:
+                warm = None
         if self._cache is None:
             # first round, or a failed dispatch left the pool untrusted:
             # rebuild inside the protected loop so a failing rebuild
@@ -645,23 +751,105 @@ class ContinuousLMServer:
             if not active:
                 return False
             cow, self._pending_cow = self._pending_cow, []
+        if self.kv == "dense":
+            return self._dispatch_dense(active)
         return self._dispatch_paged(active, cow)
+
+    def _dispatch_dense(self, active) -> bool:
+        """One 1-wide dispatch of the dense slot pool: a lane in prefill
+        is teacher-forced one prompt token, a decoding lane feeds its
+        last sample."""
+        token = np.zeros((self.n_slots,), np.int32)
+        pos = np.zeros((self.n_slots,), np.int32)
+        temp = np.zeros((self.n_slots,), np.float32)
+        seeds = np.zeros((self.n_slots,), np.int32)
+        counts = np.zeros((self.n_slots,), np.int32)
+        for i, slot in enumerate(self._slots):
+            if not slot.active:
+                continue
+            req = slot.req
+            token[i] = (req.prompt[slot.fed] if slot.fed < len(req.prompt)
+                        else slot.generated[-1])
+            pos[i] = slot.pos
+            temp[i] = req.temperature
+            seeds[i] = req.seed
+            counts[i] = len(slot.generated)
+        nxt, k, v = self._step(self.params, *self._cache, pos, token, temp,
+                               seeds, counts)
+        self._cache = (k, v)
+        nxt = nxt.cpu().numpy()    # the round's one host sync
+        self._steps += 1
+        self._width_dispatches[1] = self._width_dispatches.get(1, 0) + 1
+        emitted = 0
+        for i, slot in enumerate(self._slots):
+            if not slot.active:
+                continue
+            slot.pos += 1
+            if slot.fed < len(slot.req.prompt):
+                slot.fed += 1
+                # the last prompt token's logits yield the first sample
+                if slot.fed < len(slot.req.prompt):
+                    continue
+            self._commit_tokens(slot, [int(nxt[i])])
+            emitted += 1
+            if len(slot.generated) >= slot.req.max_new:
+                self._finish_slot(slot)
+        self.metrics.record_dispatch(len(active), self.n_slots)
+        if emitted:
+            self.metrics.record_tokens(emitted)
+        return True
+
+    def _draft_proposals(self) -> Dict[int, List[int]]:
+        """One drafting round: proposals for greedy lanes past prefill
+        with at least 2 tokens left, each capped at ``min(draft_len,
+        remaining - 1)``.  Sampled lanes are never drafted for (a greedy
+        accept rule would mis-sample them) and decode one token a round.
+        A proposal is cut at its first out-of-vocab token, so the verify
+        feed stays valid whatever a custom drafter returns."""
+        histories: List[Optional[List[int]]] = [None] * self.n_slots
+        budgets = [0] * self.n_slots
+        for i, slot in enumerate(self._slots):
+            if not slot.active:
+                continue
+            req = slot.req
+            remaining = req.max_new - len(slot.generated)
+            if (slot.fed >= len(req.prompt) and req.temperature == 0
+                    and remaining >= 2 and slot.generated):
+                histories[i] = req.prompt + slot.generated
+                budgets[i] = min(self.draft_len, remaining - 1)
+        if not any(budgets):
+            return {}
+        proposals = self._drafter.propose(histories, budgets)
+        out: Dict[int, List[int]] = {}
+        for i, prop in enumerate(proposals):
+            if not budgets[i] or not prop:
+                continue
+            clean: List[int] = []
+            for t in prop[:budgets[i]]:
+                t = int(t)
+                if not 0 <= t < self.cfg.vocab_size:
+                    break
+                clean.append(t)
+            if clean:
+                out[i] = clean
+        return out
 
     def _dispatch_paged(self, active, cow) -> bool:
         for item in cow:
             self._cache = self._copy(*self._cache, item["src"], item["dst"])
             self._pool.release([item["src"]])
+        drafts = self._draft_proposals() if self.speculate != "off" else {}
         # the wide program dispatches only while some lane has a FULL
-        # chunk of prompt left; sub-chunk tails and pure-decode rounds
-        # ride the 1-wide program
-        width = 1
-        if self._chunk_step is not None and any(
-                len(s.req.prompt) - s.fed >= self.prefill_chunk
-                for s in active):
-            width = self.prefill_chunk
+        # chunk of prompt left (or, with speculation, drafts to verify);
+        # sub-chunk tails and pure-decode rounds ride the 1-wide program
+        full_chunk = any(len(s.req.prompt) - s.fed >= self.prefill_chunk
+                         for s in active)
+        wide = drafts or (full_chunk and self.prefill_chunk > 1)
+        width = self._wide if wide else 1
         tokens = np.zeros((self.n_slots, width), np.int32)
         pos = np.zeros((self.n_slots,), np.int32)
         n_feed = np.zeros((self.n_slots,), np.int32)
+        n_draft = np.zeros((self.n_slots,), np.int32)
         temp = np.zeros((self.n_slots,), np.float32)
         seeds = np.zeros((self.n_slots,), np.int32)
         counts = np.zeros((self.n_slots,), np.int32)
@@ -672,9 +860,15 @@ class ContinuousLMServer:
             req = slot.req
             remaining = len(req.prompt) - slot.fed
             if remaining > 0:                  # chunked prefill
-                f = min(remaining, width)
+                f = min(remaining, width, self.prefill_chunk)
                 tokens[i, :f] = req.prompt[slot.fed:slot.fed + f]
                 n_feed[i] = f
+            elif width > 1 and i in drafts:    # speculative verify
+                prop = drafts[i]
+                tokens[i, 0] = slot.generated[-1]
+                tokens[i, 1:1 + len(prop)] = prop
+                n_feed[i] = 1 + len(prop)
+                n_draft[i] = len(prop)
             else:                              # decode: feed last sample
                 tokens[i, 0] = slot.generated[-1]
                 n_feed[i] = 1
@@ -683,10 +877,14 @@ class ContinuousLMServer:
             seeds[i] = req.seed
             counts[i] = len(slot.generated)
             table[i] = slot.table
-        nxt, k, v = self._step(self.params, *self._cache, table, pos,
-                               n_feed, tokens, temp, seeds, counts)
+        nxt, acc, k, v = self._step(self.params, *self._cache, table, pos,
+                                    n_feed, n_draft, tokens, temp, seeds,
+                                    counts)
+        # the round's one host sync: next tokens and accepted counts
+        both = torch.stack([nxt.to(torch.int32),
+                            acc.to(torch.int32)]).cpu().numpy()
+        nxt, acc = both[0], both[1]
         self._cache = (k, v)
-        nxt = nxt.cpu().numpy()    # the round's one host sync
         self._steps += 1
         self._width_dispatches[width] = (
             self._width_dispatches.get(width, 0) + 1)
@@ -694,16 +892,29 @@ class ContinuousLMServer:
         for i, slot in enumerate(self._slots):
             if not slot.active or n_feed[i] == 0:
                 continue
-            slot.pos += int(n_feed[i])
             if slot.fed < len(slot.req.prompt):
+                slot.pos += int(n_feed[i])
                 slot.fed += int(n_feed[i])
                 if slot.fed < len(slot.req.prompt):
                     continue
                 # prefill complete: its full pages become reusable, and
                 # the last prompt token's logits yield the first sample
                 self._insert_prompt_pages(slot)
-            self._commit_token(slot, int(nxt[i]))
-            emitted += 1
+                self._commit_tokens(slot, [int(nxt[i])])
+                emitted += 1
+            else:
+                # commit the accepted drafts plus the bonus token; pos
+                # moves past the committed feeds only, so a rejected
+                # column's keys and values (in this lane's own pages)
+                # stay masked until real writes land on them
+                a = int(acc[i])
+                k_drafted = int(n_draft[i])
+                slot.pos += 1 + a
+                self._commit_tokens(slot, (drafts[i][:a] if k_drafted
+                                           else []) + [int(nxt[i])])
+                emitted += 1 + a
+                self.metrics.record_decode_round(1 + a, drafted=k_drafted,
+                                                 accepted=a)
             if len(slot.generated) >= slot.req.max_new:
                 self._finish_slot(slot)
         self.metrics.record_dispatch(len(active), self.n_slots)

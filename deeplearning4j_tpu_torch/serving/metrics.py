@@ -6,7 +6,8 @@ spent in queue wait plus device compute.  `ServingMetrics` counts both
 sides and snapshots them for ``GET /serving/stats`` under the JAX
 package's key names: requests, tokens, dispatches and occupancy, latency
 p50/p95/p99 split into queue wait and compute, time to first token, the
-radix prefix-cache hit rate and the KV page gauges.  The Prometheus
+radix prefix-cache hit rate, the KV page gauges, and the speculative
+decode ledger (decode rounds, drafted and accepted tokens).  The Prometheus
 registry plane is not ported yet (ROADMAP.md).
 """
 
@@ -31,7 +32,9 @@ class ServingMetrics:
         self._c = dict.fromkeys(
             ("requests", "dispatches", "rows", "padded_rows", "tokens",
              "rejected", "shed", "deadline_missed", "prefix_queries",
-             "prefix_hits", "prefix_tokens_saved"), 0)
+             "prefix_hits", "prefix_tokens_saved", "decode_rounds",
+             "decode_tokens", "spec_rounds", "spec_drafted",
+             "spec_accepted"), 0)
         self._queue_depth = 0
         self._max_occupancy = 0
         self._pages = (0, 0, 0)           # in_use, free, total
@@ -98,6 +101,19 @@ class ServingMetrics:
                 self._add_locked("prefix_hits", 1)
                 self._add_locked("prefix_tokens_saved", tokens_saved)
 
+    def record_decode_round(self, emitted: int, drafted: int = 0,
+                            accepted: int = 0) -> None:
+        """One decode-phase lane-dispatch of the paged pool: `emitted`
+        tokens committed (1 + accepted with speculation, else 1), and the
+        round's drafted / accepted counts when drafts were verified."""
+        with self._lock:
+            self._add_locked("decode_rounds", 1)
+            self._add_locked("decode_tokens", emitted)
+            if drafted > 0:
+                self._add_locked("spec_rounds", 1)
+                self._add_locked("spec_drafted", drafted)
+                self._add_locked("spec_accepted", accepted)
+
     def set_pages(self, in_use: int, free: int, total: int) -> None:
         with self._lock:
             self._pages = (int(in_use), int(free), int(total))
@@ -136,6 +152,16 @@ class ServingMetrics:
             out["prefix_tokens_saved"] = c["prefix_tokens_saved"]
             out["prefix_hit_rate"] = round(
                 c["prefix_hits"] / c["prefix_queries"], 3)
+        if c["decode_rounds"]:
+            out["decode_rounds"] = c["decode_rounds"]
+            out["tokens_per_decode_round"] = round(
+                c["decode_tokens"] / c["decode_rounds"], 3)
+        if c["spec_drafted"]:
+            out["spec_rounds"] = c["spec_rounds"]
+            out["spec_drafted"] = c["spec_drafted"]
+            out["spec_accepted"] = c["spec_accepted"]
+            out["spec_accept_rate"] = round(
+                c["spec_accepted"] / c["spec_drafted"], 3)
         if total:
             out["pages_in_use"] = in_use
             out["pages_free"] = free

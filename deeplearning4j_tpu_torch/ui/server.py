@@ -4,10 +4,13 @@
 Endpoints:
 
 - ``POST /lm/generate``  ``{"prompt_ids": [...], "max_new_tokens": N,
-  "temperature": t, "seed": s, "deadline_ms": ms}`` -> ``{"ids": [...]}``
-  (the ids include the prompt), decoded by the continuous paged pool.
-  ``top_k``, ``top_p`` and ``beam_size`` need the whole-sequence decode
-  path, which is not ported yet: such requests get a 400 saying so.
+  "temperature": t, "seed": s, "deadline_ms": ms, "top_k": k, "top_p": p,
+  "beam_size": n, "speculate": bool}`` -> ``{"ids": [...]}`` (the ids
+  include the prompt).  Greedy and temperature-only requests share the
+  continuous pool; ``beam_size > 1`` runs `beam_search` and answers
+  ``{"ids", "score"}``; ``top_k > 0`` or ``top_p < 1`` runs the
+  whole-sequence `generate`, seeded from ``seed``.  ``speculate: true``
+  is a 400 unless the pool speculates.
 - ``GET /serving/stats``  the pool's metrics snapshot.
 - ``GET /healthz``        liveness: 200 while the process serves HTTP.
 - ``GET /readyz``         readiness: 200 only while the pool admits.
@@ -25,6 +28,10 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Optional
 
+from deeplearning4j_tpu_torch.parallel.generation import (
+    beam_search,
+    generate,
+)
 from deeplearning4j_tpu_torch.serving.lm import (
     ContinuousLMServer,
     validate_request,
@@ -141,13 +148,29 @@ class _Handler(BaseHTTPRequestHandler):
         max_new = int(body.get("max_new_tokens", 32))
         temperature = float(body.get("temperature", 0.0))
         seed = int(body.get("seed", 0)) & 0x7FFFFFFF
-        if (int(body.get("top_k", 0)) > 0
-                or float(body.get("top_p", 1.0)) < 1.0
-                or int(body.get("beam_size", 0)) > 1):
-            raise ValueError(
-                "top_k/top_p/beam_size need the whole-sequence decode "
-                "path, which is not yet ported; use temperature "
-                "sampling or greedy decode")
+        beams = int(body.get("beam_size", 0))
+        top_k = int(body.get("top_k", 0))
+        top_p = float(body.get("top_p", 1.0))
+        if temperature < 0:
+            raise ValueError(f"temperature must be >= 0, got {temperature}")
+        if top_k < 0:
+            raise ValueError(f"top_k must be >= 0, got {top_k}")
+        if not 0.0 < top_p <= 1.0:
+            raise ValueError(f"top_p must be in (0, 1], got {top_p}")
+        if bool(body.get("speculate", False)):
+            # a client asking for speculation on a pool that cannot give
+            # it gets a 400 naming why, not a different plan in silence;
+            # a sampled request on a speculating pool is not an error
+            if lm_server.kv != "paged":
+                raise ValueError(
+                    "speculate requested but the pool serves kv='dense': "
+                    "speculative rollback requires the paged KV plane "
+                    "(serve with -lm-kv paged)")
+            if lm_server.speculate == "off":
+                raise ValueError(
+                    "speculate requested but the pool was started with "
+                    "speculation off (serve with -lm-speculate "
+                    "ngram|model)")
         deadline_s = None
         if body.get("deadline_ms") is not None:
             ms = float(body["deadline_ms"])
@@ -163,9 +186,23 @@ class _Handler(BaseHTTPRequestHandler):
                 payload["max_len"] = lm_server.cfg.max_len
             self._json(400, payload)
             return
-        out = lm_server.generate(ids, max_new, temperature=temperature,
-                                 seed=seed, deadline_s=deadline_s)
-        self._json(200, {"ids": out})
+        cfg, params, dev = lm_server.cfg, lm_server.params, lm_server.device
+        if beams > 1:
+            toks, scores = beam_search(cfg, params, [ids], max_new,
+                                       beam_size=beams, device=dev)
+            self._json(200, {"ids": toks[0].tolist(),
+                             "score": float(scores[0])})
+        elif top_k > 0 or top_p < 1.0:
+            toks = generate(cfg, params, [ids], max_new,
+                            temperature=temperature, seed=seed, top_k=top_k,
+                            top_p=top_p, device=dev)
+            self._json(200, {"ids": toks[0].tolist()})
+        else:
+            # the continuous pool: the request shares its dispatches with
+            # whatever else is decoding
+            out = lm_server.generate(ids, max_new, temperature=temperature,
+                                     seed=seed, deadline_s=deadline_s)
+            self._json(200, {"ids": out})
 
 
 class UiServer:
@@ -190,15 +227,19 @@ class UiServer:
     def serve_lm(self, cfg, params, slots: int = 4,
                  max_queue_depth: Optional[int] = None,
                  default_deadline_s: Optional[float] = None,
-                 page_size: int = 16, pages: Optional[int] = None,
-                 prefill_chunk: int = 8, device=None) -> "UiServer":
+                 kv: str = "paged", page_size: int = 16,
+                 pages: Optional[int] = None, prefill_chunk: int = 8,
+                 speculate: str = "off", draft_len: int = 4,
+                 device=None) -> "UiServer":
         """Register a transformer LM for ``POST /lm/generate``, decoded by
-        a `slots`-lane continuous pool over a paged KV cache on `device`
-        (None = the card)."""
+        a `slots`-lane continuous pool over a paged or dense KV cache on
+        `device` (None = the card), speculating when `speculate` is
+        "ngram" or "model"."""
         lm_server = ContinuousLMServer(
             cfg, params, slots=slots, max_queue_depth=max_queue_depth,
-            default_deadline_s=default_deadline_s, page_size=page_size,
-            pages=pages, prefill_chunk=prefill_chunk, device=device)
+            default_deadline_s=default_deadline_s, kv=kv,
+            page_size=page_size, pages=pages, prefill_chunk=prefill_chunk,
+            speculate=speculate, draft_len=draft_len, device=device)
         with self.state.lock:
             old = self.state.lm_server
             self.state.lm_server = lm_server

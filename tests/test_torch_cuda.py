@@ -3,8 +3,10 @@ attention with its page split, head dims up to 512; the flash-attention
 forward and its two backward kernels on the tensor cores, the FMA pipes
 and the D-chunked route up to head dim 512; the fused LSTM scan on its
 cluster and wide routes, any batch) and the serving (``prefill_chunk`` up
-to 128 and beyond), LM-training and `MultiLayerNetwork` paths that launch
-them.
+to 128 and beyond; the speculating pool, whose verify round runs on the
+paged kernel; the dense pool; whole-sequence `generate` and
+`beam_search`, prefilled through the flash forward), LM-training and
+`MultiLayerNetwork` paths that launch them.
 
 Every test carries the ``cuda`` marker and decides inside the test
 whether a card is present, skipping with a reason when not (the kernels
@@ -14,6 +16,7 @@ JAX, so on a machine with a card and without JAX it runs as
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import dataclasses
 import math
 
 import numpy as np
@@ -206,6 +209,212 @@ def test_prefill_chunk_128_server_on_the_card_matches_the_checker():
         if float(top2.values[p - 1, 0] - top2.values[p - 1, 1]) < 1e-3:
             break
         assert int(top2.indices[p - 1, 0]) == seq[p]
+
+
+# ---------------------------------------------------------------------------
+# the other decode modes: speculation (verify on kernel B1 at the spec
+# width), the dense slot pool, whole-sequence generate and beam search
+
+# a served greedy token's fp32 logit lies within this of the position's
+# largest under the plain fp32 recompute in float32; in bfloat16 within
+# twice the bf16 logit error the plain bf16 recompute shows there (the
+# argmax of logits within e of the fp32 ones lies within 2e of the largest)
+F32_TIE = 1e-3
+
+
+def _decode_cfg(dtype="float32", max_len=160):
+    return tt.TransformerConfig(vocab_size=512, d_model=128, n_heads=2,
+                                n_layers=2, d_ff=256, max_len=max_len,
+                                attn_bias=True, tie_embeddings=True,
+                                dtype=dtype)
+
+
+def _decode_prompts():
+    rng = np.random.default_rng(4)
+    motif = rng.integers(0, 512, 9).tolist()
+    return [motif * 4, rng.integers(0, 512, 23).tolist(), motif * 2 + [5],
+            rng.integers(0, 512, 40).tolist()]
+
+
+def _check_greedy(cfg, params, prompt, seq):
+    """Teacher-forced on the served ids: every generated token's fp32
+    logit within the limit above of the largest; returns the exact
+    count."""
+    p32 = tt.map_tree(lambda t: t.float(), params)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    ids = torch.tensor([seq], device="cuda")
+    p, n = len(prompt), len(seq)
+    with torch.no_grad():
+        rows = tt._forward(cfg32, p32, ids, tt.attention)[0, p - 1:n - 1]
+        if cfg.dtype == "bfloat16":
+            low = tt._forward(cfg, params, ids, tt.attention)[0, p - 1:n - 1]
+            limit = 2 * (low.float() - rows).abs().amax(-1)
+        else:
+            limit = torch.full((n - p,), F32_TIE, device="cuda")
+    gen = torch.tensor(seq[p:], device="cuda")
+    deficit = rows.max(-1).values - rows.gather(1, gen[:, None])[:, 0]
+    assert bool((deficit <= limit).all()), (deficit - limit).max()
+    return int((deficit == 0).sum())
+
+
+@pytest.mark.parametrize("dtype,chunk", [("float32", 4),
+                                         ("bfloat16", 16)])
+def test_speculating_server_on_the_card_matches_the_checker(dtype, chunk):
+    """n-gram speculation (draft_len 4; verify width 5 on the FMA route
+    in f32, 16 on `mma.sync` in bf16): greedy ids by the checker rule and
+    against the same pool without speculation, and one kernel launch per
+    layer and dispatch, at both widths."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _decode_cfg(dtype)
+    params = tt.params_from_numpy(tt.numpy_params(cfg, seed=0),
+                                  device="cuda", dtype=dtype)
+    prompts = _decode_prompts()
+    outs, stats = {}, {}
+    for mode in ("ngram", "off"):
+        srv = ContinuousLMServer(cfg, params, slots=3, page_size=8,
+                                 prefill_chunk=chunk, speculate=mode,
+                                 draft_len=4, device=None)
+        try:
+            srv.warmup()
+            tpk.paged_flash_attention.launches.reset()
+            outs[mode] = [srv.generate(p, 24, timeout=120) for p in prompts]
+            launches = tpk.paged_flash_attention.launches.value
+            by_width = tpk.paged_flash_attention.launches.by_key()
+            stats[mode] = srv.stats()
+            assert srv.page_ledger()["balanced"]
+        finally:
+            srv.stop()
+        assert launches == cfg.n_layers * stats[mode]["dispatches"] > 0
+        assert by_width == {int(w): cfg.n_layers * n for w, n in
+                            stats[mode]["dispatch_widths"].items()}
+    spec = stats["ngram"]
+    assert spec["dispatch_widths"][str(max(chunk, 5))] > 0
+    assert spec["spec_accepted"] > 0
+    for prompt, seq in zip(prompts, outs["ngram"]):
+        _check_greedy(cfg, params, prompt, seq)
+    if dtype == "float32":
+        assert outs["ngram"] == outs["off"]
+
+
+def test_verify_dispatch_on_the_card_never_takes_the_plain_paged_path(
+        monkeypatch):
+    _need_card()
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the plain paged version ran for a CUDA pool")
+
+    monkeypatch.setattr(tpk, "paged_flash_attention_plain", refuse)
+    cfg = _decode_cfg("bfloat16")
+    params = tt.params_from_numpy(tt.numpy_params(cfg, seed=1),
+                                  device="cuda", dtype="bfloat16")
+    srv = ContinuousLMServer(cfg, params, slots=2, page_size=8,
+                             prefill_chunk=16, speculate="model",
+                             draft_len=4, device=None)
+    try:
+        before = tpk.paged_flash_attention.launches.value
+        out = srv.generate(_decode_prompts()[0], 16, timeout=120)
+        st = srv.stats()
+    finally:
+        srv.stop()
+    assert len(out) == 36 + 16 and st["spec_drafted"] > 0
+    assert (tpk.paged_flash_attention.launches.value - before
+            == cfg.n_layers * st["dispatches"])
+
+
+def test_self_drafting_on_the_card_accepts_every_draft():
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _decode_cfg("float32")
+    params = tt.params_from_numpy(tt.numpy_params(cfg, seed=2),
+                                  device="cuda")
+    srv = ContinuousLMServer(cfg, params, slots=2, page_size=8,
+                             prefill_chunk=4, speculate="model",
+                             draft_len=3, device=None)
+    try:
+        for p in _decode_prompts()[:2]:
+            srv.generate(p, 20, timeout=120)
+        st = srv.stats()
+    finally:
+        srv.stop()
+    assert st["spec_accepted"] == st["spec_drafted"] > 0
+
+
+def test_dense_pool_on_the_card_matches_the_checker():
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _decode_cfg("float32")
+    params = tt.params_from_numpy(tt.numpy_params(cfg, seed=3),
+                                  device="cuda")
+    srv = ContinuousLMServer(cfg, params, slots=3, kv="dense", device=None)
+    prompts = _decode_prompts()
+    try:
+        before = tpk.paged_flash_attention.launches.value
+        outs = [srv.generate(p, 16, timeout=120) for p in prompts]
+        assert tpk.paged_flash_attention.launches.value == before
+        assert srv.stats()["kv"] == {"mode": "dense"}
+    finally:
+        srv.stop()
+    for prompt, seq in zip(prompts, outs):
+        _check_greedy(cfg, params, prompt, seq)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_generate_prefill_launches_the_flash_forward_once_per_layer(dtype):
+    """One causal forward prefills the prompt (n_layers launches of B2);
+    the decode steps launch no hand kernel; greedy ids by the checker
+    rule; top-k 1 takes a largest logit at every step (replayed through
+    the same steps), which is greedy up to a bf16 tie."""
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from deeplearning4j_tpu_torch.parallel import generation as tgen
+
+    cfg = _decode_cfg(dtype)
+    params = tt.params_from_numpy(tt.numpy_params(cfg, seed=4),
+                                  device="cuda", dtype=dtype)
+    prompt = np.random.default_rng(5).integers(0, 512, (3, 50))
+    flash0 = tk.flash_forward.launches.value
+    paged0 = tpk.paged_flash_attention.launches.value
+    out = tgen.generate(cfg, params, prompt, 20, device=None)
+    assert tk.flash_forward.launches.value - flash0 == cfg.n_layers
+    assert tpk.paged_flash_attention.launches.value == paged0
+    assert out.device.type == "cuda" and out.shape == (3, 70)
+    for b in range(3):
+        _check_greedy(cfg, params, prompt[b].tolist(), out[b].tolist())
+    k1 = tgen.generate(cfg, params, prompt, 20, temperature=2.0, seed=3,
+                       top_k=1)
+    with torch.no_grad():
+        cache, logits = tgen._prefill(cfg, params, torch.tensor(
+            prompt, device="cuda"))
+        for t in range(20):
+            tok = k1[:, 50 + t].long()
+            assert bool((logits.gather(1, tok[:, None])[:, 0]
+                         == logits.max(-1).values).all())
+            logits, cache = tgen.decode_step(cfg, params, cache, tok)
+    if dtype == "float32":
+        assert k1.tolist() == out.tolist()
+
+
+def test_beam_search_on_the_card_scores_its_teacher_forced_log_prob():
+    _need_card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from deeplearning4j_tpu_torch.parallel import generation as tgen
+
+    cfg = _decode_cfg("float32")
+    params = tt.params_from_numpy(tt.numpy_params(cfg, seed=5),
+                                  device="cuda")
+    prompt = np.random.default_rng(6).integers(0, 512, (2, 30))
+    flash0 = tk.flash_forward.launches.value
+    toks, scores = tgen.beam_search(cfg, params, prompt, 10, beam_size=4)
+    assert tk.flash_forward.launches.value - flash0 == cfg.n_layers
+    with torch.no_grad():
+        logp = torch.log_softmax(tt._forward(cfg, params, toks.long(),
+                                             tt.attention), dim=-1)
+    for b in range(2):
+        tf = sum(float(logp[b, t - 1, toks[b, t]]) for t in range(30, 40))
+        assert abs(tf - float(scores[b])) <= 1e-3 * abs(tf)
+    one, _ = tgen.beam_search(cfg, params, prompt, 10, beam_size=1)
+    assert one.tolist() == tgen.generate(cfg, params, prompt, 10).tolist()
 
 
 # ---------------------------------------------------------------------------

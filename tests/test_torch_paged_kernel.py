@@ -381,3 +381,14 @@ def test_plain_matches_jax_kernel_at_a_128_column_chunk():
                                      interpret=True)
     got = tpk.paged_flash_attention_plain(*_t(q, kp, vp, table, pos, nf))
     _assert_fed(got.numpy(), want, nf)
+
+
+def test_launch_counter_counts_by_key():
+    """The paged wrapper keys its launches by query width: the total and
+    the per-key counts both reset to nothing."""
+    counter = tkernels.LaunchCounter()
+    for key in (1, 16, 16, None):
+        counter.add(key=key)
+    assert counter.value == 4 and counter.by_key() == {1: 1, 16: 2}
+    counter.reset()
+    assert counter.value == 0 and counter.by_key() == {}

@@ -518,9 +518,15 @@ def test_http_generate_matches_in_process_generate(ui):
 
 HTTP_400 = {
     "oversize": ({"prompt_ids": [1] * 35, "max_new_tokens": 10}, "max_len"),
-    "top_k": ({"prompt_ids": [1, 2], "top_k": 5}, "not yet ported"),
-    "top_p": ({"prompt_ids": [1, 2], "top_p": 0.9}, "not yet ported"),
-    "beam": ({"prompt_ids": [1, 2], "beam_size": 3}, "not yet ported"),
+    "top_k_negative": ({"prompt_ids": [1, 2], "top_k": -1},
+                       "top_k must be >= 0"),
+    "top_p_zero": ({"prompt_ids": [1, 2], "top_p": 0}, "top_p must be in"),
+    "top_p_above_one": ({"prompt_ids": [1, 2], "top_p": 1.5},
+                        "top_p must be in"),
+    "speculate_not_speculating": ({"prompt_ids": [1, 2],
+                                   "speculate": True}, "speculation off"),
+    "beam_oversize": ({"prompt_ids": [1] * 35, "max_new_tokens": 10,
+                       "beam_size": 2}, "max_len"),
     "no_prompt": ({"max_new_tokens": 3}, "prompt_ids"),
     "bad_deadline": ({"prompt_ids": [1], "deadline_ms": -5}, "deadline"),
 }
@@ -533,6 +539,143 @@ def test_http_bad_requests_are_400(ui, name):
     assert code == 400 and match in body["error"]
     if name == "oversize":
         assert body["max_len"] == CFG.max_len
+
+
+# the three requests the first slice refused ("not yet ported"), now
+# served by the whole-sequence functions
+HTTP_WHOLE_SEQUENCE = {
+    "top_k": {"top_k": 5, "temperature": 0.9, "seed": 3},
+    "top_p": {"top_p": 0.9, "temperature": 0.7, "seed": 4},
+    "beam": {"beam_size": 3},
+}
+
+
+@pytest.mark.parametrize("name", sorted(HTTP_WHOLE_SEQUENCE))
+def test_http_whole_sequence_requests(ui, name):
+    knobs = HTTP_WHOLE_SEQUENCE[name]
+    prompt = _prompts()[1]
+    code, body = _post(ui.url + "/lm/generate",
+                       {"prompt_ids": prompt, "max_new_tokens": 6, **knobs})
+    assert code == 200, body
+    if name == "beam":
+        toks, score = tgen.beam_search(CFG, _params(), [prompt], 6,
+                                       beam_size=3, device="cpu")
+        assert body["score"] == pytest.approx(float(score[0]), abs=1e-6)
+    else:
+        toks = tgen.generate(CFG, _params(), [prompt], 6,
+                             temperature=knobs["temperature"],
+                             seed=knobs["seed"], top_k=knobs.get("top_k", 0),
+                             top_p=knobs.get("top_p", 1.0), device="cpu")
+        assert "score" not in body
+    assert body["ids"] == toks[0].tolist()
+    assert body["ids"][:len(prompt)] == prompt
+    # the pool served none of them
+    assert ui.state.lm_server.stats()["requests"] == 0
+
+
+def test_http_speculate_on_a_dense_pool_is_400_and_on_a_speculating_pool_200():
+    dense = UiServer(port=0).serve_lm(CFG, _params(), slots=1, kv="dense",
+                                      device="cpu").start()
+    spec = UiServer(port=0).serve_lm(CFG, _params(), slots=1, page_size=4,
+                                     prefill_chunk=4, speculate="ngram",
+                                     draft_len=3, device="cpu").start()
+    try:
+        payload = {"prompt_ids": [1, 2, 1, 2, 1], "max_new_tokens": 8,
+                   "speculate": True}
+        code, body = _post(dense.url + "/lm/generate", payload)
+        assert code == 400 and "dense" in body["error"]
+        code, body = _post(spec.url + "/lm/generate", payload)
+        assert code == 200
+        _assert_greedy_match(body["ids"], payload["prompt_ids"], 8)
+        code, stats = _get(spec.url + "/serving/stats")
+        assert stats["lm"]["speculate"]["mode"] == "ngram"
+        code, stats = _get(dense.url + "/serving/stats")
+        assert stats["lm"]["kv"] == {"mode": "dense"}
+    finally:
+        dense.stop()
+        spec.stop()
+
+
+# ---------------------------------------------------------------------------
+# the CLI: lm -generate / -beam over a model trained in the test, and the
+# serve flags of the dense and speculating pools
+
+
+@pytest.fixture(scope="module")
+def trained_lm(tmp_path_factory):
+    from deeplearning4j_tpu_torch import cli as tcli
+
+    out = tmp_path_factory.mktemp("lm")
+    corpus = out / "corpus.txt"
+    corpus.write_bytes(b"the port serves the kernel. " * 40)
+    rc = tcli.main(["lm", "-input", str(corpus), "-output", str(out / "m"),
+                    "-seq", "32", "-batch", "4", "-d-model", "32",
+                    "-layers", "2", "-heads", "4", "-device", "cpu"])
+    assert rc == 0
+    return out / "m"
+
+
+LM_GENERATE = {
+    "greedy": (["-temperature", "0"], None),
+    "sampled": (["-temperature", "0.9", "-top-k", "5", "-top-p", "0.9",
+                 "-gen-seed", "7"], None),
+    "beam": (["-beam", "2"], "beam[2] log-prob"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(LM_GENERATE))
+def test_cli_lm_generate_and_beam(trained_lm, capsys, name):
+    from deeplearning4j_tpu_torch import cli as tcli
+
+    flags, stderr = LM_GENERATE[name]
+    rc = tcli.main(["lm", "-output", str(trained_lm), "-generate", "the ",
+                    "-max-new", "12", *flags, "-device", "cpu"])
+    assert rc == 0
+    out = capsys.readouterr()
+    text = out.out.splitlines()[-1]
+    cfg, params = tcli.load_saved_lm(trained_lm, device="cpu")
+    prompt = np.frombuffer(b"the ", np.uint8)[None, :]
+    if name == "beam":
+        toks, score = tgen.beam_search(cfg, params, prompt, 12, beam_size=2,
+                                       device="cpu")
+        assert f"{float(score[0]):.3f}" in out.err and stderr in out.err
+    else:
+        kw = ({} if name == "greedy" else
+              dict(temperature=0.9, seed=7, top_k=5, top_p=0.9))
+        toks = tgen.generate(cfg, params, prompt, 12, device="cpu", **kw)
+    assert text == bytes(toks[0].numpy().astype(np.uint8)).decode(
+        errors="replace")
+
+
+def test_cli_lm_generate_refuses_a_prompt_past_the_context(trained_lm):
+    from deeplearning4j_tpu_torch import cli as tcli
+
+    with pytest.raises(SystemExit, match="exceeds the model's context"):
+        tcli.main(["lm", "-output", str(trained_lm), "-generate", "x" * 30,
+                   "-max-new", "8", "-device", "cpu"])
+
+
+@pytest.mark.parametrize("flags,note", [
+    (["-lm-kv", "dense"], "dense KV: 2 x 32 positions"),
+    (["-lm-speculate", "ngram", "-lm-draft-len", "3"],
+     "speculate ngram (draft_len 3)"),
+    (["-lm-speculate", "model"], "speculate model (draft_len 4)"),
+])
+def test_cli_serve_pool_flags(trained_lm, capsys, flags, note):
+    from deeplearning4j_tpu_torch import cli as tcli
+
+    rc = tcli.main(["serve", "-lm", str(trained_lm), "-port", "0",
+                    "-lm-slots", "2", "-serve-seconds", "0.01", *flags,
+                    "-device", "cpu"])
+    assert rc == 0 and note in capsys.readouterr().out
+
+
+def test_cli_serve_refuses_speculation_on_the_dense_pool(trained_lm):
+    from deeplearning4j_tpu_torch import cli as tcli
+
+    with pytest.raises(SystemExit, match="requires -lm-kv paged"):
+        tcli.main(["serve", "-lm", str(trained_lm), "-lm-kv", "dense",
+                   "-lm-speculate", "ngram", "-device", "cpu"])
 
 
 def test_http_health_readiness_and_drain(ui):

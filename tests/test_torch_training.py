@@ -418,8 +418,6 @@ def test_cli_lm_samples_the_same_batches_as_the_jax_cli(tmp_path,
 @pytest.mark.parametrize("flags,item", [
     (["-experts", "2"], "A2"),
     (["-runtime", "hybrid"], "A7"),
-    (["-generate", "hi"], "A4.2"),
-    (["-beam", "2"], "A4.2"),
 ])
 def test_cli_lm_refuses_unported_options(tmp_path, flags, item):
     corpus = _corpus(tmp_path)
