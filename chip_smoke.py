@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's LM serving and training paths and its
-char-LSTM `MultiLayerNetwork` on one NVIDIA GPU and check them.
+`MultiLayerNetwork` (the char-LSTM, the conv nets, DBN pretraining, the
+solvers and the training CLI) on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # every phase, from the repo root
 
@@ -94,6 +95,35 @@ Phases (any failure exits non-zero, and no result line is printed):
              plain bf16 recompute.  Paged launches = n_layers x
              dispatches at each width on every paged pool, none on the
              dense pool.
+11. mln    — `MultiLayerNetwork`'s conv nets, pretraining, solvers and
+             training CLI (no hand kernel on this path: float32
+             convolutions by im2col and one matmul, bf16 ones and the
+             pooling by cuDNN, plain ops): f32 loss and every
+             gradient of `lenet_mnist` and `alexnet_cifar10(dropout=0)`
+             at batch 8 on the card against the port's CPU run on the
+             same weights with TF32 off (relative 1e-4); the f32 step
+             time and gradient error of each other way to take the
+             convolutions (cuDNN, cuDNN off, `F.unfold`), reported; the
+             same two nets in bf16 compute against the port's CPU runs
+             (loss within 1e-3 of the CPU's bf16 loss; gradients no
+             further from the CPU's f32 gradients than twice the CPU's
+             bf16 ones, in relative L2 norm); `rbm_apply` /
+             `rbm_pretrain_loss` card vs CPU (1e-5); LBFGS and CG on
+             `iris_mlp` over a seeded 150 x 4 three-class CSV, the
+             objective at every iteration card vs CPU (relative 1e-4),
+             falling, then `fit`; ``python -m deeplearning4j_tpu_torch.cli
+             train | test | predict`` on that CSV (exit codes 0, training
+             accuracy >= 0.9, the predictions file = the saved model's
+             `predict`); `lenet_mnist(updater="sgd")` in bfloat16 at batch
+             256 (the bench.py recipe: 5 warm-up and 100 timed `fit_batch`
+             steps over `synthetic_mnist`; step ms, examples/s, peak
+             memory, TFLOP/s by bench.py's flop count) and
+             `alexnet_cifar10` bf16 at batch 128 (3 + 20 steps over
+             `synthetic_cifar10`), every step's loss finite and the
+             loss of the staged batches without dropout falling over the
+             steps; `dbn_mnist` `fit` (1 epoch of greedy
+             pretraining, then SGD) over 6000 binarized synthetic images
+             at batch 100, each RBM's reconstruction error falling.
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device time per
 call (`device_ms`: the calls are queued behind a spin kernel, so they run
@@ -104,9 +134,9 @@ which for a fast kernel measures the host's launch path instead.
 Prints the ``kernels`` JSON line, then the ``nvidia-smi`` card line, then
 ``{"ok": true, "device": {...}}`` as the last line.  ``--only`` runs a
 subset of phases (facts and build always run), e.g. ``--only
-lstm,rnn``; ``--profile`` traces the serve phase's load, the train
-and rnn phases' timed steps and the decode phase's speculating and plain
-pools with ``torch.profiler`` and adds device time
+lstm,rnn``; ``--profile`` traces the serve phase's load, the train,
+rnn and mln phases' timed steps and the decode phase's speculating and
+plain pools with ``torch.profiler`` and adds device time
 by kernel group and the device's idle share to their lines.
 """
 
@@ -129,7 +159,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_OPS = {"float32": 67e12,      # fp32 outside the tensor cores
             "bfloat16": 989e12}    # bf16 dense tensor-core peak
 PHASES = ("kernel", "flash", "serve", "parity", "train", "lstm", "rnn",
-          "decode")
+          "decode", "mln")
 # what the times of the kernels line measure
 TIMING_NOTE = {
     "ms": "device time per call: calls queued behind a spin kernel, run "
@@ -2153,6 +2183,541 @@ def rnn_phase(card: str, profile: bool = False) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: MultiLayerNetwork's conv nets, pretraining, solvers and CLI
+
+
+MLN_LENET_B, MLN_LENET_WARMUP, MLN_LENET_STEPS = 256, 5, 100
+MLN_ALEX_B, MLN_ALEX_WARMUP, MLN_ALEX_STEPS = 128, 3, 20
+MLN_DBN_N, MLN_DBN_B = 6000, 100
+MLN_PARITY_B = 8
+MLN_ROUTE_WARMUP, MLN_ROUTE_STEPS = 3, 20
+MLN_BF16_LOSS_TOL, MLN_BF16_GRAD_RATIO = 1e-3, 2.0
+MLN_SOLVER_ITERS = 10
+
+
+def lenet_train_flops_per_example() -> float:
+    """`bench.py`'s count (`_lenet_train_flops_per_example`): matmul and
+    conv FLOPs of one LeNet training example, forward 2 x MACs, training
+    3 x forward."""
+    fwd = (2 * (28 * 28 * 6 * 5 * 5 * 1) + 2 * (10 * 10 * 16 * 5 * 5 * 6)
+           + 2 * (400 * 120) + 2 * (120 * 84) + 2 * (84 * 10))
+    return 3.0 * fwd
+
+
+def staged_batches(ds, batch: int, n_batches: int):
+    """`n_batches` consecutive batches of a DataSet as tensors on the
+    card, staged once."""
+    import torch
+
+    return [(torch.from_numpy(ds.features[i * batch:(i + 1) * batch]).cuda(),
+             torch.from_numpy(ds.labels[i * batch:(i + 1) * batch]).cuda())
+            for i in range(n_batches)]
+
+
+def timed_fit(net, batches, warmup: int, steps: int,
+              profile: bool = False) -> dict:
+    """`warmup` then `steps` timed `fit_batch` calls cycling over
+    `batches` (each waits for its step); step ms, peak memory, losses.
+    Checks that every step's loss is finite and that the loss of the
+    staged batches without dropout (`score`, before the first step and
+    after the last) falls: the step losses of AlexNet's dropout-0.5 steps
+    fall by about as much as they scatter."""
+    import torch
+
+    def staged_score():
+        return float(np.mean([net.score(x, y) for x, y in batches]))
+
+    score_before = staged_score()
+    losses = [net.fit_batch(*batches[i % len(batches)])
+              for i in range(warmup)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prof = None
+    if profile:
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+        prof.__enter__()
+    step_ms = []
+    t0 = time.perf_counter()
+    for i in range(steps):
+        ts = time.perf_counter()
+        losses.append(net.fit_batch(*batches[(warmup + i) % len(batches)]))
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+    wall = time.perf_counter() - t0
+    if prof is not None:
+        prof.__exit__(None, None, None)
+    batch = int(batches[0][0].shape[0])
+    out = {"batch": batch, "warmup_steps": warmup, "steps": steps,
+           "losses": losses, "step_ms": step_ms,
+           "step_ms_mean": wall * 1e3 / steps, "step_ms_min": min(step_ms),
+           "step_ms_max": max(step_ms),
+           "examples_per_s": batch * steps / wall,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    if prof is not None:
+        out["profile"] = device_breakdown(prof, wall, steps)
+    out["score_before"], out["score_after"] = score_before, staged_score()
+    head, tail = losses[:10], losses[-10:]
+    out["losses_head_mean"], out["losses_tail_mean"] = (float(np.mean(head)),
+                                                        float(np.mean(tail)))
+    if not all(math.isfinite(v) for v in losses) or \
+            not out["score_after"] < out["score_before"]:
+        raise AssertionError(f"mln: losses not finite, or the staged "
+                             f"batches' loss did not fall: {out}")
+    dtypes = {str(p.dtype) for _, p in net._param_leaves()}
+    if dtypes != {"torch.float32"}:
+        raise AssertionError(f"mln: masters are {dtypes} after training")
+    return out
+
+
+def conv_loss_and_grads(conf, shape, dtype: str = "float32") -> dict:
+    """The loss and the sorted gradients of `conf` (compute in `dtype`)
+    on one seeded batch: the port's CPU run and its card run on the same
+    weights, and (`cpu_f32`) the CPU run of the same net in float32."""
+    import dataclasses
+
+    import torch
+
+    from deeplearning4j_tpu_torch.models import (
+        MultiLayerNetwork,
+        params_from_numpy,
+    )
+
+    rng = np.random.default_rng(0)
+    x = rng.random(shape, dtype=np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, shape[0])]
+    f32 = dataclasses.replace(conf, conf=dataclasses.replace(
+        conf.conf, compute_dtype="float32"))
+    cpu = MultiLayerNetwork(conf, device="cpu").init()
+    nets = {"cpu": cpu, "card": MultiLayerNetwork(conf).init()}
+    if dtype != "float32":
+        nets["cpu_f32"] = MultiLayerNetwork(f32, device="cpu").init()
+    got = {}
+    for name, net in nets.items():
+        net.params = params_from_numpy(net, cpu.params_flat())
+        xs, ys = (torch.from_numpy(a).to(net.device) for a in (x, y))
+        loss, _ = net._objective(net.params, net.state, xs, ys, None)
+        got[name] = (loss.item(), [(n, g.detach().float().cpu()) for n, g
+                                   in sorted_grads(net._grads(loss))])
+    return got
+
+
+def grads_l2_err(got, want) -> float:
+    """||got - want|| / ||want|| over every gradient leaf at once."""
+    import torch
+
+    g = torch.cat([t.double().ravel() for _, t in got])
+    w = torch.cat([t.double().ravel() for _, t in want])
+    return float((g - w).norm() / w.norm())
+
+
+def conv_grad_parity(conf, shape) -> dict:
+    """float32 with TF32 off: the loss and every gradient of `conf` on the
+    card against the port's CPU run on the same weights and batch, each
+    within 1e-4 relative max error."""
+    got = conv_loss_and_grads(conf, shape)
+    errs = {n: rel_err(g, w) for (n, g), (_, w) in
+            zip(got["card"][1], got["cpu"][1])}
+    loss_err = abs(got["card"][0] - got["cpu"][0]) / abs(got["cpu"][0])
+    report = {"batch": shape[0], "loss_card": got["card"][0],
+              "loss_cpu": got["cpu"][0], "loss_rel_err": loss_err,
+              "grad_rel_err": errs}
+    if not loss_err <= 1e-4 or not all(
+            math.isfinite(e) and e <= 1e-4 for e in errs.values()):
+        raise AssertionError(f"mln: f32 card vs CPU disagree: {report}")
+    return report
+
+
+def conv_bf16_parity(conf, shape) -> dict:
+    """bfloat16 compute (cuDNN's convolutions on the card) against the
+    port's CPU runs on the same weights and batch: the loss within
+    `MLN_BF16_LOSS_TOL` relative of the CPU's bf16 loss, and the card's
+    gradients no further from the CPU's float32 gradients (relative L2
+    norm over every leaf at once) than `MLN_BF16_GRAD_RATIO` times the
+    CPU's bf16 gradients are.  The CPU's bf16 run is the one the CPU tests
+    hold to the JAX package's."""
+    got = conv_loss_and_grads(conf, shape, "bfloat16")
+    card, cpu, f32 = got["card"], got["cpu"], got["cpu_f32"]
+    report = {"batch": shape[0], "loss_card": card[0], "loss_cpu": cpu[0],
+              "loss_rel_err": abs(card[0] - cpu[0]) / abs(cpu[0]),
+              "grad_l2_err": grads_l2_err(card[1], cpu[1]),
+              "grad_l2_err_vs_f32": grads_l2_err(card[1], f32[1]),
+              "cpu_grad_l2_err_vs_f32": grads_l2_err(cpu[1], f32[1])}
+    if not (report["loss_rel_err"] <= MLN_BF16_LOSS_TOL
+            and report["grad_l2_err_vs_f32"] <= MLN_BF16_GRAD_RATIO
+            * report["cpu_grad_l2_err_vs_f32"]):
+        raise AssertionError(f"mln: bf16 card vs CPU disagree: {report}")
+    return report
+
+
+class cudnn_enabled:
+    """`torch.backends.cudnn.enabled` set to `flag` inside the block (unlike
+    `torch.backends.cudnn.flags`, no other cuDNN setting is touched)."""
+
+    def __init__(self, flag: bool):
+        self.flag = flag
+
+    def __enter__(self):
+        import torch
+
+        self.was = torch.backends.cudnn.enabled
+        torch.backends.cudnn.enabled = self.flag
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.backends.cudnn.enabled = self.was
+
+
+def conv_f32_routes() -> dict:
+    """The ways other than the port's (`convolution.im2col_conv`, im2col
+    by a strided view of the NHWC input) to take a float32 convolution on
+    the card, each as ``(conv, cudnn_enabled)`` with the signature of the
+    port's `convolution._conv_nhwc` (the padded NCHW view, the HWIO
+    kernel, the stride; NHWC out): `F.conv2d` with cuDNN ("cudnn") and
+    without it ("native": PyTorch's own im2col and GEMM, one sample at a
+    time), and im2col by `F.unfold` with one matmul
+    ("im2col_unfold")."""
+    import torch.nn.functional as F
+
+    def conv2d(xc, w, stride):
+        return F.conv2d(xc, w.permute(3, 2, 0, 1),
+                        stride=stride).permute(0, 2, 3, 1)
+
+    def unfold(xc, w, stride):
+        kh, kw, cin, cout = w.shape
+        oh = (xc.shape[2] - kh) // stride[0] + 1
+        ow = (xc.shape[3] - kw) // stride[1] + 1
+        cols = F.unfold(xc, (kh, kw), stride=stride)
+        w_mat = w.permute(2, 0, 1, 3).reshape(cin * kh * kw, cout)
+        return (cols.transpose(1, 2) @ w_mat).reshape(xc.shape[0], oh, ow,
+                                                      cout)
+
+    return {"cudnn": (conv2d, True), "native": (conv2d, False),
+            "im2col_unfold": (unfold, True)}
+
+
+def conv_route_report(card: str) -> dict:
+    """float32 with TF32 off, for the port's own route and each of
+    `conv_f32_routes` on the card (the CPU keeps the port's route):
+    the training step of LeNet-5 (batch 256) and AlexNet-CIFAR10 (batch
+    128) in ms, and the worst gradient error against the port's CPU run
+    at batch 8.  Reported, not checked: the port's route is held by
+    `conv_grad_parity`."""
+    from deeplearning4j_tpu_torch.datasets.fetchers import (
+        synthetic_cifar10,
+        synthetic_mnist,
+    )
+    from deeplearning4j_tpu_torch.models import (
+        MultiLayerNetwork,
+        alexnet_cifar10,
+        lenet_mnist,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import convolution
+
+    port = convolution._conv_nhwc
+    routes = {"port": (port, True), **conv_f32_routes()}
+    nets = {"lenet": (lenet_mnist(updater="sgd"), lenet_mnist(updater="sgd"),
+                      (MLN_PARITY_B, 28, 28, 1),
+                      staged_batches(synthetic_mnist(MLN_LENET_B * 2),
+                                     MLN_LENET_B, 2)),
+            "alexnet": (alexnet_cifar10(), alexnet_cifar10(dropout=0.0),
+                        (MLN_PARITY_B, 32, 32, 3),
+                        staged_batches(synthetic_cifar10(MLN_ALEX_B * 2),
+                                       MLN_ALEX_B, 2))}
+    out = {}
+    for name, (conf, parity_conf, shape, batches) in nets.items():
+        for route, (fn, cudnn_on) in routes.items():
+            convolution._conv_nhwc = (
+                lambda xc, w, stride, fn=fn: (fn if xc.is_cuda else port)(
+                    xc, w, stride))
+            try:
+                with cudnn_enabled(cudnn_on):
+                    got = conv_loss_and_grads(parity_conf, shape)
+                    net = MultiLayerNetwork(conf).init()
+                    for i in range(MLN_ROUTE_WARMUP):
+                        net.fit_batch(*batches[i % 2])
+                    t0 = time.perf_counter()
+                    for i in range(MLN_ROUTE_STEPS):
+                        net.fit_batch(*batches[i % 2])
+                    step_ms = (time.perf_counter() - t0) * 1e3 / \
+                        MLN_ROUTE_STEPS
+            finally:
+                convolution._conv_nhwc = port
+            errs = {n: rel_err(g, w) for (n, g), (_, w) in
+                    zip(got["card"][1], got["cpu"][1])}
+            worst = max(errs, key=errs.get)
+            out[f"{name}/{route}"] = {"step_ms": step_ms,
+                                      "worst_grad": worst,
+                                      "worst_grad_rel_err": errs[worst]}
+            log(f"mln: f32 {name} conv route {route}: step "
+                f"{step_ms:.3f} ms, worst gradient {worst} "
+                f"{errs[worst]:.3g} ({card})")
+            del net
+    return out
+
+
+def rbm_card_parity() -> dict:
+    """`rbm_apply` and `rbm_pretrain_loss` of dbn_mnist's first RBM on the
+    card against the CPU on the same weights (f32, TF32 off)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import dbn_mnist
+    from deeplearning4j_tpu_torch.nn.layers import pretrain
+
+    lc = dbn_mnist().layers[0]
+    params, _ = pretrain.rbm_init(lc, torch.Generator().manual_seed(1))
+    x = torch.from_numpy((np.random.default_rng(1).random(
+        (MLN_DBN_B, lc.n_in)) > 0.5).astype(np.float32))
+    card = {k: v.cuda() for k, v in params.items()}
+    h_cpu, _ = pretrain.rbm_apply(lc, params, {}, x)
+    h_card, _ = pretrain.rbm_apply(lc, card, {}, x.cuda())
+    l_cpu = pretrain.rbm_pretrain_loss(lc, params, x).item()
+    l_card = pretrain.rbm_pretrain_loss(lc, card, x.cuda()).item()
+    report = {"apply_max_abs_err": float((h_card.cpu() - h_cpu).abs().max()),
+              "loss_abs_err": abs(l_card - l_cpu), "loss_cpu": l_cpu}
+    if not (report["apply_max_abs_err"] <= 1e-5
+            and report["loss_abs_err"] <= 1e-5 * max(1.0, abs(l_cpu))):
+        raise AssertionError(f"mln: RBM card vs CPU: {report}")
+    return report
+
+
+def iris_like_csv(path: str, n: int = 150) -> tuple:
+    """A seeded, separable Iris-shaped CSV: 4 features, 3 classes, the
+    class index last."""
+    rng = np.random.default_rng(0)
+    labels = np.arange(n) % 3
+    x = (rng.standard_normal((n, 4)) * 0.3 + labels[:, None] * 2.0).astype(
+        np.float32)
+    np.savetxt(path, np.column_stack([x, labels]), delimiter=",", fmt="%.5f")
+    return x, labels
+
+
+def solver_phase(x: np.ndarray, labels: np.ndarray) -> dict:
+    """LBFGS and CG on `iris_mlp`, full batch: the objective after every
+    iteration on the card against the CPU on the same weights (f32, TF32
+    off), each falling below its start; then `fit` on the card."""
+    import dataclasses
+
+    from deeplearning4j_tpu_torch.models import (
+        MultiLayerNetwork,
+        iris_mlp,
+        params_from_numpy,
+    )
+    from deeplearning4j_tpu_torch.optimize import Solver
+
+    y = np.eye(3, dtype=np.float32)[labels]
+    out = {}
+    for algo in ("lbfgs", "conjugate_gradient"):
+        base = iris_mlp()
+        conf = dataclasses.replace(base, conf=dataclasses.replace(
+            base.conf, optimization_algo=algo,
+            num_iterations=MLN_SOLVER_ITERS))
+        seen = {}
+        cpu = MultiLayerNetwork(conf, device="cpu").init()
+        card = MultiLayerNetwork(conf).init()
+        card.params = params_from_numpy(card, cpu.params_flat())
+        for name, net in (("cpu", cpu), ("card", card)):
+            rec = seen[name] = [net.score(x, y)]
+            listener = type("Record", (), {"iteration_done": (
+                lambda self, m, i, s, rec=rec: rec.append(s))})()
+            Solver.for_model(net, x, y, algorithm=algo,
+                             num_iterations=MLN_SOLVER_ITERS,
+                             max_line_iters=conf.conf
+                             .max_num_line_search_iterations,
+                             listeners=[listener]).fit_model()
+        card_net = MultiLayerNetwork(conf).init()
+        t0 = time.perf_counter()
+        card_net.fit((x, y))
+        fit_s = time.perf_counter() - t0
+        errs = [abs(c - p) / abs(p) for c, p in zip(seen["card"],
+                                                    seen["cpu"])]
+        out[algo] = {"losses_card": seen["card"], "losses_cpu": seen["cpu"],
+                     "max_rel_err": max(errs), "fit_s": fit_s,
+                     "fit_score": card_net.score(x, y)}
+        if len(seen["card"]) != len(seen["cpu"]) or max(errs) > 1e-4 or \
+                not seen["card"][-1] < seen["card"][0] or \
+                not out[algo]["fit_score"] < seen["card"][0]:
+            raise AssertionError(f"mln: solver {algo}: {out[algo]}")
+    return out
+
+
+def mln_cli(csv: str, x: np.ndarray, labels: np.ndarray, tmp: str) -> dict:
+    """`python -m deeplearning4j_tpu_torch.cli train | test | predict` on
+    the card: exit codes 0, training accuracy >= 0.9, and the predictions
+    file equal to the saved model's `predict`."""
+    import os
+    import re
+
+    from deeplearning4j_tpu_torch.runtime.checkpoint import load_model
+
+    out_dir = os.path.join(tmp, "run")
+    preds = os.path.join(tmp, "preds.txt")
+    base = [sys.executable, "-m", "deeplearning4j_tpu_torch.cli"]
+    runs = {}
+    for name, args in (
+            ("train", ["train", "-input", csv, "-model", "zoo:iris-mlp",
+                       "-output", out_dir, "-epochs", "30", "-batch",
+                       "32"]),
+            ("test", ["test", "-input", csv, "-model",
+                      os.path.join(out_dir, "model")]),
+            ("predict", ["predict", "-input", csv, "-model",
+                         os.path.join(out_dir, "model"), "-output",
+                         preds])):
+        t0 = time.perf_counter()
+        proc = subprocess.run(base + args, capture_output=True, text=True,
+                              timeout=300)
+        runs[name] = {"rc": proc.returncode,
+                      "s": time.perf_counter() - t0,
+                      "stdout_tail": proc.stdout[-600:]}
+        if proc.returncode != 0:
+            raise AssertionError(f"mln: cli {name} exited "
+                                 f"{proc.returncode}: {proc.stderr[-2000:]}")
+    text = runs["train"]["stdout_tail"]
+    rate = re.search(r"\(([\d.]+) examples/sec\)", text)
+    acc = re.search(r"Accuracy:\s+([\d.]+)", text)
+    got = np.loadtxt(preds, dtype=int)
+    want = load_model(os.path.join(out_dir, "model")).predict(x)
+    report = {"runs": runs,
+              "examples_per_s": float(rate.group(1)) if rate else None,
+              "train_accuracy": float(acc.group(1)) if acc else None,
+              "predictions_equal": bool(np.array_equal(got, want))}
+    if not (rate and acc and report["train_accuracy"] >= 0.9
+            and report["predictions_equal"]):
+        raise AssertionError(f"mln: cli {report}")
+    return report
+
+
+def mln_phase(card: str, profile: bool = False) -> dict:
+    import tempfile
+
+    import torch
+
+    from deeplearning4j_tpu_torch.datasets.fetchers import (
+        synthetic_cifar10,
+        synthetic_mnist,
+    )
+    from deeplearning4j_tpu_torch.models import (
+        MultiLayerNetwork,
+        alexnet_cifar10,
+        dbn_mnist,
+        lenet_mnist,
+    )
+
+    out = {"card": card}
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        out["lenet_f32_parity"] = conv_grad_parity(
+            lenet_mnist(updater="sgd"), (MLN_PARITY_B, 28, 28, 1))
+        out["alexnet_f32_parity"] = conv_grad_parity(
+            alexnet_cifar10(dropout=0.0), (MLN_PARITY_B, 32, 32, 3))
+        out["routes_f32"] = conv_route_report(card)
+        out["lenet_bf16_parity"] = conv_bf16_parity(
+            lenet_mnist(updater="sgd", compute_dtype="bfloat16"),
+            (MLN_PARITY_B, 28, 28, 1))
+        out["alexnet_bf16_parity"] = conv_bf16_parity(
+            alexnet_cifar10(dropout=0.0, compute_dtype="bfloat16"),
+            (MLN_PARITY_B, 32, 32, 3))
+        out["rbm_parity"] = rbm_card_parity()
+        with tempfile.TemporaryDirectory(prefix="chip-smoke-mln-") as tmp:
+            csv = f"{tmp}/iris.csv"
+            x, labels = iris_like_csv(csv)
+            out["solvers"] = solver_phase(x, labels)
+            out["cli"] = mln_cli(csv, x, labels, tmp)
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    for name in ("lenet_f32_parity", "alexnet_f32_parity"):
+        worst = max(out[name]["grad_rel_err"].items(), key=lambda kv: kv[1])
+        log(f"mln: {name}: loss rel err {out[name]['loss_rel_err']:.3g}, "
+            f"worst gradient {worst[0]} {worst[1]:.3g}")
+    for name in ("lenet_bf16_parity", "alexnet_bf16_parity"):
+        r = out[name]
+        log(f"mln: {name}: card bf16 vs CPU bf16: loss rel err "
+            f"{r['loss_rel_err']:.3g} (limit {MLN_BF16_LOSS_TOL:g}), "
+            f"gradients L2 {r['grad_l2_err']:.3g}; gradients L2 vs CPU "
+            f"f32: card bf16 {r['grad_l2_err_vs_f32']:.3g}, CPU bf16 "
+            f"{r['cpu_grad_l2_err_vs_f32']:.3g} (limit "
+            f"{MLN_BF16_GRAD_RATIO:g}x)")
+    log(f"mln: rbm card vs cpu {out['rbm_parity']}")
+    for algo, r in out["solvers"].items():
+        log(f"mln: {algo}: card vs cpu max rel err {r['max_rel_err']:.3g}, "
+            f"loss {r['losses_card'][0]:.4f} -> {r['losses_card'][-1]:.4f}, "
+            f"fit {r['fit_s']:.3f} s ({card})")
+    log(f"mln: cli train {out['cli']['examples_per_s']} examples/s, "
+        f"accuracy {out['cli']['train_accuracy']}, predictions equal "
+        f"{out['cli']['predictions_equal']} ({card})")
+
+    lenet = MultiLayerNetwork(lenet_mnist(updater="sgd",
+                                          compute_dtype="bfloat16")).init()
+    batches = staged_batches(synthetic_mnist(MLN_LENET_B * 8),
+                             MLN_LENET_B, 8)
+    r = out["lenet_bf16"] = timed_fit(lenet, batches, MLN_LENET_WARMUP,
+                                      MLN_LENET_STEPS, profile)
+    r["tflops"] = (MLN_LENET_B * lenet_train_flops_per_example()
+                   / (r["step_ms_mean"] * 1e-3) / 1e12)
+    log(f"mln: lenet bf16 batch {MLN_LENET_B}: step {r['step_ms_mean']:.3f} "
+        f"ms (min {r['step_ms_min']:.3f}, max {r['step_ms_max']:.3f}), "
+        f"{r['examples_per_s']:.1f} examples/s, {r['tflops']:.4f} TFLOP/s, "
+        f"peak memory {r['peak_memory_bytes']} bytes, losses "
+        f"{r['losses'][0]:.4f} -> {r['losses'][-1]:.4f} ({card})")
+    del lenet, batches
+    alex = MultiLayerNetwork(alexnet_cifar10(
+        compute_dtype="bfloat16")).init()
+    batches = staged_batches(synthetic_cifar10(MLN_ALEX_B * 4),
+                             MLN_ALEX_B, 4)
+    r = out["alexnet_bf16"] = timed_fit(alex, batches, MLN_ALEX_WARMUP,
+                                        MLN_ALEX_STEPS, profile)
+    log(f"mln: alexnet bf16 batch {MLN_ALEX_B}: step "
+        f"{r['step_ms_mean']:.3f} ms (min {r['step_ms_min']:.3f}, max "
+        f"{r['step_ms_max']:.3f}), {r['examples_per_s']:.1f} examples/s, "
+        f"peak memory {r['peak_memory_bytes']} bytes ({card})")
+    for key in ("lenet_bf16", "alexnet_bf16"):
+        r = out[key]
+        log(f"mln: {key}: step losses, mean of the first 10 "
+            f"{r['losses_head_mean']:.5f}, of the last 10 "
+            f"{r['losses_tail_mean']:.5f}; staged batches' loss without "
+            f"dropout {r['score_before']:.5f} -> {r['score_after']:.5f}")
+        if "profile" in out[key]:
+            bd = out[key]["profile"]
+            log(f"mln: {key} profile: busy {bd['device_busy_ms']:.2f} ms of "
+                f"{bd['wall_ms']:.2f} ms wall, idle share "
+                f"{bd['device_idle_share']:.3f}, groups {bd['groups_ms']} "
+                f"({card})")
+    del alex, batches
+    torch.cuda.empty_cache()
+
+    dbn = MultiLayerNetwork(dbn_mnist()).init()
+    ds = synthetic_mnist(MLN_DBN_N, binarize=True, flatten=True)
+    batches = [(ds.features[i:i + MLN_DBN_B], ds.labels[i:i + MLN_DBN_B])
+               for i in range(0, MLN_DBN_N, MLN_DBN_B)]
+    t0 = time.perf_counter()
+    dbn.fit(batches)                    # pretrain (1 epoch), then SGD
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    errs = dbn.pretrain_errors
+    out["dbn"] = {"examples": MLN_DBN_N, "batch": MLN_DBN_B,
+                  "fit_s": fit_s, "score": dbn.score(ds.features,
+                                                     ds.labels),
+                  "recon_err": {str(i): {"first": e[0], "last": e[-1],
+                                         "first5": float(np.mean(e[:5])),
+                                         "last5": float(np.mean(e[-5:]))}
+                                for i, e in errs.items()}}
+    log(f"mln: dbn_mnist pretrain + fit over {MLN_DBN_N} binarized images "
+        f"in {fit_s:.2f} s; reconstruction error by layer "
+        f"{out['dbn']['recon_err']} ({card})")
+    if sorted(errs) != [0, 1] or not all(
+            np.mean(e[-5:]) < np.mean(e[:5]) for e in errs.values()):
+        raise AssertionError(f"mln: DBN reconstruction error did not fall: "
+                             f"{out['dbn']}")
+    torch.cuda.empty_cache()
+    return out
+
+
 def decode_launches(decode, kernel: str):
     """The decode phase's counts of a kernel's launches on its paths, each
     read from a run driven with the counts set to 0 just before it."""
@@ -2266,6 +2831,7 @@ def main(argv=None) -> int:
     rnn = rnn_phase(card, profile=args.profile) if "rnn" in phases else None
     if "decode" in phases:
         decode = decode_phase(tree, card, profile=args.profile)
+    mln = mln_phase(card, profile=args.profile) if "mln" in phases else None
 
     entries = []
     if kernels_line is not None:
@@ -2396,6 +2962,8 @@ def main(argv=None) -> int:
         print(json.dumps({"rnn": rnn}), flush=True)
     if decode is not None:
         print(json.dumps({"decode": decode}), flush=True)
+    if mln is not None:
+        print(json.dumps({"mln": mln}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)

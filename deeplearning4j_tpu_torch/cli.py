@@ -1,5 +1,23 @@
 """Command line of the port (subset of `deeplearning4j_tpu.cli`).
 
+    python -m deeplearning4j_tpu_torch.cli train -input data.csv
+        -model zoo:iris-mlp|conf.json|<saved dir> [-output dir]
+        [-conf props] [-epochs 50] [-batch 32] [-accum 1]
+        [-savemode binary|txt] [-device cuda|cpu]
+    python -m deeplearning4j_tpu_torch.cli test -input data.csv
+        -model <dir>/model
+    python -m deeplearning4j_tpu_torch.cli predict -input data.csv
+        -model <dir>/model -output preds.txt
+
+trains a `MultiLayerNetwork` on a CSV or SVMLight file with the local
+runtime (greedy pretraining first for a ``pretrain`` conf such as
+``zoo:dbn-mnist``), saves ``<output>/model`` (`save_model`) and
+``params.bin`` / ``params.txt`` (`save_params`), and prints the
+examples/sec line and the evaluation; ``test`` prints the evaluation of
+a saved model and ``predict`` writes its argmax classes one a line.  The
+JAX package reads every file they write.  Options whose code paths are
+not ported exit naming their ROADMAP.md queue.
+
     python -m deeplearning4j_tpu_torch.cli lm -input <text> [-output dir]
         [-preset gpt2-small] [-seq 128] [-batch 8] [-accum 1] [-epochs 1]
         [-lr 3e-3] [-updater adam] [-eval <text>] [-device cuda|cpu]
@@ -32,7 +50,7 @@ import signal
 import sys
 import threading
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 
@@ -62,6 +80,175 @@ def load_saved_lm(out: pathlib.Path, device=None):
     cfg = TransformerConfig(**json.loads(cfg_path.read_text()))
     tree = read_lm_npz(params_path, cfg)
     return cfg, params_from_numpy(tree, device=device, dtype=cfg.dtype)
+
+
+# --------------------------------------------------------------------------
+# train / test / predict (reference deeplearning4j-cli Train.java:64)
+
+def load_properties(path: Optional[str]) -> Dict[str, str]:
+    """A key=value properties file (the reference's -conf format); ``#``
+    starts a comment line."""
+    props: Dict[str, str] = {}
+    if not path:
+        return props
+    for line in pathlib.Path(path).read_text().splitlines():
+        line = line.strip()
+        if not line or line.startswith("#"):
+            continue
+        key, _, value = line.partition("=")
+        props[key.strip()] = value.strip()
+    return props
+
+
+def _opt_int(v: Optional[str]) -> Optional[int]:
+    return int(v) if v else None
+
+
+def _load_dataset(input_path: str, props: Dict[str, str]):
+    """The -input file as a DataSet: ``input.format`` csv or svmlight
+    (default: by the file's extension, svmlight unless ``.csv``)."""
+    from deeplearning4j_tpu_torch.datasets.fetchers import (
+        csv_dataset,
+        sniff_svmlight_features,
+        svmlight_dataset,
+    )
+
+    fmt = props.get("input.format", "").lower() or (
+        "csv" if input_path.endswith(".csv") else "svmlight")
+    if fmt in ("svmlight", "svm", "libsvm"):
+        n_features = int(props.get("input.num.features", 0))
+        if not n_features:
+            try:
+                n_features = sniff_svmlight_features(input_path)
+            except ValueError as e:
+                raise SystemExit(f"{e} — set input.num.features in the "
+                                 f"-conf properties file") from e
+        return svmlight_dataset(
+            input_path, n_features,
+            num_classes=_opt_int(props.get("input.num.classes")))
+    if fmt == "csv":
+        return csv_dataset(
+            input_path, label_col=int(props.get("input.label.column", -1)),
+            num_classes=_opt_int(props.get("input.num.classes")),
+            skip_header=props.get("input.skip.header", "false") == "true")
+    raise SystemExit(f"unknown input.format {fmt!r} (svmlight|csv)")
+
+
+def _build_net(model_path: str, device):
+    """``zoo:<name>`` (a zoo architecture, freshly initialised), a saved
+    model directory (`save_model` of either package), or a
+    MultiLayerConfiguration JSON file."""
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork, get_model
+    from deeplearning4j_tpu_torch.runtime.checkpoint import load_model
+
+    if model_path.startswith("zoo:"):
+        return MultiLayerNetwork(get_model(model_path[4:]),
+                                 device=device).init()
+    p = pathlib.Path(model_path)
+    if p.is_dir():
+        return load_model(p, device=device)
+    return MultiLayerNetwork.from_json(p.read_text(), device=device)
+
+
+def _refuse_unported_train(args, props: Dict[str, str]) -> None:
+    """The `train` options whose code paths are not ported yet."""
+    queues = [
+        (args.runtime != "local", f"-runtime {args.runtime}",
+         "A7, 'Multi-device'"),
+        (args.replicas is not None, "-replicas", "A7, 'Multi-device'"),
+        (int(props.get("train.sync.every", args.sync_every)) != 1,
+         "-sync-every", "A7, 'Multi-device'"),
+        (args.resilience or args.resume, "-resilience / -resume",
+         "A6, the resilience modules"),
+        (any(v is not None for v in (args.ckpt_dir, args.ckpt_every,
+                                     args.ckpt_keep)),
+         "-ckpt-dir / -ckpt-every / -ckpt-keep", "A6, the resilience "
+         "modules"),
+        (args.metrics_port is not None, "-metrics-port",
+         "A4.10, the metrics registry"),
+        (props.get("train.precision", args.precision) != "fp32",
+         f"-precision {props.get('train.precision', args.precision)}",
+         "A3b part 2, precision policies"),
+        (int(props.get("train.chunk.size", args.chunk)) > 1, "-chunk",
+         "A3b part 2, chunked fit"),
+    ]
+    for refused, flag, queue in queues:
+        if refused:
+            raise SystemExit(f"{flag}: not ported to PyTorch yet "
+                             f"(ROADMAP.md, queue {queue})")
+
+
+def cmd_train(args) -> int:
+    """Train with the local runtime (reference execLocal():151): read the
+    records, build the net, greedy-pretrain a fresh ``pretrain`` conf,
+    fit `-epochs` passes of shuffled `-batch` batches, save."""
+    import torch
+
+    from deeplearning4j_tpu_torch.datasets.iterators import (
+        PrefetchDataSetIterator,
+    )
+    from deeplearning4j_tpu_torch.runtime.checkpoint import (
+        save_model,
+        save_params,
+    )
+
+    props = load_properties(args.conf)
+    _refuse_unported_train(args, props)
+    device = resolve_device(args.device)
+    ds = _load_dataset(args.input, props)
+    net = _build_net(args.model, device)
+    epochs = int(props.get("train.epochs", args.epochs))
+    batch = int(props.get("train.batch.size", args.batch))
+    accum = max(1, int(props.get("train.accum.steps", args.accum)))
+
+    def batches():
+        for epoch in range(epochs):
+            yield from ds.shuffle(seed=epoch).batch_by(batch)
+
+    fresh = (args.model.startswith("zoo:")
+             or not pathlib.Path(args.model).is_dir())
+    if net.conf.pretrain and fresh:
+        # greedy layer-wise pretraining for DBN / deep-AE confs; a saved
+        # (already trained) model skips it
+        net.pretrain(list(ds.shuffle(seed=0).batch_by(batch)), epochs=1)
+    t0 = time.time()
+    last = None
+    for b in PrefetchDataSetIterator(batches()):
+        last = net.fit_batch_async(b.features, b.labels, accum_steps=accum)
+    if last is not None and device.type == "cuda":
+        torch.cuda.synchronize(device)
+    elapsed = time.time() - t0
+    out = pathlib.Path(args.output or "dl4j-output")
+    out.mkdir(parents=True, exist_ok=True)
+    save_model(net, out / "model")
+    save_params(net, out / ("params.bin" if args.savemode == "binary"
+                            else "params.txt"), mode=args.savemode)
+    ev = net.evaluate(ds.features, ds.labels)
+    total = epochs * ds.num_examples()
+    print(f"Trained {epochs} epochs on {ds.num_examples()} examples "
+          f"({total / max(elapsed, 1e-9):.1f} examples/sec)")
+    print(ev.stats())
+    print(f"Model saved to {out / 'model'}")
+    return 0
+
+
+def cmd_test(args) -> int:
+    props = load_properties(args.conf)
+    ds = _load_dataset(args.input, props)
+    net = _build_net(args.model, resolve_device(args.device))
+    print(net.evaluate(ds.features, ds.labels).stats())
+    return 0
+
+
+def cmd_predict(args) -> int:
+    props = load_properties(args.conf)
+    ds = _load_dataset(args.input, props)
+    net = _build_net(args.model, resolve_device(args.device))
+    preds = net.predict(ds.features)
+    out = args.output or "predictions.txt"
+    np.savetxt(out, preds, fmt="%d")
+    print(f"Wrote {len(preds)} predictions to {out}")
+    return 0
 
 
 def cmd_serve(args) -> int:
@@ -276,6 +463,64 @@ def build_parser() -> argparse.ArgumentParser:
         prog="deeplearning4j_tpu_torch",
         description="PyTorch / CUDA port of deeplearning4j_tpu")
     sub = parser.add_subparsers(dest="command", required=True)
+    def data_args(p):
+        p.add_argument("-input", "--input", required=True,
+                       help="input data file (svmlight, or csv)")
+        p.add_argument("-model", "--model", required=True,
+                       help="zoo:<name>, a conf JSON, or a saved model dir")
+        p.add_argument("-conf", "--conf", default=None,
+                       help="key=value properties file")
+        p.add_argument("-output", "--output", default=None)
+        p.add_argument("-verbose", "--verbose", action="store_true")
+        p.add_argument("-device", "--device", default=None,
+                       help="cuda (default) or cpu")
+
+    p = sub.add_parser("train", help="train a MultiLayerNetwork on a "
+                       "CSV / SVMLight file and save it")
+    data_args(p)
+    p.add_argument("-type", "--type", choices=["multi", "single"],
+                   default="multi")
+    p.add_argument("-savemode", "--savemode", choices=["binary", "txt"],
+                   default="binary")
+    p.add_argument("-epochs", "--epochs", type=int, default=50)
+    p.add_argument("-batch", "--batch", type=int, default=32)
+    p.add_argument("-accum", "--accum", type=int, default=1,
+                   help="gradient-accumulation microbatches per update")
+    # accepted so that a JAX command line fails with the reason
+    p.add_argument("-runtime", "--runtime", choices=["local", "spmd"],
+                   default="local", help="only local is ported")
+    p.add_argument("-replicas", "--replicas", type=int, default=None,
+                   help="not ported (spmd)")
+    p.add_argument("-sync-every", "--sync-every", dest="sync_every",
+                   type=int, default=1, help="not ported (spmd)")
+    p.add_argument("-precision", "--precision",
+                   choices=["fp32", "bf16", "mixed"], default="fp32",
+                   help="only fp32 is ported")
+    p.add_argument("-chunk", "--chunk", type=int, default=1,
+                   help="only 1 is ported")
+    p.add_argument("-resilience", "--resilience", action="store_true",
+                   help="not ported")
+    p.add_argument("-resume", "--resume", action="store_true",
+                   help="not ported")
+    p.add_argument("-ckpt-dir", "--ckpt-dir", dest="ckpt_dir",
+                   default=None, help="not ported (resilience)")
+    p.add_argument("-ckpt-every", "--ckpt-every", dest="ckpt_every",
+                   type=int, default=None, help="not ported (resilience)")
+    p.add_argument("-ckpt-keep", "--ckpt-keep", dest="ckpt_keep",
+                   type=int, default=None, help="not ported (resilience)")
+    p.add_argument("-metrics-port", "--metrics-port", dest="metrics_port",
+                   type=int, default=None, help="not ported")
+    p.set_defaults(func=cmd_train)
+
+    p = sub.add_parser("test", help="evaluate a saved model")
+    data_args(p)
+    p.set_defaults(func=cmd_test)
+
+    p = sub.add_parser("predict", help="write a saved model's argmax "
+                       "classes, one a line")
+    data_args(p)
+    p.set_defaults(func=cmd_predict)
+
     p = sub.add_parser("serve", help="serve a saved LM over HTTP")
     p.add_argument("-lm", "--lm", required=True,
                    help="directory holding lm_config.json + lm_params.npz")

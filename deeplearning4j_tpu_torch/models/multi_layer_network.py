@@ -15,13 +15,17 @@ casts them, differentiably, to ``compute_dtype``, so gradients land on
 the masters.  `params_flat()` is the reference's flat-vector view, the
 shipping format both packages share.
 
+`fit` runs greedy layer-wise pretraining of the AE / RBM layers first
+when ``conf.pretrain`` is set (`pretrain`, reference pretrain() :148),
+and trains with the line-search solvers of `optimize/` when
+``conf.optimization_algo`` names one (`_fit_with_solver`).
+
 The network lives on one device: `resolve_device(device)`, the card
 unless the caller asks for the CPU.  Left out for now, each raising
 NotImplementedError that names ROADMAP.md's queue A3b: precision
 policies other than the conf's (`set_precision`, ``fit(precision=)``,
 the loss-scaled step), chunked fit (`fit_chunk_async`, ``chunk_size``),
-the line-search solvers, greedy pretraining, `output_bucketed` and
-`merge`.
+`output_bucketed` and `merge`.
 """
 
 from __future__ import annotations
@@ -39,10 +43,15 @@ from deeplearning4j_tpu_torch.nn.conf import (
     OutputLayerConf,
     RnnOutputLayerConf,
 )
+from deeplearning4j_tpu_torch.nn.conf.layers import AutoEncoderConf, RBMConf
 from deeplearning4j_tpu_torch.nn.layers import get_layer_impl
 from deeplearning4j_tpu_torch.nn.layers.common import (
     effective_weights,
     input_dropout,
+)
+from deeplearning4j_tpu_torch.nn.layers.pretrain import (
+    ae_pretrain_loss,
+    rbm_cd_grads,
 )
 from deeplearning4j_tpu_torch.ops import losses as losses_mod
 from deeplearning4j_tpu_torch.ops.updaters import (
@@ -159,11 +168,13 @@ def params_from_numpy(net: "MultiLayerNetwork", src) -> List[Dict[str,
                              f"the layer's {sorted(have)}")
         new = {}
         for k, ref in have.items():
-            a = np.asarray(layer[k], np.float32)
+            # a copy: training updates the parameters in place, and must
+            # not write into the caller's arrays
+            a = np.array(layer[k], np.float32, order="C")
             if tuple(a.shape) != tuple(ref.shape):
                 raise ValueError(f"parameter {k} has shape {a.shape}, the "
                                  f"layer needs {tuple(ref.shape)}")
-            new[k] = (torch.from_numpy(np.require(a, requirements=["C", "W"]))
+            new[k] = (torch.from_numpy(a)
                       .to(device=ref.device, dtype=ref.dtype)
                       .requires_grad_(ref.is_floating_point()))
         out.append(new)
@@ -198,6 +209,8 @@ class MultiLayerNetwork:
         self.last_grad_norm: Optional[torch.Tensor] = None
         self._listeners: list = []
         self._iteration = 0
+        # layer index -> per-batch reconstruction errors of `pretrain`
+        self.pretrain_errors: Dict[int, List[float]] = {}
 
     # ---- construction -----------------------------------------------------
 
@@ -425,19 +438,21 @@ class MultiLayerNetwork:
             precision=None) -> "MultiLayerNetwork":
         """Train from an iterable of (x, y[, mask]) tuples or objects with
         .features/.labels/.mask, or from one (x, y[, mask]) tuple, for
-        `epochs` passes (stochastic gradient descent; accum_steps as in
-        `fit_batch_async`)."""
+        `epochs` passes: greedy `pretrain` first when ``conf.pretrain``
+        is set, then the conf's ``optimization_algo`` (stochastic
+        gradient descent with accum_steps as in `fit_batch_async`, or a
+        line-search solver)."""
         if precision is not None:
             raise _not_ported("fit(precision=...)")
         if chunk_size is not None:
             raise _not_ported("chunked fit (chunk_size)")
-        if self.conf.pretrain:
-            raise _not_ported("greedy layer-wise pretraining")
-        algo = self.conf.conf.optimization_algo
-        if algo and algo != "stochastic_gradient_descent":
-            raise _not_ported(f"the line-search solver {algo!r}")
         if isinstance(data, types.GeneratorType):
             data = list(_as_batches(data))
+        if self.conf.pretrain:
+            self.pretrain(data, epochs=1)
+        algo = self.conf.conf.optimization_algo
+        if algo and algo != "stochastic_gradient_descent":
+            return self._fit_with_solver(data, epochs, algo)
         loss = None
         for _ in range(epochs):
             for x, y, mask in _as_batches(data):
@@ -447,6 +462,92 @@ class MultiLayerNetwork:
             torch.cuda.synchronize(self.device)
         return self
 
+    def _fit_with_solver(self, data, epochs: int,
+                         algo: str) -> "MultiLayerNetwork":
+        """Train with a line-search solver (reference
+        Solver.getOptimizer():56-71): line GD, CG, LBFGS or Hessian-free
+        over the flat-parameter objective of each batch in turn, honoring
+        num_iterations, max_num_line_search_iterations and minimize.  One
+        `Solver` serves every batch: it holds no per-shape state (the
+        JAX package keeps one per batch shape for its compiled step)."""
+        from deeplearning4j_tpu_torch.optimize.solver import Solver
+
+        if any(lc.lr_multiplier != 1.0 for lc in self.conf.layers):
+            raise ValueError(
+                "per-layer lr_multiplier is not honored by the "
+                "line-search solvers (they optimize one flat objective); "
+                "use the SGD path or clear the multipliers")
+        if self.params is None:
+            self.init()
+        cfg = self.conf.conf
+        batches = list(_as_batches(data))
+        if not batches:
+            return self
+        solver = Solver.for_model(
+            self, *batches[0], algorithm=algo,
+            num_iterations=max(1, cfg.num_iterations),
+            maximize=not cfg.minimize,
+            max_line_iters=cfg.max_num_line_search_iterations)
+        for _ in range(epochs):
+            for x, y, mask in batches:
+                loss = solver.fit_model(x, y, mask)
+                self._iteration += 1
+                for listener in self._due_listeners(self._iteration):
+                    listener(self._iteration, loss)
+            _maybe_reset(data)
+        return self
+
+    # ---- greedy layer-wise pretraining ------------------------------------
+
+    def pretrain(self, data, epochs: int = 1) -> "MultiLayerNetwork":
+        """Greedy layer-wise unsupervised pretraining of the AE and RBM
+        layers (reference pretrain(DataSetIterator) :148-179): each in
+        turn, on the activations of the layers below it, with its own
+        updater, its updates scaled by its lr_multiplier (0 freezes it),
+        CD-k for an RBM and the denoising loss's gradient for an AE.
+        Layer i draws from a generator seeded ``seed + 17*i`` (the JAX
+        package's key, though not its bits).  Each layer's per-batch
+        reconstruction errors land in ``pretrain_errors[i]``."""
+        if self.params is None:
+            self.init()
+        if isinstance(data, types.GeneratorType):
+            data = list(_as_batches(data))
+        cfg = self.conf.conf.updater_config()
+        self.pretrain_errors = {}
+        for i, lc in enumerate(self.conf.layers):
+            if not isinstance(lc, (AutoEncoderConf, RBMConf)) or \
+                    lc.lr_multiplier == 0.0:
+                continue
+            p = self.params[i]
+            updater = make_updater(cfg)
+            upd_state = updater.init(p)
+            gen = torch.Generator(device=self.device).manual_seed(
+                self.conf.conf.seed + 17 * i)
+            errs = []
+            for _ in range(epochs):
+                for x, *_ in _as_batches(data):
+                    with torch.no_grad():
+                        h, _ = self._forward(self.params, self.state,
+                                             _as_tensor(x, self.device),
+                                             train=False, upto=i)
+                    h = h.to(p["W"].dtype)
+                    if isinstance(lc, RBMConf):
+                        grads, err = rbm_cd_grads(lc, p, h, gen)
+                    else:
+                        err = ae_pretrain_loss(lc, p, h, gen)
+                        grads = dict(zip(p, torch.autograd.grad(
+                            err, list(p.values()))))
+                    updates, upd_state = updater.update(grads, upd_state, p)
+                    if lc.lr_multiplier != 1.0:
+                        updates = map_tree(lambda u: u * lc.lr_multiplier,
+                                           updates)
+                    apply_updates(p, updates)
+                    errs.append(err.detach())
+                _maybe_reset(data)
+            self.pretrain_errors[i] = (torch.stack(errs).float().cpu()
+                                       .tolist() if errs else [])
+        return self
+
     # ---- parts not ported yet ---------------------------------------------
 
     def set_precision(self, policy) -> "MultiLayerNetwork":
@@ -454,9 +555,6 @@ class MultiLayerNetwork:
 
     def fit_chunk_async(self, *args, **kwargs):
         raise _not_ported("fit_chunk_async (the fused multi-step driver)")
-
-    def pretrain(self, data, epochs: int = 1):
-        raise _not_ported("greedy layer-wise pretraining")
 
     def output_bucketed(self, x, mask=None, ladder=None):
         raise _not_ported("output_bucketed (serving bucket ladders)")

@@ -1,8 +1,5 @@
 """Model zoo: the named architectures the baselines are defined over
 (counterpart of `deeplearning4j_tpu.models.zoo`, builder for builder).
-The port's `MultiLayerNetwork` does not run convolution, subsampling,
-RBM or autoencoder layers yet (ROADMAP.md A3b): it raises
-NotImplementedError for the confs that hold them.
 
 BASELINE.md names its configs by architecture — LeNet-5 on MNIST (#1) and
 AlexNet on CIFAR-10 for the 8-way data-parallel scaling row (#5, reference

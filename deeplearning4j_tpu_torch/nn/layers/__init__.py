@@ -17,10 +17,6 @@ from typing import Callable, Dict, NamedTuple
 
 from deeplearning4j_tpu_torch.nn.conf.layers import LayerConf
 
-# Layer types of the JAX package that the port does not run yet.
-NOT_PORTED = {"convolutionlayer", "subsamplinglayer", "rbm", "autoencoder"}
-
-
 class LayerImpl(NamedTuple):
     init: Callable
     apply: Callable
@@ -35,10 +31,6 @@ def register_layer_impl(type_tag: str, impl: LayerImpl) -> None:
 
 def get_layer_impl(conf: LayerConf) -> LayerImpl:
     tag = conf.type_tag()
-    if tag in NOT_PORTED:
-        raise NotImplementedError(
-            f"layer type '{tag}' is not ported to PyTorch yet (ROADMAP.md, "
-            f"queue A3b)")
     if tag not in _IMPLS:
         raise KeyError(f"No implementation for layer type '{tag}'. "
                        f"Known: {sorted(_IMPLS)}")
@@ -47,4 +39,6 @@ def get_layer_impl(conf: LayerConf) -> LayerImpl:
 
 # Importing the implementation modules populates the registry.
 from deeplearning4j_tpu_torch.nn.layers import core as _core  # noqa: E402,F401
+from deeplearning4j_tpu_torch.nn.layers import convolution as _conv  # noqa: E402,F401
 from deeplearning4j_tpu_torch.nn.layers import recurrent as _rec  # noqa: E402,F401
+from deeplearning4j_tpu_torch.nn.layers import pretrain as _pre  # noqa: E402,F401

@@ -10,8 +10,10 @@ crash leaves the previous file or the new one, never a torn one.
 `save_model`/`load_model` write and read the JAX package's model
 directory: ``conf.json`` + ``params.npz`` [+ ``updater.npz``] +
 ``meta.json``; a directory saved by either package loads in the other.
-The sharded, checksummed train-state checkpoints of the JAX module are
-not ported yet (ROADMAP.md, queue A3b).
+`save_params`/`load_params` write and read the flat parameter vector
+(the CLI's ``params.bin`` / ``params.txt``) in the JAX package's format.
+The sharded, checksummed train-state checkpoints of the JAX module go
+with the resilience modules (ROADMAP.md, queue A6).
 """
 
 from __future__ import annotations
@@ -168,5 +170,55 @@ def load_model(directory: os.PathLike, device=None):
     return net
 
 
-__all__ = ["load_model", "npz_to_tree", "read_lm_npz", "save_model",
-           "tree_to_npz"]
+def _params_meta_path(path: pathlib.Path) -> pathlib.Path:
+    return path.with_name(path.name + ".meta.json")
+
+
+def save_params(net, path: os.PathLike, mode: str = "binary") -> None:
+    """The flat parameter vector (`params_flat`, float32) as a file (CLI
+    parity: Nd4j.write / writeTxt).  ``binary``: raw values plus a
+    ``<file>.meta.json`` sidecar ``{format, dtype, count}``; ``txt``: one
+    value a line under a ``# dtype: float32`` header.  Either loads in
+    the JAX package's `load_params`."""
+    vec = net.params_flat()
+    path = pathlib.Path(path)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    if mode == "binary":
+        vec.tofile(path)
+        _params_meta_path(path).write_text(json.dumps(
+            {"format": 1, "dtype": str(vec.dtype), "count": int(vec.size)}))
+    elif mode == "txt":
+        np.savetxt(path, vec, header=f"dtype: {vec.dtype}")
+    else:
+        raise ValueError(f"unknown savemode {mode!r} (binary|txt)")
+
+
+def load_params(net, path: os.PathLike, mode: str = "binary") -> None:
+    """Restore a flat parameter file written by either package's
+    `save_params`.  A binary file takes the dtype its sidecar records
+    (float32 without one); bfloat16 values are widened to float32, which
+    is exact.  The values are cast to each leaf's dtype."""
+    path = pathlib.Path(path)
+    if mode == "binary":
+        dtype = "float32"
+        meta_path = _params_meta_path(path)
+        if meta_path.exists():
+            try:
+                dtype = json.loads(meta_path.read_text())["dtype"]
+            except (ValueError, KeyError, TypeError) as e:
+                raise ValueError(
+                    f"corrupt params meta sidecar {meta_path}: {e}") from e
+        if dtype == "bfloat16":
+            bits = np.fromfile(path, dtype=np.uint16).astype(np.uint32)
+            vec = (bits << 16).view(np.float32)
+        else:
+            vec = np.fromfile(path, dtype=np.dtype(dtype))
+    elif mode == "txt":
+        vec = np.loadtxt(path, dtype=np.float32).reshape(-1)
+    else:
+        raise ValueError(f"unknown savemode {mode!r} (binary|txt)")
+    net.set_params_flat(vec)
+
+
+__all__ = ["load_model", "load_params", "npz_to_tree", "read_lm_npz",
+           "save_model", "save_params", "tree_to_npz"]

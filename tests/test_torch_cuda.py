@@ -6,7 +6,9 @@ cluster and wide routes, any batch) and the serving (``prefill_chunk`` up
 to 128 and beyond; the speculating pool, whose verify round runs on the
 paged kernel; the dense pool; whole-sequence `generate` and
 `beam_search`, prefilled through the flash forward), LM-training and
-`MultiLayerNetwork` paths that launch them.
+`MultiLayerNetwork` paths that launch them; and the conv nets and the
+training command line, which run no hand kernel (f32 gradients and SAME
+stride-2 convolution and pooling against the CPU).
 
 Every test carries the ``cuda`` marker and decides inside the test
 whether a card is present, skipping with a reason when not (the kernels
@@ -1024,3 +1026,209 @@ def test_wide_graves_lstm_on_the_card_takes_the_step_scan():
     with pytest.raises(ValueError, match=str(lk.MAX_HIDDEN)):
         MultiLayerNetwork(fused).init().output(x)
     assert lk.fused_lstm_forward.launches.value == before
+
+
+# ---- MultiLayerNetwork's conv nets and the train CLI (slice 8) -------------
+
+
+@pytest.fixture
+def no_tf32():
+    """float32 convolutions and matmuls in full float32 (cuDNN and cuBLAS
+    default to TF32 for convolutions)."""
+    prev = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = prev
+
+
+@pytest.mark.parametrize("name,shape", [
+    ("lenet-mnist", (8, 28, 28, 1)), ("alexnet-cifar10", (8, 32, 32, 3))])
+def test_conv_net_gradients_on_the_card_match_the_cpu(name, shape, no_tf32):
+    """f32 loss and every gradient on the card within 1e-4 relative max
+    error of the port's CPU run on the same weights (AlexNet's dropout
+    at 0)."""
+    _need_card()
+    from deeplearning4j_tpu_torch.models import (
+        MultiLayerNetwork,
+        get_model,
+        params_from_numpy,
+    )
+
+    conf = get_model(name, **({"dropout": 0.0} if "alexnet" in name
+                              else {}))
+    rng = np.random.default_rng(0)
+    x = rng.random(shape, dtype=np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, shape[0])]
+    cpu = MultiLayerNetwork(conf, device="cpu").init()
+    card = MultiLayerNetwork(conf).init()
+    card.params = params_from_numpy(card, cpu.params_flat())
+    got = {}
+    for key, net in (("cpu", cpu), ("card", card)):
+        loss, _ = net._objective(net.params, net.state,
+                                 torch.from_numpy(x).to(net.device),
+                                 torch.from_numpy(y).to(net.device), None)
+        got[key] = (loss.item(), [g[k] for g in net._grads(loss)
+                                  for k in sorted(g)])
+    assert got["card"][0] == pytest.approx(got["cpu"][0], rel=1e-4)
+    for g, w in zip(got["card"][1], got["cpu"][1]):
+        assert g.is_cuda
+        err = (g.cpu() - w).abs().max() / w.abs().max().clamp(min=1e-30)
+        assert err <= 1e-4
+
+
+def _l2(got, want) -> float:
+    g = torch.cat([t.double().ravel() for t in got])
+    w = torch.cat([t.double().ravel() for t in want])
+    return float((g - w).norm() / w.norm())
+
+
+@pytest.mark.parametrize("name,shape", [
+    ("lenet-mnist", (8, 28, 28, 1)), ("alexnet-cifar10", (8, 32, 32, 3))])
+def test_conv_net_bf16_on_the_card_matches_the_cpu(name, shape):
+    """bfloat16 compute (cuDNN's convolutions) against the port's CPU runs
+    on the same weights: the loss within 1e-3 relative of the CPU's bf16
+    loss, and the gradients (relative L2 norm over every leaf) no further
+    from the CPU's float32 gradients than twice the CPU's bf16 gradients
+    are.  Readings on an H100 (`chip_smoke.py` mln, PERF.md), LeNet /
+    AlexNet: loss 2.4e-4 / 2.4e-5; gradients 0.0256 / 0.100 from f32
+    against the CPU's 0.0255 / 0.0962."""
+    _need_card()
+    import dataclasses
+
+    from deeplearning4j_tpu_torch.models import (
+        MultiLayerNetwork,
+        get_model,
+        params_from_numpy,
+    )
+
+    conf = get_model(name, compute_dtype="bfloat16",
+                     **({"dropout": 0.0} if "alexnet" in name else {}))
+    f32 = dataclasses.replace(conf, conf=dataclasses.replace(
+        conf.conf, compute_dtype="float32"))
+    rng = np.random.default_rng(0)
+    x = rng.random(shape, dtype=np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, shape[0])]
+    cpu = MultiLayerNetwork(conf, device="cpu").init()
+    nets = {"cpu": cpu, "card": MultiLayerNetwork(conf).init(),
+            "f32": MultiLayerNetwork(f32, device="cpu").init()}
+    got = {}
+    for key, net in nets.items():
+        net.params = params_from_numpy(net, cpu.params_flat())
+        loss, _ = net._objective(net.params, net.state,
+                                 torch.from_numpy(x).to(net.device),
+                                 torch.from_numpy(y).to(net.device), None)
+        got[key] = (loss.item(), [g[k].float().cpu() for g in
+                                  net._grads(loss) for k in sorted(g)])
+    assert got["card"][0] == pytest.approx(got["cpu"][0], rel=1e-3)
+    assert _l2(got["card"][1], got["f32"][1]) <= 2 * _l2(got["cpu"][1],
+                                                         got["f32"][1])
+
+
+@pytest.mark.parametrize("kind", ["conv", "conv_bf16", "max", "avg", "sum"])
+def test_same_stride_2_conv_and_pool_on_the_card_match_the_cpu(kind,
+                                                               no_tf32):
+    """SAME padding at stride 2 (the extra row and column after) on odd
+    sizes: the card's route (float32 convolution: im2col and one matmul;
+    bf16 convolution and the pooling: cuDNN) against the CPU's
+    (`F.conv2d` and the pooling ops)."""
+    _need_card()
+    from deeplearning4j_tpu_torch.nn import conf as tconf
+    from deeplearning4j_tpu_torch.nn.layers import convolution as tconv
+
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((2, 9, 7, 3)).astype(
+        np.float32))
+    if kind.startswith("conv"):
+        dtype = torch.bfloat16 if kind == "conv_bf16" else torch.float32
+        lc = tconf.ConvolutionLayerConf(n_in=3, n_out=5, kernel_size=(3, 3),
+                                        stride=(2, 2), padding="SAME",
+                                        activation="identity")
+        p = {"W": torch.from_numpy(rng.standard_normal(
+                 (3, 3, 3, 5)).astype(np.float32)).to(dtype),
+             "b": torch.linspace(-1, 1, 5).to(dtype)}
+        x = x.to(dtype)
+        want, _ = tconv.conv_apply(lc, p, {}, x)
+        got, _ = tconv.conv_apply(lc, {k: v.cuda() for k, v in p.items()},
+                                  {}, x.cuda())
+    else:
+        lc = tconf.SubsamplingLayerConf(pooling_type=kind,
+                                        kernel_size=(3, 3), stride=(2, 2),
+                                        padding="SAME")
+        want, _ = tconv.pool_apply(lc, {}, {}, x)
+        got, _ = tconv.pool_apply(lc, {}, {}, x.cuda())
+    assert got.is_cuda and tuple(got.shape) == (2, 5, 4, want.shape[-1])
+    if kind == "conv_bf16":      # assert_close's own bf16 tolerances
+        torch.testing.assert_close(got.cpu(), want)
+    else:
+        torch.testing.assert_close(got.cpu(), want, atol=1e-5, rtol=1e-5)
+
+
+def test_train_test_predict_cli_on_the_card(tmp_path):
+    """`train` / `test` / `predict` on the card (the default device): exit
+    codes 0, the examples/sec line, training accuracy >= 0.9 on a
+    separable CSV, and predictions equal to the saved model's."""
+    _need_card()
+    import contextlib
+    import io
+    import re
+
+    from deeplearning4j_tpu_torch import cli
+    from deeplearning4j_tpu_torch.runtime.checkpoint import load_model
+
+    rng = np.random.default_rng(0)
+    labels = np.arange(150) % 3
+    x = (rng.standard_normal((150, 4)) * 0.3 + labels[:, None] * 2.0).astype(
+        np.float32)
+    csv = tmp_path / "iris.csv"
+    np.savetxt(csv, np.column_stack([x, labels]), delimiter=",", fmt="%.5f")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert cli.main(["train", "-input", str(csv), "-model",
+                         "zoo:iris-mlp", "-output", str(tmp_path / "run"),
+                         "-epochs", "20"]) == 0
+        assert cli.main(["test", "-input", str(csv), "-model",
+                         str(tmp_path / "run" / "model")]) == 0
+        assert cli.main(["predict", "-input", str(csv), "-model",
+                         str(tmp_path / "run" / "model"), "-output",
+                         str(tmp_path / "preds.txt")]) == 0
+    text = out.getvalue()
+    assert re.search(r"Trained 20 epochs on 150 examples \([\d.]+ "
+                     r"examples/sec\)", text)
+    assert float(re.search(r"Accuracy:\s+([\d.]+)", text).group(1)) >= 0.9
+    net = load_model(tmp_path / "run" / "model")
+    assert net.device.type == "cuda"
+    np.testing.assert_array_equal(
+        np.loadtxt(tmp_path / "preds.txt", dtype=int), net.predict(x))
+
+
+@pytest.mark.parametrize("name", ["lenet-mnist", "lenet-digits",
+                                  "alexnet-cifar10", "dbn-mnist",
+                                  "deep-autoencoder"])
+def test_conv_and_pretrain_zoo_models_train_on_the_card(name):
+    """Each zoo model of slice 8 builds on the card by default and trains
+    (the DBN and the deep autoencoder pretrain first): finite losses,
+    parameters on the card, f32 masters."""
+    _need_card()
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork, get_model
+
+    shape = {"lenet-mnist": (16, 28, 28, 1), "lenet-digits": (16, 8, 8, 1),
+             "alexnet-cifar10": (16, 32, 32, 3)}.get(name, (16, 784))
+    rng = np.random.default_rng(2)
+    x = (rng.random(shape) > 0.5).astype(np.float32)
+    y = (x if name == "deep-autoencoder"
+         else np.eye(10, dtype=np.float32)[rng.integers(0, 10, 16)])
+    net = MultiLayerNetwork(get_model(name)).init()
+    assert net.device.type == "cuda"
+    net.fit([(x[:8], y[:8]), (x[8:], y[8:])], epochs=2)
+    loss = net.score(x, y)
+    assert math.isfinite(loss)
+    assert all(p.is_cuda and p.dtype == torch.float32
+               for _, p in net._param_leaves())
+    assert bool(net.pretrain_errors) == (name in ("dbn-mnist",
+                                                  "deep-autoencoder"))
+    assert net.output(x).shape == y.shape

@@ -480,26 +480,29 @@ def test_network_needs_a_card_unless_the_cpu_is_asked_for(monkeypatch):
                                   "lenet-digits", "dbn-mnist",
                                   "deep-autoencoder"])
 def test_unported_layer_types_raise_naming_the_roadmap(name):
-    with pytest.raises(NotImplementedError, match="A3b"):
-        TNet(tzoo.get_model(name), device="cpu")
+    """These five zoo models were refused until their layers (convolution,
+    subsampling, RBM, autoencoder) were ported: each now builds, inits on
+    the CPU and gives the JAX net's `output` on the same weights."""
+    from test_torch_conv import pair
+
+    jn, tn = pair(jzoo.get_model(name))
+    shape = {"lenet-mnist": (2, 28, 28, 1), "lenet-digits": (2, 8, 8, 1),
+             "alexnet-cifar10": (2, 32, 32, 3)}.get(name, (2, 784))
+    x = np.random.default_rng(7).random(shape, dtype=np.float32)
+    out = tn.output(x)
+    assert out.shape == jn.output(x).shape
+    np.testing.assert_allclose(_np(out), np.asarray(jn.output(x)),
+                               atol=1e-5)
 
 
 @pytest.mark.parametrize("call", [
     lambda n: n.set_precision("bf16"), lambda n: n.fit_chunk_async(None, None),
-    lambda n: n.pretrain(None), lambda n: n.output_bucketed(None),
+    lambda n: n.output_bucketed(None),
     lambda n: n.merge([]), lambda n: n.fit((None, None), chunk_size=2),
     lambda n: n.fit((None, None), precision="mixed")],
-    ids=["set_precision", "fit_chunk_async", "pretrain", "output_bucketed",
+    ids=["set_precision", "fit_chunk_async", "output_bucketed",
          "merge", "chunked_fit", "fit_precision"])
 def test_left_out_parts_raise_naming_the_roadmap(call):
     tn = TNet(tzoo.iris_mlp(), device="cpu").init()
     with pytest.raises(NotImplementedError, match="A3b"):
         call(tn)
-
-
-def test_line_search_solvers_raise_naming_the_roadmap():
-    conf = dataclasses.replace(tzoo.iris_mlp(), conf=dataclasses.replace(
-        tzoo.iris_mlp().conf, optimization_algo="lbfgs"))
-    tn = TNet(conf, device="cpu").init()
-    with pytest.raises(NotImplementedError, match="A3b"):
-        tn.fit((np.zeros((2, 4), np.float32), np.zeros((2, 3), np.float32)))
