@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's LM serving and training paths and its
 `MultiLayerNetwork` (the char-LSTM, the conv nets, DBN pretraining, the
-solvers and the training CLI) on one NVIDIA GPU and check them.
+solvers, the training CLI and the precision plane) on one NVIDIA GPU and
+check them.
 
     python3 chip_smoke.py            # every phase, from the repo root
 
@@ -15,7 +16,8 @@ Phases (any failure exits non-zero, and no result line is printed):
              merge) against its plain PyTorch version on the card (B=8,
              H=12, page 16, 64 pages per lane; C=1 and C=16 at K=64, the
              served widths, and C=128 at K=64 and C=64 at K=128, the wide
-             prefill chunks; float32 and bfloat16; ragged pos/n_feed, an
+             prefill chunks; float32 and bfloat16, and float16 at C=1
+             and C=16 (its FMA route); ragged pos/n_feed, an
              inactive lane, page straddles, shuffled physical pages; max
              abs error at fed columns <= 1e-4 / 2e-2, and each lane's
              <= 1e-4 / 1e-2 of its largest reference value), each
@@ -24,14 +26,16 @@ Phases (any failure exits non-zero, and no result line is printed):
              history (a yardstick the port never calls) and its bound.
 4. flash   — the flash-attention forward, dK/dV and dQ kernels against
              their plain versions in f32 on the same inputs (B=2, H=12;
-             D 64 and 128; S 1024 and 1000; causal and not; float32 and
-             bfloat16; relative max error <= 1e-4 / 2e-2; each entry's
-             route: bfloat16 on the tensor cores, float32 and bfloat16 at
-             D=20 on the FMA pipes), the tensor-core backward also against
+             D 64 and 128; S 1024 and 1000; causal and not; float32,
+             bfloat16 and float16; relative max error <= 1e-4 / 2e-2 /
+             2e-2; each entry's route: bfloat16 on the tensor cores,
+             float32, float16 and bfloat16 at D=20 on the FMA pipes), the
+             tensor-core backward also against
              the plain backward with P and dS rounded to bfloat16
              (relative 5e-3), and at S=1024, D=64 causal timed against the
              plain versions, SDPA (forward; forward + backward, and the
-             backward alone, for the backward pair) and their bounds.
+             backward alone, for the backward pair) and their bounds, in
+             bfloat16 and in float16.
 5. serve   — `ContinuousLMServer` at ``gpt2_small(max_len=1024)`` width in
              bfloat16 (random weights from a numpy seed), 12 concurrent
              requests sharing a 128-token prefix; checks completion, vocab
@@ -55,12 +59,14 @@ Phases (any failure exits non-zero, and no result line is printed):
              ``POST /lm/generate`` checked against the plain forward.
 8. lstm    — the fused LSTM scan kernel against its plain version on the
              card over T {1, 64, 200} x B {1, 32, 33} x H {8, 37, 256,
-             1024}, float32 and bfloat16, with and without residuals
-             (relative max error of hs, cs, zs <= 1e-5 / 2e-2); f32
+             1024}, float32, bfloat16 and float16, with and without
+             residuals (relative max error of hs, cs, zs <= 1e-5 / 2e-2 /
+             2e-2; float16 plans as bfloat16 does); f32
              gradients through it against autograd through the plain
              steps (relative 1e-4); at the char-LSTM shape (T 64, B 32,
              H 256) timed against the plain version, its bound and
-             ``torch.nn.LSTM(80, 256)`` (cuDNN) forward over [64, 32, 80].
+             ``torch.nn.LSTM(80, 256)`` (cuDNN) forward over [64, 32, 80],
+             in each dtype.
 9. rnn     — `MultiLayerNetwork(char_lstm(compute_dtype="bfloat16"))` at
              full width (vocab 80, hidden 256), the bench_lstm recipe
              (batch 32 x 64 one-hot characters, Adam lr 0.01): 3 warm-up
@@ -124,6 +130,28 @@ Phases (any failure exits non-zero, and no result line is printed):
              steps; `dbn_mnist` `fit` (1 epoch of greedy
              pretraining, then SGD) over 6000 binarized synthetic images
              at batch 100, each RBM's reconstruction error falling.
+12. precision — the precision plane: the char-LSTM at full width under
+             "mixed" (float32 masters, bfloat16 compute, dynamic loss
+             scaling) and under float16 compute with loss scaling, 3
+             warm-up and 20 timed `fit_batch` steps each (B5 once a step,
+             losses finite and falling, masters f32, the scaler's
+             state), then one poison batch (parameters and updater state
+             bitwise unchanged, the scale halved, one overflow); the
+             float16 char-LSTM's loss and gradients at batch 8 against
+             the port's CPU float16 and float32 runs (slice 8's bf16
+             rule); LeNet-MNIST under mixed at batch 256 over 8 staged
+             batches and a ragged tail, `fit(chunk_size=8)` against the
+             `fit_batch` loop (examples/s of each), host reads a chunk,
+             float32 chunk 1 against 8 bitwise, mixed chunk 1 against 8
+             beside chunk 1's run-to-run difference, `train_state_bytes`
+             for fp32 and mixed beside the measured peak; `QuantizedNet`
+             of a trained `mnist_mlp` and AlexNet-CIFAR10 through
+             `output_bucketed` on the ladder (1, 8, 32) (top-1 agreement
+             >= 0.99, parameter bytes >= 3.5x smaller, bucketed = the
+             padded dispatch bitwise, input signatures <= buckets); and
+             ``cli train -precision mixed -chunk 8`` on a seeded Iris CSV
+             (exit 0, accuracy >= 0.9, the ``precision:`` lines, the CSV
+             read by the native library that g++ built).
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device time per
 call (`device_ms`: the calls are queued behind a spin kernel, so they run
@@ -157,9 +185,10 @@ KERNEL_REPLACES = "deeplearning4j_tpu/parallel/paged_kernel.py:77"
 KERNEL_SOURCE = "deeplearning4j_tpu_torch/csrc/paged_attention.cu"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_OPS = {"float32": 67e12,      # fp32 outside the tensor cores
-            "bfloat16": 989e12}    # bf16 dense tensor-core peak
+            "bfloat16": 989e12,    # bf16 dense tensor-core peak
+            "float16": 989e12}     # fp16 dense tensor-core peak
 PHASES = ("kernel", "flash", "serve", "parity", "train", "lstm", "rnn",
-          "decode", "mln")
+          "decode", "mln", "precision")
 # what the times of the kernels line measure
 TIMING_NOTE = {
     "ms": "device time per call: calls queued behind a spin kernel, run "
@@ -242,9 +271,11 @@ def device_ms(fn, iters: int = 50, warmup: int = 3, reps: int = 3) -> float:
 
 
 # (C, K) of the kernel phase: decode and the served 16-column chunk, then
-# the wide prefill chunks the first design refused
+# the wide prefill chunks the first design refused; float16 at the main
+# shapes (decode and the 16-column chunk)
 KERNEL_CASES = ((1, 64), (16, 64), (128, 64), (64, 128), (1, 384),
                 (16, 512))
+KERNEL_F16_CASES = ((1, 64), (16, 64))
 
 
 def kernel_inputs(c: int, dtype, kd: int = 64, layers: int = 12,
@@ -422,7 +453,22 @@ def paged_route_names() -> dict:
         "C=1": "fma (vectorised warp dot products)",
         "C>1": f"tensor_cores (mma.sync m16n8k16, 16 columns a block) up "
                f"to K={MAX_MMA_HEAD_DIM}, fma (4 columns a block) above"},
-        "float32": "fma"}
+        "float32": "fma",
+        "float16": "fma (vectorised warp dot products; 1 column a block at "
+                   "C=1, 4 above)"}
+
+
+def dtype_summary(case: dict, timing: dict = None) -> dict:
+    """A kernel's keys for one dtype's case: route, device ms, plain and
+    library ms, bound, error."""
+    t = case if timing is None else timing
+    return {"dtype": case["dtype"], "route": case["route"],
+            "ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
+            "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "max_abs_err": (case["max_abs_err"] if timing is None
+                            else max(case["max_abs_err"].values())),
+            "shape": case["shape"]}
 
 
 # ---------------------------------------------------------------------------
@@ -620,7 +666,7 @@ def flash_phase(card: str) -> list:
     for d in FLASH_DS:
         for s in (1024, 1000):
             for causal in (True, False):
-                for dt in ("float32", "bfloat16"):
+                for dt in ("float32", "bfloat16", "float16"):
                     case = flash_case(s, causal, dt, d=d, timed=(
                         s == 1024 and causal and d == FLASH_D))
                     cases.append(case)
@@ -655,7 +701,7 @@ def flash_phase(card: str) -> list:
     # head dims above 128: the D-chunked route
     for d in FLASH_WIDE_DS:
         for causal in (True, False):
-            for dt in ("float32", "bfloat16"):
+            for dt in ("float32", "bfloat16", "float16"):
                 case = flash_case(500, causal, dt, timed=False, d=d)
                 cases.append(case)
                 log(f"flash: S=500 D={d} causal={causal} {dt} (routes "
@@ -1795,13 +1841,13 @@ def lstm_phase(card: str) -> dict:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    worst = {"float32": 0.0, "bfloat16": 0.0}
-    worst_abs = {"float32": 0.0, "bfloat16": 0.0}
+    worst = {"float32": 0.0, "bfloat16": 0.0, "float16": 0.0}
+    worst_abs = {"float32": 0.0, "bfloat16": 0.0, "float16": 0.0}
     cases = 0
     for t in (1, 64, 200):
         for b in (1, 32, 33):
             for h in (8, 37, 256, 1024):
-                for dt in ("float32", "bfloat16"):
+                for dt in ("float32", "bfloat16", "float16"):
                     for res in (False, True):
                         args = lstm_inputs(t, b, h, getattr(torch, dt),
                                            seed=cases, batch_major=res)
@@ -1823,7 +1869,8 @@ def lstm_phase(card: str) -> dict:
                             for a, w in zip(got, want) if w is not None))
                         cases += 1
     log(f"lstm: {cases} cases, worst relative error f32 "
-        f"{worst['float32']:.3g}, bf16 {worst['bfloat16']:.3g}")
+        f"{worst['float32']:.3g}, bf16 {worst['bfloat16']:.3g}, f16 "
+        f"{worst['float16']:.3g}")
 
     # the cluster route's limit and one past it, and batches past the
     # wide route's first ceiling (B 3039 at H 1024): each on the route its
@@ -1832,6 +1879,7 @@ def lstm_phase(card: str) -> dict:
     limits = []
     for t, b, h, dt in ((20, 33, 384, "float32"), (20, 33, 385, "float32"),
                         (20, 33, 512, "bfloat16"), (20, 33, 513, "bfloat16"),
+                        (20, 33, 512, "float16"), (20, 33, 513, "float16"),
                         (8, 3040, 1024, "float32"), (8, 4096, 1024, "float32"),
                         (8, 3040, 1024, "bfloat16"),
                         (8, 4096, 1024, "bfloat16")):
@@ -1890,7 +1938,7 @@ def lstm_phase(card: str) -> dict:
 
     lib_lstm = torch.nn.LSTM(LSTM_V, LSTM_H).cuda()
     timing = {}
-    for dt in ("bfloat16", "float32"):
+    for dt in ("bfloat16", "float32", "float16"):
         dtype = getattr(torch, dt)
         args = lstm_inputs(LSTM_T, LSTM_B, LSTM_H, dtype, seed=9,
                            batch_major=True)
@@ -1938,7 +1986,7 @@ def lstm_phase(card: str) -> dict:
             "worst_abs_err": worst_abs, "grad_rel_err": grads,
             "timing": timing, "limits": limits, "output_4096": output_4096,
             "plan": {dt: lk.launch_plan(getattr(torch, dt), LSTM_B, LSTM_H)
-                     for dt in ("bfloat16", "float32")},
+                     for dt in ("bfloat16", "float32", "float16")},
             "library": LSTM_LIBRARY}
 
 
@@ -2718,6 +2766,479 @@ def mln_phase(card: str, profile: bool = False) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the precision plane — loss-scaled training (B5 under mixed and
+# float16), the fused chunked fit, int8 serving and the train CLI's flags
+
+PREC_WARMUP, PREC_STEPS = 3, 20
+PREC_PARITY_B = 8
+PREC_LENET_B, PREC_LENET_BATCHES, PREC_LENET_TAIL = 256, 8, 100
+PREC_CHUNK, PREC_EPOCHS = 8, 3
+PREC_LADDER = (1, 8, 32)
+PREC_REQUESTS = (1, 5, 8, 20, 32, 32, 30)       # 128 examples, ragged
+PREC_AGREEMENT, PREC_BYTES_RATIO = 0.99, 3.5
+# AlexNet-CIFAR10 for the int8 leg, trained until its logits are not
+# near-ties (on the CPU this recipe reaches accuracy 1.0 on held-out
+# synthetic_cifar10 by step 60; SGD at lr 0.01 stays near chance there)
+ALEX_Q_CONF = dict(updater="adam", learning_rate=3e-4, dropout=0.0)
+ALEX_Q_STEPS, ALEX_Q_BATCHES = 60, 8
+
+
+def f16_policy():
+    from deeplearning4j_tpu_torch.precision import (
+        LossScaleConfig,
+        PrecisionPolicy,
+    )
+
+    return PrecisionPolicy("float32", "float16",
+                           loss_scale=LossScaleConfig())
+
+
+def tree_bytes_snapshot(tree) -> list:
+    """Every leaf of a tree copied to the host, for a bitwise check."""
+    from deeplearning4j_tpu_torch.tree import tree_leaves
+
+    return [t.detach().cpu().clone() for t in tree_leaves(tree)]
+
+
+def loss_scaled_char_lstm(policy, name: str, card: str) -> dict:
+    """The char-LSTM at full width under a loss-scaled policy: warm-up and
+    timed `fit_batch` steps (B5 once a step, losses finite and falling,
+    masters f32, the scaler's state), then one poison batch (an inf
+    feature): parameters and updater state bitwise at their pre-step
+    values, the scale halved, one overflow counted (the loss itself may
+    stay finite: saturated gates turn the inf into NaN only in the
+    backward)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork, char_lstm
+    from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
+
+    x, y = char_batch()
+    net = MultiLayerNetwork(char_lstm()).init().set_precision(policy)
+    losses = [net.fit_batch(x, y) for _ in range(PREC_WARMUP)]
+    torch.cuda.synchronize()
+    lk.fused_lstm_forward.launches.reset()
+    step_ms = []
+    t0 = time.perf_counter()
+    for _ in range(PREC_STEPS):
+        ts = time.perf_counter()
+        losses.append(net.fit_batch(x, y))
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+    wall = time.perf_counter() - t0
+    launches = lk.fused_lstm_forward.launches.value
+    stats = net.scaler_stats()
+    dtypes = {str(p.dtype) for _, p in net._param_leaves()}
+    out = {"policy": net.precision.describe(), "launches": launches,
+           "launches_per_step": launches / PREC_STEPS, "losses": losses,
+           "step_ms_mean": wall * 1e3 / PREC_STEPS,
+           "step_ms_min": min(step_ms), "step_ms_max": max(step_ms),
+           "examples_per_s": LSTM_B * PREC_STEPS / wall,
+           "scaler_stats": stats, "masters": sorted(dtypes)}
+    if launches != PREC_STEPS or dtypes != {"torch.float32"} or \
+            not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0] or stats["overflow_count"] != 0 or \
+            stats["good_steps"] != PREC_WARMUP + PREC_STEPS:
+        raise AssertionError(f"precision: {name} char-LSTM: {out}")
+    before = (tree_bytes_snapshot(net.params),
+              tree_bytes_snapshot(net.updater_state))
+    scale = stats["scale"]
+    poison = x.clone()
+    poison[3, 7, 0] = float("inf")
+    bad_loss = net.fit_batch(poison, y)
+    after = (tree_bytes_snapshot(net.params),
+             tree_bytes_snapshot(net.updater_state))
+    same = all(torch.equal(a, b) for pa, pb in zip(before, after)
+               for a, b in zip(pa, pb))
+    stats = net.scaler_stats()
+    out["overflow"] = {"loss": bad_loss, "state_bitwise_unchanged": same,
+                       "scaler_stats": stats}
+    if not same or stats["overflow_count"] != 1 or \
+            stats["scale"] != scale / 2:
+        raise AssertionError(f"precision: {name} overflow step: "
+                             f"{out['overflow']}")
+    log(f"precision: {name} char-LSTM batch {LSTM_B}x{LSTM_T}: step "
+        f"{out['step_ms_mean']:.3f} ms (min {out['step_ms_min']:.3f}, max "
+        f"{out['step_ms_max']:.3f}), {out['examples_per_s']:.1f} "
+        f"examples/s, B5 {launches} launches in {PREC_STEPS} steps, losses "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, scaler {out['scaler_stats']};"
+        f" poison batch: state bitwise unchanged, scaler {stats} ({card})")
+    del net
+    torch.cuda.empty_cache()
+    return out
+
+
+def f16_char_lstm_parity() -> dict:
+    """float16 compute at batch `PREC_PARITY_B`: the loss and gradients of
+    the char-LSTM on the card (B5 in f16) against the port's CPU runs on
+    the same weights, in float16 and in float32: the loss within 1e-3 of
+    the CPU's f16 loss, the gradients no further from the CPU's f32 ones
+    (relative L2 over every leaf) than twice the CPU's f16 gradients
+    are (slice 8's bf16 rule)."""
+    import dataclasses
+
+    import torch
+
+    from deeplearning4j_tpu_torch.models import (
+        MultiLayerNetwork,
+        char_lstm,
+        params_from_numpy,
+    )
+
+    x, y = char_batch()
+    x, y = x[:PREC_PARITY_B], y[:PREC_PARITY_B]
+    conf = char_lstm()
+    f16 = dataclasses.replace(conf, conf=dataclasses.replace(
+        conf.conf, compute_dtype="float16"))
+    nets = {"card": MultiLayerNetwork(f16).init(),
+            "cpu": MultiLayerNetwork(f16, device="cpu").init(),
+            "cpu_f32": MultiLayerNetwork(conf, device="cpu").init()}
+    ref = nets["cpu"].params_flat()
+    got = {}
+    for name, net in nets.items():
+        net.params = params_from_numpy(net, ref)
+        xs, ys = x.to(net.device), y.to(net.device)
+        loss, _ = net._objective(net.params, net.state, xs, ys, None)
+        got[name] = (loss.item(), [(n, g.detach().float().cpu()) for n, g
+                                   in sorted_grads(net._grads(loss))])
+    card, cpu, f32 = got["card"], got["cpu"], got["cpu_f32"]
+    report = {"batch": PREC_PARITY_B, "loss_card": card[0],
+              "loss_cpu": cpu[0], "loss_cpu_f32": f32[0],
+              "loss_rel_err": abs(card[0] - cpu[0]) / abs(cpu[0]),
+              "grad_l2_err": grads_l2_err(card[1], cpu[1]),
+              "grad_l2_err_vs_f32": grads_l2_err(card[1], f32[1]),
+              "cpu_grad_l2_err_vs_f32": grads_l2_err(cpu[1], f32[1])}
+    if not (report["loss_rel_err"] <= MLN_BF16_LOSS_TOL
+            and report["grad_l2_err_vs_f32"] <= MLN_BF16_GRAD_RATIO
+            * report["cpu_grad_l2_err_vs_f32"]):
+        raise AssertionError(f"precision: f16 char-LSTM card vs CPU: "
+                             f"{report}")
+    return report
+
+
+def lenet_batches_with_tail():
+    """`PREC_LENET_BATCHES` staged LeNet batches of `PREC_LENET_B` plus a
+    ragged tail of `PREC_LENET_TAIL`, as host arrays."""
+    from deeplearning4j_tpu_torch.datasets.fetchers import synthetic_mnist
+
+    b = PREC_LENET_B
+    ds = synthetic_mnist(b * PREC_LENET_BATCHES + PREC_LENET_TAIL)
+    return [(ds.features[i:i + b], ds.labels[i:i + b])
+            for i in range(0, len(ds.features), b)]
+
+
+def lenet_fit(policy, batches, chunk=None, epochs: int = 1):
+    """A fresh seeded LeNet (SGD) under `policy`, fit over `batches`;
+    (net, seconds)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork, lenet_mnist
+
+    net = MultiLayerNetwork(lenet_mnist(updater="sgd")).init()
+    net.set_precision(policy)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net.fit(batches, epochs=epochs, chunk_size=chunk)
+    torch.cuda.synchronize()
+    return net, time.perf_counter() - t0
+
+
+def chunked_lenet(card: str) -> dict:
+    """LeNet-MNIST at batch 256 over 8 staged batches plus a ragged tail:
+    `fit(chunk_size=8)` against the `fit_batch` loop under mixed
+    (examples/s of each, bench_lenet's two figures, recorded); host reads
+    a chunk; f32 chunk 1 against 8 bitwise; mixed chunk 1 against 8 and
+    chunk 1 against itself; `train_state_bytes` for fp32 and mixed beside
+    the measured peak."""
+    import torch
+
+    from deeplearning4j_tpu_torch.optimize import ScoreIterationListener
+
+    batches = lenet_batches_with_tail()
+    n_ex = sum(len(x) for x, _ in batches)
+    out = {"batch": PREC_LENET_B, "batches": len(batches),
+           "tail": PREC_LENET_TAIL, "chunk": PREC_CHUNK,
+           "epochs": PREC_EPOCHS}
+    lenet_fit("mixed", batches, PREC_CHUNK)           # warm-up
+    for mode, chunk in (("fit_batch", None), ("chunk", PREC_CHUNK)):
+        net, s = lenet_fit("mixed", batches, chunk, PREC_EPOCHS)
+        out[f"{mode}_examples_per_s"] = n_ex * PREC_EPOCHS / s
+        out[f"{mode}_s"] = s
+        out[f"{mode}_score"] = float(np.mean([net.score(x, y)
+                                              for x, y in batches]))
+    # host reads: a score listener due at every chunk's end
+    reads = []
+    real_cpu = torch.Tensor.cpu
+
+    def counting_cpu(self, *a, **kw):
+        reads.append(tuple(self.shape))
+        return real_cpu(self, *a, **kw)
+
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork, lenet_mnist
+
+    net = MultiLayerNetwork(lenet_mnist(updater="sgd")).init()
+    net.set_precision("mixed")
+    net.add_listener(ScoreIterationListener(print_iterations=PREC_CHUNK,
+                                            out=lambda s: None))
+    torch.Tensor.cpu = counting_cpu
+    try:
+        net.fit(batches, chunk_size=PREC_CHUNK, prefetch=0)
+    finally:
+        torch.Tensor.cpu = real_cpu
+    n_chunks = 1 + (len(batches) - PREC_CHUNK)          # [8] + the [1] tail
+    out["host_reads"] = len(reads)
+    out["host_reads_per_chunk"] = len(reads) / n_chunks
+    if len(reads) != 1:                    # only the first chunk is due
+        raise AssertionError(f"precision: {len(reads)} host reads in "
+                             f"{n_chunks} chunks, one due listener: "
+                             f"{reads}")
+    # f32: chunk 1 against chunk 8, bitwise (im2col and cuBLAS at fixed
+    # shapes); mixed: the largest difference beside chunk 1's run-to-run
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        flat = {k: lenet_fit("fp32", batches, k)[0].params_flat()
+                for k in (1, PREC_CHUNK)}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    out["f32_chunk1_vs_8_bitwise"] = bool(
+        flat[1].tobytes() == flat[PREC_CHUNK].tobytes())
+    if not out["f32_chunk1_vs_8_bitwise"]:
+        raise AssertionError(
+            f"precision: f32 chunk 1 vs {PREC_CHUNK} differ by "
+            f"{float(np.abs(flat[1] - flat[PREC_CHUNK]).max())}")
+    mixed = [lenet_fit("mixed", batches, k)[0].params_flat()
+             for k in (1, 1, PREC_CHUNK)]
+    out["mixed_chunk1_vs_8_max_abs_diff"] = float(
+        np.abs(mixed[0] - mixed[2]).max())
+    out["mixed_chunk1_run_to_run_max_abs_diff"] = float(
+        np.abs(mixed[0] - mixed[1]).max())
+    # the training-state model beside the measured peak of one step
+    x = torch.from_numpy(batches[0][0]).cuda()
+    y = torch.from_numpy(batches[0][1]).cuda()
+    out["train_state"] = {}
+    for policy in ("fp32", "mixed"):
+        net = MultiLayerNetwork(lenet_mnist(updater="sgd")).init()
+        net.set_precision(policy)
+        net.fit_batch(x, y)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        net.fit_batch(x, y)
+        torch.cuda.synchronize()
+        out["train_state"][policy] = {
+            "train_state_bytes": net.train_state_bytes(batches[0][0]),
+            "peak_bytes": torch.cuda.max_memory_allocated(),
+            "peak_above_resident_bytes":
+                torch.cuda.max_memory_allocated() - base}
+        del net
+    log(f"precision: lenet mixed batch {PREC_LENET_B}, {len(batches)} "
+        f"batches ({PREC_LENET_TAIL}-row tail) x {PREC_EPOCHS} epochs: "
+        f"fit_batch loop {out['fit_batch_examples_per_s']:.1f} examples/s, "
+        f"fit(chunk_size={PREC_CHUNK}) {out['chunk_examples_per_s']:.1f} "
+        f"examples/s; host reads {out['host_reads']} in {n_chunks} chunks; "
+        f"f32 chunk 1 vs {PREC_CHUNK} bitwise; mixed chunk 1 vs "
+        f"{PREC_CHUNK} {out['mixed_chunk1_vs_8_max_abs_diff']:.3g}, run to "
+        f"run {out['mixed_chunk1_run_to_run_max_abs_diff']:.3g}; state "
+        f"{out['train_state']} ({card})")
+    torch.cuda.empty_cache()
+    return out
+
+
+def quantized_serving(name: str, net, x: np.ndarray) -> dict:
+    """`QuantizedNet` of a trained net through `output_bucketed` on the
+    ladder `PREC_LADDER`, fed as ragged requests: top-1 agreement with
+    the float net, resident bytes, bucketed = a dispatch of the padded
+    batch (bitwise), the unpadded difference reported, and the forward's
+    input signatures at most the buckets."""
+    import torch
+
+    from deeplearning4j_tpu_torch.precision import QuantizedNet
+    from deeplearning4j_tpu_torch.serving import BucketLadder
+
+    q = QuantizedNet(net)
+    ladder = BucketLadder(PREC_LADDER)
+    outs, bitwise, unpadded = [], True, 0.0
+    i = 0
+    for n in PREC_REQUESTS:
+        xr = x[i:i + n]
+        i += n
+        got = q.output_bucketed(xr, ladder=ladder)
+        b = ladder.batch_bucket(n)
+        padded = np.concatenate([xr, np.zeros((b - n,) + xr.shape[1:],
+                                              xr.dtype)])
+        want = q.output(padded).float().cpu().numpy()[:n]
+        bitwise &= got.tobytes() == want.tobytes()
+        # the unpadded dispatch, through the forward itself (`output`
+        # would add its shape to the signatures counted below)
+        alone = q._forward(torch.from_numpy(xr).cuda(), None)
+        unpadded = max(unpadded, float(np.abs(
+            got - alone.float().cpu().numpy()).max()))
+        outs.append(got)
+    got = np.concatenate(outs)
+    agree = float((got.argmax(-1) == net.predict(x[:i])).mean())
+    rep = q.quantization_report()
+    out = {"examples": i, "requests": list(PREC_REQUESTS),
+           "ladder": list(PREC_LADDER), "top1_agreement": agree,
+           "bytes_ratio": rep["float_param_bytes"] / rep["param_bytes"],
+           "report": rep, "bucketed_equals_padded_dispatch": bitwise,
+           "unpadded_max_abs_diff": unpadded,
+           "forward_program_count": q.forward_program_count()}
+    if not (agree >= PREC_AGREEMENT and out["bytes_ratio"] >= PREC_BYTES_RATIO
+            and bitwise and out["forward_program_count"] <= len(PREC_LADDER)):
+        raise AssertionError(f"precision: quantized {name}: {out}")
+    del q
+    torch.cuda.empty_cache()
+    return out
+
+
+def quantized_phase(card: str) -> dict:
+    """`QuantizedNet` on `mnist_mlp` (bench_precision's serving leg:
+    trained 10 steps on separable synthetic classes) and on AlexNet-
+    CIFAR10 (trained on `synthetic_cifar10` at batch 128) through
+    `output_bucketed`."""
+    from deeplearning4j_tpu_torch.datasets.fetchers import synthetic_cifar10
+    from deeplearning4j_tpu_torch.models import (
+        MultiLayerNetwork,
+        alexnet_cifar10,
+        mnist_mlp,
+    )
+
+    rng = np.random.default_rng(0)
+    sy = rng.integers(0, 10, 512)
+    sx = rng.normal(0, 0.3, (512, 784)).astype(np.float32)
+    sx[np.arange(512), sy * 78] += 3.0
+    mlp = MultiLayerNetwork(mnist_mlp()).init()
+    for _ in range(10):
+        mlp.fit_batch(sx, np.eye(10, dtype=np.float32)[sy])
+    probe = rng.normal(0, 0.3, (128, 784)).astype(np.float32)
+    probe[np.arange(128), (np.arange(128) % 10) * 78] += 3.0
+    out = {"mnist_mlp": quantized_serving("mnist_mlp", mlp, probe)}
+    del mlp
+    ds = synthetic_cifar10(128 * (ALEX_Q_BATCHES + 1))
+    alex = MultiLayerNetwork(alexnet_cifar10(**ALEX_Q_CONF)).init()
+    for i in range(ALEX_Q_STEPS):
+        b = i % ALEX_Q_BATCHES
+        alex.fit_batch(ds.features[b * 128:(b + 1) * 128],
+                       ds.labels[b * 128:(b + 1) * 128])
+    held = ds.features[ALEX_Q_BATCHES * 128:]
+    out["alexnet_cifar10"] = quantized_serving("alexnet_cifar10", alex, held)
+    out["alexnet_cifar10"]["float_accuracy"] = float(
+        (alex.predict(held) == ds.labels[ALEX_Q_BATCHES * 128:].argmax(-1))
+        .mean())
+    out["alexnet_cifar10"]["training"] = dict(ALEX_Q_CONF,
+                                              steps=ALEX_Q_STEPS,
+                                              batch=128)
+    for name, r in out.items():
+        log(f"precision: QuantizedNet {name}: top-1 agreement "
+            f"{r['top1_agreement']:.4f} over {r['examples']} examples, "
+            f"param bytes {r['report']['param_bytes']} vs "
+            f"{r['report']['float_param_bytes']} ({r['bytes_ratio']:.2f}x), "
+            f"bucketed = padded dispatch {r['bucketed_equals_padded_dispatch']}"
+            f", unpadded diff {r['unpadded_max_abs_diff']:.3g}, signatures "
+            f"{r['forward_program_count']} for "
+            f"{len(PREC_LADDER)} buckets ({card})")
+    return out
+
+
+def precision_cli(card: str) -> dict:
+    """``cli train -precision mixed -chunk 8`` on the seeded Iris CSV, in
+    this process: exit 0, accuracy >= 0.9, the ``precision:`` lines, and
+    the CSV read by the native library (built by g++ here)."""
+    import contextlib
+    import io
+    import re
+    import tempfile
+
+    from deeplearning4j_tpu_torch import cli, native
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-prec-") as tmp:
+        csv = f"{tmp}/iris.csv"
+        iris_like_csv(csv)
+        before = native.READS["csv_read"]
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["train", "-input", csv, "-model", "zoo:iris-mlp",
+                           "-output", f"{tmp}/run", "-epochs", "30",
+                           "-batch", "32", "-precision", "mixed", "-chunk",
+                           str(PREC_CHUNK)])
+        s = time.perf_counter() - t0
+    text = buf.getvalue()
+    acc = re.search(r"Accuracy:\s+([\d.]+)", text)
+    rate = re.search(r"\(([\d.]+) examples/sec\)", text)
+    out = {"rc": rc, "s": s,
+           "accuracy": float(acc.group(1)) if acc else None,
+           "examples_per_s": float(rate.group(1)) if rate else None,
+           "precision_lines": [ln for ln in text.splitlines()
+                               if ln.startswith("precision:")],
+           "have_native": native.have_native(),
+           "native_library": str(native.library_path()),
+           "native_csv_reads": native.READS["csv_read"] - before}
+    if not (rc == 0 and out["accuracy"] is not None
+            and out["accuracy"] >= 0.9 and len(out["precision_lines"]) == 2
+            and out["have_native"] and out["native_csv_reads"] == 1):
+        raise AssertionError(f"precision: cli {out}\n{text[-2000:]}")
+    log(f"precision: cli train -precision mixed -chunk {PREC_CHUNK}: rc 0, "
+        f"accuracy {out['accuracy']}, {out['examples_per_s']} examples/s, "
+        f"{out['precision_lines']}; native csv reader used "
+        f"({out['native_library']}) ({card})")
+    return out
+
+
+def precision_phase(card: str) -> dict:
+    import torch
+
+    from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
+
+    t0 = time.perf_counter()
+    out = {"card": card}
+    out["mixed_char_lstm"] = loss_scaled_char_lstm("mixed", "mixed", card)
+    out["f16_char_lstm"] = loss_scaled_char_lstm(f16_policy(), "float16",
+                                                 card)
+    tf32 = (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        lk.fused_lstm_forward.launches.reset()
+        r = out["f16_char_lstm_parity"] = f16_char_lstm_parity()
+        r["b5_launches"] = lk.fused_lstm_forward.launches.value
+    finally:
+        torch.backends.cudnn.allow_tf32, \
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+    log(f"precision: f16 char-LSTM batch {PREC_PARITY_B} card vs CPU: loss "
+        f"rel err {r['loss_rel_err']:.3g} (limit {MLN_BF16_LOSS_TOL:g}); "
+        f"gradients L2 vs CPU f32: card f16 {r['grad_l2_err_vs_f32']:.3g}, "
+        f"CPU f16 {r['cpu_grad_l2_err_vs_f32']:.3g} (limit "
+        f"{MLN_BF16_GRAD_RATIO:g}x); card vs CPU f16 {r['grad_l2_err']:.3g}")
+    out["lenet_chunked"] = chunked_lenet(card)
+    out["quantized"] = quantized_phase(card)
+    out["cli"] = precision_cli(card)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"precision: phase in {out['seconds']:.1f} s")
+    return out
+
+
+def lstm_f16_entry(lstm: dict, precision) -> dict:
+    """The LSTM kernel's float16 keys: the timed train shape (with
+    residuals, what `fit` launches) and its launches in the precision
+    phase's float16 char-LSTM `fit_batch` steps."""
+    t = lstm["timing"]["float16_train"]
+    return {"dtype": "float16", "route": t["route"], "ms": t["kernel_ms"],
+            "step_us": t["step_us"], "plain_ms": t["plain_ms"],
+            "library_ms": t["library_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "max_rel_err": lstm["worst_rel_err"]["float16"],
+            "max_abs_err": lstm["worst_abs_err"]["float16"],
+            "inference_ms": lstm["timing"]["float16_inference"]["kernel_ms"],
+            "launches": (precision["f16_char_lstm"]["launches"]
+                         if precision else 0),
+            "launches_per_step": (precision["f16_char_lstm"]
+                                  ["launches_per_step"]
+                                  if precision else None)}
+
+
 def decode_launches(decode, kernel: str):
     """The decode phase's counts of a kernel's launches on its paths, each
     read from a run driven with the counts set to 0 just before it."""
@@ -2787,7 +3308,8 @@ def main(argv=None) -> int:
     if "kernel" in phases:
         cases = []
         for c, kd in KERNEL_CASES:
-            for dt in ("float32", "bfloat16"):
+            for dt in ("float32", "bfloat16") + (
+                    ("float16",) if (c, kd) in KERNEL_F16_CASES else ()):
                 case = kernel_case(c, dt, kd)
                 cases.append(case)
                 plan = case["split_plan"]
@@ -2832,6 +3354,7 @@ def main(argv=None) -> int:
     if "decode" in phases:
         decode = decode_phase(tree, card, profile=args.profile)
     mln = mln_phase(card, profile=args.profile) if "mln" in phases else None
+    precision = precision_phase(card) if "precision" in phases else None
 
     entries = []
     if kernels_line is not None:
@@ -2866,6 +3389,12 @@ def main(argv=None) -> int:
             "chunk_library_ms": chunk_case["library_ms"],
             "decode_launches": decode_launches(decode, "paged"),
             "split_plan": main_case["split_plan"],
+            "float16": dict(dtype_summary(next(
+                c for c in kernels_line
+                if c["C"] == 1 and c["dtype"] == "float16")),
+                chunk=dtype_summary(next(
+                    c for c in kernels_line
+                    if c["C"] == 16 and c["dtype"] == "float16"))),
             "cases": kernels_line,
         })
     if flash is not None:
@@ -2874,6 +3403,8 @@ def main(argv=None) -> int:
                          and c["dtype"] == "bfloat16" and c["D"] == FLASH_D)
         wide_case = next(c for c in flash if c["S"] == 1024 and
                          c["D"] == FLASH_WIDE_TIMED)
+        f16_case = next(c for c in flash if c["S"] == 1024 and c["causal"]
+                        and c["dtype"] == "float16" and c["D"] == FLASH_D)
         err_of = {"flash_fwd": ("out", "lse"), "flash_bwd_dkv": ("dk", "dv"),
                   "flash_bwd_dq": ("dq",)}
         kind_of = {"flash_fwd": "fwd", "flash_bwd_dkv": "dkv",
@@ -2924,6 +3455,16 @@ def main(argv=None) -> int:
                         "kernel_ms", "plain_ms", "bound_ms", "bound_by",
                         "library_ms")}},
                 "head_dim_256_grad_parity": head256,
+                "float16": dict(
+                    dtype_summary(f16_case, f16_case["timing"][kname]),
+                    route=f16_case["routes"][kind_of[kname]],
+                    max_abs_err=max(f16_case["max_abs_err"][n]
+                                    for n in err_of[kname]),
+                    max_rel_err=max(f16_case["max_rel_err"][n]
+                                    for n in err_of[kname]),
+                    **({} if kname == "flash_fwd" else {
+                        "library_bwd_ms":
+                            f16_case["timing"][kname]["library_bwd_ms"]})),
                 "cases": [{k: v for k, v in c.items() if k != "timing"}
                           for c in flash],
             })
@@ -2948,7 +3489,8 @@ def main(argv=None) -> int:
             "residuals": True, "timing": lstm["timing"],
             "grad_rel_err": lstm["grad_rel_err"], "cases": lstm["cases"],
             "limits": lstm["limits"], "output_4096": lstm["output_4096"],
-            "plan": lstm["plan"]})
+            "plan": lstm["plan"],
+            "float16": lstm_f16_entry(lstm, precision)})
     if entries:
         print(json.dumps({"kernels": entries, "timing": TIMING_NOTE}),
               flush=True)
@@ -2964,6 +3506,8 @@ def main(argv=None) -> int:
         print(json.dumps({"decode": decode}), flush=True)
     if mln is not None:
         print(json.dumps({"mln": mln}), flush=True)
+    if precision is not None:
+        print(json.dumps({"precision": precision}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)

@@ -3,6 +3,7 @@
     python -m deeplearning4j_tpu_torch.cli train -input data.csv
         -model zoo:iris-mlp|conf.json|<saved dir> [-output dir]
         [-conf props] [-epochs 50] [-batch 32] [-accum 1]
+        [-precision fp32|bf16|mixed] [-chunk 1]
         [-savemode binary|txt] [-device cuda|cpu]
     python -m deeplearning4j_tpu_torch.cli test -input data.csv
         -model <dir>/model
@@ -13,9 +14,11 @@ trains a `MultiLayerNetwork` on a CSV or SVMLight file with the local
 runtime (greedy pretraining first for a ``pretrain`` conf such as
 ``zoo:dbn-mnist``), saves ``<output>/model`` (`save_model`) and
 ``params.bin`` / ``params.txt`` (`save_params`), and prints the
-examples/sec line and the evaluation; ``test`` prints the evaluation of
-a saved model and ``predict`` writes its argmax classes one a line.  The
-JAX package reads every file they write.  Options whose code paths are
+examples/sec line and the evaluation (with ``-precision`` the
+``precision:`` policy line and the loss-scale summary first; ``-chunk
+K`` trains K steps a dispatch through the fused driver); ``test`` prints
+the evaluation of a saved model and ``predict`` writes its argmax
+classes one a line.  The JAX package reads every file they write.  Options whose code paths are
 not ported exit naming their ROADMAP.md queue.
 
     python -m deeplearning4j_tpu_torch.cli lm -input <text> [-output dir]
@@ -166,11 +169,6 @@ def _refuse_unported_train(args, props: Dict[str, str]) -> None:
          "modules"),
         (args.metrics_port is not None, "-metrics-port",
          "A4.10, the metrics registry"),
-        (props.get("train.precision", args.precision) != "fp32",
-         f"-precision {props.get('train.precision', args.precision)}",
-         "A3b part 2, precision policies"),
-        (int(props.get("train.chunk.size", args.chunk)) > 1, "-chunk",
-         "A3b part 2, chunked fit"),
     ]
     for refused, flag, queue in queues:
         if refused:
@@ -191,6 +189,7 @@ def cmd_train(args) -> int:
         save_model,
         save_params,
     )
+    from deeplearning4j_tpu_torch.runtime.fused import FusedTrainingDriver
 
     props = load_properties(args.conf)
     _refuse_unported_train(args, props)
@@ -211,13 +210,33 @@ def cmd_train(args) -> int:
         # greedy layer-wise pretraining for DBN / deep-AE confs; a saved
         # (already trained) model skips it
         net.pretrain(list(ds.shuffle(seed=0).batch_by(batch)), epochs=1)
+    precision = props.get("train.precision", args.precision)
+    if precision and precision != "fp32":
+        # "bf16": bf16 params and compute; "mixed": f32 masters, bf16
+        # compute, dynamic loss scaling
+        net.set_precision(precision)
+        print(f"precision: {net.precision.describe()}")
+    chunk = max(1, int(props.get("train.chunk.size", args.chunk)))
+    if chunk > 1 and accum > 1:
+        print("-accum is ignored with -chunk (a chunk steps over batches)")
+        accum = 1
     t0 = time.time()
-    last = None
-    for b in PrefetchDataSetIterator(batches()):
-        last = net.fit_batch_async(b.features, b.labels, accum_steps=accum)
-    if last is not None and device.type == "cuda":
-        torch.cuda.synchronize(device)
+    if chunk > 1:
+        # the fused driver: chunk steps a dispatch, the next chunk staged
+        # on the device from a background thread
+        FusedTrainingDriver(net, chunk_size=chunk).fit(batches())
+    else:
+        last = None
+        for b in PrefetchDataSetIterator(batches()):
+            last = net.fit_batch_async(b.features, b.labels,
+                                       accum_steps=accum)
+        if last is not None and device.type == "cuda":
+            torch.cuda.synchronize(device)
     elapsed = time.time() - t0
+    scaler = net.scaler_stats()
+    if scaler is not None:
+        print(f"precision: loss-scale {scaler['scale']:g}, "
+              f"{scaler['overflow_count']} overflow step(s) skipped")
     out = pathlib.Path(args.output or "dl4j-output")
     out.mkdir(parents=True, exist_ok=True)
     save_model(net, out / "model")
@@ -495,9 +514,12 @@ def build_parser() -> argparse.ArgumentParser:
                    type=int, default=1, help="not ported (spmd)")
     p.add_argument("-precision", "--precision",
                    choices=["fp32", "bf16", "mixed"], default="fp32",
-                   help="only fp32 is ported")
+                   help="precision policy: fp32, bf16 (bf16 params and "
+                   "compute) or mixed (f32 masters, bf16 compute, dynamic "
+                   "loss scaling)")
     p.add_argument("-chunk", "--chunk", type=int, default=1,
-                   help="only 1 is ported")
+                   help="optimizer steps a dispatch through the fused "
+                   "driver (1 = one step a batch)")
     p.add_argument("-resilience", "--resilience", action="store_true",
                    help="not ported")
     p.add_argument("-resume", "--resume", action="store_true",

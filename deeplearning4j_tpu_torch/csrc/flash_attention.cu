@@ -33,9 +33,10 @@
 // every tensor it reads or writes 16-byte aligned, which covers every
 // real head width (16, 32, 40, 64, 80, 96, 128; 256 forward); else the
 // FMA pipes for D <= 128 and the D-chunked FMA route for 128 < D <= 512
-// (kMaxD), in both dtypes.  The f32 train path keeps the FMA routes for
+// (kMaxD), in every dtype.  The f32 train path keeps the FMA routes for
 // their <= 1e-6 agreement with the plain version (TF32 would not give
-// it).
+// it).  float16 takes the FMA routes at every D: the wgmma kernels hold
+// bf16-specific conversions and are not instantiated for it.
 //
 // 1. Forward on the tensor cores (flash_fwd_mma_kernel).  At the training
 //    shape (B 2, S 1024, H 12, D 64, causal) the forward does ~256 flops
@@ -128,6 +129,7 @@
 #include <initializer_list>
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -147,6 +149,7 @@ __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
+__device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -155,6 +158,10 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ __half from_f32<__half>(float x) {
+  return __float2half(x);
 }
 
 // Reductions over the 16 lanes that own one row (offsets < 16 stay
@@ -2049,6 +2056,9 @@ cudaError_t dq(const void* q, const void* k, const void* v, const void* g,
     if (dtype == 1)                                                         \
       return (int)(D <= 4 * kSub ? FN<__nv_bfloat16, 4>(__VA_ARGS__)        \
                                  : FN<__nv_bfloat16, 8>(__VA_ARGS__));      \
+    if (dtype == 2)                                                         \
+      return (int)(D <= 4 * kSub ? FN<__half, 4>(__VA_ARGS__)               \
+                                 : FN<__half, 8>(__VA_ARGS__));             \
     return (int)cudaErrorInvalidValue;                                      \
   } while (0)
 
@@ -2066,6 +2076,7 @@ cudaError_t dq(const void* q, const void* k, const void* v, const void* g,
   do {                                                                      \
     if (dtype == 0) return (int)FN<float>(__VA_ARGS__);                     \
     if (dtype == 1) return (int)FN<__nv_bfloat16>(__VA_ARGS__);             \
+    if (dtype == 2) return (int)FN<__half>(__VA_ARGS__);                    \
     return (int)cudaErrorInvalidValue;                                      \
   } while (0)
 
@@ -2093,7 +2104,7 @@ size_t dl4j_flash_smem_bytes(int kind, int D, int route) {
 }
 
 // Every entry takes contiguous [B, S, H, D] tensors in one dtype
-// (0 = float32, 1 = bfloat16) and [B*H, S] float32 row stats on the
+// (0 = float32, 1 = bfloat16, 2 = float16) and [B*H, S] float32 row stats on the
 // current device, launches on `stream`, does not synchronise, and returns
 // cudaGetLastError() after the launch.  Each picks its route from its
 // inputs (route_of): bfloat16 with D % 8 == 0 (up to 256 forward, 128

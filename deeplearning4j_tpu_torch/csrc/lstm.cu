@@ -23,14 +23,17 @@
 // exchange of h between the SMs that share the units) is paid T times.
 //
 // Two routes, chosen from (dtype, B, H) by make_plan (mirrored in Python
-// by lstm_kernel.lstm_route_rule); no switch picks one.
+// by lstm_kernel.lstm_route_rule); no switch picks one.  float16 takes
+// bf16's plan (both are 2-byte elements) and its code with the f16 forms
+// swapped in: m16n8k16 .f16 products with h split into f16 hi + lo, the
+// fast exponential, f16 stores of hs; c and the residuals stay f32.
 //
-// 1. Cluster route (bf16 H <= 512, f32 H <= 384 on an H100: wherever a
-//    CTA's slice of RW, the h double buffer and the k-split partials fit
-//    its shared memory).  The batch is cut into tiles of 16 rows (one
-//    m16 tile); each tile is one thread-block cluster of N CTAs (a power
-//    of two, at most 16, with cudaFuncAttributeNonPortableClusterSize-
-//    Allowed above 8), so the grid is N * tiles CTAs, clusters are
+// 1. Cluster route (bf16 and f16 H <= 512, f32 H <= 384 on an H100:
+//    wherever a CTA's slice of RW, the h double buffer and the k-split
+//    partials fit its shared memory).  The batch is cut into tiles of 16
+//    rows (one m16 tile); each tile is one thread-block cluster of N CTAs
+//    (a power of two, at most 16, with cudaFuncAttributeNonPortable-
+//    ClusterSizeAllowed above 8), so the grid is N * tiles CTAs, clusters are
 //    independent, and there is no grid barrier and no co-residency
 //    requirement: any B runs.  CTA r owns u = roundup(ceil(H / 16), 8)
 //    hidden units [r u, r u + u) and all four gate columns of them, and
@@ -80,8 +83,10 @@
 #include <cooperative_groups.h>
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace cg = cooperative_groups;
@@ -89,6 +94,7 @@ namespace cg = cooperative_groups;
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 constexpr int kThreads = 256;   // wide route
 constexpr int kMaxRows = 32;    // wide route: batch rows of h staged per pass
@@ -101,6 +107,7 @@ constexpr int kRouteWide = 1;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(f16 x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -109,6 +116,10 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ f16 from_f32<f16>(float x) {
+  return __float2half(x);
 }
 
 __device__ __forceinline__ float sigmoid(float x) {
@@ -135,6 +146,10 @@ __device__ __forceinline__ void store_pair(float* p, float a, float b) {
 
 __device__ __forceinline__ void store_pair(bf16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+__device__ __forceinline__ void store_pair(f16* p, float a, float b) {
+  *reinterpret_cast<__half2*>(p) = __floats2half2_rn(a, b);
 }
 
 __host__ __device__ constexpr int round_up(int x, int m) {
@@ -189,13 +204,23 @@ ClusterShape cluster_shape(int H, int es) {
   return c;
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// m16n8k16 with f32 accumulators on 16-bit operands of type T (bf16 or
+// f16: the same shapes and fragment layouts)
+template <typename T>
+__device__ __forceinline__ void mma_16(float (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  if constexpr (std::is_same<T, f16>::value)
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 {%0, %1, %2, %3}, "
+        "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, "
+        "%3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
@@ -213,12 +238,22 @@ __device__ __forceinline__ uint32_t tf32(float x) {
   return r;
 }
 
-// x ~ hi + lo, each a pair of bf16 packed as the mma operand wants them
-__device__ __forceinline__ void split_bf16(float2 x, uint32_t& hi,
-                                           uint32_t& lo) {
+// x ~ hi + lo, each a pair of T (bf16 or f16) packed as the mma operand
+// wants them
+__device__ __forceinline__ void split_pair(float2 x, uint32_t& hi,
+                                           uint32_t& lo, bf16) {
   const __nv_bfloat162 h2 = __floats2bfloat162_rn(x.x, x.y);
   const float2 back = __bfloat1622float2(h2);
   const __nv_bfloat162 l2 = __floats2bfloat162_rn(x.x - back.x, x.y - back.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h2);
+  lo = *reinterpret_cast<const uint32_t*>(&l2);
+}
+
+__device__ __forceinline__ void split_pair(float2 x, uint32_t& hi,
+                                           uint32_t& lo, f16) {
+  const __half2 h2 = __floats2half2_rn(x.x, x.y);
+  const float2 back = __half22float2(h2);
+  const __half2 l2 = __floats2half2_rn(x.x - back.x, x.y - back.y);
   hi = *reinterpret_cast<const uint32_t*>(&h2);
   lo = *reinterpret_cast<const uint32_t*>(&l2);
 }
@@ -233,9 +268,10 @@ __device__ __forceinline__ void cluster_wait() {
 
 // z[gate][e] (+)= h rows [0, 16) . RW columns of unit block ub, over the
 // k16 steps [kt0, kt1): e = 0, 1 row g, units 2 tq, 2 tq + 1; e = 2, 3
-// the same units of row g + 8.
+// the same units of row g + 8.  RW in T = bf16 or f16.
+template <typename T>
 __device__ __forceinline__ void product(float (&z)[4][4], const float* h,
-                                        const bf16* rw, int u, int ub,
+                                        const T* rw, int u, int ub,
                                         int hs, int rs, int kt0, int kt1) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;
@@ -250,17 +286,17 @@ __device__ __forceinline__ void product(float (&z)[4][4], const float* h,
     const float* h0 = h + g * hs + k0;
     const float* h1 = h0 + 8 * hs;
     uint32_t ahi[4], alo[4];
-    split_bf16(*reinterpret_cast<const float2*>(h0), ahi[0], alo[0]);
-    split_bf16(*reinterpret_cast<const float2*>(h1), ahi[1], alo[1]);
-    split_bf16(*reinterpret_cast<const float2*>(h0 + 8), ahi[2], alo[2]);
-    split_bf16(*reinterpret_cast<const float2*>(h1 + 8), ahi[3], alo[3]);
+    split_pair(*reinterpret_cast<const float2*>(h0), ahi[0], alo[0], T());
+    split_pair(*reinterpret_cast<const float2*>(h1), ahi[1], alo[1], T());
+    split_pair(*reinterpret_cast<const float2*>(h0 + 8), ahi[2], alo[2], T());
+    split_pair(*reinterpret_cast<const float2*>(h1 + 8), ahi[3], alo[3], T());
 #pragma unroll
     for (int gt = 0; gt < 4; ++gt) {
-      const bf16* w = rw + (size_t)(gt * u + ub * 8 + g) * rs + k0;
+      const T* w = rw + (size_t)(gt * u + ub * 8 + g) * rs + k0;
       const uint32_t b0 = *reinterpret_cast<const uint32_t*>(w);
       const uint32_t b1 = *reinterpret_cast<const uint32_t*>(w + 8);
-      mma_bf16(z[gt], ahi, b0, b1);
-      mma_bf16(lo[gt], alo, b0, b1);
+      mma_16<T>(z[gt], ahi, b0, b1);
+      mma_16<T>(lo[gt], alo, b0, b1);
     }
   }
 #pragma unroll
@@ -838,7 +874,7 @@ cudaError_t launch(const void* xz, const void* rw, const void* pi,
 extern "C" {
 
 // The launch plan of a [B, H] problem in `dtype` (0 = float32, 1 =
-// bfloat16) on the current device: out = {route (0 cluster, 1 wide),
+// bfloat16, 2 = float16) on the current device: out = {route (0 cluster, 1 wide),
 // cluster size, hidden units a block, blocks a launch, threads a block,
 // shared-memory bytes a block, batch rows a cluster (cluster) or a launch
 // (wide), launches a call, staging rows (wide), lanes a pair (wide),
@@ -846,13 +882,14 @@ extern "C" {
 // Returns the CUDA error of the device queries, or
 // cudaErrorInvalidConfiguration when no route fits.
 int dl4j_lstm_plan(int B, int H, int dtype, long long* out) {
-  if (B < 1 || H < 1 || (dtype != 0 && dtype != 1))
+  if (B < 1 || H < 1 || dtype < 0 || dtype > 2)
     return (int)cudaErrorInvalidValue;
   Plan p = {};
-  cudaError_t err = make_plan(B, H, dtype == 1 ? 2 : 4, &p);
+  cudaError_t err = make_plan(B, H, dtype == 0 ? 4 : 2, &p);
   if (err == cudaSuccess && p.route == kRouteCluster) {
-    err = dtype == 1 ? active_clusters<bf16>(p, &p.active)
-                     : active_clusters<float>(p, &p.active);
+    err = dtype == 1   ? active_clusters<bf16>(p, &p.active)
+          : dtype == 2 ? active_clusters<f16>(p, &p.active)
+                       : active_clusters<float>(p, &p.active);
     if (err == cudaSuccess && p.active < 1)
       err = cudaErrorInvalidConfiguration;
   }
@@ -865,7 +902,8 @@ int dl4j_lstm_plan(int B, int H, int dtype, long long* out) {
 }
 
 // xz [T, B, 4H] (element (t, b, c) at t*xz_st + b*xz_sb + c), RW [H, 4H]
-// contiguous, pi/pf/po [H], all in one dtype (0 = float32, 1 = bfloat16);
+// contiguous, pi/pf/po [H], all in one dtype (0 = float32, 1 = bfloat16,
+// 2 = float16);
 // hs [T, B, H] in that dtype at t*hs_st + b*hs_sb + j; cs [T, B, H] and
 // zs [T, B, 4H] contiguous float32, both null for the inference forward;
 // hbuf [2, batch rows a launch, H] float32 scratch of the wide route
@@ -886,6 +924,9 @@ int dl4j_lstm_forward(const void* xz, const void* rw, const void* pi,
   if (dtype == 1)
     return (int)launch<bf16>(xz, rw, pi, pf, po, hs, cs, zs, hbuf, T, B, H,
                              xz_st, xz_sb, hs_st, hs_sb, s);
+  if (dtype == 2)
+    return (int)launch<f16>(xz, rw, pi, pf, po, hs, cs, zs, hbuf, T, B, H,
+                            xz_st, xz_sb, hs_st, hs_sb, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -61,18 +61,25 @@
 //   256 at K 512.  bfloat16 chunks (C > 1) of a wider head take the
 //   FMA route with 4 columns a block, as float32 does; a lane then holds
 //   2 (bfloat16) or 4 (float32) 16-byte chunks of a row.
+// - float16 takes the FMA route at every C and K, as float32 does (1 or
+//   4 columns a block), with bfloat16's 16-byte chunks of 8 elements;
+//   scores, softmax and accumulators are f32 as in the other dtypes.  The
+//   tensor-core route is not instantiated for it.
 
 #include <cfloat>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
+#include <type_traits>
 
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using f16 = __half;
 
 constexpr int kThreads = 128;   // 4 warps a block
 constexpr int kWarps = 4;
@@ -101,6 +108,7 @@ struct Args {
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float to_f32(f16 x) { return __half2float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -109,6 +117,18 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
   return __float2bfloat16(x);
+}
+template <>
+__device__ __forceinline__ f16 from_f32<f16>(float x) {
+  return __float2half(x);
+}
+
+// Two packed 16-bit values (the low one first) as floats.
+__device__ __forceinline__ float2 pair_f32(uint32_t raw, bf16) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw));
+}
+__device__ __forceinline__ float2 pair_f32(uint32_t raw, f16) {
+  return __half22float2(*reinterpret_cast<const __half2*>(&raw));
 }
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -393,14 +413,12 @@ paged_attention_vec_kernel(const Args a) {
         if constexpr (sizeof(T) == 2) {
           const uint4 kraw = *reinterpret_cast<const uint4*>(kb + off);
           const uint4 vraw = *reinterpret_cast<const uint4*>(vb + off);
-          const __nv_bfloat162* k2 =
-              reinterpret_cast<const __nv_bfloat162*>(&kraw);
-          const __nv_bfloat162* v2 =
-              reinterpret_cast<const __nv_bfloat162*>(&vraw);
+          const uint32_t* k2 = reinterpret_cast<const uint32_t*>(&kraw);
+          const uint32_t* v2 = reinterpret_cast<const uint32_t*>(&vraw);
 #pragma unroll
           for (int e = 0; e < VEC / 2; ++e) {
-            const float2 kf = __bfloat1622float2(k2[e]);
-            const float2 vf = __bfloat1622float2(v2[e]);
+            const float2 kf = pair_f32(k2[e], T());
+            const float2 vf = pair_f32(v2[e], T());
             kv[j * VEC + 2 * e] = kf.x;
             kv[j * VEC + 2 * e + 1] = kf.y;
             vv[j * VEC + 2 * e] = vf.x;
@@ -675,11 +693,11 @@ paged_attention_merge_kernel(const Args a) {
 // launches
 
 // The column tilings the kernels take: 1 or 4 columns a block on the FMA
-// route (float32, bfloat16 at C = 1, and bfloat16 chunks at K > 256), 16
-// on the tensor-core route (bfloat16, C > 1, K <= 256).  The wrapper's
-// split plan picks one.
+// route (float32 and float16, bfloat16 at C = 1, and bfloat16 chunks at
+// K > 256), 16 on the tensor-core route (bfloat16, C > 1, K <= 256).  The
+// wrapper's split plan picks one.
 bool valid_cols(int C, int K, int dtype, int cols) {
-  if (dtype == 0 || C == 1) return cols == 1 || (dtype == 0 && cols == 4);
+  if (dtype != 1 || C == 1) return cols == 1 || (dtype != 1 && cols == 4);
   if (K > kMaxMmaK) return cols == 4;
   return cols == kMmaCols;
 }
@@ -752,9 +770,10 @@ cudaError_t run(Kernel kernel, const Args& a, size_t smem,
 }
 
 // Instantiated shapes: one chunk a lane below G = 32 (K <= 128 float32,
-// K <= 256 bfloat16), where bfloat16 takes one column a block; at G = 32
-// two chunks a lane (float32 K <= 256, bfloat16 K <= 512) or four
-// (float32 K <= 512), with one or four columns a block.
+// K <= 256 16-bit), where bfloat16 takes one column a block and float32
+// and float16 one or four; at G = 32 two chunks a lane (float32 K <= 256,
+// 16-bit K <= 512) or four (float32 K <= 512), with one or four columns
+// a block.
 template <typename T, int G>
 cudaError_t vec_cpl(const Args& a, int CPL, size_t smem, cudaStream_t s) {
   if constexpr (G == 32) {
@@ -769,7 +788,7 @@ cudaError_t vec_cpl(const Args& a, int CPL, size_t smem, cudaStream_t s) {
                  ? run(paged_attention_vec_kernel<T, G, 2, 1>, a, smem, s)
                  : run(paged_attention_vec_kernel<T, G, 2, 4>, a, smem, s);
   }
-  if constexpr (sizeof(T) == 2) {
+  if constexpr (std::is_same<T, bf16>::value) {
     return run(paged_attention_vec_kernel<T, G, 1, 1>, a, smem, s);
   } else {
     return a.cols == 1
@@ -831,11 +850,11 @@ extern "C" {
 // `cols` query columns a block.
 size_t dl4j_paged_attention_smem_bytes(int cols, int K, int dtype, int pps) {
   if (cols == kMmaCols) return mma_smem(K, cols, pps);
-  return vec_smem(K, dtype == 1 ? 2 : 4, cols, pps);
+  return vec_smem(K, dtype == 0 ? 4 : 2, cols, pps);
 }
 
 // q [B, C, H, K] and the pools [P, ps, H, K] in one dtype (0 = float32,
-// 1 = bfloat16), table [B, MP], pos [B], n_feed [B] int32, out like q;
+// 1 = bfloat16, 2 = float16), table [B, MP], pos [B], n_feed [B] int32, out like q;
 // all contiguous on the current device.  The split plan: pages_per_split
 // logical pages and `cols` query columns a block, n_splits = ceil(MP /
 // pages_per_split); with n_splits > 1, part_ml [n_splits, B, C, H, 2] and
@@ -852,13 +871,13 @@ int dl4j_paged_attention(const void* q, const void* k_pages,
                          int n_splits, int cols, int dtype, void* stream) {
   if (K > kMaxK) return kErrHeadDim;
   if (B < 1 || C < 1 || H < 1 || K < 1 || P < 1 || ps < 1 ||
-      MP < 1 || pages_per_split < 1 || (dtype != 0 && dtype != 1) ||
+      MP < 1 || pages_per_split < 1 || dtype < 0 || dtype > 2 ||
       !valid_cols(C, K, dtype, cols) ||
       n_splits != (MP + pages_per_split - 1) / pages_per_split ||
       (n_splits > 1 && (part_ml == nullptr || part_acc == nullptr)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int es = dtype == 1 ? 2 : 4;
+  const int es = dtype == 0 ? 4 : 2;
   Args a;
   a.q = q;
   a.k = k_pages;
@@ -891,11 +910,14 @@ int dl4j_paged_attention(const void* q, const void* k_pages,
     int G, CPL, kt;
     vec_shape(K, es, G, CPL, kt);
     a.key_tile = kt;
-    err = dtype == 1 ? vec_launch<bf16>(a, s) : vec_launch<float>(a, s);
+    err = dtype == 1   ? vec_launch<bf16>(a, s)
+          : dtype == 2 ? vec_launch<f16>(a, s)
+                       : vec_launch<float>(a, s);
   }
   if (err != cudaSuccess || n_splits == 1) return (int)err;
-  return (int)(dtype == 1 ? merge_launch<bf16>(a, s)
-                          : merge_launch<float>(a, s));
+  return (int)(dtype == 1   ? merge_launch<bf16>(a, s)
+               : dtype == 2 ? merge_launch<f16>(a, s)
+                            : merge_launch<float>(a, s));
 }
 
 const char* dl4j_cuda_error_string(int err) {

@@ -14,7 +14,10 @@ Iris `IrisDataFetcher`) and the Canova record readers the CLI uses
   With neither, they fall back loudly, as the JAX package does offline:
   MNIST to sklearn's 8x8 digits upscaled (else synthetic blobs), CIFAR-10
   to synthetic blobs.  The port has no download step (ROADMAP.md A6).
-- The CSV and SVMLight readers are the JAX package's Python parsers.
+- The CSV and SVMLight readers parse through the native C++ library
+  (`deeplearning4j_tpu_torch.native`, built with g++ on first use) under
+  the JAX package's conditions, else with its Python parsers; both give
+  the same arrays.
 """
 
 from __future__ import annotations
@@ -218,7 +221,22 @@ def csv_dataset(path: str, label_col: int = -1,
                 num_classes: Optional[int] = None,
                 skip_header: bool = False, delimiter: str = ",") -> DataSet:
     """CSV -> DataSet (reference CSVDataSetIterator): one example a row,
-    the class index in column `label_col`."""
+    the class index in column `label_col`.  The native parser splits on
+    comma, semicolon or whitespace, so it takes the "," and ";"
+    delimiters; others, a missing compiler or a file it refuses take the
+    numpy parser."""
+    from deeplearning4j_tpu_torch import native
+
+    if delimiter in (",", ";") and native.have_native():
+        try:
+            features, labels = native.csv_read(
+                path, skip_header=skip_header, label_col=label_col)
+        except ValueError:
+            pass  # the numpy parser below
+        else:
+            labels = labels.astype(int)
+            k = num_classes or int(labels.max()) + 1
+            return DataSet(features.astype(np.float32), one_hot(labels, k))
     raw = np.genfromtxt(path, delimiter=delimiter,
                         skip_header=1 if skip_header else 0,
                         dtype=np.float32)
@@ -246,12 +264,8 @@ def sniff_svmlight_features(path: str) -> int:
     return max_idx
 
 
-def svmlight_dataset(path: str, num_features: int,
-                     num_classes: Optional[int] = None) -> DataSet:
-    """SVMLight / libsvm format (reference CLI default input format,
-    Train.java:74).  Integer labels become one-hot classes (raw values
-    such as ±1 mapped to contiguous indices); other labels stay a
-    regression column."""
+def _svmlight_rows(path: str, num_features: int):
+    """The Python parser: (rows of float32 features, float labels)."""
     rows, labels = [], []
     with open(path) as f:
         for line in f:
@@ -267,6 +281,31 @@ def svmlight_dataset(path: str, num_features: int,
                     continue
                 vec[int(i) - 1] = float(v)  # svmlight is 1-indexed
             rows.append(vec)
+    return rows, labels
+
+
+def svmlight_dataset(path: str, num_features: int,
+                     num_classes: Optional[int] = None) -> DataSet:
+    """SVMLight / libsvm format (reference CLI default input format,
+    Train.java:74).  Integer labels become one-hot classes (raw values
+    such as ±1 mapped to contiguous indices); other labels stay a
+    regression column.  Parsed natively when the library is built."""
+    from deeplearning4j_tpu_torch import native
+
+    rows = None
+    if native.have_native():
+        try:
+            feats, y_arr = native.svmlight_read(path, num_features)
+        except ValueError:
+            pass  # the Python parser below
+        else:
+            if feats.shape[1] < num_features:  # tail columns all zero
+                feats = np.pad(feats, ((0, 0),
+                                       (0, num_features - feats.shape[1])))
+            rows = list(feats[:, :num_features].astype(np.float32))
+            labels = list(y_arr)
+    if rows is None:
+        rows, labels = _svmlight_rows(path, num_features)
     y = np.asarray(labels)
     y_int = y.astype(int)
     if np.all(y == y_int):

@@ -20,12 +20,21 @@ when ``conf.pretrain`` is set (`pretrain`, reference pretrain() :148),
 and trains with the line-search solvers of `optimize/` when
 ``conf.optimization_algo`` names one (`_fit_with_solver`).
 
+Precision: a `PrecisionPolicy` (`precision/`) owns the parameter,
+compute and output dtypes, derived from the conf unless `set_precision`
+or ``fit(precision=)`` replaces it.  Under a loss-scaled policy
+("mixed", or float16 compute with a `LossScaleConfig`) each step scales
+the loss, unscales the gradients, and on a non-finite gradient or loss
+keeps the parameters, optimizer state and layer state at their pre-step
+values by `torch.where` while the scale backs off; nothing is read back
+to the host.  ``fit(chunk_size=K)`` trains through the fused driver
+(`runtime/fused.py`): `fit_chunk_async` runs K steps over stacked
+batches with example weights and returns their losses and gradient
+norms as device vectors.  `output_bucketed` pads a batch up a
+`BucketLadder`; `merge` averages parameters across networks.
+
 The network lives on one device: `resolve_device(device)`, the card
-unless the caller asks for the CPU.  Left out for now, each raising
-NotImplementedError that names ROADMAP.md's queue A3b: precision
-policies other than the conf's (`set_precision`, ``fit(precision=)``,
-the loss-scaled step), chunked fit (`fit_chunk_async`, ``chunk_size``),
-`output_bucketed` and `merge`.
+unless the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -59,7 +68,15 @@ from deeplearning4j_tpu_torch.ops.updaters import (
     global_grad_norm,
     make_updater,
 )
-from deeplearning4j_tpu_torch.parallel.transformer import torch_dtype
+from deeplearning4j_tpu_torch.precision import (
+    grads_finite,
+    init_scaler_state,
+    resolve_policy,
+    unscale_grads,
+    update_scaler_state,
+    where_tree,
+)
+from deeplearning4j_tpu_torch.precision.policy import dtype_of
 from deeplearning4j_tpu_torch.tree import map_tree, tree_leaves
 
 Tree = Any
@@ -70,11 +87,6 @@ _FUSED = {
     ("softmax", "negativeloglikelihood"): "mcxent_with_logits",
     ("sigmoid", "xent"): "xent_with_logits",
 }
-
-
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to PyTorch yet "
-                               f"(ROADMAP.md, queue A3b)")
 
 
 def _masked_loss(loss_name: str, y: torch.Tensor, out: torch.Tensor,
@@ -202,15 +214,82 @@ class MultiLayerNetwork:
                 "has no learning-rate term, so scaling the applied step "
                 "desynchronizes the accumulated-update state")
         self._updater = make_updater(conf.conf.updater_config())
-        self._dtype = torch_dtype(conf.conf.dtype)
-        self._compute_dtype = torch_dtype(conf.conf.compute_dtype)
-        self._output_dtype = torch_dtype(conf.conf.output_dtype)
+        self._precision = resolve_policy(None, conf.conf)
+        self._scaler_state: Optional[Dict[str, torch.Tensor]] = None
+        # input signatures the inference forward has run (see
+        # forward_program_count)
+        self._signatures: set = set()
         self._lr_scale = 1.0
         self.last_grad_norm: Optional[torch.Tensor] = None
-        self._listeners: list = []
+        self._listeners: list = []  # [(fn, sync_interval, score_only)]
         self._iteration = 0
         # layer index -> per-batch reconstruction errors of `pretrain`
         self.pretrain_errors: Dict[int, List[float]] = {}
+
+    # ---- precision policy --------------------------------------------------
+
+    @property
+    def _dtype(self) -> torch.dtype:
+        return dtype_of(self._precision.param_dtype)
+
+    @property
+    def _compute_dtype(self) -> torch.dtype:
+        return dtype_of(self._precision.compute_dtype)
+
+    @property
+    def _output_dtype(self) -> torch.dtype:
+        return dtype_of(self._precision.output_dtype)
+
+    @property
+    def precision(self):
+        """The live `PrecisionPolicy`."""
+        return self._precision
+
+    def set_precision(self, policy) -> "MultiLayerNetwork":
+        """Adopt a precision policy (a PrecisionPolicy, a named policy —
+        "fp32" / "bf16" / "mixed" — or None to re-derive from the conf).
+
+        Changing the compute dtype or the loss-scaling mode starts a new
+        scaler and forgets the forward's signatures; changing the param
+        dtype also casts the master weights and re-initializes the
+        optimizer state (moments of one dtype mean nothing in another)."""
+        policy = resolve_policy(policy, self.conf.conf)
+        if policy == self._precision:
+            return self
+        old_param_dtype = self._dtype
+        self._precision = policy
+        self._scaler_state = None
+        self._signatures = set()
+        if self.params is not None and self._dtype != old_param_dtype:
+            with torch.no_grad():
+                self.params = map_tree(
+                    lambda a: a.detach().to(self._dtype).requires_grad_()
+                    if a.is_floating_point() else a, self.params)
+            self.updater_state = (self._updater.init(self.params)
+                                  if self.updater_state is not None
+                                  else None)
+        return self
+
+    def scaler_stats(self) -> Optional[dict]:
+        """The loss scaler's state ({scale, good_steps, overflow_count})
+        read to the host, or None when the policy does not scale (or no
+        scaled step ran yet).  A growing overflow_count means steps were
+        skipped with the masters untouched."""
+        if self._scaler_state is None:
+            return None
+        return {"scale": float(self._scaler_state["scale"]),
+                "good_steps": int(self._scaler_state["good_steps"]),
+                "overflow_count":
+                    int(self._scaler_state["overflow_count"])}
+
+    def train_state_bytes(self, x=None, mask=None, shards: int = 1) -> int:
+        """The per-replica training-state model under the policy
+        (`precision.train_state_bytes`; ``shards`` its ZeRO-1 form)."""
+        from deeplearning4j_tpu_torch.precision.policy import (
+            train_state_bytes,
+        )
+
+        return train_state_bytes(self, x, mask, shards=shards)
 
     # ---- construction -----------------------------------------------------
 
@@ -243,15 +322,24 @@ class MultiLayerNetwork:
         """IterationListener parity: a plain fn(iteration, score) or an
         object with iteration_done(model, iteration, score).  A
         ``sync_interval`` attribute limits the iterations that call it
-        (and so read the loss back from the device)."""
+        (and so read the loss back from the device).
+
+        ``score_only`` governs chunked fit: score-only listeners (and
+        plain fns, which never see the model) get every due per-step
+        score of a chunk's loss vector; listeners that read the model
+        fire only at a chunk's end, where the model matches the
+        iteration."""
         interval = max(1, int(getattr(fn, "sync_interval", 1)))
+        score_only = bool(getattr(fn, "score_only", False))
         if hasattr(fn, "iteration_done"):
             obj = fn
             fn = lambda it, score: obj.iteration_done(self, it, score)  # noqa: E731
-        self._listeners.append((fn, interval))
+        else:
+            score_only = True
+        self._listeners.append((fn, interval, score_only))
 
     def _due_listeners(self, iteration: int) -> list:
-        return [fn for fn, interval in self._listeners
+        return [fn for fn, interval, _ in self._listeners
                 if iteration % interval == 0]
 
     # ---- forward ----------------------------------------------------------
@@ -324,6 +412,64 @@ class MultiLayerNetwork:
                     torch.sum(torch.abs(v)) for v in p_i.values())
         return loss, new_state
 
+    def _weighted_loss_sums(self, params, state, x, y, rng, mask, w):
+        """The unnormalized pieces of the example-weighted loss: (weighted
+        per-example loss sum, weight sum, new_state), no regularization.
+        Sequence outputs fold the weight into the [B, T] time mask
+        (all-ones when absent), so a padded row is an all-zero mask row."""
+        lc = self.conf.layers[-1]
+        loss_name = getattr(lc, "loss", "mse")
+        fused = _FUSED.get((lc.activation.lower(), loss_name.lower()))
+        if isinstance(lc, (OutputLayerConf, RnnOutputLayerConf)) and fused:
+            out, new_state = self._logits_forward(params, state, x,
+                                                  train=True, rng=rng,
+                                                  mask=mask)
+            loss_name = fused
+        else:
+            out, new_state = self._forward(params, state, x, train=True,
+                                           rng=rng, mask=mask)
+        out = out.float()
+        if out.dim() == 3:
+            m = (mask if mask is not None
+                 else torch.ones(out.shape[:2], device=out.device))
+            m = (m * w[:, None]).reshape(-1)
+            per = losses_mod.per_row_loss(loss_name,
+                                          y.reshape(-1, y.shape[-1]),
+                                          out.reshape(-1, out.shape[-1]))
+            m = m.to(per.dtype)
+            return torch.sum(per * m), torch.sum(m), new_state
+        per = losses_mod.per_row_loss(loss_name, y, out)
+        ww = w.to(per.dtype)
+        return torch.sum(per * ww), torch.sum(ww), new_state
+
+    def _reg_loss(self, params) -> torch.Tensor:
+        """The per-layer L1/L2 term of `_objective`, on its own."""
+        loss = torch.zeros((), dtype=torch.float32, device=self.device)
+        for lc_i, p_i in zip(self.conf.layers, params):
+            if lc_i.l2:
+                loss = loss + 0.5 * lc_i.l2 * sum(
+                    torch.sum(torch.square(v)) for v in p_i.values())
+            if lc_i.l1:
+                loss = loss + lc_i.l1 * sum(
+                    torch.sum(torch.abs(v)) for v in p_i.values())
+        return loss
+
+    def _has_reg(self) -> bool:
+        return any(lc.l1 or lc.l2 for lc in self.conf.layers)
+
+    def _weighted_objective(self, params, state, x, y, rng, mask, w):
+        """`_objective` with [batch] example weights, the chunk step's
+        loss: padded tail rows (w == 0) contribute nothing, and the
+        normalizer is the weight sum.  Every chunk step uses this form
+        (all-ones w for full batches), so chunk sizes run identical
+        steps."""
+        num, den, new_state = self._weighted_loss_sums(
+            params, state, x, y, rng, mask, w)
+        loss = num / torch.clamp(den, min=1.0)
+        if self._has_reg():
+            loss = loss + self._reg_loss(params)
+        return loss, new_state
+
     # ---- training ---------------------------------------------------------
 
     def _apply_lr_multipliers(self, updates):
@@ -344,16 +490,39 @@ class MultiLayerNetwork:
                   for p, g in zip(leaves, got))
         return map_tree(lambda _: next(it), self.params)
 
-    def _train_step(self, x, y, mask, rng, accum: int = 1):
-        """One optimizer step over a batch; with ``accum > 1`` the batch
-        is split into that many sequential microbatches whose gradients
-        are weighted by their share of the batch's normalizer (valid mask
-        tokens when a sequence mask is present, else uniform), so the
-        accumulated update equals the full-batch one.  Returns (loss,
-        global gradient norm) as device tensors."""
+    def _apply_grads(self, grads) -> torch.Tensor:
+        """The optimizer step on `grads` (in place); returns their global
+        norm."""
+        gnorm = global_grad_norm(grads)
+        updates, self.updater_state = self._updater.update(
+            grads, self.updater_state, self.params)
+        updates = self._apply_lr_multipliers(updates)
+        if self._lr_scale != 1.0:
+            updates = map_tree(lambda u: u * self._lr_scale, updates)
+        apply_updates(self.params, updates)
+        return gnorm
+
+    def _loss(self, x, y, mask, rng, weights):
+        """The step's loss and new layer state: `_objective`, or with
+        example `weights` `_weighted_objective`."""
+        if weights is None:
+            return self._objective(self.params, self.state, x, y, rng, mask)
+        return self._weighted_objective(self.params, self.state, x, y, rng,
+                                        mask, weights)
+
+    def _train_step(self, x, y, mask, rng, accum: int = 1, weights=None):
+        """One optimizer step over a batch; returns (loss, global gradient
+        norm) as device tensors.  ``accum > 1`` splits the batch into
+        that many sequential microbatches whose gradients are weighted by
+        their share of the batch's normalizer (valid mask tokens when a
+        sequence mask is present, else uniform), so the accumulated
+        update equals the full-batch one.  `weights` (the chunk step)
+        takes the example-weighted loss.  A loss-scaled policy takes
+        `_scaled_step`."""
+        if self._precision.loss_scale is not None:
+            return self._scaled_step(x, y, mask, rng, weights)
         if accum == 1:
-            loss, new_state = self._objective(self.params, self.state,
-                                              x, y, rng, mask)
+            loss, new_state = self._loss(x, y, mask, rng, weights)
             grads = self._grads(loss)
         else:
             def micro(a):
@@ -378,14 +547,49 @@ class MultiLayerNetwork:
             w_total = torch.clamp(w_total, min=1e-8)  # all-pad batch
             grads = map_tree(lambda g: g / w_total, grads)
             loss = loss / w_total
-        gnorm = global_grad_norm(grads)
-        updates, self.updater_state = self._updater.update(
-            grads, self.updater_state, self.params)
-        updates = self._apply_lr_multipliers(updates)
-        if self._lr_scale != 1.0:
-            updates = map_tree(lambda u: u * self._lr_scale, updates)
-        apply_updates(self.params, updates)
+        gnorm = self._apply_grads(grads)
         self.state = new_state
+        return loss.detach(), gnorm
+
+    def _ensure_scaler(self) -> None:
+        """Under a loss-scaled policy: the scaler state, and the updater's
+        step count, on the network's device (a skipped step keeps the old
+        count by `torch.where`, with no host read)."""
+        if self._precision.loss_scale is None:
+            return
+        if self._scaler_state is None:
+            self._scaler_state = init_scaler_state(
+                self._precision.loss_scale, self.device)
+        step = self.updater_state["step"]
+        if step.device != self.device:
+            self.updater_state["step"] = step.to(self.device)
+
+    def _scaled_step(self, x, y, mask, rng, weights):
+        """The loss-scaled step: the loss (float32) times the scale
+        before differentiation, the gradients unscaled in their dtype,
+        ``finite = grads_finite(grads) and isfinite(loss)``; on overflow
+        the parameters, the optimizer state (step count included) and
+        the layer state keep their pre-step values, selected by
+        `torch.where`, while the scale backs off."""
+        scfg = self._precision.loss_scale
+        sc = self._scaler_state
+        scale = sc["scale"]
+        loss, new_state = self._loss(x, y, mask, rng, weights)
+        grads = unscale_grads(self._grads(loss * scale.to(loss.dtype)),
+                              scale)
+        finite = torch.logical_and(grads_finite(grads),
+                                   torch.isfinite(loss))
+        with torch.no_grad():
+            old_params = [p.detach().clone()
+                          for p in tree_leaves(self.params)]
+            old_upd = map_tree(torch.clone, self.updater_state)
+        gnorm = self._apply_grads(grads)
+        with torch.no_grad():
+            for p, old in zip(tree_leaves(self.params), old_params):
+                p.copy_(torch.where(finite, p, old))
+        self.updater_state = where_tree(finite, self.updater_state, old_upd)
+        self.state = where_tree(finite, new_state, self.state)
+        self._scaler_state = update_scaler_state(scfg, sc, finite)
         return loss.detach(), gnorm
 
     def fit_batch_async(self, x, y, mask=None,
@@ -394,17 +598,26 @@ class MultiLayerNetwork:
         synchronizing.  Listeners (which need a host float) force a sync
         only on the iterations they are due.  accum_steps > 1 splits the
         batch into that many sequential microbatches (same update for
-        mean losses, activation memory of one microbatch)."""
+        mean losses, activation memory of one microbatch); a loss-scaled
+        policy refuses it (a microbatch sum cannot skip one overflowed
+        microbatch)."""
         if self.params is None:
             self.init()
         if accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
+        if accum_steps > 1 and self._precision.loss_scale is not None:
+            raise ValueError(
+                "accum_steps > 1 is not supported with a loss-scaled "
+                "precision policy (a microbatch scan cannot skip one "
+                "overflowed microbatch); use plain batches or a policy "
+                "without loss scaling")
         x = _as_tensor(x, self.device)
         y = _as_tensor(y, self.device)
         mask = _as_tensor(mask, self.device)
         if accum_steps > 1 and x.shape[0] % accum_steps:
             raise ValueError(f"batch {x.shape[0]} not divisible by "
                              f"accum_steps {accum_steps}")
+        self._ensure_scaler()
         loss, self.last_grad_norm = self._train_step(
             x, y, mask, self._step_rng(), accum_steps)
         self._iteration += 1
@@ -420,6 +633,68 @@ class MultiLayerNetwork:
         :1244). Returns the loss."""
         return float(self.fit_batch_async(x, y, mask, accum_steps))
 
+    def fit_chunk_async(self, xs, ys, masks=None, weights=None,
+                        unroll: int = 1
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """K = xs.shape[0] optimizer steps over stacked ``[K, B, ...]``
+        batches, the fused driver's primitive; `weights` ``[K, B]`` zero
+        out padded tail rows.  Each step is the per-batch step with the
+        example-weighted loss and the iteration's own generator, so any
+        chunking of a stream trains the same.  Returns (losses,
+        grad_norms) as ``[K]`` device tensors; the host reads the losses
+        once, and only when a listener is due.  `unroll` is the JAX
+        scan's unroll factor, accepted for its callers: the port's steps
+        run one after another either way."""
+        if self.params is None:
+            self.init()
+        xs = _as_tensor(xs, self.device)
+        ys = _as_tensor(ys, self.device)
+        masks = _as_tensor(masks, self.device)
+        k = int(xs.shape[0])
+        weights = (torch.ones(xs.shape[:2], device=self.device)
+                   if weights is None
+                   else _as_tensor(weights, self.device).float())
+        self._ensure_scaler()
+        it0 = self._iteration
+        losses, gnorms = [], []
+        for i in range(k):
+            loss, gnorm = self._train_step(
+                xs[i], ys[i], None if masks is None else masks[i],
+                self._step_rng(), weights=weights[i])
+            self._iteration += 1
+            losses.append(loss)
+            gnorms.append(gnorm)
+        losses, gnorms = torch.stack(losses), torch.stack(gnorms)
+        self.last_grad_norm = gnorms[-1]
+        self._fire_chunk_listeners(it0, k, losses)
+        return losses, gnorms
+
+    def _fire_chunk_listeners(self, it0: int, k: int, losses) -> None:
+        """Fire due listeners for iterations it0+1..it0+k with at most one
+        host read for the chunk (none when nothing is due).  Listeners
+        that read the model fire only for the chunk's last iteration,
+        where the model holds that iteration's state."""
+        if not self._listeners:
+            return
+        due = [(it, fn)
+               for it in range(it0 + 1, it0 + k + 1)
+               for fn, interval, score_only in self._listeners
+               if it % interval == 0 and (score_only or it == it0 + k)]
+        if not due:
+            return
+        loss_host = losses.float().cpu().numpy()  # the one read
+        for it, fn in due:
+            fn(it, float(loss_host[it - it0 - 1]))
+
+    def stage_chunk(self, chunk):
+        """An assembled HostChunk with its arrays on the network's device
+        (the fused driver's prefetch hook; runs on the producer
+        thread)."""
+        put = lambda a: _as_tensor(a, self.device)  # noqa: E731
+        return chunk._replace(xs=put(chunk.xs), ys=put(chunk.ys),
+                              weights=put(chunk.weights),
+                              masks=put(chunk.masks))
+
     def set_lr_scale(self, scale: float) -> None:
         """Scale every applied update by `scale` from the next step on."""
         scale = float(scale)
@@ -434,25 +709,48 @@ class MultiLayerNetwork:
         self._lr_scale = scale
 
     def fit(self, data, epochs: int = 1, accum_steps: int = 1,
-            chunk_size: Optional[int] = None,
-            precision=None) -> "MultiLayerNetwork":
+            chunk_size: Optional[int] = None, prefetch: int = 2,
+            chunk_unroll: int = 1, precision=None) -> "MultiLayerNetwork":
         """Train from an iterable of (x, y[, mask]) tuples or objects with
         .features/.labels/.mask, or from one (x, y[, mask]) tuple, for
         `epochs` passes: greedy `pretrain` first when ``conf.pretrain``
         is set, then the conf's ``optimization_algo`` (stochastic
         gradient descent with accum_steps as in `fit_batch_async`, or a
-        line-search solver)."""
+        line-search solver).
+
+        `chunk_size` routes the SGD loop through the fused driver
+        (`runtime.fused.FusedTrainingDriver`): chunk_size steps a
+        dispatch, tail batches padded with zero example weights, the next
+        chunk staged on the device from a background thread (`prefetch`
+        chunks deep, 0 for none).  `precision` adopts a policy for this
+        and later training (`set_precision`)."""
         if precision is not None:
-            raise _not_ported("fit(precision=...)")
-        if chunk_size is not None:
-            raise _not_ported("chunked fit (chunk_size)")
+            self.set_precision(precision)
         if isinstance(data, types.GeneratorType):
             data = list(_as_batches(data))
         if self.conf.pretrain:
             self.pretrain(data, epochs=1)
         algo = self.conf.conf.optimization_algo
         if algo and algo != "stochastic_gradient_descent":
+            if chunk_size is not None:
+                raise ValueError(
+                    "chunk_size applies to the SGD path; the line-search "
+                    f"solvers ({algo}) drive their own loop")
             return self._fit_with_solver(data, epochs, algo)
+        if chunk_size is not None:
+            if accum_steps != 1:
+                raise ValueError(
+                    "chunk_size and accum_steps are mutually exclusive "
+                    "(a chunk steps over batches, accumulation over "
+                    "microbatches of one)")
+            from deeplearning4j_tpu_torch.runtime.fused import (
+                FusedTrainingDriver,
+            )
+
+            FusedTrainingDriver(self, chunk_size=chunk_size,
+                                prefetch=prefetch,
+                                unroll=chunk_unroll).fit(data, epochs=epochs)
+            return self
         loss = None
         for _ in range(epochs):
             for x, y, mask in _as_batches(data):
@@ -548,32 +846,50 @@ class MultiLayerNetwork:
                                        .tolist() if errs else [])
         return self
 
-    # ---- parts not ported yet ---------------------------------------------
-
-    def set_precision(self, policy) -> "MultiLayerNetwork":
-        raise _not_ported("set_precision (precision policies)")
-
-    def fit_chunk_async(self, *args, **kwargs):
-        raise _not_ported("fit_chunk_async (the fused multi-step driver)")
-
-    def output_bucketed(self, x, mask=None, ladder=None):
-        raise _not_ported("output_bucketed (serving bucket ladders)")
-
-    def merge(self, others):
-        raise _not_ported("merge (parameter averaging)")
-
     # ---- inference / scoring ----------------------------------------------
 
     @torch.no_grad()
     def output(self, x, mask=None) -> torch.Tensor:
-        """Forward pass activations of the final layer in the conf's
+        """Forward pass activations of the final layer in the policy's
         output dtype, on the device (reference output() :1313)."""
         if self.params is None:
             self.init()
-        out, _ = self._forward(self.params, self.state,
-                               _as_tensor(x, self.device), train=False,
-                               mask=_as_tensor(mask, self.device))
+        x = _as_tensor(x, self.device)
+        mask = _as_tensor(mask, self.device)
+        self._signatures.add((tuple(x.shape), x.dtype, mask is not None))
+        out, _ = self._forward(self.params, self.state, x, train=False,
+                               mask=mask)
         return out.to(self._output_dtype)
+
+    def output_bucketed(self, x, mask=None, ladder=None) -> np.ndarray:
+        """`output` through a serving `BucketLadder`: the batch is padded
+        up to the ladder's next bucket, run once, and the padding rows
+        sliced off on the host, so a stream of mixed batch sizes runs
+        one input shape per bucket.  Inference rows are independent, so
+        the real rows are those of a dispatch of the padded batch.
+        Returns a host array (float32 for a bfloat16 output dtype)."""
+        from deeplearning4j_tpu_torch.serving.bucketing import BucketLadder
+
+        if ladder is None:
+            ladder = BucketLadder()
+        x = np.asarray(x)
+        padded, n = ladder.pad_rows(x)
+        if mask is not None:
+            mask, _ = ladder.pad_rows(np.asarray(mask))
+        out = self.output(padded, mask)
+        if out.dtype == torch.bfloat16:
+            out = out.float()
+        out = out.cpu().numpy()
+        return out if n == padded.shape[0] else out[:n]
+
+    def forward_program_count(self) -> int:
+        """Distinct input signatures (shape, dtype, mask present) the
+        inference forward (`output`) has run since the last
+        `set_precision`.  The JAX package counts the XLA programs its
+        jitted forward compiled, one per such signature; eager PyTorch
+        compiles nothing, so the port counts the signatures, which the
+        bucket ladder bounds the same way."""
+        return len(self._signatures)
 
     @torch.no_grad()
     def feed_forward(self, x, mask=None) -> List[torch.Tensor]:
@@ -670,6 +986,13 @@ class MultiLayerNetwork:
                          f"{n:>10,}")
         lines.append(f"{'':>3}  {'TOTAL':<{w}} {'':<14} {total:>10,}")
         return "\n".join(lines)
+
+    def merge(self, others) -> None:
+        """Parameter averaging across replicas (reference merge() :1499):
+        this network's flat parameters become the mean of its own and
+        each of `others`'."""
+        stacked = [self.params_flat()] + [o.params_flat() for o in others]
+        self.set_params_flat(np.mean(np.stack(stacked, 0), axis=0))
 
     def clone(self) -> "MultiLayerNetwork":
         net = MultiLayerNetwork(self.conf, device=self.device)

@@ -50,13 +50,21 @@ def same_pads(size: int, k: int, s: int) -> tuple:
 def _nchw_padded(conf, x: torch.Tensor, value: float = 0.0) -> torch.Tensor:
     """NHWC `x` as a channels-last NCHW view, padded for ``conf.padding``
     with `value`."""
+    return pad_nchw(x, conf.padding, conf.kernel_size, conf.stride, value)
+
+
+def pad_nchw(x: torch.Tensor, padding: str, kernel_size, stride,
+             value: float = 0.0) -> torch.Tensor:
+    """NHWC `x` as a channels-last NCHW view, padded as XLA pads
+    `padding` ("SAME" or "VALID") for a `kernel_size` window at `stride`,
+    with `value`."""
     xc = x.permute(0, 3, 1, 2)
-    pad = conf.padding.upper()
+    pad = padding.upper()
     if pad == "VALID":
         return xc
     if pad != "SAME":
-        raise ValueError(f"Unknown padding: {conf.padding!r} (SAME|VALID)")
-    (kh, kw), (sh, sw) = conf.kernel_size, conf.stride
+        raise ValueError(f"Unknown padding: {padding!r} (SAME|VALID)")
+    (kh, kw), (sh, sw) = kernel_size, stride
     top, bottom = same_pads(x.shape[1], kh, sh)
     left, right = same_pads(x.shape[2], kw, sw)
     if top == bottom == left == right == 0:

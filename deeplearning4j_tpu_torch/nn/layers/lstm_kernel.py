@@ -16,7 +16,7 @@ PyTorch version `fused_lstm_forward_plain`.  The kernel has two routes
 them): the cluster route, a thread-block cluster of up to 16 CTAs per
 16 batch rows with RW resident in shared memory, h exchanged through
 distributed shared memory and the products on the tensor cores (bf16
-up to H = 512, f32 up to H = 384 on an H100); and the wide route, the
+and f16 up to H = 512, f32 up to H = 384 on an H100); and the wide route, the
 units over all SMs with a grid barrier a step, in cooperative launches
 over batch slices that fit (the rest, up to `MAX_HIDDEN`).  Either way a
 call counts one launch in ``fused_lstm_forward.launches`` (and, when it
@@ -58,7 +58,7 @@ _PLAN_KEYS = ("route", "cluster", "units", "blocks", "threads", "smem_bytes",
               "active_clusters")
 _ROUTES = ("cluster", "wide")
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _lib_lock = threading.Lock()
 _lib_handle: Optional[ctypes.CDLL] = None
 
@@ -99,13 +99,13 @@ def lstm_route_rule(dtype: torch.dtype, b: int, h: int,
 
     Cluster route when a CTA's shared memory holds its RW slice ``[H,
     4u]`` (in `dtype`, rows padded), the h double buffer ``[2, 16, H]``
-    f32 and the k-split partials: u = roundup(ceil(H / 16), 8) units a
-    CTA, the cluster the next power of two of ceil(H / u) CTAs, one
+    f32 and the k-split partials (float16 plans as bfloat16 does: both
+    are 2-byte elements): u = roundup(ceil(H / 16), 8) units a CTA, the cluster the next power of two of ceil(H / u) CTAs, one
     cluster a 16-row batch tile.  Else the wide route: u = ceil(H /
     SMs) units a block over ceil(H / u) blocks, c of the launch's rows
     in shared memory, so a batch whose c does not fit is cut into the
     fewest equal slices that do (one cooperative launch each)."""
-    es = 2 if dtype == torch.bfloat16 else 4
+    es = dtype.itemsize
     plan = dict.fromkeys(_PLAN_KEYS, 0)
     u = _round_up(-(-h // MAX_CLUSTER), 8)
     n = 1
@@ -188,7 +188,7 @@ def _check_cuda(xz, rw, pi, pf, po) -> None:
                          f"a block's shared memory)")
     if xz.dtype not in _DTYPE_CODES:
         raise TypeError(f"xz dtype {xz.dtype} unsupported: the kernel "
-                        f"takes float32 or bfloat16")
+                        f"takes float32, bfloat16 or float16")
     if xz.stride(-1) != 1:
         raise ValueError("xz must have a unit stride on its last axis")
     for name, p, shape in (("rw", rw, (h, four_h)), ("pi", pi, (h,)),
@@ -246,8 +246,8 @@ def fused_lstm_forward(xz: torch.Tensor, rw: torch.Tensor, pi: torch.Tensor,
     cs ``[T, B, H]`` and zs ``[T, B, 4H]`` (else None, None).
 
     CPU tensors run `fused_lstm_forward_plain`; CUDA tensors launch the
-    kernel (float32 or bfloat16, H <= `MAX_HIDDEN`, any B) on the route
-    `launch_plan` names, or raise.  hs comes back in xz's layout:
+    kernel (float32, bfloat16 or float16, H <= `MAX_HIDDEN`, any B) on
+    the route `launch_plan` names, or raise.  hs comes back in xz's layout:
     batch-major storage for a transposed batch-major xz."""
     if xz.device.type == "cpu":
         return fused_lstm_forward_plain(xz, rw, pi, pf, po, save_residuals)

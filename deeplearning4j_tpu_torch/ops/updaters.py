@@ -11,9 +11,18 @@ computed in float32 on the host, as JAX computes them in float32.
 Where JAX donates buffers, this module works in place: `update` writes
 the new accumulators into the state's tensors and `apply_updates` adds
 into the parameters.  Everything runs under ``torch.no_grad()``.  The
-state is ``{"step": int32 scalar on the CPU, **accumulator trees}``;
-each accumulator keeps the dtype it was created with, and every
-parameter keeps its dtype across `apply_updates`.
+state is ``{"step": int32 scalar, **accumulator trees}``; each
+accumulator keeps the dtype it was created with, and every parameter
+keeps its dtype across `apply_updates`.
+
+The step count lives on the CPU, and the step's scalars are host floats.
+A loss-scaled step may skip its update on the device without telling the
+host (`MultiLayerNetwork` keeps the old step count by `torch.where`), so
+there the network moves ``state["step"]`` to its device: on the card the
+step then advances there and Adam's bias corrections are float32 0-d
+tensors computed there, as JAX computes them from its traced step.  A
+learning-rate schedule is a host function of the step and takes the
+CPU count only.
 """
 
 from __future__ import annotations
@@ -138,6 +147,35 @@ def _lr_at(cfg: UpdaterConfig, step: int) -> float:
     return _f32(cfg.learning_rate)
 
 
+def _host_step(step: torch.Tensor) -> bool:
+    """True when the step count is a CPU tensor (the host path)."""
+    return step.device.type == "cpu"
+
+
+def _advance(cfg: UpdaterConfig, step_t: torch.Tensor):
+    """(new step tensor, lr, t): the next step count where the count
+    lives, the learning rate as a host float, and the step as a float32
+    for the bias corrections (a host float with a CPU count, a 0-d
+    tensor on the count's device otherwise)."""
+    if _host_step(step_t):
+        step = int(step_t) + 1
+        return (torch.tensor(step, dtype=torch.int32), _lr_at(cfg, step),
+                np.float32(step))
+    if cfg.lr_schedule is not None:
+        raise ValueError("a learning-rate schedule needs the step count "
+                         "on the host (it is a host function of the step)")
+    new = step_t + 1
+    return new, _f32(cfg.learning_rate), new.float()
+
+
+def _bias_correction(beta: float, t):
+    """1 / (1 - beta**t) in float32 (t a host float32 or a 0-d tensor)."""
+    if isinstance(t, torch.Tensor):
+        b = torch.tensor(beta, dtype=torch.float32, device=t.device)
+        return 1.0 / (1.0 - b ** t)
+    return _f32(np.float32(1.0) / (np.float32(1.0) - np.float32(beta) ** t))
+
+
 def make_updater(cfg: UpdaterConfig) -> UpdaterTransform:
     """Build the named updater transform (the JAX `make_updater`)."""
     kind = Updater(cfg.updater)
@@ -161,10 +199,9 @@ def make_updater(cfg: UpdaterConfig) -> UpdaterTransform:
     @torch.no_grad()
     def update(grads: Tree, state: Tree, params: Optional[Tree] = None):
         grads = pre_apply(grads, params, cfg) if params is not None else grads
-        step = int(state["step"]) + 1
-        lr = _lr_at(cfg, step)
+        new_step, lr, t = _advance(cfg, state["step"])
         new_state = dict(state)
-        new_state["step"] = torch.tensor(step, dtype=torch.int32)
+        new_state["step"] = new_step
 
         def keep(old, new):
             """Write `new` into the accumulator `old` (its dtype kept)."""
@@ -217,11 +254,8 @@ def make_updater(cfg: UpdaterConfig) -> UpdaterTransform:
             v = map_tree(
                 lambda v_, g: keep(v_, b2 * v_ + (1 - b2) * torch.square(g)),
                 state["v"], grads)
-            t = np.float32(step)
-            mhat = _f32(np.float32(1.0) / (np.float32(1.0)
-                                           - np.float32(b1) ** t))
-            vhat = _f32(np.float32(1.0) / (np.float32(1.0)
-                                           - np.float32(b2) ** t))
+            mhat = _bias_correction(b1, t)
+            vhat = _bias_correction(b2, t)
             updates = map_tree(
                 lambda m_, v_: -lr * (m_ * mhat)
                 / (torch.sqrt(v_ * vhat) + eps), m, v)

@@ -81,7 +81,7 @@ class LaunchCounter:
             return dict(self._keys)
 
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _lib_lock = threading.Lock()
 _lib_handle: Optional[ctypes.CDLL] = None
 
@@ -140,7 +140,7 @@ def _check_cuda(name_tensors, stats=()) -> None:
         raise ValueError(f"q must be [B, S, H, D], got {tuple(q.shape)}")
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"q dtype {q.dtype} unsupported: the kernels take "
-                        f"float32 or bfloat16")
+                        f"float32, bfloat16 or float16")
     if not 1 <= q.shape[-1] <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {q.shape[-1]} outside 1..{MAX_HEAD_DIM}")
     b, s, h, _ = q.shape
@@ -202,8 +202,8 @@ def flash_forward_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   causal: bool = True
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Flash attention forward: q, k, v ``[B, S, H, D]`` (float32 or
-    bfloat16, D <= `MAX_HEAD_DIM`) -> (out ``[B, S, H, D]`` in q's dtype,
+    """Flash attention forward: q, k, v ``[B, S, H, D]`` (float32,
+    bfloat16 or float16, D <= `MAX_HEAD_DIM`) -> (out ``[B, S, H, D]`` in q's dtype,
     lse ``[B*H, S]`` float32).
 
     CPU tensors run `flash_forward_plain`; CUDA tensors launch the
@@ -240,7 +240,8 @@ def flash_route_rule(dtype: torch.dtype, head_dim: int, data_ptrs,
     dO and the outputs; `data_ptrs`) on a 16-byte boundary; else
     ``"fma"`` up to `CHUNK_HEAD_DIM` and ``"fma_chunks"`` (the FMA
     kernels over 128-column chunks of the outputs, one block a chunk)
-    above it.  `flash_route` asks the C entries themselves."""
+    above it.  float32 and float16 always take the FMA routes.
+    `flash_route` asks the C entries themselves."""
     aligned = all(p % 16 == 0 for p in data_ptrs)
     if (dtype == torch.bfloat16 and head_dim % 8 == 0 and aligned
             and head_dim <= MAX_MMA_HEAD_DIM[kind]):

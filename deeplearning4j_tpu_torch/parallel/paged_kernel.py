@@ -39,7 +39,7 @@ from deeplearning4j_tpu_torch.parallel.kernels import (
     mask_value,
 )
 
-_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # The widest head dim the kernel takes (csrc/paged_attention.cu kMaxK),
 # the widest its tensor-core route takes (kMaxMmaK), and the entry's
 # return code for a wider one (kErrHeadDim).
@@ -75,9 +75,10 @@ def _lib() -> ctypes.CDLL:
 
 def block_cols(c: int, dtype: torch.dtype, kd: int) -> int:
     """Query columns one block of the split kernel takes, which also
-    picks its kernel: 1 at C = 1, and 4 with C > 1 for float32 or a
-    head dim above `MAX_MMA_HEAD_DIM` (the FMA route); 16 for bfloat16
-    with C > 1 at a head dim up to it (the tensor-core route)."""
+    picks its kernel: 1 at C = 1, and 4 with C > 1 for float32, float16
+    or a head dim above `MAX_MMA_HEAD_DIM` (the FMA route); 16 for
+    bfloat16 with C > 1 at a head dim up to it (the tensor-core
+    route)."""
     if c == 1:
         return 1
     return 16 if dtype == torch.bfloat16 and kd <= MAX_MMA_HEAD_DIM else 4
@@ -166,7 +167,7 @@ def _check_cuda_inputs(q, k_pages, v_pages, table, pos, n_feed) -> None:
                          f"{tuple(pos.shape)} and {tuple(n_feed.shape)}")
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"q dtype {q.dtype} unsupported: the kernel takes "
-                        f"float32 or bfloat16")
+                        f"float32, bfloat16 or float16")
     if k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
         raise TypeError(f"pool dtypes {k_pages.dtype}/{v_pages.dtype} must "
                         f"equal q's {q.dtype}")

@@ -123,13 +123,13 @@ def save_model(net, directory: os.PathLike, *, save_updater: bool = False
     tree_to_npz(directory / "params.npz", net.params)
     if save_updater and net.updater_state is not None:
         tree_to_npz(directory / "updater.npz", net.updater_state)
-    cfg = net.conf.conf
+    policy = net.precision
     meta = {"format": 1, "num_params": int(net.num_params()),
             "saved_at": time.strftime("%Y-%m-%dT%H:%M:%S"),
-            "param_dtype": cfg.dtype,
-            "precision": {"param_dtype": cfg.dtype,
-                          "compute_dtype": cfg.compute_dtype,
-                          "output_dtype": cfg.output_dtype}}
+            "param_dtype": policy.param_dtype,
+            "precision": {"param_dtype": policy.param_dtype,
+                          "compute_dtype": policy.compute_dtype,
+                          "output_dtype": policy.output_dtype}}
     (directory / "meta.json").write_text(json.dumps(meta, indent=2))
     return directory
 
@@ -137,10 +137,15 @@ def save_model(net, directory: os.PathLike, *, save_updater: bool = False
 def load_model(directory: os.PathLike, device=None):
     """Rebuild a `MultiLayerNetwork` on `device` from a directory written
     by `save_model` in either package; restores the updater state too when
-    `updater.npz` is present.  A precision recorded in meta.json that
-    differs from the conf's (the JAX package's ``set_precision``) is
-    refused: precision policies are ROADMAP.md queue A3b."""
+    `updater.npz` is present.  A precision policy recorded in meta.json
+    that the conf does not declare (a net whose precision `set_precision`
+    replaced) is adopted through `set_precision`, so the net comes back
+    at its live dtypes; the loss-scale config is training-only and not
+    saved (``fit(precision=...)`` turns it on again)."""
+    import dataclasses
+
     from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.precision import resolve_policy
 
     directory = pathlib.Path(directory)
     net = MultiLayerNetwork.from_json((directory / "conf.json").read_text(),
@@ -148,19 +153,14 @@ def load_model(directory: os.PathLike, device=None):
     meta_path = directory / "meta.json"
     if meta_path.exists():
         meta = json.loads(meta_path.read_text())
-        saved = meta.get("precision") or (
-            {"param_dtype": meta["param_dtype"]} if meta.get("param_dtype")
-            else {})
-        cfg = net.conf.conf
-        conf_policy = {"param_dtype": cfg.dtype,
-                       "compute_dtype": cfg.compute_dtype,
-                       "output_dtype": cfg.output_dtype}
-        differs = {k: v for k, v in saved.items() if conf_policy.get(k) != v}
-        if differs:
-            raise NotImplementedError(
-                f"{directory}: saved with precision {differs}, which the "
-                f"conf does not declare; precision policies are not ported "
-                f"to PyTorch yet (ROADMAP.md, queue A3b)")
+        saved = meta.get("precision")
+        if saved is None and meta.get("param_dtype") is not None:
+            saved = {"param_dtype": meta["param_dtype"]}  # older meta
+        if saved is not None:
+            policy = dataclasses.replace(
+                resolve_policy(None, net.conf.conf), **saved)
+            if policy != net.precision:
+                net.set_precision(policy)
     net.params = map_tree(
         lambda p: p.requires_grad_(p.is_floating_point()),
         npz_to_tree(directory / "params.npz", net.params))

@@ -1,8 +1,13 @@
 """Serving plane of the port (counterpart of `deeplearning4j_tpu.serving`):
 the continuous LM server over a paged or dense KV cache, its page
 allocator and radix prefix cache, the speculative drafters
-(`serving.draft`), metrics and typed failures."""
+(`serving.draft`), the bucket ladder (`serving.bucketing`), metrics and
+typed failures."""
 
+from deeplearning4j_tpu_torch.serving.bucketing import (
+    BucketLadder,
+    pow2_length_buckets,
+)
 from deeplearning4j_tpu_torch.serving.lm import (
     ContinuousLMServer,
     validate_request,
@@ -22,6 +27,7 @@ from deeplearning4j_tpu_torch.serving.resilience import (
 )
 
 __all__ = [
+    "BucketLadder",
     "ContinuousLMServer",
     "DeadlineExceededError",
     "PageLeakError",
@@ -32,5 +38,6 @@ __all__ = [
     "ServingOverloadError",
     "ServingUnavailableError",
     "check_admission",
+    "pow2_length_buckets",
     "validate_request",
 ]

@@ -2,7 +2,8 @@
 the CPU (``-device cpu``), against the JAX package's readers of what it
 writes: the saved model directory (`load_model`) and the flat parameter
 files (`load_params`, binary and txt).  Options whose code paths are not
-ported exit naming their ROADMAP.md queue."""
+ported exit naming their ROADMAP.md queue.  (``-precision`` and
+``-chunk`` are ported in slice 9: tests/test_torch_fused.py.)"""
 
 import contextlib
 import io
@@ -141,8 +142,7 @@ def test_train_reads_svmlight_and_pretrains_a_pretrain_conf(tmp_path):
     (["-sync-every", "4"], "A7"), (["-resilience"], "A6"),
     (["-resume"], "A6"), (["-ckpt-dir", "x"], "A6"),
     (["-ckpt-every", "5"], "A6"), (["-ckpt-keep", "2"], "A6"),
-    (["-metrics-port", "0"], "A4.10"), (["-precision", "bf16"], "A3b"),
-    (["-precision", "mixed"], "A3b"), (["-chunk", "4"], "A3b")],
+    (["-metrics-port", "0"], "A4.10")],
     ids=lambda v: v if isinstance(v, str) else " ".join(v))
 def test_unported_train_flags_exit_naming_their_queue(flags, queue,
                                                       csv_file):
@@ -153,8 +153,8 @@ def test_unported_train_flags_exit_naming_their_queue(flags, queue,
 
 def test_unported_train_properties_exit_too(csv_file, tmp_path):
     props = tmp_path / "train.props"
-    props.write_text("# the JAX CLI's keys\ntrain.precision=mixed\n")
-    with pytest.raises(SystemExit, match="queue A3b"):
+    props.write_text("# the JAX CLI's keys\ntrain.sync.every=4\n")
+    with pytest.raises(SystemExit, match="queue A7"):
         cli.main(["train", "-input", str(csv_file), "-model",
                   "zoo:iris-mlp", "-conf", str(props), "-device", "cpu"])
-    assert cli.load_properties(str(props)) == {"train.precision": "mixed"}
+    assert cli.load_properties(str(props)) == {"train.sync.every": "4"}

@@ -8,7 +8,10 @@ paged kernel; the dense pool; whole-sequence `generate` and
 `beam_search`, prefilled through the flash forward), LM-training and
 `MultiLayerNetwork` paths that launch them; and the conv nets and the
 training command line, which run no hand kernel (f32 gradients and SAME
-stride-2 convolution and pooling against the CPU).
+stride-2 convolution and pooling against the CPU).  Every kernel is
+held against its plain version in float16 too, and the precision plane
+runs here: loss-scaled char-LSTM steps (mixed and float16) with their
+overflow skip, and the chunked fit's chunk-size invariance.
 
 Every test carries the ``cuda`` marker and decides inside the test
 whether a card is present, skipping with a reason when not (the kernels
@@ -83,7 +86,7 @@ def _state(case, dtype, seed=0):
             torch.tensor(nf, dtype=torch.int32, device=dev))
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_kernel_matches_plain(name, dtype):
     _need_card()
@@ -450,13 +453,13 @@ def _rel(got, want):
 
 
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("name", sorted(FLASH_CASES))
 def test_flash_kernels_match_plain(name, dtype, causal):
     """Forward, dK/dV and dQ kernels against the plain versions in f32 on
     the same inputs (the backward pair on the kernel's own lse and
-    delta): relative max error 1e-4 in f32, 2e-2 in bf16 (the outputs'
-    rounding)."""
+    delta): relative max error 1e-4 in f32, 2e-2 in bf16 and f16 (the
+    outputs' rounding; f16 runs on the FMA routes)."""
     _need_card()
     dt = getattr(torch, dtype)
     q, k, v, g = _flash_inputs(FLASH_CASES[name], dt)
@@ -547,7 +550,10 @@ def _misaligned(shape, dtype):
     ("bfloat16", 136, True, "tensor_cores", "fma_chunks"),
     ("bfloat16", 256, True, "tensor_cores", "fma_chunks"),
     ("bfloat16", 256, False, "fma_chunks", "fma_chunks"),
-    ("float32", 512, True, "fma_chunks", "fma_chunks")])
+    ("float32", 512, True, "fma_chunks", "fma_chunks"),
+    ("float16", 64, True, "fma", "fma"),
+    ("float16", 128, True, "fma", "fma"),
+    ("float16", 256, True, "fma_chunks", "fma_chunks")])
 def test_flash_forward_route(dtype, d, aligned, fwd, bwd):
     """bf16 at a head dim that is a multiple of 8 with 16-byte aligned
     tensors runs on the tensor cores (the forward up to D 256, the
@@ -639,16 +645,16 @@ def test_flash_attention_autograd_on_the_card_matches_plain_attention():
 
 
 def test_flash_refuses_what_the_kernels_do_not_take():
-    """Checked before any launch: head dim above 512, fp16, a
+    """Checked before any launch: head dim above 512, float64, a
     non-contiguous view; nothing is counted."""
     _need_card()
     before = tk.flash_forward.launches.value
     big = torch.zeros(1, 8, 1, 513, device="cuda")
     with pytest.raises(ValueError, match="head dim"):
         tk.flash_forward(big, big, big)
-    half = torch.zeros(1, 8, 1, 16, device="cuda", dtype=torch.float16)
-    with pytest.raises(TypeError, match="bfloat16"):
-        tk.flash_forward(half, half, half)
+    wide = torch.zeros(1, 8, 1, 16, device="cuda", dtype=torch.float64)
+    with pytest.raises(TypeError, match="float16"):
+        tk.flash_forward(wide, wide, wide)
     x = torch.zeros(1, 2, 8, 16, device="cuda").transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         tk.flash_forward(x, x, x)
@@ -773,12 +779,12 @@ def _lstm_inputs(t, b, h, dtype, seed=0, batch_major=False):
 
 @pytest.mark.parametrize("batch_major", [False, True])
 @pytest.mark.parametrize("residuals", [False, True])
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("name", sorted(LSTM_CASES))
 def test_lstm_kernel_matches_plain(name, dtype, residuals, batch_major):
     """hs, cs and zs of one launch against the plain version on the same
-    inputs: relative max error 1e-5 in f32, 2e-2 in bf16 (hs's
-    rounding)."""
+    inputs: relative max error 1e-5 in f32, 2e-2 in bf16 and f16 (hs's
+    rounding; f16 on bf16's routes with the f16 product)."""
     _need_card()
     from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
 
@@ -815,7 +821,7 @@ def _lstm_check(args, residuals, dt):
             assert _rel(a, w) <= tol
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 def test_lstm_plan_matches_the_route_rule(dtype):
     """The C entry's plan (route, cluster size, units, blocks, threads,
     bytes, batch tile, launches, staging rows, lanes a pair, k-parts)
@@ -840,7 +846,8 @@ def test_lstm_plan_matches_the_route_rule(dtype):
 
 @pytest.mark.parametrize("dtype,h,route", [
     ("float32", 384, "cluster"), ("float32", 385, "wide"),
-    ("bfloat16", 512, "cluster"), ("bfloat16", 513, "wide")])
+    ("bfloat16", 512, "cluster"), ("bfloat16", 513, "wide"),
+    ("float16", 512, "cluster"), ("float16", 513, "wide")])
 def test_lstm_routes_at_the_cluster_limit_match_plain(dtype, h, route):
     """H at the cluster route's limit and one past it: each takes its
     route and matches the plain version, with and without residuals."""
@@ -929,8 +936,9 @@ def test_lstm_kernel_gradients_match_plain(peephole):
 
 
 def test_lstm_refuses_what_the_kernel_does_not_take():
-    """Checked before any launch: H above the limit, fp16, mixed dtypes,
-    a parameter on another device, wrong shapes; nothing is counted."""
+    """Checked before any launch: H above the limit, float64, mixed
+    dtypes, a parameter on another device, wrong shapes; nothing is
+    counted."""
     _need_card()
     from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
 
@@ -939,9 +947,9 @@ def test_lstm_refuses_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match=str(lk.MAX_HIDDEN)):
         lk.fused_lstm_forward(*big)
     xz, rw, pi, pf, po = _lstm_inputs(3, 2, 8, torch.float32)
-    with pytest.raises(TypeError, match="bfloat16"):
-        lk.fused_lstm_forward(xz.half(), rw.half(), pi.half(), pf.half(),
-                              po.half())
+    with pytest.raises(TypeError, match="float16"):
+        lk.fused_lstm_forward(xz.double(), rw.double(), pi.double(),
+                              pf.double(), po.double())
     with pytest.raises(TypeError, match="dtype"):
         lk.fused_lstm_forward(xz, rw.bfloat16(), pi, pf, po)
     with pytest.raises(ValueError, match="cpu"):
@@ -991,6 +999,77 @@ def test_char_lstm_network_on_the_card_launches_the_kernel():
     out = net.output(x)
     assert out.shape == (6, 9, 11) and out.is_cuda
     assert (launches.value - before[0], residual.value - before[1]) == (7, 6)
+
+
+@pytest.mark.parametrize("policy", ["mixed", "float16"])
+def test_loss_scaled_char_lstm_steps_on_the_card(policy):
+    """A small char-LSTM under a loss-scaled policy (bf16 "mixed", or
+    float16 compute with loss scaling): B5 once a step in the compute
+    dtype, f32 masters, a falling loss, the scaler's state on the card;
+    a poison batch leaves the parameters and Adam's state bitwise as
+    they were, halves the scale and counts one overflow, without a host
+    read in the step."""
+    _need_card()
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork, char_lstm
+    from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
+    from deeplearning4j_tpu_torch.precision import (
+        LossScaleConfig,
+        PrecisionPolicy,
+    )
+    from deeplearning4j_tpu_torch.tree import tree_leaves
+
+    net = MultiLayerNetwork(char_lstm(vocab_size=11, hidden=37)).init()
+    net.set_precision(policy if policy == "mixed" else PrecisionPolicy(
+        "float32", "float16", loss_scale=LossScaleConfig()))
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, 11, (6, 9))
+    x = np.eye(11, dtype=np.float32)[ids]
+    y = np.eye(11, dtype=np.float32)[np.roll(ids, -1, axis=1)]
+    before = lk.fused_lstm_forward.launches.value
+    losses = [net.fit_batch(x, y) for _ in range(4)]
+    assert lk.fused_lstm_forward.launches.value - before == 4
+    assert losses[-1] < losses[0]
+    assert all(p.dtype == torch.float32 for _, p in net._param_leaves())
+    assert net._scaler_state["scale"].is_cuda
+    assert net.updater_state["step"].is_cuda
+    snap = [t.detach().clone() for t in tree_leaves(net.params)
+            + tree_leaves(net.updater_state)]
+    x[2, 3, 0] = np.inf
+    net.fit_batch(x, y)
+    after = tree_leaves(net.params) + tree_leaves(net.updater_state)
+    assert all(torch.equal(a, b) for a, b in zip(after, snap))
+    stats = net.scaler_stats()
+    assert stats["overflow_count"] == 1 and stats["scale"] == 2.0 ** 14
+
+
+def test_chunked_fit_on_the_card_is_chunk_size_invariant():
+    """float32 LeNet over 9 batches (a ragged tail): `fit(chunk_size=1)`
+    and `fit(chunk_size=8)` give bitwise-equal parameters on the card
+    (the im2col route and cuBLAS at fixed shapes); the int8 view of the
+    trained net serves bucketed rows bitwise equal to the padded
+    dispatch."""
+    _need_card()
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork, lenet_mnist
+    from deeplearning4j_tpu_torch.precision import QuantizedNet
+    from deeplearning4j_tpu_torch.serving import BucketLadder
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    x = rng.random((8 * 16 + 5, 28, 28, 1), dtype=np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, len(x))]
+    batches = [(x[i:i + 16], y[i:i + 16]) for i in range(0, len(x), 16)]
+    nets = []
+    for chunk in (1, 8):
+        net = MultiLayerNetwork(lenet_mnist(updater="sgd")).init()
+        net.fit(batches, chunk_size=chunk)
+        nets.append(net)
+    assert nets[0].params_flat().tobytes() == nets[1].params_flat().tobytes()
+    q = QuantizedNet(nets[0])
+    ladder = BucketLadder((1, 8))
+    got = q.output_bucketed(x[:5], ladder=ladder)
+    padded = np.concatenate([x[:5], np.zeros((3, 28, 28, 1), np.float32)])
+    assert got.tobytes() == q.output(padded).cpu().numpy()[:5].tobytes()
+    assert q.forward_program_count() == 1
 
 
 def test_wide_graves_lstm_on_the_card_takes_the_step_scan():

@@ -6,7 +6,11 @@ mode (`_flash_forward`, `_bwd_block`) and against `jax.grad` of the JAX
 `flash_attention`, on the same numpy inputs.  Tolerances: 2e-5 in
 float32 (the two sides sum in different orders); for bfloat16 inputs
 atol 0.15 / rtol 0.1 against the float32 reference, as the JAX
-package's own bf16 test (`tests/test_kernels.py`) states.  The CUDA
+package's own bf16 test (`tests/test_kernels.py`) states.  float16
+inputs go to both sides (the Pallas kernels take them and return
+float16): each computes in f32 and rounds its outputs once to f16, so
+one f16 rounding step (2^-10 relative) may flip: atol 1e-3 + rtol 1e-3
+(measured: at most 9.8e-4 at values near 2).  The CUDA
 kernels themselves are checked on the card (`tests/test_torch_cuda.py`,
 `chip_smoke.py --only flash`).
 """
@@ -79,6 +83,46 @@ def test_backward_block_matches_the_jax_kernels(s, d, causal):
     dq = tk.flash_bwd_dq(*args, causal)
     for a, b in zip((dq, dk, dv), got):
         torch.testing.assert_close(a, b, atol=0, rtol=0)
+
+
+F16_TOL = dict(atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,d", SHAPES + WIDE_SHAPES)
+def test_float16_forward_matches_the_jax_kernel(s, d, causal):
+    q, k, v = _inputs(2, s, 3, d, seed=s + d, n=3)
+    h = [jnp.asarray(x, jnp.float16) for x in (q, k, v)]
+    want_o, want_lse = jk._flash_forward(*h, causal, True)
+    got_o, got_lse = tk.flash_forward(*(x.half() for x in _t(q, k, v)),
+                                      causal)
+    assert got_o.dtype == torch.float16 and want_o.dtype == jnp.float16
+    assert got_lse.dtype == torch.float32
+    np.testing.assert_allclose(got_o.float().numpy(),
+                               np.asarray(want_o, np.float32), **F16_TOL)
+    np.testing.assert_allclose(got_lse.numpy(), np.asarray(want_lse),
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s,d", SHAPES + WIDE_SHAPES)
+def test_float16_backward_block_matches_the_jax_kernels(s, d, causal):
+    q, k, v, g = _inputs(2, s, 3, d, seed=100 + s + d)
+    rng = np.random.default_rng(s * d)
+    h = [jnp.asarray(x, jnp.float16) for x in (q, k, v, g)]
+    _, lse = jk._flash_forward(*h[:3], causal, True)
+    lse = np.asarray(lse) + 0.1 * rng.standard_normal((6, s)).astype(
+        np.float32)
+    delta = rng.standard_normal((6, s)).astype(np.float32)
+    want = jk._bwd_block(*h, jnp.asarray(lse), jnp.asarray(delta), causal,
+                         True)
+    got = tk.flash_bwd_block(*(x.half() for x in _t(q, k, v, g)),
+                             *_t(lse, delta), causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.float16 and b.dtype == jnp.float16, name
+        np.testing.assert_allclose(a.float().numpy(),
+                                   np.asarray(b, np.float32), **F16_TOL,
+                                   err_msg=name)
 
 
 @pytest.mark.parametrize("causal", [True, False])
@@ -182,8 +226,9 @@ def test_launch_checks_refuse_what_the_kernels_do_not_take():
     with pytest.raises(ValueError, match="head dim"):
         big = torch.zeros(1, 8, 2, 513)
         tk._check_cuda((("q", big),))
-    with pytest.raises(TypeError, match="float32 or bfloat16"):
-        tk._check_cuda((("q", x.half()),))
+    tk._check_cuda((("q", x.half()), ("k", x.half())))   # float16: code 2
+    with pytest.raises(TypeError, match="float32, bfloat16 or float16"):
+        tk._check_cuda((("q", x.double()),))
     with pytest.raises(TypeError, match="must equal"):
         tk._check_cuda((("q", x), ("k", x.bfloat16())))
     with pytest.raises(ValueError, match="contiguous"):

@@ -13,7 +13,11 @@ inputs: the carry and the residuals are f32 in both packages, so cs and
 zs keep atol 1e-5 (only the f32 dot products' summation order differs);
 hs is rounded to bf16, so one rounding step (2^-8 of its magnitude) may
 flip: atol 1e-2; the bf16 gradients are compared relative to their
-largest element at 2e-2 (a few bf16 rounding steps).
+largest element at 2e-2 (a few bf16 rounding steps).  float16 inputs
+(which the JAX kernel takes as it takes bf16): both sides compute in f32
+and round hs once to f16, so one f16 rounding step (2^-11 of |h| < 1)
+may flip: atol 1e-3 (measured: at most 2.4e-4); the f16 gradients
+relative to their largest element at 1e-3 (measured: at most 7.2e-5).
 """
 
 import numpy as np
@@ -54,7 +58,11 @@ def _np(a):
         a, torch.Tensor) else a.detach().float().numpy()
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+HS_TOL = {"float32": 1e-5, "bfloat16": 1e-2, "float16": 1e-3}
+GRAD_REL_TOL = {"bfloat16": 2e-2, "float16": 1e-3}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("peephole", [True, False])
 @pytest.mark.parametrize("size", sorted(SIZES))
 def test_plain_forward_matches_the_jax_kernel(size, peephole, dtype):
@@ -67,7 +75,7 @@ def test_plain_forward_matches_the_jax_kernel(size, peephole, dtype):
     assert none_cs is None and none_zs is None
     assert hs.dtype == getattr(torch, dtype)
     assert cs.dtype == zs.dtype == torch.float32
-    hs_tol = 1e-5 if dtype == "float32" else 1e-2
+    hs_tol = HS_TOL[dtype]
     np.testing.assert_allclose(_np(hs), _np(j_hs), atol=hs_tol, rtol=0)
     np.testing.assert_allclose(_np(hs_inf), _np(j_hs_inf), atol=hs_tol,
                                rtol=0)
@@ -86,7 +94,7 @@ def test_plain_forward_reads_a_batch_major_view():
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "float16"])
 @pytest.mark.parametrize("peephole", [True, False])
 @pytest.mark.parametrize("size", sorted(SIZES))
 def test_gradients_match_jax_custom_vjp(size, peephole, dtype):
@@ -111,7 +119,7 @@ def test_gradients_match_jax_custom_vjp(size, peephole, dtype):
         else:
             scale = max(float(np.abs(_np(b)).max()), 1e-6)
             err = float(np.abs(_np(a) - _np(b)).max()) / scale
-            assert err <= 2e-2, (name, err)
+            assert err <= GRAD_REL_TOL[dtype], (name, err)
 
 
 def test_backward_uses_the_rounded_hs_for_h_prev():
@@ -196,7 +204,10 @@ def test_path_policy_at_the_kernel_width(fused, n_out, want):
     (torch.float32, 385, "wide", 0, 3, 256),
     (torch.bfloat16, 512, "cluster", 16, 32, 256),
     (torch.bfloat16, 513, "wide", 0, 4, 256),
-    (torch.bfloat16, 1024, "wide", 0, 8, 256)])
+    (torch.bfloat16, 1024, "wide", 0, 8, 256),
+    (torch.float16, 256, "cluster", 16, 16, 256),
+    (torch.float16, 512, "cluster", 16, 32, 256),
+    (torch.float16, 513, "wide", 0, 4, 256)])
 def test_route_rule_at_the_cluster_limit(dtype, h, route, cluster, units,
                                          threads):
     """The cluster route holds while a CTA's RW slice, h double buffer
@@ -223,7 +234,7 @@ def test_wide_route_slices_a_batch_whose_c_does_not_fit(b, launches, tile):
     memory: up to B = 3039 in one launch (the first design's ceiling),
     past it the fewest equal slices that fit, one cooperative launch
     each; every batch size has a plan."""
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         plan = tlk.lstm_route_rule(dtype, b, 1024)
         assert plan["route"] == "wide"
         assert (plan["launches"], plan["batch_tile"]) == (launches, tile)
@@ -231,6 +242,15 @@ def test_wide_route_slices_a_batch_whose_c_does_not_fit(b, launches, tile):
         assert (plan["batch_tile"] - 1) * plan["launches"] < b
         assert plan["rows"] >= 1 and plan["smem_bytes"] <= \
             tlk.H100_SMEM_OPTIN
+
+
+@pytest.mark.parametrize("h", [8, 37, 256, 384, 512, 513, 1024])
+def test_float16_plans_as_bfloat16(h):
+    """float16 and bfloat16 are both 2-byte elements: csrc/lstm.cu plans
+    them alike (make_plan takes the element size), so the rule does."""
+    for b in (1, 33, 4096):
+        assert tlk.lstm_route_rule(torch.float16, b, h) == \
+            tlk.lstm_route_rule(torch.bfloat16, b, h)
 
 
 @pytest.mark.parametrize("b", [1, 16, 17, 3040, 4096])

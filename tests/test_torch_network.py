@@ -398,14 +398,6 @@ def test_port_saved_model_loads_in_jax(tmp_path):
     np.testing.assert_array_equal(tn2.params_flat(), tn.params_flat())
 
 
-def test_load_model_refuses_a_precision_the_conf_does_not_declare(tmp_path):
-    jn = JNet(jzoo.iris_mlp()).init()
-    jn.set_precision("bf16")
-    jckpt.save_model(jn, tmp_path / "m")
-    with pytest.raises(NotImplementedError, match="A3b"):
-        tckpt.load_model(tmp_path / "m", device="cpu")
-
-
 def test_params_from_numpy_takes_the_flat_vector_in_its_order():
     jn, tn = _pair(jzoo.char_lstm(vocab_size=V, hidden=H))
     assert [k for k, _ in tn._param_leaves()][:6] == \
@@ -493,16 +485,3 @@ def test_unported_layer_types_raise_naming_the_roadmap(name):
     assert out.shape == jn.output(x).shape
     np.testing.assert_allclose(_np(out), np.asarray(jn.output(x)),
                                atol=1e-5)
-
-
-@pytest.mark.parametrize("call", [
-    lambda n: n.set_precision("bf16"), lambda n: n.fit_chunk_async(None, None),
-    lambda n: n.output_bucketed(None),
-    lambda n: n.merge([]), lambda n: n.fit((None, None), chunk_size=2),
-    lambda n: n.fit((None, None), precision="mixed")],
-    ids=["set_precision", "fit_chunk_async", "output_bucketed",
-         "merge", "chunked_fit", "fit_precision"])
-def test_left_out_parts_raise_naming_the_roadmap(call):
-    tn = TNet(tzoo.iris_mlp(), device="cpu").init()
-    with pytest.raises(NotImplementedError, match="A3b"):
-        call(tn)

@@ -3,7 +3,10 @@
 The port's plain version is held against the JAX package's Pallas kernel
 (run in interpret mode, as the JAX tests run it on the CPU) and against
 the JAX gather path (`_paged_attn(paged_kernel=False)`), at every FED
-column (padding columns legitimately differ), in float32 with atol 1e-5.
+column (padding columns legitimately differ), in float32 with atol 1e-5;
+in float16 (both sides take float16 pools and return float16, computing
+in f32) with atol 1e-3 + rtol 1e-3, one f16 rounding step (measured: at
+most 2.4e-4).
 Inputs come from numpy with a seed and go to both packages as numpy
 arrays.  The CUDA kernel itself runs only on a card: its tests are in
 tests/test_torch_cuda.py.
@@ -86,6 +89,23 @@ def test_plain_matches_jax_kernel_interpret(name):
     got = tpk.paged_flash_attention_plain(*_t(q, kp, vp, table, pos, nf))
     assert got.dtype == torch.float32 and got.shape == q.shape
     _assert_fed(got.numpy(), want, nf)
+
+
+@pytest.mark.parametrize("name", sorted(CASES) + sorted(WIDE_HEAD_CASES))
+def test_float16_plain_matches_jax_kernel_interpret(name):
+    q, kp, vp, table, pos, nf = _state({**CASES, **WIDE_HEAD_CASES}[name])
+    h = [jnp.asarray(x, jnp.float16) for x in (q, kp, vp)]
+    want = jpk.paged_flash_attention(*h, jnp.asarray(table),
+                                     jnp.asarray(pos), jnp.asarray(nf),
+                                     interpret=True)
+    got = tpk.paged_flash_attention_plain(
+        *(x.half() for x in _t(q, kp, vp)), *_t(table, pos, nf))
+    assert got.dtype == torch.float16 and want.dtype == jnp.float16
+    for i, n in enumerate(nf):
+        if n:
+            np.testing.assert_allclose(got[i, :n].float().numpy(),
+                                       np.asarray(want[i, :n], np.float32),
+                                       atol=1e-3, rtol=1e-3)
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
@@ -176,7 +196,7 @@ def _good_inputs():
 
 
 BAD_INPUTS = {
-    "q_float16": ("q", lambda t: t.half(), TypeError),
+    "q_float64": ("q", lambda t: t.double(), TypeError),
     "pool_dtype_mismatch": ("k", lambda t: t.bfloat16(), TypeError),
     "table_int64": ("table", lambda t: t.long(), TypeError),
     "pos_int64": ("pos", lambda t: t.long(), TypeError),
@@ -198,6 +218,18 @@ def test_check_accepts_good_inputs():
     a = _good_inputs()
     tpk._check_cuda_inputs(a["q"], a["k"], a["v"], a["table"], a["pos"],
                            a["n_feed"])
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_check_accepts_16_bit_inputs(dtype):
+    """The kernel takes float16 as it takes bfloat16 (dtype code 2)."""
+    a = _good_inputs()
+    for key in ("q", "k", "v"):
+        a[key] = a[key].to(getattr(torch, dtype))
+    tpk._check_cuda_inputs(a["q"], a["k"], a["v"], a["table"], a["pos"],
+                           a["n_feed"])
+    assert tpk._DTYPE_CODES[getattr(torch, dtype)] == \
+        {"bfloat16": 1, "float16": 2}[dtype]
 
 
 @pytest.mark.parametrize("name", sorted(BAD_INPUTS))
@@ -286,12 +318,15 @@ def test_split_plan_covers_every_live_page_once(name):
 @pytest.mark.parametrize("c,dtype,kd,cols", [
     (1, torch.bfloat16, 512, 1), (16, torch.bfloat16, 256, 16),
     (16, torch.bfloat16, 264, 4), (16, torch.bfloat16, 512, 4),
-    (16, torch.float32, 512, 4), (1, torch.float32, 384, 1)])
+    (16, torch.float32, 512, 4), (1, torch.float32, 384, 1),
+    (1, torch.float16, 64, 1), (16, torch.float16, 64, 4),
+    (16, torch.float16, 512, 4)])
 def test_block_cols_keeps_the_tensor_cores_up_to_head_dim_256(c, dtype, kd,
                                                                cols):
     """bf16 chunks take the 16-column tensor-core route up to K = 256 and
-    the 4-column FMA route above it, as float32 chunks do; C = 1 is one
-    column a block at any K."""
+    the 4-column FMA route above it, as float32 chunks do; float16
+    chunks take the FMA route at every K; C = 1 is one column a block at
+    any K."""
     assert tpk.MAX_HEAD_DIM == 512 and tpk.MAX_MMA_HEAD_DIM == 256
     assert tpk.block_cols(c, dtype, kd) == cols
 
