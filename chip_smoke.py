@@ -152,6 +152,38 @@ Phases (any failure exits non-zero, and no result line is printed):
              ``cli train -precision mixed -chunk 8`` on a seeded Iris CSV
              (exit 0, accuracy >= 0.9, the ``precision:`` lines, the CSV
              read by the native library that g++ built).
+13. moe    — MoE layers: ``gpt2_small(max_len=1024)`` with 8 experts,
+             top-2, capacity factor 1.25, aux weight 0.01 (~0.52 B
+             parameters) under the train phase's recipe, 2 warm-up and 5
+             timed steps on one batch (finite, falling losses; flash
+             launches 96 / 48 / 48 a step; peak memory); the routing at
+             init and after (dropped assignments and each expert's load
+             by layer, the load-balancing loss); f32 loss and every
+             gradient through the kernels against plain attention at
+             batch 2 x 512 (relative 1e-3; expert leaves expert by
+             expert, every expert that received tokens); capacity
+             dispatch at cf = E against the dense-masked oracle (1e-5,
+             f32); the serve phase's 12 requests on the bf16 paged pool
+             and one `generate` 4 x 128 + 32 (12 flash launches), ids
+             held by the greedy rule with their served routing
+             (`greedy_checker`); and ``cli lm -experts 4 -moe-top-k 2``
+             on this repository's prose, then ``-generate`` from the
+             saved directory.
+14. mobility — KV page mobility at ``gpt2_small`` in bf16 (page 16,
+             chunk 16): 8 requests prefilled on one pool, framed,
+             unframed and admitted on another (ms a frame: gather,
+             serialize, deserialize, install; frame bytes; int8 frames
+             against the exact bytes and the dequantized pages' error;
+             shipped ids equal to local decode, counted), one
+             ``POST /lm/prefill`` -> ``/lm/admit_pages``; a best_effort
+             victim filling a 2-slot pool preempted mid-decode by an
+             interactive arrival, swapped out to the host and resumed;
+             the brownout ladder under a 16-request burst and back to
+             healthy; a session hibernated, resumed on its pool (turn 2
+             prefills only its new tokens) and resumed by a fresh server
+             on the same state_dir.  Every output by the greedy rule,
+             B1 launches = n_layers x dispatches by width on each pool,
+             ledgers balanced.
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device time per
 call (`device_ms`: the calls are queued behind a spin kernel, so they run
@@ -188,7 +220,7 @@ PEAK_OPS = {"float32": 67e12,      # fp32 outside the tensor cores
             "bfloat16": 989e12,    # bf16 dense tensor-core peak
             "float16": 989e12}     # fp16 dense tensor-core peak
 PHASES = ("kernel", "flash", "serve", "parity", "train", "lstm", "rnn",
-          "decode", "mln", "precision")
+          "decode", "mln", "precision", "moe", "mobility")
 # what the times of the kernels line measure
 TIMING_NOTE = {
     "ms": "device time per call: calls queued behind a spin kernel, run "
@@ -1082,11 +1114,154 @@ def decode_requests(cfg) -> list:
     return reqs
 
 
+def moe_forward(cfg, params, ids, routes=None):
+    """`_forward` with the plain `attention` of an MoE config (every
+    block dense-masked) written out block by block, with the routing
+    given: `routes` ``[L, R, k]`` are the experts of rows ``0..R-1`` in
+    each layer (their weights renormalized from this run's router
+    probabilities, as `_router_weights` does); later rows take their own
+    top-k.  -> (logits ``[1, S, V]``, router probabilities ``[L, S, E]``
+    float32).  With `routes` None it computes what `_forward` does."""
+    import torch
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.parallel import transformer as tfm
+
+    x = params["embed"][ids] + params["pos"][None, :ids.shape[1], :]
+    probs = []
+    for i, layer in enumerate(params["layers"]):
+        q, k, v = tfm.qkv_proj(layer["attn"],
+                               tfm._layer_norm(layer["ln1"], x))
+        x = x + tfm.out_proj(layer["attn"], tfm.attention(q, k, v))
+        h = tfm._layer_norm(layer["ln2"], x)
+        p = layer["moe"]
+        e, d = p["w1"].shape[0], h.shape[-1]
+        gate_w = torch.softmax(h @ p["gate"], dim=-1)           # [1, S, E]
+        probs.append(gate_w[0].float())
+        idx, w = tfm._router_weights(gate_w, cfg.moe_top_k)
+        if routes is not None:
+            r = routes.shape[1]
+            idx = idx.clone()
+            idx[0, :r] = routes[i]
+            pr = gate_w[0].gather(1, idx[0])                     # [S, k]
+            w = (pr / pr.sum(-1, keepdim=True) if cfg.moe_top_k > 1
+                 else pr)[None]
+        combine = (w[..., None] * F.one_hot(idx, e).to(h.dtype)).sum(-2)
+        y = tfm._experts(p, h.reshape(1, -1, d).expand(e, -1, d))
+        x = x + torch.einsum("end,ne->nd", y, combine.reshape(-1, e)
+                             ).reshape(x.shape)
+    x = tfm._layer_norm(params["ln_f"], x)
+    return x @ tfm.lm_head(params), torch.stack(probs)
+
+
+class RouteRecorder:
+    """Records the expert choices of an MoE model's served run: wraps the
+    port's `_router_weights` (every MoE block calls it) and keeps, for
+    each sequence row computed, its ``[L, k]`` experts keyed by the
+    tokens up to and including that row (KV at a row is a function of
+    those tokens, so a radix-reused row has one routing whichever
+    request computed it).  `attach(srv)` wraps a paged pool's dispatch
+    entry, `generate` a whole-sequence call."""
+
+    def __init__(self, n_layers: int):
+        self.n_layers = n_layers
+        self.calls = []
+        self.dispatches = []
+        self.rows = {}
+
+    def __enter__(self):
+        from deeplearning4j_tpu_torch.parallel import transformer as tfm
+
+        self._real = real = tfm._router_weights
+
+        def recording(probs, top_k):
+            idx, w = real(probs, top_k)
+            self.calls.append(idx)
+            return idx, w
+
+        tfm._router_weights = recording
+        return self
+
+    def __exit__(self, *exc):
+        from deeplearning4j_tpu_torch.parallel import transformer as tfm
+
+        tfm._router_weights = self._real
+
+    def attach(self, srv) -> None:
+        """Record every dispatch of a started pool: the layer calls stay
+        on the device with a snapshot of each fed lane's tokens, and
+        `routes` maps them to rows after the run (no host sync a
+        dispatch)."""
+        real_step = srv._step
+
+        def step(params, k, v, table, pos, n_feed, n_draft, tokens, *rest):
+            self.calls = []
+            out = real_step(params, k, v, table, pos, n_feed, n_draft,
+                            tokens, *rest)
+            lanes = [(i, slot.req.prompt + slot.generated, int(pos[i]),
+                      int(n_feed[i])) for i, slot in enumerate(srv._slots)
+                     if slot.req is not None and n_feed[i]]
+            if lanes:
+                self.dispatches.append((self.calls, lanes))
+            return out
+
+        srv._step = step
+
+    def _index_dispatches(self) -> None:
+        import torch
+
+        for calls, lanes in self.dispatches:
+            idx = torch.stack(calls).cpu()               # [L, B, C, k]
+            for i, hist, pos, n_feed in lanes:
+                for j in range(n_feed):
+                    self.rows[tuple(hist[:pos + j + 1])] = idx[:, i, j]
+        self.dispatches = []
+
+    def generate(self, fn, prompt: np.ndarray):
+        """Run `fn()` (a `generate` over `prompt` ``[B, P]``, returning
+        its ids as lists) recording: the prefill's layer calls give rows
+        0..P-1 of every sequence, each decode step's the next row."""
+        import torch
+
+        self.calls.clear()
+        ids = fn()
+        for bi, seq in enumerate(ids):
+            row = 0
+            for s in range(0, len(self.calls), self.n_layers):
+                chunk = torch.stack(self.calls[s:s + self.n_layers]).cpu()
+                for j in range(chunk.shape[2]):          # [L, B, C, k]
+                    self.rows[tuple(seq[:row + 1])] = chunk[:, bi, j]
+                    row += 1
+        return ids
+
+    def routes(self, seq):
+        """``[L, n - 1, k]`` experts of rows 0..n-2 of `seq`."""
+        import torch
+
+        self._index_dispatches()
+        return torch.stack([self.rows[tuple(seq[:row + 1])]
+                            for row in range(len(seq) - 1)], dim=1)
+
+
 def greedy_checker(cfg, params):
-    """`check(prompt, seq)`: the greedy rule above over the plain fp32 full
-    recompute (`_forward` with the plain `attention`) of the served
-    weights, upcast, and in bfloat16 the plain bf16 recompute that
-    measures the limit."""
+    """`check(prompt, seq[, routes])`: the greedy rule above over the
+    plain fp32 full recompute (`_forward` with the plain `attention`) of
+    the served weights, upcast, and in bfloat16 the plain bf16 recompute
+    that measures the limit.
+
+    MoE configs route each token by a top-k over its router
+    probabilities: a discrete choice that bf16 noise flips where two
+    experts' probabilities lie closer than the bf16 router error, and a
+    flipped route moves the logits far more than the bf16 error of the
+    recompute measures.  So an MoE sequence is checked with its served
+    routing `routes` (``[L, n - 1, k]``, recorded by `RouteRecorder`):
+    the fp32 and bf16 recomputes both route as the served run did, and
+    the logit rule holds unchanged on them; and every served route that
+    differs from the fp32 recompute's own top-k must be a near-tie: the
+    fp32 probability of its weakest expert at most twice that layer's
+    bf16 router error (the largest |bf16 - fp32| router probability over
+    the sequence) below the fp32 k-th largest.  Each flip is reported
+    (position, layer, gap, limit)."""
     import dataclasses
 
     import torch
@@ -1101,13 +1276,48 @@ def greedy_checker(cfg, params):
     params32 = map_tree(lambda t: t.float(), params)
     bf16 = cfg.dtype == "bfloat16"
 
-    def check(prompt, seq) -> dict:
+    def route_flips(routes, p32, p16) -> list:
+        """The served routes that differ from the fp32 top-k, each with
+        its gap; raises when one is not a near-tie."""
+        k = cfg.moe_top_k
+        top = torch.sort(p32, dim=-1, descending=True, stable=True)
+        r = routes.shape[1]
+        kth = top.values[:, :r, k - 1]                             # [L, R]
+        chosen = p32[:, :r].gather(2, routes.to(p32.device))       # [L, R, k]
+        gap = kth - chosen.min(-1).values
+        limit = 2 * (p16 - p32).abs().amax(dim=(1, 2))             # [L]
+        differs = (torch.sort(routes.to(p32.device), -1).values
+                   != torch.sort(top.indices[:, :r, :k], -1).values).any(-1)
+        flips = [{"position": int(row) + 1, "layer": int(layer),
+                  "router_gap": float(gap[layer, row]),
+                  "limit": float(limit[layer])}
+                 for layer, row in torch.nonzero(differs).tolist()]
+        bad = [f for f in flips if f["router_gap"] > f["limit"]]
+        if bad:
+            raise AssertionError(f"moe: served routes that are not "
+                                 f"near-ties of the fp32 router: {bad}")
+        return flips
+
+    def check(prompt, seq, routes=None) -> dict:
         p, n = len(prompt), len(seq)
         ids = torch.tensor([seq], device="cuda")
+        flips = None
         with torch.no_grad():
-            rows = _forward(cfg32, params32, ids, attention)[0, p - 1:n - 1]
+            if cfg.n_experts:
+                if routes is None:
+                    raise ValueError("an MoE sequence is checked with its "
+                                     "served routes")
+                full32, p32 = moe_forward(cfg32, params32, ids, routes)
+                rows = full32[0, p - 1:n - 1]
+                full16, p16 = moe_forward(cfg, params, ids, routes)
+                low = full16[0, p - 1:n - 1]
+                flips = route_flips(routes, p32, p16)
+            else:
+                rows = _forward(cfg32, params32, ids,
+                                attention)[0, p - 1:n - 1]
+                low = (_forward(cfg, params, ids, attention)[0, p - 1:n - 1]
+                       if bf16 else None)
             if bf16:
-                low = _forward(cfg, params, ids, attention)[0, p - 1:n - 1]
                 limit = 2 * (low.float() - rows).abs().amax(-1)
             else:
                 limit = torch.full((n - p,), F32_TIE, device="cuda")
@@ -1124,6 +1334,8 @@ def greedy_checker(cfg, params):
                "limit_max": float(limit.max()),
                "first_divergence": (p + int(off[0, 0]) if len(off)
                                     else None)}
+        if flips is not None:
+            out["route_flips"] = flips
         if bool((deficit > limit).any()):
             raise AssertionError(
                 f"decode: a served token's fp32 logit lies further below "
@@ -1140,6 +1352,14 @@ def checks_summary(checks: list) -> dict:
     for key in ("worst_deficit", "worst_deficit_over_limit", "limit_max"):
         out[key] = max(c[key] for c in checks)
     out["limit_min"] = min(c["limit_min"] for c in checks)
+    flips = [f for c in checks for f in c.get("route_flips", [])]
+    if any("route_flips" in c for c in checks):
+        out["route_flips"] = len(flips)
+        out["route_flip_gap_max"] = max(
+            (f["router_gap"] for f in flips), default=0.0)
+        out["route_flip_gap_over_limit_max"] = max(
+            (f["router_gap"] / f["limit"] for f in flips), default=0.0)
+        out["route_flips_first"] = flips[:8]
     return out
 
 
@@ -3220,6 +3440,791 @@ def precision_phase(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 13: MoE transformer layers on the train and serve paths
+
+
+MOE_EXPERTS, MOE_TOP_K, MOE_CF, MOE_AUX = 8, 2, 1.25, 0.01
+MOE_PARITY_B, MOE_PARITY_S = 2, 512
+
+
+def moe_config(dtype: str = "bfloat16"):
+    import dataclasses
+
+    from deeplearning4j_tpu_torch.parallel.transformer import gpt2_small
+
+    return dataclasses.replace(
+        gpt2_small(max_len=TRAIN_SEQ, dtype=dtype), n_experts=MOE_EXPERTS,
+        moe_top_k=MOE_TOP_K, moe_capacity_factor=MOE_CF,
+        moe_aux_weight=MOE_AUX)
+
+
+def moe_routing(cfg, params, tokens) -> dict:
+    """The training route of every MoE layer on `tokens` (no grad): the
+    fraction of (token, expert) assignments dropped past capacity and
+    each expert's share of the kept assignments, by layer; and the
+    load-balancing loss."""
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel import transformer as tfm
+    from deeplearning4j_tpu_torch.parallel.kernels import flash_attention
+
+    dropped, load = [], []
+    with torch.no_grad():
+        x = params["embed"][tokens] + params["pos"][None, :tokens.shape[1]]
+        for layer in params["layers"]:
+            q, k, v = tfm.qkv_proj(layer["attn"],
+                                   tfm._layer_norm(layer["ln1"], x))
+            x = x + tfm.out_proj(layer["attn"], flash_attention(q, k, v,
+                                                                True))
+            h = tfm._layer_norm(layer["ln2"], x)
+            e_flat, _, _, keep, _ = tfm._moe_route(
+                layer["moe"], h.reshape(-1, h.shape[-1]), cfg.moe_capacity_factor,
+                cfg.moe_top_k)
+            dropped.append(float(1 - keep.float().mean()))
+            kept = torch.bincount(e_flat[keep > 0], minlength=cfg.n_experts)
+            load.append((kept.float() / max(1, int(kept.sum()))).tolist())
+            x = x + tfm._moe_dispatch(layer["moe"], h,
+                                      cfg.moe_capacity_factor, cfg.moe_top_k)
+        _, aux = tfm.apply(cfg, params, tokens, train=True,
+                           return_aux=True)
+    return {"dropped_fraction_by_layer": dropped,
+            "dropped_fraction": sum(dropped) / len(dropped),
+            "expert_load_by_layer": load, "aux_loss": float(aux)}
+
+
+def moe_grad_parity(tree, tokens, targets) -> dict:
+    """float32 at full width, B = 2, S = 512: the MoE loss (capacity
+    dispatch and the load-balancing term) and every gradient through the
+    flash kernels against the plain-attention forward on the card.  Each
+    leaf's error is relative to its plain gradient's largest value; an
+    expert's w1, b1, w2 and b2 are held expert by expert, every expert
+    that received tokens (the others have no gradient on either path);
+    a key bias's against its layer's query bias (its exact gradient is
+    zero)."""
+    import torch
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.parallel import transformer as tfm
+    from deeplearning4j_tpu_torch.parallel.hybrid import _master_f32
+    from deeplearning4j_tpu_torch.tree import flatten_tree
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = moe_config("float32")
+    params = _master_f32(tfm.params_from_numpy(tree, device="cuda"))
+    flat = flatten_tree(params)
+    names, leaves = list(flat), list(flat.values())
+    tok = tokens[:MOE_PARITY_B, :MOE_PARITY_S]
+    tgt = targets[:MOE_PARITY_B, :MOE_PARITY_S]
+    loss_k = tfm.lm_loss(cfg, params, tok, tgt)
+    grads_k = torch.autograd.grad(loss_k, leaves)
+    logits, aux = tfm._forward(cfg, params, tok, tfm.attention, train=True,
+                               return_aux=True)
+    loss_p = -F.log_softmax(logits, dim=-1).gather(
+        -1, tgt[..., None])[..., 0].mean() + cfg.moe_aux_weight * aux
+    del logits
+    grads_p = torch.autograd.grad(loss_p, leaves)
+    by_name = dict(zip(names, grads_p))
+    worst, worst_name, experts_held, experts_idle = 0.0, None, 0, 0
+    for name, gk, gp in zip(names, grads_k, grads_p):
+        if "//moe//" in name and not name.endswith("gate"):
+            for e in range(gp.shape[0]):       # expert by expert
+                scale = float(gp[e].abs().max())
+                if scale == 0.0:
+                    experts_idle += 1
+                    if float(gk[e].abs().max()) != 0.0:
+                        worst, worst_name = math.inf, f"{name}[{e}]"
+                    continue
+                experts_held += 1
+                err = float((gk[e] - gp[e]).abs().max()) / scale
+                if not math.isfinite(err) or err > worst:
+                    worst, worst_name = err, f"{name}[{e}]"
+            continue
+        ref = by_name[name.replace("//bk", "//bq")]
+        err = float((gk - gp).abs().max()) / float(ref.abs().max())
+        if not math.isfinite(err) or err > worst:
+            worst, worst_name = err, name
+    loss_k, loss_p = float(loss_k.detach()), float(loss_p.detach())
+    loss_err = abs(loss_k - loss_p) / abs(loss_p)
+    out = {"batch": MOE_PARITY_B, "seq": MOE_PARITY_S,
+           "loss_kernel": loss_k, "loss_plain": loss_p,
+           "loss_rel_err": loss_err, "grad_max_rel_err": worst,
+           "grad_worst_leaf": worst_name, "leaves": len(leaves),
+           "expert_leaves_held": experts_held,
+           "expert_leaves_without_tokens": experts_idle}
+    if not loss_err <= 1e-3 or not worst <= 1e-3:
+        raise AssertionError(f"moe: f32 kernels vs plain attention "
+                             f"disagree: {out}")
+    del params, grads_k, grads_p
+    return out
+
+
+def moe_dispatch_vs_dense() -> dict:
+    """`_moe_dispatch` at capacity factor E (no drops) against the
+    dense-masked `_moe_dense` on the card, f32, TF32 off, at one MoE
+    layer of the phase's width over 2 x 1024 tokens (top-2): the largest
+    difference relative to the largest output."""
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel import transformer as tfm
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = moe_config("float32")
+    rng = np.random.default_rng(11)
+    d, f, e = cfg.d_model, cfg.d_ff, cfg.n_experts
+
+    def t(shape, scale):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).cuda()
+
+    p = {"gate": t((d, e), d ** -0.5), "w1": t((e, d, f), d ** -0.5),
+         "b1": t((e, f), 0.1), "w2": t((e, f, d), f ** -0.5),
+         "b2": t((e, d), 0.1)}
+    x = t((2, TRAIN_SEQ, d), 1.0)
+    with torch.no_grad():
+        dense = tfm._moe_dense(p, x, cfg.moe_top_k)
+        disp = tfm._moe_dispatch(p, x, float(e), cfg.moe_top_k)
+    err = float((disp - dense).abs().max() / dense.abs().max())
+    out = {"tokens": 2 * TRAIN_SEQ, "top_k": cfg.moe_top_k,
+           "capacity_factor": float(e), "max_rel_err": err}
+    if not err <= 1e-5:
+        raise AssertionError(f"moe: dispatch at cf = E differs from the "
+                             f"dense-masked oracle: {out}")
+    return out
+
+
+def moe_cli(card: str) -> dict:
+    """``cli lm -experts 4 -moe-top-k 2`` on this repository's prose (the
+    small default model, 1 epoch), then ``-generate`` from the saved
+    directory: exit codes 0, ``n_experts`` in the saved config."""
+    import glob
+    import os
+    import tempfile
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-moe-") as tmp:
+        corpus = os.path.join(tmp, "corpus.txt")
+        with open(corpus, "wb") as f:
+            for path in ["README.md"] + sorted(glob.glob("docs/*.md")):
+                with open(path, "rb") as src:
+                    f.write(src.read())
+        out_dir = os.path.join(tmp, "lm")
+        base = [sys.executable, "-m", "deeplearning4j_tpu_torch.cli", "lm",
+                "-output", out_dir]
+        t0 = time.perf_counter()
+        train = subprocess.run(base + ["-input", corpus, "-experts", "4",
+                                       "-moe-top-k", "2"],
+                               capture_output=True, text=True, timeout=600)
+        gen = subprocess.run(base + ["-generate", "The ", "-max-new", "32"],
+                             capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        saved = (json.loads(open(os.path.join(out_dir, "lm_config.json"))
+                            .read())
+                 if os.path.exists(os.path.join(out_dir, "lm_config.json"))
+                 else {})
+    if train.returncode or gen.returncode or saved.get("n_experts") != 4 \
+            or saved.get("moe_top_k") != 2:
+        raise AssertionError(
+            f"moe: cli lm -experts 4 exited {train.returncode} / "
+            f"{gen.returncode}, saved config {saved}:\n{train.stdout}\n"
+            f"{train.stderr[-3000:]}\n{gen.stderr[-3000:]}")
+    line = next((ln for ln in train.stdout.splitlines()
+                 if ln.startswith("Trained")), "")
+    log(f"moe: cli lm -experts 4 -moe-top-k 2: {line}; generate exit 0; "
+        f"{wall:.1f} s ({card})")
+    return {"trained": line, "n_experts": saved["n_experts"],
+            "moe_top_k": saved["moe_top_k"], "wall_s": wall,
+            "generated": gen.stdout.strip()[-80:]}
+
+
+def moe_phase(card: str) -> dict:
+    """``gpt2_small(max_len=1024)`` with 8 experts of top-2 (capacity
+    factor 1.25, aux weight 0.01): the train phase's recipe for 2 + 5
+    steps on one repeated batch (finite, falling losses; flash launches
+    96 / 48 / 48 a step), its routing (drops and expert loads by layer,
+    the load-balancing loss), f32 loss and gradients through the kernels
+    against plain attention, dispatch at cf = E against the dense-masked
+    oracle, the 12-request bf16 paged pool (ids by the greedy rule, B1 =
+    n_layers x dispatches by width), one `generate` 4 x 128 + 32 (12
+    flash launches), and ``cli lm -experts``."""
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel import generation as gen
+    from deeplearning4j_tpu_torch.parallel import kernels as fk
+    from deeplearning4j_tpu_torch.parallel import transformer as tfm
+    from deeplearning4j_tpu_torch.parallel.hybrid import (
+        _master_f32,
+        make_accum_train_step,
+    )
+    from deeplearning4j_tpu_torch.parallel.paged_kernel import (
+        paged_flash_attention,
+    )
+    from deeplearning4j_tpu_torch.serving.lm import ContinuousLMServer
+    from deeplearning4j_tpu_torch.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    cfg = moe_config()
+    tree = tfm.numpy_params(cfg, seed=0)
+    n_params = sum(int(np.prod(a.shape)) for a in
+                   tree_leaves(tree))
+    rng = np.random.default_rng(3)
+    data = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))).cuda()
+    tokens, targets = data[:, :-1], data[:, 1:]
+    params = _master_f32(tfm.params_from_numpy(tree, device="cuda"))
+    mb = TRAIN_BATCH // TRAIN_ACCUM
+    compute = tfm.map_tree(lambda a: a.detach().to(torch.bfloat16), params)
+    routing_at_init = moe_routing(cfg, compute, tokens[:mb])
+    del compute
+    step, init_state = make_accum_train_step(cfg, lr=1e-3,
+                                             accum=TRAIN_ACCUM,
+                                             updater="adam")
+    opt = init_state(params)
+    losses = []
+    for _ in range(TRAIN_WARMUP):
+        params, opt, loss = step(params, opt, tokens, targets)
+        losses.append(float(loss))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = {"flash_fwd": fk.flash_forward.launches,
+                "flash_bwd_dkv": fk.flash_bwd_dkv.launches,
+                "flash_bwd_dq": fk.flash_bwd_dq.launches}
+    for c in counters.values():
+        c.reset()
+    step_ms = []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        ts = time.perf_counter()
+        params, opt, loss = step(params, opt, tokens, targets)
+        losses.append(float(loss))
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+    wall = time.perf_counter() - t0
+    launches = {n: c.value for n, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"moe: losses {losses}")
+    per_step = cfg.n_layers * TRAIN_ACCUM
+    want = {"flash_fwd": 2 * per_step * TRAIN_STEPS,
+            "flash_bwd_dkv": per_step * TRAIN_STEPS,
+            "flash_bwd_dq": per_step * TRAIN_STEPS}
+    if launches != want:
+        raise AssertionError(f"moe: launches {launches}, expected {want}")
+    compute = tfm.map_tree(lambda a: a.detach().to(torch.bfloat16), params)
+    routing = moe_routing(cfg, compute, tokens[:mb])
+    del compute, params, opt
+    torch.cuda.empty_cache()
+    out = {"card": card, "config": "gpt2_small(max_len=1024) with "
+           f"n_experts={MOE_EXPERTS}, moe_top_k={MOE_TOP_K}, "
+           f"moe_capacity_factor={MOE_CF}, moe_aux_weight={MOE_AUX}; bf16 "
+           "compute, f32 masters, adam lr 1e-3", "parameters": n_params,
+           "accum": TRAIN_ACCUM, "global_batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "warmup_steps": TRAIN_WARMUP,
+           "steps": TRAIN_STEPS, "losses": losses, "step_ms": step_ms,
+           "step_ms_mean": wall * 1e3 / TRAIN_STEPS,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ * TRAIN_STEPS / wall,
+           "peak_memory_bytes": peak, "launches": launches,
+           "launches_per_step": {n: v / TRAIN_STEPS
+                                 for n, v in launches.items()},
+           "routing_at_init": routing_at_init,
+           "routing_after_training": routing}
+    log(f"moe: train step {out['step_ms_mean']:.1f} ms, "
+        f"{out['tokens_per_s']:.0f} tokens/s, peak {peak / 2**30:.2f} GiB, "
+        f"losses {losses[0]:.4f} -> {losses[-1]:.4f}; at init aux "
+        f"{routing_at_init['aux_loss']:.4f}, dropped "
+        f"{routing_at_init['dropped_fraction']:.4f} of assignments; after "
+        f"the 7 steps on one batch aux {routing['aux_loss']:.4f}, dropped "
+        f"{routing['dropped_fraction']:.4f} ({card})")
+    out["f32_parity"] = moe_grad_parity(tree, tokens, targets)
+    log(f"moe: f32 kernels vs plain attention: loss rel err "
+        f"{out['f32_parity']['loss_rel_err']:.3g}, worst gradient rel err "
+        f"{out['f32_parity']['grad_max_rel_err']:.3g} "
+        f"({out['f32_parity']['grad_worst_leaf']}; "
+        f"{out['f32_parity']['expert_leaves_held']} expert leaves held, "
+        f"{out['f32_parity']['expert_leaves_without_tokens']} without "
+        f"tokens)")
+    torch.cuda.empty_cache()
+    out["dispatch_vs_dense"] = moe_dispatch_vs_dense()
+    log(f"moe: dispatch at cf = E vs dense-masked: "
+        f"{out['dispatch_vs_dense']['max_rel_err']:.3g}")
+    torch.cuda.empty_cache()
+
+    # serving: the serve phase's 12 requests on the bf16 paged pool
+    params = tfm.params_from_numpy(tree, device="cuda", dtype=cfg.dtype)
+    del tree
+    check = greedy_checker(cfg, params)
+    reqs = decode_requests(cfg)[:12]
+    srv = ContinuousLMServer(cfg, params, slots=8, page_size=16,
+                             prefill_chunk=16, device="cuda")
+    try:
+        srv.warmup()                        # builds the dispatch entry
+        with RouteRecorder(cfg.n_layers) as rec:
+            rec.attach(srv)
+            run = run_pool(srv, reqs, DECODE_NEW)
+        ledger = srv.page_ledger()
+    finally:
+        srv.stop()
+    if not ledger["balanced"]:
+        raise AssertionError(f"moe: page ledger off: {ledger}")
+    checks = [check(reqs[i][0], run["results"][i],
+                    rec.routes(run["results"][i]))
+              for i in range(len(reqs)) if reqs[i][1] == 0.0]
+    out["serve"] = pool_summary(run, checks)
+    log(f"moe: served 12 requests, {run['tokens_per_s']:.2f} tokens/s, "
+        f"B1 launches by width {run['paged_launches_by_width']}, greedy "
+        f"{checks_summary(checks)} ({card})")
+
+    # whole-sequence decode: generate 4 x 128 + 32
+    prompt = np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (GEN_BATCH, GEN_PROMPT))
+    torch.cuda.synchronize()
+    fk.flash_forward.launches.reset()
+    paged_flash_attention.launches.reset()
+    t0 = time.perf_counter()
+    with RouteRecorder(cfg.n_layers) as rec:
+        ids = rec.generate(lambda: gen.generate(
+            cfg, params, prompt, GEN_NEW, device="cuda").tolist(), prompt)
+    torch.cuda.synchronize()
+    gen_s = time.perf_counter() - t0
+    flash = fk.flash_forward.launches.value
+    if flash != cfg.n_layers or paged_flash_attention.launches.value:
+        raise AssertionError(f"moe: generate made {flash} flash launches "
+                             f"(want {cfg.n_layers}) and "
+                             f"{paged_flash_attention.launches.value} "
+                             f"paged ones")
+    gen_checks = [check(prompt[b].tolist(), ids[b], rec.routes(ids[b]))
+                  for b in range(GEN_BATCH)]
+    out["generate"] = {"batch": GEN_BATCH, "prompt": GEN_PROMPT,
+                       "new": GEN_NEW, "seconds": gen_s,
+                       "flash_launches": flash,
+                       "greedy": checks_summary(gen_checks)}
+    log(f"moe: generate {GEN_BATCH} x {GEN_PROMPT} + {GEN_NEW} in "
+        f"{gen_s:.3f} s, {flash} flash launches, greedy "
+        f"{out['generate']['greedy']} ({card})")
+    del params, check
+    torch.cuda.empty_cache()
+    out["cli"] = moe_cli(card)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 14: page mobility — shipping, preemption with host swap, the
+# brownout ladder and session hibernation
+
+
+MOB_REQUESTS, MOB_NEW = 8, 32
+
+
+def pool_launch_check(name: str, srv, launches: int, by_width: dict) -> None:
+    """A paged pool's B1 launches of one run = n_layers x its dispatches
+    at each width (the counts were set to 0 just before the run)."""
+    want = {w: srv.cfg.n_layers * n
+            for w, n in srv.stats()["dispatch_widths"].items()}
+    if by_width != want or launches != sum(want.values()) or not launches:
+        raise AssertionError(f"mobility: {name} B1 launches {by_width} "
+                             f"!= n_layers x dispatches by width {want}")
+
+
+def balanced(name: str, srv) -> dict:
+    ledger = srv.page_ledger()
+    if not ledger["balanced"]:
+        raise AssertionError(f"mobility: {name} page ledger off: {ledger}")
+    return ledger
+
+
+def concurrently(fns) -> list:
+    """Run the thunks on threads; their results, or the first error."""
+    results, errors = [None] * len(fns), []
+
+    def run(i):
+        try:
+            results[i] = fns[i]()
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append(f"{i}: {type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(fns))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"mobility: requests failed: {errors}")
+    return results
+
+
+def ship_leg(cfg, params, check, card: str) -> dict:
+    import dataclasses
+
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel.paged_kernel import (
+        paged_flash_attention,
+    )
+    from deeplearning4j_tpu_torch.serving.lm import ContinuousLMServer
+    from deeplearning4j_tpu_torch.serving.transfer import (
+        deserialize_export,
+        quantize_export,
+        serialize_export,
+    )
+    from deeplearning4j_tpu_torch.ui.server import UiServer
+
+    reqs = decode_requests(cfg)[:MOB_REQUESTS]
+    kw = dict(slots=8, page_size=16, prefill_chunk=16, ship=True,
+              device="cuda")
+    pre = ContinuousLMServer(cfg, params, **kw)
+    dec = ContinuousLMServer(cfg, params, **kw)
+    out = {}
+    try:
+        pre.warmup()
+        dec.warmup()
+        torch.cuda.synchronize()
+        counter = paged_flash_attention.launches
+        counter.reset()
+        t0 = time.perf_counter()
+        exports = concurrently([lambda p=p: pre.prefill_export(p, MOB_NEW,
+                                                               timeout=900)
+                                for p, _, _ in reqs])
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        launches = {"prefill": {str(c): n for c, n in
+                                counter.by_key().items()}}
+        pool_launch_check("prefill pool", pre, counter.value,
+                          launches["prefill"])
+        ser_ms, de_ms, frames, sizes = [], [], [], []
+        for ex in exports:
+            ts = time.perf_counter()
+            blob = serialize_export(ex)
+            ser_ms.append((time.perf_counter() - ts) * 1e3)
+            ts = time.perf_counter()
+            frames.append(deserialize_export(blob))
+            de_ms.append((time.perf_counter() - ts) * 1e3)
+            sizes.append(len(blob))
+        counter.reset()
+        t0 = time.perf_counter()
+        shipped = concurrently([lambda f=f: dec.admit_with_pages(
+            f, timeout=900) for f in frames])
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        launches["decode"] = {str(c): n for c, n in
+                              counter.by_key().items()}
+        pool_launch_check("decode pool", dec, counter.value,
+                          launches["decode"])
+        checks = [check(p, ids) for (p, _, _), ids in zip(reqs, shipped)]
+        ledgers = {"prefill": balanced("prefill pool", pre),
+                   "decode": balanced("decode pool", dec)}
+        pre_ship, dec_ship = pre.stats()["ship"], dec.stats()["ship"]
+        # the same requests decoded locally on the decode pool
+        local = concurrently([lambda p=p: dec.generate(p, MOB_NEW,
+                                                       timeout=900)
+                              for p, _, _ in reqs])
+        balanced("decode pool", dec)
+    finally:
+        pre.stop()
+        dec.stop()
+    # quantized frames: bytes and the dequantized pages' error, of the
+    # bf16 frames and of the same pages as a float32 pool ships them.
+    # int8 pages and one f32 scale per (layer, page, head) come to
+    # 1/s + 4/(ps K s) of an exact frame of itemsize s: 0.254 for
+    # float32 (held to JAX's 0.3) and 0.502 for bfloat16 (held to that)
+    q_ratio = {"bfloat16": [], "float32": []}
+    q_err = []
+    for ex in exports:
+        for name, frame in (("bfloat16", ex), ("float32", dataclasses.replace(
+                ex, pages_k=ex.pages_k.float(), pages_v=ex.pages_v.float()))):
+            q = deserialize_export(serialize_export(quantize_export(frame)))
+            q_ratio[name].append(q.nbytes() / q.exact_nbytes())
+            back = q.dequantized()
+            for got, want in ((back.pages_k, frame.pages_k),
+                              (back.pages_v, frame.pages_v)):
+                flat_g = got.float().flatten(1, 2)[:, :ex.pos]
+                flat_w = want.float().flatten(1, 2)[:, :ex.pos]
+                q_err.append(float((flat_g - flat_w).abs().max()
+                                   / flat_w.abs().max()))
+    q_max = {k: max(v) for k, v in q_ratio.items()}
+    bf16_limit = 0.5 + 2.0 / (16 * cfg.head_dim)
+    if (q_max["float32"] > 0.3 or q_max["bfloat16"] > bf16_limit
+            or max(q_err) > 1e-2):
+        raise AssertionError(f"mobility: quantized frames at {q_max} of "
+                             f"the exact bytes with page error "
+                             f"{max(q_err):.4g} of the largest value "
+                             f"(limits float32 0.3, bfloat16 "
+                             f"{bf16_limit:.4f}, 1e-2)")
+    ms_frame = (pre_ship["mean_ms"] + sum(ser_ms) / len(ser_ms)
+                + sum(de_ms) / len(de_ms) + dec_ship["mean_ms"])
+    same = sum(a == b for a, b in zip(shipped, local))
+    out.update({
+        "requests": len(reqs), "new": MOB_NEW, "prefill_s": prefill_s,
+        "decode_s": decode_s,
+        "decode_tokens_per_s": len(reqs) * MOB_NEW / decode_s,
+        "frame_bytes_mean": sum(sizes) / len(sizes),
+        "frame_bytes_max": max(sizes),
+        "gather_ms_mean": pre_ship["mean_ms"],
+        "serialize_ms_mean": sum(ser_ms) / len(ser_ms),
+        "deserialize_ms_mean": sum(de_ms) / len(de_ms),
+        "install_ms_mean": dec_ship["mean_ms"], "ms_per_frame": ms_frame,
+        "quantized_bytes_ratio_max": q_max,
+        "quantized_page_err_max": max(q_err),
+        "shipped_equal_to_local": same, "ledgers": ledgers,
+        "launches": launches,
+        "greedy": checks_summary(checks)})
+    log(f"mobility: shipped {len(reqs)} lanes, {ms_frame:.3f} ms a frame "
+        f"(gather {pre_ship['mean_ms']:.3f}, serialize "
+        f"{out['serialize_ms_mean']:.3f}, deserialize "
+        f"{out['deserialize_ms_mean']:.3f}, install "
+        f"{dec_ship['mean_ms']:.3f}), {out['frame_bytes_mean']:.0f} bytes "
+        f"a frame, quantized {q_max} of exact (page error "
+        f"{max(q_err):.4g}), {same} of {len(reqs)} equal to local decode, "
+        f"greedy {out['greedy']} ({card})")
+
+    # one /lm/prefill -> /lm/admit_pages round trip over HTTP
+    ui = UiServer(port=0).serve_lm(cfg, params, **{
+        k: v for k, v in kw.items() if k != "device"}, device="cuda").start()
+    try:
+        prompt = reqs[0][0]
+        req = urllib.request.Request(
+            ui.url + "/lm/prefill", data=json.dumps(
+                {"prompt_ids": prompt, "max_new_tokens": MOB_NEW}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            blob = resp.read()
+        req = urllib.request.Request(
+            ui.url + "/lm/admit_pages", data=blob,
+            headers={"Content-Type": "application/octet-stream"})
+        with urllib.request.urlopen(req, timeout=600) as resp:
+            http_ids = json.loads(resp.read())["ids"]
+    finally:
+        ui.stop()
+    out["http"] = {"frame_bytes": len(blob),
+                   "greedy": checks_summary([check(prompt, http_ids)])}
+    log(f"mobility: POST /lm/prefill -> /lm/admit_pages: {len(blob)} bytes, "
+        f"{out['http']['greedy']}")
+    return out
+
+
+def preempt_leg(cfg, params, check, card: str) -> dict:
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel.paged_kernel import (
+        paged_flash_attention,
+    )
+    from deeplearning4j_tpu_torch.serving.lm import ContinuousLMServer
+
+    rng = np.random.default_rng(13)
+    victim = rng.integers(0, cfg.vocab_size, 200).tolist()
+    urgent = rng.integers(0, cfg.vocab_size, 100).tolist()
+    v_new, u_new = 300, MOB_NEW
+    pages = -(-(len(victim) + v_new - 1) // 16)     # the victim fills it
+    swap_cap = 64 << 20
+    srv = ContinuousLMServer(cfg, params, slots=2, page_size=16,
+                             pages=pages, prefill_chunk=16, preempt=True,
+                             swap_bytes=swap_cap, swap_quantize=False,
+                             device="cuda")
+    res = {}
+    try:
+        srv.warmup()
+        torch.cuda.synchronize()
+        paged_flash_attention.launches.reset()
+        t = threading.Thread(target=lambda: res.__setitem__(
+            "victim", srv.generate(victim, v_new, priority="best_effort",
+                                   timeout=900)))
+        t.start()
+        deadline = time.perf_counter() + 300
+        while time.perf_counter() < deadline:     # mid-decode
+            with srv._cond:
+                s = srv._slots[0]
+                if s.active and len(s.generated) >= 8:
+                    break
+            time.sleep(0.001)
+        t0 = time.perf_counter()
+        res["urgent"] = srv.generate(urgent, u_new, priority="interactive",
+                                     timeout=900)
+        urgent_s = time.perf_counter() - t0
+        t.join(timeout=900)
+        torch.cuda.synchronize()
+        launches = {str(c): n for c, n in
+                    paged_flash_attention.launches.by_key().items()}
+        pool_launch_check("preempting pool", srv,
+                          paged_flash_attention.launches.value, launches)
+        stats = srv.stats()
+        ledger = balanced("preempting pool", srv)
+    finally:
+        srv.stop()
+    swap = stats["pressure"]["swap"]
+    if (stats.get("preemptions", 0) < 1 or stats["swap"]["out"] < 1
+            or stats["swap"]["in"] < 1 or swap["peak_bytes"] > swap_cap
+            or "victim" not in res):
+        raise AssertionError(f"mobility: preemption did not swap out and "
+                             f"back within the cap: {stats}")
+    checks = [check(victim, res["victim"]), check(urgent, res["urgent"])]
+    out = {"pages": pages, "victim_new": v_new, "urgent_new": u_new,
+           "preemptions": stats["preemptions"], "swap": stats["swap"],
+           "swap_peak_bytes": swap["peak_bytes"], "swap_cap": swap_cap,
+           "urgent_latency_s": urgent_s, "ledger": ledger,
+           "launches": launches,
+           "greedy": checks_summary(checks)}
+    log(f"mobility: preempted {stats['preemptions']} best_effort lane(s), "
+        f"swap {stats['swap']}, peak {swap['peak_bytes']} bytes of "
+        f"{swap_cap}; the interactive request took {urgent_s:.3f} s; "
+        f"greedy {out['greedy']} ({card})")
+
+    # the brownout ladder: a burst on 2 slots, then idle until it is down
+    srv = ContinuousLMServer(cfg, params, slots=2, page_size=16,
+                             prefill_chunk=16, brownout=True, device="cuda")
+    try:
+        srv.warmup()
+        burst = [(rng.integers(0, cfg.vocab_size, 32).tolist(), 0.0, 0)
+                 for _ in range(16)]
+        levels = []
+        stop = threading.Event()
+
+        def watch():
+            while not stop.is_set():
+                levels.append(srv.stats()["pressure"]["brownout"]["level"])
+                time.sleep(0.005)
+
+        watcher = threading.Thread(target=watch)
+        watcher.start()
+        concurrently([lambda p=p: srv.generate(p, 16, timeout=900)
+                      for p, _, _ in burst])
+        deadline = time.perf_counter() + 60
+        while (srv.stats()["pressure"]["brownout"]["level"] > 0
+               and time.perf_counter() < deadline):
+            time.sleep(0.01)
+        stop.set()
+        watcher.join()
+        ladder = srv.stats()["pressure"]["brownout"]
+        balanced("brownout pool", srv)
+    finally:
+        srv.stop()
+    if max(levels) < 1 or ladder["level"] != 0 or \
+            ladder["transitions_down"] < 1:
+        raise AssertionError(f"mobility: the ladder did not enter a level "
+                             f"and step back down: {ladder}, levels seen "
+                             f"{sorted(set(levels))}")
+    out["brownout"] = {"burst": len(burst), "slots": 2,
+                       "max_level": max(levels), "final": ladder}
+    log(f"mobility: brownout burst of {len(burst)} on 2 slots: max level "
+        f"{max(levels)}, back to {ladder['level']} "
+        f"({ladder['transitions_up']} up, {ladder['transitions_down']} "
+        f"down)")
+    return out
+
+
+def hibernate_leg(cfg, params, check, card: str) -> dict:
+    import tempfile
+
+    from deeplearning4j_tpu_torch.serving.lm import ContinuousLMServer
+
+    rng = np.random.default_rng(17)
+    turn1 = rng.integers(0, cfg.vocab_size, 200).tolist()
+
+    def pool(state_dir, idle_s):
+        return ContinuousLMServer(cfg, params, slots=2, page_size=16,
+                                  prefill_chunk=16, hibernate_idle_s=idle_s,
+                                  state_dir=state_dir, device="cuda")
+
+    def wait_hibernated(srv, n):
+        deadline = time.perf_counter() + 60
+        while time.perf_counter() < deadline:
+            if srv.stats().get("hibernate", {}).get("out", 0) >= n:
+                return
+            time.sleep(0.01)
+        raise AssertionError(f"mobility: the idle sweep did not hibernate "
+                             f"{n} session(s): {srv.stats()}")
+
+    def turn(srv, prev, prompt, stats_before):
+        """One turn whose prompt extends the previous turn's sequence
+        `prev`: it must resume prev's hibernated whole pages (every
+        position before prev's last token) and prefill only the rest."""
+        ids = srv.generate(prompt, MOB_NEW, session_id="s1", timeout=900)
+        st = srv.stats()
+        saved = (st.get("prefix_tokens_saved", 0)
+                 - stats_before.get("prefix_tokens_saved", 0))
+        covered = (len(prev) - 1) // 16 * 16
+        hib_in = (st["hibernate"]["in"]
+                  - stats_before.get("hibernate", {}).get("in", 0))
+        if hib_in != 1 or saved != covered:
+            raise AssertionError(
+                f"mobility: the turn did not resume its hibernated prefix: "
+                f"{hib_in} resumed, {saved} prompt tokens from cache, "
+                f"{covered} covered: {st}")
+        return ids, st, len(prompt) - saved
+
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-hib-") as tmp:
+        srv = pool(tmp, 0.2)
+        try:
+            srv.warmup()
+            out1 = srv.generate(turn1, MOB_NEW, session_id="s1",
+                                timeout=900)
+            wait_hibernated(srv, 1)
+            turn2 = out1 + rng.integers(0, cfg.vocab_size, 24).tolist()
+            t0 = time.perf_counter()
+            out2, st2, fed2 = turn(srv, out1, turn2, srv.stats())
+            turn2_s = time.perf_counter() - t0
+            wait_hibernated(srv, 2)
+            balanced("hibernating pool", srv)
+        finally:
+            srv.stop()                      # a clean stop flushes to disk
+        fresh = pool(tmp, 30.0)
+        try:
+            turn3 = out2 + rng.integers(0, cfg.vocab_size, 24).tolist()
+            t0 = time.perf_counter()
+            out3, st3, fed3 = turn(fresh, out2, turn3, {})
+            turn3_s = time.perf_counter() - t0
+            disk = st3["hibernation"]["store"]["disk"]
+            balanced("fresh pool", fresh)
+        finally:
+            fresh.stop()
+    checks = [check(turn1, out1), check(turn2, out2), check(turn3, out3)]
+    out = {"turn_prompts": [len(turn1), len(turn2), len(turn3)],
+           "turn2_fed": fed2, "turn3_fed_after_restart": fed3,
+           "turn2_s": turn2_s, "turn3_s": turn3_s,
+           "hibernate": st2["hibernate"], "restart_disk": disk,
+           "greedy": checks_summary(checks)}
+    log(f"mobility: hibernated session: turn 2 fed {fed2} of "
+        f"{len(turn2)} prompt tokens ({turn2_s:.3f} s), a fresh server on "
+        f"the same state_dir fed {fed3} of {len(turn3)} ({turn3_s:.3f} s), "
+        f"bytes ratio {st2['hibernate']['bytes_ratio']}; greedy "
+        f"{out['greedy']} ({card})")
+    return out
+
+
+def mobility_phase(card: str) -> dict:
+    """GPT-2-small in bf16 on paged pools (page 16, chunk 16): KV page
+    shipping between a prefill and a decode pool on the one card (8
+    requests through `prefill_export`, the wire frame and
+    `admit_with_pages`, and one HTTP round trip), a best_effort lane
+    preempted by an interactive arrival and swapped out to the host,
+    the brownout ladder under a burst, and a two-turn session that
+    hibernates, resumes, and resumes again in a fresh server on the
+    same state_dir.  Every output by the greedy rule; B1 launches =
+    n_layers x dispatches by width on each pool; ledgers balanced."""
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel.transformer import (
+        gpt2_small,
+        numpy_params,
+        params_from_numpy,
+    )
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = gpt2_small(max_len=1024)
+    params = params_from_numpy(numpy_params(cfg, seed=0), device="cuda",
+                               dtype=cfg.dtype)
+    check = greedy_checker(cfg, params)
+    out = {"card": card, "config": "gpt2_small(max_len=1024), bfloat16, "
+           "page 16, chunk 16"}
+    out["ship"] = ship_leg(cfg, params, check, card)
+    out["preempt"] = preempt_leg(cfg, params, check, card)
+    out["hibernate"] = hibernate_leg(cfg, params, check, card)
+    out["phase_s"] = time.perf_counter() - t_phase
+    del params, check
+    torch.cuda.empty_cache()
+    return out
+
+
 def lstm_f16_entry(lstm: dict, precision) -> dict:
     """The LSTM kernel's float16 keys: the timed train shape (with
     residuals, what `fit` launches) and its launches in the precision
@@ -3256,6 +4261,16 @@ def decode_launches(decode, kernel: str):
     return {"generate_per_call": decode["generate"][
         "flash_launches_per_call"],
         "beam_search_per_call": decode["beam"]["flash_launches"]}
+
+
+def mobility_launches(mobility):
+    """The mobility phase's B1 launches by query width on each pool,
+    each read from a run driven with the counts set to 0 just before."""
+    if mobility is None:
+        return None
+    return {"prefill_pool": mobility["ship"]["launches"]["prefill"],
+            "decode_pool": mobility["ship"]["launches"]["decode"],
+            "preempting_pool": mobility["preempt"]["launches"]}
 
 
 def main(argv=None) -> int:
@@ -3355,6 +4370,8 @@ def main(argv=None) -> int:
         decode = decode_phase(tree, card, profile=args.profile)
     mln = mln_phase(card, profile=args.profile) if "mln" in phases else None
     precision = precision_phase(card) if "precision" in phases else None
+    moe = moe_phase(card) if "moe" in phases else None
+    mobility = mobility_phase(card) if "mobility" in phases else None
 
     entries = []
     if kernels_line is not None:
@@ -3388,6 +4405,9 @@ def main(argv=None) -> int:
                              for c in kernels_line if c["shape"]["K"] > 256},
             "chunk_library_ms": chunk_case["library_ms"],
             "decode_launches": decode_launches(decode, "paged"),
+            "moe_launches": (moe["serve"]["paged_launches_by_width"]
+                             if moe else None),
+            "mobility_launches": mobility_launches(mobility),
             "split_plan": main_case["split_plan"],
             "float16": dict(dtype_summary(next(
                 c for c in kernels_line
@@ -3419,6 +4439,12 @@ def main(argv=None) -> int:
                                       if train else None),
                 **({"decode_launches": decode_launches(decode, "flash")}
                    if kname == "flash_fwd" else {}),
+                "moe_launches": (
+                    {"train": moe["launches"][kname],
+                     "train_per_step": moe["launches_per_step"][kname],
+                     **({"generate_per_call": moe["generate"][
+                         "flash_launches"]} if kname == "flash_fwd"
+                        else {})} if moe else None),
                 "max_abs_err": max(main_case["max_abs_err"][n]
                                    for n in err_of[kname]),
                 "max_rel_err": max(main_case["max_rel_err"][n]
@@ -3508,6 +4534,10 @@ def main(argv=None) -> int:
         print(json.dumps({"mln": mln}), flush=True)
     if precision is not None:
         print(json.dumps({"precision": precision}), flush=True)
+    if moe is not None:
+        print(json.dumps({"moe": moe}), flush=True)
+    if mobility is not None:
+        print(json.dumps({"mobility": mobility}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)

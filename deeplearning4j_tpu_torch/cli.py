@@ -23,24 +23,30 @@ not ported exit naming their ROADMAP.md queue.
 
     python -m deeplearning4j_tpu_torch.cli lm -input <text> [-output dir]
         [-preset gpt2-small] [-seq 128] [-batch 8] [-accum 1] [-epochs 1]
-        [-lr 3e-3] [-updater adam] [-eval <text>] [-device cuda|cpu]
+        [-lr 3e-3] [-updater adam] [-experts 0] [-moe-top-k 1]
+        [-eval <text>] [-device cuda|cpu]
         [-generate [PROMPT] [-max-new 64] [-temperature 0.8] [-top-k 0]
          [-top-p 1.0] [-gen-seed 0] [-beam 1]]
 
 trains the byte-level TransformerLM on a text file and saves it as
 ``lm_config.json`` + ``lm_params.npz`` (the JAX package's ``dl4j lm``
 layout; either package loads the other's); without ``-input`` it loads
-the saved LM.  ``-generate`` then decodes from the prompt (whole-sequence
-`generate`, or `beam_search` with ``-beam`` > 1) and prints the text.
+the saved LM.  ``-experts N`` makes every block an MoE of N experts
+routing ``-moe-top-k`` a token.  ``-generate`` then decodes from the
+prompt (whole-sequence `generate`, or `beam_search` with ``-beam`` > 1)
+and prints the text.
 
     python -m deeplearning4j_tpu_torch.cli serve -lm <dir> [-port 8080]
         [-lm-slots 4] [-lm-kv paged|dense] [-page-size 16] [-lm-pages 0]
         [-prefill-chunk 8] [-lm-speculate off|ngram|model]
-        [-lm-draft-len 4] [-device cuda|cpu]
+        [-lm-draft-len 4] [-lm-ship] [-lm-preempt] [-lm-swap-mb 64]
+        [-lm-brownout] [-lm-hibernate-idle-s S] [-lm-disk-dir dir]
+        [-lm-disk-mb 1024] [-lm-swap-quantize on|off] [-device cuda|cpu]
 
-serves a saved LM over HTTP: ``POST /lm/generate``, ``GET
-/serving/stats``, ``/healthz``, ``/readyz``.  The device defaults to the
-card; SIGTERM drains in-flight work and stops.
+serves a saved LM over HTTP: ``POST /lm/generate`` (``/lm/prefill`` and
+``/lm/admit_pages`` with ``-lm-ship``), ``GET /serving/stats``,
+``/healthz``, ``/readyz``.  The device defaults to the card; SIGTERM
+drains in-flight work and stops.
 """
 
 from __future__ import annotations
@@ -276,6 +282,21 @@ def cmd_serve(args) -> int:
     if args.lm_speculate != "off" and args.lm_kv != "paged":
         raise SystemExit("serve: -lm-speculate requires -lm-kv paged "
                          "(speculative rollback rides the page tables)")
+    if args.lm_ship and args.lm_kv != "paged":
+        raise SystemExit("serve: -lm-ship requires -lm-kv paged (page "
+                         "shipping moves block-table pages)")
+    if (args.lm_preempt or args.lm_brownout) and args.lm_kv != "paged":
+        raise SystemExit("serve: -lm-preempt/-lm-brownout require -lm-kv "
+                         "paged (the overload-survival plane swaps "
+                         "block-table pages)")
+    if args.lm_hibernate_idle_s is not None and args.lm_kv != "paged":
+        raise SystemExit("serve: -lm-hibernate-idle-s requires -lm-kv "
+                         "paged (hibernation parks block-table pages)")
+    if (args.lm_disk_dir is not None and args.lm_hibernate_idle_s is None
+            and not args.lm_preempt):
+        raise SystemExit("serve: -lm-disk-dir needs -lm-hibernate-idle-s "
+                         "or -lm-preempt (nothing would ever reach the "
+                         "disk tier)")
     device = resolve_device(args.device)
     cfg, params = load_saved_lm(pathlib.Path(args.lm), device=device)
     srv = UiServer(host=args.host, port=args.port)
@@ -284,6 +305,13 @@ def cmd_serve(args) -> int:
                  pages=args.lm_pages if args.lm_pages > 0 else None,
                  prefill_chunk=args.prefill_chunk,
                  speculate=args.lm_speculate, draft_len=args.draft_len,
+                 ship=args.lm_ship, preempt=args.lm_preempt,
+                 swap_bytes=int(args.lm_swap_mb * (1 << 20)),
+                 brownout=args.lm_brownout or None,
+                 hibernate_idle_s=args.lm_hibernate_idle_s,
+                 state_dir=args.lm_disk_dir,
+                 state_disk_bytes=int(args.lm_disk_mb * (1 << 20)),
+                 swap_quantize=args.lm_swap_quantize == "on",
                  device=device)
     lm = srv.state.lm_server
     if lm.kv == "dense":
@@ -294,6 +322,12 @@ def cmd_serve(args) -> int:
         if lm.speculate != "off":
             kv_note += (f", speculate {lm.speculate} (draft_len "
                         f"{lm.draft_len})")
+        planes = [name for name, on in (
+            ("ship", lm.ship), ("preempt", lm.preempt),
+            ("brownout", args.lm_brownout),
+            ("hibernate", lm.hibernate)) if on]
+        if planes:
+            kv_note += ", " + "/".join(planes)
     print(f"serve: LM registered ({cfg.n_layers}L/d{cfg.d_model}, "
           f"max_len {cfg.max_len}, {args.lm_slots} decode slots, "
           f"{kv_note}, device {device})")
@@ -325,10 +359,6 @@ def cmd_serve(args) -> int:
 
 def _refuse_unported(args) -> None:
     """The `lm` options whose code paths are not ported yet."""
-    if args.experts:
-        raise SystemExit(f"-experts {args.experts}: MoE layers are not "
-                         f"ported yet (ROADMAP.md, queue A2, 'MoE "
-                         f"transformer layers')")
     if args.runtime != "local":
         raise SystemExit(f"-runtime {args.runtime}: only the local runtime "
                          f"is ported (ROADMAP.md, queue A7, 'Multi-device')")
@@ -336,14 +366,20 @@ def _refuse_unported(args) -> None:
 
 def _lm_config(args, seq: int) -> TransformerConfig:
     """The `lm` command's model: a preset at byte-level vocab, or the
-    -d-model/-layers/-heads model, with float32 parameters."""
+    -d-model/-layers/-heads model, with float32 parameters; ``-experts``
+    makes its blocks MoE."""
     if args.preset:
-        return dataclasses.replace(
+        cfg = dataclasses.replace(
             PRESETS[args.preset](max_len=seq, dtype="float32"),
             vocab_size=256)
-    return TransformerConfig(vocab_size=256, d_model=args.d_model,
-                             n_heads=args.heads, n_layers=args.layers,
-                             d_ff=4 * args.d_model, max_len=seq)
+    else:
+        cfg = TransformerConfig(vocab_size=256, d_model=args.d_model,
+                                n_heads=args.heads, n_layers=args.layers,
+                                d_ff=4 * args.d_model, max_len=seq)
+    if args.experts:
+        cfg = dataclasses.replace(cfg, n_experts=args.experts,
+                                  moe_top_k=args.moe_top_k)
+    return cfg
 
 
 def _lm_eval(path: str, cfg: TransformerConfig, params) -> float:
@@ -570,6 +606,44 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-lm-draft-len", "--lm-draft-len", "-draft-len",
                    "--draft-len", dest="draft_len", type=int, default=4,
                    help="most draft tokens a lane proposes per round")
+    p.add_argument("-lm-ship", "--lm-ship", dest="lm_ship",
+                   action="store_true",
+                   help="answer POST /lm/prefill (the lane's KV pages at "
+                   "prefill completion) and /lm/admit_pages (decode a "
+                   "shipped lane); paged KV only")
+    p.add_argument("-lm-preempt", "--lm-preempt", dest="lm_preempt",
+                   action="store_true",
+                   help="priority preemption: a request that would wait "
+                   "on a dry pool swaps the lowest-priority lane out to "
+                   "a host store; it resumes on re-admission (paged KV)")
+    p.add_argument("-lm-swap-mb", "--lm-swap-mb", dest="lm_swap_mb",
+                   type=float, default=64.0,
+                   help="host swap store cap in MiB (LRU past it; an "
+                   "evicted lane recomputes from its prompt)")
+    p.add_argument("-lm-brownout", "--lm-brownout", dest="lm_brownout",
+                   action="store_true",
+                   help="brownout ladder: under pool pressure turn "
+                   "speculation off, narrow the prefill, preempt and "
+                   "then shed best_effort work (paged KV)")
+    p.add_argument("-lm-hibernate-idle-s", "--lm-hibernate-idle-s",
+                   dest="lm_hibernate_idle_s", type=float, default=None,
+                   help="hibernate a session's KV pages to the tiered "
+                   "store after this many idle seconds; the next request "
+                   "on its prefix resumes them (paged KV)")
+    p.add_argument("-lm-disk-dir", "--lm-disk-dir", dest="lm_disk_dir",
+                   default=None,
+                   help="disk tier of the state store: host overflow "
+                   "spills here, and a restarted server over the same "
+                   "dir resumes hibernated sessions (needs "
+                   "-lm-hibernate-idle-s or -lm-preempt)")
+    p.add_argument("-lm-disk-mb", "--lm-disk-mb", dest="lm_disk_mb",
+                   type=float, default=1024.0,
+                   help="disk tier cap in MiB (LRU past it)")
+    p.add_argument("-lm-swap-quantize", "--lm-swap-quantize",
+                   dest="lm_swap_quantize", choices=("on", "off"),
+                   default="on",
+                   help="per-page int8 swapped-out and hibernated frames "
+                   "(~4x smaller); 'off' keeps exact bytes")
     p.add_argument("-device", "--device", default=None,
                    help="cuda (default) or cpu")
     p.add_argument("-serve-seconds", "--serve-seconds",
@@ -608,9 +682,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-verbose", "--verbose", action="store_true")
     p.add_argument("-device", "--device", default=None,
                    help="cuda (default) or cpu")
-    # accepted so that a JAX command line fails with the reason
     p.add_argument("-experts", "--experts", type=int, default=0,
-                   help="not ported (MoE)")
+                   help="MoE experts per block (0 = dense MLP; capacity "
+                   "dispatch in training, dense-masked at inference)")
+    p.add_argument("-moe-top-k", "--moe-top-k", dest="moe_top_k", type=int,
+                   default=1, help="experts routed per token (1 = Switch, "
+                   "2 = GShard-style)")
+    # accepted so that a JAX command line fails with the reason
     p.add_argument("-runtime", "--runtime", default="local",
                    choices=["local", "spmd", "hybrid", "pipeline"],
                    help="only local is ported")

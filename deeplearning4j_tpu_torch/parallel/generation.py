@@ -55,14 +55,13 @@ from deeplearning4j_tpu_torch.parallel.paged_kernel import (
 )
 from deeplearning4j_tpu_torch.parallel.transformer import (
     TransformerConfig,
+    _ffn,
     _forward_cache,
     _layer_norm,
-    _mlp,
     lm_head,
     map_tree,
     out_proj,
     qkv_proj,
-    require_dense,
     torch_dtype,
 )
 
@@ -153,14 +152,14 @@ def _dense_step(cfg: TransformerConfig, params: dict, cache_k, cache_v,
                 token: torch.Tensor, pos: torch.Tensor,
                 span: Optional[int]) -> torch.Tensor:
     """token ``[B]`` at positions pos ``[B]`` through the stack over a
-    dense cache (written in place) -> logits ``[B, V]``."""
-    require_dense(cfg)
+    dense cache (written in place) -> logits ``[B, V]``.  MoE blocks are
+    dense-masked, as in every step here."""
     x = (params["embed"][token.long()][:, None, :]
          + params["pos"][pos.long()][:, None, :])
     for i, layer in enumerate(params["layers"]):
         x = x + _slot_attn(layer["attn"], _layer_norm(layer["ln1"], x),
                            cache_k[i], cache_v[i], pos, span)
-        x = x + _mlp(layer["mlp"], _layer_norm(layer["ln2"], x))
+        x = x + _ffn(cfg, layer, _layer_norm(layer["ln2"], x))
     x = _layer_norm(params["ln_f"], x)
     return x[:, 0] @ lm_head(params)
 
@@ -197,7 +196,6 @@ def make_slot_step(cfg: TransformerConfig):
     counts [B]) -> (next_token [B], k, v).  The integer inputs are host
     arrays (one copy to the device); k and v are updated in place.
     Sampling is `sample_tokens`, the paged step's per-slot rule."""
-    require_dense(cfg)
 
     def step(params, k, v, pos, token, temperature, seeds, counts):
         pos = np.asarray(pos, np.int32)
@@ -274,7 +272,6 @@ def _paged_attn(p, x, layer_k, layer_v, table, pos, n_feed, rows=None):
 def _paged_hidden(cfg: TransformerConfig, params: dict, cache: dict,
                   table, pos, n_feed, tokens) -> torch.Tensor:
     """The stack up to the final layer norm: ``[B, C, d]``."""
-    require_dense(cfg)
     c = tokens.shape[1]
     ps = cache["k"].shape[2]
     wpos = pos.long()[:, None] + torch.arange(c, device=tokens.device)
@@ -285,7 +282,7 @@ def _paged_hidden(cfg: TransformerConfig, params: dict, cache: dict,
         x = x + _paged_attn(layer["attn"], _layer_norm(layer["ln1"], x),
                             cache["k"][i], cache["v"][i], table, pos,
                             n_feed, rows)
-        x = x + _mlp(layer["mlp"], _layer_norm(layer["ln2"], x))
+        x = x + _ffn(cfg, layer, _layer_norm(layer["ln2"], x))
     return _layer_norm(params["ln_f"], x)
 
 
@@ -352,7 +349,6 @@ def make_paged_step(cfg: TransformerConfig, pages: int, page_size: int,
     The integer inputs are host (numpy) arrays; they travel to the pool's
     device in one copy.  k and v are the pool tensors, updated in place
     and returned."""
-    require_dense(cfg)
     pages, page_size, chunk = int(pages), int(page_size), int(chunk)
     mp = pages_per_seq(cfg, page_size)
 
@@ -424,7 +420,6 @@ def make_spec_step(cfg: TransformerConfig, pages: int, page_size: int,
     program.  A dispatch with no drafts (n_draft all 0, known on the
     host) is `paged_decode_step`, which is `spec_verify_step` there with
     the LM head at each lane's last fed column only; accepted is 0."""
-    require_dense(cfg)
     pages, page_size, width = int(pages), int(page_size), int(width)
     mp = pages_per_seq(cfg, page_size)
 
@@ -469,6 +464,42 @@ def make_page_copy(cfg: TransformerConfig, pages: int, page_size: int):
         return k, v
 
     return copy
+
+
+def make_page_gather(cfg: TransformerConfig, pages: int, page_size: int):
+    """Export half of KV page shipping (`serving/transfer.py`): fn(k, v,
+    table_row [MP]) -> (pages_k ``[L, MP, ps, H, K]``, pages_v), a lane's
+    pages gathered out of the pool by block-table row (entries past the
+    shipped count point at the null page; the caller slices them off).
+    The pool is read, not changed: the exporting lane keeps serving."""
+
+    def gather(k, v, table_row):
+        row = torch.as_tensor(np.asarray(table_row, np.int64),
+                              device=k.device)
+        with torch.no_grad():
+            return k[:, row], v[:, row]
+
+    return gather
+
+
+def make_page_install(cfg: TransformerConfig, pages: int, page_size: int):
+    """Import half of KV page shipping: fn(k, v, pages_k ``[L, M, ps, H,
+    K]``, pages_v, table_row [MP], n) -> (k, v), the page stack scattered
+    into the pool at the row's physical pages in one call, in place.  M
+    is at most MP; rows at or past `n` land on the null page 0, whose
+    contents are garbage by design."""
+
+    def install(k, v, pages_k, pages_v, table_row, n):
+        m = pages_k.shape[1]
+        row = np.asarray(table_row, np.int64)[:m]
+        dst = torch.as_tensor(np.where(np.arange(m) < int(n), row, 0),
+                              device=k.device)
+        with torch.no_grad():
+            k[:, dst] = pages_k.to(device=k.device, dtype=k.dtype)
+            v[:, dst] = pages_v.to(device=v.device, dtype=v.dtype)
+        return k, v
+
+    return install
 
 
 # ---------------------------------------------------------------------------
@@ -659,7 +690,8 @@ def beam_search(cfg: TransformerConfig, params: dict, prompt,
 
 __all__ = ["beam_search", "decode_step", "filtered_logits", "generate",
            "gumbel_noise", "init_cache", "init_paged_cache",
-           "init_slot_cache", "make_page_copy", "make_paged_step",
+           "init_slot_cache", "make_page_copy", "make_page_gather",
+           "make_page_install", "make_paged_step",
            "make_slot_step", "make_spec_step", "paged_decode_step",
            "paged_forward", "pages_per_seq", "place_params",
            "sample_tokens", "slot_decode_step", "spec_verify_step"]

@@ -10,9 +10,14 @@ products internally.
 `apply` is the full-recompute forward through the flash-attention
 kernels and `lm_loss` the training loss on top of it; `_forward` takes
 the attention as an argument, and with the plain `attention` it is the
-kernel-free checker the paged serving path is held against.  Dense
-configs only: MoE layers are not ported yet (ROADMAP.md, queue A,
-"MoE transformer layers").
+kernel-free checker the paged serving path is held against.
+
+MoE configs (``n_experts > 0``) replace each block's MLP by ``moe``
+experts: a softmax router picks ``moe_top_k`` experts a token (the lower
+index first among equal probabilities, as ``lax.top_k`` orders them),
+training routes by capacity dispatch (`_moe_dispatch`) and adds the
+Switch load-balancing loss, and inference computes every expert densely
+and masks (`_moe_dense`, the oracle of the dispatch).
 """
 
 from __future__ import annotations
@@ -79,14 +84,6 @@ class TransformerConfig:
         return self.d_model // self.n_heads
 
 
-def require_dense(cfg: TransformerConfig) -> None:
-    """Refuse MoE configs: only dense MLP blocks are ported."""
-    if cfg.n_experts:
-        raise NotImplementedError(
-            f"n_experts={cfg.n_experts}: MoE configs are not ported yet "
-            f"(ROADMAP.md, queue A, 'MoE transformer layers')")
-
-
 def gpt2_small(max_len: int = 1024, dtype: str = "bfloat16"
                ) -> TransformerConfig:
     """GPT-2-small width: vocab 50304, d 768, 12 heads x 64, 12 layers,
@@ -123,7 +120,6 @@ def _init_tree(cfg: TransformerConfig, normal: Callable, zeros: Callable,
                ones: Callable, scale: Callable) -> dict:
     """The JAX `init_params` tree structure and scaling, with the random
     source abstracted: ``normal(shape)`` draws standard normals."""
-    require_dense(cfg)
     d, h, dh, f = cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff
 
     def dense(shape, fan_in):
@@ -136,12 +132,18 @@ def _init_tree(cfg: TransformerConfig, normal: Callable, zeros: Callable,
             "ln2": {"scale": ones((d,)), "bias": zeros((d,))},
             "attn": {"wq": dense((d, h, dh), d), "wk": dense((d, h, dh), d),
                      "wv": dense((d, h, dh), d), "wo": dense((h, dh, d), d)},
-            "mlp": {"w1": dense((d, f), d), "b1": zeros((f,)),
-                    "w2": dense((f, d), f), "b2": zeros((d,))},
         }
         if cfg.attn_bias:
             layer["attn"].update(bq=zeros((h, dh)), bk=zeros((h, dh)),
                                  bv=zeros((h, dh)), bo=zeros((d,)))
+        if cfg.n_experts:
+            e = cfg.n_experts
+            layer["moe"] = {"gate": dense((d, e), d),
+                            "w1": dense((e, d, f), d), "b1": zeros((e, f)),
+                            "w2": dense((e, f, d), f), "b2": zeros((e, d))}
+        else:
+            layer["mlp"] = {"w1": dense((d, f), d), "b1": zeros((f,)),
+                            "w2": dense((f, d), f), "b2": zeros((d,))}
         layers.append(layer)
     # tied configs: the embedding is also the output projection, so it
     # carries the head's 1/sqrt(d) scale
@@ -203,10 +205,6 @@ def params_from_numpy(tree: dict, device: DeviceLike = None,
     """The weight carry-over: a JAX parameter tree as numpy arrays (same
     keys, JAX layouts) -> this module's parameters, as tensors on
     `device`, cast to `dtype` when given."""
-    if any("moe" in layer for layer in tree.get("layers", [])):
-        raise NotImplementedError(
-            "MoE parameter trees are not ported yet (ROADMAP.md, queue A, "
-            "'MoE transformer layers')")
     dev = resolve_device(device)
     dt = torch_dtype(dtype) if dtype is not None else None
 
@@ -264,6 +262,119 @@ def _mlp(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     return hid @ p["w2"] + p["b2"]
 
 
+def _router_weights(probs: torch.Tensor, top_k: int):
+    """(top_idx, weights) ``[..., k]``.  k = 1: the Switch top-1 router
+    probability itself; k > 1: renormalized over the chosen experts.
+    Among equal probabilities the lower expert index comes first, as
+    ``lax.top_k`` orders them (`torch.topk` promises no order, and a
+    bfloat16 softmax over a few experts ties often): a stable descending
+    sort."""
+    top_p, top_idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    top_p, top_idx = top_p[..., :top_k], top_idx[..., :top_k]
+    if top_k > 1:
+        top_p = top_p / top_p.sum(dim=-1, keepdim=True)
+    return top_idx, top_p
+
+
+def _experts(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
+    """Every expert's tanh-GELU MLP over its own rows: x ``[E, M, d]`` ->
+    ``[E, M, d]``."""
+    hid = F.gelu(torch.bmm(x, p["w1"]) + p["b1"][:, None, :],
+                 approximate="tanh")
+    return torch.bmm(hid, p["w2"]) + p["b2"][:, None, :]
+
+
+def _moe_dense(p: Dict[str, torch.Tensor], x: torch.Tensor,
+               top_k: int = 1) -> torch.Tensor:
+    """Top-k MoE with dense-masked compute: every expert sees every token
+    and the combine weight zeroes the pairs not routed, so nothing is
+    dropped.  The oracle of `_moe_dispatch` and the inference path.  The
+    gate logits and softmax are taken in x's dtype."""
+    b, s, d = x.shape
+    e = p["w1"].shape[0]
+    gate_w = torch.softmax(x @ p["gate"], dim=-1)               # [B,S,E]
+    top_idx, w = _router_weights(gate_w, top_k)                # [B,S,k]
+    combine = (w[..., None] * F.one_hot(top_idx, e).to(x.dtype)).sum(-2)
+    y = _experts(p, x.reshape(1, b * s, d).expand(e, b * s, d))
+    return torch.einsum("end,ne->nd", y,
+                        combine.reshape(b * s, e)).reshape(b, s, d)
+
+
+def _moe_route(p: Dict[str, torch.Tensor], xf: torch.Tensor,
+               capacity_factor: float, top_k: int):
+    """The capacity router over xf ``[N, d]`` -> (expert ``[A]``, slot
+    ``[A]`` clipped to ``[0, C)``, weight ``[A]``, keep ``[A]`` in x's
+    dtype, C).  An expert's buffer holds ``C = max(1, min(A, ceil(cf A /
+    E)))`` of the ``A = N k`` assignments.  Assignments are token-major
+    (a token's second choice ranks after its first); an assignment's
+    slot is its 0-based rank among those of its expert, and one at C or
+    above is dropped."""
+    e = p["w1"].shape[0]
+    a = xf.shape[0] * top_k
+    c = max(1, min(a, int(math.ceil(capacity_factor * a / e))))
+    gate_w = torch.softmax(xf @ p["gate"], dim=-1)             # [N,E]
+    top_idx, top_w = _router_weights(gate_w, top_k)            # [N,k]
+    e_flat = top_idx.reshape(-1)
+    onehot = F.one_hot(e_flat, e)
+    slot = (torch.cumsum(onehot, dim=0) * onehot).sum(dim=1) - 1
+    keep = (slot < c).to(xf.dtype)
+    return e_flat, slot.clamp(0, c - 1), top_w.reshape(-1), keep, c
+
+
+def _moe_dispatch(p: Dict[str, torch.Tensor], x: torch.Tensor,
+                  capacity_factor: float, top_k: int = 1) -> torch.Tensor:
+    """Capacity-based top-k dispatch (Switch routing at k = 1, GShard's
+    top-2 at k = 2): the N * k assignments are scattered into an
+    ``[E, C, d]`` buffer, each expert computes only its buffer, and the
+    outputs gather back weighted by the router weight, summed over a
+    token's k assignments.  A dropped assignment contributes zero; the
+    residual around the block passes its token through."""
+    b, s, d = x.shape
+    e = p["w1"].shape[0]
+    xf = x.reshape(b * s, d)
+    e_flat, slot, w_flat, keep, c = _moe_route(p, xf, capacity_factor,
+                                               top_k)
+    x_rep = xf.repeat_interleave(top_k, dim=0) * keep[:, None]  # [A, d]
+    # each kept assignment owns its (expert, slot) exclusively and a
+    # dropped one adds exact zeros, so the accumulated scatter is exact
+    # in any order, CUDA atomics included
+    buf = torch.zeros((e, c, d), dtype=x.dtype, device=x.device).index_put(
+        (e_flat, slot), x_rep, accumulate=True)
+    y = _experts(p, buf)
+    out = y[e_flat, slot] * (w_flat * keep)[:, None]           # [A, d]
+    return out.reshape(b * s, top_k, d).sum(dim=1).reshape(b, s, d)
+
+
+def _moe(p: Dict[str, torch.Tensor], x: torch.Tensor,
+         capacity_factor: float = 0.0, top_k: int = 1) -> torch.Tensor:
+    """The MoE block: capacity dispatch when capacity_factor > 0, the
+    dense-masked oracle otherwise."""
+    if capacity_factor > 0:
+        return _moe_dispatch(p, x, capacity_factor, top_k)
+    return _moe_dense(p, x, top_k)
+
+
+def _moe_aux_loss(p: Dict[str, torch.Tensor],
+                  x: torch.Tensor) -> torch.Tensor:
+    """The Switch load-balancing loss ``E * sum_e f_e * P_e``: f is the
+    fraction of tokens whose largest router logit is expert e (top-1
+    whatever k is; no gradient), P the mean router probability."""
+    e = p["w1"].shape[0]
+    logits = x @ p["gate"]
+    probs = torch.softmax(logits, dim=-1)
+    f = F.one_hot(logits.argmax(dim=-1), e).to(x.dtype).mean(dim=(0, 1))
+    return e * (f * probs.mean(dim=(0, 1))).sum()
+
+
+def _ffn(cfg: TransformerConfig, layer: dict, h: torch.Tensor,
+         capacity_factor: float = 0.0) -> torch.Tensor:
+    """A block's feed-forward half on its normed input: the MLP, or the
+    MoE with `cfg.moe_top_k` (dense-masked at capacity factor 0)."""
+    if "moe" in layer:
+        return _moe(layer["moe"], h, capacity_factor, cfg.moe_top_k)
+    return _mlp(layer["mlp"], h)
+
+
 def lm_head(params: dict) -> torch.Tensor:
     """The [d, V] output projection: ``head``, or ``embed.T`` when tied."""
     return params["head"] if "head" in params else params["embed"].T
@@ -291,29 +402,45 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _forward(cfg: TransformerConfig, params: dict, tokens,
-             attn: Callable) -> torch.Tensor:
+             attn: Callable, train: bool = False, return_aux: bool = False):
     """tokens [B, S] int -> logits [B, S, V] with `attn(q, k, v)` as the
     attention of every block.  With ``cfg.remat`` and grad enabled, each
     block is recomputed in the backward (`torch.utils.checkpoint`, the
-    counterpart of ``jax.checkpoint(block)``)."""
-    require_dense(cfg)
+    counterpart of ``jax.checkpoint(block)``).  MoE blocks route by
+    capacity dispatch when `train` (with ``cfg.moe_capacity_factor``),
+    dense-masked otherwise; `return_aux` also returns the mean over
+    layers of the load-balancing loss (0 for dense configs)."""
     tokens = torch.as_tensor(tokens, device=params["embed"].device)
+    cf = cfg.moe_capacity_factor if train else 0.0
 
     def block(layer, x):
         q, k, v = qkv_proj(layer["attn"], _layer_norm(layer["ln1"], x))
         x = x + out_proj(layer["attn"], attn(q, k, v))
-        return x + _mlp(layer["mlp"], _layer_norm(layer["ln2"], x))
+        h = _layer_norm(layer["ln2"], x)
+        x = x + _ffn(cfg, layer, h, cf)
+        if not return_aux:
+            return x
+        aux = (_moe_aux_loss(layer["moe"], h) if "moe" in layer
+               else torch.zeros((), dtype=x.dtype, device=x.device))
+        return x, aux
 
     remat = cfg.remat and torch.is_grad_enabled()
     s = tokens.shape[1]
     x = params["embed"][tokens] + params["pos"][None, :s, :]
+    auxs = []
     for layer in params["layers"]:
-        if remat:
-            x = checkpoint(block, layer, x, use_reentrant=False)
+        out = (checkpoint(block, layer, x, use_reentrant=False) if remat
+               else block(layer, x))
+        if return_aux:
+            x, aux = out
+            auxs.append(aux)
         else:
-            x = block(layer, x)
+            x = out
     x = _layer_norm(params["ln_f"], x)
-    return x @ lm_head(params)
+    logits = x @ lm_head(params)
+    if return_aux:
+        return logits, torch.stack(auxs).mean()
+    return logits
 
 
 def _forward_cache(cfg: TransformerConfig, params: dict,
@@ -322,14 +449,13 @@ def _forward_cache(cfg: TransformerConfig, params: dict,
     """The KV-cache prefill: `_forward` without remat and without the LM
     head, handing layer i's keys and values ``[B, S, H, K]`` to
     ``store(i, k, v)``.  Returns the final-layer-norm output ``[B, S,
-    d]``."""
-    require_dense(cfg)
+    d]``.  MoE blocks are dense-masked."""
     x = params["embed"][tokens] + params["pos"][None, :tokens.shape[1], :]
     for i, layer in enumerate(params["layers"]):
         q, k, v = qkv_proj(layer["attn"], _layer_norm(layer["ln1"], x))
         store(i, k, v)
         x = x + out_proj(layer["attn"], attn(q, k, v))
-        x = x + _mlp(layer["mlp"], _layer_norm(layer["ln2"], x))
+        x = x + _ffn(cfg, layer, _layer_norm(layer["ln2"], x))
     return _layer_norm(params["ln_f"], x)
 
 
@@ -338,25 +464,30 @@ def apply(cfg: TransformerConfig, params: dict, tokens,
           return_aux: bool = False):
     """tokens [B, S] int -> logits [B, S, V] through the flash-attention
     kernels (`kernels.flash_attention`; the plain version on CPU
-    tensors), as the JAX package runs on the TPU.  `train` selects MoE
-    routing in JAX and changes nothing for the dense configs ported
-    here; `return_aux` also returns the (zero) MoE auxiliary loss."""
-    logits = _forward(cfg, params, tokens,
-                      lambda q, k, v: flash_attention(q, k, v, causal))
-    if return_aux:
-        return logits, torch.zeros((), dtype=logits.dtype,
-                                   device=logits.device)
-    return logits
+    tensors), as the JAX package runs on the TPU.  `train` routes MoE
+    blocks by capacity dispatch (the inference default is the exact
+    dense-masked path); `return_aux` also returns the mean-over-layers
+    load-balancing loss (0 for dense configs)."""
+    return _forward(cfg, params, tokens,
+                    lambda q, k, v: flash_attention(q, k, v, causal),
+                    train=train, return_aux=return_aux)
 
 
 def lm_loss(cfg: TransformerConfig, params: dict, tokens,
             targets) -> torch.Tensor:
     """Mean next-token cross-entropy over the batch, with the log-softmax
-    taken in the logits' dtype (the JAX `lm_loss`)."""
-    logits = apply(cfg, params, tokens, train=True)
+    taken in the logits' dtype (the JAX `lm_loss`).  MoE configs route by
+    capacity dispatch and add ``moe_aux_weight`` times the load-balancing
+    loss when that weight is above 0."""
+    use_aux = bool(cfg.n_experts) and cfg.moe_aux_weight > 0
+    out = apply(cfg, params, tokens, train=True, return_aux=use_aux)
+    logits, aux = out if use_aux else (out, None)
     targets = torch.as_tensor(targets, device=logits.device).long()
     logp = F.log_softmax(logits, dim=-1)
-    return -logp.gather(-1, targets[..., None])[..., 0].mean()
+    loss = -logp.gather(-1, targets[..., None])[..., 0].mean()
+    if use_aux:
+        loss = loss + cfg.moe_aux_weight * aux.to(loss.dtype)
+    return loss
 
 
 __all__ = [
@@ -376,6 +507,5 @@ __all__ = [
     "params_from_numpy",
     "params_to_numpy",
     "qkv_proj",
-    "require_dense",
     "torch_dtype",
 ]

@@ -1,8 +1,10 @@
 """Serving plane of the port (counterpart of `deeplearning4j_tpu.serving`):
 the continuous LM server over a paged or dense KV cache, its page
 allocator and radix prefix cache, the speculative drafters
-(`serving.draft`), the bucket ladder (`serving.bucketing`), metrics and
-typed failures."""
+(`serving.draft`), the KV page frame (`serving.transfer`), priorities,
+the swap store and the brownout ladder (`serving.pressure`), the tiered
+state store (`serving.hibernate`), the bucket ladder
+(`serving.bucketing`), metrics and typed failures."""
 
 from deeplearning4j_tpu_torch.serving.bucketing import (
     BucketLadder,

@@ -46,9 +46,38 @@ and pages are freed at the next admit round, and `begin_drain()`/
 resets the allocator, radix tree and device pool together: the pool
 tensors are updated in place, so their contents are no longer trusted.
 
-Not ported yet (ROADMAP.md): page shipping, preemption and brownout,
-tenancy, hibernation, the circuit breaker, SSE streaming, request tracing
-and the compile watcher.
+Page mobility (paged KV only): a lane's pages leave the pool through
+`parallel.generation.make_page_gather` as one `serving/transfer.py`
+frame and come back through `make_page_install`, in one call each.
+
+- ``ship=True``: `prefill_export` admits a request normally but resolves
+  at prefill completion (first token sampled, prompt pages in the radix
+  tree) with the lane's `PageExport`; `admit_with_pages` installs a
+  shipped lane in another pool, which decodes on exactly where the
+  prefill pool left off.
+- ``preempt=True``: requests carry a priority (`serving/pressure.py`;
+  the queue is ordered by (priority, arrival)), and a request that would
+  wait on a dry pool preempts the lowest-priority active lane: its pages
+  are gathered, framed (int8 with ``swap_quantize``) and parked in a
+  byte-capped host store, and the request requeues with its arrival
+  stamp.  On re-admission the lane is installed again and resumes; a
+  lane whose swap was evicted or corrupted recomputes from its prompt.
+  ``brownout`` adds the degradation ladder: speculation off, the prefill
+  width halved, best_effort lanes preempted, best_effort admissions
+  shed with Retry-After.
+- ``hibernate_idle_s``: a request with a `session_id` leaves its whole
+  committed sequence's full pages in the radix tree; once the session
+  has been idle that long its pages are framed into the tiered store
+  (`serving/hibernate.py`, spilling to ``state_dir`` on disk) and freed.
+  A later prompt with that prefix resumes them instead of prefilling,
+  also in a fresh server over the same ``state_dir``.
+
+KV at position t is a function of tokens[0..t] and the weights, so a
+shipped, restored or resumed lane decodes the tokens a local one does,
+greedy or seeded sampling.
+
+Not ported yet (ROADMAP.md): tenancy, the circuit breaker, SSE
+streaming, request tracing and the compile watcher.
 """
 
 from __future__ import annotations
@@ -66,22 +95,44 @@ from deeplearning4j_tpu_torch.parallel.generation import (
     init_paged_cache,
     init_slot_cache,
     make_page_copy,
+    make_page_gather,
+    make_page_install,
     make_slot_step,
     make_spec_step,
     pages_per_seq,
     place_params,
 )
-from deeplearning4j_tpu_torch.parallel.transformer import (
-    require_dense,
-    torch_dtype,
-)
+from deeplearning4j_tpu_torch.parallel.transformer import torch_dtype
 from deeplearning4j_tpu_torch.serving.draft import make_drafter
+from deeplearning4j_tpu_torch.serving.hibernate import (
+    TieredStateStore,
+    prefix_key,
+)
 from deeplearning4j_tpu_torch.serving.metrics import ServingMetrics
 from deeplearning4j_tpu_torch.serving.paged import PagePool, RadixPrefixCache
+from deeplearning4j_tpu_torch.serving.pressure import (
+    PRIORITY_RANK,
+    RANK_BEST_EFFORT,
+    BrownoutLadder,
+    PressureConfig,
+    SwapEvictedError,
+    normalize_priority,
+)
 from deeplearning4j_tpu_torch.serving.resilience import (
     DeadlineExceededError,
+    ServingError,
+    ServingOverloadError,
     ServingUnavailableError,
     check_admission,
+)
+from deeplearning4j_tpu_torch.serving.transfer import (
+    PageExport,
+    PageShipError,
+    check_compatible,
+    deserialize_export,
+    model_signature,
+    quantize_export,
+    serialize_export,
 )
 
 
@@ -111,7 +162,10 @@ def validate_request(cfg, prompt_ids, max_new_tokens: int) -> List[int]:
 class _LMRequest:
     __slots__ = ("prompt", "max_new", "temperature", "seed", "event",
                  "result", "error", "enqueued", "deadline", "abandoned",
-                 "t_installed", "t_done", "t_first", "prefix_matched")
+                 "t_installed", "t_done", "t_first", "prefix_matched",
+                 "export", "export_result", "import_pages", "session_id",
+                 "priority", "rank", "swap_key", "swap_restore",
+                 "swap_error", "preempted")
 
     def __init__(self, prompt: List[int], max_new: int, temperature: float,
                  seed: int, deadline: Optional[float] = None):
@@ -129,6 +183,16 @@ class _LMRequest:
         self.t_done: Optional[float] = None       # decode-complete stamp
         self.t_first: Optional[float] = None      # first committed token
         self.prefix_matched = 0                   # radix tokens reused
+        self.export = False            # resolve at prefill completion
+        self.export_result: Optional[PageExport] = None
+        self.import_pages: Optional[PageExport] = None  # shipped-in lane
+        self.session_id: Optional[str] = None
+        self.priority = "interactive"  # admission class
+        self.rank = 0                  # PRIORITY_RANK[priority]
+        self.swap_key: Optional[str] = None  # swap store key while queued
+        self.swap_restore = False      # import_pages came from the swap
+        self.swap_error: Optional[str] = None  # why a restore failed
+        self.preempted = 0             # times this lane was preempted
 
 
 class _Slot:
@@ -154,13 +218,16 @@ class ContinuousLMServer:
     """Slot-based continuous decode over one transformer LM: a paged KV
     pool with radix prefix reuse, chunked prefill and optional
     speculation (``kv="paged"``), or a dense per-slot cache
-    (``kv="dense"``).
+    (``kv="dense"``).  MoE configs decode dense-masked in every step.
 
     `generate(prompt_ids, max_new_tokens)` is thread-safe and blocks until
     the request's sequence is complete.  `params` is the port's parameter
     tree (tensors or numpy arrays in the JAX layout); it is placed on
     `device` in the config dtype.  `device=None` means the card, and
-    raises when there is none."""
+    raises when there is none.  `ship`, `preempt` (with `swap_bytes`),
+    `brownout` (True or a `PressureConfig`), `hibernate_idle_s` (with
+    `state_dir` and `state_disk_bytes`) and `swap_quantize` configure the
+    page-mobility planes of the module docstring."""
 
     def __init__(self, cfg, params, slots: int = 4,
                  metrics: Optional[ServingMetrics] = None,
@@ -169,7 +236,12 @@ class ContinuousLMServer:
                  kv: str = "paged", page_size: int = 16,
                  pages: Optional[int] = None, prefill_chunk: int = 8,
                  speculate: str = "off", draft_len: int = 4,
-                 drafter=None, draft_model=None,
+                 drafter=None, draft_model=None, ship: bool = False,
+                 preempt: bool = False, swap_bytes: int = 64 << 20,
+                 brownout=None, hibernate_idle_s: Optional[float] = None,
+                 state_dir: Optional[str] = None,
+                 state_disk_bytes: int = 1 << 30,
+                 swap_quantize: bool = True,
                  device: DeviceLike = None):
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
@@ -196,7 +268,34 @@ class ContinuousLMServer:
                 f"(got kv={kv!r}): rollback rides the page tables")
         if speculate != "off" and draft_len < 1:
             raise ValueError(f"draft_len must be >= 1, got {draft_len}")
-        require_dense(cfg)
+        if ship and kv != "paged":
+            raise ValueError(
+                f"ship=True requires kv='paged' (got kv={kv!r}): page "
+                f"shipping moves block-table pages")
+        if preempt and kv != "paged":
+            raise ValueError(
+                f"preempt=True requires kv='paged' (got kv={kv!r}): "
+                f"preemption swaps block-table pages out to the host")
+        if brownout and kv != "paged":
+            raise ValueError(
+                f"brownout requires kv='paged' (got kv={kv!r}): the "
+                f"ladder's signals are the paged pool's pressure")
+        if hibernate_idle_s is not None:
+            if kv != "paged":
+                raise ValueError(
+                    f"hibernate_idle_s requires kv='paged' (got "
+                    f"kv={kv!r}): hibernation parks block-table pages "
+                    f"on the tiered state store")
+            if float(hibernate_idle_s) < 0:
+                raise ValueError(
+                    f"hibernate_idle_s must be >= 0, got "
+                    f"{hibernate_idle_s}")
+        if state_dir is not None and not (preempt
+                                          or hibernate_idle_s is not None):
+            raise ValueError(
+                "state_dir names a disk tier nothing would write: it "
+                "requires preempt=True or hibernate_idle_s (serve with "
+                "-lm-preempt or -lm-hibernate-idle-s)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.params = place_params(cfg, params, self.device)
@@ -235,6 +334,49 @@ class ContinuousLMServer:
         self._pool: Optional[PagePool] = None
         self._tree: Optional[RadixPrefixCache] = None
         self._pending_cow: List[Dict] = []
+        # page mobility: the gather/install pair, and installs waiting
+        # for the next dispatch (shipped, restored or resumed lanes)
+        self.ship = bool(ship)
+        self._gather = None
+        self._install = None
+        self._pending_install: List[Dict] = []
+        self.preempt = bool(preempt)
+        self.hibernate_idle_s = (float(hibernate_idle_s)
+                                 if hibernate_idle_s is not None else None)
+        self.hibernate = self.hibernate_idle_s is not None
+        self.swap_quantize = bool(swap_quantize)
+        self.state_dir = str(state_dir) if state_dir is not None else None
+        # one store for both planes: process-local "swap-<n>" keys for
+        # preempted lanes and content-addressed "hib-<digest>" keys for
+        # hibernated prefixes, spilling to disk with a state_dir
+        if self.preempt or self.hibernate:
+            self._swap = TieredStateStore(
+                int(swap_bytes), disk_dir=self.state_dir,
+                disk_bytes=int(state_disk_bytes))
+            if self.state_dir is not None:
+                # a predecessor's swap keys can never restore in this
+                # process; hibernated prefixes stay valid across restarts
+                self._swap.gc("swap-")
+        else:
+            self._swap = None
+        self._swap_seq = 0
+        # idle-session tracking for hibernation: session_id -> the full
+        # committed sequence and its last-activity stamp (LRU)
+        self._hib_sessions: "collections.OrderedDict[str, Dict]" = (
+            collections.OrderedDict())
+        if brownout is None or brownout is False:
+            self._pressure = None
+        elif isinstance(brownout, PressureConfig):
+            self._pressure = BrownoutLadder(brownout)
+        else:
+            self._pressure = BrownoutLadder()
+        # observed cadence of ladder updates (EWMA seconds): the base of
+        # the Retry-After of a ladder shed
+        self._pressure_tick_s = 0.05
+        self._pressure_stamp: Optional[float] = None
+        self._sessions: "collections.OrderedDict[str, int]" = (
+            collections.OrderedDict())
+        self._session_capacity = 1024
         self._warm_req: Optional[threading.Event] = None
         self._slots = [_Slot() for _ in range(self.n_slots)]
         self._steps = 0
@@ -266,35 +408,34 @@ class ContinuousLMServer:
         per_req = (lat.get("p50_ms", 100.0) or 100.0) / 1e3
         return max(0.1, per_req * (1 + len(self._queue) / self.n_slots))
 
-    def _cancel_request(self, req: _LMRequest) -> None:
-        """Give up on an unresolved request (client timeout).  A queued
-        request is removed; one already in a slot is marked abandoned and
-        the worker frees the slot at its next admit round (slot state is
-        written by the worker thread only)."""
-        now = time.perf_counter()
-        with self._cond:
-            try:
-                self._queue.remove(req)
-                self.metrics.set_queue_depth(len(self._queue))
-                self.metrics.record_shed()
-            except ValueError:
-                req.abandoned = True
-            resolved_with_error = (req.event.is_set()
-                                   and req.error is not None)
-        if (req.deadline is not None and now >= req.deadline
-                and not resolved_with_error):
-            self.metrics.record_deadline_missed()
+    def _ladder_retry_after_locked(self) -> float:
+        """Retry-After of a ladder shed: `down_dwell` calm updates at the
+        observed update cadence, the time the ladder needs to step
+        down (the backlog estimate without a ladder)."""
+        if self._pressure is None:
+            return self._retry_after_locked()
+        return max(0.1, self._pressure.config.down_dwell
+                   * self._pressure_tick_s)
 
-    def generate(self, prompt_ids, max_new_tokens: int,
-                 temperature: float = 0.0, seed: int = 0,
-                 timeout: Optional[float] = None,
-                 deadline_s: Optional[float] = None) -> List[int]:
-        """prompt ids -> full sequence (prompt + generated), blocking.
-
-        `timeout` bounds the client's wait; `deadline_s` (default
-        `default_deadline_s`) rides the queue item so the admitter sheds
-        the request once it expires."""
-        ids = self.validate(prompt_ids, max_new_tokens)
+    def _build_request(self, prompt_ids, max_new_tokens: int,
+                       temperature: float, seed: int,
+                       deadline_s: Optional[float],
+                       session_id: Optional[str] = None,
+                       export: bool = False,
+                       priority: Optional[str] = None) -> _LMRequest:
+        """Validate and build one queue item.  Export lanes are budgeted
+        for their prefill pages only (they never decode here)."""
+        if export:
+            ids = validate_request(self.cfg, prompt_ids, max_new_tokens)
+            if (self.kv == "paged"
+                    and -(-len(ids) // self.page_size) > self.kv_pages):
+                raise ValueError(
+                    f"prompt needs {-(-len(ids) // self.page_size)} "
+                    f"prefill pages (page_size {self.page_size}) but "
+                    f"the pool holds {self.kv_pages}; raise -lm-pages "
+                    f"or shorten it")
+        else:
+            ids = self.validate(prompt_ids, max_new_tokens)
         if temperature < 0:
             raise ValueError(f"temperature must be >= 0, got {temperature}")
         seed = int(seed) & 0x7FFFFFFF
@@ -303,16 +444,95 @@ class ContinuousLMServer:
         req = _LMRequest(ids, int(max_new_tokens), float(temperature), seed)
         if deadline_s is not None:
             req.deadline = req.enqueued + float(deadline_s)
+        req.session_id = (str(session_id) if session_id is not None
+                          else None)
+        req.export = bool(export)
+        req.priority = normalize_priority(priority)
+        req.rank = PRIORITY_RANK[req.priority]
+        return req
+
+    def _enqueue(self, req: _LMRequest) -> None:
+        """Admission under the pool lock: the ladder's level-4 shed of a
+        best_effort request (before the shared gate, so interactive and
+        batch keep the whole queue bound), the shared gate, worker
+        start, sticky-session accounting and the priority-ordered
+        insert."""
         with self._cond:
-            check_admission(
-                accepting=self._accepting, queue_depth=len(self._queue),
-                max_queue_depth=self.max_queue_depth, metrics=self.metrics,
-                retry_after_s=self._retry_after_locked, what="LM")
+            if (self._accepting and self._pressure is not None
+                    and self._pressure.level >= 4
+                    and req.rank >= RANK_BEST_EFFORT):
+                self.metrics.record_rejected()
+                self.metrics.record_class("rejected", req.priority)
+                self.metrics.record_brownout_shed()
+                raise ServingOverloadError(
+                    "brownout level 4: best_effort admission shed "
+                    "while the KV pool recovers",
+                    retry_after_s=self._ladder_retry_after_locked())
+            try:
+                check_admission(
+                    accepting=self._accepting,
+                    queue_depth=len(self._queue),
+                    max_queue_depth=self.max_queue_depth,
+                    metrics=self.metrics,
+                    retry_after_s=self._retry_after_locked, what="LM")
+            except ServingError:
+                self.metrics.record_class("rejected", req.priority)
+                raise
             if not self._running:
                 self._start_locked()
-            self._queue.append(req)
+            if req.session_id is not None:
+                self._note_session_locked(req.session_id)
+            self._queue_insert_locked(req)
             self.metrics.set_queue_depth(len(self._queue))
             self._cond.notify_all()
+
+    def _queue_insert_locked(self, req: _LMRequest) -> None:
+        """Insert keeping the queue sorted by (rank, enqueued): the head
+        is the most important oldest request, and one class is FIFO.  A
+        preempted request re-inserts with its original stamp, ahead of
+        later arrivals of its class."""
+        key = (req.rank, req.enqueued)
+        i = len(self._queue)
+        while i > 0 and (self._queue[i - 1].rank,
+                         self._queue[i - 1].enqueued) > key:
+            i -= 1
+        self._queue.insert(i, req)
+
+    def _note_session_locked(self, session_id: str) -> None:
+        """Sticky-session accounting: a session_id this pool served
+        before is an affinity hit.  Bounded LRU."""
+        hit = session_id in self._sessions
+        if hit:
+            self._sessions.move_to_end(session_id)
+        else:
+            self._sessions[session_id] = 1
+            while len(self._sessions) > self._session_capacity:
+                self._sessions.popitem(last=False)
+        self.metrics.record_session(hit)
+
+    def _cancel_request(self, req: _LMRequest) -> None:
+        """Give up on an unresolved request (client timeout).  A queued
+        request is removed (with its swap bytes); one already in a slot
+        is marked abandoned and the worker frees the slot at its next
+        admit round (slot state is written by the worker thread only)."""
+        now = time.perf_counter()
+        with self._cond:
+            try:
+                self._queue.remove(req)
+                self.metrics.set_queue_depth(len(self._queue))
+                self.metrics.record_shed()
+                self.metrics.record_class("shed", req.priority)
+                self._drop_swap_locked(req)
+            except ValueError:
+                req.abandoned = True
+            resolved_with_error = (req.event.is_set()
+                                   and req.error is not None)
+        if (req.deadline is not None and now >= req.deadline
+                and not resolved_with_error):
+            self.metrics.record_deadline_missed()
+            self.metrics.record_class("deadline_missed", req.priority)
+
+    def _wait(self, req: _LMRequest, timeout: Optional[float]):
         if not req.event.wait(timeout):
             self._cancel_request(req)
             raise DeadlineExceededError(
@@ -320,6 +540,98 @@ class ContinuousLMServer:
         if req.error is not None:
             raise req.error
         return req.result
+
+    def generate(self, prompt_ids, max_new_tokens: int,
+                 temperature: float = 0.0, seed: int = 0,
+                 timeout: Optional[float] = None,
+                 deadline_s: Optional[float] = None,
+                 session_id: Optional[str] = None,
+                 priority: Optional[str] = None) -> List[int]:
+        """prompt ids -> full sequence (prompt + generated), blocking.
+
+        `timeout` bounds the client's wait; `deadline_s` (default
+        `default_deadline_s`) rides the queue item so the admitter sheds
+        the request once it expires.  `session_id` feeds sticky-session
+        accounting and hibernation; `priority` (interactive, batch,
+        best_effort; default interactive) orders admission and marks the
+        lane's preemption class."""
+        req = self._build_request(prompt_ids, max_new_tokens, temperature,
+                                  seed, deadline_s, session_id=session_id,
+                                  priority=priority)
+        self._enqueue(req)
+        return self._wait(req, timeout)
+
+    # ---- disaggregation: KV page export / import --------------------------
+
+    def _require_ship(self, what: str) -> None:
+        if self.kv != "paged":
+            raise ValueError(
+                f"page {what} requires kv='paged': shipping moves "
+                f"block-table pages (got kv={self.kv!r})")
+        if not self.ship:
+            raise ValueError(
+                f"page {what} requested but the pool was started with "
+                f"ship=False (serve with -lm-ship, or "
+                f"ContinuousLMServer(ship=True))")
+
+    def prefill_export(self, prompt_ids, max_new_tokens: int,
+                       temperature: float = 0.0, seed: int = 0,
+                       timeout: Optional[float] = None,
+                       deadline_s: Optional[float] = None,
+                       session_id: Optional[str] = None,
+                       priority: Optional[str] = None) -> PageExport:
+        """The prefill half of disaggregation: the prompt goes through
+        normal admission (radix reuse, chunked prefill, copy-on-write),
+        and the request resolves at prefill completion with the lane's
+        `PageExport`: its prompt pages and the first committed token.
+        The whole request contract is validated here, so a doomed
+        request fails before any bytes move."""
+        self._require_ship("export")
+        req = self._build_request(prompt_ids, max_new_tokens, temperature,
+                                  seed, deadline_s, session_id=session_id,
+                                  export=True, priority=priority)
+        self._enqueue(req)
+        self._wait(req, timeout)
+        return req.export_result
+
+    def admit_with_pages(self, export: PageExport,
+                         timeout: Optional[float] = None,
+                         deadline_s: Optional[float] = None) -> List[int]:
+        """The decode half: check the shipment's geometry against this
+        pool (`PageShipError` on any mismatch: recompute locally),
+        allocate the lane's page budget, install the shipped pages in one
+        call and join mid-flight like a chunked-prefill completion.
+        Returns the full sequence."""
+        self._require_ship("import")
+        check_compatible(export, self.cfg, self.page_size)
+        if export.quantized and not self.swap_quantize:
+            raise PageShipError(
+                "shipment is int8-quantized but this pool runs "
+                "swap_quantize=off: refusing a lossy install on an "
+                "exact-bytes pool (recompute locally instead)")
+        if export.tenant != "default":
+            raise ValueError(
+                f"unknown tenant {export.tenant!r}: no tenant registry "
+                f"is installed")
+        if len(export.committed) >= export.max_new:
+            # the prefill pool's first sample filled the whole budget:
+            # answer without occupying a slot
+            priority = normalize_priority(export.priority)
+            with self._cond:
+                if export.session_id is not None:
+                    self._note_session_locked(export.session_id)
+            self.metrics.record_request(0.0)
+            self.metrics.record_first_token(0.0)
+            self.metrics.record_class("requests", priority)
+            return (list(export.prompt)
+                    + list(export.committed[:export.max_new]))
+        req = self._build_request(export.prompt, export.max_new,
+                                  export.temperature, export.seed,
+                                  deadline_s, session_id=export.session_id,
+                                  priority=export.priority)
+        req.import_pages = export
+        self._enqueue(req)
+        return self._wait(req, timeout)
 
     def warmup(self, timeout: Optional[float] = 600.0) -> int:
         """Start the worker and run one dispatch of every width, the page
@@ -341,7 +653,8 @@ class ContinuousLMServer:
         if self.kv == "dense":
             return 1
         return (len(self._widths()) + 1
-                + int(hasattr(self._drafter, "warmup")))
+                + int(hasattr(self._drafter, "warmup"))
+                + (2 if self._gather is not None else 0))
 
     def _widths(self) -> List[int]:
         """The paged dispatch widths: 1, and the wide program's (the
@@ -365,6 +678,13 @@ class ContinuousLMServer:
             self._cache = self._copy(*self._cache, 0, 0)
             if hasattr(self._drafter, "warmup"):
                 self._drafter.warmup()
+            if self._gather is not None:
+                # a gather of the null page and an n = 0 install, which
+                # writes only the null page
+                zrow = np.zeros((self.max_pages,), np.int32)
+                pk, pv = self._gather(*self._cache, zrow)
+                self._cache = self._install(*self._cache, pk[:, :1],
+                                            pv[:, :1], zrow, 0)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -381,6 +701,7 @@ class ContinuousLMServer:
             self.metrics.set_queue_depth(0)
         for req in leftovers:
             self.metrics.record_shed()
+            self.metrics.record_class("shed", req.priority)
             req.error = ServingUnavailableError("LM server stopped")
             req.event.set()
 
@@ -472,8 +793,25 @@ class ContinuousLMServer:
                                    else self.kv_pages),
                     "radix_nodes": (self._tree.nodes
                                     if self._tree is not None else 0),
+                    "ship": self.ship,
                     "paged_kernel": self.device.type == "cuda"})
+            if self._sessions:
+                out["sessions_tracked"] = len(self._sessions)
             out["kv"] = kv
+            if self.preempt or self._pressure is not None:
+                pres: Dict = {"preempt": self.preempt}
+                if self._swap is not None:
+                    pres["swap"] = self._swap.stats()
+                if self._pressure is not None:
+                    pres["brownout"] = self._pressure.stats()
+                out["pressure"] = pres
+            if self.hibernate and self._swap is not None:
+                out["hibernation"] = {
+                    "idle_s": self.hibernate_idle_s,
+                    "quantize": self.swap_quantize,
+                    "disk": self.state_dir,
+                    "tracked_sessions": len(self._hib_sessions),
+                    "store": self._swap.stats()}
             out["dispatch_widths"] = {
                 str(w): n for w, n in sorted(self._width_dispatches.items())}
             if self.speculate != "off":
@@ -517,6 +855,9 @@ class ContinuousLMServer:
         self._pool = PagePool(self.kv_pages + 1, self.page_size)
         self._tree = RadixPrefixCache(self._pool)
         self._pending_cow = []
+        # installs waiting for a dispatch referenced pages of the old
+        # pool: their lanes restart or fail with it
+        self._pending_install = []
         for s in self._slots:
             s.table = None
             s.owned = []
@@ -524,6 +865,12 @@ class ContinuousLMServer:
             s.inserted = False
         if self._drafter is not None:
             self._drafter.reset()
+        if self._swap is not None:
+            # swapped lanes take the recompute-from-prompt path after a
+            # reset; hibernated prefixes ("hib-") stay valid, since their
+            # KV is a function of their tokens
+            self._swap.clear("swap-")
+        self._hib_sessions.clear()
         self.metrics.set_pages(0, self.kv_pages, self.kv_pages)
 
     def _start_locked(self) -> None:
@@ -545,6 +892,10 @@ class ContinuousLMServer:
         and the programs are the plain decode and prefill-chunk steps."""
         total = self.kv_pages + 1
         self._copy = make_page_copy(self.cfg, total, self.page_size)
+        if self.ship or self.preempt or self.hibernate:
+            self._gather = make_page_gather(self.cfg, total, self.page_size)
+            self._install = make_page_install(self.cfg, total,
+                                              self.page_size)
         programs = {w: make_spec_step(self.cfg, total, self.page_size, w)
                     for w in self._widths()}
         if self.speculate != "off" and self._drafter is None:
@@ -577,34 +928,148 @@ class ContinuousLMServer:
         slot.table = None
         slot.inserted = False
 
+    def _resolve_swap_locked(self, req: _LMRequest) -> None:
+        """Turn a requeued victim's swap key into an installable
+        shipment.  A blob that was evicted (`SwapEvictedError`) or fails
+        the frame's checks (`PageShipError`) is counted and stamped on
+        the request, and the lane recomputes from its prompt instead."""
+        key, req.swap_key = req.swap_key, None
+        try:
+            blob = self._swap.take(key)
+        except SwapEvictedError as e:
+            self.metrics.record_swap_lost("evicted")
+            req.swap_error = f"{type(e).__name__}: {e}"
+            return
+        try:
+            ex = deserialize_export(blob)
+            check_compatible(ex, self.cfg, self.page_size,
+                             mid_decode=True)
+            if ex.quantized and not self.swap_quantize:
+                raise PageShipError(
+                    "swapped frame is int8-quantized but this pool "
+                    "runs swap_quantize=off: refusing a lossy restore "
+                    "on an exact-bytes pool")
+        except PageShipError as e:
+            self.metrics.record_swap_lost("corrupt")
+            req.swap_error = f"{type(e).__name__}: {e}"
+            return
+        req.import_pages = ex
+        req.swap_restore = True
+
+    def _alloc_locked(self, need: int) -> Optional[List[int]]:
+        """`need` fresh pages, evicting cached prefixes first only when
+        eviction can cover the shortfall (wiping the cache while still
+        admitting nothing would destroy the hit rate for nothing)."""
+        if self._pool.free < need:
+            if self._pool.free + self._tree.evictable() >= need:
+                self._tree.evict(need)
+        return self._pool.alloc(need)
+
     def _plan_admission_paged(self, req: _LMRequest):
         """Radix match, then evict, then alloc for one queued request.
         Returns the install plan, or None when the pool (after eviction)
         cannot supply the fresh pages — the request stays queued.  Every
         page the plan references is already retained."""
         plen = len(req.prompt)
-        total_pages = self._required_pages(plen, req.max_new)
+        if req.swap_key is not None and self._swap is not None:
+            self._resolve_swap_locked(req)
+        if req.import_pages is not None:
+            # a shipped-in or restored lane: full prefix pages this
+            # pool's radix tree holds are reused instead of installed
+            # again (no plen - 1 cap: nothing is re-fed); a partial
+            # match is skipped, the shipped copy is cheaper
+            total_pages = self._required_pages(plen, req.max_new)
+            full, partial = self._tree.match(req.prompt)
+            if partial is not None:
+                self._pool.release([partial[0]])
+            fresh = self._alloc_locked(total_pages - len(full))
+            if fresh is None:
+                if full:
+                    self._pool.release(full)
+                return None
+            return {"full": full, "partial": None, "fresh": fresh,
+                    "matched": len(full) * self.page_size,
+                    "total_pages": total_pages}
+        # export lanes (prefill only) budget just their prompt pages
+        total_pages = (-(-plen // self.page_size) if req.export
+                       else self._required_pages(plen, req.max_new))
         # cap reuse at plen-1: the LAST prompt token is always re-fed —
         # its logits are what the first sampled token comes from
         full, partial = self._tree.match(req.prompt[:plen - 1])
-        need = total_pages - len(full)
-        if self._pool.free < need:
-            # evict only when eviction can cover the shortfall: wiping
-            # cached prefixes while still admitting nothing destroys the
-            # hit rate for no capacity
-            if self._pool.free + self._tree.evictable() >= need:
-                self._tree.evict(need)
-        fresh = self._pool.alloc(need)
+        resume = None
+        if self.hibernate and self._swap is not None:
+            # a hibernated session's prefix may cover more pages than the
+            # tree still holds
+            resume = self._probe_hibernated_locked(req, len(full))
+        if resume is not None and partial is not None:
+            # the resumed frame covers the divergence page exactly
+            self._pool.release([partial[0]])
+            partial = None
+        fresh = self._alloc_locked(total_pages - len(full))
         if fresh is None:
             if full:
                 self._pool.release(full)
             if partial is not None:
                 self._pool.release([partial[0]])
+            if resume is not None:
+                # keep the session's state until a lane can take it
+                self._swap.put(resume["key"], resume["blob"])
             return None
+        if resume is not None:
+            return {"full": full, "partial": None, "fresh": fresh,
+                    "matched": int(resume["n_hib"]) * self.page_size,
+                    "total_pages": total_pages, "resume": resume}
         matched = len(full) * self.page_size + (partial[1]
                                                 if partial else 0)
         return {"full": full, "partial": partial, "fresh": fresh,
                 "matched": matched, "total_pages": total_pages}
+
+    def _probe_hibernated_locked(self, req: _LMRequest,
+                                 have: int) -> Optional[Dict]:
+        """The longest hibernated whole-page prompt prefix beyond the
+        `have` pages the radix tree matched -> its dequantized
+        `PageExport` and bookkeeping, or None.  Deepest first, by
+        content digest (a miss costs a digest per depth, no I/O).  A
+        stored blob that is gone or fails its checks is counted and
+        stamped on the request, and the probe goes on to shallower
+        prefixes."""
+        plen = len(req.prompt)
+        for k in range((plen - 1) // self.page_size, have, -1):
+            covered = [int(t) for t in req.prompt[:k * self.page_size]]
+            key = prefix_key(covered)
+            if key not in self._swap:
+                continue
+            try:
+                blob = self._swap.take(key)
+            except SwapEvictedError as e:
+                self.metrics.record_hibernate_lost("evicted")
+                req.swap_error = f"{type(e).__name__}: {e}"
+                continue
+            except PageShipError as e:
+                self.metrics.record_hibernate_lost("corrupt")
+                req.swap_error = f"{type(e).__name__}: {e}"
+                continue
+            try:
+                ex = deserialize_export(blob)
+                check_compatible(ex, self.cfg, self.page_size,
+                                 prefix=True)
+                if ex.quantized and not self.swap_quantize:
+                    raise PageShipError(
+                        "hibernated frame is int8-quantized but this "
+                        "pool runs swap_quantize=off: refusing a lossy "
+                        "resume on an exact-bytes pool")
+                if ex.prompt != covered:
+                    raise PageShipError(
+                        "hibernated frame's tokens diverge from its "
+                        "digest key: refusing to install foreign KV")
+            except PageShipError as e:
+                self.metrics.record_hibernate_lost("corrupt")
+                req.swap_error = f"{type(e).__name__}: {e}"
+                continue
+            return {"ex": ex.dequantized(), "n_hib": k,
+                    "nbytes": ex.nbytes(), "exact_nbytes": ex.exact_nbytes(),
+                    "key": key, "blob": blob}
+        return None
 
     def _install_paged_locked(self, slot: _Slot, req: _LMRequest,
                               plan) -> None:
@@ -624,7 +1089,54 @@ class ContinuousLMServer:
         row[:n_full] = plan["full"]
         row[n_full:plan["total_pages"]] = plan["fresh"]
         slot.table = row
-        if plan["partial"] is not None:
+        if req.import_pages is not None:
+            # a shipped-in or restored lane arrives where its frame left
+            # it: prompt fed, tokens committed, the next write at pos.
+            # The install runs before any feed of the next dispatch;
+            # radix-matched rows go to the null page, so shared pages
+            # other lanes read are never rewritten
+            ex = req.import_pages
+            wire_nbytes = ex.nbytes()     # what moved, before dequantizing
+            ex = ex.dequantized()
+            slot.fed = len(req.prompt)
+            slot.pos = int(ex.pos)
+            slot.generated = list(ex.committed)
+            irow = row.copy()
+            irow[:n_full] = 0
+            self._pending_install.append(
+                {"pk": ex.pages_k, "pv": ex.pages_v, "row": irow,
+                 "n": ex.n_pages, "nbytes": wire_nbytes,
+                 "swap": req.swap_restore})
+            self.metrics.record_prefix_query(plan["matched"])
+            n_full_prompt = len(req.prompt) // self.page_size
+            if n_full_prompt:
+                slot.inserted = True
+                self._tree.insert(
+                    req.prompt[:n_full_prompt * self.page_size],
+                    [int(p) for p in row[:n_full_prompt]])
+            # the committed tokens are this lane's first: TTFT here
+            # measures the shipment's queue wait (a restored lane keeps
+            # the stamp of its true first token)
+            if req.t_first is None:
+                req.t_first = req.t_installed
+                self.metrics.record_first_token(req.t_first - req.enqueued)
+            return
+        res = plan.get("resume")
+        if res is not None:
+            # a hibernated session resuming: install its pages through
+            # the same plane and register them in the tree, so the next
+            # turn reuses them from the device
+            ex, n_hib = res["ex"], int(res["n_hib"])
+            irow = row.copy()
+            irow[:n_full] = 0
+            irow[n_hib:] = 0
+            self._pending_install.append(
+                {"pk": ex.pages_k, "pv": ex.pages_v, "row": irow,
+                 "n": n_hib, "nbytes": res["nbytes"],
+                 "exact_nbytes": res["exact_nbytes"], "hibernate": True})
+            self._tree.insert(req.prompt[:n_hib * self.page_size],
+                              [int(p) for p in row[:n_hib]])
+        elif plan["partial"] is not None:
             # copy-on-write: the divergence page's matched tokens are
             # valid KV; copy it into this lane's first fresh page and
             # overwrite from the divergence offset.  The source stays
@@ -635,15 +1147,18 @@ class ContinuousLMServer:
         self.metrics.record_prefix_query(plan["matched"])
 
     def _admit_locked(self) -> None:
-        """Queued prompts join free slots, FIFO.  Doomed work is shed
-        first: an abandoned request's slot and pages are freed, and an
-        expired or abandoned queue item never occupies a slot.  When the
-        head's pages cannot be supplied even after eviction, admission
-        stops (head-of-line wait) rather than letting smaller later
-        requests starve it."""
+        """Queued prompts join free slots, in (priority, arrival) order.
+        Doomed work is shed first: an abandoned request's slot and pages
+        are freed, and an expired or abandoned queue item never occupies
+        a slot.  The ladder reads the pool, idle sessions hibernate,
+        then when the head's pages cannot be supplied even after
+        eviction, admission preempts the lowest-priority lane it
+        outranks before it waits (head of line: smaller later requests
+        never starve it)."""
         for slot in self._slots:
             if slot.active and slot.req.abandoned:
                 self.metrics.record_shed()
+                self.metrics.record_class("shed", slot.req.priority)
                 self._free_slot_pages(slot)
                 slot.req = None
         now = time.perf_counter()
@@ -651,9 +1166,14 @@ class ContinuousLMServer:
         for req in self._queue:
             if req.abandoned:
                 shed += 1
+                self.metrics.record_class("shed", req.priority)
+                self._drop_swap_locked(req)
             elif req.deadline is not None and now >= req.deadline:
                 shed += 1
                 self.metrics.record_deadline_missed()
+                self.metrics.record_class("shed", req.priority)
+                self.metrics.record_class("deadline_missed", req.priority)
+                self._drop_swap_locked(req)
                 req.error = DeadlineExceededError(
                     f"deadline exceeded after {now - req.enqueued:.3f}s "
                     f"in LM queue; shed before decode")
@@ -663,6 +1183,8 @@ class ContinuousLMServer:
         if shed:
             self._queue = kept
             self.metrics.record_shed(shed)
+        self._update_pressure_locked()
+        self._hibernate_idle_locked(now)
         for slot in self._slots:
             if not self._queue:
                 break
@@ -675,7 +1197,10 @@ class ContinuousLMServer:
                 slot.fed = 0
                 slot.generated = []
                 continue
-            plan = self._plan_admission_paged(self._queue[0])
+            head = self._queue[0]
+            plan = self._plan_admission_paged(head)
+            while plan is None and self._preempt_one_locked(head):
+                plan = self._plan_admission_paged(head)
             if plan is None:
                 break              # head-of-line waits for pages
             self._install_paged_locked(slot, self._queue.popleft(), plan)
@@ -684,13 +1209,173 @@ class ContinuousLMServer:
             self.metrics.set_pages(self._pool.in_use, self._pool.free,
                                    self.kv_pages)
 
+    def _gather_pages(self, table: np.ndarray, n: int):
+        """The first `n` pages of a block-table row, gathered out of the
+        pool into host tensors ``[L, n, ps, H, K]``."""
+        pk, pv = self._gather(*self._cache, table)
+        return pk[:, :n].cpu(), pv[:, :n].cpu()
+
+    def _hibernate_idle_locked(self, now: float) -> None:
+        """Park idle sticky sessions' cached pages on the tiered store:
+        the radix-cached chain of a session idle for `hibernate_idle_s`
+        is gathered, (optionally) quantized, framed and stored under its
+        content digest, and the tree's hold on the pages is dropped."""
+        if (not self.hibernate or self._swap is None
+                or self._gather is None or self._cache is None
+                or self._tree is None or not self._hib_sessions):
+            return
+        idle = [sid for sid, meta in self._hib_sessions.items()
+                if now - meta["t"] >= self.hibernate_idle_s]
+        for sid in idle:
+            tokens = self._hib_sessions.pop(sid)["tokens"]
+            # only positions before the final sampled token have KV
+            n_full = (len(tokens) - 1) // self.page_size
+            if n_full == 0:
+                continue
+            covered = [int(t) for t in tokens[:n_full * self.page_size]]
+            full, partial = self._tree.match(covered)
+            if partial is not None:
+                self._pool.release([partial[0]])
+            if len(full) != n_full:
+                # the tree already evicted part of the chain: nothing
+                # whole to park; what remains keeps serving radix hits
+                if full:
+                    self._pool.release(full)
+                continue
+            row = np.zeros((self.max_pages,), np.int32)
+            row[:n_full] = full
+            pk, pv = self._gather_pages(row, n_full)
+            ex = PageExport(
+                prompt=covered, max_new=1, temperature=0.0, seed=0,
+                committed=[], pos=n_full * self.page_size,
+                page_size=self.page_size, pages_k=pk, pages_v=pv,
+                model=model_signature(self.cfg, self.page_size),
+                session_id=sid)
+            exact = ex.exact_nbytes()
+            if self.swap_quantize:
+                ex = quantize_export(ex)
+            stored = self._swap.put(prefix_key(covered),
+                                    serialize_export(ex))
+            self._pool.release(full)
+            if stored is None:
+                # the blob alone exceeds the host cap: nothing parked,
+                # the pages stay in the tree
+                continue
+            for lost in stored:
+                # a hibernated prefix pushed off the capped tiers is
+                # counted now: a resume probe sees a plain miss
+                if lost.startswith("hib-"):
+                    self.metrics.record_hibernate_lost("evicted")
+            self.metrics.record_hibernate("out", n_full, ex.nbytes(), exact)
+            self._tree.forget(covered)
+
+    def _drop_swap_locked(self, req: _LMRequest) -> None:
+        """A shed or abandoned queue item releases its host swap bytes."""
+        if req.swap_key is not None and self._swap is not None:
+            self._swap.discard(req.swap_key)
+            req.swap_key = None
+
+    def _update_pressure_locked(self) -> None:
+        """One ladder reading per admission round (pages free, counting
+        evictable cached pages, and queue depth); every transition is
+        counted.  From level 3 best_effort lanes are preempted whenever
+        strictly higher-class work waits."""
+        if self._pressure is None or self._pool is None:
+            return
+        now = time.perf_counter()
+        if self._pressure_stamp is not None:
+            dt = now - self._pressure_stamp
+            if 0.0 < dt < 5.0:
+                self._pressure_tick_s = (0.8 * self._pressure_tick_s
+                                         + 0.2 * dt)
+        self._pressure_stamp = now
+        # a warm prefix cache is reclaimable capacity, not pressure; the
+        # tree walk is skipped where free pages alone clear every bound
+        cfg = self._pressure.config
+        avail = self._pool.free
+        if (self._tree is not None
+                and avail / max(1, self.kv_pages)
+                <= cfg.enter_free_frac[0] + cfg.exit_free_margin):
+            avail += self._tree.evictable()
+        moves = self._pressure.update(avail, self.kv_pages,
+                                      len(self._queue), self.n_slots)
+        self.metrics.record_brownout(self._pressure.level, len(moves))
+        if (self._pressure.level >= 3 and self.preempt and self._queue
+                and self._queue[0].rank < RANK_BEST_EFFORT):
+            head_rank = self._queue[0].rank
+            for slot in self._slots:
+                if (slot.active and not slot.req.abandoned
+                        and slot.req.rank >= RANK_BEST_EFFORT
+                        and slot.req.rank > head_rank):
+                    self._preempt_slot_locked(slot)
+
+    def _preempt_one_locked(self, head: _LMRequest) -> bool:
+        """Preempt one lane so `head` can admit: the active lane of the
+        worst rank strictly above the head's, the newest first among
+        equals.  False when preemption is off, the programs are not
+        built yet, or nothing outranked is running."""
+        if not self.preempt or self._gather is None or self._cache is None:
+            return False
+        victims = [s for s in self._slots
+                   if s.active and not s.req.abandoned
+                   and s.req.rank > head.rank]
+        if not victims:
+            return False
+        self._preempt_slot_locked(
+            max(victims, key=lambda s: (s.req.rank, s.req.enqueued)))
+        return True
+
+    def _preempt_slot_locked(self, slot: _Slot) -> None:
+        """Evict one active lane for higher-priority work.  A lane
+        mid-decode swaps its pages out to the host store (a gather, then
+        the shipping frame); one still in prefill, or an export lane,
+        just requeues and prefills again (cached prefix pages make that
+        cheap).  The request keeps its enqueue stamp."""
+        req = slot.req
+        mid_decode = (slot.fed >= len(req.prompt) and slot.generated
+                      and not req.export)
+        if (mid_decode and self._swap is not None
+                and self._gather is not None and self._cache is not None):
+            n = -(-slot.pos // self.page_size)
+            pk, pv = self._gather_pages(slot.table, n)
+            ex = PageExport(
+                prompt=list(req.prompt), max_new=req.max_new,
+                temperature=req.temperature, seed=req.seed,
+                committed=list(slot.generated), pos=int(slot.pos),
+                page_size=self.page_size, pages_k=pk, pages_v=pv,
+                model=model_signature(self.cfg, self.page_size),
+                session_id=req.session_id, priority=req.priority)
+            if self.swap_quantize:
+                ex = quantize_export(ex)
+            key = f"swap-{self._swap_seq}"
+            self._swap_seq += 1
+            if self._swap.put(key, serialize_export(ex)) is None:
+                # the blob alone exceeds the cap: recompute on re-admission
+                # rather than wipe every other victim
+                self.metrics.record_swap_lost("evicted")
+            else:
+                req.swap_key = key
+                self.metrics.record_swap("out", n, ex.nbytes())
+        req.preempted += 1
+        self.metrics.record_preemption(req.priority)
+        self._free_slot_pages(slot)
+        slot.req = None
+        slot.generated = []
+        self._queue_insert_locked(req)
+        self.metrics.set_queue_depth(len(self._queue))
+
     def _finish_slot(self, slot: _Slot) -> None:
-        """Completion fold: resolve the client, free the lane and pages."""
+        """Completion fold: resolve the client, free the lane and pages.
+        With hibernation, a session's whole committed sequence enters the
+        radix tree (only fully written pages: the final sample is never
+        fed) and the session is stamped for the idle sweep."""
         req = slot.req
         if req.abandoned:
             # the client already got DeadlineExceededError: discarded work
             self.metrics.record_shed()
+            self.metrics.record_class("shed", req.priority)
         else:
+            self.metrics.record_class("requests", req.priority)
             req.result = req.prompt + slot.generated
             now = time.perf_counter()
             req.t_done = now
@@ -698,6 +1383,18 @@ class ContinuousLMServer:
             self.metrics.record_request(now - req.enqueued,
                                         queue_wait_s=t_in - req.enqueued,
                                         compute_s=now - t_in)
+            if (self.hibernate and req.session_id is not None
+                    and self._tree is not None and slot.table is not None):
+                n_full = (len(req.result) - 1) // self.page_size
+                if n_full:
+                    self._tree.insert(req.result[:n_full * self.page_size],
+                                      [int(p) for p in slot.table[:n_full]])
+                sid = req.session_id
+                self._hib_sessions[sid] = {"tokens": list(req.result),
+                                           "t": now}
+                self._hib_sessions.move_to_end(sid)
+                while len(self._hib_sessions) > self._session_capacity:
+                    self._hib_sessions.popitem(last=False)
             req.event.set()
         self._free_slot_pages(slot)
         slot.req = None
@@ -751,9 +1448,13 @@ class ContinuousLMServer:
             if not active:
                 return False
             cow, self._pending_cow = self._pending_cow, []
+            installs, self._pending_install = self._pending_install, []
+            # the ladder moves only inside _admit_locked: one level a round
+            level = (self._pressure.level if self._pressure is not None
+                     else 0)
         if self.kv == "dense":
             return self._dispatch_dense(active)
-        return self._dispatch_paged(active, cow)
+        return self._dispatch_paged(active, cow, installs, level)
 
     def _dispatch_dense(self, active) -> bool:
         """One 1-wide dispatch of the dense slot pool: a lane in prefill
@@ -834,15 +1535,57 @@ class ContinuousLMServer:
                 out[i] = clean
         return out
 
-    def _dispatch_paged(self, active, cow) -> bool:
+    def _export_slot(self, slot: _Slot) -> None:
+        """Prefill just completed on an export lane: gather its pages,
+        resolve the request with the shipment and free the lane (the
+        radix tree keeps the prompt pages for the next shared-prefix
+        prefill)."""
+        req = slot.req
+        t0 = time.perf_counter()
+        n = -(-slot.pos // self.page_size)
+        pk, pv = self._gather_pages(slot.table, n)
+        ex = PageExport(
+            prompt=list(req.prompt), max_new=req.max_new,
+            temperature=req.temperature, seed=req.seed,
+            committed=list(slot.generated), pos=int(slot.pos),
+            page_size=self.page_size, pages_k=pk, pages_v=pv,
+            model=model_signature(self.cfg, self.page_size),
+            session_id=req.session_id, priority=req.priority)
+        self.metrics.record_ship("out", n, ex.nbytes(),
+                                 time.perf_counter() - t0)
+        req.export_result = ex
+        self._finish_slot(slot)
+
+    def _dispatch_paged(self, active, cow, installs, level: int = 0) -> bool:
+        # shipped, restored and resumed pages land first (their lanes'
+        # next feed reads them), then the copy-on-write pages: a CoW
+        # admitted in the same round may diverge from an installed page
+        for item in installs:
+            t0 = time.perf_counter()
+            self._cache = self._install(*self._cache, item["pk"],
+                                        item["pv"], item["row"], item["n"])
+            if item.get("swap"):
+                self.metrics.record_swap("in", item["n"], item["nbytes"])
+            elif item.get("hibernate"):
+                self.metrics.record_hibernate("in", item["n"],
+                                              item["nbytes"],
+                                              item["exact_nbytes"])
+            else:
+                self.metrics.record_ship("in", item["n"], item["nbytes"],
+                                         time.perf_counter() - t0)
         for item in cow:
             self._cache = self._copy(*self._cache, item["src"], item["dst"])
             self._pool.release([item["src"]])
-        drafts = self._draft_proposals() if self.speculate != "off" else {}
+        # the brownout ladder: level 1 turns speculation off, level 2
+        # halves the prefill ride-along width
+        drafts = (self._draft_proposals()
+                  if self.speculate != "off" and level < 1 else {})
+        chunk_eff = (max(1, self.prefill_chunk // 2) if level >= 2
+                     else self.prefill_chunk)
         # the wide program dispatches only while some lane has a FULL
         # chunk of prompt left (or, with speculation, drafts to verify);
         # sub-chunk tails and pure-decode rounds ride the 1-wide program
-        full_chunk = any(len(s.req.prompt) - s.fed >= self.prefill_chunk
+        full_chunk = any(len(s.req.prompt) - s.fed >= chunk_eff
                          for s in active)
         wide = drafts or (full_chunk and self.prefill_chunk > 1)
         width = self._wide if wide else 1
@@ -860,7 +1603,7 @@ class ContinuousLMServer:
             req = slot.req
             remaining = len(req.prompt) - slot.fed
             if remaining > 0:                  # chunked prefill
-                f = min(remaining, width, self.prefill_chunk)
+                f = min(remaining, width, chunk_eff)
                 tokens[i, :f] = req.prompt[slot.fed:slot.fed + f]
                 n_feed[i] = f
             elif width > 1 and i in drafts:    # speculative verify
@@ -902,6 +1645,10 @@ class ContinuousLMServer:
                 self._insert_prompt_pages(slot)
                 self._commit_tokens(slot, [int(nxt[i])])
                 emitted += 1
+                if slot.req.export:
+                    # this pool's job ends at prefill: ship the lane
+                    self._export_slot(slot)
+                    continue
             else:
                 # commit the accepted drafts plus the bonus token; pos
                 # moves past the committed feeds only, so a rejected
@@ -936,11 +1683,18 @@ class ContinuousLMServer:
                         s.req = None
                     self._queue.clear()
                     self._reset_pool_locked()
+                    if (self.hibernate and self._swap is not None
+                            and self.state_dir is not None):
+                        # a clean stop makes hibernation durable: the
+                        # host tier (only "hib-" keys remain after the
+                        # reset) goes to disk for the next server
+                        self._swap.flush_to_disk()
                     if self._warm_req is not None:
                         self._warm_req.set()
                         self._warm_req = None
                     for r in victims:
                         self.metrics.record_shed()
+                        self.metrics.record_class("shed", r.priority)
                         r.error = ServingUnavailableError(
                             "LM server stopped")
                         r.event.set()
@@ -962,9 +1716,10 @@ class ContinuousLMServer:
                 busy = True
             if not busy:
                 with self._cond:
-                    if not self._running:
-                        return
-                    if not self._queue and self._warm_req is None:
+                    # a stop lands at the top of the loop, whose exit
+                    # path resets the pool and makes hibernation durable
+                    if (self._running and not self._queue
+                            and self._warm_req is None):
                         self._cond.wait(0.05)
             else:
                 time.sleep(0)  # yield: let submitters enqueue mid-decode

@@ -6,9 +6,12 @@ spent in queue wait plus device compute.  `ServingMetrics` counts both
 sides and snapshots them for ``GET /serving/stats`` under the JAX
 package's key names: requests, tokens, dispatches and occupancy, latency
 p50/p95/p99 split into queue wait and compute, time to first token, the
-radix prefix-cache hit rate, the KV page gauges, and the speculative
-decode ledger (decode rounds, drafted and accepted tokens).  The Prometheus
-registry plane is not ported yet (ROADMAP.md).
+radix prefix-cache hit rate, the KV page gauges, the speculative
+decode ledger (decode rounds, drafted and accepted tokens), and the page
+mobility ledgers: page shipments, sticky sessions, requests by priority
+class, preemptions and host swaps, hibernations and the brownout
+ladder.  Each of those sections appears once its plane has fired.  The
+Prometheus registry plane is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -18,6 +21,11 @@ import time
 from typing import Dict, Optional
 
 from deeplearning4j_tpu_torch.runtime.profiler import LatencyRecorder
+from deeplearning4j_tpu_torch.serving.pressure import PRIORITY_CLASSES
+
+# the per-priority-class events
+_CLASS_EVENTS = ("requests", "rejected", "shed", "deadline_missed",
+                 "preempted")
 
 
 class ServingMetrics:
@@ -29,12 +37,23 @@ class ServingMetrics:
         self.queue_wait = LatencyRecorder(window=latency_window)
         self.compute = LatencyRecorder(window=latency_window)
         self.ttft = LatencyRecorder(window=latency_window)
+        self.ship_time = LatencyRecorder(window=latency_window)
         self._c = dict.fromkeys(
             ("requests", "dispatches", "rows", "padded_rows", "tokens",
              "rejected", "shed", "deadline_missed", "prefix_queries",
              "prefix_hits", "prefix_tokens_saved", "decode_rounds",
              "decode_tokens", "spec_rounds", "spec_drafted",
-             "spec_accepted"), 0)
+             "spec_accepted", "ships_out", "ships_in", "pages_shipped",
+             "ship_bytes", "session_queries", "session_affinity_hits",
+             "preemptions", "swap_out", "swap_in", "swap_pages",
+             "swap_bytes", "swap_evicted", "swap_corrupt", "hibernated",
+             "resumed", "hibernate_pages", "hibernate_bytes",
+             "hibernate_exact_bytes", "hibernate_evicted",
+             "hibernate_corrupt", "brownout_transitions",
+             "brownout_shed"), 0)
+        self._classes = {(e, c): 0 for e in _CLASS_EVENTS
+                         for c in PRIORITY_CLASSES}
+        self._brownout_level = 0
         self._queue_depth = 0
         self._max_occupancy = 0
         self._pages = (0, 0, 0)           # in_use, free, total
@@ -118,6 +137,83 @@ class ServingMetrics:
         with self._lock:
             self._pages = (int(in_use), int(free), int(total))
 
+    def record_ship(self, direction: str, pages: int, nbytes: int,
+                    seconds: float) -> None:
+        """One KV page shipment through this pool: "out" (a lane exported
+        at prefill completion) or "in" (a lane admitted from shipped
+        pages); `seconds` is the gather or install on this side."""
+        with self._lock:
+            self._add_locked("ships_out" if direction == "out"
+                             else "ships_in", 1)
+            self._add_locked("pages_shipped", pages)
+            self._add_locked("ship_bytes", nbytes)
+        self.ship_time.record(max(0.0, float(seconds)))
+
+    def record_session(self, hit: bool) -> None:
+        """One request carrying a session_id; `hit` when this pool had
+        served the session before."""
+        with self._lock:
+            self._add_locked("session_queries", 1)
+            if hit:
+                self._add_locked("session_affinity_hits", 1)
+
+    def record_class(self, event: str, priority: str, n: int = 1) -> None:
+        """Per-priority-class accounting (`event` in requests, rejected,
+        shed, deadline_missed, preempted); an unknown class counts as
+        interactive: accounting never fails a request."""
+        cls = (priority if priority in PRIORITY_CLASSES
+               else PRIORITY_CLASSES[0])
+        with self._lock:
+            if (event, cls) in self._classes:
+                self._classes[(event, cls)] += int(n)
+
+    def record_preemption(self, priority: str) -> None:
+        """One lane preempted; `priority` is the victim's class."""
+        self._add("preemptions")
+        self.record_class("preempted", priority)
+
+    def record_swap(self, direction: str, pages: int, nbytes: int) -> None:
+        """One lane swapped "out" to (or restored "in" from) the host
+        store."""
+        with self._lock:
+            self._add_locked("swap_out" if direction == "out"
+                             else "swap_in", 1)
+            self._add_locked("swap_pages", pages)
+            self._add_locked("swap_bytes", nbytes)
+
+    def record_swap_lost(self, kind: str) -> None:
+        """A swapped lane's state was unusable at restore: "evicted" or
+        "corrupt"; the lane recomputes from its prompt."""
+        self._add("swap_corrupt" if kind == "corrupt" else "swap_evicted")
+
+    def record_hibernate(self, direction: str, pages: int, nbytes: int,
+                         exact_nbytes: int) -> None:
+        """One session hibernated "out" to (or resumed "in" from) the
+        tiered store: `nbytes` at rest, `exact_nbytes` unquantized."""
+        with self._lock:
+            self._add_locked("hibernated" if direction == "out"
+                             else "resumed", 1)
+            self._add_locked("hibernate_pages", pages)
+            self._add_locked("hibernate_bytes", nbytes)
+            self._add_locked("hibernate_exact_bytes", exact_nbytes)
+
+    def record_hibernate_lost(self, kind: str) -> None:
+        """A hibernated session's state was unusable at resume:
+        "evicted" or "corrupt"; it recomputes from its prompt."""
+        self._add("hibernate_corrupt" if kind == "corrupt"
+                  else "hibernate_evicted")
+
+    def record_brownout(self, level: int, transitions: int = 0) -> None:
+        """The ladder's current level and the level changes since the
+        last call."""
+        with self._lock:
+            self._brownout_level = int(level)
+            if transitions:
+                self._c["brownout_transitions"] += int(transitions)
+
+    def record_brownout_shed(self) -> None:
+        self._add("brownout_shed")
+
     # ---- reading ----------------------------------------------------------
 
     def snapshot(self) -> Dict:
@@ -129,6 +225,8 @@ class ServingMetrics:
             max_occ = self._max_occupancy
             in_use, free, total = self._pages
             uptime = time.monotonic() - self._created
+            classes = dict(self._classes)
+            level = self._brownout_level
         out = {
             "requests": c["requests"],
             "dispatches": c["dispatches"],
@@ -162,6 +260,47 @@ class ServingMetrics:
             out["spec_accepted"] = c["spec_accepted"]
             out["spec_accept_rate"] = round(
                 c["spec_accepted"] / c["spec_drafted"], 3)
+        if c["ships_out"] + c["ships_in"]:
+            out["ship"] = {"out": c["ships_out"], "in": c["ships_in"],
+                           "pages_shipped": c["pages_shipped"],
+                           "ship_bytes": c["ship_bytes"],
+                           **{k: v for k, v in
+                              self.ship_time.summary().items()
+                              if k not in ("count", "window")}}
+        if c["session_queries"]:
+            out["session_queries"] = c["session_queries"]
+            out["session_affinity_hits"] = c["session_affinity_hits"]
+        by_class = {}
+        for cls in PRIORITY_CLASSES:
+            vals = {e: classes[(e, cls)] for e in _CLASS_EVENTS}
+            if any(vals.values()):
+                by_class[cls] = vals
+        if by_class:
+            out["priority"] = by_class
+        if c["preemptions"]:
+            out["preemptions"] = c["preemptions"]
+        if (c["swap_out"] + c["swap_in"] + c["swap_evicted"]
+                + c["swap_corrupt"]):
+            out["swap"] = {"out": c["swap_out"], "in": c["swap_in"],
+                           "pages": c["swap_pages"],
+                           "bytes": c["swap_bytes"],
+                           "evicted": c["swap_evicted"],
+                           "corrupt": c["swap_corrupt"]}
+        if (c["hibernated"] + c["resumed"] + c["hibernate_evicted"]
+                + c["hibernate_corrupt"]):
+            exact = c["hibernate_exact_bytes"]
+            out["hibernate"] = {
+                "out": c["hibernated"], "in": c["resumed"],
+                "pages": c["hibernate_pages"],
+                "bytes": c["hibernate_bytes"], "exact_bytes": exact,
+                "bytes_ratio": (round(c["hibernate_bytes"] / exact, 4)
+                                if exact else 1.0),
+                "evicted": c["hibernate_evicted"],
+                "corrupt": c["hibernate_corrupt"]}
+        if c["brownout_transitions"] or level:
+            out["brownout"] = {"level": level,
+                               "transitions": c["brownout_transitions"],
+                               "shed": c["brownout_shed"]}
         if total:
             out["pages_in_use"] = in_use
             out["pages_free"] = free

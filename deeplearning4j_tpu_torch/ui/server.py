@@ -10,13 +10,20 @@ Endpoints:
   continuous pool; ``beam_size > 1`` runs `beam_search` and answers
   ``{"ids", "score"}``; ``top_k > 0`` or ``top_p < 1`` runs the
   whole-sequence `generate`, seeded from ``seed``.  ``speculate: true``
-  is a 400 unless the pool speculates.
+  is a 400 unless the pool speculates.  ``priority`` (interactive,
+  batch, best_effort) and ``session_id`` ride the pool's request.
+- ``POST /lm/prefill``  the same body -> the lane's KV page shipment
+  (binary, `serving/transfer.py` frame) at prefill completion; 422 with
+  ``"kind": "page_ship"`` when the pool does not ship.
+- ``POST /lm/admit_pages``  a shipment in (binary) -> ``{"ids": [...]}``;
+  a frame that fails its integrity or geometry checks is a 422 with
+  ``"kind": "page_ship"`` (recompute locally).
 - ``GET /serving/stats``  the pool's metrics snapshot.
 - ``GET /healthz``        liveness: 200 while the process serves HTTP.
 - ``GET /readyz``         readiness: 200 only while the pool admits.
 
-Payload errors are 400; a full queue or a draining server is 503 with
-``Retry-After``; a missed deadline is 504.
+Payload errors are 400; a full queue, a brownout shed or a draining
+server is 503 with ``Retry-After``; a missed deadline is 504.
 """
 
 from __future__ import annotations
@@ -36,10 +43,16 @@ from deeplearning4j_tpu_torch.serving.lm import (
     ContinuousLMServer,
     validate_request,
 )
+from deeplearning4j_tpu_torch.serving.pressure import normalize_priority
 from deeplearning4j_tpu_torch.serving.resilience import (
     DeadlineExceededError,
     ServingOverloadError,
     ServingUnavailableError,
+)
+from deeplearning4j_tpu_torch.serving.transfer import (
+    PageShipError,
+    deserialize_export,
+    serialize_export,
 )
 
 
@@ -76,15 +89,19 @@ class _Handler(BaseHTTPRequestHandler):
     def state(self) -> _UiState:
         return self.server.ui_state  # type: ignore[attr-defined]
 
-    def _json(self, code: int, payload, headers: Optional[dict] = None):
-        data = json.dumps(payload).encode()
+    def _send(self, code: int, ctype: str, data: bytes,
+              headers: Optional[dict] = None) -> None:
         self.send_response(code)
-        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Type", ctype)
         self.send_header("Content-Length", str(len(data)))
         for k, v in (headers or {}).items():
             self.send_header(k, str(v))
         self.end_headers()
         self.wfile.write(data)
+
+    def _json(self, code: int, payload, headers: Optional[dict] = None):
+        self._send(code, "application/json", json.dumps(payload).encode(),
+                   headers)
 
     def do_GET(self) -> None:  # noqa: N802
         s = self.state
@@ -110,17 +127,26 @@ class _Handler(BaseHTTPRequestHandler):
             self._json(404, {"error": f"unknown path {self.path}"})
 
     def do_POST(self) -> None:  # noqa: N802
-        if self.path != "/lm/generate":
+        routes = {"/lm/generate": self._lm_generate,
+                  "/lm/prefill": self._lm_prefill,
+                  "/lm/admit_pages": self._lm_admit_pages}
+        route = routes.get(self.path)
+        if route is None:
             self._json(404, {"error": f"unknown path {self.path}"})
             return
         try:
             length = int(self.headers.get("Content-Length", 0))
-            body = json.loads(self.rfile.read(length)) if length else {}
+            data = self.rfile.read(length) if length else b""
+            # a page shipment is binary; the other bodies are JSON
+            body = (data if self.path == "/lm/admit_pages"
+                    else json.loads(data) if data else {})
         except ValueError as e:
             self._json(400, {"error": f"malformed JSON body: {e}"})
             return
         try:
-            self._lm_generate(body)
+            route(body)
+        except PageShipError as e:
+            self._json(422, {"error": str(e), "kind": "page_ship"})
         except DeadlineExceededError as e:
             self._json(504, {"error": str(e)})
         except (ServingOverloadError, ServingUnavailableError) as e:
@@ -130,7 +156,8 @@ class _Handler(BaseHTTPRequestHandler):
         except (ValueError, TypeError) as e:
             self._json(400, {"error": str(e)})
 
-    def _lm_generate(self, body: Any) -> None:
+    def _lm_server(self) -> ContinuousLMServer:
+        """The registered pool; a stopped server is 503, none is 400."""
         s = self.state
         with s.lock:
             lm_server, draining = s.lm_server, s.draining
@@ -140,11 +167,77 @@ class _Handler(BaseHTTPRequestHandler):
                     "server stopped: LM unregistered")
             raise ValueError("no LM registered: call "
                              "UiServer.serve_lm(cfg, params)")
+        return lm_server
+
+    @staticmethod
+    def _session_id(body: dict) -> Optional[str]:
+        """The body's ``session_id``: a string or int of 1..128
+        characters, else the client's 400."""
+        sid = body.get("session_id")
+        if sid is None:
+            return None
+        if not isinstance(sid, (str, int)):
+            raise ValueError(f"session_id must be a string or int, got "
+                             f"{type(sid).__name__}")
+        sid = str(sid)
+        if not 0 < len(sid) <= 128:
+            raise ValueError("session_id must be 1..128 characters")
+        return sid
+
+    @staticmethod
+    def _deadline_s(body: dict) -> Optional[float]:
+        if body.get("deadline_ms") is None:
+            return None
+        ms = float(body["deadline_ms"])
+        if not math.isfinite(ms) or ms <= 0:
+            raise ValueError(f"deadline_ms must be a positive finite "
+                             f"number, got {body['deadline_ms']!r}")
+        return ms / 1e3
+
+    def _lm_prefill(self, body: Any) -> None:
+        """The prefill half of disaggregation: normal admission and
+        chunked prefill, answered with the lane's page shipment."""
+        lm_server = self._lm_server()
         if not isinstance(body, dict):
             raise ValueError("the request body must be a JSON object")
         prompt = body.get("prompt_ids")
         if not prompt:
             raise ValueError("prompt_ids required")
+        if lm_server.kv != "paged" or not lm_server.ship:
+            # "this pool cannot ship" is told apart from "this request
+            # is bad everywhere" by the kind, not by the error text
+            self._json(422, {"error": "this worker does not ship KV "
+                                      "pages (started without -lm-ship "
+                                      "or with dense KV)",
+                             "kind": "page_ship"})
+            return
+        export = lm_server.prefill_export(
+            prompt, int(body.get("max_new_tokens", 32)),
+            temperature=float(body.get("temperature", 0.0)),
+            seed=int(body.get("seed", 0)) & 0x7FFFFFFF,
+            deadline_s=self._deadline_s(body),
+            session_id=self._session_id(body),
+            priority=body.get("priority"))
+        self._send(200, "application/octet-stream",
+                   serialize_export(export))
+
+    def _lm_admit_pages(self, data: bytes) -> None:
+        """The decode half: a binary page shipment in, ``{"ids"}`` out."""
+        lm_server = self._lm_server()
+        ids = lm_server.admit_with_pages(deserialize_export(data))
+        self._json(200, {"ids": ids})
+
+    def _lm_generate(self, body: Any) -> None:
+        lm_server = self._lm_server()
+        if not isinstance(body, dict):
+            raise ValueError("the request body must be a JSON object")
+        prompt = body.get("prompt_ids")
+        if not prompt:
+            raise ValueError("prompt_ids required")
+        # validated here, so an unknown class or a bad session is a 400
+        # on every decode path
+        priority = normalize_priority(body.get("priority"))
+        session_id = self._session_id(body)
         max_new = int(body.get("max_new_tokens", 32))
         temperature = float(body.get("temperature", 0.0))
         seed = int(body.get("seed", 0)) & 0x7FFFFFFF
@@ -171,13 +264,7 @@ class _Handler(BaseHTTPRequestHandler):
                     "speculate requested but the pool was started with "
                     "speculation off (serve with -lm-speculate "
                     "ngram|model)")
-        deadline_s = None
-        if body.get("deadline_ms") is not None:
-            ms = float(body["deadline_ms"])
-            if not math.isfinite(ms) or ms <= 0:
-                raise ValueError(f"deadline_ms must be a positive finite "
-                                 f"number, got {body['deadline_ms']!r}")
-            deadline_s = ms / 1e3
+        deadline_s = self._deadline_s(body)
         try:
             ids = validate_request(lm_server.cfg, prompt, max_new)
         except ValueError as e:
@@ -201,7 +288,9 @@ class _Handler(BaseHTTPRequestHandler):
             # the continuous pool: the request shares its dispatches with
             # whatever else is decoding
             out = lm_server.generate(ids, max_new, temperature=temperature,
-                                     seed=seed, deadline_s=deadline_s)
+                                     seed=seed, deadline_s=deadline_s,
+                                     session_id=session_id,
+                                     priority=priority)
             self._json(200, {"ids": out})
 
 
@@ -230,16 +319,30 @@ class UiServer:
                  kv: str = "paged", page_size: int = 16,
                  pages: Optional[int] = None, prefill_chunk: int = 8,
                  speculate: str = "off", draft_len: int = 4,
+                 ship: bool = False, preempt: bool = False,
+                 swap_bytes: int = 64 << 20, brownout=None,
+                 hibernate_idle_s: Optional[float] = None,
+                 state_dir: Optional[str] = None,
+                 state_disk_bytes: int = 1 << 30,
+                 swap_quantize: bool = True,
                  device=None) -> "UiServer":
         """Register a transformer LM for ``POST /lm/generate``, decoded by
         a `slots`-lane continuous pool over a paged or dense KV cache on
         `device` (None = the card), speculating when `speculate` is
-        "ngram" or "model"."""
+        "ngram" or "model".  `ship` answers ``/lm/prefill`` and
+        ``/lm/admit_pages``; `preempt`/`swap_bytes`, `brownout`,
+        `hibernate_idle_s`/`state_dir`/`state_disk_bytes` and
+        `swap_quantize` are the pool's page-mobility planes
+        (`ContinuousLMServer`)."""
         lm_server = ContinuousLMServer(
             cfg, params, slots=slots, max_queue_depth=max_queue_depth,
             default_deadline_s=default_deadline_s, kv=kv,
             page_size=page_size, pages=pages, prefill_chunk=prefill_chunk,
-            speculate=speculate, draft_len=draft_len, device=device)
+            speculate=speculate, draft_len=draft_len, ship=ship,
+            preempt=preempt, swap_bytes=swap_bytes, brownout=brownout,
+            hibernate_idle_s=hibernate_idle_s, state_dir=state_dir,
+            state_disk_bytes=state_disk_bytes, swap_quantize=swap_quantize,
+            device=device)
         with self.state.lock:
             old = self.state.lm_server
             self.state.lm_server = lm_server

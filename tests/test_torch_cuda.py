@@ -1311,3 +1311,141 @@ def test_conv_and_pretrain_zoo_models_train_on_the_card(name):
     assert bool(net.pretrain_errors) == (name in ("dbn-mnist",
                                                   "deep-autoencoder"))
     assert net.output(x).shape == y.shape
+
+
+# ---------------------------------------------------------------------------
+# MoE layers and KV page mobility on the card
+
+
+def _moe_layer(seed, d=64, f=128, e=4):
+    gen = torch.Generator().manual_seed(seed)
+
+    def t(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).cuda()
+
+    return {"gate": t(d, e, scale=d ** -0.5),
+            "w1": t(e, d, f, scale=d ** -0.5),
+            "b1": t(e, f, scale=0.1), "w2": t(e, f, d, scale=f ** -0.5),
+            "b2": t(e, d, scale=0.1)}
+
+
+@pytest.mark.parametrize("top_k", [1, 2])
+def test_moe_dispatch_without_drops_equals_dense_on_the_card(top_k):
+    """Capacity factor E drops nothing, so dispatch (an accumulated
+    scatter into the capacity buffers, atomic on the card) equals the
+    dense-masked oracle; and the card's dispatch equals the CPU's."""
+    _need_card()
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        p = _moe_layer(top_k)
+        x = torch.randn((2, 256, 64), generator=torch.Generator()
+                        .manual_seed(9)).cuda()
+        dense = tt._moe_dense(p, x, top_k)
+        disp = tt._moe_dispatch(p, x, 4.0, top_k)
+        assert float((disp - dense).abs().max() / dense.abs().max()) <= 1e-5
+        cpu = tt._moe_dispatch({k: v.cpu() for k, v in p.items()}, x.cpu(),
+                               1.25, top_k)
+        got = tt._moe_dispatch(p, x, 1.25, top_k).cpu()
+        assert float((got - cpu).abs().max() / cpu.abs().max()) <= 1e-5
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def test_page_gather_and_install_round_trip_bitwise_on_the_card():
+    _need_card()
+    from deeplearning4j_tpu_torch.parallel import generation as tgen
+
+    cfg = tt.TransformerConfig(vocab_size=64, d_model=64, n_heads=4,
+                               n_layers=2, d_ff=128, max_len=64,
+                               dtype="bfloat16")
+    pages, ps = 20, 8
+    mp = tgen.pages_per_seq(cfg, ps)
+    src = tgen.init_paged_cache(cfg, pages, ps, device="cuda")
+    src["k"].normal_()
+    src["v"].normal_()
+    row = np.zeros(mp, np.int32)
+    row[:4] = [3, 17, 5, 11]
+    pk, pv = tgen.make_page_gather(cfg, pages, ps)(src["k"], src["v"], row)
+    host_k, host_v = pk[:, :4].cpu(), pv[:, :4].cpu()
+    dst = tgen.init_paged_cache(cfg, pages, ps, device="cuda")
+    target = np.zeros(mp, np.int32)
+    target[:4] = [2, 9, 14, 19]
+    k, v = tgen.make_page_install(cfg, pages, ps)(
+        dst["k"], dst["v"], host_k, host_v, target, 3)
+    for s, t in zip((3, 17, 5), (2, 9, 14)):
+        assert torch.equal(k[:, t], src["k"][:, s])
+        assert torch.equal(v[:, t], src["v"][:, s])
+    assert float(k[:, 19].float().abs().max()) == 0   # row 3 went to page 0
+
+
+def test_a_shipped_lane_decodes_on_the_card_like_a_local_one():
+    """Prefill on one pool, ship through the wire frame, decode on
+    another: the ids equal the same request decoded on the decode pool
+    (float32, TF32 off), and both ledgers balance."""
+    _need_card()
+    from deeplearning4j_tpu_torch.serving.transfer import (
+        deserialize_export,
+        serialize_export,
+    )
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tt.TransformerConfig(vocab_size=256, d_model=64, n_heads=4,
+                               n_layers=2, d_ff=128, max_len=128)
+    tree = tt.numpy_params(cfg, seed=0)
+    kw = dict(slots=2, page_size=16, prefill_chunk=16, ship=True,
+              device="cuda")
+    pre = ContinuousLMServer(cfg, tree, **kw)
+    dec = ContinuousLMServer(cfg, tree, **kw)
+    try:
+        prompt = list(np.random.default_rng(3).integers(0, 256, 40))
+        ex = pre.prefill_export(prompt, 16, timeout=300)
+        assert ex.pages_k.device.type == "cpu" and ex.n_pages == 3
+        got = dec.admit_with_pages(deserialize_export(serialize_export(ex)),
+                                   timeout=300)
+        local = dec.generate(prompt, 16, timeout=300)
+        assert got == local
+        assert pre.page_ledger()["balanced"] and dec.page_ledger()[
+            "balanced"]
+    finally:
+        pre.stop()
+        dec.stop()
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def test_a_bf16_frame_from_the_card_is_raw_bf16_words():
+    """A bfloat16 frame carries the pool's pages as their 2-byte words
+    under the header name "bfloat16" (what the JAX package reads through
+    ml_dtypes), and reads back bit for bit."""
+    _need_card()
+    import json
+    import struct
+
+    from deeplearning4j_tpu_torch.serving.transfer import (
+        MAGIC,
+        deserialize_export,
+        serialize_export,
+    )
+
+    cfg = tt.TransformerConfig(vocab_size=256, d_model=64, n_heads=4,
+                               n_layers=2, d_ff=128, max_len=128,
+                               dtype="bfloat16")
+    srv = ContinuousLMServer(cfg, tt.numpy_params(cfg, seed=1), slots=2,
+                             page_size=16, prefill_chunk=16, ship=True,
+                             device="cuda")
+    try:
+        ex = srv.prefill_export(list(range(1, 30)), 4, timeout=300)
+    finally:
+        srv.stop()
+    blob = serialize_export(ex)
+    (hlen,) = struct.unpack(">I", blob[len(MAGIC):len(MAGIC) + 4])
+    header = json.loads(blob[len(MAGIC) + 4:len(MAGIC) + 4 + hlen])
+    assert header["dtype"] == "bfloat16" and header["version"] == 1
+    payload = blob[len(MAGIC) + 4 + hlen:]
+    words = ex.pages_k.contiguous().view(torch.int16).numpy().tobytes()
+    assert payload[:len(words)] == words
+    assert len(payload) == 2 * ex.pages_k.numel() * 2
+    back = deserialize_export(blob)
+    assert back.pages_k.dtype == torch.bfloat16
+    assert torch.equal(back.pages_v, ex.pages_v)

@@ -1,8 +1,8 @@
 """PyTorch port: package boundaries, device policy and the CLI.
 
 - Import hygiene: the port imports neither ``jax`` nor anything of the
-  JAX package (a subprocess imports every module; an AST scan checks
-  every import statement).
+  JAX package, nor ``ml_dtypes`` (a subprocess imports every module; an
+  AST scan checks every import statement).
 - Device policy: entry points run on the card unless the caller asks for
   the CPU; with no card they raise instead of running on the CPU.
 - CLI: ``serve -lm`` loads an LM directory written by the JAX package
@@ -43,8 +43,8 @@ def test_importing_the_whole_port_loads_no_jax():
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
-        " or m == 'deeplearning4j_tpu' or m.startswith('deeplearning4j_tpu.')]"
-        "\n"
+        " or m == 'deeplearning4j_tpu' or m.startswith('deeplearning4j_tpu.')"
+        " or m.split('.')[0] == 'ml_dtypes']\n"
         "assert not bad, bad\n"
         "print(len([m for m in sys.modules if m.startswith(p.__name__)]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -67,7 +67,8 @@ def _imports(path):
 def test_no_module_imports_jax_or_the_jax_package(path):
     for name in _imports(path):
         root = name.split(".")[0]
-        assert root not in ("jax", "jaxlib", "deeplearning4j_tpu"), (
+        assert root not in ("jax", "jaxlib", "deeplearning4j_tpu",
+                            "ml_dtypes"), (
             f"{path.relative_to(REPO)} imports {name}")
 
 

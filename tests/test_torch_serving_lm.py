@@ -400,12 +400,6 @@ def test_wide_program_runs_only_for_a_full_chunk_of_prompt():
     assert widths["4"] == 2
 
 
-def test_moe_config_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ContinuousLMServer(tt.TransformerConfig(n_experts=2), {},
-                           device="cpu")
-
-
 # ---------------------------------------------------------------------------
 # request validation and admission
 

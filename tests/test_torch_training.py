@@ -163,14 +163,6 @@ def test_remat_recomputes_the_forward_once_per_block():
     assert len(calls) - n_train == cfg.n_layers
 
 
-def test_moe_configs_are_refused():
-    _, cfg = _cfgs()
-    moe = dataclasses.replace(cfg, n_experts=2)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tt.lm_loss(moe, {"embed": torch.zeros(1)}, np.zeros((1, 4)),
-                   np.zeros((1, 4)))
-
-
 # ---------------------------------------------------------------------------
 # updaters
 
@@ -416,7 +408,6 @@ def test_cli_lm_samples_the_same_batches_as_the_jax_cli(tmp_path,
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["-experts", "2"], "A2"),
     (["-runtime", "hybrid"], "A7"),
 ])
 def test_cli_lm_refuses_unported_options(tmp_path, flags, item):

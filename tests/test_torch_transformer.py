@@ -119,14 +119,6 @@ def test_config_json_from_the_jax_package_loads():
     assert tt.gpt2_small().vocab_size == 50304
 
 
-def test_moe_configs_raise_not_implemented():
-    cfg = tt.TransformerConfig(n_experts=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.apply(cfg, {}, torch.zeros(1, 1, dtype=torch.long))
-
-
 def test_gelu_is_the_tanh_approximation():
     rng = np.random.default_rng(5)
     p = {"w1": rng.standard_normal((16, 32)).astype(np.float32),
