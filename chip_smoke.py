@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's LM serving and training paths and its
+"""Drive the PyTorch port's LM serving and training paths, its
 `MultiLayerNetwork` (the char-LSTM, the conv nets, DBN pretraining, the
-solvers, the training CLI and the precision plane) on one NVIDIA GPU and
+solvers, the training CLI and the precision plane) and its word
+embeddings (Word2Vec, GloVe, ParagraphVectors) on one NVIDIA GPU and
 check them.
 
     python3 chip_smoke.py            # every phase, from the repo root
@@ -184,6 +185,26 @@ Phases (any failure exits non-zero, and no result line is printed):
              on the same state_dir.  Every output by the greedy rule,
              B1 launches = n_layers x dispatches by width on each pool,
              ledgers balanced.
+15. nlp    — the word-embedding family (BASELINE config #3; no hand
+             kernel on this path: gathers and ``index_add_``): bench.py's
+             Word2Vec row as it runs offline (vector 128, window 5,
+             negative 5, batch 4096 over its zipf corpus of 120 000 tokens
+             and 2 000 words; a warm-up fit, then a timed fit), the same
+             at negative 0 (HS), and a text8-scale row (word2vec's
+             demo-word.sh settings, vector 200, window 8, negative 25,
+             sample 1e-4, over a synthetic zipf corpus of 2 000 000 tokens
+             and 71 290 words): words/s, pairs, steps, ms a step, host
+             pair-generation seconds, peak memory; the HS and NEG steps at
+             the bench's shape and one GloVe step on the card against the
+             CPU on the same inputs (duplicate rows, a saturated HS pair,
+             the same negatives; loss and every touched row within
+             relative 1e-5); whether two seeded card fits are bitwise
+             equal (recorded); and on the two-topic corpus of
+             tests/test_nlp.py, Word2Vec HS and NEG separating the topics,
+             GloVe's losses falling and ParagraphVectors predicting each
+             topic's label (HS at batch 128 and NEG at batch 512; at the
+             test's HS batch 512 the outcome depends on the scatter's
+             summation order and is recorded).
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device time per
 call (`device_ms`: the calls are queued behind a spin kernel, so they run
@@ -195,9 +216,10 @@ Prints the ``kernels`` JSON line, then the ``nvidia-smi`` card line, then
 ``{"ok": true, "device": {...}}`` as the last line.  ``--only`` runs a
 subset of phases (facts and build always run), e.g. ``--only
 lstm,rnn``; ``--profile`` traces the serve phase's load, the train,
-rnn and mln phases' timed steps and the decode phase's speculating and
-plain pools with ``torch.profiler`` and adds device time
-by kernel group and the device's idle share to their lines.
+rnn and mln phases' timed steps, the decode phase's speculating and
+plain pools and one more fit of each nlp row with ``torch.profiler`` and
+adds device time by kernel group and the device's idle share to their
+lines.
 """
 
 from __future__ import annotations
@@ -220,7 +242,7 @@ PEAK_OPS = {"float32": 67e12,      # fp32 outside the tensor cores
             "bfloat16": 989e12,    # bf16 dense tensor-core peak
             "float16": 989e12}     # fp16 dense tensor-core peak
 PHASES = ("kernel", "flash", "serve", "parity", "train", "lstm", "rnn",
-          "decode", "mln", "precision", "moe", "mobility")
+          "decode", "mln", "precision", "moe", "mobility", "nlp")
 # what the times of the kernels line measure
 TIMING_NOTE = {
     "ms": "device time per call: calls queued behind a spin kernel, run "
@@ -4273,15 +4295,372 @@ def mobility_launches(mobility):
             "preempting_pool": mobility["preempt"]["launches"]}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the word-embedding family (BASELINE config #3)
+
+# bench.py's Word2Vec row (bench_word2vec), run as it runs offline
+W2V_BENCH = dict(vector_length=128, window=5, negative=5, epochs=1,
+                 batch_size=4096)
+W2V_BENCH_TOKENS, W2V_BENCH_VOCAB = 120_000, 2_000
+# word2vec's demo-word.sh settings over a synthetic corpus of text8's
+# vocabulary size (71 290 words at min-count 5); text8 itself is not in
+# the repository
+W2V_TEXT8 = dict(vector_length=200, window=8, negative=25, subsample=1e-4,
+                 epochs=1, batch_size=4096)
+W2V_TEXT8_TOKENS, W2V_TEXT8_VOCAB = 2_000_000, 71_290
+W2V_TEXT8_REDUCED = (
+    "synthetic zipf corpus (text8 is not in the repository): 2 000 000 "
+    "tokens over 71 290 words, not text8's 17 005 207; 1 epoch, not "
+    "demo-word.sh's 15; skip-gram (the port's only mode), not -cbow 1; "
+    "min-count 1")
+NLP_STEP_TOL = 1e-5
+FRUIT = ["apple", "banana", "cherry", "mango", "grape"]
+TECH = ["cpu", "gpu", "ram", "disk", "cache"]
+
+
+def zipf_sentences(n_tokens: int, vocab: int, seed: int = 0) -> list:
+    """bench.py's offline Word2Vec corpus (`bench_word2vec`): zipf word
+    ids from ``default_rng(seed)``, cut into sentences of 8-23 words."""
+    rng = np.random.default_rng(seed)
+    words = [f"w{i}" for i in range(vocab)]
+    zipf = 1.0 / np.arange(1, vocab + 1)
+    ids = rng.choice(vocab, size=n_tokens, p=zipf / zipf.sum())
+    sentences, k = [], 0
+    while k < n_tokens:
+        n = int(rng.integers(8, 24))
+        sentences.append(" ".join(words[i] for i in ids[k:k + n]))
+        k += n
+    return sentences
+
+
+def topic_corpus(n: int = 600, seed: int = 0) -> list:
+    """tests/test_nlp.py's two-topic corpus."""
+    rng = np.random.default_rng(seed)
+    return [" ".join(rng.choice(FRUIT if i % 2 == 0 else TECH, size=6))
+            for i in range(n)]
+
+
+def timed_fit_parts(w2v):
+    """Wrap the model's pair generation (on the fit's producer thread) to
+    record (seconds, pairs) per epoch, and its step to record the host
+    clock at the first step's start and the last step's end."""
+    make_pairs, step = w2v._make_pairs, w2v._step
+    spent, marks = [], []
+
+    def pairs(encoded, rng):
+        t0 = time.perf_counter()
+        out = make_pairs(encoded, rng)
+        spent.append((time.perf_counter() - t0, len(out)))
+        return out
+
+    def stepped(*args):
+        if not marks:
+            marks.append(time.perf_counter())
+        out = step(*args)
+        marks[1:] = [time.perf_counter()]
+        return out
+    w2v._make_pairs, w2v._step = pairs, stepped
+    return spent, marks
+
+
+def w2v_row(name: str, sentences: list, n_tokens: int, knobs: dict,
+            card: str, profile: bool):
+    """One warm-up fit, then a timed fit (the warm second fit keeps its
+    vocabulary and weights, as bench.py's does); words/sec is the corpus
+    tokens over the timed fit's seconds.  Returns (row, model)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nlp import Word2Vec
+
+    w2v = Word2Vec(**knobs)
+    t0 = time.perf_counter()
+    w2v.fit(sentences)
+    warm_s = time.perf_counter() - t0
+    spent, marks = timed_fit_parts(w2v)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()     # what earlier phases hold
+    t0 = time.perf_counter()
+    w2v.fit(sentences)                   # ends in the tables' copy back
+    t1 = time.perf_counter()
+    fit_s = t1 - t0
+    pairs = sum(p for _, p in spent)
+    steps = sum(-(-p // knobs["batch_size"]) for _, p in spent)
+    tables = [a for a in (w2v.syn0, w2v.syn1, w2v.syn1neg) if a is not None]
+    row = {"name": name, "settings": knobs, "tokens": n_tokens,
+           "vocab": len(w2v.vocab), "words_per_s": n_tokens / fit_s,
+           "fit_s": fit_s, "warmup_fit_s": warm_s, "pairs": pairs,
+           "steps": steps, "ms_per_step": fit_s * 1e3 / max(steps, 1),
+           # host clock: tokenizing, encoding and the first epoch's pairs
+           # before the first step; the step loop; the sync and copy back
+           "before_first_step_s": marks[0] - t0,
+           "step_loop_s": marks[1] - marks[0],
+           "loop_ms_per_step": (marks[1] - marks[0]) * 1e3 / max(steps, 1),
+           "after_last_step_s": t1 - marks[1],
+           "pairgen_host_s": sum(s for s, _ in spent),
+           "peak_device_bytes": torch.cuda.max_memory_allocated(),
+           "peak_above_start_bytes": (torch.cuda.max_memory_allocated()
+                                      - resident),
+           "table_bytes": sum(a.nbytes for a in tables),
+           "tables_finite": bool(all(np.isfinite(a).all() for a in tables)),
+           "card": card}
+    if profile:
+        prof = torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+        with prof:
+            t0 = time.perf_counter()
+            w2v.fit(sentences)
+            wall = time.perf_counter() - t0
+        row["profile"] = device_breakdown(prof, wall, steps)
+    log(f"nlp: {name}: {row['words_per_s']:.1f} words/s ({n_tokens} tokens "
+        f"in {fit_s:.3f} s; vocab {row['vocab']}, {pairs} pairs, {steps} "
+        f"steps, {row['ms_per_step']:.4f} ms a step of the fit, "
+        f"{row['loop_ms_per_step']:.4f} of the step loop, "
+        f"{row['before_first_step_s']:.3f} s before the first step, pair "
+        f"generation {row['pairgen_host_s']:.3f} s on the host, peak "
+        f"{row['peak_above_start_bytes']} bytes above the fit's start, "
+        f"tables finite "
+        f"{row['tables_finite']}"
+        + (f", device idle {row['profile']['device_idle_share']:.3f}"
+           if profile else "") + f") ({card})")
+    return row, w2v
+
+
+def touched_rel_err(got, want, rows) -> float:
+    """Relative max error over the rows a step touched."""
+    rows = rows.unique().cpu()
+    return rel_err(got.cpu()[rows], want.cpu()[rows])
+
+
+def w2v_steps_card_vs_cpu(hs_model, neg_model, pairs) -> dict:
+    """The port's HS and NEG steps on the card and on the CPU from the same
+    tables and batch (the bench row's first 4096 pairs, zipf-skewed, so
+    rows repeat); the HS batch's first pair saturates (|dot| >= 6); the
+    NEG leg feeds both the same negatives.  The tables are the HS row's
+    trained ones and, for NEG, a seeded random syn1neg (the NEG row's own
+    tables are not finite, see `tables_finite`).  Loss and every touched
+    row within relative NLP_STEP_TOL."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nlp import word2vec as tw
+
+    b = W2V_BENCH["batch_size"]
+    inputs = torch.from_numpy(pairs[:b, 0]).long()
+    targets = torch.from_numpy(pairs[:b, 1]).long()
+    valid = torch.ones(b)
+    out = {"batch": b, "distinct_inputs": int(inputs.unique().numel()),
+           "distinct_targets": int(targets.unique().numel())}
+    hs_cpu = tuple(a.cpu() for a in hs_model._hs)
+    syn0 = torch.from_numpy(hs_model.syn0.copy())
+    syn1 = torch.from_numpy(hs_model.syn1.copy())
+    p = hs_cpu[0][targets[0], :hs_cpu[2][targets[0]]]
+    syn0[inputs[0]] = 1.0
+    syn1[p] = 1.0
+    dot0 = float((syn1[p] @ syn0[inputs[0]]).abs().min())
+    res = {}
+    for dev in ("cpu", "cuda"):
+        t0, t1 = syn0.clone().to(dev), syn1.clone().to(dev)
+        loss = tw.hs_step(t0, t1, tuple(a.to(dev) for a in hs_cpu),
+                          inputs.to(dev), targets.to(dev), 0.025,
+                          valid.to(dev))
+        res[dev] = (loss, t0, t1)
+    path_rows = hs_cpu[0][targets][
+        torch.arange(hs_cpu[0].shape[1])[None, :]
+        < hs_cpu[2][targets][:, None]]
+    out["hs"] = {
+        "saturated_dot": dot0,
+        "loss_rel_err": rel_err(res["cuda"][0].cpu(), res["cpu"][0]),
+        "syn0_rel_err": touched_rel_err(res["cuda"][1], res["cpu"][1],
+                                        inputs),
+        "syn1_rel_err": touched_rel_err(res["cuda"][2], res["cpu"][2],
+                                        path_rows)}
+    gen = torch.Generator().manual_seed(0)
+    negs = neg_model._neg_table.cpu()[torch.randint(
+        0, neg_model._neg_table.shape[0], (b, neg_model.negative),
+        generator=gen)]
+    syn0 = torch.from_numpy(hs_model.syn0)
+    syn1n = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        hs_model.syn0.shape).astype(np.float32) * 0.1)
+    for dev in ("cpu", "cuda"):
+        t0, t1 = syn0.clone().to(dev), syn1n.clone().to(dev)
+        loss = tw.neg_step(t0, t1, inputs.to(dev), targets.to(dev),
+                           negs.to(dev), 0.025, valid.to(dev))
+        res[dev] = (loss, t0, t1)
+    out["neg"] = {
+        "collisions": int((negs == targets[:, None]).sum()),
+        "loss_rel_err": rel_err(res["cuda"][0].cpu(), res["cpu"][0]),
+        "syn0_rel_err": touched_rel_err(res["cuda"][1], res["cpu"][1],
+                                        inputs),
+        "syn1neg_rel_err": touched_rel_err(
+            res["cuda"][2], res["cpu"][2],
+            torch.cat([targets, negs.reshape(-1)]))}
+    return out
+
+
+def glove_step_card_vs_cpu() -> dict:
+    """One GloVe AdaGrad step at the bench's width (V 2000, D 128, B 4096)
+    on the card and on the CPU: duplicate rows, a warm accumulator."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nlp.glove import glove_step
+
+    rng = np.random.default_rng(1)
+    v, d, b = W2V_BENCH_VOCAB, W2V_BENCH["vector_length"], 4096
+    params = [rng.standard_normal((v, d)).astype(np.float32) * 0.1,
+              rng.standard_normal((v, d)).astype(np.float32) * 0.1,
+              rng.standard_normal(v).astype(np.float32) * 0.1,
+              rng.standard_normal(v).astype(np.float32) * 0.1]
+    ada = [rng.random(np.shape(p)).astype(np.float32) for p in params]
+    ii = rng.integers(0, 200, b)
+    jj = rng.integers(0, v, b)
+    xx = rng.random(b).astype(np.float32) * 50 + 0.5
+    res = {}
+    for dev in ("cpu", "cuda"):
+        tp = tuple(torch.tensor(a, device=dev) for a in params)
+        th = tuple(torch.tensor(a, device=dev) for a in ada)
+        loss = glove_step(tp, th, torch.tensor(ii, device=dev),
+                          torch.tensor(jj, device=dev),
+                          torch.tensor(xx, device=dev),
+                          torch.ones(b, device=dev), 0.05, 100.0, 0.75)
+        res[dev] = (loss,) + tp + th
+    rows = [torch.tensor(r) for r in (ii, jj, ii, jj)] * 2
+    errs = [touched_rel_err(g, w, r) for g, w, r in
+            zip(res["cuda"][1:], res["cpu"][1:], rows)]
+    return {"loss_rel_err": rel_err(res["cuda"][0].cpu(), res["cpu"][0]),
+            "params_rel_err": max(errs[:4]), "adagrad_rel_err":
+            max(errs[4:])}
+
+
+# ParagraphVectors at tests/test_nlp.py's settings (HS, batch 512) is
+# chaotic in the summation order of its scatter-adds: each batch adds ~50
+# updates into each label's row at once, and on the CPU a random order
+# can predict a wrong label (the CPU's own order predicts right;
+# tests/test_torch_nlp.py test_label_prediction_against_the_summation_order).
+# CUDA's index_add_ adds in atomic order, so that fit is recorded; the
+# labels are held at batch 128 (HS) and with NEG at batch 512, where every
+# order tried on the CPU predicts right.
+PV_HELD = {"hs_batch_128": dict(batch_size=128),
+           "neg_batch_512": dict(negative=5)}
+
+
+def nlp_quality() -> dict:
+    """tests/test_nlp.py's behaviours on the card: Word2Vec HS and NEG
+    separate the two topics, GloVe's epoch losses fall, ParagraphVectors
+    predicts each topic's label (PV_HELD; the test's own settings are
+    recorded)."""
+    from deeplearning4j_tpu_torch.nlp import Glove, ParagraphVectors, Word2Vec
+
+    corpus = topic_corpus()
+    out = {}
+    for neg in (0, 5):
+        w = Word2Vec(vector_length=24, window=3, epochs=5, seed=1,
+                     negative=neg, batch_size=512, learning_rate=0.025)
+        w.fit(corpus)
+        out[f"w2v_{'neg' if neg else 'hs'}"] = {
+            "within": w.similarity("apple", "banana"),
+            "across": w.similarity("apple", "gpu"),
+            "nearest_cpu": w.words_nearest("cpu", top_n=4)}
+    g = Glove(vector_length=16, window=4, epochs=30, seed=3, x_max=10.0)
+    g.fit(corpus)
+    out["glove"] = {"first_loss": g.losses[0], "last_loss": g.losses[-1],
+                    "within": g.similarity("apple", "cherry"),
+                    "across": g.similarity("apple", "ram")}
+    labels = ["fruit" if i % 2 == 0 else "tech" for i in range(len(corpus))]
+    out["paragraph_vectors"] = {}
+    for name, knobs in {"test_settings_recorded": {}, **PV_HELD}.items():
+        pv = ParagraphVectors(**{**dict(
+            vector_length=24, window=3, epochs=5, seed=2, batch_size=512,
+            learning_rate=0.025), **knobs})
+        pv.fit_labelled(corpus, labels)
+        out["paragraph_vectors"][name] = {
+            "fruit": pv.predict(["apple", "banana", "grape"]),
+            "tech": pv.predict(["cpu", "disk", "cache"])}
+    return out
+
+
+def nlp_phase(card: str, profile: bool = False) -> dict:
+    import torch
+
+    from deeplearning4j_tpu_torch.nlp import Word2Vec
+
+    t_phase = time.perf_counter()
+    bench = zipf_sentences(W2V_BENCH_TOKENS, W2V_BENCH_VOCAB)
+    neg_row, neg_model = w2v_row("bench_neg", bench, W2V_BENCH_TOKENS,
+                                 W2V_BENCH, card, profile)
+    hs_row, hs_model = w2v_row("bench_hs", bench, W2V_BENCH_TOKENS,
+                               dict(W2V_BENCH, negative=0), card, profile)
+    t0 = time.perf_counter()
+    text8 = zipf_sentences(W2V_TEXT8_TOKENS, W2V_TEXT8_VOCAB)
+    corpus_s = time.perf_counter() - t0
+    text8_row, _ = w2v_row("text8_scale", text8, W2V_TEXT8_TOKENS,
+                           W2V_TEXT8, card, profile)
+    text8_row.update(corpus_build_s=corpus_s, reduced=W2V_TEXT8_REDUCED)
+
+    pairs = Word2Vec._make_pairs(          # the unwrapped method
+        neg_model, [neg_model.vocab.encode(s.split()) for s in bench[:400]],
+        np.random.default_rng(0))
+    steps = w2v_steps_card_vs_cpu(hs_model, neg_model, pairs)
+    glove = glove_step_card_vs_cpu()
+    errs = [v for leg in ("hs", "neg") for k, v in steps[leg].items()
+            if k.endswith("rel_err")] + list(glove.values())
+    hs, neg = steps["hs"], steps["neg"]
+    log(f"nlp: card vs CPU steps at B 4096, D 128: HS (saturated dot "
+        f"{hs['saturated_dot']:.1f}) loss {hs['loss_rel_err']:.3g}, syn0 "
+        f"{hs['syn0_rel_err']:.3g}, syn1 {hs['syn1_rel_err']:.3g}; NEG "
+        f"({neg['collisions']} collisions) loss {neg['loss_rel_err']:.3g}, "
+        f"syn0 {neg['syn0_rel_err']:.3g}, syn1neg "
+        f"{neg['syn1neg_rel_err']:.3g}; GloVe {glove}")
+    if not all(e <= NLP_STEP_TOL for e in errs):    # a NaN fails too
+        raise AssertionError(f"nlp: a step on the card is {errs} from the "
+                             f"CPU's (limit {NLP_STEP_TOL})")
+    if not 6.0 <= hs["saturated_dot"]:
+        raise AssertionError("nlp: the HS batch holds no saturated pair")
+
+    # on the HS row: the NEG row's tables are NaN, and NaN != NaN
+    def fresh_fit():
+        return Word2Vec(**dict(W2V_BENCH, negative=0)).fit(bench).syn0
+    first, second = fresh_fit(), fresh_fit()
+    bitwise = bool(np.array_equal(first, second))
+    seeded_diff = float(np.abs(first - second).max())
+    log(f"nlp: two identically seeded card fits of the bench HS row bitwise "
+        f"equal: {bitwise}, max abs difference {seeded_diff:.3g} (recorded, "
+        f"not required)")
+
+    quality = nlp_quality()
+    for name in ("w2v_hs", "w2v_neg"):
+        q = quality[name]
+        if not (q["within"] > q["across"] + 0.2
+                and set(q["nearest_cpu"]) <= set(TECH) - {"cpu"}):
+            raise AssertionError(
+                f"nlp: {name} does not separate the topics: {q}")
+    g = quality["glove"]
+    if not g["last_loss"] < g["first_loss"]:
+        raise AssertionError(f"nlp: GloVe's losses do not fall: {g}")
+    for name in PV_HELD:
+        pv = quality["paragraph_vectors"][name]
+        if pv != {"fruit": "fruit", "tech": "tech"}:
+            raise AssertionError(
+                f"nlp: ParagraphVectors ({name}) predicts {pv}")
+    log(f"nlp: quality on the two-topic corpus: {quality}")
+    torch.cuda.empty_cache()
+    return {"rows": [neg_row, hs_row, text8_row], "steps": steps,
+            "glove_step": glove, "step_tol": NLP_STEP_TOL,
+            "seeded_hs_fits_bitwise_equal": bitwise,
+            "seeded_hs_fits_max_abs_diff": seeded_diff, "quality": quality,
+            "phase_s": time.perf_counter() - t_phase, "card": card}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=",".join(PHASES),
                     help="comma-separated subset of " + ",".join(PHASES))
     ap.add_argument("--profile", action="store_true",
                     help="trace the serve load, the timed train and rnn "
-                    "steps and the decode phase's speculating and plain "
-                    "pools with torch.profiler and print device time by "
-                    "kernel (slows them)")
+                    "steps, the decode phase's speculating and plain "
+                    "pools and one more fit of each nlp row with "
+                    "torch.profiler and print device time by kernel "
+                    "(slows them)")
     args = ap.parse_args(argv)
     phases = [p for p in args.only.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -4372,6 +4751,7 @@ def main(argv=None) -> int:
     precision = precision_phase(card) if "precision" in phases else None
     moe = moe_phase(card) if "moe" in phases else None
     mobility = mobility_phase(card) if "mobility" in phases else None
+    nlp = nlp_phase(card, profile=args.profile) if "nlp" in phases else None
 
     entries = []
     if kernels_line is not None:
@@ -4538,6 +4918,8 @@ def main(argv=None) -> int:
         print(json.dumps({"moe": moe}), flush=True)
     if mobility is not None:
         print(json.dumps({"mobility": mobility}), flush=True)
+    if nlp is not None:
+        print(json.dumps({"nlp": nlp}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)

@@ -76,8 +76,9 @@ KV at position t is a function of tokens[0..t] and the weights, so a
 shipped, restored or resumed lane decodes the tokens a local one does,
 greedy or seeded sampling.
 
-Not ported yet (ROADMAP.md): tenancy, the circuit breaker, SSE
-streaming, request tracing and the compile watcher.
+Not ported yet (ROADMAP.md): tenancy (A4.6: without a registry only the
+tenant "default" is served, as in the JAX package), the circuit breaker,
+SSE streaming (A4.9), request tracing and the compile watcher.
 """
 
 from __future__ import annotations
@@ -157,6 +158,15 @@ def validate_request(cfg, prompt_ids, max_new_tokens: int) -> List[int]:
             f"prompt ({len(ids)} tokens) + max_new_tokens ({max_new}) "
             f"exceeds max_len ({cfg.max_len}); shorten one of them")
     return ids
+
+
+def check_tenant(tenant) -> None:
+    """The no-registry tenant rule of the JAX package's pool: None (no
+    tenant named) or "default" pass; any other tenant is unknown."""
+    if tenant is not None and str(tenant) != "default":
+        raise ValueError(
+            f"unknown tenant {str(tenant)!r}: no tenant registry is "
+            f"installed (tenancy is ROADMAP item A4.6, not ported yet)")
 
 
 class _LMRequest:
@@ -422,9 +432,11 @@ class ContinuousLMServer:
                        deadline_s: Optional[float],
                        session_id: Optional[str] = None,
                        export: bool = False,
-                       priority: Optional[str] = None) -> _LMRequest:
+                       priority: Optional[str] = None,
+                       tenant: Optional[str] = None) -> _LMRequest:
         """Validate and build one queue item.  Export lanes are budgeted
         for their prefill pages only (they never decode here)."""
+        check_tenant(tenant)
         if export:
             ids = validate_request(self.cfg, prompt_ids, max_new_tokens)
             if (self.kv == "paged"
@@ -546,7 +558,8 @@ class ContinuousLMServer:
                  timeout: Optional[float] = None,
                  deadline_s: Optional[float] = None,
                  session_id: Optional[str] = None,
-                 priority: Optional[str] = None) -> List[int]:
+                 priority: Optional[str] = None,
+                 tenant: Optional[str] = None) -> List[int]:
         """prompt ids -> full sequence (prompt + generated), blocking.
 
         `timeout` bounds the client's wait; `deadline_s` (default
@@ -554,10 +567,11 @@ class ContinuousLMServer:
         the request once it expires.  `session_id` feeds sticky-session
         accounting and hibernation; `priority` (interactive, batch,
         best_effort; default interactive) orders admission and marks the
-        lane's preemption class."""
+        lane's preemption class.  `tenant`: None or "default" (there is
+        no tenant registry; any other tenant is a ValueError)."""
         req = self._build_request(prompt_ids, max_new_tokens, temperature,
                                   seed, deadline_s, session_id=session_id,
-                                  priority=priority)
+                                  priority=priority, tenant=tenant)
         self._enqueue(req)
         return self._wait(req, timeout)
 
@@ -579,17 +593,20 @@ class ContinuousLMServer:
                        timeout: Optional[float] = None,
                        deadline_s: Optional[float] = None,
                        session_id: Optional[str] = None,
-                       priority: Optional[str] = None) -> PageExport:
+                       priority: Optional[str] = None,
+                       tenant: Optional[str] = None) -> PageExport:
         """The prefill half of disaggregation: the prompt goes through
         normal admission (radix reuse, chunked prefill, copy-on-write),
         and the request resolves at prefill completion with the lane's
         `PageExport`: its prompt pages and the first committed token.
         The whole request contract is validated here, so a doomed
-        request fails before any bytes move."""
+        request fails before any bytes move.  `tenant` as in `generate`;
+        the frame's tenant is "default"."""
         self._require_ship("export")
         req = self._build_request(prompt_ids, max_new_tokens, temperature,
                                   seed, deadline_s, session_id=session_id,
-                                  export=True, priority=priority)
+                                  export=True, priority=priority,
+                                  tenant=tenant)
         self._enqueue(req)
         self._wait(req, timeout)
         return req.export_result
@@ -609,10 +626,7 @@ class ContinuousLMServer:
                 "shipment is int8-quantized but this pool runs "
                 "swap_quantize=off: refusing a lossy install on an "
                 "exact-bytes pool (recompute locally instead)")
-        if export.tenant != "default":
-            raise ValueError(
-                f"unknown tenant {export.tenant!r}: no tenant registry "
-                f"is installed")
+        check_tenant(export.tenant)
         if len(export.committed) >= export.max_new:
             # the prefill pool's first sample filled the whole budget:
             # answer without occupying a slot

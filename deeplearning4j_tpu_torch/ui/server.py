@@ -12,6 +12,10 @@ Endpoints:
   whole-sequence `generate`, seeded from ``seed``.  ``speculate: true``
   is a 400 unless the pool speculates.  ``priority`` (interactive,
   batch, best_effort) and ``session_id`` ride the pool's request.
+  ``tenant`` (the JSON field, else the ``X-Tenant`` header) is checked
+  before any decode leg runs: with no tenant registry (A4.6) only
+  "default" is served, anything else is a 400.  ``stream: true`` is a
+  400 (SSE streaming is A4.9), as it is with beams, top-k or top-p.
 - ``POST /lm/prefill``  the same body -> the lane's KV page shipment
   (binary, `serving/transfer.py` frame) at prefill completion; 422 with
   ``"kind": "page_ship"`` when the pool does not ship.
@@ -41,6 +45,7 @@ from deeplearning4j_tpu_torch.parallel.generation import (
 )
 from deeplearning4j_tpu_torch.serving.lm import (
     ContinuousLMServer,
+    check_tenant,
     validate_request,
 )
 from deeplearning4j_tpu_torch.serving.pressure import normalize_priority
@@ -184,6 +189,23 @@ class _Handler(BaseHTTPRequestHandler):
             raise ValueError("session_id must be 1..128 characters")
         return sid
 
+    def _tenant(self, body: dict) -> Optional[str]:
+        """The request's tenant: the JSON ``tenant`` field, else the
+        ``X-Tenant`` header; None when neither names one.  A string or int
+        of 1..128 characters, else the client's 400."""
+        tn = body.get("tenant")
+        if tn is None:
+            tn = self.headers.get("X-Tenant")
+        if tn is None:
+            return None
+        if not isinstance(tn, (str, int)):
+            raise ValueError(
+                f"tenant must be a string, got {type(tn).__name__}")
+        tn = str(tn)
+        if not 0 < len(tn) <= 128:
+            raise ValueError("tenant must be 1..128 characters")
+        return tn
+
     @staticmethod
     def _deadline_s(body: dict) -> Optional[float]:
         if body.get("deadline_ms") is None:
@@ -217,7 +239,7 @@ class _Handler(BaseHTTPRequestHandler):
             seed=int(body.get("seed", 0)) & 0x7FFFFFFF,
             deadline_s=self._deadline_s(body),
             session_id=self._session_id(body),
-            priority=body.get("priority"))
+            priority=body.get("priority"), tenant=self._tenant(body))
         self._send(200, "application/octet-stream",
                    serialize_export(export))
 
@@ -238,6 +260,10 @@ class _Handler(BaseHTTPRequestHandler):
         # on every decode path
         priority = normalize_priority(body.get("priority"))
         session_id = self._session_id(body)
+        # checked before any leg runs, so the whole-sequence legs refuse
+        # an unknown tenant as the pool does
+        tenant = self._tenant(body)
+        check_tenant(tenant)
         max_new = int(body.get("max_new_tokens", 32))
         temperature = float(body.get("temperature", 0.0))
         seed = int(body.get("seed", 0)) & 0x7FFFFFFF
@@ -264,6 +290,18 @@ class _Handler(BaseHTTPRequestHandler):
                     "speculate requested but the pool was started with "
                     "speculation off (serve with -lm-speculate "
                     "ngram|model)")
+        if bool(body.get("stream", False)):
+            if beams > 1 or top_k > 0 or top_p < 1.0:
+                raise ValueError(
+                    "stream requires the continuous greedy/temperature "
+                    "path: top-k/top-p/beam decode whole-sequence and "
+                    "cannot stream")
+            # a client asking for a stream gets a 400 naming why, not a
+            # buffered answer in another content type
+            raise ValueError(
+                "stream requested but SSE streaming is not ported yet "
+                "(ROADMAP item A4.9); send stream: false for one JSON "
+                "answer")
         deadline_s = self._deadline_s(body)
         try:
             ids = validate_request(lm_server.cfg, prompt, max_new)
@@ -290,7 +328,7 @@ class _Handler(BaseHTTPRequestHandler):
             out = lm_server.generate(ids, max_new, temperature=temperature,
                                      seed=seed, deadline_s=deadline_s,
                                      session_id=session_id,
-                                     priority=priority)
+                                     priority=priority, tenant=tenant)
             self._json(200, {"ids": out})
 
 

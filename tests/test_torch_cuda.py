@@ -11,7 +11,10 @@ training command line, which run no hand kernel (f32 gradients and SAME
 stride-2 convolution and pooling against the CPU).  Every kernel is
 held against its plain version in float16 too, and the precision plane
 runs here: loss-scaled char-LSTM steps (mixed and float16) with their
-overflow skip, and the chunked fit's chunk-size invariance.
+overflow skip, and the chunked fit's chunk-size invariance.  The
+word-embedding family has no hand kernel: its HS, NEG and GloVe steps
+(gathers and ``index_add_``) are held against the CPU, and a Word2Vec
+fit on the card must separate two topics.
 
 Every test carries the ``cuda`` marker and decides inside the test
 whether a card is present, skipping with a reason when not (the kernels
@@ -1449,3 +1452,118 @@ def test_a_bf16_frame_from_the_card_is_raw_bf16_words():
     back = deserialize_export(blob)
     assert back.pages_k.dtype == torch.bfloat16
     assert torch.equal(back.pages_v, ex.pages_v)
+
+
+# ---------------------------------------------------------------------------
+# the word-embedding family (no hand kernel: gathers and index_add_)
+
+TOPICS = (["apple", "banana", "cherry", "mango", "grape"],
+          ["cpu", "gpu", "ram", "disk", "cache"])
+
+
+def _topic_corpus(n=600, seed=0):
+    rng = np.random.default_rng(seed)
+    return [" ".join(rng.choice(TOPICS[i % 2], size=6)) for i in range(n)]
+
+
+def _nlp_rel(got, want):
+    got, want = got.double().cpu(), want.double().cpu()
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _w2v_step_inputs(negative, seed=0):
+    """Tables and a batch at the bench's width (D 128, B 4096) over a
+    2000-word zipf vocabulary: duplicate rows throughout, and for HS a pair
+    whose dot saturates."""
+    from deeplearning4j_tpu_torch.nlp import Word2Vec
+
+    rng = np.random.default_rng(seed)
+    v, d, b = 2000, 128, 4096
+    p = 1.0 / np.arange(1, v + 1)
+    words = [f"w{i}" for i in rng.choice(v, 60_000, p=p / p.sum())]
+    w = Word2Vec(vector_length=d, negative=negative, device="cpu")
+    w.build_vocab([words])
+    w.reset_weights()
+    nv = len(w.vocab)
+    syn0 = rng.standard_normal((nv, d)).astype(np.float32) * 0.1
+    out = rng.standard_normal((nv if negative else nv - 1, d)).astype(
+        np.float32) * 0.1
+    inputs = rng.choice(nv, b, p=p[:nv] / p[:nv].sum())
+    targets = rng.choice(nv, b, p=p[:nv] / p[:nv].sum())
+    if not negative:
+        points, _, lengths = w.vocab.hs_arrays()
+        syn0[inputs[0]] = 1.0
+        out[points[targets[0], :lengths[targets[0]]]] = 1.0
+    valid = np.ones(b, np.float32)
+    valid[-100:] = 0.0
+    return w, syn0, out, inputs, targets, valid
+
+
+@pytest.mark.parametrize("negative", [0, 5])
+def test_w2v_step_on_the_card_matches_the_cpu(negative):
+    _need_card()
+    from deeplearning4j_tpu_torch.nlp import word2vec as tw
+
+    w, syn0, out, inputs, targets, valid = _w2v_step_inputs(negative)
+    gen = torch.Generator().manual_seed(0)
+    negs = (w._neg_table[torch.randint(0, w._neg_table.shape[0],
+                                       (len(inputs), negative),
+                                       generator=gen)]
+            if negative else None)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        t0 = torch.tensor(syn0, device=dev)
+        t1 = torch.tensor(out, device=dev)
+        i, t = (torch.tensor(a, device=dev) for a in (inputs, targets))
+        v = torch.tensor(valid, device=dev)
+        if negative:
+            loss = tw.neg_step(t0, t1, i, t, negs.to(dev), 0.025, v)
+        else:
+            hs = tuple(a.to(dev) for a in w._hs)
+            loss = tw.hs_step(t0, t1, hs, i, t, 0.025, v)
+        res[dev] = (loss, t0, t1)
+    for a, b in zip(res["cuda"], res["cpu"]):
+        assert _nlp_rel(a, b) <= 1e-5
+
+
+def test_glove_step_on_the_card_matches_the_cpu():
+    _need_card()
+    from deeplearning4j_tpu_torch.nlp.glove import glove_step
+
+    rng = np.random.default_rng(1)
+    v, d, b = 2000, 128, 4096
+    params = [rng.standard_normal((v, d)).astype(np.float32) * 0.1,
+              rng.standard_normal((v, d)).astype(np.float32) * 0.1,
+              rng.standard_normal(v).astype(np.float32) * 0.1,
+              rng.standard_normal(v).astype(np.float32) * 0.1]
+    ada = [rng.random(np.shape(p)).astype(np.float32) for p in params]
+    ii = rng.integers(0, 200, b)              # many duplicate rows
+    jj = rng.integers(0, v, b)
+    xx = rng.random(b).astype(np.float32) * 50 + 0.5
+    valid = np.ones(b, np.float32)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        tp = tuple(torch.tensor(a, device=dev) for a in params)
+        th = tuple(torch.tensor(a, device=dev) for a in ada)
+        loss = glove_step(tp, th, torch.tensor(ii, device=dev),
+                          torch.tensor(jj, device=dev),
+                          torch.tensor(xx, device=dev),
+                          torch.tensor(valid, device=dev), 0.05, 100.0, 0.75)
+        res[dev] = (loss,) + tp + th
+    for a, b in zip(res["cuda"], res["cpu"]):
+        assert _nlp_rel(a, b) <= 1e-5
+
+
+@pytest.mark.parametrize("negative", [0, 5])
+def test_word2vec_on_the_card_separates_topics(negative):
+    _need_card()
+    from deeplearning4j_tpu_torch.nlp import Word2Vec
+
+    w2v = Word2Vec(vector_length=24, window=3, epochs=5, seed=1,
+                   negative=negative, batch_size=512, learning_rate=0.025)
+    assert w2v.device.type == "cuda"
+    w2v.fit(_topic_corpus())
+    assert isinstance(w2v.syn0, np.ndarray)
+    assert w2v.similarity("apple", "banana") > \
+        w2v.similarity("apple", "gpu") + 0.2
+    assert set(w2v.words_nearest("cpu", 4)) <= set(TOPICS[1]) - {"cpu"}
