@@ -205,6 +205,31 @@ Phases (any failure exits non-zero, and no result line is printed):
              topic's label (HS at batch 128 and NEG at batch 512; at the
              test's HS batch 512 the outcome depends on the scatter's
              summation order and is recorded).
+16. ops    — the LM server's operations plane over real HTTP on
+             ``127.0.0.1``: the serve phase's model through
+             `UiServer.serve_lm` (8 slots, page 16, chunk 16) with the
+             tenants ``interactive`` (weight 4, SLO 250 ms) and ``batch``
+             (500 tokens/s, burst 1000) and a breaker (threshold 3,
+             cooldown 0.5 s): the serve phase's 12 prompts streamed from
+             12 threads (SSE, tenant interactive, 64 new tokens, greedy;
+             the token events make the ``done`` ids, each held by the
+             greedy rule; TTFT p50 / p99 and streamed tokens/s; the share
+             equal to the same requests unstreamed; B1 launches by width
+             = n_layers x the run's dispatches by width, B2's counted);
+             two streams closed after 4 tokens (abandoned, slots free,
+             pages balanced); a flood of 16 batch requests (cost 192
+             each) beside 4 interactive ones (429s with a Retry-After no
+             smaller than the bucket's refill time, no interactive 429,
+             admitted + throttled = sent on ``/metrics``); a chaos hook
+             failing 3 dispatches (the breaker opens, a 503 with
+             Retry-After, /readyz 503, a probe after the cooldown closes
+             it; the /metrics gauge 0, 1, 2, 0); every ``/metrics`` line
+             Prometheus text with the ``serving_lm_*`` and tenant
+             families; one ``/trace/recent`` trace for every admitted
+             request id (ordered spans inside the request); then ``cli
+             train -metrics-port 0`` (mnist-mlp, mixed, chunks of 4)
+             scraped before it stops: its step counter = the steps
+             taken.
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device time per
 call (`device_ms`: the calls are queued behind a spin kernel, so they run
@@ -231,6 +256,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 
 import numpy as np
@@ -242,7 +268,7 @@ PEAK_OPS = {"float32": 67e12,      # fp32 outside the tensor cores
             "bfloat16": 989e12,    # bf16 dense tensor-core peak
             "float16": 989e12}     # fp16 dense tensor-core peak
 PHASES = ("kernel", "flash", "serve", "parity", "train", "lstm", "rnn",
-          "decode", "mln", "precision", "moe", "mobility", "nlp")
+          "decode", "mln", "precision", "moe", "mobility", "nlp", "ops")
 # what the times of the kernels line measure
 TIMING_NOTE = {
     "ms": "device time per call: calls queued behind a spin kernel, run "
@@ -3871,7 +3897,7 @@ def concurrently(fns) -> list:
     for t in threads:
         t.join(timeout=900)
     if errors or any(t.is_alive() for t in threads):
-        raise AssertionError(f"mobility: requests failed: {errors}")
+        raise AssertionError(f"requests failed: {errors}")
     return results
 
 
@@ -4651,6 +4677,561 @@ def nlp_phase(card: str, profile: bool = False) -> dict:
             "phase_s": time.perf_counter() - t_phase, "card": card}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the LM server's operations plane over real HTTP
+
+# the -tenants JSON of the phase: a weighted interactive tenant with an
+# SLO, and a metered batch tenant (500 tokens/s, a burst of 1000)
+OPS_TENANTS = ('{"interactive": {"weight": 4, "slo_ms": 250}, '
+               '"batch": {"weight": 1, "rate": 500, "burst": 1000}}')
+OPS_NEW = 64                 # new tokens a request
+OPS_FLOOD = 16               # batch requests of the flood
+OPS_BREAKER = dict(breaker_threshold=3, breaker_cooldown_s=0.5)
+OPS_TIMEOUT_S = 300          # every HTTP exchange ends within this
+PROM_LINE = (r"^[a-zA-Z_:][a-zA-Z0-9_:]*"
+             r"(\{([a-zA-Z_][a-zA-Z0-9_]*=\"([^\"\\]|\\.)*\",?)*\})? "
+             r"(-?[0-9.e+-]+|[+-]Inf|NaN)$")
+
+
+class InjectedDispatchFault(RuntimeError):
+    """The chaos hook's dispatch failure."""
+
+
+class ChaosDispatch:
+    """Wraps a pool's dispatch entry (`srv._step`): the next `fail`
+    calls raise `InjectedDispatchFault` on the card's worker thread, the
+    rest dispatch.  The hook lives here, never in the package."""
+
+    def __init__(self, srv):
+        self.fail = 0
+        self.raised = 0
+        self.real = srv._step
+        srv._step = self
+
+    def __call__(self, *args):
+        if self.fail > 0:
+            self.fail -= 1
+            self.raised += 1
+            raise InjectedDispatchFault("chaos: injected dispatch fault")
+        return self.real(*args)
+
+
+def http_json(url: str, path: str, payload, rid: str) -> dict:
+    """POST JSON; the status, headers, body and the client's send and
+    receive stamps (perf_counter: the server runs in this process)."""
+    req = urllib.request.Request(
+        url + path, data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json", "X-Request-Id": rid})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=OPS_TIMEOUT_S) as resp:
+            code, hdrs, raw = resp.status, dict(resp.headers), resp.read()
+    except urllib.error.HTTPError as e:
+        code, hdrs, raw = e.code, dict(e.headers), e.read()
+    return {"rid": rid, "status": code, "headers": hdrs,
+            "body": json.loads(raw), "t_send": t0,
+            "t_end": time.perf_counter()}
+
+
+def http_get(url: str, path: str):
+    try:
+        with urllib.request.urlopen(url + path,
+                                    timeout=OPS_TIMEOUT_S) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def sse_request(url: str, payload, rid: str, stop_after=None) -> dict:
+    """POST a ``stream: true`` request and read its events as they come:
+    the tokens (with the time of the first), the ``done`` ids and any
+    ``error`` event.  With `stop_after` the client closes its socket
+    after that many tokens (a disconnect)."""
+    import http.client
+    import urllib.parse
+
+    u = urllib.parse.urlsplit(url)
+    conn = http.client.HTTPConnection(u.hostname, u.port,
+                                      timeout=OPS_TIMEOUT_S)
+    out = {"rid": rid, "tokens": [], "done": None, "error": None,
+           "t_first": None}
+    try:
+        out["t_send"] = time.perf_counter()
+        conn.request("POST", "/lm/generate",
+                     json.dumps(dict(payload, stream=True)).encode(),
+                     {"Content-Type": "application/json",
+                      "X-Request-Id": rid})
+        resp = conn.getresponse()
+        out.update(status=resp.status,
+                   ctype=resp.getheader("Content-Type"),
+                   echoed=resp.getheader("X-Request-Id"))
+        if resp.status != 200:
+            out["body"] = json.loads(resp.read())
+            return out
+        event = None
+        while True:
+            line = resp.readline()
+            if not line:
+                break
+            line = line.decode().rstrip("\n")
+            if line.startswith("event: "):
+                event = line[len("event: "):]
+            elif line.startswith("data: "):
+                data = json.loads(line[len("data: "):])
+                if event is None:
+                    if out["t_first"] is None:
+                        out["t_first"] = time.perf_counter()
+                    if data["index"] != len(out["tokens"]):
+                        raise AssertionError(f"ops: stream {rid} skipped "
+                                             f"an index: {data}")
+                    out["tokens"].append(data["token"])
+                    if stop_after and len(out["tokens"]) >= stop_after:
+                        break
+                elif event == "done":
+                    out["done"] = data["ids"]
+                elif event == "error":
+                    out["error"] = data["error"]
+            elif not line:
+                event = None
+    finally:
+        out["t_end"] = time.perf_counter()
+        conn.close()
+    return out
+
+
+def prom_samples(text: str) -> dict:
+    """Every sample line of a Prometheus text scrape, checked against
+    the format, by series; raises on a line that does not parse."""
+    import re
+
+    line_re = re.compile(PROM_LINE)
+    out = {}
+    for line in text.splitlines():
+        if line.startswith("# HELP ") or line.startswith("# TYPE "):
+            continue
+        if not line_re.match(line):
+            raise AssertionError(f"ops: /metrics line is not Prometheus "
+                                 f"text: {line!r}")
+        series, value = line.rsplit(" ", 1)
+        out[series] = float(value)
+    return out
+
+
+def percentile_ms(xs, q: float) -> float:
+    xs = sorted(xs)
+    return 1e3 * xs[min(len(xs) - 1, max(0, math.ceil(q * len(xs)) - 1))]
+
+
+def ops_streams(url, srv, reqs, check, card: str) -> tuple:
+    """The 12 requests streamed from 12 threads (tenant interactive,
+    greedy): each stream's tokens equal its ``done`` ids and hold the
+    greedy rule; B1 launches counted by width over the run against
+    n_layers x its dispatches; then the same requests without streaming,
+    and the share of equal answers."""
+    from deeplearning4j_tpu_torch.parallel.kernels import flash_forward
+    from deeplearning4j_tpu_torch.parallel.paged_kernel import (
+        paged_flash_attention,
+    )
+    import torch
+
+    widths0 = dict(srv.stats()["dispatch_widths"])
+    torch.cuda.synchronize()
+    paged_flash_attention.launches.reset()
+    flash_forward.launches.reset()
+    streams = concurrently([
+        (lambda i=i: sse_request(
+            url, {"prompt_ids": reqs[i], "max_new_tokens": OPS_NEW,
+                  "tenant": "interactive"}, f"ops-stream-{i}"))
+        for i in range(len(reqs))])
+    torch.cuda.synchronize()
+    launches = paged_flash_attention.launches.value
+    by_width = {str(c): n for c, n in sorted(
+        paged_flash_attention.launches.by_key().items())}
+    flash = flash_forward.launches.value
+    widths = srv.stats()["dispatch_widths"]
+    delta = {w: n - widths0.get(w, 0) for w, n in widths.items()
+             if n - widths0.get(w, 0)}
+    want = {w: srv.cfg.n_layers * n for w, n in delta.items()}
+    if by_width != want or launches != sum(want.values()) or not launches:
+        raise AssertionError(f"ops: B1 launches by width {by_width} != "
+                             f"n_layers x dispatches by width {want}")
+    checks = []
+    for prompt, s in zip(reqs, streams):
+        if s["status"] != 200 or s["ctype"] != "text/event-stream":
+            raise AssertionError(f"ops: stream {s['rid']} answered "
+                                 f"{s['status']} {s.get('body')}")
+        if s["error"] is not None or s["done"] is None:
+            raise AssertionError(f"ops: stream {s['rid']} ended with "
+                                 f"{s['error']!r}")
+        if s["echoed"] != s["rid"]:
+            raise AssertionError(f"ops: stream {s['rid']} echoed "
+                                 f"{s['echoed']}")
+        if (s["done"] != prompt + s["tokens"]
+                or len(s["tokens"]) != OPS_NEW):
+            raise AssertionError(f"ops: stream {s['rid']}: the token "
+                                 f"events do not make the done ids")
+        checks.append(check(prompt, s["done"]))
+    plain = concurrently([
+        (lambda i=i: http_json(
+            url, "/lm/generate", {"prompt_ids": reqs[i],
+                                  "max_new_tokens": OPS_NEW,
+                                  "tenant": "interactive"},
+            f"ops-plain-{i}")) for i in range(len(reqs))])
+    for r in plain:
+        if r["status"] != 200 or r["headers"].get("X-Request-Id") != \
+                r["rid"]:
+            raise AssertionError(f"ops: {r['rid']} answered {r['status']} "
+                                 f"{r['body']}")
+    same = sum(s["done"] == r["body"]["ids"] for s, r in zip(streams,
+                                                              plain))
+    t0 = min(s["t_send"] for s in streams)
+    t1 = max(s["t_end"] for s in streams)
+    ttft = [s["t_first"] - s["t_send"] for s in streams]
+    out = {"streams": len(streams),
+           "ttft_p50_ms": percentile_ms(ttft, 0.50),
+           "ttft_p99_ms": percentile_ms(ttft, 0.99),
+           "streamed_tokens_per_s": sum(len(s["tokens"])
+                                        for s in streams) / (t1 - t0),
+           "wall_s": t1 - t0,
+           "equal_to_unstreamed_share": same / len(streams),
+           "b1_launches": launches, "b1_launches_by_width": by_width,
+           "dispatches_by_width": delta, "b2_launches": flash,
+           **checks_summary(checks)}
+    log(f"ops: 12 streams: TTFT p50 {out['ttft_p50_ms']:.1f} ms, p99 "
+        f"{out['ttft_p99_ms']:.1f} ms, {out['streamed_tokens_per_s']:.1f} "
+        f"streamed tokens/s; equal to the unstreamed answer "
+        f"{same}/{len(streams)}; B1 launches by width {by_width}, B2 "
+        f"{flash} ({card})")
+    return out, streams + plain
+
+
+def wait_idle(srv, timeout: float = 60.0) -> float:
+    """Poll until no slot is active and nothing is queued; the time."""
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        with srv._cond:
+            if not any(s.active for s in srv._slots) and not srv._queue:
+                return time.perf_counter()
+        time.sleep(0.005)
+    raise AssertionError("ops: the pool did not go idle")
+
+
+def ops_disconnect(url, srv, reqs) -> tuple:
+    """Two streams close their sockets after 4 tokens: both requests
+    are abandoned, and after the next admit round every slot is free and
+    the page ledger balances."""
+    shed0 = srv.stats()["shed"]
+    cut = concurrently([
+        (lambda i=i: sse_request(
+            url, {"prompt_ids": reqs[i][:140], "max_new_tokens": 256,
+                  "tenant": "interactive"}, f"ops-cut-{i}", stop_after=4))
+        for i in range(2)])
+    if any(c["status"] != 200 for c in cut):
+        raise AssertionError(f"ops: a disconnecting stream answered "
+                             f"{[(c['status'], c.get('body')) for c in cut]}")
+    t_idle = wait_idle(srv)
+    for c in cut:
+        c["t_end"] = t_idle      # the server's side ends after the client's
+    ledger = srv.page_ledger()
+    shed = srv.stats()["shed"] - shed0
+    if not ledger["balanced"] or shed != 2 or any(
+            len(c["tokens"]) != 4 for c in cut):
+        raise AssertionError(f"ops: disconnects: shed {shed}, ledger "
+                             f"{ledger}")
+    log(f"ops: 2 streams closed after 4 tokens: abandoned, slots free, "
+        f"pages balanced ({ledger['in_use']} in use by the radix cache)")
+    return {"abandoned": shed, "ledger": ledger}, cut
+
+
+def ops_flood(url, srv, reqs) -> tuple:
+    """16 batch requests (128-token prompts + 64 new: cost 192 each
+    against a bucket of 1000 refilling at 500/s) beside 4 interactive
+    ones: some batch requests are 429s with a Retry-After no smaller
+    than their bucket's refill time, no interactive request is, and the
+    /metrics ledger reads admitted + throttled = sent for batch."""
+    import re
+
+    rng = np.random.default_rng(7)
+    vocab = srv.cfg.vocab_size
+    batch = [rng.integers(0, vocab, 128).tolist() for _ in range(OPS_FLOOD)]
+    fns = [(lambda i=i: http_json(
+        url, "/lm/generate", {"prompt_ids": batch[i],
+                              "max_new_tokens": OPS_NEW,
+                              "tenant": "batch"}, f"ops-flood-{i}"))
+           for i in range(OPS_FLOOD)]
+    fns += [(lambda i=i: http_json(
+        url, "/lm/generate", {"prompt_ids": reqs[i],
+                              "max_new_tokens": OPS_NEW,
+                              "tenant": "interactive"}, f"ops-ia-{i}"))
+            for i in range(4)]
+    res = concurrently(fns)
+    flood, ia = res[:OPS_FLOOD], res[OPS_FLOOD:]
+    if any(r["status"] != 200 for r in ia):
+        raise AssertionError(f"ops: an interactive request was refused "
+                             f"during the flood: {[r['status'] for r in ia]}")
+    throttled = [r for r in flood if r["status"] == 429]
+    served = [r for r in flood if r["status"] == 200]
+    if not throttled or len(throttled) + len(served) != OPS_FLOOD:
+        raise AssertionError(f"ops: flood answered "
+                             f"{[r['status'] for r in flood]}")
+    for r in throttled:
+        m = re.search(r"retry in ([\d.]+)s", r["body"]["error"])
+        header = int(r["headers"]["Retry-After"])
+        if m is None or header < float(m.group(1)) or \
+                r["body"]["retry_after_s"] != header:
+            raise AssertionError(f"ops: a 429's Retry-After {header} is "
+                                 f"not its bucket's refill: {r['body']}")
+    samples = prom_samples(http_get(url, "/metrics")[1])
+    reqs_b = samples.get(
+        'serving_lm_tenant_requests_total{plane="lm",tenant="batch"}', 0)
+    thr_b = samples.get(
+        'serving_lm_tenant_throttled_total{plane="lm",tenant="batch"}', 0)
+    ledger = srv.stats()["tenancy"]["batch"]
+    if (reqs_b + thr_b != OPS_FLOOD
+            or ledger["admitted"] + ledger["throttled"] != OPS_FLOOD
+            or thr_b != len(throttled)):
+        raise AssertionError(f"ops: batch ledger {reqs_b} + {thr_b} (and "
+                             f"{ledger}) != {OPS_FLOOD} sent")
+    out = {"batch_sent": OPS_FLOOD, "batch_served": len(served),
+           "batch_throttled": len(throttled),
+           "retry_after_s": sorted({int(r["headers"]["Retry-After"])
+                                    for r in throttled}),
+           "interactive_served": len(ia), "tenancy": srv.stats()["tenancy"]}
+    log(f"ops: flood: {len(served)} batch served, {len(throttled)} 429s "
+        f"(Retry-After {out['retry_after_s']} s), 4/4 interactive served")
+    return out, res
+
+
+def breaker_gauge(url) -> float:
+    return prom_samples(http_get(url, "/metrics")[1])[
+        'serving_breaker_state{plane="lm"}']
+
+
+def ops_breaker(url, srv, reqs) -> tuple:
+    """The chaos hook fails the next 3 dispatches on the card: the
+    breaker opens, a request gets a 503 with Retry-After, /readyz is
+    503; after the cooldown a probe closes it.  The /metrics gauge reads
+    0 closed, 1 open, 2 half-open, 0 closed."""
+    chaos = ChaosDispatch(srv)
+    gauge = [breaker_gauge(url)]
+    try:
+        failed = []
+        for i in range(3):
+            chaos.fail = 1
+            failed.append(http_json(
+                url, "/lm/generate", {"prompt_ids": reqs[i][:40],
+                                      "max_new_tokens": 8},
+                f"ops-chaos-{i}"))
+        if [r["status"] for r in failed] != [400] * 3 or not all(
+                "InjectedDispatchFault" in r["body"]["error"]
+                for r in failed) or chaos.raised != 3:
+            raise AssertionError(f"ops: chaos requests answered "
+                                 f"{[(r['status'], r['body']) for r in failed]}")
+        gauge.append(breaker_gauge(url))
+        refused = http_json(url, "/lm/generate",
+                            {"prompt_ids": reqs[0][:40],
+                             "max_new_tokens": 8}, "ops-open")
+        ready_open = http_get(url, "/readyz")[0]
+        if (refused["status"] != 503
+                or int(refused["headers"].get("Retry-After", 0)) < 1
+                or "circuit breaker open" not in refused["body"]["error"]
+                or ready_open != 503):
+            raise AssertionError(f"ops: open breaker answered "
+                                 f"{refused['status']} {refused['body']}, "
+                                 f"/readyz {ready_open}")
+        time.sleep(OPS_BREAKER["breaker_cooldown_s"] + 0.1)
+        ready_half = http_get(url, "/readyz")[0]     # commits half-open
+        gauge.append(breaker_gauge(url))
+        probe = http_json(url, "/lm/generate",
+                          {"prompt_ids": reqs[0][:40], "max_new_tokens": 8},
+                          "ops-probe")
+        gauge.append(breaker_gauge(url))
+    finally:
+        srv._step = chaos.real
+    stats = srv.stats()
+    if (probe["status"] != 200 or ready_half != 200
+            or gauge != [0.0, 1.0, 2.0, 0.0]
+            or stats["breaker_state"] != "closed"
+            or stats["breaker_opens"] != 1):
+        raise AssertionError(f"ops: breaker: gauge {gauge}, probe "
+                             f"{probe['status']}, stats "
+                             f"{stats['breaker_state']}")
+    if not srv.page_ledger()["balanced"]:
+        raise AssertionError("ops: the page ledger is off after the "
+                             "breaker")
+    log(f"ops: breaker opened after 3 injected faults, answered 503 "
+        f"(Retry-After {refused['headers']['Retry-After']} s), closed on "
+        f"a probe; gauge {gauge}")
+    return {"faults": chaos.raised, "gauge": gauge,
+            "retry_after_s": int(refused["headers"]["Retry-After"]),
+            "opens": stats["breaker_opens"]}, failed + [refused, probe]
+
+
+def ops_traces(url, sent) -> dict:
+    """One trace for every admitted request id the phase sent, none for
+    a request refused at admission (429, 503); spans ordered, non-negative
+    and inside the client's send and receive stamps."""
+    status, body = http_get(url, "/trace/recent")
+    traces = json.loads(body)["traces"]
+    by_id = {}
+    for t in traces:
+        by_id.setdefault(t["request_id"], []).append(t)
+    for r in sent:
+        got = by_id.get(r["rid"], [])
+        refused = r.get("status") in (429, 503)
+        if len(got) != (0 if refused else 1):
+            raise AssertionError(f"ops: {len(got)} traces for "
+                                 f"{r['rid']} ({r.get('status')})")
+        if refused:
+            continue
+        tr = got[0]
+        spans = tr["spans"]
+        names = [s["name"] for s in spans]
+        if names not in (["queue_wait", "decode"], ["queue_wait"]):
+            raise AssertionError(f"ops: {r['rid']} spans {names}")
+        prev = -math.inf
+        for s in spans:
+            if s["dur_s"] < 0 or s["t0_s"] < prev:
+                raise AssertionError(f"ops: {r['rid']} spans out of order")
+            prev = s["t0_s"] + s["dur_s"]
+        if not (r["t_send"] <= tr["t0_s"]
+                and tr["t0_s"] + tr["dur_s"] <= r["t_end"]):
+            raise AssertionError(f"ops: {r['rid']}'s trace lies outside "
+                                 f"its request")
+    statuses = {}
+    for t in traces:
+        statuses[t["status"]] = statuses.get(t["status"], 0) + 1
+    log(f"ops: /trace/recent: one trace for each of "
+        f"{sum(r.get('status') not in (429, 503) for r in sent)} admitted "
+        f"requests ({statuses})")
+    return {"traces": len(traces), "statuses": statuses}
+
+
+def ops_scrape(url) -> dict:
+    status, text = http_get(url, "/metrics")
+    samples = prom_samples(text)
+    families = {line.split()[2] for line in text.splitlines()
+                if line.startswith("# TYPE ")}
+    need = {"serving_requests_total", "serving_lm_ttft_seconds",
+            "serving_lm_decode_tokens_total", "serving_breaker_state",
+            "serving_lm_tenant_requests_total",
+            "serving_lm_tenant_throttled_total",
+            "serving_lm_tenant_slo_burn_rate", "server_uptime_seconds"}
+    if status != 200 or need - families:
+        raise AssertionError(f"ops: /metrics lacks {need - families}")
+    return {"lines": len(text.splitlines()), "series": len(samples),
+            "families": len(families)}
+
+
+def ops_train_metrics(card: str) -> dict:
+    """``cli train -metrics-port 0`` (mnist-mlp on a seeded 784-feature
+    CSV, mixed precision, chunks of 4, telemetry every 4 steps) with its
+    endpoint scraped once before the run stops it: the step counter
+    equals the steps taken."""
+    import re
+    import tempfile
+
+    from deeplearning4j_tpu_torch import cli
+    from deeplearning4j_tpu_torch.obs import http as obs_http
+
+    rows, batch, epochs = 1024, 64, 2
+    scraped = {}
+    real_stop = obs_http.MetricsServer.stop
+
+    def stop(self):
+        scraped["text"] = http_get(self.url, "/metrics")[1]
+        real_stop(self)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        rng = np.random.default_rng(0)
+        labels = np.arange(rows) % 10
+        x = rng.random((rows, 784)).astype(np.float32) * 0.1
+        x[np.arange(rows), labels * 78] += 1.0
+        csv = f"{tmp}/mnist.csv"
+        np.savetxt(csv, np.column_stack([x, labels]), delimiter=",",
+                   fmt="%.3f")
+        obs_http.MetricsServer.stop = stop
+        try:
+            t0 = time.perf_counter()
+            rc = cli.main(["train", "-input", csv, "-model",
+                           "zoo:mnist-mlp", "-output", f"{tmp}/out",
+                           "-epochs", str(epochs), "-batch", str(batch),
+                           "-precision", "mixed", "-chunk", "4",
+                           "-metrics-port", "0", "-metrics-interval", "4"])
+            wall = time.perf_counter() - t0
+        finally:
+            obs_http.MetricsServer.stop = real_stop
+    samples = prom_samples(scraped["text"])
+    steps = samples['train_steps_total{job="train"}']
+    want = epochs * -(-rows // batch)
+    if rc != 0 or steps != want or not math.isfinite(
+            samples['train_loss{job="train"}']):
+        raise AssertionError(f"ops: train -metrics-port counted {steps} "
+                             f"steps of {want} (rc {rc})")
+    out = {"steps": steps, "loss": samples['train_loss{job="train"}'],
+           "loss_scale": samples['train_loss_scale{job="train"}'],
+           "examples_per_s": samples[
+               'train_examples_per_sec{job="train"}'],
+           "wall_s": wall, "card": card}
+    log(f"ops: train -metrics-port: {int(steps)} steps counted of {want}, "
+        f"loss {out['loss']:.4f}, loss scale {out['loss_scale']:g} ({card})")
+    return out
+
+
+def ops_phase(card: str) -> dict:
+    """The serve phase's model over real HTTP through `UiServer.serve_lm`
+    with tenants and a breaker: 12 streams, 2 disconnects, a flood of a
+    metered tenant, the breaker's open / 503 / probe cycle, the scrape
+    and the traces, then ``train -metrics-port``."""
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel.transformer import (
+        gpt2_small,
+        numpy_params,
+        params_from_numpy,
+    )
+    from deeplearning4j_tpu_torch.ui.server import UiServer
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = gpt2_small(max_len=1024)
+    params = params_from_numpy(numpy_params(cfg, seed=0), device="cuda",
+                               dtype=cfg.dtype)
+    check = greedy_checker(cfg, params)
+    reqs = [p for p, _, _ in decode_requests(cfg)[:12]]
+    ui = UiServer(port=0).serve_lm(
+        cfg, params, slots=8, page_size=16, prefill_chunk=16,
+        tenants=OPS_TENANTS, device="cuda", **OPS_BREAKER).start()
+    srv = ui.state.lm_server
+    out = {"card": card, "config": "gpt2_small(max_len=1024), bfloat16, "
+           "8 slots, page 16, chunk 16", "tenants": json.loads(OPS_TENANTS),
+           **OPS_BREAKER}
+    sent = []
+    try:
+        out["warm_programs"] = srv.warmup()
+        out["streams"], r = ops_streams(ui.url, srv, reqs, check, card)
+        sent += r
+        out["disconnect"], r = ops_disconnect(ui.url, srv, reqs)
+        sent += r
+        out["flood"], r = ops_flood(ui.url, srv, reqs)
+        sent += r
+        out["breaker"], r = ops_breaker(ui.url, srv, reqs)
+        sent += r
+        wait_idle(srv)
+        out["scrape"] = ops_scrape(ui.url)
+        out["traces"] = ops_traces(ui.url, sent)
+        ledger = srv.page_ledger()
+        if not ledger["balanced"]:
+            raise AssertionError(f"ops: page ledger off: {ledger}")
+    finally:
+        ui.stop()
+    del params, check
+    torch.cuda.empty_cache()
+    out["train_metrics"] = ops_train_metrics(card)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=",".join(PHASES),
@@ -4752,6 +5333,7 @@ def main(argv=None) -> int:
     moe = moe_phase(card) if "moe" in phases else None
     mobility = mobility_phase(card) if "mobility" in phases else None
     nlp = nlp_phase(card, profile=args.profile) if "nlp" in phases else None
+    ops = ops_phase(card) if "ops" in phases else None
 
     entries = []
     if kernels_line is not None:
@@ -4788,6 +5370,10 @@ def main(argv=None) -> int:
             "moe_launches": (moe["serve"]["paged_launches_by_width"]
                              if moe else None),
             "mobility_launches": mobility_launches(mobility),
+            "ops_launches": (
+                {"streams_by_width": ops["streams"]["b1_launches_by_width"],
+                 "streams_dispatches_by_width": ops["streams"][
+                     "dispatches_by_width"]} if ops else None),
             "split_plan": main_case["split_plan"],
             "float16": dict(dtype_summary(next(
                 c for c in kernels_line
@@ -4920,6 +5506,8 @@ def main(argv=None) -> int:
         print(json.dumps({"mobility": mobility}), flush=True)
     if nlp is not None:
         print(json.dumps({"nlp": nlp}), flush=True)
+    if ops is not None:
+        print(json.dumps({"ops": ops}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)

@@ -4,6 +4,7 @@
         -model zoo:iris-mlp|conf.json|<saved dir> [-output dir]
         [-conf props] [-epochs 50] [-batch 32] [-accum 1]
         [-precision fp32|bf16|mixed] [-chunk 1]
+        [-metrics-port P] [-metrics-interval 10]
         [-savemode binary|txt] [-device cuda|cpu]
     python -m deeplearning4j_tpu_torch.cli test -input data.csv
         -model <dir>/model
@@ -16,7 +17,8 @@ runtime (greedy pretraining first for a ``pretrain`` conf such as
 ``params.bin`` / ``params.txt`` (`save_params`), and prints the
 examples/sec line and the evaluation (with ``-precision`` the
 ``precision:`` policy line and the loss-scale summary first; ``-chunk
-K`` trains K steps a dispatch through the fused driver); ``test`` prints
+K`` trains K steps a dispatch through the fused driver; ``-metrics-port``
+serves the run's `TrainingTelemetry` at ``GET /metrics``); ``test`` prints
 the evaluation of a saved model and ``predict`` writes its argmax
 classes one a line.  The JAX package reads every file they write.  Options whose code paths are
 not ported exit naming their ROADMAP.md queue.
@@ -41,12 +43,18 @@ and prints the text.
         [-prefill-chunk 8] [-lm-speculate off|ngram|model]
         [-lm-draft-len 4] [-lm-ship] [-lm-preempt] [-lm-swap-mb 64]
         [-lm-brownout] [-lm-hibernate-idle-s S] [-lm-disk-dir dir]
-        [-lm-disk-mb 1024] [-lm-swap-quantize on|off] [-device cuda|cpu]
+        [-lm-disk-mb 1024] [-lm-swap-quantize on|off] [-tenants JSON]
+        [-max-queue 256] [-deadline-ms 0] [-breaker-threshold 5]
+        [-warmup] [-drain-stats serving_stats.json] [-device cuda|cpu]
 
-serves a saved LM over HTTP: ``POST /lm/generate`` (``/lm/prefill`` and
-``/lm/admit_pages`` with ``-lm-ship``), ``GET /serving/stats``,
-``/healthz``, ``/readyz``.  The device defaults to the card; SIGTERM
-drains in-flight work and stops.
+serves a saved LM over HTTP: ``POST /lm/generate`` (``stream: true``
+for SSE; ``/lm/prefill`` and ``/lm/admit_pages`` with ``-lm-ship``),
+``GET /serving/stats``, ``/metrics``, ``/trace/recent``, ``/healthz``,
+``/readyz``.  The device defaults to the card; SIGTERM drains in-flight
+work, writes the stats snapshot to ``-drain-stats`` and stops.  The
+classifier's ``serve`` flags (``-model``, ``-quantize``, ``-buckets``,
+``-max-batch``, ``-max-wait-ms``) and ``serve-fleet`` are not ported
+(ROADMAP.md, A5).
 """
 
 from __future__ import annotations
@@ -173,8 +181,6 @@ def _refuse_unported_train(args, props: Dict[str, str]) -> None:
                                      args.ckpt_keep)),
          "-ckpt-dir / -ckpt-every / -ckpt-keep", "A6, the resilience "
          "modules"),
-        (args.metrics_port is not None, "-metrics-port",
-         "A4.10, the metrics registry"),
     ]
     for refused, flag, queue in queues:
         if refused:
@@ -205,6 +211,26 @@ def cmd_train(args) -> int:
     epochs = int(props.get("train.epochs", args.epochs))
     batch = int(props.get("train.batch.size", args.batch))
     accum = max(1, int(props.get("train.accum.steps", args.accum)))
+    # -metrics-port: a standalone /metrics endpoint for the run, fed by a
+    # TrainingTelemetry listener (chunk-aware, synced every
+    # -metrics-interval steps)
+    telemetry = metrics_srv = None
+    if args.metrics_port is not None:
+        from deeplearning4j_tpu_torch.obs import (
+            MetricsRegistry,
+            MetricsServer,
+            TrainingTelemetry,
+        )
+
+        registry = MetricsRegistry()
+        telemetry = TrainingTelemetry(registry=registry,
+                                      sync_interval=args.metrics_interval,
+                                      batch_size=batch)
+        net.add_listener(telemetry)
+        metrics_srv = MetricsServer(registry,
+                                    port=args.metrics_port).start()
+        print(f"train: metrics on {metrics_srv.url}/metrics "
+              f"(every {telemetry.sync_interval} steps)", flush=True)
 
     def batches():
         for epoch in range(epochs):
@@ -254,6 +280,11 @@ def cmd_train(args) -> int:
           f"({total / max(elapsed, 1e-9):.1f} examples/sec)")
     print(ev.stats())
     print(f"Model saved to {out / 'model'}")
+    if metrics_srv is not None:
+        snap = telemetry.snapshot()
+        print(f"train: telemetry — {snap['steps']} steps, "
+              f"{snap['examples_per_sec']:.1f} examples/sec")
+        metrics_srv.stop()
     return 0
 
 
@@ -297,11 +328,25 @@ def cmd_serve(args) -> int:
         raise SystemExit("serve: -lm-disk-dir needs -lm-hibernate-idle-s "
                          "or -lm-preempt (nothing would ever reach the "
                          "disk tier)")
+    max_queue = args.max_queue if args.max_queue > 0 else None
+    deadline_s = args.deadline_ms / 1e3 if args.deadline_ms > 0 else None
+    breaker_n = (args.breaker_threshold if args.breaker_threshold > 0
+                 else None)
+    tenants = None
+    if args.tenants:
+        from deeplearning4j_tpu_torch.serving.tenancy import TenantRegistry
+
+        try:
+            tenants = TenantRegistry.from_json(args.tenants)
+        except (TypeError, ValueError) as e:
+            raise SystemExit(f"serve: -tenants: {e}") from e
     device = resolve_device(args.device)
     cfg, params = load_saved_lm(pathlib.Path(args.lm), device=device)
     srv = UiServer(host=args.host, port=args.port)
-    srv.serve_lm(cfg, params, slots=args.lm_slots, kv=args.lm_kv,
-                 page_size=args.page_size,
+    srv.serve_lm(cfg, params, slots=args.lm_slots,
+                 max_queue_depth=max_queue, default_deadline_s=deadline_s,
+                 breaker_threshold=breaker_n, tenants=tenants,
+                 kv=args.lm_kv, page_size=args.page_size,
                  pages=args.lm_pages if args.lm_pages > 0 else None,
                  prefill_chunk=args.prefill_chunk,
                  speculate=args.lm_speculate, draft_len=args.draft_len,
@@ -314,6 +359,11 @@ def cmd_serve(args) -> int:
                  swap_quantize=args.lm_swap_quantize == "on",
                  device=device)
     lm = srv.state.lm_server
+    # -warmup runs every dispatch width (and on the card builds the
+    # kernel library) before traffic; without it the first requests do
+    warmed = lm.warmup() if args.warmup else 0
+    warm_note = (f"{warmed} programs warm" if warmed
+                 else "programs build on first use")
     if lm.kv == "dense":
         kv_note = f"dense KV: {lm.n_slots} x {cfg.max_len} positions"
     else:
@@ -330,10 +380,19 @@ def cmd_serve(args) -> int:
             kv_note += ", " + "/".join(planes)
     print(f"serve: LM registered ({cfg.n_layers}L/d{cfg.d_model}, "
           f"max_len {cfg.max_len}, {args.lm_slots} decode slots, "
-          f"{kv_note}, device {device})")
+          f"{kv_note}, {warm_note}, device {device})")
     srv.start()
+    print(f"serve: resilience max_queue={max_queue or 'unbounded'} "
+          f"deadline_ms={args.deadline_ms or 'none'} "
+          f"breaker_threshold={breaker_n or 'off'} "
+          f"drain_grace_s={args.drain_grace_s}")
+    if tenants is not None:
+        names = ", ".join(tenants.names())
+        print(f"serve: tenancy on — WFQ + token quotas for [{names}] "
+              f"(X-Tenant header or 'tenant' field; unknown tenants "
+              f"get 400, over-quota gets 429 + Retry-After)")
     print(f"Serving on {srv.url} — POST /lm/generate; GET /serving/stats, "
-          f"/healthz, /readyz", flush=True)
+          f"/metrics, /trace/recent, /healthz, /readyz", flush=True)
     term = threading.Event()
     prev = None
     if threading.current_thread() is threading.main_thread():
@@ -348,9 +407,21 @@ def cmd_serve(args) -> int:
         pass
     finally:
         if term.is_set():
+            print(f"serve: SIGTERM — draining (grace "
+                  f"{args.drain_grace_s}s)")
             drained = srv.drain(args.drain_grace_s)
+            stats_path = pathlib.Path(args.drain_stats)
+            try:
+                stats_path.write_text(json.dumps(srv.serving_stats(),
+                                                 indent=2))
+                where = str(stats_path)
+            except OSError as e:
+                # a lost snapshot must not leave the server running or
+                # the signal handler installed
+                where = f"LOST ({e})"
             print(f"serve: drain "
-                  f"{'complete' if drained else 'grace expired'}")
+                  f"{'complete' if drained else 'grace expired'}; stats "
+                  f"snapshot -> {where}", flush=True)
         srv.stop()
         if prev is not None:
             signal.signal(signal.SIGTERM, prev)
@@ -567,7 +638,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-ckpt-keep", "--ckpt-keep", dest="ckpt_keep",
                    type=int, default=None, help="not ported (resilience)")
     p.add_argument("-metrics-port", "--metrics-port", dest="metrics_port",
-                   type=int, default=None, help="not ported")
+                   type=int, default=None,
+                   help="serve training telemetry at GET /metrics on this "
+                   "port (0 = a free port)")
+    p.add_argument("-metrics-interval", "--metrics-interval",
+                   dest="metrics_interval", type=int, default=10,
+                   help="steps between telemetry syncs (each reads the "
+                   "loss back from the device)")
     p.set_defaults(func=cmd_train)
 
     p = sub.add_parser("test", help="evaluate a saved model")
@@ -650,7 +727,37 @@ def build_parser() -> argparse.ArgumentParser:
                    dest="serve_seconds", type=float, default=0.0,
                    help="stop after this many seconds (0 = until SIGTERM)")
     p.add_argument("-drain-grace-s", "--drain-grace-s",
-                   dest="drain_grace_s", type=float, default=5.0)
+                   dest="drain_grace_s", type=float, default=5.0,
+                   help="SIGTERM grace window: seconds to let queued and "
+                   "in-flight work finish before stopping")
+    p.add_argument("-drain-stats", "--drain-stats", dest="drain_stats",
+                   default="serving_stats.json",
+                   help="path of the /serving/stats snapshot written on a "
+                   "SIGTERM drain")
+    p.add_argument("-max-queue", "--max-queue", dest="max_queue", type=int,
+                   default=256,
+                   help="bounded admission: queued requests past this "
+                   "depth are refused with 503 + Retry-After (0 = "
+                   "unbounded)")
+    p.add_argument("-deadline-ms", "--deadline-ms", dest="deadline_ms",
+                   type=float, default=0,
+                   help="default per-request deadline; expired requests "
+                   "are shed before decode as 504 (0 = none; a request's "
+                   "deadline_ms or X-Deadline-Ms overrides it)")
+    p.add_argument("-breaker-threshold", "--breaker-threshold",
+                   dest="breaker_threshold", type=int, default=5,
+                   help="circuit breaker: consecutive failed dispatches "
+                   "before admission fails fast (0 = no breaker)")
+    p.add_argument("-warmup", "--warmup", action="store_true",
+                   help="run every dispatch width before accepting "
+                   "traffic")
+    p.add_argument("-tenants", "--tenants", default=None,
+                   help="multi-tenant traffic shaping (JSON): tenant name "
+                   "-> spec, e.g. '{\"interactive\": {\"weight\": 4, "
+                   "\"rate\": 2000, \"slo_ms\": 250}}'; a spec takes "
+                   "weight (WFQ share), rate (tokens/s; 0 = unmetered), "
+                   "burst, slo_ms and slo_budget; the 'default' tenant "
+                   "always exists")
     p.set_defaults(func=cmd_serve)
 
     p = sub.add_parser("lm", help="train a TransformerLM on raw text "

@@ -3,8 +3,9 @@ the continuous LM server over a paged or dense KV cache, its page
 allocator and radix prefix cache, the speculative drafters
 (`serving.draft`), the KV page frame (`serving.transfer`), priorities,
 the swap store and the brownout ladder (`serving.pressure`), the tiered
-state store (`serving.hibernate`), the bucket ladder
-(`serving.bucketing`), metrics and typed failures."""
+state store (`serving.hibernate`), tenancy (`serving.tenancy`), the
+bucket ladder (`serving.bucketing`), metrics, typed failures and the
+circuit breaker."""
 
 from deeplearning4j_tpu_torch.serving.bucketing import (
     BucketLadder,
@@ -21,15 +22,25 @@ from deeplearning4j_tpu_torch.serving.paged import (
     RadixPrefixCache,
 )
 from deeplearning4j_tpu_torch.serving.resilience import (
+    CircuitBreaker,
+    CircuitOpenError,
     DeadlineExceededError,
     ServingError,
     ServingOverloadError,
     ServingUnavailableError,
+    TenantQuotaError,
+    UnservableShapeError,
     check_admission,
+)
+from deeplearning4j_tpu_torch.serving.tenancy import (
+    TenantRegistry,
+    TenantSpec,
 )
 
 __all__ = [
     "BucketLadder",
+    "CircuitBreaker",
+    "CircuitOpenError",
     "ContinuousLMServer",
     "DeadlineExceededError",
     "PageLeakError",
@@ -39,6 +50,10 @@ __all__ = [
     "ServingMetrics",
     "ServingOverloadError",
     "ServingUnavailableError",
+    "TenantQuotaError",
+    "TenantRegistry",
+    "TenantSpec",
+    "UnservableShapeError",
     "check_admission",
     "pow2_length_buckets",
     "validate_request",

@@ -45,6 +45,9 @@ and pages are freed at the next admit round, and `begin_drain()`/
 `drain()` stop admission for a graceful shutdown.  A failed dispatch
 resets the allocator, radix tree and device pool together: the pool
 tensors are updated in place, so their contents are no longer trusted.
+A ``breaker`` (`CircuitBreaker`) is asked before every dispatch and told
+each dispatch's outcome; while it is open, admission fails fast
+(`CircuitOpenError`, 503) and the lanes in flight fail with it.
 
 Page mobility (paged KV only): a lane's pages leave the pool through
 `parallel.generation.make_page_gather` as one `serving/transfer.py`
@@ -76,22 +79,44 @@ KV at position t is a function of tokens[0..t] and the weights, so a
 shipped, restored or resumed lane decodes the tokens a local one does,
 greedy or seeded sampling.
 
-Not ported yet (ROADMAP.md): tenancy (A4.6: without a registry only the
-tenant "default" is served, as in the JAX package), the circuit breaker,
-SSE streaming (A4.9), request tracing and the compile watcher.
+Tenancy (``tenants=``, a `TenantRegistry`, a spec mapping or the
+``-tenants`` JSON): a request names a registered tenant (None is
+"default"; without a registry any other name is the client's
+ValueError).  Admission charges the tenant's token bucket (prompt + new
+tokens) before the shared gate (`TenantQuotaError`, 429), the queue is
+ordered by ``(priority rank, WFQ virtual finish time, enqueued)``, the
+brownout shed and preemption take from non-compliant tenants first
+(`TenantRegistry.badness`), and each finished request feeds the
+tenant's ledgers and SLO burn rate.
+
+Streaming: `generate_stream` admits like `generate` (typed errors raise
+before the first token) and yields each committed token as the worker
+folds it; closing the iterator abandons the request.  With ``tracer``
+every request leaves one trace (``queue_wait`` and ``decode`` spans)
+under its request id; with ``registry`` the pool's metric cells publish
+under ``plane="lm"``.  The JAX package's ``xla_compile`` spans and
+compile counters have no counterpart (ROADMAP.md, A0).
 """
 
 from __future__ import annotations
 
 import collections
+import queue as _queue
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.device import DeviceLike, resolve_device
+from deeplearning4j_tpu_torch.obs.registry import MetricsRegistry
+from deeplearning4j_tpu_torch.obs.trace import (
+    TraceRecorder,
+    new_request_id,
+    span,
+    trace,
+)
 from deeplearning4j_tpu_torch.parallel.generation import (
     init_paged_cache,
     init_slot_cache,
@@ -120,11 +145,18 @@ from deeplearning4j_tpu_torch.serving.pressure import (
     normalize_priority,
 )
 from deeplearning4j_tpu_torch.serving.resilience import (
+    CircuitBreaker,
+    CircuitOpenError,
     DeadlineExceededError,
     ServingError,
     ServingOverloadError,
     ServingUnavailableError,
     check_admission,
+)
+from deeplearning4j_tpu_torch.serving.tenancy import (
+    DEFAULT_TENANT,
+    TenantQuotaError,
+    TenantRegistry,
 )
 from deeplearning4j_tpu_torch.serving.transfer import (
     PageExport,
@@ -160,25 +192,19 @@ def validate_request(cfg, prompt_ids, max_new_tokens: int) -> List[int]:
     return ids
 
 
-def check_tenant(tenant) -> None:
-    """The no-registry tenant rule of the JAX package's pool: None (no
-    tenant named) or "default" pass; any other tenant is unknown."""
-    if tenant is not None and str(tenant) != "default":
-        raise ValueError(
-            f"unknown tenant {str(tenant)!r}: no tenant registry is "
-            f"installed (tenancy is ROADMAP item A4.6, not ported yet)")
-
-
 class _LMRequest:
     __slots__ = ("prompt", "max_new", "temperature", "seed", "event",
                  "result", "error", "enqueued", "deadline", "abandoned",
-                 "t_installed", "t_done", "t_first", "prefix_matched",
-                 "export", "export_result", "import_pages", "session_id",
+                 "request_id", "t_installed", "t_done", "t_first",
+                 "prefix_matched", "drafted", "accepted", "export",
+                 "export_result", "import_pages", "stream", "session_id",
                  "priority", "rank", "swap_key", "swap_restore",
-                 "swap_error", "preempted")
+                 "swap_error", "stream_pushed", "preempted", "tenant",
+                 "vft", "cost")
 
     def __init__(self, prompt: List[int], max_new: int, temperature: float,
-                 seed: int, deadline: Optional[float] = None):
+                 seed: int, deadline: Optional[float] = None,
+                 request_id: Optional[str] = None):
         self.prompt = list(prompt)
         self.max_new = int(max_new)
         self.temperature = float(temperature)
@@ -189,20 +215,28 @@ class _LMRequest:
         self.enqueued = time.perf_counter()
         self.deadline = deadline   # absolute perf_counter time, or None
         self.abandoned = False     # client gave up waiting
+        self.request_id = request_id   # X-Request-Id: names the trace
         self.t_installed: Optional[float] = None  # slot-install stamp
         self.t_done: Optional[float] = None       # decode-complete stamp
         self.t_first: Optional[float] = None      # first committed token
         self.prefix_matched = 0                   # radix tokens reused
+        self.drafted = 0               # speculative tokens proposed
+        self.accepted = 0              # speculative tokens accepted
         self.export = False            # resolve at prefill completion
         self.export_result: Optional[PageExport] = None
         self.import_pages: Optional[PageExport] = None  # shipped-in lane
+        self.stream = None             # per-token queue (the SSE leg)
         self.session_id: Optional[str] = None
         self.priority = "interactive"  # admission class
         self.rank = 0                  # PRIORITY_RANK[priority]
         self.swap_key: Optional[str] = None  # swap store key while queued
         self.swap_restore = False      # import_pages came from the swap
         self.swap_error: Optional[str] = None  # why a restore failed
+        self.stream_pushed = 0         # tokens already streamed
         self.preempted = 0             # times this lane was preempted
+        self.tenant = DEFAULT_TENANT   # normalized tenant name
+        self.vft = 0.0                 # WFQ virtual finish time
+        self.cost = self.max_new + len(self.prompt)  # tokens charged
 
 
 class _Slot:
@@ -237,21 +271,26 @@ class ContinuousLMServer:
     raises when there is none.  `ship`, `preempt` (with `swap_bytes`),
     `brownout` (True or a `PressureConfig`), `hibernate_idle_s` (with
     `state_dir` and `state_disk_bytes`) and `swap_quantize` configure the
-    page-mobility planes of the module docstring."""
+    page-mobility planes of the module docstring; `breaker`, `tenants`,
+    `tracer` and `registry` the operations plane."""
 
     def __init__(self, cfg, params, slots: int = 4,
                  metrics: Optional[ServingMetrics] = None,
                  max_queue_depth: Optional[int] = None,
                  default_deadline_s: Optional[float] = None,
+                 breaker: Optional[CircuitBreaker] = None,
                  kv: str = "paged", page_size: int = 16,
                  pages: Optional[int] = None, prefill_chunk: int = 8,
                  speculate: str = "off", draft_len: int = 4,
                  drafter=None, draft_model=None, ship: bool = False,
                  preempt: bool = False, swap_bytes: int = 64 << 20,
-                 brownout=None, hibernate_idle_s: Optional[float] = None,
+                 brownout=None, tenants=None,
+                 hibernate_idle_s: Optional[float] = None,
                  state_dir: Optional[str] = None,
                  state_disk_bytes: int = 1 << 30,
                  swap_quantize: bool = True,
+                 tracer: Optional[TraceRecorder] = None,
+                 registry: Optional[MetricsRegistry] = None,
                  device: DeviceLike = None):
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
@@ -312,6 +351,7 @@ class ContinuousLMServer:
         self.n_slots = int(slots)
         self.max_queue_depth = max_queue_depth
         self.default_deadline_s = default_deadline_s
+        self.breaker = breaker
         self.kv = kv
         self.page_size = int(page_size)
         self.max_pages = pages_per_seq(cfg, self.page_size)
@@ -333,6 +373,12 @@ class ContinuousLMServer:
                            if speculate != "off" else 0)
         self._wide = self.spec_width or self.prefill_chunk
         self.metrics = metrics if metrics is not None else ServingMetrics()
+        self.tracer = tracer
+        if registry is not None:
+            self.metrics.register_into(registry, plane="lm")
+        if breaker is not None:
+            breaker.add_listener(self.metrics.set_breaker_state)
+            self.metrics.set_breaker_state(breaker.state)
         self._queue = collections.deque()
         self._cond = threading.Condition()
         self._running = False
@@ -380,8 +426,12 @@ class ContinuousLMServer:
             self._pressure = BrownoutLadder(brownout)
         else:
             self._pressure = BrownoutLadder()
+        # None = tenancy off; a registry turns on the quota meter, WFQ
+        # ordering and SLO-aware victim selection (mutated under _cond)
+        self.tenants = TenantRegistry.coerce(tenants)
         # observed cadence of ladder updates (EWMA seconds): the base of
-        # the Retry-After of a ladder shed
+        # the Retry-After of a ladder shed and the floor of a quota 429
+        # while the ladder is up
         self._pressure_tick_s = 0.05
         self._pressure_stamp: Optional[float] = None
         self._sessions: "collections.OrderedDict[str, int]" = (
@@ -430,13 +480,15 @@ class ContinuousLMServer:
     def _build_request(self, prompt_ids, max_new_tokens: int,
                        temperature: float, seed: int,
                        deadline_s: Optional[float],
+                       request_id: Optional[str] = None,
                        session_id: Optional[str] = None,
                        export: bool = False,
                        priority: Optional[str] = None,
                        tenant: Optional[str] = None) -> _LMRequest:
-        """Validate and build one queue item.  Export lanes are budgeted
-        for their prefill pages only (they never decode here)."""
-        check_tenant(tenant)
+        """Validate and build one queue item, the shared front half of
+        `generate`, `generate_stream`, `prefill_export` and
+        `admit_with_pages`.  Export lanes are budgeted for their prefill
+        pages only (they never decode here)."""
         if export:
             ids = validate_request(self.cfg, prompt_ids, max_new_tokens)
             if (self.kv == "paged"
@@ -453,7 +505,10 @@ class ContinuousLMServer:
         seed = int(seed) & 0x7FFFFFFF
         if deadline_s is None:
             deadline_s = self.default_deadline_s
-        req = _LMRequest(ids, int(max_new_tokens), float(temperature), seed)
+        if request_id is None and self.tracer is not None:
+            request_id = new_request_id()
+        req = _LMRequest(ids, int(max_new_tokens), float(temperature), seed,
+                         request_id=request_id)
         if deadline_s is not None:
             req.deadline = req.enqueued + float(deadline_s)
         req.session_id = (str(session_id) if session_id is not None
@@ -461,20 +516,57 @@ class ContinuousLMServer:
         req.export = bool(export)
         req.priority = normalize_priority(priority)
         req.rank = PRIORITY_RANK[req.priority]
+        # None is the default tenant; without a registry any other
+        # tenant is unknown by definition
+        if self.tenants is not None:
+            req.tenant = self.tenants.normalize(tenant)
+        elif tenant is not None and str(tenant) != DEFAULT_TENANT:
+            raise ValueError(
+                f"unknown tenant {str(tenant)!r}: no tenant registry "
+                f"is installed (serve -tenants, or "
+                f"ContinuousLMServer(tenants=...))")
         return req
 
+    def _record_tenant(self, event: str, req: _LMRequest) -> None:
+        """Per-tenant accounting, kept only with a tenant registry."""
+        if self.tenants is not None:
+            self.metrics.record_tenant(event, req.tenant)
+
     def _enqueue(self, req: _LMRequest) -> None:
-        """Admission under the pool lock: the ladder's level-4 shed of a
-        best_effort request (before the shared gate, so interactive and
-        batch keep the whole queue bound), the shared gate, worker
-        start, sticky-session accounting and the priority-ordered
+        """Admission under the pool lock, in this order: the tenant's
+        quota (the client's budget, charged before the server's
+        capacity, so a flooding tenant's refusals never take the queue
+        bound), the ladder's level-4 shed of a best_effort request
+        (spared for a compliant tenant while an offender exists), the
+        shared gate (draining, breaker, queue bound), then worker start,
+        sticky-session accounting, the WFQ stamp and the ordered
         insert."""
         with self._cond:
+            if self._accepting and self.tenants is not None:
+                try:
+                    self.tenants.meter.charge(req.tenant, req.cost)
+                except TenantQuotaError as e:
+                    self.metrics.record_rejected()
+                    self.metrics.record_class("rejected", req.priority)
+                    self.metrics.record_tenant("rejected", req.tenant)
+                    self.metrics.record_tenant("throttled", req.tenant)
+                    # while the ladder is up, tokens refilling sooner
+                    # than the pool recovers would invite the flood back
+                    if (self._pressure is not None
+                            and self._pressure.level > 0):
+                        e.retry_after_s = max(
+                            e.retry_after_s,
+                            self._ladder_retry_after_locked())
+                    raise
             if (self._accepting and self._pressure is not None
                     and self._pressure.level >= 4
-                    and req.rank >= RANK_BEST_EFFORT):
+                    and req.rank >= RANK_BEST_EFFORT
+                    and not (self.tenants is not None
+                             and self.tenants.compliant(req.tenant)
+                             and self.tenants.any_offender())):
                 self.metrics.record_rejected()
                 self.metrics.record_class("rejected", req.priority)
+                self._record_tenant("rejected", req)
                 self.metrics.record_brownout_shed()
                 raise ServingOverloadError(
                     "brownout level 4: best_effort admission shed "
@@ -482,31 +574,41 @@ class ContinuousLMServer:
                     retry_after_s=self._ladder_retry_after_locked())
             try:
                 check_admission(
-                    accepting=self._accepting,
+                    accepting=self._accepting, breaker=self.breaker,
                     queue_depth=len(self._queue),
                     max_queue_depth=self.max_queue_depth,
                     metrics=self.metrics,
                     retry_after_s=self._retry_after_locked, what="LM")
             except ServingError:
                 self.metrics.record_class("rejected", req.priority)
+                self._record_tenant("rejected", req)
                 raise
             if not self._running:
                 self._start_locked()
             if req.session_id is not None:
                 self._note_session_locked(req.session_id)
+            if self.tenants is not None:
+                # stamped once: a preempted request re-inserts with its
+                # original vft, as it keeps its enqueue stamp
+                req.vft = self.tenants.wfq.stamp(req.tenant, req.cost)
             self._queue_insert_locked(req)
             self.metrics.set_queue_depth(len(self._queue))
             self._cond.notify_all()
 
     def _queue_insert_locked(self, req: _LMRequest) -> None:
-        """Insert keeping the queue sorted by (rank, enqueued): the head
-        is the most important oldest request, and one class is FIFO.  A
-        preempted request re-inserts with its original stamp, ahead of
-        later arrivals of its class."""
-        key = (req.rank, req.enqueued)
+        """Insert keeping the queue sorted by (rank, vft, enqueued): the
+        head is the most important request, weighted-fairly across
+        tenants within a class, oldest first on ties.  Without a
+        registry every vft is 0.0, and with one tenant the vfts rise in
+        arrival order, so one class of one tenant is FIFO.  A preempted
+        request re-inserts with its original stamps, ahead of later
+        arrivals of its class and tenant."""
+        key = (req.rank, req.vft, req.enqueued)
         i = len(self._queue)
-        while i > 0 and (self._queue[i - 1].rank,
-                         self._queue[i - 1].enqueued) > key:
+        while i > 0:
+            prev = self._queue[i - 1]
+            if (prev.rank, prev.vft, prev.enqueued) <= key:
+                break
             i -= 1
         self._queue.insert(i, req)
 
@@ -522,11 +624,12 @@ class ContinuousLMServer:
                 self._sessions.popitem(last=False)
         self.metrics.record_session(hit)
 
-    def _cancel_request(self, req: _LMRequest) -> None:
-        """Give up on an unresolved request (client timeout).  A queued
-        request is removed (with its swap bytes); one already in a slot
-        is marked abandoned and the worker frees the slot at its next
-        admit round (slot state is written by the worker thread only)."""
+    def _cancel_request(self, req: _LMRequest, status: str) -> None:
+        """Give up on an unresolved request (client timeout or stream
+        disconnect).  A queued request is removed (with its swap bytes);
+        one already in a slot is marked abandoned and the worker frees
+        the slot at its next admit round (slot state is written by the
+        worker thread only).  `status` names the trace's outcome."""
         now = time.perf_counter()
         with self._cond:
             try:
@@ -534,6 +637,7 @@ class ContinuousLMServer:
                 self.metrics.set_queue_depth(len(self._queue))
                 self.metrics.record_shed()
                 self.metrics.record_class("shed", req.priority)
+                self._record_tenant("shed", req)
                 self._drop_swap_locked(req)
             except ValueError:
                 req.abandoned = True
@@ -543,20 +647,26 @@ class ContinuousLMServer:
                 and not resolved_with_error):
             self.metrics.record_deadline_missed()
             self.metrics.record_class("deadline_missed", req.priority)
+            self._record_tenant("deadline_missed", req)
+        self._trace_request(req, time.perf_counter(), status)
 
     def _wait(self, req: _LMRequest, timeout: Optional[float]):
         if not req.event.wait(timeout):
-            self._cancel_request(req)
+            self._cancel_request(req, "timeout")
             raise DeadlineExceededError(
                 f"LM request timed out after {timeout}s")
+        done = time.perf_counter()
         if req.error is not None:
+            self._trace_request(req, done, "error")
             raise req.error
+        self._trace_request(req, done, "ok")
         return req.result
 
     def generate(self, prompt_ids, max_new_tokens: int,
                  temperature: float = 0.0, seed: int = 0,
                  timeout: Optional[float] = None,
                  deadline_s: Optional[float] = None,
+                 request_id: Optional[str] = None,
                  session_id: Optional[str] = None,
                  priority: Optional[str] = None,
                  tenant: Optional[str] = None) -> List[int]:
@@ -564,16 +674,84 @@ class ContinuousLMServer:
 
         `timeout` bounds the client's wait; `deadline_s` (default
         `default_deadline_s`) rides the queue item so the admitter sheds
-        the request once it expires.  `session_id` feeds sticky-session
+        the request once it expires.  `request_id` names the request's
+        trace (``X-Request-Id``); `session_id` feeds sticky-session
         accounting and hibernation; `priority` (interactive, batch,
         best_effort; default interactive) orders admission and marks the
-        lane's preemption class.  `tenant`: None or "default" (there is
-        no tenant registry; any other tenant is a ValueError)."""
+        lane's preemption class.  `tenant` (default "default") names the
+        registered tenant charged for the request."""
         req = self._build_request(prompt_ids, max_new_tokens, temperature,
-                                  seed, deadline_s, session_id=session_id,
+                                  seed, deadline_s, request_id,
+                                  session_id=session_id,
                                   priority=priority, tenant=tenant)
         self._enqueue(req)
         return self._wait(req, timeout)
+
+    def generate_stream(self, prompt_ids, max_new_tokens: int,
+                        temperature: float = 0.0, seed: int = 0,
+                        timeout: Optional[float] = None,
+                        deadline_s: Optional[float] = None,
+                        request_id: Optional[str] = None,
+                        session_id: Optional[str] = None,
+                        priority: Optional[str] = None,
+                        tenant: Optional[str] = None) -> Iterator[int]:
+        """Streaming `generate`: admission happens here (typed errors
+        raise before the first token), then the iterator yields each
+        committed token as the worker folds it, a speculative round's
+        commit one token at a time.  Closing the iterator mid-stream
+        abandons the request, so its slot and pages free at the next
+        admit round.  The full sequence is the prompt plus every
+        yielded token."""
+        req = self._build_request(prompt_ids, max_new_tokens, temperature,
+                                  seed, deadline_s, request_id,
+                                  session_id=session_id,
+                                  priority=priority, tenant=tenant)
+        req.stream = _queue.SimpleQueue()
+        self._enqueue(req)
+        return self._stream_tokens(req, timeout)
+
+    def _stream_tokens(self, req: _LMRequest,
+                       timeout: Optional[float]) -> Iterator[int]:
+        deadline = (None if timeout is None
+                    else time.perf_counter() + float(timeout))
+        cancelled = False
+        try:
+            while True:
+                wait = 0.05
+                if deadline is not None:
+                    remaining = deadline - time.perf_counter()
+                    if remaining <= 0:
+                        cancelled = True
+                        self._cancel_request(req, "timeout")
+                        raise DeadlineExceededError(
+                            f"LM stream timed out after {timeout}s")
+                    wait = min(wait, remaining)
+                try:
+                    yield int(req.stream.get(timeout=wait))
+                    continue
+                except _queue.Empty:
+                    pass
+                if req.event.is_set():
+                    # tokens are pushed before the event is set (by the
+                    # worker thread), so one final drain empties the
+                    # queue in order
+                    while True:
+                        try:
+                            yield int(req.stream.get_nowait())
+                        except _queue.Empty:
+                            break
+                    if req.error is not None:
+                        self._trace_request(req, time.perf_counter(),
+                                            "error")
+                        raise req.error
+                    self._trace_request(req, time.perf_counter(), "ok")
+                    return
+        finally:
+            if not cancelled and not req.event.is_set():
+                # the consumer went away mid-stream: abandon, so the
+                # slot and its pages stop decoding for nobody (the
+                # timeout branch already cancelled once)
+                self._cancel_request(req, "disconnect")
 
     # ---- disaggregation: KV page export / import --------------------------
 
@@ -592,6 +770,7 @@ class ContinuousLMServer:
                        temperature: float = 0.0, seed: int = 0,
                        timeout: Optional[float] = None,
                        deadline_s: Optional[float] = None,
+                       request_id: Optional[str] = None,
                        session_id: Optional[str] = None,
                        priority: Optional[str] = None,
                        tenant: Optional[str] = None) -> PageExport:
@@ -600,25 +779,27 @@ class ContinuousLMServer:
         and the request resolves at prefill completion with the lane's
         `PageExport`: its prompt pages and the first committed token.
         The whole request contract is validated here, so a doomed
-        request fails before any bytes move.  `tenant` as in `generate`;
-        the frame's tenant is "default"."""
+        request fails before any bytes move.  The frame carries the
+        request's tenant."""
         self._require_ship("export")
         req = self._build_request(prompt_ids, max_new_tokens, temperature,
-                                  seed, deadline_s, session_id=session_id,
-                                  export=True, priority=priority,
-                                  tenant=tenant)
+                                  seed, deadline_s, request_id,
+                                  session_id=session_id, export=True,
+                                  priority=priority, tenant=tenant)
         self._enqueue(req)
         self._wait(req, timeout)
         return req.export_result
 
     def admit_with_pages(self, export: PageExport,
                          timeout: Optional[float] = None,
-                         deadline_s: Optional[float] = None) -> List[int]:
+                         deadline_s: Optional[float] = None,
+                         request_id: Optional[str] = None) -> List[int]:
         """The decode half: check the shipment's geometry against this
         pool (`PageShipError` on any mismatch: recompute locally),
         allocate the lane's page budget, install the shipped pages in one
-        call and join mid-flight like a chunked-prefill completion.
-        Returns the full sequence."""
+        call and join mid-flight like a chunked-prefill completion.  The
+        frame's tenant is charged and validated as a request's.  Returns
+        the full sequence."""
         self._require_ship("import")
         check_compatible(export, self.cfg, self.page_size)
         if export.quantized and not self.swap_quantize:
@@ -626,26 +807,58 @@ class ContinuousLMServer:
                 "shipment is int8-quantized but this pool runs "
                 "swap_quantize=off: refusing a lossy install on an "
                 "exact-bytes pool (recompute locally instead)")
-        check_tenant(export.tenant)
         if len(export.committed) >= export.max_new:
             # the prefill pool's first sample filled the whole budget:
-            # answer without occupying a slot
+            # answer without occupying a slot, still a served request in
+            # every ledger
             priority = normalize_priority(export.priority)
+            tenant = (self.tenants.normalize(export.tenant)
+                      if self.tenants is not None else DEFAULT_TENANT)
             with self._cond:
                 if export.session_id is not None:
                     self._note_session_locked(export.session_id)
             self.metrics.record_request(0.0)
             self.metrics.record_first_token(0.0)
             self.metrics.record_class("requests", priority)
+            if self.tenants is not None:
+                self.metrics.record_tenant("requests", tenant)
             return (list(export.prompt)
                     + list(export.committed[:export.max_new]))
         req = self._build_request(export.prompt, export.max_new,
                                   export.temperature, export.seed,
-                                  deadline_s, session_id=export.session_id,
-                                  priority=export.priority)
+                                  deadline_s, request_id,
+                                  session_id=export.session_id,
+                                  priority=export.priority,
+                                  tenant=export.tenant)
         req.import_pages = export
         self._enqueue(req)
         return self._wait(req, timeout)
+
+    def _trace_request(self, req: _LMRequest, done: float,
+                       status: str) -> None:
+        """The request's trace: queue_wait (admission to slot install),
+        then decode (install to completion)."""
+        if self.tracer is None:
+            return
+        spans = []
+        t_in = req.t_installed if req.t_installed is not None else done
+        spans.append(span("queue_wait", req.enqueued, t_in))
+        if req.t_installed is not None:
+            t_done = req.t_done if req.t_done is not None else done
+            spans.append(span(
+                "decode", req.t_installed, t_done,
+                prompt_tokens=len(req.prompt),
+                generated=(len(req.result) - len(req.prompt)
+                           if req.result else 0),
+                prefix_matched=req.prefix_matched or None,
+                drafted=req.drafted or None,
+                accepted=(req.accepted if req.drafted else None),
+                preempted=req.preempted or None,
+                swap_error=req.swap_error))
+        self.tracer.record(trace(
+            req.request_id or new_request_id(), "lm", spans,
+            status=status, prompt_tokens=len(req.prompt),
+            error=(str(req.error) if req.error is not None else None)))
 
     def warmup(self, timeout: Optional[float] = 600.0) -> int:
         """Start the worker and run one dispatch of every width, the page
@@ -716,6 +929,7 @@ class ContinuousLMServer:
         for req in leftovers:
             self.metrics.record_shed()
             self.metrics.record_class("shed", req.priority)
+            self._record_tenant("shed", req)
             req.error = ServingUnavailableError("LM server stopped")
             req.event.set()
 
@@ -728,7 +942,10 @@ class ContinuousLMServer:
             return self._accepting
 
     def ready(self) -> bool:
-        return self.accepting
+        """Readiness: accepting admissions and the breaker not open."""
+        if not self.accepting:
+            return False
+        return self.breaker is None or self.breaker.state != "open"
 
     def begin_drain(self) -> None:
         """Stop admission: later generates raise `ServingUnavailableError`;
@@ -826,6 +1043,8 @@ class ContinuousLMServer:
                     "disk": self.state_dir,
                     "tracked_sessions": len(self._hib_sessions),
                     "store": self._swap.stats()}
+            if self.tenants is not None:
+                out["tenancy"] = self.tenants.stats()
             out["dispatch_widths"] = {
                 str(w): n for w, n in sorted(self._width_dispatches.items())}
             if self.speculate != "off":
@@ -1173,6 +1392,7 @@ class ContinuousLMServer:
             if slot.active and slot.req.abandoned:
                 self.metrics.record_shed()
                 self.metrics.record_class("shed", slot.req.priority)
+                self._record_tenant("shed", slot.req)
                 self._free_slot_pages(slot)
                 slot.req = None
         now = time.perf_counter()
@@ -1181,12 +1401,15 @@ class ContinuousLMServer:
             if req.abandoned:
                 shed += 1
                 self.metrics.record_class("shed", req.priority)
+                self._record_tenant("shed", req)
                 self._drop_swap_locked(req)
             elif req.deadline is not None and now >= req.deadline:
                 shed += 1
                 self.metrics.record_deadline_missed()
                 self.metrics.record_class("shed", req.priority)
                 self.metrics.record_class("deadline_missed", req.priority)
+                self._record_tenant("shed", req)
+                self._record_tenant("deadline_missed", req)
                 self._drop_swap_locked(req)
                 req.error = DeadlineExceededError(
                     f"deadline exceeded after {now - req.enqueued:.3f}s "
@@ -1206,6 +1429,7 @@ class ContinuousLMServer:
                 continue
             if self.kv == "dense":
                 slot.req = self._queue.popleft()
+                self._advance_wfq_locked(slot.req)
                 slot.req.t_installed = time.perf_counter()
                 slot.pos = 0
                 slot.fed = 0
@@ -1217,11 +1441,19 @@ class ContinuousLMServer:
                 plan = self._plan_admission_paged(head)
             if plan is None:
                 break              # head-of-line waits for pages
-            self._install_paged_locked(slot, self._queue.popleft(), plan)
+            req = self._queue.popleft()
+            self._advance_wfq_locked(req)
+            self._install_paged_locked(slot, req, plan)
         self.metrics.set_queue_depth(len(self._queue))
         if self._pool is not None:
             self.metrics.set_pages(self._pool.in_use, self._pool.free,
                                    self.kv_pages)
+
+    def _advance_wfq_locked(self, req: _LMRequest) -> None:
+        """Move the WFQ virtual clock as a request takes a lane, so an
+        idle tenant re-enters at the current virtual time."""
+        if self.tenants is not None:
+            self.tenants.wfq.advance(req.vft)
 
     def _gather_pages(self, table: np.ndarray, n: int):
         """The first `n` pages of a block-table row, gathered out of the
@@ -1317,17 +1549,27 @@ class ContinuousLMServer:
         if (self._pressure.level >= 3 and self.preempt and self._queue
                 and self._queue[0].rank < RANK_BEST_EFFORT):
             head_rank = self._queue[0].rank
-            for slot in self._slots:
-                if (slot.active and not slot.req.abandoned
-                        and slot.req.rank >= RANK_BEST_EFFORT
-                        and slot.req.rank > head_rank):
-                    self._preempt_slot_locked(slot)
+            victims = [s for s in self._slots
+                       if (s.active and not s.req.abandoned
+                           and s.req.rank >= RANK_BEST_EFFORT
+                           and s.req.rank > head_rank)]
+            if (self.tenants is not None
+                    and any(not self.tenants.compliant(s.req.tenant)
+                            for s in victims)):
+                # offender first: while a non-compliant tenant holds a
+                # candidate lane, only its lanes are preempted
+                victims = [s for s in victims
+                           if not self.tenants.compliant(s.req.tenant)]
+            for slot in victims:
+                self._preempt_slot_locked(slot)
 
     def _preempt_one_locked(self, head: _LMRequest) -> bool:
         """Preempt one lane so `head` can admit: the active lane of the
         worst rank strictly above the head's, the newest first among
-        equals.  False when preemption is off, the programs are not
-        built yet, or nothing outranked is running."""
+        equals; with a tenant registry the worst-behaved tenant
+        (`TenantRegistry.badness`) pays first, so an offender's lane goes
+        before a compliant tenant's.  False when preemption is off, the
+        programs are not built yet, or nothing outranked is running."""
         if not self.preempt or self._gather is None or self._cache is None:
             return False
         victims = [s for s in self._slots
@@ -1335,8 +1577,14 @@ class ContinuousLMServer:
                    and s.req.rank > head.rank]
         if not victims:
             return False
-        self._preempt_slot_locked(
-            max(victims, key=lambda s: (s.req.rank, s.req.enqueued)))
+        if self.tenants is not None:
+            victim = max(victims,
+                         key=lambda s: (self.tenants.badness(s.req.tenant),
+                                        s.req.rank, s.req.enqueued))
+        else:
+            victim = max(victims,
+                         key=lambda s: (s.req.rank, s.req.enqueued))
+        self._preempt_slot_locked(victim)
         return True
 
     def _preempt_slot_locked(self, slot: _Slot) -> None:
@@ -1358,7 +1606,8 @@ class ContinuousLMServer:
                 committed=list(slot.generated), pos=int(slot.pos),
                 page_size=self.page_size, pages_k=pk, pages_v=pv,
                 model=model_signature(self.cfg, self.page_size),
-                session_id=req.session_id, priority=req.priority)
+                session_id=req.session_id, priority=req.priority,
+                tenant=req.tenant)
             if self.swap_quantize:
                 ex = quantize_export(ex)
             key = f"swap-{self._swap_seq}"
@@ -1372,6 +1621,7 @@ class ContinuousLMServer:
                 self.metrics.record_swap("out", n, ex.nbytes())
         req.preempted += 1
         self.metrics.record_preemption(req.priority)
+        self._record_tenant("preempted", req)
         self._free_slot_pages(slot)
         slot.req = None
         slot.generated = []
@@ -1388,6 +1638,7 @@ class ContinuousLMServer:
             # the client already got DeadlineExceededError: discarded work
             self.metrics.record_shed()
             self.metrics.record_class("shed", req.priority)
+            self._record_tenant("shed", req)
         else:
             self.metrics.record_class("requests", req.priority)
             req.result = req.prompt + slot.generated
@@ -1397,6 +1648,15 @@ class ContinuousLMServer:
             self.metrics.record_request(now - req.enqueued,
                                         queue_wait_s=t_in - req.enqueued,
                                         compute_s=now - t_in)
+            if self.tenants is not None:
+                # the tenant's completion ledger: served count, tokens
+                # generated, and the SLO window behind its burn rate
+                tn = req.tenant
+                self.metrics.record_tenant("requests", tn)
+                self.tenants.meter.record_out(tn, len(slot.generated))
+                self.tenants.slo.record(tn, now - req.enqueued)
+                self.metrics.set_tenant_burn(
+                    tn, self.tenants.slo.burn_rate(tn))
             if (self.hibernate and req.session_id is not None
                     and self._tree is not None and slot.table is not None):
                 n_full = (len(req.result) - 1) // self.page_size
@@ -1425,11 +1685,22 @@ class ContinuousLMServer:
                               [int(p) for p in slot.table[:n_full]])
 
     def _commit_tokens(self, slot: _Slot, toks: List[int]) -> None:
+        """Fold committed tokens into a lane: the first-token stamp,
+        the lane's generated list, and the request's stream, one push a
+        token.  The stream cursor counts the tokens already pushed: a
+        preempted lane that recomputes its early tokens (its swap was
+        lost) stays below the cursor until it passes where the stream
+        left off, so no token streams twice."""
         req = slot.req
         if req.t_first is None:
             req.t_first = time.perf_counter()
             self.metrics.record_first_token(req.t_first - req.enqueued)
         slot.generated.extend(int(t) for t in toks)
+        if req.stream is not None and not req.abandoned:
+            for t in slot.generated[req.stream_pushed:]:
+                req.stream.put(int(t))
+            req.stream_pushed = max(req.stream_pushed,
+                                    len(slot.generated))
 
     def _drain_step(self) -> bool:
         """One scheduling round: admit, build the step inputs, dispatch,
@@ -1466,6 +1737,26 @@ class ContinuousLMServer:
             # the ladder moves only inside _admit_locked: one level a round
             level = (self._pressure.level if self._pressure is not None
                      else 0)
+        if self.breaker is not None and not self.breaker.allow_dispatch():
+            # open breaker: fail the lanes in flight fast rather than
+            # spend dispatches on a failing device
+            err = CircuitOpenError(
+                "circuit breaker open: decode fast-failed",
+                retry_after_s=self.breaker.retry_after_s())
+            with self._cond:
+                for item in cow:
+                    # an unexecuted copy still retains its source page
+                    self._pool.release([item["src"]])
+                for s in self._slots:
+                    if s.active:
+                        self.metrics.record_shed()
+                        self.metrics.record_class("shed", s.req.priority)
+                        self._record_tenant("shed", s.req)
+                        s.req.error = err
+                        s.req.event.set()
+                        self._free_slot_pages(s)
+                        s.req = None
+            return True
         if self.kv == "dense":
             return self._dispatch_dense(active)
         return self._dispatch_paged(active, cow, installs, level)
@@ -1491,6 +1782,8 @@ class ContinuousLMServer:
             counts[i] = len(slot.generated)
         nxt, k, v = self._step(self.params, *self._cache, pos, token, temp,
                                seeds, counts)
+        if self.breaker is not None:
+            self.breaker.record_success()
         self._cache = (k, v)
         nxt = nxt.cpu().numpy()    # the round's one host sync
         self._steps += 1
@@ -1564,7 +1857,8 @@ class ContinuousLMServer:
             committed=list(slot.generated), pos=int(slot.pos),
             page_size=self.page_size, pages_k=pk, pages_v=pv,
             model=model_signature(self.cfg, self.page_size),
-            session_id=req.session_id, priority=req.priority)
+            session_id=req.session_id, priority=req.priority,
+            tenant=req.tenant)
         self.metrics.record_ship("out", n, ex.nbytes(),
                                  time.perf_counter() - t0)
         req.export_result = ex
@@ -1637,6 +1931,8 @@ class ContinuousLMServer:
         nxt, acc, k, v = self._step(self.params, *self._cache, table, pos,
                                     n_feed, n_draft, tokens, temp, seeds,
                                     counts)
+        if self.breaker is not None:
+            self.breaker.record_success()
         # the round's one host sync: next tokens and accepted counts
         both = torch.stack([nxt.to(torch.int32),
                             acc.to(torch.int32)]).cpu().numpy()
@@ -1671,6 +1967,8 @@ class ContinuousLMServer:
                 a = int(acc[i])
                 k_drafted = int(n_draft[i])
                 slot.pos += 1 + a
+                slot.req.drafted += k_drafted
+                slot.req.accepted += a if k_drafted else 0
                 self._commit_tokens(slot, (drafts[i][:a] if k_drafted
                                            else []) + [int(nxt[i])])
                 emitted += 1 + a
@@ -1709,6 +2007,7 @@ class ContinuousLMServer:
                     for r in victims:
                         self.metrics.record_shed()
                         self.metrics.record_class("shed", r.priority)
+                        self._record_tenant("shed", r)
                         r.error = ServingUnavailableError(
                             "LM server stopped")
                         r.event.set()
@@ -1716,6 +2015,8 @@ class ContinuousLMServer:
             try:
                 busy = self._drain_step()
             except Exception as e:  # noqa: BLE001 — fail in-flight, keep serving
+                if self.breaker is not None:
+                    self.breaker.record_failure()
                 with self._cond:
                     for s in self._slots:
                         if s.active:

@@ -141,8 +141,7 @@ def test_train_reads_svmlight_and_pretrains_a_pretrain_conf(tmp_path):
     (["-runtime", "spmd"], "A7"), (["-replicas", "2"], "A7"),
     (["-sync-every", "4"], "A7"), (["-resilience"], "A6"),
     (["-resume"], "A6"), (["-ckpt-dir", "x"], "A6"),
-    (["-ckpt-every", "5"], "A6"), (["-ckpt-keep", "2"], "A6"),
-    (["-metrics-port", "0"], "A4.10")],
+    (["-ckpt-every", "5"], "A6"), (["-ckpt-keep", "2"], "A6")],
     ids=lambda v: v if isinstance(v, str) else " ".join(v))
 def test_unported_train_flags_exit_naming_their_queue(flags, queue,
                                                       csv_file):

@@ -14,7 +14,10 @@ runs here: loss-scaled char-LSTM steps (mixed and float16) with their
 overflow skip, and the chunked fit's chunk-size invariance.  The
 word-embedding family has no hand kernel: its HS, NEG and GloVe steps
 (gathers and ``index_add_``) are held against the CPU, and a Word2Vec
-fit on the card must separate two topics.
+fit on the card must separate two topics.  The operations plane runs
+here too: an SSE stream over HTTP, the circuit breaker opening on
+injected dispatch faults and closing on a probe, and a throttled
+tenant's ledger.
 
 Every test carries the ``cuda`` marker and decides inside the test
 whether a card is present, skipping with a reason when not (the kernels
@@ -1567,3 +1570,142 @@ def test_word2vec_on_the_card_separates_topics(negative):
     assert w2v.similarity("apple", "banana") > \
         w2v.similarity("apple", "gpu") + 0.2
     assert set(w2v.words_nearest("cpu", 4)) <= set(TOPICS[1]) - {"cpu"}
+
+
+# ---- the operations plane on the card: SSE, the breaker, tenancy ------------
+
+
+def _ops_pool(**kw):
+    cfg = tt.TransformerConfig(vocab_size=256, d_model=64, n_heads=4,
+                               n_layers=2, d_ff=128, max_len=128)
+    tree = tt.numpy_params(cfg, seed=0)
+    return cfg, ContinuousLMServer(cfg, tree, slots=4, page_size=16,
+                                   prefill_chunk=16, device="cuda", **kw)
+
+
+def test_sse_stream_on_the_card_equals_generate():
+    """`stream: true` over HTTP on the card: the concatenated tokens
+    equal the ``done`` event's ids and the non-streamed answer, and the
+    paged kernel ran for both widths."""
+    _need_card()
+    import json
+    import urllib.request
+
+    from deeplearning4j_tpu_torch.ui.server import UiServer
+
+    cfg = tt.TransformerConfig(vocab_size=256, d_model=64, n_heads=4,
+                               n_layers=2, d_ff=128, max_len=128)
+    ui = UiServer(port=0).serve_lm(cfg, tt.numpy_params(cfg, seed=0),
+                                   slots=4, page_size=16, prefill_chunk=16,
+                                   device="cuda").start()
+    try:
+        prompt = [int(t) for t in
+                  np.random.default_rng(4).integers(0, 256, 40)]
+        tpk.paged_flash_attention.launches.reset()
+        req = urllib.request.Request(
+            ui.url + "/lm/generate",
+            data=json.dumps({"prompt_ids": prompt, "max_new_tokens": 12,
+                             "stream": True}).encode(),
+            headers={"Content-Type": "application/json",
+                     "X-Request-Id": "card-sse"})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            assert r.headers["Content-Type"] == "text/event-stream"
+            assert r.headers["X-Request-Id"] == "card-sse"
+            events = [e for e in r.read().decode().split("\n\n") if e]
+        assert not any(e.startswith("event: error") for e in events)
+        toks = [json.loads(e[len("data: "):])["token"] for e in events[:-1]]
+        done = json.loads(events[-1].split("data: ", 1)[1])["ids"]
+        assert done == prompt + toks and len(toks) == 12
+        assert ui.state.lm_server.generate(prompt, 12, timeout=300) == done
+        widths = tpk.paged_flash_attention.launches.by_key()
+        assert widths.get(1, 0) > 0 and widths.get(16, 0) > 0
+        (tr,) = ui.tracer.find("card-sse")
+        assert [s["name"] for s in tr["spans"]] == ["queue_wait", "decode"]
+    finally:
+        ui.stop()
+
+
+def test_breaker_on_the_card_opens_and_recovers():
+    """Three failed dispatches on the card open the breaker; admission
+    then fails fast without a dispatch; after the cooldown a probe on
+    the card closes it, with the pool's pages balanced throughout."""
+    _need_card()
+    from deeplearning4j_tpu_torch.serving.resilience import (
+        CircuitBreaker,
+        CircuitOpenError,
+    )
+
+    now = [0.0]
+    br = CircuitBreaker(failure_threshold=3, cooldown_s=1.0,
+                        clock=lambda: now[0])
+    cfg, srv = _ops_pool(breaker=br)
+    try:
+        srv.warmup()
+        want = srv.generate([1, 2, 3], 6, timeout=300)
+        real, fail = srv._step, [3]
+
+        def step(*args):
+            if fail[0] > 0:
+                fail[0] -= 1
+                raise RuntimeError("injected dispatch fault")
+            return real(*args)
+
+        srv._step = step
+        for _ in range(3):
+            with pytest.raises(RuntimeError, match="injected"):
+                srv.generate([1, 2, 3], 6, timeout=300)
+        assert br.state == "open" and not srv.ready()
+        with pytest.raises(CircuitOpenError):
+            srv.generate([1, 2, 3], 6, timeout=300)
+        now[0] = 1.0
+        assert srv.generate([1, 2, 3], 6, timeout=300) == want
+        assert br.state == "closed" and srv.ready()
+        assert srv.stats()["breaker_opens"] == 1
+        assert srv.page_ledger()["balanced"]
+    finally:
+        srv.stop()
+
+
+def test_tenant_ledger_on_the_card_balances():
+    """Two tenants through one pool on the card, one of them throttled:
+    admitted + throttled = sent, the per-tenant served counts re-add to
+    the plane's, and the pages balance."""
+    _need_card()
+    import threading
+
+    from deeplearning4j_tpu_torch.serving.tenancy import TenantQuotaError
+
+    cfg, srv = _ops_pool(tenants={"a": {"weight": 4, "slo_ms": 250},
+                                  "b": {"rate": 50, "burst": 100}})
+    outcomes = {"a": [], "b": []}
+    lock = threading.Lock()
+
+    def run(tenant, i):
+        prompt = [1 + i, 2, 3, 4]
+        try:
+            srv.generate(prompt, 16, tenant=tenant, timeout=300)
+            kind = "ok"
+        except TenantQuotaError:
+            kind = "429"
+        with lock:
+            outcomes[tenant].append(kind)
+
+    try:
+        srv.warmup()
+        threads = [threading.Thread(target=run, args=(t, i))
+                   for i in range(8) for t in ("a", "b")]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+            assert not th.is_alive()
+        st = srv.stats()
+        assert outcomes["a"] == ["ok"] * 8
+        led = st["tenancy"]["b"]
+        assert led["admitted"] + led["throttled"] == 8
+        assert led["throttled"] == outcomes["b"].count("429") >= 1
+        assert sum(v.get("requests", 0) for v in st["tenants"].values()) \
+            == st["requests"] == 8 + led["admitted"]
+        assert srv.page_ledger()["balanced"]
+    finally:
+        srv.stop()

@@ -10,12 +10,13 @@ every case goes over HTTP to both:
   "default" is served; an unknown tenant, an int naming one, and a value
   that is not a string are 400 on both sides;
 - ``stream`` with beams, top-k or top-p is a 400 on both sides;
-- ``stream: true`` alone: the JAX front answers SSE (200,
-  ``text/event-stream``), the port a 400 naming A4.9, the documented
-  refusal until SSE streaming is ported.
+- ``stream: true`` alone: both fronts answer SSE (200,
+  ``text/event-stream``) with equal bytes.
 
-The port's `ContinuousLMServer.generate` and `prefill_export` refuse a
-non-default tenant in process too.
+Without a registry the port's `ContinuousLMServer.generate` and
+`prefill_export` refuse a non-default tenant in process, in the JAX
+pool's words.  Fronts with a tenant registry are held against each
+other in `test_torch_front_ops.py`.
 """
 
 import dataclasses
@@ -108,12 +109,13 @@ def test_tenant_on_every_decode_leg_answers_as_the_jax_front(
     else:
         assert code == 400
         err = json.loads(body)["error"]
+        assert err == json.loads(jbody)["error"]
         if tenant == "list":
             assert "tenant must be a string" in err
         elif tenant == "too_long":
             assert "1..128" in err
         else:
-            assert "unknown tenant" in err and "A4.6" in err
+            assert "unknown tenant" in err and "serve -tenants" in err
 
 
 @pytest.mark.parametrize("tenant", ["acme_field", "acme_header", "int",
@@ -140,23 +142,32 @@ def test_stream_with_a_whole_sequence_leg_is_400_on_both(fronts, leg):
 
 
 def test_stream_alone_is_a_400_naming_a4_9_where_jax_streams(fronts):
-    payload = {"prompt_ids": PROMPT, "max_new_tokens": 2, "stream": True}
+    # the name is kept from when the port refused streams; both fronts
+    # now answer the same event stream
+    payload = {"prompt_ids": PROMPT, "max_new_tokens": 3, "stream": True}
     before = fronts[1].state.lm_server.stats()["requests"]
-    (jcode, jtype, _), (code, ctype, body) = _both(fronts, "/lm/generate",
-                                                   payload)
-    assert jcode == 200 and jtype == "text/event-stream"
-    assert code == 400 and ctype == "application/json"
-    assert "A4.9" in json.loads(body)["error"]
-    # nothing reached the port's pool
-    assert fronts[1].state.lm_server.stats()["requests"] == before
+    (jcode, jtype, jbody), (code, ctype, body) = _both(
+        fronts, "/lm/generate", payload)
+    assert jcode == code == 200
+    assert jtype == ctype == "text/event-stream"
+    assert body == jbody
+    events = body.decode().split("\n\n")
+    assert events[-2].startswith("event: done\ndata: ")
+    done = json.loads(events[-2].split("data: ", 1)[1])["ids"]
+    toks = [json.loads(e[len("data: "):])["token"] for e in events[:-2]]
+    assert done == PROMPT + toks and len(toks) == 3
+    assert fronts[1].state.lm_server.stats()["requests"] == before + 1
 
 
 def test_the_pool_refuses_a_non_default_tenant_in_process(fronts):
-    srv = fronts[1].state.lm_server
-    with pytest.raises(ValueError, match="A4.6"):
-        srv.generate(PROMPT, 2, tenant="acme")
-    with pytest.raises(ValueError, match="A4.6"):
-        srv.prefill_export(PROMPT, 2, tenant="acme")
+    srv, jsrv = fronts[1].state.lm_server, fronts[0].state.lm_server
+    for call in ("generate", "prefill_export"):
+        with pytest.raises(ValueError) as jinfo:
+            getattr(jsrv, call)(PROMPT, 2, tenant="acme")
+        with pytest.raises(ValueError) as info:
+            getattr(srv, call)(PROMPT, 2, tenant="acme")
+        assert str(info.value) == str(jinfo.value)
+        assert "no tenant registry is installed" in str(info.value)
     assert srv.generate(PROMPT, 2, tenant="default") == \
         srv.generate(PROMPT, 2)
     export = srv.prefill_export(PROMPT, 3, tenant="default")
