@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's LM serving and training paths, its
 `MultiLayerNetwork` (the char-LSTM, the conv nets, DBN pretraining, the
-solvers, the training CLI and the precision plane) and its word
-embeddings (Word2Vec, GloVe, ParagraphVectors) on one NVIDIA GPU and
-check them.
+solvers, the training CLI and the precision plane), its word embeddings
+(Word2Vec, GloVe, ParagraphVectors), classifier serving and the serving
+fleet on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # every phase, from the repo root
 
@@ -195,10 +195,15 @@ Phases (any failure exits non-zero, and no result line is printed):
              sample 1e-4, over a synthetic zipf corpus of 2 000 000 tokens
              and 71 290 words): words/s, pairs, steps, ms a step, host
              pair-generation seconds, peak memory; the HS and NEG steps at
-             the bench's shape and one GloVe step on the card against the
-             CPU on the same inputs (duplicate rows, a saturated HS pair,
-             the same negatives; loss and every touched row within
-             relative 1e-5); whether two seeded card fits are bitwise
+             the bench's shape and one GloVe step on the card and on the
+             CPU from the same inputs (duplicate rows, a saturated HS
+             pair, the same negatives), each held to the float64
+             recompute of the step: every touched element within gamma_n
+             (|x0| + sum |d|) plus its run's own update error and one ulp
+             of its row (n its row's updates; any summation order stays
+             inside), the loss within gamma_N |loss| (the worst ratio of
+             error to bound logged per leg; the old fixed 1e-5 card-vs-
+             CPU reading recorded); whether two seeded card fits are bitwise
              equal (recorded); and on the two-topic corpus of
              tests/test_nlp.py, Word2Vec HS and NEG separating the topics,
              GloVe's losses falling and ParagraphVectors predicting each
@@ -230,6 +235,48 @@ Phases (any failure exits non-zero, and no result line is printed):
              train -metrics-port 0`` (mnist-mlp, mixed, chunks of 4)
              scraped before it stops: its step counter = the steps
              taken.
+17. classify — classifier serving at the width of the repo's serving
+             models: bench.py bench_serving's recipe (``mnist_mlp``
+             784-2048-2048-10, float32 with TF32 off, ladder (1, 8, 16, 32),
+             640 one-row requests from 16 threads) micro-batched by the
+             `ServingEngine` and sequentially (requests/s, p50 / p99,
+             rows a dispatch; signatures <= the ladder, each reply within
+             1e-5 relative of its rows through ``net.output`` alone); the
+             char-LSTM (config #4) in bf16 behind the engine on (1, 8, 32)
+             without length buckets, 48 client threads of 1-8 one-hot
+             sequences of T 64 (B5 launches = dispatches + the warmup's 3,
+             each reply within 2e-2 of the f32 net, its argmax equal where
+             the f32 top-2 gap exceeds 4e-2, fewer dispatches than
+             requests); a coalesced dispatch with one request poisoned by
+             `chaos_dispatch` (the others answered, one
+             `InjectedDispatchFault`, ``serving_poison_isolated_total`` 1
+             on /metrics) and an expired deadline answered 504; ``cli serve
+             -model zoo:mnist-mlp -quantize int8 -buckets 1,8,32 -warmup``
+             on the main thread, driven over HTTP (top-1 agreement with
+             the float net >= 0.99 over 256 seeded rows, /metrics
+             Prometheus text with the classifier families, /readyz 200,
+             then 503 during the SIGTERM drain while a request held at a
+             dispatch gate finishes 200).
+18. fleet  — the thread-hosted fleet: bench.py bench_serving_fleet's
+             recipe through a `FleetServer` (3 mnist_mlp replicas, 384
+             one-row requests from 32 threads over HTTP, `chaos_fleet`
+             killing replica-0 a third of the way in and replica-1's
+             /readyz lying twice: failed 0, failovers counted, the client
+             ledger balanced, ejection and re-admission on /fleet/stats),
+             then a rolling swap to new weights under live traffic (zero
+             5xx, every reply after the flip from the new weights); 2
+             `both` replicas of the bf16 ``gpt2_small(max_len=1024)``
+             behind the front: the serve phase's 12 prompts through POST
+             /lm/generate (ids by the greedy rule, all on the affinity-
+             preferred replica and its prefix hits, B1 = n_layers x the
+             replicas' dispatches by width), one top-k and one beam
+             request (B2 = n_layers each) and one relayed SSE stream;
+             bench.py bench_disagg's topologies at that width (3 `both`
+             workers, then 1 prefill + 2 decode): 8 long prompts of 272
+             tokens and 16 short chats streamed from the client (TTFT p50
+             / p99, tokens/s; shipped lanes counted, ids by the greedy
+             rule, page ledgers balanced, B1 by width), and a kill leg
+             (the prefill worker stopped mid-storm: zero failed).
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device time per
 call (`device_ms`: the calls are queued behind a spin kernel, so they run
@@ -242,9 +289,10 @@ Prints the ``kernels`` JSON line, then the ``nvidia-smi`` card line, then
 subset of phases (facts and build always run), e.g. ``--only
 lstm,rnn``; ``--profile`` traces the serve phase's load, the train,
 rnn and mln phases' timed steps, the decode phase's speculating and
-plain pools and one more fit of each nlp row with ``torch.profiler`` and
-adds device time by kernel group and the device's idle share to their
-lines.
+plain pools, one more fit of each nlp row, the classify phase's
+char-LSTM storm and the fleet phase's LM storm with ``torch.profiler``
+and adds device time by kernel group and the device's idle share to
+their lines.
 """
 
 from __future__ import annotations
@@ -268,7 +316,8 @@ PEAK_OPS = {"float32": 67e12,      # fp32 outside the tensor cores
             "bfloat16": 989e12,    # bf16 dense tensor-core peak
             "float16": 989e12}     # fp16 dense tensor-core peak
 PHASES = ("kernel", "flash", "serve", "parity", "train", "lstm", "rnn",
-          "decode", "mln", "precision", "moe", "mobility", "nlp", "ops")
+          "decode", "mln", "precision", "moe", "mobility", "nlp", "ops",
+          "classify", "fleet")
 # what the times of the kernels line measure
 TIMING_NOTE = {
     "ms": "device time per call: calls queued behind a spin kernel, run "
@@ -4311,6 +4360,22 @@ def decode_launches(decode, kernel: str):
         "beam_search_per_call": decode["beam"]["flash_launches"]}
 
 
+def fleet_launches(fleet, key: str):
+    """The fleet phase's counts of one kernel, by leg."""
+    if fleet is None:
+        return None
+    lm, dis = fleet["lm"], fleet["disagg"]
+    if key == "b2_launches":
+        return {"lm_fleet_storm": lm["b2_launches"],
+                "top_k_request": lm["top_k_b2_launches"],
+                "beam_request": lm["beam_b2_launches"]}
+    return {"lm_fleet_storm": lm[key],
+            "lm_fleet_dispatches_by_width": lm["dispatches_by_width"],
+            "disagg_both": dis["both"][key], "disagg_split": dis["split"][key],
+            "disagg_split_dispatches_by_width":
+                dis["split"]["dispatches_by_width"]}
+
+
 def mobility_launches(mobility):
     """The mobility phase's B1 launches by query width on each pool,
     each read from a run driven with the counts set to 0 just before."""
@@ -4339,7 +4404,6 @@ W2V_TEXT8_REDUCED = (
     "tokens over 71 290 words, not text8's 17 005 207; 1 epoch, not "
     "demo-word.sh's 15; skip-gram (the port's only mode), not -cbow 1; "
     "min-count 1")
-NLP_STEP_TOL = 1e-5
 FRUIT = ["apple", "banana", "cherry", "mango", "grape"]
 TECH = ["cpu", "gpu", "ram", "disk", "cache"]
 
@@ -4453,10 +4517,328 @@ def w2v_row(name: str, sentences: list, n_tokens: int, knobs: dict,
     return row, w2v
 
 
-def touched_rel_err(got, want, rows) -> float:
-    """Relative max error over the rows a step touched."""
-    rows = rows.unique().cpu()
-    return rel_err(got.cpu()[rows], want.cpu()[rows])
+U32 = 2.0 ** -24                 # float32 unit roundoff
+ETA = 2.0 ** -149                # float32 underflow: the least subnormal
+# ulps allowed to one float32 evaluation of exp, log, pow, sigmoid or
+# logsigmoid (CUDA documents at most 2 for expf, 1 for logf, 4 for powf;
+# the sigmoids compose one exp, one add and a divide or a log)
+EVAL_ULPS = 8
+
+
+def gamma(n):
+    """Higham's gamma_n = n u / (1 - n u): the relative bound of n float32
+    roundings (elementwise on a tensor of counts)."""
+    return n * U32 / (1.0 - n * U32)
+
+
+def prod_err(a, ea, b, eb):
+    """Bound of |fl32(a' b') - a b| for |a' - a| <= ea, |b' - b| <= eb
+    (a, b float64 tensors or numbers)."""
+    a, b = abs(a), abs(b)
+    return a * eb + b * ea + ea * eb + U32 * (a + ea) * (b + eb) + ETA
+
+
+def sigmoid_err(x, dx):
+    """Bound of |fl32 sigmoid(x') - sigmoid(x)| for |x' - x| <= dx: the
+    slope is at most 1/4, the evaluation within EVAL_ULPS ulps."""
+    import torch
+
+    return (0.25 * dx + EVAL_ULPS * U32 * (torch.sigmoid(x) + 0.25 * dx)
+            + ETA)
+
+
+def logsigmoid_err(x, dx):
+    """Bound of |fl32 logsigmoid(x') - logsigmoid(x)| for |x' - x| <= dx:
+    the slope is at most 1; the evaluation within EVAL_ULPS ulps of the
+    result, and absolutely (log of 1 + exp(-|x|) rounded near 1)."""
+    import torch.nn.functional as F
+
+    return dx + EVAL_ULPS * U32 * (F.logsigmoid(x).abs() + dx + 1.0)
+
+
+def sum_err(mag, err, n: int):
+    """Bound of a float32 sum of `n` terms, each within `err` of its
+    float64 value, whose float64 magnitudes sum to `mag`: gamma_n (mag +
+    err) + err (sums of tensors, or numbers)."""
+    return gamma(n) * (mag + err) + err
+
+
+def alpha_err(src, esrc, lr: float):
+    """``index_add_(..., alpha=lr)`` adds fl32(src' fl32(lr)): the bound of
+    its distance from src lr, for |src' - src| <= esrc."""
+    return abs(lr) * esrc + gamma(2) * abs(lr) * (src.abs() + esrc) + ETA
+
+
+def scatter_err(x0, adds):
+    """Per element of a table `x0` (float64) that took the float32 adds
+    (rows, d64, e), each within e of its float64 value d64: the count of
+    adds n into each row and the bound gamma_{n+1} (|x0| + sum (|d64| +
+    e)) + sum e of the float32 scatter in any order against the float64
+    one (one rounding more than the adds, for an add fused with alpha's
+    product)."""
+    import torch
+
+    n = torch.zeros(x0.shape[0], dtype=torch.float64)
+    mag, err = x0.abs().clone(), torch.zeros_like(x0)
+    for rows, d64, e in adds:
+        n.index_add_(0, rows, torch.ones(rows.shape[0], dtype=torch.float64))
+        mag.index_add_(0, rows, d64.abs() + e)
+        err.index_add_(0, rows, e)
+    shape = (-1,) + (1,) * (x0.dim() - 1)
+    return n.reshape(shape), gamma(n.reshape(shape) + 1) * mag + err
+
+
+def hs_step_bounds(tables, hs, inputs, targets, lr: float) -> dict:
+    """The a-priori float32 error of each add of `hs_step` (every pair
+    valid) and of its loss, from the step's own arithmetic on the float64
+    values of the same inputs: dots of length D, the sigmoids, the
+    MAX_EXP clip (either side when the dot's bound straddles it), dh a
+    dot of length L, dw one product, alpha.  Returns {"adds": [(table,
+    rows, bound)], "loss": bound}."""
+    import torch
+    import torch.nn.functional as F
+
+    from deeplearning4j_tpu_torch.nlp.word2vec import MAX_EXP
+
+    syn0, syn1 = (t.detach().cpu().double() for t in tables)
+    points, codes, lengths = (a.cpu() for a in hs)
+    inputs, targets = inputs.cpu(), targets.cpu()
+    h, p = syn0[inputs], points[targets]
+    mask = (torch.arange(points.shape[1])[None, :]
+            < lengths[targets][:, None]).double()
+    w = syn1[p]
+    d_len, l_len = h.shape[1], p.shape[1]
+    sign = 1.0 - 2.0 * codes[targets].double()
+    x = sign * torch.einsum("bd,bld->bl", h, w)          # sign * dots
+    dx = gamma(d_len) * torch.einsum("bd,bld->bl", h.abs(), w.abs())
+    loss = sum_err(float((-F.logsigmoid(x) * mask).abs().sum()),
+                   float((logsigmoid_err(x, dx) * mask).sum()), x.numel())
+    g = sign * torch.sigmoid(-x) * mask
+    eg = sigmoid_err(-x, dx) * mask
+    near = (x.abs() - MAX_EXP).abs() <= dx
+    eg = torch.where(near, g.abs() + eg,
+                     torch.where(x.abs() < MAX_EXP, eg, torch.zeros_like(eg)))
+    g = torch.where(x.abs() < MAX_EXP, g, torch.zeros_like(g))
+    dh = torch.einsum("bl,bld->bd", g, w)
+    edh = (torch.einsum("bl,bld->bd", eg, w.abs())
+           + gamma(l_len) * torch.einsum("bl,bld->bd", g.abs() + eg,
+                                         w.abs())
+           + l_len * ETA)
+    dw = g[:, :, None] * h[:, None, :]
+    edw = prod_err(g[:, :, None], eg[:, :, None], h[:, None, :], 0.0)
+    return {"adds": [(0, inputs, alpha_err(dh, edh, lr)),
+                     (1, p.reshape(-1),
+                      alpha_err(dw, edw, lr).reshape(-1, d_len))],
+            "loss": loss}
+
+
+def neg_step_bounds(tables, inputs, targets, negs, lr: float) -> dict:
+    """`hs_step_bounds` for `neg_step` (every pair valid): the positive and
+    negative dots of length D, the sigmoids, dh a dot of length K + 1
+    with one rounding more for its final add, dpos and dneg one product
+    each, alpha."""
+    import torch
+    import torch.nn.functional as F
+
+    syn0, syn1 = (t.detach().cpu().double() for t in tables)
+    inputs, targets, negs = inputs.cpu(), targets.cpu(), negs.cpu()
+    h, pos, neg = syn0[inputs], syn1[targets], syn1[negs]
+    d_len, k_len = h.shape[1], negs.shape[1]
+    pdot = (h * pos).sum(1)
+    dp = gamma(d_len) * (h.abs() * pos.abs()).sum(1)
+    ndot = torch.einsum("bd,bkd->bk", h, neg)
+    dn = gamma(d_len) * torch.einsum("bd,bkd->bk", h.abs(), neg.abs())
+    keep = (negs != targets[:, None]).double()
+    mag = float(F.logsigmoid(pdot).abs().sum()
+                + (F.logsigmoid(-ndot) * keep).abs().sum())
+    err = float(logsigmoid_err(pdot, dp).sum()
+                + (logsigmoid_err(-ndot, dn) * keep).sum())
+    loss = sum_err(mag, err, pdot.numel() + ndot.numel() + 1)
+    gp, egp = torch.sigmoid(-pdot), sigmoid_err(-pdot, dp)
+    gn, egn = -torch.sigmoid(ndot) * keep, sigmoid_err(ndot, dn) * keep
+    dh = gp[:, None] * pos + torch.einsum("bk,bkd->bd", gn, neg)
+    edh = (egp[:, None] * pos.abs()
+           + torch.einsum("bk,bkd->bd", egn, neg.abs())
+           + gamma(k_len + 2) * ((gp + egp)[:, None] * pos.abs()
+                                 + torch.einsum("bk,bkd->bd", gn.abs() + egn,
+                                                neg.abs()))
+           + (k_len + 2) * ETA)
+    dpos = gp[:, None] * h
+    epos = prod_err(gp[:, None], egp[:, None], h, 0.0)
+    dneg = gn[:, :, None] * h[:, None, :]
+    eneg = prod_err(gn[:, :, None], egn[:, :, None], h[:, None, :], 0.0)
+    return {"adds": [(0, inputs, alpha_err(dh, edh, lr)),
+                     (1, targets, alpha_err(dpos, epos, lr)),
+                     (1, negs.reshape(-1),
+                      alpha_err(dneg, eneg, lr).reshape(-1, d_len))],
+            "loss": loss}
+
+
+def glove_step_bounds(tables, ii, jj, xx, lr: float, x_max: float,
+                      alpha: float) -> dict:
+    """`hs_step_bounds` for `glove_step` (every entry valid; `tables` are
+    w, wc, b, bc and their AdaGrad accumulators): diff a dot of length D
+    plus three terms and a log, fx a divide and a pow, the products, the
+    accumulators' g^2 adds, then each parameter add -lr g / sqrt(H + eps)
+    with H the accumulator after its scatter, whose own bound is the
+    scatter's (`scatter_err`)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nlp.glove import ADAGRAD_EPS
+
+    w, wc, b, bc, *acc = (t.detach().cpu().double() for t in tables)
+    ii, jj, xx = ii.cpu(), jj.cpu(), xx.cpu().double()
+    d_len = w.shape[1]
+    logx = torch.log(xx)
+    diff = (w[ii] * wc[jj]).sum(1) + b[ii] + bc[jj] - logx
+    ediff = (gamma(d_len + 3) * ((w[ii] * wc[jj]).abs().sum(1) + b[ii].abs()
+                                 + bc[jj].abs() + logx.abs())
+             + EVAL_ULPS * U32 * logx.abs() + ETA)
+    base = (xx / x_max) ** alpha
+    fx = base.clamp(max=1.0)
+    efx = (EVAL_ULPS + 2 * alpha + 2) * U32 * base + ETA
+    e = fx * diff
+    ee = prod_err(fx, efx, diff, ediff)
+    loss = sum_err(float((0.5 * e * diff).abs().sum()),
+                   float(0.5 * prod_err(e, ee, diff, ediff).sum()), e.numel())
+    grads = ((e[:, None] * wc[jj], prod_err(e[:, None], ee[:, None],
+                                            wc[jj], 0.0)),
+             (e[:, None] * w[ii], prod_err(e[:, None], ee[:, None],
+                                           w[ii], 0.0)),
+             (e, ee), (e, ee))
+    adds = []
+    for k, (rows, (g, eg)) in enumerate(zip((ii, jj, ii, jj), grads)):
+        eg2 = prod_err(g, eg, g, eg)
+        adds.append((4 + k, rows, eg2))
+        big_h = acc[k].index_add(0, rows, g * g)[rows]
+        _, eh = scatter_err(acc[k], [(rows, g * g, eg2)])
+        y = big_h + ADAGRAD_EPS
+        ey = eh[rows] + gamma(2) * (y + eh[rows])
+        s = y.sqrt()
+        y_low = (y - ey).clamp_min(ADAGRAD_EPS / 2)
+        es = ey / (y_low.sqrt() + s)
+        es = es + U32 * (s + es)
+        num, enum = lr * g, lr * eg + gamma(2) * lr * (g.abs() + eg)
+        q = num / s
+        dq = (enum * s + num.abs() * es) / (s * (s - es).clamp_min(1e-300))
+        eq = dq + U32 * (q.abs() + dq) + ETA
+        adds.append((k, rows, eq))
+    return {"adds": adds, "loss": loss}
+
+
+def recorded_step(run, tables, device, dtype: str) -> dict:
+    """Run `run(copies)` — one in-place scatter step, returning its loss —
+    on copies of the float32 `tables` cast to `dtype` on `device`, with
+    every ``index_add_`` into those copies recorded: for each, the table,
+    the rows and the values it added (as float64 on the host).  Returns
+    {"loss", "tables" (after the step), "adds"}."""
+    import torch
+
+    dt = getattr(torch, dtype)
+    copies = [t.detach().to(device=device, dtype=dt).clone() for t in tables]
+    slot = {id(t): i for i, t in enumerate(copies)}
+    adds = []
+    plain = torch.Tensor.index_add_
+
+    def recording(self, dim, index, source, *, alpha=1):
+        i = slot.get(id(self))
+        if i is not None:
+            adds.append((i, index.cpu(), (source * alpha).detach().cpu()
+                         .double().reshape((index.shape[0],)
+                                           + tuple(self.shape[1:]))))
+        return plain(self, dim, index, source, alpha=alpha)
+
+    torch.Tensor.index_add_ = recording
+    try:
+        loss = float(run(copies))
+    finally:
+        torch.Tensor.index_add_ = plain
+    return {"loss": loss, "tables": copies, "adds": adds}
+
+
+def _ratio(err, bound) -> float:
+    """The worst err / bound; 0 where both are 0, and a NaN reads as inf."""
+    import torch
+
+    r = torch.where(bound > 0, err / bound.clamp_min(1e-300),
+                    torch.where(err == 0, 0.0, math.inf))
+    return float(torch.nan_to_num(r, nan=math.inf, posinf=math.inf).max())
+
+
+def scatter_bound_ratio(tables, got: dict, ref: dict, bounds: dict) -> dict:
+    """How far one float32 run of a scatter step (`got`, from
+    `recorded_step`) lies from the float64 recompute `ref` of the same step
+    on the same float32 inputs `tables`, as worst ratios of error to the
+    a-priori bounds `bounds` (from the step's `*_step_bounds`):
+
+    - "updates": each value the run added, against its float64 value,
+      within the step's bound e for it;
+    - "tables": a touched element, x0 plus the n updates its row took,
+      within gamma_{n+1} (|x0| + sum (|d64| + e)) + sum e (the float32
+      summation in any order, of updates within e) plus one ulp of the
+      row's largest float64 value; an untouched row unchanged;
+    - "loss": within the step's loss bound plus one ulp.
+
+    Nothing in a bound is measured from the run under test, so a wrong
+    update fails "updates", and an add lost or doubled fails "tables".
+    Summation order (atomics on the card, sequential on the CPU) moves a
+    result inside these bounds and never past them.  A NaN reads as inf."""
+    import torch
+
+    if not len(got["adds"]) == len(ref["adds"]) == len(bounds["adds"]):
+        raise AssertionError(f"{len(got['adds'])} adds recorded, "
+                             f"{len(bounds['adds'])} bounded")
+    updates = []
+    for (i, rows, d), (_, _, d64), (j, brows, e) in zip(
+            got["adds"], ref["adds"], bounds["adds"]):
+        if i != j or not torch.equal(rows, brows.cpu()):
+            raise AssertionError("the recorded adds are not the bounded ones")
+        updates.append(_ratio((d - d64).abs(), e))
+    ratios = []
+    for i, x0 in enumerate(tables):
+        x0 = x0.detach().cpu().double()
+        want = ref["tables"][i].detach().cpu().double()
+        n, bound = scatter_err(x0, [(rows, d64, e) for (_, _, d64), (j, rows,
+                                                                     e)
+                                    in zip(ref["adds"], bounds["adds"])
+                                    if j == i])
+        row_max = (want.abs().amax(dim=tuple(range(1, want.dim())))
+                   if want.dim() > 1 else want.abs())
+        ulp = torch.from_numpy(np.spacing(row_max.float().numpy())).double()
+        bound = torch.where(n > 0, bound + ulp.reshape(n.shape),
+                            torch.zeros_like(bound))
+        g = got["tables"][i].detach().cpu().double()
+        ratios.append(_ratio((g - want).abs(), bound))
+    loss64 = ref["loss"]
+    loss_bound = bounds["loss"] + float(np.spacing(np.float32(abs(loss64))))
+    loss_err = abs(got["loss"] - loss64)
+    return {"updates": max(updates), "tables": max(ratios),
+            "per_table": ratios,
+            "loss": (loss_err / loss_bound if loss_err == loss_err
+                     else math.inf)}
+
+
+def step_card_vs_cpu(run, tables, bounds) -> dict:
+    """One scatter step on the CPU and on the card from the same float32
+    `tables`, both held to the float64 recompute by `scatter_bound_ratio`
+    under the step's a-priori `bounds` (TF32 off: the bounds model IEEE
+    float32 products)."""
+    import torch
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ref = recorded_step(run, tables, "cpu", "float64")
+        runs = {dev: recorded_step(run, tables, dev, "float32")
+                for dev in ("cpu", "cuda")}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    out = {f"{leg}_ratio": scatter_bound_ratio(tables, runs[dev], ref,
+                                               bounds)
+           for leg, dev in (("cpu", "cpu"), ("card", "cuda"))}
+    out["worst_ratio"] = max(out[k][m] for k in ("cpu_ratio", "card_ratio")
+                             for m in ("updates", "tables", "loss"))
+    return out
 
 
 def w2v_steps_card_vs_cpu(hs_model, neg_model, pairs) -> dict:
@@ -4465,8 +4847,9 @@ def w2v_steps_card_vs_cpu(hs_model, neg_model, pairs) -> dict:
     rows repeat); the HS batch's first pair saturates (|dot| >= 6); the
     NEG leg feeds both the same negatives.  The tables are the HS row's
     trained ones and, for NEG, a seeded random syn1neg (the NEG row's own
-    tables are not finite, see `tables_finite`).  Loss and every touched
-    row within relative NLP_STEP_TOL."""
+    tables are not finite, see `tables_finite`).  Each leg is held to
+    the float64 recompute by its a-priori float32 bounds
+    (`step_card_vs_cpu`)."""
     import torch
 
     from deeplearning4j_tpu_torch.nlp import word2vec as tw
@@ -4474,7 +4857,6 @@ def w2v_steps_card_vs_cpu(hs_model, neg_model, pairs) -> dict:
     b = W2V_BENCH["batch_size"]
     inputs = torch.from_numpy(pairs[:b, 0]).long()
     targets = torch.from_numpy(pairs[:b, 1]).long()
-    valid = torch.ones(b)
     out = {"batch": b, "distinct_inputs": int(inputs.unique().numel()),
            "distinct_targets": int(targets.unique().numel())}
     hs_cpu = tuple(a.cpu() for a in hs_model._hs)
@@ -4484,49 +4866,42 @@ def w2v_steps_card_vs_cpu(hs_model, neg_model, pairs) -> dict:
     syn0[inputs[0]] = 1.0
     syn1[p] = 1.0
     dot0 = float((syn1[p] @ syn0[inputs[0]]).abs().min())
-    res = {}
-    for dev in ("cpu", "cuda"):
-        t0, t1 = syn0.clone().to(dev), syn1.clone().to(dev)
-        loss = tw.hs_step(t0, t1, tuple(a.to(dev) for a in hs_cpu),
+
+    def hs_run(t):
+        dev, dt = t[0].device, t[0].dtype
+        return tw.hs_step(t[0], t[1], tuple(a.to(dev) for a in hs_cpu),
                           inputs.to(dev), targets.to(dev), 0.025,
-                          valid.to(dev))
-        res[dev] = (loss, t0, t1)
-    path_rows = hs_cpu[0][targets][
-        torch.arange(hs_cpu[0].shape[1])[None, :]
-        < hs_cpu[2][targets][:, None]]
-    out["hs"] = {
-        "saturated_dot": dot0,
-        "loss_rel_err": rel_err(res["cuda"][0].cpu(), res["cpu"][0]),
-        "syn0_rel_err": touched_rel_err(res["cuda"][1], res["cpu"][1],
-                                        inputs),
-        "syn1_rel_err": touched_rel_err(res["cuda"][2], res["cpu"][2],
-                                        path_rows)}
+                          torch.ones(b, dtype=dt, device=dev))
+
+    out["hs"] = dict(step_card_vs_cpu(
+        hs_run, [syn0, syn1],
+        hs_step_bounds([syn0, syn1], hs_cpu, inputs, targets, 0.025)),
+        saturated_dot=dot0)
     gen = torch.Generator().manual_seed(0)
     negs = neg_model._neg_table.cpu()[torch.randint(
         0, neg_model._neg_table.shape[0], (b, neg_model.negative),
         generator=gen)]
-    syn0 = torch.from_numpy(hs_model.syn0)
+    syn0 = torch.from_numpy(hs_model.syn0.copy())
     syn1n = torch.from_numpy(np.random.default_rng(2).standard_normal(
         hs_model.syn0.shape).astype(np.float32) * 0.1)
-    for dev in ("cpu", "cuda"):
-        t0, t1 = syn0.clone().to(dev), syn1n.clone().to(dev)
-        loss = tw.neg_step(t0, t1, inputs.to(dev), targets.to(dev),
-                           negs.to(dev), 0.025, valid.to(dev))
-        res[dev] = (loss, t0, t1)
-    out["neg"] = {
-        "collisions": int((negs == targets[:, None]).sum()),
-        "loss_rel_err": rel_err(res["cuda"][0].cpu(), res["cpu"][0]),
-        "syn0_rel_err": touched_rel_err(res["cuda"][1], res["cpu"][1],
-                                        inputs),
-        "syn1neg_rel_err": touched_rel_err(
-            res["cuda"][2], res["cpu"][2],
-            torch.cat([targets, negs.reshape(-1)]))}
+
+    def neg_run(t):
+        dev, dt = t[0].device, t[0].dtype
+        return tw.neg_step(t[0], t[1], inputs.to(dev), targets.to(dev),
+                           negs.to(dev), 0.025,
+                           torch.ones(b, dtype=dt, device=dev))
+
+    out["neg"] = dict(step_card_vs_cpu(
+        neg_run, [syn0, syn1n],
+        neg_step_bounds([syn0, syn1n], inputs, targets, negs, 0.025)),
+        collisions=int((negs == targets[:, None]).sum()))
     return out
 
 
 def glove_step_card_vs_cpu() -> dict:
     """One GloVe AdaGrad step at the bench's width (V 2000, D 128, B 4096)
-    on the card and on the CPU: duplicate rows, a warm accumulator."""
+    on the card and on the CPU: duplicate rows, a warm accumulator; held
+    to the float64 recompute by its a-priori float32 bounds."""
     import torch
 
     from deeplearning4j_tpu_torch.nlp.glove import glove_step
@@ -4538,24 +4913,20 @@ def glove_step_card_vs_cpu() -> dict:
               rng.standard_normal(v).astype(np.float32) * 0.1,
               rng.standard_normal(v).astype(np.float32) * 0.1]
     ada = [rng.random(np.shape(p)).astype(np.float32) for p in params]
-    ii = rng.integers(0, 200, b)
-    jj = rng.integers(0, v, b)
-    xx = rng.random(b).astype(np.float32) * 50 + 0.5
-    res = {}
-    for dev in ("cpu", "cuda"):
-        tp = tuple(torch.tensor(a, device=dev) for a in params)
-        th = tuple(torch.tensor(a, device=dev) for a in ada)
-        loss = glove_step(tp, th, torch.tensor(ii, device=dev),
-                          torch.tensor(jj, device=dev),
-                          torch.tensor(xx, device=dev),
-                          torch.ones(b, device=dev), 0.05, 100.0, 0.75)
-        res[dev] = (loss,) + tp + th
-    rows = [torch.tensor(r) for r in (ii, jj, ii, jj)] * 2
-    errs = [touched_rel_err(g, w, r) for g, w, r in
-            zip(res["cuda"][1:], res["cpu"][1:], rows)]
-    return {"loss_rel_err": rel_err(res["cuda"][0].cpu(), res["cpu"][0]),
-            "params_rel_err": max(errs[:4]), "adagrad_rel_err":
-            max(errs[4:])}
+    ii = torch.from_numpy(rng.integers(0, 200, b))
+    jj = torch.from_numpy(rng.integers(0, v, b))
+    xx = torch.from_numpy(rng.random(b).astype(np.float32) * 50 + 0.5)
+
+    def run(t):
+        dev, dt = t[0].device, t[0].dtype
+        return glove_step(tuple(t[:4]), tuple(t[4:]), ii.to(dev),
+                          jj.to(dev), xx.to(device=dev, dtype=dt),
+                          torch.ones(b, dtype=dt, device=dev), 0.05, 100.0,
+                          0.75)
+
+    tables = [torch.from_numpy(a) for a in params + ada]
+    return step_card_vs_cpu(run, tables, glove_step_bounds(
+        tables, ii, jj, xx, 0.05, 100.0, 0.75))
 
 
 # ParagraphVectors at tests/test_nlp.py's settings (HS, batch 512) is
@@ -4628,18 +4999,21 @@ def nlp_phase(card: str, profile: bool = False) -> dict:
         np.random.default_rng(0))
     steps = w2v_steps_card_vs_cpu(hs_model, neg_model, pairs)
     glove = glove_step_card_vs_cpu()
-    errs = [v for leg in ("hs", "neg") for k, v in steps[leg].items()
-            if k.endswith("rel_err")] + list(glove.values())
     hs, neg = steps["hs"], steps["neg"]
-    log(f"nlp: card vs CPU steps at B 4096, D 128: HS (saturated dot "
-        f"{hs['saturated_dot']:.1f}) loss {hs['loss_rel_err']:.3g}, syn0 "
-        f"{hs['syn0_rel_err']:.3g}, syn1 {hs['syn1_rel_err']:.3g}; NEG "
-        f"({neg['collisions']} collisions) loss {neg['loss_rel_err']:.3g}, "
-        f"syn0 {neg['syn0_rel_err']:.3g}, syn1neg "
-        f"{neg['syn1neg_rel_err']:.3g}; GloVe {glove}")
-    if not all(e <= NLP_STEP_TOL for e in errs):    # a NaN fails too
-        raise AssertionError(f"nlp: a step on the card is {errs} from the "
-                             f"CPU's (limit {NLP_STEP_TOL})")
+    legs = {"hs": hs, "neg": neg, "glove": glove}
+    for name, leg in legs.items():
+        log(f"nlp: {name} step at B 4096, D 128, card and CPU float32 vs "
+            f"the float64 recompute, worst error / a-priori bound: "
+            + "; ".join(f"{side} updates {leg[side + '_ratio']['updates']:.3g}"
+                        f", tables {leg[side + '_ratio']['tables']:.3g}, "
+                        f"loss {leg[side + '_ratio']['loss']:.3g}"
+                        for side in ("card", "cpu")))
+    log(f"nlp: HS saturated dot {hs['saturated_dot']:.1f}; NEG "
+        f"{neg['collisions']} collisions")
+    worst = {name: leg["worst_ratio"] for name, leg in legs.items()}
+    if not all(r <= 1.0 for r in worst.values()):   # a NaN reads as inf
+        raise AssertionError(f"nlp: a step leaves its float32 bound "
+                             f"(worst error / bound {worst})")
     if not 6.0 <= hs["saturated_dot"]:
         raise AssertionError("nlp: the HS batch holds no saturated pair")
 
@@ -4671,7 +5045,7 @@ def nlp_phase(card: str, profile: bool = False) -> dict:
     log(f"nlp: quality on the two-topic corpus: {quality}")
     torch.cuda.empty_cache()
     return {"rows": [neg_row, hs_row, text8_row], "steps": steps,
-            "glove_step": glove, "step_tol": NLP_STEP_TOL,
+            "glove_step": glove,
             "seeded_hs_fits_bitwise_equal": bitwise,
             "seeded_hs_fits_max_abs_diff": seeded_diff, "quality": quality,
             "phase_s": time.perf_counter() - t_phase, "card": card}
@@ -5232,6 +5606,943 @@ def ops_phase(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: classifier serving (the ServingEngine, /model/predict, cli serve)
+
+CLS_LADDER = (1, 8, 16, 32)          # bench.py bench_serving's ladder
+CLS_CONC, CLS_TOTAL = 16, 640        # its concurrency; 40 requests a client
+CLS_RTOL = 1e-5                      # f32 replies vs net.output alone
+LSTM_LADDER = (1, 8, 32)             # the char-LSTM engine, no length buckets
+LSTM_CLIENTS, LSTM_T = 48, 64
+# bf16 vs f32 probabilities over 80 classes (about 0.0125 each): the limit
+# is 4x the bf16 error the plain CPU path shows on these rows (1.13e-3);
+# the argmax is held wherever the f32 top-2 gap exceeds LSTM_GAP, at no
+# fewer than LSTM_HELD_SHARE of the served positions (29 % on the CPU)
+LSTM_TOL, LSTM_GAP, LSTM_HELD_SHARE = 5e-3, 5e-3, 0.1
+INT8_ROWS, INT8_AGREE = 256, 0.99
+
+
+class DispatchGate:
+    """Holds a batcher's next dispatch until `release()`: what arrives
+    meanwhile queues, and coalesces into the dispatch after it.  Lives
+    here, never in the package."""
+
+    def __init__(self, batcher):
+        self.batcher, self.inner = batcher, batcher._dispatch
+        self.event, self.entered = threading.Event(), threading.Event()
+        batcher._dispatch = self
+
+    def __call__(self, x, mask, n_real):
+        self.entered.set()
+        if not self.event.wait(OPS_TIMEOUT_S):
+            raise AssertionError("dispatch gate never released")
+        return self.inner(x, mask, n_real)
+
+    def release(self):
+        self.batcher._dispatch = self.inner
+        self.event.set()
+
+
+def serving_storm(conc: int, reqs: list, fn) -> tuple:
+    """`conc` client threads share `reqs` round robin, each calling
+    `fn(x)`; returns (wall seconds, the replies in request order)."""
+    out = [None] * len(reqs)
+    errors = []
+    barrier = threading.Barrier(conc)
+
+    def client(c):
+        try:
+            barrier.wait()
+            for i in range(c, len(reqs), conc):
+                out[i] = fn(reqs[i])
+        except Exception as e:  # noqa: BLE001 — raised below
+            errors.append(f"{type(e).__name__}: {e}")
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(conc)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=OPS_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if errors or any(t.is_alive() for t in threads):
+        raise AssertionError(f"storm: {errors[:3]}")
+    return wall, out
+
+
+def worst_rel(got, want) -> float:
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+def mnist_storm(net, card: str) -> dict:
+    """bench.py bench_serving on the card: 640 one-row requests from 16
+    threads, micro-batched through the engine and sequentially (one
+    `net.output` a request under a lock); every reply within CLS_RTOL of
+    its rows through `net.output` alone."""
+    from deeplearning4j_tpu_torch.serving import BucketLadder, ServingEngine
+
+    rng = np.random.default_rng(0)
+    reqs = [rng.random((1, 784)).astype(np.float32)
+            for _ in range(CLS_TOTAL)]
+    lock = threading.Lock()
+
+    def sequential(x):
+        with lock:
+            return net.output(x).cpu().numpy()
+
+    sequential(reqs[0])
+    seq_s = min(serving_storm(CLS_CONC, reqs, sequential)[0]
+                for _ in range(2))
+    engine = ServingEngine(net, ladder=BucketLadder(CLS_LADDER),
+                           max_wait_ms=2.0)
+    try:
+        sig0 = net.forward_program_count()
+        warmed = engine.warmup(np.zeros((784,), np.float32))
+        runs = [serving_storm(CLS_CONC, reqs, engine.predict_proba)
+                for _ in range(2)]
+        stats = engine.stats()
+    finally:
+        engine.stop()
+    bat_s, replies = min(runs, key=lambda r: r[0])
+    alone = [net.output(x).cpu().numpy() for x in reqs]
+    err = max(worst_rel(r, a) for r, a in zip(replies, alone))
+    sigs = net.forward_program_count() - sig0
+    lat = stats["latency"]
+    out = {"model": "mnist_mlp 784-2048-2048-10, float32, TF32 off",
+           "ladder": list(CLS_LADDER), "concurrency": CLS_CONC,
+           "requests": CLS_TOTAL, "warmed": warmed,
+           "requests_per_s": CLS_TOTAL / bat_s,
+           "sequential_requests_per_s": CLS_TOTAL / seq_s,
+           "batched_vs_sequential": seq_s / bat_s,
+           "p50_ms": lat.get("p50_ms"), "p99_ms": lat.get("p99_ms"),
+           "dispatches": stats["dispatches"],
+           "mean_rows_a_dispatch": stats.get("mean_batch_occupancy"),
+           "signatures": stats["compiled_programs"],
+           "forward_signatures": sigs, "max_rel_err_vs_alone": err,
+           "card": card}
+    if not (stats["compiled_programs"] <= len(CLS_LADDER)
+            and sigs <= len(CLS_LADDER)):
+        raise AssertionError(f"classify: {stats['compiled_programs']} "
+                             f"signatures for a ladder of "
+                             f"{len(CLS_LADDER)}")
+    if not err <= CLS_RTOL:
+        raise AssertionError(f"classify: a reply is {err} from its rows "
+                             f"through net.output alone")
+    log(f"classify: mnist-mlp storm {out['requests_per_s']:.1f} requests/s "
+        f"micro-batched vs {out['sequential_requests_per_s']:.1f} "
+        f"sequential ({out['batched_vs_sequential']:.2f}x), p50 "
+        f"{out['p50_ms']} ms, p99 {out['p99_ms']} ms, "
+        f"{out['mean_rows_a_dispatch']} rows a dispatch over "
+        f"{out['dispatches']} dispatches, {sigs} signatures, worst "
+        f"{err:.3g} from net.output alone ({card})")
+    return out
+
+
+def profiled(profile: bool):
+    """A started `torch.profiler` over the card's kernels, or None."""
+    if not profile:
+        return None
+    import torch
+
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    prof.__enter__()
+    return prof
+
+
+def char_lstm_engine(card: str, profile: bool = False) -> dict:
+    """The char-LSTM (config #4, vocab 80, hidden 256) in bf16 behind the
+    engine on (1, 8, 32) without length buckets: 48 client threads of 1-8
+    one-hot sequences of T 64.  B5 launches = dispatches + the warmup's
+    3; each reply within LSTM_TOL of the f32 net on the same weights,
+    its argmax equal wherever the f32 top-2 gap exceeds LSTM_GAP, and
+    that at LSTM_HELD_SHARE of the positions or more."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import (
+        MultiLayerNetwork,
+        char_lstm,
+        params_from_numpy,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
+    from deeplearning4j_tpu_torch.serving import BucketLadder, ServingEngine
+
+    net = MultiLayerNetwork(char_lstm(compute_dtype="bfloat16")).init()
+    ref = MultiLayerNetwork(char_lstm()).init()
+    ref.params = params_from_numpy(ref, [
+        {k: v.detach().float().cpu().numpy() for k, v in layer.items()}
+        for layer in net.params])
+    rng = np.random.default_rng(4)
+    eye = np.eye(80, dtype=np.float32)
+    reqs = [eye[rng.integers(0, 80, (int(rng.integers(1, 9)), LSTM_T))]
+            for _ in range(LSTM_CLIENTS)]
+    engine = ServingEngine(net, ladder=BucketLadder(LSTM_LADDER),
+                           max_batch=max(LSTM_LADDER), max_wait_ms=2.0)
+    try:
+        torch.cuda.synchronize()
+        lk.fused_lstm_forward.launches.reset()
+        warmed = engine.warmup(np.zeros((LSTM_T, 80), np.float32))
+        prof = profiled(profile)
+        t0 = time.perf_counter()
+        _, replies = serving_storm(LSTM_CLIENTS, reqs, engine.predict_proba)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if prof is not None:
+            prof.__exit__(None, None, None)
+        launches = lk.fused_lstm_forward.launches.value
+        stats = engine.stats()
+    finally:
+        engine.stop()
+    err, held, gap_rows = 0.0, True, 0
+    positions = sum(x.shape[0] * x.shape[1] for x in reqs)
+    for x, got in zip(reqs, replies):
+        want = ref.output(x).float().cpu().numpy()
+        err = max(err, float(np.abs(got - want).max()))
+        top2 = np.sort(want, axis=-1)[..., -2:]
+        sure = (top2[..., 1] - top2[..., 0]) > LSTM_GAP
+        gap_rows += int(sure.sum())
+        held &= bool(np.array_equal(got.argmax(-1)[sure],
+                                    want.argmax(-1)[sure]))
+    out = {"model": "char_lstm vocab 80 hidden 256, bfloat16",
+           "ladder": list(LSTM_LADDER), "clients": LSTM_CLIENTS,
+           "T": LSTM_T, "requests": len(reqs), "warmed": warmed,
+           "dispatches": stats["dispatches"], "b5_launches": launches,
+           "max_abs_err_vs_f32": err, "argmax_held_positions": gap_rows,
+           "positions": positions,
+           "wall_s": wall, "mean_rows_a_dispatch":
+           stats.get("mean_batch_occupancy"), "card": card}
+    if prof is not None:
+        out["profile"] = device_breakdown(prof, wall, stats["dispatches"])
+    if launches != stats["dispatches"] + warmed or warmed != 3:
+        raise AssertionError(f"classify: B5 launches {launches} != "
+                             f"dispatches {stats['dispatches']} + warmup "
+                             f"{warmed}")
+    if not (err <= LSTM_TOL and held
+            and gap_rows >= LSTM_HELD_SHARE * positions):
+        raise AssertionError(f"classify: char-LSTM replies {err} from the "
+                             f"f32 net (argmax held: {held}, at {gap_rows} "
+                             f"of {positions} positions)")
+    if not stats["dispatches"] < len(reqs):
+        raise AssertionError("classify: the char-LSTM requests did not "
+                             "coalesce")
+    log(f"classify: char-LSTM engine {len(reqs)} requests in "
+        f"{stats['dispatches']} dispatches ({out['mean_rows_a_dispatch']} "
+        f"rows each), B5 launches {launches} = dispatches + {warmed}; "
+        f"worst {err:.3g} from the f32 net (limit {LSTM_TOL}), argmax held "
+        f"at {gap_rows} of {positions} positions"
+        + (f", device idle {out['profile']['device_idle_share']:.3f}"
+           if profile else "") + f" ({card})")
+    return out
+
+
+def cli_int8_serve(card: str, tmp: str) -> dict:
+    """``cli serve -model zoo:mnist-mlp -quantize int8 -buckets 1,8,32
+    -warmup`` run on this (main) thread; a helper thread talks to it over
+    HTTP: /readyz 200, 256 seeded rows (agreement with the float net >=
+    INT8_AGREE), /metrics as Prometheus text with the classifier
+    families, then a request held at a dispatch gate while SIGTERM
+    starts the drain: /readyz 503 during it, the held request answered
+    200, the drain snapshot written."""
+    import os
+    import re
+    import signal
+
+    from deeplearning4j_tpu_torch import cli
+    from deeplearning4j_tpu_torch.ui import server as ui_server
+
+    started = []
+    real_start = ui_server.UiServer.start
+
+    def start(self):
+        started.append(self)
+        return real_start(self)
+
+    prev = signal.getsignal(signal.SIGTERM)
+    res = {"errors": []}
+    drain_stats = os.path.join(tmp, "serving_stats.json")
+
+    def helper():
+        sent = False
+        try:
+            t0 = time.perf_counter()
+            while not started or signal.getsignal(signal.SIGTERM) is prev:
+                if time.perf_counter() - t0 > 600:
+                    raise AssertionError("cli serve never came up")
+                time.sleep(0.01)
+            srv = started[0]
+            url, engine = srv.url, srv.state.engine
+            res["readyz_before"] = http_get(url, "/readyz")[0]
+            rows = np.random.default_rng(7).random(
+                (INT8_ROWS, 784)).astype(np.float32)
+            answers = concurrently([
+                (lambda i=i: http_json(url, "/model/predict",
+                                       {"features": rows[i:i + 32]
+                                        .tolist()}, f"int8-{i}"))
+                for i in range(0, INT8_ROWS, 32)])
+            preds = np.concatenate([a["body"]["predictions"]
+                                    for a in answers])
+            want = engine.net.output(rows).float().cpu().numpy().argmax(-1)
+            res["agreement"] = float(np.mean(preds == want))
+            code, text = http_get(url, "/metrics")
+            bad = [ln for ln in text.splitlines()
+                   if not ln.startswith("#") and not re.match(PROM_LINE, ln)]
+            res["metrics"] = {
+                "status": code, "bad_lines": bad[:3],
+                "classifier_families": sorted({
+                    ln.split("{")[0] for ln in text.splitlines()
+                    if 'plane="classifier"' in ln})}
+            res["quantization"] = engine.stats()["quantization"]
+            gate = DispatchGate(engine.batcher)
+            held = []
+            t = threading.Thread(target=lambda: held.append(http_json(
+                url, "/model/predict", {"features": rows[:1].tolist()},
+                "int8-held")))
+            t.start()
+            if not gate.entered.wait(60):
+                raise AssertionError("the held request never dispatched")
+            os.kill(os.getpid(), signal.SIGTERM)
+            sent = True
+            codes = []
+            t1 = time.perf_counter()
+            while time.perf_counter() - t1 < 30:
+                codes.append(http_get(url, "/readyz")[0])
+                if codes[-1] == 503:
+                    break
+                time.sleep(0.005)
+            res["readyz_during_drain"] = codes[-1]
+            gate.release()
+            t.join(60)
+            res["held_status"] = held[0]["status"] if held else None
+        except Exception as e:  # noqa: BLE001 — checked by the caller
+            res["errors"].append(f"{type(e).__name__}: {e}")
+        finally:
+            if not sent:
+                os.kill(os.getpid(), signal.SIGTERM)
+
+    ui_server.UiServer.start = start
+    th = threading.Thread(target=helper, daemon=True)
+    th.start()
+    try:
+        rc = cli.main(["serve", "-model", "zoo:mnist-mlp", "-quantize",
+                       "int8", "-buckets", "1,8,32", "-warmup", "-port",
+                       "0", "-drain-stats", drain_stats,
+                       "-serve-seconds", "900"])
+    finally:
+        ui_server.UiServer.start = real_start
+    th.join(120)
+    snap = json.loads(open(drain_stats).read())
+    res.update(rc=rc, drained_requests=snap["classifier"]["requests"],
+               drain_accepting=snap["classifier"]["accepting"], card=card)
+    fams = res.get("metrics", {}).get("classifier_families", [])
+    if res["errors"] or rc != 0:
+        raise AssertionError(f"classify: cli serve: {res}")
+    if not (res["readyz_before"] == 200
+            and res["readyz_during_drain"] == 503
+            and res["held_status"] == 200):
+        raise AssertionError(f"classify: cli serve readiness {res}")
+    if not res["agreement"] >= INT8_AGREE:
+        raise AssertionError(f"classify: int8 agreement {res['agreement']}")
+    if res["metrics"]["bad_lines"] or not {
+            "serving_requests_total", "serving_dispatches_total",
+            "serving_poison_isolated_total"} <= set(fams):
+        raise AssertionError(f"classify: /metrics {res['metrics']}")
+    log(f"classify: cli serve -quantize int8: agreement "
+        f"{res['agreement']:.4f} over {INT8_ROWS} rows, "
+        f"{res['quantization']['quantized_layers']} layers int8, /readyz "
+        f"{res['readyz_before']} then {res['readyz_during_drain']} in the "
+        f"SIGTERM drain, the held request {res['held_status']} ({card})")
+    return res
+
+
+def poison_and_deadline(net, card: str) -> dict:
+    """`UiServer.serve_model` over the mnist net: a coalesced dispatch of
+    four requests, one poisoned by `chaos_dispatch`, is bisected (the
+    three answered within CLS_RTOL of their sequential replies, one
+    `InjectedDispatchFault`, ``serving_poison_isolated_total`` 1 on
+    /metrics); then a request whose deadline passes while it queues is
+    answered 504."""
+    from deeplearning4j_tpu_torch.resilience import (
+        ServingChaosConfig,
+        chaos_dispatch,
+    )
+    from deeplearning4j_tpu_torch.serving import BucketLadder
+    from deeplearning4j_tpu_torch.ui.server import UiServer
+
+    ui = UiServer(port=0).serve_model(
+        net, ladder=BucketLadder((1, 8)), max_batch=8,
+        warmup_example=np.zeros((784,), np.float32)).start()
+    out = {"card": card}
+    try:
+        batcher = ui.state.engine.batcher
+        plain = batcher._dispatch
+        chaos = chaos_dispatch(plain, ServingChaosConfig(poison_value=9.0))
+        batcher._dispatch = chaos
+        rng = np.random.default_rng(8)
+        rows = [rng.random((1, 784)).astype(np.float32) for _ in range(4)]
+        rows[2] = np.full((1, 784), 9.0, np.float32)
+        gate = DispatchGate(batcher)
+        first = threading.Thread(target=http_json, args=(
+            ui.url, "/model/predict", {"features": rows[0].tolist()},
+            "poison-0"))
+        first.start()
+        gate.entered.wait(60)
+        box = [None] * 3
+
+        def send(i):
+            box[i - 1] = http_json(ui.url, "/model/predict",
+                                   {"features": rows[i].tolist()},
+                                   f"poison-{i}")
+
+        threads = [threading.Thread(target=send, args=(i,))
+                   for i in (1, 2, 3)]
+        for t in threads:
+            t.start()
+        t0 = time.perf_counter()
+        while len(batcher._queue) < 3 and time.perf_counter() - t0 < 60:
+            time.sleep(0.005)
+        gate.release()
+        first.join(60)
+        for t in threads:
+            t.join(60)
+        batcher._dispatch = plain
+        codes = [b["status"] for b in box]
+        errs = [worst_rel(box[i - 1]["body"]["outputs"],
+                          net.output(rows[i]).cpu().numpy())
+                for i in (1, 3)]
+        text = http_get(ui.url, "/metrics")[1]
+        isolated = [ln for ln in text.splitlines() if ln.startswith(
+            'serving_poison_isolated_total{plane="classifier"}')]
+        out.update(statuses=codes, poison_error=box[1]["body"]["error"],
+                   max_rel_err=max(errs), metrics_line=isolated,
+                   chaos_calls=chaos.calls)
+        if not (codes == [200, 400, 200] and "InjectedDispatchFault"
+                in box[1]["body"]["error"] and max(errs) <= CLS_RTOL
+                and isolated == ['serving_poison_isolated_total'
+                                 '{plane="classifier"} 1']):
+            raise AssertionError(f"classify: poison isolation {out}")
+        gate = DispatchGate(batcher)
+        first = threading.Thread(target=http_json, args=(
+            ui.url, "/model/predict", {"features": rows[0].tolist()},
+            "deadline-0"))
+        first.start()
+        gate.entered.wait(60)
+        late = []
+        t = threading.Thread(target=lambda: late.append(http_json(
+            ui.url, "/model/predict", {"features": rows[1].tolist(),
+                                       "deadline_ms": 5}, "deadline-1")))
+        t.start()
+        t0 = time.perf_counter()
+        while not batcher._queue and time.perf_counter() - t0 < 60:
+            time.sleep(0.005)
+        time.sleep(0.05)               # its 5 ms expire while it queues
+        gate.release()
+        first.join(60)
+        t.join(60)
+        out["deadline"] = {"status": late[0]["status"],
+                           "error": late[0]["body"]["error"]}
+        if late[0]["status"] != 504:
+            raise AssertionError(f"classify: deadline shed {out}")
+    finally:
+        ui.stop()
+    log(f"classify: poison isolated ({out['statuses']}, worst "
+        f"{out['max_rel_err']:.3g} from sequential, /metrics "
+        f"{out['metrics_line'][0]}); an expired deadline answered "
+        f"{out['deadline']['status']} ({card})")
+    return out
+
+
+def classify_phase(card: str, profile: bool = False) -> dict:
+    import tempfile
+
+    import torch
+
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork, mnist_mlp
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    net = MultiLayerNetwork(mnist_mlp()).init()
+    out = {"card": card}
+    out["mnist_storm"] = mnist_storm(net, card)
+    out["char_lstm"] = char_lstm_engine(card, profile)
+    out["poison"] = poison_and_deadline(net, card)
+    with tempfile.TemporaryDirectory() as tmp:
+        out["cli_int8"] = cli_int8_serve(card, tmp)
+    del net
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 18: the thread-hosted serving fleet (FleetRouter, FleetServer)
+
+FLEET_CONC, FLEET_TOTAL = 32, 384    # bench.py bench_serving_fleet's storm
+FLEET_LM_NEW = 64
+DISAGG_LONG, DISAGG_SHORT = 8, 16    # long prompts (256 + 16), short chats
+DISAGG_NEW_LONG, DISAGG_NEW_SHORT = 32, 16
+DISAGG_MIN_PROMPT = 64
+
+
+def classifier_fleet(card: str) -> dict:
+    """bench.py bench_serving_fleet's recipe through a `FleetServer`: 3
+    mnist_mlp replicas, 384 one-row requests from 32 threads over HTTP,
+    `chaos_fleet` killing replica-0 at a third of the attempts while
+    replica-1's /readyz lies twice; health polls eject both and re-admit
+    replica-1; then a rolling swap to new weights under live traffic."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork, mnist_mlp
+    from deeplearning4j_tpu_torch.resilience import (
+        FleetChaosConfig,
+        chaos_fleet,
+    )
+    from deeplearning4j_tpu_torch.serving import (
+        BucketLadder,
+        FleetRouter,
+        FleetServer,
+        check_fleet_ledger,
+        spawn_local_replica,
+    )
+
+    old_net = MultiLayerNetwork(mnist_mlp()).init()
+    new_net = MultiLayerNetwork(mnist_mlp(seed=6)).init()
+    warm = np.zeros((784,), np.float32)
+
+    def factory_of(net):
+        def factory(name):
+            return spawn_local_replica(
+                name, net, ladder=BucketLadder(CLS_LADDER), max_wait_ms=2.0,
+                warmup_example=warm)
+        return factory
+
+    router = FleetRouter(factory_of(old_net), replicas=3,
+                         request_timeout_s=OPS_TIMEOUT_S,
+                         replica_breaker_threshold=2,
+                         replica_breaker_cooldown_s=0.5)
+    front = FleetServer(router, port=0).start()
+    out = {"card": card, "replicas": 3, "concurrency": FLEET_CONC,
+           "requests": FLEET_TOTAL}
+    try:
+        chaos = chaos_fleet(router, FleetChaosConfig(
+            kill_at_attempt=FLEET_TOTAL // 3, kill_replica="replica-0",
+            flaky_readyz_polls=(0, 1), flaky_replica="replica-1"))
+        rng = np.random.default_rng(9)
+        reqs = [rng.random((1, 784)).astype(np.float32)
+                for _ in range(FLEET_TOTAL)]
+        failed = []
+
+        def one(x):
+            r = http_json(front.url, "/model/predict",
+                          {"features": x.tolist()}, "fleet")
+            if r["status"] != 200:
+                failed.append(r["status"])
+            return r["body"].get("outputs")
+
+        wall, replies = serving_storm(FLEET_CONC, reqs, one)
+        chaos_killed = list(chaos.killed)
+        polls = [router.poll_health_once(), router.poll_health_once()]
+        time.sleep(0.6)
+        polls.append(router.poll_health_once())
+        chaos.uninstall()
+        code, text = http_get(front.url, "/fleet/stats")
+        if code != 200:
+            raise AssertionError(f"fleet: /fleet/stats {code}: {text}")
+        stats = json.loads(text)
+        summary = {e["name"]: e for e in stats["replicas"]}
+        ledger = check_fleet_ledger(stats, submitted=FLEET_TOTAL)
+        err = max(worst_rel(r, old_net.output(x).cpu().numpy())
+                  for r, x in zip(replies[:64], reqs[:64]) if r is not None)
+        lat = stats["fleet"]["latency"]
+        out.update(
+            requests_per_s=FLEET_TOTAL / wall, failed=len(failed),
+            p50_ms=lat.get("p50_ms"), p99_ms=lat.get("p99_ms"),
+            failovers=stats["fleet"]["failovers"], killed=chaos_killed,
+            health_polls=[{k: bool(v) for k, v in p.items()}
+                          for p in polls],
+            ejections={n: e["ejections"] for n, e in summary.items()},
+            readmissions={n: e["readmissions"] for n, e in summary.items()},
+            client_balanced=ledger["client_balanced"],
+            ledger_failures=ledger["failures"],
+            ledger_balanced_recorded=ledger["balanced"],
+            replicas_reachable=ledger["replicas_reachable"],
+            max_rel_err=err)
+        if failed or chaos_killed != ["replica-0"] or \
+                not out["failovers"] >= 1:
+            raise AssertionError(f"fleet: storm {out}")
+        if not (ledger["client_balanced"] and not ledger["failures"]):
+            raise AssertionError(f"fleet: ledger {ledger}")
+        if not (summary["replica-0"]["ejections"] >= 1
+                and summary["replica-1"]["ejections"] >= 1
+                and summary["replica-1"]["readmissions"] >= 1
+                and summary["replica-1"]["breaker"] == "closed"):
+            raise AssertionError(f"fleet: ejection / re-admission not seen "
+                                 f"on /fleet/stats: {summary}")
+        if not err <= CLS_RTOL:
+            raise AssertionError(f"fleet: a reply is {err} from net.output")
+        # the rolling swap under live traffic
+        x = np.linspace(0, 1, 784, dtype=np.float32).reshape(1, 784)
+        old_out = old_net.output(x).cpu().numpy()
+        new_out = new_net.output(x).cpu().numpy()
+        stop, seen, bad = threading.Event(), [], []
+
+        def live():
+            while not stop.is_set():
+                r = http_json(front.url, "/model/predict",
+                              {"features": x.tolist()}, "swap")
+                if r["status"] != 200:
+                    bad.append(r["status"])
+                    return
+                o = np.asarray(r["body"]["outputs"])
+                is_old = worst_rel(o, old_out) <= CLS_RTOL
+                is_new = worst_rel(o, new_out) <= CLS_RTOL
+                if not (is_old or is_new):
+                    bad.append("mixed")
+                seen.append("new" if is_new else "old")
+
+        clients = [threading.Thread(target=live) for _ in range(8)]
+        for t in clients:
+            t.start()
+        t0 = time.perf_counter()
+        steps = router.rolling_swap(factory_of(new_net), grace_s=30.0)
+        swap_s = time.perf_counter() - t0
+        after = [http_json(front.url, "/model/predict",
+                           {"features": x.tolist()}, "after")
+                 for _ in range(16)]
+        stop.set()
+        for t in clients:
+            t.join(60)
+        after_ok = all(r["status"] == 200 and worst_rel(
+            r["body"]["outputs"], new_out) <= CLS_RTOL for r in after)
+        out["swap"] = {"steps": steps, "seconds": swap_s,
+                       "live_replies": len(seen), "errors": bad,
+                       "new_replies": seen.count("new"),
+                       "after_flip_all_new": after_ok,
+                       "versions": [r.version for r in router.replicas()]}
+        if bad or not after_ok or not seen:
+            raise AssertionError(f"fleet: rolling swap {out['swap']}")
+    finally:
+        front.stop()
+    del old_net, new_net
+    torch.cuda.empty_cache()
+    log(f"fleet: classifier storm {out['requests_per_s']:.1f} requests/s, "
+        f"failed {out['failed']}, {out['failovers']} failovers, p99 "
+        f"{out['p99_ms']} ms; ejections {out['ejections']}, re-admissions "
+        f"{out['readmissions']}; rolling swap {out['swap']['seconds']:.2f} "
+        f"s under {out['swap']['live_replies']} live replies, zero 5xx "
+        f"({card})")
+    return out
+
+
+def lm_replica(cfg, params, name: str, role: str = "both"):
+    from deeplearning4j_tpu_torch.serving import spawn_local_replica
+
+    return spawn_local_replica(
+        name, lm=(cfg, params), lm_slots=8, lm_page_size=16,
+        lm_prefill_chunk=16, role=role, device="cuda")
+
+
+def fleet_pools(router) -> list:
+    return [r.server.state.lm_server for r in router.replicas()
+            if r.server is not None and r.server.state.lm_server is not None]
+
+
+def width_delta(pools, before) -> dict:
+    """Dispatches by width over the pools since `before` (their widths
+    then), summed."""
+    out = {}
+    for srv, w0 in zip(pools, before):
+        for w, n in srv.stats()["dispatch_widths"].items():
+            if n - w0.get(w, 0):
+                out[w] = out.get(w, 0) + n - w0.get(w, 0)
+    return out
+
+
+def counted(fn, pools, need_b1: bool = True):
+    """Run `fn()` with the B1 and B2 counts set to 0 just before and read
+    just after; B1 held to n_layers x the pools' dispatches by width (and,
+    with `need_b1`, launched at least once)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel.kernels import flash_forward
+    from deeplearning4j_tpu_torch.parallel.paged_kernel import (
+        paged_flash_attention,
+    )
+
+    before = [dict(s.stats()["dispatch_widths"]) for s in pools]
+    torch.cuda.synchronize()
+    paged_flash_attention.launches.reset()
+    flash_forward.launches.reset()
+    result = fn()
+    torch.cuda.synchronize()
+    by_width = {str(c): n for c, n in sorted(
+        paged_flash_attention.launches.by_key().items())}
+    delta = width_delta(pools, before)
+    n_layers = pools[0].cfg.n_layers
+    want = {w: n_layers * n for w, n in delta.items()}
+    if by_width != want or (need_b1 and not by_width):
+        raise AssertionError(f"fleet: B1 launches by width {by_width} != "
+                             f"n_layers x dispatches by width {want}")
+    return result, {"b1_launches": paged_flash_attention.launches.value,
+                    "b1_launches_by_width": by_width,
+                    "dispatches_by_width": delta,
+                    "b2_launches": flash_forward.launches.value}
+
+
+def lm_fleet(cfg, params, check, reqs, card: str,
+             profile: bool = False) -> dict:
+    """2 `both` replicas of the bf16 gpt2_small behind a `FleetServer`:
+    the serve phase's 12 prompts through POST /lm/generate (every id by
+    the greedy rule, all on the affinity-preferred replica, B1 by width),
+    one top-k and one beam request (B2 = n_layers each), one SSE stream
+    relayed (its tokens make its done ids)."""
+    from deeplearning4j_tpu_torch.serving import FleetRouter, FleetServer
+
+    router = FleetRouter(lambda n: lm_replica(cfg, params, n), replicas=2,
+                         affinity_spill_depth=16,
+                         request_timeout_s=OPS_TIMEOUT_S)
+    front = FleetServer(router, port=0).start()
+    pools = fleet_pools(router)
+    out = {"card": card, "replicas": 2, "new_tokens": FLEET_LM_NEW}
+    try:
+        prof = profiled(profile)
+        t0 = time.perf_counter()
+        answers, launches = counted(lambda: concurrently([
+            (lambda i=i: http_json(front.url, "/lm/generate",
+                                   {"prompt_ids": reqs[i],
+                                    "max_new_tokens": FLEET_LM_NEW},
+                                   f"fleet-lm-{i}"))
+            for i in range(len(reqs))]), pools)
+        wall = time.perf_counter() - t0
+        if prof is not None:
+            prof.__exit__(None, None, None)
+            out["profile"] = device_breakdown(
+                prof, wall, sum(launches["dispatches_by_width"].values()))
+        checks = []
+        for prompt, a in zip(reqs, answers):
+            if a["status"] != 200:
+                raise AssertionError(f"fleet: {a['rid']} {a['status']} "
+                                     f"{a['body']}")
+            checks.append(check(prompt, a["body"]["ids"]))
+        per = [s.stats() for s in pools]
+        served = [p["requests"] for p in per]
+        hits = [p.get("prefix_hits", 0) for p in per]
+        out.update(launches, wall_s=wall,
+                   tokens_per_s=len(reqs) * FLEET_LM_NEW / wall,
+                   requests_by_replica=served, prefix_hits_by_replica=hits,
+                   **checks_summary(checks))
+        if sorted(served) != [0, len(reqs)] or sorted(hits)[0] != 0 \
+                or not max(hits):
+            raise AssertionError(f"fleet: the shared-prefix requests were "
+                                 f"not kept on one replica: {served}, "
+                                 f"prefix hits {hits}")
+        for name, body in (("top_k", {"top_k": 40, "seed": 3}),
+                           ("beam", {"beam_size": 4})):
+            ans, ln = counted(lambda body=body: http_json(
+                front.url, "/lm/generate",
+                dict(body, prompt_ids=reqs[0], max_new_tokens=16),
+                f"fleet-{name}"), pools, need_b1=False)
+            if ans["status"] != 200 or ln["b2_launches"] != cfg.n_layers:
+                raise AssertionError(f"fleet: {name}: {ans['status']}, B2 "
+                                     f"{ln['b2_launches']}")
+            ids = ans["body"]["ids"]
+            if ids[:len(reqs[0])] != reqs[0] or len(ids) != \
+                    len(reqs[0]) + 16 or max(ids) >= cfg.vocab_size:
+                raise AssertionError(f"fleet: {name} ids malformed")
+            out[f"{name}_b2_launches"] = ln["b2_launches"]
+        s = sse_request(front.url, {"prompt_ids": reqs[1],
+                                    "max_new_tokens": 16}, "fleet-sse")
+        if s["status"] != 200 or s["done"] != reqs[1] + s["tokens"] or \
+                len(s["tokens"]) != 16:
+            raise AssertionError(f"fleet: relayed stream {s}")
+        check(reqs[1], s["done"])
+        out["sse_ttft_ms"] = (s["t_first"] - s["t_send"]) * 1e3
+        for srv in pools:
+            if not srv.page_ledger()["balanced"]:
+                raise AssertionError("fleet: a page ledger is off")
+    finally:
+        front.stop()
+    log(f"fleet: LM fleet 12 requests on {out['requests_by_replica']} "
+        f"(prefix hits {out['prefix_hits_by_replica']}), "
+        f"{out['tokens_per_s']:.1f} tokens/s, B1 by width "
+        f"{out['b1_launches_by_width']}, B2 top-k "
+        f"{out['top_k_b2_launches']} beam {out['beam_b2_launches']}, a "
+        f"relayed stream's TTFT {out['sse_ttft_ms']:.1f} ms"
+        + (f", device idle {out['profile']['device_idle_share']:.3f}"
+           if profile else "") + f" ({card})")
+    return out
+
+
+def disagg_storm(router, check, longs, shorts, kill=None) -> dict:
+    """Long prompts through `generate` and short chats streamed through
+    `open_lm_stream` (sticky sessions), all at once; TTFT from the client
+    (the first ``data:`` event).  With `kill` the replica is stopped once
+    two long prompts are done."""
+    lock = threading.Lock()
+    failed, ttfts, done = [], [], [0]
+
+    def long_req(p):
+        try:
+            ids = router.generate(p, DISAGG_NEW_LONG, timeout=OPS_TIMEOUT_S)
+        except Exception as e:  # noqa: BLE001 — the storm counts failures
+            with lock:
+                failed.append(repr(e))
+            return None
+        with lock:
+            done[0] += 1
+            stop = kill is not None and done[0] == 2
+        if stop:
+            kill.kill()
+        return ids
+
+    def short_req(i, p):
+        t0 = time.perf_counter()
+        try:
+            resp = router.open_lm_stream(p, DISAGG_NEW_SHORT,
+                                         timeout=OPS_TIMEOUT_S,
+                                         session_id=f"chat-{i}")
+        except Exception as e:  # noqa: BLE001 — the storm counts failures
+            with lock:
+                failed.append(repr(e))
+            return None
+        first, buf = None, b""
+        try:
+            while True:
+                chunk = resp.read1(4096)
+                if not chunk:
+                    break
+                buf += chunk
+                if first is None and b"data: " in buf:
+                    first = time.perf_counter() - t0
+        finally:
+            resp.close()
+        ev = [e for e in buf.decode().split("\n\n")
+              if e.startswith("event: done")]
+        with lock:
+            if first is not None:
+                ttfts.append(first)
+        return json.loads(ev[0].split("data: ", 1)[1])["ids"] if ev else None
+
+    t0 = time.perf_counter()
+    results = concurrently(
+        [(lambda p=p: long_req(p)) for p in longs]
+        + [(lambda i=i, p=p: short_req(i, p)) for i, p in enumerate(shorts)])
+    wall = time.perf_counter() - t0
+    checks = [check(p, ids) for p, ids in zip(longs + shorts, results)
+              if ids is not None]
+    missing = sum(ids is None for ids in results)
+    tokens = (len(longs) * DISAGG_NEW_LONG + len(shorts) * DISAGG_NEW_SHORT)
+    return {"failed": len(failed) + missing, "errors": failed[:3],
+            "wall_s": wall, "tokens_per_s": tokens / wall,
+            "short_ttft_p50_ms": percentile_ms(ttfts, 0.50),
+            "short_ttft_p99_ms": percentile_ms(ttfts, 0.99),
+            **checks_summary(checks)}
+
+
+def disagg_fleet(cfg, params, check, card: str) -> dict:
+    """bench.py bench_disagg's topologies at gpt2_small width: 3 `both`
+    workers, then 1 prefill + 2 decode workers (prompts of at least
+    DISAGG_MIN_PROMPT tokens shipped); the same storm of 8 long prompts
+    and 16 short streamed chats on each; then a kill leg on the split
+    fleet (the prefill worker stopped mid-storm: zero failed, the later
+    long prompts recomputed on the decode workers)."""
+    from deeplearning4j_tpu_torch.serving import FleetRouter
+
+    rng = np.random.default_rng(11)
+    longs = [rng.integers(0, cfg.vocab_size, 272).tolist()
+             for _ in range(DISAGG_LONG)]
+    shorts = [rng.integers(0, cfg.vocab_size, 6).tolist()
+              for _ in range(DISAGG_SHORT)]
+    out = {"card": card, "long_prompts": DISAGG_LONG,
+           "short_chats": DISAGG_SHORT, "disagg_min_prompt":
+           DISAGG_MIN_PROMPT}
+    for name, roles in (("both", ("both",) * 3),
+                        ("split", ("prefill", "decode", "decode"))):
+        router = FleetRouter(disagg_min_prompt=DISAGG_MIN_PROMPT,
+                             request_timeout_s=OPS_TIMEOUT_S)
+        for i, role in enumerate(roles):
+            router.attach(lm_replica(cfg, params, f"{role}-{i}", role))
+        pools = fleet_pools(router)
+        try:
+            storm, launches = counted(
+                lambda: disagg_storm(router, check, longs, shorts), pools)
+            storm.update(launches, ships=router.ships,
+                         ship_fallbacks=router.ship_fallbacks)
+            if storm["failed"]:
+                raise AssertionError(f"fleet: {name} storm {storm}")
+            for srv in pools:
+                if not srv.page_ledger()["balanced"]:
+                    raise AssertionError(f"fleet: {name} page ledger off")
+            if name == "split":
+                ship = [s.stats().get("ship", {}) for s in pools]
+                storm["ship_out_ms_mean"] = ship[0].get("mean_ms")
+                storm["ship_in_ms_mean"] = [s.get("mean_ms")
+                                            for s in ship[1:]]
+                storm["frame_bytes_a_lane"] = (
+                    ship[0].get("ship_bytes", 0) / max(ship[0].get("out",
+                                                                   0), 1))
+                if router.ships != DISAGG_LONG or router.ship_fallbacks:
+                    raise AssertionError(f"fleet: shipped {router.ships} "
+                                         f"of {DISAGG_LONG} lanes")
+                # the prefill worker stops once two long prompts of the
+                # first wave are done; the second wave meets its corpse
+                ships0 = router.ships
+                waves = [disagg_storm(router, check, longs[:3], shorts[:4],
+                                      kill=router.replicas()[0]),
+                         disagg_storm(router, check, longs[3:6], shorts[4:8])]
+                kill = {"failed": sum(w["failed"] for w in waves),
+                        "errors": waves[0]["errors"] + waves[1]["errors"],
+                        "ships": router.ships - ships0,
+                        "ship_fallbacks": router.ship_fallbacks,
+                        "greedy_tokens": sum(w["greedy_tokens"]
+                                             for w in waves)}
+                if kill["failed"] or not kill["ship_fallbacks"]:
+                    raise AssertionError(f"fleet: kill leg {kill}")
+                out["kill_leg"] = kill
+            out[name] = storm
+        finally:
+            router.stop()
+    log(f"fleet: disaggregated vs 3 both workers: short-chat TTFT p50 "
+        f"{out['split']['short_ttft_p50_ms']:.1f} / "
+        f"{out['both']['short_ttft_p50_ms']:.1f} ms, p99 "
+        f"{out['split']['short_ttft_p99_ms']:.1f} / "
+        f"{out['both']['short_ttft_p99_ms']:.1f} ms, "
+        f"{out['split']['tokens_per_s']:.1f} / "
+        f"{out['both']['tokens_per_s']:.1f} tokens/s; {out['split']['ships']}"
+        f" lanes shipped (export {out['split']['ship_out_ms_mean']} ms a "
+        f"lane); kill leg failed {out['kill_leg']['failed']} with "
+        f"{out['kill_leg']['ship_fallbacks']} recomputes ({card})")
+    return out
+
+
+def fleet_phase(card: str, profile: bool = False) -> dict:
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel.transformer import (
+        gpt2_small,
+        numpy_params,
+        params_from_numpy,
+    )
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"card": card}
+    out["classifier"] = classifier_fleet(card)
+    cfg = gpt2_small(max_len=1024)
+    params = params_from_numpy(numpy_params(cfg, seed=0), device="cuda",
+                               dtype=cfg.dtype)
+    check = greedy_checker(cfg, params)
+    reqs = [p for p, _, _ in decode_requests(cfg)[:12]]
+    out["lm"] = lm_fleet(cfg, params, check, reqs, card, profile)
+    out["disagg"] = disagg_fleet(cfg, params, check, card)
+    del params, check
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=",".join(PHASES),
@@ -5239,7 +6550,8 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", action="store_true",
                     help="trace the serve load, the timed train and rnn "
                     "steps, the decode phase's speculating and plain "
-                    "pools and one more fit of each nlp row with "
+                    "pools, one more fit of each nlp row, the char-LSTM "
+                    "engine's storm and the LM fleet's storm with "
                     "torch.profiler and print device time by kernel "
                     "(slows them)")
     args = ap.parse_args(argv)
@@ -5334,6 +6646,10 @@ def main(argv=None) -> int:
     mobility = mobility_phase(card) if "mobility" in phases else None
     nlp = nlp_phase(card, profile=args.profile) if "nlp" in phases else None
     ops = ops_phase(card) if "ops" in phases else None
+    classify = (classify_phase(card, profile=args.profile)
+                if "classify" in phases else None)
+    fleet = (fleet_phase(card, profile=args.profile)
+             if "fleet" in phases else None)
 
     entries = []
     if kernels_line is not None:
@@ -5374,6 +6690,7 @@ def main(argv=None) -> int:
                 {"streams_by_width": ops["streams"]["b1_launches_by_width"],
                  "streams_dispatches_by_width": ops["streams"][
                      "dispatches_by_width"]} if ops else None),
+            "fleet_launches": fleet_launches(fleet, "b1_launches_by_width"),
             "split_plan": main_case["split_plan"],
             "float16": dict(dtype_summary(next(
                 c for c in kernels_line
@@ -5403,7 +6720,8 @@ def main(argv=None) -> int:
                 "replaces": replaces, "launches": launches,
                 "launches_per_step": (launches / train["steps"]
                                       if train else None),
-                **({"decode_launches": decode_launches(decode, "flash")}
+                **({"decode_launches": decode_launches(decode, "flash"),
+                    "fleet_launches": fleet_launches(fleet, "b2_launches")}
                    if kname == "flash_fwd" else {}),
                 "moe_launches": (
                     {"train": moe["launches"][kname],
@@ -5467,6 +6785,11 @@ def main(argv=None) -> int:
             "replaces": LSTM_REPLACES,
             "launches": rnn["launches"] if rnn else 0,
             "launches_per_step": rnn["launches_per_step"] if rnn else None,
+            "classify_launches": (
+                {"char_lstm_engine": classify["char_lstm"]["b5_launches"],
+                 "dispatches": classify["char_lstm"]["dispatches"],
+                 "warmup": classify["char_lstm"]["warmed"]}
+                if classify else None),
             "max_abs_err": max(lstm["worst_abs_err"].values()),
             "max_rel_err": lstm["worst_rel_err"],
             "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
@@ -5508,6 +6831,10 @@ def main(argv=None) -> int:
         print(json.dumps({"nlp": nlp}), flush=True)
     if ops is not None:
         print(json.dumps({"ops": ops}), flush=True)
+    if classify is not None:
+        print(json.dumps({"classify": classify}), flush=True)
+    if fleet is not None:
+        print(json.dumps({"fleet": fleet}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)

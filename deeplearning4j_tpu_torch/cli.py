@@ -38,8 +38,10 @@ routing ``-moe-top-k`` a token.  ``-generate`` then decodes from the
 prompt (whole-sequence `generate`, or `beam_search` with ``-beam`` > 1)
 and prints the text.
 
-    python -m deeplearning4j_tpu_torch.cli serve -lm <dir> [-port 8080]
-        [-lm-slots 4] [-lm-kv paged|dense] [-page-size 16] [-lm-pages 0]
+    python -m deeplearning4j_tpu_torch.cli serve [-model zoo:<name>|dir|conf]
+        [-quantize none|int8] [-buckets 1,8,32] [-max-batch 32]
+        [-max-wait-ms 2] [-lm <dir>] [-port 8080] [-lm-slots 4]
+        [-lm-kv paged|dense] [-page-size 16] [-lm-pages 0]
         [-prefill-chunk 8] [-lm-speculate off|ngram|model]
         [-lm-draft-len 4] [-lm-ship] [-lm-preempt] [-lm-swap-mb 64]
         [-lm-brownout] [-lm-hibernate-idle-s S] [-lm-disk-dir dir]
@@ -47,14 +49,33 @@ and prints the text.
         [-max-queue 256] [-deadline-ms 0] [-breaker-threshold 5]
         [-warmup] [-drain-stats serving_stats.json] [-device cuda|cpu]
 
-serves a saved LM over HTTP: ``POST /lm/generate`` (``stream: true``
-for SSE; ``/lm/prefill`` and ``/lm/admit_pages`` with ``-lm-ship``),
-``GET /serving/stats``, ``/metrics``, ``/trace/recent``, ``/healthz``,
+serves a classifier and/or a saved LM over HTTP: ``POST /model/predict``
+(the `ServingEngine`: requests coalesce within ``-max-wait-ms`` up to
+``-max-batch`` rows, padded up the ``-buckets`` ladder; ``-quantize
+int8`` serves int8 weights; ``-warmup`` runs every bucket first, for a
+dense first layer), ``POST /lm/generate`` (``stream: true`` for SSE;
+``/lm/prefill`` and ``/lm/admit_pages`` with ``-lm-ship``), ``GET
+/serving/stats``, ``/metrics``, ``/trace/recent``, ``/healthz``,
 ``/readyz``.  The device defaults to the card; SIGTERM drains in-flight
-work, writes the stats snapshot to ``-drain-stats`` and stops.  The
-classifier's ``serve`` flags (``-model``, ``-quantize``, ``-buckets``,
-``-max-batch``, ``-max-wait-ms``) and ``serve-fleet`` are not ported
-(ROADMAP.md, A5).
+work, writes the stats snapshot to ``-drain-stats`` and stops.
+
+    python -m deeplearning4j_tpu_torch.cli serve-fleet [-model ...]
+        [-lm <dir>] [-replicas 2] [-prefill-workers 0 -decode-workers 0]
+        [-disagg-min-prompt 32] [-health-interval-s 1] [-autoscale
+        -min-replicas 1 -max-replicas 8] [-drain-stats fleet_stats.json]
+        [the classifier and -lm-slots/-page-size/-prefill-chunk/-lm-ship
+        flags of serve] [-device cuda|cpu]
+
+serves the same through a fleet of thread-hosted replicas behind a
+`FleetRouter` (least-loaded with prefix affinity, failover,
+``/readyz`` health ejection, optional autoscale; with
+``-prefill-workers`` and ``-decode-workers`` long prompts are prefilled
+on one worker and their KV pages shipped to another) and one
+`FleetServer` front (``/model/predict``, ``/lm/generate``,
+``/fleet/stats``, ``/serving/stats``, ``/metrics``); SIGTERM drains the
+whole fleet and writes ``/fleet/stats`` to ``-drain-stats``.
+``-processes`` (a process per replica) is not ported (ROADMAP.md, A5
+part 2).
 """
 
 from __future__ import annotations
@@ -307,9 +328,25 @@ def cmd_predict(args) -> int:
     return 0
 
 
-def cmd_serve(args) -> int:
-    from deeplearning4j_tpu_torch.ui.server import UiServer
+def _warmup_example(net, cmd: str, warmup: bool):
+    """The flat-input warmup rule of the JAX CLI: one zero row of the
+    first layer's ``n_in`` features for a dense first layer; for conv or
+    recurrent first layers ``n_in`` is channels or per-step features, so
+    -warmup is skipped with a note (the first request per bucket runs
+    it instead)."""
+    from deeplearning4j_tpu_torch.nn.conf import DenseLayerConf
 
+    first = net.conf.layers[0]
+    flat = isinstance(first, DenseLayerConf) and first.n_in
+    if warmup and not flat:
+        print(f"{cmd}: -warmup skipped (non-flat input layer "
+              f"{type(first).__name__}); the first request per bucket "
+              f"runs it instead")
+    return (np.zeros((int(first.n_in),), np.float32) if warmup and flat
+            else None)
+
+
+def _check_lm_flags(args) -> None:
     if args.lm_speculate != "off" and args.lm_kv != "paged":
         raise SystemExit("serve: -lm-speculate requires -lm-kv paged "
                          "(speculative rollback rides the page tables)")
@@ -328,21 +365,12 @@ def cmd_serve(args) -> int:
         raise SystemExit("serve: -lm-disk-dir needs -lm-hibernate-idle-s "
                          "or -lm-preempt (nothing would ever reach the "
                          "disk tier)")
-    max_queue = args.max_queue if args.max_queue > 0 else None
-    deadline_s = args.deadline_ms / 1e3 if args.deadline_ms > 0 else None
-    breaker_n = (args.breaker_threshold if args.breaker_threshold > 0
-                 else None)
-    tenants = None
-    if args.tenants:
-        from deeplearning4j_tpu_torch.serving.tenancy import TenantRegistry
 
-        try:
-            tenants = TenantRegistry.from_json(args.tenants)
-        except (TypeError, ValueError) as e:
-            raise SystemExit(f"serve: -tenants: {e}") from e
-    device = resolve_device(args.device)
+
+def _serve_lm(srv, args, device, max_queue, deadline_s, breaker_n,
+              tenants) -> None:
+    """The LM leg of ``serve``: register the saved LM and report it."""
     cfg, params = load_saved_lm(pathlib.Path(args.lm), device=device)
-    srv = UiServer(host=args.host, port=args.port)
     srv.serve_lm(cfg, params, slots=args.lm_slots,
                  max_queue_depth=max_queue, default_deadline_s=deadline_s,
                  breaker_threshold=breaker_n, tenants=tenants,
@@ -381,18 +409,12 @@ def cmd_serve(args) -> int:
     print(f"serve: LM registered ({cfg.n_layers}L/d{cfg.d_model}, "
           f"max_len {cfg.max_len}, {args.lm_slots} decode slots, "
           f"{kv_note}, {warm_note}, device {device})")
-    srv.start()
-    print(f"serve: resilience max_queue={max_queue or 'unbounded'} "
-          f"deadline_ms={args.deadline_ms or 'none'} "
-          f"breaker_threshold={breaker_n or 'off'} "
-          f"drain_grace_s={args.drain_grace_s}")
-    if tenants is not None:
-        names = ", ".join(tenants.names())
-        print(f"serve: tenancy on — WFQ + token quotas for [{names}] "
-              f"(X-Tenant header or 'tenant' field; unknown tenants "
-              f"get 400, over-quota gets 429 + Retry-After)")
-    print(f"Serving on {srv.url} — POST /lm/generate; GET /serving/stats, "
-          f"/metrics, /trace/recent, /healthz, /readyz", flush=True)
+
+
+def _wait_for_sigterm(args, cmd: str, drain, snapshot, stop) -> None:
+    """Serve until ``-serve-seconds`` pass or SIGTERM; on SIGTERM drain
+    (grace ``-drain-grace-s``) and write the stats snapshot to
+    ``-drain-stats``; stop either way."""
     term = threading.Event()
     prev = None
     if threading.current_thread() is threading.main_thread():
@@ -407,24 +429,186 @@ def cmd_serve(args) -> int:
         pass
     finally:
         if term.is_set():
-            print(f"serve: SIGTERM — draining (grace "
-                  f"{args.drain_grace_s}s)")
-            drained = srv.drain(args.drain_grace_s)
+            print(f"{cmd}: SIGTERM — draining (grace "
+                  f"{args.drain_grace_s}s)", flush=True)
+            drained = drain(args.drain_grace_s)
             stats_path = pathlib.Path(args.drain_stats)
             try:
-                stats_path.write_text(json.dumps(srv.serving_stats(),
-                                                 indent=2))
+                stats_path.write_text(json.dumps(snapshot(), indent=2))
                 where = str(stats_path)
             except OSError as e:
                 # a lost snapshot must not leave the server running or
                 # the signal handler installed
                 where = f"LOST ({e})"
-            print(f"serve: drain "
+            print(f"{cmd}: drain "
                   f"{'complete' if drained else 'grace expired'}; stats "
                   f"snapshot -> {where}", flush=True)
-        srv.stop()
+        stop()
         if prev is not None:
             signal.signal(signal.SIGTERM, prev)
+
+
+def cmd_serve(args) -> int:
+    from deeplearning4j_tpu_torch.serving.bucketing import BucketLadder
+    from deeplearning4j_tpu_torch.ui.server import UiServer
+
+    if not args.model and not args.lm:
+        raise SystemExit("serve needs -model and/or -lm")
+    if args.lm:
+        _check_lm_flags(args)
+    max_queue = args.max_queue if args.max_queue > 0 else None
+    deadline_s = args.deadline_ms / 1e3 if args.deadline_ms > 0 else None
+    breaker_n = (args.breaker_threshold if args.breaker_threshold > 0
+                 else None)
+    tenants = None
+    if args.tenants:
+        from deeplearning4j_tpu_torch.serving.tenancy import TenantRegistry
+
+        try:
+            tenants = TenantRegistry.from_json(args.tenants)
+        except (TypeError, ValueError) as e:
+            raise SystemExit(f"serve: -tenants: {e}") from e
+    device = resolve_device(args.device)
+    srv = UiServer(host=args.host, port=args.port, device=device)
+    if args.model:
+        net = _build_net(args.model, device)
+        ladder = BucketLadder(tuple(
+            int(b) for b in args.buckets.split(",")))
+        quantize = args.quantize if args.quantize != "none" else None
+        srv.serve_model(net, max_batch=min(args.max_batch, ladder.max_batch),
+                        max_wait_ms=args.max_wait_ms, ladder=ladder,
+                        max_queue_depth=max_queue,
+                        default_deadline_s=deadline_s,
+                        breaker_threshold=breaker_n, quantize=quantize,
+                        tenants=tenants)
+        engine = srv.state.engine
+        if quantize:
+            rep = engine._model().quantization_report()
+            ratio = rep["float_param_bytes"] / max(rep["param_bytes"], 1)
+            print(f"serve: {quantize} weights — "
+                  f"{rep['quantized_layers']}/{rep['total_layers']} layers "
+                  f"quantized, {rep['param_bytes']:,} param bytes "
+                  f"({ratio:.1f}x smaller than fp32)")
+        example = _warmup_example(net, "serve", args.warmup)
+        if example is not None:
+            print(f"serve: ran {engine.warmup(example)} bucket shapes "
+                  f"before traffic")
+        print(f"serve: model registered (ladder {list(ladder.batch_buckets)},"
+              f" max_batch {engine.batcher.max_batch}, max_wait_ms "
+              f"{args.max_wait_ms}, device {net.device})")
+    if args.lm:
+        _serve_lm(srv, args, device, max_queue, deadline_s, breaker_n,
+                  tenants)
+    srv.start()
+    print(f"serve: resilience max_queue={max_queue or 'unbounded'} "
+          f"deadline_ms={args.deadline_ms or 'none'} "
+          f"breaker_threshold={breaker_n or 'off'} "
+          f"drain_grace_s={args.drain_grace_s}")
+    if tenants is not None:
+        names = ", ".join(tenants.names())
+        print(f"serve: tenancy on — WFQ + token quotas for [{names}] "
+              f"(X-Tenant header or 'tenant' field; unknown tenants "
+              f"get 400, over-quota gets 429 + Retry-After)")
+    print(f"Serving on {srv.url} — POST /model/predict, /lm/generate; "
+          f"GET /serving/stats, /metrics, /trace/recent, /healthz, "
+          f"/readyz", flush=True)
+    _wait_for_sigterm(args, "serve", srv.drain, srv.serving_stats, srv.stop)
+    return 0
+
+
+def cmd_serve_fleet(args) -> int:
+    """Serve a classifier and/or a saved LM through a fleet of
+    thread-hosted replicas behind a `FleetRouter` and one `FleetServer`
+    front; SIGTERM drains the whole fleet and snapshots /fleet/stats."""
+    from deeplearning4j_tpu_torch.serving import (
+        BucketLadder,
+        FleetRouter,
+        FleetServer,
+        spawn_local_replica,
+    )
+
+    if not args.model and not args.lm:
+        raise SystemExit("serve-fleet needs -model and/or -lm")
+    if args.replicas < 1:
+        raise SystemExit(f"-replicas must be >= 1, got {args.replicas}")
+    role_split = args.prefill_workers > 0 or args.decode_workers > 0
+    if role_split:
+        # role scheduling is an LM feature: a classifier-only fleet has
+        # nothing to split
+        if not args.lm:
+            raise SystemExit(
+                "serve-fleet: -prefill-workers/-decode-workers need -lm")
+        if args.prefill_workers < 1 or args.decode_workers < 1:
+            raise SystemExit(
+                "serve-fleet: a disaggregated fleet needs BOTH "
+                "-prefill-workers >= 1 and -decode-workers >= 1 "
+                f"(got {args.prefill_workers}/{args.decode_workers})")
+    if args.processes:
+        raise SystemExit("serve-fleet -processes: process-per-replica "
+                         "fleets are not ported (ROADMAP.md, A5 part 2); "
+                         "omit -processes for thread-hosted replicas")
+    max_queue = args.max_queue if args.max_queue > 0 else None
+    deadline_s = args.deadline_ms / 1e3 if args.deadline_ms > 0 else None
+    breaker_n = (args.breaker_threshold if args.breaker_threshold > 0
+                 else None)
+    quantize = args.quantize if args.quantize != "none" else None
+    device = resolve_device(args.device)
+    net = _build_net(args.model, device) if args.model else None
+    lm_pair = (load_saved_lm(pathlib.Path(args.lm), device=device)
+               if args.lm else None)
+    buckets = tuple(int(b) for b in args.buckets.split(","))
+    warmup_example = (_warmup_example(net, "serve-fleet", args.warmup)
+                      if net is not None else None)
+
+    def spawn(name: str, role: str):
+        ladder = BucketLadder(buckets)
+        return spawn_local_replica(
+            name, net, host=args.host, ladder=ladder,
+            max_batch=min(args.max_batch, ladder.max_batch),
+            max_wait_ms=args.max_wait_ms, warmup_example=warmup_example,
+            max_queue_depth=max_queue, default_deadline_s=deadline_s,
+            breaker_threshold=breaker_n, quantize=quantize,
+            lm=lm_pair, lm_slots=args.lm_slots,
+            lm_page_size=args.page_size,
+            lm_prefill_chunk=args.prefill_chunk,
+            lm_ship=bool(args.lm_ship), role=role, device=device)
+
+    def factory(name: str, role: str = None):
+        # autoscale and rolling-swap spawns: a role-aware scale-up names
+        # the role pool it grows; unnamed spawns buy decode capacity in
+        # a role-split fleet, "both" otherwise
+        if role is None:
+            role = "decode" if role_split else "both"
+        return spawn(name, role)
+
+    router = FleetRouter(
+        factory, replicas=0 if role_split else args.replicas,
+        min_replicas=min(args.min_replicas, args.replicas),
+        max_replicas=max(args.max_replicas, args.replicas),
+        health_interval_s=args.health_interval_s,
+        disagg_min_prompt=args.disagg_min_prompt)
+    if role_split:
+        for i in range(args.prefill_workers):
+            router.attach(spawn(f"prefill-{i}", "prefill"))
+        for i in range(args.decode_workers):
+            router.attach(spawn(f"decode-{i}", "decode"))
+    router.autoscale = bool(args.autoscale)
+    front = FleetServer(router, host=args.host, port=args.port).start()
+    router.start_health_loop()
+    names = ", ".join(f"{r.name}[{r.role}]" if r.role != "both"
+                      else r.name for r in router.replicas())
+    print(f"serve-fleet: {len(router.replicas())} warm replicas in "
+          f"rotation ({names}); health every {args.health_interval_s}s; "
+          f"autoscale {'on' if args.autoscale else 'off'} "
+          f"[{router.min_replicas}, {router.max_replicas}]"
+          + (f"; disagg: prompts >= {args.disagg_min_prompt} tokens "
+             f"split prefill->decode" if role_split else "")
+          + f"; device {device}")
+    print(f"Serving fleet on {front.url} — POST /model/predict, "
+          f"/lm/generate; GET /fleet/stats, /serving/stats, /metrics, "
+          f"/trace/recent, /healthz, /readyz", flush=True)
+    _wait_for_sigterm(args, "serve-fleet", front.drain, router.fleet_stats,
+                      front.stop)
     return 0
 
 
@@ -656,25 +840,77 @@ def build_parser() -> argparse.ArgumentParser:
     data_args(p)
     p.set_defaults(func=cmd_predict)
 
-    p = sub.add_parser("serve", help="serve a saved LM over HTTP")
-    p.add_argument("-lm", "--lm", required=True,
+    def classifier_args(p, fleet: bool = False):
+        p.add_argument("-model", "--model", default=None,
+                       help="zoo:<name>, a conf JSON, or a saved model dir "
+                       "for POST /model/predict")
+        p.add_argument("-max-batch", "--max-batch", dest="max_batch",
+                       type=int, default=32,
+                       help="most rows one coalesced dispatch carries")
+        p.add_argument("-max-wait-ms", "--max-wait-ms", dest="max_wait_ms",
+                       type=float, default=2.0,
+                       help="how long the micro-batcher holds a request "
+                       "open for co-travellers")
+        p.add_argument("-buckets", "--buckets", default="1,8,32",
+                       help="comma-separated batch bucket ladder; every "
+                       "dispatch pads up to the next bucket")
+        p.add_argument("-quantize", "--quantize", choices=["none", "int8"],
+                       default="none",
+                       help="serve int8 per-channel weight-quantized dense "
+                       "and conv layers")
+        p.add_argument("-host", "--host", default="127.0.0.1")
+        p.add_argument("-port", "--port", type=int, default=8080,
+                       help="0 picks a free port" + (
+                           "; each replica gets its own free port"
+                           if fleet else ""))
+        p.add_argument("-device", "--device", default=None,
+                       help="cuda (default) or cpu")
+        p.add_argument("-serve-seconds", "--serve-seconds",
+                       dest="serve_seconds", type=float, default=0.0,
+                       help="stop after this many seconds (0 = until "
+                       "SIGTERM)")
+        p.add_argument("-drain-grace-s", "--drain-grace-s",
+                       dest="drain_grace_s", type=float, default=5.0,
+                       help="SIGTERM grace window: seconds to let queued "
+                       "and in-flight work finish before stopping")
+        p.add_argument("-max-queue", "--max-queue", dest="max_queue",
+                       type=int, default=256,
+                       help="bounded admission: queued requests past this "
+                       "depth are refused with 503 + Retry-After (0 = "
+                       "unbounded)")
+        p.add_argument("-deadline-ms", "--deadline-ms", dest="deadline_ms",
+                       type=float, default=0,
+                       help="default per-request deadline; expired "
+                       "requests are shed before dispatch as 504 (0 = "
+                       "none; a request's deadline_ms or X-Deadline-Ms "
+                       "overrides it)")
+        p.add_argument("-breaker-threshold", "--breaker-threshold",
+                       dest="breaker_threshold", type=int, default=5,
+                       help="circuit breaker: consecutive failed dispatches "
+                       "before admission fails fast (0 = no breaker)")
+        p.add_argument("-warmup", "--warmup", action="store_true",
+                       help="run every bucket shape (and LM dispatch width) "
+                       "before accepting traffic")
+        p.add_argument("-lm-slots", "--lm-slots", dest="lm_slots", type=int,
+                       default=4, help="concurrent decode lanes")
+        p.add_argument("-page-size", "--page-size", dest="page_size",
+                       type=int, default=16, help="tokens per KV page")
+        p.add_argument("-prefill-chunk", "--prefill-chunk",
+                       dest="prefill_chunk", type=int, default=8,
+                       help="prompt tokens fed per dispatch")
+
+    p = sub.add_parser("serve", help="serve a classifier and/or a saved LM "
+                       "over HTTP")
+    classifier_args(p)
+    p.add_argument("-lm", "--lm", default=None,
                    help="directory holding lm_config.json + lm_params.npz")
-    p.add_argument("-host", "--host", default="127.0.0.1")
-    p.add_argument("-port", "--port", type=int, default=8080)
-    p.add_argument("-lm-slots", "--lm-slots", dest="lm_slots", type=int,
-                   default=4, help="concurrent decode lanes")
     p.add_argument("-lm-kv", "--lm-kv", dest="lm_kv",
                    choices=("paged", "dense"), default="paged",
                    help="KV cache of the pool: the paged pool with radix "
                    "prefix reuse (default) or a dense max_len row per slot")
-    p.add_argument("-page-size", "--page-size", dest="page_size", type=int,
-                   default=16, help="tokens per KV page")
     p.add_argument("-lm-pages", "--lm-pages", dest="lm_pages", type=int,
                    default=0, help="usable KV pages (0 = slots x "
                    "pages per max_len sequence)")
-    p.add_argument("-prefill-chunk", "--prefill-chunk",
-                   dest="prefill_chunk", type=int, default=8,
-                   help="prompt tokens fed per dispatch")
     p.add_argument("-lm-speculate", "--lm-speculate", dest="lm_speculate",
                    choices=("off", "ngram", "model"), default="off",
                    help="speculative decoding of greedy lanes (paged KV "
@@ -721,36 +957,10 @@ def build_parser() -> argparse.ArgumentParser:
                    default="on",
                    help="per-page int8 swapped-out and hibernated frames "
                    "(~4x smaller); 'off' keeps exact bytes")
-    p.add_argument("-device", "--device", default=None,
-                   help="cuda (default) or cpu")
-    p.add_argument("-serve-seconds", "--serve-seconds",
-                   dest="serve_seconds", type=float, default=0.0,
-                   help="stop after this many seconds (0 = until SIGTERM)")
-    p.add_argument("-drain-grace-s", "--drain-grace-s",
-                   dest="drain_grace_s", type=float, default=5.0,
-                   help="SIGTERM grace window: seconds to let queued and "
-                   "in-flight work finish before stopping")
     p.add_argument("-drain-stats", "--drain-stats", dest="drain_stats",
                    default="serving_stats.json",
                    help="path of the /serving/stats snapshot written on a "
                    "SIGTERM drain")
-    p.add_argument("-max-queue", "--max-queue", dest="max_queue", type=int,
-                   default=256,
-                   help="bounded admission: queued requests past this "
-                   "depth are refused with 503 + Retry-After (0 = "
-                   "unbounded)")
-    p.add_argument("-deadline-ms", "--deadline-ms", dest="deadline_ms",
-                   type=float, default=0,
-                   help="default per-request deadline; expired requests "
-                   "are shed before decode as 504 (0 = none; a request's "
-                   "deadline_ms or X-Deadline-Ms overrides it)")
-    p.add_argument("-breaker-threshold", "--breaker-threshold",
-                   dest="breaker_threshold", type=int, default=5,
-                   help="circuit breaker: consecutive failed dispatches "
-                   "before admission fails fast (0 = no breaker)")
-    p.add_argument("-warmup", "--warmup", action="store_true",
-                   help="run every dispatch width before accepting "
-                   "traffic")
     p.add_argument("-tenants", "--tenants", default=None,
                    help="multi-tenant traffic shaping (JSON): tenant name "
                    "-> spec, e.g. '{\"interactive\": {\"weight\": 4, "
@@ -759,6 +969,59 @@ def build_parser() -> argparse.ArgumentParser:
                    "burst, slo_ms and slo_budget; the 'default' tenant "
                    "always exists")
     p.set_defaults(func=cmd_serve)
+
+    p = sub.add_parser("serve-fleet", help="serve a classifier and/or a "
+                       "saved LM through a fleet of thread-hosted replicas "
+                       "behind a failover router")
+    classifier_args(p, fleet=True)
+    p.add_argument("-lm", "--lm", default=None,
+                   help="saved LM dir served by every replica's paged pool")
+    p.add_argument("-replicas", "--replicas", type=int, default=2,
+                   help="replicas spawned into rotation (ignored when "
+                   "-prefill-workers/-decode-workers split the fleet)")
+    p.add_argument("-prefill-workers", "--prefill-workers",
+                   dest="prefill_workers", type=int, default=0,
+                   help="replicas that prefill long prompts and ship the "
+                   "KV pages to decode workers (needs -lm and "
+                   "-decode-workers)")
+    p.add_argument("-decode-workers", "--decode-workers",
+                   dest="decode_workers", type=int, default=0,
+                   help="replicas that run the token loop (and take "
+                   "short prompts directly)")
+    p.add_argument("-disagg-min-prompt", "--disagg-min-prompt",
+                   dest="disagg_min_prompt", type=int, default=32,
+                   help="prompts at least this long split prefill->decode "
+                   "when prefill workers exist")
+    p.add_argument("-lm-ship", "--lm-ship", dest="lm_ship",
+                   action="store_true",
+                   help="page shipping on both-role replicas too (sticky "
+                   "session spill-over ships instead of recomputing)")
+    p.add_argument("-health-interval-s", "--health-interval-s",
+                   dest="health_interval_s", type=float, default=1.0,
+                   help="router /readyz poll interval")
+    p.add_argument("-autoscale", "--autoscale", action="store_true",
+                   help="queue-depth-driven scale up/down through "
+                   "graceful drain")
+    p.add_argument("-min-replicas", "--min-replicas", dest="min_replicas",
+                   type=int, default=1)
+    p.add_argument("-max-replicas", "--max-replicas", dest="max_replicas",
+                   type=int, default=8)
+    p.add_argument("-drain-stats", "--drain-stats", dest="drain_stats",
+                   default="fleet_stats.json",
+                   help="where the final /fleet/stats snapshot is written "
+                   "on a SIGTERM drain")
+    # accepted so that a JAX command line fails with the reason
+    p.add_argument("-processes", "--processes", action="store_true",
+                   help="not ported (process-per-replica)")
+    for flag, kind in (("worker-base-port", int), ("worker-log-dir", str),
+                       ("restart-backoff-s", float),
+                       ("crash-loop-threshold", int),
+                       ("crash-loop-window-s", float),
+                       ("ready-timeout-s", float)):
+        p.add_argument(f"-{flag}", f"--{flag}",
+                       dest=flag.replace("-", "_"), type=kind, default=None,
+                       help="with -processes (not ported)")
+    p.set_defaults(func=cmd_serve_fleet)
 
     p = sub.add_parser("lm", help="train a TransformerLM on raw text "
                        "and save it")

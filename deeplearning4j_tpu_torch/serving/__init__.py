@@ -1,4 +1,7 @@
 """Serving plane of the port (counterpart of `deeplearning4j_tpu.serving`):
+the classifier `ServingEngine` behind the `MicroBatcher`
+(`serving.engine`, `serving.batcher`), the thread-hosted replica fleet
+behind the `FleetRouter` and its `FleetServer` front (`serving.fleet`),
 the continuous LM server over a paged or dense KV cache, its page
 allocator and radix prefix cache, the speculative drafters
 (`serving.draft`), the KV page frame (`serving.transfer`), priorities,
@@ -7,9 +10,22 @@ state store (`serving.hibernate`), tenancy (`serving.tenancy`), the
 bucket ladder (`serving.bucketing`), metrics, typed failures and the
 circuit breaker."""
 
+from deeplearning4j_tpu_torch.serving.batcher import MicroBatcher
 from deeplearning4j_tpu_torch.serving.bucketing import (
     BucketLadder,
     pow2_length_buckets,
+)
+from deeplearning4j_tpu_torch.serving.engine import ServingEngine
+from deeplearning4j_tpu_torch.serving.fleet import (
+    FleetClientError,
+    FleetRouter,
+    FleetServer,
+    ROLE_BOTH,
+    ROLE_DECODE,
+    ROLE_PREFILL,
+    Replica,
+    check_fleet_ledger,
+    spawn_local_replica,
 )
 from deeplearning4j_tpu_torch.serving.lm import (
     ContinuousLMServer,
@@ -43,9 +59,18 @@ __all__ = [
     "CircuitOpenError",
     "ContinuousLMServer",
     "DeadlineExceededError",
+    "FleetClientError",
+    "FleetRouter",
+    "FleetServer",
+    "MicroBatcher",
     "PageLeakError",
     "PagePool",
     "RadixPrefixCache",
+    "ROLE_BOTH",
+    "ROLE_DECODE",
+    "ROLE_PREFILL",
+    "Replica",
+    "ServingEngine",
     "ServingError",
     "ServingMetrics",
     "ServingOverloadError",
@@ -55,6 +80,8 @@ __all__ = [
     "TenantSpec",
     "UnservableShapeError",
     "check_admission",
+    "check_fleet_ledger",
     "pow2_length_buckets",
+    "spawn_local_replica",
     "validate_request",
 ]

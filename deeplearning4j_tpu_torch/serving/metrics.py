@@ -1,12 +1,13 @@
-"""Serving metrics for the LM pool (counterpart of
-`deeplearning4j_tpu.serving.metrics`).
+"""Serving metrics for the classifier engine, the LM pool and the fleet
+router (counterpart of `deeplearning4j_tpu.serving.metrics`).
 
-Throughput is bought with occupancy (real lanes per dispatch); latency is
+Throughput is bought with occupancy (real rows or lanes per dispatch);
+latency is
 spent in queue wait plus device compute.  The cells are `obs.registry`
 metric objects, so one source feeds both ``GET /serving/stats``
 (`snapshot()`, under the JAX package's key names) and the Prometheus
-exposition at ``GET /metrics`` (`register_into(registry, plane="lm")`
-publishes every cell under a plane label, the per-tenant cells too, as
+exposition at ``GET /metrics`` (`register_into(registry, plane=...)`,
+``classifier``, ``lm`` or ``fleet``, publishes every cell under a plane label, the per-tenant cells too, as
 they appear).  Each optional section of the snapshot (prefix cache,
 speculation, shipping, priority classes, tenants, swap, hibernation,
 brownout) appears once its plane has fired.
@@ -56,7 +57,8 @@ def _ms(summary: Dict[str, float]) -> Dict[str, float]:
 
 
 class ServingMetrics:
-    """Thread-safe counters shared by the LM server and its HTTP front."""
+    """Thread-safe counters shared by the micro-batcher, the LM server
+    and their HTTP fronts."""
 
     def __init__(self, latency_window: int = 4096):
         self._lock = threading.Lock()
@@ -86,9 +88,9 @@ class ServingMetrics:
         self.deadline_missed_total = Counter(
             "serving_deadline_missed_total",
             "failed because the deadline passed")
-        # written only by the classifier batcher's poison bisection
-        # (not ported); the LM plane publishes it at 0, as the JAX
-        # package's LM plane does
+        # written only by the classifier batcher's poison bisection;
+        # the LM plane publishes it at 0, as the JAX package's LM plane
+        # does
         self.poison_isolated_total = Counter(
             "serving_poison_isolated_total",
             "requests isolated as poison by bisection")
@@ -358,6 +360,10 @@ class ServingMetrics:
     def record_deadline_missed(self, n: int = 1) -> None:
         self._touch()
         self.deadline_missed_total.inc(int(n))
+
+    def record_poison_isolated(self, n: int = 1) -> None:
+        self._touch()
+        self.poison_isolated_total.inc(int(n))
 
     def record_decode_round(self, emitted: int, drafted: int = 0,
                             accepted: int = 0) -> None:

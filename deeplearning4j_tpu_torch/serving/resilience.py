@@ -267,10 +267,14 @@ class ServingHTTPServer(ThreadingHTTPServer):
     explicit (`ui/server.py`'s `_UiHTTPServer`): SO_REUSEADDR so a drained-and-stopped server's port can be re-bound
     by its replacement immediately (the rolling-swap / restart path must
     not wait out TIME_WAIT), and daemon handler threads so a wedged
-    client connection cannot hold the process open."""
+    client connection cannot hold the process open.  The listen backlog
+    is 128 connections, not socketserver's 5: a burst of concurrent
+    clients (a fleet front under a storm of 32, the router's fan-out to
+    a replica) must queue for a handler thread, not be reset."""
 
     allow_reuse_address = True
     daemon_threads = True
+    request_queue_size = 128
 
 
 class ServingHTTPMixin:

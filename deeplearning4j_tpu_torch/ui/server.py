@@ -1,7 +1,33 @@
-"""HTTP serving front for the LM pool (subset of
+"""The UI and serving HTTP front (counterpart of
 `deeplearning4j_tpu.ui.server`).
 
-Endpoints:
+Dashboard and visualization endpoints (the reference's `UiServer.run()`
+resources, as JSON):
+
+- ``GET /``                   the dashboard page (the JAX package's bytes)
+- ``POST|GET /api/coords``    upload / fetch 2-D coords
+- ``POST /tsne/upload``       high-dim vectors + labels;
+  ``POST /tsne/generate`` runs exact t-SNE on the device
+  (`plot.Tsne`); ``GET /tsne/coords`` fetches the result
+- ``POST /nearestneighbors/upload`` labelled vectors;
+  ``POST /nearestneighbors`` ``{"word"|"vector", "k"}`` -> knn by VPTree
+- ``POST|GET /weights``       the training listener's posts
+  (`HistogramIterationListener`); GET answers the count, the last 200
+  scores and the last post (1000 kept)
+- ``POST|GET /activations``   an activation grid
+
+Classifier serving (`UiServer.serve_model(net)`):
+
+- ``POST /model/predict``  ``{"features": [[...]], "deadline_ms": ms,
+  "tenant": t}`` -> ``{"predictions", "outputs"}``; concurrent requests
+  coalesce in the `ServingEngine`'s micro-batcher.  No model is a 400,
+  a draining or stopped server a 503 ("server stopped: model
+  unregistered"), a full queue or open breaker a 503 with
+  ``Retry-After``, a tenant over quota a 429, a missed deadline a 504,
+  an off-ladder shape a 400.  An untyped failure of these JSON routes is
+  a 400 carrying the exception's repr, as on the JAX front.
+
+LM serving (`UiServer.serve_lm(cfg, params)`):
 
 - ``POST /lm/generate``  ``{"prompt_ids": [...], "max_new_tokens": N,
   "temperature": t, "seed": s, "deadline_ms": ms, "top_k": k, "top_p": p,
@@ -27,16 +53,22 @@ Endpoints:
 - ``POST /lm/admit_pages``  a shipment in (binary) -> ``{"ids": [...]}``;
   a frame that fails its integrity or geometry checks is a 422 with
   ``"kind": "page_ship"`` (recompute locally).
-- ``GET /serving/stats``  the pool's metrics snapshot.
+
+Both planes:
+
+- ``GET /serving/stats``  ``{"classifier", "lm", "uptime_s",
+  "snapshot_at"}``: each registered plane's metrics snapshot (None when
+  absent).
 - ``GET /metrics``        Prometheus text of the server's registry (the
-  pool's ``plane="lm"`` cells, the per-tenant cells, uptime).
-- ``GET /trace/recent``   recent request traces (``queue_wait`` and
-  ``decode`` spans); ``?format=chrome`` gives Chrome trace-event JSON.
-  A request may carry ``X-Request-Id`` (echoed on the response, the SSE
-  leg included; minted when absent).
+  ``plane="classifier"`` and ``plane="lm"`` cells, the per-tenant cells,
+  uptime).
+- ``GET /trace/recent``   recent request traces (``queue_wait``,
+  ``dispatch`` / ``decode`` spans); ``?format=chrome`` gives Chrome
+  trace-event JSON.  A request may carry ``X-Request-Id`` (echoed on the
+  response, the SSE leg included; minted when absent).
 - ``GET /healthz``        liveness: 200 while the process serves HTTP.
-- ``GET /readyz``         readiness: 200 only while the pool admits and
-  its breaker is not open.
+- ``GET /readyz``         readiness: 200 only while every registered
+  plane admits and no breaker is open.
 
 Failures go through `ServingHTTPMixin.respond_typed_failure`: a full
 queue, an open breaker, a brownout shed or a draining server is 503 with
@@ -51,6 +83,8 @@ import threading
 import time
 from http.server import BaseHTTPRequestHandler
 from typing import Any, List, Optional
+
+import numpy as np
 
 from deeplearning4j_tpu_torch.obs.registry import (
     EXPOSITION_CONTENT_TYPE,
@@ -79,23 +113,110 @@ from deeplearning4j_tpu_torch.serving.transfer import (
 )
 
 
+_DASHBOARD = """<!DOCTYPE html>
+<html><head><meta charset="utf-8"><title>deeplearning4j_tpu</title>
+<style>
+ body{font-family:system-ui,sans-serif;margin:1.5rem;background:#fafafa}
+ h1{font-size:1.2rem} h2{font-size:1rem;margin:1.2rem 0 .3rem}
+ .card{background:#fff;border:1px solid #ddd;border-radius:6px;
+       padding:.8rem;margin-bottom:1rem;max-width:720px}
+ svg{width:100%;height:220px;background:#fcfcfc;border:1px solid #eee}
+ .muted{color:#777;font-size:.85rem}
+</style></head><body>
+<h1>deeplearning4j_tpu — training dashboard</h1>
+<div class="card"><h2>Training score (from /weights posts)</h2>
+ <svg id="score" viewBox="0 0 600 220" preserveAspectRatio="none"></svg>
+ <div class="muted" id="scoreinfo">waiting for HistogramIterationListener
+ posts…</div></div>
+<div class="card"><h2>Latest weight histogram</h2>
+ <svg id="hist" viewBox="0 0 600 220" preserveAspectRatio="none"></svg>
+ <div class="muted" id="histinfo"></div></div>
+<div class="card"><h2>t-SNE coords (from /tsne/generate)</h2>
+ <svg id="tsne" viewBox="0 0 600 220"></svg></div>
+<script>
+function poly(el, pts, color){
+  el.innerHTML = pts.length >= 2
+    ? '<polyline fill="none" stroke="'+color+'" stroke-width="2" points="'
+      + pts.map(p=>p.join(',')).join(' ') + '"/>' : '';
+}
+function scale(vals, lo, hi){
+  const mn=Math.min(...vals), mx=Math.max(...vals), r=(mx-mn)||1;
+  return vals.map(v=> lo + (v-mn)/r*(hi-lo));
+}
+async function tick(){
+  try{
+    const w = await (await fetch('/weights')).json();
+    if(w.count){
+      document.getElementById('scoreinfo').textContent =
+        w.count+' posts; last iteration '+(w.last.iteration??'?')
+        +', score '+(w.last.score??'?');
+      const scores=(w.history||[]).map(h=>h.score);
+      if(scores.length){
+        const ys=scale(scores.map(v=>-v),10,210);
+        const xs=scale(scores.map((_,i)=>i),10,590);
+        poly(document.getElementById('score'), xs.map((x,i)=>[x,ys[i]]),
+             '#1669c1');
+      }
+      try{
+        const h = w.last.histograms && Object.entries(w.last.histograms)[0];
+        const bins = h && (Array.isArray(h[1].counts)?h[1].counts
+                          :(Array.isArray(h[1])?h[1]:null));
+        if(bins && bins.length){
+          document.getElementById('histinfo').textContent=h[0];
+          const bw=580/bins.length, mx=Math.max(...bins)||1;
+          document.getElementById('hist').innerHTML = bins.map((c,i)=>
+            '<rect x="'+(10+i*bw)+'" y="'+(210-200*c/mx)+'" width="'
+            +(bw-1)+'" height="'+(200*c/mx)+'" fill="#52a447"/>').join('');
+        }
+      }catch(e){/* malformed histogram post must not block t-SNE */}
+    }
+    const t = await (await fetch('/tsne/coords')).json();
+    if(t.coords && t.coords.length){
+      const xs=scale(t.coords.map(c=>c[0]),10,590);
+      const ys=scale(t.coords.map(c=>c[1]),10,210);
+      document.getElementById('tsne').innerHTML = xs.map((x,i)=>
+        '<circle cx="'+x+'" cy="'+ys[i]+'" r="3" fill="#c14a16"/>'
+      ).join('');
+    }
+  }catch(e){/* server may not have data yet */}
+  setTimeout(tick, 2000);
+}
+tick();
+</script></body></html>
+"""
+
+
 class _UiState:
-    def __init__(self):
+    def __init__(self, device=None):
         self.lock = threading.Lock()
-        # the serving plane publishes its cells here (GET /metrics) and
-        # records its request traces here (GET /trace/recent)
+        # the serving planes publish their cells here (GET /metrics) and
+        # record their request traces here (GET /trace/recent)
         self.registry = MetricsRegistry()
         self.tracer = TraceRecorder()
         self.registry.gauge(
             "server_uptime_seconds", "seconds since server construction",
             fn=lambda: self.registry.uptime_s)
+        self.device = device           # of /tsne/generate (None = card)
+        self.coords: List[List[float]] = []
+        self.tsne_vectors: Optional[np.ndarray] = None
+        self.tsne_labels: List[str] = []
+        self.tsne_coords: List[List[float]] = []
+        self.nn_vectors: Optional[np.ndarray] = None
+        self.nn_labels: List[str] = []
+        self.nn_tree = None
+        self.weights_history: List[dict] = []
+        self.activations: Optional[List] = None
+        self.engine = None             # serving.ServingEngine (serve_model)
         self.lm_server: Optional[ContinuousLMServer] = None
         self.draining = False
 
     def serving_stats(self) -> dict:
+        """THE /serving/stats payload, one builder for the HTTP endpoint
+        and the drain snapshot."""
         with self.lock:
-            lm_server = self.lm_server
-        return {"lm": lm_server.stats() if lm_server else None,
+            engine, lm_server = self.engine, self.lm_server
+        return {"classifier": engine.stats() if engine else None,
+                "lm": lm_server.stats() if lm_server else None,
                 "uptime_s": round(self.registry.uptime_s, 3),
                 "snapshot_at": time.monotonic()}
 
@@ -111,7 +232,9 @@ class _Handler(ServingHTTPMixin, BaseHTTPRequestHandler):
     def do_GET(self) -> None:  # noqa: N802
         s = self.state
         path, _, query = self.path.partition("?")
-        if path == "/metrics":
+        if path in ("/", "/index.html"):
+            self._send(200, "text/html; charset=utf-8", _DASHBOARD.encode())
+        elif path == "/metrics":
             self._send(200, EXPOSITION_CONTENT_TYPE,
                        s.registry.exposition().encode())
         elif path == "/trace/recent":
@@ -127,10 +250,13 @@ class _Handler(ServingHTTPMixin, BaseHTTPRequestHandler):
             self._json(200, {"ok": True})
         elif path == "/readyz":
             with s.lock:
-                lm_server, draining = s.lm_server, s.draining
+                engine, lm_server = s.engine, s.lm_server
+                draining = s.draining
             reasons = []
             if draining:
                 reasons.append("draining")
+            if engine is not None and not engine.ready():
+                reasons.append("classifier engine not ready")
             if lm_server is not None and not lm_server.ready():
                 reasons.append("lm server not ready")
             if reasons:
@@ -139,7 +265,32 @@ class _Handler(ServingHTTPMixin, BaseHTTPRequestHandler):
             else:
                 self._json(200, {"ready": True})
         else:
-            self._json(404, {"error": f"unknown path {self.path}"})
+            self._get_dashboard_state()
+
+    def _get_dashboard_state(self) -> None:
+        """The dashboard's JSON GETs (exact paths, as the JAX front
+        matches them)."""
+        s = self.state
+        with s.lock:
+            if self.path == "/api/coords":
+                self._json(200, {"coords": s.coords})
+            elif self.path == "/tsne/coords":
+                self._json(200, {"coords": s.tsne_coords,
+                                 "labels": s.tsne_labels})
+            elif self.path == "/weights":
+                hist = [{"iteration": h.get("iteration"),
+                         "score": h.get("score")}
+                        for h in s.weights_history[-200:]
+                        if isinstance(h, dict) and h.get("score") is not None]
+                self._json(200, {
+                    "count": len(s.weights_history),
+                    "history": hist,
+                    "last": s.weights_history[-1] if s.weights_history
+                    else None})
+            elif self.path == "/activations":
+                self._json(200, {"activations": s.activations})
+            else:
+                self._json(404, {"error": f"unknown path {self.path}"})
 
     def do_POST(self) -> None:  # noqa: N802
         routes = {"/lm/generate": self._lm_generate,
@@ -147,7 +298,7 @@ class _Handler(ServingHTTPMixin, BaseHTTPRequestHandler):
                   "/lm/admit_pages": self._lm_admit_pages}
         route = routes.get(self.path)
         if route is None:
-            self._json(404, {"error": f"unknown path {self.path}"})
+            self._json_post()
             return
         try:
             length = int(self.headers.get("Content-Length", 0))
@@ -174,6 +325,129 @@ class _Handler(ServingHTTPMixin, BaseHTTPRequestHandler):
                 # decode (a failed dispatch) is a 400, and the server
                 # keeps serving
                 self._json(400, {"error": repr(e)})
+
+    def _json_post(self) -> None:
+        """The classifier and dashboard POSTs, with the JAX front's
+        structure: a malformed body is a 400 naming the parse error; a
+        typed serving failure maps to its status; any other failure is a
+        400 carrying its repr, and the server keeps serving."""
+        try:
+            body = self._body()
+        except ValueError as e:           # JSONDecodeError is a ValueError
+            self._json(400, {"error": str(e)})
+            return
+        try:
+            self._route_post(body)
+        except Exception as e:  # noqa: BLE001 — surface as 400, keep serving
+            if not self.respond_typed_failure(e):
+                self._json(400, {"error": repr(e)})
+
+    def _route_post(self, body: Any) -> None:
+        s = self.state
+        if self.path == "/api/coords":
+            with s.lock:
+                s.coords = body["coords"]
+            self._json(200, {"count": len(s.coords)})
+        elif self.path == "/tsne/upload":
+            with s.lock:
+                s.tsne_vectors = np.asarray(body["vectors"], np.float32)
+                s.tsne_labels = body.get("labels",
+                                         [str(i) for i in
+                                          range(len(s.tsne_vectors))])
+            self._json(200, {"count": len(s.tsne_vectors)})
+        elif self.path == "/tsne/generate":
+            from deeplearning4j_tpu_torch.plot import Tsne
+
+            with s.lock:
+                vectors = s.tsne_vectors
+            if vectors is None:
+                self._json(400, {"error": "upload vectors first"})
+                return
+            tsne = Tsne(
+                perplexity=float(body.get("perplexity", 30.0)),
+                n_iter=int(body.get("iterations", 300)),
+                learning_rate=float(body.get("learning_rate", 100.0)),
+                device=s.device)
+            coords = tsne.calculate(vectors).tolist()
+            with s.lock:
+                s.tsne_coords = coords
+            self._json(200, {"coords": coords, "labels": s.tsne_labels})
+        elif self.path == "/nearestneighbors/upload":
+            from deeplearning4j_tpu_torch.clustering import VPTree
+
+            with s.lock:
+                s.nn_vectors = np.asarray(body["vectors"], np.float32)
+                s.nn_labels = body.get(
+                    "labels", [str(i) for i in range(len(s.nn_vectors))])
+                s.nn_tree = VPTree(s.nn_vectors, labels=s.nn_labels,
+                                   distance=body.get("distance", "euclidean"))
+            self._json(200, {"count": len(s.nn_vectors)})
+        elif self.path == "/nearestneighbors":
+            with s.lock:
+                tree, labels, vectors = s.nn_tree, s.nn_labels, s.nn_vectors
+            if tree is None:
+                self._json(400, {"error": "upload vectors first"})
+                return
+            k = int(body.get("k", 5))
+            if "word" in body:
+                if body["word"] not in labels:
+                    self._json(404, {"error": f"unknown word {body['word']}"})
+                    return
+                query = vectors[labels.index(body["word"])]
+            else:
+                query = np.asarray(body["vector"], np.float32)
+            hits = tree.knn(query, k)
+            self._json(200, {"neighbors": [
+                {"label": lbl, "distance": float(d)} for d, lbl in hits]})
+        elif self.path == "/weights":
+            with s.lock:
+                s.weights_history.append(body)
+                if len(s.weights_history) > 1000:
+                    s.weights_history = s.weights_history[-1000:]
+            self._json(200, {"count": len(s.weights_history)})
+        elif self.path == "/activations":
+            with s.lock:
+                s.activations = body["activations"]
+            self._json(200, {"ok": True})
+        elif self.path == "/model/predict":
+            self._model_predict(body)
+        else:
+            self._json(404, {"error": f"unknown path {self.path}"})
+
+    def _model_predict(self, body: Any) -> None:
+        """Batched classifier inference: the request's rows ride whatever
+        coalesced dispatch the micro-batcher forms."""
+        s = self.state
+        with s.lock:
+            engine, stopping = s.engine, s.draining
+        if engine is None:
+            if stopping:
+                # the model WAS here: a draining or stopping server is a
+                # 503 (a fleet router fails over), never the payload's 400
+                raise ServingUnavailableError(
+                    "server stopped: model unregistered")
+            self._json(400, {"error": "no model registered: call "
+                                      "UiServer.serve_model(net)"})
+            return
+        feats = body.get("features")
+        if not feats:
+            self._json(400, {"error": "features required"})
+            return
+        try:
+            deadline_s = self._deadline_s(body)
+            tenant = self._tenant(body)
+            x = np.asarray(feats, np.float32)
+            # an unknown tenant is a ValueError (400 here); a tenant over
+            # quota a TenantQuotaError (the typed 429 in _json_post)
+            probs = engine.predict_proba(x, deadline_s=deadline_s,
+                                         request_id=self.request_id(),
+                                         tenant=tenant)
+        except (ValueError, TypeError) as e:
+            self._json(400, {"error": str(e)})
+            return
+        self._json(200, {
+            "predictions": np.argmax(probs, axis=-1).tolist(),
+            "outputs": np.asarray(probs).tolist()})
 
     def _lm_server(self) -> ContinuousLMServer:
         """The registered pool; a stopped server is 503, none is 400."""
@@ -376,12 +650,16 @@ class _Handler(ServingHTTPMixin, BaseHTTPRequestHandler):
 
 
 class UiServer:
-    """`UiServer(port=0).serve_lm(cfg, params).start()`; `.url` for
-    clients; `.stop()` to halt."""
+    """`UiServer(port=0).serve_lm(cfg, params).start()` (or
+    `.serve_model(net)`); `.url` for clients; `.stop()` to halt.
+    `device` is where ``/tsne/generate`` runs (None = the card); the
+    served models stay on their own devices."""
 
-    def __init__(self, host: str = "127.0.0.1", port: int = 8080):
+    def __init__(self, host: str = "127.0.0.1", port: int = 8080,
+                 device=None):
         self._server = ServingHTTPServer((host, port), _Handler)
-        self._server.ui_state = _UiState()  # type: ignore[attr-defined]
+        self._server.ui_state = _UiState(  # type: ignore[attr-defined]
+            device)
         self._thread = threading.Thread(target=self._server.serve_forever,
                                         daemon=True)
 
@@ -453,6 +731,44 @@ class UiServer:
             old.stop()
         return self
 
+    def serve_model(self, net, max_batch: int = 32,
+                    max_wait_ms: float = 2.0, ladder=None,
+                    warmup_example=None,
+                    max_queue_depth: Optional[int] = None,
+                    default_deadline_s: Optional[float] = None,
+                    breaker_threshold: Optional[int] = 5,
+                    breaker_cooldown_s: float = 1.0,
+                    quantize: Optional[str] = None,
+                    tenants=None) -> "UiServer":
+        """Register a `MultiLayerNetwork` (on its own device) behind the
+        micro-batcher for ``POST /model/predict``.  `warmup_example` (one
+        example row) runs every bucket-ladder shape before traffic.
+        `max_queue_depth`, `default_deadline_s` and the breaker knobs
+        configure admission; `quantize="int8"` serves per-channel int8
+        weights; `tenants` installs the per-tenant quota gate.  The
+        engine publishes on this server's registry (``plane=
+        "classifier"``) and traces into its recorder."""
+        from deeplearning4j_tpu_torch.serving.engine import ServingEngine
+
+        engine = ServingEngine(net, ladder=ladder, max_batch=max_batch,
+                               max_wait_ms=max_wait_ms,
+                               max_queue_depth=max_queue_depth,
+                               default_deadline_s=default_deadline_s,
+                               breaker_threshold=breaker_threshold,
+                               breaker_cooldown_s=breaker_cooldown_s,
+                               quantize=quantize,
+                               tracer=self.state.tracer,
+                               registry=self.state.registry,
+                               tenants=tenants)
+        if warmup_example is not None:
+            engine.warmup(warmup_example)
+        with self.state.lock:
+            old = self.state.engine
+            self.state.engine = engine
+        if old is not None:
+            old.stop()
+        return self
+
     def start(self) -> "UiServer":
         self._thread.start()
         return self
@@ -461,28 +777,43 @@ class UiServer:
         return self.state.serving_stats()
 
     def begin_drain(self) -> None:
-        """Stop admission: new requests get 503 and /readyz flips, while
-        queued and in-flight work keeps running."""
+        """Stop admission on every plane: new requests get 503 and
+        /readyz flips, while queued and in-flight work keeps running."""
         with self.state.lock:
             self.state.draining = True
-            lm_server = self.state.lm_server
+            engine, lm_server = self.state.engine, self.state.lm_server
+        if engine is not None:
+            engine.begin_drain()
         if lm_server is not None:
             lm_server.begin_drain()
 
     def drain(self, grace_s: float = 5.0) -> bool:
-        """Graceful drain; True when the pool fully drained in time."""
+        """Graceful drain: stop admission, then give in-flight work up to
+        `grace_s` (total); True when every plane fully drained in time."""
         self.begin_drain()
         with self.state.lock:
-            lm_server = self.state.lm_server
-        return lm_server.drain(grace_s) if lm_server is not None else True
+            engine, lm_server = self.state.engine, self.state.lm_server
+        deadline = time.perf_counter() + max(0.0, grace_s)
+        drained = True
+        if engine is not None:
+            drained &= engine.drain(max(0.0, deadline - time.perf_counter()))
+        if lm_server is not None:
+            drained &= lm_server.drain(
+                max(0.0, deadline - time.perf_counter()))
+        return drained
 
     def stop(self) -> None:
         if self._thread.is_alive():
             self._server.shutdown()
         self._server.server_close()
         with self.state.lock:
+            # handler threads that got in before the close read the
+            # nulled planes as `draining`: 503, not 400
             self.state.draining = True
+            engine, self.state.engine = self.state.engine, None
             lm_server, self.state.lm_server = self.state.lm_server, None
+        if engine is not None:
+            engine.stop()
         if lm_server is not None:
             lm_server.stop()
 

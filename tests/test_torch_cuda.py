@@ -17,7 +17,9 @@ word-embedding family has no hand kernel: its HS, NEG and GloVe steps
 fit on the card must separate two topics.  The operations plane runs
 here too: an SSE stream over HTTP, the circuit breaker opening on
 injected dispatch faults and closing on a probe, and a throttled
-tenant's ledger.
+tenant's ledger.  So does classifier serving: the `ServingEngine` over a
+char-LSTM launching the LSTM kernel once a dispatch, and a 2-replica LM
+fleet launching the paged kernel n_layers times a dispatch by width.
 
 Every test carries the ``cuda`` marker and decides inside the test
 whether a card is present, skipping with a reason when not (the kernels
@@ -1709,3 +1711,112 @@ def test_tenant_ledger_on_the_card_balances():
         assert srv.page_ledger()["balanced"]
     finally:
         srv.stop()
+
+
+def test_engine_over_the_char_lstm_launches_b5_once_a_dispatch():
+    """The `ServingEngine` over a bf16 char-LSTM on a ladder without
+    length buckets: no mask, so every dispatch (and each warmup bucket)
+    runs the fused scan, one kernel launch each; replies within 2e-2 of
+    the f32 net on the same weights."""
+    _need_card()
+    import threading
+
+    from deeplearning4j_tpu_torch.models import (
+        MultiLayerNetwork,
+        char_lstm,
+        params_from_numpy,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
+    from deeplearning4j_tpu_torch.serving import BucketLadder, ServingEngine
+
+    net = MultiLayerNetwork(char_lstm(vocab_size=20, hidden=64,
+                                      compute_dtype="bfloat16")).init()
+    ref = MultiLayerNetwork(char_lstm(vocab_size=20, hidden=64)).init()
+    ref.params = params_from_numpy(ref, [
+        {k: v.detach().float().cpu().numpy() for k, v in layer.items()}
+        for layer in net.params])
+    eye = np.eye(20, dtype=np.float32)
+    rng = np.random.default_rng(2)
+    reqs = [eye[rng.integers(0, 20, (int(rng.integers(1, 5)), 16))]
+            for _ in range(12)]
+    engine = ServingEngine(net, ladder=BucketLadder((1, 8, 16)),
+                           max_batch=16)
+    try:
+        lk.fused_lstm_forward.launches.reset()
+        assert engine.warmup(np.zeros((16, 20), np.float32)) == 3
+        out = [None] * len(reqs)
+
+        def client(i):
+            out[i] = engine.predict_proba(reqs[i])
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(reqs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        torch.cuda.synchronize()
+        stats = engine.stats()
+        assert lk.fused_lstm_forward.launches.value == \
+            stats["dispatches"] + 3
+    finally:
+        engine.stop()
+    for x, got in zip(reqs, out):
+        want = ref.output(x).float().cpu().numpy()
+        assert got.shape == want.shape
+        assert np.abs(got - want).max() <= 2e-2
+
+
+def test_lm_fleet_on_the_card_launches_b1_by_width():
+    """Two thread-hosted replicas of one LM on the card behind a
+    `FleetRouter`: concurrent greedy requests equal `generate`, and the
+    paged kernel ran n_layers times a dispatch at each width, summed over
+    both replicas' pools."""
+    _need_card()
+    import threading
+
+    from deeplearning4j_tpu_torch.parallel.generation import generate
+    from deeplearning4j_tpu_torch.serving import (
+        FleetRouter,
+        spawn_local_replica,
+    )
+
+    cfg = tt.TransformerConfig(vocab_size=256, d_model=64, n_heads=4,
+                               n_layers=2, d_ff=128, max_len=128)
+    params = tt.params_from_numpy(tt.numpy_params(cfg, seed=0),
+                                  device="cuda")
+    router = FleetRouter(lambda n: spawn_local_replica(
+        n, lm=(cfg, params), lm_slots=4, lm_page_size=16,
+        lm_prefill_chunk=16, device="cuda"), replicas=2)
+    rng = np.random.default_rng(3)
+    prompts = [[int(t) for t in rng.integers(0, 256, int(n))]
+               for n in rng.integers(10, 40, 6)]
+    pools = [r.server.state.lm_server for r in router.replicas()]
+    try:
+        before = [dict(p.stats()["dispatch_widths"]) for p in pools]
+        torch.cuda.synchronize()
+        tpk.paged_flash_attention.launches.reset()
+        out = [None] * len(prompts)
+
+        def client(i):
+            out[i] = router.generate(prompts[i], 8, timeout=300)
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        torch.cuda.synchronize()
+        want = {}
+        for p, w0 in zip(pools, before):
+            for w, n in p.stats()["dispatch_widths"].items():
+                want[w] = want.get(w, 0) + cfg.n_layers * (n - w0.get(w, 0))
+        got = {str(c): n for c, n in
+               tpk.paged_flash_attention.launches.by_key().items()}
+        assert got == {w: n for w, n in want.items() if n} and got
+        for p, ids in zip(prompts, out):
+            assert ids == generate(cfg, params, [p], 8,
+                                   device="cuda")[0].tolist()
+    finally:
+        router.stop()

@@ -15,6 +15,10 @@ package, on the CPU.
 - The behaviours of the JAX package's `TestWord2Vec`, `TestGlove` and
   `TestParagraphVectors` hold on the port; with no card the entry points
   raise.
+- The float32 bound `chip_smoke.py` holds the card's steps to: a step run
+  in another summation order (a shuffled batch, standing in for the
+  card's atomics) stays within it of the float64 recompute, where the old
+  fixed card-vs-CPU rule (1e-5 relative) fails.
 """
 
 import os
@@ -565,3 +569,191 @@ def test_empty_vocabulary_and_corpus_errors():
         tnlp.Glove(**CPU).fit(["a"])
     with pytest.raises(ValueError, match="build vocab"):
         tnlp.Glove(**CPU).partial_fit(["a b"])
+
+
+# ---- the float32 bounds of the nlp card check (chip_smoke.py) ---------------
+
+
+def _duplicate_heavy_hs_batch(b=4096, v=300, d=64, path=6):
+    """An HS batch whose every pair shares one target's path, with input
+    rows of alternating sign along one direction, in an order that adds
+    all the positive rows first: the order an atomics schedule may pick,
+    and the one where float32 summation drifts most."""
+    rng = np.random.default_rng(0)
+    points = torch.from_numpy(rng.integers(0, v - 1, (v, path))).long()
+    codes = torch.from_numpy(rng.integers(0, 2, (v, path))).long()
+    hs = (points, codes, torch.full((v,), path, dtype=torch.long))
+    direction = rng.standard_normal(d).astype(np.float32)
+    sign = np.where(np.arange(v) % 2 == 0, 1.0, -1.0).astype(np.float32)
+    syn0 = torch.from_numpy((sign[:, None] * direction[None, :]
+                             + 0.01 * rng.standard_normal((v, d))
+                             ).astype(np.float32))
+    syn1 = torch.from_numpy(rng.standard_normal((v - 1, d)).astype(
+        np.float32) * 1e-3)
+    inputs = torch.from_numpy(rng.integers(0, v, b)).long()
+    inputs = inputs[torch.argsort(inputs % 2, stable=True)]
+    targets = torch.full((b,), 7, dtype=torch.long)
+    return hs, syn0, syn1, inputs, targets
+
+
+def _hs_leg(b=4096):
+    """(make(order) -> run, tables, bounds(order)) of the HS batch above."""
+    import chip_smoke
+
+    hs, syn0, syn1, inputs, targets = _duplicate_heavy_hs_batch(b=b)
+
+    def make(order):
+        def run(t):
+            return tw2v.hs_step(t[0], t[1], hs, inputs[order],
+                                targets[order], 0.025,
+                                torch.ones(b, dtype=t[0].dtype))
+        return run
+
+    def bounds(order):
+        return chip_smoke.hs_step_bounds([syn0, syn1], hs, inputs[order],
+                                         targets[order], 0.025)
+    return make, [syn0, syn1], bounds
+
+
+def _zipf_leg(step, v=400, d=32, b=2048):
+    """The same for a NEG or GloVe batch with zipf-skewed duplicate rows."""
+    import chip_smoke
+
+    from deeplearning4j_tpu_torch.nlp.glove import glove_step
+
+    rng = np.random.default_rng(3)
+    ii = torch.from_numpy(rng.zipf(1.3, b) % v).long()
+    jj = torch.from_numpy(rng.integers(0, v, b)).long()
+    if step == "neg":
+        negs = torch.from_numpy(rng.zipf(1.3, (b, 5)) % v).long()
+        tables = [torch.from_numpy(rng.standard_normal((v, d)).astype(
+            np.float32) * 0.3) for _ in range(2)]
+
+        def make(order):
+            def run(t):
+                return tw2v.neg_step(t[0], t[1], ii[order], jj[order],
+                                     negs[order], 0.025,
+                                     torch.ones(b, dtype=t[0].dtype))
+            return run
+
+        def bounds(order):
+            return chip_smoke.neg_step_bounds(tables, ii[order], jj[order],
+                                              negs[order], 0.025)
+        return make, tables, bounds
+    xx = torch.from_numpy(rng.random(b).astype(np.float32) * 50 + 0.5)
+    tables = [torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32) * 0.1) for shape in ((v, d), (v, d), (v,), (v,))]
+    tables += [torch.from_numpy(rng.random(tuple(t.shape)).astype(
+        np.float32)) for t in tables]
+
+    def make(order):
+        def run(t):
+            return glove_step(tuple(t[:4]), tuple(t[4:]), ii[order],
+                              jj[order], xx[order].to(t[0].dtype),
+                              torch.ones(b, dtype=t[0].dtype), 0.05,
+                              100.0, 0.75)
+        return run
+
+    def bounds(order):
+        return chip_smoke.glove_step_bounds(tables, ii[order], jj[order],
+                                            xx[order], 0.05, 100.0, 0.75)
+    return make, tables, bounds
+
+
+def _leg(step):
+    return _hs_leg() if step == "hs" else _zipf_leg(step)
+
+
+def _ratios(make, tables, bounds, order, wrong=None):
+    """The float32 run in `order` held to the float64 one; `wrong(source)`,
+    if given, rewrites the first add's source before the recording sees
+    it, as a card computing a wrong update would."""
+    import chip_smoke
+
+    run = make(order)
+    if wrong is not None:
+        inner = run
+
+        def run(t):
+            recording = torch.Tensor.index_add_
+            first = []
+
+            def rewrite(self, dim, index, source, *, alpha=1):
+                if not first:
+                    first.append(True)
+                    source = wrong(source.clone())
+                return recording(self, dim, index, source, alpha=alpha)
+            torch.Tensor.index_add_ = rewrite
+            try:
+                return inner(t)
+            finally:
+                torch.Tensor.index_add_ = recording
+    ref = chip_smoke.recorded_step(make(order), tables, "cpu", "float64")
+    got = chip_smoke.recorded_step(run, tables, "cpu", "float32")
+    return chip_smoke.scatter_bound_ratio(tables, got, ref, bounds(order)), got
+
+
+def test_nlp_card_check_bound_holds_where_the_old_rule_failed():
+    make, tables, bounds = _hs_leg()
+    b = 4096
+    results = []
+    for seed in (None, 1, 2):
+        order = (torch.arange(b) if seed is None else torch.from_numpy(
+            np.random.default_rng(seed).permutation(b)))
+        ratio, got = _ratios(make, tables, bounds, order)
+        assert max(ratio["updates"], ratio["tables"], ratio["loss"]) <= 1.0, \
+            ratio
+        results.append(got)
+    # the old rule: the touched rows of another order within 1e-5 of the
+    # in-order run, relative to their largest value; it fails here
+    rows = _duplicate_heavy_hs_batch()[0][0][7]
+    old = max(float((r["tables"][1][rows] - results[0]["tables"][1][rows])
+                    .abs().max() / results[0]["tables"][1][rows].abs().max())
+              for r in results[1:])
+    assert old > 1e-5
+
+
+@pytest.mark.parametrize("step", ["neg", "glove"])
+def test_nlp_card_check_bound_holds_in_any_order(step):
+    make, tables, bounds = _leg(step)
+    b = 2048
+    for seed in (None, 5):
+        order = (torch.arange(b) if seed is None else torch.from_numpy(
+            np.random.default_rng(seed).permutation(b)))
+        ratio, _ = _ratios(make, tables, bounds, order)
+        assert max(ratio["updates"], ratio["tables"], ratio["loss"]) <= 1.0, \
+            ratio
+
+
+@pytest.mark.parametrize("step", ["hs", "neg", "glove"])
+def test_nlp_card_check_catches_an_update_off_by_one_percent(step):
+    """A card that scales one row of one update by 1.01 (and adds what it
+    computed) fails the update check: no bound is measured from the run
+    under test."""
+    make, tables, bounds = _leg(step)
+    b = 4096 if step == "hs" else 2048
+    order = torch.arange(b)
+
+    def scaled(source):
+        row = int(source.reshape(source.shape[0], -1).abs().sum(1).argmax())
+        source[row] *= 1.01
+        return source
+    ratio, _ = _ratios(make, tables, bounds, order, wrong=scaled)
+    assert ratio["updates"] > 1.0, ratio
+
+
+def test_nlp_card_check_catches_a_doubled_add_and_a_nan():
+    """An update added twice fails the table check; a NaN reads as inf."""
+    import chip_smoke
+
+    make, tables, bounds = _hs_leg(b=512)
+    order = torch.arange(512)
+    _, got = _ratios(make, tables, bounds, order)
+    ref = chip_smoke.recorded_step(make(order), tables, "cpu", "float64")
+    _, rows, d = got["adds"][1]
+    got["tables"][1].index_add_(0, rows[:1], d[:1].float())
+    assert chip_smoke.scatter_bound_ratio(tables, got, ref,
+                                          bounds(order))["tables"] > 1.0
+    got["tables"][1][0, 0] = float("nan")
+    assert chip_smoke.scatter_bound_ratio(
+        tables, got, ref, bounds(order))["tables"] == float("inf")
