@@ -2,8 +2,9 @@
 """Drive the PyTorch port's LM serving and training paths, its
 `MultiLayerNetwork` (the char-LSTM, the conv nets, DBN pretraining, the
 solvers, the training CLI and the precision plane), its word embeddings
-(Word2Vec, GloVe, ParagraphVectors), classifier serving and the serving
-fleet on one NVIDIA GPU and check them.
+(Word2Vec, GloVe, ParagraphVectors), classifier serving, the serving
+fleet in threads and in supervised worker processes, and supervised,
+checkpointed training on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # every phase, from the repo root
 
@@ -277,6 +278,46 @@ Phases (any failure exits non-zero, and no result line is printed):
              / p99, tokens/s; shipped lanes counted, ids by the greedy
              rule, page ledgers balanced, B1 by width), and a kill leg
              (the prefill worker stopped mid-storm: zero failed).
+19. procfleet — process-hosted fleets: 3 ``cli serve -lm`` workers of
+             the bf16 ``gpt2_small(max_len=1024)`` (8 slots, page 16,
+             chunk 16; the weights `numpy_params(seed=0)` saved in `cli
+             lm`'s format) and one ``serve -model zoo:mnist-mlp`` worker,
+             each its own process on the card (the kernels built once by
+             the parent, loaded by the workers), under two
+             `FleetSupervisor`s behind `FleetServer` fronts.  The 12
+             prompts of the fleet phase through POST /lm/generate with a
+             SIGKILL of the worker serving dispatch attempt 4 (classified
+             crash, restarted after backoff, re-admitted), again with a
+             SIGSTOP at attempt 2 (classified wedged, hard-killed,
+             restarted), then streamed over SSE (TTFT p50 / p99,
+             tokens/s) with one top-k request; 64 mnist-mlp requests
+             (replies within 1e-5 of the same net in the parent); a boot
+             flake repeated into crash-loop quarantine (`CrashLoopError`
+             on /fleet/stats).  Zero failed client requests, submitted =
+             answered + rejected, every greedy reply by the greedy rule,
+             ``fleet_process_*`` on /metrics; after the stop every
+             spawned process reaped and none on the card
+             (``nvidia-smi --query-compute-apps``); each LM worker's
+             SIGTERM drain snapshot (the port's ``kernel_launches``) has
+             B1 by width = n_layers x its dispatches by width since its
+             warm-up, and the workers' B2 sums to n_layers (the top-k
+             request).
+20. resilience — `TrainingSupervisor` over the char-LSTM at bench_lstm
+             width (T 64, B 32, H 256, bf16 compute, B5 every step) on 24
+             seeded batches: a stream with 2 extra NaN records, a fetch
+             failure and a preemption, then a fresh net resumed from the
+             emergency checkpoint on the same source — final params
+             bitwise (or within 1e-6 relative per leaf, recorded) equal
+             to an uninterrupted supervised run, B5 launches = LSTM
+             layers x steps run; the same at chunk 4 against a chunk-4
+             reference; a one-shot `InvalidScoreError` rolled back with
+             lr_scale 0.5; a save killed mid-commit keeps the previous
+             step, a flipped and a truncated shard refused as
+             `CheckpointCorruptError` and rebuilt; checkpoint save / load
+             ms; ``cli train -resilience -ckpt-every 5`` on a seeded Iris
+             CSV SIGTERM'd after its first checkpoint (exit 0, an
+             emergency checkpoint), then the same command resumed there
+             to the end.
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device time per
 call (`device_ms`: the calls are queued behind a spin kernel, so they run
@@ -317,7 +358,7 @@ PEAK_OPS = {"float32": 67e12,      # fp32 outside the tensor cores
             "float16": 989e12}     # fp16 dense tensor-core peak
 PHASES = ("kernel", "flash", "serve", "parity", "train", "lstm", "rnn",
           "decode", "mln", "precision", "moe", "mobility", "nlp", "ops",
-          "classify", "fleet")
+          "classify", "fleet", "procfleet", "resilience")
 # what the times of the kernels line measure
 TIMING_NOTE = {
     "ms": "device time per call: calls queued behind a spin kernel, run "
@@ -6543,6 +6584,727 @@ def fleet_phase(card: str, profile: bool = False) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: process-hosted fleets (FleetSupervisor over `cli serve` workers)
+
+PROC_LM_WORKERS = 3
+PROC_NEW = 64                    # new tokens a request
+PROC_KILL_AT, PROC_STOP_AT = 4, 2     # dispatch attempts of storms A and B
+PROC_CLS_REQS = 64               # one-row mnist-mlp requests
+PROC_READY_S = 240.0             # a worker's boot on the card, kernels cached
+
+
+def free_base_port(n: int) -> int:
+    """A base port with `n` consecutive free ports above it."""
+    import socket
+
+    rng = np.random.default_rng()
+    for _ in range(200):
+        base = int(rng.integers(20000, 40000))
+        ok = True
+        for p in range(base, base + n):
+            with socket.socket() as s:
+                try:
+                    s.bind(("127.0.0.1", p))
+                except OSError:
+                    ok = False
+                    break
+        if ok:
+            return base
+    raise RuntimeError("no run of free ports")
+
+
+def write_lm_dir(cfg, path) -> None:
+    """`cli lm`'s output format: lm_config.json + lm_params.npz, the
+    weights `numpy_params(cfg, seed=0)` (float32 on disk, the config
+    dtype when served)."""
+    import dataclasses
+    import pathlib
+
+    from deeplearning4j_tpu_torch.parallel.transformer import numpy_params
+    from deeplearning4j_tpu_torch.runtime.checkpoint import tree_to_npz
+
+    path = pathlib.Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "lm_config.json").write_text(json.dumps(dataclasses.asdict(cfg)))
+    tree_to_npz(path / "lm_params.npz", numpy_params(cfg, seed=0))
+
+
+def recording_spawns(sup) -> list:
+    """Every process `sup` spawns, in spawn order (its `_spawn` wrapped)."""
+    procs = []
+    orig = sup._spawn
+
+    def spawn(worker):
+        orig(worker)
+        if worker.proc is not None and worker.proc not in procs:
+            procs.append(worker.proc)
+
+    sup._spawn = spawn
+    return procs
+
+
+def client_storm(fn, n: int) -> dict:
+    """`n` requests through `fn(i)` -> (status, body) from n threads: the
+    client's ledger (submitted = answered + rejected + failed) and the
+    answers by index."""
+    lock = threading.Lock()
+    led = {"submitted": 0, "answered": 0, "rejected": 0, "failed": 0,
+           "errors": []}
+    answers = [None] * n
+
+    def one(i):
+        with lock:
+            led["submitted"] += 1
+        try:
+            code, body = fn(i)
+        except Exception as e:  # noqa: BLE001 — the storm counts failures
+            with lock:
+                led["failed"] += 1
+                led["errors"].append(repr(e)[:200])
+            return
+        with lock:
+            if code == 200:
+                led["answered"] += 1
+                answers[i] = body
+            elif code in (429, 503):
+                led["rejected"] += 1
+            else:
+                led["failed"] += 1
+                led["errors"].append(f"{code} {str(body)[:200]}")
+
+    t0 = time.perf_counter()
+    concurrently([(lambda i=i: one(i)) for i in range(n)])
+    led["wall_s"] = time.perf_counter() - t0
+    led["answers"] = answers
+    return led
+
+
+def storm_ok(name: str, led: dict) -> None:
+    if led["failed"] or led["submitted"] != led["answered"] + led["rejected"]:
+        raise AssertionError(f"procfleet: {name}: {led['failed']} failed "
+                             f"client requests, ledger {led}")
+
+
+def wait_readmitted(sup, n_restarts: int, timeout_s: float) -> None:
+    """Until `sup` counted `n_restarts` restarts and every worker that is
+    not quarantined or stopped is ready again."""
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        st = sup.stats()
+        if st["counters"]["restarts"] >= n_restarts and all(
+                w["state"] in ("ready", "quarantined", "stopped")
+                for w in st["workers"].values()):
+            return
+        time.sleep(0.1)
+    raise AssertionError(f"procfleet: no re-admission: {sup.stats()}")
+
+
+def worker_launch_check(name: str, snap: dict, n_layers: int) -> dict:
+    """One worker's kernel counts from its SIGTERM drain snapshot: B1 by
+    width since the warm-up = n_layers x the pool's dispatches by width."""
+    kl = snap["kernel_launches"]
+    warm, total = kl["warmup"], kl["total"]
+    by_width = {w: n - warm["paged_attention_by_width"].get(w, 0)
+                for w, n in total["paged_attention_by_width"].items()}
+    by_width = {w: n for w, n in by_width.items() if n}
+    dispatches = {w: n for w, n in snap["lm"]["dispatch_widths"].items()
+                  if n}
+    want = {w: n_layers * n for w, n in dispatches.items()}
+    if by_width != want:
+        raise AssertionError(f"procfleet: {name}: B1 by width {by_width} != "
+                             f"n_layers x dispatches by width {want}")
+    return {"b1_by_width": by_width, "dispatches_by_width": dispatches,
+            "b2": total["flash_fwd"] - warm["flash_fwd"],
+            "requests": snap["lm"]["requests"]}
+
+
+def compute_app_pids() -> list:
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=30)
+    return [int(x) for x in out.stdout.split() if x.strip().isdigit()]
+
+
+def procfleet_phase(card: str) -> dict:
+    """3 `cli serve -lm` workers of the bf16 gpt2_small and one `serve
+    -model zoo:mnist-mlp` worker, each its own process on the card under a
+    `FleetSupervisor`, behind `FleetServer` fronts: a SIGKILL mid-storm,
+    a SIGSTOP wedge and a boot flake into crash-loop quarantine
+    (`chaos_procfleet`), zero failed client requests throughout."""
+    import os
+    import tempfile
+
+    import torch
+
+    from deeplearning4j_tpu_torch import _build
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork, mnist_mlp
+    from deeplearning4j_tpu_torch.parallel.transformer import (
+        gpt2_small,
+        numpy_params,
+        params_from_numpy,
+    )
+    from deeplearning4j_tpu_torch.resilience import (
+        ProcessChaosConfig,
+        chaos_procfleet,
+    )
+    from deeplearning4j_tpu_torch.runtime.launcher import (
+        FleetProcessLauncher,
+        replica_serve_command,
+    )
+    from deeplearning4j_tpu_torch.serving import FleetRouter, FleetServer
+    from deeplearning4j_tpu_torch.serving.procfleet import (
+        FleetSupervisor,
+        RestartPolicy,
+        WorkerSpec,
+    )
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build()          # cached: the workers load it instead of nvcc
+    cfg = gpt2_small(max_len=1024)
+    out = {"card": card, "lm_workers": PROC_LM_WORKERS,
+           "new_tokens": PROC_NEW}
+    tmp = tempfile.mkdtemp(prefix="procfleet-")
+    write_lm_dir(cfg, os.path.join(tmp, "lm"))
+    lm_launch = FleetProcessLauncher(
+        None, n_replicas=PROC_LM_WORKERS,
+        base_port=free_base_port(PROC_LM_WORKERS), lm_dir=os.path.join(
+            tmp, "lm"), lm_slots=8, lm_page_size=16, prefill_chunk=16,
+        log_dir=os.path.join(tmp, "lm-logs"), device="cuda")
+    cls_launch = FleetProcessLauncher(
+        "zoo:mnist-mlp", n_replicas=1, base_port=free_base_port(2),
+        buckets="1,8,32", log_dir=os.path.join(tmp, "cls-logs"),
+        device="cuda")
+    policy = dict(backoff_initial_s=0.5, backoff_max_s=4.0, jitter=0.0,
+                  crash_loop_threshold=3, crash_loop_window_s=60.0)
+    kw = dict(poll_interval_s=0.25, ready_timeout_s=PROC_READY_S,
+              wedge_threshold=3, probe_timeout_s=2.0, detach_grace_s=0.5)
+    lm_router = FleetRouter(request_timeout_s=OPS_TIMEOUT_S,
+                            affinity_spill_depth=16)
+    cls_router = FleetRouter(request_timeout_s=OPS_TIMEOUT_S)
+    lm_sup = FleetSupervisor(lm_router, policy=RestartPolicy(**policy), **kw)
+    cls_sup = FleetSupervisor(cls_router, policy=RestartPolicy(**policy),
+                              **kw)
+    spawned = recording_spawns(lm_sup)
+    cls_spawned = recording_spawns(cls_sup)
+    fronts = []
+    try:
+        t0 = time.perf_counter()
+        lm_sup.manage_launcher(lm_launch)
+        cls_sup.manage_launcher(cls_launch)
+        lm_sup.start()
+        cls_sup.start()
+        if not (lm_sup.wait_all_ready(PROC_READY_S)
+                and cls_sup.wait_all_ready(PROC_READY_S)):
+            raise AssertionError(f"procfleet: workers not ready: "
+                                 f"{lm_sup.stats()} {cls_sup.stats()}")
+        out["boot_s"] = time.perf_counter() - t0
+        front = FleetServer(lm_router, port=0).start()
+        cls_front = FleetServer(cls_router, port=0).start()
+        fronts = [front, cls_front]
+        lm_router.start_health_loop()
+        cls_router.start_health_loop()
+        params = params_from_numpy(numpy_params(cfg, seed=0), device="cuda",
+                                   dtype=cfg.dtype)
+        check = greedy_checker(cfg, params)
+        reqs = [p for p, _, _ in decode_requests(cfg)[:12]]
+
+        def generate(i, body=None):
+            a = http_json(front.url, "/lm/generate",
+                          dict(body or {}, prompt_ids=reqs[i % len(reqs)],
+                               max_new_tokens=PROC_NEW), f"proc-{i}")
+            return a["status"], a["body"]
+
+        def held(name, led):
+            storm_ok(name, led)
+            checks = [check(reqs[i], a["ids"])
+                      for i, a in enumerate(led["answers"]) if a]
+            return dict({k: v for k, v in led.items() if k != "answers"},
+                        tokens_per_s=len(reqs) * PROC_NEW / led["wall_s"],
+                        **checks_summary(checks))
+
+        # A: SIGKILL of the worker serving dispatch attempt PROC_KILL_AT
+        chaos = chaos_procfleet(lm_sup, ProcessChaosConfig(
+            kill_at_dispatch=PROC_KILL_AT))
+        out["kill"] = held("kill", client_storm(generate, len(reqs)))
+        chaos.uninstall()
+        if len(chaos.killed) != 1:
+            raise AssertionError(f"procfleet: no SIGKILL fired {chaos.killed}")
+        wait_readmitted(lm_sup, 1, PROC_READY_S)
+        crash = [d for w in lm_sup.stats()["workers"].values()
+                 for d in w["deaths"] if d["kind"] == "crash"]
+        if not crash or "signal 9" not in crash[-1]["detail"]:
+            raise AssertionError(f"procfleet: kill not classified crash: "
+                                 f"{lm_sup.stats()}")
+        out["kill"].update(victim=chaos.killed[0],
+                           readmit_s=lm_sup.restart_events[-1]["latency_s"])
+        # B: SIGSTOP wedge of the worker serving attempt PROC_STOP_AT
+        chaos = chaos_procfleet(lm_sup, ProcessChaosConfig(
+            sigstop_at_dispatch=PROC_STOP_AT))
+        out["wedge"] = held("wedge", client_storm(generate, len(reqs)))
+        chaos.uninstall()
+        if len(chaos.stopped) != 1:
+            raise AssertionError(f"procfleet: no SIGSTOP fired")
+        wait_readmitted(lm_sup, 2, PROC_READY_S)
+        if lm_sup.counters["deaths_wedged"] != 1:
+            raise AssertionError(f"procfleet: wedge not classified: "
+                                 f"{lm_sup.stats()}")
+        out["wedge"].update(victim=chaos.stopped[0],
+                            readmit_s=lm_sup.restart_events[-1]["latency_s"])
+        # C: no fault — SSE streams (TTFT) and one top-k request (B2)
+        ttfts = []
+
+        def stream(i):
+            s = sse_request(front.url, {"prompt_ids": reqs[i],
+                                        "max_new_tokens": PROC_NEW},
+                            f"proc-sse-{i}")
+            if s["t_first"] is not None:
+                ttfts.append(s["t_first"] - s["t_send"])
+            if s["done"] is None or s["done"] != reqs[i] + s["tokens"]:
+                return 500, s
+            return s["status"], {"ids": s["done"]}
+
+        out["streams"] = held("streams", client_storm(stream, len(reqs)))
+        out["streams"].update(ttft_p50_ms=percentile_ms(ttfts, 0.50),
+                              ttft_p99_ms=percentile_ms(ttfts, 0.99))
+        code, body = generate(0, {"top_k": 40, "seed": 3})
+        ids = body.get("ids", []) if code == 200 else []
+        if ids[:len(reqs[0])] != reqs[0] or len(ids) != len(reqs[0]) + \
+                PROC_NEW or max(ids) >= cfg.vocab_size:
+            raise AssertionError(f"procfleet: top-k {code} {body}")
+        # the classifier worker: replies = the same net on the card
+        net = MultiLayerNetwork(mnist_mlp()).init()
+        rng = np.random.default_rng(0)
+        xs = [rng.random((1, 784)).astype(np.float32)
+              for _ in range(PROC_CLS_REQS)]
+
+        def predict(i):
+            a = http_json(cls_front.url, "/model/predict",
+                          {"features": xs[i].tolist()}, f"proc-cls-{i}")
+            return a["status"], a["body"]
+
+        led = client_storm(predict, PROC_CLS_REQS)
+        storm_ok("classifier", led)
+        err = max(worst_rel(np.asarray(a["outputs"], np.float32),
+                            net.output(x).cpu().numpy())
+                  for a, x in zip(led["answers"], xs))
+        if not err <= CLS_RTOL:
+            raise AssertionError(f"procfleet: a classifier reply is {err} "
+                                 f"from the same net on the card")
+        out["classifier"] = dict(
+            {k: v for k, v in led.items() if k != "answers"},
+            max_rel_err=err)
+        # a boot flake repeated into crash-loop quarantine
+        chaos = chaos_procfleet(cls_sup, ProcessChaosConfig(
+            flake_boot_spawns=(0, 1, 2, 3), flake_exit_code=3))
+        flaky_port = cls_launch.port(1)
+        cls_sup.manage(WorkerSpec(
+            name="flaky", url=f"http://127.0.0.1:{flaky_port}",
+            command=replica_serve_command("zoo:mnist-mlp", port=flaky_port,
+                                          device="cuda")))
+        deadline = time.monotonic() + 60
+        while cls_sup.stats()["workers"]["flaky"]["state"] != "quarantined":
+            if time.monotonic() > deadline:
+                raise AssertionError(f"procfleet: no quarantine: "
+                                     f"{cls_sup.stats()}")
+            time.sleep(0.1)
+        chaos.uninstall()
+        fleet_stats = json.loads(http_get(cls_front.url, "/fleet/stats")[1])
+        sup_st = fleet_stats["supervision"]
+        if sup_st["quarantined"] != ["flaky"] or "CrashLoopError" not in \
+                (sup_st["workers"]["flaky"]["error"] or ""):
+            raise AssertionError(f"procfleet: /fleet/stats {sup_st}")
+        out["crash_loop"] = {"spawns": chaos.spawns,
+                             "error": sup_st["workers"]["flaky"]["error"]}
+        code, text = http_get(front.url, "/metrics")
+        fams = sorted({ln.split("{")[0].split(" ")[0]
+                       for ln in text.splitlines()
+                       if ln.startswith("fleet_process_")})
+        bad = [ln for ln in text.splitlines() if ln and not
+               ln.startswith("#") and len(ln.rsplit(" ", 1)) != 2]
+        need = {"fleet_process_spawns_total", "fleet_process_restarts_total",
+                "fleet_process_deaths_total", "fleet_process_workers",
+                "fleet_process_last_restart_latency_seconds"}
+        if code != 200 or not need <= set(fams) or bad:
+            raise AssertionError(f"procfleet: /metrics {code} {fams} {bad}")
+        out["metrics_families"] = fams
+        out["supervision"] = {"lm": lm_sup.stats()["counters"],
+                              "classifier": cls_sup.stats()["counters"]}
+    finally:
+        for f in fronts:
+            f.stop()
+        lm_sup.stop(grace_s=30.0)
+        cls_sup.stop(grace_s=30.0)
+        lm_router.stop()
+        cls_router.stop()
+    # every worker ever spawned is reaped, none left on the card
+    procs = spawned + cls_spawned
+    alive = []
+    for p in procs:
+        try:
+            os.kill(p.pid, 0)
+            alive.append(p.pid)
+        except ProcessLookupError:
+            pass
+    on_card = sorted(set(compute_app_pids()) & {p.pid for p in procs})
+    if any(p.returncode is None for p in procs) or alive or on_card:
+        raise AssertionError(f"procfleet: workers left: alive {alive}, on "
+                             f"the card {on_card}")
+    out["processes"] = {"spawned": len(procs), "reaped": len(procs)}
+    # B1 and B2 from each LM worker's drain snapshot (its last incarnation)
+    workers, b2 = {}, 0
+    for i in range(PROC_LM_WORKERS):
+        with open(os.path.join(tmp, "lm-logs",
+                               f"worker-{i}.drain.json")) as f:
+            snap = json.load(f)
+        workers[f"worker-{i}"] = worker_launch_check(f"worker-{i}", snap,
+                                                     cfg.n_layers)
+        b2 += workers[f"worker-{i}"]["b2"]
+    if b2 != cfg.n_layers or not any(w["b1_by_width"]
+                                     for w in workers.values()):
+        raise AssertionError(f"procfleet: B2 {b2} (want {cfg.n_layers}), "
+                             f"workers {workers}")
+    out["worker_launches"] = workers
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"procfleet: {PROC_LM_WORKERS} LM worker processes + 1 classifier "
+        f"on the card, boot {out['boot_s']:.1f} s; SIGKILL storm failed "
+        f"{out['kill']['failed']} (readmit {out['kill']['readmit_s']} s), "
+        f"SIGSTOP storm failed {out['wedge']['failed']} (readmit "
+        f"{out['wedge']['readmit_s']} s), crash loop quarantined after "
+        f"{out['crash_loop']['spawns']} spawns; streams "
+        f"{out['streams']['tokens_per_s']:.1f} tokens/s, TTFT p50 "
+        f"{out['streams']['ttft_p50_ms']:.1f} / p99 "
+        f"{out['streams']['ttft_p99_ms']:.1f} ms; {len(procs)} processes "
+        f"reaped; B1/B2 per worker {[(n, w['b1_by_width'], w['b2']) for n, w in workers.items()]} "
+        f"({card})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 20: supervised, checkpointed training (TrainingSupervisor)
+
+RES_BATCHES = 24                 # real batches of the stream
+RES_NAN_AT = (5, 17)             # fetch positions of the extra NaN records
+RES_FETCH_FAIL_AT, RES_PREEMPT_AT = 9, 13
+RES_CKPT_EVERY = 5
+RES_INVALID_AT = 7               # the one-shot InvalidScoreError's step
+RES_REL = 1e-6                   # per-leaf relative bound where not bitwise
+RES_TIMED = 5                    # checkpoint saves / loads timed
+RES_CLI_EPOCHS = 200             # 1000 supervised steps of iris-mlp
+
+
+def char_batches(n: int, seed: int = 1) -> list:
+    """`n` bench_lstm-shaped batches (B 32 x T 64 one-hot over 80
+    characters, targets the ids rolled by one) as host arrays."""
+    rng = np.random.default_rng(seed)
+    eye = np.eye(LSTM_V, dtype=np.float32)
+    out = []
+    for _ in range(n):
+        ids = rng.integers(0, LSTM_V, (LSTM_B, LSTM_T))
+        out.append((eye[ids], eye[np.roll(ids, -1, axis=1)]))
+    return out
+
+
+def leaf_compare(got, want) -> dict:
+    """Bitwise, or the worst per-leaf relative difference."""
+    import torch
+
+    from deeplearning4j_tpu_torch.tree import flatten_tree
+
+    g = {k: v.detach() for k, v in flatten_tree(got).items()}
+    w = {k: v.detach() for k, v in flatten_tree(want).items()}
+    bitwise = all(torch.equal(g[k], w[k]) for k in w)
+    worst = max(float((g[k].float() - w[k].float()).abs().max()
+                      / max(float(w[k].float().abs().max()), 1e-30))
+                for k in w)
+    return {"bitwise": bitwise, "max_rel_leaf": worst}
+
+
+class CountingRunner:
+    """A `MultiLayerNetwork` proxy counting the fit calls that reach the
+    net (each launches B5 once per LSTM layer) and raising one
+    `InvalidScoreError` at step `invalid_at` before the step runs."""
+
+    def __init__(self, net, invalid_at=None):
+        self.net, self.invalid_at, self.calls = net, invalid_at, 0
+
+    def __getattr__(self, name):
+        return getattr(self.net, name)
+
+    def fit_batch(self, x, y, mask=None):
+        from deeplearning4j_tpu_torch.optimize.api import InvalidScoreError
+
+        if self.invalid_at is not None and \
+                self.net._iteration == self.invalid_at:
+            self.invalid_at = None
+            raise InvalidScoreError(self.net._iteration, float("nan"))
+        self.calls += 1
+        return self.net.fit_batch(x, y, mask)
+
+    def fit_chunk_async(self, xs, ys, masks=None, weights=None):
+        self.calls += int(np.shape(xs)[0])
+        return self.net.fit_chunk_async(xs, ys, masks, weights)
+
+
+def supervised_leg(name: str, chunk: int, clean: list, tmp: str,
+                   ref_params, n_lstm: int) -> dict:
+    """The chaos stream (NaN records, a fetch failure, a preemption)
+    through a supervisor, then a fresh net resumed from the emergency
+    checkpoint on the same source; held against `ref_params`."""
+    import os
+
+    import torch
+
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork, char_lstm
+    from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
+    from deeplearning4j_tpu_torch.resilience import (
+        ChaosConfig,
+        ChaosDataSource,
+        ResilienceConfig,
+        RetryPolicy,
+        TrainingSupervisor,
+    )
+
+    stream = list(clean)
+    for pos in RES_NAN_AT:
+        stream.insert(pos, clean[0])
+    src = ChaosDataSource(stream, ChaosConfig(
+        nan_steps=RES_NAN_AT, fetch_fail_steps=(RES_FETCH_FAIL_AT,),
+        preempt_at=RES_PREEMPT_AT))
+    d = os.path.join(tmp, name)
+
+    def config():
+        return ResilienceConfig(
+            checkpoint_dir=d, checkpoint_every=RES_CKPT_EVERY,
+            chunk_size=chunk, fetch_retry=RetryPolicy(
+                max_attempts=3, base_delay=0.0, jitter=0.0))
+
+    torch.cuda.synchronize()
+    lk.fused_lstm_forward.launches.reset()
+    r1_runner = CountingRunner(MultiLayerNetwork(
+        char_lstm(compute_dtype="bfloat16")).init())
+    r1 = TrainingSupervisor(r1_runner, config()).run(src)
+    r2_runner = CountingRunner(MultiLayerNetwork(
+        char_lstm(compute_dtype="bfloat16", seed=9)).init())
+    sup2 = TrainingSupervisor(r2_runner, config())
+    resumed = sup2.resume()
+    resume_step = sup2.step
+    r2 = sup2.run(src)
+    torch.cuda.synchronize()
+    launches = lk.fused_lstm_forward.launches.value
+    calls = r1_runner.calls + r2_runner.calls
+    faults = [(f.kind, f.action) for f in r1.faults + r2.faults]
+    out = {"chunk_size": chunk, "steps_before_preemption": r1.steps,
+           "resume_step": resume_step, "steps": r2.steps,
+           "skipped": r1.skipped + r2.skipped, "preempted": r1.preempted,
+           "faults": faults, "b5_launches": launches,
+           "b5_launches_want": n_lstm * calls, "fit_steps": calls,
+           "final_loss": r2.final_loss,
+           **leaf_compare(r2_runner.net.params, ref_params)}
+    if not (resumed and r1.preempted and not r2.preempted
+            and out["skipped"] == len(RES_NAN_AT)
+            and faults.count(("fetch_error", "retry")) == 1
+            and resume_step == r1.steps and r2.steps == len(clean)
+            and calls == len(clean) and launches == n_lstm * calls
+            and (out["bitwise"] or out["max_rel_leaf"] <= RES_REL)):
+        raise AssertionError(f"resilience: {name} leg {out}")
+    return out
+
+
+def resilience_phase(card: str) -> dict:
+    """`TrainingSupervisor` over the char-LSTM at bench_lstm width (bf16
+    compute, B5 every step): a chaos stream with a preemption resumed by
+    a fresh net equal to an uninterrupted run, a rollback from a one-shot
+    `InvalidScoreError`, the chunk 4 path; crash-safe checkpoints; ``cli
+    train -resilience`` SIGTERM'd and resumed."""
+    import os
+    import re
+    import signal
+    import tempfile
+
+    import torch
+
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork, char_lstm
+    from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
+    from deeplearning4j_tpu_torch.resilience import (
+        ChaosConfig,
+        ChaosDataSource,
+        CheckpointChaosConfig,
+        InjectedCheckpointCrash,
+        ResilienceConfig,
+        TrainingSupervisor,
+        chaos_checkpoint,
+        corrupt_checkpoint,
+    )
+    from deeplearning4j_tpu_torch.runtime.checkpoint import (
+        CheckpointCorruptError,
+        latest_checkpoint,
+        load_checkpoint,
+        save_checkpoint,
+        verify_checkpoint,
+    )
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="resilience-")
+    clean = char_batches(RES_BATCHES)
+    out = {"card": card, "shape": dict(T=LSTM_T, B=LSTM_B, H=LSTM_H,
+                                       V=LSTM_V), "dtype": "bfloat16",
+           "batches": RES_BATCHES}
+
+    def fresh():
+        return MultiLayerNetwork(char_lstm(compute_dtype="bfloat16")).init()
+
+    n_lstm = sum(hasattr(lc, "fused") for lc in fresh().conf.layers)
+    # the references: uninterrupted runs over the same real batches
+    plain = fresh()
+    plain.fit_batch(*clean[0])                 # warm the kernels
+    plain = fresh()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for x, y in clean:
+        plain.fit_batch(x, y)
+    plain_ms = (time.perf_counter() - t0) * 1e3 / RES_BATCHES
+    refs = {}
+    for chunk in (1, 4):
+        net = fresh()
+        sup = TrainingSupervisor(net, ResilienceConfig(
+            checkpoint_dir=os.path.join(tmp, f"ref-{chunk}"),
+            checkpoint_every=RES_CKPT_EVERY, chunk_size=chunk))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rep = sup.run(ChaosDataSource(clean, ChaosConfig()))
+        out[f"supervised_step_ms_chunk{chunk}"] = (
+            (time.perf_counter() - t0) * 1e3 / RES_BATCHES)
+        if rep.steps != RES_BATCHES or rep.faults:
+            raise AssertionError(f"resilience: reference run {rep}")
+        refs[chunk] = net.params
+    out["unsupervised_step_ms"] = plain_ms
+    out["supervised_vs_plain"] = leaf_compare(refs[1], plain.params)
+    out["chaos"] = supervised_leg("chaos", 1, clean, tmp, refs[1], n_lstm)
+    out["chunked"] = supervised_leg("chunked", 4, clean, tmp, refs[4],
+                                    n_lstm)
+    # rollback: a one-shot InvalidScoreError inside step RES_INVALID_AT
+    lk.fused_lstm_forward.launches.reset()
+    runner = CountingRunner(fresh(), invalid_at=RES_INVALID_AT)
+    rep = TrainingSupervisor(runner, ResilienceConfig(
+        checkpoint_dir=os.path.join(tmp, "rollback"),
+        checkpoint_every=RES_CKPT_EVERY)).run(
+            ChaosDataSource(clean, ChaosConfig()))
+    torch.cuda.synchronize()
+    out["rollback"] = {"rollbacks": rep.rollbacks, "lr_scale": rep.lr_scale,
+                       "steps": rep.steps, "final_loss": rep.final_loss,
+                       "fit_steps": runner.calls,
+                       "b5_launches": lk.fused_lstm_forward.launches.value,
+                       "faults": [(f.kind, f.action) for f in rep.faults]}
+    if not (rep.rollbacks == 1 and rep.lr_scale == 0.5
+            and math.isfinite(rep.final_loss)
+            and out["rollback"]["b5_launches"] == n_lstm * runner.calls):
+        raise AssertionError(f"resilience: rollback {out['rollback']}")
+    # crash safety at the char-LSTM's size
+    net = fresh()
+    net.fit_batch(*clean[0])
+    d = os.path.join(tmp, "crash")
+    save_checkpoint(d, 1, net.params, updater_state=net.updater_state,
+                    net_state=net.state)
+    with chaos_checkpoint(CheckpointChaosConfig(crash_at_phase="manifest")):
+        try:
+            save_checkpoint(d, 2, net.params,
+                            updater_state=net.updater_state)
+            raise AssertionError("resilience: the chaos save did not die")
+        except InjectedCheckpointCrash:
+            pass
+    if latest_checkpoint(d).name != "ckpt-1":
+        raise AssertionError("resilience: a torn save became the latest")
+    refused = []
+    for mode in ("flip", "truncate"):
+        corrupt_checkpoint(os.path.join(d, "ckpt-1"), mode=mode)
+        try:
+            verify_checkpoint(os.path.join(d, "ckpt-1"))
+            raise AssertionError(f"resilience: {mode} not refused")
+        except CheckpointCorruptError as e:
+            refused.append(f"{mode}: {str(e)[:80]}")
+        save_checkpoint(d, 1, net.params, updater_state=net.updater_state,
+                        net_state=net.state)      # rebuilt
+        verify_checkpoint(os.path.join(d, "ckpt-1"))
+    out["crash_safety"] = {"torn_save": "previous step kept",
+                           "refused": refused}
+    # checkpoint save and load at this size
+    save_ms, load_ms = [], []
+    for i in range(RES_TIMED):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(os.path.join(tmp, "timed"), i, net.params,
+                        updater_state=net.updater_state, net_state=net.state)
+        save_ms.append((time.perf_counter() - t0) * 1e3)
+        t0 = time.perf_counter()
+        load_checkpoint(os.path.join(tmp, "timed"), net.params,
+                        net.updater_state)
+        torch.cuda.synchronize()
+        load_ms.append((time.perf_counter() - t0) * 1e3)
+    out["checkpoint_save_ms"] = sorted(save_ms)[RES_TIMED // 2]
+    out["checkpoint_load_ms"] = sorted(load_ms)[RES_TIMED // 2]
+    out["checkpoint_bytes"] = sum(
+        os.path.getsize(os.path.join(tmp, "timed", f"ckpt-{RES_TIMED - 1}",
+                                     f))
+        for f in os.listdir(os.path.join(tmp, "timed",
+                                         f"ckpt-{RES_TIMED - 1}")))
+    # the CLI: SIGTERM after the first checkpoint, then the same command
+    csv = os.path.join(tmp, "iris.csv")
+    iris_like_csv(csv)
+    cli_out = os.path.join(tmp, "cli")
+    cmd = [sys.executable, "-m", "deeplearning4j_tpu_torch.cli", "train",
+           "-input", csv, "-model", "zoo:iris-mlp", "-output", cli_out,
+           "-epochs", str(RES_CLI_EPOCHS), "-resilience", "-ckpt-every",
+           str(RES_CKPT_EVERY), "-device", "cuda"]
+    total = RES_CLI_EPOCHS * 5
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    try:
+        deadline = time.monotonic() + 300
+        while not os.path.exists(os.path.join(cli_out, "ckpts", "ckpt-5")):
+            if proc.poll() is not None or time.monotonic() > deadline:
+                raise AssertionError(f"resilience: cli train never "
+                                     f"checkpointed: {proc.stdout.read()}")
+            time.sleep(0.01)
+        proc.send_signal(signal.SIGTERM)
+        text, _ = proc.communicate(timeout=300)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    m = re.search(r"preempted — emergency checkpoint at step (\d+)", text)
+    if proc.returncode != 0 or not m or not os.path.exists(os.path.join(
+            cli_out, "ckpts", f"ckpt-{m.group(1)}")):
+        raise AssertionError(f"resilience: cli SIGTERM rc {proc.returncode}"
+                             f": {text[-2000:]}")
+    stopped = int(m.group(1))
+    t0 = time.perf_counter()
+    again = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
+    if again.returncode != 0 or \
+            f"resumed from checkpoint step {stopped}" not in again.stdout \
+            or f"resilience: completed: {total} steps" not in again.stdout:
+        raise AssertionError(f"resilience: cli resume rc "
+                             f"{again.returncode}: {again.stdout[-2000:]} "
+                             f"{again.stderr[-2000:]}")
+    out["cli"] = {"preempted_at": stopped, "steps": total,
+                  "resume_run_s": time.perf_counter() - t0}
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"resilience: char-LSTM bf16 chaos + resume "
+        f"{'bitwise' if out['chaos']['bitwise'] else 'max rel ' + format(out['chaos']['max_rel_leaf'], '.3g')}"
+        f" vs the uninterrupted run (chunk 4: "
+        f"{'bitwise' if out['chunked']['bitwise'] else format(out['chunked']['max_rel_leaf'], '.3g')}"
+        f"), B5 {out['chaos']['b5_launches']} = {n_lstm} x "
+        f"{out['chaos']['fit_steps']} steps; rollback lr_scale "
+        f"{out['rollback']['lr_scale']}; step ms supervised "
+        f"{out['supervised_step_ms_chunk1']:.2f} vs plain {plain_ms:.2f}; "
+        f"checkpoint save {out['checkpoint_save_ms']:.1f} ms / load "
+        f"{out['checkpoint_load_ms']:.1f} ms ({out['checkpoint_bytes']} "
+        f"bytes); cli SIGTERM at step {stopped}, resumed to {total} "
+        f"({card})")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=",".join(PHASES),
@@ -6650,6 +7412,9 @@ def main(argv=None) -> int:
                 if "classify" in phases else None)
     fleet = (fleet_phase(card, profile=args.profile)
              if "fleet" in phases else None)
+    procfleet = procfleet_phase(card) if "procfleet" in phases else None
+    resilience = (resilience_phase(card) if "resilience" in phases
+                  else None)
 
     entries = []
     if kernels_line is not None:
@@ -6691,6 +7456,10 @@ def main(argv=None) -> int:
                  "streams_dispatches_by_width": ops["streams"][
                      "dispatches_by_width"]} if ops else None),
             "fleet_launches": fleet_launches(fleet, "b1_launches_by_width"),
+            "procfleet_launches": (
+                {n: w["b1_by_width"] for n, w in
+                 procfleet["worker_launches"].items()}
+                if procfleet else None),
             "split_plan": main_case["split_plan"],
             "float16": dict(dtype_summary(next(
                 c for c in kernels_line
@@ -6721,7 +7490,11 @@ def main(argv=None) -> int:
                 "launches_per_step": (launches / train["steps"]
                                       if train else None),
                 **({"decode_launches": decode_launches(decode, "flash"),
-                    "fleet_launches": fleet_launches(fleet, "b2_launches")}
+                    "fleet_launches": fleet_launches(fleet, "b2_launches"),
+                    "procfleet_launches": (
+                        {n: w["b2"] for n, w in
+                         procfleet["worker_launches"].items()}
+                        if procfleet else None)}
                    if kname == "flash_fwd" else {}),
                 "moe_launches": (
                     {"train": moe["launches"][kname],
@@ -6790,6 +7563,11 @@ def main(argv=None) -> int:
                  "dispatches": classify["char_lstm"]["dispatches"],
                  "warmup": classify["char_lstm"]["warmed"]}
                 if classify else None),
+            "resilience_launches": (
+                {leg: {"b5": resilience[leg]["b5_launches"],
+                       "fit_steps": resilience[leg]["fit_steps"]}
+                 for leg in ("chaos", "chunked", "rollback")}
+                if resilience else None),
             "max_abs_err": max(lstm["worst_abs_err"].values()),
             "max_rel_err": lstm["worst_rel_err"],
             "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
@@ -6835,6 +7613,10 @@ def main(argv=None) -> int:
         print(json.dumps({"classify": classify}), flush=True)
     if fleet is not None:
         print(json.dumps({"fleet": fleet}), flush=True)
+    if procfleet is not None:
+        print(json.dumps({"procfleet": procfleet}), flush=True)
+    if resilience is not None:
+        print(json.dumps({"resilience": resilience}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)

@@ -4,6 +4,9 @@
         -model zoo:iris-mlp|conf.json|<saved dir> [-output dir]
         [-conf props] [-epochs 50] [-batch 32] [-accum 1]
         [-precision fp32|bf16|mixed] [-chunk 1]
+        [-resilience] [-resume] [-ckpt-dir <output>/ckpts]
+        [-ckpt-every 50] [-ckpt-keep 3] [-skip-budget 5]
+        [-divergence-factor 10] [-step-timeout S]
         [-metrics-port P] [-metrics-interval 10]
         [-savemode binary|txt] [-device cuda|cpu]
     python -m deeplearning4j_tpu_torch.cli test -input data.csv
@@ -18,10 +21,16 @@ runtime (greedy pretraining first for a ``pretrain`` conf such as
 examples/sec line and the evaluation (with ``-precision`` the
 ``precision:`` policy line and the loss-scale summary first; ``-chunk
 K`` trains K steps a dispatch through the fused driver; ``-metrics-port``
-serves the run's `TrainingTelemetry` at ``GET /metrics``); ``test`` prints
-the evaluation of a saved model and ``predict`` writes its argmax
-classes one a line.  The JAX package reads every file they write.  Options whose code paths are
-not ported exit naming their ROADMAP.md queue.
+serves the run's `TrainingTelemetry` at ``GET /metrics``; ``-resilience``
+trains under a `TrainingSupervisor` — poison batches skipped, rollback
+with LR backoff, retried fetches, a checkpoint every ``-ckpt-every``
+steps under ``-ckpt-dir`` and an emergency one on SIGTERM, exit 0 — and
+re-running the same command resumes there and trains the tail;
+``-resume`` alone restores the newest good checkpoint first); ``test``
+prints the evaluation of a saved model and ``predict`` writes its argmax
+classes one a line.  The JAX package reads every file they write,
+checkpoints included.  ``-runtime spmd``, ``-replicas`` and
+``-sync-every`` exit naming ROADMAP.md queue A7.
 
     python -m deeplearning4j_tpu_torch.cli lm -input <text> [-output dir]
         [-preset gpt2-small] [-seq 128] [-batch 8] [-accum 1] [-epochs 1]
@@ -57,7 +66,9 @@ dense first layer), ``POST /lm/generate`` (``stream: true`` for SSE;
 ``/lm/prefill`` and ``/lm/admit_pages`` with ``-lm-ship``), ``GET
 /serving/stats``, ``/metrics``, ``/trace/recent``, ``/healthz``,
 ``/readyz``.  The device defaults to the card; SIGTERM drains in-flight
-work, writes the stats snapshot to ``-drain-stats`` and stops.
+work, writes the stats snapshot to ``-drain-stats`` (with the port's
+``kernel_launches``: each kernel's launch counts at the end of the
+warm-up and at the drain) and stops.
 
     python -m deeplearning4j_tpu_torch.cli serve-fleet [-model ...]
         [-lm <dir>] [-replicas 2] [-prefill-workers 0 -decode-workers 0]
@@ -73,9 +84,13 @@ serves the same through a fleet of thread-hosted replicas behind a
 on one worker and their KV pages shipped to another) and one
 `FleetServer` front (``/model/predict``, ``/lm/generate``,
 ``/fleet/stats``, ``/serving/stats``, ``/metrics``); SIGTERM drains the
-whole fleet and writes ``/fleet/stats`` to ``-drain-stats``.
-``-processes`` (a process per replica) is not ported (ROADMAP.md, A5
-part 2).
+whole fleet and writes ``/fleet/stats`` to ``-drain-stats``.  With
+``-processes [-worker-base-port 8081 -worker-log-dir fleet_logs
+-restart-backoff-s 0.5 -crash-loop-threshold 3 -crash-loop-window-s 60
+-ready-timeout-s 120]`` every replica is a ``serve`` worker process on
+``-device``, supervised by a `FleetSupervisor` (crash and wedge
+detection, backoff restart, crash-loop quarantine; a ``supervision``
+section on ``/fleet/stats`` and ``fleet_process_*`` on ``/metrics``).
 """
 
 from __future__ import annotations
@@ -196,12 +211,6 @@ def _refuse_unported_train(args, props: Dict[str, str]) -> None:
         (args.replicas is not None, "-replicas", "A7, 'Multi-device'"),
         (int(props.get("train.sync.every", args.sync_every)) != 1,
          "-sync-every", "A7, 'Multi-device'"),
-        (args.resilience or args.resume, "-resilience / -resume",
-         "A6, the resilience modules"),
-        (any(v is not None for v in (args.ckpt_dir, args.ckpt_every,
-                                     args.ckpt_keep)),
-         "-ckpt-dir / -ckpt-every / -ckpt-keep", "A6, the resilience "
-         "modules"),
     ]
     for refused, flag, queue in queues:
         if refused:
@@ -212,13 +221,19 @@ def _refuse_unported_train(args, props: Dict[str, str]) -> None:
 def cmd_train(args) -> int:
     """Train with the local runtime (reference execLocal():151): read the
     records, build the net, greedy-pretrain a fresh ``pretrain`` conf,
-    fit `-epochs` passes of shuffled `-batch` batches, save."""
+    fit `-epochs` passes of shuffled `-batch` batches, save.  With
+    ``-resilience`` a `TrainingSupervisor` drives the steps (poison-batch
+    skipping, rollback with LR backoff, retried fetches, checkpoints
+    every ``-ckpt-every`` steps, an emergency checkpoint on SIGTERM) and
+    a re-run of the same command resumes from ``-ckpt-dir``."""
     import torch
 
     from deeplearning4j_tpu_torch.datasets.iterators import (
         PrefetchDataSetIterator,
     )
     from deeplearning4j_tpu_torch.runtime.checkpoint import (
+        latest_checkpoint,
+        resume_train_state,
         save_model,
         save_params,
     )
@@ -257,11 +272,17 @@ def cmd_train(args) -> int:
         for epoch in range(epochs):
             yield from ds.shuffle(seed=epoch).batch_by(batch)
 
+    out = pathlib.Path(args.output or "dl4j-output")
+    ckpt_dir = (pathlib.Path(args.ckpt_dir) if args.ckpt_dir
+                else out / "ckpts")
+    will_resume = ((args.resilience or args.resume)
+                   and latest_checkpoint(ckpt_dir) is not None)
     fresh = (args.model.startswith("zoo:")
              or not pathlib.Path(args.model).is_dir())
-    if net.conf.pretrain and fresh:
+    if net.conf.pretrain and fresh and not will_resume:
         # greedy layer-wise pretraining for DBN / deep-AE confs; a saved
-        # (already trained) model skips it
+        # (already trained) model skips it, and so does a resume (the
+        # checkpoint's params replace the pretraining result)
         net.pretrain(list(ds.shuffle(seed=0).batch_by(batch)), epochs=1)
     precision = props.get("train.precision", args.precision)
     if precision and precision != "fp32":
@@ -269,12 +290,26 @@ def cmd_train(args) -> int:
         # compute, dynamic loss scaling
         net.set_precision(precision)
         print(f"precision: {net.precision.describe()}")
+    if args.resume and not args.resilience:
+        # crash-safe resume without supervision: the newest GOOD
+        # checkpoint (checksums verified, a corrupt newest step skipped
+        # for the previous good one)
+        if will_resume:
+            step = resume_train_state(ckpt_dir, net)
+            print(f"resume: restored checkpoint step {step} from "
+                  f"{ckpt_dir}")
+        else:
+            print(f"resume: no committed checkpoint under {ckpt_dir}; "
+                  f"starting fresh")
     chunk = max(1, int(props.get("train.chunk.size", args.chunk)))
     if chunk > 1 and accum > 1:
         print("-accum is ignored with -chunk (a chunk steps over batches)")
         accum = 1
     t0 = time.time()
-    if chunk > 1:
+    if args.resilience:
+        _train_supervised(args, net, ds, batches(), ckpt_dir, telemetry,
+                          chunk, epochs, batch)
+    elif chunk > 1:
         # the fused driver: chunk steps a dispatch, the next chunk staged
         # on the device from a background thread
         FusedTrainingDriver(net, chunk_size=chunk).fit(batches())
@@ -290,7 +325,6 @@ def cmd_train(args) -> int:
     if scaler is not None:
         print(f"precision: loss-scale {scaler['scale']:g}, "
               f"{scaler['overflow_count']} overflow step(s) skipped")
-    out = pathlib.Path(args.output or "dl4j-output")
     out.mkdir(parents=True, exist_ok=True)
     save_model(net, out / "model")
     save_params(net, out / ("params.bin" if args.savemode == "binary"
@@ -304,9 +338,54 @@ def cmd_train(args) -> int:
     if metrics_srv is not None:
         snap = telemetry.snapshot()
         print(f"train: telemetry — {snap['steps']} steps, "
-              f"{snap['examples_per_sec']:.1f} examples/sec")
+              f"{snap['examples_per_sec']:.1f} examples/sec"
+              + (f", interventions {snap['interventions']}"
+                 if snap.get("interventions") else ""))
         metrics_srv.stop()
     return 0
+
+
+def _train_supervised(args, net, ds, stream, ckpt_dir, telemetry,
+                      chunk: int, epochs: int, batch: int) -> None:
+    """`train -resilience`: the steps under a `TrainingSupervisor`.  The
+    health checks need each loss on the host, so steps do not pipeline.
+    A checkpoint under `ckpt_dir` resumes the run: the (seeded, per
+    epoch) batch schedule is fast-forwarded past every batch the earlier
+    run consumed, skipped poison batches included, and the run is bounded
+    by the planned update count, so a resumed run trains the tail."""
+    import itertools
+    import math
+
+    from deeplearning4j_tpu_torch.resilience import (
+        ResilienceConfig,
+        TrainingSupervisor,
+    )
+
+    if args.accum > 1:
+        print("-accum is ignored under -resilience")
+    sup = TrainingSupervisor(net, telemetry=telemetry,
+                             config=ResilienceConfig(
+        checkpoint_dir=ckpt_dir, checkpoint_every=args.ckpt_every,
+        keep=args.ckpt_keep, skip_budget=args.skip_budget,
+        divergence_factor=args.divergence_factor,
+        step_timeout=args.step_timeout, chunk_size=chunk))
+    sup.install_signal_handlers()
+    try:
+        if sup.resume():
+            print(f"resilience: resumed from checkpoint step {sup.step} "
+                  f"under {ckpt_dir}", flush=True)
+            stream = itertools.islice(stream, sup.batches_consumed, None)
+        total_steps = epochs * math.ceil(ds.num_examples() / batch)
+        report = sup.run(stream, max_steps=total_steps)
+    finally:
+        sup.uninstall_signal_handlers()
+    print(f"resilience: {report.summary()}")
+    for fault in report.faults:
+        print(f"resilience:   {fault}")
+    if report.preempted:
+        print(f"resilience: preempted — emergency checkpoint at step "
+              f"{report.steps}; re-run the same command to resume",
+              flush=True)
 
 
 def cmd_test(args) -> int:
@@ -499,6 +578,7 @@ def cmd_serve(args) -> int:
     if args.lm:
         _serve_lm(srv, args, device, max_queue, deadline_s, breaker_n,
                   tenants)
+    warm_launches = kernel_launches()
     srv.start()
     print(f"serve: resilience max_queue={max_queue or 'unbounded'} "
           f"deadline_ms={args.deadline_ms or 'none'} "
@@ -512,8 +592,33 @@ def cmd_serve(args) -> int:
     print(f"Serving on {srv.url} — POST /model/predict, /lm/generate; "
           f"GET /serving/stats, /metrics, /trace/recent, /healthz, "
           f"/readyz", flush=True)
-    _wait_for_sigterm(args, "serve", srv.drain, srv.serving_stats, srv.stop)
+    _wait_for_sigterm(
+        args, "serve", srv.drain,
+        lambda: dict(srv.serving_stats(), kernel_launches={
+            "warmup": warm_launches, "total": kernel_launches()}),
+        srv.stop)
     return 0
+
+
+def kernel_launches() -> dict:
+    """This process's launch counts of the kernels a server runs: the
+    paged attention (B1) in total and by query width, the flash forward
+    (B2) and the LSTM scan (B5).  A worker process reports them in its
+    drain snapshot, where a supervisor that spawned it can read them."""
+    from deeplearning4j_tpu_torch.nn.layers.lstm_kernel import (
+        fused_lstm_forward,
+    )
+    from deeplearning4j_tpu_torch.parallel.kernels import flash_forward
+    from deeplearning4j_tpu_torch.parallel.paged_kernel import (
+        paged_flash_attention,
+    )
+
+    paged = paged_flash_attention.launches
+    return {"paged_attention": paged.value,
+            "paged_attention_by_width": {
+                str(w): n for w, n in sorted(paged.by_key().items())},
+            "flash_fwd": flash_forward.launches.value,
+            "lstm_forward": fused_lstm_forward.launches.value}
 
 
 def cmd_serve_fleet(args) -> int:
@@ -543,15 +648,16 @@ def cmd_serve_fleet(args) -> int:
                 "serve-fleet: a disaggregated fleet needs BOTH "
                 "-prefill-workers >= 1 and -decode-workers >= 1 "
                 f"(got {args.prefill_workers}/{args.decode_workers})")
-    if args.processes:
-        raise SystemExit("serve-fleet -processes: process-per-replica "
-                         "fleets are not ported (ROADMAP.md, A5 part 2); "
-                         "omit -processes for thread-hosted replicas")
     max_queue = args.max_queue if args.max_queue > 0 else None
     deadline_s = args.deadline_ms / 1e3 if args.deadline_ms > 0 else None
     breaker_n = (args.breaker_threshold if args.breaker_threshold > 0
                  else None)
     quantize = args.quantize if args.quantize != "none" else None
+    if args.processes:
+        return _serve_fleet_processes(args, max_queue=max_queue,
+                                      breaker_n=breaker_n,
+                                      quantize=quantize,
+                                      role_split=role_split)
     device = resolve_device(args.device)
     net = _build_net(args.model, device) if args.model else None
     lm_pair = (load_saved_lm(pathlib.Path(args.lm), device=device)
@@ -609,6 +715,119 @@ def cmd_serve_fleet(args) -> int:
           f"/trace/recent, /healthz, /readyz", flush=True)
     _wait_for_sigterm(args, "serve-fleet", front.drain, router.fleet_stats,
                       front.stop)
+    return 0
+
+
+def _serve_fleet_processes(args, *, max_queue, breaker_n, quantize,
+                           role_split: bool = False) -> int:
+    """`serve-fleet -processes`: each replica is a real spawned ``cli
+    serve`` worker process on ``-worker-base-port + i`` (on
+    ``-device``, the card by default), supervised end to end by a
+    `FleetSupervisor` — crash detection (exit status + /readyz),
+    exponential-backoff restart with warm-then-attach re-admission,
+    crash-loop quarantine — behind the same `FleetServer` front.  The
+    parent stays model-free: the model and LM paths pass straight through
+    to the worker command lines."""
+    from deeplearning4j_tpu_torch.runtime.launcher import (
+        FleetProcessLauncher,
+    )
+    from deeplearning4j_tpu_torch.serving import FleetRouter, FleetServer
+    from deeplearning4j_tpu_torch.serving.procfleet import (
+        FleetSupervisor,
+        RestartPolicy,
+    )
+
+    if args.autoscale:
+        print("serve-fleet: -autoscale ignored with -processes (worker "
+              "count is the launcher's; scale by respawning with more "
+              "replicas)")
+    if role_split:
+        # worker i in [0, P) is a prefill worker, the rest decode — the
+        # role is ROUTER policy stamped on each incarnation's replica;
+        # every worker runs the same `serve -lm ... -lm-ship` line
+        n_workers = args.prefill_workers + args.decode_workers
+        roles = (["prefill"] * args.prefill_workers
+                 + ["decode"] * args.decode_workers)
+    else:
+        n_workers, roles = args.replicas, None
+    launcher = FleetProcessLauncher(
+        args.model or None, n_replicas=n_workers, host=args.host,
+        base_port=args.worker_base_port, buckets=args.buckets,
+        max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
+        warmup=args.warmup, max_queue=max_queue,
+        deadline_ms=(args.deadline_ms if args.deadline_ms > 0 else None),
+        breaker_threshold=breaker_n, quantize=quantize,
+        log_dir=args.worker_log_dir, lm_dir=args.lm or None,
+        lm_slots=(args.lm_slots if args.lm else None),
+        lm_page_size=(args.page_size if args.lm else None),
+        prefill_chunk=(args.prefill_chunk if args.lm else None),
+        lm_ship=bool(args.lm and (role_split or args.lm_ship)),
+        roles=roles, device=args.device)
+    router = FleetRouter(health_interval_s=args.health_interval_s,
+                         disagg_min_prompt=args.disagg_min_prompt)
+    supervisor = FleetSupervisor(
+        router,
+        policy=RestartPolicy(
+            backoff_initial_s=args.restart_backoff_s,
+            crash_loop_threshold=args.crash_loop_threshold,
+            crash_loop_window_s=args.crash_loop_window_s),
+        poll_interval_s=args.health_interval_s,
+        ready_timeout_s=args.ready_timeout_s)
+    supervisor.manage_launcher(launcher)
+    supervisor.start()
+    print(f"serve-fleet: spawned {n_workers} worker process(es) on "
+          f"ports {launcher.port(0)}..{launcher.port(n_workers - 1)} "
+          + (f"({args.prefill_workers} prefill + {args.decode_workers} "
+             f"decode) " if role_split else "")
+          + f"(logs under {launcher.log_dir}); waiting for /readyz "
+          f"(timeout {args.ready_timeout_s}s)", flush=True)
+    try:
+        ready = supervisor.wait_all_ready(args.ready_timeout_s)
+        states = {n: w["state"]
+                  for n, w in supervisor.stats()["workers"].items()}
+        if not ready:
+            raise SystemExit(
+                f"serve-fleet: workers never went ready: {states}; see "
+                f"logs under {launcher.log_dir}")
+        if "ready" not in states.values():
+            # wait_all_ready also returns when every worker SETTLED
+            # without serving (all quarantined: port collisions, a bad
+            # model dir) — an empty fleet front would answer only 503s
+            raise SystemExit(
+                f"serve-fleet: no worker became ready ({states}); see "
+                f"logs under {launcher.log_dir}")
+        # the front registers the supervisor's fleet_process_* counters
+        # on its /metrics (router.supervisor installed above)
+        front = FleetServer(router, host=args.host,
+                            port=args.port).start()
+    except BaseException:  # noqa: BLE001 — cleanup-and-reraise: a failed boot must not leak spawned workers
+        supervisor.stop(grace_s=args.drain_grace_s)
+        router.stop()
+        raise
+    router.start_health_loop()
+    print(f"serve-fleet: {n_workers} supervised worker processes in "
+          f"rotation; restart backoff {args.restart_backoff_s}s, "
+          f"crash-loop quarantine at {args.crash_loop_threshold} deaths "
+          f"in {args.crash_loop_window_s}s; supervision every "
+          f"{args.health_interval_s}s")
+    print(f"Serving fleet on {front.url} — POST /model/predict, "
+          f"/lm/generate; GET /fleet/stats, /serving/stats, /metrics, "
+          f"/trace/recent, /healthz, /readyz", flush=True)
+
+    def drain(grace_s: float) -> bool:
+        # the front stops admitting; each worker drains itself on the
+        # SIGTERM `stop` sends it
+        front.begin_drain()
+        return True
+
+    def stop() -> None:
+        # clean SIGTERM per worker (each drains itself — `serve`'s
+        # handler), escalation + reap on the grace expiring; the
+        # supervisor classifies every one of these deaths `clean`
+        supervisor.stop(grace_s=args.drain_grace_s)
+        front.stop()
+
+    _wait_for_sigterm(args, "serve-fleet", drain, router.fleet_stats, stop)
     return 0
 
 
@@ -811,16 +1030,38 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-chunk", "--chunk", type=int, default=1,
                    help="optimizer steps a dispatch through the fused "
                    "driver (1 = one step a batch)")
-    p.add_argument("-resilience", "--resilience", action="store_true",
-                   help="not ported")
     p.add_argument("-resume", "--resume", action="store_true",
-                   help="not ported")
+                   help="restore the newest GOOD checkpoint from -ckpt-dir "
+                   "before training (shard checksums verified; a corrupt "
+                   "newest step falls back to the previous good one); "
+                   "with -resilience this is automatic")
+    p.add_argument("-resilience", "--resilience", action="store_true",
+                   help="supervise training: skip poison batches, roll "
+                   "back on divergence with LR backoff, retry fetches, "
+                   "checkpoint periodically, and flush an emergency "
+                   "checkpoint on SIGTERM (resume by re-running)")
     p.add_argument("-ckpt-dir", "--ckpt-dir", dest="ckpt_dir",
-                   default=None, help="not ported (resilience)")
+                   default=None, help="resilience checkpoint directory "
+                   "(default <output>/ckpts)")
     p.add_argument("-ckpt-every", "--ckpt-every", dest="ckpt_every",
-                   type=int, default=None, help="not ported (resilience)")
+                   type=int, default=50,
+                   help="steps between periodic checkpoints")
     p.add_argument("-ckpt-keep", "--ckpt-keep", dest="ckpt_keep",
-                   type=int, default=None, help="not ported (resilience)")
+                   type=int, default=3,
+                   help="keep the newest K checkpoints (the best-scoring "
+                   "one is always retained)")
+    p.add_argument("-skip-budget", "--skip-budget", dest="skip_budget",
+                   type=int, default=5,
+                   help="most poison (non-finite) batches skipped before "
+                   "aborting")
+    p.add_argument("-divergence-factor", "--divergence-factor",
+                   dest="divergence_factor", type=float, default=10.0,
+                   help="roll back when the loss exceeds this multiple of "
+                   "the rolling median")
+    p.add_argument("-step-timeout", "--step-timeout", dest="step_timeout",
+                   type=float, default=None,
+                   help="watchdog: fail a training step exceeding this "
+                   "many seconds (default: no watchdog)")
     p.add_argument("-metrics-port", "--metrics-port", dest="metrics_port",
                    type=int, default=None,
                    help="serve training telemetry at GET /metrics on this "
@@ -971,8 +1212,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.set_defaults(func=cmd_serve)
 
     p = sub.add_parser("serve-fleet", help="serve a classifier and/or a "
-                       "saved LM through a fleet of thread-hosted replicas "
-                       "behind a failover router")
+                       "saved LM through a fleet of replicas (threads, or "
+                       "supervised worker processes with -processes) behind "
+                       "a failover router")
     classifier_args(p, fleet=True)
     p.add_argument("-lm", "--lm", default=None,
                    help="saved LM dir served by every replica's paged pool")
@@ -1010,17 +1252,35 @@ def build_parser() -> argparse.ArgumentParser:
                    default="fleet_stats.json",
                    help="where the final /fleet/stats snapshot is written "
                    "on a SIGTERM drain")
-    # accepted so that a JAX command line fails with the reason
     p.add_argument("-processes", "--processes", action="store_true",
-                   help="not ported (process-per-replica)")
-    for flag, kind in (("worker-base-port", int), ("worker-log-dir", str),
-                       ("restart-backoff-s", float),
-                       ("crash-loop-threshold", int),
-                       ("crash-loop-window-s", float),
-                       ("ready-timeout-s", float)):
-        p.add_argument(f"-{flag}", f"--{flag}",
-                       dest=flag.replace("-", "_"), type=kind, default=None,
-                       help="with -processes (not ported)")
+                   help="process per replica: spawn real `serve` worker "
+                   "processes (one per replica, on worker-base-port + i, "
+                   "on -device) and supervise them end to end — crash "
+                   "detection, backoff restart, crash-loop quarantine")
+    p.add_argument("-worker-base-port", "--worker-base-port",
+                   dest="worker_base_port", type=int, default=8081,
+                   help="with -processes: worker i serves on base_port + i")
+    p.add_argument("-worker-log-dir", "--worker-log-dir",
+                   dest="worker_log_dir", default="fleet_logs",
+                   help="with -processes: per-worker rotating "
+                   "stdout/stderr capture directory")
+    p.add_argument("-restart-backoff-s", "--restart-backoff-s",
+                   dest="restart_backoff_s", type=float, default=0.5,
+                   help="with -processes: initial restart backoff (doubles "
+                   "per consecutive crash, jittered, capped)")
+    p.add_argument("-crash-loop-threshold", "--crash-loop-threshold",
+                   dest="crash_loop_threshold", type=int, default=3,
+                   help="with -processes: deaths inside the crash-loop "
+                   "window that quarantine a worker (surfaced in "
+                   "/fleet/stats)")
+    p.add_argument("-crash-loop-window-s", "--crash-loop-window-s",
+                   dest="crash_loop_window_s", type=float, default=60.0,
+                   help="with -processes: the crash-loop quarantine window")
+    p.add_argument("-ready-timeout-s", "--ready-timeout-s",
+                   dest="ready_timeout_s", type=float, default=120.0,
+                   help="with -processes: how long a spawned worker may "
+                   "take to go /readyz-green before it is killed and "
+                   "counted a crash (the report carries its log tail)")
     p.set_defaults(func=cmd_serve_fleet)
 
     p = sub.add_parser("lm", help="train a TransformerLM on raw text "

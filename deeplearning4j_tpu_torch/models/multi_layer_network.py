@@ -708,6 +708,34 @@ class MultiLayerNetwork:
                 "desynchronizes the accumulated-update state", stacklevel=2)
         self._lr_scale = scale
 
+    def restore_train_state(self, step: int, params,
+                            updater_state=None, net_state=None) -> None:
+        """Adopt checkpointed training state (params [+ updater moments
+        and layer state]) as fresh tensors on the network's device and
+        rewind the iteration counter, so the per-step generator
+        (`_step_rng`, seeded from the iteration) and the listener
+        schedules replay exactly as an uninterrupted run — the
+        supervisor's rollback and resume entry point.  `net_state`
+        matters for layers with running statistics: a step that
+        explodes poisons them too, so rolling back params alone would
+        keep the poison.  Each updater leaf lands where a fresh
+        ``init`` puts it (the step count on the CPU)."""
+        def fresh(a, device):
+            return torch.as_tensor(a).detach().to(device).clone()
+
+        with torch.no_grad():
+            self.params = map_tree(
+                lambda a: fresh(a, self.device).requires_grad_(
+                    torch.as_tensor(a).is_floating_point()), params)
+            if updater_state is not None:
+                self.updater_state = map_tree(
+                    lambda a, ref: fresh(a, ref.device), updater_state,
+                    self._updater.init(self.params))
+            if net_state is not None:
+                self.state = map_tree(lambda a: fresh(a, self.device),
+                                      net_state)
+        self._iteration = int(step)
+
     def fit(self, data, epochs: int = 1, accum_steps: int = 1,
             chunk_size: Optional[int] = None, prefetch: int = 2,
             chunk_unroll: int = 1, precision=None) -> "MultiLayerNetwork":

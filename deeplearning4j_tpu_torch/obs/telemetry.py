@@ -8,9 +8,10 @@ boundaries only, where the model holds the iteration's state).  It
 feeds ``train_steps_total``, ``train_loss``, ``train_step_seconds``,
 ``train_examples_per_sec``, ``train_grad_norm``, the loss-scale gauge
 and its grow / backoff counters (from ``model.scaler_stats()``), and the
-intervention counters (`record_intervention`; nothing in the port calls
-it until the training supervisor is ported).  `snapshot()` returns the
-set as a plain dict.
+intervention counters (`record_intervention`, fed by
+`resilience.TrainingSupervisor`: rollback, poison_skip, preemption,
+checkpoint).  `snapshot()` returns the set as a plain dict; the
+supervisor embeds it in every checkpoint's metadata.
 """
 
 from __future__ import annotations

@@ -1,13 +1,12 @@
 """Serving fleet: replicated engines behind a failover router
-(counterpart of `deeplearning4j_tpu.serving.fleet`, thread-hosted
-replicas only).
+(counterpart of `deeplearning4j_tpu.serving.fleet`).
 
 - `Replica` — one engine endpoint in the fleet: a URL plus lifecycle
   hooks.  Thread-hosted replicas carry their in-process `UiServer`
   (`spawn_local_replica`, how the CPU tests and the ``serve-fleet`` CLI
-  host them); an externally started ``cli serve`` worker attaches by URL.
-  Process-per-replica launching and supervision are not ported
-  (ROADMAP.md, A5 part 2).
+  host them); process-per-replica deployments attach spawned ``cli
+  serve`` workers (`runtime.launcher.FleetProcessLauncher`, supervised
+  by `serving.procfleet.FleetSupervisor`) by URL, with their `Popen`.
 - `FleetRouter` — dispatch + health + lifecycle:
 
   * least-loaded dispatch (router-side in-flight per replica) with
@@ -67,6 +66,7 @@ import http.client
 import inspect
 import json
 import math
+import subprocess
 import threading
 import time
 import urllib.error
@@ -153,18 +153,20 @@ class Replica:
     """One serving endpoint in the fleet.
 
     `server` is the in-process `UiServer` for thread-hosted replicas
-    (tests, `serve-fleet` CLI); None for a purely attached URL (an
-    externally managed worker).  The router assigns
+    (tests, `serve-fleet` CLI); `process` a `subprocess.Popen` for
+    process-per-replica deployments; both may be None for a purely
+    attached URL (an externally managed worker).  The router assigns
     `breaker` at attach time when none is supplied, and owns the
     router-side counters (`in_flight`, `dispatches`, `failures`).
     """
 
-    def __init__(self, name: str, url: str, server=None,
+    def __init__(self, name: str, url: str, server=None, process=None,
                  breaker: Optional[CircuitBreaker] = None, version: int = 0,
                  role: str = ROLE_BOTH):
         self.name = str(name)
         self.url = url.rstrip("/")
         self.server = server
+        self.process = process
         self.breaker = breaker
         self.version = int(version)
         if role not in ROLES:
@@ -207,25 +209,39 @@ class Replica:
             self.server.begin_drain()
 
     def drain(self, grace_s: float = 5.0) -> bool:
-        """Graceful: stop admission, let in-flight work finish."""
+        """Graceful: stop admission, let in-flight work finish.  For a
+        process replica this is SIGTERM — ``cli serve`` installs the
+        graceful-drain handler."""
         if self.server is not None:
             return self.server.drain(grace_s)
+        if self.process is not None:
+            self.process.terminate()
+            try:
+                self.process.wait(timeout=grace_s)
+                return True
+            except subprocess.TimeoutExpired:
+                return False
         return True
 
     def stop(self) -> None:
         self.state = REPLICA_STOPPED
         if self.server is not None:
             self.server.stop()
+        if self.process is not None:
+            self.process.terminate()
 
     def kill(self) -> None:
-        """Hard stop — the chaos 'replica died' fault: the HTTP socket
-        closes and the engine fails queued work typed; in-flight router
-        dispatches see a connection error or a 503 and fail over either
-        way.  Deliberately does NOT flip `state`: the control plane has
-        not noticed the death yet — the router must discover it the
-        honest way (dispatch failures and failed readyz probes feeding
-        the breaker until ejection)."""
-        if self.server is not None:
+        """Hard stop — the chaos 'replica process died' fault.  For a
+        thread-hosted replica the HTTP socket closes and its engine
+        fails queued work typed; in-flight router dispatches see a
+        connection error or a 503 and fail over either way.
+        Deliberately does NOT flip `state`: the control plane has not
+        noticed the death yet — the router must discover it the honest
+        way (dispatch failures and failed readyz probes feeding the
+        breaker until ejection)."""
+        if self.process is not None:
+            self.process.kill()
+        elif self.server is not None:
             self.server.stop()
 
     def summary(self) -> Dict:
@@ -392,9 +408,13 @@ class FleetRouter:
         self._session_capacity = 4096
         self.autoscale = False   # health loop calls autoscale_tick() too
         self._autoscale_busy = threading.Lock()
+        # process supervision: a FleetSupervisor installs itself here so
+        # /fleet/stats carries the supervision section (worker states,
+        # death classifications, quarantines)
+        self.supervisor = None
         # ledger counts of gracefully retired replicas (rolling swap /
-        # scale-down) + how many retired without reporting (a corpse) —
-        # check_fleet_ledger folds these in
+        # scale-down) + how many retired without reporting (a process
+        # replica's SIGTERM, a corpse) — check_fleet_ledger folds these in
         self._retired_agg = {"requests": 0, "rejected": 0, "shed": 0,
                              "deadline_missed": 0, "poison_isolated": 0}
         self._retired_lost = 0
@@ -1568,6 +1588,9 @@ class FleetRouter:
         if tenant_agg:
             fleet["tenants"] = tenant_agg
         out = {"fleet": fleet, "replicas": entries, "retired": retired}
+        supervisor = self.supervisor
+        if supervisor is not None:
+            out["supervision"] = supervisor.stats()
         if include_replica_stats:
             out["ledger"] = check_fleet_ledger(out)
         return out
@@ -1920,6 +1943,12 @@ class FleetServer:
         self.registry = MetricsRegistry()
         router.metrics.register_into(self.registry, plane="fleet")
         self.registry.register_collector(self._fleet_samples)
+        if router.supervisor is not None:
+            # process supervision installed before the front: its
+            # fleet_process_* counters ride this /metrics (a supervisor
+            # attached later registers itself via register_collector)
+            self.registry.register_collector(
+                router.supervisor.collector_samples)
         self.registry.gauge(
             "server_uptime_seconds", "seconds since server construction",
             fn=lambda: self.registry.uptime_s)

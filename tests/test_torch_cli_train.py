@@ -3,7 +3,9 @@ the CPU (``-device cpu``), against the JAX package's readers of what it
 writes: the saved model directory (`load_model`) and the flat parameter
 files (`load_params`, binary and txt).  Options whose code paths are not
 ported exit naming their ROADMAP.md queue.  (``-precision`` and
-``-chunk`` are ported in slice 9: tests/test_torch_fused.py.)"""
+``-chunk`` are ported in slice 9: tests/test_torch_fused.py;
+``-resilience``, ``-resume`` and ``-ckpt-*`` in slice 14, whose runs are
+tests/test_torch_resilience.py.)"""
 
 import contextlib
 import io
@@ -139,15 +141,30 @@ def test_train_reads_svmlight_and_pretrains_a_pretrain_conf(tmp_path):
 
 @pytest.mark.parametrize("flags,queue", [
     (["-runtime", "spmd"], "A7"), (["-replicas", "2"], "A7"),
-    (["-sync-every", "4"], "A7"), (["-resilience"], "A6"),
-    (["-resume"], "A6"), (["-ckpt-dir", "x"], "A6"),
-    (["-ckpt-every", "5"], "A6"), (["-ckpt-keep", "2"], "A6")],
+    (["-sync-every", "4"], "A7")],
     ids=lambda v: v if isinstance(v, str) else " ".join(v))
 def test_unported_train_flags_exit_naming_their_queue(flags, queue,
                                                       csv_file):
     with pytest.raises(SystemExit, match=f"queue {queue}"):
         cli.main(["train", "-input", str(csv_file), "-model",
                   "zoo:iris-mlp", "-device", "cpu"] + flags)
+
+
+@pytest.mark.parametrize("flags", [
+    ["-resilience"], ["-resume"], ["-ckpt-dir", "ckpts"],
+    ["-ckpt-every", "5", "-resilience"], ["-ckpt-keep", "2", "-resume"]],
+    ids=" ".join)
+def test_resilience_train_flags_run(flags, csv_file, tmp_path,
+                                    monkeypatch):
+    """The slice-14 flags no longer exit: each trains and saves."""
+    monkeypatch.chdir(tmp_path)
+    rc, text = _run(["train", "-input", str(csv_file), "-model",
+                     "zoo:iris-mlp", "-device", "cpu", "-epochs", "2",
+                     "-output", str(tmp_path / "out")] + flags)
+    assert rc == 0, text
+    assert (tmp_path / "out" / "model" / "params.npz").exists()
+    if "-resilience" in flags:
+        assert "resilience: completed: 10 steps" in text
 
 
 def test_unported_train_properties_exit_too(csv_file, tmp_path):

@@ -1820,3 +1820,137 @@ def test_lm_fleet_on_the_card_launches_b1_by_width():
                                    device="cuda")[0].tolist()
     finally:
         router.stop()
+
+
+def test_supervised_char_lstm_resume_on_the_card_equals_uninterrupted(
+        tmp_path):
+    """The resilience plane on the card: a supervised char-LSTM (B5 every
+    step) preempted mid-stream and resumed by a fresh net from the
+    emergency checkpoint ends equal (bitwise, else within 1e-6 relative
+    a leaf) to an uninterrupted supervised run on the same batches."""
+    _need_card()
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork, char_lstm
+    from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
+    from deeplearning4j_tpu_torch.resilience import (
+        ChaosConfig,
+        ChaosDataSource,
+        ResilienceConfig,
+        TrainingSupervisor,
+    )
+    from deeplearning4j_tpu_torch.tree import flatten_tree
+
+    rng = np.random.default_rng(0)
+    eye = np.eye(80, dtype=np.float32)
+    batches = []
+    for _ in range(10):
+        ids = rng.integers(0, 80, (8, 32))
+        batches.append((eye[ids], eye[np.roll(ids, -1, axis=1)]))
+
+    def net():
+        return MultiLayerNetwork(char_lstm(
+            hidden=128, compute_dtype="bfloat16"), device="cuda").init()
+
+    def cfg(d):
+        return ResilienceConfig(checkpoint_dir=tmp_path / d,
+                                checkpoint_every=3)
+
+    ref = net()
+    TrainingSupervisor(ref, cfg("ref")).run(
+        ChaosDataSource(batches, ChaosConfig()))
+    src = ChaosDataSource(batches, ChaosConfig(preempt_at=6))
+    lk.fused_lstm_forward.launches.reset()
+    first = TrainingSupervisor(net(), cfg("run")).run(src)
+    assert first.preempted and first.steps == 6
+    resumed = net()
+    sup = TrainingSupervisor(resumed, cfg("run"))
+    assert sup.resume() and sup.step == 6
+    assert sup.run(src).steps == 10
+    torch.cuda.synchronize()
+    assert lk.fused_lstm_forward.launches.value == 10
+    got, want = flatten_tree(resumed.params), flatten_tree(ref.params)
+    for k in want:
+        if not torch.equal(got[k], want[k]):
+            rel = float((got[k] - want[k]).abs().max()
+                        / want[k].abs().max().clamp_min(1e-30))
+            assert rel <= 1e-6, (k, rel)
+
+
+def test_fleet_supervisor_kill_and_readmit_beside_a_card_replica():
+    """Two supervised stub worker processes and one thread-hosted replica
+    serving iris-mlp on the card behind one front: a SIGKILL of a worker
+    mid-storm costs no request, and the worker comes back."""
+    _need_card()
+    import json
+    import os
+    import signal
+    import socket
+    import threading
+    import time
+    import urllib.request
+
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork, iris_mlp
+    from deeplearning4j_tpu_torch.serving import (
+        BucketLadder,
+        FleetRouter,
+        FleetServer,
+        spawn_local_replica,
+    )
+    from deeplearning4j_tpu_torch.serving.procfleet import (
+        FleetSupervisor,
+        RestartPolicy,
+        WorkerSpec,
+        stub_worker_command,
+    )
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    router = FleetRouter(request_timeout_s=60.0)
+    router.attach(spawn_local_replica(
+        "card-0", MultiLayerNetwork(iris_mlp(), device="cuda").init(),
+        ladder=BucketLadder((1, 8))))
+    sup = FleetSupervisor(router, policy=RestartPolicy(
+        backoff_initial_s=0.05, jitter=0.0), poll_interval_s=0.05,
+        probe_timeout_s=0.5, wedge_threshold=2)
+    front = FleetServer(router, port=0).start()
+    failed = []
+    try:
+        for i in range(2):
+            port = free_port()
+            sup.manage(WorkerSpec(f"stub-{i}", f"http://127.0.0.1:{port}",
+                                  command=stub_worker_command(port)))
+        assert sup.wait_all_ready(30.0)
+        sup.start()
+
+        def client():
+            for _ in range(20):
+                req = urllib.request.Request(
+                    front.url + "/model/predict",
+                    data=json.dumps({"features": [[0.1] * 4]}).encode(),
+                    headers={"Content-Type": "application/json"})
+                try:
+                    with urllib.request.urlopen(req, timeout=60) as r:
+                        assert r.status == 200
+                except Exception as e:  # noqa: BLE001 — the test counts failures
+                    failed.append(repr(e))
+
+        threads = [threading.Thread(target=client) for _ in range(4)]
+        for t in threads:
+            t.start()
+        os.kill(sup.workers["stub-0"].proc.pid, signal.SIGKILL)
+        for t in threads:
+            t.join(120)
+        assert not any(t.is_alive() for t in threads) and failed == []
+        deadline = time.monotonic() + 30
+        while not (sup.counters["restarts"] == 1 and
+                   sup.stats()["workers"]["stub-0"]["state"] == "ready"):
+            assert time.monotonic() < deadline, sup.stats()
+            time.sleep(0.05)
+        assert sup.stats()["counters"]["deaths_crash"] == 1
+        assert sorted(r.name for r in router.replicas()) == \
+            ["card-0", "stub-0#1", "stub-1"]
+    finally:
+        sup.stop(grace_s=5.0)
+        front.stop()

@@ -14,8 +14,10 @@ against the JAX package's, over iris-mlp replicas on the CPU:
   (the retired replicas folded in); autoscale up and down through drain;
 - `FleetServer`: the same status codes and bodies as JAX's front on one
   script (predict, client errors, stats, metrics families, drain);
-- the ``serve-fleet`` CLI: its refusals (``-processes`` names A5 part 2)
-  and a child-process boot, answer and SIGTERM drain.
+- the ``serve-fleet`` CLI: its refusals (``-processes`` refuses a
+  half-split fleet before it spawns anything; the process fleet itself
+  is tests/test_torch_procfleet.py) and a child-process boot, answer and
+  SIGTERM drain.
 """
 
 import json
@@ -371,7 +373,9 @@ def test_fleet_server_answers_like_jax(nets):
     (["-model", "zoo:iris-mlp", "-lm", "x", "-prefill-workers", "1"],
      "serve-fleet: a disaggregated fleet needs BOTH -prefill-workers >= 1 "
      "and -decode-workers >= 1 (got 1/0)"),
-    (["-model", "zoo:iris-mlp", "-processes"], "ROADMAP.md, A5 part 2")])
+    (["-processes", "-lm", "x", "-decode-workers", "2"],
+     "serve-fleet: a disaggregated fleet needs BOTH -prefill-workers >= 1 "
+     "and -decode-workers >= 1 (got 0/2)")])
 def test_cli_serve_fleet_refusals(argv, message):
     with pytest.raises(SystemExit) as info:
         cli.main(["serve-fleet", "-device", "cpu"] + argv)
