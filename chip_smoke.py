@@ -3,8 +3,10 @@
 `MultiLayerNetwork` (the char-LSTM, the conv nets, DBN pretraining, the
 solvers, the training CLI and the precision plane), its word embeddings
 (Word2Vec, GloVe, ParagraphVectors), classifier serving, the serving
-fleet in threads and in supervised worker processes, and supervised,
-checkpointed training on one NVIDIA GPU and check them.
+fleet in threads and in supervised worker processes, supervised,
+checkpointed training, the sentiment pipeline (the HMM tagger, the
+TreeParser, RNTN and the recursive autoencoder) and KMeans on one NVIDIA
+GPU and check them.
 
     python3 chip_smoke.py            # every phase, from the repo root
 
@@ -318,6 +320,30 @@ Phases (any failure exits non-zero, and no result line is printed):
              CSV SIGTERM'd after its first checkpoint (exit 0, an
              emergency checkpoint), then the same command resumed there
              to the end.
+21. sentiment — the reference's sentiment pipeline, no hand kernel (TF32
+             off): `default_tagger` on the card tags the seed corpus and
+             20 held-out sentences as the CPU's does; the device Viterbi
+             at T 64, S 45 (seeded emissions) gives the CPU's path, the
+             log-prob within 1e-5 relative; the bundled reviews parsed
+             on the card as on the CPU, RNTN's and the recursive
+             autoencoder's loss and every gradient at d 16 within 1e-4
+             relative of the CPU's; tests/test_quality_gates.py's RNTN
+             gate (3 stratified splits, d 16, lr 0.05, 100 epochs: mean
+             held-out root accuracy >= 0.6); the autoencoder's 50-epoch
+             loss falling >= 10 %; RNTN at the reference's width (d 25,
+             5 classes) on an SST-sized synthetic treebank (8 544
+             right-branching trees of 2-50 zipf tokens, ~20 000 words,
+             every node labelled): 10 epochs with finite, falling
+             losses, ms an epoch, nodes/s and peak memory recorded.
+22. cluster — KMeans at MNIST's shape (60 000 x 784 seeded float32
+             blobs, k 10) from the same initial centres on the card and
+             the CPU (TF32 off): equal n_iter, assignments equal but at
+             near-ties (the two nearest squared distances within 1e-4
+             relative; counted), centres within 1e-4 relative; ms a
+             sweep, host reads, fit seconds and peak memory recorded;
+             `PlotFiltersIterationListener` and
+             `ActivationRenderListener` on a card-resident bfloat16 LeNet
+             write their files (``.npy`` grids without matplotlib).
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device time per
 call (`device_ms`: the calls are queued behind a spin kernel, so they run
@@ -331,9 +357,9 @@ subset of phases (facts and build always run), e.g. ``--only
 lstm,rnn``; ``--profile`` traces the serve phase's load, the train,
 rnn and mln phases' timed steps, the decode phase's speculating and
 plain pools, one more fit of each nlp row, the classify phase's
-char-LSTM storm and the fleet phase's LM storm with ``torch.profiler``
-and adds device time by kernel group and the device's idle share to
-their lines.
+char-LSTM storm, the fleet phase's LM storm and one SST-scale RNTN
+epoch with ``torch.profiler`` and adds device time by kernel group and
+the device's idle share to their lines.
 """
 
 from __future__ import annotations
@@ -358,7 +384,8 @@ PEAK_OPS = {"float32": 67e12,      # fp32 outside the tensor cores
             "float16": 989e12}     # fp16 dense tensor-core peak
 PHASES = ("kernel", "flash", "serve", "parity", "train", "lstm", "rnn",
           "decode", "mln", "precision", "moe", "mobility", "nlp", "ops",
-          "classify", "fleet", "procfleet", "resilience")
+          "classify", "fleet", "procfleet", "resilience", "sentiment",
+          "cluster")
 # what the times of the kernels line measure
 TIMING_NOTE = {
     "ms": "device time per call: calls queued behind a spin kernel, run "
@@ -7305,6 +7332,495 @@ def resilience_phase(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the sentiment pipeline (tagger -> TreeParser -> RNTN, the RAE)
+
+# 20 held-out sentences none of which is in the seed corpus; the first 5
+# are tests/test_quality_gates.py's hand-tagged ones
+TAGGER_HELD_OUT = [
+    "the quiet student reads in the library .",
+    "three dogs chased the red ball .",
+    "she slowly opens a small box .",
+    "my friend and his sister sing loudly .",
+    "cold rain falls on the empty street .",
+    "the young doctor carefully examined the sick child .",
+    "two cats slept under the warm stove all afternoon .",
+    "our neighbours painted their old fence bright blue .",
+    "he quickly finished the difficult puzzle .",
+    "the tiny bird built a nest in the tall oak .",
+    "we visited the famous museum last summer .",
+    "a loud thunderstorm shook the quiet town .",
+    "the clever fox escaped from the angry farmer .",
+    "my grandmother bakes delicious apple pies on sunday .",
+    "five runners crossed the finish line together .",
+    "the zorbulous quibbler vanished 42 times faster .",
+    "students often forget their heavy books at school .",
+    "the calm lake reflected the golden evening sky .",
+    "they happily sang old songs around the fire .",
+    "a strange noise woke the tired travellers .",
+]
+TAGGER_GOLD = [
+    ["DET", "ADJ", "NOUN", "VERB", "ADP", "DET", "NOUN", "."],
+    ["NUM", "NOUN", "VERB", "DET", "ADJ", "NOUN", "."],
+    ["PRON", "ADV", "VERB", "DET", "ADJ", "NOUN", "."],
+    ["PRON", "NOUN", "CONJ", "PRON", "NOUN", "VERB", "ADV", "."],
+    ["ADJ", "NOUN", "VERB", "ADP", "DET", "ADJ", "NOUN", "."],
+]
+SST_TREES = 8544           # SST's training split (Socher et al. 2013)
+SST_ID_SPACE = 25_000      # zipf ids drawn; ~20 000 distinct words appear
+SST_EPOCHS = 10
+SST_REDUCED = (
+    "synthetic treebank (SST is not in the repository): 8 544 right-"
+    "branching trees over seeded zipf sentences of 2-50 tokens (<= 99 "
+    "nodes), every node labelled 0-4 from its span's mean word score; "
+    "10 epochs, not the reference's to convergence")
+GATE_SEEDS = (0, 1, 2)
+
+
+def stratified_split(trees, seed: int, frac: float = 0.8):
+    """tests/test_quality_gates.py's `_stratified_split` (80/20 per class,
+    ``default_rng(seed)``)."""
+    rng = np.random.default_rng(seed)
+    tr, te = [], []
+    for cls in (0, 1):
+        grp = [t for t in trees if t.label == cls]
+        idx = rng.permutation(len(grp))
+        k = int(frac * len(grp))
+        tr += [grp[i] for i in idx[:k]]
+        te += [grp[i] for i in idx[k:]]
+    return tr, te
+
+
+def tree_shape(tree):
+    """A tree as nested (label, word, children) tuples."""
+    return (tree.label, tree.word, tuple(tree_shape(c)
+                                         for c in tree.children))
+
+
+def sst_scale_trees(n: int, id_space: int, seed: int = 0) -> list:
+    """`n` right-branching trees over zipf sentences of 2-50 tokens; a
+    word's score is 0 for 70 % of the words and N(0, 1) for the rest;
+    each node's label is its span's mean score cut at -0.75, -0.25,
+    0.25, 0.75 into 0-4."""
+    from deeplearning4j_tpu_torch.nlp import right_branching
+
+    rng = np.random.default_rng(seed)
+    score = rng.standard_normal(id_space) * (rng.random(id_space) < 0.3)
+    lens = rng.integers(2, 51, n)
+    zipf = 1.0 / np.arange(1, id_space + 1)
+    ids = rng.choice(id_space, size=int(lens.sum()), p=zipf / zipf.sum())
+    edges = np.array([-0.75, -0.25, 0.25, 0.75])
+    trees, k = [], 0
+    for length in lens:
+        sent = ids[k:k + length]
+        k += length
+        suffix = np.cumsum(score[sent][::-1])[::-1] / np.arange(length, 0, -1)
+        cls = np.searchsorted(edges, suffix, side="right")
+        leaf = np.searchsorted(edges, score[sent], side="right")
+        root = node = right_branching([f"w{i}" for i in sent])
+        for j in range(length - 1):          # node j spans tokens j..end
+            node.label = int(cls[j])
+            node.children[0].label = int(leaf[j])
+            node = node.children[1]
+        node.label = int(leaf[-1])
+        trees.append(root)
+    return trees
+
+
+def tree_grads_card_vs_cpu(module, params, arrays, *extra) -> dict:
+    """A tree model's loss and gradients from the same inputs on the
+    card and on the CPU (TF32 off): relative max error of the loss and of
+    each gradient."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models.rntn import loss_and_grads
+
+    out = {}
+    for dev in ("cpu", "cuda"):
+        loss, grads = loss_and_grads(
+            module.loss_fn, {k: v.to(dev) for k, v in params.items()},
+            tuple(a.to(dev) for a in arrays), *extra)
+        out[dev] = (float(loss), {k: g.cpu() for k, g in grads.items()})
+    torch.cuda.synchronize()
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    errs = {k: worst_rel(gg[k], gc[k]) for k in gc}
+    return {"loss_cpu": lc, "loss_card": lg,
+            "loss_rel_err": abs(lg - lc) / max(abs(lc), 1e-30),
+            "grad_rel_err": errs, "worst_grad": max(errs, key=errs.get),
+            "worst_grad_rel_err": max(errs.values())}
+
+
+def sentiment_tagging(card: str) -> dict:
+    """The seed corpus and 20 held-out sentences tagged on the card and
+    on the CPU by `default_tagger` (equal tags, hard); Viterbi at T 64,
+    S 45 on seeded emissions (equal paths, log-prob within 1e-5
+    relative, hard)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nlp import default_tagger
+    from deeplearning4j_tpu_torch.nlp.annotators import seed_corpus
+    from deeplearning4j_tpu_torch.utils import Viterbi
+
+    t0 = time.perf_counter()
+    card_tagger = default_tagger("cuda")
+    fit_s = time.perf_counter() - t0
+    cpu_tagger = default_tagger("cpu")
+    sentences = [[w for w, _ in s] for s in seed_corpus()] + [
+        s.split() for s in TAGGER_HELD_OUT]
+    differ = [i for i, toks in enumerate(sentences)
+              if card_tagger.tag(toks) != cpu_tagger.tag(toks)]
+    if differ:
+        raise AssertionError(f"sentiment: the card's tags differ from the "
+                             f"CPU's on sentences {differ}")
+    gold = [t for toks, tags in zip(TAGGER_HELD_OUT, TAGGER_GOLD)
+            for t in zip(card_tagger.tag(toks.split()), tags)]
+    held_out_acc = float(np.mean([got == want for (_, got), want in gold]))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for toks in sentences:
+        card_tagger.tag(toks)
+    tag_ms = (time.perf_counter() - t0) * 1e3 / len(sentences)
+
+    rng = np.random.default_rng(0)
+    emit = np.log(rng.dirichlet(np.ones(45), size=64))
+    trans = np.log(rng.dirichlet(np.full(45, 0.5), size=45))
+    init = np.log(rng.dirichlet(np.ones(45)))
+    vit = Viterbi(trans, init, log_space=True, device="cuda")
+    path, logp = vit.decode(emit, log_space=True)
+    cpu_path, cpu_logp = Viterbi(trans, init, log_space=True,
+                                 device="cpu").decode(emit, log_space=True)
+    logp_err = abs(logp - cpu_logp) / abs(cpu_logp)
+    if not (np.array_equal(path, cpu_path) and logp_err <= 1e-5):
+        raise AssertionError(
+            f"sentiment: Viterbi T 64 S 45 on the card: path equal "
+            f"{np.array_equal(path, cpu_path)}, log-prob rel err "
+            f"{logp_err:.3g} (limit 1e-5)")
+    decode_ms = cuda_ms(lambda: vit.decode(emit, log_space=True), iters=20,
+                        warmup=2)
+    log(f"sentiment: tagger fitted on the card in {fit_s:.2f} s; "
+        f"{len(sentences)} sentences tagged equal on card and CPU, "
+        f"{tag_ms:.2f} ms a sentence, held-out accuracy {held_out_acc:.3f}; "
+        f"Viterbi T 64 S 45 path equal, log-prob rel err {logp_err:.3g}, "
+        f"{decode_ms:.3f} ms a decode ({card})")
+    return {"sentences": len(sentences), "tags_equal": True,
+            "tagger_fit_s": fit_s, "tag_ms_a_sentence": tag_ms,
+            "held_out_accuracy_5_gold": held_out_acc,
+            "viterbi_T64_S45": {"path_equal": True, "logp": logp,
+                                "logp_rel_err": logp_err,
+                                "decode_ms": decode_ms}}
+
+
+def rntn_quality_gate(trees) -> dict:
+    """tests/test_quality_gates.py:191 on the card: three stratified
+    splits, RNTN(num_classes=2, d=16, lr=0.05, epochs=100); the mean
+    held-out root accuracy must be >= 0.6."""
+    from deeplearning4j_tpu_torch.models import RNTN, RNTNEval
+
+    accs, fit_s = [], []
+    for seed in GATE_SEEDS:
+        train, test = stratified_split(trees, seed)
+        t0 = time.perf_counter()
+        model = RNTN(num_classes=2, d=16, lr=0.05, epochs=100, seed=0,
+                     device="cuda").fit(train)
+        fit_s.append(time.perf_counter() - t0)
+        ev = RNTNEval()
+        ev.eval(model, test)
+        accs.append(ev.root_accuracy())
+    mean = float(np.mean(accs))
+    if not mean >= 0.6:
+        raise AssertionError(f"sentiment: held-out root accuracy {accs} "
+                             f"(mean {mean:.3f}) < 0.6")
+    return {"root_accuracy": accs, "mean_root_accuracy": mean,
+            "fit_s": fit_s, "train_trees": len(train),
+            "test_trees": len(test)}
+
+
+def sst_scale_rntn(card: str, profile: bool) -> dict:
+    """RNTN at the reference's width (d 25, 5 classes) on an SST-sized
+    synthetic treebank: 10 epochs whose losses must be finite and
+    falling; ms an epoch, nodes a second and peak memory recorded (and
+    under ``--profile`` one more epoch traced)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import RNTN
+    from deeplearning4j_tpu_torch.models.rntn import program_arrays
+    from deeplearning4j_tpu_torch.nlp import compile_trees
+
+    t0 = time.perf_counter()
+    trees = sst_scale_trees(SST_TREES, SST_ID_SPACE)
+    build_s = time.perf_counter() - t0
+    model = RNTN(num_classes=5, d=25, epochs=SST_EPOCHS, seed=0,
+                 device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model.fit(trees)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = model.losses
+    if not (len(losses) == SST_EPOCHS and np.all(np.isfinite(losses))
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"sentiment: SST-scale RNTN losses {losses} "
+                             f"are not finite and falling")
+    t0 = time.perf_counter()
+    prog = compile_trees(trees, model.vocab)
+    compile_s = time.perf_counter() - t0
+    arrays = program_arrays(prog, model.device)
+    ada = {k: torch.zeros_like(v) for k, v in model.params.items()}
+    params = model.params
+
+    def epoch():
+        nonlocal params, ada
+        params, ada, _ = model._step(params, ada, arrays)
+    epoch_ms = cuda_ms(epoch, iters=3, warmup=1)
+    nodes = int(prog.mask.sum())
+    out = {"trees": len(trees), "vocab": len(model.vocab),
+           "max_nodes": prog.n_nodes, "real_nodes": nodes,
+           "labelled_nodes": int((prog.mask * prog.labeled).sum()),
+           "tokens": int(prog.is_leaf.sum()), "d": 25, "classes": 5,
+           "epochs": SST_EPOCHS, "losses": losses, "fit_s": fit_s,
+           "treebank_build_s": build_s, "compile_trees_s": compile_s,
+           "epoch_ms": epoch_ms, "nodes_per_s": nodes / (epoch_ms / 1e3),
+           "peak_bytes": peak, "reduced": SST_REDUCED}
+    if profile:
+        torch.cuda.synchronize()
+        prof = profiled(True)
+        t0 = time.perf_counter()
+        epoch()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        prof.__exit__(None, None, None)
+        out["profile"] = device_breakdown(prof, wall, 1)
+    log(f"sentiment: SST-scale RNTN ({len(trees)} trees, vocab "
+        f"{len(model.vocab)}, N {prog.n_nodes}, {nodes} nodes, d 25, 5 "
+        f"classes): losses {losses[0]:.4f} -> {losses[-1]:.4f}, fit "
+        f"{fit_s:.2f} s, {epoch_ms:.2f} ms an epoch, "
+        f"{out['nodes_per_s']:.4g} nodes/s, peak {peak / 2**30:.2f} GiB"
+        + (f", idle {out['profile']['device_idle_share']:.3f}"
+           if profile else "") + f" ({card})")
+    return out
+
+
+def sentiment_phase(card: str, profile: bool = False) -> dict:
+    """Phase 21: the reference's sentiment pipeline on the card (the HMM
+    tagger on the device Viterbi -> TreeParser -> labelled trees ->
+    RNTN with AdaGrad -> RNTNEval), and the recursive autoencoder."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import RecursiveAutoEncoder
+    from deeplearning4j_tpu_torch.models import recursive_autoencoder as rae
+    from deeplearning4j_tpu_torch.models import rntn
+    from deeplearning4j_tpu_torch.nlp import compile_trees, sentiment_trees
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"tagging": sentiment_tagging(card)}
+
+    trees = sentiment_trees(device="cuda")
+    cpu_trees = sentiment_trees(device="cpu")
+    if [tree_shape(t) for t in trees] != [tree_shape(t) for t in cpu_trees]:
+        raise AssertionError("sentiment: the card's parses of the reviews "
+                             "differ from the CPU's")
+    model = rntn.RNTN(num_classes=2, d=16, seed=0, device="cpu")
+    model._build_vocab(trees)
+    prog = compile_trees(trees, model.vocab)
+    grads = tree_grads_card_vs_cpu(
+        rntn, model._init_params(), rntn.program_arrays(
+            prog, torch.device("cpu")), model.reg)
+    auto = RecursiveAutoEncoder(d=16, seed=0, device="cpu")
+    for t in trees:
+        for w in t.tokens():
+            auto.vocab.setdefault(w, len(auto.vocab))
+    rae_prog = compile_trees(trees, auto.vocab)
+    rae_grads = tree_grads_card_vs_cpu(
+        rae, auto._init_params(), rntn.program_arrays(
+            rae_prog, torch.device("cpu"), with_targets=False)
+        + (torch.from_numpy(rae_prog.mask),))
+    for name, g in (("RNTN", grads), ("RAE", rae_grads)):
+        log(f"sentiment: {name} d 16 on {len(trees)} review trees, card vs "
+            f"CPU (TF32 off): loss rel err {g['loss_rel_err']:.3g}, worst "
+            f"gradient {g['worst_grad']} {g['worst_grad_rel_err']:.3g}")
+        if not (g["loss_rel_err"] <= 1e-4
+                and g["worst_grad_rel_err"] <= 1e-4):
+            raise AssertionError(f"sentiment: {name} card vs CPU beyond "
+                                 f"1e-4: {g}")
+    out.update(reviews=len(trees), rntn_grads=grads, rae_grads=rae_grads)
+
+    out["quality_gate"] = rntn_quality_gate(trees)
+    q = out["quality_gate"]
+    log(f"sentiment: RNTN quality gate on the card, held-out root accuracy "
+        f"{q['root_accuracy']} (mean {q['mean_root_accuracy']:.3f}, limit "
+        f"0.6), {np.mean(q['fit_s']):.2f} s a 100-epoch fit ({card})")
+
+    t0 = time.perf_counter()
+    fitted = RecursiveAutoEncoder(d=16, lr=0.05, epochs=50, seed=0,
+                                  device="cuda").fit(trees)
+    rae_s = time.perf_counter() - t0
+    drop = 1.0 - fitted.losses[-1] / fitted.losses[0]
+    vecs = fitted.encode(trees)
+    if not (np.all(np.isfinite(fitted.losses)) and drop >= 0.1
+            and vecs.shape == (len(trees), 16)
+            and np.all(np.isfinite(vecs))):
+        raise AssertionError(f"sentiment: RAE losses {fitted.losses[0]} -> "
+                             f"{fitted.losses[-1]} (fall {drop:.3f} < 0.1) "
+                             f"or encodings not finite")
+    log(f"sentiment: RAE 50 epochs on the card, loss {fitted.losses[0]:.4f} "
+        f"-> {fitted.losses[-1]:.4f} (fall {drop:.3f}), {rae_s:.2f} s")
+    out["rae_fit"] = {"first_loss": fitted.losses[0],
+                      "last_loss": fitted.losses[-1], "fall": drop,
+                      "fit_s": rae_s}
+    out["sst_scale"] = sst_scale_rntn(card, profile)
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["card"] = card
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 22: KMeans at MNIST's shape, and a plotting listener on the card
+
+KMEANS_N, KMEANS_D, KMEANS_K = 60_000, 784, 10
+
+
+def kmeans_blobs(seed: int = 0) -> np.ndarray:
+    """60 000 x 784 float32 points around 10 seeded centres (centre
+    coordinates N(0, 0.15^2), noise N(0, 1)): overlapping enough that
+    Lloyd takes several sweeps."""
+    rng = np.random.default_rng(seed)
+    centres = rng.standard_normal((KMEANS_K, KMEANS_D)) * 0.15
+    which = rng.integers(0, KMEANS_K, KMEANS_N)
+    pts = centres[which] + rng.standard_normal((KMEANS_N, KMEANS_D))
+    return pts.astype(np.float32)
+
+
+def kmeans_card_vs_cpu(card: str) -> dict:
+    """Lloyd from the same initial centres on the card and on the CPU
+    (TF32 off): equal n_iter, assignments equal except at near-ties (the
+    two nearest centres' squared distances within 1e-4 relative, counted),
+    centres within 1e-4 relative."""
+    import torch
+
+    from deeplearning4j_tpu_torch.clustering import KMeansClustering
+    from deeplearning4j_tpu_torch.clustering.kmeans import (
+        _pairwise_sq_dists,
+        initial_indices,
+        kmeans_lloyd,
+    )
+
+    t0 = time.perf_counter()
+    pts = kmeans_blobs()
+    data_s = time.perf_counter() - t0
+    x = torch.from_numpy(pts)
+    init = x[initial_indices(KMEANS_N, KMEANS_K, 0)]
+    t0 = time.perf_counter()
+    cpu = kmeans_lloyd(x, init)
+    cpu_s = time.perf_counter() - t0
+    xc, ic = x.cuda(), init.cuda()
+    kmeans_lloyd(xc, ic, max_iter=2)                     # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    card_run = kmeans_lloyd(xc, ic)
+    torch.cuda.synchronize()
+    card_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    d2 = torch.sort(_pairwise_sq_dists(x, cpu[0]), dim=1).values
+    near_tie = ((d2[:, 1] - d2[:, 0]) < 1e-4 * d2[:, 1].abs()).numpy()
+    differ = card_run[1].cpu().numpy() != cpu[1].numpy()
+    centre_err = worst_rel(card_run[0].cpu(), cpu[0])
+    out = {"n": KMEANS_N, "d": KMEANS_D, "k": KMEANS_K,
+           "n_iter_card": card_run[2], "n_iter_cpu": cpu[2],
+           "host_reads": card_run[3], "near_ties": int(near_tie.sum()),
+           "differ": int(differ.sum()),
+           "differ_outside_near_ties": int((differ & ~near_tie).sum()),
+           "centre_rel_err": centre_err, "fit_s": card_s,
+           "ms_a_sweep": card_s * 1e3 / max(card_run[2], 1),
+           "cpu_fit_s": cpu_s, "data_s": data_s, "peak_bytes": peak,
+           # each sweep reads the points twice (distances, then sums)
+           "sweep_bytes_bound_ms": 2 * pts.nbytes / HBM_BYTES_PER_S * 1e3}
+    centers = card_run[0]
+
+    def sweep():
+        kmeans_lloyd(xc, centers, max_iter=1)
+    out["device_ms_a_sweep"] = cuda_ms(sweep, iters=10, warmup=2)
+    km = KMeansClustering(KMEANS_K, device="cuda")
+    assign = km.fit(pts)
+    out["predict_equals_fit"] = bool(np.array_equal(km.predict(pts), assign))
+    log(f"cluster: KMeans {KMEANS_N} x {KMEANS_D}, k {KMEANS_K}: n_iter "
+        f"card {card_run[2]} / CPU {cpu[2]}, {out['differ']} assignments "
+        f"differ ({out['differ_outside_near_ties']} outside the "
+        f"{out['near_ties']} near-ties), centres rel err {centre_err:.3g}; "
+        f"fit {card_s:.3f} s ({out['ms_a_sweep']:.3f} ms a sweep with its "
+        f"host read, {out['device_ms_a_sweep']:.3f} ms a timed sweep, bound "
+        f"{out['sweep_bytes_bound_ms']:.3f}), CPU {cpu_s:.2f} s, peak "
+        f"{peak / 2**30:.2f} GiB ({card})")
+    if not (card_run[2] == cpu[2] and out["differ_outside_near_ties"] == 0
+            and centre_err <= 1e-4 and card_run[3] == card_run[2]
+            and out["predict_equals_fit"]):
+        raise AssertionError(f"cluster: KMeans card vs CPU: {out}")
+    return out
+
+
+def plot_listener_on_card(tmp: str) -> dict:
+    """`PlotFiltersIterationListener` and `ActivationRenderListener` on a
+    card-resident bfloat16 LeNet: every fired iteration writes its file
+    (PNG where matplotlib is installed, else the grid as .npy)."""
+    import dataclasses
+    import os
+
+    import torch
+
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork, zoo
+    from deeplearning4j_tpu_torch.plot import (
+        ActivationRenderListener,
+        PlotFiltersIterationListener,
+    )
+
+    conf = zoo.lenet_mnist(compute_dtype="bfloat16")
+    conf = dataclasses.replace(conf, conf=dataclasses.replace(
+        conf.conf, dtype="bfloat16"))
+    net = MultiLayerNetwork(conf).init()
+    w = net.params[0]["W"]
+    rng = np.random.default_rng(0)
+    x = rng.random((32, 28, 28, 1)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 32)]
+    fdir, adir = os.path.join(tmp, "filters"), os.path.join(tmp, "acts")
+    net.add_listener(PlotFiltersIterationListener(net, fdir, every=1))
+    net.add_listener(ActivationRenderListener(net, x[:8], adir, every=2))
+    for _ in range(4):
+        net.fit_batch(x, y)
+    torch.cuda.synchronize()
+    files = {"filters": sorted(os.listdir(fdir)),
+             "activations": sorted(os.listdir(adir))}
+    ok = (w.is_cuda and w.dtype == torch.bfloat16
+          and len(files["filters"]) == 4 and len(files["activations"]) == 2)
+    if not ok:
+        raise AssertionError(f"cluster: plotting listeners on the card's "
+                             f"bf16 LeNet wrote {files}")
+    return {"weights_dtype": str(w.dtype), "files": files}
+
+
+def cluster_phase(card: str) -> dict:
+    """Phase 22: KMeans at MNIST's shape card vs CPU, and the plotting
+    listeners on a card-resident bfloat16 network."""
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {"kmeans": kmeans_card_vs_cpu(card)}
+    with tempfile.TemporaryDirectory() as tmp:
+        out["listeners"] = plot_listener_on_card(tmp)
+    log(f"cluster: listeners on a card bf16 LeNet wrote "
+        f"{out['listeners']['files']}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["card"] = card
+    torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=",".join(PHASES),
@@ -7313,7 +7829,8 @@ def main(argv=None) -> int:
                     help="trace the serve load, the timed train and rnn "
                     "steps, the decode phase's speculating and plain "
                     "pools, one more fit of each nlp row, the char-LSTM "
-                    "engine's storm and the LM fleet's storm with "
+                    "engine's storm, the LM fleet's storm and one "
+                    "SST-scale RNTN epoch with "
                     "torch.profiler and print device time by kernel "
                     "(slows them)")
     args = ap.parse_args(argv)
@@ -7415,6 +7932,9 @@ def main(argv=None) -> int:
     procfleet = procfleet_phase(card) if "procfleet" in phases else None
     resilience = (resilience_phase(card) if "resilience" in phases
                   else None)
+    sentiment = (sentiment_phase(card, profile=args.profile)
+                 if "sentiment" in phases else None)
+    cluster = cluster_phase(card) if "cluster" in phases else None
 
     entries = []
     if kernels_line is not None:
@@ -7617,6 +8137,10 @@ def main(argv=None) -> int:
         print(json.dumps({"procfleet": procfleet}), flush=True)
     if resilience is not None:
         print(json.dumps({"resilience": resilience}), flush=True)
+    if sentiment is not None:
+        print(json.dumps({"sentiment": sentiment}), flush=True)
+    if cluster is not None:
+        print(json.dumps({"cluster": cluster}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)

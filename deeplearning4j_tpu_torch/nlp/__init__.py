@@ -18,9 +18,14 @@ plain PyTorch ops.  `Word2Vec`, `ParagraphVectors` and `Glove` run on the
 card unless the caller passes ``device="cpu"``; their mesh path is
 ROADMAP item A7.
 
-Not yet ported (ROADMAP item A6): the annotators (`HmmPosTagger`,
-`SWN3`, `TreeParser`, `TreeVectorizer`), the parse trees (`nlp/tree.py`),
-the news corpus and the sentiment pipeline.
+The sentiment pipeline's front half: the parse trees (`nlp/tree.py`,
+host numpy), the annotators (`HmmPosTagger` decoding on the device
+Viterbi, `SWN3`, `TreeParser`, `TreeVectorizer`; the tagger runs on the
+card unless ``device="cpu"``) and the bundled review corpus
+(`nlp/sentiment.py`), which feed `models.RNTN`.
+
+Not yet ported: the news corpus (`nlp/news.py`, ROADMAP.md, A6; port
+slice 16).
 """
 
 from deeplearning4j_tpu_torch.nlp.tokenization import (
@@ -43,6 +48,13 @@ from deeplearning4j_tpu_torch.nlp.document_iterator import (
     FileDocumentIterator,
     LabelAwareDocumentIterator,
 )
+from deeplearning4j_tpu_torch.nlp.annotators import (
+    SWN3,
+    HmmPosTagger,
+    TreeParser,
+    TreeVectorizer,
+    default_tagger,
+)
 from deeplearning4j_tpu_torch.nlp.word2vec_iterator import (
     Word2VecDataSetIterator,
 )
@@ -61,6 +73,17 @@ from deeplearning4j_tpu_torch.nlp.serde import (
     write_binary_model,
     write_word_vectors,
 )
+from deeplearning4j_tpu_torch.nlp.tree import (
+    Tree,
+    compile_trees,
+    parse_ptb,
+    right_branching,
+)
+from deeplearning4j_tpu_torch.nlp.sentiment import (
+    MINI_REVIEWS,
+    mini_reviews,
+    sentiment_trees,
+)
 
 __all__ = [
     "DefaultTokenizer", "NGramTokenizer", "DefaultTokenizerFactory",
@@ -75,4 +98,7 @@ __all__ = [
     "DocumentIterator", "CollectionDocumentIterator",
     "FileDocumentIterator", "LabelAwareDocumentIterator",
     "Word2VecDataSetIterator",
+    "Tree", "parse_ptb", "right_branching", "compile_trees",
+    "HmmPosTagger", "SWN3", "TreeParser", "TreeVectorizer",
+    "default_tagger", "MINI_REVIEWS", "mini_reviews", "sentiment_trees",
 ]

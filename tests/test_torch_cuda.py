@@ -20,6 +20,10 @@ injected dispatch faults and closing on a probe, and a throttled
 tenant's ledger.  So does classifier serving: the `ServingEngine` over a
 char-LSTM launching the LSTM kernel once a dispatch, and a 2-replica LM
 fleet launching the paged kernel n_layers times a dispatch by width.
+The sentiment models and clustering run no hand kernel: the Viterbi
+decode, the tagger and parser, RNTN and autoencoder gradients and fits
+and KMeans (TF32 off) are held against the CPU, and the plotting
+listeners run on a bfloat16 LeNet.
 
 Every test carries the ``cuda`` marker and decides inside the test
 whether a card is present, skipping with a reason when not (the kernels
@@ -1954,3 +1958,165 @@ def test_fleet_supervisor_kill_and_readmit_beside_a_card_replica():
     finally:
         sup.stop(grace_s=5.0)
         front.stop()
+
+
+# -- slice 15: the tree models, the tagger and KMeans (no hand kernel) ---
+
+
+@pytest.fixture
+def no_tf32():
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _rel_max(got, want):
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / max(np.abs(want).max(), 1e-30))
+
+
+@pytest.mark.parametrize("t,s", [(1, 5), (64, 45), (200, 12)])
+def test_viterbi_on_the_card_matches_the_cpu(t, s):
+    _need_card()
+    from deeplearning4j_tpu_torch.utils import Viterbi
+
+    rng = np.random.default_rng(t)
+    emit = np.log(rng.dirichlet(np.ones(s), size=t))
+    trans = np.log(rng.dirichlet(np.ones(s) * 0.5, size=s))
+    init = np.log(rng.dirichlet(np.ones(s)))
+    card = Viterbi(trans, init, log_space=True, device="cuda")
+    assert card.log_trans.is_cuda
+    got = card.decode(emit, log_space=True)
+    want = Viterbi(trans, init, log_space=True, device="cpu").decode(
+        emit, log_space=True)
+    np.testing.assert_array_equal(got[0], want[0])
+    assert abs(got[1] - want[1]) <= 1e-5 * abs(want[1])
+
+
+def test_tagger_and_parser_on_the_card_match_the_cpu():
+    _need_card()
+    from deeplearning4j_tpu_torch.nlp import default_tagger, sentiment_trees
+    from deeplearning4j_tpu_torch.nlp.annotators import seed_corpus
+
+    card, cpu = default_tagger("cuda"), default_tagger("cpu")
+    for sent in seed_corpus():
+        toks = [w for w, _ in sent]
+        assert card.tag(toks) == cpu.tag(toks)
+
+    def shape(tree):
+        return (tree.label, tree.word, tuple(shape(c) for c in tree.children))
+    assert ([shape(t) for t in sentiment_trees(device="cuda")]
+            == [shape(t) for t in sentiment_trees(device="cpu")])
+
+
+def _review_trees():
+    from deeplearning4j_tpu_torch.nlp import sentiment_trees
+
+    return sentiment_trees(device="cpu")
+
+
+def test_rntn_gradients_on_the_card_match_the_cpu(no_tf32):
+    _need_card()
+    from deeplearning4j_tpu_torch.models import rntn
+    from deeplearning4j_tpu_torch.nlp import compile_trees
+
+    trees = _review_trees()
+    model = rntn.RNTN(num_classes=2, d=16, seed=0, device="cpu")
+    model._build_vocab(trees)
+    params = model._init_params()
+    prog = compile_trees(trees, model.vocab)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        out[dev] = rntn.loss_and_grads(
+            rntn.loss_fn, {k: v.to(dev) for k, v in params.items()},
+            rntn.program_arrays(prog, torch.device(dev)), 1e-4)
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    assert _rel_max(lg.cpu(), lc) <= 1e-4
+    for k in gc:
+        assert gg[k].is_cuda and _rel_max(gg[k].cpu(), gc[k]) <= 1e-4, k
+
+
+def test_rntn_and_rae_fits_on_the_card_match_the_cpu(no_tf32):
+    _need_card()
+    from deeplearning4j_tpu_torch.models import (
+        RNTN,
+        RecursiveAutoEncoder,
+        RNTNEval,
+    )
+
+    trees = _review_trees()[::4]
+    fits = {dev: RNTN(num_classes=2, d=16, lr=0.05, epochs=5,
+                      device=dev).fit(trees) for dev in ("cpu", "cuda")}
+    assert _rel_max(fits["cuda"].losses, fits["cpu"].losses) <= 1e-4
+    evs = {}
+    for dev, m in fits.items():
+        evs[dev] = RNTNEval()
+        evs[dev].eval(m, trees)
+    assert evs["cuda"].node_total == evs["cpu"].node_total
+    raes = {dev: RecursiveAutoEncoder(d=16, epochs=5, device=dev).fit(trees)
+            for dev in ("cpu", "cuda")}
+    assert _rel_max(raes["cuda"].losses, raes["cpu"].losses) <= 1e-4
+    assert _rel_max(raes["cuda"].encode(trees),
+                    raes["cpu"].encode(trees)) <= 1e-4
+
+
+def test_kmeans_on_the_card_matches_the_cpu(no_tf32):
+    _need_card()
+    from deeplearning4j_tpu_torch.clustering import (
+        KMeansClustering,
+        kmeans_lloyd,
+    )
+    from deeplearning4j_tpu_torch.clustering.kmeans import (
+        _pairwise_sq_dists,
+    )
+
+    rng = np.random.default_rng(0)
+    centres = rng.normal(0, 4, size=(8, 64))
+    pts = np.concatenate([rng.normal(c, 1.0, size=(500, 64))
+                          for c in centres]).astype(np.float32)
+    x = torch.from_numpy(pts)
+    init = x[torch.randperm(len(pts), generator=torch.Generator(
+        ).manual_seed(1))[:8]]
+    cpu = kmeans_lloyd(x, init)
+    card = kmeans_lloyd(x.cuda(), init.cuda())
+    assert card[2] == cpu[2] and card[3] == card[2]
+    d2 = torch.sort(_pairwise_sq_dists(x, cpu[0]), dim=1).values
+    near_tie = ((d2[:, 1] - d2[:, 0]) < 1e-4 * d2[:, 1].abs()).numpy()
+    differ = card[1].cpu().numpy() != cpu[1].numpy()
+    assert not (differ & ~near_tie).any()
+    assert _rel_max(card[0].cpu(), cpu[0]) <= 1e-4
+    km = KMeansClustering(8, device="cuda")
+    assign = km.fit(pts)
+    np.testing.assert_array_equal(km.predict(pts), assign)
+    assert km.host_reads == km.n_iter
+
+
+def test_plot_listener_on_a_card_bf16_network(tmp_path):
+    _need_card()
+    import os
+
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork, zoo
+    from deeplearning4j_tpu_torch.plot import (
+        ActivationRenderListener,
+        PlotFiltersIterationListener,
+    )
+
+    conf = zoo.lenet_mnist(compute_dtype="bfloat16")
+    conf = dataclasses.replace(conf, conf=dataclasses.replace(
+        conf.conf, dtype="bfloat16"))
+    net = MultiLayerNetwork(conf).init()
+    assert net.params[0]["W"].is_cuda
+    assert net.params[0]["W"].dtype == torch.bfloat16
+    rng = np.random.default_rng(0)
+    x = rng.random((8, 28, 28, 1)).astype(np.float32)
+    y = np.eye(10, dtype=np.float32)[rng.integers(0, 10, 8)]
+    net.add_listener(PlotFiltersIterationListener(net, str(tmp_path / "f"),
+                                                  every=1))
+    net.add_listener(ActivationRenderListener(net, x[:4],
+                                              str(tmp_path / "a"), every=1))
+    net.fit_batch(x, y)
+    assert os.listdir(tmp_path / "f") and os.listdir(tmp_path / "a")

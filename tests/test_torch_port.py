@@ -25,9 +25,20 @@ import jax
 from deeplearning4j_tpu.parallel import transformer as jt
 from deeplearning4j_tpu.runtime.checkpoint import tree_to_npz
 from deeplearning4j_tpu_torch import cli, resolve_device
+from deeplearning4j_tpu_torch.clustering import KMeansClustering, kmeans_fit
+from deeplearning4j_tpu_torch.models import RNTN, RecursiveAutoEncoder
+from deeplearning4j_tpu_torch.nlp import (
+    HmmPosTagger,
+    TreeParser,
+    TreeVectorizer,
+    default_tagger,
+    parse_ptb,
+    sentiment_trees,
+)
 from deeplearning4j_tpu_torch.parallel import transformer as tt
 from deeplearning4j_tpu_torch.serving import ContinuousLMServer
 from deeplearning4j_tpu_torch.ui.server import UiServer
+from deeplearning4j_tpu_torch.utils import Viterbi
 from test_torch_threads import torch_two_threads  # noqa: F401 — autouse
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -96,6 +107,22 @@ def test_device_policy_without_a_card(monkeypatch):
         tt.init_params(cfg)
     with pytest.raises(RuntimeError):
         cli.main(["serve", "-lm", str(REPO / "no-such-dir")])
+    trees = [parse_ptb("(1 (1 good) (0 (0 not) (0 bad)))")]
+    entry_points = [
+        lambda: RNTN().fit(trees),
+        lambda: RecursiveAutoEncoder().fit(trees),
+        lambda: KMeansClustering(2),
+        lambda: kmeans_fit(np.zeros((4, 2), np.float32), 2),
+        lambda: Viterbi(np.eye(2)),
+        lambda: HmmPosTagger(),
+        lambda: default_tagger(),
+        lambda: TreeParser(),
+        lambda: TreeVectorizer(),
+        lambda: sentiment_trees(),
+    ]
+    for make in entry_points:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
 
 
 def _write_jax_lm(tmp_path, dtype):
