@@ -5,8 +5,9 @@ solvers, the training CLI and the precision plane), its word embeddings
 (Word2Vec, GloVe, ParagraphVectors), classifier serving, the serving
 fleet in threads and in supervised worker processes, supervised,
 checkpointed training, the sentiment pipeline (the HMM tagger, the
-TreeParser, RNTN and the recursive autoencoder) and KMeans on one NVIDIA
-GPU and check them.
+TreeParser, RNTN and the recursive autoencoder), KMeans and the
+host-only tail (model import, determinism checks, remote storage, the
+profiler, `ml`) on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # every phase, from the repo root
 
@@ -344,6 +345,31 @@ Phases (any failure exits non-zero, and no result line is printed):
              `PlotFiltersIterationListener` and
              `ActivationRenderListener` on a card-resident bfloat16 LeNet
              write their files (``.npy`` grids without matplotlib).
+23. tail   — the host-only tail: a GPT-2-small stand-in (HF's names and
+             shapes: V 50257, d 768, 12 layers, 12 heads, 1024
+             positions; weights from a numpy seed, a ``SimpleNamespace``
+             config) through `import_hf_gpt2` onto the card (every leaf
+             bitwise against the stand-in's arrays by JAX's mapping);
+             the serve phase's 12 requests from it in bf16 on the paged
+             pool (B1 = n_layers x dispatches by width, ids by the
+             greedy rule); 3 train steps of it at the train phase's
+             recipe (finite losses, B2-B4 launches 96 / 48 / 48 a step);
+             `trace()` around one served request inside an `annotate`
+             span (the Chrome trace holds the span and B1's kernels);
+             `device_memory_stats()` (peak >= in use, the limit = the
+             card's memory); B3 and B4 twice on the same inputs
+             (dK, dV, dQ equal word for word: the one hard determinism
+             check); determinism reported as it is for the dense GPT-2
+             step, the MoE step, the char-LSTM network (B5) and a
+             Word2Vec NEG step (bitwise, or the first leaf that
+             differs and its max abs diff);
+             the char-LSTM's remote checkpoint and model through
+             ``memory://`` bitwise; a LeNet-shaped ``nn.Sequential``
+             imported with `import_torch_sequential` against the module
+             on the card (TF32 off, 1e-5); an iris ``Pipeline([
+             StandardScaler, NetworkClassifier])`` on the card against
+             the same on the CPU (1e-4; Iris's class means and spreads,
+             seeded: the chip machine has no sklearn).
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device time per
 call (`device_ms`: the calls are queued behind a spin kernel, so they run
@@ -385,7 +411,7 @@ PEAK_OPS = {"float32": 67e12,      # fp32 outside the tensor cores
 PHASES = ("kernel", "flash", "serve", "parity", "train", "lstm", "rnn",
           "decode", "mln", "precision", "moe", "mobility", "nlp", "ops",
           "classify", "fleet", "procfleet", "resilience", "sentiment",
-          "cluster")
+          "cluster", "tail")
 # what the times of the kernels line measure
 TIMING_NOTE = {
     "ms": "device time per call: calls queued behind a spin kernel, run "
@@ -7821,6 +7847,558 @@ def cluster_phase(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the host-only tail on the card (model import, determinism,
+# remote storage, the profiler, `import_torch_sequential`, `ml`)
+
+# HF GPT-2-small (the published "gpt2" config): the names and shapes the
+# importer reads, weights from a numpy seed (no checkpoint is in the repo)
+GPT2_HF = dict(vocab_size=50257, n_positions=1024, n_embd=768, n_layer=12,
+               n_head=12, n_inner=None, activation_function="gelu_new",
+               layer_norm_epsilon=1e-5)
+TAIL_TRAIN_STEPS = 3
+TAIL_DET_STEPS = 2          # steps of each determinism run
+TAIL_SEQ_B = 64             # LeNet-shaped import: batch of 28 x 28 images
+TAIL_ML_EPOCHS = 20
+TAIL_ML_TOL = 1e-4          # iris pipeline probabilities, card vs CPU
+TAIL_SEQ_TOL = 1e-5         # imported LeNet vs the module's own forward
+
+
+def hf_gpt2_stand_in(seed: int = 0, **sizes):
+    """An object with HF GPT2LMHeadModel's ``.config`` fields and
+    ``.state_dict()`` names and shapes (tied head), its weights drawn
+    from ``default_rng(seed)`` (scale 0.02, as HF initialises), and the
+    numpy state dict.  GPT-2 small (`GPT2_HF`) unless `sizes` overrides
+    its config fields (``n_embd``, ``n_layer``, ...)."""
+    import types
+
+    import torch
+
+    c = types.SimpleNamespace(**{**GPT2_HF, **sizes})
+    d, v, p = c.n_embd, c.vocab_size, c.n_positions
+    f = 4 * d
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape, scale=0.02):
+        return rng.standard_normal(shape, dtype=np.float32) * np.float32(
+            scale)
+
+    sd = {"transformer.wte.weight": normal(v, d),
+          "transformer.wpe.weight": normal(p, d, scale=0.01)}
+    for i in range(c.n_layer):
+        h = f"transformer.h.{i}."
+        for ln in ("ln_1", "ln_2"):
+            sd[h + ln + ".weight"] = 1 + normal(d)
+            sd[h + ln + ".bias"] = normal(d)
+        sd[h + "attn.c_attn.weight"] = normal(d, 3 * d)
+        sd[h + "attn.c_attn.bias"] = normal(3 * d)
+        sd[h + "attn.c_proj.weight"] = normal(d, d)
+        sd[h + "attn.c_proj.bias"] = normal(d)
+        sd[h + "mlp.c_fc.weight"] = normal(d, f)
+        sd[h + "mlp.c_fc.bias"] = normal(f)
+        sd[h + "mlp.c_proj.weight"] = normal(f, d)
+        sd[h + "mlp.c_proj.bias"] = normal(d)
+    sd["transformer.ln_f.weight"] = 1 + normal(d)
+    sd["transformer.ln_f.bias"] = normal(d)
+    sd["lm_head.weight"] = sd["transformer.wte.weight"]
+    tensors = {k: torch.from_numpy(a) for k, a in sd.items()}
+    return types.SimpleNamespace(config=c, state_dict=lambda: tensors), sd
+
+
+def imported_tree_bitwise(params, sd: dict) -> int:
+    """Every imported leaf, read back, equals the stand-in's array by
+    JAX's mapping, word for word; returns the leaves checked."""
+    d, h = GPT2_HF["n_embd"], GPT2_HF["n_head"]
+    k = d // h
+
+    def want(i):
+        p = f"transformer.h.{i}."
+        qw, kw, vw = np.split(sd[p + "attn.c_attn.weight"], 3, axis=1)
+        qb, kb, vb = np.split(sd[p + "attn.c_attn.bias"], 3)
+        return {
+            "ln1": {"scale": sd[p + "ln_1.weight"],
+                    "bias": sd[p + "ln_1.bias"]},
+            "ln2": {"scale": sd[p + "ln_2.weight"],
+                    "bias": sd[p + "ln_2.bias"]},
+            "attn": {"wq": qw.reshape(d, h, k), "wk": kw.reshape(d, h, k),
+                     "wv": vw.reshape(d, h, k), "bq": qb.reshape(h, k),
+                     "bk": kb.reshape(h, k), "bv": vb.reshape(h, k),
+                     "wo": sd[p + "attn.c_proj.weight"].reshape(h, k, d),
+                     "bo": sd[p + "attn.c_proj.bias"]},
+            "mlp": {"w1": sd[p + "mlp.c_fc.weight"],
+                    "b1": sd[p + "mlp.c_fc.bias"],
+                    "w2": sd[p + "mlp.c_proj.weight"],
+                    "b2": sd[p + "mlp.c_proj.bias"]}}
+
+    from deeplearning4j_tpu_torch.tree import flatten_tree
+
+    tree = {"embed": sd["transformer.wte.weight"],
+            "pos": sd["transformer.wpe.weight"],
+            "layers": [want(i) for i in range(GPT2_HF["n_layer"])],
+            "ln_f": {"scale": sd["transformer.ln_f.weight"],
+                     "bias": sd["transformer.ln_f.bias"]},
+            "head": sd["lm_head.weight"].T}
+    got, ref = flatten_tree(params), flatten_tree(tree)
+    if sorted(got) != sorted(ref):
+        raise AssertionError(f"tail: imported keys {sorted(got)[:5]}... != "
+                             f"{sorted(ref)[:5]}...")
+    for key, a in ref.items():
+        t = got[key].detach().cpu().numpy()
+        if t.dtype != np.float32 or t.shape != a.shape or \
+                t.tobytes() != np.ascontiguousarray(a).tobytes():
+            raise AssertionError(f"tail: imported leaf {key} differs from "
+                                 f"the stand-in's array")
+    return len(ref)
+
+
+def flash_bwd_bitwise() -> dict:
+    """B3 and B4 called twice on the same inputs (the train phase's shape,
+    bf16, causal): dK, dV and dQ equal word for word.  These launches
+    compare a kernel with itself and count on no path."""
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel import kernels as fk
+
+    g = torch.Generator(device="cuda").manual_seed(7)
+    b, s, h, d = 2, TRAIN_SEQ, 12, FLASH_D
+    q, k, v, do = (torch.randn(b, s, h, d, generator=g, device="cuda",
+                               dtype=torch.bfloat16) for _ in range(4))
+    o, lse = fk.flash_forward(q, k, v, True)
+    delta = fk.row_delta(do, o)
+    runs = [fk.flash_bwd_dkv(q, k, v, do, lse, delta, True)
+            + (fk.flash_bwd_dq(q, k, v, do, lse, delta, True),)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    out = {}
+    for name, a, b2 in zip(("dk", "dv", "dq"), runs[0], runs[1]):
+        out[name] = bool(torch.equal(a.view(torch.int16),
+                                     b2.view(torch.int16)))
+    if not all(out.values()):
+        raise AssertionError(f"tail: B3 / B4 are not bitwise across two "
+                             f"calls on the same inputs: {out}")
+    return out
+
+
+def reported(check) -> dict:
+    """Run a determinism `check` and report it as it is: bitwise, or the
+    first leaf that differs and its max abs diff; and its seconds."""
+    from deeplearning4j_tpu_torch.runtime.determinism import (
+        NondeterminismError,
+    )
+
+    t0 = time.perf_counter()
+    try:
+        check()
+        rep = {"bitwise": True, "max_abs_diff": 0.0, "first_leaf": None}
+    except NondeterminismError as e:
+        rep = {"bitwise": False, "max_abs_diff": e.max_abs_diff,
+               "first_leaf": e.leaf}
+    return dict(rep, steps=TAIL_DET_STEPS, s=time.perf_counter() - t0)
+
+
+def determinism_paths(cfg_train, params32, tokens, targets) -> dict:
+    """`check_step_determinism` (2 steps from two fresh states) on the
+    imported dense GPT-2 step, the MoE step and a Word2Vec NEG step, and
+    `check_network_determinism` on the char-LSTM network (B5): each
+    reported as it is (`reported`).  Nothing here fails the phase: only
+    B3 / B4 are bitwise by design (`flash_bwd_bitwise`)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import char_lstm
+    from deeplearning4j_tpu_torch.nlp import word2vec as tw
+    from deeplearning4j_tpu_torch.parallel import transformer as tfm
+    from deeplearning4j_tpu_torch.parallel.hybrid import (
+        _master_f32,
+        make_accum_train_step,
+    )
+    from deeplearning4j_tpu_torch.runtime.determinism import (
+        check_network_determinism,
+        check_step_determinism,
+    )
+
+    def lm_check(cfg, fresh_params, tok, tgt, accum):
+        step, init_state = make_accum_train_step(cfg, lr=1e-3, accum=accum,
+                                                 updater="adam")
+
+        def make_state():
+            p = _master_f32(fresh_params())
+            return p, init_state(p)
+
+        def one(state):
+            p, opt, _ = step(state[0], state[1], tok, tgt)
+            return p, opt
+
+        return lambda: check_step_determinism(
+            make_state, one, steps=TAIL_DET_STEPS, extract=lambda st: st[0])
+
+    out = {"gpt2_dense": reported(lm_check(
+        cfg_train, lambda: tfm.map_tree(lambda t: t.detach().clone(),
+                                        params32), tokens, targets,
+        TRAIN_ACCUM))}
+    torch.cuda.empty_cache()
+
+    moe_cfg = moe_config()
+    moe_tree = tfm.numpy_params(moe_cfg, seed=0)
+    mb = TRAIN_BATCH // TRAIN_ACCUM
+    out["moe"] = dict(reported(lm_check(
+        moe_cfg, lambda: tfm.params_from_numpy(moe_tree, device="cuda"),
+        tokens[:mb], targets[:mb], 1)), batch=mb)
+    del moe_tree
+    torch.cuda.empty_cache()
+
+    x, y = char_batch()
+    out["char_lstm"] = reported(lambda: check_network_determinism(
+        char_lstm(compute_dtype="bfloat16"), x, y, steps=TAIL_DET_STEPS,
+        device="cuda"))
+
+    vocab, dim, b = W2V_BENCH_VOCAB, W2V_BENCH["vector_length"], \
+        W2V_BENCH["batch_size"]
+    rng = np.random.default_rng(11)
+    zipf = np.minimum(rng.zipf(1.3, (b, 2)) - 1, vocab - 1)
+    inputs = torch.from_numpy(zipf[:, 0]).cuda()
+    targets_w = torch.from_numpy(zipf[:, 1]).cuda()
+    negs = torch.from_numpy(rng.integers(
+        0, vocab, (b, W2V_BENCH["negative"]))).cuda()
+    valid = torch.ones(b, device="cuda")
+    syn0 = rng.standard_normal((vocab, dim)).astype(np.float32) * 0.1
+    syn1 = rng.standard_normal((vocab, dim)).astype(np.float32) * 0.1
+
+    def w2v_step(tables):
+        tw.neg_step(tables[0], tables[1], inputs, targets_w, negs, 0.025,
+                    valid)
+        return tables
+
+    out["word2vec_neg"] = dict(reported(lambda: check_step_determinism(
+        lambda: [torch.from_numpy(syn0).cuda(),
+                 torch.from_numpy(syn1).cuda()],
+        w2v_step, steps=TAIL_DET_STEPS)),
+        batch=b, distinct_inputs=int(inputs.unique().numel()))
+    return out
+
+
+def remote_storage_on_card() -> dict:
+    """The char-LSTM (bf16 compute, B5) trained 3 steps on the card, its
+    params and Adam state through ``save_checkpoint_remote("memory://")``
+    and back, and through `RemoteModelSaver` / `load_model_remote`: every
+    leaf equal word for word, and the reloaded net's output equal."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork, char_lstm
+    from deeplearning4j_tpu_torch.runtime.storage import (
+        MemoryStore,
+        RemoteModelSaver,
+        load_checkpoint_remote,
+        load_model_remote,
+        save_checkpoint_remote,
+    )
+    from deeplearning4j_tpu_torch.tree import flatten_tree
+
+    def words(t):
+        if not t.is_floating_point():
+            return t
+        return t.view({2: torch.int16, 4: torch.int32,
+                       8: torch.int64}[t.element_size()])
+
+    def same(a, b) -> bool:
+        fa, fb = flatten_tree(a), flatten_tree(b)
+        return fa.keys() == fb.keys() and all(
+            fa[k].dtype == fb[k].dtype and fa[k].device == fb[k].device
+            and torch.equal(words(fa[k]), words(fb[k])) for k in fa)
+
+    x, y = char_batch()
+    net = MultiLayerNetwork(char_lstm(compute_dtype="bfloat16")).init()
+    for _ in range(3):
+        net.fit_batch(x, y)
+    url = "memory://tail/ckpts"
+    t0 = time.perf_counter()
+    save_checkpoint_remote(url, 3, net.params,
+                           updater_state=net.updater_state)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    step, params, upd, _ = load_checkpoint_remote(
+        url, net.params, updater_like=net.updater_state)
+    load_s = time.perf_counter() - t0
+    blob = sum(len(b) for k, b in MemoryStore("tail").blobs.items())
+    if step != 3 or not same(params, net.params) or \
+            not same(upd, net.updater_state):
+        raise AssertionError("tail: the remote checkpoint did not come "
+                             "back bitwise")
+    RemoteModelSaver("memory://tail/model").save(net)
+    back = load_model_remote("memory://tail/model")
+    if not same(back.params, net.params) or not torch.equal(
+            back.output(x), net.output(x)):
+        raise AssertionError("tail: the remote model did not come back "
+                             "bitwise")
+    MemoryStore.reset()
+    return {"bitwise": True, "step": step, "save_ms": save_s * 1e3,
+            "load_ms": load_s * 1e3, "stored_bytes": blob}
+
+
+def sequential_import_on_card() -> dict:
+    """A LeNet-shaped ``nn.Sequential`` on the card (conv 5x5 20, max
+    pool, conv 5x5 50, max pool, flatten, 800 -> 500 relu -> 10) imported
+    with `import_torch_sequential` onto the card, its softmax outputs
+    against the module's own forward on the card, TF32 off."""
+    import torch
+
+    from deeplearning4j_tpu_torch.runtime.model_import import (
+        import_torch_sequential,
+    )
+
+    torch.manual_seed(0)
+    model = torch.nn.Sequential(
+        torch.nn.Conv2d(1, 20, 5), torch.nn.MaxPool2d(2),
+        torch.nn.Conv2d(20, 50, 5), torch.nn.MaxPool2d(2),
+        torch.nn.Flatten(),
+        torch.nn.Linear(800, 500), torch.nn.ReLU(),
+        torch.nn.Linear(500, 10)).cuda().eval()
+    net, report = import_torch_sequential(model, device="cuda")
+    x = np.random.default_rng(2).random((TAIL_SEQ_B, 28, 28, 1)).astype(
+        np.float32)
+    prev = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            want = torch.softmax(model(torch.from_numpy(x).cuda().permute(
+                0, 3, 1, 2)), dim=1).cpu().numpy()
+        got = net.label_probabilities(x)
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = prev
+    err = float(np.abs(got - want).max())
+    if not all(p.device.type == "cuda" for layer in net.params
+               for p in layer.values()) or err > TAIL_SEQ_TOL:
+        raise AssertionError(f"tail: imported LeNet vs the module: max abs "
+                             f"error {err} (limit {TAIL_SEQ_TOL})")
+    return {"layers": len(net.conf.layers), "report": report,
+            "max_abs_err": err, "tol": TAIL_SEQ_TOL, "batch": TAIL_SEQ_B}
+
+
+# Iris's class means and spreads (cm; Fisher 1936): the chip machine has
+# no sklearn, whose bundled copy `iris_dataset` reads
+IRIS_MEANS = ((5.01, 3.43, 1.46, 0.25), (5.94, 2.77, 4.26, 1.33),
+              (6.59, 2.97, 5.55, 2.03))
+IRIS_SDS = (0.35, 0.35, 0.45, 0.25)
+
+
+def iris_shaped(n: int = 150, seed: int = 0) -> tuple:
+    """Seeded Iris-shaped features in raw units (the scaler has work to
+    do) and integer labels, 50 a class."""
+    rng = np.random.default_rng(seed)
+    y = np.arange(n) % 3
+    x = (np.asarray(IRIS_MEANS)[y] + rng.standard_normal((n, 4))
+         * np.asarray(IRIS_SDS)).astype(np.float32)
+    return x, y
+
+
+def ml_pipeline_card_vs_cpu() -> dict:
+    """An Iris-shaped `Pipeline([StandardScaler, NetworkClassifier])`
+    trained on the card and the same on the CPU (the same seed, so the
+    same initial weights and batches; TF32 off): probabilities within
+    TAIL_ML_TOL and the training accuracy of each."""
+    import torch
+
+    from deeplearning4j_tpu_torch.ml import (
+        NetworkClassifier,
+        Pipeline,
+        StandardScaler,
+    )
+    from deeplearning4j_tpu_torch.models import zoo
+
+    x, y = iris_shaped()
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    try:
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            pipe = Pipeline([
+                ("scale", StandardScaler()),
+                ("clf", NetworkClassifier(zoo.iris_mlp(),
+                                          epochs=TAIL_ML_EPOCHS,
+                                          batch_size=32, device=dev))])
+            pipe.fit(x, y)
+            out[dev] = {"proba": pipe.predict_proba(x),
+                        "score": pipe.score(x, y),
+                        "fit_s": time.perf_counter() - t0,
+                        "on": str(pipe.steps[-1][1].network.device)}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    err = float(np.abs(out["cuda"]["proba"] - out["cpu"]["proba"]).max())
+    if out["cuda"]["on"].split(":")[0] != "cuda" or err > TAIL_ML_TOL:
+        raise AssertionError(f"tail: iris pipeline card vs CPU: max abs "
+                             f"error {err} (limit {TAIL_ML_TOL}), trained "
+                             f"on {out['cuda']['on']}")
+    return {"epochs": TAIL_ML_EPOCHS, "max_abs_err": err, "tol": TAIL_ML_TOL,
+            "score_card": out["cuda"]["score"],
+            "score_cpu": out["cpu"]["score"],
+            "fit_s_card": out["cuda"]["fit_s"],
+            "fit_s_cpu": out["cpu"]["fit_s"]}
+
+
+def trace_one_dispatch(srv, prompt, tmp: str) -> dict:
+    """`trace()` around one served request of one new token (one prefill
+    dispatch) inside an `annotate` span: the Chrome trace must hold the
+    span and B1's kernels."""
+    import os
+
+    from deeplearning4j_tpu_torch.runtime.profiler import annotate, trace
+
+    logdir = os.path.join(tmp, "trace")
+    with trace(logdir):
+        with annotate("tail-serve-dispatch"):
+            srv.generate(prompt, 1, timeout=600)
+    files = [os.path.join(logdir, f) for f in os.listdir(logdir)]
+    if len(files) != 1:
+        raise AssertionError(f"tail: trace wrote {files}")
+    with open(files[0]) as fh:
+        events = json.load(fh)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    b1 = sorted(n for n in names if "paged_attention" in n)
+    if "tail-serve-dispatch" not in names or not b1:
+        raise AssertionError(f"tail: the trace lacks the span or B1 "
+                             f"(B1 kernels {b1})")
+    return {"file_bytes": os.path.getsize(files[0]), "events": len(events),
+            "b1_kernels": b1}
+
+
+def tail_phase(card: str) -> dict:
+    """Import a GPT-2-small stand-in with `import_hf_gpt2`, serve it and
+    train it through the kernels, and drive the rest of the tail."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel import kernels as fk
+    from deeplearning4j_tpu_torch.parallel import transformer as tfm
+    from deeplearning4j_tpu_torch.parallel.hybrid import (
+        _master_f32,
+        make_accum_train_step,
+    )
+    from deeplearning4j_tpu_torch.runtime.model_import import import_hf_gpt2
+    from deeplearning4j_tpu_torch.runtime.profiler import device_memory_stats
+    from deeplearning4j_tpu_torch.serving.lm import ContinuousLMServer
+    from deeplearning4j_tpu_torch.tree import tree_leaves
+
+    t_phase = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    stand_in, sd = hf_gpt2_stand_in(seed=0)
+    t0 = time.perf_counter()
+    cfg, params32 = import_hf_gpt2(stand_in)
+    import_s = time.perf_counter() - t0
+    n_leaves = imported_tree_bitwise(params32, sd)
+    del sd, stand_in
+    out = {"card": card, "config": dict(GPT2_HF), "import_s": import_s,
+           "imported_leaves_bitwise": n_leaves,
+           "n_params": sum(t.numel() for t in tree_leaves(params32))}
+    log(f"tail: imported the GPT-2-small stand-in ({out['n_params']} "
+        f"parameters, {n_leaves} leaves bitwise) in {import_s:.2f} s")
+
+    # import and serve: the serve phase's 12 requests, bf16, paged (B1)
+    cfg16 = dataclasses.replace(cfg, dtype="bfloat16")
+    params16 = tfm.map_tree(lambda t: t.to(torch.bfloat16), params32)
+    reqs = decode_requests(cfg16)[:12]
+    srv = ContinuousLMServer(cfg16, params16, slots=8, page_size=16,
+                             prefill_chunk=16, device="cuda")
+    try:
+        run = run_pool(srv, reqs, DECODE_NEW)
+        with tempfile.TemporaryDirectory() as tmp:
+            out["trace"] = trace_one_dispatch(srv, reqs[0][0][:15], tmp)
+    finally:
+        srv.stop()
+    check = greedy_checker(cfg16, params16)
+    checks = [check(p, r) for (p, temp, _), r in zip(reqs, run["results"])
+              if temp == 0.0]
+    out["serve"] = pool_summary(run, checks)
+    out["serve"]["greedy_requests"] = len(checks)
+    log(f"tail: served 12 requests from the imported model: "
+        f"{run['tokens_per_s']:.2f} tokens/s, B1 {run['paged_launches']} "
+        f"by width {run['paged_launches_by_width']}, greedy worst deficit "
+        f"over limit {out['serve']['worst_deficit_over_limit']:.3f} "
+        f"({card})")
+    del params16
+    torch.cuda.empty_cache()
+
+    # import and train: the train phase's recipe, 3 steps (B2-B4)
+    cfg_train = dataclasses.replace(cfg, dtype="bfloat16", remat=True)
+    rng = np.random.default_rng(3)
+    data = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))).cuda()
+    tokens, targets = data[:, :-1], data[:, 1:]
+    params = _master_f32(tfm.map_tree(lambda t: t.detach().clone(),
+                                      params32))
+    step, init_state = make_accum_train_step(cfg_train, lr=1e-3,
+                                             accum=TRAIN_ACCUM,
+                                             updater="adam")
+    opt = init_state(params)
+    counters = {"flash_fwd": fk.flash_forward.launches,
+                "flash_bwd_dkv": fk.flash_bwd_dkv.launches,
+                "flash_bwd_dq": fk.flash_bwd_dq.launches}
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.reset()
+    losses, step_ms = [], []
+    for _ in range(TAIL_TRAIN_STEPS):
+        ts = time.perf_counter()
+        params, opt, loss = step(params, opt, tokens, targets)
+        losses.append(float(loss))
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+    launches = {n: c.value for n, c in counters.items()}
+    per_step = cfg.n_layers * TRAIN_ACCUM
+    want = {"flash_fwd": 2 * per_step * TAIL_TRAIN_STEPS,
+            "flash_bwd_dkv": per_step * TAIL_TRAIN_STEPS,
+            "flash_bwd_dq": per_step * TAIL_TRAIN_STEPS}
+    if not all(math.isfinite(x) for x in losses) or launches != want:
+        raise AssertionError(f"tail: training the imported model: losses "
+                             f"{losses}, launches {launches} (want {want})")
+    out["train"] = {"steps": TAIL_TRAIN_STEPS, "losses": losses,
+                    "step_ms": step_ms, "launches": launches,
+                    "recipe": f"bf16 compute, f32 masters, adam lr 1e-3, "
+                              f"{TRAIN_BATCH} x {TRAIN_SEQ} in "
+                              f"{TRAIN_ACCUM} microbatches, remat"}
+    log(f"tail: trained the imported model {TAIL_TRAIN_STEPS} steps: "
+        f"losses {losses}, step ms {[round(x, 1) for x in step_ms]}, "
+        f"launches {launches} ({card})")
+    del params, opt
+    torch.cuda.empty_cache()
+
+    # device memory: read while the imported tree is still resident
+    stats = device_memory_stats()
+    total = torch.cuda.get_device_properties(0).total_memory
+    if len(stats) != torch.cuda.device_count() or \
+            stats[0]["peak_bytes_in_use"] < stats[0]["bytes_in_use"] or \
+            stats[0]["bytes_limit"] != total:
+        raise AssertionError(f"tail: device_memory_stats {stats}")
+    out["device_memory_stats"] = stats
+
+    out["flash_bwd_bitwise"] = flash_bwd_bitwise()
+    out["determinism"] = determinism_paths(cfg_train, params32, tokens,
+                                           targets)
+    for path, rep in out["determinism"].items():
+        log(f"tail: determinism {path}: bitwise {rep['bitwise']}, max abs "
+            f"diff {rep['max_abs_diff']:.3g}, first leaf "
+            f"{rep['first_leaf']} ({rep['s']:.1f} s; {card})")
+    del params32
+    torch.cuda.empty_cache()
+    out["storage"] = remote_storage_on_card()
+    out["sequential"] = sequential_import_on_card()
+    out["ml"] = ml_pipeline_card_vs_cpu()
+    log(f"tail: remote checkpoint bitwise (save "
+        f"{out['storage']['save_ms']:.1f} ms, load "
+        f"{out['storage']['load_ms']:.1f} ms); imported LeNet vs "
+        f"the module {out['sequential']['max_abs_err']:.3g}; iris pipeline "
+        f"card vs CPU {out['ml']['max_abs_err']:.3g}, accuracy "
+        f"{out['ml']['score_card']:.3f} / {out['ml']['score_cpu']:.3f}")
+    out["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"tail: phase in {out['phase_s']:.1f} s, peak memory "
+        f"{out['peak_memory_bytes'] / 2**30:.2f} GiB ({card})")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=",".join(PHASES),
@@ -7935,6 +8513,7 @@ def main(argv=None) -> int:
     sentiment = (sentiment_phase(card, profile=args.profile)
                  if "sentiment" in phases else None)
     cluster = cluster_phase(card) if "cluster" in phases else None
+    tail = tail_phase(card) if "tail" in phases else None
 
     entries = []
     if kernels_line is not None:
@@ -7980,6 +8559,10 @@ def main(argv=None) -> int:
                 {n: w["b1_by_width"] for n, w in
                  procfleet["worker_launches"].items()}
                 if procfleet else None),
+            "tail_launches": (
+                {"by_width": tail["serve"]["paged_launches_by_width"],
+                 "dispatches_by_width": tail["serve"]["dispatch_widths"]}
+                if tail else None),
             "split_plan": main_case["split_plan"],
             "float16": dict(dtype_summary(next(
                 c for c in kernels_line
@@ -8016,6 +8599,8 @@ def main(argv=None) -> int:
                          procfleet["worker_launches"].items()}
                         if procfleet else None)}
                    if kname == "flash_fwd" else {}),
+                "tail_launches": (tail["train"]["launches"][kname]
+                                  if tail else None),
                 "moe_launches": (
                     {"train": moe["launches"][kname],
                      "train_per_step": moe["launches_per_step"][kname],
@@ -8141,6 +8726,8 @@ def main(argv=None) -> int:
         print(json.dumps({"sentiment": sentiment}), flush=True)
     if cluster is not None:
         print(json.dumps({"cluster": cluster}), flush=True)
+    if tail is not None:
+        print(json.dumps({"tail": tail}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)

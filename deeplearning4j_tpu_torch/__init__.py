@@ -16,3 +16,36 @@ Public entry points run on ``cuda`` unless the caller passes
 from deeplearning4j_tpu_torch.device import resolve_device
 
 __all__ = ["resolve_device"]
+
+# Lazy top-level conveniences (PEP 562), the JAX package's table:
+# `from deeplearning4j_tpu_torch import MultiLayerNetwork` without paying
+# for every subpackage at import time.
+_LAZY = {
+    "MultiLayerNetwork": ("deeplearning4j_tpu_torch.models",
+                          "MultiLayerNetwork"),
+    "get_model": ("deeplearning4j_tpu_torch.models", "get_model"),
+    "generate": ("deeplearning4j_tpu_torch.parallel", "generate"),
+    "beam_search": ("deeplearning4j_tpu_torch.parallel", "beam_search"),
+    "load_source": ("deeplearning4j_tpu_torch.ml", "load_source"),
+    "Evaluation": ("deeplearning4j_tpu_torch.evaluation", "Evaluation"),
+}
+# the JAX table's multi-device names, not ported
+_UNPORTED = {"DataParallelTrainer", "make_mesh"}
+
+
+def __getattr__(name):
+    if name in _LAZY:
+        import importlib
+
+        module, attr = _LAZY[name]
+        return getattr(importlib.import_module(module), attr)
+    if name in _UNPORTED:
+        raise AttributeError(
+            f"deeplearning4j_tpu_torch.{name} is multi-device work, not "
+            f"ported (ROADMAP.md, queue A7, 'Multi-device')")
+    raise AttributeError(f"module 'deeplearning4j_tpu_torch' has no "
+                         f"attribute {name!r}")
+
+
+def __dir__():
+    return sorted(list(globals()) + list(_LAZY))

@@ -1,6 +1,7 @@
 """Datasets (counterpart of `deeplearning4j_tpu.datasets`): `DataSet`,
-the iterators and the fetchers (`datasets.fetchers`).  The downloader and
-`vectorizer` are ROADMAP.md queue A6."""
+the iterators, the fetchers (`datasets.fetchers`), the download-and-cache
+tier they resolve through (`datasets.downloader`) and the image
+vectorizer (`datasets.vectorizer`)."""
 
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet
 from deeplearning4j_tpu_torch.datasets.iterators import (

@@ -1,19 +1,20 @@
-"""Dataset fetchers (counterpart of `deeplearning4j_tpu.datasets.fetchers`;
-numpy only, no download).
+"""Dataset fetchers (counterpart of `deeplearning4j_tpu.datasets.fetchers`).
 
 Parity: reference `datasets/fetchers/*` (MNIST `MnistDataFetcher.java:39`,
-Iris `IrisDataFetcher`) and the Canova record readers the CLI uses
-(reference Train.java:155-165, default SVMLightInputFormat).
+Iris `IrisDataFetcher`, `CurvesDataFetcher`, `LFWDataSetIterator`) and the
+Canova record readers the CLI uses (reference Train.java:155-165, default
+SVMLightInputFormat).
 
 - `iris_dataset` and `digits_dataset` read sklearn's bundled copies;
   sklearn is imported inside them, so nothing else needs it.
-- `mnist_dataset` and `cifar10_dataset` read a local directory:
-  ``$MNIST_DIR`` (IDX files) / ``$CIFAR10_DIR`` (the python batches), then
-  the cache directory the JAX package downloads into
-  (``$DL4J_CACHE_DIR/<name>``, else ``~/.cache/deeplearning4j_tpu/<name>``).
-  With neither, they fall back loudly, as the JAX package does offline:
-  MNIST to sklearn's 8x8 digits upscaled (else synthetic blobs), CIFAR-10
-  to synthetic blobs.  The port has no download step (ROADMAP.md A6).
+- `mnist_dataset` and `cifar10_dataset` resolve as the JAX package does:
+  a local directory (``$MNIST_DIR`` IDX files / ``$CIFAR10_DIR`` python
+  batches), then the download cache (`downloader.cache_dir`), then a
+  download where allowed (`downloader.fetch_*`; ``download=False`` or
+  ``DL4J_NO_DOWNLOAD=1`` forbid it), then a loud fallback: MNIST to
+  sklearn's 8x8 digits upscaled (else synthetic blobs), CIFAR-10 to
+  synthetic blobs.  `lfw_dataset` fetches through the cache tier and
+  falls back loudly; `curves_dataset` is procedural.
 - The CSV and SVMLight readers parse through the native C++ library
   (`deeplearning4j_tpu_torch.native`, built with g++ on first use) under
   the JAX package's conditions, else with its Python parsers; both give
@@ -26,12 +27,12 @@ import gzip
 import os
 import pickle
 import struct
-import warnings
 from pathlib import Path
 from typing import Optional
 
 import numpy as np
 
+from deeplearning4j_tpu_torch.datasets import downloader
 from deeplearning4j_tpu_torch.datasets.dataset import DataSet
 
 
@@ -39,21 +40,6 @@ def one_hot(indices: np.ndarray, num_classes: int) -> np.ndarray:
     out = np.zeros((len(indices), num_classes), np.float32)
     out[np.arange(len(indices)), indices.astype(int)] = 1.0
     return out
-
-
-def cache_dir(name: str) -> Path:
-    """Where the JAX package's downloader caches dataset `name`."""
-    root = os.environ.get("DL4J_CACHE_DIR")
-    if root:
-        return Path(root) / name
-    return Path.home() / ".cache" / "deeplearning4j_tpu" / name
-
-
-def _warn_fallback(name: str, reason: str, substitute: str) -> None:
-    warnings.warn(
-        f"{name}: {reason} — substituting {substitute}. Quality numbers "
-        f"from this data are NOT comparable to the real dataset.",
-        RuntimeWarning, stacklevel=3)
 
 
 def iris_dataset(normalize: bool = True) -> DataSet:
@@ -92,31 +78,54 @@ def _load_mnist_dir(d: Path, split: str, binarize: bool,
 
 def _mnist_dirs() -> list:
     mnist_dir = os.environ.get("MNIST_DIR")
-    return ([Path(mnist_dir)] if mnist_dir else []) + [cache_dir("mnist")]
+    return (([Path(mnist_dir)] if mnist_dir else [])
+            + [downloader.cache_dir("mnist")])
 
 
 def mnist_dataset(split: str = "train", binarize: bool = False,
-                  flatten: bool = False) -> DataSet:
-    """MNIST from ``$MNIST_DIR`` or the cache directory; else (loudly)
-    sklearn's digits upscaled to 28x28, else synthetic blobs.  Features
-    in [0,1], NHWC [N,28,28,1] or flat [N,784]."""
+                  flatten: bool = False,
+                  download: Optional[bool] = None) -> DataSet:
+    """MNIST (reference MnistDataFetcher.java:39 + MnistFetcher's
+    download-and-cache).  Resolution order:
+
+    1. ``$MNIST_DIR`` pointing at IDX files
+    2. the local download cache (``~/.cache/deeplearning4j_tpu/mnist``)
+    3. download from the mirrors (unless ``download=False`` or
+       ``DL4J_NO_DOWNLOAD=1``)
+    4. LOUD fallback: sklearn digits upscaled, else synthetic blobs
+
+    Features in [0,1], shape [N,28,28,1] (NHWC) or flat [N,784]."""
     for d in _mnist_dirs():
         ds = _load_mnist_dir(d, split, binarize, flatten)
         if ds is not None:
             return ds
-    _warn_fallback("mnist_dataset", "no local MNIST (set MNIST_DIR)",
-                   "sklearn 8x8 digits upscaled to 28x28")
+    if download is not False and downloader.downloads_allowed():
+        try:
+            ds = _load_mnist_dir(downloader.fetch_mnist(), split, binarize,
+                                 flatten)
+            if ds is not None:
+                return ds
+        except Exception as e:  # noqa: BLE001 — fall back loudly below
+            downloader.warn_fallback(
+                "mnist_dataset", f"download failed ({e})",
+                "sklearn 8x8 digits upscaled to 28x28")
+    else:
+        downloader.warn_fallback(
+            "mnist_dataset", "no cached MNIST and downloads disabled",
+            "sklearn 8x8 digits upscaled to 28x28")
     try:
         return _digits_as_mnist(split, binarize, flatten)
-    except ImportError:
-        _warn_fallback("mnist_dataset", "sklearn digits unavailable",
-                       "synthetic Gaussian blobs")
+    except Exception:  # noqa: BLE001 — any failure -> synthetic fallback
+        downloader.warn_fallback("mnist_dataset",
+                                 "sklearn digits unavailable",
+                                 "synthetic Gaussian blobs")
         return synthetic_mnist(6000 if split == "train" else 1000,
                                binarize=binarize, flatten=flatten)
 
 
 def is_real_mnist_available() -> bool:
-    """True when `mnist_dataset` would return the real MNIST."""
+    """True when `mnist_dataset` would return the real MNIST without a
+    download (quality gates skip otherwise)."""
     return any(_load_mnist_dir(d, "test", False, False) is not None
                for d in _mnist_dirs())
 
@@ -136,6 +145,43 @@ def digits_dataset(split: str = "train", flatten: bool = False) -> DataSet:
     part = images[sl]
     x = part.reshape(len(part), -1) if flatten else part[..., None]
     return DataSet(x, one_hot(labels[sl], 10))
+
+
+def lfw_dataset(min_faces_per_person: int = 20, resize: float = 0.4,
+                num_classes: Optional[int] = None) -> DataSet:
+    """Labeled Faces in the Wild (reference LFWDataSetIterator), fetched
+    through the cache tier; falls back LOUDLY to synthetic face-shaped
+    blobs."""
+    try:
+        imgs, target, names = downloader.fetch_lfw(min_faces_per_person,
+                                                   resize)
+        if num_classes is not None and num_classes < len(names):
+            keep = target < num_classes
+            imgs, target = imgs[keep], target[keep]
+            k = num_classes
+        else:
+            k = len(names)
+        return DataSet(imgs, one_hot(target, k))
+    except Exception as e:  # noqa: BLE001 — fall back loudly
+        downloader.warn_fallback("lfw_dataset", f"fetch failed ({e})",
+                                 "synthetic class-conditional blobs")
+        rng = np.random.default_rng(1)
+        k = num_classes or 5
+        n = 200
+        labels = rng.integers(0, k, n)
+        centers = rng.random((k, 50, 37)).astype(np.float32)
+        x = (centers[labels] * 0.6
+             + rng.random((n, 50, 37)).astype(np.float32) * 0.4)
+        return DataSet(x[..., None], one_hot(labels, k))
+
+
+def curves_dataset(n: int = 20000, seed: int = 0) -> DataSet:
+    """The 'curves' autoencoder benchmark (reference CurvesDataFetcher:
+    features == labels, for deep-AE pretraining), procedurally generated
+    by `downloader.curves_images`."""
+    imgs = downloader.curves_images(n, seed=seed)
+    flat = imgs.reshape(n, -1)
+    return DataSet(flat, flat.copy())
 
 
 def _digits_as_mnist(split: str, binarize: bool, flatten: bool) -> DataSet:
@@ -189,19 +235,36 @@ def _load_cifar_dir(d: Path, split: str) -> Optional[DataSet]:
     return DataSet(x, one_hot(np.asarray(ys), 10))
 
 
-def cifar10_dataset(split: str = "train") -> DataSet:
-    """CIFAR-10 as NHWC [N,32,32,3] float32 in [0,1] from ``$CIFAR10_DIR``
-    or the cache directory (the python batches); else (loudly) synthetic
-    blobs."""
+def cifar10_dataset(split: str = "train",
+                    download: Optional[bool] = None) -> DataSet:
+    """CIFAR-10 as NHWC [N,32,32,3] float32 in [0,1].  Resolution:
+    ``$CIFAR10_DIR`` with the python batches > cache > download > LOUD
+    synthetic fallback."""
     env_dir = os.environ.get("CIFAR10_DIR")
     candidates = [Path(env_dir)] if env_dir else []
-    candidates.append(cache_dir("cifar10") / "cifar-10-batches-py")
+    candidates.append(downloader.cache_dir("cifar10")
+                      / "cifar-10-batches-py")
     for d in candidates:
         ds = _load_cifar_dir(d, split)
         if ds is not None:
             return ds
-    _warn_fallback("cifar10_dataset", "no local CIFAR-10 (set CIFAR10_DIR)",
-                   "synthetic Gaussian blobs")
+    if download is not False and downloader.downloads_allowed():
+        try:
+            ds = _load_cifar_dir(downloader.fetch_cifar10(), split)
+            if ds is not None:
+                return ds
+            downloader.warn_fallback("cifar10_dataset",
+                                     "downloaded archive missing batches",
+                                     "synthetic Gaussian blobs")
+        except Exception as e:  # noqa: BLE001 — fall back loudly below
+            downloader.warn_fallback("cifar10_dataset",
+                                     f"download failed ({e})",
+                                     "synthetic Gaussian blobs")
+    else:
+        downloader.warn_fallback("cifar10_dataset",
+                                 "no cached CIFAR-10 and downloads disabled",
+                                 "synthetic Gaussian blobs")
+    # a small synthetic set: smoke and throughput runs only
     return synthetic_cifar10(6000 if split == "train" else 1000)
 
 

@@ -24,8 +24,9 @@ Viterbi, `SWN3`, `TreeParser`, `TreeVectorizer`; the tagger runs on the
 card unless ``device="cpu"``) and the bundled review corpus
 (`nlp/sentiment.py`), which feed `models.RNTN`.
 
-Not yet ported: the news corpus (`nlp/news.py`, ROADMAP.md, A6; port
-slice 16).
+The labelled news corpus (`nlp/news.py`): a directory of label
+directories, ``$DL4J_NEWS_DIR``, 20 Newsgroups from the download cache,
+or (loudly) a bundled mini corpus, vectorized by TF-IDF or counts.
 """
 
 from deeplearning4j_tpu_torch.nlp.tokenization import (
@@ -79,6 +80,11 @@ from deeplearning4j_tpu_torch.nlp.tree import (
     parse_ptb,
     right_branching,
 )
+from deeplearning4j_tpu_torch.nlp.news import (
+    NewsGroupsDataSetIterator,
+    news_corpus,
+    news_dataset,
+)
 from deeplearning4j_tpu_torch.nlp.sentiment import (
     MINI_REVIEWS,
     mini_reviews,
@@ -101,4 +107,5 @@ __all__ = [
     "Tree", "parse_ptb", "right_branching", "compile_trees",
     "HmmPosTagger", "SWN3", "TreeParser", "TreeVectorizer",
     "default_tagger", "MINI_REVIEWS", "mini_reviews", "sentiment_trees",
+    "news_corpus", "news_dataset", "NewsGroupsDataSetIterator",
 ]

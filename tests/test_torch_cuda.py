@@ -23,7 +23,10 @@ fleet launching the paged kernel n_layers times a dispatch by width.
 The sentiment models and clustering run no hand kernel: the Viterbi
 decode, the tagger and parser, RNTN and autoencoder gradients and fits
 and KMeans (TF32 off) are held against the CPU, and the plotting
-listeners run on a bfloat16 LeNet.
+listeners run on a bfloat16 LeNet.  The host-only tail: a GPT-2 stand-in
+under HF's names imported onto the card and served through the paged
+kernel, the flash backward kernels bitwise across two calls, a remote
+checkpoint of a card network bitwise, and `device_memory_stats`.
 
 Every test carries the ``cuda`` marker and decides inside the test
 whether a card is present, skipping with a reason when not (the kernels
@@ -2120,3 +2123,136 @@ def test_plot_listener_on_a_card_bf16_network(tmp_path):
                                               str(tmp_path / "a"), every=1))
     net.fit_batch(x, y)
     assert os.listdir(tmp_path / "f") and os.listdir(tmp_path / "a")
+
+
+# -- slice 16: the host-only tail (model import, determinism, storage) ---
+
+
+def test_hf_named_stand_in_imports_and_serves_on_the_card():
+    """`import_hf_gpt2` onto the card gives the CPU import's leaves word
+    for word; the paged pool serves it (B1 = n_layers x dispatches by
+    width) with greedy ids equal to `generate`."""
+    _need_card()
+    import threading
+
+    import chip_smoke
+    from deeplearning4j_tpu_torch.parallel.generation import generate
+    from deeplearning4j_tpu_torch.runtime.model_import import import_hf_gpt2
+    from deeplearning4j_tpu_torch.tree import flatten_tree
+
+    model, _ = chip_smoke.hf_gpt2_stand_in(
+        seed=0, vocab_size=256, n_positions=128, n_embd=64, n_layer=2,
+        n_head=4)
+    cfg, params = import_hf_gpt2(model)
+    cfg_cpu, params_cpu = import_hf_gpt2(model, device="cpu")
+    assert cfg == cfg_cpu and cfg.attn_bias and not cfg.tie_embeddings
+    for (ka, a), (kb, b) in zip(flatten_tree(params).items(),
+                                flatten_tree(params_cpu).items()):
+        assert ka == kb and a.is_cuda
+        assert torch.equal(a.cpu().view(torch.int32), b.view(torch.int32))
+    rng = np.random.default_rng(5)
+    prompts = [[int(t) for t in rng.integers(0, 256, int(n))]
+               for n in rng.integers(5, 40, 4)]
+    srv = ContinuousLMServer(cfg, params, slots=4, page_size=16,
+                             prefill_chunk=16, device="cuda")
+    try:
+        srv.warmup()
+        torch.cuda.synchronize()
+        tpk.paged_flash_attention.launches.reset()
+        out = [None] * len(prompts)
+
+        def client(i):
+            out[i] = srv.generate(prompts[i], 8, timeout=300)
+
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(300)
+        torch.cuda.synchronize()
+        want = {w: cfg.n_layers * n
+                for w, n in srv.stats()["dispatch_widths"].items()}
+        got = {str(c): n for c, n in
+               tpk.paged_flash_attention.launches.by_key().items()}
+        assert got == want and got
+    finally:
+        srv.stop()
+    for p, ids in zip(prompts, out):
+        assert ids == generate(cfg, params, [p], 8,
+                               device="cuda")[0].tolist()
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 64),
+                                     (torch.float32, 64),
+                                     (torch.bfloat16, 128)])
+def test_flash_backward_kernels_are_bitwise_across_calls(dtype, d):
+    """B3 and B4 write each dK/dV and dQ element from one thread block,
+    with no atomics: two calls on the same inputs give the same words."""
+    _need_card()
+    g = torch.Generator(device="cuda").manual_seed(d)
+    q, k, v, do = (torch.randn(2, 300, 4, d, generator=g, device="cuda",
+                               dtype=dtype) for _ in range(4))
+    o, lse = tk.flash_forward(q, k, v, True)
+    delta = tk.row_delta(do, o)
+    words = {torch.bfloat16: torch.int16, torch.float32: torch.int32}[dtype]
+    first = tk.flash_bwd_dkv(q, k, v, do, lse, delta, True) + (
+        tk.flash_bwd_dq(q, k, v, do, lse, delta, True),)
+    second = tk.flash_bwd_dkv(q, k, v, do, lse, delta, True) + (
+        tk.flash_bwd_dq(q, k, v, do, lse, delta, True),)
+    for a, b in zip(first, second):
+        assert torch.equal(a.view(words), b.view(words))
+
+
+def test_remote_checkpoint_of_a_card_net_is_bitwise():
+    _need_card()
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork, char_lstm
+    from deeplearning4j_tpu_torch.runtime import (
+        RemoteModelSaver,
+        load_checkpoint_remote,
+        load_model_remote,
+        save_checkpoint_remote,
+    )
+    from deeplearning4j_tpu_torch.runtime.storage import MemoryStore
+
+    rng = np.random.default_rng(0)
+    eye = np.eye(11, dtype=np.float32)
+    ids = rng.integers(0, 11, (4, 9))
+    x, y = eye[ids], eye[np.roll(ids, -1, axis=1)]
+    net = MultiLayerNetwork(char_lstm(vocab_size=11, hidden=16,
+                                      compute_dtype="bfloat16")).init()
+    for _ in range(2):
+        net.fit_batch(x, y)
+    try:
+        save_checkpoint_remote("memory://card/ck", 2, net.params,
+                               updater_state=net.updater_state)
+        step, params, upd, _ = load_checkpoint_remote(
+            "memory://card/ck", net.params, updater_like=net.updater_state)
+        assert step == 2
+        for a, b in zip(net.params, params):
+            for key in a:
+                assert b[key].is_cuda and b[key].dtype == a[key].dtype
+                assert torch.equal(a[key].view(torch.int32),
+                                   b[key].view(torch.int32))
+        RemoteModelSaver("memory://card/model").save(net)
+        back = load_model_remote("memory://card/model")
+        np.testing.assert_array_equal(back.params_flat(), net.params_flat())
+        assert torch.equal(back.output(x), net.output(x))
+    finally:
+        MemoryStore.reset()
+
+
+def test_device_memory_stats_on_the_card():
+    _need_card()
+    from deeplearning4j_tpu_torch.runtime.profiler import device_memory_stats
+
+    keep = torch.ones(1 << 20, device="cuda")
+    stats = device_memory_stats()
+    assert len(stats) == torch.cuda.device_count()
+    s = stats[0]
+    assert set(s) == {"device", "bytes_in_use", "peak_bytes_in_use",
+                      "bytes_limit"}
+    assert s["device"] == "cuda:0"
+    assert s["peak_bytes_in_use"] >= s["bytes_in_use"] >= keep.numel() * 4
+    assert s["bytes_limit"] == torch.cuda.get_device_properties(
+        0).total_memory

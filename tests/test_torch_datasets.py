@@ -1,8 +1,8 @@
 """PyTorch port, slice 8: dataset fetchers, readers and iterators against
 the JAX package: the same files and arrays give identical arrays and
 batches.  No test downloads: MNIST and CIFAR-10 come from directories
-the tests write, and the JAX fetchers are called with
-``download=False``."""
+the tests write, and the fetchers of both packages are called with
+``download=False`` where nothing local exists."""
 
 import gzip
 import pickle
@@ -85,7 +85,7 @@ def test_mnist_without_a_directory_falls_back_loudly(tmp_path, monkeypatch):
     monkeypatch.setenv("DL4J_CACHE_DIR", str(tmp_path))
     assert not tf.is_real_mnist_available()
     with pytest.warns(RuntimeWarning, match="NOT comparable"):
-        got = tf.mnist_dataset("test")
+        got = tf.mnist_dataset("test", download=False)
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         want = jf.mnist_dataset("test", download=False)

@@ -1,8 +1,10 @@
 """PyTorch port: package boundaries, device policy and the CLI.
 
 - Import hygiene: the port imports neither ``jax`` nor anything of the
-  JAX package, nor ``ml_dtypes`` (a subprocess imports every module; an
-  AST scan checks every import statement).
+  JAX package, nor ``ml_dtypes`` or ``transformers`` (a subprocess
+  imports every module; an AST scan checks every import statement).
+- Environment: the port reads only data and toolchain paths from the
+  environment (an AST scan of every ``os.environ`` / ``os.getenv``).
 - Device policy: entry points run on the card unless the caller asks for
   the CPU; with no card they raise instead of running on the CPU.
 - CLI: ``serve -lm`` loads an LM directory written by the JAX package
@@ -15,6 +17,7 @@ import json
 import pathlib
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -26,7 +29,8 @@ from deeplearning4j_tpu.parallel import transformer as jt
 from deeplearning4j_tpu.runtime.checkpoint import tree_to_npz
 from deeplearning4j_tpu_torch import cli, resolve_device
 from deeplearning4j_tpu_torch.clustering import KMeansClustering, kmeans_fit
-from deeplearning4j_tpu_torch.models import RNTN, RecursiveAutoEncoder
+from deeplearning4j_tpu_torch.ml import NetworkClassifier
+from deeplearning4j_tpu_torch.models import RNTN, RecursiveAutoEncoder, zoo
 from deeplearning4j_tpu_torch.nlp import (
     HmmPosTagger,
     TreeParser,
@@ -36,6 +40,10 @@ from deeplearning4j_tpu_torch.nlp import (
     sentiment_trees,
 )
 from deeplearning4j_tpu_torch.parallel import transformer as tt
+from deeplearning4j_tpu_torch.runtime.model_import import (
+    import_hf_gpt2,
+    import_torch_sequential,
+)
 from deeplearning4j_tpu_torch.serving import ContinuousLMServer
 from deeplearning4j_tpu_torch.ui.server import UiServer
 from deeplearning4j_tpu_torch.utils import Viterbi
@@ -55,7 +63,7 @@ def test_importing_the_whole_port_loads_no_jax():
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'deeplearning4j_tpu' or m.startswith('deeplearning4j_tpu.')"
-        " or m.split('.')[0] == 'ml_dtypes']\n"
+        " or m.split('.')[0] in ('ml_dtypes', 'transformers')]\n"
         "assert not bad, bad\n"
         "print(len([m for m in sys.modules if m.startswith(p.__name__)]))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -80,8 +88,73 @@ def test_no_module_imports_jax_or_the_jax_package(path):
     for name in _imports(path):
         root = name.split(".")[0]
         assert root not in ("jax", "jaxlib", "deeplearning4j_tpu",
-                            "ml_dtypes"), (
+                            "ml_dtypes", "transformers"), (
             f"{path.relative_to(REPO)} imports {name}")
+
+
+# the environment variables the port may read: data and toolchain paths
+ENV_ALLOWED = {"DL4J_CACHE_DIR", "MNIST_DIR", "CIFAR10_DIR", "CUDA_HOME",
+               "DL4J_NO_DOWNLOAD", "MNIST_BASE_URL", "CIFAR10_URL",
+               "TEXT8_PATH", "DL4J_NEWS_DIR"}
+
+
+def _env_reads(path):
+    """(line, key) of each read of the environment; key None when it is
+    not a string literal (a whole-environment read counts as one)."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    parents = {c: n for n in ast.walk(tree) for c in ast.iter_child_nodes(n)}
+
+    def literal(node):
+        return node.value if (isinstance(node, ast.Constant)
+                              and isinstance(node.value, str)) else None
+
+    for node in ast.walk(tree):
+        is_environ = (isinstance(node, ast.Attribute)
+                      and node.attr == "environ"
+                      and isinstance(node.value, ast.Name)
+                      and node.value.id == "os")
+        is_getenv = (isinstance(node, ast.Attribute)
+                     and node.attr == "getenv"
+                     and isinstance(node.value, ast.Name)
+                     and node.value.id == "os")
+        if not (is_environ or is_getenv):
+            continue
+        up = parents.get(node)
+        key = None
+        if is_getenv and isinstance(up, ast.Call) and up.args:
+            key = literal(up.args[0])
+        elif isinstance(up, ast.Subscript):
+            key = literal(up.slice)
+        elif (isinstance(up, ast.Attribute) and up.attr == "get"
+              and isinstance(parents.get(up), ast.Call)
+              and parents[up].args):
+            key = literal(parents[up].args[0])
+        elif isinstance(up, ast.Compare):
+            key = literal(up.left)
+        yield node.lineno, key
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(REPO)) for p in PORT_FILES])
+def test_the_port_reads_only_data_and_toolchain_paths_from_the_env(path):
+    for line, key in _env_reads(path):
+        assert key in ENV_ALLOWED, (
+            f"{path.relative_to(REPO)}:{line} reads the environment "
+            f"({key!r}); allowed: {sorted(ENV_ALLOWED)}")
+
+
+def test_the_env_scan_sees_every_form(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("import os\n"
+                   "a = os.environ.get('MNIST_DIR')\n"
+                   "b = os.environ['CUDA_HOME']\n"
+                   "c = os.getenv('DL4J_NEWS_DIR')\n"
+                   "d = 'TEXT8_PATH' in os.environ\n"
+                   "e = os.environ.get('DL4J_TPU_FLASH')\n"
+                   "f = dict(os.environ)\n")
+    assert sorted(_env_reads(src)) == [
+        (2, "MNIST_DIR"), (3, "CUDA_HOME"), (4, "DL4J_NEWS_DIR"),
+        (5, "TEXT8_PATH"), (6, "DL4J_TPU_FLASH"), (7, None)]
 
 
 def test_device_policy_without_a_card(monkeypatch):
@@ -108,7 +181,17 @@ def test_device_policy_without_a_card(monkeypatch):
     with pytest.raises(RuntimeError):
         cli.main(["serve", "-lm", str(REPO / "no-such-dir")])
     trees = [parse_ptb("(1 (1 good) (0 (0 not) (0 bad)))")]
+    gpt2 = types.SimpleNamespace(
+        config=types.SimpleNamespace(vocab_size=8, n_positions=4, n_embd=4,
+                                     n_layer=0, n_head=1),
+        state_dict=lambda: {})
+    iris_conf = zoo.iris_mlp()
     entry_points = [
+        lambda: NetworkClassifier(iris_conf, epochs=1).fit(
+            np.zeros((4, 4), np.float32), np.zeros(4, np.int64)),
+        lambda: import_hf_gpt2(gpt2),
+        lambda: import_torch_sequential(
+            torch.nn.Sequential(torch.nn.Linear(4, 3))),
         lambda: RNTN().fit(trees),
         lambda: RecursiveAutoEncoder().fit(trees),
         lambda: KMeansClustering(2),
