@@ -7,7 +7,8 @@ fleet in threads and in supervised worker processes, supervised,
 checkpointed training, the sentiment pipeline (the HMM tagger, the
 TreeParser, RNTN and the recursive autoencoder), KMeans and the
 host-only tail (model import, determinism checks, remote storage, the
-profiler, `ml`) on one NVIDIA GPU and check them.
+profiler, `ml`) and the scaleout control plane (master, workers, the TCP
+tracker, the performers) on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # every phase, from the repo root
 
@@ -370,6 +371,35 @@ Phases (any failure exits non-zero, and no result line is printed):
              StandardScaler, NetworkClassifier])`` on the card against
              the same on the CPU (1e-4; Iris's class means and spreads,
              seeded: the chip machine has no sklearn).
+24. scaleout — the scaleout control plane, 2 worker threads on the card:
+             (1) `DistributedRunner.simulate` of 8 char-LSTM jobs (bf16,
+             T 64, B 32, H 256, V 80; `NetworkPerformer`, iterative
+             reduce, parameter averaging from a numpy tree): B5 launches
+             = LSTM layers x performs, updates = jobs, each absorbed
+             once, the final model bitwise equal to a single-thread
+             replay of the logged assignment (or within 1e-6 relative a
+             leaf, recorded) with every round's starting model equal by
+             digest, the averaged model's held loss falling; the same
+             under `HogwildWorkRouter(depth=2)` (counts, B5, finite); one
+             f32 SGD round card vs the port's CPU (TF32 off; every leaf,
+             and its step, within 1e-4 relative); tests/test_scaleout.py's
+             Iris gate (accuracy > 0.9 on `iris_shaped`); (2) a
+             `StateTrackerServer` with a secret on loopback, a `Master`
+             and 2 `Worker`s each with its own `RemoteStateTracker`, 4
+             jobs: the same checks, a client without the secret refused,
+             ms a round and bytes a parameter-tree frame recorded; (3)
+             `Word2VecPerformer` (HS, the bench row's settings, its zipf
+             corpus in 8 jobs) and, on the two-topic corpus, Word2Vec HS
+             and `GlovePerformer` at `nlp_quality`'s settings, under
+             `DeltaSumAggregator`: each perform restores its replica's
+             tables bitwise, each replica starts its job at the round's
+             model bitwise, every round's model re-derived on the host
+             from the logged deltas bitwise, finite tables; ms and MB of
+             delta a job, the topic similarities recorded; (4) word
+             count over the tracker = one `collections.Counter`, a
+             worker killed holding a job (heartbeat timeout 1 s: it is
+             the one reaped, updates = jobs), two simulates on one
+             runner.
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device time per
 call (`device_ms`: the calls are queued behind a spin kernel, so they run
@@ -391,6 +421,7 @@ the device's idle share to their lines.
 from __future__ import annotations
 
 import argparse
+import collections
 import json
 import math
 import subprocess
@@ -411,7 +442,7 @@ PEAK_OPS = {"float32": 67e12,      # fp32 outside the tensor cores
 PHASES = ("kernel", "flash", "serve", "parity", "train", "lstm", "rnn",
           "decode", "mln", "precision", "moe", "mobility", "nlp", "ops",
           "classify", "fleet", "procfleet", "resilience", "sentiment",
-          "cluster", "tail")
+          "cluster", "tail", "scaleout")
 # what the times of the kernels line measure
 TIMING_NOTE = {
     "ms": "device time per call: calls queued behind a spin kernel, run "
@@ -5035,6 +5066,12 @@ PV_HELD = {"hs_batch_128": dict(batch_size=128),
            "neg_batch_512": dict(negative=5)}
 
 
+# the topic corpus's Word2Vec (HS and NEG) and GloVe settings
+NLP_W2V = dict(vector_length=24, window=3, epochs=5, seed=1, batch_size=512,
+               learning_rate=0.025)
+NLP_GLOVE = dict(vector_length=16, window=4, epochs=30, seed=3, x_max=10.0)
+
+
 def nlp_quality() -> dict:
     """tests/test_nlp.py's behaviours on the card: Word2Vec HS and NEG
     separate the two topics, GloVe's epoch losses fall, ParagraphVectors
@@ -5045,14 +5082,13 @@ def nlp_quality() -> dict:
     corpus = topic_corpus()
     out = {}
     for neg in (0, 5):
-        w = Word2Vec(vector_length=24, window=3, epochs=5, seed=1,
-                     negative=neg, batch_size=512, learning_rate=0.025)
+        w = Word2Vec(**NLP_W2V, negative=neg)
         w.fit(corpus)
         out[f"w2v_{'neg' if neg else 'hs'}"] = {
             "within": w.similarity("apple", "banana"),
             "across": w.similarity("apple", "gpu"),
             "nearest_cpu": w.words_nearest("cpu", top_n=4)}
-    g = Glove(vector_length=16, window=4, epochs=30, seed=3, x_max=10.0)
+    g = Glove(**NLP_GLOVE)
     g.fit(corpus)
     out["glove"] = {"first_loss": g.losses[0], "last_loss": g.losses[-1],
                     "within": g.similarity("apple", "cherry"),
@@ -8399,6 +8435,824 @@ def tail_phase(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 24: the scaleout control plane
+
+SCALEOUT_JOBS = 8                # char-LSTM batches of the network legs
+SCALEOUT_TCP_JOBS = 4
+SCALEOUT_WORKERS = 2
+SCALEOUT_REL = 1e-6              # per-leaf bound where a replay is not bitwise
+SCALEOUT_F32_REL = 1e-4          # one f32 SGD round, card vs CPU (rnn's bound)
+SCALEOUT_IRIS_GATE = 0.9         # tests/test_scaleout.py's accuracy gate
+SCALEOUT_IRIS_PASSES = 80
+SCALEOUT_REAP_S = 1.0            # the reaper leg's heartbeat timeout
+SCALEOUT_RUN_S = 300.0           # every run's own time limit
+
+
+def tree_digest(tree) -> str:
+    """sha256 over a host tree's leaves in tree order (None: "none")."""
+    import hashlib
+
+    if tree is None:
+        return "none"
+    h = hashlib.sha256()
+    layers = tree if isinstance(tree, list) else [tree]
+    for layer in layers:
+        for k in sorted(layer):
+            h.update(k.encode())
+            h.update(np.ascontiguousarray(layer[k]).tobytes())
+    return h.hexdigest()
+
+
+class ReplicaLog:
+    """Which replica performed which job, in order, and the digest of the
+    global model the job started from (`Recorded` performers log here)."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.entries = []              # (replica, job_id, digest)
+        self.replicas = 0
+
+    def wrap(self, inner):
+        with self.lock:
+            replica, self.replicas = self.replicas, self.replicas + 1
+        return Recorded(inner, replica, self)
+
+    def rounds(self) -> list:
+        """[(digest, [(replica, job_id), ...])]: consecutive jobs that
+        started from one global model form a round."""
+        out = []
+        for replica, job_id, digest in self.entries:
+            if not out or out[-1][0] != digest:
+                out.append((digest, []))
+            out[-1][1].append((replica, job_id))
+        return out
+
+
+class Recorded:
+    """A performer that logs each job to a `ReplicaLog`, then runs it."""
+
+    def __init__(self, inner, replica: int, log: ReplicaLog):
+        self.inner, self.replica, self.log = inner, replica, log
+        self.digest = None
+
+    def update(self, state) -> None:
+        self.digest = tree_digest(state)
+        self.inner.update(state)
+
+    def perform(self, job) -> None:
+        with self.log.lock:
+            self.log.entries.append((self.replica, job.job_id, self.digest))
+        self.inner.perform(job)
+
+
+class CountingAggregator:
+    """An aggregator proxy keeping what it accumulates (so that objects
+    stay alive and distinct ones keep distinct ids)."""
+
+    def __init__(self, inner):
+        self.inner, self.seen = inner, []
+
+    def accumulate(self, result) -> None:
+        self.seen.append(result)
+        self.inner.accumulate(result)
+
+    def distinct(self) -> int:
+        return len({id(r) for r in self.seen})
+
+    def aggregate(self):
+        return self.inner.aggregate()
+
+    def reset(self) -> None:
+        self.inner.reset()
+
+
+def replay_rounds(log: ReplicaLog, payloads: list, initial, make) -> tuple:
+    """A single-thread replay of a logged parameter-averaging run: fresh
+    performers (`make()`) per replica, each job from the global model its
+    round started from, each round's results averaged.  Returns (final
+    model, rounds whose starting model's digest equals the logged one)."""
+    from deeplearning4j_tpu_torch.scaleout import (
+        Job,
+        ParameterAveragingAggregator,
+    )
+
+    perfs, model, digests_equal = {}, initial, 0
+    for digest, jobs in log.rounds():
+        if len(jobs) > SCALEOUT_WORKERS:
+            raise AssertionError(f"scaleout: a round of {len(jobs)} jobs "
+                                 f"(the average of three is order-bound)")
+        digests_equal += tree_digest(model) == digest
+        agg = ParameterAveragingAggregator()
+        for replica, job_id in jobs:
+            perf = perfs.setdefault(replica, make())
+            perf.update(model)
+            job = Job(work=payloads[job_id], job_id=job_id)
+            perf.perform(job)
+            agg.accumulate(job.result)
+        model = agg.aggregate()
+    return model, digests_equal
+
+
+def host_leaf_compare(got, want) -> dict:
+    """Two host parameter trees: bitwise, else the worst leaf, its max
+    abs difference and its max relative difference."""
+    worst = {"leaf": None, "max_abs_diff": 0.0, "max_rel": 0.0}
+    bitwise = True
+    for i, (g, w) in enumerate(zip(got, want)):
+        for k in sorted(w):
+            a, b = np.asarray(g[k]), np.asarray(w[k])
+            if np.array_equal(a, b):
+                continue
+            bitwise = False
+            d = float(np.abs(a - b).max())
+            rel = d / max(float(np.abs(b).max()), 1e-30)
+            if rel >= worst["max_rel"]:
+                worst = {"leaf": f"{i}/{k}", "max_abs_diff": d,
+                         "max_rel": rel}
+    return {"bitwise": bitwise, **worst}
+
+
+def leaves_finite(tree) -> bool:
+    return all(np.isfinite(np.asarray(layer[k])).all()
+               for layer in tree for k in layer)
+
+
+def scaleout_payloads(n: int, seed: int) -> list:
+    """`n` char-LSTM jobs, bench_lstm-shaped (x, y) host batches of a
+    seeded character chain: each id is followed by the next or the one
+    after (mod V) at even odds, so the next-character loss has a floor of
+    ln 2 that a few steps approach, and a held batch can show learning
+    (uniform random ids, as `char_batches` draws, cannot)."""
+    rng = np.random.default_rng(seed)
+    eye = np.eye(LSTM_V, dtype=np.float32)
+    out = []
+    for _ in range(n):
+        steps = 1 + rng.integers(0, 2, (LSTM_B, LSTM_T))
+        ids = (rng.integers(0, LSTM_V, (LSTM_B, 1))
+               + np.cumsum(steps, axis=1)) % LSTM_V
+        out.append((eye[ids], eye[np.roll(ids, -1, axis=1)]))
+    return out
+
+
+def network_leg(conf_json: str, payloads: list, initial, router,
+                replay: bool) -> dict:
+    """`DistributedRunner.simulate` of `payloads` over 2 worker threads
+    of `NetworkPerformer` on the card: B5 launches, updates, the final
+    model and (with `replay`) the single-thread replay of its rounds."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
+    from deeplearning4j_tpu_torch.scaleout import (
+        DistributedRunner,
+        NetworkPerformer,
+        ParameterAveragingAggregator,
+    )
+
+    log = ReplicaLog()
+    agg = CountingAggregator(ParameterAveragingAggregator())
+    runner = DistributedRunner()
+    torch.cuda.synchronize()
+    lk.fused_lstm_forward.launches.reset()
+    t0 = time.perf_counter()
+    final = runner.simulate(
+        payloads, lambda: log.wrap(NetworkPerformer(conf_json)), agg,
+        n_workers=SCALEOUT_WORKERS, initial_model=initial, router=router,
+        timeout=SCALEOUT_RUN_S)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = lk.fused_lstm_forward.launches.value
+    out = {"jobs": len(payloads), "performs": len(log.entries),
+           "updates": runner.tracker.counter("updates"),
+           "absorbed": len(agg.seen), "absorbed_distinct": agg.distinct(),
+           "b5_launches": launches, "rounds": len(log.rounds()),
+           "run_s": run_s, "finite": leaves_finite(final),
+           "assignment": [list(e[:2]) for e in log.entries]}
+    out["ms_a_round"] = 1e3 * run_s / max(out["rounds"], 1)
+    if replay:
+        want, equal = replay_rounds(
+            log, payloads, initial, lambda: NetworkPerformer(conf_json))
+        out["replay"] = dict(host_leaf_compare(final, want),
+                             round_digests_equal=equal)
+    return out, final
+
+
+def check_network_leg(name: str, leg: dict, n_lstm: int) -> None:
+    if leg["performs"] != leg["jobs"] or leg["updates"] != leg["jobs"]:
+        raise AssertionError(f"scaleout: {name}: {leg['performs']} "
+                             f"performs, {leg['updates']} updates of "
+                             f"{leg['jobs']} jobs")
+    if leg["absorbed"] != leg["jobs"] or \
+            leg["absorbed_distinct"] != leg["jobs"]:
+        raise AssertionError(f"scaleout: {name}: {leg['absorbed']} updates "
+                             f"absorbed ({leg['absorbed_distinct']} "
+                             f"distinct) of {leg['jobs']}")
+    if leg["b5_launches"] != n_lstm * leg["performs"]:
+        raise AssertionError(f"scaleout: {name}: B5 launched "
+                             f"{leg['b5_launches']} times for "
+                             f"{leg['performs']} performs x {n_lstm} LSTM "
+                             f"layers")
+    if not leg["finite"]:
+        raise AssertionError(f"scaleout: {name}: a leaf is not finite")
+    rep = leg.get("replay")
+    if rep is not None:
+        if rep["round_digests_equal"] != leg["rounds"]:
+            raise AssertionError(f"scaleout: {name}: the replay's round "
+                                 f"models differ from the run's: {rep}")
+        if not rep["bitwise"] and not rep["max_rel"] <= SCALEOUT_REL:
+            raise AssertionError(f"scaleout: {name}: the replay is "
+                                 f"{rep['max_rel']:.3g} off ({rep})")
+
+
+def held_loss(conf_json: str, tree, batch) -> float:
+    from deeplearning4j_tpu_torch.models import (
+        MultiLayerNetwork,
+        params_from_numpy,
+    )
+
+    net = MultiLayerNetwork.from_json(conf_json)
+    net.params = params_from_numpy(net, tree)
+    return net.score(*batch)
+
+
+def f32_round_card_vs_cpu(initial_of) -> dict:
+    """One round of 2 jobs at f32 with SGD on the card (TF32 off) and
+    the same round in the port on the CPU: every leaf of the averaged
+    model relative to the leaf's largest value, and every element's
+    difference against the bound on its step (relative to the leaf's
+    largest step, plus the element's f32 ulp, the step's resolution)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import char_lstm
+    from deeplearning4j_tpu_torch.scaleout import (
+        DistributedRunner,
+        NetworkPerformer,
+        ParameterAveragingAggregator,
+    )
+
+    conf_json = char_lstm(updater="sgd").to_json()
+    initial = initial_of(conf_json)
+    payloads = scaleout_payloads(SCALEOUT_WORKERS, seed=11)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = {}
+        for side, dev in (("card", "cuda"), ("cpu", "cpu")):
+            t0 = time.perf_counter()
+            got[side] = DistributedRunner().simulate(
+                payloads, lambda d=dev: NetworkPerformer(conf_json,
+                                                         device=d),
+                ParameterAveragingAggregator(),
+                n_workers=SCALEOUT_WORKERS, initial_model=initial,
+                timeout=SCALEOUT_RUN_S)
+            got[side + "_s"] = time.perf_counter() - t0
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    rel, step_rel, step_ratio = {}, {}, {}
+    for i, (c, h, s) in enumerate(zip(got["card"], got["cpu"], initial)):
+        for k in sorted(s):
+            key = f"{i}/{k}"
+            diff = np.abs(c[k] - h[k])
+            rel[key] = float(diff.max()
+                             / max(float(np.abs(h[k]).max()), 1e-30))
+            step = float(np.abs(h[k] - s[k]).max())
+            step_rel[key] = float(diff.max() / max(step, 1e-30))
+            # a step is stored in the f32 parameter, so it is resolved
+            # to one ulp of that parameter: each element's difference
+            # within the bound of the leaf's largest step plus its ulp
+            step_ratio[key] = float((diff / (SCALEOUT_F32_REL * step
+                                             + np.spacing(np.abs(h[k])))
+                                     ).max())
+    out = {"bound": SCALEOUT_F32_REL, "leaf_rel_err": rel,
+           "step_rel_err": step_rel, "step_err_over_bound": step_ratio,
+           "card_s": got["card_s"], "cpu_s": got["cpu_s"]}
+    if not all(math.isfinite(v) and v <= SCALEOUT_F32_REL
+               for v in rel.values()) or not all(
+            math.isfinite(v) and v <= 1.0 for v in step_ratio.values()):
+        raise AssertionError(f"scaleout: f32 round card vs CPU: {out}")
+    return out
+
+
+def iris_gate_on_card() -> dict:
+    """tests/test_scaleout.py's parameter-averaging gate on the card: its
+    net (Dense 4-8, softmax 8-3, Adam 0.01, seed 7), its payloads (4
+    strided batches x 80 passes), 2 workers, on `iris_shaped()`
+    normalised as `iris_dataset` normalises."""
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.models import (
+        MultiLayerNetwork,
+        params_from_numpy,
+    )
+    from deeplearning4j_tpu_torch.nn import conf as tconf
+    from deeplearning4j_tpu_torch.scaleout import (
+        DistributedRunner,
+        NetworkPerformer,
+        ParameterAveragingAggregator,
+    )
+    from deeplearning4j_tpu_torch.scaleout.performers import host_params
+
+    x, labels = iris_shaped()
+    ds = DataSet(x, np.eye(3, dtype=np.float32)[labels]
+                 ).normalize_zero_mean_unit_variance()
+    conf_json = tconf.MultiLayerConfiguration(
+        conf=tconf.NeuralNetConfiguration(learning_rate=0.01,
+                                          updater="adam", seed=7),
+        layers=(tconf.DenseLayerConf(n_in=4, n_out=8),
+                tconf.OutputLayerConf(n_in=8, n_out=3))).to_json()
+    seed_net = MultiLayerNetwork.from_json(conf_json)
+    batches = [(ds.features[i::4], ds.labels[i::4]) for i in range(4)]
+    payloads = batches * SCALEOUT_IRIS_PASSES
+    runner = DistributedRunner()
+    t0 = time.perf_counter()
+    final = runner.simulate(
+        payloads, lambda: NetworkPerformer(conf_json),
+        ParameterAveragingAggregator(),
+        initial_model=host_params(seed_net.params),
+        n_workers=SCALEOUT_WORKERS, timeout=SCALEOUT_RUN_S)
+    run_s = time.perf_counter() - t0
+    seed_net.params = params_from_numpy(seed_net, final)
+    acc = seed_net.evaluate(ds.features, ds.labels).accuracy()
+    out = {"accuracy": acc, "gate": SCALEOUT_IRIS_GATE,
+           "jobs": len(payloads), "updates": runner.tracker.counter(
+               "updates"), "run_s": run_s,
+           "ms_a_job": 1e3 * run_s / len(payloads)}
+    if not acc > SCALEOUT_IRIS_GATE or out["updates"] != len(payloads):
+        raise AssertionError(f"scaleout: the iris gate: {out}")
+    return out
+
+
+def tcp_leg(conf_json: str, payloads: list, initial) -> tuple:
+    """A `StateTrackerServer` with a secret on loopback, a `Master` and
+    two `Worker`s built by hand, each with its own `RemoteStateTracker`:
+    the network leg over TCP, its replay, and a client without the
+    secret refused."""
+    import pickle
+    import secrets
+
+    import torch
+
+    from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
+    from deeplearning4j_tpu_torch.scaleout import (
+        IterativeReduceWorkRouter,
+        JobIterator,
+        Master,
+        NetworkPerformer,
+        ParameterAveragingAggregator,
+        RemoteStateTracker,
+        StateTrackerServer,
+        Worker,
+    )
+    from deeplearning4j_tpu_torch.scaleout.runner import MODEL_KEY
+
+    secret = secrets.token_hex(16)
+    server = StateTrackerServer(secret=secret).start()
+    host, port = server.address
+    clients, workers = [], []
+    log = ReplicaLog()
+    agg = CountingAggregator(ParameterAveragingAggregator())
+    try:
+        def client():
+            clients.append(RemoteStateTracker(host, port, secret=secret))
+            return clients[-1]
+
+        tracker = client()
+        tracker.reset_run_state()
+        tracker.set_global(MODEL_KEY, initial)
+        workers = [Worker(client(), log.wrap(NetworkPerformer(conf_json)),
+                          heartbeat_interval=0.05).start()
+                   for _ in range(SCALEOUT_WORKERS)]
+        master = Master(tracker, JobIterator(payloads), agg,
+                        router=IterativeReduceWorkRouter())
+        torch.cuda.synchronize()
+        lk.fused_lstm_forward.launches.reset()
+        t0 = time.perf_counter()
+        final = master.run(timeout=SCALEOUT_RUN_S)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = lk.fused_lstm_forward.launches.value
+        updates = tracker.counter("updates")
+        bad = RemoteStateTracker(host, port, timeout=30.0)
+        clients.append(bad)
+        try:
+            bad.workers()
+            refused = None
+        except (RuntimeError, ConnectionError, OSError) as e:
+            refused = type(e).__name__
+    finally:
+        for w in workers:
+            w.request_stop()
+        for w in workers:
+            w.stop()
+        for c in clients:
+            c.close()
+        server.stop()
+    if refused is None:
+        raise AssertionError("scaleout: tcp: a client without the secret "
+                             "was answered")
+    out = {"jobs": len(payloads), "performs": len(log.entries),
+           "updates": updates, "absorbed": len(agg.seen),
+           "absorbed_distinct": agg.distinct(), "b5_launches": launches,
+           "rounds": master.rounds, "run_s": run_s,
+           "ms_a_round": 1e3 * run_s / max(master.rounds, 1),
+           "finite": leaves_finite(final), "unauthenticated": refused,
+           "assignment": [list(e[:2]) for e in log.entries],
+           "tree_frame_bytes": 4 + 32 + len(pickle.dumps(
+               ("ok", final), protocol=pickle.HIGHEST_PROTOCOL))}
+    want, equal = replay_rounds(log, payloads, initial,
+                                lambda: NetworkPerformer(conf_json))
+    out["replay"] = dict(host_leaf_compare(final, want),
+                         round_digests_equal=equal)
+    return out, final
+
+
+class DeltaReplica:
+    """A delta performer (`Word2VecPerformer`, `GlovePerformer`) under a
+    master whose global is ``{"tables": model, "deltas": [each round's
+    aggregate]}``: `update` passes each aggregate the replica has not
+    applied to the performer's own `update`, in order; `perform` records
+    the job's delta and ms, whether the replica's tables matched the
+    round's model bitwise before it, and whether they are bitwise as
+    they were after it."""
+
+    def __init__(self, inner, tables_of, log: list, lock):
+        self.inner, self.tables_of = inner, tables_of
+        self.log, self.lock = log, lock
+        self.applied, self.model = 0, None
+
+    def update(self, state) -> None:
+        for agg in state["deltas"][self.applied:]:
+            self.inner.update(agg)
+        self.applied = len(state["deltas"])
+        self.model = state["tables"]
+
+    def perform(self, job) -> None:
+        before = self.tables_of(self.inner)
+        matched = all(np.array_equal(before[k], self.model[k])
+                      for k in before)
+        t0 = time.perf_counter()
+        self.inner.perform(job)
+        ms = 1e3 * (time.perf_counter() - t0)
+        after = self.tables_of(self.inner)
+        with self.lock:
+            self.log.append({
+                "job": job.job_id, "round": self.applied, "ms": ms,
+                "delta": job.result, "matched_model": matched,
+                "restored": all(np.array_equal(after[k], before[k])
+                                for k in before),
+                "delta_mb": sum(np.asarray(v).nbytes
+                                for v in job.result.values()) / 1e6})
+
+
+def fold_round(model, agg):
+    return {"tables": {k: model["tables"][k] + agg[k] for k in agg},
+            "deltas": model["deltas"] + [agg]}
+
+
+def delta_run(name: str, make_model, make_performer, tables_of,
+              payloads: list) -> tuple:
+    """2 workers of a delta performer under `DeltaSumAggregator`; every
+    round's model re-derived on the host from the start and the logged
+    deltas must equal the run's bitwise."""
+    from deeplearning4j_tpu_torch.scaleout import (
+        DeltaSumAggregator,
+        DistributedRunner,
+    )
+
+    start = tables_of(make_performer(make_model()))
+    log, lock = [], threading.Lock()
+    t0 = time.perf_counter()
+    final = DistributedRunner().simulate(
+        payloads,
+        lambda: DeltaReplica(make_performer(make_model()), tables_of, log,
+                             lock),
+        DeltaSumAggregator(), n_workers=SCALEOUT_WORKERS,
+        initial_model={"tables": start, "deltas": []},
+        apply_aggregate=fold_round, timeout=SCALEOUT_RUN_S)
+    run_s = time.perf_counter() - t0
+    model = dict(start)
+    for r in range(len(final["deltas"])):
+        deltas = [e["delta"] for e in log if e["round"] == r]
+        if len(deltas) > SCALEOUT_WORKERS:
+            raise AssertionError(f"scaleout: {name}: round {r} holds "
+                                 f"{len(deltas)} deltas")
+        total = deltas[0]
+        for d in deltas[1:]:
+            total = {k: total[k] + d[k] for k in total}
+        model = {k: model[k] + total[k] for k in model}
+    out = {"jobs": len(payloads), "performs": len(log),
+           "rounds": len(final["deltas"]), "run_s": run_s,
+           "ms_a_job": float(np.mean([e["ms"] for e in log])),
+           "delta_mb_a_job": float(np.mean([e["delta_mb"] for e in log])),
+           "restored_bitwise": all(e["restored"] for e in log),
+           "replicas_at_round_model": all(e["matched_model"] for e in log),
+           "rounds_rederived_bitwise": all(
+               np.array_equal(model[k], final["tables"][k]) for k in model),
+           "finite": all(np.isfinite(v).all()
+                         for v in final["tables"].values())}
+    if not (out["performs"] == out["jobs"] and out["restored_bitwise"]
+            and out["replicas_at_round_model"]
+            and out["rounds_rederived_bitwise"] and out["finite"]):
+        raise AssertionError(f"scaleout: {name}: {out}")
+    return out, final["tables"]
+
+
+def embedding_leg() -> dict:
+    """Word2Vec (HS) at the bench row's settings over its zipf corpus in
+    8 jobs, Word2Vec HS and GloVe at `nlp_quality`'s settings over the
+    two-topic corpus, each on 2 workers of delta performers."""
+    from deeplearning4j_tpu_torch.nlp import Glove, Word2Vec
+    from deeplearning4j_tpu_torch.scaleout import (
+        GlovePerformer,
+        Word2VecPerformer,
+    )
+
+    def cut(sentences):
+        n = -(-len(sentences) // SCALEOUT_JOBS)
+        return [sentences[i:i + n] for i in range(0, len(sentences), n)]
+
+    def w2v_maker(knobs, corpus):
+        tokens = Word2Vec(**knobs)._sentences_to_tokens(corpus)
+
+        def make():
+            w = Word2Vec(**knobs)
+            w.build_vocab(tokens)
+            w.reset_weights()
+            return w
+        return make
+
+    def w2v_tables(p):
+        return {"syn0": p.w2v.syn0.copy(), "syn1": p.w2v.syn1.copy()}
+
+    def glove_tables(p):
+        return {k: t.detach().cpu().numpy().copy()
+                for k, t in zip(p.KEYS, p.glove._params)}
+
+    bench = zipf_sentences(W2V_BENCH_TOKENS, W2V_BENCH_VOCAB)
+    out = {}
+    out["w2v_bench_hs"], _ = delta_run(
+        "w2v_bench_hs", w2v_maker(dict(W2V_BENCH, negative=0), bench),
+        Word2VecPerformer, w2v_tables, cut(bench))
+    topics = topic_corpus()
+    hs_knobs = dict(NLP_W2V, negative=0)
+    make_topic = w2v_maker(hs_knobs, topics)
+    out["w2v_topics_hs"], tables = delta_run(
+        "w2v_topics_hs", make_topic, Word2VecPerformer, w2v_tables,
+        cut(topics))
+    probe = make_topic()
+    probe.syn0 = tables["syn0"]
+    out["w2v_topics_hs"].update(
+        within=probe.similarity("apple", "banana"),
+        across=probe.similarity("apple", "gpu"))
+
+    def make_glove():
+        g = Glove(**NLP_GLOVE)
+        g.vocab.fit(g._tokenize_all(topics))
+        return g
+
+    out["glove_topics"], _ = delta_run(
+        "glove_topics", make_glove,
+        lambda g: GlovePerformer(g, epochs=NLP_GLOVE["epochs"]),
+        glove_tables, cut(topics))
+    return out
+
+
+class KilledMidJob:
+    """A performer whose worker dies holding its first job of id `at` or
+    later (the middle of the run, past its first round): it kills
+    the worker (no more heartbeats, no deregistration) and blocks until
+    released, as a lost host would; then it posts nothing useful."""
+
+    def __init__(self, inner, at: int):
+        self.inner, self.at = inner, at
+        self.worker = None
+        self.entered, self.release = threading.Event(), threading.Event()
+
+    def update(self, state) -> None:
+        self.inner.update(state)
+
+    def perform(self, job) -> None:
+        if job.job_id >= self.at and not self.entered.is_set():
+            self.worker.kill()
+            self.entered.set()
+            self.release.wait(SCALEOUT_RUN_S)
+            job.result = None
+            return
+        self.inner.perform(job)
+
+
+def host_leg(conf_json: str, initial, n_lstm: int) -> dict:
+    """Word count over the tracker, a worker killed mid-job and reaped,
+    and two simulates on one runner."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
+    from deeplearning4j_tpu_torch.scaleout import (
+        DistributedRunner,
+        JobIterator,
+        Master,
+        NetworkPerformer,
+        ParameterAveragingAggregator,
+        StateTracker,
+        Worker,
+    )
+    from deeplearning4j_tpu_torch.scaleout.runner import MODEL_KEY
+    from deeplearning4j_tpu_torch.scaleout.text_performers import (
+        CounterAggregator,
+        WordCountPerformer,
+    )
+
+    out = {}
+    topics = topic_corpus()
+    docs = [topics[i:i + 75] for i in range(0, len(topics), 75)]
+
+    def fold(model, agg):
+        if model is None:
+            return agg
+        for k, v in agg.items():
+            model.increment(k, v)
+        return model
+
+    counts = DistributedRunner().simulate(
+        docs, WordCountPerformer, CounterAggregator(), apply_aggregate=fold,
+        n_workers=SCALEOUT_WORKERS, timeout=SCALEOUT_RUN_S)
+    want = collections.Counter(w for s in topics for w in s.split())
+    out["word_count"] = {"words": len(want), "tokens": sum(want.values()),
+                         "equal": dict(counts.items()) == dict(want)}
+
+    payloads = scaleout_payloads(SCALEOUT_JOBS, seed=21)
+    tracker = StateTracker()
+    tracker.set_global(MODEL_KEY, initial)
+    doomed = KilledMidJob(NetworkPerformer(conf_json), at=2)
+    workers = [Worker(tracker, doomed, heartbeat_interval=0.05),
+               Worker(tracker, NetworkPerformer(conf_json),
+                      heartbeat_interval=0.05)]
+    doomed.worker = workers[0]
+    master = Master(tracker, JobIterator(payloads),
+                    ParameterAveragingAggregator(),
+                    heartbeat_timeout=SCALEOUT_REAP_S)
+    torch.cuda.synchronize()
+    lk.fused_lstm_forward.launches.reset()
+    t0 = time.perf_counter()
+    try:
+        for w in workers:
+            w.start()
+        final = master.run(timeout=SCALEOUT_RUN_S)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = lk.fused_lstm_forward.launches.value
+        updates = tracker.counter("updates")
+    finally:
+        doomed.release.set()
+        for w in workers:
+            w.request_stop()
+        for w in workers:
+            w.stop()
+    out["reaper"] = {
+        "killed": workers[0].worker_id, "reaped": master.reaped,
+        "killed_mid_job": doomed.entered.is_set(), "jobs": len(payloads),
+        "updates": updates, "b5_launches": launches,
+        "survivor_performed": workers[1].performed,
+        "heartbeat_timeout_s": SCALEOUT_REAP_S, "run_s": run_s,
+        "finite": leaves_finite(final)}
+    rep = out["reaper"]
+    if not (rep["killed_mid_job"] and rep["reaped"] == [rep["killed"]]
+            and updates == len(payloads) and rep["finite"]
+            and launches == n_lstm * len(payloads)):
+        raise AssertionError(f"scaleout: reaper: {rep}")
+
+    class AddOne:
+        def perform(self, job):
+            job.result = job.work + 1.0
+
+        def update(self, model):
+            pass
+
+    runner = DistributedRunner()
+    agg = ParameterAveragingAggregator()
+    out["repeat"] = {
+        "first": float(runner.simulate([1.0, 3.0], AddOne, agg,
+                                       n_workers=SCALEOUT_WORKERS,
+                                       timeout=SCALEOUT_RUN_S)),
+        "second": float(runner.simulate([5.0, 7.0], AddOne, agg,
+                                        n_workers=SCALEOUT_WORKERS,
+                                        timeout=SCALEOUT_RUN_S))}
+    if not out["word_count"]["equal"] or out["repeat"] != {
+            "first": 3.0, "second": 7.0}:
+        raise AssertionError(f"scaleout: host leg: {out}")
+    return out
+
+
+def scaleout_phase(card: str) -> dict:
+    """The four legs of the scaleout phase (the module docstring, 24)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork, char_lstm
+    from deeplearning4j_tpu_torch.nn.conf.layers import GravesLSTMConf
+    from deeplearning4j_tpu_torch.scaleout import (
+        HogwildWorkRouter,
+        IterativeReduceWorkRouter,
+    )
+    from deeplearning4j_tpu_torch.scaleout.performers import host_params
+
+    t_phase = time.perf_counter()
+    conf = char_lstm(compute_dtype="bfloat16")
+    conf_json = conf.to_json()
+    n_lstm = sum(isinstance(lc, GravesLSTMConf) for lc in conf.layers)
+
+    def initial_of(js):
+        return host_params(MultiLayerNetwork.from_json(js,
+                                                       device="cpu").params)
+
+    initial = initial_of(conf_json)
+    payloads = scaleout_payloads(SCALEOUT_JOBS, seed=3)
+    # warm-up, not counted: the worker threads' first steps on the card
+    # (cuBLAS handles, the allocator) stay out of the timed rounds
+    from deeplearning4j_tpu_torch.scaleout import (
+        DistributedRunner,
+        NetworkPerformer,
+        ParameterAveragingAggregator,
+    )
+    DistributedRunner().simulate(
+        payloads[:SCALEOUT_WORKERS], lambda: NetworkPerformer(conf_json),
+        ParameterAveragingAggregator(), n_workers=SCALEOUT_WORKERS,
+        initial_model=initial, timeout=SCALEOUT_RUN_S)
+    out = {"card": card, "workers": SCALEOUT_WORKERS,
+           "shape": dict(T=LSTM_T, B=LSTM_B, H=LSTM_H, V=LSTM_V),
+           "dtype": "bfloat16", "lstm_layers": n_lstm}
+
+    # 1. in process
+    leg, final = network_leg(conf_json, payloads, initial,
+                             IterativeReduceWorkRouter(), replay=True)
+    check_network_leg("iterative reduce", leg, n_lstm)
+    held = scaleout_payloads(1, seed=99)[0]
+    leg["held_loss_start"] = held_loss(conf_json, initial, held)
+    leg["held_loss_end"] = held_loss(conf_json, final, held)
+    if not leg["held_loss_end"] < leg["held_loss_start"]:
+        raise AssertionError(f"scaleout: the averaged model's held loss "
+                             f"does not fall: {leg}")
+    out["iterative_reduce"] = leg
+    log(f"scaleout: iterative reduce, {leg['jobs']} jobs on "
+        f"{SCALEOUT_WORKERS} workers in {leg['rounds']} rounds "
+        f"({leg['ms_a_round']:.1f} ms a round): B5 {leg['b5_launches']}, "
+        f"updates {leg['updates']}, replay bitwise "
+        f"{leg['replay']['bitwise']} (worst {leg['replay']['leaf']} "
+        f"{leg['replay']['max_abs_diff']:.3g}), held loss "
+        f"{leg['held_loss_start']:.4f} -> {leg['held_loss_end']:.4f} "
+        f"({card})")
+    hog, _ = network_leg(conf_json, payloads, initial,
+                         HogwildWorkRouter(depth=2), replay=False)
+    check_network_leg("hogwild", hog, n_lstm)
+    out["hogwild"] = hog
+    out["f32_card_vs_cpu"] = f32_round_card_vs_cpu(initial_of)
+    out["iris"] = iris_gate_on_card()
+    f32 = out["f32_card_vs_cpu"]
+    log(f"scaleout: hogwild B5 {hog['b5_launches']}, updates "
+        f"{hog['updates']}; f32 SGD round card vs CPU worst leaf "
+        f"{max(f32['leaf_rel_err'].values()):.3g}, worst step "
+        f"{max(f32['step_rel_err'].values()):.3g} (error / bound "
+        f"{max(f32['step_err_over_bound'].values()):.3g}; bound "
+        f"{SCALEOUT_F32_REL:g}); iris accuracy {out['iris']['accuracy']:.3f}"
+        f" over {out['iris']['jobs']} jobs")
+
+    # 2. over TCP
+    tcp, _ = tcp_leg(conf_json, payloads[:SCALEOUT_TCP_JOBS], initial)
+    check_network_leg("tcp", tcp, n_lstm)
+    out["tcp"] = tcp
+    log(f"scaleout: tcp, {tcp['jobs']} jobs in {tcp['rounds']} rounds: "
+        f"{tcp['ms_a_round']:.1f} ms a round (in process "
+        f"{leg['ms_a_round']:.1f}), {tcp['tree_frame_bytes']} bytes a "
+        f"parameter-tree frame, B5 {tcp['b5_launches']}, replay bitwise "
+        f"{tcp['replay']['bitwise']}, no secret: {tcp['unauthenticated']}")
+
+    # 3. embeddings
+    out["embeddings"] = emb = embedding_leg()
+    for name, e in emb.items():
+        log(f"scaleout: {name}: {e['jobs']} jobs, {e['ms_a_job']:.1f} ms "
+            f"and {e['delta_mb_a_job']:.3f} MB of delta a job, restored "
+            f"{e['restored_bitwise']}, rounds re-derived "
+            f"{e['rounds_rederived_bitwise']}")
+    log(f"scaleout: Word2Vec HS on the topics, 2 workers: within "
+        f"{emb['w2v_topics_hs']['within']:.3f}, across "
+        f"{emb['w2v_topics_hs']['across']:.3f} (recorded)")
+
+    # 4. host
+    out["host"] = host_leg(conf_json, initial, n_lstm)
+    rep = out["host"]["reaper"]
+    log(f"scaleout: word count equal {out['host']['word_count']['equal']}; "
+        f"reaper: {rep['killed']} killed mid-job, reaped {rep['reaped']}, "
+        f"updates {rep['updates']} of {rep['jobs']}; repeat "
+        f"{out['host']['repeat']}")
+    out["b5_launches"] = {k: out[k]["b5_launches"] for k in (
+        "iterative_reduce", "hogwild", "tcp")}
+    out["b5_launches"]["reaper"] = rep["b5_launches"]
+    out["performs"] = {k: out[k]["performs"] for k in (
+        "iterative_reduce", "hogwild", "tcp")}
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"scaleout: phase in {out['phase_s']:.1f} s ({card})")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=",".join(PHASES),
@@ -8514,6 +9368,7 @@ def main(argv=None) -> int:
                  if "sentiment" in phases else None)
     cluster = cluster_phase(card) if "cluster" in phases else None
     tail = tail_phase(card) if "tail" in phases else None
+    scaleout = scaleout_phase(card) if "scaleout" in phases else None
 
     entries = []
     if kernels_line is not None:
@@ -8673,6 +9528,9 @@ def main(argv=None) -> int:
                        "fit_steps": resilience[leg]["fit_steps"]}
                  for leg in ("chaos", "chunked", "rollback")}
                 if resilience else None),
+            "scaleout_launches": (
+                {"b5": scaleout["b5_launches"],
+                 "performs": scaleout["performs"]} if scaleout else None),
             "max_abs_err": max(lstm["worst_abs_err"].values()),
             "max_rel_err": lstm["worst_rel_err"],
             "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
@@ -8728,6 +9586,8 @@ def main(argv=None) -> int:
         print(json.dumps({"cluster": cluster}), flush=True)
     if tail is not None:
         print(json.dumps({"tail": tail}), flush=True)
+    if scaleout is not None:
+        print(json.dumps({"scaleout": scaleout}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)

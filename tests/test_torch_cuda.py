@@ -26,7 +26,9 @@ and KMeans (TF32 off) are held against the CPU, and the plotting
 listeners run on a bfloat16 LeNet.  The host-only tail: a GPT-2 stand-in
 under HF's names imported onto the card and served through the paged
 kernel, the flash backward kernels bitwise across two calls, a remote
-checkpoint of a card network bitwise, and `device_memory_stats`.
+checkpoint of a card network bitwise, and `device_memory_stats`.  The
+scaleout plane: a `NetworkPerformer` on the card publishes host numpy
+copies and launches the LSTM kernel once a job.
 
 Every test carries the ``cuda`` marker and decides inside the test
 whether a card is present, skipping with a reason when not (the kernels
@@ -2256,3 +2258,70 @@ def test_device_memory_stats_on_the_card():
     assert s["peak_bytes_in_use"] >= s["bytes_in_use"] >= keep.numel() * 4
     assert s["bytes_limit"] == torch.cuda.get_device_properties(
         0).total_memory
+
+
+def _char_lstm_tree(net):
+    """Seeded numpy parameters for `net`'s tree (its keys and shapes)."""
+    rng = np.random.default_rng(5)
+    return [{k: (rng.standard_normal(tuple(v.shape)) * 0.1).astype(
+        np.float32) for k, v in layer.items()} for layer in net.params]
+
+
+def test_network_performer_on_the_card_publishes_host_numpy():
+    """`NetworkPerformer` on the card: `update` installs fresh card
+    tensors (the broadcast tree stays as it was), each `perform` launches
+    the LSTM kernel once (one LSTM layer) and publishes host float32
+    numpy copies that the next step does not move."""
+    _need_card()
+    from deeplearning4j_tpu_torch.models import char_lstm
+    from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
+    from deeplearning4j_tpu_torch.scaleout import Job, NetworkPerformer
+
+    conf_json = char_lstm(vocab_size=20, hidden=64,
+                          compute_dtype="bfloat16").to_json()
+    perf = NetworkPerformer(conf_json)
+    assert perf.net.device.type == "cuda"
+    tree = _char_lstm_tree(perf.net)
+    before = [{k: v.copy() for k, v in p.items()} for p in tree]
+    perf.update(tree)
+    for layer, src in zip(perf.net.params, tree):
+        for k, v in layer.items():
+            assert v.is_cuda and v.dtype == torch.float32
+            assert torch.equal(v.cpu(), torch.from_numpy(src[k]))
+    rng = np.random.default_rng(0)
+    eye = np.eye(20, dtype=np.float32)
+    ids = rng.integers(0, 20, (8, 16))
+    job = Job(work=(eye[ids], eye[np.roll(ids, -1, axis=1)]))
+    lk.fused_lstm_forward.launches.reset()
+    perf.perform(job)
+    torch.cuda.synchronize()
+    assert lk.fused_lstm_forward.launches.value == 1
+    published = [{k: v.copy() for k, v in p.items()} for p in job.result]
+    perf.perform(Job(work=job.work))
+    assert lk.fused_lstm_forward.launches.value == 2
+    for p, q, src in zip(job.result, published, before):
+        for k in q:
+            assert isinstance(p[k], np.ndarray) and p[k].dtype == np.float32
+            np.testing.assert_array_equal(p[k], q[k])
+            assert not np.array_equal(p[k], src[k])
+    for got, want in zip(tree, before):
+        for k in want:
+            np.testing.assert_array_equal(got[k], want[k])
+
+
+def test_scaleout_performers_refuse_to_run_without_a_card(monkeypatch):
+    """With the card hidden, a performer built without a device raises,
+    and one given "cpu" runs there."""
+    _need_card()
+    from deeplearning4j_tpu_torch.models import char_lstm
+    from deeplearning4j_tpu_torch.nlp import Glove, Word2Vec
+    from deeplearning4j_tpu_torch.scaleout import NetworkPerformer
+
+    conf_json = char_lstm(vocab_size=20, hidden=16).to_json()
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        NetworkPerformer(conf_json)
+    for cls in (Word2Vec, Glove):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            cls(vector_length=8)
+    assert NetworkPerformer(conf_json, device="cpu").net.device.type == "cpu"

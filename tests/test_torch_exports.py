@@ -1,4 +1,4 @@
-"""PyTorch port, slice 16: the package namespaces export what the JAX
+"""PyTorch port, slices 16-17: the package namespaces export what the JAX
 package's export (ROADMAP C1).
 
 For the top level (`__all__` and the lazy `_LAZY` table) and every
@@ -19,7 +19,6 @@ import deeplearning4j_tpu_torch
 from test_torch_threads import torch_two_threads  # noqa: F401 — autouse
 
 _A0 = "A0 (one program a step: the compile watcher's place)"
-_A6 = "A6 (scaleout/, slice 17)"
 _A7 = "A7 (multi-device)"
 
 # package -> {name: queue}
@@ -33,14 +32,6 @@ UNPORTED = {
                          "PartitionSpec", "replicated", "sharded",
                          "reshard", "shard_tree", "gather_tree")},
     "deeplearning4j_tpu.precision": {"shard_update_finite": _A7},
-    "deeplearning4j_tpu.scaleout": {
-        n: _A6 for n in (
-            "Job", "JobIterator", "WorkerPerformer", "JobAggregator",
-            "WorkRouter", "StateTracker", "RemoteStateTracker",
-            "StateTrackerServer", "ParameterAveragingAggregator",
-            "DeltaSumAggregator", "NetworkPerformer", "Word2VecPerformer",
-            "GlovePerformer", "Master", "Worker", "DistributedRunner",
-            "IterativeReduceWorkRouter", "HogwildWorkRouter")},
 }
 
 PACKAGES = ["deeplearning4j_tpu"] + sorted(

@@ -92,10 +92,13 @@ def test_no_module_imports_jax_or_the_jax_package(path):
             f"{path.relative_to(REPO)} imports {name}")
 
 
-# the environment variables the port may read: data and toolchain paths
+# the environment variables the port may read: data and toolchain paths,
+# and the scaleout tracker's two deployment settings (its shared secret
+# and frame cap, set alike on the master and its workers)
 ENV_ALLOWED = {"DL4J_CACHE_DIR", "MNIST_DIR", "CIFAR10_DIR", "CUDA_HOME",
                "DL4J_NO_DOWNLOAD", "MNIST_BASE_URL", "CIFAR10_URL",
-               "TEXT8_PATH", "DL4J_NEWS_DIR"}
+               "TEXT8_PATH", "DL4J_NEWS_DIR", "DL4J_TRACKER_SECRET",
+               "DL4J_TRACKER_MAX_FRAME"}
 
 
 def _env_reads(path):
