@@ -400,6 +400,27 @@ Phases (any failure exits non-zero, and no result line is printed):
              worker killed holding a job (heartbeat timeout 1 s: it is
              the one reaped, updates = jobs), two simulates on one
              runner.
+25. dp     — data parallelism, a 4-shard mesh over the one card
+             (``devices=[cuda:0] * 4``): the bf16 char-LSTM (T 64, H
+             256, V 80) at global batch 128, 32 rows a shard, 3 + 10
+             ZeRO-1 steps, losses finite and falling, B5 = LSTM layers
+             x 4 x steps; float32, dropout 0, TF32 off: ZeRO-1 and
+             ``shard_update=False`` bitwise (params and moments, 5 Adam
+             steps), 4 shards vs one device's `fit_batch` on the same
+             batches (5 SGD steps, every leaf within 1e-4 relative;
+             Adam recorded), local SGD every 4 (every replica bitwise
+             after each sync round), the ZeRO-1 checkpoint resumed on 2
+             and 1 shards (published trees bitwise); "mixed": a batch
+             infinite on shard 0's rows only, and a finite loss with an
+             inf planted in the last shard's gradient slice, each
+             skipped on every shard (params and moments bitwise, the
+             scale halved, one overflow); a Word2Vec HS ``mesh=`` step at batch 4096 held
+             to the float64 recompute under `hs_step_bounds`; ``cli
+             train -runtime spmd -replicas 1`` (exit 0, accuracy >=
+             0.9); AlexNet bf16 at batch 128 on 4 shards and 1 (2 + 10
+             steps, losses finite).  Recorded ("4 shards on one card"):
+             ms a step vs one device, examples/s, train state a
+             replica, peak memory.
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device time per
 call (`device_ms`: the calls are queued behind a spin kernel, so they run
@@ -442,7 +463,7 @@ PEAK_OPS = {"float32": 67e12,      # fp32 outside the tensor cores
 PHASES = ("kernel", "flash", "serve", "parity", "train", "lstm", "rnn",
           "decode", "mln", "precision", "moe", "mobility", "nlp", "ops",
           "classify", "fleet", "procfleet", "resilience", "sentiment",
-          "cluster", "tail", "scaleout")
+          "cluster", "tail", "scaleout", "dp")
 # what the times of the kernels line measure
 TIMING_NOTE = {
     "ms": "device time per call: calls queued behind a spin kernel, run "
@@ -9253,6 +9274,452 @@ def scaleout_phase(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 25: data parallelism on the card (a 4-shard mesh over the one H100)
+
+
+DP_SHARDS = 4
+DP_B = 128                       # global batch: 32 a shard, the rnn batch
+DP_WARMUP, DP_STEPS = 3, 10
+DP_PARITY_STEPS = 5
+DP_SYNC = 4
+DP_F32_REL = 1e-4                # every leaf, DP vs one device (rnn's bound)
+DP_SGD_LR = 0.1
+DP_ALEX_WARMUP, DP_ALEX_STEPS = 2, 10
+
+
+def dp_mesh(n: int):
+    """A mesh of `n` shards that all lie on card 0."""
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+
+    return make_mesh((n,), ("data",), devices=[torch.device("cuda", 0)] * n)
+
+
+def dp_char_batches(n: int, b: int = DP_B, seed: int = 0) -> list:
+    """`n` char-LSTM batches of `b` rows (T 64, one-hot over 80), targets
+    the ids rolled by one, staged on the card."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    eye = np.eye(LSTM_V, dtype=np.float32)
+    out = []
+    for _ in range(n):
+        ids = rng.integers(0, LSTM_V, (b, LSTM_T))
+        out.append((torch.from_numpy(eye[ids]).cuda(),
+                    torch.from_numpy(eye[np.roll(ids, -1, axis=1)]).cuda()))
+    return out
+
+
+def dp_timed(fit, batches, warmup: int, steps: int) -> dict:
+    """`warmup` then `steps` timed calls of `fit(x, y)` (each returns a
+    host float, so each waits for its step), cycling over `batches`."""
+    import torch
+
+    losses = [fit(*batches[i % len(batches)]) for i in range(warmup)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = []
+    t0 = time.perf_counter()
+    for i in range(steps):
+        ts = time.perf_counter()
+        losses.append(fit(*batches[(warmup + i) % len(batches)]))
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+    wall = time.perf_counter() - t0
+    b = int(batches[0][0].shape[0])
+    return {"batch": b, "warmup_steps": warmup, "steps": steps,
+            "losses": losses, "step_ms": step_ms,
+            "step_ms_mean": wall * 1e3 / steps,
+            "examples_per_s": b * steps / wall,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+
+
+def dp_trainer(conf, n: int, **kw):
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel import DataParallelTrainer
+
+    net = MultiLayerNetwork(conf).init()
+    return net, DataParallelTrainer(net, mesh=dp_mesh(n), **kw)
+
+
+def dp_f32_legs(batches) -> dict:
+    """float32, dropout 0, TF32 off: ZeRO-1 against ``shard_update=False``
+    (Adam, 5 steps: parameters and moments bitwise), 4 shards against
+    one device's `fit_batch` on the same 128-row batches (SGD, 5 steps:
+    every leaf within 1e-4 relative; Adam's recorded), local SGD (every
+    replica bitwise equal after each sync round) and the elastic restore
+    of the ZeRO-1 run's checkpoint on 2 and 1 shards (published trees
+    bitwise)."""
+    import tempfile
+
+    import torch
+
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork, char_lstm
+    from deeplearning4j_tpu_torch.runtime.checkpoint import save_checkpoint
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out = {}
+    runs = {}
+    for name, kw in (("zero1", {}), ("replicated", {"shard_update": False})):
+        net, tr = dp_trainer(char_lstm(), DP_SHARDS, **kw)
+        runs[name] = (net, tr, [tr.fit_batch(*batches[i % len(batches)])
+                                for i in range(DP_PARITY_STEPS)])
+        tr.publish_train_state()
+    (za, zt, zl), (ra, _, rl) = runs["zero1"], runs["replicated"]
+    out["zero1_vs_replicated"] = {
+        "params": leaf_compare(za.params, ra.params),
+        "moments": leaf_compare(za.updater_state, ra.updater_state),
+        "losses_equal": zl == rl}
+    if not (out["zero1_vs_replicated"]["params"]["bitwise"]
+            and out["zero1_vs_replicated"]["moments"]["bitwise"]
+            and zl == rl):
+        raise AssertionError(f"dp: f32 ZeRO-1 and replicated differ: "
+                             f"{out['zero1_vs_replicated']}")
+    one = MultiLayerNetwork(char_lstm()).init()
+    for i in range(DP_PARITY_STEPS):
+        one.fit_batch(*batches[i % len(batches)])
+    out["adam_vs_one_device"] = leaf_compare(za.params, one.params)
+    sgd = {}
+    for name, n in (("dp", DP_SHARDS), ("one", 0)):
+        conf = char_lstm(updater="sgd", learning_rate=DP_SGD_LR)
+        if n:
+            net, tr = dp_trainer(conf, n)
+            fit = tr.fit_batch
+        else:
+            net = MultiLayerNetwork(conf).init()
+            fit = net.fit_batch
+        for i in range(DP_PARITY_STEPS):
+            fit(*batches[i % len(batches)])
+        sgd[name] = net
+    out["sgd_vs_one_device"] = leaf_compare(sgd["dp"].params,
+                                            sgd["one"].params)
+    if not out["sgd_vs_one_device"]["max_rel_leaf"] <= DP_F32_REL:
+        raise AssertionError(f"dp: 4 shards vs one device: "
+                             f"{out['sgd_vs_one_device']}")
+
+    # local SGD: the replicas drift between sync rounds, equal after each
+    net, tr = dp_trainer(char_lstm(), DP_SHARDS, sync_every=DP_SYNC)
+    rounds = []
+    for i in range(2 * DP_SYNC):
+        tr.fit_batch(*batches[i % len(batches)])
+        reps = [r[0] for r in tr._rep]
+        if (i + 1) % DP_SYNC == 0:
+            same = all(leaf_compare(r, reps[0])["bitwise"] for r in reps)
+            pub = leaf_compare(net.params, reps[0])["bitwise"]
+            rounds.append({"step": i + 1, "replicas_bitwise": same,
+                           "net_is_average": pub})
+    out["local_sgd"] = {"sync_every": DP_SYNC, "rounds": rounds}
+    if not all(r["replicas_bitwise"] and r["net_is_average"]
+               for r in rounds):
+        raise AssertionError(f"dp: local SGD sync rounds: {rounds}")
+
+    # elastic: the ZeRO-1 run's checkpoint on 4 shards, resumed on 2 and 1
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-dp-") as tmp:
+        part = zt.checkpoint_partition()
+        save_checkpoint(tmp, DP_PARITY_STEPS, za.params,
+                        updater_state=za.updater_state,
+                        net_state=za.state, spec=part["spec"],
+                        shards=part["shards"])
+        el = {}
+        for m in (2, 1):
+            net, tr = dp_trainer(char_lstm(), m)
+            step = tr.resume(tmp)
+            tr.publish_train_state()
+            el[f"to_{m}"] = {
+                "step": step, "params": leaf_compare(net.params, za.params),
+                "moments": leaf_compare(net.updater_state,
+                                        za.updater_state),
+                "next_loss": tr.fit_batch(*batches[0])}
+        out["elastic"] = el
+    if not all(e["step"] == DP_PARITY_STEPS and e["params"]["bitwise"]
+               and e["moments"]["bitwise"] and math.isfinite(e["next_loss"])
+               for e in el.values()):
+        raise AssertionError(f"dp: elastic 4 -> 2 / 1: {el}")
+    torch.backends.cuda.matmul.allow_tf32 = True
+    return out
+
+
+def dp_mixed_leg(batches) -> dict:
+    """f32 masters, bf16 compute, loss scaling: two clean steps, then two
+    steps that every shard must skip.  (a) A batch infinite in shard 0's
+    rows only, so the mean loss is infinite too.  (b) A clean batch whose
+    reduced gradient carries one inf planted in the last shard's ZeRO-1
+    slice: the loss stays finite, so only the non-finite count over the
+    slices (`shard_update_finite`) can see it.  After each: parameters
+    and moments bitwise unchanged, the scale halved, one overflow more."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork, char_lstm
+    from deeplearning4j_tpu_torch.parallel import DataParallelTrainer
+
+    net = MultiLayerNetwork(char_lstm()).init().set_precision("mixed")
+    tr = DataParallelTrainer(net, mesh=dp_mesh(DP_SHARDS))
+    good = [tr.fit_batch(*batches[i]) for i in range(2)]
+
+    def skipped(x, y) -> dict:
+        tr.publish_train_state()
+        snap = [{k: v.detach().clone() for k, v in layer.items()}
+                for layer in net.params]
+        upd = {k: (v.detach().clone() if isinstance(v, torch.Tensor)
+                   else [{kk: t.clone() for kk, t in layer.items()}
+                         for layer in v])
+               for k, v in net.updater_state.items()}
+        before = net.scaler_stats()
+        loss = tr.fit_batch(x, y)
+        tr.publish_train_state()
+        after = net.scaler_stats()
+        return {"loss": loss, "params": leaf_compare(net.params, snap),
+                "moments": leaf_compare(net.updater_state, upd),
+                "scaler_before": before, "scaler_after": after,
+                "skipped": (after["scale"] == before["scale"] / 2
+                            and after["overflow_count"]
+                            == before["overflow_count"] + 1)}
+
+    x, y = batches[2]
+    bad = x.clone()
+    bad[3, 5, 0] = float("inf")          # row 3 lies in shard 0 of 4
+    out = {"clean_losses": good, "poison_input": skipped(bad, y)}
+
+    plain = tr._shard_grads
+
+    def planted(*args, **kwargs):
+        pieces = plain(*args, **kwargs)
+        grads = pieces[1][2]             # shard 1's leaves, flat order
+        grads[-1] = grads[-1].clone()
+        # flat lane k0 - 1, which the reduce-scatter hands the last shard
+        grads[-1].view(-1)[-1] = float("inf")
+        return pieces
+
+    tr._shard_grads = planted
+    try:
+        out["poison_grad_slice"] = skipped(*batches[3])
+    finally:
+        del tr._shard_grads
+    out["next_loss"] = tr.fit_batch(*batches[0])
+    cases = (out["poison_input"], out["poison_grad_slice"])
+    if not (all(c["params"]["bitwise"] and c["moments"]["bitwise"]
+                and c["skipped"] for c in cases)
+            and math.isfinite(out["poison_grad_slice"]["loss"])
+            and math.isfinite(out["next_loss"])):
+        raise AssertionError(f"dp: a poisoned step was not skipped in "
+                             f"lockstep: {out}")
+    return out
+
+
+def dp_w2v_check() -> dict:
+    """Word2Vec HS with ``mesh=`` over 4 shards of the card against
+    ``mesh=None``: one step at batch 4096 held, as the nlp phase holds
+    its steps, to the float64 recompute of the single-device step under
+    the a-priori float32 bounds (`hs_step_bounds`,
+    `scatter_bound_ratio`); whole fits of the two-topic corpus compared
+    (recorded)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nlp import word2vec as tw
+
+    sents = topic_corpus()
+    kw = dict(vector_length=100, window=5, negative=0, epochs=1,
+              batch_size=4096, seed=1)
+    single = tw.Word2Vec(**kw).fit(sents)
+    meshed = tw.Word2Vec(mesh=dp_mesh(DP_SHARDS), **kw).fit(sents)
+    encoded = [single.vocab.encode(t)
+               for t in single._sentences_to_tokens(sents)]
+    pairs = single._make_pairs(encoded, np.random.default_rng(5))[:4096]
+    b = len(pairs)
+    inputs = torch.from_numpy(pairs[:, 0]).long()
+    targets = torch.from_numpy(pairs[:, 1]).long()
+    hs_cpu = tuple(a.cpu() for a in single._hs)
+    tables = [torch.from_numpy(single.syn0.copy()),
+              torch.from_numpy(single.syn1.copy())]
+
+    def single_run(t):
+        dev, dt = t[0].device, t[0].dtype
+        return tw.hs_step(t[0], t[1], tuple(a.to(dev) for a in hs_cpu),
+                          inputs.to(dev), targets.to(dev), 0.025,
+                          torch.ones(b, dtype=dt, device=dev))
+
+    def mesh_run(t):
+        return meshed._step(t[0], t[1], inputs.cuda(), targets.cuda(),
+                            0.025, torch.ones(b, device="cuda"), None)
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        ref = recorded_step(single_run, tables, "cpu", "float64")
+        got = recorded_step(mesh_run, tables, "cuda", "float32")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    bounds = hs_step_bounds(tables, hs_cpu, inputs, targets, 0.025)
+    ratio = scatter_bound_ratio(tables, got, ref, bounds)
+    out = {"batch": b, "shards": DP_SHARDS, "ratio": ratio,
+           "worst_ratio": max(ratio[k] for k in ("updates", "tables",
+                                                 "loss")),
+           "fit_syn0_max_abs_diff": float(np.abs(single.syn0
+                                                 - meshed.syn0).max()),
+           "fit_batch_size": meshed.batch_size}
+    if not out["worst_ratio"] <= 1.0:
+        raise AssertionError(f"dp: Word2Vec HS mesh step past its bound: "
+                             f"{out}")
+    return out
+
+
+def dp_cli(tmp: str) -> dict:
+    """`cli train -runtime spmd -replicas 1` as a subprocess on a seeded
+    Iris-shaped CSV: exit code 0, accuracy >= 0.9."""
+    import os
+    import re
+
+    csv = os.path.join(tmp, "iris.csv")
+    iris_like_csv(csv)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "deeplearning4j_tpu_torch.cli", "train",
+         "-input", csv, "-model", "zoo:iris-mlp", "-output",
+         os.path.join(tmp, "run"), "-epochs", "30", "-batch", "32",
+         "-runtime", "spmd", "-replicas", "1"],
+        capture_output=True, text=True, timeout=300)
+    acc = re.search(r"Accuracy:\s+([\d.]+)", proc.stdout)
+    out = {"rc": proc.returncode, "s": time.perf_counter() - t0,
+           "accuracy": float(acc.group(1)) if acc else None,
+           "mesh_line": "spmd: elastic mesh over 1 of" in proc.stdout}
+    if proc.returncode != 0 or not out["accuracy"] or \
+            out["accuracy"] < 0.9 or not out["mesh_line"]:
+        raise AssertionError(f"dp: cli train -runtime spmd: {out} "
+                             f"{proc.stdout[-800:]} {proc.stderr[-2000:]}")
+    return out
+
+
+def dp_phase(card: str) -> dict:
+    """Phase 25 (the module docstring): a 4-shard mesh over the one
+    card."""
+    import tempfile
+
+    import torch
+
+    from deeplearning4j_tpu_torch.datasets.fetchers import synthetic_cifar10
+    from deeplearning4j_tpu_torch.models import (
+        MultiLayerNetwork,
+        alexnet_cifar10,
+        char_lstm,
+    )
+    from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
+
+    t_phase = time.perf_counter()
+    conf = char_lstm(compute_dtype="bfloat16")
+    n_lstm = sum(hasattr(lc, "fused") for lc in conf.layers)
+    batches = dp_char_batches(4)
+    out = {"card": card, "shards": DP_SHARDS,
+           "mesh": "4 shards on one card (devices=[cuda:0] * 4)",
+           "config": "char_lstm(vocab 80, hidden 256), bf16 compute, f32 "
+                     "masters, adam lr 0.01, ZeRO-1",
+           "global_batch": DP_B, "shard_batch": DP_B // DP_SHARDS,
+           "seq": LSTM_T, "lstm_layers": n_lstm}
+
+    # 1. the char-LSTM at full width: B5 once a layer, shard and step
+    net, tr = dp_trainer(conf, DP_SHARDS)
+    counters = (lk.fused_lstm_forward.launches,
+                lk.fused_lstm_forward.residual_launches)
+    warm = [tr.fit_batch(*batches[i % 4]) for i in range(DP_WARMUP)]
+    for c in counters:
+        c.reset()
+    run = dp_timed(tr.fit_batch, batches, 0, DP_STEPS)
+    launches, with_res = (c.value for c in counters)
+    run["losses"] = warm + run["losses"]
+    run["warmup_steps"] = DP_WARMUP
+    out["char_lstm"] = run
+    out["launches"] = launches
+    out["launches_expected"] = n_lstm * DP_SHARDS * DP_STEPS
+    if launches != out["launches_expected"] or with_res != launches:
+        raise AssertionError(f"dp: B5 launched {launches} times ({with_res}"
+                             f" with residuals) in {DP_STEPS} steps, "
+                             f"expected {out['launches_expected']}")
+    losses = run["losses"]
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"dp: losses {losses}")
+    zero1_bytes = tr.train_state_bytes()
+    del net, tr
+    net, tr = dp_trainer(conf, DP_SHARDS, shard_update=False)
+    out["train_state_bytes"] = {"zero1": zero1_bytes,
+                                "replicated": tr.train_state_bytes(),
+                                "note": "per replica (the JAX model)"}
+    del net, tr
+    one = MultiLayerNetwork(conf).init()
+    out["one_device"] = dp_timed(one.fit_batch, batches, DP_WARMUP, DP_STEPS)
+    del one
+    torch.cuda.empty_cache()
+    log(f"dp: char-LSTM bf16, 4 shards x {DP_B // DP_SHARDS} rows: step "
+        f"{run['step_ms_mean']:.3f} ms against one device's "
+        f"{out['one_device']['step_ms_mean']:.3f} ms at batch {DP_B}; "
+        f"B5 {launches} launches in {DP_STEPS} steps; losses "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; peak memory "
+        f"{run['peak_memory_bytes']} bytes; train state a replica "
+        f"{zero1_bytes} (ZeRO-1) vs "
+        f"{out['train_state_bytes']['replicated']} bytes (replicated) "
+        f"(4 shards on one card, {card})")
+
+    # 2. float32: bitwise planes, one-device parity, local SGD, elastic
+    out["f32"] = dp_f32_legs(batches)
+    f = out["f32"]
+    log(f"dp: f32 ZeRO-1 = replicated bitwise (params and moments, "
+        f"{DP_PARITY_STEPS} steps); 4 shards vs one device, SGD: worst "
+        f"leaf {f['sgd_vs_one_device']['max_rel_leaf']:.3g} (bound "
+        f"{DP_F32_REL:g}), Adam {f['adam_vs_one_device']['max_rel_leaf']:.3g}"
+        f" (recorded); local SGD every {DP_SYNC}: replicas bitwise after "
+        f"{len(f['local_sgd']['rounds'])} rounds; elastic 4 -> 2, 1 "
+        f"bitwise")
+    torch.cuda.empty_cache()
+
+    # 3. mixed precision: the lockstep skip
+    out["mixed"] = dp_mixed_leg(batches)
+    m = out["mixed"]
+    log(f"dp: mixed: an inf input row on shard 0 (loss "
+        f"{m['poison_input']['loss']}) and an inf in the last shard's "
+        f"gradient slice (loss {m['poison_grad_slice']['loss']:.6g}) "
+        f"each skipped on all 4, scale "
+        f"{m['poison_input']['scaler_before']['scale']:g} -> "
+        f"{m['poison_grad_slice']['scaler_after']['scale']:g}, overflows "
+        f"{m['poison_grad_slice']['scaler_after']['overflow_count']}")
+    torch.cuda.empty_cache()
+
+    # 4. Word2Vec HS mesh=
+    out["w2v_mesh"] = dp_w2v_check()
+    log(f"dp: Word2Vec HS mesh step: worst error / bound "
+        f"{out['w2v_mesh']['worst_ratio']:.3g}; fit syn0 max diff "
+        f"{out['w2v_mesh']['fit_syn0_max_abs_diff']:.3g} (recorded)")
+
+    # 5. the CLI
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-dp-cli-") as tmp:
+        out["cli"] = dp_cli(tmp)
+    log(f"dp: cli train -runtime spmd -replicas 1: accuracy "
+        f"{out['cli']['accuracy']:.3f} in {out['cli']['s']:.1f} s")
+
+    # 6. AlexNet bf16 at global batch 128, 4 shards and 1
+    cifar = synthetic_cifar10(DP_B * 2)
+    alex_batches = staged_batches(cifar, DP_B, 2)
+    alex = {}
+    for n in (DP_SHARDS, 1):
+        net, tr = dp_trainer(alexnet_cifar10(compute_dtype="bfloat16"), n)
+        alex[f"shards_{n}"] = dp_timed(tr.fit_batch, alex_batches,
+                                       DP_ALEX_WARMUP, DP_ALEX_STEPS)
+        del net, tr
+        torch.cuda.empty_cache()
+    out["alexnet_bf16"] = alex
+    if not all(math.isfinite(v) for r in alex.values()
+               for v in r["losses"]):
+        raise AssertionError(f"dp: alexnet losses {alex}")
+    log(f"dp: alexnet bf16 batch {DP_B}: 4 shards "
+        f"{alex['shards_4']['step_ms_mean']:.3f} ms a step "
+        f"({alex['shards_4']['examples_per_s']:.1f} examples/s), 1 shard "
+        f"{alex['shards_1']['step_ms_mean']:.3f} ms "
+        f"({alex['shards_1']['examples_per_s']:.1f} examples/s) "
+        f"(4 shards on one card, {card})")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"dp: phase in {out['phase_s']:.1f} s ({card})")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=",".join(PHASES),
@@ -9369,6 +9836,7 @@ def main(argv=None) -> int:
     cluster = cluster_phase(card) if "cluster" in phases else None
     tail = tail_phase(card) if "tail" in phases else None
     scaleout = scaleout_phase(card) if "scaleout" in phases else None
+    dp = dp_phase(card) if "dp" in phases else None
 
     entries = []
     if kernels_line is not None:
@@ -9531,6 +9999,10 @@ def main(argv=None) -> int:
             "scaleout_launches": (
                 {"b5": scaleout["b5_launches"],
                  "performs": scaleout["performs"]} if scaleout else None),
+            "dp_launches": (
+                {"b5": dp["launches"], "shards": dp["shards"],
+                 "steps": DP_STEPS, "lstm_layers": dp["lstm_layers"]}
+                if dp else None),
             "max_abs_err": max(lstm["worst_abs_err"].values()),
             "max_rel_err": lstm["worst_rel_err"],
             "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
@@ -9588,6 +10060,8 @@ def main(argv=None) -> int:
         print(json.dumps({"tail": tail}), flush=True)
     if scaleout is not None:
         print(json.dumps({"scaleout": scaleout}), flush=True)
+    if dp is not None:
+        print(json.dumps({"dp": dp}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)

@@ -28,9 +28,10 @@ _LAZY = {
     "beam_search": ("deeplearning4j_tpu_torch.parallel", "beam_search"),
     "load_source": ("deeplearning4j_tpu_torch.ml", "load_source"),
     "Evaluation": ("deeplearning4j_tpu_torch.evaluation", "Evaluation"),
+    "DataParallelTrainer": ("deeplearning4j_tpu_torch.parallel",
+                            "DataParallelTrainer"),
+    "make_mesh": ("deeplearning4j_tpu_torch.parallel", "make_mesh"),
 }
-# the JAX table's multi-device names, not ported
-_UNPORTED = {"DataParallelTrainer", "make_mesh"}
 
 
 def __getattr__(name):
@@ -39,10 +40,6 @@ def __getattr__(name):
 
         module, attr = _LAZY[name]
         return getattr(importlib.import_module(module), attr)
-    if name in _UNPORTED:
-        raise AttributeError(
-            f"deeplearning4j_tpu_torch.{name} is multi-device work, not "
-            f"ported (ROADMAP.md, queue A7, 'Multi-device')")
     raise AttributeError(f"module 'deeplearning4j_tpu_torch' has no "
                          f"attribute {name!r}")
 

@@ -4,6 +4,8 @@
         -model zoo:iris-mlp|conf.json|<saved dir> [-output dir]
         [-conf props] [-epochs 50] [-batch 32] [-accum 1]
         [-precision fp32|bf16|mixed] [-chunk 1]
+        [-runtime local|spmd] [-replicas N] [-sync-every 1]
+        [-shard-update on|off]
         [-resilience] [-resume] [-ckpt-dir <output>/ckpts]
         [-ckpt-every 50] [-ckpt-keep 3] [-skip-budget 5]
         [-divergence-factor 10] [-step-timeout S]
@@ -29,8 +31,12 @@ re-running the same command resumes there and trains the tail;
 ``-resume`` alone restores the newest good checkpoint first); ``test``
 prints the evaluation of a saved model and ``predict`` writes its argmax
 classes one a line.  The JAX package reads every file they write,
-checkpoints included.  ``-runtime spmd``, ``-replicas`` and
-``-sync-every`` exit naming ROADMAP.md queue A7.
+checkpoints included.  ``-runtime spmd`` trains through a
+`DataParallelTrainer` over ``-replicas`` cards (with ``-device cpu``,
+host shards): ZeRO-1 by default, replicated with ``-shard-update off``,
+local SGD with ``-sync-every K``; the tail batch is wrapped to a
+multiple of the shards, ``-accum`` is ignored, and a ``-resume`` may
+restore a checkpoint saved on another replica count.
 
     python -m deeplearning4j_tpu_torch.cli lm -input <text> [-output dir]
         [-preset gpt2-small] [-seq 128] [-batch 8] [-accum 1] [-epochs 1]
@@ -203,19 +209,53 @@ def _build_net(model_path: str, device):
     return MultiLayerNetwork.from_json(p.read_text(), device=device)
 
 
-def _refuse_unported_train(args, props: Dict[str, str]) -> None:
-    """The `train` options whose code paths are not ported yet."""
-    queues = [
-        (args.runtime != "local", f"-runtime {args.runtime}",
-         "A7, 'Multi-device'"),
-        (args.replicas is not None, "-replicas", "A7, 'Multi-device'"),
-        (int(props.get("train.sync.every", args.sync_every)) != 1,
-         "-sync-every", "A7, 'Multi-device'"),
-    ]
-    for refused, flag, queue in queues:
-        if refused:
-            raise SystemExit(f"{flag}: not ported to PyTorch yet "
-                             f"(ROADMAP.md, queue {queue})")
+def _train_runner(args, props: Dict[str, str], net, device):
+    """The step runner of `train`: the network itself under ``-runtime
+    local``; under ``-runtime spmd`` a `DataParallelTrainer` over
+    ``-replicas`` shards (default every visible card; with ``-device cpu``
+    that many shards on the host, one by default), ``-sync-every`` (or
+    ``train.sync.every``) and ``-shard-update`` (or
+    ``train.shard.update``).  Returns (runner, the batch divisor)."""
+    import torch
+
+    if args.runtime != "spmd":
+        if args.replicas is not None:
+            print("-replicas is an spmd-runtime flag; ignored under "
+                  "-runtime local")
+        return net, 1
+    from deeplearning4j_tpu_torch.parallel import (
+        DataParallelTrainer,
+        make_mesh,
+    )
+
+    sync_every = int(props.get("train.sync.every", args.sync_every))
+    shard_update = str(props.get("train.shard.update",
+                                 args.shard_update)).lower() not in (
+        "off", "false", "0")
+    if sync_every > 1:
+        # local SGD, the Hogwild router's counterpart: replicas step on
+        # their own shard and average every N steps
+        print(f"spmd: local-SGD mode, averaging every {sync_every} steps")
+    if device.type == "cuda":
+        avail = [torch.device("cuda", i)
+                 for i in range(torch.cuda.device_count())]
+    else:
+        avail = [device] * (args.replicas or 1)
+    n = args.replicas if args.replicas is not None else len(avail)
+    if not 1 <= n <= len(avail):
+        raise SystemExit(f"-replicas must be in [1, {len(avail)}] (visible "
+                         f"devices), got {args.replicas}")
+    if args.replicas is not None:
+        # the elastic replica count: the first N devices (a -resume
+        # restores a checkpoint saved on any replica count onto them)
+        print(f"spmd: elastic mesh over {n} of {len(avail)} visible "
+              f"devices")
+    runner = DataParallelTrainer(
+        net, mesh=make_mesh((n,), ("data",), devices=avail[:n]),
+        sync_every=sync_every, shard_update=shard_update)
+    if not shard_update:
+        print("spmd: -shard-update off — replicated pmean updates")
+    return runner, runner.n_devices
 
 
 def cmd_train(args) -> int:
@@ -240,7 +280,6 @@ def cmd_train(args) -> int:
     from deeplearning4j_tpu_torch.runtime.fused import FusedTrainingDriver
 
     props = load_properties(args.conf)
-    _refuse_unported_train(args, props)
     device = resolve_device(args.device)
     ds = _load_dataset(args.input, props)
     net = _build_net(args.model, device)
@@ -268,10 +307,6 @@ def cmd_train(args) -> int:
         print(f"train: metrics on {metrics_srv.url}/metrics "
               f"(every {telemetry.sync_interval} steps)", flush=True)
 
-    def batches():
-        for epoch in range(epochs):
-            yield from ds.shuffle(seed=epoch).batch_by(batch)
-
     out = pathlib.Path(args.output or "dl4j-output")
     ckpt_dir = (pathlib.Path(args.ckpt_dir) if args.ckpt_dir
                 else out / "ckpts")
@@ -290,34 +325,57 @@ def cmd_train(args) -> int:
         # compute, dynamic loss scaling
         net.set_precision(precision)
         print(f"precision: {net.precision.describe()}")
+    runner, divisor = _train_runner(args, props, net, device)
+
+    def batches():
+        for epoch in range(epochs):
+            for b in ds.shuffle(seed=epoch).batch_by(batch):
+                n = b.num_examples()
+                if n % divisor:
+                    # the mesh cuts the batch into equal shards: the tail
+                    # batch is wrapped up to a multiple of the shards
+                    idx = np.concatenate([np.arange(n),
+                                          np.arange((-n) % divisor) % n])
+                    b = type(b)(b.features[idx], b.labels[idx])
+                yield b
+
     if args.resume and not args.resilience:
         # crash-safe resume without supervision: the newest GOOD
         # checkpoint (checksums verified, a corrupt newest step skipped
-        # for the previous good one)
+        # for the previous good one), onto this run's replica count
         if will_resume:
-            step = resume_train_state(ckpt_dir, net)
+            step = resume_train_state(ckpt_dir, runner)
             print(f"resume: restored checkpoint step {step} from "
                   f"{ckpt_dir}")
         else:
             print(f"resume: no committed checkpoint under {ckpt_dir}; "
                   f"starting fresh")
+    if accum > 1 and runner is not net:
+        print("-accum is a local-runtime feature; ignored under spmd")
+        accum = 1
     chunk = max(1, int(props.get("train.chunk.size", args.chunk)))
     if chunk > 1 and accum > 1:
         print("-accum is ignored with -chunk (a chunk steps over batches)")
         accum = 1
+    if chunk > 1 and runner is not net and runner.sync_every != 1:
+        print("-chunk needs plain sync spmd; ignored under -sync-every > 1")
+        chunk = 1
     t0 = time.time()
     if args.resilience:
-        _train_supervised(args, net, ds, batches(), ckpt_dir, telemetry,
+        _train_supervised(args, runner, ds, batches(), ckpt_dir, telemetry,
                           chunk, epochs, batch)
     elif chunk > 1:
         # the fused driver: chunk steps a dispatch, the next chunk staged
         # on the device from a background thread
-        FusedTrainingDriver(net, chunk_size=chunk).fit(batches())
+        FusedTrainingDriver(runner, chunk_size=chunk).fit(batches())
     else:
         last = None
         for b in PrefetchDataSetIterator(batches()):
-            last = net.fit_batch_async(b.features, b.labels,
-                                       accum_steps=accum)
+            if runner is net:
+                last = net.fit_batch_async(b.features, b.labels,
+                                           accum_steps=accum)
+            else:
+                last = runner.fit_batch_async(b.features, b.labels)
         if last is not None and device.type == "cuda":
             torch.cuda.synchronize(device)
     elapsed = time.time() - t0
@@ -345,7 +403,7 @@ def cmd_train(args) -> int:
     return 0
 
 
-def _train_supervised(args, net, ds, stream, ckpt_dir, telemetry,
+def _train_supervised(args, runner, ds, stream, ckpt_dir, telemetry,
                       chunk: int, epochs: int, batch: int) -> None:
     """`train -resilience`: the steps under a `TrainingSupervisor`.  The
     health checks need each loss on the host, so steps do not pipeline.
@@ -363,7 +421,7 @@ def _train_supervised(args, net, ds, stream, ckpt_dir, telemetry,
 
     if args.accum > 1:
         print("-accum is ignored under -resilience")
-    sup = TrainingSupervisor(net, telemetry=telemetry,
+    sup = TrainingSupervisor(runner, telemetry=telemetry,
                              config=ResilienceConfig(
         checkpoint_dir=ckpt_dir, checkpoint_every=args.ckpt_every,
         keep=args.ckpt_keep, skip_budget=args.skip_budget,
@@ -835,7 +893,8 @@ def _refuse_unported(args) -> None:
     """The `lm` options whose code paths are not ported yet."""
     if args.runtime != "local":
         raise SystemExit(f"-runtime {args.runtime}: only the local runtime "
-                         f"is ported (ROADMAP.md, queue A7, 'Multi-device')")
+                         f"is ported (ROADMAP.md, queue A7 part 2, "
+                         f"'Multi-device LM trainers')")
 
 
 def _lm_config(args, seq: int) -> TransformerConfig:
@@ -1015,13 +1074,24 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-batch", "--batch", type=int, default=32)
     p.add_argument("-accum", "--accum", type=int, default=1,
                    help="gradient-accumulation microbatches per update")
-    # accepted so that a JAX command line fails with the reason
     p.add_argument("-runtime", "--runtime", choices=["local", "spmd"],
-                   default="local", help="only local is ported")
+                   default="local", help="local = one device; spmd = "
+                   "data-parallel over a device mesh")
     p.add_argument("-replicas", "--replicas", type=int, default=None,
-                   help="not ported (spmd)")
+                   help="spmd runtime: data-parallel over the first N "
+                   "visible cards (default all; with -device cpu, N host "
+                   "shards, default 1) — resume a checkpoint saved on any "
+                   "replica count onto N")
     p.add_argument("-sync-every", "--sync-every", dest="sync_every",
-                   type=int, default=1, help="not ported (spmd)")
+                   type=int, default=1,
+                   help="spmd runtime: average replicas every N steps "
+                   "instead of every step (local SGD; 1 = sync SGD)")
+    p.add_argument("-shard-update", "--shard-update", dest="shard_update",
+                   choices=("on", "off"), default="on",
+                   help="spmd runtime: ZeRO-1 weight-update sharding — "
+                   "reduce-scatter the gradients, update 1/N of the flat "
+                   "parameters and moments a replica, gather (default on; "
+                   "bitwise equal to the replicated update in float32)")
     p.add_argument("-precision", "--precision",
                    choices=["fp32", "bf16", "mixed"], default="fp32",
                    help="precision policy: fp32, bf16 (bf16 params and "

@@ -6,9 +6,9 @@ Parity: reference `dl4j-spark-ml` (Scala) — Spark ML pipeline integration:
 ParameterAveragingTrainingStrategy, model predicts on the driver),
 `MultiLayerNetworkReconstruction.scala` (unsupervised hidden-layer
 transform), `ml/Unsupervised.scala`.  Without Spark, estimators wrap
-the port's `MultiLayerNetwork` on one card behind the
-fit/transform/predict convention Python ML code expects (the JAX
-package's data-parallel option is ROADMAP.md queue A7).
+the port's `MultiLayerNetwork` behind the fit/transform/predict
+convention Python ML code expects; ``NetworkClassifier(distributed=True)``
+trains through `DataParallelTrainer`.
 """
 
 from deeplearning4j_tpu_torch.ml.pipeline import (

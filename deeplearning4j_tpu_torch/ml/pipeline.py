@@ -64,9 +64,10 @@ class StandardScaler(_BaseEstimator):
 class NetworkClassifier(_BaseEstimator):
     """MultiLayerNetwork as a classifier estimator, trained on `device`.
 
-    ``distributed=True`` (the JAX package's data-parallel trainer, the
-    replacement for the reference's ParameterAveragingTrainingStrategy)
-    is multi-device work and is refused (ROADMAP.md, queue A7).
+    ``distributed=True`` trains through `DataParallelTrainer`, the
+    replacement for the reference's ParameterAveragingTrainingStrategy
+    (TrainingStrategy.scala:39-81), over every visible card, or over one
+    host shard when ``device="cpu"``.
     """
 
     def __init__(self, conf: MultiLayerConfiguration, epochs: int = 10,
@@ -86,17 +87,28 @@ class NetworkClassifier(_BaseEstimator):
         return self._net
 
     def fit(self, x, y) -> "NetworkClassifier":
-        if self.distributed:
-            raise NotImplementedError(
-                "NetworkClassifier(distributed=True) trains data-parallel "
-                "across devices, which is not ported (ROADMAP.md, queue A7, "
-                "'Multi-device')")
         x = np.asarray(x, np.float32)
         y = np.asarray(y)
         if y.ndim == 1:
             n_out = self.conf.layers[-1].n_out
             y = one_hot(y.astype(int), n_out)
         self._net = MultiLayerNetwork(self.conf, device=self.device).init()
+        if self.distributed:
+            from deeplearning4j_tpu_torch.parallel import (
+                DataParallelTrainer,
+                make_mesh,
+            )
+
+            mesh = (make_mesh(devices=[self._net.device])
+                    if self._net.device.type == "cpu" else None)
+            trainer = DataParallelTrainer(self._net, mesh=mesh)
+            n = trainer.n_devices
+            batch = max(self.batch_size // n * n, n)
+            for _ in range(self.epochs):
+                for s in range(0, len(x) - batch + 1, batch):
+                    trainer.fit_batch(x[s:s + batch], y[s:s + batch])
+            trainer.finalize()
+            return self
         it = ArrayDataSetIterator(x, y, batch=self.batch_size)
         self._net.fit(it, epochs=self.epochs)
         return self

@@ -207,6 +207,10 @@ class MultiLayerNetwork:
         self.params: Optional[List[Dict[str, torch.Tensor]]] = None
         self.state: Optional[List[Dict[str, torch.Tensor]]] = None
         self.updater_state: Optional[Tree] = None
+        # A live DataParallelTrainer(shard_update=True) registers itself
+        # here while it owns the (sharded) optimizer state; checkpoint
+        # paths pull through runtime.checkpoint.published_updater_state.
+        self._updater_state_owner = None
         if (conf.conf.updater == "adadelta"
                 and any(lc.lr_multiplier != 1.0 for lc in conf.layers)):
             raise ValueError(
@@ -592,6 +596,16 @@ class MultiLayerNetwork:
         self._scaler_state = update_scaler_state(scfg, sc, finite)
         return loss.detach(), gnorm
 
+    def _own_updater_state(self) -> None:
+        """Direct training owns its optimizer state: drop any
+        registration left by an abandoned (un-finalized) sharded trainer,
+        so it cannot clobber the live state at a later checkpoint, and
+        restart with fresh moments where that trainer took them (see
+        DataParallelTrainer.finalize)."""
+        self._updater_state_owner = None
+        if self.updater_state is None:
+            self.updater_state = self._updater.init(self.params)
+
     def fit_batch_async(self, x, y, mask=None,
                         accum_steps: int = 1) -> torch.Tensor:
         """One SGD step; returns the loss as a device tensor without
@@ -603,6 +617,7 @@ class MultiLayerNetwork:
         microbatch)."""
         if self.params is None:
             self.init()
+        self._own_updater_state()
         if accum_steps < 1:
             raise ValueError(f"accum_steps must be >= 1, got {accum_steps}")
         if accum_steps > 1 and self._precision.loss_scale is not None:
@@ -647,6 +662,7 @@ class MultiLayerNetwork:
         run one after another either way."""
         if self.params is None:
             self.init()
+        self._own_updater_state()
         xs = _as_tensor(xs, self.device)
         ys = _as_tensor(ys, self.device)
         masks = _as_tensor(masks, self.device)
@@ -735,6 +751,7 @@ class MultiLayerNetwork:
                 self.state = map_tree(lambda a: fresh(a, self.device),
                                       net_state)
         self._iteration = int(step)
+        self._updater_state_owner = None
 
     def fit(self, data, epochs: int = 1, accum_steps: int = 1,
             chunk_size: Optional[int] = None, prefetch: int = 2,

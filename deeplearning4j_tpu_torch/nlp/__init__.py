@@ -15,8 +15,8 @@ evaluates the HS/NEG (or GloVe) objective for the whole batch and
 scatter-adds the hand-derived updates with ``index_add_``.  The JAX
 package wrote no Pallas kernel for this path, so the port's steps are
 plain PyTorch ops.  `Word2Vec`, `ParagraphVectors` and `Glove` run on the
-card unless the caller passes ``device="cpu"``; their mesh path is
-ROADMAP item A7.
+card unless the caller passes ``device="cpu"``; `Word2Vec` and `Glove`
+take a ``mesh=`` (`parallel.mesh.sparse_allgather_step`).
 
 The sentiment pipeline's front half: the parse trees (`nlp/tree.py`,
 host numpy), the annotators (`HmmPosTagger` decoding on the device

@@ -12,7 +12,11 @@ shuffled COO triples (i, j, X_ij): gathers, elementwise math and
 ``index_add_`` scatters of the touched rows (`glove_step`).  The four
 tables (w, w-context, b, b-context) and their AdaGrad accumulators live
 on the device from the start of training to its end; each minibatch's
-loss stays there until its epoch ends.  The mesh path is ROADMAP item A7.
+loss stays there until its epoch ends.  ``mesh=`` shards each COO batch
+over the mesh's first axis (`parallel.mesh.sparse_allgather_step`): each
+shard's (row, gradient) entries are gathered in shard order and the
+AdaGrad scatters applied once, as on one device; the batch size rounds
+up to a multiple of the shards.
 """
 
 from __future__ import annotations
@@ -29,8 +33,11 @@ from deeplearning4j_tpu_torch.nlp.tokenization import (
     TokenizerFactory,
 )
 from deeplearning4j_tpu_torch.nlp.vocab import VocabCache
-from deeplearning4j_tpu_torch.nlp.word2vec import refuse_mesh
 from deeplearning4j_tpu_torch.nlp.word_vectors import WordVectors
+from deeplearning4j_tpu_torch.parallel.mesh import (
+    round_batch_to_mesh,
+    sparse_allgather_step,
+)
 
 ADAGRAD_EPS = 1e-8
 
@@ -91,22 +98,38 @@ def glove_step(params: Tuple[torch.Tensor, ...],
     divides by the square root of its row's accumulator gathered after
     that scatter; then the parameter update is scattered.  `valid` zeroes
     padded entries (whose indices are real rows)."""
+    loss, aux = glove_deltas(params, adagrad, ii, jj, xx, valid, x_max,
+                             alpha)
+    glove_apply(params, adagrad, aux, lr)
+    return loss
+
+
+def glove_deltas(params, adagrad, ii, jj, xx, valid, x_max: float,
+                 alpha: float):
+    """The batch loss and the per-entry gradients of the touched rows,
+    with their rows: (ii, jj, (d/dw[ii], d/dwc[jj], d/db, d/dbc))."""
     w, wc, b, bc = params
     diff = torch.sum(w[ii] * wc[jj], dim=1) + b[ii] + bc[jj] - torch.log(xx)
     fx = torch.clamp((xx / x_max) ** alpha, max=1.0)
     e = valid * fx * diff                               # [B]
     loss = 0.5 * torch.sum(e * diff)                    # valid^2 == valid
-    grads = (e[:, None] * wc[jj], e[:, None] * w[ii], e, e)
+    return loss, (ii, jj, (e[:, None] * wc[jj], e[:, None] * w[ii], e, e))
+
+
+def glove_apply(params, adagrad, aux, lr: float):
+    """The AdaGrad scatters of `glove_deltas`' entries, in place: each
+    accumulator first, then the update divided by its root."""
+    ii, jj, grads = aux
     for p, h, r, g in zip(params, adagrad, (ii, jj, ii, jj), grads):
         h.index_add_(0, r, g * g)
         p.index_add_(0, r, -lr * g / torch.sqrt(h[r] + ADAGRAD_EPS))
-    return loss
+    return params, adagrad
 
 
 class Glove(WordVectors):
     """GloVe embeddings (reference defaults: xMax=100, alpha=0.75,
     learning rate 0.05 AdaGrad).  Trains on `device` (the card unless
-    ``device="cpu"``)."""
+    ``device="cpu"``), over `mesh` when one is given."""
 
     def __init__(self,
                  vector_length: int = 100,
@@ -121,7 +144,9 @@ class Glove(WordVectors):
                  tokenizer_factory: Optional[TokenizerFactory] = None,
                  mesh=None,
                  device: DeviceLike = None):
-        refuse_mesh(mesh, "Glove")
+        self.mesh = mesh  # shard the COO batches over its first axis
+        if mesh is not None:
+            batch_size = round_batch_to_mesh(batch_size, mesh)
         self.window = window
         self.learning_rate = learning_rate
         self.x_max = x_max
@@ -174,14 +199,25 @@ class Glove(WordVectors):
             for bi in range(n_batches):
                 sel = sel_all[bi * B:(bi + 1) * B]
                 last = bi == n_batches - 1
-                epoch_losses.append(glove_step(
-                    self._params, self._adagrad, ii[sel], jj[sel], xx[sel],
-                    tail_valid if last else full_valid,
-                    self.learning_rate, self.x_max, self.alpha))
+                epoch_losses.append(self._step(
+                    ii[sel], jj[sel], xx[sel],
+                    tail_valid if last else full_valid))
             losses.append(sum(torch.stack(epoch_losses).cpu().double()
                               .tolist()))
         self._refresh_syn0()
         return losses
+
+    def _step(self, ii, jj, xx, valid) -> torch.Tensor:
+        """One AdaGrad step on the batch, over the mesh when there is one;
+        returns its loss."""
+        step = sparse_allgather_step(
+            self.mesh,
+            lambda p, h, i, j, x, v: glove_deltas(p, h, i, j, x, v,
+                                                  self.x_max, self.alpha),
+            lambda p, h, aux: glove_apply(p, h, aux, self.learning_rate),
+            n_state=2, n_sharded=4)
+        *_, loss = step(self._params, self._adagrad, ii, jj, xx, valid)
+        return loss
 
     def _refresh_syn0(self) -> None:
         w, wc = (p.cpu().numpy() for p in self._params[:2])

@@ -27,8 +27,15 @@ The design is the JAX package's:
 The tables live on the model's device as float32 tensors from the start
 of `fit` to its end and come back to numpy then.  Negatives are drawn by
 a `torch.Generator` on that device seeded from `seed` (`_negatives`); the
-NEG step takes them as an argument.  The mesh path (the JAX package's
-``mesh=``) is ROADMAP item A7.
+NEG step takes them as an argument.
+
+``mesh=`` (a `parallel.mesh.Mesh`) shards each pair batch over the
+mesh's first axis through `parallel.mesh.sparse_allgather_step`: every
+shard computes its (row, delta) pairs on its device, the pairs are
+gathered in shard order — O(B·D), never a dense table — and one scatter
+updates the tables; the batch size rounds up to a multiple of the
+shards.  A step's negatives are drawn for the whole batch and sharded
+with it, so a mesh trains on the single-device draws.
 """
 
 from __future__ import annotations
@@ -53,6 +60,10 @@ from deeplearning4j_tpu_torch.nlp.vocab import (
     build_negative_table,
 )
 from deeplearning4j_tpu_torch.nlp.word_vectors import WordVectors
+from deeplearning4j_tpu_torch.parallel.mesh import (
+    round_batch_to_mesh,
+    sparse_allgather_step,
+)
 
 # Reference MAX_EXP (InMemoryLookupTable.java): in the HIERARCHICAL
 # SOFTMAX loop, pairs whose dot saturates (|dot| >= 6) contribute NO
@@ -68,22 +79,26 @@ MAX_EXP = 6.0
 STAGE_PAIRS = 1_048_576
 
 
-def refuse_mesh(mesh, what: str) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{what}(mesh=...) is not ported: the mesh-parallel path is "
-            f"ROADMAP item A7; this port trains on one device")
+def apply_deltas(syn0: torch.Tensor, syn1: torch.Tensor, lr: float, aux):
+    """Scatter-add ``lr * delta`` into the touched rows of both tables, in
+    place: `aux` is ((syn0 rows, deltas), (syn1 rows, deltas), ...), the
+    output table's pieces added in their order."""
+    (r0, d0), *rest = aux
+    syn0.index_add_(0, r0, d0, alpha=lr)
+    for r1, d1 in rest:
+        syn1.index_add_(0, r1, d1, alpha=lr)
+    return syn0, syn1
 
 
-def hs_step(syn0: torch.Tensor, syn1: torch.Tensor,
-            hs: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
-            inputs: torch.Tensor, targets: torch.Tensor, lr: float,
-            valid: torch.Tensor) -> torch.Tensor:
-    """One hierarchical-softmax step, in place on `syn0` and `syn1`;
-    returns the batch loss (a device scalar).  `hs` is (points, codes,
-    lengths) on the device; `valid` zeroes padded pairs; `lr` is a float32
-    value (the caller rounds it).  Padded path columns are masked to a
-    zero delta, so their row-0 index adds nothing."""
+def hs_deltas(syn0: torch.Tensor, syn1: torch.Tensor,
+              hs: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+              inputs: torch.Tensor, targets: torch.Tensor,
+              valid: torch.Tensor):
+    """The hierarchical-softmax step's batch loss and its sparse pieces
+    ((inputs, dh), (path rows, dw)) for `apply_deltas`.  `hs` is (points,
+    codes, lengths) on the device; `valid` zeroes padded pairs.  Padded
+    path columns are masked to a zero delta, so their row-0 index adds
+    nothing."""
     points, codes, lengths = hs
     h = syn0[inputs]                                     # [B, D]
     p = points[targets]                                  # [B, L]
@@ -100,20 +115,32 @@ def hs_step(syn0: torch.Tensor, syn1: torch.Tensor,
     g = torch.where(dots.abs() < MAX_EXP, g, 0.0)
     dh = torch.einsum("bl,bld->bd", g, w)
     dw = g[:, :, None] * h[:, None, :]
-    syn0.index_add_(0, inputs, dh, alpha=lr)
-    syn1.index_add_(0, p.reshape(-1), dw.reshape(-1, h.shape[1]), alpha=lr)
+    return loss, ((inputs, dh),
+                  (p.reshape(-1), dw.reshape(-1, h.shape[1])))
+
+
+def hs_step(syn0: torch.Tensor, syn1: torch.Tensor,
+            hs: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+            inputs: torch.Tensor, targets: torch.Tensor, lr: float,
+            valid: torch.Tensor) -> torch.Tensor:
+    """One hierarchical-softmax step, in place on `syn0` and `syn1`;
+    returns the batch loss (a device scalar).  `lr` is a float32 value
+    (the caller rounds it)."""
+    loss, aux = hs_deltas(syn0, syn1, hs, inputs, targets, valid)
+    apply_deltas(syn0, syn1, lr, aux)
     return loss
 
 
-def neg_step(syn0: torch.Tensor, syn1neg: torch.Tensor,
-             inputs: torch.Tensor, targets: torch.Tensor,
-             negs: torch.Tensor, lr: float,
-             valid: torch.Tensor) -> torch.Tensor:
-    """One negative-sampling step with the given negatives `negs` [B, K]
-    (word indices), in place on `syn0` and `syn1neg`; returns the batch
-    loss.  A negative equal to its pair's target is masked out.  No
-    MAX_EXP clip: the reference's NEG loop clamps the sigmoid instead,
-    which the exact sigmoid matches asymptotically."""
+def neg_deltas(syn0: torch.Tensor, syn1neg: torch.Tensor,
+               inputs: torch.Tensor, targets: torch.Tensor,
+               negs: torch.Tensor, valid: torch.Tensor):
+    """The negative-sampling step's batch loss and its sparse pieces for
+    `apply_deltas`, with the given negatives `negs` [B, K] (word
+    indices); the output table's rows are the targets' first, then the
+    negatives', as the JAX step orders them.  A negative equal to its
+    pair's target is masked out.  No MAX_EXP clip: the reference's NEG
+    loop clamps the sigmoid instead, which the exact sigmoid matches
+    asymptotically."""
     h = syn0[inputs]                                     # [B, D]
     pos = syn1neg[targets]                               # [B, D]
     neg = syn1neg[negs]                                  # [B, K, D]
@@ -128,11 +155,18 @@ def neg_step(syn0: torch.Tensor, syn1neg: torch.Tensor,
     dh = g_pos[:, None] * pos + torch.einsum("bk,bkd->bd", g_neg, neg)
     dpos = g_pos[:, None] * h
     dneg = g_neg[:, :, None] * h[:, None, :]
-    syn0.index_add_(0, inputs, dh, alpha=lr)
-    # targets' rows first, then the negatives', as the JAX step orders them
-    syn1neg.index_add_(0, targets, dpos, alpha=lr)
-    syn1neg.index_add_(0, negs.reshape(-1), dneg.reshape(-1, h.shape[1]),
-                       alpha=lr)
+    return loss, ((inputs, dh), (targets, dpos),
+                  (negs.reshape(-1), dneg.reshape(-1, h.shape[1])))
+
+
+def neg_step(syn0: torch.Tensor, syn1neg: torch.Tensor,
+             inputs: torch.Tensor, targets: torch.Tensor,
+             negs: torch.Tensor, lr: float,
+             valid: torch.Tensor) -> torch.Tensor:
+    """One negative-sampling step, in place on `syn0` and `syn1neg`;
+    returns the batch loss."""
+    loss, aux = neg_deltas(syn0, syn1neg, inputs, targets, negs, valid)
+    apply_deltas(syn0, syn1neg, lr, aux)
     return loss
 
 
@@ -148,7 +182,7 @@ class Word2Vec(WordVectors):
     """Skip-gram word embeddings (reference Word2Vec.java defaults:
     layerSize 100, window 5, alpha .025, minLearningRate 1e-2*alpha,
     negative sampling off → hierarchical softmax on).  Trains on `device`
-    (the card unless ``device="cpu"``)."""
+    (the card unless ``device="cpu"``), over `mesh` when one is given."""
 
     def __init__(self,
                  vector_length: int = 100,
@@ -164,7 +198,9 @@ class Word2Vec(WordVectors):
                  tokenizer_factory: Optional[TokenizerFactory] = None,
                  mesh=None,
                  device: DeviceLike = None):
-        refuse_mesh(mesh, type(self).__name__)
+        self.mesh = mesh  # shard the pair batches over its first axis
+        if mesh is not None:
+            batch_size = round_batch_to_mesh(batch_size, mesh)
         self.vector_length = vector_length
         self.window = window
         self.learning_rate = learning_rate
@@ -226,10 +262,24 @@ class Word2Vec(WordVectors):
         return torch.Generator(device=self.device).manual_seed(seed)
 
     def _step(self, syn0, out, inputs, targets, lr, valid, gen):
+        """One step in place on the tables, over the mesh when there is
+        one; returns its loss."""
         if self.negative > 0:
-            return neg_step(syn0, out, inputs, targets,
-                            self._negatives(gen, inputs.shape[0]), lr, valid)
-        return hs_step(syn0, out, self._hs, inputs, targets, lr, valid)
+            step = sparse_allgather_step(
+                self.mesh,
+                lambda s0, s1, _lr, i, t, v, ng: neg_deltas(s0, s1, i, t,
+                                                            ng, v),
+                apply_deltas, n_state=2, n_scalar=1, n_sharded=4)
+            *_, loss = step(syn0, out, lr, inputs, targets, valid,
+                            self._negatives(gen, inputs.shape[0]))
+            return loss
+        step = sparse_allgather_step(
+            self.mesh,
+            lambda s0, s1, _lr, i, t, v: hs_deltas(
+                s0, s1, tuple(a.to(s0.device) for a in self._hs), i, t, v),
+            apply_deltas, n_state=2, n_scalar=1, n_sharded=3)
+        *_, loss = step(syn0, out, lr, inputs, targets, valid)
+        return loss
 
     def _tables_to_device(self):
         """Copies of syn0 and the output table (syn1 for HS, syn1neg for

@@ -1,10 +1,24 @@
 """Model and kernel modules of the port (counterpart of
 `deeplearning4j_tpu.parallel`): the transformer, its hand-written
-attention kernels, training steps and whole-sequence decoding.  The
-JAX package's mesh names (`make_mesh`, `DataParallelTrainer`,
-`PartitionSpec`, the sharding helpers) are multi-device work, ROADMAP.md
-queue A7."""
+attention kernels, training steps, whole-sequence decoding, and the
+data-parallel plane — the device mesh, the partition vocabulary and
+`DataParallelTrainer`.  The hybrid, pipeline and ring-attention mesh
+trainers are ROADMAP.md queue A7 part 2."""
 
+from deeplearning4j_tpu_torch.parallel.data_parallel import (
+    DataParallelTrainer,
+)
 from deeplearning4j_tpu_torch.parallel.generation import beam_search, generate
+from deeplearning4j_tpu_torch.parallel.mesh import make_mesh
+from deeplearning4j_tpu_torch.parallel.partition import (
+    PartitionSpec,
+    gather_tree,
+    replicated,
+    reshard,
+    shard_tree,
+    sharded,
+)
 
-__all__ = ["generate", "beam_search"]
+__all__ = ["make_mesh", "DataParallelTrainer", "generate", "beam_search",
+           "PartitionSpec", "replicated", "sharded", "reshard",
+           "shard_tree", "gather_tree"]

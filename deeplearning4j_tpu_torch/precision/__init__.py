@@ -13,9 +13,8 @@
   (`QuantizedNet`).
 - byte accounting (`param_bytes`, `train_state_bytes`,
   `activation_bytes`).
-
-The JAX package's `shard_update_finite` (the data-parallel overflow
-verdict) waits for the multi-device trainers (ROADMAP.md, queue A7).
+- `shard_update_finite` — the data-parallel trainer's one overflow
+  verdict for every shard.
 """
 
 from deeplearning4j_tpu_torch.precision.loss_scale import (  # noqa: F401
@@ -23,6 +22,7 @@ from deeplearning4j_tpu_torch.precision.loss_scale import (  # noqa: F401
     LossScaleConfig,
     grads_finite,
     init_scaler_state,
+    shard_update_finite,
     unscale_grads,
     update_scaler_state,
     where_tree,
@@ -50,7 +50,8 @@ __all__ = [
     "PrecisionPolicy", "resolve_policy", "cast_floating", "default_dtype",
     "param_bytes", "train_state_bytes", "activation_bytes", "tree_bytes",
     "LossScaleConfig", "DynamicLossScaler", "init_scaler_state",
-    "grads_finite", "unscale_grads", "update_scaler_state", "where_tree",
+    "grads_finite", "shard_update_finite", "unscale_grads",
+    "update_scaler_state", "where_tree",
     "QuantizedNet", "quantize_symmetric", "dequantize", "int8_dense",
     "int8_conv", "quantize_net_params",
 ]

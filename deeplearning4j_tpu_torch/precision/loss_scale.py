@@ -20,14 +20,13 @@ The state is ``{scale, good_steps, overflow_count}``, 0-d tensors on the
 training device, and every transition is `torch.where` arithmetic on
 them: no step reads the state back to the host (the JAX package keeps
 it inside its jitted step for the same reason).  `shard_update_finite`
-(the data-parallel verdict) is not ported here; it belongs with the
-multi-device trainers (ROADMAP.md, queue A7).
+is the data-parallel trainer's verdict: one answer for every shard.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Sequence, Tuple
 
 import torch
 
@@ -86,6 +85,22 @@ def grads_finite(grads: Tree) -> torch.Tensor:
         return torch.ones((), dtype=torch.bool)
     return torch.stack([torch.isfinite(g.float()).all()
                         for g in leaves]).all()
+
+
+def shard_update_finite(g_shards: Sequence[torch.Tensor],
+                        loss: torch.Tensor) -> torch.Tensor:
+    """The lockstep verdict of the ZeRO-1 step: each shard holds only its
+    slice of the flat gradient, so a local check would let one shard skip
+    while another steps.  The non-finite count of every slice (in
+    float32), summed in shard order on the loss's device, must be 0, and
+    the (already reduced) loss finite: one 0-d bool for all shards,
+    computed on the device with no host read."""
+    dev = loss.device
+    bad = [torch.sum(~torch.isfinite(g.float())).to(dev) for g in g_shards]
+    total = bad[0]
+    for b in bad[1:]:
+        total = total + b
+    return torch.logical_and(total == 0, torch.isfinite(loss))
 
 
 def unscale_grads(grads: Tree, scale: torch.Tensor) -> Tree:
@@ -155,5 +170,5 @@ class DynamicLossScaler:
 
 
 __all__ = ["DynamicLossScaler", "LossScaleConfig", "grads_finite",
-           "init_scaler_state", "unscale_grads", "update_scaler_state",
-           "where_tree"]
+           "init_scaler_state", "shard_update_finite", "unscale_grads",
+           "update_scaler_state", "where_tree"]

@@ -176,15 +176,6 @@ def activation_bytes(net, x, mask=None) -> int:
     return sum(a.numel() * itemsize for a in net.feed_forward(x, mask))
 
 
-def padded_extent(size: int, n: int) -> int:
-    """Smallest multiple of `n` >= `size` (the per-shard extent is
-    ``padded_extent(size, n) // n``; the JAX package's
-    `parallel.partition.padded_extent`)."""
-    if n <= 0:
-        raise ValueError(f"shard count must be >= 1, got {n}")
-    return ((int(size) + n - 1) // n) * n
-
-
 def train_state_bytes(net, x=None, mask=None, shards: int = 1) -> int:
     """The steady-state per-replica training-memory model of one step:
 
@@ -196,6 +187,8 @@ def train_state_bytes(net, x=None, mask=None, shards: int = 1) -> int:
     gradients count at their padded 1/N extent, scalar leaves (step
     counters) stay whole, activations never shard.  A model of what the
     step holds, not a measurement of an allocator."""
+    from deeplearning4j_tpu_torch.parallel.partition import padded_extent
+
     params = net.params if net.params is not None else []
     n_params = sum(a.numel() for a in tree_leaves(params))
     shards = max(1, int(shards))
@@ -207,8 +200,14 @@ def train_state_bytes(net, x=None, mask=None, shards: int = 1) -> int:
         return int(round(num_bytes * per / n_elems))
 
     total = frac(tree_bytes(params), n_params)
-    if net.updater_state is not None:
-        for leaf in tree_leaves(net.updater_state):
+    upd = net.updater_state
+    if upd is None and getattr(net, "_updater_state_owner", None):
+        # a live ZeRO-1 trainer holds the moments: publish a per-layer
+        # view so the accounting sees them
+        net._updater_state_owner.sync_updater_state_to_net()
+        upd = net.updater_state
+    if upd is not None:
+        for leaf in tree_leaves(upd):
             n = leaf.numel() if isinstance(leaf, torch.Tensor) \
                 else int(np.size(leaf))
             b = _leaf_bytes(leaf)
@@ -239,5 +238,5 @@ def default_dtype(obj=None) -> torch.dtype:
 
 
 __all__ = ["PrecisionPolicy", "activation_bytes", "cast_floating",
-           "default_dtype", "dtype_of", "padded_extent", "param_bytes",
+           "default_dtype", "dtype_of", "param_bytes",
            "resolve_policy", "train_state_bytes", "tree_bytes"]

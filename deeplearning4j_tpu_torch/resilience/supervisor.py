@@ -2,9 +2,8 @@
 (counterpart of `deeplearning4j_tpu.resilience.supervisor`).
 
 Wraps an object exposing ``fit_batch(x, y, mask)`` + ``restore_train_state``
-(the port's single-device `MultiLayerNetwork`; supervising the
-data-parallel trainers is multi-device work, ROADMAP.md A7) and provides
-the recovery policies the bare training loops deliberately do not have:
+(`MultiLayerNetwork`, `DataParallelTrainer`) and provides the recovery
+policies the bare training loops deliberately do not have:
 
 - poison-batch skipping: host-side finiteness check on each incoming batch
   BEFORE the step runs (a NaN input would poison the parameters — the
@@ -182,10 +181,24 @@ class TrainingSupervisor:
 
     # ---- checkpointing -----------------------------------------------------
 
+    def _published_updater_state(self):
+        from deeplearning4j_tpu_torch.runtime.checkpoint import (
+            published_updater_state,
+        )
+
+        return (published_updater_state(self.net)
+                if self.config.save_updater else None)
+
     def checkpoint(self, score: Optional[float] = None,
                    extra: Optional[dict] = None) -> None:
         from deeplearning4j_tpu_torch.runtime.checkpoint import save_checkpoint
 
+        # runners that carry training state outside the net (local-SGD
+        # replicas, sharded optimizer moments) publish a current snapshot
+        # first: net.params alone can be stale mid-sync-window
+        publish = getattr(self.runner, "publish_train_state", None)
+        if callable(publish):
+            publish()
         merged = {"lr_scale": float(self.net._lr_scale),
                   "batches_consumed": int(self.batches_consumed),
                   **(extra or {})}
@@ -195,14 +208,23 @@ class TrainingSupervisor:
             # rate, loss-scale events and the intervention ledger
             # survive the pod with the checkpoint
             merged["telemetry"] = self.telemetry.snapshot()
+        # a runner that knows its replica layout
+        # (DataParallelTrainer.checkpoint_partition) gets sharded
+        # snapshots: one shard file a replica and the partition spec in
+        # the manifest, so a restore lands on any replica count
+        spec = shards = None
+        part = getattr(self.runner, "checkpoint_partition", None)
+        if callable(part):
+            info = part()
+            spec, shards = info.get("spec"), info.get("shards")
         save_checkpoint(
             self._dir, self.step, self.net.params,
-            updater_state=(self.net.updater_state
-                           if self.config.save_updater else None),
+            updater_state=self._published_updater_state(),
             net_state=getattr(self.net, "state", None),
             extra=merged,
             keep=self.config.keep, score=score,
-            keep_best=self.config.keep_best)
+            keep_best=self.config.keep_best,
+            spec=spec, shards=shards)
 
     def resume(self, directory: Optional[os.PathLike] = None) -> bool:
         """Restore the newest GOOD committed checkpoint (params, updater
@@ -212,8 +234,10 @@ class TrainingSupervisor:
         logged reason and the previous good step restores instead
         (`load_checkpoint`'s fallback ladder); when EVERY committed step
         is corrupt the typed `CheckpointCorruptError` propagates —
-        silently starting fresh would retrain the run.  Any shard count
-        the JAX package writes loads.  `directory` overrides the configured
+        silently starting fresh would retrain the run.  The restored
+        topology need not match this runner's replica count: the
+        full-tree restore re-adopts into whatever mesh the runner holds
+        (elastic N→M restart).  `directory` overrides the configured
         checkpoint dir (e.g. resuming a dead fleet member's snapshots).
         Returns False when the directory has no committed checkpoint
         yet."""
@@ -388,8 +412,9 @@ class TrainingSupervisor:
     # ---- fused-chunk supervision -------------------------------------------
 
     def _supports_chunks(self) -> bool:
-        """A runner takes the fused-chunk path only when it has
-        `fit_chunk_async` and syncs every step."""
+        """A runner takes the fused-chunk path only when its
+        `fit_chunk_async` works: `DataParallelTrainer` has the method in
+        every mode but refuses it for local SGD."""
         return (hasattr(self.runner, "fit_chunk_async")
                 and getattr(self.runner, "sync_every", 1) == 1)
 
@@ -398,6 +423,10 @@ class TrainingSupervisor:
         pre-chunk rollback anchor, cloned on their device.  Copies are
         required, not references: the chunk's steps update the tensors
         in place."""
+        publish = getattr(self.runner, "publish_train_state", None)
+        if callable(publish):
+            publish()
+
         def copy(tree):
             return (None if tree is None else map_tree(
                 lambda a: (a.detach().clone()
@@ -577,14 +606,16 @@ class TrainingSupervisor:
         run in fused multi-step chunks — one host sync per chunk, health
         checks on the per-step loss/grad-norm vectors, faults replayed at
         per-step granularity (see ``_run_chunked``); requires a runner
-        with ``fit_chunk_async`` (`MultiLayerNetwork`).
+        with ``fit_chunk_async`` (`MultiLayerNetwork`, plain-sync
+        `DataParallelTrainer`).
         """
         k = chunk_size if chunk_size is not None else self.config.chunk_size
         if k > 1 and self._supports_chunks():
             return self._run_chunked(data, int(k), max_steps)
         if k > 1:
             log.warning(
-                "chunk_size=%s requested but %s has no fused chunk path; "
+                "chunk_size=%s requested but %s has no fused chunk path "
+                "(local-SGD trainers carry per-replica state); "
                 "supervising per-step", k,
                 type(self.runner).__name__)
         if not self._has_checkpoint():

@@ -46,6 +46,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.parallel import partition
 from deeplearning4j_tpu_torch.tree import KEYPATH_SEP, flatten_tree, map_tree
 
 PyTree = Any
@@ -218,6 +219,18 @@ def read_lm_npz(path: os.PathLike, cfg) -> dict:
     return _fill(shapes, flat, lambda a, _: np.asarray(a, np.float32))
 
 
+def published_updater_state(net):
+    """The network's updater state, published first by a live ZeRO-1
+    trainer: `DataParallelTrainer` owns the sharded moments while it runs
+    and clears ``net.updater_state``, registering itself as
+    ``net._updater_state_owner``; every save path reads through here, so
+    a mid-run save keeps the trained moments without a `finalize`."""
+    owner = getattr(net, "_updater_state_owner", None)
+    if owner is not None:
+        owner.sync_updater_state_to_net()
+    return getattr(net, "updater_state", None)
+
+
 def save_model(net, directory: os.PathLike, *, save_updater: bool = False
                ) -> pathlib.Path:
     """Write `conf.json` + `params.npz` (+ `updater.npz` when
@@ -226,8 +239,9 @@ def save_model(net, directory: os.PathLike, *, save_updater: bool = False
     directory.mkdir(parents=True, exist_ok=True)
     (directory / "conf.json").write_text(net.conf.to_json())
     tree_to_npz(directory / "params.npz", net.params)
-    if save_updater and net.updater_state is not None:
-        tree_to_npz(directory / "updater.npz", net.updater_state)
+    upd = published_updater_state(net) if save_updater else None
+    if upd is not None:
+        tree_to_npz(directory / "updater.npz", upd)
     policy = net.precision
     meta = {"format": 1, "num_params": int(net.num_params()),
             "saved_at": time.strftime("%Y-%m-%dT%H:%M:%S"),
@@ -330,7 +344,7 @@ def load_params(net, path: os.PathLike, mode: str = "binary") -> None:
 #
 # The sharded v2 format with two-phase atomic commit.  The JAX package's
 # multi-host writer (per-host shard files with COMMIT barriers) is
-# multi-device work and is refused here (ROADMAP.md, A7); its v1
+# multi-process work and is refused here (ROADMAP.md, A7 part 3); its v1
 # single-host checkpoints (``params.proc00000.npz``) still load.
 
 def _process_count() -> int:
@@ -348,7 +362,7 @@ def _refuse_multi_host(what: str) -> None:
     if n > 1:
         raise NotImplementedError(
             f"{what}: multi-host checkpoints ({n} processes) are not "
-            f"ported (ROADMAP.md, queue A7, 'Multi-device')")
+            f"ported (ROADMAP.md, queue A7 part 3, 'Multi-process')")
 
 
 # the v1 single-host checkpoint's shard-file suffix (process 0)
@@ -401,41 +415,6 @@ def _file_sha256(path: os.PathLike) -> str:
     return h.hexdigest()
 
 
-def _padded_extent(size: int, n: int) -> int:
-    """Smallest multiple of `n` >= `size`."""
-    if n <= 0:
-        raise ValueError(f"shard count must be >= 1, got {n}")
-    return ((int(size) + n - 1) // n) * n
-
-
-def _split_leaf(arr: np.ndarray, n: int, dim: int = 0) -> List[np.ndarray]:
-    """`arr` in `n` equal pieces along `dim`, the remainder zero-padded
-    (the JAX package's `parallel.partition.split_leaf`); `_join_leaf`
-    with the true size is the exact inverse."""
-    size = arr.shape[dim]
-    total = _padded_extent(size, n)
-    if total != size:
-        pad = [(0, 0)] * arr.ndim
-        pad[dim] = (0, total - size)
-        arr = np.pad(arr, pad)
-    return [np.ascontiguousarray(piece)
-            for piece in np.split(arr, n, axis=dim)]
-
-
-def _join_leaf(shards, dim: int = 0, size: Optional[int] = None
-               ) -> np.ndarray:
-    """Concatenate shards along `dim` and strip the padding down to the
-    true `size`."""
-    full = np.concatenate([np.asarray(s) for s in shards], axis=dim)
-    if size is not None and full.shape[dim] != size:
-        if full.shape[dim] < size:
-            raise ValueError(
-                f"shards join to extent {full.shape[dim]} along dim "
-                f"{dim}, smaller than the recorded size {size}")
-        full = np.take(full, np.arange(int(size)), axis=dim)
-    return full
-
-
 def _split_flat(flat: Dict[str, np.ndarray], n: int):
     """Split a flat keypath->array dict into `n` per-replica shard dicts
     (dim-0, padded-remainder) plus the per-leaf metadata the manifest
@@ -448,7 +427,7 @@ def _split_flat(flat: Dict[str, np.ndarray], n: int):
             dim = None
         else:
             dim = 0
-            for i, piece in enumerate(_split_leaf(arr, n, dim)):
+            for i, piece in enumerate(partition.split_leaf(arr, n, dim)):
                 shards[i][key] = piece
         leaves[key] = {"shape": [int(s) for s in arr.shape],
                        "dtype": str(arr.dtype), "dim": dim}
@@ -545,18 +524,32 @@ def sweep_orphans(directory: os.PathLike,
     return removed
 
 
+def _spec_as_tree_map(spec) -> Dict[str, Any]:
+    """`save_checkpoint`'s `spec` as a {tree_name: spec} map: a dict keyed
+    by tree names maps through; anything else is the params tree's."""
+    if spec is None:
+        return {}
+    if isinstance(spec, dict) and spec and set(spec) <= {"params",
+                                                         "updater",
+                                                         "state"}:
+        return dict(spec)
+    return {"params": spec}
+
+
 def save_checkpoint(directory: os.PathLike, step: int, params: PyTree,
                     updater_state: Optional[PyTree] = None,
                     extra: Optional[dict] = None,
                     keep: int = 3, score: Optional[float] = None,
                     keep_best: bool = True,
                     net_state: Optional[PyTree] = None,
-                    shards: Optional[int] = None) -> pathlib.Path:
+                    spec=None, shards: Optional[int] = None
+                    ) -> pathlib.Path:
     """Write checkpoint `step` under `directory/ckpt-{step}/` as a
     sharded snapshot: each tree (params / updater / net state) split
     into `shards` per-replica files (dim 0, the remainder padded) plus a
-    `MANIFEST.json` recording the topology, per-shard SHA-256s and the
-    step — the JAX package's layout, so either package loads the
+    `MANIFEST.json` recording the topology, per-shard SHA-256s, the
+    partition `spec` (`parallel/partition.py`: how each leaf relates to
+    the replica axis) and the step — the JAX package's layout, so either package loads the
     other's checkpoints.  The write is two-phase: staged in a
     `.tmp-ckpt-*` dir, fsync'd, COMMIT-marked, then atomically renamed
     into place, so a kill -9 at any point leaves the previous
@@ -568,7 +561,7 @@ def save_checkpoint(directory: os.PathLike, step: int, params: PyTree,
     non-parameter layer state (batch-norm running stats) — the
     resilience supervisor saves it so rollback/resume can't revive
     poisoned or stale statistics.  A multi-process job is refused
-    (ROADMAP.md, A7)."""
+    (ROADMAP.md, A7 part 3)."""
     _refuse_multi_host("save_checkpoint")
     directory = pathlib.Path(directory)
     ckpt = directory / f"ckpt-{step}"
@@ -585,7 +578,8 @@ def save_checkpoint(directory: os.PathLike, step: int, params: PyTree,
             "format": 2, "step": int(step),
             "topology": {"shards": n, "processes": 1},
             "trees": {}, "files": {},
-            "partition": {},
+            "partition": {name: partition.spec_to_json(sp)
+                          for name, sp in _spec_as_tree_map(spec).items()},
             "saved_at": time.strftime("%Y-%m-%dT%H:%M:%S"),
         }
         trees = {"params": params}
@@ -932,7 +926,7 @@ def _join_tree_v2(ckpt: pathlib.Path, manifest: dict, name: str,
                 full[key] = shard_arrays[0][key]
             else:
                 pieces = [sd[key] for sd in shard_arrays]
-                full[key] = _join_leaf(
+                full[key] = partition.join_leaf(
                     pieces, lm["dim"], lm["shape"][lm["dim"]])
         except KeyError as e:
             raise CheckpointCorruptError(
@@ -1076,13 +1070,14 @@ def resume_train_state(directory: os.PathLike, runner,
                        with_extra: bool = False):
     """Restore the newest GOOD checkpoint under `directory` into any
     runner exposing ``restore_train_state(step, params, updater_state,
-    net_state)`` (`MultiLayerNetwork`) — the ONE implementation of the
-    load / settle-on-a-step / net_state / restore sequence (the CLI's
-    `-resume` and `TrainingSupervisor.resume`/`_rollback` delegate
-    here).  Corrupt steps are skipped for the previous good one; a
+    net_state)`` (`MultiLayerNetwork`, `DataParallelTrainer`) — the ONE
+    implementation of the load / settle-on-a-step / net_state / restore
+    sequence (`DataParallelTrainer.resume`, the CLI's `-resume` and
+    `TrainingSupervisor.resume`/`_rollback` delegate here).  Corrupt steps are skipped for the previous good one; a
     checkpoint carrying no updater state restores FRESH moments
     (keeping the live ones would re-poison clean restored params the
-    moment a NaN step's momentum applies); any saved shard count loads.
+    moment a NaN step's momentum applies); any saved shard count loads
+    onto any replica count (elastic N→M).
     Returns the
     restored step (or `(step, extra)` with ``with_extra=True`` so a
     supervisor can layer lr_scale/stream bookkeeping on top), or None
@@ -1160,7 +1155,7 @@ class CheckpointListener:
     def iteration_done(self, model, iteration: int, score: float) -> None:
         if iteration % self.every != 0:
             return
-        upd = model.updater_state if self.save_updater else None
+        upd = published_updater_state(model) if self.save_updater else None
         save_checkpoint(self.directory, iteration, model.params,
                         updater_state=upd, extra={"score": float(score)},
                         keep=self.keep, score=float(score))
@@ -1241,7 +1236,8 @@ class AsyncCheckpointListener(CheckpointListener):
                 lambda a: (a.detach().clone()
                            if isinstance(a, torch.Tensor) else a), tree)
 
-        upd = snap(model.updater_state) if self.save_updater else None
+        upd = (snap(published_updater_state(model)) if self.save_updater
+               else None)
         self._queue.put((iteration, snap(model.params), upd, score))
 
     def close(self) -> None:

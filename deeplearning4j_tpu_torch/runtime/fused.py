@@ -12,7 +12,8 @@
   trains, and the runner's `fit_chunk_async`.
 - the runner protocol: any object with ``fit_chunk_async(xs, ys, masks,
   weights, unroll) -> (losses, grad_norms)`` and ``stage_chunk(chunk)``;
-  `MultiLayerNetwork` implements it.
+  `MultiLayerNetwork` and the synchronous `DataParallelTrainer`
+  implement it (the trainer cuts each step's batch over its shards).
 
 In the JAX package a chunk is one `lax.scan` program.  In the port it is
 K eager steps of the same per-step code, each with the per-iteration

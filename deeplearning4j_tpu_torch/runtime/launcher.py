@@ -14,7 +14,7 @@
 
 The JAX module's `initialize_multihost` (a ``jax.distributed`` call) and
 `TpuPodProvisioner` (gcloud TPU commands) are multi-host work and are not
-ported (ROADMAP.md, A7).
+ported (ROADMAP.md, A7 part 3).
 """
 
 from __future__ import annotations

@@ -18,7 +18,7 @@ helper on its `datasets/fetchers.py`, so a training job points a
 checkpoint at `gs://bucket/run42` as it would at a local path.  A
 multi-process job's remote checkpoint (per-host shards, COMMIT uploaded
 after a barrier) is refused, as the local writer refuses it (ROADMAP.md,
-A7).
+A7 part 3).
 """
 
 from __future__ import annotations

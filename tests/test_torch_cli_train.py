@@ -139,15 +139,22 @@ def test_train_reads_svmlight_and_pretrains_a_pretrain_conf(tmp_path):
                                rtol=1e-6)
 
 
-@pytest.mark.parametrize("flags,queue", [
-    (["-runtime", "spmd"], "A7"), (["-replicas", "2"], "A7"),
-    (["-sync-every", "4"], "A7")],
+@pytest.mark.parametrize("flags,line", [
+    (["-runtime", "spmd"], "Trained 2 epochs"),
+    (["-replicas", "2"], "-replicas is an spmd-runtime flag; ignored"),
+    (["-sync-every", "4"], "Trained 2 epochs")],
     ids=lambda v: v if isinstance(v, str) else " ".join(v))
-def test_unported_train_flags_exit_naming_their_queue(flags, queue,
-                                                      csv_file):
-    with pytest.raises(SystemExit, match=f"queue {queue}"):
-        cli.main(["train", "-input", str(csv_file), "-model",
-                  "zoo:iris-mlp", "-device", "cpu"] + flags)
+def test_unported_train_flags_exit_naming_their_queue(flags, line,
+                                                      csv_file, tmp_path):
+    """The multi-device flags (refused until slice 18, ROADMAP A7 part 1)
+    now run: `-runtime spmd` on one host shard, `-replicas` alone is
+    ignored under the local runtime with the JAX CLI's note, and
+    `-sync-every` alone changes nothing there."""
+    rc, text = _run(["train", "-input", str(csv_file), "-model",
+                     "zoo:iris-mlp", "-device", "cpu", "-epochs", "2",
+                     "-output", str(tmp_path / "out")] + flags)
+    assert rc == 0, text
+    assert line in text
 
 
 @pytest.mark.parametrize("flags", [
@@ -168,9 +175,16 @@ def test_resilience_train_flags_run(flags, csv_file, tmp_path,
 
 
 def test_unported_train_properties_exit_too(csv_file, tmp_path):
+    """The JAX CLI's spmd properties are read, as its flags are."""
     props = tmp_path / "train.props"
-    props.write_text("# the JAX CLI's keys\ntrain.sync.every=4\n")
-    with pytest.raises(SystemExit, match="queue A7"):
-        cli.main(["train", "-input", str(csv_file), "-model",
-                  "zoo:iris-mlp", "-conf", str(props), "-device", "cpu"])
-    assert cli.load_properties(str(props)) == {"train.sync.every": "4"}
+    props.write_text("# the JAX CLI's keys\ntrain.sync.every=4\n"
+                     "train.shard.update=off\n")
+    rc, text = _run(["train", "-input", str(csv_file), "-model",
+                     "zoo:iris-mlp", "-conf", str(props), "-device", "cpu",
+                     "-runtime", "spmd", "-replicas", "2", "-epochs", "2",
+                     "-output", str(tmp_path / "out")])
+    assert rc == 0, text
+    assert "spmd: local-SGD mode, averaging every 4 steps" in text
+    assert "spmd: -shard-update off" in text
+    assert cli.load_properties(str(props)) == {"train.sync.every": "4",
+                                               "train.shard.update": "off"}

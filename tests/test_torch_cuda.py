@@ -28,7 +28,10 @@ under HF's names imported onto the card and served through the paged
 kernel, the flash backward kernels bitwise across two calls, a remote
 checkpoint of a card network bitwise, and `device_memory_stats`.  The
 scaleout plane: a `NetworkPerformer` on the card publishes host numpy
-copies and launches the LSTM kernel once a job.
+copies and launches the LSTM kernel once a job.  Data parallelism: a
+4-shard mesh over card 0 (ZeRO-1 = replicated bitwise, the LSTM kernel
+once a layer, shard and step, an overflow on one shard skipped on all)
+and the CLI's ``-replicas`` check against the cards present.
 
 Every test carries the ``cuda`` marker and decides inside the test
 whether a card is present, skipping with a reason when not (the kernels
@@ -2325,3 +2328,156 @@ def test_scaleout_performers_refuse_to_run_without_a_card(monkeypatch):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             cls(vector_length=8)
     assert NetworkPerformer(conf_json, device="cpu").net.device.type == "cpu"
+
+
+# ---- data parallelism: a 4-shard mesh over card 0 ------------------------
+
+def _dp(conf, n=4, **kw):
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel import (
+        DataParallelTrainer,
+        make_mesh,
+    )
+
+    net = MultiLayerNetwork(conf).init()
+    mesh = make_mesh((n,), ("data",), devices=[torch.device("cuda", 0)] * n)
+    return net, DataParallelTrainer(net, mesh=mesh, **kw)
+
+
+def _char_batch(b=16, t=12, v=20, seed=0):
+    rng = np.random.default_rng(seed)
+    eye = np.eye(v, dtype=np.float32)
+    ids = rng.integers(0, v, (b, t))
+    return (torch.from_numpy(eye[ids]).cuda(),
+            torch.from_numpy(eye[np.roll(ids, -1, axis=1)]).cuda())
+
+
+def _flat_tree(tree):
+    from deeplearning4j_tpu_torch.tree import flatten_tree
+
+    return {k: v.detach().float().cpu() for k, v in
+            flatten_tree(tree).items()}
+
+
+def test_dp_zero1_equals_replicated_bitwise_on_the_card(no_tf32):
+    """float32 char-LSTM on 4 shards of card 0, 4 Adam steps: the ZeRO-1
+    plane and ``shard_update=False`` agree on parameters and moments
+    bitwise (one reduction order, elementwise updates)."""
+    _need_card()
+    from deeplearning4j_tpu_torch.models import char_lstm
+
+    x, y = _char_batch()
+    runs = []
+    for shard in (True, False):
+        net, tr = _dp(char_lstm(vocab_size=20, hidden=32),
+                      shard_update=shard)
+        losses = [tr.fit_batch(x, y) for _ in range(4)]
+        tr.publish_train_state()
+        runs.append((losses, _flat_tree(net.params),
+                     _flat_tree(net.updater_state)))
+    (la, pa, ua), (lb, pb, ub) = runs
+    assert la == lb
+    for a, b in ((pa, pb), (ua, ub)):
+        assert set(a) == set(b)
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+
+
+def test_dp_launches_b5_once_a_layer_shard_and_step():
+    _need_card()
+    from deeplearning4j_tpu_torch.models import char_lstm
+    from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
+
+    net, tr = _dp(char_lstm(vocab_size=20, hidden=32,
+                            compute_dtype="bfloat16"))
+    x, y = _char_batch()
+    tr.fit_batch(x, y)
+    lk.fused_lstm_forward.launches.reset()
+    losses = [tr.fit_batch(x, y) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert lk.fused_lstm_forward.launches.value == 1 * 4 * 3
+    assert all(math.isfinite(v) for v in losses)
+
+
+def test_dp_overflow_on_one_shard_skips_every_shard_on_the_card():
+    """"mixed": a batch infinite in shard 0's rows only leaves parameters
+    and moments bitwise, halves the scale and counts one overflow."""
+    _need_card()
+    from deeplearning4j_tpu_torch.models import char_lstm
+
+    net, tr = _dp(char_lstm(vocab_size=20, hidden=32))
+    net.set_precision("mixed")
+    x, y = _char_batch()
+    tr.fit_batch(x, y)
+    tr.publish_train_state()
+    p0, u0 = _flat_tree(net.params), _flat_tree(net.updater_state)
+    s0 = net.scaler_stats()
+    bad = x.clone()
+    bad[1, 3, 0] = float("inf")   # row 1 lies in shard 0 of 4
+    tr.fit_batch(bad, y)
+    tr.publish_train_state()
+    p1, u1 = _flat_tree(net.params), _flat_tree(net.updater_state)
+    assert all(torch.equal(p0[k], p1[k]) for k in p0)
+    assert all(torch.equal(u0[k], u1[k]) for k in u0)
+    s1 = net.scaler_stats()
+    assert s1["scale"] == s0["scale"] / 2
+    assert s1["overflow_count"] == s0["overflow_count"] + 1
+    assert math.isfinite(tr.fit_batch(x, y))
+
+
+def test_dp_inf_in_one_gradient_slice_skips_every_shard_on_the_card():
+    """"mixed": a finite loss with one inf planted in the last shard's
+    slice of the reduced gradient, which only the non-finite count over
+    the slices sees: parameters and moments bitwise, the scale halved,
+    one overflow."""
+    _need_card()
+    from deeplearning4j_tpu_torch.models import char_lstm
+
+    net, tr = _dp(char_lstm(vocab_size=20, hidden=32))
+    net.set_precision("mixed")
+    x, y = _char_batch()
+    tr.fit_batch(x, y)
+    tr.publish_train_state()
+    p0, u0 = _flat_tree(net.params), _flat_tree(net.updater_state)
+    s0 = net.scaler_stats()
+    plain = tr._shard_grads
+
+    def planted(*args, **kwargs):
+        pieces = plain(*args, **kwargs)
+        grads = pieces[1][2]
+        grads[-1] = grads[-1].clone()
+        grads[-1].view(-1)[-1] = float("inf")  # flat lane k0 - 1
+        return pieces
+
+    tr._shard_grads = planted
+    assert math.isfinite(tr.fit_batch(x, y))
+    del tr._shard_grads
+    tr.publish_train_state()
+    p1, u1 = _flat_tree(net.params), _flat_tree(net.updater_state)
+    assert all(torch.equal(p0[k], p1[k]) for k in p0)
+    assert all(torch.equal(u0[k], u1[k]) for k in u0)
+    s1 = net.scaler_stats()
+    assert s1["scale"] == s0["scale"] / 2
+    assert s1["overflow_count"] == s0["overflow_count"] + 1
+    assert math.isfinite(tr.fit_batch(x, y))
+
+
+def test_cli_spmd_refuses_more_replicas_than_cards(tmp_path, capsys):
+    """`-replicas` on cuda must lie in [1, device_count()], the check the
+    JAX CLI makes against its visible devices; a mesh may repeat a card
+    only when the caller lists it again."""
+    _need_card()
+    from deeplearning4j_tpu_torch import cli
+
+    n = torch.cuda.device_count()
+    rng = np.random.default_rng(0)
+    labels = np.arange(30) % 3
+    x = rng.standard_normal((30, 4)) * 0.3 + labels[:, None]
+    csv = tmp_path / "iris.csv"
+    np.savetxt(csv, np.column_stack([x, labels]), delimiter=",",
+               fmt="%.5f")
+    with pytest.raises(SystemExit, match=rf"-replicas must be in \[1, {n}\]"
+                       rf" \(visible devices\), got {n + 1}"):
+        cli.main(["train", "-input", str(csv), "-model", "zoo:iris-mlp",
+                  "-runtime", "spmd", "-replicas", str(n + 1),
+                  "-output", str(tmp_path / "out")])

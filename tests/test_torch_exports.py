@@ -1,4 +1,4 @@
-"""PyTorch port, slices 16-17: the package namespaces export what the JAX
+"""PyTorch port, slices 16-18: the package namespaces export what the JAX
 package's export (ROADMAP C1).
 
 For the top level (`__all__` and the lazy `_LAZY` table) and every
@@ -19,19 +19,13 @@ import deeplearning4j_tpu_torch
 from test_torch_threads import torch_two_threads  # noqa: F401 — autouse
 
 _A0 = "A0 (one program a step: the compile watcher's place)"
-_A7 = "A7 (multi-device)"
 
-# package -> {name: queue}
+# package -> {name: queue}; the data-parallel names landed in slice 18
+# (A7 part 1)
 UNPORTED = {
-    "deeplearning4j_tpu": {"DataParallelTrainer": _A7, "make_mesh": _A7},
     "deeplearning4j_tpu.obs": {"COMPILE_EVENT": _A0, "CompileWatcher": _A0,
                                "compile_scope": _A0,
                                "compile_watcher": _A0},
-    "deeplearning4j_tpu.parallel": {
-        n: _A7 for n in ("make_mesh", "DataParallelTrainer",
-                         "PartitionSpec", "replicated", "sharded",
-                         "reshard", "shard_tree", "gather_tree")},
-    "deeplearning4j_tpu.precision": {"shard_update_finite": _A7},
 }
 
 PACKAGES = ["deeplearning4j_tpu"] + sorted(
@@ -90,8 +84,14 @@ def test_named_imports_of_the_issue():
 
 @pytest.mark.parametrize("name", ["DataParallelTrainer", "make_mesh"])
 def test_unported_lazy_names_raise_naming_their_queue(name):
-    with pytest.raises(AttributeError, match="A7"):
-        getattr(deeplearning4j_tpu_torch, name)
+    """The multi-device lazy names (refused naming A7 until slice 18) now
+    resolve to the parallel namespace's objects; an unknown name still
+    raises."""
+    import deeplearning4j_tpu_torch.parallel as tparallel
+
+    assert getattr(deeplearning4j_tpu_torch, name) is getattr(tparallel,
+                                                               name)
+    assert name in dir(deeplearning4j_tpu_torch)
     with pytest.raises(AttributeError, match="no attribute 'nope'"):
         deeplearning4j_tpu_torch.nope
 

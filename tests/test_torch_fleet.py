@@ -382,7 +382,36 @@ def test_cli_serve_fleet_refusals(argv, message):
     assert message in str(info.value)
 
 
+def _pump(stream, lines, booted, pattern):
+    """Collect a child's output lines; set `booted` on the line matching
+    `pattern` (and at EOF, so a crashed child fails fast)."""
+    for line in stream:
+        lines.append(line)
+        if re.search(pattern, line):
+            booted.set()
+    booted.set()
+
+
+def _wait_ready(url, deadline_s):
+    """Poll the front's /readyz until it answers 200 (a warm replica in
+    rotation), or the deadline passes; returns the last status."""
+    end = time.monotonic() + deadline_s
+    code = None
+    while time.monotonic() < end:
+        code, _ = _get(url + "/readyz")
+        if code == 200:
+            break
+        time.sleep(0.1)
+    return code
+
+
 def test_cli_serve_fleet_boots_answers_and_drains(tmp_path):
+    # Every wait is bounded and names what it waited for: the boot line
+    # is read by a pump thread with a deadline (a wedged boot fails with
+    # the child's output instead of hanging the run), the request goes
+    # out once the front's /readyz reports a replica in rotation (the
+    # first health sweep races the boot line under a loaded host), and
+    # the drain's deadline failure carries the output too.
     stats = tmp_path / "fleet.json"
     env = dict(os.environ, PYTHONPATH=os.getcwd())
     proc = subprocess.Popen(
@@ -392,25 +421,31 @@ def test_cli_serve_fleet_boots_answers_and_drains(tmp_path):
          "-health-interval-s", "0.2", "-drain-stats", str(stats)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
     lines = []
+    booted = threading.Event()
+    pump = threading.Thread(target=_pump, daemon=True, args=(
+        proc.stdout, lines, booted, r"Serving fleet on (http://\S+)"))
+    pump.start()
     try:
-        url = None
-        for line in proc.stdout:
-            lines.append(line)
-            m = re.search(r"Serving fleet on (http://\S+)", line)
-            if m:
-                url = m.group(1)
-                break
-        assert url, "".join(lines)
+        assert booted.wait(240), "no boot line in 240 s:\n" + "".join(lines)
+        m = re.search(r"Serving fleet on (http://\S+)", "".join(lines))
+        assert m, "".join(lines)
+        url = m.group(1)
+        ready = _wait_ready(url, 120)
+        assert ready == 200, (ready, "".join(lines))
         code, _, body = _post(url + "/model/predict",
                               {"features": [[0.1, 0.2, 0.3, 0.4]] * 2})
         assert code == 200 and len(body["predictions"]) == 2
         proc.send_signal(signal.SIGTERM)
-        rest, _ = proc.communicate(timeout=60)
-        lines.append(rest)
+        try:
+            proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            pytest.fail("serve-fleet did not exit within 120 s of SIGTERM:\n"
+                        + "".join(lines))
+        pump.join(timeout=30)
     finally:
         if proc.poll() is None:
             proc.kill()
-            proc.communicate()
+            proc.wait()
     text = "".join(lines)
     assert proc.returncode == 0, text
     assert "serve-fleet: 2 warm replicas in rotation (replica-0, " \

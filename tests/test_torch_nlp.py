@@ -557,9 +557,15 @@ def test_entry_points_need_a_card_or_the_cpu_by_name(monkeypatch):
         tnlp.load_txt_vectors("never-read.txt")
     with pytest.raises(RuntimeError):
         tnlp.read_binary_model("never-read.bin")
+    # the default mesh is every card, so it needs one too; a host mesh is
+    # named device by device
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()
+    mesh = make_mesh(devices=["cpu"] * 4)
     for cls in (tnlp.Word2Vec, tnlp.Glove):
-        with pytest.raises(NotImplementedError, match="A7"):
-            cls(mesh=object(), **CPU)
+        assert cls(mesh=mesh, batch_size=10, **CPU).batch_size == 12
 
 
 def test_empty_vocabulary_and_corpus_errors():
