@@ -7,8 +7,10 @@ fleet in threads and in supervised worker processes, supervised,
 checkpointed training, the sentiment pipeline (the HMM tagger, the
 TreeParser, RNTN and the recursive autoencoder), KMeans and the
 host-only tail (model import, determinism checks, remote storage, the
-profiler, `ml`) and the scaleout control plane (master, workers, the TCP
-tracker, the performers) on one NVIDIA GPU and check them.
+profiler, `ml`), the scaleout control plane (master, workers, the TCP
+tracker, the performers), data parallelism and the LM mesh trainers
+(ring attention, tensor and expert parallelism, the GPipe pipeline) on
+one NVIDIA GPU and check them.
 
     python3 chip_smoke.py            # every phase, from the repo root
 
@@ -421,6 +423,32 @@ Phases (any failure exits non-zero, and no result line is printed):
              steps, losses finite).  Recorded ("4 shards on one card"):
              ms a step vs one device, examples/s, train state a
              replica, peak memory.
+26. mesh   — the LM mesh trainers, 4 shards on one card
+             (``devices=[cuda:0] * 4``): `HybridParallelTrainer` at
+             ``gpt2_small(max_len=1024)`` width (bf16 compute, f32
+             masters, Adam, 8 x 1024) on the (data 1, seq 2, model 2)
+             mesh `_lm_mesh_layout` picks for 4 devices, 2 + 3 steps at
+             lr 3e-4 beside the one-device step on the same batch:
+             losses finite and falling, flash launches a step B2 = (1 +
+             remat) L dp tp sp (sp + 1) / 2 = 144, B3 = B4 = 72; the
+             `PipelineParallelTrainer` on (data 1, stage 4), 2
+             microbatches: B2 = 2 L m = 48, B3 = B4 = 24; the moe
+             phase's config on (1, 2, 2), 2 steps, every dispatch over
+             the global tokens at the global capacity; float32, TF32
+             off: one SGD step of each trainer at batch 2 vs the
+             one-device step (loss within 1e-5 relative, each leaf's
+             change within 1e-3 of its largest change) and ZeRO-1 =
+             replicated bitwise on (2, 1, 2) and (2, 2) (2 layers, 3
+             Adam steps); `ring_flash_attention` over 4 seq shards vs
+             the one-device flash (B 2, S 1024, H 12, D 64; f32 within
+             1e-4, bf16 2e-2 relative; B2 = B3 = B4 = 10 causal, 16
+             not; device ms of forward + backward); ``cli lm -runtime
+             hybrid|pipeline`` on the visible card (the trivial mesh)
+             and ``python -m deeplearning4j_tpu_torch.dryrun 4`` GREEN.
+             Recorded ("4 shards on one card"): ms a step against the
+             one-device step (and the train phase's), the losses' largest
+             difference from the one-device step's, tokens/s, peak
+             memory, parameter bytes a shard.
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device time per
 call (`device_ms`: the calls are queued behind a spin kernel, so they run
@@ -463,7 +491,7 @@ PEAK_OPS = {"float32": 67e12,      # fp32 outside the tensor cores
 PHASES = ("kernel", "flash", "serve", "parity", "train", "lstm", "rnn",
           "decode", "mln", "precision", "moe", "mobility", "nlp", "ops",
           "classify", "fleet", "procfleet", "resilience", "sentiment",
-          "cluster", "tail", "scaleout", "dp")
+          "cluster", "tail", "scaleout", "dp", "mesh")
 # what the times of the kernels line measure
 TIMING_NOTE = {
     "ms": "device time per call: calls queued behind a spin kernel, run "
@@ -9720,6 +9748,553 @@ def dp_phase(card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the LM mesh trainers, 4 shards on one card
+
+MESH_SHARDS = 4
+MESH_WARMUP, MESH_STEPS = 2, 3
+MESH_MOE_STEPS = 2
+# Adam's rate for the full-width legs: at the train phase's 1e-3 the
+# one-device step itself rises on the fifth step on this one batch, so
+# a five-step "falling" check cannot hold; at 3e-4 every path falls
+MESH_LR = 3e-4
+MESH_PARITY_B = 2
+MESH_PARITY_LR = 1.0             # one SGD step: the change is -g exactly
+MESH_PARITY_LOSS_REL = 1e-5
+MESH_PARITY_LEAF_REL = 1e-3      # the train phase's bound
+MESH_ZERO_LAYERS, MESH_ZERO_STEPS = 2, 3
+MESH_RING_SHAPE = (2, 1024, 12, 64)
+MESH_RING_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+MESH_CLI_ARGS = ("-d-model", "64", "-layers", "4")
+
+
+def mesh_of(shape, names):
+    """A mesh of prod(shape) shards that all lie on card 0."""
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+
+    n = int(np.prod(shape))
+    return make_mesh(shape, names, devices=[torch.device("cuda", 0)] * n)
+
+
+def flash_counters() -> dict:
+    from deeplearning4j_tpu_torch.parallel import kernels as fk
+
+    return {"flash_fwd": fk.flash_forward.launches,
+            "flash_bwd_dkv": fk.flash_bwd_dkv.launches,
+            "flash_bwd_dq": fk.flash_bwd_dq.launches}
+
+
+def mesh_batch(cfg, b: int):
+    """The train phase's tokens (default_rng(3)), the first `b` rows."""
+    import torch
+
+    rng = np.random.default_rng(3)
+    data = torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1))).cuda()
+    return data[:b, :-1], data[:b, 1:]
+
+
+def mesh_train_leg(name: str, trainer, tokens, targets, want: dict) -> dict:
+    """`MESH_WARMUP` then `MESH_STEPS` timed steps on one batch: losses
+    finite and falling, the flash launches a timed step equal to
+    `want`."""
+    import torch
+
+    counters = flash_counters()
+    losses = [trainer.fit_batch(tokens, targets)
+              for _ in range(MESH_WARMUP)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.reset()
+    step_ms = []
+    t0 = time.perf_counter()
+    for _ in range(MESH_STEPS):
+        ts = time.perf_counter()
+        losses.append(trainer.fit_batch(tokens, targets))  # waits
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+    wall = time.perf_counter() - t0
+    per_step = {n: c.value / MESH_STEPS for n, c in counters.items()}
+    if per_step != want:
+        raise AssertionError(f"mesh {name}: flash launches a step "
+                             f"{per_step}, expected {want}")
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"mesh {name}: losses {losses}")
+    b, s = tokens.shape
+    return {"losses": losses, "warmup_steps": MESH_WARMUP,
+            "steps": MESH_STEPS, "step_ms": step_ms,
+            "step_ms_mean": wall * 1e3 / MESH_STEPS,
+            "tokens_per_s": b * s * MESH_STEPS / wall,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "launches_per_step": per_step}
+
+
+def hybrid_shard_bytes(trainer) -> dict:
+    """Parameter bytes a ``model`` shard: its slices of the split leaves,
+    and the replicated leaves every shard reads."""
+    from deeplearning4j_tpu_torch.tree import flatten_tree
+
+    specs = flatten_tree(trainer._pspecs)
+    split = [0] * trainer._grid.tp
+    replicated = 0
+    for key, t in flatten_tree(trainer.params).items():
+        size = t.numel() * t.element_size()
+        if key in specs:
+            replicated += size
+        else:
+            split[trainer._units[key][1]] += size
+    return {"split_by_model_shard": split, "replicated": replicated}
+
+
+def mesh_full_width(card: str, train) -> dict:
+    """Legs 1-2: the hybrid and the pipeline trainer at gpt2_small width,
+    bf16 compute, Adam, global batch 8 x 1024, the layouts
+    `_lm_mesh_layout` picks for 4 devices."""
+    import torch
+
+    from deeplearning4j_tpu_torch.cli import _lm_mesh_layout
+    from deeplearning4j_tpu_torch.parallel import transformer as tfm
+    from deeplearning4j_tpu_torch.parallel.hybrid import (
+        HybridParallelTrainer,
+        PipelineParallelTrainer,
+    )
+    from deeplearning4j_tpu_torch.tree import tree_leaves
+
+    cfg = tfm.gpt2_small(max_len=TRAIN_SEQ)
+    tree = tfm.numpy_params(cfg, seed=0)
+    tokens, targets = mesh_batch(cfg, TRAIN_BATCH)
+    L, remat = cfg.n_layers, int(cfg.remat)
+    out = {}
+    # the reference: the one-device step on the same batch, rate and
+    # steps (accum 1)
+    one = OneDeviceLM(cfg, tree)
+    out["one_device"] = mesh_train_leg(
+        "one device", one, tokens, targets,
+        {"flash_fwd": (1 + remat) * L, "flash_bwd_dkv": L,
+         "flash_bwd_dq": L})
+    del one
+    torch.cuda.empty_cache()
+    shape, b, _ = _lm_mesh_layout("hybrid", MESH_SHARDS, TRAIN_SEQ,
+                                  cfg.n_heads, cfg.n_layers, TRAIN_BATCH)
+    dp, sp, tp = shape
+    pairs = sp * (sp + 1) // 2
+    tr = HybridParallelTrainer(cfg, mesh_of(shape, ("data", "seq", "model")),
+                               lr=MESH_LR, updater="adam", params=tree)
+    want = {"flash_fwd": (1 + remat) * L * dp * tp * pairs,
+            "flash_bwd_dkv": L * dp * tp * pairs,
+            "flash_bwd_dq": L * dp * tp * pairs}
+    leg = mesh_train_leg("hybrid", tr, tokens, targets, want)
+    leg.update(mesh=list(shape), batch=b,
+               param_bytes=hybrid_shard_bytes(tr))
+    out["hybrid"] = leg
+    del tr
+    torch.cuda.empty_cache()
+    shape, b, mb = _lm_mesh_layout("pipeline", MESH_SHARDS, TRAIN_SEQ,
+                                   cfg.n_heads, cfg.n_layers, TRAIN_BATCH)
+    dp, stages = shape
+    tr = PipelineParallelTrainer(cfg, mesh_of(shape, ("data", "stage")),
+                                 n_microbatches=mb, lr=MESH_LR,
+                                 updater="adam", params=tree)
+    want = {"flash_fwd": 2 * L * mb * dp, "flash_bwd_dkv": L * mb * dp,
+            "flash_bwd_dq": L * mb * dp}       # remat_stage: twice
+    leg = mesh_train_leg("pipeline", tr, tokens, targets, want)
+    stage_bytes = [sum(t.numel() * t.element_size()
+                       for t in tr._stage_leaves(s)) for s in range(stages)]
+    leg.update(mesh=list(shape), batch=b, microbatches=mb,
+               param_bytes={"by_stage": stage_bytes, "io": sum(
+                   t.numel() * t.element_size()
+                   for t in tree_leaves(tr.io_params))})
+    out["pipeline"] = leg
+    del tr
+    torch.cuda.empty_cache()
+    one = out["one_device"]
+    for leg in (out["hybrid"], out["pipeline"]):
+        leg["one_device_step_ms"] = one["step_ms_mean"]
+        leg["vs_one_device"] = leg["step_ms_mean"] / one["step_ms_mean"]
+        leg["train_phase_step_ms"] = (train["step_ms_mean"] if train
+                                      else None)
+        leg["max_abs_loss_diff_vs_one_device"] = max(
+            abs(a - b) for a, b in zip(leg["losses"], one["losses"]))
+    return out
+
+
+class OneDeviceLM:
+    """`make_accum_train_step` (accum 1) on card 0 behind the trainers'
+    `fit_batch`."""
+
+    def __init__(self, cfg, tree):
+        from deeplearning4j_tpu_torch.parallel import transformer as tfm
+        from deeplearning4j_tpu_torch.parallel.hybrid import (
+            _master_f32,
+            make_accum_train_step,
+        )
+
+        self.params = _master_f32(tfm.params_from_numpy(tree, device="cuda"))
+        self.step, init = make_accum_train_step(cfg, lr=MESH_LR,
+                                                updater="adam")
+        self.opt = init(self.params)
+
+    def fit_batch(self, tokens, targets) -> float:
+        self.params, self.opt, loss = self.step(self.params, self.opt,
+                                                tokens, targets)
+        return float(loss)
+
+
+def mesh_moe(card: str) -> dict:
+    """Leg 3: the moe phase's config on (1, 2, 2), 2 steps: finite
+    losses, and every dispatch's capacity that of the global tokens."""
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel import transformer as tfm
+    from deeplearning4j_tpu_torch.parallel.hybrid import HybridParallelTrainer
+
+    cfg = moe_config()
+    tokens, targets = mesh_batch(cfg, TRAIN_BATCH)
+    tr = HybridParallelTrainer(cfg, mesh_of((1, 2, 2), ("data", "seq",
+                                                        "model")),
+                               lr=MESH_LR, updater="adam",
+                               params=tfm.numpy_params(cfg, seed=0))
+    caps = []
+    route = tfm._moe_route
+
+    def recording(p, xf, cf, top_k):
+        res = route(p, xf, cf, top_k)
+        caps.append((int(xf.shape[0]), res[4]))
+        return res
+
+    tfm._moe_route = recording
+    try:
+        t0 = time.perf_counter()
+        losses = [tr.fit_batch(tokens, targets)
+                  for _ in range(MESH_MOE_STEPS)]
+        wall = time.perf_counter() - t0
+    finally:
+        tfm._moe_route = route
+    a = TRAIN_BATCH * TRAIN_SEQ * cfg.moe_top_k
+    c = max(1, min(a, math.ceil(cfg.moe_capacity_factor * a
+                                / cfg.n_experts)))
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"mesh moe: losses {losses}")
+    if {cap for _, cap in caps} != {c} or \
+            {n for n, _ in caps} != {TRAIN_BATCH * TRAIN_SEQ}:
+        raise AssertionError(f"mesh moe: dispatches over {set(caps)} "
+                             f"(tokens, capacity), expected the global "
+                             f"{TRAIN_BATCH * TRAIN_SEQ} tokens at C {c}")
+    peak = torch.cuda.max_memory_allocated()
+    del tr
+    torch.cuda.empty_cache()
+    return {"mesh": [1, 2, 2], "experts": cfg.n_experts,
+            "experts_a_model_shard": cfg.n_experts // 2,
+            "top_k": cfg.moe_top_k, "capacity_factor":
+            cfg.moe_capacity_factor, "capacity": c,
+            "dispatches": len(caps), "losses": losses,
+            "step_ms_mean": wall * 1e3 / MESH_MOE_STEPS,
+            "peak_memory_bytes": peak}
+
+
+def leaf_change_errors(init: dict, got: dict, want: dict) -> tuple:
+    """The worst leaf: max |change got - change want| over the leaf's
+    largest |change want|.  A key bias's exact gradient is zero, so its
+    error is taken relative to the query bias of the same layer."""
+    from deeplearning4j_tpu_torch.tree import flatten_tree
+
+    i, g, w = (flatten_tree(t) for t in (init, got, want))
+    scale = {k: float(np.abs(np.asarray(w[k], np.float64)
+                             - np.asarray(i[k], np.float64)).max())
+             for k in w}
+    worst, worst_key = 0.0, None
+    for k in w:
+        dg = np.asarray(g[k], np.float64) - np.asarray(i[k], np.float64)
+        dw = np.asarray(w[k], np.float64) - np.asarray(i[k], np.float64)
+        err = float(np.abs(dg - dw).max()) / scale[k.replace("//bk",
+                                                             "//bq")]
+        if not math.isfinite(err) or err > worst:
+            worst, worst_key = err, k
+    return worst, worst_key
+
+
+def mesh_f32_parity() -> dict:
+    """Leg 4: float32 at full width, TF32 off.  One SGD step of each
+    trainer at batch 2 x 1024 against the one-device
+    `make_accum_train_step`; then ZeRO-1 = replicated bitwise on (2, 1,
+    2) and (2, 2) with 2 layers and 3 Adam steps."""
+    import dataclasses
+
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel import transformer as tfm
+    from deeplearning4j_tpu_torch.parallel.hybrid import (
+        HybridParallelTrainer,
+        PipelineParallelTrainer,
+        _master_f32,
+        make_accum_train_step,
+    )
+    from deeplearning4j_tpu_torch.tree import flatten_tree, tree_leaves
+
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        cfg = dataclasses.replace(tfm.gpt2_small(max_len=TRAIN_SEQ),
+                                  dtype="float32")
+        tree = tfm.numpy_params(cfg, seed=0)
+        tokens, targets = mesh_batch(cfg, MESH_PARITY_B)
+        params = _master_f32(tfm.params_from_numpy(tree, device="cuda"))
+        step, init = make_accum_train_step(cfg, lr=MESH_PARITY_LR)
+        params, _, loss = step(params, init(params), tokens, targets)
+        want_loss = float(loss)
+        want = tfm.params_to_numpy(params)
+        del params
+        out = {}
+        for name, make in (
+                ("hybrid", lambda: HybridParallelTrainer(
+                    cfg, mesh_of((1, 2, 2), ("data", "seq", "model")),
+                    lr=MESH_PARITY_LR, params=tree)),
+                ("pipeline", lambda: PipelineParallelTrainer(
+                    cfg, mesh_of((1, 4), ("data", "stage")),
+                    n_microbatches=2, lr=MESH_PARITY_LR, params=tree))):
+            tr = make()
+            got_loss = tr.fit_batch(tokens, targets)
+            worst, key = leaf_change_errors(tree, tr.export_params(), want)
+            loss_rel = abs(got_loss - want_loss) / abs(want_loss)
+            out[name] = {"loss": got_loss, "loss_one_device": want_loss,
+                         "loss_rel_err": loss_rel,
+                         "leaf_change_max_rel_err": worst,
+                         "worst_leaf": key}
+            del tr
+            torch.cuda.empty_cache()
+            if not loss_rel <= MESH_PARITY_LOSS_REL or \
+                    not worst <= MESH_PARITY_LEAF_REL:
+                raise AssertionError(f"mesh f32 {name} vs one device: "
+                                     f"{out[name]}")
+        zcfg = dataclasses.replace(cfg, n_layers=MESH_ZERO_LAYERS)
+        ztree = tfm.numpy_params(zcfg, seed=1)
+        zb = {"hybrid": 2, "pipeline": 4}
+        for name in ("hybrid", "pipeline"):
+            tok, tgt = mesh_batch(zcfg, zb[name])
+            runs = []
+            for shard in (True, False):
+                if name == "hybrid":
+                    tr = HybridParallelTrainer(
+                        zcfg, mesh_of((2, 1, 2), ("data", "seq", "model")),
+                        lr=MESH_LR, updater="adam", shard_update=shard,
+                        params=ztree)
+                else:
+                    tr = PipelineParallelTrainer(
+                        zcfg, mesh_of((2, 2), ("data", "stage")),
+                        n_microbatches=2, lr=MESH_LR, updater="adam",
+                        shard_update=shard, params=ztree)
+                losses = [tr.fit_batch(tok, tgt)
+                          for _ in range(MESH_ZERO_STEPS)]
+                moments = None
+                if name == "hybrid" and shard:
+                    part = tr.opt_partition()
+                    moments = {k: torch.cat([st["m"][k] for st in
+                                             tr.opt_state], dim=p.dim)
+                               if not p.is_replicated
+                               else tr.opt_state[0]["m"][k]
+                               for k, p in part.items()}
+                elif name == "hybrid":
+                    moments = flatten_tree(tr.opt_state["m"])
+                runs.append((losses, tr.export_params(), moments))
+                del tr
+                torch.cuda.empty_cache()
+            (la, pa, ma), (lb, pb, mb) = runs
+            same = la == lb and all(
+                np.array_equal(a, b) for a, b in zip(tree_leaves(pa),
+                                                     tree_leaves(pb)))
+            if ma is not None:
+                same = same and all(torch.equal(ma[k], mb[k]) for k in mb)
+            out[f"zero1_{name}"] = {"mesh": [2, 1, 2] if name == "hybrid"
+                                    else [2, 2], "steps": MESH_ZERO_STEPS,
+                                    "bitwise": same, "losses": la}
+            if not same:
+                raise AssertionError(f"mesh: ZeRO-1 {name} differs from "
+                                     f"the replicated update")
+        return out
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def ring_case(dtype_name: str, causal: bool) -> dict:
+    """`ring_flash_attention` over 4 seq shards of card 0 against
+    `flash_attention` on the whole sequence: outputs and dq / dk / dv,
+    the block pairs launched, device ms of forward + backward."""
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel.kernels import flash_attention
+    from deeplearning4j_tpu_torch.parallel.ring_attention import (
+        ring_flash_attention,
+    )
+
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dtype_name]
+    rng = np.random.default_rng(5)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal(
+        MESH_RING_SHAPE).astype(np.float32)).cuda().to(dt)
+        for _ in range(4))
+    leaves = [t.requires_grad_(True) for t in (q, k, v)]
+
+    def whole():
+        out = flash_attention(*leaves, causal)
+        return (out, *torch.autograd.grad(out, leaves, g))
+
+    def ring():
+        blocks = [list(t.chunk(MESH_SHARDS, dim=1)) for t in leaves]
+        out = torch.cat(ring_flash_attention(*blocks, "seq", causal), dim=1)
+        return (out, *torch.autograd.grad(out, leaves, g))
+
+    want = whole()
+    counters = flash_counters()
+    for c in counters.values():
+        c.reset()
+    got = ring()
+    torch.cuda.synchronize()
+    launches = {n: c.value for n, c in counters.items()}
+    pairs = (MESH_SHARDS * (MESH_SHARDS + 1) // 2 if causal
+             else MESH_SHARDS ** 2)
+    if launches != {n: pairs for n in counters}:
+        raise AssertionError(f"mesh ring ({dtype_name}, causal {causal}): "
+                             f"launches {launches}, expected {pairs} each")
+    errs = {}
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        a, b = a.detach().float(), b.detach().float()
+        errs[name] = float((a - b).abs().max() / b.abs().max())
+    tol = MESH_RING_TOL[dtype_name]
+    if not all(e <= tol for e in errs.values()):
+        raise AssertionError(f"mesh ring ({dtype_name}, causal {causal}): "
+                             f"relative errors {errs} over {tol}")
+    ring_ms = device_ms(ring, iters=10)
+    whole_ms = device_ms(whole, iters=10)
+    return {"dtype": dtype_name, "causal": causal,
+            "shape": dict(zip("BSHD", MESH_RING_SHAPE)),
+            "shards": MESH_SHARDS, "launches": launches,
+            "rel_err": errs, "tol": tol, "ring_ms": ring_ms,
+            "one_device_flash_ms": whole_ms}
+
+
+def mesh_cli(card: str, tmp: str) -> dict:
+    """Leg 6: `cli lm -runtime hybrid|pipeline` in process on the visible
+    cards (one: the trivial mesh), then `python -m
+    deeplearning4j_tpu_torch.dryrun 4` as a child process."""
+    import contextlib
+    import io
+    import os
+    import re
+
+    from deeplearning4j_tpu_torch import cli
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    corpus = os.path.join(root, "README.md")
+    out = {}
+    for runtime in ("hybrid", "pipeline"):
+        counters = flash_counters()
+        for c in counters.values():
+            c.reset()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(["lm", "-input", corpus, "-output",
+                           os.path.join(tmp, runtime), "-runtime", runtime,
+                           *MESH_CLI_ARGS])
+        text = buf.getvalue()
+        m = re.search(r"final loss ([0-9.]+|nan|inf)", text)
+        loss = float(m.group(1)) if m else float("nan")
+        out[runtime] = {"rc": rc, "s": time.perf_counter() - t0,
+                        "layout": next((ln for ln in text.splitlines()
+                                        if "training on mesh" in ln), None),
+                        "final_loss": loss,
+                        "launches": {n: c.value
+                                     for n, c in counters.items()}}
+        if rc != 0 or not math.isfinite(loss) or \
+                out[runtime]["layout"] is None or \
+                not out[runtime]["launches"]["flash_fwd"]:
+            raise AssertionError(f"mesh cli {runtime}: {out[runtime]}\n"
+                                 f"{text}")
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "deeplearning4j_tpu_torch.dryrun",
+         str(MESH_SHARDS), "--out", tmp], cwd=root, capture_output=True,
+        text=True, timeout=600)
+    out["dryrun"] = {"rc": proc.returncode, "s": time.perf_counter() - t0,
+                     "lines": [ln for ln in proc.stdout.splitlines()
+                               if ln.startswith("dryrun")]}
+    if proc.returncode != 0 or "dryrun GREEN" not in proc.stdout:
+        raise AssertionError(f"mesh dryrun: {proc.stdout}\n{proc.stderr}")
+    return out
+
+
+def mesh_phase(card: str, train=None) -> dict:
+    """Phase 26 (the module docstring): the LM mesh trainers, 4 shards on
+    one card (``devices=[cuda:0] * 4``)."""
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    out = {"card": card,
+           "mesh": "4 shards on one card (devices=[cuda:0] * 4)",
+           "config": "gpt2_small(max_len=1024), bf16 compute, f32 masters, "
+                     f"adam lr {MESH_LR}", "global_batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ}
+    out.update(mesh_full_width(card, train))
+    one = out["one_device"]
+    log(f"mesh: one device, batch {TRAIN_BATCH} x {TRAIN_SEQ} (accum 1): "
+        f"{one['step_ms_mean']:.1f} ms a step, losses "
+        f"{[round(v, 4) for v in one['losses']]} ({card})")
+    for name in ("hybrid", "pipeline"):
+        leg = out[name]
+        log(f"mesh: {name} {leg['mesh']} at gpt2_small, batch "
+            f"{leg['batch']} x {TRAIN_SEQ}: {leg['step_ms_mean']:.1f} ms a "
+            f"step ({leg['tokens_per_s']:.0f} tokens/s; "
+            f"{leg['vs_one_device']:.2f}x one device's), bf16 losses vs "
+            f"one device max diff "
+            f"{leg['max_abs_loss_diff_vs_one_device']:.4g} (bf16 "
+            f"resolution; the f32 leg checks parity), "
+            f"flash launches a step "
+            f"{leg['launches_per_step']}, losses {leg['losses'][0]:.4f} -> "
+            f"{leg['losses'][-1]:.4f}, peak "
+            f"{leg['peak_memory_bytes'] / 2**30:.2f} GiB, parameter bytes "
+            f"{leg['param_bytes']} (4 shards on one card, {card})")
+    out["moe"] = mesh_moe(card)
+    log(f"mesh: MoE hybrid (1, 2, 2), {out['moe']['experts']} experts, "
+        f"{out['moe']['experts_a_model_shard']} a model shard: capacity "
+        f"{out['moe']['capacity']} from the global tokens in "
+        f"{out['moe']['dispatches']} dispatches, losses "
+        f"{out['moe']['losses']}, {out['moe']['step_ms_mean']:.1f} ms a step")
+    out["f32"] = mesh_f32_parity()
+    f = out["f32"]
+    log(f"mesh: f32 one SGD step vs one device: hybrid loss "
+        f"{f['hybrid']['loss_rel_err']:.3g}, worst leaf change "
+        f"{f['hybrid']['leaf_change_max_rel_err']:.3g} "
+        f"({f['hybrid']['worst_leaf']}); pipeline loss "
+        f"{f['pipeline']['loss_rel_err']:.3g}, leaf "
+        f"{f['pipeline']['leaf_change_max_rel_err']:.3g} "
+        f"({f['pipeline']['worst_leaf']}); ZeRO-1 = replicated bitwise "
+        f"(hybrid (2, 1, 2), pipeline (2, 2))")
+    torch.cuda.empty_cache()
+    out["ring"] = [ring_case(dt, causal) for dt in ("float32", "bfloat16")
+                   for causal in (True, False)]
+    for r in out["ring"]:
+        log(f"mesh: ring {r['dtype']} causal {r['causal']}: B2 "
+            f"{r['launches']['flash_fwd']}, errors "
+            f"{ {k: float(f'{v:.3g}') for k, v in r['rel_err'].items()} }, "
+            f"fwd+bwd {r['ring_ms']:.4f} ms on 4 shards vs "
+            f"{r['one_device_flash_ms']:.4f} ms one device ({card})")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory(prefix="chip-smoke-mesh-") as tmp:
+        out["cli"] = mesh_cli(card, tmp)
+    c = out["cli"]
+    log(f"mesh: cli lm -runtime hybrid: {c['hybrid']['layout']}, loss "
+        f"{c['hybrid']['final_loss']}; pipeline: {c['pipeline']['layout']}"
+        f", loss {c['pipeline']['final_loss']}; dryrun 4: "
+        f"{c['dryrun']['lines'][-1]}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"mesh: phase in {out['phase_s']:.1f} s ({card})")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=",".join(PHASES),
@@ -9837,6 +10412,7 @@ def main(argv=None) -> int:
     tail = tail_phase(card) if "tail" in phases else None
     scaleout = scaleout_phase(card) if "scaleout" in phases else None
     dp = dp_phase(card) if "dp" in phases else None
+    mesh = mesh_phase(card, train) if "mesh" in phases else None
 
     entries = []
     if kernels_line is not None:
@@ -9924,6 +10500,14 @@ def main(argv=None) -> int:
                    if kname == "flash_fwd" else {}),
                 "tail_launches": (tail["train"]["launches"][kname]
                                   if tail else None),
+                "mesh_launches": (
+                    {"hybrid_per_step":
+                     mesh["hybrid"]["launches_per_step"][kname],
+                     "pipeline_per_step":
+                     mesh["pipeline"]["launches_per_step"][kname],
+                     "ring": {f"{r['dtype']} causal {r['causal']}":
+                              r["launches"][kname] for r in mesh["ring"]}}
+                    if mesh else None),
                 "moe_launches": (
                     {"train": moe["launches"][kname],
                      "train_per_step": moe["launches_per_step"][kname],
@@ -10062,6 +10646,8 @@ def main(argv=None) -> int:
         print(json.dumps({"scaleout": scaleout}), flush=True)
     if dp is not None:
         print(json.dumps({"dp": dp}), flush=True)
+    if mesh is not None:
+        print(json.dumps({"mesh": mesh}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)

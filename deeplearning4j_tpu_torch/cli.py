@@ -41,7 +41,8 @@ restore a checkpoint saved on another replica count.
     python -m deeplearning4j_tpu_torch.cli lm -input <text> [-output dir]
         [-preset gpt2-small] [-seq 128] [-batch 8] [-accum 1] [-epochs 1]
         [-lr 3e-3] [-updater adam] [-experts 0] [-moe-top-k 1]
-        [-eval <text>] [-device cuda|cpu]
+        [-runtime local|spmd|hybrid|pipeline] [-eval <text>]
+        [-device cuda|cpu]
         [-generate [PROMPT] [-max-new 64] [-temperature 0.8] [-top-k 0]
          [-top-p 1.0] [-gen-seed 0] [-beam 1]]
 
@@ -49,9 +50,14 @@ trains the byte-level TransformerLM on a text file and saves it as
 ``lm_config.json`` + ``lm_params.npz`` (the JAX package's ``dl4j lm``
 layout; either package loads the other's); without ``-input`` it loads
 the saved LM.  ``-experts N`` makes every block an MoE of N experts
-routing ``-moe-top-k`` a token.  ``-generate`` then decodes from the
-prompt (whole-sequence `generate`, or `beam_search` with ``-beam`` > 1)
-and prints the text.
+routing ``-moe-top-k`` a token.  ``-runtime spmd`` cuts each batch over
+the visible devices (every card; one host device with ``-device cpu``)
+and meets the gradients in a mean; ``hybrid`` trains on a dp/sp/tp mesh
+(`HybridParallelTrainer`, ring attention over ``seq``) and ``pipeline``
+on a dp/pp GPipe mesh (`PipelineParallelTrainer`), each factored from
+the visible devices by `_lm_mesh_layout` (one card: the trivial mesh).
+``-generate`` then decodes from the prompt (whole-sequence `generate`,
+or `beam_search` with ``-beam`` > 1) and prints the text.
 
     python -m deeplearning4j_tpu_torch.cli serve [-model zoo:<name>|dir|conf]
         [-quantize none|int8] [-buckets 1,8,32] [-max-batch 32]
@@ -889,12 +895,108 @@ def _serve_fleet_processes(args, *, max_queue, breaker_n, quantize,
     return 0
 
 
-def _refuse_unported(args) -> None:
-    """The `lm` options whose code paths are not ported yet."""
-    if args.runtime != "local":
-        raise SystemExit(f"-runtime {args.runtime}: only the local runtime "
-                         f"is ported (ROADMAP.md, queue A7 part 2, "
-                         f"'Multi-device LM trainers')")
+def _lm_mesh_layout(runtime: str, n: int, S: int, n_heads: int,
+                    n_layers: int, B: int):
+    """Pure layout choice for the lm mesh runtimes (unit-tested).
+
+    Returns (mesh_shape, rounded_B, n_microbatches|None).  Every factor
+    degrades to 1, so the same command works from one real chip up to a
+    full slice — on n=1 both runtimes become plain local training."""
+    if runtime == "hybrid":
+        sp = 2 if n % 2 == 0 and S % 2 == 0 else 1
+        tp = 2 if (n // sp) % 2 == 0 and n_heads % 2 == 0 else 1
+        dp = max(1, n // (sp * tp))
+        if B % dp:
+            B += dp - B % dp
+        return (dp, sp, tp), B, None
+    stages = next((s for s in (4, 2, 1)
+                   if n % s == 0 and n_layers % s == 0), 1)
+    dp = max(1, n // stages)
+    if B % dp:
+        B += dp - B % dp
+    mb = 2 if (B // dp) % 2 == 0 else 1
+    return (dp, stages), B, mb
+
+
+def _visible_devices(device) -> list:
+    """The devices a mesh runtime factors: every card, or with
+    ``-device cpu`` one host device."""
+    import torch
+
+    if device.type == "cuda":
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
+
+
+def _lm_mesh_train(args, cfg: TransformerConfig, ids, B: int, S: int,
+                   devices=None) -> dict:
+    """Train the byte LM on a mesh runtime and return the gathered host
+    params (numpy, the `init_params` layout).
+
+    -runtime hybrid: dp/sp/tp with ring attention (the dp/sp/tp/ep
+    tier); -runtime pipeline: dp/pp GPipe.  The devices (by default the
+    visible ones; a list may repeat a device, e.g. 8 host shards) are
+    factored into the layout; divisibility constraints fail with
+    actionable messages."""
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+    from deeplearning4j_tpu_torch.parallel.hybrid import (
+        HybridParallelTrainer,
+        PipelineParallelTrainer,
+    )
+
+    if devices is None:
+        devices = _visible_devices(resolve_device(args.device))
+    n = len(devices)
+    if args.accum > 1:
+        print("-accum is a local-runtime feature; ignored under mesh "
+              "runtimes")
+    shape, B_new, mb = _lm_mesh_layout(args.runtime, n, S, cfg.n_heads,
+                                       cfg.n_layers, B)
+    if B_new != B:
+        print(f"{args.runtime}: -batch rounded up to {B_new} "
+              f"({shape[0]} data shards)")
+        B = B_new
+    used = int(np.prod(shape))
+    if args.runtime == "hybrid":
+        dp, sp, tp = shape
+        mesh = make_mesh(shape, ("data", "seq", "model"),
+                         devices=devices[:used])
+        trainer = HybridParallelTrainer(cfg, mesh, lr=args.lr, seed=0,
+                                        updater=args.updater)
+        layout = f"dp{dp}/sp{sp}/tp{tp} over {used} devices"
+    else:
+        dp, stages = shape
+        mesh = make_mesh(shape, ("data", "stage"), devices=devices[:used])
+        trainer = PipelineParallelTrainer(cfg, mesh, n_microbatches=mb,
+                                          lr=args.lr, seed=0,
+                                          updater=args.updater)
+        layout = f"dp{dp}/pp{stages} (microbatches={mb})"
+    print(f"{args.runtime}: training on mesh {layout}")
+    _lm_train_loop(args, ids, B, S, trainer.fit_batch_async)
+    return trainer.export_params()
+
+
+def _lm_train_loop(args, ids, B: int, S: int, step) -> None:
+    """The `lm` runtimes' shared loop: ``-epochs`` passes of B random
+    S-byte windows (numpy ``default_rng(0)``), each through
+    ``step(tokens, targets) -> loss`` (numpy batches in, the loss left on
+    the device, so the host runs ahead into the next step; only a due
+    report waits for it), then the final loss and the token rate."""
+    rng = np.random.default_rng(0)
+    steps = max(1, args.epochs * (len(ids) // max(B * S, 1)))
+    t0, loss = time.time(), None
+    for k in range(steps):
+        starts = rng.integers(0, len(ids) - S - 1, B)
+        tokens = np.stack([ids[s:s + S] for s in starts])
+        targets = np.stack([ids[s + 1:s + S + 1] for s in starts])
+        loss = step(tokens, targets)
+        if args.verbose and (k + 1) % 20 == 0:
+            print(f"step {k + 1}/{steps} loss {float(loss):.4f}")
+    final_loss = float(loss)   # wait for the last step BEFORE the clock
+    tok_rate = steps * B * S / max(time.time() - t0, 1e-9)
+    print(f"Trained {steps} steps (final loss {final_loss:.4f}, "
+          f"{tok_rate:.0f} tokens/sec)")
 
 
 def _lm_config(args, seq: int) -> TransformerConfig:
@@ -951,21 +1053,26 @@ def cmd_lm(args) -> int:
     """Train the TransformerLM on a raw text file (byte-level vocab,
     causal LM) and save it, or load a saved one; ``-eval`` then reports
     the held-out perplexity.  The counterpart of the JAX package's
-    ``dl4j lm`` with the local runtime: the same config, the same
-    batches (numpy ``default_rng(0)``), f32 master parameters with
-    bfloat16 compute on the card and float32 on the CPU."""
-    import torch
-
-    from deeplearning4j_tpu_torch.parallel.hybrid import (
-        _master_f32,
-        make_accum_train_step,
+    ``dl4j lm``: the same config, the same batches (numpy
+    ``default_rng(0)``) and the same runtimes — local and spmd with f32
+    master parameters and bfloat16 compute on the card (float32 on the
+    CPU), hybrid and pipeline on a mesh of the visible devices in the
+    config's float32."""
+    from deeplearning4j_tpu_torch.parallel.transformer import (
+        params_from_numpy,
     )
-    from deeplearning4j_tpu_torch.parallel.transformer import init_params
     from deeplearning4j_tpu_torch.runtime.checkpoint import tree_to_npz
 
-    _refuse_unported(args)
     device = resolve_device(args.device)
     out = pathlib.Path(args.output or "dl4j-lm")
+
+    def save(cfg, params):
+        out.mkdir(parents=True, exist_ok=True)
+        (out / "lm_config.json").write_text(
+            json.dumps(dataclasses.asdict(cfg)))
+        tree_to_npz(out / "lm_params.npz", params)   # atomic write
+        print(f"LM saved to {out}")
+
     if not args.input:
         if not (out / "lm_config.json").exists():
             raise SystemExit(f"no -input and no saved LM at {out}")
@@ -976,43 +1083,80 @@ def cmd_lm(args) -> int:
         S, B = args.seq, args.batch
         if len(ids) < S + 2:
             raise SystemExit(f"input too short for -seq {S}")
-        if args.accum > 1 and B % args.accum:
-            raise SystemExit(f"-batch {B} must be divisible by -accum "
-                             f"{args.accum}")
+        if args.experts and args.runtime == "pipeline":
+            # MoE rides the dp/sp/tp/ep mesh; pipeline stages are
+            # dense-MLP only
+            raise SystemExit(
+                "-experts is not supported under -runtime pipeline; "
+                "use -runtime hybrid (expert parallelism rides the "
+                "model axis) or local/spmd")
         cfg = _lm_config(args, S)
-        compute_cfg = (dataclasses.replace(cfg, dtype="bfloat16")
-                       if device.type == "cuda" else cfg)
-        params = _master_f32(init_params(
-            cfg, generator=torch.Generator().manual_seed(0), device=device))
-        step, init_opt = make_accum_train_step(
-            compute_cfg, lr=args.lr, accum=args.accum, updater=args.updater)
-        opt_state = init_opt(params)
-        rng = np.random.default_rng(0)
-        steps = max(1, args.epochs * (len(ids) // max(B * S, 1)))
-        t0, loss = time.time(), None
-        for k in range(steps):
-            starts = rng.integers(0, len(ids) - S - 1, B)
-            tokens = np.stack([ids[s:s + S] for s in starts])
-            targets = np.stack([ids[s + 1:s + S + 1] for s in starts])
-            params, opt_state, loss = step(params, opt_state,
-                                           torch.from_numpy(tokens),
-                                           torch.from_numpy(targets))
-            if args.verbose and (k + 1) % 20 == 0:
-                print(f"step {k + 1}/{steps} loss {float(loss):.4f}")
-        final = float(loss)               # waits for the last step
-        tok_rate = steps * B * S / max(time.time() - t0, 1e-9)
-        print(f"Trained {steps} steps (final loss {final:.4f}, "
-              f"{tok_rate:.0f} tokens/sec)")
-        out.mkdir(parents=True, exist_ok=True)
-        (out / "lm_config.json").write_text(
-            json.dumps(dataclasses.asdict(cfg)))
-        tree_to_npz(out / "lm_params.npz", params)   # atomic write
-        print(f"LM saved to {out}")
+        if args.runtime in ("hybrid", "pipeline"):
+            # the mesh runtimes own init (seed 0) and the whole train
+            # loop, in the config's float32, as the JAX runtimes do
+            params = _lm_mesh_train(args, cfg, ids, B, S)
+            save(cfg, params)
+            params = params_from_numpy(params, device=device)
+        else:
+            params = _lm_local_train(args, cfg, ids, B, S, device)
+            save(cfg, params)
     if args.eval is not None:
         _lm_eval(args.eval, cfg, params)
     if args.generate is not None:
         _lm_generate(args, cfg, params)
     return 0
+
+
+def _lm_local_train(args, cfg: TransformerConfig, ids, B: int, S: int,
+                    device):
+    """The local and spmd runtimes: f32 masters with bfloat16 compute on
+    the card (float32 on the CPU), ``-accum`` microbatches a step.  Under
+    spmd each microbatch is cut over the visible devices and the
+    gradients meet in a mean; the batch is rounded up to a multiple of
+    the devices."""
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+    from deeplearning4j_tpu_torch.parallel.hybrid import (
+        _master_f32,
+        make_accum_train_step,
+    )
+    from deeplearning4j_tpu_torch.parallel.mesh import round_batch_to_mesh
+    from deeplearning4j_tpu_torch.parallel.transformer import init_params
+
+    compute_cfg = (dataclasses.replace(cfg, dtype="bfloat16")
+                   if device.type == "cuda" else cfg)
+    params = _master_f32(init_params(
+        cfg, generator=torch.Generator().manual_seed(0), device=device))
+    spmd_mesh = None
+    if args.runtime == "spmd":
+        spmd_mesh = make_mesh(devices=_visible_devices(device))
+        n = spmd_mesh.size
+        if n == 1:
+            print("spmd: only 1 device visible — equivalent to local")
+        rounded = round_batch_to_mesh(B, spmd_mesh)
+        if rounded != B:
+            print(f"spmd: -batch {B} rounded up to {rounded} "
+                  f"({n}-device shards; `dl4j train` pads likewise)")
+            B = rounded
+    if args.accum > 1 and B % args.accum:
+        raise SystemExit(f"-batch {B} (after any spmd rounding) must be "
+                         f"divisible by -accum {args.accum}")
+    step, init_opt = make_accum_train_step(
+        compute_cfg, lr=args.lr, accum=args.accum, updater=args.updater,
+        mesh=spmd_mesh)
+    state = {"params": params, "opt": init_opt(params)}
+
+    def fit(tokens, targets):
+        state["params"], state["opt"], loss = step(
+            state["params"], state["opt"], torch.from_numpy(tokens),
+            torch.from_numpy(targets))
+        return loss
+
+    if spmd_mesh is not None:
+        print(f"spmd: batch sharded over {spmd_mesh.size} devices")
+    _lm_train_loop(args, ids, B, S, fit)
+    return state["params"]
 
 
 def _lm_generate(args, cfg: TransformerConfig, params) -> None:
@@ -1388,10 +1532,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-moe-top-k", "--moe-top-k", dest="moe_top_k", type=int,
                    default=1, help="experts routed per token (1 = Switch, "
                    "2 = GShard-style)")
-    # accepted so that a JAX command line fails with the reason
     p.add_argument("-runtime", "--runtime", default="local",
                    choices=["local", "spmd", "hybrid", "pipeline"],
-                   help="only local is ported")
+                   help="spmd = data-parallel over the visible devices; "
+                   "hybrid = dp/sp/tp mesh (ring attention); pipeline = "
+                   "dp/pp GPipe stages")
     p.add_argument("-generate", "--generate", nargs="?", const="",
                    default=None, metavar="PROMPT",
                    help="decode after training/loading (optional prompt)")

@@ -1,9 +1,10 @@
 """Model and kernel modules of the port (counterpart of
 `deeplearning4j_tpu.parallel`): the transformer, its hand-written
-attention kernels, training steps, whole-sequence decoding, and the
+attention kernels, training steps, whole-sequence decoding, the
 data-parallel plane — the device mesh, the partition vocabulary and
-`DataParallelTrainer`.  The hybrid, pipeline and ring-attention mesh
-trainers are ROADMAP.md queue A7 part 2."""
+`DataParallelTrainer` — and the LM mesh trainers: ring attention
+(`ring_attention`), the GPipe schedule (`pipeline`) and
+`hybrid.HybridParallelTrainer` / `hybrid.PipelineParallelTrainer`."""
 
 from deeplearning4j_tpu_torch.parallel.data_parallel import (
     DataParallelTrainer,

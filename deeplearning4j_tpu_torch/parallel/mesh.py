@@ -23,6 +23,11 @@ result lives on, so a result never depends on timing, and the mean
 perform the same additions element by element: the ZeRO-1 update and
 the replicated one agree bitwise by construction.  Cross-process
 collectives (`torch.distributed`) are not here.
+
+The ring attention of the LM mesh trainers (`parallel/ring_attention.py`)
+rotates its key and value blocks with `ppermute`, one step along the
+ring as ``lax.ppermute`` does; blocks that sit on the same device are
+only re-indexed.
 """
 
 from __future__ import annotations
@@ -181,6 +186,15 @@ def all_gather(shards: Sequence[torch.Tensor],
     return torch.cat([s.to(device) for s in shards])
 
 
+def ppermute(shards: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+    """One step along a ring (``lax.ppermute`` with the permutation
+    ``[(i, (i + 1) % n)]``): entry ``(i + 1) % n`` of the result is shard
+    i, moved onto the device of the shard it replaces.  A shard whose
+    destination is on its own device is only re-indexed, never copied."""
+    n = len(shards)
+    return [shards[(j - 1) % n].to(shards[j].device) for j in range(n)]
+
+
 # ---------------------------------------------------------------------------
 # the sparse-embedding harness (Word2Vec and GloVe ``mesh=``)
 
@@ -259,6 +273,6 @@ def _gather_aux(auxes: list, device: torch.device):
     return all_gather(auxes, device)
 
 
-__all__ = ["Mesh", "all_gather", "make_mesh", "pmean", "psum",
+__all__ = ["Mesh", "all_gather", "make_mesh", "pmean", "ppermute", "psum",
            "psum_scatter", "replicate", "round_batch_to_mesh",
            "shard_batch", "sparse_allgather_step"]

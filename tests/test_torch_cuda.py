@@ -31,7 +31,11 @@ scaleout plane: a `NetworkPerformer` on the card publishes host numpy
 copies and launches the LSTM kernel once a job.  Data parallelism: a
 4-shard mesh over card 0 (ZeRO-1 = replicated bitwise, the LSTM kernel
 once a layer, shard and step, an overflow on one shard skipped on all)
-and the CLI's ``-replicas`` check against the cards present.
+and the CLI's ``-replicas`` check against the cards present.  The LM
+mesh trainers: ring attention over 4 sequence shards of card 0 against
+the one-device flash kernels (10 / 16 block pairs), and one step of the
+hybrid and the pipeline trainer against the one-device step with their
+launch counts.
 
 Every test carries the ``cuda`` marker and decides inside the test
 whether a card is present, skipping with a reason when not (the kernels
@@ -2481,3 +2485,112 @@ def test_cli_spmd_refuses_more_replicas_than_cards(tmp_path, capsys):
         cli.main(["train", "-input", str(csv), "-model", "zoo:iris-mlp",
                   "-runtime", "spmd", "-replicas", str(n + 1),
                   "-output", str(tmp_path / "out")])
+
+
+# ---------------------------------------------------------------------------
+# the LM mesh trainers: 4 shards on card 0
+
+def _card_mesh(shape, names):
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+
+    n = int(np.prod(shape))
+    return make_mesh(shape, names, devices=[torch.device("cuda", 0)] * n)
+
+
+def _flash_counters():
+    return {"fwd": tk.flash_forward.launches,
+            "dkv": tk.flash_bwd_dkv.launches, "dq": tk.flash_bwd_dq.launches}
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_on_four_shards_of_the_card_matches_flash(dtype, tol, causal):
+    """`ring_flash_attention` over 4 seq shards of card 0 against the
+    one-device flash on the whole sequence: the output and dq / dk / dv
+    within `tol` of the largest reference value, B2 = B3 = B4 = 10 block
+    pairs causal and 16 not."""
+    _need_card()
+    from deeplearning4j_tpu_torch.parallel.ring_attention import (
+        ring_flash_attention,
+    )
+
+    rng = np.random.default_rng(1)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal(
+        (2, 256, 4, 64)).astype(np.float32)).cuda().to(dtype)
+        for _ in range(4))
+    leaves = [t.requires_grad_(True) for t in (q, k, v)]
+    out = tk.flash_attention(*leaves, causal)
+    want = (out, *torch.autograd.grad(out, leaves, g))
+    counters = _flash_counters()
+    for c in counters.values():
+        c.reset()
+    blocks = [list(t.chunk(4, dim=1)) for t in leaves]
+    out = torch.cat(ring_flash_attention(*blocks, "seq", causal), dim=1)
+    got = (out, *torch.autograd.grad(out, leaves, g))
+    torch.cuda.synchronize()
+    pairs = 10 if causal else 16
+    assert {n: c.value for n, c in counters.items()} == \
+        {"fwd": pairs, "dkv": pairs, "dq": pairs}
+    for a, b in zip(got, want):
+        a, b = a.detach().float(), b.detach().float()
+        assert float((a - b).abs().max() / b.abs().max()) <= tol
+
+
+def _leaf_change_err(init, got, want):
+    from deeplearning4j_tpu_torch.tree import flatten_tree
+
+    i, g, w = (flatten_tree(t) for t in (init, got, want))
+    worst = 0.0
+    for key in w:
+        dg, dw = (np.asarray(t[key], np.float64) - i[key] for t in (g, w))
+        ref = key.replace("//bk", "//bq")   # a key bias's gradient is 0
+        scale = np.abs(np.asarray(w[ref], np.float64) - i[ref]).max()
+        worst = max(worst, float(np.abs(dg - dw).max() / scale))
+    return worst
+
+
+@pytest.mark.parametrize("kind", ["hybrid", "pipeline"])
+def test_mesh_step_on_the_card_matches_one_device(no_tf32, kind):
+    """One float32 SGD step of each mesh trainer on 4 shards of card 0
+    against the one-device step: the loss within 1e-5 relative, each
+    leaf's change within 1e-3 of its largest change; the flash launches
+    of a step (1 + remat) L dp tp sp (sp + 1) / 2 forward (hybrid, (1, 2,
+    2)) and 2 L m (pipeline, (1, 4), m 2), half that for each backward
+    kernel."""
+    _need_card()
+    from deeplearning4j_tpu_torch.parallel.hybrid import (
+        HybridParallelTrainer,
+        PipelineParallelTrainer,
+    )
+
+    cfg = tt.TransformerConfig(vocab_size=128, d_model=64, n_heads=4,
+                               n_layers=4, d_ff=128, max_len=64,
+                               attn_bias=True, tie_embeddings=True,
+                               remat=True)
+    tree = tt.numpy_params(cfg, seed=0)
+    rng = np.random.default_rng(2)
+    data = torch.from_numpy(rng.integers(0, 128, (4, 65))).cuda()
+    tok, tgt = data[:, :-1], data[:, 1:]
+    params = th._master_f32(tt.params_from_numpy(tree, device="cuda"))
+    step, init = th.make_accum_train_step(cfg, lr=1.0)
+    params, _, loss = step(params, init(params), tok, tgt)
+    want = tt.params_to_numpy(params)
+    if kind == "hybrid":
+        tr = HybridParallelTrainer(
+            cfg, _card_mesh((1, 2, 2), ("data", "seq", "model")), lr=1.0,
+            params=tree)
+        fwd = 2 * 4 * 1 * 2 * 3
+    else:
+        tr = PipelineParallelTrainer(
+            cfg, _card_mesh((1, 4), ("data", "stage")), n_microbatches=2,
+            lr=1.0, params=tree)
+        fwd = 2 * 4 * 2
+    counters = _flash_counters()
+    for c in counters.values():
+        c.reset()
+    got_loss = tr.fit_batch(tok, tgt)
+    assert {n: c.value for n, c in counters.items()} == \
+        {"fwd": fwd, "dkv": fwd // 2, "dq": fwd // 2}
+    assert abs(got_loss - float(loss)) <= 1e-5 * abs(float(loss))
+    assert _leaf_change_err(tree, tr.export_params(), want) <= 1e-3

@@ -408,7 +408,7 @@ def test_cli_lm_samples_the_same_batches_as_the_jax_cli(tmp_path,
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["-runtime", "hybrid"], "A7"),
+    (["-runtime", "pipeline", "-experts", "2"], "pipeline"),
 ])
 def test_cli_lm_refuses_unported_options(tmp_path, flags, item):
     corpus = _corpus(tmp_path)
