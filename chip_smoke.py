@@ -8,9 +8,10 @@ checkpointed training, the sentiment pipeline (the HMM tagger, the
 TreeParser, RNTN and the recursive autoencoder), KMeans and the
 host-only tail (model import, determinism checks, remote storage, the
 profiler, `ml`), the scaleout control plane (master, workers, the TCP
-tracker, the performers), data parallelism and the LM mesh trainers
-(ring attention, tensor and expert parallelism, the GPipe pipeline) on
-one NVIDIA GPU and check them.
+tracker, the performers), data parallelism, the LM mesh trainers
+(ring attention, tensor and expert parallelism, the GPipe pipeline) and
+data-parallel training across processes on one NVIDIA GPU and check
+them.
 
     python3 chip_smoke.py            # every phase, from the repo root
 
@@ -449,6 +450,28 @@ Phases (any failure exits non-zero, and no result line is printed):
              one-device step (and the train phase's), the losses' largest
              difference from the one-device step's, tokens/s, peak
              memory, parameter bytes a shard.
+27. multiproc — training across processes: 2 worker processes
+             (``chip_smoke.py --multiproc-worker``, each with a
+             deadline) join one gloo group through
+             `initialize_multihost` (NCCL refuses two ranks on one
+             card), 2 shards of card 0 each, and train the dp phase's
+             bf16 char-LSTM (global batch 128, 32 rows a shard):
+             ZeRO-1 and replicated 10 steps each (B5 = 1 layer x 2
+             shards x 10 = 20 launches a process and leg) and local
+             SGD (2 rounds of 4), every loss and leaf bitwise the same
+             runs over one process's 4 shards, ZeRO-1 = replicated
+             bitwise; the ZeRO-1 run's step-5 checkpoint in JAX's v1
+             per-host layout (``processes`` 2), reloaded here bitwise
+             and resumed at 1 process x 4 shards bitwise with the
+             uninterrupted run; a save in which process 1 is killed
+             after its params file (no COMMIT, process 0 fails at the
+             barrier, the latest checkpoint stays step 5); a Word2Vec
+             NEG ``mesh=`` fit and step, each process's and this
+             process's 4-shard step within the nlp phase's a-priori
+             bound; an NCCL group of one process over 4 shards (the
+             collectives equal to their one-process forms, ZeRO-1
+             bitwise, B5 = 40).  Recorded: ms a step at 2 processes,
+             1 process x 4 shards, NCCL, one device.
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device time per
 call (`device_ms`: the calls are queued behind a spin kernel, so they run
@@ -491,7 +514,7 @@ PEAK_OPS = {"float32": 67e12,      # fp32 outside the tensor cores
 PHASES = ("kernel", "flash", "serve", "parity", "train", "lstm", "rnn",
           "decode", "mln", "precision", "moe", "mobility", "nlp", "ops",
           "classify", "fleet", "procfleet", "resilience", "sentiment",
-          "cluster", "tail", "scaleout", "dp", "mesh")
+          "cluster", "tail", "scaleout", "dp", "mesh", "multiproc")
 # what the times of the kernels line measure
 TIMING_NOTE = {
     "ms": "device time per call: calls queued behind a spin kernel, run "
@@ -10295,6 +10318,563 @@ def mesh_phase(card: str, train=None) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 27: training across processes, 2 processes of 2 shards on the card
+
+MP_PROCS = 2
+MP_LOCAL = DP_SHARDS // MP_PROCS   # shards a process
+MP_STEPS = 10                      # each of ZeRO-1 and replicated
+MP_CKPT_AT = 5                     # the ZeRO-1 run's checkpoint
+MP_KILLED_AT = 99                  # the save process 1 dies in
+MP_SYNC = 4                        # local SGD: 2 rounds of 4 steps
+MP_GROUP_TIMEOUT_S = 120           # a collective's or barrier's wait
+MP_JOB_S = 420                     # a job's deadline
+MP_W2V_B = 4096
+
+
+def mp_mesh(local: int):
+    """The 4-shard mesh: `local` shards of card 0 in this process (in a
+    job of 2 processes, the other process's 2 follow)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+
+    return make_mesh((DP_SHARDS,), ("data",),
+                     devices=[torch.device("cuda", 0)] * local)
+
+
+def host_arrays(tree, prefix: str = "") -> dict:
+    """A tree's leaves as float32 host copies, by keypath."""
+    from deeplearning4j_tpu_torch.tree import flatten_tree
+
+    return {prefix + k: v.detach().float().cpu().numpy().copy()
+            for k, v in flatten_tree(tree).items()}
+
+
+def arrays_compare(got: dict, want: dict) -> dict:
+    """Bitwise, or the largest absolute difference, over matching keys."""
+    if set(got) != set(want):
+        return {"bitwise": False, "max_abs": math.inf,
+                "keys": sorted(set(got) ^ set(want))}
+    bitwise = all(np.array_equal(got[k], want[k]) for k in want)
+    worst = max(float(np.abs(got[k].astype(np.float64)
+                             - want[k].astype(np.float64)).max())
+                for k in want)
+    return {"bitwise": bitwise, "max_abs": worst}
+
+
+def mp_train_leg(mesh, batches, steps: int = MP_STEPS, ckpt=None,
+                 **kw) -> tuple:
+    """The dp phase's bf16 char-LSTM over `mesh`, `steps` steps from the
+    seeded init (the B5 count set to 0 just before, read just after);
+    with `ckpt` the published state of step `MP_CKPT_AT` is saved there.
+    Returns (net, record, arrays)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork, char_lstm
+    from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
+    from deeplearning4j_tpu_torch.parallel import DataParallelTrainer
+    from deeplearning4j_tpu_torch.runtime.checkpoint import save_checkpoint
+
+    net = MultiLayerNetwork(char_lstm(compute_dtype="bfloat16")).init()
+    tr = DataParallelTrainer(net, mesh=mesh, **kw)
+    arrays, losses, ms = {}, [], []
+    counter = lk.fused_lstm_forward.launches
+    counter.reset()
+    for i in range(steps):
+        t0 = time.perf_counter()
+        losses.append(tr.fit_batch(*batches[i % len(batches)]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if ckpt is not None and i + 1 == MP_CKPT_AT:
+            tr.publish_train_state()
+            arrays.update(host_arrays(net.params, "saved_params/"))
+            arrays.update(host_arrays(net.updater_state, "saved_updater/"))
+            save_checkpoint(ckpt, MP_CKPT_AT, net.params,
+                            updater_state=net.updater_state)
+    torch.cuda.synchronize()
+    launches = counter.value
+    tr.finalize()
+    arrays.update(host_arrays(net.params, "params/"))
+    arrays.update(host_arrays(net.updater_state, "updater/"))
+    return net, {"losses": losses, "step_ms": ms,
+                 "step_ms_mean": float(np.mean(ms[1:])), "b5": launches,
+                 "scaling_report": tr.scaling_report()}, arrays
+
+
+def mp_w2v(mesh) -> tuple:
+    """Word2Vec NEG over `mesh`: a one-epoch fit of the topic corpus at
+    batch 4096, then one step of its `_step` on the fitted tables and the
+    corpus's first 4096 pairs, every ``index_add_`` recorded
+    (`recorded_step`) with the negatives it drew.  Across processes each
+    process applies the gathered scatter to its own copy of the tables,
+    deterministically (`parallel.mesh.sparse_allgather_step`), so every
+    process's fit and step see the same tables."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nlp import word2vec as tw
+
+    sents = topic_corpus()
+    w = tw.Word2Vec(vector_length=100, window=5, negative=5, epochs=1,
+                    batch_size=MP_W2V_B, seed=1, mesh=mesh).fit(sents)
+    encoded = [w.vocab.encode(t) for t in w._sentences_to_tokens(sents)]
+    pairs = w._make_pairs(encoded, np.random.default_rng(5))[:MP_W2V_B]
+    b = len(pairs)
+    inputs = torch.from_numpy(pairs[:, 0]).long()
+    targets = torch.from_numpy(pairs[:, 1]).long()
+    tables = [torch.from_numpy(w.syn0), torch.from_numpy(w.syn1neg)]
+    negs = w._negatives(torch.Generator(device="cuda").manual_seed(5), b)
+
+    def run(t):
+        return w._step(t[0], t[1], inputs.cuda(), targets.cuda(), 0.025,
+                       torch.ones(b, device="cuda"),
+                       torch.Generator(device="cuda").manual_seed(5))
+
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        got = recorded_step(run, tables, "cuda", "float32")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    arrays = {"inputs": inputs.numpy(), "targets": targets.numpy(),
+              "negs": negs.cpu().numpy(), "table0": w.syn0.copy(),
+              "table1": w.syn1neg.copy(),
+              "got0": got["tables"][0].cpu().numpy(),
+              "got1": got["tables"][1].cpu().numpy()}
+    for n, (i, rows, d) in enumerate(got["adds"]):
+        arrays.update({f"add{n}_i": np.asarray(i), f"add{n}_rows":
+                       rows.numpy(), f"add{n}_d": d.numpy()})
+    return {"loss": got["loss"], "adds": len(got["adds"]), "batch": b}, arrays
+
+
+def mp_w2v_check(recs: list) -> dict:
+    """Each run's NEG step (a process's of the 2-process mesh, or this
+    process's 4-shard mesh), on its own fitted tables, against the
+    float64 recompute of the one-device `neg_step` on the same tables,
+    pairs and negatives, under the nlp phase's a-priori float32 bounds
+    (`neg_step_bounds`, `scatter_bound_ratio`).  The two processes' fits
+    ("table0", "table1") and steps ("got0", "got1") must be bitwise
+    equal: every process keeps an equal replica.  The one-process fit
+    adds by the card's atomics, in their order: its distance from the
+    processes' fit is reported."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nlp import word2vec as tw
+
+    a0 = recs[0][1]
+    out = {}
+    for name, (rec, arr) in zip(("process_0", "process_1", "one_process"),
+                                recs):
+        tables = [torch.from_numpy(arr["table0"]),
+                  torch.from_numpy(arr["table1"])]
+        inputs, targets, negs = (torch.from_numpy(arr[k])
+                                 for k in ("inputs", "targets", "negs"))
+        b = int(inputs.shape[0])
+
+        def single(t):
+            return tw.neg_step(t[0], t[1], inputs, targets, negs, 0.025,
+                               torch.ones(b, dtype=t[0].dtype))
+
+        ref = recorded_step(single, tables, "cpu", "float64")
+        bounds = neg_step_bounds(tables, inputs, targets, negs, 0.025)
+        got = {"loss": rec["loss"],
+               "tables": [torch.from_numpy(arr["got0"]),
+                          torch.from_numpy(arr["got1"])],
+               "adds": [(int(arr[f"add{n}_i"]),
+                         torch.from_numpy(arr[f"add{n}_rows"]),
+                         torch.from_numpy(arr[f"add{n}_d"]))
+                        for n in range(rec["adds"])]}
+        ratio = scatter_bound_ratio(tables, got, ref, bounds)
+        out[name] = {
+            "same_pairs": all(np.array_equal(arr[k], a0[k]) for k in
+                              ("inputs", "targets", "negs")),
+            "ratio": {k: ratio[k] for k in ("updates", "tables", "loss")}}
+    out["worst_ratio"] = max(max(out[k]["ratio"].values()) for k in
+                             ("process_0", "process_1", "one_process"))
+    a1, one = recs[1][1], recs[2][1]
+    out["replicas_bitwise"] = all(np.array_equal(a1[k], a0[k]) for k in
+                                  ("table0", "table1", "got0", "got1"))
+    out["fit_max_abs_diff"] = {
+        "process_1_vs_0": max(float(np.abs(a1[k] - a0[k]).max())
+                              for k in ("table0", "table1")),
+        "one_process_vs_process_0": max(
+            float(np.abs(one[k] - a0[k]).max())
+            for k in ("table0", "table1"))}
+    return out
+
+
+def mp_write(out_dir: str, name: str, rec: dict, arrays: dict) -> None:
+    import os
+
+    np.savez(os.path.join(out_dir, f"{name}.npz"), **arrays)
+    with open(os.path.join(out_dir, f"{name}.json"), "w") as f:
+        json.dump(rec, f)
+
+
+def mp_read(out_dir: str, name: str) -> tuple:
+    import os
+
+    with open(os.path.join(out_dir, f"{name}.json")) as f:
+        rec = json.load(f)
+    with np.load(os.path.join(out_dir, f"{name}.npz")) as z:
+        return rec, {k: z[k] for k in z.files}
+
+
+def multiproc_worker(spec: dict) -> int:
+    """One process of the multiproc phase's jobs (``chip_smoke.py
+    --multiproc-worker SPEC``).  "gloo": process `rank` of 2 on card 0
+    (NCCL refuses two ranks on one card), 2 shards each: ZeRO-1 (with
+    the checkpoint), replicated, local SGD, Word2Vec NEG, then the save
+    in which process 1 is killed after its params file.  "nccl": one
+    process, an NCCL group of world size 1 over 4 shards: the
+    collectives against their one-process forms, and ZeRO-1."""
+    import os
+    import signal
+
+    import torch
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.parallel import mesh as mesh_lib
+    from deeplearning4j_tpu_torch.runtime import checkpoint as ck
+    from deeplearning4j_tpu_torch.runtime.launcher import (
+        initialize_multihost,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rank, out_dir = int(spec["rank"]), spec["out"]
+    t0 = time.perf_counter()
+    if spec["mode"] == "nccl":
+        info = initialize_multihost(spec["address"], 1, 0, device="cuda:0",
+                                    timeout_s=MP_GROUP_TIMEOUT_S)
+        mesh = mp_mesh(DP_SHARDS)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        xs = [torch.randn(4096, device="cuda", generator=gen)
+              for _ in range(DP_SHARDS)]
+        dev = torch.device("cuda", 0)
+        devs = mesh.local_devices()
+        checks = {
+            "psum": torch.equal(mesh_lib.psum(xs, dev, mesh),
+                                mesh_lib.psum(xs, dev)),
+            "pmean": torch.equal(mesh_lib.pmean(xs, dev, mesh),
+                                 mesh_lib.pmean(xs, dev)),
+            "psum_scatter": all(torch.equal(a, b) for a, b in zip(
+                mesh_lib.psum_scatter(xs, devs, mesh),
+                mesh_lib.psum_scatter(xs, devs))),
+            "all_gather": torch.equal(mesh_lib.all_gather(xs, dev, mesh),
+                                      mesh_lib.all_gather(xs, dev))}
+        _, rec, arrays = mp_train_leg(mesh, dp_char_batches(4))
+        rec.update(info=info, backend=dist.get_backend(),
+                   host_staged=mesh._host_staged, collectives=checks,
+                   worker_s=time.perf_counter() - t0)
+        mp_write(out_dir, "nccl", rec, arrays)
+        dist.destroy_process_group()
+        return 0
+    info = initialize_multihost(spec["address"], MP_PROCS, rank,
+                                backend="gloo", device="cuda:0",
+                                timeout_s=MP_GROUP_TIMEOUT_S)
+    mesh = mp_mesh(MP_LOCAL)
+    batches = dp_char_batches(4)
+    rec = {"info": info, "local_shards": mesh.local_shards(),
+           "backend": dist.get_backend(), "host_staged": mesh._host_staged}
+    arrays = {}
+    net, rec["zero1"], arr = mp_train_leg(mesh, batches, ckpt=spec["ckpt"])
+    arrays.update({"zero1/" + k: v for k, v in arr.items()})
+    _, rec["replicated"], arr = mp_train_leg(mesh, batches,
+                                             shard_update=False)
+    arrays.update({"replicated/" + k: v for k, v in arr.items()})
+    _, rec["local_sgd"], arr = mp_train_leg(mesh, batches, 2 * MP_SYNC,
+                                            sync_every=MP_SYNC)
+    arrays.update({"local_sgd/" + k: v for k, v in arr.items()})
+    rec["w2v"], arr = mp_w2v(mesh)
+    arrays.update({"w2v/" + k: v for k, v in arr.items()})
+    rec["worker_s"] = time.perf_counter() - t0
+    mp_write(out_dir, f"rank{rank}", rec, arrays)
+    # the killed save: process 1 dies right after writing its params file
+    if rank == 1:
+        def die(phase, path):
+            if phase == "shard:params.proc00001.npz":
+                os.kill(os.getpid(), signal.SIGKILL)
+        ck.set_phase_hook(die)
+    t1 = time.perf_counter()
+    try:
+        ck.save_checkpoint(spec["ckpt"], MP_KILLED_AT, net.params,
+                           updater_state=net.updater_state)
+        kill = {"save": "returned"}
+    except RuntimeError as e:
+        kill = {"save": str(e)}
+    kill["s"] = time.perf_counter() - t1
+    mp_write(out_dir, f"rank{rank}_kill", kill, {})
+    sys.stdout.flush()
+    os._exit(0)   # the group lost a member: no teardown
+
+
+def mp_spawn(out_dir: str, mode: str, n: int, extra: dict) -> list:
+    """`n` worker processes of `mode` (``chip_smoke.py --multiproc-worker``)
+    on a free local port, their output in ``out_dir``; their exit codes.
+    A job past `MP_JOB_S` is killed and fails the phase."""
+    import os
+
+    os.makedirs(out_dir, exist_ok=True)
+    port = free_base_port(1)
+    procs = []
+    for rank in range(n):
+        spec = dict(extra, mode=mode, rank=rank, out=out_dir,
+                    address=f"127.0.0.1:{port}")
+        with open(os.path.join(out_dir, f"{mode}{rank}.log"), "w") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--multiproc-worker", json.dumps(spec)],
+                cwd=os.path.dirname(os.path.abspath(__file__)),
+                stdout=log, stderr=subprocess.STDOUT))
+    deadline = time.monotonic() + MP_JOB_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(0.1, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        raise AssertionError(f"multiproc: the {mode} job passed its "
+                             f"{MP_JOB_S} s deadline:\n"
+                             + mp_logs(out_dir)) from None
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [p.returncode for p in procs]
+
+
+def mp_logs(out_dir: str) -> str:
+    import glob
+    import os
+
+    return "\n".join(f"--- {os.path.basename(p)}\n"
+                     + open(p).read()[-4000:]
+                     for p in sorted(glob.glob(os.path.join(out_dir,
+                                                            "*.log"))))
+
+
+def multiproc_phase(card: str) -> dict:
+    """Phase 27 (the module docstring): the dp phase's char-LSTM trained
+    by 2 processes of 2 shards of card 0 (gloo) against one process of
+    4 shards bitwise, their checkpoint, a killed process, Word2Vec NEG,
+    and an NCCL group of one process."""
+    import os
+    import shutil
+    import tempfile
+
+    import torch
+
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork, char_lstm
+    from deeplearning4j_tpu_torch.parallel import DataParallelTrainer
+    from deeplearning4j_tpu_torch.runtime.checkpoint import (
+        latest_checkpoint,
+        load_checkpoint,
+    )
+
+    t_phase = time.perf_counter()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tmp = tempfile.mkdtemp(prefix="chip-smoke-mp-")
+    ckpt = os.path.join(tmp, "ckpt")
+    out = {"card": card, "processes": MP_PROCS, "shards": DP_SHARDS,
+           "shards_a_process": MP_LOCAL, "backend": "gloo",
+           "config": "char_lstm(vocab 80, hidden 256), bf16 compute, f32 "
+                     "masters, adam lr 0.01",
+           "global_batch": DP_B, "shard_batch": DP_B // DP_SHARDS,
+           "steps": MP_STEPS}
+    try:
+        t0 = time.perf_counter()
+        rcs = mp_spawn(os.path.join(tmp, "gloo"), "gloo", MP_PROCS,
+                       {"ckpt": ckpt})
+        out["gloo_job_s"] = time.perf_counter() - t0
+        if rcs != [0, -9]:
+            raise AssertionError(f"multiproc: gloo job exit codes {rcs} "
+                                 f"(want [0, -9]: process 1 is killed)\n"
+                                 + mp_logs(os.path.join(tmp, "gloo")))
+        procs = [mp_read(os.path.join(tmp, "gloo"), f"rank{r}")
+                 for r in range(MP_PROCS)]
+        kill = mp_read(os.path.join(tmp, "gloo"), "rank0_kill")[0]
+        t0 = time.perf_counter()
+        rcs = mp_spawn(os.path.join(tmp, "nccl"), "nccl", 1, {})
+        out["nccl_job_s"] = time.perf_counter() - t0
+        if rcs != [0]:
+            raise AssertionError(f"multiproc: nccl job exit code {rcs}\n"
+                                 + mp_logs(os.path.join(tmp, "nccl")))
+        nccl = mp_read(os.path.join(tmp, "nccl"), "nccl")
+
+        # the same runs in this process over 4 shards, and one device
+        mesh = mp_mesh(DP_SHARDS)
+        batches = dp_char_batches(4)
+        ref = {}
+        for name, kw, steps in (
+                ("zero1", {}, MP_STEPS),
+                ("replicated", {"shard_update": False}, MP_STEPS),
+                ("local_sgd", {"sync_every": MP_SYNC}, 2 * MP_SYNC)):
+            _, rec, arr = mp_train_leg(mesh, batches, steps, **kw)
+            ref[name] = (rec, arr)
+        one = MultiLayerNetwork(char_lstm(compute_dtype="bfloat16")).init()
+        one_ms = []
+        for i in range(MP_STEPS):
+            t0 = time.perf_counter()
+            one.fit_batch(*batches[i % len(batches)])
+            one_ms.append((time.perf_counter() - t0) * 1e3)
+        del one
+        out["info"] = [p[0]["info"] for p in procs]
+        out["local_shards"] = [p[0]["local_shards"] for p in procs]
+
+        # 1. training: each process = the one-process run, bitwise
+        for name in ("zero1", "replicated", "local_sgd"):
+            rrec, rarr = ref[name]
+            leg = {"one_process_losses": rrec["losses"],
+                   "one_process_step_ms_mean": rrec["step_ms_mean"],
+                   "one_process_b5": rrec["b5"]}
+            for r, (rec, arr) in enumerate(procs):
+                mine = {k[len(name) + 1:]: v for k, v in arr.items()
+                        if k.startswith(name + "/")
+                        and not k.startswith(name + "/saved_")}
+                leg[f"process_{r}"] = {
+                    "losses_equal": rec[name]["losses"] == rrec["losses"],
+                    "trees": arrays_compare(mine, {
+                        k: v for k, v in rarr.items()
+                        if not k.startswith("saved_")}),
+                    "b5": rec[name]["b5"],
+                    "step_ms_mean": rec[name]["step_ms_mean"]}
+            out[name] = leg
+        out["b5_per_process_expected"] = MP_LOCAL * MP_STEPS
+        out["zero1_vs_replicated"] = arrays_compare(
+            ref["zero1"][1], ref["replicated"][1])
+        out["scaling_report"] = procs[0][0]["zero1"]["scaling_report"]
+        out["one_device_step_ms_mean"] = float(np.mean(one_ms[1:]))
+        bad = [f"{name} process {r}" for name in ("zero1", "replicated",
+                                                  "local_sgd")
+               for r in range(MP_PROCS)
+               if not (out[name][f"process_{r}"]["losses_equal"]
+                       and out[name][f"process_{r}"]["trees"]["bitwise"])]
+        if bad:
+            raise AssertionError(f"multiproc: not bitwise the one-process "
+                                 f"run: {bad}: {out}")
+        if not out["zero1_vs_replicated"]["bitwise"]:
+            raise AssertionError(f"multiproc: ZeRO-1 vs replicated: "
+                                 f"{out['zero1_vs_replicated']}")
+        launches = [p[0][name]["b5"] for p in procs
+                    for name in ("zero1", "replicated")]
+        if launches != [MP_LOCAL * MP_STEPS] * (2 * MP_PROCS):
+            raise AssertionError(f"multiproc: B5 launches {launches}, want "
+                                 f"{MP_LOCAL * MP_STEPS} a process and leg")
+        losses = out["zero1"]["one_process_losses"]
+        if not all(math.isfinite(v) for v in losses) or \
+                not losses[-1] < losses[0]:
+            raise AssertionError(f"multiproc: losses {losses}")
+
+        # 2. the checkpoint: the layout, a reload, the resume, the kill
+        step_dir = os.path.join(ckpt, f"ckpt-{MP_CKPT_AT}")
+        files = sorted(os.listdir(step_dir))
+        with open(os.path.join(step_dir, "meta.json")) as f:
+            meta = json.load(f)
+        net = MultiLayerNetwork(char_lstm(compute_dtype="bfloat16")).init()
+        tr = DataParallelTrainer(net, mesh=mesh)
+        like = tr._updater.init(net.params)
+        step, params, upd, _ = load_checkpoint(ckpt, net.params, like,
+                                               step=MP_CKPT_AT)
+        saved = {k[len("zero1/"):]: v for k, v in procs[0][1].items()
+                 if k.startswith("zero1/saved_")}
+        reload = arrays_compare(
+            {**host_arrays(params, "saved_params/"),
+             **host_arrays(upd, "saved_updater/")}, saved)
+        resumed_at = tr.resume(ckpt)
+        res_losses = [tr.fit_batch(*batches[i % len(batches)])
+                      for i in range(MP_CKPT_AT, MP_STEPS)]
+        tr.finalize()
+        resume = arrays_compare(
+            {**host_arrays(net.params, "params/"),
+             **host_arrays(net.updater_state, "updater/")},
+            {k: v for k, v in ref["zero1"][1].items()
+             if not k.startswith("saved_")})
+        latest = latest_checkpoint(ckpt)
+        out["checkpoint"] = {
+            "files": files, "processes": meta["processes"],
+            "reload": dict(reload, step=step),
+            "resume_one_process": dict(
+                resume, step=resumed_at,
+                losses_equal=res_losses
+                == ref["zero1"][0]["losses"][MP_CKPT_AT:]),
+            "killed_save": kill,
+            "killed_step_files": sorted(os.listdir(os.path.join(
+                ckpt, f"ckpt-{MP_KILLED_AT}"))),
+            "latest": latest.name if latest else None}
+        c = out["checkpoint"]
+        want_files = ["COMMIT", "meta.json"] + sorted(
+            f"{t}.proc0000{r}.npz" for t in ("params", "updater")
+            for r in range(MP_PROCS))
+        if not (files == want_files and meta["processes"] == MP_PROCS
+                and reload["bitwise"] and step == MP_CKPT_AT
+                and resume["bitwise"] and resumed_at == MP_CKPT_AT
+                and c["resume_one_process"]["losses_equal"]):
+            raise AssertionError(f"multiproc: checkpoint {c}")
+        if not ("barrier 'ckpt-99-written' failed" in kill["save"]
+                and kill["s"] < MP_GROUP_TIMEOUT_S + 30
+                and "COMMIT" not in c["killed_step_files"]
+                and "params.proc00001.npz" in c["killed_step_files"]
+                and c["latest"] == f"ckpt-{MP_CKPT_AT}"):
+            raise AssertionError(f"multiproc: the killed save {c}")
+
+        # 3. Word2Vec NEG: the processes' replicas bitwise equal, each
+        # run's step within the a-priori bound
+        one_w2v = mp_w2v(mesh)
+        out["w2v_neg"] = mp_w2v_check(
+            [(p[0]["w2v"], {k[4:]: v for k, v in p[1].items()
+                            if k.startswith("w2v/")}) for p in procs]
+            + [one_w2v])
+        w2v = out["w2v_neg"]
+        if not (w2v["worst_ratio"] <= 1.0 and w2v["replicas_bitwise"]
+                and all(w2v[k]["same_pairs"] for k in
+                        ("process_0", "process_1", "one_process"))):
+            raise AssertionError(f"multiproc: Word2Vec NEG {w2v}")
+
+        # 4. NCCL, one process: the collectives and ZeRO-1
+        nrec, narr = nccl
+        out["nccl"] = {
+            "info": nrec["info"], "backend": nrec["backend"],
+            "host_staged": nrec["host_staged"],
+            "collectives": nrec["collectives"], "b5": nrec["b5"],
+            "losses_equal": nrec["losses"] == ref["zero1"][0]["losses"],
+            "trees": arrays_compare(narr, {
+                k: v for k, v in ref["zero1"][1].items()
+                if not k.startswith("saved_")}),
+            "step_ms_mean": nrec["step_ms_mean"],
+            "worker_s": nrec["worker_s"]}
+        n = out["nccl"]
+        if not (n["backend"] == "nccl" and not n["host_staged"]
+                and all(n["collectives"].values())
+                and n["b5"] == DP_SHARDS * MP_STEPS and n["losses_equal"]
+                and n["trees"]["bitwise"]):
+            raise AssertionError(f"multiproc: NCCL world size 1 {n}")
+        out["worker_s"] = [p[0]["worker_s"] for p in procs]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    z = out["zero1"]
+    log(f"multiproc: char-LSTM bf16, 2 processes x 2 shards of card 0 "
+        f"(gloo) = 1 process x 4 shards bitwise (ZeRO-1, replicated, local "
+        f"SGD); B5 {[z[f'process_{r}']['b5'] for r in range(MP_PROCS)]} "
+        f"launches a process in {MP_STEPS} steps; step ms: 2 processes "
+        f"{z['process_0']['step_ms_mean']:.3f} / "
+        f"{z['process_1']['step_ms_mean']:.3f}, 1 process x 4 shards "
+        f"{z['one_process_step_ms_mean']:.3f}, one device "
+        f"{out['one_device_step_ms_mean']:.3f}, NCCL 1 process x 4 shards "
+        f"{out['nccl']['step_ms_mean']:.3f} ({card})")
+    log(f"multiproc: checkpoint {out['checkpoint']['files']} reloaded and "
+        f"resumed at 1 process bitwise; the killed save left "
+        f"{out['checkpoint']['killed_step_files']} and latest "
+        f"{out['checkpoint']['latest']}; Word2Vec NEG replicas bitwise "
+        f"{out['w2v_neg']['replicas_bitwise']}, worst error / bound "
+        f"{out['w2v_neg']['worst_ratio']:.3g}, one process's fit "
+        f"{out['w2v_neg']['fit_max_abs_diff']['one_process_vs_process_0']:.3g}"
+        f" from theirs; NCCL collectives "
+        f"{out['nccl']['collectives']}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"multiproc: phase in {out['phase_s']:.1f} s ({card})")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--only", default=",".join(PHASES),
@@ -10307,6 +10887,8 @@ def main(argv=None) -> int:
                     "SST-scale RNTN epoch with "
                     "torch.profiler and print device time by kernel "
                     "(slows them)")
+    ap.add_argument("--multiproc-worker", metavar="SPEC",
+                    help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     phases = [p for p in args.only.split(",") if p]
     unknown = set(phases) - set(PHASES)
@@ -10324,6 +10906,8 @@ def main(argv=None) -> int:
         print(f"chip_smoke: the port's package is missing ({e}); run from "
               f"the repository root", file=sys.stderr)
         return 2
+    if args.multiproc_worker:
+        return multiproc_worker(json.loads(args.multiproc_worker))
 
     # 1. facts
     name = torch.cuda.get_device_name(0)
@@ -10413,6 +10997,7 @@ def main(argv=None) -> int:
     scaleout = scaleout_phase(card) if "scaleout" in phases else None
     dp = dp_phase(card) if "dp" in phases else None
     mesh = mesh_phase(card, train) if "mesh" in phases else None
+    multiproc = multiproc_phase(card) if "multiproc" in phases else None
 
     entries = []
     if kernels_line is not None:
@@ -10587,6 +11172,15 @@ def main(argv=None) -> int:
                 {"b5": dp["launches"], "shards": dp["shards"],
                  "steps": DP_STEPS, "lstm_layers": dp["lstm_layers"]}
                 if dp else None),
+            "multiproc_launches": (
+                {"b5_per_process": {
+                    leg: [multiproc[leg][f"process_{r}"]["b5"]
+                          for r in range(MP_PROCS)]
+                    for leg in ("zero1", "replicated")},
+                 "processes": MP_PROCS, "shards_a_process": MP_LOCAL,
+                 "steps": MP_STEPS,
+                 "nccl_one_process_b5": multiproc["nccl"]["b5"]}
+                if multiproc else None),
             "max_abs_err": max(lstm["worst_abs_err"].values()),
             "max_rel_err": lstm["worst_rel_err"],
             "ms": t["kernel_ms"], "kernel_ms": t["kernel_ms"],
@@ -10648,6 +11242,8 @@ def main(argv=None) -> int:
         print(json.dumps({"dp": dp}), flush=True)
     if mesh is not None:
         print(json.dumps({"mesh": mesh}), flush=True)
+    if multiproc is not None:
+        print(json.dumps({"multiproc": multiproc}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": count}}), flush=True)

@@ -44,6 +44,16 @@ Shards on the network's device use the network's parameters; shards on
 another device get a copy for the step (the all-gather of the JAX
 plane).  A mesh that lists one card four times therefore holds one copy
 of the parameters and four slices of the ZeRO-1 moments.
+
+Over a mesh that spans processes (`runtime.launcher.initialize_multihost`
+then `make_mesh`), every process passes the same global batch, as every
+JAX host passes it to ``device_put``, and runs its own shards: their
+slices of the batch, their generators (keyed on the global shard index),
+their ZeRO-1 slices of the optimizer state.  The collectives cross the
+processes in global shard order, so the run equals one process over the
+same shard count bit for bit; the published trees (`finalize`,
+`publish_train_state`) are whole on every process, so each one's
+checkpoint file holds them all.
 """
 
 from __future__ import annotations
@@ -118,7 +128,9 @@ class DataParallelTrainer:
             raise ValueError(
                 f"DataParallelTrainer shards over one axis: mesh "
                 f"{self.mesh.shape} has other axes than {axis!r}")
-        self._devices = self.mesh.flat_devices()
+        # this process's shards: their global indices and devices
+        self._shards = self.mesh.local_shards()
+        self._devices = self.mesh.local_devices()
         if net.params is None:
             net.init()
         self._updater = make_updater(net.conf.conf.updater_config())
@@ -147,8 +159,8 @@ class DataParallelTrainer:
 
         def per_shard(vec):
             return None if vec is None else [
-                vec[j * ksh:(j + 1) * ksh].to(dev)
-                for j, dev in enumerate(self._devices)]
+                vec[g * ksh:(g + 1) * ksh].to(dev)
+                for g, dev in zip(self._shards, self._devices)]
 
         self._core = self._sharded_updater()
         self._mult_sh = per_shard(self._lr_mult_flat())
@@ -175,7 +187,8 @@ class DataParallelTrainer:
 
     def _shard_rng(self, iteration: int, shard: int,
                    device: torch.device) -> torch.Generator:
-        """Shard `shard`'s generator of `iteration`, on its device."""
+        """Global shard `shard`'s generator of `iteration`, on its
+        device."""
         seed = self.net.conf.conf.seed
         gen = torch.Generator(device=device)
         gen.manual_seed(((seed * 1_000_003 + iteration) * 1_000_003
@@ -233,9 +246,9 @@ class DataParallelTrainer:
         (a loss scale or None) multiplies what is differentiated."""
         net = self.net
         out = []
-        for i, dev in enumerate(self._devices):
+        for i, (g, dev) in enumerate(zip(self._shards, self._devices)):
             p, st = params_list[i], state_list[i]
-            rng = self._shard_rng(iteration, i, dev)
+            rng = self._shard_rng(iteration, g, dev)
             m = None if ms is None else ms[i]
             if ws is None:
                 num, st_new = net._objective(p, st, xs[i], ys[i], rng, m)
@@ -257,8 +270,10 @@ class DataParallelTrainer:
         taken from shard 0."""
         def avg(*leaves):
             if leaves[0].is_floating_point():
-                return mesh_lib.pmean([a.detach() for a in leaves], home)
-            return leaves[0].detach().to(home)
+                return mesh_lib.pmean([a.detach() for a in leaves], home,
+                                      self.mesh)
+            return mesh_lib.all_shards(leaves, home,
+                                       self.mesh)[0].detach().to(home)
         return map_tree(avg, *states)
 
     # ---- the synchronous step ----------------------------------------------
@@ -281,11 +296,11 @@ class DataParallelTrainer:
         nums = [pc[0] for pc in pieces]
         new_state = self._mean_state([pc[3] for pc in pieces], home)
         if weights is None:
-            loss, denom = mesh_lib.pmean(nums, home), None
+            loss, denom = mesh_lib.pmean(nums, home, self.mesh), None
         else:
             denom = torch.clamp(mesh_lib.psum([pc[1] for pc in pieces],
-                                              home), min=1.0)
-            loss = mesh_lib.psum(nums, home) / denom
+                                              home, self.mesh), min=1.0)
+            loss = mesh_lib.psum(nums, home, self.mesh) / denom
         reg_grads = None
         if weights is not None and net._has_reg():
             # the replicated term, added once after the reduction
@@ -312,10 +327,12 @@ class DataParallelTrainer:
         home = net.device
         n_leaves = len(grad_shards[0])
         if denom is None:
-            flat = [mesh_lib.pmean([g[j] for g in grad_shards], home)
+            flat = [mesh_lib.pmean([g[j] for g in grad_shards], home,
+                                   self.mesh)
                     for j in range(n_leaves)]
         else:
-            flat = [mesh_lib.psum([g[j] for g in grad_shards], home) / denom
+            flat = [mesh_lib.psum([g[j] for g in grad_shards], home,
+                                  self.mesh) / denom
                     for j in range(n_leaves)]
         if scfg is not None:
             flat = [unscale_grads(g, sc["scale"]) for g in flat]
@@ -395,7 +412,7 @@ class DataParallelTrainer:
         home = self.net.device
         if ucfg.clip_norm is not None:
             gnorm = torch.sqrt(mesh_lib.psum(
-                [torch.sum(torch.square(g)) for g in gs], home))
+                [torch.sum(torch.square(g)) for g in gs], home, self.mesh))
             factor = torch.clamp(ucfg.clip_norm / (gnorm + 1e-12), max=1.0)
             gs = [g * factor.to(device=g.device, dtype=g.dtype) for g in gs]
         if ucfg.unit_norm:
@@ -403,7 +420,7 @@ class DataParallelTrainer:
                                  device=g.device).index_add_(
                 0, ids, torch.square(g))
                 for g, ids in zip(gs, self._ids_sh)]
-            norms = torch.sqrt(mesh_lib.psum(parts, home))
+            norms = torch.sqrt(mesh_lib.psum(parts, home, self.mesh))
             gs = [g / (norms.to(g.device)[ids] + 1e-12)
                   for g, ids in zip(gs, self._ids_sh)]
         return gs
@@ -440,8 +457,8 @@ class DataParallelTrainer:
                          for s in fresh if s != "step"))
         scaled = net.precision.loss_scale is not None
         shards = []
-        for j, dev in enumerate(self._devices):
-            sl = slice(j * ksh, (j + 1) * ksh)
+        for g, dev in zip(self._shards, self._devices):
+            sl = slice(g * ksh, (g + 1) * ksh)
             st = self._core.init({"p": flat_p[sl].to(dev)})
             if adopt:
                 for slot in st:
@@ -467,7 +484,7 @@ class DataParallelTrainer:
         k, ksh = self._flat_k, self._ksh
         n = self.n_devices
         flats = [_flat(g, k) for g in grad_shards]
-        g_sh = mesh_lib.psum_scatter(flats, self._devices)
+        g_sh = mesh_lib.psum_scatter(flats, self._devices, self.mesh)
         g_sh = [g / (n if denom is None else denom.to(g.device))
                 for g in g_sh]
         if scfg is not None:
@@ -475,15 +492,16 @@ class DataParallelTrainer:
         if reg_grads is not None:
             r = _flat(reg_grads, k)
             g_sh = [g + r[j * ksh:(j + 1) * ksh].to(g.device)
-                    for j, g in enumerate(g_sh)]
+                    for j, g in zip(self._shards, g_sh)]
         finite = None
         if scfg is not None:
-            finite = shard_update_finite(g_sh, loss)
+            finite = shard_update_finite(g_sh, loss, self.mesh)
         gnorm = torch.sqrt(mesh_lib.psum(
-            [torch.sum(torch.square(g.float())) for g in g_sh], home))
+            [torch.sum(torch.square(g.float())) for g in g_sh], home,
+            self.mesh))
         flat_p = _flat([t.detach() for t in _layer_leaves(net.params)], k)
-        p_sh = [flat_p[j * ksh:(j + 1) * ksh].to(dev)
-                for j, dev in enumerate(self._devices)]
+        p_sh = [flat_p[g * ksh:(g + 1) * ksh].to(dev)
+                for g, dev in zip(self._shards, self._devices)]
         g2 = self._shard_pre_apply(g_sh, p_sh)
         new_sh = []
         for j, dev in enumerate(self._devices):
@@ -509,7 +527,7 @@ class DataParallelTrainer:
             net._scaler_state = update_scaler_state(scfg, sc, finite)
         else:
             net.state = new_state
-        full = mesh_lib.all_gather(new_sh, home)
+        full = mesh_lib.all_gather(new_sh, home, self.mesh)
         with torch.no_grad():
             off = 0
             for t in _layer_leaves(net.params):
@@ -537,7 +555,7 @@ class DataParallelTrainer:
                 out["step"] = node.detach().clone()
                 continue
             full = mesh_lib.all_gather([s[slot]["p"] for s in
-                                        self._opt_shard], home)
+                                        self._opt_shard], home, self.mesh)
             out[slot] = map_tree(torch.clone,
                                  self._unflat_into(full, net.params))
         net.updater_state = out
@@ -586,8 +604,8 @@ class DataParallelTrainer:
             apply_updates(params, updates)
             rep[1] = map_tree(lambda t: t.detach(), st_new)
         home = net.device
-        return (mesh_lib.pmean([pc[0] for pc in pieces], home),
-                mesh_lib.pmean(gnorms, home))
+        return (mesh_lib.pmean([pc[0] for pc in pieces], home, self.mesh),
+                mesh_lib.pmean(gnorms, home, self.mesh))
 
     def _averaged_rep(self) -> list:
         """The replica average of the per-replica state (floating leaves;
@@ -601,7 +619,7 @@ class DataParallelTrainer:
         def avg_tree(trees):
             means = map_tree(
                 lambda *leaves: mesh_lib.pmean([a.detach() for a in leaves],
-                                               home)
+                                               home, self.mesh)
                 if leaves[0].is_floating_point() else None, *trees)
             return [map_tree(lambda t, m: t.detach().clone() if m is None
                              else m.to(t.device).clone(), tree, means)
@@ -612,9 +630,9 @@ class DataParallelTrainer:
             flats = [_flat([t.detach() for t in _layer_leaves(p)],
                            self._flat_k)
                      for p in params]
-            sh = [s / n for s in mesh_lib.psum_scatter(flats,
-                                                       self._devices)]
-            full = mesh_lib.all_gather(sh, home)
+            sh = [s / n for s in mesh_lib.psum_scatter(
+                flats, self._devices, self.mesh)]
+            full = mesh_lib.all_gather(sh, home, self.mesh)
             avg_p = [map_tree(lambda t: t.to(dev).clone(),
                               self._unflat_into(full, self.net.params))
                      for dev in self._devices]
@@ -853,11 +871,14 @@ class DataParallelTrainer:
             collective = "psum_scatter+all_gather (zero-1 weight update)"
         else:
             collective = "pmean"
-        return {
+        out = {
             "devices": self.n_devices,
             "mesh": dict(self.mesh.shape),
             "collective": collective,
         }
+        if self.mesh.distributed:
+            out["processes"] = self.mesh.process_count
+        return out
 
 
 __all__ = ["DataParallelTrainer"]

@@ -96,7 +96,9 @@ def make_accum_train_step(cfg: tfm.TransformerConfig, lr: float = 1e-3,
     mean loss on its device, and the gradients and losses meet in
     `mesh.pmean` (row-weighted when a microbatch does not split evenly):
     the gradient of the microbatch's mean loss, as GSPMD computes it
-    for the JAX step over a sharded batch."""
+    for the JAX step over a sharded batch.  A mesh that spans processes
+    is refused (`mesh.refuse_spanning`)."""
+    mesh_lib.refuse_spanning(mesh, "make_accum_train_step")
     compute_dtype = tfm.torch_dtype(cfg.dtype)
     transform = make_updater(UpdaterConfig(
         updater=updater, learning_rate=lr, clip_norm=clip_norm,
@@ -161,13 +163,14 @@ def _spmd_grads(mesh, loss_fn, params, tok_mb, tgt_mb):
             ls.append(l.detach().float())
             ws.append(tk.shape[0] / rows)
         if len(set(ws)) == 1 and len(ws) == len(devices):
-            g = [mesh_lib.pmean([gj[k] for gj in gs], home)
+            g = [mesh_lib.pmean([gj[k] for gj in gs], home, mesh)
                  for k in range(len(gs[0]))]
-            l = mesh_lib.pmean(ls, home)
+            l = mesh_lib.pmean(ls, home, mesh)
         else:
-            g = [mesh_lib.psum([gj[k] * w for gj, w in zip(gs, ws)], home)
+            g = [mesh_lib.psum([gj[k] * w for gj, w in zip(gs, ws)], home,
+                               mesh)
                  for k in range(len(gs[0]))]
-            l = mesh_lib.psum([li * w for li, w in zip(ls, ws)], home)
+            l = mesh_lib.psum([li * w for li, w in zip(ls, ws)], home, mesh)
         total = g if total is None else [a + b for a, b in zip(total, g)]
         loss = loss + l
     it = iter([g / accum if accum > 1 else g for g in total])
@@ -185,6 +188,7 @@ def place_params(mesh: mesh_lib.Mesh, tree, spec_tree):
     leaf split on dim `dim` over axis `axis` as the list of its slices
     (a shard list), slice i on the device at coordinate i of `axis` (0
     on the other axes).  Leaves may be tensors or numpy arrays."""
+    mesh_lib.refuse_spanning(mesh, "place_params")
     first = mesh.flat_devices()[0]
 
     def place(spec, leaf):
@@ -257,6 +261,7 @@ class HybridParallelTrainer:
                  axes: tfm.MeshAxes = tfm.MeshAxes(),
                  updater: str = "sgd", shard_update: bool = True,
                  params=None):
+        mesh_lib.refuse_spanning(mesh, "HybridParallelTrainer")
         self.cfg = cfg
         self.mesh = mesh
         self.lr = lr
@@ -414,6 +419,7 @@ class PipelineParallelTrainer:
                  data_axis: str = "data", stage_axis: str = "stage",
                  updater: str = "sgd", shard_update: bool = True,
                  params=None):
+        mesh_lib.refuse_spanning(mesh, "PipelineParallelTrainer")
         if cfg.n_experts:
             raise ValueError("pipeline trainer uses dense MLP blocks; "
                              "train MoE configs on the dp/sp/tp/ep mesh")

@@ -48,7 +48,11 @@ from torch.utils.checkpoint import checkpoint
 from deeplearning4j_tpu_torch.device import DeviceLike, resolve_device
 from deeplearning4j_tpu_torch.parallel import partition as part_lib
 from deeplearning4j_tpu_torch.parallel.kernels import NEG_INF, flash_attention
-from deeplearning4j_tpu_torch.parallel.mesh import Mesh, psum
+from deeplearning4j_tpu_torch.parallel.mesh import (
+    Mesh,
+    psum,
+    refuse_spanning,
+)
 from deeplearning4j_tpu_torch.parallel.ring_attention import (
     attention,
     ring_flash_attention,
@@ -520,6 +524,7 @@ class _Grid:
     each shard."""
 
     def __init__(self, mesh: Mesh, axes: MeshAxes):
+        refuse_spanning(mesh, "the transformer's mesh program")
         names = (axes.data, axes.seq, axes.model)
         extra = [a for a in mesh.axis_names if a not in names]
         if extra:

@@ -88,18 +88,20 @@ def grads_finite(grads: Tree) -> torch.Tensor:
 
 
 def shard_update_finite(g_shards: Sequence[torch.Tensor],
-                        loss: torch.Tensor) -> torch.Tensor:
+                        loss: torch.Tensor, mesh=None) -> torch.Tensor:
     """The lockstep verdict of the ZeRO-1 step: each shard holds only its
     slice of the flat gradient, so a local check would let one shard skip
     while another steps.  The non-finite count of every slice (in
     float32), summed in shard order on the loss's device, must be 0, and
     the (already reduced) loss finite: one 0-d bool for all shards,
-    computed on the device with no host read."""
+    computed on the device with no host read.  Over a `mesh` that spans
+    processes `g_shards` are this process's slices and the counts cross
+    the process group, so every process reaches the same verdict."""
+    from deeplearning4j_tpu_torch.parallel.mesh import psum
+
     dev = loss.device
     bad = [torch.sum(~torch.isfinite(g.float())).to(dev) for g in g_shards]
-    total = bad[0]
-    for b in bad[1:]:
-        total = total + b
+    total = psum(bad, dev, mesh)
     return torch.logical_and(total == 0, torch.isfinite(loss))
 
 

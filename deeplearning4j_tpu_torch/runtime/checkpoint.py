@@ -27,6 +27,12 @@ the recorded checksums and raise a typed `CheckpointCorruptError`; the
 newest-first loader skips corrupt steps (logging which and why) and
 falls back to the previous good one.  Either package loads the other's
 checkpoints, at any shard count the JAX package writes.
+
+A job of several processes (`runtime.launcher.initialize_multihost`)
+writes the JAX package's v1 per-host layout instead: every process its
+own ``params.proc{index:05d}.npz`` (and ``updater`` / ``state``), then a
+barrier, then ``meta.json`` (``"processes"``) and ``COMMIT`` from
+process 0, then a second barrier; each process loads its own file back.
 """
 
 from __future__ import annotations
@@ -47,6 +53,11 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.parallel import partition
+from deeplearning4j_tpu_torch.parallel.mesh import (
+    process_count,
+    process_index,
+    sync_processes,
+)
 from deeplearning4j_tpu_torch.tree import KEYPATH_SEP, flatten_tree, map_tree
 
 PyTree = Any
@@ -342,31 +353,19 @@ def load_params(net, path: os.PathLike, mode: str = "binary") -> None:
 # --------------------------------------------------------------------------
 # Train-state checkpoints (params + updater state + step)
 #
-# The sharded v2 format with two-phase atomic commit.  The JAX package's
-# multi-host writer (per-host shard files with COMMIT barriers) is
-# multi-process work and is refused here (ROADMAP.md, A7 part 3); its v1
-# single-host checkpoints (``params.proc00000.npz``) still load.
+# One process (which includes every multi-device mesh of one process):
+# the sharded v2 format with two-phase atomic commit.  A job of several
+# processes (a `torch.distributed` group of world size > 1): the JAX
+# package's v1 per-host format — every process writes its own
+# ``params.proc{index:05d}.npz`` (and ``updater`` / ``state``), a
+# barrier, process 0 alone writes ``meta.json``, ``COMMIT`` and the
+# retention, a second barrier.  A staging-dir rename cannot span
+# processes, so there the COMMIT marker is the commit.
 
-def _process_count() -> int:
-    """Processes of this job: the `torch.distributed` world size when a
-    process group is up, else 1."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return int(dist.get_world_size())
-    return 1
-
-
-def _refuse_multi_host(what: str) -> None:
-    n = _process_count()
-    if n > 1:
-        raise NotImplementedError(
-            f"{what}: multi-host checkpoints ({n} processes) are not "
-            f"ported (ROADMAP.md, queue A7 part 3, 'Multi-process')")
-
-
-# the v1 single-host checkpoint's shard-file suffix (process 0)
-_V1_HOST = "proc00000"
+def _host_suffix() -> str:
+    """This process's v1 shard-file suffix: ``proc{index:05d}``, process 0
+    in a one-process job."""
+    return f"proc{process_index():05d}"
 
 
 _TMP_PREFIX = ".tmp-ckpt-"
@@ -381,10 +380,12 @@ _PHASE_HOOK = None
 def set_phase_hook(hook):
     """Install `hook(phase: str, path)` fired between the single-host
     writer's durability phases (`begin`, `shard:<file>`, `meta`,
-    `manifest`, `commit_marker`, `committed`).  The chaos harness uses
-    it to simulate kill -9 at every commit boundary and tests use it to
-    snapshot intermediate directory states.  Returns the previous hook;
-    pass None to uninstall."""
+    `manifest`, `commit_marker`, `committed`), and in a job of several
+    processes after each of this process's files (`shard:<file>`) and,
+    on process 0, after the COMMIT marker (`committed`).  The chaos
+    harness uses it to simulate kill -9 at every commit boundary and
+    tests use it to snapshot intermediate directory states.  Returns the
+    previous hook; pass None to uninstall."""
     global _PHASE_HOOK
     prev = _PHASE_HOOK
     _PHASE_HOOK = hook
@@ -560,11 +561,18 @@ def save_checkpoint(directory: os.PathLike, step: int, params: PyTree,
     newest-`keep` window.  `net_state` additionally persists
     non-parameter layer state (batch-norm running stats) — the
     resilience supervisor saves it so rollback/resume can't revive
-    poisoned or stale statistics.  A multi-process job is refused
-    (ROADMAP.md, A7 part 3)."""
-    _refuse_multi_host("save_checkpoint")
+    poisoned or stale statistics.
+
+    In a job of several processes every process calls this with its
+    (whole) trees: each writes its own per-host files and process 0
+    commits after a barrier (`_save_multi_host`); `shards` and `spec`
+    are ignored there, as in the JAX package."""
     directory = pathlib.Path(directory)
     ckpt = directory / f"ckpt-{step}"
+    if process_count() > 1:
+        return _save_multi_host(directory, ckpt, step, params,
+                                updater_state, net_state, extra, keep,
+                                score, keep_best)
     directory.mkdir(parents=True, exist_ok=True)
     # (orphan sweeping happens once per save, inside _gc_checkpoints)
     retention = _manifest_for_update(directory)
@@ -659,9 +667,44 @@ def save_checkpoint(directory: os.PathLike, step: int, params: PyTree,
     return ckpt
 
 
+def _save_multi_host(directory: pathlib.Path, ckpt: pathlib.Path,
+                     step: int, params: PyTree,
+                     updater_state: Optional[PyTree],
+                     net_state: Optional[PyTree], extra: Optional[dict],
+                     keep: int, score: Optional[float],
+                     keep_best: bool) -> pathlib.Path:
+    """The JAX package's multi-host writer: this process's files
+    (`_host_suffix`), the ``written`` barrier (every process's files are
+    on disk before anyone commits), process 0 alone writes ``meta.json``
+    and ``COMMIT`` and runs the retention and GC, the ``committed``
+    barrier.  A process that dies before the first barrier fails its
+    peers there (at the group's timeout at the latest), so no COMMIT
+    appears and `latest_checkpoint` keeps the previous step."""
+    ckpt.mkdir(parents=True, exist_ok=True)
+    for name, tree in (("params", params), ("updater", updater_state),
+                       ("state", net_state)):
+        if tree is not None:
+            fname = f"{name}.{_host_suffix()}.npz"
+            tree_to_npz(ckpt / fname, tree)
+            _phase(f"shard:{fname}", ckpt)
+    sync_processes(f"ckpt-{step}-written")
+    if process_index() == 0:
+        # read the retention state BEFORE committing: after the marker
+        # lands, a missing manifest would read as corruption
+        retention = _manifest_for_update(directory)
+        meta = _ckpt_meta(step, extra, score)
+        (ckpt / "meta.json").write_text(json.dumps(meta, indent=2))
+        (ckpt / "COMMIT").write_text("ok")
+        _phase("committed", ckpt)
+        _update_retention(directory, step, meta, score, keep, keep_best,
+                          retention)
+    sync_processes(f"ckpt-{step}-committed")
+    return ckpt
+
+
 def _ckpt_meta(step: int, extra: Optional[dict],
                score: Optional[float]) -> dict:
-    meta = {"step": int(step), "processes": _process_count(),
+    meta = {"step": int(step), "processes": process_count(),
             "extra": extra or {},
             "saved_at": time.strftime("%Y-%m-%dT%H:%M:%S")}
     if score is not None:
@@ -945,7 +988,7 @@ def load_net_state(ckpt: os.PathLike, like: PyTree) -> Optional[PyTree]:
         # check=True: the state shards hash-verify on this read (a
         # caller's earlier verify pass does not protect THIS read)
         return _join_tree_v2(ckpt, manifest, "state", like, check=True)
-    path = ckpt / f"state.{_V1_HOST}.npz"
+    path = ckpt / f"state.{_host_suffix()}.npz"
     if not path.exists():
         return None
     return npz_to_tree(path, like)
@@ -1009,10 +1052,10 @@ def _load_one_impl(ckpt: pathlib.Path, params_like: PyTree,
         if verify and not list(ckpt.glob("params.*.npz")):
             raise CheckpointCorruptError(
                 f"{ckpt} has no params shard files", path=ckpt)
-        params = npz_to_tree(ckpt / f"params.{_V1_HOST}.npz",
+        params = npz_to_tree(ckpt / f"params.{_host_suffix()}.npz",
                              params_like)
         upd = None
-        upd_path = ckpt / f"updater.{_V1_HOST}.npz"
+        upd_path = ckpt / f"updater.{_host_suffix()}.npz"
         if updater_like is not None and upd_path.exists():
             upd = npz_to_tree(upd_path, updater_like)
     return meta["step"], params, upd, meta.get("extra", {})
@@ -1175,7 +1218,10 @@ class AsyncCheckpointListener(CheckpointListener):
     context manager) to flush the last write; a closed listener raises
     if it keeps receiving iterations.
 
-    Single-process only, as in the JAX package.
+    Single-process only, as in the JAX package: `save_checkpoint`'s
+    barriers cannot run on a background thread (processes could disagree
+    on skips and deadlock the collective); a job of several processes
+    uses the synchronous `CheckpointListener`.
     """
 
     def __init__(self, directory: os.PathLike, every: int = 100,
@@ -1185,7 +1231,11 @@ class AsyncCheckpointListener(CheckpointListener):
 
         super().__init__(directory, every=every, keep=keep,
                          save_updater=save_updater)
-        _refuse_multi_host("AsyncCheckpointListener")
+        if process_count() > 1:
+            raise NotImplementedError(
+                "AsyncCheckpointListener is single-host (background-"
+                "thread barriers would deadlock); use CheckpointListener "
+                "in multi-host jobs")
         self._queue = queue.Queue(maxsize=1)
         self._queue_full = queue.Full
         self._closed = False

@@ -1,6 +1,10 @@
-"""Process launching and the cluster config registry (counterpart of
-`deeplearning4j_tpu.runtime.launcher`).
+"""Process launching, the cluster config registry and pod provisioning
+(counterpart of `deeplearning4j_tpu.runtime.launcher`).
 
+- `initialize_multihost`: joins this process to the job's
+  `torch.distributed` process group, the counterpart of
+  `jax.distributed.initialize` (NCCL on the card, gloo on the CPU);
+  `parallel.mesh.make_mesh` then builds the mesh over every process;
 - `ClusterConfigRegistry`: register/retrieve JSON configs cluster-wide,
   backed by a shared directory or a tracker's global map (the reference's
   ZooKeeper config register);
@@ -10,11 +14,11 @@
   tearing its process group down;
 - `replica_serve_command` / `FleetProcessLauncher`: one ``cli serve``
   worker process per serving replica, supervised by
-  `serving.procfleet.FleetSupervisor`.
-
-The JAX module's `initialize_multihost` (a ``jax.distributed`` call) and
-`TpuPodProvisioner` (gcloud TPU commands) are multi-host work and are not
-ported (ROADMAP.md, A7 part 3).
+  `serving.procfleet.FleetSupervisor`;
+- `TpuPodProvisioner`: the gcloud TPU-VM command lines for a pod slice
+  (create, ssh fan-out, scp, delete), the JAX module's, argument for
+  argument.  Generating them is in scope; running them needs cloud
+  credentials.
 """
 
 from __future__ import annotations
@@ -29,6 +33,62 @@ import sys
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional
+
+
+def initialize_multihost(coordinator_address: Optional[str] = None,
+                         num_processes: Optional[int] = None,
+                         process_id: Optional[int] = None, *,
+                         backend: Optional[str] = None,
+                         device=None, timeout_s: float = 600.0) -> dict:
+    """Join this process to the job's `torch.distributed` process group
+    and return JAX's summary: ``process_index``, ``process_count``,
+    ``local_devices`` (the cards this process was given: 1 when `device`
+    names one, every visible card when it is left to the default, 1 on
+    the CPU) and ``global_devices`` (their sum over the processes).
+
+    `coordinator_address` (``host:port`` of process 0's rendezvous) makes
+    a ``tcp://`` rendezvous with `num_processes` and `process_id`; with
+    no address torch's ``env://`` rendezvous reads the launcher's
+    variables (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``,
+    ``RANK``), as `jax.distributed` discovers a TPU pod.  `device`
+    follows the port's device rule (`device.resolve_device`: the card by
+    default, `RuntimeError` without one; ``"cpu"`` asks for the CPU) and
+    picks the backend: NCCL on a card, gloo on the CPU.  `backend`
+    overrides that choice explicitly (``"gloo"`` for several processes
+    on one card, which NCCL refuses).  A collective or barrier that
+    waits longer than `timeout_s` for a peer fails."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.device import resolve_device
+
+    dev = resolve_device(device)
+    if backend is None:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+    kwargs = {}
+    if num_processes is not None:
+        kwargs["world_size"] = int(num_processes)
+    if process_id is not None:
+        kwargs["rank"] = int(process_id)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group(
+        backend=backend,
+        init_method=("env://" if coordinator_address is None
+                     else f"tcp://{coordinator_address}"),
+        timeout=datetime.timedelta(seconds=float(timeout_s)), **kwargs)
+    local = (torch.cuda.device_count()
+             if dev.type == "cuda" and device is None else 1)
+    counts: list = [None] * dist.get_world_size()
+    dist.all_gather_object(counts, local)
+    return {
+        "process_index": dist.get_rank(),
+        "process_count": dist.get_world_size(),
+        "local_devices": local,
+        "global_devices": sum(counts),
+    }
 
 
 class ClusterConfigRegistry:
@@ -486,6 +546,65 @@ class FleetProcessLauncher:
         return out
 
 
+@dataclass
+class TpuPodProvisioner:
+    """gcloud command generation for a TPU pod slice (EC2-provisioner
+    parity — declarative box creation + per-host command fan-out)."""
+
+    name: str
+    zone: str
+    accelerator_type: str = "v5litepod-8"
+    runtime_version: str = "v2-alpha-tpuv5-lite"
+    project: Optional[str] = None
+    labels: Dict[str, str] = field(default_factory=dict)
+
+    def _flag(self, name: str, value: str) -> List[str]:
+        return [f"--{name}={value}"]
+
+    def create_command(self, spot: bool = False) -> List[str]:
+        cmd = ["gcloud", "compute", "tpus", "tpu-vm", "create", self.name,
+               *self._flag("zone", self.zone),
+               *self._flag("accelerator-type", self.accelerator_type),
+               *self._flag("version", self.runtime_version)]
+        if self.project:
+            cmd += self._flag("project", self.project)
+        if spot:
+            cmd.append("--spot")
+        if self.labels:
+            cmd += self._flag("labels", ",".join(
+                f"{k}={v}" for k, v in sorted(self.labels.items())))
+        return cmd
+
+    def run_command(self, shell_command: str,
+                    worker: str = "all") -> List[str]:
+        """SSH fan-out to pod workers (HostProvisioner.runRemoteCommand)."""
+        cmd = ["gcloud", "compute", "tpus", "tpu-vm", "ssh", self.name,
+               *self._flag("zone", self.zone),
+               *self._flag("worker", worker),
+               *self._flag("command", shell_command)]
+        if self.project:
+            cmd += self._flag("project", self.project)
+        return cmd
+
+    def scp_command(self, local: str, remote: str,
+                    worker: str = "all") -> List[str]:
+        cmd = ["gcloud", "compute", "tpus", "tpu-vm", "scp", local,
+               f"{self.name}:{remote}",
+               *self._flag("zone", self.zone),
+               *self._flag("worker", worker)]
+        if self.project:
+            cmd += self._flag("project", self.project)
+        return cmd
+
+    def delete_command(self) -> List[str]:
+        cmd = ["gcloud", "compute", "tpus", "tpu-vm", "delete", self.name,
+               *self._flag("zone", self.zone), "--quiet"]
+        if self.project:
+            cmd += self._flag("project", self.project)
+        return cmd
+
+
 __all__ = ["ClusterConfigRegistry", "FleetProcessLauncher",
-           "WorkerSpawnError", "kill_process_tree", "replica_serve_command",
-           "rotate_log", "spawn_logged", "tail_lines"]
+           "TpuPodProvisioner", "WorkerSpawnError", "initialize_multihost",
+           "kill_process_tree", "replica_serve_command", "rotate_log",
+           "spawn_logged", "tail_lines"]

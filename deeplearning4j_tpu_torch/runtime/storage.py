@@ -15,10 +15,10 @@ object-store SPI:
 Every store exposes bytes-level ops plus dir sync; the checkpoint and
 model helpers sit on the port's `runtime/checkpoint.py`, and the dataset
 helper on its `datasets/fetchers.py`, so a training job points a
-checkpoint at `gs://bucket/run42` as it would at a local path.  A
-multi-process job's remote checkpoint (per-host shards, COMMIT uploaded
-after a barrier) is refused, as the local writer refuses it (ROADMAP.md,
-A7 part 3).
+checkpoint at `gs://bucket/run42` as it would at a local path.  In a
+job of several processes every process uploads its own per-host shard
+files, a barrier waits for all of them, and only then does process 0
+upload ``COMMIT``, as the JAX package orders it.
 """
 
 from __future__ import annotations
@@ -240,21 +240,30 @@ def save_checkpoint_remote(url: str, step: int, params, updater_state=None,
     """save_checkpoint into a temp dir, then mirror to `url/ckpt-{step}`.
     The COMMIT marker would go up in upload_dir's sorted walk among the
     shards (uppercase sorts first), so it is held back and uploaded
-    last: a reader never sees a committed, half-written checkpoint."""
+    last: a reader never sees a committed, half-written checkpoint.  In
+    a job of several processes each process's temp dir holds its own
+    shard files (COMMIT and meta.json only on process 0): every process
+    uploads, a barrier waits for all, then process 0 uploads COMMIT, and
+    a second barrier returns them together."""
+    from deeplearning4j_tpu_torch.parallel.mesh import sync_processes
     from deeplearning4j_tpu_torch.runtime import checkpoint as ckpt_lib
 
-    ckpt_lib._refuse_multi_host("save_checkpoint_remote")
     store, base = get_store(url)
     with tempfile.TemporaryDirectory() as tmp:
         local = ckpt_lib.save_checkpoint(tmp, step, params,
                                          updater_state=updater_state,
                                          extra=extra, keep=0)
         commit = local / "COMMIT"
-        commit_data = commit.read_bytes()
-        commit.unlink()
+        commit_data = commit.read_bytes() if commit.exists() else None
+        if commit_data is not None:
+            commit.unlink()
         dest = posixpath.join(base, f"ckpt-{step}")
         store.upload_dir(local, dest)
-        store.write_bytes(posixpath.join(dest, "COMMIT"), commit_data)
+        # every process's shards are up before the marker goes up
+        sync_processes(f"remote-ckpt-{step}-uploaded")
+        if commit_data is not None:
+            store.write_bytes(posixpath.join(dest, "COMMIT"), commit_data)
+        sync_processes(f"remote-ckpt-{step}-committed")
     return posixpath.join(url.rstrip("/"), f"ckpt-{step}")
 
 

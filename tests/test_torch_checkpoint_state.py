@@ -16,9 +16,11 @@ snapshots) against the JAX package's:
   step; a corrupt retention manifest is refused naming
   `rebuild_manifest`, which rebuilds it;
 - `CheckpointListener` and `AsyncCheckpointListener`, and the multi-host
-  refusal (ROADMAP.md, A7).
+  layout (ROADMAP.md, A7; `tests/test_torch_multiprocess.py` runs it
+  over real processes).
 """
 
+import json
 import logging
 import os
 import shutil
@@ -404,7 +406,7 @@ def test_structure_mismatch_is_typed(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# Listeners and the multi-host refusal
+# Listeners and the multi-host layout
 
 
 def test_checkpoint_listener_saves_periodically(tmp_path):
@@ -443,8 +445,14 @@ def test_async_listener_snapshots_the_trigger_state(tmp_path):
 
 
 def test_multi_host_checkpoints_name_a7(tmp_path, monkeypatch):
-    monkeypatch.setattr(tck, "_process_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="A7"):
-        save_checkpoint(tmp_path, 1, _tnet().params)
-    with pytest.raises(NotImplementedError, match="A7"):
+    """A7 part 3a: a job of several processes (the count patched to 2 in
+    this one process, which is process 0) writes JAX's v1 per-host
+    layout, and the async listener refuses with JAX's text."""
+    monkeypatch.setattr(tck, "process_count", lambda: 2)
+    save_checkpoint(tmp_path, 1, _tnet().params)
+    ckpt = tmp_path / "ckpt-1"
+    assert sorted(p.name for p in ckpt.iterdir()) == [
+        "COMMIT", "meta.json", "params.proc00000.npz"]
+    assert json.loads((ckpt / "meta.json").read_text())["processes"] == 2
+    with pytest.raises(NotImplementedError, match="single-host"):
         AsyncCheckpointListener(tmp_path)

@@ -35,7 +35,9 @@ and the CLI's ``-replicas`` check against the cards present.  The LM
 mesh trainers: ring attention over 4 sequence shards of card 0 against
 the one-device flash kernels (10 / 16 block pairs), and one step of the
 hybrid and the pipeline trainer against the one-device step with their
-launch counts.
+launch counts.  Training across processes: 2 gloo processes of 2 shards
+of card 0 against one process of 4 shards, bitwise, and an NCCL group of
+one process running the mesh collectives.
 
 Every test carries the ``cuda`` marker and decides inside the test
 whether a card is present, skipping with a reason when not (the kernels
@@ -2594,3 +2596,98 @@ def test_mesh_step_on_the_card_matches_one_device(no_tf32, kind):
         {"fwd": fwd, "dkv": fwd // 2, "dq": fwd // 2}
     assert abs(got_loss - float(loss)) <= 1e-5 * abs(float(loss))
     assert _leaf_change_err(tree, tr.export_params(), want) <= 1e-3
+
+
+# ---- training across processes: gloo on card 0, NCCL of one process --------
+
+def test_two_gloo_processes_on_card_0_equal_one_process_bitwise(tmp_path,
+                                                               no_tf32):
+    """2 processes x 2 shards of card 0 (gloo: NCCL refuses two ranks on
+    one card), 3 ZeRO-1 steps of a bf16 char-LSTM: losses, parameters and
+    moments bitwise those of 1 process x 4 shards, B5 = 2 shards x 3 a
+    process."""
+    _need_card()
+    import torch_multiproc_worker as w
+
+    rcs = w.run_job(tmp_path / "job", ["card_dp"], {"device": "cuda:0"},
+                    timeout_s=60, deadline_s=240)
+    assert rcs == [0, 0], w.job_logs(tmp_path / "job")
+    losses, params, upd, b5 = w.card_dp_run(
+        w.host_mesh(per_process=4, device="cuda:0"))
+    assert b5 == 4 * 3
+    for rank in range(2):
+        res, arrays = w.job_results(tmp_path / "job", rank)
+        assert res["losses"] == losses and res["b5"] == 2 * 3
+        for prefix, want in (("params/", params), ("updater/", upd)):
+            got = {k[len(prefix):]: v for k, v in arrays.items()
+                   if k.startswith(prefix)}
+            assert set(got) == set(want)
+            for k in want:
+                assert np.array_equal(got[k], want[k]), k
+
+
+def test_embedding_replicas_stay_bitwise_equal_across_processes(tmp_path):
+    """Word2Vec NEG and GloVe ``mesh=`` over 2 gloo processes x 2 shards
+    of card 0: each process applies the gathered scatter to its own copy
+    of the tables, deterministically, so the copies end bitwise equal
+    (the card's atomic ``index_add_`` rounded them apart)."""
+    _need_card()
+    import torch_multiproc_worker as w
+
+    rcs = w.run_job(tmp_path / "job", ["card_embeddings"],
+                    {"device": "cuda:0"}, timeout_s=60, deadline_s=240)
+    assert rcs == [0, 0], w.job_logs(tmp_path / "job")
+    (_, a0), (_, a1) = (w.job_results(tmp_path / "job", r)
+                        for r in range(2))
+    assert set(a0) == set(a1) and a0
+    for k in a0:
+        assert np.array_equal(a0[k], a1[k]), k
+
+
+def test_nccl_group_of_one_process_runs_the_collectives(no_tf32):
+    """An NCCL group of world size 1 (the card's default backend) over 4
+    shards of card 0: psum, pmean, psum_scatter and all_gather through
+    the process group equal their one-process forms, and a ZeRO-1 run
+    over it equals the one-process mesh bitwise."""
+    _need_card()
+    import socket
+
+    import torch.distributed as dist
+
+    import torch_multiproc_worker as w
+    from deeplearning4j_tpu_torch.parallel import mesh as mesh_lib
+    from deeplearning4j_tpu_torch.runtime.launcher import (
+        initialize_multihost,
+    )
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    info = initialize_multihost(f"127.0.0.1:{port}", 1, 0, timeout_s=60)
+    try:
+        assert dist.get_backend() == "nccl"
+        assert info["process_count"] == 1 and info["process_index"] == 0
+        mesh = w.host_mesh(per_process=4, device="cuda:0")
+        assert mesh.distributed and not mesh._host_staged
+        dev = torch.device("cuda", 0)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        xs = [torch.randn(4096, device="cuda", generator=gen)
+              for _ in range(4)]
+        devs = mesh.local_devices()
+        assert torch.equal(mesh_lib.psum(xs, dev, mesh),
+                           mesh_lib.psum(xs, dev))
+        assert torch.equal(mesh_lib.pmean(xs, dev, mesh),
+                           mesh_lib.pmean(xs, dev))
+        assert all(torch.equal(a, b) for a, b in zip(
+            mesh_lib.psum_scatter(xs, devs, mesh),
+            mesh_lib.psum_scatter(xs, devs)))
+        assert torch.equal(mesh_lib.all_gather(xs, dev, mesh),
+                           mesh_lib.all_gather(xs, dev))
+        got = w.card_dp_run(mesh)
+    finally:
+        dist.destroy_process_group()
+    want = w.card_dp_run(w.host_mesh(per_process=4, device="cuda:0"))
+    assert got[0] == want[0] and got[3] == want[3] == 12
+    for a, b in ((got[1], want[1]), (got[2], want[2])):
+        assert set(a) == set(b)
+        assert all(np.array_equal(a[k], b[k]) for k in b)
