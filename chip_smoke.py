@@ -426,17 +426,19 @@ Phases (any failure exits non-zero, and no result line is printed):
              replica, peak memory.
 26. mesh   — the LM mesh trainers, 4 shards on one card
              (``devices=[cuda:0] * 4``): `HybridParallelTrainer` at
-             ``gpt2_small(max_len=1024)`` width (bf16 compute, f32
-             masters, Adam, 8 x 1024) on the (data 1, seq 2, model 2)
-             mesh `_lm_mesh_layout` picks for 4 devices, 2 + 3 steps at
-             lr 3e-4 beside the one-device step on the same batch:
-             losses finite and falling, flash launches a step B2 = (1 +
-             remat) L dp tp sp (sp + 1) / 2 = 144, B3 = B4 = 72; the
+             ``gpt2_small(max_len=1024)`` width, 4 layers deep (bf16
+             compute, f32 masters, Adam, 8 x 1024) on the (data 1, seq
+             2, model 2) mesh `_lm_mesh_layout` picks for 4 devices, 2 +
+             3 steps at lr 3e-4 beside the one-device step on the same
+             batch: losses finite and falling, flash launches a step B2
+             = B3 = B4 = L dp tp sp (sp + 1) / 2 = 24 (remat recomputes
+             each shard's stretch between exchanges, not the ring); the
              `PipelineParallelTrainer` on (data 1, stage 4), 2
-             microbatches: B2 = 2 L m = 48, B3 = B4 = 24; the moe
-             phase's config on (1, 2, 2), 2 steps, every dispatch over
-             the global tokens at the global capacity; float32, TF32
-             off: one SGD step of each trainer at batch 2 vs the
+             microbatches: B2 = 2 L m = 16, B3 = B4 = 8; the moe
+             phase's config, 4 layers, on (1, 2, 2), 2 steps, every
+             dispatch over the global tokens at the global capacity;
+             float32, TF32 off, 4 layers: one SGD step of each trainer
+             at batch 2 vs the
              one-device step (loss within 1e-5 relative, each leaf's
              change within 1e-3 of its largest change) and ZeRO-1 =
              replicated bitwise on (2, 1, 2) and (2, 2) (2 layers, 3
@@ -470,8 +472,21 @@ Phases (any failure exits non-zero, and no result line is printed):
              process's 4-shard step within the nlp phase's a-priori
              bound; an NCCL group of one process over 4 shards (the
              collectives equal to their one-process forms, ZeRO-1
-             bitwise, B5 = 40).  Recorded: ms a step at 2 processes,
-             1 process x 4 shards, NCCL, one device.
+             bitwise, B5 = 40); then the LM mesh trainers by 2 gloo
+             processes x 2 shards at ``gpt2_small`` width (bf16 compute,
+             f32 masters, Adam, ZeRO-1, 4 x 1024, 3 steps):
+             `HybridParallelTrainer` on (1, 2, 2) (the ring across the
+             processes) and (2, 1, 2) at 2 layers, the moe phase's 8
+             experts top-2 on (1, 1, 4) at 2 layers, and the
+             `PipelineParallelTrainer` on (1, 4) at 4 layers with 4
+             microbatches: losses and every exported leaf bitwise those
+             of the same runs over this process's 4 shards, B2 / B3 / B4
+             a step each process's own block pairs (the (1, 2, 2) ring:
+             4 and 8) and summed the one process's.  Recorded: ms a
+             step at 2 processes, 1 process x 4 shards, NCCL, one
+             device; the LM legs' ms a step at 2 processes, 1 process x
+             4 shards and one device, and the bytes each process sends
+             the other a step.
 
 Kernel times (``ms``, ``plain_ms``, ``library_ms``) are device time per
 call (`device_ms`: the calls are queued behind a spin kernel, so they run
@@ -9775,6 +9790,7 @@ def dp_phase(card: str) -> dict:
 # phase 26: the LM mesh trainers, 4 shards on one card
 
 MESH_SHARDS = 4
+MESH_LAYERS = 4                  # gpt2_small's 12 cut to 4 for time
 MESH_WARMUP, MESH_STEPS = 2, 3
 MESH_MOE_STEPS = 2
 # Adam's rate for the full-width legs: at the train phase's 1e-3 the
@@ -9873,9 +9889,11 @@ def hybrid_shard_bytes(trainer) -> dict:
 
 
 def mesh_full_width(card: str, train) -> dict:
-    """Legs 1-2: the hybrid and the pipeline trainer at gpt2_small width,
-    bf16 compute, Adam, global batch 8 x 1024, the layouts
-    `_lm_mesh_layout` picks for 4 devices."""
+    """Legs 1-2: the hybrid and the pipeline trainer at gpt2_small width
+    (`MESH_LAYERS` deep), bf16 compute, Adam, global batch 8 x 1024, the
+    layouts `_lm_mesh_layout` picks for 4 devices."""
+    import dataclasses
+
     import torch
 
     from deeplearning4j_tpu_torch.cli import _lm_mesh_layout
@@ -9886,7 +9904,8 @@ def mesh_full_width(card: str, train) -> dict:
     )
     from deeplearning4j_tpu_torch.tree import tree_leaves
 
-    cfg = tfm.gpt2_small(max_len=TRAIN_SEQ)
+    cfg = dataclasses.replace(tfm.gpt2_small(max_len=TRAIN_SEQ),
+                              n_layers=MESH_LAYERS)
     tree = tfm.numpy_params(cfg, seed=0)
     tokens, targets = mesh_batch(cfg, TRAIN_BATCH)
     L, remat = cfg.n_layers, int(cfg.remat)
@@ -9906,7 +9925,9 @@ def mesh_full_width(card: str, train) -> dict:
     pairs = sp * (sp + 1) // 2
     tr = HybridParallelTrainer(cfg, mesh_of(shape, ("data", "seq", "model")),
                                lr=MESH_LR, updater="adam", params=tree)
-    want = {"flash_fwd": (1 + remat) * L * dp * tp * pairs,
+    # remat recomputes each shard's stretch between two exchanges, not
+    # the ring: B2 once a block pair
+    want = {"flash_fwd": L * dp * tp * pairs,
             "flash_bwd_dkv": L * dp * tp * pairs,
             "flash_bwd_dq": L * dp * tp * pairs}
     leg = mesh_train_leg("hybrid", tr, tokens, targets, want)
@@ -9967,14 +9988,17 @@ class OneDeviceLM:
 
 
 def mesh_moe(card: str) -> dict:
-    """Leg 3: the moe phase's config on (1, 2, 2), 2 steps: finite
-    losses, and every dispatch's capacity that of the global tokens."""
+    """Leg 3: the moe phase's config (`MESH_LAYERS` deep) on (1, 2, 2), 2
+    steps: finite losses, and every dispatch's capacity that of the
+    global tokens."""
+    import dataclasses
+
     import torch
 
     from deeplearning4j_tpu_torch.parallel import transformer as tfm
     from deeplearning4j_tpu_torch.parallel.hybrid import HybridParallelTrainer
 
-    cfg = moe_config()
+    cfg = dataclasses.replace(moe_config(), n_layers=MESH_LAYERS)
     tokens, targets = mesh_batch(cfg, TRAIN_BATCH)
     tr = HybridParallelTrainer(cfg, mesh_of((1, 2, 2), ("data", "seq",
                                                         "model")),
@@ -10040,8 +10064,8 @@ def leaf_change_errors(init: dict, got: dict, want: dict) -> tuple:
 
 
 def mesh_f32_parity() -> dict:
-    """Leg 4: float32 at full width, TF32 off.  One SGD step of each
-    trainer at batch 2 x 1024 against the one-device
+    """Leg 4: float32 at full width (`MESH_LAYERS` deep), TF32 off.  One
+    SGD step of each trainer at batch 2 x 1024 against the one-device
     `make_accum_train_step`; then ZeRO-1 = replicated bitwise on (2, 1,
     2) and (2, 2) with 2 layers and 3 Adam steps."""
     import dataclasses
@@ -10061,7 +10085,7 @@ def mesh_f32_parity() -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         cfg = dataclasses.replace(tfm.gpt2_small(max_len=TRAIN_SEQ),
-                                  dtype="float32")
+                                  dtype="float32", n_layers=MESH_LAYERS)
         tree = tfm.numpy_params(cfg, seed=0)
         tokens, targets = mesh_batch(cfg, MESH_PARITY_B)
         params = _master_f32(tfm.params_from_numpy(tree, device="cuda"))
@@ -10148,6 +10172,7 @@ def ring_case(dtype_name: str, causal: bool) -> dict:
     import torch
 
     from deeplearning4j_tpu_torch.parallel.kernels import flash_attention
+    from deeplearning4j_tpu_torch.parallel.mesh import Program, make_mesh
     from deeplearning4j_tpu_torch.parallel.ring_attention import (
         ring_flash_attention,
     )
@@ -10163,9 +10188,16 @@ def ring_case(dtype_name: str, causal: bool) -> dict:
         out = flash_attention(*leaves, causal)
         return (out, *torch.autograd.grad(out, leaves, g))
 
+    mesh = make_mesh((MESH_SHARDS,), ("seq",),
+                     devices=["cuda:0"] * MESH_SHARDS)
+
     def ring():
-        blocks = [list(t.chunk(MESH_SHARDS, dim=1)) for t in leaves]
-        out = torch.cat(ring_flash_attention(*blocks, "seq", causal), dim=1)
+        # the trainers' ring: one program over the mesh, dicts of blocks
+        blocks = [dict(enumerate(t.chunk(MESH_SHARDS, dim=1)))
+                  for t in leaves]
+        out = ring_flash_attention(*blocks, "seq", causal,
+                                   program=Program(mesh))
+        out = torch.cat([out[s] for s in range(MESH_SHARDS)], dim=1)
         return (out, *torch.autograd.grad(out, leaves, g))
 
     want = whole()
@@ -10330,6 +10362,16 @@ MP_SYNC = 4                        # local SGD: 2 rounds of 4 steps
 MP_GROUP_TIMEOUT_S = 120           # a collective's or barrier's wait
 MP_JOB_S = 420                     # a job's deadline
 MP_W2V_B = 4096
+# the LM mesh trainers across the 2 processes: gpt2_small width, bf16
+# compute, f32 masters, Adam, ZeRO-1, global batch 4 x 1024, 3 steps;
+# depth cut to 2 layers (4 for the pipeline, one a stage)
+MP_LM_B, MP_LM_STEPS, MP_LM_MICROBATCHES = 4, 3, 4
+MP_LM_LEGS = (("hybrid_1x2x2", "hybrid", (1, 2, 2), 2),   # the ring
+              ("hybrid_2x1x2", "hybrid", (2, 1, 2), 2),   # data, ZeRO-1
+              ("moe_1x1x4", "moe", (1, 1, 4), 2),         # experts
+              ("pipeline_1x4", "pipeline", (1, 4), 4))    # the hops
+MP_LM_AXES = {"hybrid": ("data", "seq", "model"),
+              "moe": ("data", "seq", "model"), "pipeline": ("data", "stage")}
 
 
 def mp_mesh(local: int):
@@ -10502,6 +10544,105 @@ def mp_w2v_check(recs: list) -> dict:
     return out
 
 
+def mp_lm_config(kind: str, layers: int):
+    import dataclasses
+
+    from deeplearning4j_tpu_torch.parallel.transformer import gpt2_small
+
+    base = (moe_config() if kind == "moe"
+            else gpt2_small(max_len=TRAIN_SEQ))
+    return dataclasses.replace(base, n_layers=layers)
+
+
+def mp_lm_want(kind: str, shape, layers: int, shards) -> dict:
+    """B2 / B3 / B4 launches a step of the mesh shards `shards`: a ring
+    block at seq position j runs j + 1 causal block pairs a layer, once
+    (the mesh program recomputes each shard's stretch between two
+    exchanges, not the ring); a pipeline stage runs the flash kernels
+    once a microbatch and layer, B2 twice (the stage is recomputed)."""
+    if kind == "pipeline":
+        per = layers // shape[1] * MP_LM_MICROBATCHES * len(shards)
+        return {"flash_fwd": 2 * per, "flash_bwd_dkv": per,
+                "flash_bwd_dq": per}
+    sp, tp = shape[1], shape[2]
+    pairs = layers * sum((s // tp) % sp + 1 for s in shards)
+    return {"flash_fwd": pairs, "flash_bwd_dkv": pairs,
+            "flash_bwd_dq": pairs}
+
+
+def leaf_digests(flat: dict) -> dict:
+    """sha256 of each leaf's bytes: two runs' leaves compared bitwise
+    without moving them between processes."""
+    import hashlib
+
+    return {k: hashlib.sha256(np.ascontiguousarray(v).tobytes()).hexdigest()
+            for k, v in flat.items()}
+
+
+def mp_lm_leg(kind: str, shape, layers: int, mesh) -> dict:
+    """`MP_LM_STEPS` steps of one LM leg over `mesh` from
+    ``numpy_params(seed=0)`` on the train phase's tokens: losses, ms a
+    step (host wall, each step read back), B2 / B3 / B4 launches a step
+    (counts set to 0 just before, read just after), the bytes this
+    process sent to the other a step, the exported leaves' digests."""
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel import mesh as mesh_lib
+    from deeplearning4j_tpu_torch.parallel.hybrid import (
+        HybridParallelTrainer,
+        PipelineParallelTrainer,
+    )
+    from deeplearning4j_tpu_torch.parallel.transformer import numpy_params
+    from deeplearning4j_tpu_torch.tree import flatten_tree
+
+    cfg = mp_lm_config(kind, layers)
+    tree = numpy_params(cfg, seed=0)
+    tokens, targets = mesh_batch(cfg, MP_LM_B)
+    if kind == "pipeline":
+        tr = PipelineParallelTrainer(cfg, mesh,
+                                     n_microbatches=MP_LM_MICROBATCHES,
+                                     lr=MESH_LR, updater="adam", params=tree)
+    else:
+        tr = HybridParallelTrainer(cfg, mesh, lr=MESH_LR, updater="adam",
+                                   params=tree)
+    counters = flash_counters()
+    torch.cuda.synchronize()
+    for c in (*counters.values(), mesh_lib.P2P_SENT):
+        c.reset()
+    losses, ms = [], []
+    for _ in range(MP_LM_STEPS):
+        t0 = time.perf_counter()
+        losses.append(tr.fit_batch(tokens, targets))        # waits
+        ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    out = {"mesh": list(shape), "layers": layers, "losses": losses,
+           "step_ms": ms, "step_ms_mean": float(np.mean(ms[1:])),
+           "launches_per_step": {n: c.value / MP_LM_STEPS
+                                 for n, c in counters.items()},
+           "bytes_sent_per_step": mesh_lib.P2P_SENT.value / MP_LM_STEPS,
+           "digests": leaf_digests(flatten_tree(tr.export_params()))}
+    del tr
+    torch.cuda.empty_cache()
+    return out
+
+
+def mp_lm_legs(local: int) -> dict:
+    """Every leg of `MP_LM_LEGS` over a 4-shard mesh of card 0, `local`
+    shards in this process (every process builds every mesh, in order)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+
+    out = {}
+    for name, kind, shape, layers in MP_LM_LEGS:
+        mesh = make_mesh(shape, MP_LM_AXES[kind],
+                         devices=[torch.device("cuda", 0)] * local)
+        out[name] = mp_lm_leg(kind, shape, layers, mesh)
+        out[name]["want"] = mp_lm_want(kind, shape, layers,
+                                       mesh.local_shards())
+    return out
+
+
 def mp_write(out_dir: str, name: str, rec: dict, arrays: dict) -> None:
     import os
 
@@ -10526,7 +10667,9 @@ def multiproc_worker(spec: dict) -> int:
     the checkpoint), replicated, local SGD, Word2Vec NEG, then the save
     in which process 1 is killed after its params file.  "nccl": one
     process, an NCCL group of world size 1 over 4 shards: the
-    collectives against their one-process forms, and ZeRO-1."""
+    collectives against their one-process forms, and ZeRO-1.  "lm":
+    process `rank` of 2 (gloo) on card 0, 2 shards each: the LM mesh
+    trainers' legs (`MP_LM_LEGS`)."""
     import os
     import signal
 
@@ -10542,6 +10685,15 @@ def multiproc_worker(spec: dict) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     rank, out_dir = int(spec["rank"]), spec["out"]
     t0 = time.perf_counter()
+    if spec["mode"] == "lm":
+        info = initialize_multihost(spec["address"], MP_PROCS, rank,
+                                    backend="gloo", device="cuda:0",
+                                    timeout_s=MP_GROUP_TIMEOUT_S)
+        rec = {"info": info, "legs": mp_lm_legs(MP_LOCAL)}
+        rec["worker_s"] = time.perf_counter() - t0
+        mp_write(out_dir, f"lm{rank}", rec, {})
+        dist.destroy_process_group()
+        return 0
     if spec["mode"] == "nccl":
         info = initialize_multihost(spec["address"], 1, 0, device="cuda:0",
                                     timeout_s=MP_GROUP_TIMEOUT_S)
@@ -10649,6 +10801,78 @@ def mp_logs(out_dir: str) -> str:
                      + open(p).read()[-4000:]
                      for p in sorted(glob.glob(os.path.join(out_dir,
                                                             "*.log"))))
+
+
+def mp_lm_phase(out_dir: str) -> dict:
+    """The LM legs by 2 gloo processes of 2 shards of card 0, then the
+    same legs in this process over ``[cuda:0] * 4`` and the one-device
+    step on the same configs: every process's losses and leaves bitwise
+    this process's, each process's launches its own block pairs' and the
+    two adding up to this process's."""
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel.transformer import numpy_params
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rcs = mp_spawn(out_dir, "lm", MP_PROCS, {})
+    job_s = time.perf_counter() - t0
+    if rcs != [0] * MP_PROCS:
+        raise AssertionError(f"multiproc lm: job exit codes {rcs}\n"
+                             + mp_logs(out_dir))
+    procs = [mp_read(out_dir, f"lm{r}")[0] for r in range(MP_PROCS)]
+    one = mp_lm_legs(DP_SHARDS)
+    out = {"job_s": job_s, "config": "gpt2_small width (vocab 50304, d "
+           "768, 12 heads x 64, d_ff 3072, tied, attention biases), bf16 "
+           "compute, f32 masters, adam lr 3e-4, ZeRO-1",
+           "global_batch": [MP_LM_B, TRAIN_SEQ], "steps": MP_LM_STEPS,
+           "worker_s": [p["worker_s"] for p in procs]}
+    bad = []
+    for name, kind, shape, layers in MP_LM_LEGS:
+        ref = one[name]
+        cfg = mp_lm_config(kind, layers)
+        dev = OneDeviceLM(cfg, numpy_params(cfg, seed=0))
+        tokens, targets = mesh_batch(cfg, MP_LM_B)
+        ms = []
+        for _ in range(MP_LM_STEPS):
+            ts = time.perf_counter()
+            dev.fit_batch(tokens, targets)
+            ms.append((time.perf_counter() - ts) * 1e3)
+        del dev
+        torch.cuda.empty_cache()
+        leg = {"mesh": list(shape), "layers": layers,
+               "losses": ref["losses"],
+               "one_process_step_ms_mean": ref["step_ms_mean"],
+               "one_device_step_ms_mean": float(np.mean(ms[1:])),
+               "one_process_launches_per_step": ref["launches_per_step"],
+               "want_one_process": ref["want"]}
+        total = {k: 0.0 for k in ref["launches_per_step"]}
+        for r, rec in enumerate(procs):
+            mine = rec["legs"][name]
+            for k, v in mine["launches_per_step"].items():
+                total[k] += v
+            leg[f"process_{r}"] = {
+                "losses_equal": mine["losses"] == ref["losses"],
+                "leaves_bitwise": mine["digests"] == ref["digests"],
+                "leaves": len(mine["digests"]),
+                "step_ms_mean": mine["step_ms_mean"],
+                "launches_per_step": mine["launches_per_step"],
+                "want": mine["want"],
+                "bytes_sent_per_step": mine["bytes_sent_per_step"]}
+            p = leg[f"process_{r}"]
+            if not (p["losses_equal"] and p["leaves_bitwise"]
+                    and p["launches_per_step"] == p["want"]):
+                bad.append(f"{name} process {r}: {p}")
+        leg["launches_summed"] = total
+        if not (total == ref["launches_per_step"] == ref["want"]
+                and all(math.isfinite(v) for v in ref["losses"])):
+            bad.append(f"{name}: one process {ref['launches_per_step']}, "
+                       f"want {ref['want']}, summed {total}, losses "
+                       f"{ref['losses']}")
+        out[name] = leg
+    if bad:
+        raise AssertionError("multiproc lm: " + "; ".join(bad))
+    return out
 
 
 def multiproc_phase(card: str) -> dict:
@@ -10848,6 +11072,9 @@ def multiproc_phase(card: str) -> dict:
                 and n["trees"]["bitwise"]):
             raise AssertionError(f"multiproc: NCCL world size 1 {n}")
         out["worker_s"] = [p[0]["worker_s"] for p in procs]
+
+        # 5. the LM mesh trainers: each process = one process, bitwise
+        out["lm"] = mp_lm_phase(os.path.join(tmp, "lm"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
         torch.backends.cuda.matmul.allow_tf32 = tf32
@@ -10870,6 +11097,19 @@ def multiproc_phase(card: str) -> dict:
         f"{out['w2v_neg']['fit_max_abs_diff']['one_process_vs_process_0']:.3g}"
         f" from theirs; NCCL collectives "
         f"{out['nccl']['collectives']}")
+    for name, *_ in MP_LM_LEGS:
+        leg = out["lm"][name]
+        per = [leg[f"process_{r}"] for r in range(MP_PROCS)]
+        log(f"multiproc: LM {name} (gpt2_small width, {leg['layers']} "
+            f"layers, bf16, Adam ZeRO-1, batch {MP_LM_B} x {TRAIN_SEQ}), 2 "
+            f"processes x 2 shards = 1 process x 4 bitwise: losses "
+            f"{[round(v, 4) for v in leg['losses']]}; B2 a step "
+            f"{[p['launches_per_step']['flash_fwd'] for p in per]} (sum "
+            f"{leg['launches_summed']['flash_fwd']}); step ms: 2 processes "
+            f"{[round(p['step_ms_mean'], 1) for p in per]}, 1 process x 4 "
+            f"shards {leg['one_process_step_ms_mean']:.1f}, one device "
+            f"{leg['one_device_step_ms_mean']:.1f}; bytes sent a step "
+            f"{[int(p['bytes_sent_per_step']) for p in per]} ({card})")
     out["phase_s"] = time.perf_counter() - t_phase
     log(f"multiproc: phase in {out['phase_s']:.1f} s ({card})")
     return out
@@ -11093,6 +11333,14 @@ def main(argv=None) -> int:
                      "ring": {f"{r['dtype']} causal {r['causal']}":
                               r["launches"][kname] for r in mesh["ring"]}}
                     if mesh else None),
+                "multiproc_launches": (
+                    {name: {"per_process_per_step": [
+                        multiproc["lm"][name][f"process_{r}"][
+                            "launches_per_step"][kname]
+                        for r in range(MP_PROCS)],
+                        "one_process_per_step": multiproc["lm"][name][
+                            "one_process_launches_per_step"][kname]}
+                     for name, *_ in MP_LM_LEGS} if multiproc else None),
                 "moe_launches": (
                     {"train": moe["launches"][kname],
                      "train_per_step": moe["launches_per_step"][kname],

@@ -4,14 +4,20 @@
 The sequence dimension is split over a mesh axis: shard i holds the
 query, key and value block of positions ``[i * S_local, (i + 1) *
 S_local)``, and the key / value blocks rotate one step around the ring
-(`mesh.ppermute`) while each shard folds the block it holds into its
+(`Program.ppermute`) while each shard folds the block it holds into its
 running softmax, so the result is exact attention over the whole
 sequence with O(S / P) memory a shard.  At ring step r, shard i holds
 block ``(i - r) mod P``, as under ``lax.ppermute`` in JAX.
 
-The JAX functions run inside ``shard_map`` on one local block; the
-port's single controller passes the ring's blocks as lists, one tensor a
-shard in axis order, each on its shard's device, and gets a list back.
+The JAX functions run inside ``shard_map`` on one local block.  The port
+runs one SPMD program a process (`mesh.Program`): q, k and v are dicts
+``{shard: block}`` over this process's shards of every ring along the
+axis at once, each block at its global ring position, and the blocks hop
+through the program's exchanges (a copy, or nothing, within a process; a
+send paired with a receive across two).  The pairs a shard computes
+depend on global block indices only, so a ring cut over processes
+computes the same pairs, bit for bit, as in one process.  A caller with
+one process's blocks builds the program over a one-process mesh.
 ``axis_name=None`` is the one-shard case: single tensors, the
 single-device path.
 
@@ -33,7 +39,7 @@ single-device path.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
@@ -44,7 +50,27 @@ from deeplearning4j_tpu_torch.parallel.kernels import (
     flash_forward,
     row_delta,
 )
-from deeplearning4j_tpu_torch.parallel.mesh import ppermute
+from deeplearning4j_tpu_torch.parallel.mesh import Program
+
+
+class _ProgramRing:
+    """Every ring along `axis` of a `Program`, as this process holds it:
+    its local shards' blocks (in `program.local` order) at their global
+    positions, hops through `Program.hop` (one exchange for all lists)."""
+
+    def __init__(self, program: Program, axis: str):
+        # the tensor-free wiring: the autograd node keeps this object
+        self.wiring, self.axis = program.wiring, axis
+        self.n = program.mesh.shape.get(axis, 1)
+        self.pos = [program.mesh.coord(s, axis) for s in program.local]
+
+    def hop(self, *lists) -> List[list]:
+        if self.n == 1:
+            return [list(b) for b in lists]
+        keys = self.wiring.local
+        moved = self.wiring.hop(self.axis, 1,
+                                *(dict(zip(keys, b)) for b in lists))
+        return [[m[k] for k in keys] for m in moved]
 
 
 def _block_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -74,38 +100,51 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (o / lsum.clamp_min(1e-30)[..., None]).to(q.dtype)
 
 
-def _check_ring(q, k, v) -> int:
-    n = len(q)
-    if not (n == len(k) == len(v)) or n == 0:
-        raise ValueError(f"ring blocks: {len(q)} q, {len(k)} k, {len(v)} v "
-                         f"shards; need the same number, at least one")
+def _local_blocks(q, k, v, axis_name: str, program: Optional[Program]):
+    """This process's q, k and v blocks as lists in `program.local`
+    order; ValueError unless `program` is given, the three dicts hold
+    the same shards and the blocks share one shape."""
+    if program is None:
+        raise ValueError(f"a ring over {axis_name!r} needs the program of "
+                         f"its mesh (program=)")
+    keys = program.local
+    if not (set(q) == set(k) == set(v) == set(keys)):
+        raise ValueError(f"ring blocks: q on shards {sorted(q)}, k on "
+                         f"{sorted(k)}, v on {sorted(v)}; need the same "
+                         f"number, on the program's local shards {keys}")
+    q, k, v = ([t[s] for s in keys] for t in (q, k, v))
     shapes = {tuple(t.shape) for t in (*q, *k, *v)}
-    if len(shapes) != 1:
+    if len(shapes) > 1:
         raise ValueError(f"ring blocks must share one shape [B, S_local, H, "
                          f"D], got {sorted(shapes)}")
-    return n
+    return keys, q, k, v
 
 
-def ring_attention(q, k, v, axis_name: Optional[str], causal: bool = True):
+def ring_attention(q, k, v, axis_name: Optional[str], causal: bool = True,
+                   program: Optional[Program] = None):
     """Attention with the sequence cut over `axis_name`: q, k and v are
-    the ring's local blocks ``[B, S_local, H, D]`` (lists in axis order);
-    returns the list of output blocks.  ``axis_name=None``: single
-    tensors through `attention`.  Differentiated by autograd."""
+    dicts of the ring's local blocks ``[B, S_local, H, D]`` over
+    `program`'s shards; returns the output blocks alike.
+    ``axis_name=None``: single tensors through `attention`.
+    Differentiated by autograd (`Program.ppermute` for the hops)."""
     if axis_name is None:
         return attention(q, k, v, causal)
-    n = _check_ring(q, k, v)
+    keys, q, k, v = _local_blocks(q, k, v, axis_name, program)
+    n = program.mesh.shape.get(axis_name, 1)
+    pos = [program.mesh.coord(s, axis_name) for s in keys]
     devices = [t.device for t in q]
-    b, s_local, h, dh = q[0].shape
+    b, s_local, h, dh = q[0].shape if q else (0, 0, 0, 0)
     m = [torch.full((b, s_local, h), NEG_INF, device=d) for d in devices]
     lsum = [torch.zeros((b, s_local, h), device=d) for d in devices]
     o = [torch.zeros((b, s_local, h, dh), device=d) for d in devices]
-    ks, vs, kv_idx = list(k), list(v), list(range(n))
-    pos = torch.arange(s_local)
-    for _ in range(n):
-        for i in range(n):
+    ks, vs = list(k), list(v)
+    idx = torch.arange(s_local)
+    for r in range(n):
+        for i in range(len(q)):
+            kv = (pos[i] - r) % n
             if causal:
-                mask = ((i * s_local + pos)[:, None]
-                        >= (kv_idx[i] * s_local + pos)[None, :])
+                mask = ((pos[i] * s_local + idx)[:, None]
+                        >= (kv * s_local + idx)[None, :])
             else:
                 mask = torch.ones(s_local, s_local, dtype=torch.bool)
             bm, bl, bo = _block_attn(q[i], ks[i], vs[i],
@@ -116,10 +155,13 @@ def ring_attention(q, k, v, axis_name: Optional[str], causal: bool = True):
             lsum[i] = lsum[i] * scale_old + bl * scale_new
             o[i] = o[i] * scale_old[..., None] + bo * scale_new[..., None]
             m[i] = new_m
-        ks, vs = ppermute(ks), ppermute(vs)
-        kv_idx = kv_idx[-1:] + kv_idx[:-1]
-    return [(oi / li.clamp_min(1e-30)[..., None]).to(qi.dtype)
-            for oi, li, qi in zip(o, lsum, q)]
+        if r == n - 1:
+            break
+        ks = list(program.ppermute(dict(zip(keys, ks)), axis_name).values())
+        vs = list(program.ppermute(dict(zip(keys, vs)), axis_name).values())
+    out = [(oi / li.clamp_min(1e-30)[..., None]).to(qi.dtype)
+           for oi, li, qi in zip(o, lsum, q)]
+    return dict(zip(keys, out))
 
 
 def _ring_cases(causal: bool, my_idx: int, kv_idx: int) -> int:
@@ -135,21 +177,21 @@ def _unfold_rows(x: torch.Tensor, b: int, h: int) -> torch.Tensor:
 
 
 def _ring_flash_forward(q: Sequence[torch.Tensor], k: Sequence[torch.Tensor],
-                        v: Sequence[torch.Tensor], causal: bool):
+                        v: Sequence[torch.Tensor], causal: bool, ring):
     """The forward ring: (outputs in q's dtype, global lse ``[B*H,
-    S_local]`` float32) a shard."""
-    n = len(q)
-    devices = [t.device for t in q]
-    b, s_local, h, _ = q[0].shape
+    S_local]`` float32) a local block.  At step r the block at position p
+    holds key / value block ``(p - r) mod n``."""
+    n = ring.n
     o = [torch.zeros_like(t) for t in q]
-    lse = [torch.full((b * h, s_local), NEG_INF, dtype=torch.float32,
-                      device=d) for d in devices]
-    ks, vs, kv_idx = list(k), list(v), list(range(n))
-    for _ in range(n):
-        for i in range(n):
-            case = _ring_cases(causal, i, kv_idx[i])
+    lse = [torch.full((t.shape[0] * t.shape[2], t.shape[1]), NEG_INF,
+                      dtype=torch.float32, device=t.device) for t in q]
+    ks, vs = list(k), list(v)
+    for r in range(n):
+        for i, p in enumerate(ring.pos):
+            case = _ring_cases(causal, p, (p - r) % n)
             if case == 0:
                 continue
+            b, _, h, _ = q[i].shape
             bo, blse = flash_forward(q[i], ks[i], vs[i], case == 1)
             # lse-weighted combine of normalised block outputs; the
             # weights are exponentials of non-positive numbers
@@ -158,16 +200,16 @@ def _ring_flash_forward(q: Sequence[torch.Tensor], k: Sequence[torch.Tensor],
             w_new = _unfold_rows(torch.exp(blse - new_lse), b, h)
             o[i] = (o[i].float() * w_old + bo.float() * w_new).to(q[i].dtype)
             lse[i] = new_lse
-        ks, vs = ppermute(ks), ppermute(vs)
-        kv_idx = kv_idx[-1:] + kv_idx[:-1]
+        if r < n - 1:
+            ks, vs = ring.hop(ks, vs)
     return o, lse
 
 
-def _ring_flash_backward(q, k, v, o, lse, g, causal: bool):
-    """The second ring pass: (dq, dk, dv) lists, each shard's block
-    pairs through `flash_bwd_block` with the global lse and delta; dq,
-    dk and dv accumulate in float32."""
-    n = len(q)
+def _ring_flash_backward(q, k, v, o, lse, g, causal: bool, ring):
+    """The second ring pass: (dq, dk, dv) lists, each local block's pairs
+    through `flash_bwd_block` with the global lse and delta; dq, dk and
+    dv accumulate in float32."""
+    n = ring.n
     delta = [row_delta(gi, oi) for gi, oi in zip(g, o)]
     dq = [torch.zeros(t.shape, dtype=torch.float32, device=t.device)
           for t in q]
@@ -175,10 +217,10 @@ def _ring_flash_backward(q, k, v, o, lse, g, causal: bool):
           for t in k]
     dv = [torch.zeros(t.shape, dtype=torch.float32, device=t.device)
           for t in v]
-    ks, vs, kv_idx = list(k), list(v), list(range(n))
-    for _ in range(n):
-        for i in range(n):
-            case = _ring_cases(causal, i, kv_idx[i])
+    ks, vs = list(k), list(v)
+    for r in range(n):
+        for i, p in enumerate(ring.pos):
+            case = _ring_cases(causal, p, (p - r) % n)
             if case == 0:
                 continue
             dqc, dkc, dvc = flash_bwd_block(q[i], ks[i], vs[i], g[i],
@@ -188,46 +230,56 @@ def _ring_flash_backward(q, k, v, o, lse, g, causal: bool):
             dv[i] = dv[i] + dvc.float()
         # dK / dV ride with their block: after the full circle each block
         # carries every shard's contribution and is back home
-        ks, vs = ppermute(ks), ppermute(vs)
-        dk, dv = ppermute(dk), ppermute(dv)
-        kv_idx = kv_idx[-1:] + kv_idx[:-1]
+        if r < n - 1:
+            ks, vs, dk, dv = ring.hop(ks, vs, dk, dv)
+        else:
+            dk, dv = ring.hop(dk, dv)
     return ([a.to(t.dtype) for a, t in zip(dq, q)],
             [a.to(t.dtype) for a, t in zip(dk, k)],
             [a.to(t.dtype) for a, t in zip(dv, v)])
 
 
 class _RingFlash(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, causal, n, *qkv):
-        qkv = [t.contiguous() for t in qkv]
-        q, k, v = qkv[:n], qkv[n:2 * n], qkv[2 * n:]
-        o, lse = _ring_flash_forward(q, k, v, causal)
-        ctx.save_for_backward(*q, *k, *v, *o, *lse)
-        ctx.causal, ctx.n = causal, n
-        return tuple(o)
+    """The flash ring; its `Program`'s ordering token goes in and a new
+    one comes out."""
 
     @staticmethod
-    def backward(ctx, *g):
+    def forward(ctx, causal, ring, token, *qkv):
+        n = len(qkv) // 3
+        qkv = [t.contiguous() for t in qkv]
+        q, k, v = qkv[:n], qkv[n:2 * n], qkv[2 * n:]
+        o, lse = _ring_flash_forward(q, k, v, causal, ring)
+        ctx.save_for_backward(*q, *k, *v, *o, *lse)
+        ctx.causal, ctx.ring, ctx.n = causal, ring, n
+        return (token.new_zeros(()), *o)
+
+    @staticmethod
+    def backward(ctx, _token, *g):
         n = ctx.n
         saved = ctx.saved_tensors
         q, k, v, o, lse = (saved[i * n:(i + 1) * n] for i in range(5))
         g = [gi.contiguous() for gi in g]
-        dq, dk, dv = _ring_flash_backward(q, k, v, o, lse, g, ctx.causal)
-        return (None, None, *dq, *dk, *dv)
+        dq, dk, dv = _ring_flash_backward(q, k, v, o, lse, g, ctx.causal,
+                                          ctx.ring)
+        return (None, None, None, *dq, *dk, *dv)
 
 
 def ring_flash_attention(q, k, v, axis_name: Optional[str],
-                         causal: bool = True):
+                         causal: bool = True,
+                         program: Optional[Program] = None):
     """Ring attention with the flash kernels as the inner block and the
-    distributed flash backward.  q, k and v are the ring's local blocks
-    ``[B, S_local, H, D]`` (lists in `axis_name` order, each on its
-    shard's device); returns the list of output blocks.
-    ``axis_name=None``: single tensors through the single-device
-    `flash_attention`."""
+    distributed flash backward.  q, k and v are dicts of the ring's
+    local blocks ``[B, S_local, H, D]`` over `program`'s shards (every
+    ring along the axis at once, across processes); returns the output
+    blocks alike.  ``axis_name=None``: single tensors through the
+    single-device `flash_attention`."""
     if axis_name is None:
         return flash_attention(q, k, v, causal)
-    n = _check_ring(q, k, v)
-    return list(_RingFlash.apply(bool(causal), n, *q, *k, *v))
+    keys, q, k, v = _local_blocks(q, k, v, axis_name, program)
+    out = _RingFlash.apply(bool(causal), _ProgramRing(program, axis_name),
+                           program.token(), *q, *k, *v)
+    program.advance(out[0])
+    return dict(zip(keys, out[1:]))
 
 
 __all__ = ["NEG_INF", "attention", "ring_attention", "ring_flash_attention"]

@@ -29,9 +29,13 @@ across ``model`` in shard order before the replicated biases ``bo`` and
 MoE blocks route over the global tokens in (batch, position) order, as
 the JAX dispatch on the full array does, and ``model`` shard t computes
 only the experts it owns.  The JAX package writes this as one GSPMD
-program; here each shard's tensors live on its device, the exchanges
-are `mesh.psum` and the ring's `ppermute`, and autograd over the whole
-per-shard program derives the backward sums.
+program; here it is one SPMD program a process (`mesh.Program`): each
+process computes its own shards, every shard on its own copies of the
+parameters and activations it uses, and the shards meet only in the
+program's exchanges, which add in global shard order forward and
+backward, so the result is the same bits however the shards fall into
+processes.  A ``(data, seq)`` block's loss is scored once, on its
+``model`` shard 0.
 """
 
 from __future__ import annotations
@@ -48,11 +52,7 @@ from torch.utils.checkpoint import checkpoint
 from deeplearning4j_tpu_torch.device import DeviceLike, resolve_device
 from deeplearning4j_tpu_torch.parallel import partition as part_lib
 from deeplearning4j_tpu_torch.parallel.kernels import NEG_INF, flash_attention
-from deeplearning4j_tpu_torch.parallel.mesh import (
-    Mesh,
-    psum,
-    refuse_spanning,
-)
+from deeplearning4j_tpu_torch.parallel.mesh import Mesh, Program
 from deeplearning4j_tpu_torch.parallel.ring_attention import (
     attention,
     ring_flash_attention,
@@ -353,24 +353,67 @@ def _experts(p: Dict[str, torch.Tensor], x: torch.Tensor) -> torch.Tensor:
     return torch.bmm(hid, p["w2"]) + p["b2"][:, None, :]
 
 
-def _moe_dense(p: Dict[str, torch.Tensor], x: torch.Tensor,
-               top_k: int = 1,
-               experts: Optional[Callable] = None) -> torch.Tensor:
-    """Top-k MoE with dense-masked compute: every expert sees every token
-    and the combine weight zeroes the pairs not routed, so nothing is
-    dropped.  The oracle of `_moe_dispatch` and the inference path.  The
-    gate logits and softmax are taken in x's dtype.  `experts` maps the
-    ``[E, N, d]`` buffer to the experts' outputs (`_experts` over p by
-    default; the mesh program runs each ``model`` shard's experts)."""
+def _moe_in(p: Dict[str, torch.Tensor], x: torch.Tensor,
+            capacity_factor: float, top_k: int):
+    """The MoE block up to its experts: (the experts' input ``[E, M,
+    d]``, ``combine(y, rows=None)``: the outputs ``[len(rows), d]`` of
+    the token rows `rows` (flat indices into ``[B * S]``; None: every
+    token in order) from the experts' outputs y ``[E, M, d]``).
+
+    Capacity factor > 0: capacity dispatch (Switch routing at k = 1,
+    GShard's top-2 at k = 2): the N * k assignments are scattered into
+    an ``[E, C, d]`` buffer, each expert computes only its buffer, and
+    the outputs gather back weighted by the router weight, summed over a
+    token's k assignments; a dropped assignment contributes zero (the
+    residual around the block passes its token through).  Capacity
+    factor 0: the dense-masked oracle, every expert over every token,
+    the pairs not routed weighted 0.  The gate logits and softmax are
+    taken in x's dtype."""
     b, s, d = x.shape
     e = p["gate"].shape[1]
+    xf = x.reshape(b * s, d)
+    if capacity_factor > 0:
+        e_flat, slot, w_flat, keep, c = _moe_route(p, xf, capacity_factor,
+                                                   top_k)
+        x_rep = xf.repeat_interleave(top_k, dim=0) * keep[:, None]
+        # each kept assignment owns its (expert, slot) exclusively and a
+        # dropped one adds exact zeros, so the accumulated scatter is
+        # exact in any order, CUDA atomics included
+        buf = torch.zeros((e, c, d), dtype=x.dtype,
+                          device=x.device).index_put((e_flat, slot), x_rep,
+                                                     accumulate=True)
+        wk = w_flat * keep
+
+        def combine(y, rows=None):
+            if rows is None:
+                out, n = y[e_flat, slot] * wk[:, None], b * s
+            else:
+                a = (rows[:, None] * top_k + torch.arange(
+                    top_k, device=rows.device)).reshape(-1)
+                out, n = y[e_flat[a], slot[a]] * wk[a][:, None], len(rows)
+            return out.reshape(n, top_k, d).sum(dim=1)
+
+        return buf, combine
     gate_w = torch.softmax(x @ p["gate"], dim=-1)               # [B,S,E]
     top_idx, w = _router_weights(gate_w, top_k)                # [B,S,k]
-    combine = (w[..., None] * F.one_hot(top_idx, e).to(x.dtype)).sum(-2)
-    xe = x.reshape(1, b * s, d).expand(e, b * s, d)
-    y = experts(xe) if experts else _experts(p, xe)
-    return torch.einsum("end,ne->nd", y,
-                        combine.reshape(b * s, e)).reshape(b, s, d)
+    comb = (w[..., None] * F.one_hot(top_idx, e).to(x.dtype)).sum(-2) \
+        .reshape(b * s, e)
+
+    def combine(y, rows=None):
+        if rows is None:
+            return torch.einsum("end,ne->nd", y, comb)
+        return torch.einsum("end,ne->nd", y[:, rows], comb[rows])
+
+    return xf.reshape(1, b * s, d).expand(e, b * s, d), combine
+
+
+def _moe_dense(p: Dict[str, torch.Tensor], x: torch.Tensor,
+               top_k: int = 1) -> torch.Tensor:
+    """Top-k MoE with dense-masked compute: every expert sees every token
+    and the combine weight zeroes the pairs not routed, so nothing is
+    dropped.  The oracle of `_moe_dispatch` and the inference path."""
+    xe, combine = _moe_in(p, x, 0.0, top_k)
+    return combine(_experts(p, xe)).reshape(x.shape)
 
 
 def _moe_route(p: Dict[str, torch.Tensor], xf: torch.Tensor,
@@ -395,39 +438,19 @@ def _moe_route(p: Dict[str, torch.Tensor], xf: torch.Tensor,
 
 
 def _moe_dispatch(p: Dict[str, torch.Tensor], x: torch.Tensor,
-                  capacity_factor: float, top_k: int = 1,
-                  experts: Optional[Callable] = None) -> torch.Tensor:
-    """Capacity-based top-k dispatch (Switch routing at k = 1, GShard's
-    top-2 at k = 2): the N * k assignments are scattered into an
-    ``[E, C, d]`` buffer, each expert computes only its buffer, and the
-    outputs gather back weighted by the router weight, summed over a
-    token's k assignments.  A dropped assignment contributes zero; the
-    residual around the block passes its token through.  `experts` as in
-    `_moe_dense`."""
-    b, s, d = x.shape
-    e = p["gate"].shape[1]
-    xf = x.reshape(b * s, d)
-    e_flat, slot, w_flat, keep, c = _moe_route(p, xf, capacity_factor,
-                                               top_k)
-    x_rep = xf.repeat_interleave(top_k, dim=0) * keep[:, None]  # [A, d]
-    # each kept assignment owns its (expert, slot) exclusively and a
-    # dropped one adds exact zeros, so the accumulated scatter is exact
-    # in any order, CUDA atomics included
-    buf = torch.zeros((e, c, d), dtype=x.dtype, device=x.device).index_put(
-        (e_flat, slot), x_rep, accumulate=True)
-    y = experts(buf) if experts else _experts(p, buf)
-    out = y[e_flat, slot] * (w_flat * keep)[:, None]           # [A, d]
-    return out.reshape(b * s, top_k, d).sum(dim=1).reshape(b, s, d)
+                  capacity_factor: float, top_k: int = 1) -> torch.Tensor:
+    """Capacity-based top-k dispatch (`_moe_in`): each expert computes
+    only its ``[C, d]`` buffer."""
+    buf, combine = _moe_in(p, x, capacity_factor, top_k)
+    return combine(_experts(p, buf)).reshape(x.shape)
 
 
 def _moe(p: Dict[str, torch.Tensor], x: torch.Tensor,
-         capacity_factor: float = 0.0, top_k: int = 1,
-         experts: Optional[Callable] = None) -> torch.Tensor:
+         capacity_factor: float = 0.0, top_k: int = 1) -> torch.Tensor:
     """The MoE block: capacity dispatch when capacity_factor > 0, the
     dense-masked oracle otherwise."""
-    if capacity_factor > 0:
-        return _moe_dispatch(p, x, capacity_factor, top_k, experts)
-    return _moe_dense(p, x, top_k, experts)
+    buf, combine = _moe_in(p, x, capacity_factor, top_k)
+    return combine(_experts(p, buf)).reshape(x.shape)
 
 
 def _moe_aux_loss(p: Dict[str, torch.Tensor],
@@ -520,11 +543,10 @@ def _forward_cache(cfg: TransformerConfig, params: dict,
 
 class _Grid:
     """A mesh read as (data, seq, model) coordinates: the sizes dp, sp
-    and tp (an axis the mesh does not have counts 1) and the device of
-    each shard."""
+    and tp (an axis the mesh does not have counts 1), and each shard's
+    index, coordinates and device."""
 
     def __init__(self, mesh: Mesh, axes: MeshAxes):
-        refuse_spanning(mesh, "the transformer's mesh program")
         names = (axes.data, axes.seq, axes.model)
         extra = [a for a in mesh.axis_names if a not in names]
         if extra:
@@ -533,10 +555,15 @@ class _Grid:
         self.mesh, self.axes, self._names = mesh, axes, names
         self.dp, self.sp, self.tp = (shape.get(a, 1) for a in names)
 
+    def shard(self, d: int = 0, s: int = 0, t: int = 0) -> int:
+        return self.mesh.shard(**dict(zip(self._names, (d, s, t))))
+
+    def coords(self, shard: int):
+        """(d, s, t) of a shard."""
+        return tuple(self.mesh.coord(shard, a) for a in self._names)
+
     def device(self, d: int = 0, s: int = 0, t: int = 0) -> torch.device:
-        coord = dict(zip(self._names, (d, s, t)))
-        return self.mesh.devices[tuple(coord[a]
-                                       for a in self.mesh.axis_names)]
+        return self.mesh.flat_devices()[self.shard(d, s, t)]
 
     def check(self, cfg: TransformerConfig, b: Optional[int] = None,
               s: Optional[int] = None) -> None:
@@ -561,170 +588,173 @@ def _on(tree, device: torch.device):
     return map_tree(lambda a: a.to(device), tree)
 
 
-def _model_shards(cfg: TransformerConfig, params: dict, tp: int) -> dict:
-    """`params` with every leaf that `param_specs` splits over ``model``
-    as a list of its `tp` slices (a list already in place is kept: the
-    mesh trainers hold their masters so); replicated leaves unchanged."""
-    def cut(spec, leaf):
-        if spec.is_replicated or isinstance(leaf, list):
-            return leaf
-        return list(leaf.chunk(tp, dim=spec.dim))
+def _shard_params(cfg: TransformerConfig, params: dict, prog: Program,
+                  grid: _Grid) -> dict:
+    """Each local shard's parameters, ``{shard: tree}``, through one
+    `Program.broadcast`: a leaf split over ``model`` and given as the
+    list of its slices (`place_params`; None where another process holds
+    a slice) sends slice t to the shards of ``model`` index t; any other
+    leaf goes whole to every shard, which cuts its own slice of a split
+    one.  So each parameter's gradient is the sum over the shards that
+    used it, in shard order, on every process that holds it."""
+    values, groups = [], []
+    by_t = [[s for s in prog.scope if grid.coords(s)[2] == t]
+            for t in range(grid.tp)]
 
-    return map_tree(cut, param_specs(cfg, "model"), params)
+    def collect(spec, leaf):
+        if isinstance(leaf, list):
+            values.extend(leaf)
+            groups.extend(by_t)
+            return ("slices", len(values) - grid.tp, spec)
+        values.append(leaf)
+        groups.append(prog.scope)
+        return ("whole", len(values) - 1, spec)
 
+    plan = map_tree(collect, param_specs(cfg, "model"), params)
+    copies = prog.broadcast(values, groups)
 
-def _pick_shard(cfg: TransformerConfig, params: dict, t: int) -> dict:
-    """``model`` shard t's parameters from a `_model_shards` tree."""
-    return map_tree(lambda spec, a: a[t] if isinstance(a, list) else a,
-                    param_specs(cfg, "model"), params)
+    def pick(s):
+        t = grid.coords(s)[2]
 
+        def leaf(entry):
+            kind, i, spec = entry
+            if kind == "slices":
+                return copies[i + t][s]
+            a = copies[i][s]
+            return a if spec.is_replicated else a.chunk(grid.tp,
+                                                        dim=spec.dim)[t]
 
-def _cut_rows(a, grid: _Grid, b: int, sl: int) -> list:
-    """``[B, S]`` -> shard (d, s)'s ``[b, S_local]`` block on its device,
-    as a [dp][sp] grid."""
-    return [[a[d * b:(d + 1) * b, j * sl:(j + 1) * sl].to(grid.device(d, j))
-             for j in range(grid.sp)] for d in range(grid.dp)]
+        return map_tree(leaf, plan)
 
-
-def _mesh_attn(shards: list, hs: list, grid: _Grid, causal: bool) -> list:
-    """Each ``model`` shard's heads over each data row, the ring over
-    ``seq``, summed across ``model`` in shard order, plus bo once."""
-    out = []
-    for d in range(grid.dp):
-        parts = [[] for _ in range(grid.sp)]
-        for t in range(grid.tp):
-            p = shards[t]["attn"]
-            qkv = []
-            for j in range(grid.sp):
-                dev = grid.device(d, j, t)
-                qkv.append(qkv_proj(_on(p, dev), hs[d][j].to(dev)))
-            os = ring_flash_attention([a[0] for a in qkv],
-                                      [a[1] for a in qkv],
-                                      [a[2] for a in qkv], grid.axes.seq,
-                                      causal)
-            for j, o in enumerate(os):
-                b, sl, h, kd = o.shape
-                wo = p["wo"].to(o.device)
-                parts[j].append(o.reshape(b, sl, h * kd)
-                                @ wo.reshape(h * kd, -1))
-        row = []
-        for j in range(grid.sp):
-            dev = grid.device(d, j)
-            y = psum(parts[j], dev)
-            if "bo" in shards[0]["attn"]:
-                y = y + shards[0]["attn"]["bo"].to(dev)
-            row.append(y)
-        out.append(row)
-    return out
+    return {s: pick(s) for s in prog.local}
 
 
-def _mesh_mlp(shards: list, hs: list, grid: _Grid) -> list:
-    """The MLP's hidden slices over ``model``, summed, plus b2 once."""
-    out = []
-    for d in range(grid.dp):
-        row = []
-        for j in range(grid.sp):
-            parts = []
-            for t in range(grid.tp):
-                dev = grid.device(d, j, t)
-                p = _on(shards[t]["mlp"], dev)
-                hid = F.gelu(hs[d][j].to(dev) @ p["w1"] + p["b1"],
-                             approximate="tanh")
-                parts.append(hid @ p["w2"])
-            dev = grid.device(d, j)
-            row.append(psum(parts, dev) + shards[0]["mlp"]["b2"].to(dev))
-        out.append(row)
-    return out
+def _remat(on: bool) -> Callable:
+    if on:
+        return lambda f, *a: checkpoint(f, *a, use_reentrant=False)
+    return lambda f, *a: f(*a)
 
 
-def _mesh_moe(cfg: TransformerConfig, shards: list, hs: list, grid: _Grid,
-              capacity_factor: float, want_aux: bool):
-    """Expert parallelism: `_moe` over the global tokens, so the router
-    and the slot assignment run in (batch, position) order and the
-    capacity is that of the whole batch, as JAX's dispatch on the full
-    array; ``model`` shard t computes only its experts ``[t E / tp, (t +
-    1) E / tp)`` with its slice of the expert buffer, and the outputs
-    gather back.  Returns (the [dp][sp] grid of outputs, the aux loss or
-    None)."""
-    home = grid.device()
-    full = torch.cat([torch.cat([h.to(home) for h in row], dim=1)
-                      for row in hs], dim=0)                 # [B, S, d]
-    bsz, seq, _ = full.shape
-    gate = {"gate": shards[0]["moe"]["gate"].to(home)}
-    el = gate["gate"].shape[1] // grid.tp
-
-    def experts(buf):
-        ys = []
-        for t in range(grid.tp):
-            dev = grid.device(t=t)
-            ys.append(_experts(_on(shards[t]["moe"], dev),
-                               buf[t * el:(t + 1) * el].to(dev)).to(home))
-        return torch.cat(ys)
-
-    out = _moe(gate, full, capacity_factor, cfg.moe_top_k, experts)
-    grid_out = _cut_rows(out, grid, bsz // grid.dp, seq // grid.sp)
-    aux = _moe_aux_loss(gate, full) if want_aux else None
-    return grid_out, aux
+def _seg_qkv(ln1: dict, attn: dict, x: torch.Tensor):
+    return qkv_proj(attn, _layer_norm(ln1, x))
 
 
-def _mesh_forward(cfg: TransformerConfig, params: dict, tokens, mesh: Mesh,
-                  axes: MeshAxes, causal: bool, train: bool,
+def _seg_out(wo: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    b, sl, h, kd = o.shape
+    return o.reshape(b, sl, h * kd) @ wo.reshape(h * kd, -1)
+
+
+def _seg_mid(x, y, bo, ln2: dict):
+    """The attention's residual (with bo once), and its normed output."""
+    x = x + (y if bo is None else y + bo)
+    return x, _layer_norm(ln2, x)
+
+
+def _seg_mlp(x, y, bo, ln2: dict, mlp: dict):
+    x, h = _seg_mid(x, y, bo, ln2)
+    hid = F.gelu(h @ mlp["w1"] + mlp["b1"], approximate="tanh")
+    return x, hid @ mlp["w2"]
+
+
+def _block_rows(grid: _Grid, shard: int, b: int, sl: int, seq: int,
+                device) -> torch.Tensor:
+    """The flat (batch, position) indices of a shard's ``[b, sl]`` block
+    in a ``[B, S]`` batch, in the block's order."""
+    d, j, _ = grid.coords(shard)
+    rows = torch.arange(d * b, (d + 1) * b, device=device)
+    pos = torch.arange(j * sl, (j + 1) * sl, device=device)
+    return (rows[:, None] * seq + pos[None, :]).reshape(-1)
+
+
+def _mesh_layer(cfg: TransformerConfig, prog: Program, grid: _Grid,
+                lp: dict, xs: dict, causal: bool, cf: float, want_aux: bool,
+                remat: bool, seq: int):
+    """One block over every local shard: each shard's heads, the ring
+    over ``seq``, the ``model`` sum plus bo once; then the MLP (its
+    hidden slice, summed, plus b2 once) or the MoE (routing over the
+    global tokens in (batch, position) order on each shard's copy, each
+    ``model`` shard computing its experts).  With `remat` each shard's
+    stretch between two exchanges is recomputed in the backward.
+    Returns (outputs, the aux loss on shard 0 or None)."""
+    run = _remat(remat)
+    local = prog.local
+    axes = grid.axes
+    qkv = {s: run(_seg_qkv, lp[s]["ln1"], lp[s]["attn"], xs[s])
+           for s in local}
+    o = ring_flash_attention(*({s: t[i] for s, t in qkv.items()}
+                               for i in range(3)), axes.seq, causal,
+                             program=prog)
+    y = prog.psum({s: run(_seg_out, lp[s]["attn"]["wo"], o[s])
+                   for s in local}, axes.model)
+    if "mlp" in lp[local[0]]:
+        mid = {s: run(_seg_mlp, xs[s], y[s], lp[s]["attn"].get("bo"),
+                      lp[s]["ln2"], lp[s]["mlp"]) for s in local}
+        y2 = prog.psum({s: m[1] for s, m in mid.items()}, axes.model)
+        return {s: mid[s][0] + (y2[s] + lp[s]["mlp"]["b2"])
+                for s in local}, None
+    mid = {s: run(_seg_mid, xs[s], y[s], lp[s]["attn"].get("bo"),
+                  lp[s]["ln2"]) for s in local}
+    full = prog.all_gather({s: m[1] for s, m in mid.items()}, axes.seq,
+                           dim=1)
+    full = prog.all_gather(full, axes.data, dim=0)         # [B, S, d]
+    e_loc = cfg.n_experts // grid.tp
+    combines, ys = {}, {}
+    for s in local:
+        t = grid.coords(s)[2]
+        buf, combines[s] = _moe_in({"gate": lp[s]["moe"]["gate"]},
+                                   full[s], cf, cfg.moe_top_k)
+        ys[s] = run(_experts, lp[s]["moe"],
+                    buf[t * e_loc:(t + 1) * e_loc])
+    ys = prog.all_gather(ys, axes.model, dim=0)
+    out = {}
+    for s in local:
+        x = mid[s][0]
+        b, sl, d = x.shape
+        rows = _block_rows(grid, s, b, sl, seq, x.device)
+        out[s] = x + combines[s](ys[s], rows).reshape(b, sl, d)
+    aux = None
+    if want_aux and 0 in local:
+        aux = _moe_aux_loss({"gate": lp[0]["moe"]["gate"]}, full[0])
+    return out, aux
+
+
+def _mesh_forward(cfg: TransformerConfig, params: dict, tokens,
+                  prog: Program, grid: _Grid, causal: bool, train: bool,
                   return_aux: bool):
-    """The mesh program up to the final layer norm: (the [dp][sp] grid of
-    ``[b, S_local, d]`` outputs, the mean aux loss or None, the grid)."""
-    grid = _Grid(mesh, axes)
+    """The mesh program up to the final layer norm: (``{shard: [b,
+    S_local, d]}`` over the local shards, the mean aux loss on shard 0
+    (None elsewhere, and for dense configs), ``{shard: parameters}``)."""
     tokens = torch.as_tensor(tokens)
     bsz, seq = tokens.shape
     grid.check(cfg, bsz, seq)
     b, sl = bsz // grid.dp, seq // grid.sp
-    params = _model_shards(cfg, params, grid.tp)
-    layer_shards = [[_pick_shard(cfg, params, t)["layers"][i]
-                     for t in range(grid.tp)]
-                    for i in range(cfg.n_layers)]
-    cf = cfg.moe_capacity_factor if train else 0.0
-    toks = _cut_rows(tokens, grid, b, sl)
-
-    def block(shards, xs):
-        hs = [[_layer_norm(_on(shards[0]["ln1"], x.device), x) for x in row]
-              for row in xs]
-        att = _mesh_attn(shards, hs, grid, causal)
-        xs = [[x + a for x, a in zip(xr, ar)] for xr, ar in zip(xs, att)]
-        hs = [[_layer_norm(_on(shards[0]["ln2"], x.device), x) for x in row]
-              for row in xs]
-        aux = None
-        if "moe" in shards[0]:
-            ys, aux = _mesh_moe(cfg, shards, hs, grid, cf, return_aux)
-        else:
-            ys = _mesh_mlp(shards, hs, grid)
-        xs = [[x + y for x, y in zip(xr, yr)] for xr, yr in zip(xs, ys)]
-        if not return_aux:
-            return xs
-        if aux is None:
-            aux = torch.zeros((), dtype=xs[0][0].dtype, device=grid.device())
-        return xs, aux
-
+    sp = _shard_params(cfg, params, prog, grid)
+    xs = {}
+    for s in prog.local:
+        d, j, _ = grid.coords(s)
+        tok = tokens[d * b:(d + 1) * b, j * sl:(j + 1) * sl].to(
+            prog.device(s))
+        xs[s] = (sp[s]["embed"][tok]
+                 + sp[s]["pos"][j * sl:(j + 1) * sl][None])
     remat = cfg.remat and torch.is_grad_enabled()
-    xs = []
-    for d in range(grid.dp):
-        row = []
-        for j in range(grid.sp):
-            dev = grid.device(d, j)
-            pos = params["pos"].to(dev)[j * sl:(j + 1) * sl]
-            row.append(params["embed"].to(dev)[toks[d][j]] + pos[None])
-        xs.append(row)
+    cf = cfg.moe_capacity_factor if train else 0.0
     auxs = []
-    for shards in layer_shards:
-        out = (checkpoint(block, shards, xs, use_reentrant=False) if remat
-               else block(shards, xs))
-        if return_aux:
-            xs, aux = out
+    for i in range(cfg.n_layers):
+        lp = {s: sp[s]["layers"][i] for s in prog.local}
+        xs, aux = _mesh_layer(cfg, prog, grid, lp, xs, causal, cf,
+                              return_aux, remat, seq)
+        if aux is not None:
             auxs.append(aux)
-        else:
-            xs = out
-    xs = [[_layer_norm(_on(params["ln_f"], x.device), x) for x in row]
-          for row in xs]
-    aux = torch.stack(auxs).mean() if return_aux else None
-    return xs, aux, grid
+    aux = torch.stack(auxs).mean() if auxs else None
+    return xs, aux, sp
+
+
+def _mesh_aux(cfg: TransformerConfig, prog: Program, aux, like):
+    """The mean aux loss on every process (shard 0's), or 0 for dense
+    configs."""
+    if not cfg.n_experts:
+        return torch.zeros((), dtype=like.dtype, device=prog.home)
+    return prog.total({0: aux} if aux is not None else {}, [0])
 
 
 def apply(cfg: TransformerConfig, params: dict, tokens,
@@ -734,25 +764,30 @@ def apply(cfg: TransformerConfig, params: dict, tokens,
     """tokens [B, S] int -> logits [B, S, V] through the flash-attention
     kernels (`kernels.flash_attention`; the plain version on CPU
     tensors), as the JAX package runs on the TPU.  With `mesh` the same
-    model as one program over its shards (the module docstring); the
-    logits come back whole, on the first shard's device.  `params`: the
-    `init_params` tree, or that tree with each leaf split over ``model``
-    as the list of its slices (`place_params`).  `train` routes MoE
-    blocks by capacity dispatch (the inference default is the exact
-    dense-masked path); `return_aux` also returns the mean-over-layers
-    load-balancing loss (0 for dense configs)."""
+    model as one SPMD program over its shards (the module docstring);
+    the logits come back whole on every process, on its first shard's
+    device.  `params`: the `init_params` tree, or that tree with each
+    leaf split over ``model`` as the list of its slices
+    (`place_params`).  `train` routes MoE blocks by capacity dispatch
+    (the inference default is the exact dense-masked path);
+    `return_aux` also returns the mean-over-layers load-balancing loss
+    (0 for dense configs)."""
     if mesh is None:
         return _forward(cfg, params, tokens,
                         lambda q, k, v: flash_attention(q, k, v, causal),
                         train=train, return_aux=return_aux)
-    xs, aux, grid = _mesh_forward(cfg, params, tokens, mesh, axes, causal,
-                                  train, return_aux)
-    home = grid.device()
-    head = lm_head(params)
-    logits = torch.cat([torch.cat([(x @ head.to(x.device)).to(home)
-                                   for x in row], dim=1) for row in xs])
+    grid, prog = _Grid(mesh, axes), Program(mesh)
+    xs, aux, sp = _mesh_forward(cfg, params, tokens, prog, grid, causal,
+                                train, return_aux)
+    owners = [s for s in prog.scope if grid.coords(s)[2] == 0]
+    blocks = prog.gather(
+        {s: _layer_norm(sp[s]["ln_f"], xs[s]) @ lm_head(sp[s])
+         for s in prog.local if s in owners}, owners)
+    logits = torch.cat([torch.cat([blocks[owners.index(grid.shard(d, j))]
+                                   for j in range(grid.sp)], dim=1)
+                        for d in range(grid.dp)])
     if return_aux:
-        return logits, aux
+        return logits, _mesh_aux(cfg, prog, aux, logits)
     return logits
 
 
@@ -762,9 +797,10 @@ def lm_loss(cfg: TransformerConfig, params: dict, tokens, targets,
     """Mean next-token cross-entropy over the batch, with the log-softmax
     taken in the logits' dtype (the JAX `lm_loss`).  MoE configs route by
     capacity dispatch and add ``moe_aux_weight`` times the load-balancing
-    loss when that weight is above 0.  With `mesh` each (data, seq) shard
-    scores its own block; the shards' summed losses (float32) are added
-    in shard order and divided by the global ``B * S``."""
+    loss when that weight is above 0.  With `mesh` each (data, seq) block
+    is scored once, on its ``model`` shard 0; the blocks' summed losses
+    (float32) are added in shard order and divided by the global ``B *
+    S``, on every process."""
     use_aux = bool(cfg.n_experts) and cfg.moe_aux_weight > 0
     if mesh is None:
         out = apply(cfg, params, tokens, train=True, return_aux=use_aux)
@@ -773,21 +809,27 @@ def lm_loss(cfg: TransformerConfig, params: dict, tokens, targets,
         logp = F.log_softmax(logits, dim=-1)
         loss = -logp.gather(-1, targets[..., None])[..., 0].mean()
     else:
-        xs, aux, grid = _mesh_forward(cfg, params, tokens, mesh, axes, True,
-                                      True, use_aux)
-        targets = torch.as_tensor(targets)
+        grid, prog = _Grid(mesh, axes), Program(mesh)
+        xs, aux, sp = _mesh_forward(cfg, params, tokens, prog, grid, True,
+                                    True, use_aux)
+        targets = torch.as_tensor(targets).long()
         bsz, seq = targets.shape
-        tgts = _cut_rows(targets.long(), grid, bsz // grid.dp,
-                         seq // grid.sp)
-        head = lm_head(params)
-        home = grid.device()
-        sums, dtype = [], None
-        for xr, tr in zip(xs, tgts):
-            for x, tg in zip(xr, tr):
-                logp = F.log_softmax(x @ head.to(x.device), dim=-1)
-                dtype = logp.dtype
-                sums.append(-logp.gather(-1, tg[..., None]).float().sum())
-        loss = (psum(sums, home) / (bsz * seq)).to(dtype)
+        b, sl = bsz // grid.dp, seq // grid.sp
+        owners = [s for s in prog.scope if grid.coords(s)[2] == 0]
+        sums = {}
+        for s in prog.local:
+            if s not in owners:
+                continue
+            d, j, _ = grid.coords(s)
+            x = _layer_norm(sp[s]["ln_f"], xs[s])
+            logp = F.log_softmax(x @ lm_head(sp[s]), dim=-1)
+            tg = targets[d * b:(d + 1) * b, j * sl:(j + 1) * sl].to(
+                x.device)
+            sums[s] = -logp.gather(-1, tg[..., None]).float().sum()
+        dtype = sp[prog.local[0]]["embed"].dtype
+        loss = (prog.total(sums, owners) / (bsz * seq)).to(dtype)
+        if use_aux:
+            aux = _mesh_aux(cfg, prog, aux, loss)
     if use_aux:
         loss = loss + cfg.moe_aux_weight * aux.to(loss.dtype)
     return loss

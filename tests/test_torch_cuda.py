@@ -2513,6 +2513,7 @@ def test_ring_on_four_shards_of_the_card_matches_flash(dtype, tol, causal):
     within `tol` of the largest reference value, B2 = B3 = B4 = 10 block
     pairs causal and 16 not."""
     _need_card()
+    from deeplearning4j_tpu_torch.parallel.mesh import Program, make_mesh
     from deeplearning4j_tpu_torch.parallel.ring_attention import (
         ring_flash_attention,
     )
@@ -2527,8 +2528,10 @@ def test_ring_on_four_shards_of_the_card_matches_flash(dtype, tol, causal):
     counters = _flash_counters()
     for c in counters.values():
         c.reset()
-    blocks = [list(t.chunk(4, dim=1)) for t in leaves]
-    out = torch.cat(ring_flash_attention(*blocks, "seq", causal), dim=1)
+    blocks = [dict(enumerate(t.chunk(4, dim=1))) for t in leaves]
+    prog = Program(make_mesh((4,), ("seq",), devices=["cuda:0"] * 4))
+    out = ring_flash_attention(*blocks, "seq", causal, program=prog)
+    out = torch.cat([out[s] for s in range(4)], dim=1)
     got = (out, *torch.autograd.grad(out, leaves, g))
     torch.cuda.synchronize()
     pairs = 10 if causal else 16
@@ -2557,9 +2560,10 @@ def test_mesh_step_on_the_card_matches_one_device(no_tf32, kind):
     """One float32 SGD step of each mesh trainer on 4 shards of card 0
     against the one-device step: the loss within 1e-5 relative, each
     leaf's change within 1e-3 of its largest change; the flash launches
-    of a step (1 + remat) L dp tp sp (sp + 1) / 2 forward (hybrid, (1, 2,
-    2)) and 2 L m (pipeline, (1, 4), m 2), half that for each backward
-    kernel."""
+    of a step L dp tp sp (sp + 1) / 2 for each kernel (hybrid, (1, 2, 2):
+    remat recomputes each shard's stretch between two exchanges, not the
+    ring) and 2 L m forward (pipeline, (1, 4), m 2: the stage is
+    recomputed), half that for each backward kernel."""
     _need_card()
     from deeplearning4j_tpu_torch.parallel.hybrid import (
         HybridParallelTrainer,
@@ -2582,7 +2586,7 @@ def test_mesh_step_on_the_card_matches_one_device(no_tf32, kind):
         tr = HybridParallelTrainer(
             cfg, _card_mesh((1, 2, 2), ("data", "seq", "model")), lr=1.0,
             params=tree)
-        fwd = 2 * 4 * 1 * 2 * 3
+        fwd = 4 * 1 * 2 * 3
     else:
         tr = PipelineParallelTrainer(
             cfg, _card_mesh((1, 4), ("data", "stage")), n_microbatches=2,
@@ -2592,8 +2596,9 @@ def test_mesh_step_on_the_card_matches_one_device(no_tf32, kind):
     for c in counters.values():
         c.reset()
     got_loss = tr.fit_batch(tok, tgt)
+    bwd = fwd if kind == "hybrid" else fwd // 2
     assert {n: c.value for n, c in counters.items()} == \
-        {"fwd": fwd, "dkv": fwd // 2, "dq": fwd // 2}
+        {"fwd": fwd, "dkv": bwd, "dq": bwd}
     assert abs(got_loss - float(loss)) <= 1e-5 * abs(float(loss))
     assert _leaf_change_err(tree, tr.export_params(), want) <= 1e-3
 
@@ -2642,6 +2647,36 @@ def test_embedding_replicas_stay_bitwise_equal_across_processes(tmp_path):
     assert set(a0) == set(a1) and a0
     for k in a0:
         assert np.array_equal(a0[k], a1[k]), k
+
+
+def test_lm_ring_across_two_processes_equals_one_process_bitwise(tmp_path,
+                                                               no_tf32):
+    """`HybridParallelTrainer` over (data 1, seq 2, model 2) on 2 gloo
+    processes x 2 shards of card 0, the ring crossing the processes, 3
+    bf16 Adam steps: losses and every exported leaf bitwise those of 1
+    process x 4 shards; each process launches B2 / B3 / B4 for its own
+    block pairs (seq block 0: 1 pair, block 1: 2, a layer and step), and
+    the two add up to the one process's."""
+    _need_card()
+    import torch_multiproc_worker as w
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+
+    rcs = w.run_job(tmp_path / "job", ["card_lm"], {"device": "cuda:0"},
+                    timeout_s=60, deadline_s=300)
+    assert rcs == [0, 0], w.job_logs(tmp_path / "job")
+    losses, params, launches = w.card_lm_run(make_mesh(
+        (1, 2, 2), ("data", "seq", "model"), devices=["cuda:0"] * 4))
+    assert launches == [2 * 3 * 6] * 3      # layers x steps x 2 (1 + 2)
+    per_process = []
+    for rank in range(2):
+        res, arrays = w.job_results(tmp_path / "job", rank)
+        assert res["losses"] == losses
+        assert res["launches"] == [2 * 3 * 2 * (rank + 1)] * 3
+        per_process.append(res["launches"])
+        assert set(arrays) == set(params)
+        for k in params:
+            assert np.array_equal(arrays[k], params[k]), k
+    assert [a + b for a, b in zip(*per_process)] == launches
 
 
 def test_nccl_group_of_one_process_runs_the_collectives(no_tf32):

@@ -19,9 +19,9 @@ The Iris-shaped MLP (Adam) and the tiny char-LSTM (vocab 11, H 16, T 8:
 B5's plain version on every shard of every process) run replicated,
 ZeRO-1 and local SGD; "mixed" skips a poisoned step in lockstep; Word2Vec
 (HS, NEG) and GloVe run ``mesh=`` across the processes; a process killed
-between its shard file and the commit leaves no COMMIT; the LM mesh
-trainers and the ring refuse a mesh that spans processes, and a
-collective given no mesh raises.
+between its shard file and the commit leaves no COMMIT; a collective
+given no mesh raises.  The LM mesh trainers across processes are
+`tests/test_torch_multiprocess_lm.py`'s.
 """
 
 import json
@@ -415,17 +415,6 @@ def test_embeddings_across_processes_equal_one_process_bitwise(
 
 
 # ---- what is refused --------------------------------------------------------
-
-@pytest.mark.parametrize("what", ["hybrid", "pipeline", "accum_step",
-                                  "lm_loss", "ring"])
-def test_lm_trainers_and_ppermute_refuse_a_mesh_across_processes(job, what):
-    """"ring": `lm_loss` over a "seq" axis that spans the processes, the
-    only way to the ring's `ppermute`."""
-    for res in job["res"]:
-        msg = res["refusals"][what]
-        assert msg is not None and "A7 part 3b" in msg
-        assert "2 processes" in msg
-
 
 def test_a_collective_without_the_mesh_raises_in_a_job(job):
     """`psum` given no mesh in a job of 2 processes would sum this

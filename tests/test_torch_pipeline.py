@@ -3,7 +3,8 @@ against the JAX package's.
 
 The JAX side runs on the conftest's virtual CPU devices (the schedule
 under ``shard_map`` over a 4-stage axis; the trainer on a (data 2,
-stage 4) mesh); the port's on host shards, each stage a list entry.
+stage 4) mesh); the port's on host shards, each stage a list entry, the
+schedule's transfers through a one-process `mesh.Program`.
 The trainers start from the JAX trainer's own initial weights
 (``export_params`` before any step).  The same numpy inputs go through
 both.
@@ -31,6 +32,7 @@ from deeplearning4j_tpu.parallel.hybrid import (
 from deeplearning4j_tpu.parallel.pipeline import gpipe_apply as jgpipe
 from deeplearning4j_tpu_torch.parallel import make_mesh as tmesh
 from deeplearning4j_tpu_torch.parallel import transformer as tt
+from deeplearning4j_tpu_torch.parallel.mesh import Program
 from deeplearning4j_tpu_torch.parallel.hybrid import (
     PipelineParallelTrainer as TPipe,
 )
@@ -47,6 +49,13 @@ def _schedule_inputs(p, m, mbb=4, f=16):
     x = rng.standard_normal((m, mbb, f)).astype(np.float32)
     k = -(-m // p)
     return w, np.pad(x, ((0, k * p - m), (0, 0), (0, 0))), k
+
+
+def _stages(p):
+    """`gpipe_apply`'s program and stage shards: one process's p host
+    stages, as the pipeline trainer passes them."""
+    mesh = tmesh((p,), ("stage",), devices=["cpu"] * p)
+    return {"program": Program(mesh), "shards": list(range(p))}
 
 
 @pytest.mark.parametrize("m", [8, 6])   # 6 over 4 stages: padding slots
@@ -67,7 +76,8 @@ def test_gpipe_apply_matches_jax(m, remat):
     tw = torch.from_numpy(w).requires_grad_(True)
     tx = torch.from_numpy(xp).requires_grad_(True)
     ys = tgpipe(lambda pp, a: torch.tanh(a @ pp[0]),
-                list(tw), list(tx.chunk(p)), "stage", m, remat_stage=remat)
+                list(tw), list(tx.chunk(p)), "stage", m, remat_stage=remat,
+                **_stages(p))
     got = torch.cat(ys)
     np.testing.assert_allclose(got.detach().numpy(), want, atol=1e-5)
     assert not got[m:].any()                 # padding slots stay zero
@@ -89,11 +99,12 @@ def test_gpipe_runs_each_microbatch_once_a_stage():
 
     with torch.no_grad():
         tgpipe(stage_fn, list(torch.from_numpy(w)),
-               list(torch.from_numpy(xp).chunk(p)), "stage", m)
+               list(torch.from_numpy(xp).chunk(p)), "stage", m,
+               **_stages(p))
     assert len(calls) == p * m               # bubble ticks run nothing
     with pytest.raises(ValueError, match="microbatches"):
         tgpipe(stage_fn, list(torch.from_numpy(w)),
-               [torch.zeros(1, 4, 16)] * p, "stage", 6)
+               [torch.zeros(1, 4, 16)] * p, "stage", 6, **_stages(p))
 
 
 def _cfg(tied, **kw):

@@ -3,8 +3,9 @@
 The JAX side runs its ring inside ``shard_map`` over the conftest's
 virtual CPU devices (`ring_attention`, and `ring_flash_attention` with
 the Pallas kernels in interpret mode, as
-`tests/test_parallel_extended.py` runs it); the port's single controller
-passes the ring's blocks as lists on host shards, where the flash
+`tests/test_parallel_extended.py` runs it); the port's runs as the
+trainers run it, one `mesh.Program` over a one-process mesh of host
+shards with the blocks as ``{shard: block}`` dicts, where the flash
 wrappers run their plain block versions.  The same numpy q, k and v go
 through both.
 
@@ -45,13 +46,18 @@ def _jax_ring(fn, n, causal):
                      out_specs=P(None, "seq"), check_rep=False)
 
 
+def _program(n, axis="seq"):
+    return tmesh.Program(tmesh.make_mesh((n,), (axis,),
+                                         devices=["cpu"] * n))
+
+
 def _port_ring(fn, n, causal, arrays):
     """(output [B, S, H, D], the leaf tensors q, k, v) of the port's ring
     over n host shards: each array cut on dim 1."""
     leaves = [torch.from_numpy(a).requires_grad_(True) for a in arrays]
-    blocks = [list(t.chunk(n, dim=1)) for t in leaves]
-    out = fn(*blocks, "seq", causal)
-    return torch.cat(out, dim=1), leaves
+    blocks = [dict(enumerate(t.chunk(n, dim=1))) for t in leaves]
+    out = fn(*blocks, "seq", causal, program=_program(n))
+    return torch.cat([out[s] for s in range(n)], dim=1), leaves
 
 
 def _jax_grads(ring, arrays):
@@ -125,18 +131,26 @@ def test_axis_none_is_the_single_device_path():
 
 
 def test_ring_blocks_must_agree():
-    blocks = [torch.zeros(1, 4, 2, 4) for _ in range(2)]
+    prog = _program(2)
+    blocks = {s: torch.zeros(1, 4, 2, 4) for s in range(2)}
     with pytest.raises(ValueError, match="same number"):
-        tring.ring_flash_attention(blocks, blocks[:1], blocks, "seq")
+        tring.ring_flash_attention(blocks, {0: blocks[0]}, blocks, "seq",
+                                   program=prog)
     with pytest.raises(ValueError, match="one shape"):
-        tring.ring_attention(blocks, [torch.zeros(1, 5, 2, 4)] * 2, blocks,
-                             "seq")
+        tring.ring_attention(blocks, {s: torch.zeros(1, 5, 2, 4)
+                                      for s in range(2)}, blocks, "seq",
+                             program=prog)
+    with pytest.raises(ValueError, match="needs the program"):
+        tring.ring_flash_attention(blocks, blocks, blocks, "seq")
 
 
 @pytest.mark.parametrize("n", [1, 2, 4])
 def test_ppermute_reindexes_shards_on_one_device(n):
-    shards = [torch.full((2,), float(i)) for i in range(n)]
-    out = tmesh.ppermute(shards)
-    assert [float(t[0]) for t in out] == [float((i - 1) % n)
-                                          for i in range(n)]
-    assert all(o is shards[(i - 1) % n] for i, o in enumerate(out))
+    """`Program.ppermute` over shards of one device: shard i's block
+    moves to shard i + 1 as the same storage, never a copy."""
+    shards = {i: torch.full((2,), float(i)) for i in range(n)}
+    out = _program(n).ppermute(shards, "seq")
+    assert [float(out[i][0]) for i in range(n)] == [float((i - 1) % n)
+                                                    for i in range(n)]
+    assert all(out[i].data_ptr() == shards[(i - 1) % n].data_ptr()
+               for i in range(n))

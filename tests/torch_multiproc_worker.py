@@ -11,8 +11,9 @@ compares into ``rank{r}.json`` (scalars, messages) and ``rank{r}.npz``
 (trees as ``//``-keyed arrays, the checkpoint keys).
 
 The run functions here (`dp_run`, `poison_run`, `ckpt_run`,
-`embedding_run`) are the parent's too: it calls them on a one-process
-mesh of 4 shards, so both sides run the same code on the same inputs.
+`embedding_run`, `lm_run`, `ring_run`) are the parent's too: it calls
+them on a one-process mesh of 4 shards, so both sides run the same code
+on the same inputs.
 """
 
 import json
@@ -196,6 +197,191 @@ def embedding_run(kind: str, mesh, device: str = "cpu") -> dict:
     return {"syn0": w.syn0, "out": w.syn1neg if neg else w.syn1}
 
 
+# ---- the LM mesh trainers and the ring (test_torch_multiprocess_lm.py)
+
+LM_BASE = dict(vocab_size=61, d_model=16, n_heads=4, n_layers=2, d_ff=32,
+               max_len=16)
+LM_MOE = dict(n_layers=1, n_experts=4, moe_top_k=2, moe_capacity_factor=0.5)
+LM_PIPE = dict(vocab_size=41, n_layers=4, tie_embeddings=True)
+LM_STEPS = 3
+# name -> (trainer, mesh shape, config, trainer keywords)
+LM_CASES = {
+    "hybrid_2x1x2": ("hybrid", (2, 1, 2), {}, {}),
+    "hybrid_1x2x2": ("hybrid", (1, 2, 2), {}, {}),
+    "hybrid_1x4x1": ("hybrid", (1, 4, 1), {}, {}),
+    "hybrid_1x1x4": ("hybrid", (1, 1, 4), {}, {}),
+    "hybrid_adam_2x1x2": ("hybrid", (2, 1, 2), dict(tie_embeddings=True),
+                          dict(updater="adam", lr=0.01)),
+    "hybrid_adam_replicated_1x2x2": ("hybrid", (1, 2, 2),
+                                     dict(tie_embeddings=True),
+                                     dict(updater="adam", lr=0.01,
+                                          shard_update=False)),
+    "moe_1x1x4": ("hybrid", (1, 1, 4), LM_MOE, {}),
+    "moe_1x2x2": ("hybrid", (1, 2, 2), LM_MOE, {}),
+    "pipeline_1x4": ("pipeline", (1, 4), LM_PIPE, dict(n_microbatches=4)),
+    "pipeline_2x2": ("pipeline", (2, 2), LM_PIPE, dict(n_microbatches=2)),
+    "pipeline_adam_replicated_2x2": ("pipeline", (2, 2), LM_PIPE,
+                                     dict(n_microbatches=2, updater="adam",
+                                          lr=0.01, shard_update=False)),
+    "accum_4": ("accum", (4,), dict(vocab_size=31, max_len=8), {}),
+}
+RING_SHAPE = (2, 16, 2, 8)       # [B, S, H, D], S over 4 seq shards
+
+
+def lm_config(case: str):
+    from deeplearning4j_tpu_torch.parallel import transformer as tt
+
+    return tt.TransformerConfig(**{**LM_BASE, **LM_CASES[case][2]})
+
+
+def lm_batch(case: str):
+    """The case's (tokens, targets): [4, 16] for the hybrid, [8, 8] for
+    the pipeline, 3 batches [8, 8] of next tokens for the accum step."""
+    kind, vocab = LM_CASES[case][0], lm_config(case).vocab_size
+    rng = np.random.default_rng(2)
+    if kind == "accum":
+        return [rng.integers(0, vocab, (8, 9)) for _ in range(3)]
+    b, s = (4, 16) if kind == "hybrid" else (8, 8)
+    return rng.integers(0, vocab, (b, s)), rng.integers(0, vocab, (b, s))
+
+
+def lm_mesh(case: str, per_process: int = 2):
+    kind, shape = LM_CASES[case][:2]
+    names = {"hybrid": ("data", "seq", "model"), "pipeline": ("data", "stage"),
+             "accum": ("data",)}[kind]
+    return make_mesh(shape, names, devices=["cpu"] * per_process)
+
+
+def unflatten(flat: dict):
+    """``{"a//0//b": v}`` -> ``{"a": [{"b": v}]}`` (a node whose keys are
+    all digits is a list)."""
+    tree: dict = {}
+    for key, v in flat.items():
+        *parents, last = key.split("//")
+        node = tree
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[last] = v
+    return _lists(tree)
+
+
+def _lists(node):
+    if not isinstance(node, dict):
+        return node
+    if node and all(k.isdigit() for k in node):
+        return [_lists(node[str(i)]) for i in range(len(node))]
+    return {k: _lists(v) for k, v in node.items()}
+
+
+def lm_run(case: str, mesh, weights: dict) -> tuple:
+    """`LM_STEPS` steps of the case's trainer over `mesh` from `weights`
+    (a flat ``//``-keyed numpy map, the `init_params` layout): (losses,
+    the exported parameters flat, the flash launches of this process)."""
+    from deeplearning4j_tpu_torch.parallel import hybrid as th
+    from deeplearning4j_tpu_torch.parallel import ring_attention as tr
+    from deeplearning4j_tpu_torch.parallel import transformer as tt
+    from deeplearning4j_tpu_torch.tree import flatten_tree
+
+    kind, _, _, kw = LM_CASES[case]
+    cfg, tree = lm_config(case), unflatten(weights)
+    calls = {"fwd": 0, "bwd": 0}
+    fwd, bwd = tr.flash_forward, tr.flash_bwd_block
+
+    def count_fwd(*a, **k):
+        calls["fwd"] += 1
+        return fwd(*a, **k)
+
+    def count_bwd(*a, **k):
+        calls["bwd"] += 1
+        return bwd(*a, **k)
+
+    tr.flash_forward, tr.flash_bwd_block = count_fwd, count_bwd
+    try:
+        if kind == "accum":
+            params = th._master_f32(tt.params_from_numpy(tree, device="cpu"))
+            step, init = th.make_accum_train_step(cfg, lr=1e-2, accum=2,
+                                                  updater="adam", mesh=mesh)
+            opt, losses = init(params), []
+            for b in lm_batch(case):
+                b = torch.from_numpy(b)
+                params, opt, loss = step(params, opt, b[:, :-1], b[:, 1:])
+                losses.append(float(loss))
+            out = tt.params_to_numpy(params)
+        else:
+            cls = (th.HybridParallelTrainer if kind == "hybrid"
+                   else th.PipelineParallelTrainer)
+            kw = dict(kw)
+            kw.setdefault("lr", 0.05)
+            trainer = cls(cfg, mesh, params=tree, **kw)
+            tok, tgt = lm_batch(case)
+            losses = [trainer.fit_batch(tok, tgt) for _ in range(LM_STEPS)]
+            out = trainer.export_params()
+    finally:
+        tr.flash_forward, tr.flash_bwd_block = fwd, bwd
+    return losses, flatten_tree(out), calls
+
+
+def ring_inputs():
+    rng = np.random.default_rng(7)
+    return [rng.standard_normal(RING_SHAPE).astype(np.float32)
+            for _ in range(3)]
+
+
+def ring_run(flash: bool, causal: bool, mesh) -> dict:
+    """The ring over the 4 "seq" shards of `mesh` on `ring_inputs`: this
+    process's blocks of the output and of the gradients of
+    ``sum(out ** 2)``, by global block index."""
+    from deeplearning4j_tpu_torch.parallel import ring_attention as tr
+    from deeplearning4j_tpu_torch.parallel.mesh import Program
+
+    prog = Program(mesh)
+    n = mesh.shape["seq"]
+    blocks = [dict(zip(range(n), torch.from_numpy(a).chunk(n, dim=1)))
+              for a in ring_inputs()]
+    leaves = [{s: b[s].clone().requires_grad_(True) for s in prog.local}
+              for b in blocks]
+    fn = tr.ring_flash_attention if flash else tr.ring_attention
+    out = fn(*leaves, "seq", causal, program=prog)
+    loss = sum((o ** 2).sum() for o in out.values())
+    grads = torch.autograd.grad(loss, [t for lv in leaves
+                                       for t in lv.values()])
+    res = {f"out/{s}": o.detach().numpy() for s, o in out.items()}
+    it = iter(grads)
+    for name, lv in zip("qkv", leaves):
+        for s in lv:
+            res[f"d{name}/{s}"] = next(it).numpy()
+    return res
+
+
+def card_lm_run(mesh, steps: int = 3) -> tuple:
+    """`tests/test_torch_cuda.py`'s LM run: a bf16 TransformerLM (vocab
+    256, d 64, 4 heads, 2 layers, attention biases) through
+    `HybridParallelTrainer` (Adam, ZeRO-1) over `mesh` on card 0, batch 4
+    x 128, from ``numpy_params(seed=0)``; (losses, exported parameters
+    flat, this process's B2 / B3 / B4 launches)."""
+    from deeplearning4j_tpu_torch.parallel import hybrid as th
+    from deeplearning4j_tpu_torch.parallel import kernels as fk
+    from deeplearning4j_tpu_torch.parallel import transformer as tt
+    from deeplearning4j_tpu_torch.tree import flatten_tree
+
+    cfg = tt.TransformerConfig(vocab_size=256, d_model=64, n_heads=4,
+                               n_layers=2, d_ff=256, max_len=128,
+                               dtype="bfloat16", attn_bias=True,
+                               remat=True)
+    tr = th.HybridParallelTrainer(cfg, mesh, lr=1e-3, updater="adam",
+                                  params=tt.numpy_params(cfg, seed=0))
+    rng = np.random.default_rng(0)
+    tok, tgt = (rng.integers(0, 256, (4, 128)) for _ in range(2))
+    counters = (fk.flash_forward.launches, fk.flash_bwd_dkv.launches,
+                fk.flash_bwd_dq.launches)
+    for c in counters:
+        c.reset()
+    losses = [tr.fit_batch(tok, tgt) for _ in range(steps)]
+    torch.cuda.synchronize()
+    launches = [c.value for c in counters]
+    return losses, flatten_tree(tr.export_params()), launches
+
+
 def card_dp_run(mesh, steps: int = 3):
     """`tests/test_torch_cuda.py`'s run: a bf16 char-LSTM (vocab 20, H 32)
     through ZeRO-1 over `mesh` on card 0 from the seeded init; (losses,
@@ -321,32 +507,9 @@ def _remote(spec, res, arrays, mesh):
 
 
 def _refusals(spec, res, arrays, mesh):
-    """The LM mesh trainers and the ring over this mesh, and a collective
-    given no mesh."""
-    from deeplearning4j_tpu_torch.parallel import hybrid as th
+    """A collective given no mesh in a job of several processes."""
     from deeplearning4j_tpu_torch.parallel import mesh as mesh_lib
-    from deeplearning4j_tpu_torch.parallel import transformer as tt
 
-    cfg = tt.TransformerConfig(vocab_size=16, d_model=8, n_heads=2,
-                               n_layers=2, d_ff=16, max_len=8)
-    tokens = torch.zeros((4, 8), dtype=torch.long)
-    # the ring runs over a "seq" axis: here all 4 shards, across processes
-    ring = make_mesh((1, 4), ("data", "seq"), devices=["cpu"] * 2)
-    calls = {
-        "hybrid": lambda: th.HybridParallelTrainer(cfg, mesh),
-        "pipeline": lambda: th.PipelineParallelTrainer(cfg, mesh),
-        "accum_step": lambda: th.make_accum_train_step(cfg, mesh=mesh),
-        "lm_loss": lambda: tt.lm_loss(cfg, {}, tokens, tokens, mesh),
-        "ring": lambda: tt.lm_loss(cfg, {}, tokens, tokens, ring),
-    }
-    out = {}
-    for name, call in calls.items():
-        try:
-            call()
-            out[name] = None
-        except NotImplementedError as e:
-            out[name] = str(e)
-    res["refusals"] = out
     try:
         mesh_lib.psum([torch.ones(2)] * 2, torch.device("cpu"))
         res["collective_without_mesh"] = None
@@ -395,15 +558,75 @@ def _card_dp(spec, res, arrays, mesh):
     arrays.update({f"updater/{k}": v for k, v in u.items()})
 
 
+def _card_lm(spec, res, arrays, mesh):
+    ring = make_mesh((1, 2, 2), ("data", "seq", "model"),
+                     devices=[spec["device"]] * 2)
+    res["losses"], params, res["launches"] = card_lm_run(ring)
+    arrays.update(params)
+
+
 def _card_embeddings(spec, res, arrays, mesh):
     for kind in ("neg", "glove"):
         for k, v in embedding_run(kind, mesh, spec["device"]).items():
             arrays[f"{kind}/{k}"] = v
 
 
-SCENARIOS = {"dp": _dp, "card_dp": _card_dp, "poison": _poison,
-             "ckpt": _ckpt, "remote": _remote,
-             "refusals": _refusals, "embeddings": _embeddings,
+def p2p_payload(rank: int) -> list:
+    """What process `rank` sends its peer in the direct `_p2p` check:
+    three dtypes, one of them 4 MiB."""
+    return [torch.arange(6, dtype=torch.int64).reshape(2, 3) + 10 * rank,
+            torch.full((1 << 20,), float(rank) + 0.5),
+            torch.tensor([rank == 0, rank == 1, True]).to(torch.float16)]
+
+
+def _lm(spec, res, arrays, mesh):
+    """A direct `_p2p` exchange, every LM case, then every ring, over
+    meshes of 2 host shards a process (each mesh built by both
+    processes, in the same order); every `_p2p` call and every
+    `batch_isend_irecv` batch counted."""
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.parallel import mesh as mesh_lib
+
+    counts = {"calls": 0, "batches": 0}
+    p2p, batch = mesh_lib._p2p, dist.batch_isend_irecv
+
+    def count_p2p(*a, **k):
+        counts["calls"] += 1
+        return p2p(*a, **k)
+
+    def count_batch(ops):
+        counts["batches"] += 1
+        return batch(ops)
+
+    mesh_lib._p2p, dist.batch_isend_irecv = count_p2p, count_batch
+    try:
+        peer = 1 - mesh.process_index
+        got = mesh_lib._p2p(mesh, {peer: p2p_payload(mesh.process_index)},
+                            [peer], torch.device("cpu"))
+        for i, t in enumerate(got[peer]):
+            arrays[f"p2p/{i}"] = t.numpy()
+        for case in spec["lm_cases"]:
+            with np.load(spec["lm_weights"][case]) as z:
+                weights = {k: z[k] for k in z.files}
+            losses, params, calls = lm_run(case, lm_mesh(case), weights)
+            res[f"{case}/losses"] = losses
+            res[f"{case}/launches"] = calls
+            arrays.update({f"{case}/{k}": v for k, v in params.items()})
+        ring = make_mesh((4,), ("seq",), devices=["cpu"] * 2)
+        for flash in (True, False):
+            for causal in (True, False):
+                for k, v in ring_run(flash, causal, ring).items():
+                    arrays[f"ring/{flash}/{causal}/{k}"] = v
+    finally:
+        mesh_lib._p2p, dist.batch_isend_irecv = p2p, batch
+    res["p2p"] = counts
+
+
+SCENARIOS = {"dp": _dp, "lm": _lm, "card_dp": _card_dp,
+             "card_lm": _card_lm, "poison": _poison, "ckpt": _ckpt,
+             "remote": _remote, "refusals": _refusals,
+             "embeddings": _embeddings,
              "card_embeddings": _card_embeddings, "kill": _kill}
 
 
@@ -418,6 +641,14 @@ def run_job(out: pathlib.Path, scenarios, extra: dict, timeout_s: float,
     """`world` worker processes through `scenarios` on a free local port,
     the group timeout `timeout_s`; their exit codes.  A job past
     `deadline_s` is killed and raises `TimeoutError` with the logs."""
+    return wait_job(out, start_job(out, scenarios, extra, timeout_s, world),
+                    deadline_s)
+
+
+def start_job(out: pathlib.Path, scenarios, extra: dict, timeout_s: float,
+              world: int = 2) -> list:
+    """`run_job`'s first half: the started workers, with the time they
+    started (`wait_job` counts the deadline from it)."""
     out.mkdir(parents=True)
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
@@ -433,7 +664,14 @@ def run_job(out: pathlib.Path, scenarios, extra: dict, timeout_s: float,
             procs.append(subprocess.Popen(
                 [sys.executable, __file__, json.dumps(spec)], cwd=ROOT,
                 env=env, stdout=log, stderr=subprocess.STDOUT))
-    deadline = time.monotonic() + deadline_s
+    return [time.monotonic(), procs]
+
+
+def wait_job(out: pathlib.Path, job: list, deadline_s: float) -> list:
+    """`run_job`'s second half: the exit codes, or `TimeoutError` (the
+    workers killed) once `deadline_s` from the start has passed."""
+    started, procs = job
+    deadline = started + deadline_s
     try:
         for p in procs:
             p.wait(timeout=max(0.1, deadline - time.monotonic()))
