@@ -15,7 +15,8 @@ them.
 
     python3 chip_smoke.py            # every phase, from the repo root
 
-Phases (any failure exits non-zero, and no result line is printed):
+Phases (any failure exits non-zero, and no result line is printed; each
+phase logs its wall seconds, and a ``phases:`` line sums them up):
 
 1. facts   — card name, device count, ``nvidia-smi`` name and power limit.
 2. build   — build every CUDA kernel of the port from ``csrc/`` (one nvcc
@@ -49,8 +50,23 @@ Phases (any failure exits non-zero, and no result line is printed):
              bfloat16 (random weights from a numpy seed), 12 concurrent
              requests sharing a 128-token prefix; checks completion, vocab
              range, prefix hits, the chunk program, kernel launches =
-             n_layers x dispatches and the page ledger; then one request
-             through the HTTP front (`UiServer`, ``POST /lm/generate``).
+             n_layers x dispatches (each program's launches counted per
+             replay) and the page ledger; warmup captures JAX's program
+             keys once each (``lm:paged[w1]``, ``lm:paged[w16]``,
+             ``lm:page_copy``) and neither the requests nor a 24-request
+             storm with prefix hits and copy-on-write builds another;
+             then one request through the HTTP front (`UiServer`,
+             ``POST /lm/generate``).
+5b. programs — every LM program key (the 1-wide and 16-wide paged
+             programs, verify and decode head, the dense and draft slot
+             steps, the page copy, gather and install) at the serve
+             pool's shapes: the build and two CUDA-graph replays bitwise
+             their eager step, outputs and pools; ``classifier:*``
+             bucket programs on both LSTM kernel routes (the cluster
+             route at H 256, the wide route's grid-barrier launch at H
+             1024) bitwise the eager `output`; an unwarmed pool's first
+             request carries ``xla_compile`` spans with its keys; a
+             poisoned dispatch builds nothing again.
 6. parity  — float32 at full width: served greedy tokens against the
              argmax of the plain full-recompute forward (`_forward` with
              the plain `attention`, no kernel in it) on the card,
@@ -526,8 +542,8 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 PEAK_OPS = {"float32": 67e12,      # fp32 outside the tensor cores
             "bfloat16": 989e12,    # bf16 dense tensor-core peak
             "float16": 989e12}     # fp16 dense tensor-core peak
-PHASES = ("kernel", "flash", "serve", "parity", "train", "lstm", "rnn",
-          "decode", "mln", "precision", "moe", "mobility", "nlp", "ops",
+PHASES = ("kernel", "flash", "serve", "programs", "parity", "train",
+          "lstm", "rnn", "decode", "mln", "precision", "moe", "mobility", "nlp", "ops",
           "classify", "fleet", "procfleet", "resilience", "sentiment",
           "cluster", "tail", "scaleout", "dp", "mesh", "multiproc")
 # what the times of the kernels line measure
@@ -1165,9 +1181,51 @@ def device_breakdown(prof, wall_s: float, dispatches: int) -> dict:
     }
 
 
+def zero_build_storm(srv, cfg, rng) -> dict:
+    """`tests/test_paged.py`'s storm at the serve pool's scale on the warm
+    pool: 24 concurrent greedy requests of mixed lengths, every third a
+    40-token system prefix and 12 tokens of its own (page 16: a cached
+    third page shared for 8 tokens, so copy-on-write), 8 new tokens
+    each."""
+    system = rng.integers(0, cfg.vocab_size, 40).tolist()
+    prompts = []
+    for i in range(PROGRAM_STORM):
+        if i % 3 == 0:
+            prompts.append(system + rng.integers(0, cfg.vocab_size,
+                                                 12).tolist())
+        else:
+            prompts.append(rng.integers(0, cfg.vocab_size, int(
+                rng.integers(1, 301))).tolist())
+    hits0 = srv.stats().get("prefix_hits", 0)
+    copies0 = srv._copy.programs[0].replays
+    results = [None] * len(prompts)
+
+    def client(i):
+        results[i] = srv.generate(prompts[i], PROGRAM_STORM_NEW,
+                                  timeout=600)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(prompts))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+    for p, r in zip(prompts, results):
+        if r is None or len(r) != len(p) + PROGRAM_STORM_NEW:
+            raise AssertionError("serve: a storm request did not finish")
+    out = {"requests": len(prompts),
+           "prefix_hits": srv.stats().get("prefix_hits", 0) - hits0,
+           "cow_copies": srv._copy.programs[0].replays - copies0}
+    if not (out["prefix_hits"] > 0 and out["cow_copies"] > 0):
+        raise AssertionError(f"serve: the storm took no prefix hit or "
+                             f"copy-on-write: {out}")
+    return out
+
+
 def serve_phase(tree, card: str, profile: bool = False) -> dict:
     import torch
 
+    from deeplearning4j_tpu_torch.obs import compile_watcher
     from deeplearning4j_tpu_torch.parallel.paged_kernel import (
         paged_flash_attention,
     )
@@ -1183,9 +1241,21 @@ def serve_phase(tree, card: str, profile: bool = False) -> dict:
     srv = ContinuousLMServer(cfg, params, slots=8, page_size=16,
                              prefill_chunk=16, device="cuda")
     try:
+        before = compile_watcher().counts()
+        t_warm = time.perf_counter()
         warmed = srv.warmup()
-        log(f"serve: pool warm ({warmed} programs); {srv.kv_pages} pages "
-            f"x {srv.page_size} tokens, {srv.n_slots} slots")
+        built = watcher_delta(before)
+        capture_s = build_seconds(t_warm, time.perf_counter())
+        want_keys = {"lm:paged[w1]": 1, "lm:paged[w16]": 1,
+                     "lm:page_copy": 1}
+        if built != want_keys or warmed != 3:
+            raise AssertionError(f"serve: warmup built {built} ({warmed} "
+                                 f"programs), not JAX's {want_keys}")
+        pool_bytes = graph_pool_bytes(srv._graph_pool)
+        log(f"serve: pool warm ({warmed} programs, each captured once: "
+            f"{built}; build s {capture_s}; graph pool {pool_bytes} "
+            f"bytes); {srv.kv_pages} pages x {srv.page_size} tokens, "
+            f"{srv.n_slots} slots")
         rng = np.random.default_rng(1)
         prefix = rng.integers(0, cfg.vocab_size, 128).tolist()
         tails = rng.integers(16, 301, 12)
@@ -1249,6 +1319,13 @@ def serve_phase(tree, card: str, profile: bool = False) -> dict:
                 "radix_nodes"]:
             raise AssertionError(f"serve: page ledger off before stop: "
                                  f"{ledger}")
+        storm = zero_build_storm(srv, cfg, rng)
+        if watcher_delta(before) != want_keys:
+            raise AssertionError(f"serve: the requests built programs: "
+                                 f"{watcher_delta(before)}")
+        log(f"serve: the 12 requests and a {PROGRAM_STORM}-request storm "
+            f"({storm['prefix_hits']} prefix hits, {storm['cow_copies']} "
+            f"copy-on-write pages) built no program ({card})")
     finally:
         srv.stop()
     ledger_after = srv.page_ledger()
@@ -1269,6 +1346,10 @@ def serve_phase(tree, card: str, profile: bool = False) -> dict:
         "kernel_launches": launches,
         "prefix_hit_rate": stats["prefix_hit_rate"],
         "mean_batch_occupancy": stats["mean_batch_occupancy"],
+        "programs": {"built_at_warmup": built, "build_s": capture_s,
+                     "graph_pool_bytes": pool_bytes,
+                     "compiled_programs": stats["compiled_programs"],
+                     "builds_after_warmup": 0, "storm": storm},
     }
     for k in ("tokens_per_s", "requests_per_s", "ttft_p50_ms",
               "ttft_p99_ms", "latency_p50_ms", "latency_p99_ms"):
@@ -1298,6 +1379,314 @@ def serve_phase(tree, card: str, profile: bool = False) -> dict:
     finally:
         ui.stop()
     log("serve: POST /lm/generate matches the in-process generate")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the serving programs (CUDA-graph capture of every program key)
+
+
+PROGRAM_LANES, PROGRAM_PAGE, PROGRAM_WIDE = 8, 16, 16
+PROGRAM_STORM = 24               # the zero-build storm's requests
+PROGRAM_STORM_NEW = 8
+
+
+def watcher_delta(before: dict) -> dict:
+    """Program builds by key since the `compile_watcher().counts()`
+    snapshot `before`."""
+    from deeplearning4j_tpu_torch.obs import compile_watcher
+
+    after = compile_watcher().counts()
+    return {k: n - before.get(k, 0) for k, n in sorted(after.items())
+            if n != before.get(k, 0)}
+
+
+def build_seconds(t0: float, t1: float) -> dict:
+    """Seconds of each program build (warm run + capture) that ended in
+    the perf-clock window [t0, t1], by program key."""
+    from deeplearning4j_tpu_torch.obs import compile_watcher
+
+    out: dict = {}
+    for end, dur, key in compile_watcher().events_between(t0, t1):
+        if end - dur >= t0:
+            out.setdefault(key, []).append(dur)
+    return out
+
+
+def graph_pool_bytes(pool) -> int:
+    """Bytes the caching allocator holds in one graph memory pool (the
+    segments whose pool id is `pool`)."""
+    import torch
+
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if tuple(seg.get("segment_pool_id", ())) == tuple(pool))
+
+
+def bitwise(a, b) -> bool:
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        return a.shape == b.shape and torch.equal(a, b)
+    return len(a) == len(b) and all(bitwise(x, y) for x, y in zip(a, b))
+
+
+def replay_vs_eager(cfg, params, card: str) -> dict:
+    """Every LM program key at the serve pool's widths (8 lanes, page 16,
+    the 16-wide programs), built over one pool and called three times
+    (the build: warm run + capture; then two replays) against its eager
+    step on a twin pool from the same seeded contents: the outputs
+    bitwise equal, and the pools bitwise equal after every call outside
+    the null page (whose contents are garbage by design)."""
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel import generation as gen
+
+    b, ps, w = PROGRAM_LANES, PROGRAM_PAGE, PROGRAM_WIDE
+    mp = gen.pages_per_seq(cfg, ps)
+    pages = 1 + b * mp
+    dt = params["embed"].dtype
+    paged_shape = (cfg.n_layers, pages, ps, cfg.n_heads, cfg.head_dim)
+    dense_shape = (cfg.n_layers, b, cfg.max_len, cfg.n_heads, cfg.head_dim)
+    table = (1 + np.arange(b * mp, dtype=np.int32)).reshape(b, mp)
+    lanes = np.arange(b, dtype=np.int32)
+
+    def twins(shape, seed):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        k = torch.randn(shape, generator=g, device="cuda").to(dt)
+        v = torch.randn(shape, generator=g, device="cuda").to(dt)
+        return [k.clone(), v.clone()], [k, v]
+
+    def paged_args(i, width, verify):
+        rng = np.random.default_rng(100 + i)
+        pos = rng.integers(300, 500, b).astype(np.int32)
+        n_draft = (rng.integers(0, width, b) if verify
+                   else np.zeros(b)).astype(np.int32)
+        n_draft[1] = 0
+        n_feed = (n_draft + 1 if verify
+                  else rng.integers(1, width + 1, b)).astype(np.int32)
+        tokens = rng.integers(0, cfg.vocab_size, (b, width)).astype(np.int32)
+        temp = np.zeros(b, np.float32)
+        temp[1] = 0.8                              # one sampled lane
+        return (table, pos, n_feed, n_draft, tokens, temp, lanes + i,
+                np.full(b, i, np.int32))
+
+    def dense_args(i, sampled):
+        rng = np.random.default_rng(200 + i)
+        temp = (np.array([0, 0.8, 0, 1.2] * (b // 4), np.float32)
+                if sampled else np.zeros(b, np.float32))
+        return (rng.integers(0, 700, b).astype(np.int32),
+                rng.integers(0, cfg.vocab_size, b).astype(np.int32), temp,
+                lanes + i, np.full(b, i, np.int32))
+
+    src_pages = torch.randn((cfg.n_layers, mp, ps, cfg.n_heads,
+                             cfg.head_dim), generator=torch.Generator()
+                            .manual_seed(9)).to(dt)
+    cases = {   # key: (step, pool shape, takes params, args of call i, outputs)
+        "lm:paged[w1]": (
+            gen.make_spec_step(cfg, pages, ps, 1, verify=False), paged_shape,
+            True, lambda i: paged_args(i, 1, False), slice(0, 2)),
+        f"lm:paged[w{w}] verify": (
+            gen.make_spec_step(cfg, pages, ps, w, verify=True), paged_shape,
+            True, lambda i: paged_args(i, w, True), slice(0, 2)),
+        f"lm:paged[w{w}] decode head": (
+            gen.make_spec_step(cfg, pages, ps, w, verify=False),
+            paged_shape, True, lambda i: paged_args(i, w, False),
+            slice(0, 2)),
+        "lm:dense": (gen.make_slot_step(cfg), dense_shape, True,
+                     lambda i: dense_args(i, True), slice(0, 1)),
+        "lm:draft": (gen.make_slot_step(cfg, key="lm:draft"), dense_shape,
+                     True, lambda i: dense_args(i, False), slice(0, 1)),
+        "lm:page_copy": (gen.make_page_copy(cfg, pages, ps), paged_shape,
+                         False, lambda i: (3 + i, pages - 1 - i),
+                         slice(0, 0)),
+        "lm:page_gather": (gen.make_page_gather(cfg, pages, ps),
+                           paged_shape, False, lambda i: (table[i + 2],),
+                           slice(0, 2)),
+        "lm:page_install": (
+            gen.make_page_install(cfg, pages, ps), paged_shape, False,
+            lambda i: (src_pages[:, :20 + i], src_pages[:, :20 + i],
+                       table[b - 1 - i], 10 + i), slice(0, 0)),
+    }
+    out = {}
+    for key in list(cases):
+        step, shape, with_params, args_of, outs = cases.pop(key)
+        graph_kv, eager_kv = twins(shape, seed=len(out))
+        head = (params,) if with_params else ()
+        # the dense caches have no null page; a paged pool's page 0 takes
+        # every padding write
+        lo = 0 if shape == dense_shape else 1
+        equal = True
+        for i in range(3):
+            got = step(*head, *graph_kv, *args_of(i))
+            want = step.eager(*head, *eager_kv, *args_of(i))
+            torch.cuda.synchronize()
+            equal &= bitwise(tuple(got[outs]), tuple(want[outs]))
+            equal &= all(torch.equal(a[:, lo:], e[:, lo:])
+                         for a, e in zip(graph_kv, eager_kv))
+        (program,) = step.programs
+        out[key] = {"bitwise": bool(equal), "replays": program.replays,
+                    "captured": program.graph is not None,
+                    "build_s": program.build_s}
+        if not (equal and program.graph is not None
+                and program.replays == 2):
+            raise AssertionError(f"programs: {key} replay != its eager "
+                                 f"step ({out[key]})")
+        del graph_kv, eager_kv, step
+        torch.cuda.empty_cache()
+    log(f"programs: every LM program key replays bitwise its eager step "
+        f"(outputs and pools, 3 calls each): build s "
+        f"{ {k: round(v['build_s'], 4) for k, v in out.items()} } ({card})")
+    return out
+
+
+def lstm_programs(card: str) -> dict:
+    """``classifier:*`` on both B5 routes: a bf16 char-LSTM bucket (H 256,
+    the cluster route) and a 1024-unit bf16 Graves LSTM bucket (the wide
+    route's grid-barrier launch, inside the graph): `output_bucketed`
+    built and replayed twice under the engine's scope, each call bitwise
+    the eager `output` of the same padded batch, one B5 launch a call."""
+    import torch
+
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork, char_lstm
+    from deeplearning4j_tpu_torch.nn import conf as tconf
+    from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
+    from deeplearning4j_tpu_torch.obs import compile_scope
+    from deeplearning4j_tpu_torch.serving import BucketLadder
+
+    ladder = BucketLadder((LSTM_B,))
+    nets = {
+        "cluster": MultiLayerNetwork(char_lstm(
+            compute_dtype="bfloat16")).init(),
+        "wide": MultiLayerNetwork(tconf.MultiLayerConfiguration(
+            conf=tconf.NeuralNetConfiguration(seed=6,
+                                              compute_dtype="bfloat16"),
+            layers=(tconf.GravesLSTMConf(n_in=LSTM_V, n_out=1024),
+                    tconf.RnnOutputLayerConf(n_in=1024,
+                                             n_out=LSTM_V)))).init()}
+    eye = np.eye(LSTM_V, dtype=np.float32)
+    out = {}
+    for route, net in nets.items():
+        hidden = net.conf.layers[0].n_out
+        plan = lk.launch_plan(torch.bfloat16, LSTM_B, hidden)
+        if plan["route"] != route:
+            raise AssertionError(f"programs: H {hidden} takes the "
+                                 f"{plan['route']} route, not {route}")
+        counter = lk.fused_lstm_forward.launches
+        equal = True
+        for i in range(3):
+            x = eye[np.random.default_rng(i).integers(
+                0, LSTM_V, (LSTM_B - 3 - i, LSTM_T))]
+            before = counter.value
+            with compile_scope(f"classifier:{(LSTM_B, LSTM_T, LSTM_V)}"):
+                got = net.output_bucketed(x, ladder=ladder)
+            torch.cuda.synchronize()
+            if counter.value - before != 1:
+                raise AssertionError(f"programs: {route} route call {i} "
+                                     f"launched B5 "
+                                     f"{counter.value - before} times")
+            padded, _ = ladder.pad_rows(x)
+            want = net.output(padded).float().cpu().numpy()[:len(x)]
+            equal &= bool(np.array_equal(got, want))
+        (program,) = [e[1] for e in
+                      net._bucket_programs._programs.values()]
+        out[route] = {"hidden": hidden, "bitwise": equal,
+                      "replays": program.replays,
+                      "captured": program.graph is not None,
+                      "build_s": program.build_s,
+                      "launches_a_call": plan["launches"]}
+        if not (equal and program.graph is not None
+                and program.replays == 2):
+            raise AssertionError(f"programs: the {route} route's program "
+                                 f"!= eager output ({out[route]})")
+    log(f"programs: classifier programs on both B5 routes replay bitwise "
+        f"their eager output: {out} ({card})")
+    return out
+
+
+def unwarmed_and_poisoned(cfg, params, card: str) -> dict:
+    """An unwarmed serve pool's first request carries ``xla_compile``
+    spans with the program keys it built; after warmup, a poisoned
+    dispatch zeroes the pool in place and builds nothing again, and the
+    pool then decodes the request the warm pool decoded before the
+    fault."""
+    import torch
+
+    from deeplearning4j_tpu_torch.obs import compile_watcher
+    from deeplearning4j_tpu_torch.obs.trace import TraceRecorder
+    from deeplearning4j_tpu_torch.serving.lm import ContinuousLMServer
+
+    tracer = TraceRecorder()
+    srv = ContinuousLMServer(cfg, params, slots=PROGRAM_LANES,
+                             page_size=PROGRAM_PAGE,
+                             prefill_chunk=PROGRAM_WIDE, tracer=tracer,
+                             device="cuda")
+    prompt = np.random.default_rng(7).integers(0, cfg.vocab_size,
+                                               40).tolist()
+    try:
+        srv.generate(prompt, 8, timeout=600, request_id="cold")
+        (tr,) = tracer.find("cold")
+        cold_keys = sorted({s["attrs"]["program_key"] for s in tr["spans"]
+                            if s["name"] == "xla_compile"})
+        want_keys = sorted({"lm:paged[w1]", f"lm:paged[w{PROGRAM_WIDE}]"})
+        if cold_keys != want_keys:
+            raise AssertionError(f"programs: the unwarmed request's "
+                                 f"xla_compile keys {cold_keys} != "
+                                 f"{want_keys}")
+        srv.warmup()
+        want = srv.generate(prompt, 8, timeout=600)
+        built = compile_watcher().total(prefix="lm:")
+        ptrs = [t.data_ptr() for t in srv._cache]
+        real = srv._step
+
+        def poisoned(*a, **kw):
+            raise RuntimeError("poisoned dispatch")
+
+        srv._step = poisoned
+        try:
+            srv.generate(prompt, 8, timeout=600)
+        except RuntimeError as e:
+            if "poisoned" not in str(e):
+                raise
+        else:
+            raise AssertionError("programs: the poisoned dispatch "
+                                 "succeeded")
+        finally:
+            srv._step = real
+        again = srv.generate(prompt, 8, timeout=600)
+        torch.cuda.synchronize()
+        after = compile_watcher().total(prefix="lm:")
+        same_tensors = [t.data_ptr() for t in srv._cache] == ptrs
+    finally:
+        srv.stop()
+    if after != built or not same_tensors or again != want:
+        raise AssertionError(
+            f"programs: the poisoned dispatch built {after - built} "
+            f"programs (same pool tensors: {same_tensors}, ids equal: "
+            f"{again == want})")
+    log(f"programs: an unwarmed request carries xla_compile {cold_keys}; "
+        f"a poisoned dispatch builds nothing (compiles_total {built} -> "
+        f"{after}, the pool zeroed in place) ({card})")
+    return {"cold_request_keys": cold_keys, "compiles_total_before": built,
+            "compiles_total_after": after, "pool_tensors_kept": True}
+
+
+def programs_phase(tree, card: str) -> dict:
+    import torch
+
+    from deeplearning4j_tpu_torch.parallel.transformer import (
+        gpt2_small,
+        params_from_numpy,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = gpt2_small(max_len=1024)
+    params = params_from_numpy(tree, device="cuda", dtype=cfg.dtype)
+    out = {"card": card,
+           "lm": replay_vs_eager(cfg, params, card),
+           "lstm": lstm_programs(card),
+           "contract": unwarmed_and_poisoned(cfg, params, card)}
     del params
     torch.cuda.empty_cache()
     return out
@@ -1470,22 +1859,31 @@ class RouteRecorder:
     tokens up to and including that row (KV at a row is a function of
     those tokens, so a radix-reused row has one routing whichever
     request computed it).  `attach(srv)` wraps a paged pool's dispatch
-    entry, `generate` a whole-sequence call."""
+    entry, `generate` a whole-sequence call.  A pool's programs must be
+    built inside the recorder: a capture's router outputs (keyed by the
+    query width) are the tensors each replay of that program refreshes,
+    read after every replay."""
 
     def __init__(self, n_layers: int):
         self.n_layers = n_layers
         self.calls = []
+        self.captured = {}
         self.dispatches = []
         self.rows = {}
 
     def __enter__(self):
+        import torch
+
         from deeplearning4j_tpu_torch.parallel import transformer as tfm
 
         self._real = real = tfm._router_weights
 
         def recording(probs, top_k):
             idx, w = real(probs, top_k)
-            self.calls.append(idx)
+            if torch.cuda.is_current_stream_capturing():
+                self.captured.setdefault(probs.shape[1], []).append(idx)
+            else:
+                self.calls.append(idx)
             return idx, w
 
         tfm._router_weights = recording
@@ -1507,6 +1905,13 @@ class RouteRecorder:
             self.calls = []
             out = real_step(params, k, v, table, pos, n_feed, n_draft,
                             tokens, *rest)
+            if not self.calls:          # a replay: its program's routes
+                static = self.captured[tokens.shape[1]]
+                if len(static) != self.n_layers:
+                    raise AssertionError(
+                        f"moe: {len(static)} captured routings at width "
+                        f"{tokens.shape[1]}, not one a layer")
+                self.calls = [t.clone() for t in static]
             lanes = [(i, slot.req.prompt + slot.generated, int(pos[i]),
                       int(n_feed[i])) for i, slot in enumerate(srv._slots)
                      if slot.req is not None and n_feed[i]]
@@ -1765,11 +2170,14 @@ def pool_summary(run: dict, checks: list) -> dict:
 
 def dispatch_ms(cfg, params, iters: int = 20) -> dict:
     """Wall milliseconds a call (its host sync included) of the pool's
-    paged program (`make_spec_step`) on 8 lanes at position 400 of a
-    full-width pool: 1-wide decode, a 16-wide prefill chunk (no drafts:
-    the LM head at the last fed column only), and a 16-wide verify of
-    1 + 4 drafts (the head over every column).  This is what one
-    dispatch of each kind costs the serving loop, which is host-bound."""
+    paged programs on 8 lanes at position 400 of a full-width pool, each
+    replayed (`make_spec_step`) and run as its eager step (`.eager`), in
+    turns (replay, eager, eager, replay): the 1-wide decode, a 16-wide
+    prefill chunk on the decode head (the LM head at the last fed column
+    only; the pool without speculation) and a 16-wide verify of 1 + 4
+    drafts (the head over every column; the speculating pool).  This is
+    what one dispatch of each kind costs the serving loop, which is
+    host-bound."""
     import torch
 
     from deeplearning4j_tpu_torch.parallel import generation as gen
@@ -1783,24 +2191,30 @@ def dispatch_ms(cfg, params, iters: int = 20) -> dict:
     pos = np.full(b, 400, np.int32)
     zf, zi = np.zeros(b, np.float32), np.zeros(b, np.int32)
     tok = np.random.default_rng(0).integers(0, cfg.vocab_size, (b, w))
-    one, wide = (gen.make_spec_step(cfg, pages, ps, 1),
-                 gen.make_spec_step(cfg, pages, ps, w))
     steps = {
-        "decode_1": (one, (table, pos, np.ones(b, np.int32), zi,
-                           tok[:, :1])),
-        "chunk_16": (wide, (table, pos, np.full(b, w, np.int32), zi, tok)),
-        "verify_16": (wide, (table, pos, np.full(b, 5, np.int32),
-                             np.full(b, 4, np.int32), tok)),
+        "decode_1": (gen.make_spec_step(cfg, pages, ps, 1, verify=False),
+                     (table, pos, np.ones(b, np.int32), zi, tok[:, :1])),
+        "chunk_16": (gen.make_spec_step(cfg, pages, ps, w, verify=False),
+                     (table, pos, np.full(b, w, np.int32), zi, tok)),
+        "verify_16": (gen.make_spec_step(cfg, pages, ps, w, verify=True),
+                      (table, pos, np.full(b, 5, np.int32),
+                       np.full(b, 4, np.int32), tok)),
     }
     out = {}
     for name, (step, args) in steps.items():
-        for i in range(iters + 3):
-            if i == 3:
-                t0 = time.perf_counter()
-            res = step(params, k, v, *args, zf, zi, zi)
-            res[0].cpu()
-        out[name] = (time.perf_counter() - t0) / iters * 1e3
-    del cache, k, v
+        times = {"replay": [], "eager": []}
+        for kind in ("replay", "eager", "eager", "replay"):
+            fn = step if kind == "replay" else step.eager
+            for i in range(iters + 3):
+                if i == 3:
+                    t0 = time.perf_counter()
+                res = fn(params, k, v, *args, zf, zi, zi)
+                res[0].cpu()
+            times[kind].append((time.perf_counter() - t0) / iters * 1e3)
+        out[name] = {"replay_ms": float(np.mean(times["replay"])),
+                     "eager_ms": float(np.mean(times["eager"])),
+                     "runs_ms": times}
+    del cache, k, v, steps
     return out
 
 
@@ -4065,8 +4479,10 @@ def moe_phase(card: str) -> dict:
     srv = ContinuousLMServer(cfg, params, slots=8, page_size=16,
                              prefill_chunk=16, device="cuda")
     try:
-        srv.warmup()                        # builds the dispatch entry
         with RouteRecorder(cfg.n_layers) as rec:
+            # builds the dispatch entry and captures the programs with
+            # the recorder's router inside them
+            srv.warmup()
             rec.attach(srv)
             run = run_pool(srv, reqs, DECODE_NEW)
         ledger = srv.page_ledger()
@@ -5996,12 +6412,22 @@ def char_lstm_engine(card: str, profile: bool = False) -> dict:
     eye = np.eye(80, dtype=np.float32)
     reqs = [eye[rng.integers(0, 80, (int(rng.integers(1, 9)), LSTM_T))]
             for _ in range(LSTM_CLIENTS)]
+    from deeplearning4j_tpu_torch.obs import compile_watcher
+
     engine = ServingEngine(net, ladder=BucketLadder(LSTM_LADDER),
                            max_batch=max(LSTM_LADDER), max_wait_ms=2.0)
+    want_keys = {f"classifier:{(b, LSTM_T, 80)}": 1 for b in LSTM_LADDER}
     try:
         torch.cuda.synchronize()
         lk.fused_lstm_forward.launches.reset()
+        before = compile_watcher().counts()
+        t_warm = time.perf_counter()
         warmed = engine.warmup(np.zeros((LSTM_T, 80), np.float32))
+        built = watcher_delta(before)
+        capture_s = build_seconds(t_warm, time.perf_counter())
+        if built != want_keys:
+            raise AssertionError(f"classify: the engine's warmup built "
+                                 f"{built}, not {want_keys}")
         prof = profiled(profile)
         t0 = time.perf_counter()
         _, replies = serving_storm(LSTM_CLIENTS, reqs, engine.predict_proba)
@@ -6011,6 +6437,9 @@ def char_lstm_engine(card: str, profile: bool = False) -> dict:
             prof.__exit__(None, None, None)
         launches = lk.fused_lstm_forward.launches.value
         stats = engine.stats()
+        if watcher_delta(before) != want_keys:
+            raise AssertionError(f"classify: the storm built programs: "
+                                 f"{watcher_delta(before)}")
     finally:
         engine.stop()
     err, held, gap_rows = 0.0, True, 0
@@ -6029,8 +6458,12 @@ def char_lstm_engine(card: str, profile: bool = False) -> dict:
            "dispatches": stats["dispatches"], "b5_launches": launches,
            "max_abs_err_vs_f32": err, "argmax_held_positions": gap_rows,
            "positions": positions,
-           "wall_s": wall, "mean_rows_a_dispatch":
-           stats.get("mean_batch_occupancy"), "card": card}
+           "wall_s": wall, "requests_per_s": len(reqs) / wall,
+           "mean_rows_a_dispatch": stats.get("mean_batch_occupancy"),
+           "programs": {"built_at_warmup": built, "build_s": capture_s,
+                        "builds_after_warmup": 0,
+                        "compiles_total": stats["compiles_total"]},
+           "card": card}
     if prof is not None:
         out["profile"] = device_breakdown(prof, wall, stats["dispatches"])
     if launches != stats["dispatches"] + warmed or warmed != 3:
@@ -11168,8 +11601,22 @@ def main(argv=None) -> int:
                     "spill" in line:
                 log(f"build: {res.name}: {line.strip()}")
 
+    wall: dict = {}
+
+    def run(phase: str, fn, *fargs, **kw):
+        """`fn(*fargs, **kw)` when `phase` was asked for, its wall seconds
+        logged (None otherwise)."""
+        if phase not in phases:
+            return None
+        t = time.perf_counter()
+        out = fn(*fargs, **kw)
+        wall[phase] = round(time.perf_counter() - t, 1)
+        log(f"{phase}: phase wall {wall[phase]} s")
+        return out
+
     kernels_line = None
     if "kernel" in phases:
+        t_phase = time.perf_counter()
         cases = []
         for c, kd in KERNEL_CASES:
             for dt in ("float32", "bfloat16") + (
@@ -11190,54 +11637,51 @@ def main(argv=None) -> int:
                     f"{case['library_call_ms']:.4f} ({card})")
                 torch.cuda.empty_cache()
         kernels_line = cases
+        wall["kernel"] = round(time.perf_counter() - t_phase, 1)
     flash = head256 = None
     if "flash" in phases:
+        t_phase = time.perf_counter()
         flash = flash_phase(card)
         head256 = head256_grad_parity()
+        wall["flash"] = round(time.perf_counter() - t_phase, 1)
         log(f"flash: head dim 256 transformer, f32 loss and gradients "
             f"through the kernels vs plain attention: loss rel err "
             f"{head256['loss_rel_err']:.3g}, worst gradient "
             f"{head256['grad_worst_leaf']} {head256['grad_max_rel_err']:.3g}")
     tree = None
-    serve = parity = train = decode = None
-    if {"serve", "parity", "decode"} & set(phases):
+    if {"serve", "programs", "parity", "decode"} & set(phases):
         from deeplearning4j_tpu_torch.parallel.transformer import (
             gpt2_small,
             numpy_params,
         )
 
         tree = numpy_params(gpt2_small(max_len=1024), seed=0)
-    if "serve" in phases:
-        serve = serve_phase(tree, card, profile=args.profile)
-    if "parity" in phases:
-        parity = parity_phase(tree)
-    if "train" in phases:
-        train = train_phase(card, profile=args.profile)
-    lstm = lstm_phase(card) if "lstm" in phases else None
-    rnn = rnn_phase(card, profile=args.profile) if "rnn" in phases else None
-    if "decode" in phases:
-        decode = decode_phase(tree, card, profile=args.profile)
-    mln = mln_phase(card, profile=args.profile) if "mln" in phases else None
-    precision = precision_phase(card) if "precision" in phases else None
-    moe = moe_phase(card) if "moe" in phases else None
-    mobility = mobility_phase(card) if "mobility" in phases else None
-    nlp = nlp_phase(card, profile=args.profile) if "nlp" in phases else None
-    ops = ops_phase(card) if "ops" in phases else None
-    classify = (classify_phase(card, profile=args.profile)
-                if "classify" in phases else None)
-    fleet = (fleet_phase(card, profile=args.profile)
-             if "fleet" in phases else None)
-    procfleet = procfleet_phase(card) if "procfleet" in phases else None
-    resilience = (resilience_phase(card) if "resilience" in phases
-                  else None)
-    sentiment = (sentiment_phase(card, profile=args.profile)
-                 if "sentiment" in phases else None)
-    cluster = cluster_phase(card) if "cluster" in phases else None
-    tail = tail_phase(card) if "tail" in phases else None
-    scaleout = scaleout_phase(card) if "scaleout" in phases else None
-    dp = dp_phase(card) if "dp" in phases else None
-    mesh = mesh_phase(card, train) if "mesh" in phases else None
-    multiproc = multiproc_phase(card) if "multiproc" in phases else None
+    prof = {"profile": args.profile}
+    serve = run("serve", serve_phase, tree, card, **prof)
+    programs = run("programs", programs_phase, tree, card)
+    parity = run("parity", parity_phase, tree)
+    train = run("train", train_phase, card, **prof)
+    lstm = run("lstm", lstm_phase, card)
+    rnn = run("rnn", rnn_phase, card, **prof)
+    decode = run("decode", decode_phase, tree, card, **prof)
+    mln = run("mln", mln_phase, card, **prof)
+    precision = run("precision", precision_phase, card)
+    moe = run("moe", moe_phase, card)
+    mobility = run("mobility", mobility_phase, card)
+    nlp = run("nlp", nlp_phase, card, **prof)
+    ops = run("ops", ops_phase, card)
+    classify = run("classify", classify_phase, card, **prof)
+    fleet = run("fleet", fleet_phase, card, **prof)
+    procfleet = run("procfleet", procfleet_phase, card)
+    resilience = run("resilience", resilience_phase, card)
+    sentiment = run("sentiment", sentiment_phase, card, **prof)
+    cluster = run("cluster", cluster_phase, card)
+    tail = run("tail", tail_phase, card)
+    scaleout = run("scaleout", scaleout_phase, card)
+    dp = run("dp", dp_phase, card)
+    mesh = run("mesh", mesh_phase, card, train)
+    multiproc = run("multiproc", multiproc_phase, card)
+    log(f"phases: wall s {json.dumps(wall)}")
 
     entries = []
     if kernels_line is not None:
@@ -11450,6 +11894,8 @@ def main(argv=None) -> int:
               flush=True)
     if serve is not None:
         print(json.dumps({"serve": serve}), flush=True)
+    if programs is not None:
+        print(json.dumps({"programs": programs}), flush=True)
     if parity is not None:
         print(json.dumps({"parity": parity}), flush=True)
     if train is not None:

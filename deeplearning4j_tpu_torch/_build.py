@@ -1,11 +1,12 @@
 """Build the port's CUDA kernels on first use.
 
-Each source under ``csrc/`` is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into a shared library with a plain C interface, which the
-kernel's wrapper loads with ``ctypes``.  Libraries go to
-``_kernels_build/`` beside this file (listed in ``.gitignore``), named by
-a digest of the source and the flags, so an edited source is never served
-by a stale library.  Only the sources in this package are built.
+Each source under ``csrc/`` (with the headers beside it) is compiled by
+``nvcc`` for Hopper (``sm_90a``) into a shared library with a plain C
+interface, which the kernel's wrapper loads with ``ctypes``.  Libraries
+go to ``_kernels_build/`` beside this file (listed in ``.gitignore``),
+named by a digest of the source, the headers and the flags, so an edited
+source is never served by a stale library.  Only the sources in this
+package are built.
 
 `build()` starts one ``nvcc`` per source that still needs building, all
 at once, and waits for them together.
@@ -70,9 +71,11 @@ def build_command(nvcc: str, source: Path, output: Path) -> List[str]:
 
 
 def library_path(name: str) -> Path:
-    """Where `name`'s library lives: keyed by the source and flag digest."""
+    """Where `name`'s library lives: keyed by the digest of its source,
+    the shared headers (``csrc/*.cuh``) and the flags."""
     src = CSRC / SOURCES[name]
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 

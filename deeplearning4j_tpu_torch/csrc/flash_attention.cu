@@ -132,6 +132,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include "launch_once.cuh"
+
 namespace {
 
 constexpr int kTile = 64;              // rows of a query or key tile
@@ -1831,18 +1833,17 @@ flash_bwd_dq_mma_kernel(const bf16* __restrict__ q,
 // ---------------------------------------------------------------------------
 // launches
 
+// The kernel's shared-memory limit for `smem` bytes, set on the first
+// (eager) call of each kernel and size (launch_once.cuh), so a launch
+// under CUDA-graph capture makes no runtime call but the launch.
 cudaError_t prepare(const void* kernel, size_t smem) {
-  int dev = 0;
   int max_optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&max_optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaError_t err = dl4j::device_attribute_once(
+      cudaDevAttrMaxSharedMemoryPerBlockOptin, &max_optin);
   if (err != cudaSuccess) return err;
   if (smem > (size_t)max_optin) return cudaErrorInvalidConfiguration;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
+  return dl4j::set_attribute_once(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 bool bad_shape(int B, int S, int H, int D) {

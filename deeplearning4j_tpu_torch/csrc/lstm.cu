@@ -89,6 +89,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include "launch_once.cuh"
+
 namespace cg = cooperative_groups;
 
 namespace {
@@ -689,14 +691,16 @@ int wide_rows(int b, int H, int u, size_t optin) {
   return wide_floats(b, H, u, rows) * sizeof(float) > optin ? 0 : rows;
 }
 
+// The device limits, the kernels' attributes and the wide route's
+// occupancy are set or read on the first (eager) call of each shape and
+// remembered (launch_once.cuh): a launch under CUDA-graph capture makes
+// no runtime call but the launch.
 cudaError_t device_limits(int* sms, int* optin) {
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err =
+      dl4j::device_attribute_once(cudaDevAttrMultiProcessorCount, sms);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  return cudaDeviceGetAttribute(optin,
-                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return dl4j::device_attribute_once(cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                                     optin);
 }
 
 // Shared-memory and cluster-size attributes of the cluster kernel, and
@@ -704,12 +708,12 @@ cudaError_t device_limits(int* sms, int* optin) {
 template <typename T>
 cudaError_t cluster_config(const Plan& p, cudaLaunchConfig_t* cfg,
                            cudaLaunchAttribute* attr) {
-  auto kernel = lstm_cluster_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
+  const void* kernel = (const void*)lstm_cluster_kernel<T>;
+  cudaError_t err = dl4j::set_attribute_once(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
   if (err != cudaSuccess) return err;
   if (p.cluster > 8) {
-    err = cudaFuncSetAttribute(
+    err = dl4j::set_attribute_once(
         kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return err;
   }
@@ -755,10 +759,8 @@ cudaError_t make_plan(int B, int H, int es, Plan* p) {
     p->k_parts = c.k_parts;
     return cudaSuccess;
   }
-  int coop = 0, dev = 0;
-  err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  int coop = 0;
+  err = dl4j::device_attribute_once(cudaDevAttrCooperativeLaunch, &coop);
   if (err != cudaSuccess) return err;
   if (!coop) return cudaErrorNotSupported;
   p->route = kRouteWide;
@@ -816,14 +818,15 @@ cudaError_t launch_wide(const Plan& p, const void* xz, const void* rw,
                         long long hs_st, long long hs_sb,
                         cudaStream_t stream) {
   auto kernel = lstm_wide_kernel<T>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)p.smem);
+  cudaError_t err = dl4j::set_attribute_once(
+      (const void*)kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)p.smem);
   if (err != cudaSuccess) return err;
   int sms = 0, optin = 0, per_sm = 0;
   err = device_limits(&sms, &optin);
   if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      kThreads, p.smem);
+  err = dl4j::max_active_blocks_once(&per_sm, (const void*)kernel, kThreads,
+                                     p.smem);
   if (err != cudaSuccess) return err;
   if ((long long)per_sm * sms < p.blocks)
     return cudaErrorCooperativeLaunchTooLarge;

@@ -76,6 +76,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include "launch_once.cuh"
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -743,18 +745,17 @@ size_t mma_smem(int K, int cols, int pps) {
          (size_t)pps * sizeof(int);
 }
 
+// The kernel's shared-memory limit for `smem` bytes, set on the first
+// (eager) call of each kernel and size (launch_once.cuh), so a launch
+// under CUDA-graph capture makes no runtime call but the launch.
 cudaError_t prepare(const void* kernel, size_t smem) {
-  int dev = 0;
   int max_optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&max_optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaError_t err = dl4j::device_attribute_once(
+      cudaDevAttrMaxSharedMemoryPerBlockOptin, &max_optin);
   if (err != cudaSuccess) return err;
   if (smem > (size_t)max_optin) return cudaErrorInvalidConfiguration;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
+  return dl4j::set_attribute_once(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
 template <typename Kernel>

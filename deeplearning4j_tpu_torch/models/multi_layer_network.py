@@ -77,6 +77,7 @@ from deeplearning4j_tpu_torch.precision import (
     where_tree,
 )
 from deeplearning4j_tpu_torch.precision.policy import dtype_of
+from deeplearning4j_tpu_torch.runtime.programs import BucketPrograms
 from deeplearning4j_tpu_torch.tree import map_tree, tree_leaves
 
 Tree = Any
@@ -142,6 +143,15 @@ def _as_tensor(a, device: torch.device) -> Optional[torch.Tensor]:
     if a.dtype == torch.float64:
         a = a.float()
     return a.to(device)
+
+
+def _host_input(a) -> np.ndarray:
+    """A serving input as the host array `_as_tensor` would move: float64
+    and bfloat16 become float32."""
+    arr = np.asarray(a.cpu() if isinstance(a, torch.Tensor) else a)
+    if arr.dtype == np.float64 or str(arr.dtype) == "bfloat16":
+        arr = arr.astype(np.float32)
+    return np.ascontiguousarray(arr)
 
 
 def params_from_numpy(net: "MultiLayerNetwork", src) -> List[Dict[str,
@@ -221,8 +231,9 @@ class MultiLayerNetwork:
         self._precision = resolve_policy(None, conf.conf)
         self._scaler_state: Optional[Dict[str, torch.Tensor]] = None
         # input signatures the inference forward has run (see
-        # forward_program_count)
+        # forward_program_count), and output_bucketed's programs
         self._signatures: set = set()
+        self._bucket_programs = None
         self._lr_scale = 1.0
         self.last_grad_norm: Optional[torch.Tensor] = None
         self._listeners: list = []  # [(fn, sync_interval, score_only)]
@@ -264,6 +275,7 @@ class MultiLayerNetwork:
         self._precision = policy
         self._scaler_state = None
         self._signatures = set()
+        self._bucket_programs = None
         if self.params is not None and self._dtype != old_param_dtype:
             with torch.no_grad():
                 self.params = map_tree(
@@ -910,30 +922,46 @@ class MultiLayerNetwork:
         """`output` through a serving `BucketLadder`: the batch is padded
         up to the ladder's next bucket, run once, and the padding rows
         sliced off on the host, so a stream of mixed batch sizes runs
-        one input shape per bucket.  Inference rows are independent, so
-        the real rows are those of a dispatch of the padded batch.
-        Returns a host array (float32 for a bfloat16 output dtype)."""
+        one program per bucket (`runtime.programs.BucketPrograms`: a
+        CUDA graph captured on the bucket's first call on the card).
+        Inference rows are independent, so the real rows are those of a
+        dispatch of the padded batch.  Returns a host array (float32 for
+        a bfloat16 output dtype)."""
         from deeplearning4j_tpu_torch.serving.bucketing import BucketLadder
 
         if ladder is None:
             ladder = BucketLadder()
-        x = np.asarray(x)
-        padded, n = ladder.pad_rows(x)
+        if self.params is None:
+            self.init()
+        padded, n = ladder.pad_rows(_host_input(x))
         if mask is not None:
-            mask, _ = ladder.pad_rows(np.asarray(mask))
-        out = self.output(padded, mask)
-        if out.dtype == torch.bfloat16:
-            out = out.float()
-        out = out.cpu().numpy()
+            mask, _ = ladder.pad_rows(_host_input(mask))
+        if self._bucket_programs is None:
+            self._bucket_programs = BucketPrograms(
+                self.device, self._bucket_forward,
+                lambda: [*tree_leaves(self.params), *tree_leaves(self.state)])
+        self._signatures.add((tuple(padded.shape),
+                              torch.from_numpy(padded[:0]).dtype,
+                              mask is not None))
+        out = self._bucket_programs(padded, mask)
         return out if n == padded.shape[0] else out[:n]
+
+    def _bucket_forward(self, x: torch.Tensor,
+                        mask: Optional[torch.Tensor]) -> torch.Tensor:
+        """`output`'s forward on a bucket's static inputs (the program
+        body of `output_bucketed`)."""
+        out, _ = self._forward(self.params, self.state, x, train=False,
+                               mask=mask)
+        out = out.to(self._output_dtype)
+        return out.float() if out.dtype == torch.bfloat16 else out
 
     def forward_program_count(self) -> int:
         """Distinct input signatures (shape, dtype, mask present) the
-        inference forward (`output`) has run since the last
-        `set_precision`.  The JAX package counts the XLA programs its
-        jitted forward compiled, one per such signature; eager PyTorch
-        compiles nothing, so the port counts the signatures, which the
-        bucket ladder bounds the same way."""
+        inference forward (`output`, `output_bucketed`) has run since the
+        last `set_precision`: the JAX package's count of the programs its
+        jitted forward compiled, one per such signature.  The bucket
+        ladder bounds it; `output_bucketed` builds one program for each
+        of its signatures, `output` runs eagerly."""
         return len(self._signatures)
 
     @torch.no_grad()

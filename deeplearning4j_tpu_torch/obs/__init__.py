@@ -7,12 +7,19 @@
   ``GET /trace/recent`` and Chrome trace-event export;
 - `telemetry`: `TrainingTelemetry`, the training listener behind
   ``train -metrics-port``;
-- `http`: `MetricsServer`, the standalone training endpoint.
-
-The JAX package's compile watcher listens to JAX's compile events and has
-no counterpart here (ROADMAP.md, A0).
+- `http`: `MetricsServer`, the standalone training endpoint;
+- `compilewatch`: ``compiles_total{program_key=...}``, fed by the
+  serving programs (`runtime.programs.Program`: a CUDA graph captured on
+  the card), and the recent-event ring behind the request traces'
+  ``xla_compile`` spans.
 """
 
+from deeplearning4j_tpu_torch.obs.compilewatch import (
+    COMPILE_EVENT,
+    CompileWatcher,
+    compile_scope,
+    compile_watcher,
+)
 from deeplearning4j_tpu_torch.obs.http import MetricsServer
 from deeplearning4j_tpu_torch.obs.registry import (
     EXPOSITION_CONTENT_TYPE,
@@ -33,6 +40,8 @@ from deeplearning4j_tpu_torch.obs.trace import (
 )
 
 __all__ = [
+    "COMPILE_EVENT",
+    "CompileWatcher",
     "Counter",
     "EXPOSITION_CONTENT_TYPE",
     "Gauge",
@@ -44,6 +53,8 @@ __all__ = [
     "TraceRecorder",
     "TrainingTelemetry",
     "chrome_trace",
+    "compile_scope",
+    "compile_watcher",
     "new_request_id",
     "span",
     "trace",

@@ -28,6 +28,19 @@ cache tensors are updated in place (the scatter of each dispatch's new
 keys and values, the copy-on-write page copy), and the steps return the
 same tensors.
 
+The serving steps (`make_spec_step`, `make_paged_step`, `make_slot_step`
+and the page copy, gather and install) are the JAX module's compiled
+programs: each is a `runtime.programs.Program` per lane count, a CUDA
+graph captured on its first call on the card.  A program's inputs have
+fixed shapes and reach it through static buffers filled from the host
+in one copy; nothing inside it reads back to the host or branches on the
+host: the dense steps attend over the whole ``max_len`` under the mask,
+the page ops take one page (copy) or a whole block-table row (gather,
+install), and sampling takes host-drawn Gumbel noise in a ``[B, V]``
+buffer.  A program holds the parameters and the cache by address, so a
+step refuses other tensors than those it was built over.  Each step's
+`eager` runs the same function without a program.
+
 Sampling draws Gumbel noise from a counter-based generator keyed on
 ``(seed, count)`` (`gumbel_noise`): a pool lane's draws depend only on its
 own seed and token index, and row b of a `generate` batch takes the b-th
@@ -39,7 +52,7 @@ are compared with the JAX package by rule, not by value.
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -64,19 +77,7 @@ from deeplearning4j_tpu_torch.parallel.transformer import (
     qkv_proj,
     torch_dtype,
 )
-
-
-def _to_device_ints(device: torch.device, *arrays) -> List[torch.Tensor]:
-    """Host int32 arrays -> int32 tensors on `device`, moved in one copy
-    (views of one packed buffer, each in its array's shape)."""
-    arrays = [np.asarray(a, np.int32) for a in arrays]
-    packed = torch.from_numpy(np.concatenate([a.ravel() for a in arrays]))
-    dev = packed.to(device)
-    out, at = [], 0
-    for a in arrays:
-        out.append(dev[at:at + a.size].view(a.shape))
-        at += a.size
-    return out
+from deeplearning4j_tpu_torch.runtime.programs import Program, StaticInputs
 
 
 def place_params(cfg: TransformerConfig, params: dict,
@@ -190,28 +191,148 @@ def slot_decode_step(cfg: TransformerConfig, params: dict, cache: dict,
     return logits, {"k": cache["k"], "v": cache["v"], "pos": pos + 1}
 
 
-def make_slot_step(cfg: TransformerConfig):
-    """Slot-step entry for the ``kv="dense"`` pool and the model drafter:
-    fn(params, k, v, pos [B], token [B], temperature [B], seeds [B],
-    counts [B]) -> (next_token [B], k, v).  The integer inputs are host
-    arrays (one copy to the device); k and v are updated in place.
-    Sampling is `sample_tokens`, the paged step's per-slot rule."""
+class ServingStep:
+    """A serving step as programs (the JAX module's jitted programs): one
+    `runtime.programs.Program` per lane count, running `compute(*held,
+    t)` on static inputs `t`.  `held` (parameters, cache tensors) is read
+    by address and fixed at the first call.  A subclass names its `key`
+    (for errors), its host inputs (`_spec`), its device-side statics
+    (`_statics`) and, with `vocab` > 0, samples: a ``[B, vocab]`` noise
+    buffer, copied only in a dispatch where some lane samples."""
 
-    def step(params, k, v, pos, token, temperature, seeds, counts):
+    key = ""
+    vocab = 0
+
+    def __init__(self, pool=None, key: Optional[str] = None):
+        self.pool = pool
+        if key is not None:
+            self.key = key
+        self._built: Dict[int, tuple] = {}
+
+    def _spec(self, b: int) -> dict:
+        """{name: (shape, numpy dtype)} of the host inputs."""
+        raise NotImplementedError
+
+    def _statics(self, held: tuple) -> dict:
+        """Device-side static inputs filled by the caller (none here)."""
+        return {}
+
+    def compute(self, *args):
+        """The step's function over the held tensors and the inputs."""
+        raise NotImplementedError
+
+    @property
+    def programs(self) -> List[Program]:
+        return [entry[2] for entry in self._built.values()]
+
+    def _entry(self, held: tuple, b: int) -> tuple:
+        """(inputs, noise, program, t) of `b` lanes, made on first use over
+        `held`; a later call with other held tensors raises."""
+        entry = self._built.get(b)
+        if entry is None:
+            device = held[-1].device
+            inputs = StaticInputs(device, self._spec(b))
+            t = dict(inputs.tensors, **self._statics(held))
+            noise = None
+            if self.vocab:
+                noise = StaticInputs(device, {"noise": ((b, self.vocab),
+                                                        np.float32)})
+                t.update(noise.tensors)
+            program = Program(self.key, lambda: self.compute(*held, t),
+                              device, self.pool)
+            entry = self._built[b] = (inputs, noise, program, t, held)
+        if any(a is not w for a, w in zip(held, entry[4])):
+            raise ValueError(
+                f"program {self.key} was built over other parameter or "
+                f"cache tensors: a step serves the tensors of its first "
+                f"call")
+        return entry[:4]
+
+    def _run(self, held: tuple, b: int, host: dict, sampling=None):
+        """Fill the static inputs from `host` (and the noise rows of
+        `sampling` = (temperature, seeds, counts)), then run the program."""
+        inputs, noise, program, _ = self._entry(held, b)
+        inputs.put(**host)
+        if noise is not None and sampling is not None:
+            stage_noise(noise, *sampling)
+        return program()
+
+    def _eager(self, held: tuple, b: int, host: dict, sampling=None,
+               statics: Optional[dict] = None):
+        """`compute` on fresh device copies of the same inputs, without a
+        program."""
+        device = held[-1].device
+        t = {}
+        for name, (shape, dt) in self._spec(b).items():
+            a = np.asarray(host[name], dt)
+            if a.shape != tuple(shape):
+                raise ValueError(f"{self.key}: {name} has shape {a.shape}, "
+                                 f"the step takes {tuple(shape)}")
+            t[name] = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+        t.update(statics or {})
+        if self.vocab:
+            noise = (sampling_noise(*sampling, self.vocab)
+                     if sampling is not None else None)
+            t["noise"] = (torch.zeros((b, self.vocab), dtype=torch.float32,
+                                      device=device) if noise is None
+                          else torch.from_numpy(noise).to(device))
+        with torch.no_grad():
+            return self.compute(*held, t)
+
+
+class SlotStep(ServingStep):
+    """The dense slot program (the ``kv="dense"`` pool's, key
+    ``lm:dense``, and the model drafter's, ``lm:draft``): fn(params, k, v,
+    pos [B], token [B], temperature [B], seeds [B], counts [B]) ->
+    (next_token [B], k, v).  Each row attends over the whole ``max_len``
+    under the mask, as the JAX module's one dense program does; k and v
+    are updated in place.  Sampling is `sample_tokens`' per-slot rule."""
+
+    key = "lm:dense"
+
+    def __init__(self, cfg: TransformerConfig, pool=None,
+                 key: Optional[str] = None):
+        super().__init__(pool, key)
+        self.cfg = cfg
+        self.vocab = cfg.vocab_size
+
+    def _spec(self, b: int) -> dict:
+        return {"pos": ((b,), np.int32), "token": ((b,), np.int32),
+                "temperature": ((b,), np.float32)}
+
+    def compute(self, params, k, v, t):
+        logits = _dense_step(self.cfg, params, k, v, t["token"], t["pos"],
+                             None)
+        return sample_from_noise(logits, t["temperature"], t["noise"])
+
+    def _host(self, k, pos, token, temperature):
         pos = np.asarray(pos, np.int32)
         token = np.asarray(token, np.int32)
         b = k.shape[1]
         if pos.shape != (b,) or token.shape != (b,):
             raise ValueError(f"slot step over {b} slots got pos "
                              f"{pos.shape} and token {token.shape}")
-        pos_t, tok_t = _to_device_ints(k.device, pos, token)
-        with torch.no_grad():
-            logits = _dense_step(cfg, params, k, v, tok_t, pos_t,
-                                 int(pos.max()) + 1)
-            nxt = sample_tokens(logits, temperature, seeds, counts)
+        return b, {"pos": pos, "token": token, "temperature": temperature}
+
+    def __call__(self, params, k, v, pos, token, temperature, seeds,
+                 counts):
+        b, host = self._host(k, pos, token, temperature)
+        nxt = self._run((params, k, v), b, host,
+                        (temperature, seeds, counts))
         return nxt, k, v
 
-    return step
+    def eager(self, params, k, v, pos, token, temperature, seeds, counts):
+        """The same step without a program."""
+        b, host = self._host(k, pos, token, temperature)
+        return (self._eager((params, k, v), b, host,
+                            (temperature, seeds, counts)), k, v)
+
+
+def make_slot_step(cfg: TransformerConfig, pool=None,
+                   key: Optional[str] = None) -> SlotStep:
+    """Slot-step entry for the ``kv="dense"`` pool and the model drafter
+    (`SlotStep`; `pool` is the server's graph memory pool)."""
+    return SlotStep(cfg, pool, key)
 
 
 # ---------------------------------------------------------------------------
@@ -318,61 +439,73 @@ def gumbel_noise(seed: int, count: int, vocab: int) -> np.ndarray:
     return (-np.log(-np.log(u))).astype(np.float32)
 
 
+def sampling_noise(temperature, seeds, counts,
+                   vocab: int) -> Optional[np.ndarray]:
+    """``[B, V]`` float32 Gumbel noise: `gumbel_noise(seeds[b], counts[b],
+    V)` in each sampling lane's row (temperature > 0), zeros elsewhere;
+    None when no lane samples."""
+    temp = np.asarray(temperature, np.float32)
+    lanes = np.nonzero(temp > 0)[0]
+    if not lanes.size:
+        return None
+    noise = np.zeros((temp.shape[0], int(vocab)), np.float32)
+    for i in lanes:
+        noise[i] = gumbel_noise(int(seeds[i]), int(counts[i]), int(vocab))
+    return noise
+
+
+def stage_noise(inputs: StaticInputs, temperature, seeds, counts) -> None:
+    """`sampling_noise` into a program's ``noise`` buffer.  Nothing is
+    copied when no lane samples: a greedy lane's row is never chosen
+    (`sample_from_noise`)."""
+    noise = sampling_noise(temperature, seeds, counts,
+                           inputs.tensors["noise"].shape[1])
+    if noise is not None:
+        inputs.put(noise=noise)
+
+
+def sample_from_noise(logits: torch.Tensor, temperature: torch.Tensor,
+                      noise: torch.Tensor) -> torch.Tensor:
+    """Per-lane next tokens from ``[B, V]`` logits, on the device and with
+    no host branch: ``argmax(logits)`` where temperature ``[B]`` is 0,
+    else the Gumbel-max draw ``argmax(logits / max(temperature, 1e-6) +
+    noise)`` from ``softmax(logits / temperature)``."""
+    logits = logits.float()
+    sampled = (logits / torch.clamp(temperature, min=1e-6)[:, None]
+               + noise).argmax(dim=-1)
+    return torch.where(temperature > 0, sampled, logits.argmax(dim=-1))
+
+
 def sample_tokens(logits: torch.Tensor, temperature: np.ndarray,
                   seeds: np.ndarray, counts: np.ndarray) -> torch.Tensor:
-    """Per-lane next tokens from ``[B, V]`` logits: argmax where the
-    temperature is 0, else a draw from ``softmax(logits / temperature)``
-    by the Gumbel-max rule over `gumbel_noise`."""
-    logits = logits.float()
-    out = logits.argmax(dim=-1)
-    lanes = np.nonzero(np.asarray(temperature) > 0)[0]
-    if lanes.size:
-        vocab = logits.shape[-1]
-        noise = np.stack([gumbel_noise(int(seeds[i]), int(counts[i]), vocab)
-                          for i in lanes])
-        idx = torch.as_tensor(lanes, device=logits.device)
-        temp = torch.as_tensor(np.maximum(np.asarray(temperature)[lanes],
-                                          1e-6), dtype=torch.float32,
-                               device=logits.device)
-        scores = (logits[idx] / temp[:, None]
-                  + torch.from_numpy(noise).to(logits.device))
-        out[idx] = scores.argmax(dim=-1)
-    return out
+    """`sample_from_noise` with the host's `sampling_noise`: the pool's
+    per-slot rule, greedy where the temperature is 0, else a draw keyed
+    on ``(seed, count)``."""
+    temp = np.asarray(temperature, np.float32)
+    noise = sampling_noise(temp, seeds, counts, logits.shape[-1])
+    dev = logits.device
+    return sample_from_noise(
+        logits, torch.from_numpy(temp).to(dev),
+        torch.zeros(logits.shape, dtype=torch.float32, device=dev)
+        if noise is None else torch.from_numpy(noise).to(dev))
 
 
 def make_paged_step(cfg: TransformerConfig, pages: int, page_size: int,
-                    chunk: int):
-    """Paged-step entry for `serving.lm.ContinuousLMServer`:
-    fn(params, k, v, table [B, MP], pos [B], n_feed [B], tokens [B, chunk],
-    temperature [B], seeds [B], counts [B]) -> (next_token [B], k, v).
+                    chunk: int, pool=None):
+    """Paged-step entry without drafts: fn(params, k, v, table [B, MP], pos
+    [B], n_feed [B], tokens [B, chunk], temperature [B], seeds [B], counts
+    [B]) -> (next_token [B], k, v), the decode head of `SpecStep` (the
+    LM head at each lane's last fed column)."""
+    step = SpecStep(cfg, pages, page_size, chunk, verify=False, pool=pool)
 
-    The integer inputs are host (numpy) arrays; they travel to the pool's
-    device in one copy.  k and v are the pool tensors, updated in place
-    and returned."""
-    pages, page_size, chunk = int(pages), int(page_size), int(chunk)
-    mp = pages_per_seq(cfg, page_size)
-
-    def step(params, k, v, table, pos, n_feed, tokens, temperature, seeds,
-             counts):
-        table = np.asarray(table, np.int32)
-        tokens = np.asarray(tokens, np.int32)
-        b = table.shape[0]
-        if (table.shape != (b, mp) or tokens.shape != (b, chunk)
-                or k.shape[1:3] != (pages, page_size)):
-            raise ValueError(
-                f"paged step built for table [B, {mp}], tokens "
-                f"[B, {chunk}] and {pages} pages of {page_size}; got "
-                f"table {table.shape}, tokens {tokens.shape}, pool "
-                f"{tuple(k.shape)}")
-        tbl, pos_t, nf_t, tok_t = _to_device_ints(k.device, table, pos,
-                                                  n_feed, tokens)
-        with torch.no_grad():
-            logits, _ = paged_decode_step(cfg, params, {"k": k, "v": v},
-                                          tbl, pos_t, nf_t, tok_t)
-            nxt = sample_tokens(logits, temperature, seeds, counts)
+    def paged(params, k, v, table, pos, n_feed, tokens, temperature, seeds,
+              counts):
+        n_draft = np.zeros(np.shape(pos), np.int32)
+        nxt, _, k, v = step(params, k, v, table, pos, n_feed, n_draft,
+                            tokens, temperature, seeds, counts)
         return nxt, k, v
 
-    return step
+    return paged
 
 
 # ---------------------------------------------------------------------------
@@ -409,97 +542,227 @@ def spec_verify_step(cfg: TransformerConfig, params: dict, cache: dict,
     return blog, accepted.to(torch.int32), cache
 
 
-def make_spec_step(cfg: TransformerConfig, pages: int, page_size: int,
-                   width: int):
-    """Speculative-verify entry for the LM pool: fn(params, k, v, table
-    [B, MP], pos [B], n_feed [B], n_draft [B], tokens [B, W], temperature
-    [B], seeds [B], counts [B]) -> (bonus_token [B], accepted [B], k, v),
-    both outputs on the pool's device.  The bonus token is drawn at the
-    bonus column by `sample_tokens`, the 1-wide step's per-slot rule, so
-    a sampled lane (n_draft = 0) gives the same tokens on either
-    program.  A dispatch with no drafts (n_draft all 0, known on the
-    host) is `paged_decode_step`, which is `spec_verify_step` there with
-    the LM head at each lane's last fed column only; accepted is 0."""
-    pages, page_size, width = int(pages), int(page_size), int(width)
-    mp = pages_per_seq(cfg, page_size)
+class SpecStep(ServingStep):
+    """The LM pool's paged program at one width (key ``lm:paged[w{W}]``):
+    fn(params, k, v, table [B, MP], pos [B], n_feed [B], n_draft [B],
+    tokens [B, W], temperature [B], seeds [B], counts [B]) ->
+    (next_token [B], accepted [B], k, v), both outputs on the pool's
+    device.  With `verify` (the speculating pool's wide program, as the
+    JAX module's `_compiled_spec_step`) the step is `spec_verify_step`
+    and the token is drawn at the bonus column; without it (the 1-wide
+    program and the prefill chunk of a pool without speculation, as JAX's
+    `make_paged_step`) it is `paged_decode_step`, the LM head at each
+    lane's last fed column only, and accepted is 0.  Both draw by
+    `sample_from_noise`, so a teacher-forced lane (n_draft = 0) gives the
+    same token on either program."""
 
-    def step(params, k, v, table, pos, n_feed, n_draft, tokens,
-             temperature, seeds, counts):
+    def __init__(self, cfg: TransformerConfig, pages: int, page_size: int,
+                 width: int, verify: bool = True, pool=None,
+                 key: Optional[str] = None):
+        super().__init__(pool, key if key is not None
+                         else f"lm:paged[w{int(width)}]")
+        self.cfg = cfg
+        self.pages, self.page_size = int(pages), int(page_size)
+        self.width, self.verify = int(width), bool(verify)
+        self.mp = pages_per_seq(cfg, self.page_size)
+        self.vocab = cfg.vocab_size
+
+    def _spec(self, b: int) -> dict:
+        lanes = ((b,), np.int32)
+        return {"table": ((b, self.mp), np.int32), "pos": lanes,
+                "n_feed": lanes, "n_draft": lanes,
+                "tokens": ((b, self.width), np.int32),
+                "temperature": ((b,), np.float32)}
+
+    def compute(self, params, k, v, t):
+        cache = {"k": k, "v": v}
+        if self.verify:
+            blog, accepted, _ = spec_verify_step(
+                self.cfg, params, cache, t["table"], t["pos"], t["n_feed"],
+                t["n_draft"], t["tokens"])
+        else:
+            blog, _ = paged_decode_step(self.cfg, params, cache, t["table"],
+                                        t["pos"], t["n_feed"], t["tokens"])
+            accepted = torch.zeros_like(t["n_draft"])
+        return (sample_from_noise(blog, t["temperature"], t["noise"]),
+                accepted)
+
+    def _host(self, k, table, pos, n_feed, n_draft, tokens, temperature):
         table = np.asarray(table, np.int32)
         tokens = np.asarray(tokens, np.int32)
         b = table.shape[0]
-        if (table.shape != (b, mp) or tokens.shape != (b, width)
-                or k.shape[1:3] != (pages, page_size)):
+        if (table.shape != (b, self.mp) or tokens.shape != (b, self.width)
+                or tuple(k.shape[1:3]) != (self.pages, self.page_size)):
             raise ValueError(
-                f"verify step built for table [B, {mp}], tokens "
-                f"[B, {width}] and {pages} pages of {page_size}; got "
-                f"table {table.shape}, tokens {tokens.shape}, pool "
-                f"{tuple(k.shape)}")
-        tbl, pos_t, nf_t, nd_t, tok_t = _to_device_ints(
-            k.device, table, pos, n_feed, n_draft, tokens)
-        cache = {"k": k, "v": v}
-        with torch.no_grad():
-            if np.any(n_draft):
-                blog, accepted, _ = spec_verify_step(
-                    cfg, params, cache, tbl, pos_t, nf_t, nd_t, tok_t)
-            else:
-                blog, _ = paged_decode_step(cfg, params, cache, tbl, pos_t,
-                                            nf_t, tok_t)
-                accepted = torch.zeros_like(nd_t)
-            nxt = sample_tokens(blog, temperature, seeds, counts)
+                f"paged step built for table [B, {self.mp}], tokens "
+                f"[B, {self.width}] and {self.pages} pages of "
+                f"{self.page_size}; got table {table.shape}, tokens "
+                f"{tokens.shape}, pool {tuple(k.shape)}")
+        return b, {"table": table, "pos": pos, "n_feed": n_feed,
+                   "n_draft": n_draft, "tokens": tokens,
+                   "temperature": temperature}
+
+    def __call__(self, params, k, v, table, pos, n_feed, n_draft, tokens,
+                 temperature, seeds, counts):
+        b, host = self._host(k, table, pos, n_feed, n_draft, tokens,
+                             temperature)
+        nxt, accepted = self._run((params, k, v), b, host,
+                                  (temperature, seeds, counts))
         return nxt, accepted, k, v
 
-    return step
+    def eager(self, params, k, v, table, pos, n_feed, n_draft, tokens,
+              temperature, seeds, counts):
+        """The same step without a program."""
+        b, host = self._host(k, table, pos, n_feed, n_draft, tokens,
+                             temperature)
+        nxt, accepted = self._eager((params, k, v), b, host,
+                                    (temperature, seeds, counts))
+        return nxt, accepted, k, v
 
 
-def make_page_copy(cfg: TransformerConfig, pages: int, page_size: int):
-    """Copy-on-write entry: fn(k, v, src, dst) -> (k, v), duplicating page
-    `src` into page `dst` in every layer, in place."""
+def make_spec_step(cfg: TransformerConfig, pages: int, page_size: int,
+                   width: int, verify: bool = True, pool=None) -> SpecStep:
+    """Speculative-verify entry for the LM pool (`SpecStep`; ``verify=
+    False`` is the decode head, the pool's program without drafts)."""
+    return SpecStep(cfg, pages, page_size, width, verify, pool)
 
-    def copy(k, v, src, dst):
-        src, dst = int(src), int(dst)
-        with torch.no_grad():
-            k[:, dst] = k[:, src]
-            v[:, dst] = v[:, src]
+
+class PageCopy(ServingStep):
+    """Copy-on-write program (key ``lm:page_copy``): fn(k, v, src, dst) ->
+    (k, v), page `src` duplicated into page `dst` in every layer, in
+    place: one page, as the JAX program."""
+
+    key = "lm:page_copy"
+
+    def __init__(self, cfg: TransformerConfig, pages: int, page_size: int,
+                 pool=None):
+        super().__init__(pool)
+        self.pages = int(pages)
+
+    def _spec(self, b: int) -> dict:
+        return {"pages": ((2,), np.int32)}
+
+    def compute(self, k, v, t):
+        src, dst = t["pages"][:1].long(), t["pages"][1:].long()
+        k.index_copy_(1, dst, k.index_select(1, src))
+        v.index_copy_(1, dst, v.index_select(1, src))
+
+    def __call__(self, k, v, src, dst):
+        self._run((k, v), 1, {"pages": np.array([src, dst], np.int32)})
         return k, v
 
-    return copy
+    def eager(self, k, v, src, dst):
+        """The same step without a program."""
+        self._eager((k, v), 1, {"pages": np.array([src, dst], np.int32)})
+        return k, v
 
 
-def make_page_gather(cfg: TransformerConfig, pages: int, page_size: int):
-    """Export half of KV page shipping (`serving/transfer.py`): fn(k, v,
-    table_row [MP]) -> (pages_k ``[L, MP, ps, H, K]``, pages_v), a lane's
-    pages gathered out of the pool by block-table row (entries past the
-    shipped count point at the null page; the caller slices them off).
-    The pool is read, not changed: the exporting lane keeps serving."""
-
-    def gather(k, v, table_row):
-        row = torch.as_tensor(np.asarray(table_row, np.int64),
-                              device=k.device)
-        with torch.no_grad():
-            return k[:, row], v[:, row]
-
-    return gather
+def make_page_copy(cfg: TransformerConfig, pages: int, page_size: int,
+                   pool=None) -> PageCopy:
+    """Copy-on-write entry (`PageCopy`)."""
+    return PageCopy(cfg, pages, page_size, pool)
 
 
-def make_page_install(cfg: TransformerConfig, pages: int, page_size: int):
-    """Import half of KV page shipping: fn(k, v, pages_k ``[L, M, ps, H,
-    K]``, pages_v, table_row [MP], n) -> (k, v), the page stack scattered
-    into the pool at the row's physical pages in one call, in place.  M
-    is at most MP; rows at or past `n` land on the null page 0, whose
-    contents are garbage by design."""
+class PageGather(ServingStep):
+    """Export half of KV page shipping (`serving/transfer.py`; key
+    ``lm:page_gather``): fn(k, v, table_row [MP]) -> (pages_k ``[L, MP,
+    ps, H, K]``, pages_v), a lane's pages gathered out of the pool by
+    block-table row (entries past the shipped count point at the null
+    page; the caller slices them off).  The pool is read, not changed:
+    the exporting lane keeps serving.  The outputs are the program's
+    static buffers: consume them before its next call."""
 
-    def install(k, v, pages_k, pages_v, table_row, n):
+    key = "lm:page_gather"
+
+    def __init__(self, cfg: TransformerConfig, pages: int, page_size: int,
+                 pool=None):
+        super().__init__(pool)
+        self.mp = pages_per_seq(cfg, page_size)
+
+    def _spec(self, b: int) -> dict:
+        return {"row": ((self.mp,), np.int32)}
+
+    def compute(self, k, v, t):
+        row = t["row"].long()
+        return k.index_select(1, row), v.index_select(1, row)
+
+    def __call__(self, k, v, table_row):
+        return self._run((k, v), 1, {"row": table_row})
+
+    def eager(self, k, v, table_row):
+        """The same step without a program."""
+        return self._eager((k, v), 1, {"row": table_row})
+
+
+def make_page_gather(cfg: TransformerConfig, pages: int, page_size: int,
+                     pool=None) -> PageGather:
+    """Page-gather entry (`PageGather`)."""
+    return PageGather(cfg, pages, page_size, pool)
+
+
+class PageInstall(ServingStep):
+    """Import half of KV page shipping (key ``lm:page_install``): fn(k, v,
+    pages_k ``[L, M, ps, H, K]``, pages_v, table_row [MP], n) -> (k, v),
+    the page stack scattered into the pool at the row's physical pages
+    in one call, in place.  M is at most MP: the pages are copied into
+    the program's ``[L, MP, ps, H, K]`` buffers, and every row at or past
+    `n` lands on the null page 0, whose contents are garbage by design,
+    so the program's shape never depends on how many pages shipped."""
+
+    key = "lm:page_install"
+
+    def __init__(self, cfg: TransformerConfig, pages: int, page_size: int,
+                 pool=None):
+        super().__init__(pool)
+        self.mp = pages_per_seq(cfg, page_size)
+
+    def _spec(self, b: int) -> dict:
+        return {"row": ((self.mp,), np.int32), "n": ((1,), np.int32)}
+
+    def _statics(self, held: tuple) -> dict:
+        k = held[0]
+        shape = (k.shape[0], self.mp) + tuple(k.shape[2:])
+        return {name: torch.zeros(shape, dtype=k.dtype, device=k.device)
+                for name in ("pages_k", "pages_v")}
+
+    def compute(self, k, v, t):
+        dst = torch.where(torch.arange(self.mp, device=k.device) < t["n"],
+                          t["row"], 0).long()
+        k.index_copy_(1, dst, t["pages_k"])
+        v.index_copy_(1, dst, t["pages_v"])
+
+    def _check(self, pages_k, pages_v) -> int:
         m = pages_k.shape[1]
-        row = np.asarray(table_row, np.int64)[:m]
-        dst = torch.as_tensor(np.where(np.arange(m) < int(n), row, 0),
-                              device=k.device)
+        if pages_v.shape != pages_k.shape or m > self.mp:
+            raise ValueError(f"page install takes at most {self.mp} pages "
+                             f"of one shape, got {tuple(pages_k.shape)} and "
+                             f"{tuple(pages_v.shape)}")
+        return m
+
+    def __call__(self, k, v, pages_k, pages_v, table_row, n):
+        m = self._check(pages_k, pages_v)
+        t = self._entry((k, v), 1)[3]
         with torch.no_grad():
-            k[:, dst] = pages_k.to(device=k.device, dtype=k.dtype)
-            v[:, dst] = pages_v.to(device=v.device, dtype=v.dtype)
+            t["pages_k"][:, :m].copy_(pages_k)
+            t["pages_v"][:, :m].copy_(pages_v)
+        self._run((k, v), 1, {"row": table_row, "n": [int(n)]})
         return k, v
 
-    return install
+    def eager(self, k, v, pages_k, pages_v, table_row, n):
+        """The same step without a program."""
+        m = self._check(pages_k, pages_v)
+        statics = self._statics((k, v))
+        statics["pages_k"][:, :m].copy_(pages_k)
+        statics["pages_v"][:, :m].copy_(pages_v)
+        self._eager((k, v), 1, {"row": table_row, "n": [int(n)]},
+                    statics=statics)
+        return k, v
+
+
+def make_page_install(cfg: TransformerConfig, pages: int, page_size: int,
+                      pool=None) -> PageInstall:
+    """Page-install entry (`PageInstall`)."""
+    return PageInstall(cfg, pages, page_size, pool)
 
 
 # ---------------------------------------------------------------------------
@@ -688,10 +951,12 @@ def beam_search(cfg: TransformerConfig, params: dict, prompt,
                 scores[rows, best])
 
 
-__all__ = ["beam_search", "decode_step", "filtered_logits", "generate",
-           "gumbel_noise", "init_cache", "init_paged_cache",
-           "init_slot_cache", "make_page_copy", "make_page_gather",
-           "make_page_install", "make_paged_step",
+__all__ = ["PageCopy", "PageGather", "PageInstall", "ServingStep",
+           "SlotStep", "SpecStep", "beam_search", "decode_step",
+           "filtered_logits", "generate", "gumbel_noise", "init_cache",
+           "init_paged_cache", "init_slot_cache", "make_page_copy",
+           "make_page_gather", "make_page_install", "make_paged_step",
            "make_slot_step", "make_spec_step", "paged_decode_step",
            "paged_forward", "pages_per_seq", "place_params",
-           "sample_tokens", "slot_decode_step", "spec_verify_step"]
+           "sample_from_noise", "sample_tokens", "sampling_noise",
+           "slot_decode_step", "spec_verify_step", "stage_noise"]

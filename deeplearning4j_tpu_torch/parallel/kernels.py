@@ -20,6 +20,7 @@ caller holding global statistics (ring attention) can pass them.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 import threading
@@ -50,10 +51,29 @@ def mask_value(dtype: torch.dtype) -> float:
     return float(torch.finfo(dtype).min) / 2
 
 
+_capture = threading.local()
+
+
+@contextlib.contextmanager
+def counting_into(tally: dict):
+    """While a program is captured into a CUDA graph on this thread, the
+    launch counters add to `tally` (``{(counter, key): n}``) and not to
+    their counts: a capture executes nothing, and each replay of the
+    graph adds the tally (`runtime.programs.Program`)."""
+    prev = getattr(_capture, "tally", None)
+    _capture.tally = tally
+    try:
+        yield tally
+    finally:
+        _capture.tally = prev
+
+
 class LaunchCounter:
     """Launches of one kernel: the wrapper adds one per kernel launch,
     under an optional key (the paged wrapper keys its launches by query
-    width), read back as a total (`value`) and per key (`by_key`)."""
+    width), read back as a total (`value`) and per key (`by_key`).  A
+    launch recorded into a CUDA graph counts at each replay
+    (`counting_into`)."""
 
     def __init__(self):
         self._lock = threading.Lock()
@@ -61,6 +81,10 @@ class LaunchCounter:
         self._keys: dict = {}
 
     def add(self, n: int = 1, key=None) -> None:
+        tally = getattr(_capture, "tally", None)
+        if tally is not None:
+            tally[(self, key)] = tally.get((self, key), 0) + n
+            return
         with self._lock:
             self._n += n
             if key is not None:
@@ -419,9 +443,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return _FlashAttention.apply(q, k, v, causal)
 
 
-__all__ = ["LaunchCounter", "MAX_HEAD_DIM", "NEG_INF", "flash_attention",
-           "flash_bwd_block", "flash_bwd_block_plain", "flash_bwd_dkv",
-           "flash_bwd_dkv_plain", "flash_bwd_dq", "flash_bwd_dq_plain",
-           "flash_forward", "flash_forward_plain", "flash_route",
-           "flash_route_rule",
-           "mask_value", "row_delta"]
+__all__ = ["LaunchCounter", "MAX_HEAD_DIM", "NEG_INF", "counting_into",
+           "flash_attention", "flash_bwd_block", "flash_bwd_block_plain",
+           "flash_bwd_dkv", "flash_bwd_dkv_plain", "flash_bwd_dq",
+           "flash_bwd_dq_plain", "flash_forward", "flash_forward_plain",
+           "flash_route", "flash_route_rule", "mask_value", "row_delta"]

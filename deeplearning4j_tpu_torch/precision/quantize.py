@@ -159,6 +159,7 @@ class QuantizedNet:
         self.qparams, self.kinds = quantize_net_params(net)
         self.quantized_layers = sum(k != "passthrough" for k in self.kinds)
         self._signatures: set = set()
+        self._bucket_programs = None
 
     # ---- forward -----------------------------------------------------------
 
@@ -206,17 +207,32 @@ class QuantizedNet:
         return self._forward(x, mask)
 
     def output_bucketed(self, x, mask=None, ladder=None) -> np.ndarray:
-        """Pad the batch up the ladder, one dispatch, slice on the host
-        (the float net's `output_bucketed` discipline)."""
+        """Pad the batch up the ladder, one program a bucket, slice on the
+        host (the float net's `output_bucketed` discipline)."""
+        from deeplearning4j_tpu_torch.models.multi_layer_network import (
+            _host_input,
+        )
+        from deeplearning4j_tpu_torch.runtime.programs import (
+            BucketPrograms,
+        )
         from deeplearning4j_tpu_torch.serving.bucketing import BucketLadder
+        from deeplearning4j_tpu_torch.tree import tree_leaves
 
         if ladder is None:
             ladder = BucketLadder()
-        x = np.asarray(x)
-        padded, n = ladder.pad_rows(x)
+        padded, n = ladder.pad_rows(_host_input(x))
         if mask is not None:
-            mask, _ = ladder.pad_rows(np.asarray(mask))
-        out = self.output(padded, mask).float().cpu().numpy()
+            mask, _ = ladder.pad_rows(_host_input(mask))
+        if self._bucket_programs is None:
+            self._bucket_programs = BucketPrograms(
+                self.net.device,
+                lambda xt, mt: self._forward(xt, mt).float(),
+                lambda: [*tree_leaves(self.qparams),
+                         *tree_leaves(self.net.state)])
+        self._signatures.add((tuple(padded.shape),
+                              torch.from_numpy(padded[:0]).dtype,
+                              mask is not None))
+        out = self._bucket_programs(padded, mask)
         return out if n == padded.shape[0] else out[:n]
 
     def predict(self, x, mask=None) -> np.ndarray:
@@ -224,9 +240,9 @@ class QuantizedNet:
 
     def forward_program_count(self) -> int:
         """Distinct input signatures (shape, dtype, mask present) the
-        forward has run: the port's counterpart of the JAX count of
-        compiled forward programs, which the bucket ladder bounds the
-        same way."""
+        forward has run: the JAX count of compiled forward programs,
+        which the bucket ladder bounds (`output_bucketed` builds one
+        program for each)."""
         return len(self._signatures)
 
     # ---- accounting --------------------------------------------------------

@@ -43,6 +43,7 @@ from typing import Callable, Iterator, Optional
 
 import numpy as np
 
+from deeplearning4j_tpu_torch.obs.compilewatch import compile_watcher
 from deeplearning4j_tpu_torch.obs.trace import (
     TraceRecorder,
     new_request_id,
@@ -94,13 +95,17 @@ def _build_serving_trace(raw):
     """Materialize one batcher trace from its hot-path tuple (the
     `TraceRecorder.record_lazy` builder — runs at /trace/recent read
     time, never on the request path)."""
-    rid, enqueued, t_start, t_end, done, status, rows, err, wall = raw
+    (rid, enqueued, t_start, t_end, done, status, rows, err,
+     compiles, wall) = raw
     spans = [span("queue_wait", enqueued,
                   t_start if t_start is not None else done)]
     if t_start is not None:
         te = t_end if t_end is not None else done
         spans.append(span("dispatch", t_start, te, rows=rows))
         spans.append(span("respond", te, done))
+        for c_end, c_dur, key in compiles or ():
+            spans.append(span("xla_compile", c_end - c_dur, c_end,
+                              program_key=key))
     out = trace(rid, "serving", spans, status=status, rows=rows,
                 error=err)
     out["wall_time"] = wall
@@ -177,8 +182,11 @@ class MicroBatcher:
         self.bisect_policy = bisect_policy
         # request tracing: None = tracing off.  The recorder is
         # bounded, and span assembly is a handful of dict builds per
-        # request, made when /trace/recent is read.
+        # request, made when /trace/recent is read.  The compile watcher
+        # is resolved once, off the hot path.
         self.tracer = tracer
+        self._compile_watch = (compile_watcher() if tracer is not None
+                               else None)
         # multi-tenant admission gate: None = unmetered (the
         # historic single-tenant behavior, bit for bit)
         self.tenants = TenantRegistry.coerce(tenants)
@@ -344,18 +352,24 @@ class MicroBatcher:
     def _trace_item(self, item: _Pending, done: float,
                     status: str) -> None:
         """Record the request's lifecycle trace (queue_wait -> dispatch
-        -> respond).  The hot path captures one raw tuple; the span dicts
-        materialize only when /trace/recent is read (`record_lazy`).
-        The JAX package adds the XLA compiles that overlapped the
-        dispatch; the port compiles nothing on the request path."""
+        -> respond, plus an ``xla_compile`` span for each program built
+        while its dispatch ran: the program this request paid for).  The
+        hot path captures one raw tuple; the span dicts materialize only
+        when /trace/recent is read (`record_lazy`)."""
         if self.tracer is None:
             return
+        compiles = None
+        if (item.t_start is not None
+                and self._compile_watch.any_since(item.t_start)):
+            compiles = self._compile_watch.events_between(
+                item.t_start, item.t_end if item.t_end is not None
+                else done)
         self.tracer.record_lazy(_build_serving_trace, (
             item.request_id or new_request_id(), item.enqueued,
             item.t_start, item.t_end, done, status,
             int(item.x.shape[0]),
             str(item.error) if item.error is not None else None,
-            time.time()))
+            compiles, time.time()))
 
     def stop(self) -> None:
         with self._cond:

@@ -4,9 +4,9 @@
 `BucketLadder` holds a short ascending list of batch buckets (default
 1/8/32/128) and, for sequence models, a ladder of length buckets.  A
 dispatch is padded UP to the next bucket, so any traffic runs a bounded
-set of input shapes.  In the JAX package that bounds the compiled XLA
-programs; in the port it bounds the input signatures the forward sees
-(`MultiLayerNetwork.forward_program_count`).  Padding never changes a
+set of input shapes.  That bounds the programs `output_bucketed` builds,
+one a signature (`MultiLayerNetwork.forward_program_count`), as it bounds
+the JAX package's compiled XLA programs.  Padding never changes a
 result: padded batch rows are computed and sliced away (inference rows
 are independent), padded time steps are masked out per example.
 """

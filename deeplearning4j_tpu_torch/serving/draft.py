@@ -14,7 +14,7 @@ rule keeps greedy output equal to 1-token decode whatever is proposed.
 - `ModelDrafter`: a draft LM (a small config, or the target itself for
   self-speculation) decoding greedily in its own dense slot cache
   through `make_slot_step`, one 1-wide dispatch per fed or drafted
-  token.
+  token: one program, ``lm:draft``, in the pool's graph memory pool.
 
 A drafter belongs to the pool's worker thread, which alone calls it.
 """
@@ -26,6 +26,7 @@ from typing import List, Optional, Protocol, Sequence, runtime_checkable
 import numpy as np
 
 from deeplearning4j_tpu_torch.device import DeviceLike, resolve_device
+from deeplearning4j_tpu_torch.obs.compilewatch import compile_scope
 
 
 @runtime_checkable
@@ -46,6 +47,10 @@ class Drafter(Protocol):
 
     def reset(self) -> None:
         """Forget all lane state (the pool was rebuilt)."""
+        ...  # pragma: no cover — protocol signature only
+
+    def compiled_programs(self) -> int:
+        """Device programs this drafter adds to the pool's."""
         ...  # pragma: no cover — protocol signature only
 
 
@@ -98,6 +103,9 @@ class NgramDrafter:
     def reset(self) -> None:
         pass                        # stateless: the history rides each call
 
+    def compiled_programs(self) -> int:
+        return 0
+
 
 class ModelDrafter:
     """Small-model drafting: a draft LM greedily rolls out `budget`
@@ -115,7 +123,8 @@ class ModelDrafter:
     name = "model"
 
     def __init__(self, cfg, params, slots: int, target_vocab: int = 0,
-                 target_max_len: int = 0, device: DeviceLike = None):
+                 target_max_len: int = 0, device: DeviceLike = None,
+                 pool=None):
         if slots < 1:
             raise ValueError(f"slots must be >= 1, got {slots}")
         if target_vocab and cfg.vocab_size < target_vocab:
@@ -132,6 +141,7 @@ class ModelDrafter:
         self.device = resolve_device(device)
         self.params = params
         self.n_slots = int(slots)
+        self.pool = pool            # the pool's graph memory pool
         self._step = None
         self._cache = None          # (k, v) slot-cache tensors
         self._fed: List[List[int]] = [[] for _ in range(self.n_slots)]
@@ -148,7 +158,7 @@ class ModelDrafter:
         )
 
         self.params = place_params(self.cfg, self.params, self.device)
-        self._step = make_slot_step(self.cfg)
+        self._step = make_slot_step(self.cfg, self.pool, key="lm:draft")
         cache = init_slot_cache(self.cfg, self.n_slots, device=self.device)
         self._cache = (cache["k"], cache["v"])
 
@@ -166,8 +176,9 @@ class ModelDrafter:
         lane at temperature 0)."""
         zi = np.zeros((self.n_slots,), np.int32)
         zf = np.zeros((self.n_slots,), np.float32)
-        nxt, k, v = self._step(self.params, *self._cache, pos, tokens, zf,
-                               zi, zi)
+        with compile_scope("lm:draft"):
+            nxt, k, v = self._step(self.params, *self._cache, pos, tokens,
+                                   zf, zi, zi)
         self._cache = (k, v)
         return nxt.cpu().numpy()
 
@@ -253,9 +264,12 @@ class ModelDrafter:
     def reset(self) -> None:
         self._fed = [[] for _ in range(self.n_slots)]
 
+    def compiled_programs(self) -> int:
+        return 1
+
 
 def make_drafter(mode: str, cfg, params, slots: int, draft_model=None,
-                 device: DeviceLike = None) -> Optional[Drafter]:
+                 device: DeviceLike = None, pool=None) -> Optional[Drafter]:
     """The pool's drafter factory: `mode` in {"off", "ngram", "model"}.
     For "model", `draft_model` is an optional (cfg, params) pair; the
     default is self-speculation with the target's own weights (every
@@ -269,7 +283,8 @@ def make_drafter(mode: str, cfg, params, slots: int, draft_model=None,
                            else (cfg, params))
         return ModelDrafter(d_cfg, d_params, slots,
                             target_vocab=cfg.vocab_size,
-                            target_max_len=cfg.max_len, device=device)
+                            target_max_len=cfg.max_len, device=device,
+                            pool=pool)
     raise ValueError(
         f"speculate must be 'off', 'ngram' or 'model', got {mode!r}")
 

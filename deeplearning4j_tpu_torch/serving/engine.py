@@ -9,12 +9,13 @@ The request path every endpoint shares:
                       signature per ladder shape)
                    -> slice rows back per request
 
-plus an explicit `warmup()` that runs every ladder shape before traffic,
-and a signature guard: a dispatch shape outside the ladder's bound raises
-instead of running an unbounded set of input shapes on the request path.
-The JAX package counts XLA programs there; eager PyTorch compiles
-nothing, so the port counts dispatch signatures (shape and dtype), as
-`MultiLayerNetwork.forward_program_count` does.
+plus an explicit `warmup()` that builds every ladder shape's program
+before traffic, and a signature guard: a dispatch shape outside the
+ladder's bound raises instead of building an unbounded set of programs on
+the request path.  `output_bucketed` runs one program per padded input
+signature (a CUDA graph on the card); every dispatch and warmup runs
+under ``compile_scope("classifier:{shape}")``, so ``compiles_total``
+counts the programs this engine's dispatches built, by JAX's key.
 
 On the card, a recurrent net whose LSTM layers take the fused scan runs
 the LSTM kernel once a layer and dispatch, but only for fixed-length
@@ -29,6 +30,10 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from deeplearning4j_tpu_torch.obs.compilewatch import (
+    compile_scope,
+    compile_watcher,
+)
 from deeplearning4j_tpu_torch.obs.registry import MetricsRegistry
 from deeplearning4j_tpu_torch.obs.trace import TraceRecorder
 from deeplearning4j_tpu_torch.serving.batcher import MicroBatcher
@@ -127,22 +132,23 @@ class ServingEngine:
         return self._qnet  # noqa: LCK101 — set-once under _qlock, never cleared
 
     def _guard_shape(self, shape, dtype: str) -> None:
-        """Signature guard: a dispatch shape beyond the ladder bound
-        means bucketing failed — refuse it.  The bound is PER dtype: with
-        the default `input_dtype` coercion only one dtype ever occurs,
-        and with `input_dtype=None` each client dtype owns its own
-        ladder-sized signature set."""
+        """Compile-count guard: a dispatch shape beyond the ladder bound
+        means bucketing failed — refuse to build program #N+1.  The bound
+        is PER dtype: with the default `input_dtype` coercion only one
+        dtype ever occurs, and with `input_dtype=None` each client dtype
+        owns its own ladder-sized program set."""
         with self._shape_lock:
             seen = self._seen_shapes.setdefault(dtype, set())
             if shape in seen:
                 return
             if len(seen) >= self.max_programs:
+                observed = compile_watcher().total(prefix="classifier:")
                 raise UnservableShapeError(
                     f"compile-count guard: dispatch shape {shape} "
                     f"({dtype}) would exceed the {self.max_programs}-"
-                    f"program bound (seen: {sorted(seen)}; the port "
-                    f"counts dispatch signatures, not compiles); the "
-                    f"bucket ladder is not covering the traffic")
+                    f"program bound (seen: {sorted(seen)}; "
+                    f"compiles_total observed: {observed}); the bucket "
+                    f"ladder is not covering the traffic")
             seen.add(shape)
 
     def _dispatch(self, x: np.ndarray, mask: Optional[np.ndarray],
@@ -150,8 +156,11 @@ class ServingEngine:
         bucket = self.ladder.batch_bucket(n_real)
         shape = (bucket,) + tuple(x.shape[1:])
         self._guard_shape(shape, x.dtype.str)
-        out = self._model().output_bucketed(x, mask=mask,
-                                            ladder=self.ladder)
+        # a program this dispatch builds counts under its ladder shape:
+        # compiles_total{program_key="classifier:..."}, nothing once warm
+        with compile_scope(f"classifier:{shape}"):
+            out = self._model().output_bucketed(x, mask=mask,
+                                                ladder=self.ladder)
         self.metrics.record_dispatch(n_real, bucket)
         return np.asarray(out)
 
@@ -202,12 +211,12 @@ class ServingEngine:
     # ---- lifecycle --------------------------------------------------------
 
     def warmup(self, example: np.ndarray) -> int:
-        """Run every ladder shape once from one example row's shape
+        """Build every ladder shape's program from one example row's shape
         (`example` is [...] or [1, ...]); returns the number of shapes
-        warmed.  Run this before traffic: afterwards no request adds a
-        signature (the guard enforces it), and on the card the kernel
-        library is built.  With `quantize` set, the weights are quantized
-        HERE, so the warmed dispatches are the int8 ones."""
+        warmed.  Run this before traffic: afterwards no request builds a
+        program (the guard enforces it).  With `quantize` set, the
+        weights are quantized HERE, so the warmed programs are the int8
+        ones."""
         model = self._model()
         example = np.asarray(example)
         row = (example[0] if example.ndim > 1 and example.shape[0] == 1
@@ -227,17 +236,18 @@ class ServingEngine:
                 # registers shapes with the guard but not the metrics
                 wshape = (b,) + tuple(x.shape[1:])
                 self._guard_shape(wshape, x.dtype.str)
-                model.output_bucketed(x, mask=mask, ladder=self.ladder)
+                with compile_scope(f"classifier:{wshape}"):
+                    model.output_bucketed(x, mask=mask, ladder=self.ladder)
                 warmed += 1
         return warmed
 
     def stats(self) -> Dict:
         """The classifier section of ``/serving/stats``: the metrics
         snapshot, the ladder, the signatures dispatched
-        (``compiled_programs``, the JAX package's key) against their
-        bound, and the quantization report.  ``compiles_total`` is the
-        JAX package's count of XLA compiles in this engine's dispatches;
-        an eager forward compiles no program, so the port's is 0."""
+        (``compiled_programs``) against their bound, the programs built
+        under the engines' ``classifier:`` scopes (``compiles_total``,
+        process-wide as in the JAX package) and the quantization
+        report."""
         out = self.metrics.snapshot()
         out["bucket_ladder"] = {
             "batch": list(self.ladder.batch_buckets),
@@ -247,7 +257,8 @@ class ServingEngine:
             out["compiled_programs"] = sum(
                 len(s) for s in self._seen_shapes.values())
         out["program_bound"] = self.max_programs
-        out["compiles_total"] = 0
+        out["compiles_total"] = compile_watcher().total(
+            prefix="classifier:")
         out["accepting"] = self.accepting
         out["quantize"] = self.quantize
         # read WITHOUT _qlock: _model() holds it for the whole first

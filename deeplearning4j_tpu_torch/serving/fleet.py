@@ -46,9 +46,8 @@
   `/trace/recent`, `/healthz`, `/readyz`) with the typed-failure ->
   status mapping of `ui/server.py`, plus fleet-wide graceful drain (the
   ``serve-fleet`` SIGTERM path).  Its ``/metrics`` carries the fleet
-  plane, the ``fleet_*`` families and uptime; the JAX package's compile
-  counter (its compile watcher) has no counterpart, as eager PyTorch
-  compiles nothing.
+  plane, the ``fleet_*`` families, the process's program builds
+  (``compiles_total``, ``compile_seconds_total``) and uptime.
 - `check_fleet_ledger` — the cross-layer accounting invariant: every
   request the fleet answered was answered by exactly one replica, so
   `sum(replica.requests) == fleet.requests` and client-side
@@ -77,6 +76,7 @@ from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 
+from deeplearning4j_tpu_torch.obs.compilewatch import compile_watcher
 from deeplearning4j_tpu_torch.obs.registry import (
     EXPOSITION_CONTENT_TYPE,
     MetricsRegistry,
@@ -1939,10 +1939,13 @@ class FleetServer:
         self._server.fleet_router = router  # type: ignore[attr-defined]
         self._server.fleet_draining = False  # type: ignore[attr-defined]
         # the fleet front's /metrics: fleet-plane serving metrics +
-        # per-replica router-side samples
+        # per-replica router-side samples + the process-wide program
+        # build counter
         self.registry = MetricsRegistry()
         router.metrics.register_into(self.registry, plane="fleet")
         self.registry.register_collector(self._fleet_samples)
+        self.registry.register_collector(
+            compile_watcher().collector_samples)
         if router.supervisor is not None:
             # process supervision installed before the front: its
             # fleet_process_* counters ride this /metrics (a supervisor

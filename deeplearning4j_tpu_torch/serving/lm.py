@@ -92,10 +92,20 @@ tenant's ledgers and SLO burn rate.
 Streaming: `generate_stream` admits like `generate` (typed errors raise
 before the first token) and yields each committed token as the worker
 folds it; closing the iterator abandons the request.  With ``tracer``
-every request leaves one trace (``queue_wait`` and ``decode`` spans)
+every request leaves one trace (``queue_wait`` and ``decode`` spans, and
+an ``xla_compile`` span for each program built inside its decode window)
 under its request id; with ``registry`` the pool's metric cells publish
-under ``plane="lm"``.  The JAX package's ``xla_compile`` spans and
-compile counters have no counterpart (ROADMAP.md, A0).
+under ``plane="lm"``.
+
+Programs: every device step is a `runtime.programs.Program` built once
+and replayed (a CUDA graph on the card, sharing one graph memory pool):
+the paged program at each width (``lm:paged[w{W}]``), the dense one
+(``lm:dense``), the page copy, gather and install and the model
+drafter's step (``lm:draft``), each run under `compile_scope` with the
+JAX package's program key.  `warmup()` builds them all, so no request
+builds one afterwards (``stats()["compiles_total"]`` stays flat); the
+programs hold the pool tensors by address, so a failed dispatch zeroes
+the pool in place instead of reallocating it.
 """
 
 from __future__ import annotations
@@ -110,6 +120,10 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.device import DeviceLike, resolve_device
+from deeplearning4j_tpu_torch.obs.compilewatch import (
+    compile_scope,
+    compile_watcher,
+)
 from deeplearning4j_tpu_torch.obs.registry import MetricsRegistry
 from deeplearning4j_tpu_torch.obs.trace import (
     TraceRecorder,
@@ -129,6 +143,7 @@ from deeplearning4j_tpu_torch.parallel.generation import (
     place_params,
 )
 from deeplearning4j_tpu_torch.parallel.transformer import torch_dtype
+from deeplearning4j_tpu_torch.runtime.programs import new_pool
 from deeplearning4j_tpu_torch.serving.draft import make_drafter
 from deeplearning4j_tpu_torch.serving.hibernate import (
     TieredStateStore,
@@ -376,6 +391,7 @@ class ContinuousLMServer:
         self.tracer = tracer
         if registry is not None:
             self.metrics.register_into(registry, plane="lm")
+        self._compile_watch = compile_watcher()
         if breaker is not None:
             breaker.add_listener(self.metrics.set_breaker_state)
             self.metrics.set_breaker_state(breaker.state)
@@ -385,6 +401,8 @@ class ContinuousLMServer:
         self._accepting = True
         self._thread: Optional[threading.Thread] = None
         self._cache = None    # (k, v) pool tensors, built by the worker
+        self._cache_stale = False   # a failed dispatch wrote into them
+        self._graph_pool = None     # the programs' shared graph memory
         self._step = None     # ONE dispatch entry point (tests stub it)
         self._copy = None
         self._pool: Optional[PagePool] = None
@@ -837,7 +855,8 @@ class ContinuousLMServer:
     def _trace_request(self, req: _LMRequest, done: float,
                        status: str) -> None:
         """The request's trace: queue_wait (admission to slot install),
-        then decode (install to completion)."""
+        then decode (install to completion), plus an ``xla_compile`` span
+        for each program built inside the decode window."""
         if self.tracer is None:
             return
         spans = []
@@ -855,19 +874,26 @@ class ContinuousLMServer:
                 accepted=(req.accepted if req.drafted else None),
                 preempted=req.preempted or None,
                 swap_error=req.swap_error))
+            if self._compile_watch.any_since(req.t_installed):
+                for c_end, c_dur, key in (self._compile_watch
+                                          .events_between(req.t_installed,
+                                                          t_done)):
+                    spans.append(span("xla_compile", c_end - c_dur,
+                                      c_end, program_key=key))
         self.tracer.record(trace(
             req.request_id or new_request_id(), "lm", spans,
             status=status, prompt_tokens=len(req.prompt),
             error=(str(req.error) if req.error is not None else None)))
 
     def warmup(self, timeout: Optional[float] = 600.0) -> int:
-        """Start the worker and run one dispatch of every width, the page
-        copy and the model drafter's step before traffic (on the card
-        this builds the kernel library and warms the math libraries).
-        The paged warm dispatches feed nothing (n_feed = 0), so they
-        write only the null page; the dense one waits for an idle pool.
-        Returns the number of programs warmed, 0 if the warm did not run
-        within `timeout`."""
+        """Start the worker and build every program before traffic: one
+        dispatch of every width, the page copy, the gather and install
+        pair and the model drafter's step (on the card each captures its
+        CUDA graph).  Afterwards no request builds a program.  The paged
+        warm dispatches feed nothing (n_feed = 0), so they write only the
+        null page; the dense one waits for an idle pool.  Returns
+        `compiled_programs()`, 0 if the warm did not run within
+        `timeout`."""
         with self._cond:
             if not self._running:
                 self._start_locked()
@@ -877,11 +903,24 @@ class ContinuousLMServer:
             self._cond.notify_all()
         if not ev.wait(timeout):
             return 0
+        return self.compiled_programs()
+
+    def compiled_programs(self) -> int:
+        """The pool's programs, counted as the JAX package counts its
+        compiled ones: the dense step alone, or the 1-wide step, the wide
+        one (prefill chunk or verify) when it exists, the page copy, the
+        gather and install pair of the mobility planes and the drafter's
+        programs."""
         if self.kv == "dense":
             return 1
-        return (len(self._widths()) + 1
-                + int(hasattr(self._drafter, "warmup"))
-                + (2 if self._gather is not None else 0))
+        ship = 2 if (self.ship or self.preempt or self.hibernate) else 0
+        if self.speculate != "off":
+            drafter = (self._drafter.compiled_programs()
+                       if self._drafter is not None
+                       and hasattr(self._drafter, "compiled_programs")
+                       else 0)
+            return 3 + drafter + ship
+        return 2 + (1 if self.prefill_chunk > 1 else 0) + ship
 
     def _widths(self) -> List[int]:
         """The paged dispatch widths: 1, and the wide program's (the
@@ -892,26 +931,32 @@ class ContinuousLMServer:
         zi = np.zeros((self.n_slots,), np.int32)
         zf = np.zeros((self.n_slots,), np.float32)
         if self.kv == "dense":
-            _, k, v = self._step(self.params, *self._cache, zi, zi, zf, zi,
-                                 zi)
+            with compile_scope("lm:dense"):
+                _, k, v = self._step(self.params, *self._cache, zi, zi, zf,
+                                     zi, zi)
             self._cache = (k, v)
         else:
             table = np.zeros((self.n_slots, self.max_pages), np.int32)
             for w in self._widths():
                 tok = np.zeros((self.n_slots, w), np.int32)
-                _, _, k, v = self._step(self.params, *self._cache, table,
-                                        zi, zi, zi, tok, zf, zi, zi)
+                with compile_scope(f"lm:paged[w{w}]"):
+                    _, _, k, v = self._step(self.params, *self._cache,
+                                            table, zi, zi, zi, tok, zf, zi,
+                                            zi)
                 self._cache = (k, v)
-            self._cache = self._copy(*self._cache, 0, 0)
+            with compile_scope("lm:page_copy"):
+                self._cache = self._copy(*self._cache, 0, 0)
             if hasattr(self._drafter, "warmup"):
                 self._drafter.warmup()
             if self._gather is not None:
                 # a gather of the null page and an n = 0 install, which
                 # writes only the null page
                 zrow = np.zeros((self.max_pages,), np.int32)
-                pk, pv = self._gather(*self._cache, zrow)
-                self._cache = self._install(*self._cache, pk[:, :1],
-                                            pv[:, :1], zrow, 0)
+                with compile_scope("lm:page_gather"):
+                    pk, pv = self._gather(*self._cache, zrow)
+                with compile_scope("lm:page_install"):
+                    self._cache = self._install(*self._cache, pk[:, :1],
+                                                pv[:, :1], zrow, 0)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -1061,14 +1106,24 @@ class ContinuousLMServer:
                 out["speculate"] = spec
         out["max_len"] = self.cfg.max_len
         out["device"] = str(self.device)
+        out["compiled_programs"] = self.compiled_programs()
+        # programs built under the pool's scopes (process-wide, as the
+        # JAX package's count of XLA compiles)
+        out["compiles_total"] = self._compile_watch.total(prefix="lm:")
         return out
 
     # ---- worker side ------------------------------------------------------
 
     def _reset_cache(self) -> None:
-        """(Re)allocate the device cache: at start, and after a failed
-        dispatch left its in-place contents untrusted.  Allocated once,
-        never per request."""
+        """Allocate the device cache at start; after a failed dispatch left
+        its in-place contents untrusted, zero it IN PLACE: the programs
+        hold the pool tensors by address, so a new allocation would have
+        every program built again.  Allocated once, never per request."""
+        self._cache_stale = False
+        if self._cache is not None:
+            for t in self._cache:
+                t.zero_()
+            return
         if self.kv == "dense":
             cache = init_slot_cache(self.cfg, self.n_slots,
                                     device=self.device)
@@ -1108,8 +1163,9 @@ class ContinuousLMServer:
 
     def _start_locked(self) -> None:
         if self._step is None:
+            self._graph_pool = new_pool(self.device)
             if self.kv == "dense":
-                self._step = make_slot_step(self.cfg)
+                self._step = make_slot_step(self.cfg, self._graph_pool)
             else:
                 self._step = self._build_paged_dispatch()
             self._reset_pool_locked()
@@ -1121,20 +1177,26 @@ class ContinuousLMServer:
     def _build_paged_dispatch(self):
         """The paged programs, one `make_spec_step` per width behind ONE
         entry point, so that fault-injection tests stubbing `self._step`
-        intercept each dispatch.  Without speculation every n_draft is 0
-        and the programs are the plain decode and prefill-chunk steps."""
+        intercept each dispatch.  The 1-wide program is the decode head;
+        the wide one verifies with speculation (`spec_verify_step`) and is
+        the decode head without it, as the JAX package's programs."""
         total = self.kv_pages + 1
-        self._copy = make_page_copy(self.cfg, total, self.page_size)
+        pool = self._graph_pool
+        self._copy = make_page_copy(self.cfg, total, self.page_size, pool)
         if self.ship or self.preempt or self.hibernate:
-            self._gather = make_page_gather(self.cfg, total, self.page_size)
+            self._gather = make_page_gather(self.cfg, total, self.page_size,
+                                            pool)
             self._install = make_page_install(self.cfg, total,
-                                              self.page_size)
-        programs = {w: make_spec_step(self.cfg, total, self.page_size, w)
-                    for w in self._widths()}
+                                              self.page_size, pool)
+        programs = {w: make_spec_step(
+            self.cfg, total, self.page_size, w,
+            verify=w > 1 and self.speculate != "off", pool=pool)
+            for w in self._widths()}
         if self.speculate != "off" and self._drafter is None:
             self._drafter = make_drafter(
                 self.speculate, self.cfg, self.params, self.n_slots,
-                draft_model=self._draft_model, device=self.device)
+                draft_model=self._draft_model, device=self.device,
+                pool=pool)
 
         def dispatch(params, k, v, table, pos, n_feed, n_draft, tokens,
                      temperature, seeds, counts):
@@ -1458,7 +1520,8 @@ class ContinuousLMServer:
     def _gather_pages(self, table: np.ndarray, n: int):
         """The first `n` pages of a block-table row, gathered out of the
         pool into host tensors ``[L, n, ps, H, K]``."""
-        pk, pv = self._gather(*self._cache, table)
+        with compile_scope("lm:page_gather"):
+            pk, pv = self._gather(*self._cache, table)
         return pk[:, :n].cpu(), pv[:, :n].cpu()
 
     def _hibernate_idle_locked(self, now: float) -> None:
@@ -1714,7 +1777,7 @@ class ContinuousLMServer:
                 self._warm_req = None
             else:
                 warm = None
-        if self._cache is None:
+        if self._cache is None or self._cache_stale:
             # first round, or a failed dispatch left the pool untrusted:
             # rebuild inside the protected loop so a failing rebuild
             # fails this round's requests, not the worker thread
@@ -1780,8 +1843,9 @@ class ContinuousLMServer:
             temp[i] = req.temperature
             seeds[i] = req.seed
             counts[i] = len(slot.generated)
-        nxt, k, v = self._step(self.params, *self._cache, pos, token, temp,
-                               seeds, counts)
+        with compile_scope("lm:dense"):
+            nxt, k, v = self._step(self.params, *self._cache, pos, token,
+                                   temp, seeds, counts)
         if self.breaker is not None:
             self.breaker.record_success()
         self._cache = (k, v)
@@ -1870,8 +1934,10 @@ class ContinuousLMServer:
         # admitted in the same round may diverge from an installed page
         for item in installs:
             t0 = time.perf_counter()
-            self._cache = self._install(*self._cache, item["pk"],
-                                        item["pv"], item["row"], item["n"])
+            with compile_scope("lm:page_install"):
+                self._cache = self._install(*self._cache, item["pk"],
+                                            item["pv"], item["row"],
+                                            item["n"])
             if item.get("swap"):
                 self.metrics.record_swap("in", item["n"], item["nbytes"])
             elif item.get("hibernate"):
@@ -1882,7 +1948,9 @@ class ContinuousLMServer:
                 self.metrics.record_ship("in", item["n"], item["nbytes"],
                                          time.perf_counter() - t0)
         for item in cow:
-            self._cache = self._copy(*self._cache, item["src"], item["dst"])
+            with compile_scope("lm:page_copy"):
+                self._cache = self._copy(*self._cache, item["src"],
+                                         item["dst"])
             self._pool.release([item["src"]])
         # the brownout ladder: level 1 turns speculation off, level 2
         # halves the prefill ride-along width
@@ -1928,9 +1996,10 @@ class ContinuousLMServer:
             seeds[i] = req.seed
             counts[i] = len(slot.generated)
             table[i] = slot.table
-        nxt, acc, k, v = self._step(self.params, *self._cache, table, pos,
-                                    n_feed, n_draft, tokens, temp, seeds,
-                                    counts)
+        with compile_scope(f"lm:paged[w{width}]"):
+            nxt, acc, k, v = self._step(self.params, *self._cache, table,
+                                        pos, n_feed, n_draft, tokens, temp,
+                                        seeds, counts)
         if self.breaker is not None:
             self.breaker.record_success()
         # the round's one host sync: next tokens and accepted counts
@@ -2025,9 +2094,9 @@ class ContinuousLMServer:
                             s.req = None
                     # the failed dispatch may have written part of the
                     # pool in place: reset the host page state now and
-                    # rebuild the device pool at the next round
+                    # zero the device pool at the next round
                     self._reset_pool_locked()
-                    self._cache = None
+                    self._cache_stale = True
                 busy = True
             if not busy:
                 with self._cond:

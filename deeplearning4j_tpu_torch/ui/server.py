@@ -86,6 +86,7 @@ from typing import Any, List, Optional
 
 import numpy as np
 
+from deeplearning4j_tpu_torch.obs.compilewatch import compile_watcher
 from deeplearning4j_tpu_torch.obs.registry import (
     EXPOSITION_CONTENT_TYPE,
     MetricsRegistry,
@@ -196,6 +197,8 @@ class _UiState:
         self.registry.gauge(
             "server_uptime_seconds", "seconds since server construction",
             fn=lambda: self.registry.uptime_s)
+        self.registry.register_collector(
+            compile_watcher().collector_samples)
         self.device = device           # of /tsne/generate (None = card)
         self.coords: List[List[float]] = []
         self.tsne_vectors: Optional[np.ndarray] = None

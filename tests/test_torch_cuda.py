@@ -37,7 +37,10 @@ the one-device flash kernels (10 / 16 block pairs), and one step of the
 hybrid and the pipeline trainer against the one-device step with their
 launch counts.  Training across processes: 2 gloo processes of 2 shards
 of card 0 against one process of 4 shards, bitwise, and an NCCL group of
-one process running the mesh collectives.
+one process running the mesh collectives.  The serving programs: each
+program key's CUDA-graph replay bitwise its eager step, launch counters
+counting replays, a failed capture naming its program, a poisoned
+dispatch building nothing, and both LSTM kernel routes inside graphs.
 
 Every test carries the ``cuda`` marker and decides inside the test
 whether a card is present, skipping with a reason when not (the kernels
@@ -1605,8 +1608,9 @@ def _ops_pool(**kw):
 
 def test_sse_stream_on_the_card_equals_generate():
     """`stream: true` over HTTP on the card: the concatenated tokens
-    equal the ``done`` event's ids and the non-streamed answer, and the
-    paged kernel ran for both widths."""
+    equal the ``done`` event's ids and the non-streamed answer, the
+    paged kernel ran for both widths, and the request, the pool's first,
+    carries an ``xla_compile`` span for each program it built."""
     _need_card()
     import json
     import urllib.request
@@ -1640,7 +1644,11 @@ def test_sse_stream_on_the_card_equals_generate():
         widths = tpk.paged_flash_attention.launches.by_key()
         assert widths.get(1, 0) > 0 and widths.get(16, 0) > 0
         (tr,) = ui.tracer.find("card-sse")
-        assert [s["name"] for s in tr["spans"]] == ["queue_wait", "decode"]
+        names = [s["name"] for s in tr["spans"]]
+        assert names == ["queue_wait", "decode", "xla_compile",
+                         "xla_compile"]
+        assert sorted(s["attrs"]["program_key"] for s in tr["spans"][2:]) \
+            == ["lm:paged[w16]", "lm:paged[w1]"]
     finally:
         ui.stop()
 
@@ -2726,3 +2734,260 @@ def test_nccl_group_of_one_process_runs_the_collectives(no_tf32):
     for a, b in ((got[1], want[1]), (got[2], want[2])):
         assert set(a) == set(b)
         assert all(np.array_equal(a[k], b[k]) for k in b)
+
+
+# ---------------------------------------------------------------------------
+# serving programs: each step captured once into a CUDA graph and replayed
+
+
+def _program_lm(dtype="bfloat16"):
+    cfg = tt.TransformerConfig(vocab_size=96, d_model=64, n_heads=4,
+                               n_layers=2, d_ff=128, max_len=64, dtype=dtype)
+    params = tt.params_from_numpy(tt.numpy_params(cfg, seed=0),
+                                  device="cuda", dtype=cfg.dtype)
+    return cfg, params
+
+
+def _twin_pools(shape, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    k = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    v = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    return (k.clone(), v.clone()), (k.clone(), v.clone())
+
+
+def _paged_call_inputs(cfg, b, mp, w, seed, drafts):
+    """(table, pos, n_feed, n_draft, tokens, temperature, seeds, counts):
+    lane 1 samples; with `drafts`, the other lanes verify 0..w-1 drafts."""
+    rng = np.random.default_rng(seed)
+    table = (1 + np.arange(b * mp, dtype=np.int32)).reshape(b, mp)
+    pos = rng.integers(0, cfg.max_len - w, b).astype(np.int32)
+    n_draft = (rng.integers(0, w, b) if drafts
+               else np.zeros(b)).astype(np.int32)
+    n_draft[1] = 0
+    n_feed = (n_draft + 1 if drafts
+              else rng.integers(1, w + 1, b)).astype(np.int32)
+    tokens = rng.integers(0, cfg.vocab_size, (b, w)).astype(np.int32)
+    temp = np.zeros(b, np.float32)
+    temp[1] = 0.8
+    seeds = np.arange(b, dtype=np.int32) + seed
+    counts = np.full(b, seed, np.int32)
+    return table, pos, n_feed, n_draft, tokens, temp, seeds, counts
+
+
+def _same(a, b):
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a.cpu(), b.cpu())
+    return all(_same(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("key", ["paged_w1", "paged_w8_verify",
+                                 "paged_w8_decode", "dense", "draft",
+                                 "page_copy", "page_gather",
+                                 "page_install"])
+def test_program_replay_equals_the_eager_step_bitwise(key):
+    """Each serving program against its eager step on twin pools: the
+    first call (warm run + capture) and two replays give bitwise the
+    eager outputs, and the pools stay bitwise equal (outside the null
+    page, whose contents are garbage by design: padding columns and
+    uninstalled rows all land there)."""
+    _need_card()
+    from deeplearning4j_tpu_torch.parallel import generation as tgen
+
+    cfg, params = _program_lm()
+    b, ps, w = 4, 8, 8
+    mp = tgen.pages_per_seq(cfg, ps)
+    pages = 1 + b * mp
+    shape = (cfg.n_layers, pages, ps, cfg.n_heads, cfg.head_dim)
+    null_page = True
+    if key.startswith("paged"):
+        width = 1 if key == "paged_w1" else w
+        step = tgen.make_spec_step(cfg, pages, ps, width,
+                                   verify=key.endswith("verify"))
+
+        def call(fn, kv, i):
+            args = _paged_call_inputs(cfg, b, mp, width, i,
+                                      key.endswith("verify"))
+            return fn(params, *kv, *args)[:2]
+    elif key in ("dense", "draft"):
+        shape = (cfg.n_layers, b, cfg.max_len, cfg.n_heads, cfg.head_dim)
+        null_page = False
+        step = tgen.make_slot_step(cfg, key="lm:draft" if key == "draft"
+                                   else None)
+
+        def call(fn, kv, i):
+            rng = np.random.default_rng(i)
+            temp = (np.zeros(b, np.float32) if key == "draft"
+                    else np.array([0, 0.7, 0, 1.3], np.float32))
+            return fn(params, *kv,
+                      rng.integers(0, cfg.max_len, b).astype(np.int32),
+                      rng.integers(0, cfg.vocab_size, b).astype(np.int32),
+                      temp, np.arange(b, dtype=np.int32),
+                      np.full(b, i, np.int32))[:1]
+    elif key == "page_copy":
+        step = tgen.make_page_copy(cfg, pages, ps)
+
+        def call(fn, kv, i):
+            fn(*kv, 1 + i, pages - 1 - i)
+            return ()
+    elif key == "page_gather":
+        step = tgen.make_page_gather(cfg, pages, ps)
+
+        def call(fn, kv, i):
+            row = np.zeros(mp, np.int32)
+            row[:3 + i] = np.arange(2 + i, 5 + 2 * i)
+            return fn(*kv, row)
+    else:
+        step = tgen.make_page_install(cfg, pages, ps)
+        src = torch.randn((cfg.n_layers, mp, ps, cfg.n_heads, cfg.head_dim),
+                          generator=torch.Generator().manual_seed(7))
+
+        def call(fn, kv, i):
+            row = np.arange(pages - mp, pages, dtype=np.int32)
+            fn(*kv, src[:, :2 + i], src[:, :2 + i], row, 1 + i)
+            return ()
+    graph_kv, eager_kv = _twin_pools(shape, torch.bfloat16, seed=1)
+    for i in range(3):
+        got = call(step, graph_kv, i)
+        want = call(step.eager, eager_kv, i)
+        torch.cuda.synchronize()
+        assert _same(got, want), (key, i)
+        lo = 1 if null_page else 0
+        for a, e in zip(graph_kv, eager_kv):
+            assert torch.equal(a[:, lo:], e[:, lo:]), (key, i)
+    (program,) = step.programs
+    assert program.graph is not None and program.replays == 2
+
+
+def test_launch_counters_count_replays_not_the_capture():
+    """The paged kernel's counter: the first call counts its warm run
+    (n_layers launches; the capture executes nothing), then each replay
+    adds n_layers."""
+    _need_card()
+    from deeplearning4j_tpu_torch.parallel import generation as tgen
+
+    cfg, params = _program_lm()
+    b, ps = 4, 8
+    mp = tgen.pages_per_seq(cfg, ps)
+    pages = 1 + b * mp
+    (k, v), _ = _twin_pools((cfg.n_layers, pages, ps, cfg.n_heads,
+                             cfg.head_dim), torch.bfloat16, seed=2)
+    step = tgen.make_spec_step(cfg, pages, ps, 1, verify=False)
+    counter = tpk.paged_flash_attention.launches
+    counter.reset()
+    for i in range(4):
+        step(params, k, v, *_paged_call_inputs(cfg, b, mp, 1, i, False))
+        torch.cuda.synchronize()
+        assert counter.value == cfg.n_layers * (i + 1)
+        assert counter.by_key() == {1: cfg.n_layers * (i + 1)}
+    assert step.programs[0].replays == 3
+
+
+_FAILED_CAPTURE = """
+import json, torch
+from deeplearning4j_tpu_torch.obs import compile_scope, compile_watcher
+from deeplearning4j_tpu_torch.runtime.programs import Program
+x = torch.arange(8.0, device="cuda")
+calls = []
+def fn():
+    calls.append(1)
+    return x * float(x.sum().item())
+program = Program("test:sync", fn, torch.device("cuda"),
+                  torch.cuda.graph_pool_handle())
+try:
+    with compile_scope("test:sync"):
+        program()
+    error = None
+except RuntimeError as e:
+    error = str(e)
+print(json.dumps({"error": error, "calls": len(calls),
+                  "built": program.built,
+                  "events": compile_watcher().counts()}))
+"""
+
+
+def test_a_failed_capture_raises_naming_its_program():
+    """A step that reads back to the host cannot be captured: the first
+    call raises with the program's key and the CUDA error, after the
+    warm run and the one capture attempt, with no eager retry, and no
+    build event is reported.  (In a child process: a failed capture
+    leaves the caching allocator's capture state behind.)"""
+    _need_card()
+    import json
+    import os
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    proc = subprocess.run([sys.executable, "-c", _FAILED_CAPTURE],
+                          cwd=root, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got["error"].startswith("program test:sync: CUDA graph capture "
+                                   "failed: "), got
+    assert got["calls"] == 2 and not got["built"]
+    assert got["events"] == {}
+
+
+def test_a_poisoned_dispatch_builds_no_program_again():
+    """After warmup, a failed dispatch resets the pool by zeroing it in
+    place: the same tensors serve on, and ``compiles_total`` stays flat
+    through the failure and the next requests, whose ids equal the warm
+    pool's before the fault."""
+    _need_card()
+    cfg, params = _program_lm()
+    srv = ContinuousLMServer(cfg, params, slots=2, page_size=8,
+                             prefill_chunk=4, device="cuda")
+    try:
+        assert srv.warmup() == 3
+        prompt = [3, 1, 4, 1, 5, 9, 2, 6, 5]
+        want = srv.generate(prompt, 6, timeout=120)
+        built = srv.stats()["compiles_total"]
+        ptrs = [t.data_ptr() for t in srv._cache]
+        real = srv._step
+        srv._step = lambda *a, **kw: (_ for _ in ()).throw(
+            RuntimeError("poisoned"))
+        with pytest.raises(RuntimeError, match="poisoned"):
+            srv.generate(prompt, 6, timeout=120)
+        srv._step = real
+        assert srv.generate(prompt, 6, timeout=120) == want
+        assert srv.stats()["compiles_total"] == built
+        assert [t.data_ptr() for t in srv._cache] == ptrs
+    finally:
+        srv.stop()
+
+
+@pytest.mark.parametrize("hidden,route", [(256, "cluster"), (1024, "wide")])
+def test_lstm_net_programs_replay_on_both_routes(hidden, route):
+    """`output_bucketed` of a bf16 Graves LSTM as a captured program on
+    each route of the LSTM kernel (the wide route's grid-barrier launch
+    inside the graph): the build and two replays equal the eager
+    `output` of the same padded batch bitwise, one kernel launch a
+    call."""
+    _need_card()
+    from deeplearning4j_tpu_torch.models import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.nn import conf as tconf
+    from deeplearning4j_tpu_torch.nn.layers import lstm_kernel as lk
+    from deeplearning4j_tpu_torch.serving import BucketLadder
+
+    conf = tconf.MultiLayerConfiguration(
+        conf=tconf.NeuralNetConfiguration(seed=4,
+                                          compute_dtype="bfloat16"),
+        layers=(tconf.GravesLSTMConf(n_in=11, n_out=hidden),
+                tconf.RnnOutputLayerConf(n_in=hidden, n_out=11)))
+    net = MultiLayerNetwork(conf).init()
+    assert lk.launch_plan(torch.bfloat16, 8, hidden)["route"] == route
+    ladder = BucketLadder((8,))
+    counter = lk.fused_lstm_forward.launches
+    eye = np.eye(11, dtype=np.float32)
+    for i in range(3):
+        x = eye[np.random.default_rng(i).integers(0, 11, (5 + i, 12))]
+        before = counter.value
+        got = net.output_bucketed(x, ladder=ladder)
+        torch.cuda.synchronize()
+        assert counter.value - before == 1
+        padded, _ = ladder.pad_rows(x)
+        want = net.output(padded).float().cpu().numpy()[:len(x)]
+        np.testing.assert_array_equal(got, want)
+    (program, ) = [e[1] for e in net._bucket_programs._programs.values()]
+    assert program.graph is not None and program.replays == 2

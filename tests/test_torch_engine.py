@@ -17,6 +17,7 @@ the same seeded requests, on the CPU:
 - ``stats()`` keys equal.
 """
 
+import re
 import threading
 import time
 
@@ -175,7 +176,10 @@ def test_guard_refuses_the_same_shape_with_the_same_bound(iris):
     prefix = ("compile-count guard: dispatch shape (1, 5) (<f4) would "
               "exceed the 2-program bound (seen: [(1, 4), (8, 4)]")
     assert msgs["jax"].startswith(prefix) and msgs["port"].startswith(prefix)
-    assert "signatures, not compiles" in msgs["port"]
+    # both name the builds their watcher observed, in the same words
+    observed = re.compile(r"; compiles_total observed: \d+\); the bucket "
+                          r"ladder is not covering the traffic$")
+    assert observed.search(msgs["jax"]) and observed.search(msgs["port"])
 
 
 def test_admission_503_carries_the_same_retry_after(iris):

@@ -18,15 +18,10 @@ import deeplearning4j_tpu
 import deeplearning4j_tpu_torch
 from test_torch_threads import torch_two_threads  # noqa: F401 — autouse
 
-_A0 = "A0 (one program a step: the compile watcher's place)"
-
 # package -> {name: queue}; the data-parallel names landed in slice 18
-# (A7 part 1)
-UNPORTED = {
-    "deeplearning4j_tpu.obs": {"COMPILE_EVENT": _A0, "CompileWatcher": _A0,
-                               "compile_scope": _A0,
-                               "compile_watcher": _A0},
-}
+# (A7 part 1), the compile watcher's in slice 22 (A0): every name is
+# ported
+UNPORTED = {}
 
 PACKAGES = ["deeplearning4j_tpu"] + sorted(
     m.name for m in pkgutil.walk_packages(deeplearning4j_tpu.__path__,

@@ -9,10 +9,9 @@ with the same tenant registry and breaker, every case over HTTP to both:
   header values are compared exactly;
 - the ``X-Request-Id`` round trip (echoed when sent, minted when not);
 - ``/trace/recent``: one trace per request id with the same span names
-  (the JAX package's ``xla_compile`` spans left out: the port has no
-  compile watcher);
+  (both pools warmed, so no ``xla_compile`` span on either);
 - ``/metrics``: the same family names, the compile watcher's
-  ``compiles_total`` / ``compile_seconds_total`` left out, and every
+  ``compiles_total`` / ``compile_seconds_total`` included, and every
   line Prometheus text;
 - the CLI: ``serve -tenants -breaker-threshold -deadline-ms -max-queue
   -warmup -drain-stats`` boots a tiny LM in a child process, answers,
@@ -52,8 +51,6 @@ CFG = tt.TransformerConfig(**dataclasses.asdict(JCFG))
 PROMPT = [3, 1, 4, 1, 5]
 TENANTS = {"gold": {"weight": 4, "slo_ms": 250},
            "metered": {"rate": 1.0, "burst": 10.0}}
-# families only the JAX package's compile watcher publishes
-COMPILE_FAMILIES = {"compiles_total", "compile_seconds_total"}
 SAMPLE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{.*\})? \S+$")
 
 
@@ -180,8 +177,7 @@ def test_request_id_round_trip_and_traces(fronts):
         assert len(ours) == 1
         names = [s["name"] for s in by_id[rid]["spans"]]
         if rid in jby_id:
-            jnames = [s["name"] for s in jby_id[rid]["spans"]
-                      if s["name"] != "xla_compile"]
+            jnames = [s["name"] for s in jby_id[rid]["spans"]]
             assert names == jnames
         assert names == ["queue_wait", "decode"]
         spans = by_id[rid]["spans"]
@@ -233,7 +229,7 @@ def test_metrics_families_and_text(fronts):
     _both(fronts, "/lm/generate", {"prompt_ids": PROMPT,
                                    "max_new_tokens": 2, "tenant": "gold"})
     jtext, text = [_get(ui.url + "/metrics").decode() for ui in fronts[:2]]
-    assert _families(text) == _families(jtext) - COMPILE_FAMILIES
+    assert _families(text) == _families(jtext)
     for line in text.splitlines():
         assert line.startswith("# HELP ") or line.startswith("# TYPE ") \
             or SAMPLE.match(line), line

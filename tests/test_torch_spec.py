@@ -282,7 +282,7 @@ def test_make_spec_step_samples_at_the_bonus_column_like_the_1_wide_step(
     mp = tgen.pages_per_seq(CFG, ps)
     pages = 1 + b * mp
     table = np.arange(1, pages, dtype=np.int32).reshape(b, mp)
-    spec = tgen.make_spec_step(CFG, pages, ps, w)
+    spec = tgen.make_spec_step(CFG, pages, ps, w, verify=drafting_lane)
     one = tgen.make_paged_step(CFG, pages, ps, 1)
     params = _params()
     temp = np.array([0.0, 0.9, 0.0], np.float32)
