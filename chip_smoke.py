@@ -206,9 +206,11 @@ phase logs its wall seconds, and a ``phases:`` line sums them up):
              the brownout ladder under a 16-request burst and back to
              healthy; a session hibernated, resumed on its pool (turn 2
              prefills only its new tokens) and resumed by a fresh server
-             on the same state_dir.  Every output by the greedy rule,
-             B1 launches = n_layers x dispatches by width on each pool,
-             ledgers balanced.
+             on the same state_dir, while a prompt cached beside it keeps
+             its radix hit through the sweep, no pool resets while its
+             worker runs and no dispatch fails.  Every output by the
+             greedy rule, B1 launches = n_layers x dispatches by width on
+             each pool, ledgers balanced.
 15. nlp    — the word-embedding family (BASELINE config #3; no hand
              kernel on this path: gathers and ``index_add_``): bench.py's
              Word2Vec row as it runs offline (vector 128, window 5,
@@ -446,9 +448,10 @@ phase logs its wall seconds, and a ``phases:`` line sums them up):
              compute, f32 masters, Adam, 8 x 1024) on the (data 1, seq
              2, model 2) mesh `_lm_mesh_layout` picks for 4 devices, 2 +
              3 steps at lr 3e-4 beside the one-device step on the same
-             batch: losses finite and falling, flash launches a step B2
-             = B3 = B4 = L dp tp sp (sp + 1) / 2 = 24 (remat recomputes
-             each shard's stretch between exchanges, not the ring); the
+             batch: losses finite and falling, flash launches a step
+             B3 = B4 = L dp tp sp (sp + 1) / 2 = 24 and B2 = (1 + remat)
+             times that = 48 (remat recomputes the whole block, ring
+             included), the peak memory above the resident state; the
              `PipelineParallelTrainer` on (data 1, stage 4), 2
              microbatches: B2 = 2 L m = 16, B3 = B4 = 8; the moe
              phase's config, 4 layers, on (1, 2, 2), 2 steps, every
@@ -4843,11 +4846,39 @@ def hibernate_leg(cfg, params, check, card: str) -> dict:
 
     rng = np.random.default_rng(17)
     turn1 = rng.integers(0, cfg.vocab_size, 200).tolist()
+    # a prompt cached beside the session, never hibernated: the sweep
+    # must leave its chain in the radix tree
+    beside = rng.integers(0, cfg.vocab_size, 120).tolist()
+    faults = {"resets_while_running": 0, "breaker_failures": 0}
 
     def pool(state_dir, idle_s):
-        return ContinuousLMServer(cfg, params, slots=2, page_size=16,
-                                  prefill_chunk=16, hibernate_idle_s=idle_s,
-                                  state_dir=state_dir, device="cuda")
+        srv = ContinuousLMServer(cfg, params, slots=2, page_size=16,
+                                 prefill_chunk=16, hibernate_idle_s=idle_s,
+                                 state_dir=state_dir, device="cuda")
+        # a reset while the worker runs is the worker's catch-all after
+        # a failed dispatch; start and stop reset with it down
+        reset = srv._reset_pool_locked
+
+        def counted():
+            if srv._running:
+                faults["resets_while_running"] += 1
+            reset()
+
+        srv._reset_pool_locked = counted
+        if srv.breaker is not None:
+            fail = srv.breaker.record_failure
+
+            def failed(*a, **k):
+                faults["breaker_failures"] += 1
+                return fail(*a, **k)
+
+            srv.breaker.record_failure = failed
+        return srv
+
+    def saved_on_repeat(srv):
+        before = srv.stats().get("prefix_tokens_saved", 0)
+        ids = srv.generate(beside, MOB_NEW, timeout=900)
+        return ids, srv.stats().get("prefix_tokens_saved", 0) - before
 
     def wait_hibernated(srv, n):
         deadline = time.perf_counter() + 60
@@ -4880,9 +4911,18 @@ def hibernate_leg(cfg, params, check, card: str) -> dict:
         srv = pool(tmp, 0.2)
         try:
             srv.warmup()
+            cached = srv.generate(beside, MOB_NEW, timeout=900)
+            _, saved_unswept = saved_on_repeat(srv)
             out1 = srv.generate(turn1, MOB_NEW, session_id="s1",
                                 timeout=900)
             wait_hibernated(srv, 1)
+            again, saved_swept = saved_on_repeat(srv)
+            if saved_swept != saved_unswept or again != cached:
+                raise AssertionError(
+                    f"mobility: after the sweep a prompt cached beside the "
+                    f"session saved {saved_swept} prefix tokens, "
+                    f"{saved_unswept} before it (ids equal: "
+                    f"{again == cached})")
             turn2 = out1 + rng.integers(0, cfg.vocab_size, 24).tolist()
             t0 = time.perf_counter()
             out2, st2, fed2 = turn(srv, out1, turn2, srv.stats())
@@ -4901,8 +4941,15 @@ def hibernate_leg(cfg, params, check, card: str) -> dict:
             balanced("fresh pool", fresh)
         finally:
             fresh.stop()
-    checks = [check(turn1, out1), check(turn2, out2), check(turn3, out3)]
+    if any(faults.values()):
+        raise AssertionError(f"mobility: the hibernating pools failed a "
+                             f"dispatch: {faults}")
+    checks = [check(turn1, out1), check(turn2, out2), check(turn3, out3),
+              check(beside, cached)]
     out = {"turn_prompts": [len(turn1), len(turn2), len(turn3)],
+           "beside_saved_before_and_after_the_sweep": [saved_unswept,
+                                                       saved_swept],
+           "faults": faults,
            "turn2_fed": fed2, "turn3_fed_after_restart": fed3,
            "turn2_s": turn2_s, "turn3_s": turn3_s,
            "hibernate": st2["hibernate"], "restart_disk": disk,
@@ -4910,7 +4957,9 @@ def hibernate_leg(cfg, params, check, card: str) -> dict:
     log(f"mobility: hibernated session: turn 2 fed {fed2} of "
         f"{len(turn2)} prompt tokens ({turn2_s:.3f} s), a fresh server on "
         f"the same state_dir fed {fed3} of {len(turn3)} ({turn3_s:.3f} s), "
-        f"bytes ratio {st2['hibernate']['bytes_ratio']}; greedy "
+        f"bytes ratio {st2['hibernate']['bytes_ratio']}; a prompt cached "
+        f"beside it saved {saved_swept} prefix tokens after the sweep "
+        f"({saved_unswept} before), no reset, no failure; greedy "
         f"{out['greedy']} ({card})")
     return out
 
@@ -10279,6 +10328,7 @@ def mesh_train_leg(name: str, trainer, tokens, targets, want: dict) -> dict:
               for _ in range(MESH_WARMUP)]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
     for c in counters.values():
         c.reset()
     step_ms = []
@@ -10301,6 +10351,9 @@ def mesh_train_leg(name: str, trainer, tokens, targets, want: dict) -> dict:
             "step_ms_mean": wall * 1e3 / MESH_STEPS,
             "tokens_per_s": b * s * MESH_STEPS / wall,
             "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+            "resident_bytes": resident,
+            "peak_above_resident_bytes":
+                torch.cuda.max_memory_allocated() - resident,
             "launches_per_step": per_step}
 
 
@@ -10358,9 +10411,9 @@ def mesh_full_width(card: str, train) -> dict:
     pairs = sp * (sp + 1) // 2
     tr = HybridParallelTrainer(cfg, mesh_of(shape, ("data", "seq", "model")),
                                lr=MESH_LR, updater="adam", params=tree)
-    # remat recomputes each shard's stretch between two exchanges, not
-    # the ring: B2 once a block pair
-    want = {"flash_fwd": L * dp * tp * pairs,
+    # remat recomputes the whole block, ring included: B2 twice a block
+    # pair, as jax.checkpoint(block) runs it
+    want = {"flash_fwd": (1 + remat) * L * dp * tp * pairs,
             "flash_bwd_dkv": L * dp * tp * pairs,
             "flash_bwd_dq": L * dp * tp * pairs}
     leg = mesh_train_leg("hybrid", tr, tokens, targets, want)
@@ -10743,14 +10796,18 @@ def mesh_phase(card: str, train=None) -> dict:
             f"flash launches a step "
             f"{leg['launches_per_step']}, losses {leg['losses'][0]:.4f} -> "
             f"{leg['losses'][-1]:.4f}, peak "
-            f"{leg['peak_memory_bytes'] / 2**30:.2f} GiB, parameter bytes "
+            f"{leg['peak_memory_bytes'] / 2**30:.2f} GiB "
+            f"({leg['peak_above_resident_bytes'] / 1e9:.2f} GB above the "
+            f"resident {leg['resident_bytes'] / 1e9:.2f} GB), "
+            f"parameter bytes "
             f"{leg['param_bytes']} (4 shards on one card, {card})")
     out["moe"] = mesh_moe(card)
     log(f"mesh: MoE hybrid (1, 2, 2), {out['moe']['experts']} experts, "
         f"{out['moe']['experts_a_model_shard']} a model shard: capacity "
         f"{out['moe']['capacity']} from the global tokens in "
         f"{out['moe']['dispatches']} dispatches, losses "
-        f"{out['moe']['losses']}, {out['moe']['step_ms_mean']:.1f} ms a step")
+        f"{out['moe']['losses']}, {out['moe']['step_ms_mean']:.1f} ms a "
+        f"step ({card})")
     out["f32"] = mesh_f32_parity()
     f = out["f32"]
     log(f"mesh: f32 one SGD step vs one device: hybrid loss "
@@ -10989,17 +11046,18 @@ def mp_lm_config(kind: str, layers: int):
 
 def mp_lm_want(kind: str, shape, layers: int, shards) -> dict:
     """B2 / B3 / B4 launches a step of the mesh shards `shards`: a ring
-    block at seq position j runs j + 1 causal block pairs a layer, once
-    (the mesh program recomputes each shard's stretch between two
-    exchanges, not the ring); a pipeline stage runs the flash kernels
-    once a microbatch and layer, B2 twice (the stage is recomputed)."""
+    block at seq position j runs j + 1 causal block pairs a layer, B2
+    once more with remat (the mesh program recomputes the whole block,
+    ring included); a pipeline stage runs the flash kernels once a
+    microbatch and layer, B2 twice (the stage is recomputed)."""
     if kind == "pipeline":
         per = layers // shape[1] * MP_LM_MICROBATCHES * len(shards)
         return {"flash_fwd": 2 * per, "flash_bwd_dkv": per,
                 "flash_bwd_dq": per}
     sp, tp = shape[1], shape[2]
     pairs = layers * sum((s // tp) % sp + 1 for s in shards)
-    return {"flash_fwd": pairs, "flash_bwd_dkv": pairs,
+    remat = int(mp_lm_config(kind, layers).remat)
+    return {"flash_fwd": (1 + remat) * pairs, "flash_bwd_dkv": pairs,
             "flash_bwd_dq": pairs}
 
 

@@ -41,9 +41,18 @@ register_layer_impl("denselayer", LayerImpl(dense_init, dense_apply))
 # fuses softmax+CE on logits for stability (ops/losses mcxent_with_logits).
 
 register_layer_impl("outputlayer", LayerImpl(dense_init, dense_apply))
-# x: [batch, time, features] — the same product applies the dense head
-# per timestep.
-register_layer_impl("rnnoutputlayer", LayerImpl(dense_init, dense_apply))
+
+
+def rnn_output_apply(conf, params, state, x, *, train=False, rng=None,
+                     mask=None):
+    # x: [batch, time, features] — apply the dense head per timestep.
+    x = input_dropout(conf, x, train, rng)
+    z = torch.einsum("bti,io->bto", x,
+                     effective_weights(conf, params, train, rng)) + params["b"]
+    return activate(conf, z), state
+
+
+register_layer_impl("rnnoutputlayer", LayerImpl(dense_init, rnn_output_apply))
 
 
 # ---- batch norm ----------------------------------------------------------

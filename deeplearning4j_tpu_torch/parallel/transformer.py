@@ -629,12 +629,6 @@ def _shard_params(cfg: TransformerConfig, params: dict, prog: Program,
     return {s: pick(s) for s in prog.local}
 
 
-def _remat(on: bool) -> Callable:
-    if on:
-        return lambda f, *a: checkpoint(f, *a, use_reentrant=False)
-    return lambda f, *a: f(*a)
-
-
 def _seg_qkv(ln1: dict, attn: dict, x: torch.Tensor):
     return qkv_proj(attn, _layer_norm(ln1, x))
 
@@ -668,32 +662,29 @@ def _block_rows(grid: _Grid, shard: int, b: int, sl: int, seq: int,
 
 def _mesh_layer(cfg: TransformerConfig, prog: Program, grid: _Grid,
                 lp: dict, xs: dict, causal: bool, cf: float, want_aux: bool,
-                remat: bool, seq: int):
+                seq: int):
     """One block over every local shard: each shard's heads, the ring
     over ``seq``, the ``model`` sum plus bo once; then the MLP (its
     hidden slice, summed, plus b2 once) or the MoE (routing over the
     global tokens in (batch, position) order on each shard's copy, each
-    ``model`` shard computing its experts).  With `remat` each shard's
-    stretch between two exchanges is recomputed in the backward.
-    Returns (outputs, the aux loss on shard 0 or None)."""
-    run = _remat(remat)
+    ``model`` shard computing its experts).  Returns (outputs, the aux
+    loss on shard 0 or None)."""
     local = prog.local
     axes = grid.axes
-    qkv = {s: run(_seg_qkv, lp[s]["ln1"], lp[s]["attn"], xs[s])
-           for s in local}
+    qkv = {s: _seg_qkv(lp[s]["ln1"], lp[s]["attn"], xs[s]) for s in local}
     o = ring_flash_attention(*({s: t[i] for s, t in qkv.items()}
                                for i in range(3)), axes.seq, causal,
                              program=prog)
-    y = prog.psum({s: run(_seg_out, lp[s]["attn"]["wo"], o[s])
-                   for s in local}, axes.model)
+    y = prog.psum({s: _seg_out(lp[s]["attn"]["wo"], o[s]) for s in local},
+                  axes.model)
     if "mlp" in lp[local[0]]:
-        mid = {s: run(_seg_mlp, xs[s], y[s], lp[s]["attn"].get("bo"),
-                      lp[s]["ln2"], lp[s]["mlp"]) for s in local}
+        mid = {s: _seg_mlp(xs[s], y[s], lp[s]["attn"].get("bo"),
+                           lp[s]["ln2"], lp[s]["mlp"]) for s in local}
         y2 = prog.psum({s: m[1] for s, m in mid.items()}, axes.model)
         return {s: mid[s][0] + (y2[s] + lp[s]["mlp"]["b2"])
                 for s in local}, None
-    mid = {s: run(_seg_mid, xs[s], y[s], lp[s]["attn"].get("bo"),
-                  lp[s]["ln2"]) for s in local}
+    mid = {s: _seg_mid(xs[s], y[s], lp[s]["attn"].get("bo"), lp[s]["ln2"])
+           for s in local}
     full = prog.all_gather({s: m[1] for s, m in mid.items()}, axes.seq,
                            dim=1)
     full = prog.all_gather(full, axes.data, dim=0)         # [B, S, d]
@@ -703,8 +694,7 @@ def _mesh_layer(cfg: TransformerConfig, prog: Program, grid: _Grid,
         t = grid.coords(s)[2]
         buf, combines[s] = _moe_in({"gate": lp[s]["moe"]["gate"]},
                                    full[s], cf, cfg.moe_top_k)
-        ys[s] = run(_experts, lp[s]["moe"],
-                    buf[t * e_loc:(t + 1) * e_loc])
+        ys[s] = _experts(lp[s]["moe"], buf[t * e_loc:(t + 1) * e_loc])
     ys = prog.all_gather(ys, axes.model, dim=0)
     out = {}
     for s in local:
@@ -718,12 +708,101 @@ def _mesh_layer(cfg: TransformerConfig, prog: Program, grid: _Grid,
     return out, aux
 
 
+class _RematLayer(torch.autograd.Function):
+    """A block over every local shard that keeps only its inputs for the
+    backward, the counterpart of ``jax.checkpoint(block)`` with the ring
+    inside the block.  The forward runs ``run(inputs)`` without a graph;
+    the backward runs it again with one, the whole block (its ring, its
+    psums and all_gathers, its routing), and then that block's backward
+    through ``torch.autograd.grad``.  So the recompute makes the
+    block's exchanges in program order, on a program of its own, and
+    each process finishes one block's recompute and backward before the
+    next: the ordering token goes in and a new one comes out, as for
+    `mesh.Program`'s exchanges.  ``keep[i]`` names the input whose
+    saved tensor stands for input i in the recompute: itself, or an
+    input known to hold the same bits (one kept tensor, a leaf each).
+    The inputs' cotangents are per shard; the parameters' are summed
+    over the shards by the broadcast that made the shard copies."""
+
+    @staticmethod
+    def forward(ctx, run, keep, token, *inputs):
+        ctx.run, ctx.keep = run, keep
+        ctx.held = sorted(set(keep))
+        ctx.save_for_backward(*(inputs[i] for i in ctx.held))
+        return (token.new_zeros(()), *run(list(inputs)))
+
+    @staticmethod
+    def backward(ctx, _token, *grads):
+        saved = dict(zip(ctx.held, ctx.saved_tensors))
+        needs = ctx.needs_input_grad[3:]
+        inputs = [saved[k].detach().requires_grad_(n)
+                  for k, n in zip(ctx.keep, needs)]
+        with torch.enable_grad():
+            outs = ctx.run(inputs)
+        pairs = [(o, g) for o, g in zip(outs, grads) if o.requires_grad]
+        wrt = [i for i, n in enumerate(needs) if n]
+        got = torch.autograd.grad([o for o, _ in pairs],
+                                  [inputs[i] for i in wrt],
+                                  [g for _, g in pairs], allow_unused=True)
+        out = [None] * len(inputs)
+        for i, g in zip(wrt, got):
+            out[i] = g
+        return (None, None, None, *out)
+
+
+def _remat_layer(cfg: TransformerConfig, prog: Program, grid: _Grid,
+                 lp: dict, xs: dict, causal: bool, cf: float,
+                 want_aux: bool, seq: int):
+    """`_mesh_layer` through `_RematLayer`: the inputs are each local
+    shard's ``xs`` and the distinct tensors of its parameters.  The
+    ``model`` shards of one (data, seq) block hold the same bits as
+    block input (every ``model`` sum hands each of them the same sum, in
+    the same order), so one tensor is kept for those on one device."""
+    local = prog.local
+    flat, index, keep, first = [], {}, [], {}
+    for s in local:
+        d, j, _ = grid.coords(s)
+        keep.append(first.setdefault((d, j, prog.device(s)), len(flat)))
+        flat.append(xs[s])
+
+    def slot(a):
+        if not isinstance(a, torch.Tensor):
+            return a
+        if id(a) not in index:
+            index[id(a)] = len(flat)
+            keep.append(len(flat))
+            flat.append(a)
+        return index[id(a)]
+
+    layout = {s: map_tree(slot, lp[s]) for s in local}
+    mesh, scope = prog.mesh, prog.scope
+    aux_here = want_aux and 0 in local
+
+    def run(inputs):
+        # a program of its own, holding no tensor of the step's
+        sub = Program(mesh, scope)
+        lps = {s: map_tree(lambda i: inputs[i] if isinstance(i, int) else i,
+                           layout[s]) for s in local}
+        out, aux = _mesh_layer(cfg, sub, grid, lps,
+                               dict(zip(local, inputs)), causal, cf,
+                               want_aux, seq)
+        return [out[s] for s in local] + ([aux] if aux_here else [])
+
+    res = _RematLayer.apply(run, keep, prog.token(), *flat)
+    prog.advance(res[0])
+    out = dict(zip(local, res[1:1 + len(local)]))
+    return out, (res[-1] if aux_here else None)
+
+
 def _mesh_forward(cfg: TransformerConfig, params: dict, tokens,
                   prog: Program, grid: _Grid, causal: bool, train: bool,
                   return_aux: bool):
     """The mesh program up to the final layer norm: (``{shard: [b,
     S_local, d]}`` over the local shards, the mean aux loss on shard 0
-    (None elsewhere, and for dense configs), ``{shard: parameters}``)."""
+    (None elsewhere, and for dense configs), ``{shard: parameters}``).
+    With ``cfg.remat`` and grad enabled each block keeps only its inputs
+    and is recomputed whole, ring included, in the backward
+    (`_RematLayer`)."""
     tokens = torch.as_tensor(tokens)
     bsz, seq = tokens.shape
     grid.check(cfg, bsz, seq)
@@ -736,13 +815,14 @@ def _mesh_forward(cfg: TransformerConfig, params: dict, tokens,
             prog.device(s))
         xs[s] = (sp[s]["embed"][tok]
                  + sp[s]["pos"][j * sl:(j + 1) * sl][None])
-    remat = cfg.remat and torch.is_grad_enabled()
+    layer = (_remat_layer if cfg.remat and torch.is_grad_enabled()
+             else _mesh_layer)
     cf = cfg.moe_capacity_factor if train else 0.0
     auxs = []
     for i in range(cfg.n_layers):
         lp = {s: sp[s]["layers"][i] for s in prog.local}
-        xs, aux = _mesh_layer(cfg, prog, grid, lp, xs, causal, cf,
-                              return_aux, remat, seq)
+        xs, aux = layer(cfg, prog, grid, lp, xs, causal, cf, return_aux,
+                        seq)
         if aux is not None:
             auxs.append(aux)
     aux = torch.stack(auxs).mean() if auxs else None

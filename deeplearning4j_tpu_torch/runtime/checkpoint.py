@@ -11,7 +11,8 @@ crash leaves the previous file or the new one, never a torn one.
 directory: ``conf.json`` + ``params.npz`` [+ ``updater.npz``] +
 ``meta.json``; a directory saved by either package loads in the other.
 `save_params`/`load_params` write and read the flat parameter vector
-(the CLI's ``params.bin`` / ``params.txt``) in the JAX package's format.
+(the CLI's ``params.bin`` / ``params.txt``) in the JAX package's format,
+in the net's native parameter dtype (a bfloat16 net's raw words).
 
 Train-state checkpoints (params + updater state + layer state + step)
 are the JAX package's sharded snapshots: under ``ckpt-{step}/`` each tree
@@ -304,21 +305,47 @@ def _params_meta_path(path: pathlib.Path) -> pathlib.Path:
     return path.with_name(path.name + ".meta.json")
 
 
-def save_params(net, path: os.PathLike, mode: str = "binary") -> None:
-    """The flat parameter vector (`params_flat`, float32) as a file (CLI
-    parity: Nd4j.write / writeTxt).  ``binary``: raw values plus a
+def _native_flat(net) -> Tuple[np.ndarray, str]:
+    """(the flat parameter vector in the dtype of the net's first leaf,
+    that dtype's name).  A bfloat16 vector is its raw 2-byte words
+    (``uint16``), numpy having no bfloat16."""
+    leaves = [a for _, a in net._param_leaves()]
+    if not leaves:
+        return np.zeros((0,), np.float32), "float32"
+    native = leaves[0].dtype
+    if native != torch.bfloat16:
+        vec = net.params_flat(dtype=np.dtype(str(native).split(".")[-1]))
+        return vec, str(vec.dtype)
+    words = [a.detach().to(torch.bfloat16).cpu().reshape(-1)
+             .view(torch.int16).numpy().view(np.uint16) for a in leaves]
+    return np.concatenate(words), "bfloat16"
+
+
+def save_params(net, path: os.PathLike, mode: str = "binary",
+                dtype=None) -> None:
+    """The flat parameter vector as a file (CLI parity: Nd4j.write /
+    writeTxt), in the net's native parameter dtype: a bfloat16 net writes
+    2 bytes a parameter.  ``binary``: the raw values plus a
     ``<file>.meta.json`` sidecar ``{format, dtype, count}``; ``txt``: one
-    value a line under a ``# dtype: float32`` header.  Either loads in
-    the JAX package's `load_params`."""
-    vec = net.params_flat()
+    value a line (float32, exact for bfloat16 and float16) under a ``#
+    dtype: ...`` header.  `dtype` overrides the native one (``np.float32``
+    forces the all-float32 format).  Either loads in the JAX package's
+    `load_params`, and writes the bytes that package writes."""
+    if dtype is None:
+        vec, name = _native_flat(net)
+    else:
+        vec = net.params_flat(dtype=dtype)
+        name = str(vec.dtype)
     path = pathlib.Path(path)
     path.parent.mkdir(parents=True, exist_ok=True)
     if mode == "binary":
         vec.tofile(path)
         _params_meta_path(path).write_text(json.dumps(
-            {"format": 1, "dtype": str(vec.dtype), "count": int(vec.size)}))
+            {"format": 1, "dtype": name, "count": int(vec.size)}))
     elif mode == "txt":
-        np.savetxt(path, vec, header=f"dtype: {vec.dtype}")
+        values = ((vec.astype(np.uint32) << 16).view(np.float32)
+                  if name == "bfloat16" else vec.astype(np.float32))
+        np.savetxt(path, values, header=f"dtype: {name}")
     else:
         raise ValueError(f"unknown savemode {mode!r} (binary|txt)")
 

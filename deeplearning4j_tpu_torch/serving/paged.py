@@ -310,6 +310,35 @@ class RadixPrefixCache:
                 push(victim.parent)
         return evicted
 
+    def forget(self, tokens: Sequence[int]) -> int:
+        """Drop the tree's hold on the full-page chain covering
+        `tokens`, deepest-first: the hibernation sweep's targeted
+        eviction.  Once a session's pages rest on the state store, the
+        tree's refcount is the only thing keeping them on device.  A
+        node is dropped only while it is a leaf the tree alone holds
+        (refcount 1); the walk stops at the first node that is still
+        shared or still has children (which also pins every ancestor
+        above it, exactly like `evict()`).  Returns pages released."""
+        node, chain = self.root, []
+        i = 0
+        while True:
+            chunk = tuple(int(t) for t in tokens[i:i + self.ps])
+            child = (node.children.get(chunk)
+                     if len(chunk) == self.ps else None)
+            if child is None:
+                break
+            chain.append(child)
+            node, i = child, i + self.ps
+        dropped = 0
+        for victim in reversed(chain):
+            if victim.children or self.pool.refcount(victim.page) != 1:
+                break
+            del victim.parent.children[victim.key]
+            self.pool.release([victim.page])
+            self.nodes -= 1
+            dropped += 1
+        return dropped
+
     def clear(self) -> int:
         """Release every tree-held page back to THIS pool.  Diagnostic
         /test helper only: the server's real reset path

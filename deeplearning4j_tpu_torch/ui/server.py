@@ -92,9 +92,11 @@ from deeplearning4j_tpu_torch.obs.registry import (
     MetricsRegistry,
 )
 from deeplearning4j_tpu_torch.obs.trace import TraceRecorder, chrome_trace
+from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.parallel.generation import (
     beam_search,
     generate,
+    place_params,
 )
 from deeplearning4j_tpu_torch.serving.lm import (
     ContinuousLMServer,
@@ -210,6 +212,9 @@ class _UiState:
         self.weights_history: List[dict] = []
         self.activations: Optional[List] = None
         self.engine = None             # serving.ServingEngine (serve_model)
+        # (cfg, params, device) of serve_lm; the pool is None when
+        # continuous=False
+        self.lm: Optional[tuple] = None
         self.lm_server: Optional[ContinuousLMServer] = None
         self.draining = False
 
@@ -452,17 +457,26 @@ class _Handler(ServingHTTPMixin, BaseHTTPRequestHandler):
             "predictions": np.argmax(probs, axis=-1).tolist(),
             "outputs": np.asarray(probs).tolist()})
 
-    def _lm_server(self) -> ContinuousLMServer:
-        """The registered pool; a stopped server is 503, none is 400."""
+    def _lm(self):
+        """((cfg, params, device), the pool or None) of the registered
+        LM; a stopped server is 503, none is 400."""
         s = self.state
         with s.lock:
-            lm_server, draining = s.lm_server, s.draining
-        if lm_server is None:
+            lm, lm_server, draining = s.lm, s.lm_server, s.draining
+        if lm is None:
             if draining:
                 raise ServingUnavailableError(
                     "server stopped: LM unregistered")
             raise ValueError("no LM registered: call "
                              "UiServer.serve_lm(cfg, params)")
+        return lm, lm_server
+
+    def _lm_server(self, missing: str) -> ContinuousLMServer:
+        """The registered pool; `missing` is the 400's text when the LM
+        was registered with continuous=False."""
+        lm_server = self._lm()[1]
+        if lm_server is None:
+            raise ValueError(missing)
         return lm_server
 
     @staticmethod
@@ -483,7 +497,8 @@ class _Handler(ServingHTTPMixin, BaseHTTPRequestHandler):
     def _lm_prefill(self, body: Any) -> None:
         """The prefill half of disaggregation: normal admission and
         chunked prefill, answered with the lane's page shipment."""
-        lm_server = self._lm_server()
+        lm_server = self._lm_server("no continuous LM pool registered: "
+                                    "call UiServer.serve_lm(cfg, params)")
         if not isinstance(body, dict):
             raise ValueError("the request body must be a JSON object")
         prompt = body.get("prompt_ids")
@@ -510,14 +525,14 @@ class _Handler(ServingHTTPMixin, BaseHTTPRequestHandler):
 
     def _lm_admit_pages(self, data: bytes) -> None:
         """The decode half: a binary page shipment in, ``{"ids"}`` out."""
-        lm_server = self._lm_server()
+        lm_server = self._lm_server("no continuous LM pool registered")
         ids = lm_server.admit_with_pages(
             deserialize_export(data), deadline_s=self._deadline_s({}),
             request_id=self.request_id())
         self._json(200, {"ids": ids})
 
     def _lm_generate(self, body: Any) -> None:
-        lm_server = self._lm_server()
+        (cfg, params, dev), lm_server = self._lm()
         if not isinstance(body, dict):
             raise ValueError("the request body must be a JSON object")
         prompt = body.get("prompt_ids")
@@ -529,7 +544,7 @@ class _Handler(ServingHTTPMixin, BaseHTTPRequestHandler):
         session_id = self._session_id(body)
         tenant = self._tenant(body)
         if tenant is not None:
-            if lm_server.tenants is not None:
+            if lm_server is not None and lm_server.tenants is not None:
                 tenant = lm_server.tenants.normalize(tenant)
             elif tenant != "default":
                 raise ValueError(
@@ -552,6 +567,10 @@ class _Handler(ServingHTTPMixin, BaseHTTPRequestHandler):
             # a client asking for speculation on a pool that cannot give
             # it gets a 400 naming why, not a different plan in silence;
             # a sampled request on a speculating pool is not an error
+            if lm_server is None:
+                raise ValueError(
+                    "speculate requested but no continuous LM pool is "
+                    "registered (continuous=False)")
             if lm_server.kv != "paged":
                 raise ValueError(
                     "speculate requested but the pool serves kv='dense': "
@@ -562,6 +581,10 @@ class _Handler(ServingHTTPMixin, BaseHTTPRequestHandler):
                     "speculate requested but the pool was started with "
                     "speculation off (serve with -lm-speculate "
                     "ngram|model)")
+        if stream and lm_server is None:
+            raise ValueError(
+                "stream requested but no continuous LM pool is "
+                "registered (continuous=False)")
         if stream and (beams > 1 or top_k > 0 or top_p < 1.0):
             # the whole-sequence legs have nothing to stream
             raise ValueError(
@@ -570,14 +593,13 @@ class _Handler(ServingHTTPMixin, BaseHTTPRequestHandler):
                 "cannot stream")
         deadline_s = self._deadline_s(body)
         try:
-            ids = validate_request(lm_server.cfg, prompt, max_new)
+            ids = validate_request(cfg, prompt, max_new)
         except ValueError as e:
             payload = {"error": str(e)}
             if "max_len" in str(e):
-                payload["max_len"] = lm_server.cfg.max_len
+                payload["max_len"] = cfg.max_len
             self._json(400, payload)
             return
-        cfg, params, dev = lm_server.cfg, lm_server.params, lm_server.device
         if beams > 1:
             toks, scores = beam_search(cfg, params, [ids], max_new,
                                        beam_size=beams, device=dev)
@@ -591,7 +613,7 @@ class _Handler(ServingHTTPMixin, BaseHTTPRequestHandler):
                 deadline_s=deadline_s, request_id=self.request_id(),
                 session_id=session_id, priority=priority, tenant=tenant)
             self._sse_stream(gen, ids)
-        elif top_k > 0 or top_p < 1.0:
+        elif lm_server is None or top_k > 0 or top_p < 1.0:
             toks = generate(cfg, params, [ids], max_new,
                             temperature=temperature, seed=seed, top_k=top_k,
                             top_p=top_p, device=dev)
@@ -686,6 +708,7 @@ class UiServer:
         return self.state.tracer
 
     def serve_lm(self, cfg, params, slots: int = 4,
+                 continuous: bool = True,
                  max_queue_depth: Optional[int] = None,
                  default_deadline_s: Optional[float] = None,
                  breaker_threshold: Optional[int] = 5,
@@ -703,8 +726,12 @@ class UiServer:
         """Register a transformer LM for ``POST /lm/generate``, decoded by
         a `slots`-lane continuous pool over a paged or dense KV cache on
         `device` (None = the card), speculating when `speculate` is
-        "ngram" or "model".  `max_queue_depth`, `default_deadline_s` and
-        the breaker knobs (`breaker_threshold` consecutive failed
+        "ngram" or "model".  ``continuous=False`` builds no pool: every
+        request runs the whole-sequence `generate` / `beam_search`, and
+        the requests only a pool can serve (speculate, stream,
+        ``/lm/prefill``, ``/lm/admit_pages``) are 400s.
+        `max_queue_depth`, `default_deadline_s` and the breaker knobs
+        (`breaker_threshold` consecutive failed
         dispatches open it for `breaker_cooldown_s`; None or 0 = no
         breaker) configure admission; `tenants` (a `TenantRegistry`, a
         spec mapping or the ``-tenants`` JSON) installs tenancy.  `ship`
@@ -714,21 +741,29 @@ class UiServer:
         `swap_quantize` are the pool's page-mobility planes
         (`ContinuousLMServer`).  The pool publishes on this server's
         registry and traces into its recorder."""
-        breaker = (CircuitBreaker(failure_threshold=breaker_threshold,
-                                  cooldown_s=breaker_cooldown_s)
-                   if breaker_threshold else None)
-        lm_server = ContinuousLMServer(
-            cfg, params, slots=slots, max_queue_depth=max_queue_depth,
-            default_deadline_s=default_deadline_s, breaker=breaker, kv=kv,
-            page_size=page_size, pages=pages, prefill_chunk=prefill_chunk,
-            speculate=speculate, draft_len=draft_len, ship=ship,
-            preempt=preempt, swap_bytes=swap_bytes, brownout=brownout,
-            tenants=tenants, hibernate_idle_s=hibernate_idle_s,
-            state_dir=state_dir, state_disk_bytes=state_disk_bytes,
-            swap_quantize=swap_quantize, tracer=self.state.tracer,
-            registry=self.state.registry, device=device)
+        lm_server = None
+        if continuous:
+            breaker = (CircuitBreaker(failure_threshold=breaker_threshold,
+                                      cooldown_s=breaker_cooldown_s)
+                       if breaker_threshold else None)
+            lm_server = ContinuousLMServer(
+                cfg, params, slots=slots, max_queue_depth=max_queue_depth,
+                default_deadline_s=default_deadline_s, breaker=breaker,
+                kv=kv, page_size=page_size, pages=pages,
+                prefill_chunk=prefill_chunk, speculate=speculate,
+                draft_len=draft_len, ship=ship, preempt=preempt,
+                swap_bytes=swap_bytes, brownout=brownout, tenants=tenants,
+                hibernate_idle_s=hibernate_idle_s, state_dir=state_dir,
+                state_disk_bytes=state_disk_bytes,
+                swap_quantize=swap_quantize, tracer=self.state.tracer,
+                registry=self.state.registry, device=device)
+            lm = (cfg, lm_server.params, lm_server.device)
+        else:
+            dev = resolve_device(device)
+            lm = (cfg, place_params(cfg, params, dev), dev)
         with self.state.lock:
             old = self.state.lm_server
+            self.state.lm = lm
             self.state.lm_server = lm_server
         if old is not None:
             old.stop()
@@ -815,6 +850,7 @@ class UiServer:
             self.state.draining = True
             engine, self.state.engine = self.state.engine, None
             lm_server, self.state.lm_server = self.state.lm_server, None
+            self.state.lm = None
         if engine is not None:
             engine.stop()
         if lm_server is not None:

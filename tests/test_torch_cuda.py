@@ -2568,10 +2568,11 @@ def test_mesh_step_on_the_card_matches_one_device(no_tf32, kind):
     """One float32 SGD step of each mesh trainer on 4 shards of card 0
     against the one-device step: the loss within 1e-5 relative, each
     leaf's change within 1e-3 of its largest change; the flash launches
-    of a step L dp tp sp (sp + 1) / 2 for each kernel (hybrid, (1, 2, 2):
-    remat recomputes each shard's stretch between two exchanges, not the
-    ring) and 2 L m forward (pipeline, (1, 4), m 2: the stage is
-    recomputed), half that for each backward kernel."""
+    of a step (1 + remat) L dp tp sp (sp + 1) / 2 forward and L dp tp sp
+    (sp + 1) / 2 for each backward kernel (hybrid, (1, 2, 2): remat
+    recomputes the whole block, ring included) and 2 L m forward
+    (pipeline, (1, 4), m 2: the stage is recomputed), half that for each
+    backward kernel."""
     _need_card()
     from deeplearning4j_tpu_torch.parallel.hybrid import (
         HybridParallelTrainer,
@@ -2594,7 +2595,7 @@ def test_mesh_step_on_the_card_matches_one_device(no_tf32, kind):
         tr = HybridParallelTrainer(
             cfg, _card_mesh((1, 2, 2), ("data", "seq", "model")), lr=1.0,
             params=tree)
-        fwd = 4 * 1 * 2 * 3
+        fwd = 2 * 4 * 1 * 2 * 3
     else:
         tr = PipelineParallelTrainer(
             cfg, _card_mesh((1, 4), ("data", "stage")), n_microbatches=2,
@@ -2604,7 +2605,7 @@ def test_mesh_step_on_the_card_matches_one_device(no_tf32, kind):
     for c in counters.values():
         c.reset()
     got_loss = tr.fit_batch(tok, tgt)
-    bwd = fwd if kind == "hybrid" else fwd // 2
+    bwd = fwd // 2
     assert {n: c.value for n, c in counters.items()} == \
         {"fwd": fwd, "dkv": bwd, "dq": bwd}
     assert abs(got_loss - float(loss)) <= 1e-5 * abs(float(loss))
@@ -2663,8 +2664,9 @@ def test_lm_ring_across_two_processes_equals_one_process_bitwise(tmp_path,
     processes x 2 shards of card 0, the ring crossing the processes, 3
     bf16 Adam steps: losses and every exported leaf bitwise those of 1
     process x 4 shards; each process launches B2 / B3 / B4 for its own
-    block pairs (seq block 0: 1 pair, block 1: 2, a layer and step), and
-    the two add up to the one process's."""
+    block pairs (seq block 0: 1 pair, block 1: 2, a layer and step; B2
+    twice, since remat recomputes the block, ring included), and the two
+    add up to the one process's."""
     _need_card()
     import torch_multiproc_worker as w
     from deeplearning4j_tpu_torch.parallel import make_mesh
@@ -2674,12 +2676,14 @@ def test_lm_ring_across_two_processes_equals_one_process_bitwise(tmp_path,
     assert rcs == [0, 0], w.job_logs(tmp_path / "job")
     losses, params, launches = w.card_lm_run(make_mesh(
         (1, 2, 2), ("data", "seq", "model"), devices=["cuda:0"] * 4))
-    assert launches == [2 * 3 * 6] * 3      # layers x steps x 2 (1 + 2)
+    # layers x steps x 2 (1 + 2), B2 twice
+    assert launches == [2 * 2 * 3 * 6] + [2 * 3 * 6] * 2
     per_process = []
     for rank in range(2):
         res, arrays = w.job_results(tmp_path / "job", rank)
         assert res["losses"] == losses
-        assert res["launches"] == [2 * 3 * 2 * (rank + 1)] * 3
+        assert res["launches"] == [2 * 2 * 3 * 2 * (rank + 1)] + [
+            2 * 3 * 2 * (rank + 1)] * 2
         per_process.append(res["launches"])
         assert set(arrays) == set(params)
         for k in params:

@@ -4,14 +4,20 @@
 
 The oracle is the behaviour of every class of the JAX package's
 `tests/test_hibernate.py`, on the same float32 weights: a resumed
-session's ids equal the JAX package's `generate`.  The compile-count
-test has no counterpart until the port captures its programs, and the
-streamed-resume test waits for SSE streaming (ROADMAP.md).  The disk
-faults use the JAX package's `chaos_disk` over the port's store.
-Cross-package: a hibernated session written to disk by the JAX
-package's server is resumed by the port's, and the other way round;
-prefix keys and the manifest are the same.  Waits on the idle
-sweep are events on the pool's hibernation counter, not sleeps.
+session's ids equal the JAX package's `generate`.  A hibernation
+builds no program (the compile watcher's total does not move across
+hibernate and resume), and a streamed resume after a corrupt blob
+yields every token once.  The disk faults use the JAX package's
+`chaos_disk` over the port's store.  Cross-package: a hibernated
+session written to disk by the JAX package's server is resumed by the
+port's, and the other way round; prefix keys and the manifest are the
+same.  The sweep itself is held to JAX's: it drops only the hibernated
+chain from the radix tree (a prompt cached beside it saves as many
+prefix tokens on a repeat as on JAX's server), a request decoding on
+the other lane while it runs returns JAX's tokens, and no test lets the
+pool reset while the worker runs (every reset is counted: the start and
+the stop are the only ones allowed).  Waits on the idle sweep are
+events on the pool's hibernation counter, not sleeps.
 """
 
 import dataclasses
@@ -31,6 +37,7 @@ from deeplearning4j_tpu.parallel import transformer as jt
 from deeplearning4j_tpu.resilience.chaos import DiskChaosConfig, chaos_disk
 from deeplearning4j_tpu.serving import ContinuousLMServer as JServer
 from deeplearning4j_tpu.serving import hibernate as jhib
+from deeplearning4j_tpu_torch.obs import compilewatch as tcw
 from deeplearning4j_tpu_torch.parallel import transformer as tt
 from deeplearning4j_tpu_torch.serving import ContinuousLMServer
 from deeplearning4j_tpu_torch.serving.hibernate import (
@@ -95,6 +102,23 @@ def _hibernations(srv, n=1):
 
     srv.metrics.record_hibernate = record
     return ev
+
+
+@pytest.fixture(autouse=True)
+def _no_reset_while_running(monkeypatch):
+    """Every pool reset of a port server is counted: one that runs while
+    the worker is up is the catch-all's, after a failed dispatch.  Only
+    the start and the stop (worker not running) may reset."""
+    real = ContinuousLMServer._reset_pool_locked
+    running = []
+
+    def counted(self):
+        running.append(bool(self._running))
+        return real(self)
+
+    monkeypatch.setattr(ContinuousLMServer, "_reset_pool_locked", counted)
+    yield running
+    assert not any(running), "the pool was reset while the worker ran"
 
 
 def _frame(prompt, pos, n_layers=1, heads=2, dim=8):
@@ -345,6 +369,25 @@ class TestHibernateResume:
         assert stats["hibernation"]["store"]["disk"]["takes"] == 1
         assert out2 == _reference(p2)
 
+    def test_zero_builds_across_hibernate_and_resume(self, tmp_path):
+        tw = tcw.compile_watcher()
+        srv = _srv(tmp_path, hibernate_idle_s=0.15)
+        hib = _hibernations(srv)
+        try:
+            srv.warmup()
+            before = tw.total()
+            out1 = srv.generate(list(range(1, 9)), 8, timeout=120,
+                                session_id="s1")
+            assert hib.wait(30)
+            p2 = out1 + [3, 4]
+            out2 = srv.generate(p2, 6, timeout=120, session_id="s1")
+            stats = srv.stats()
+        finally:
+            srv.stop()
+        assert stats["hibernate"]["in"] == 1
+        assert tw.total() == before, "hibernate and resume built programs"
+        assert out2 == _want(tuple(p2), 6)
+
     def test_hibernation_stats_and_validation(self, tmp_path):
         srv = _srv(tmp_path, hibernate_idle_s=5.0)
         try:
@@ -360,6 +403,103 @@ class TestHibernateResume:
             _srv(hibernate_idle_s=-1.0)
         with pytest.raises(ValueError, match="state_dir"):
             _srv(tmp_path)
+
+
+def _jax_hibernated(jsrv, timeout_s=30.0):
+    for _ in range(int(timeout_s / 0.05)):
+        if jsrv.stats().get("hibernate", {}).get("out", 0):
+            return True
+        with jsrv._cond:
+            jsrv._cond.wait(0.05)
+    return False
+
+
+class TestSweepKeepsTheTree:
+    """The sweep drops the hibernated session's chain and nothing else:
+    the rest of the radix tree and the lanes in flight go on serving."""
+
+    CACHED = list(range(20, 33))        # 13 tokens: 3 whole pages + 1
+
+    def test_a_prompt_cached_beside_the_session_still_hits(self, tmp_path):
+        saved = {}
+        srv = _srv(tmp_path, hibernate_idle_s=0.15)
+        hib = _hibernations(srv)
+        jsrv = JServer(JCFG, _jparams(), slots=2, page_size=PS, pages=32,
+                       hibernate_idle_s=0.15,
+                       state_dir=str(tmp_path / "jax"))
+        try:
+            for name, s, wait in (("port", srv, hib.wait),
+                                  ("jax", jsrv, lambda t: _jax_hibernated(
+                                      jsrv, t))):
+                first = s.generate(self.CACHED, 2, timeout=120)
+                s.generate(list(range(1, 9)), 8, timeout=120,
+                           session_id="s1")
+                assert wait(30), name
+                before = s.stats()["prefix_tokens_saved"]
+                again = s.generate(self.CACHED, 2, timeout=120)
+                saved[name] = s.stats()["prefix_tokens_saved"] - before
+                assert again == first == _want(tuple(self.CACHED), 2)
+                assert s.stats()["hibernate"]["out"] == 1
+            assert srv.page_ledger()["balanced"]
+        finally:
+            srv.stop()
+            jsrv.stop()
+        assert saved["port"] == saved["jax"] == len(self.CACHED) - 1
+
+    def test_a_lane_decoding_through_the_sweep_keeps_its_tokens(
+            self, tmp_path):
+        """A long lane is held at a gate on `srv._step` (set after
+        `warmup()`, which builds it) until the session's request is
+        queued, so the session finishes and is swept (idle 0) while the
+        long lane still decodes."""
+        srv = _srv(tmp_path, hibernate_idle_s=0.0)
+        busy_at_sweep = []
+        real_record = srv.metrics.record_hibernate
+
+        def record(direction, *args):
+            if direction == "out":
+                busy_at_sweep.append(any(s.active for s in srv._slots))
+            real_record(direction, *args)
+
+        srv.metrics.record_hibernate = record
+        res = {}
+        try:
+            srv.warmup()
+            blocked, release = threading.Event(), threading.Event()
+            real_step = srv._step
+
+            def gated(*args):
+                s = srv._slots[0]
+                if (not blocked.is_set() and s.active
+                        and len(s.generated) >= 2):
+                    blocked.set()
+                    release.wait(120)
+                return real_step(*args)
+
+            srv._step = gated
+            long = threading.Thread(target=lambda: res.__setitem__(
+                "long", srv.generate([5, 6, 7], 56, timeout=120)))
+            long.start()
+            assert blocked.wait(60)
+            sess = threading.Thread(target=lambda: res.__setitem__(
+                "s1", srv.generate(list(range(1, 9)), 2, timeout=120,
+                                   session_id="s1")))
+            sess.start()
+            with srv._cond:
+                assert srv._cond.wait_for(lambda: srv._queue, 60)
+            release.set()
+            sess.join(timeout=120)
+            long.join(timeout=120)
+            assert not sess.is_alive() and not long.is_alive()
+            stats = srv.stats()
+            assert srv.page_ledger()["balanced"]
+        finally:
+            release.set()
+            srv.stop()
+        assert stats["hibernate"]["out"] == 1
+        assert busy_at_sweep == [True]
+        assert res["long"] == _want((5, 6, 7), 56)
+        assert res["s1"] == _want(tuple(range(1, 9)), 2)
 
 
 class TestRestartResume:
@@ -465,7 +605,7 @@ class TestCrossPackageResume:
 # disk faults: every rung recomputes, typed, balanced
 
 
-def _chaos_resume(tmp_path, disk_cfg):
+def _chaos_resume(tmp_path, disk_cfg, stream=False):
     srv = _srv(tmp_path, hibernate_idle_s=0.15)
     hib = _hibernations(srv)
     try:
@@ -477,7 +617,11 @@ def _chaos_resume(tmp_path, disk_cfg):
             chaos_disk(srv._swap, disk_cfg)
             srv._swap.flush_to_disk()
         p2 = out1 + [3, 4]
-        out2 = srv.generate(p2, 6, timeout=120, session_id="s1")
+        if stream:
+            out2 = p2 + list(srv.generate_stream(p2, 6, timeout=120,
+                                                 session_id="s1"))
+        else:
+            out2 = srv.generate(p2, 6, timeout=120, session_id="s1")
         stats = srv.stats()
         assert srv.page_ledger()["balanced"]
     finally:
@@ -494,6 +638,12 @@ class TestDiskChaos:
         ids=["truncated", "bitflipped", "unlinked"])
     def test_a_bad_blob_recomputes(self, tmp_path, cfg):
         stats = _chaos_resume(tmp_path, cfg)
+        assert stats["hibernate"]["corrupt"] == 1
+        assert stats["hibernate"]["in"] == 0
+
+    def test_streamed_resume_never_duplicates(self, tmp_path):
+        stats = _chaos_resume(tmp_path, DiskChaosConfig(flip_writes=(0,)),
+                              stream=True)
         assert stats["hibernate"]["corrupt"] == 1
         assert stats["hibernate"]["in"] == 0
 

@@ -13,6 +13,13 @@ an element near its rounding noise by about lr); MoE with dropped
 tokens within 1e-5 / 5e-5 (the same routing, which pins the global
 capacity and order).  Inside the port, ZeRO-1 equals the replicated
 update bitwise.
+
+Remat on the mesh recomputes the whole block, ring included, as
+``jax.checkpoint(block)`` does: with ``remat`` the trainers match JAX's
+(remat on too) at the tolerances above, the ring's forward runs twice a
+block pair and step (counted by wrapping the plain forward it calls),
+and the bytes autograd keeps grow by about one block boundary a layer
+(counted through `torch.autograd.graph.saved_tensors_hooks`).
 """
 
 import inspect
@@ -26,6 +33,7 @@ import torch
 from deeplearning4j_tpu.parallel import make_mesh as jmesh
 from deeplearning4j_tpu.parallel import transformer as jt
 from deeplearning4j_tpu.parallel.hybrid import HybridParallelTrainer as JHy
+from deeplearning4j_tpu_torch.parallel import kernels as tk
 from deeplearning4j_tpu_torch.parallel import make_mesh as tmesh
 from deeplearning4j_tpu_torch.parallel import transformer as tt
 from deeplearning4j_tpu_torch.parallel.hybrid import (
@@ -224,3 +232,93 @@ def test_indivisible_layouts_raise(kw, shape, batch, match):
     with pytest.raises(ValueError, match=match):
         tr = THy(tt.TransformerConfig(**_cfg(**kw)), tm)
         tr.fit_batch(np.zeros(batch, np.int64), np.zeros(batch, np.int64))
+
+
+# ---------------------------------------------------------------------------
+# remat on the mesh: the whole block, ring included, is recomputed
+
+
+@pytest.mark.parametrize("kw", [
+    dict(attn_bias=True),
+    dict(n_layers=1, n_experts=4, moe_top_k=2, moe_capacity_factor=0.5)],
+    ids=["dense", "moe"])
+def test_remat_on_the_mesh_matches_jax(kw):
+    jl, tl, jtr, ttr = _pair(_cfg(remat=True, **kw), 3)
+    np.testing.assert_allclose(tl, jl, atol=1e-5)
+    _leaves_close(ttr.export_params(), jtr.export_params(), 5e-5)
+
+
+@pytest.mark.parametrize("remat", [True, False])
+def test_ring_forwards_a_step(monkeypatch, remat):
+    """The ring's block pairs a step on (1, 2, 2), causal: each layer runs
+    L dp tp sp (sp + 1) / 2 plain forwards, twice with remat (the
+    forward, then the recompute), and the backward recomputes none."""
+    calls = [0]
+    real = tk.flash_forward_plain
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return real(*a, **k)
+
+    monkeypatch.setattr(tk, "flash_forward_plain", counted)
+    cfg = tt.TransformerConfig(**_cfg(n_layers=3, remat=remat))
+    _, tm = _meshes((1, 2, 2))
+    tr = THy(cfg, tm, lr=0.05, params=tt.numpy_params(cfg, seed=0))
+    tok, tgt = _batch(61)
+    tr.fit_batch(tok, tgt)
+    calls[0] = 0
+    tr.fit_batch(tok, tgt)
+    assert calls[0] == (1 + remat) * 3 * 1 * 2 * (2 * 3 // 2)
+
+
+def _kept_bytes(monkeypatch, n_layers, remat):
+    """The bytes autograd keeps for the backward of one mesh `lm_loss` on
+    (1, 2, 2), batch 4 x 16: the distinct storages of the tensors that
+    pass through the saved-tensor hooks, less the parameters' (the
+    masters and the shard copies `_shard_params` made, which every
+    layer's products save either way).  Also one block boundary: every
+    local shard's block input ``[b, S / sp, d]``."""
+    cfg = tt.TransformerConfig(**_cfg(n_layers=n_layers, remat=remat))
+    params = tt.params_from_numpy(tt.numpy_params(cfg, seed=0),
+                                  device="cpu")
+    for leaf in tree_leaves(params):
+        leaf.requires_grad_(True)
+    copies = []
+    real = tt._shard_params
+
+    def spy(*a):
+        copies.append(real(*a))
+        return copies[-1]
+
+    monkeypatch.setattr(tt, "_shard_params", spy)
+    kept = {}
+
+    def pack(t):
+        st = t.untyped_storage()
+        kept[st.data_ptr()] = st.nbytes()
+        return t
+
+    _, tm = _meshes((1, 2, 2))
+    tok, tgt = _batch(61)
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        loss = tt.lm_loss(cfg, params, tok, tgt, tm)
+    own = {t.untyped_storage().data_ptr() for t in tree_leaves(params)}
+    for sp in copies:
+        for tree in sp.values():
+            own |= {t.untyped_storage().data_ptr()
+                    for t in tree_leaves(tree)}
+    loss.backward()                 # the kept graph is a working one
+    boundary = 4 * 4 * (16 // 2) * cfg.d_model * 4
+    return sum(n for p, n in kept.items() if p not in own), boundary
+
+
+def test_remat_keeps_only_block_boundaries(monkeypatch):
+    """With remat, two more layers keep at most 1.25 boundaries each;
+    without it, at least 4 each (q, k, v, o, the norms, the MLP)."""
+    grow = {}
+    for remat in (True, False):
+        two, boundary = _kept_bytes(monkeypatch, 2, remat)
+        four, _ = _kept_bytes(monkeypatch, 4, remat)
+        grow[remat] = (four - two) / 2
+    assert grow[True] <= 1.25 * boundary, (grow, boundary)
+    assert grow[False] >= 4 * boundary, (grow, boundary)

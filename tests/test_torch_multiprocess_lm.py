@@ -11,7 +11,9 @@ over a mesh of 2 host shards a process, in one job:
   (1, 4, 1) and (1, 1, 4), so that each axis in turn crosses the process
   boundary (the ring over ``seq``, the ``model`` sums, the ``data``
   gradient sums and ZeRO-1 slices); Adam with ZeRO-1 and replicated;
-  MoE over (1, 1, 4) and (1, 2, 2) with dropped tokens;
+  MoE over (1, 1, 4) and (1, 2, 2) with dropped tokens; dense and MoE
+  over (1, 2, 2) with remat, whose backward recomputes each block, ring
+  and exchanges included, in the same order on both processes;
 - `PipelineParallelTrainer` over (data, stage) = (1, 4) and (2, 2);
 - `make_accum_train_step` over a (4,) data mesh;
 - the ring alone (`ring_flash_attention`, `ring_attention`), causal and
@@ -200,9 +202,9 @@ def test_one_process_matches_jax_on_four_devices(one_process, jax_runs,
 def test_each_process_runs_its_own_block_pairs(job, one_process, case):
     """The ring's flash block pairs (B2's forward, B3 / B4's backward,
     plain on the host) run where their query block lives: a causal ring
-    block at seq position j runs j + 1 pairs a layer and step, once (the
-    ring is not recomputed), and the processes' counts add up to the one
-    process's."""
+    block at seq position j runs j + 1 pairs a layer and step, the
+    forward once more with remat (the block is recomputed, ring
+    included), and the processes' counts add up to the one process's."""
     _, shape, _, _ = w.LM_CASES[case]
     cfg = w.lm_config(case)
     sp = shape[1]
@@ -211,7 +213,7 @@ def test_each_process_runs_its_own_block_pairs(job, one_process, case):
     for rank, got in enumerate(counts):
         want = w.LM_STEPS * cfg.n_layers * sum(per_shard[2 * rank:
                                                          2 * rank + 2])
-        assert got == {"fwd": want, "bwd": want}
+        assert got == {"fwd": (1 + cfg.remat) * want, "bwd": want}
     assert {k: sum(c[k] for c in counts) for k in ("fwd", "bwd")} == \
         one_process[case][2]
 

@@ -218,6 +218,8 @@ LM_CASES = {
                                           shard_update=False)),
     "moe_1x1x4": ("hybrid", (1, 1, 4), LM_MOE, {}),
     "moe_1x2x2": ("hybrid", (1, 2, 2), LM_MOE, {}),
+    "hybrid_remat_1x2x2": ("hybrid", (1, 2, 2), dict(remat=True), {}),
+    "moe_remat_1x2x2": ("hybrid", (1, 2, 2), dict(LM_MOE, remat=True), {}),
     "pipeline_1x4": ("pipeline", (1, 4), LM_PIPE, dict(n_microbatches=4)),
     "pipeline_2x2": ("pipeline", (2, 2), LM_PIPE, dict(n_microbatches=2)),
     "pipeline_adam_replicated_2x2": ("pipeline", (2, 2), LM_PIPE,
