@@ -4,7 +4,9 @@
   Prometheus text exposition (``GET /metrics`` of the LM front and of
   `MetricsServer`);
 - `trace`: request ids, spans, the bounded `TraceRecorder` ring behind
-  ``GET /trace/recent`` and Chrome trace-event export;
+  ``GET /trace/recent`` and Chrome trace-event export on the profiler's
+  clock, and the span store of the serving round and the LM train step
+  (`obs.trace.spans`, read by the benchmark and `runtime.profiler`);
 - `telemetry`: `TrainingTelemetry`, the training listener behind
   ``train -metrics-port``;
 - `http`: `MetricsServer`, the standalone training endpoint;

@@ -40,12 +40,14 @@ stages other processes hold.
 
 from __future__ import annotations
 
+import time
 from typing import Callable, List, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from deeplearning4j_tpu_torch.obs.trace import new_span_id, record_span
 from deeplearning4j_tpu_torch.ops.updaters import (
     UpdaterConfig,
     apply_updates,
@@ -60,6 +62,7 @@ from deeplearning4j_tpu_torch.parallel.pipeline import (
     gpipe_apply,
     zero1_flat_update,
 )
+from deeplearning4j_tpu_torch.runtime.profiler import DeviceIntervals
 from deeplearning4j_tpu_torch.tree import flatten_tree, map_tree, tree_leaves
 
 
@@ -110,18 +113,31 @@ def make_accum_train_step(cfg: tfm.TransformerConfig, lr: float = 1e-3,
     for the JAX step over a sharded batch.  Over a mesh that spans
     processes each process passes the same parameters and global batch
     and runs its own shards' rows; the gradients meet across processes
-    in shard order, so every process applies the same update."""
+    in shard order, so every process applies the same update.
+
+    Spans (the span store of `obs.trace`): each step records
+    ``train.step`` (count: `accum`) and ``train.update`` inside it (the
+    gradient division, the updater's transform, `apply_updates`; tagged
+    with its device interval on the card, the stream's time from the
+    update's first op to its last, read lazily); the single-device path
+    also records, a microbatch, ``train.forward`` (with ``train.cast``,
+    the compute-dtype copy, inside it) and ``train.backward``."""
     compute_dtype = tfm.torch_dtype(cfg.dtype)
     transform = make_updater(UpdaterConfig(
         updater=updater, learning_rate=lr, clip_norm=clip_norm,
         weight_decay=weight_decay, epsilon=1e-8, lr_schedule=lr_schedule))
+    intervals = DeviceIntervals()
+
+    def cast(p32):
+        return (_cast_floating(p32, compute_dtype)
+                if compute_dtype != torch.float32 else p32)
 
     def loss_fn(p32, tok, tgt):
-        p = (_cast_floating(p32, compute_dtype)
-             if compute_dtype != torch.float32 else p32)
-        return tfm.lm_loss(cfg, p, tok, tgt)
+        return tfm.lm_loss(cfg, cast(p32), tok, tgt)
 
     def step(params, opt_state, tokens, targets):
+        t_step = time.perf_counter_ns()
+        sid = new_span_id()
         tokens = torch.as_tensor(tokens)
         targets = torch.as_tensor(targets)
         if tokens.shape[0] % accum:
@@ -140,15 +156,32 @@ def make_accum_train_step(cfg: tfm.TransformerConfig, lr: float = 1e-3,
             grads, loss = _spmd_grads(mesh, loss_fn, params, tok_mb, tgt_mb)
         else:
             for i in range(accum):
-                l = loss_fn(params, tok_mb[i], tgt_mb[i])
+                t_fwd = time.perf_counter_ns()
+                fwd = new_span_id()
+                low = cast(params)
+                t_cast = time.perf_counter_ns()
+                l = tfm.lm_loss(cfg, low, tok_mb[i], tgt_mb[i])
+                del low
+                t_bwd = time.perf_counter_ns()
+                record_span("train.cast", t_fwd, t_cast, 0, fwd)
+                record_span("train.forward", t_fwd, t_bwd, fwd, sid)
                 l.backward()
                 loss = loss + l.detach().float()
+                record_span("train.backward", t_bwd,
+                            time.perf_counter_ns(), 0, sid)
+        t_update = time.perf_counter_ns()
+        interval = intervals.start(dev)
+        if mesh is None:
             grads = map_tree(lambda p: p.grad / accum if accum > 1
                              else p.grad, params)
             for p in leaves:
                 p.grad = None
         updates, opt_state = transform.update(grads, opt_state, params)
         apply_updates(params, updates)
+        intervals.stop(interval, dev)
+        t_end = time.perf_counter_ns()
+        record_span("train.update", t_update, t_end, 0, sid, (), interval)
+        record_span("train.step", t_step, t_end, sid, 0, (accum,))
         return params, opt_state, loss / accum
 
     return step, transform.init

@@ -97,6 +97,21 @@ an ``xla_compile`` span for each program built inside its decode window)
 under its request id; with ``registry`` the pool's metric cells publish
 under ``plane="lm"``.
 
+Spans (the span store of `obs.trace`, on unless switched off): each
+scheduling round that dispatches records ``serve.round`` (counts: the
+pool id, the width, the lanes fed, the tokens fed, ``kv_pages`` — the
+pages paged attention reads a layer, the sum over the fed lanes of
+``ceil((pos + n_feed) / page_size)`` — the page size and ``qk_pairs``,
+the causal query-key pairs of the fed columns) and, back to back inside
+it, ``serve.admit`` (with ``serve.lock``, the wait for the pool lock),
+``serve.stage`` (installs, copy-on-write copies, drafts and the input
+fill), ``serve.launch`` (the step call: input copies and the graph
+replay), ``serve.wait`` (the round's one host sync) and
+``serve.commit`` (the token fold, streams, finished lanes, metrics).
+Each install records the request's ``serve.queue`` span, enqueue to
+install (the interval ``serving_queue_wait_seconds`` observes), tagged
+with its request id.
+
 Programs: every device step is a `runtime.programs.Program` built once
 and replayed (a CUDA graph on the card, sharing one graph memory pool):
 the paged program at each width (``lm:paged[w{W}]``), the dense one
@@ -127,7 +142,10 @@ from deeplearning4j_tpu_torch.obs.compilewatch import (
 from deeplearning4j_tpu_torch.obs.registry import MetricsRegistry
 from deeplearning4j_tpu_torch.obs.trace import (
     TraceRecorder,
+    new_pool_id,
     new_request_id,
+    new_span_id,
+    record_span,
     span,
     trace,
 )
@@ -459,6 +477,7 @@ class ContinuousLMServer:
         self._slots = [_Slot() for _ in range(self.n_slots)]
         self._steps = 0
         self._width_dispatches: Dict[int, int] = {}
+        self._span_pool = new_pool_id()
 
     # ---- client side ------------------------------------------------------
 
@@ -1372,6 +1391,7 @@ class ContinuousLMServer:
         ``self._cond``."""
         slot.req = req
         req.t_installed = time.perf_counter()
+        self._record_queue_span(req)
         req.prefix_matched = plan["matched"]
         slot.generated = []
         slot.fed = plan["matched"]
@@ -1493,6 +1513,7 @@ class ContinuousLMServer:
                 slot.req = self._queue.popleft()
                 self._advance_wfq_locked(slot.req)
                 slot.req.t_installed = time.perf_counter()
+                self._record_queue_span(slot.req)
                 slot.pos = 0
                 slot.fed = 0
                 slot.generated = []
@@ -1510,6 +1531,29 @@ class ContinuousLMServer:
         if self._pool is not None:
             self.metrics.set_pages(self._pool.in_use, self._pool.free,
                                    self.kv_pages)
+
+    def _record_queue_span(self, req: _LMRequest) -> None:
+        record_span("serve.queue", round(req.enqueued * 1e9),
+                    round(req.t_installed * 1e9),
+                    counts=(self._span_pool,), tag=req.request_id)
+
+    def _record_round(self, marks, t_launch: int, t_wait: int,
+                      t_commit: int, counts: tuple) -> None:
+        """The round's span and its phases, back to back: `marks` holds
+        the round's start, the pool lock's acquisition and the end of
+        admission."""
+        t_round, t_locked, t_stage = marks
+        t_end = time.perf_counter_ns()
+        sid = new_span_id()
+        admit = new_span_id()
+        record_span("serve.lock", t_round, t_locked, 0, admit)
+        record_span("serve.admit", t_round, t_stage, admit, sid)
+        record_span("serve.stage", t_stage, t_launch, 0, sid)
+        record_span("serve.launch", t_launch, t_wait, 0, sid)
+        record_span("serve.wait", t_wait, t_commit, 0, sid)
+        record_span("serve.commit", t_commit, t_end, 0, sid)
+        record_span("serve.round", t_round, t_end, sid, 0,
+                    (self._span_pool,) + counts)
 
     def _advance_wfq_locked(self, req: _LMRequest) -> None:
         """Move the WFQ virtual clock as a request takes a lane, so an
@@ -1790,7 +1834,9 @@ class ContinuousLMServer:
             finally:
                 warm.set()
             return True
+        t_round = time.perf_counter_ns()
         with self._cond:
+            t_locked = time.perf_counter_ns()
             self._admit_locked()
             active = [s for s in self._slots if s.active]
             if not active:
@@ -1800,6 +1846,7 @@ class ContinuousLMServer:
             # the ladder moves only inside _admit_locked: one level a round
             level = (self._pressure.level if self._pressure is not None
                      else 0)
+        marks = (t_round, t_locked, time.perf_counter_ns())
         if self.breaker is not None and not self.breaker.allow_dispatch():
             # open breaker: fail the lanes in flight fast rather than
             # spend dispatches on a failing device
@@ -1821,10 +1868,10 @@ class ContinuousLMServer:
                         s.req = None
             return True
         if self.kv == "dense":
-            return self._dispatch_dense(active)
-        return self._dispatch_paged(active, cow, installs, level)
+            return self._dispatch_dense(active, marks)
+        return self._dispatch_paged(active, cow, installs, level, marks)
 
-    def _dispatch_dense(self, active) -> bool:
+    def _dispatch_dense(self, active, marks) -> bool:
         """One 1-wide dispatch of the dense slot pool: a lane in prefill
         is teacher-forced one prompt token, a decoding lane feeds its
         last sample."""
@@ -1843,13 +1890,16 @@ class ContinuousLMServer:
             temp[i] = req.temperature
             seeds[i] = req.seed
             counts[i] = len(slot.generated)
+        t_launch = time.perf_counter_ns()
         with compile_scope("lm:dense"):
             nxt, k, v = self._step(self.params, *self._cache, pos, token,
                                    temp, seeds, counts)
+        t_wait = time.perf_counter_ns()
         if self.breaker is not None:
             self.breaker.record_success()
         self._cache = (k, v)
         nxt = nxt.cpu().numpy()    # the round's one host sync
+        t_commit = time.perf_counter_ns()
         self._steps += 1
         self._width_dispatches[1] = self._width_dispatches.get(1, 0) + 1
         emitted = 0
@@ -1869,6 +1919,11 @@ class ContinuousLMServer:
         self.metrics.record_dispatch(len(active), self.n_slots)
         if emitted:
             self.metrics.record_tokens(emitted)
+        # the dense cache has no pages; each lane's one column attends
+        # over pos + 1 keys
+        self._record_round(marks, t_launch, t_wait, t_commit,
+                           (1, len(active), len(active), 0, 0,
+                            int(pos.sum()) + len(active)))
         return True
 
     def _draft_proposals(self) -> Dict[int, List[int]]:
@@ -1928,7 +1983,8 @@ class ContinuousLMServer:
         req.export_result = ex
         self._finish_slot(slot)
 
-    def _dispatch_paged(self, active, cow, installs, level: int = 0) -> bool:
+    def _dispatch_paged(self, active, cow, installs, level: int,
+                        marks) -> bool:
         # shipped, restored and resumed pages land first (their lanes'
         # next feed reads them), then the copy-on-write pages: a CoW
         # admitted in the same round may diverge from an installed page
@@ -1973,6 +2029,8 @@ class ContinuousLMServer:
         seeds = np.zeros((self.n_slots,), np.int32)
         counts = np.zeros((self.n_slots,), np.int32)
         table = np.zeros((self.n_slots, self.max_pages), np.int32)
+        ps = self.page_size
+        kv_pages = pairs = 0
         for i, slot in enumerate(self._slots):
             if not slot.active:
                 continue
@@ -1996,15 +2054,21 @@ class ContinuousLMServer:
             seeds[i] = req.seed
             counts[i] = len(slot.generated)
             table[i] = slot.table
+            f, p = int(n_feed[i]), slot.pos
+            kv_pages += -(-(p + f) // ps)
+            pairs += f * p + f * (f + 1) // 2
+        t_launch = time.perf_counter_ns()
         with compile_scope(f"lm:paged[w{width}]"):
             nxt, acc, k, v = self._step(self.params, *self._cache, table,
                                         pos, n_feed, n_draft, tokens, temp,
                                         seeds, counts)
+        t_wait = time.perf_counter_ns()
         if self.breaker is not None:
             self.breaker.record_success()
         # the round's one host sync: next tokens and accepted counts
         both = torch.stack([nxt.to(torch.int32),
                             acc.to(torch.int32)]).cpu().numpy()
+        t_commit = time.perf_counter_ns()
         nxt, acc = both[0], both[1]
         self._cache = (k, v)
         self._steps += 1
@@ -2050,6 +2114,9 @@ class ContinuousLMServer:
             self.metrics.record_tokens(emitted)
         self.metrics.set_pages(self._pool.in_use, self._pool.free,
                                self.kv_pages)
+        self._record_round(marks, t_launch, t_wait, t_commit,
+                           (width, int(np.count_nonzero(n_feed)),
+                            int(n_feed.sum()), kv_pages, ps, pairs))
         return True
 
     def _run(self) -> None:

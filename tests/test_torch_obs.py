@@ -28,6 +28,7 @@ from deeplearning4j_tpu.models import zoo as jzoo
 from deeplearning4j_tpu.runtime import fused as jfused
 from deeplearning4j_tpu.serving.metrics import ServingMetrics as JMetrics
 from deeplearning4j_tpu_torch import obs as tobs
+from deeplearning4j_tpu_torch.obs.trace import to_epoch_ns
 from deeplearning4j_tpu_torch.models import MultiLayerNetwork as TNet
 from deeplearning4j_tpu_torch.models import params_from_numpy
 from deeplearning4j_tpu_torch.nn import conf as tconf
@@ -169,7 +170,15 @@ def test_trace_ring_and_chrome_trace_match():
         a, b = dict(a), dict(b)
         assert abs(a.pop("wall_time") - b.pop("wall_time")) < 60
         assert a == b
-    assert tobs.chrome_trace(ours) == jobs.chrome_trace(theirs)
+    # the port's events sit on the profiler's clock: the JAX package's
+    # perf_counter microseconds moved by the clock anchor's offset
+    shift_us = to_epoch_ns(0) / 1e3
+    got, want = tobs.chrome_trace(ours), jobs.chrome_trace(theirs)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        g, w = dict(g), dict(w)
+        assert g.pop("ts") == pytest.approx(w.pop("ts") + shift_us, abs=1)
+        assert g == w
     rings = [mod.TraceRecorder(capacity=3) for mod in (tobs, jobs)]
     for ring, traces in zip(rings, (ours, theirs)):
         for tr in traces[:4]:

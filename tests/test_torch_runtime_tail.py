@@ -321,9 +321,10 @@ def test_trace_writes_a_chrome_trace_with_the_span(tmp_path):
         assert d == logdir
         with tprof.annotate("matmul-span"):
             torch.ones(32, 32) @ torch.ones(32, 32)
-    files = os.listdir(logdir)
-    assert len(files) == 1 and files[0].endswith(".json")
-    events = json.loads((tmp_path / "prof" / files[0]).read_text())
+    files = sorted(os.listdir(logdir))
+    assert len(files) == 2 and files[0] == "attribution.json"
+    assert files[1].startswith("trace-") and files[1].endswith(".json")
+    events = json.loads((tmp_path / "prof" / files[1]).read_text())
     names = {e.get("name") for e in events["traceEvents"]}
     assert "matmul-span" in names
 
